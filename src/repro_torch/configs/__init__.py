@@ -1,0 +1,14 @@
+"""Registry of the configs the port runs (``get(name)``)."""
+from .base import ModelConfig
+from . import qwen1p5_0p5b
+
+ALL = {
+    "qwen1.5-0.5b": qwen1p5_0p5b.CONFIG,
+}
+
+
+def get(name: str) -> ModelConfig:
+    if name not in ALL:
+        raise KeyError(f"unknown or not yet ported arch {name!r}; "
+                       f"ported: {sorted(ALL)}")
+    return ALL[name]

@@ -1,0 +1,81 @@
+"""Model configs for the port (counterpart of ``repro.configs.base``).
+
+A ``ModelConfig`` describes one architecture. The port runs dense
+attention + MLP stacks only, so the config carries the fields that family
+reads; field names and defaults match the reference, so one set of
+``replace(...)`` keywords builds the same model in both packages.
+
+The layer stack is ``head_layers + pattern * n_units + tail_layers``; the
+repeated pattern units are stored stacked on a leading ``n_units`` axis.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense (the only family ported)
+    d_model: int
+    vocab_size: int
+
+    # --- layer stack -----------------------------------------------------
+    pattern: Tuple[str, ...] = ("attn_mlp",)
+    n_units: int = 1
+    head_layers: Tuple[str, ...] = ()
+    tail_layers: Tuple[str, ...] = ()
+
+    # --- attention -------------------------------------------------------
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    logit_softcap: float = 0.0
+
+    # --- mlp ---------------------------------------------------------------
+    d_ff: int = 0
+    act: str = "swiglu"
+    norm: str = "rms"                # rms | layer
+
+    # --- misc ----------------------------------------------------------------
+    prefix_lm: bool = False
+    tie_embeddings: bool = False
+    max_seq_len: int = 8192
+    dtype: str = "float32"           # compute dtype
+    precision: Optional[str] = None  # store precision preset; None -> fp32
+    default_particles: int = 1
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def n_layers(self) -> int:
+        return (len(self.head_layers) + self.n_units * len(self.pattern)
+                + len(self.tail_layers))
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def smoke(self) -> "ModelConfig":
+        """Reduced variant for CPU tests: same layer kinds, tiny dims (the
+        reference's ``smoke()`` restricted to the fields ported here)."""
+        nh = min(self.n_heads, 4) if self.n_heads else 0
+        return self.replace(
+            name=self.name + "-smoke",
+            d_model=min(self.d_model, 128),
+            n_heads=nh,
+            n_kv_heads=max(1, min(self.n_kv_heads, nh)) if nh else 0,
+            head_dim=32 if nh else 0,
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            n_units=min(self.n_units, 2 if len(self.pattern) == 1 else 1),
+            head_layers=self.head_layers[:1],
+            tail_layers=self.tail_layers[:1],
+            max_seq_len=256,
+            default_particles=1,
+        )

@@ -1,0 +1,25 @@
+"""The NN a particle wraps (counterpart of ``repro.core.particle``).
+
+This slice ports ``ParticleModule`` only: particles live as slots of the
+PushDistribution's ParticleStore, and actor messaging (``Particle.send`` /
+``get``, the NEL) waits for a later slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+
+class ParticleModule:
+    """Bundle of functions defining the NN a particle wraps.
+
+    ``init(generator) -> params`` draws one particle's parameter tree on
+    ``generator.device``; ``loss`` and ``forward`` are carried for the
+    training and classification paths of later slices; ``cfg`` is the
+    model config serving reads."""
+
+    def __init__(self, init: Callable, loss: Optional[Callable] = None,
+                 forward: Optional[Callable] = None, cfg: Any = None):
+        self.init = init
+        self.loss = loss
+        self.forward = forward
+        self.cfg = cfg

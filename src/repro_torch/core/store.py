@@ -1,0 +1,314 @@
+"""ParticleStore: the single source of truth for per-particle state.
+
+Counterpart of ``repro.core.store`` on one device (the mesh ``Placement``,
+subset views and fused slot cloning wait for later slices).
+
+  * canonical form — one *stacked* tree per state key ("params",
+    "kv_pages", ...) with a leading particle axis, on ``device``;
+  * derived form — per-particle *views* (``leaf[slot]``, no copy) with
+    dirty-tracked write-back.
+
+Elastic lifecycle (DESIGN.md §9): the store allocates by **capacity, not
+count**. Stacked trees are padded to a power-of-two ``capacity``; each
+live particle owns a *slot*, freed slots go on a free list, and
+``active_mask()`` (shape ``(capacity,)``, 1.0 at live slots) tells fused
+steps which rows are real. ``generation()`` bumps only on capacity growth
+or a key seen for the first time, never on churn within capacity.
+
+Consistency protocol (all transitions under one lock):
+
+  write(pid)       -> row cached + marked dirty; shadows the stacked row
+  stacked()        -> flush: dirty rows copied into the stacked tensors in
+                      place, or a full restack padded to capacity (free
+                      slots zero) when no canonical stacked exists
+  checkout()       -> flush + move ownership to the caller, who updates
+                      the tensors (in place, for the paged KV pool) and
+                      must ``commit`` them back
+  commit(stacked)  -> the caller's tree becomes canonical
+
+Unlike the reference's immutable arrays, a flush writes into the stacked
+tensors in place: a consumer holding the stacked tree sees the new rows.
+Serving steps and store churn are serialized by the scheduler's
+``step_lock``.
+"""
+from __future__ import annotations
+
+import heapq
+import threading
+from typing import Any, Dict, List, Optional, Set
+
+import torch
+
+from .precision import get as _resolve_precision
+from .tree import tree_leaves, tree_map
+
+
+def _pow2_at_least(n: int) -> int:
+    cap = 1
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def _leading(tree) -> Optional[int]:
+    leaves = [x for x in tree_leaves(tree) if x is not None]
+    return leaves[0].shape[0] if leaves else None
+
+
+def _pad(tree, n: int):
+    """Append n zero rows on the leading axis of every leaf."""
+    return tree_map(lambda x: torch.cat(
+        [x, x.new_zeros((n,) + tuple(x.shape[1:]))]), tree)
+
+
+class ParticleStore:
+    """Canonical holder of all per-particle state of one PushDistribution.
+
+    ``capacity`` preallocates slots (rounded up to a power of two) so the
+    first ``capacity`` registrations never bump ``generation()``; 0 grows
+    on demand (1, 2, 4, ... — one generation bump per doubling)."""
+
+    def __init__(self, capacity: int = 0, precision=None, device=None):
+        self.device = torch.device("cuda" if device is None else device)
+        self.precision = _resolve_precision(precision)
+        self.capacity = _pow2_at_least(capacity) if capacity > 0 else 0
+        self._slot_of: Dict[int, int] = {}
+        self._free: List[int] = list(range(self.capacity))   # min-heap
+        self._activated: Set[int] = set()       # slots with data landed
+        self._checkout_cohort: Dict[str, Any] = {}  # key -> (cap, slots)
+        self._stacked: Dict[str, Any] = {}
+        self._rows: Dict[str, Dict[int, Any]] = {}
+        self._dirty: Dict[str, Set[int]] = {}
+        self._present: Dict[str, Set[int]] = {}
+        self._lock = threading.RLock()
+        self._gen = 0
+        self._versions: Dict[str, int] = {}
+        self._mask_cache: Optional[torch.Tensor] = None
+        self.stats = {"stacks": 0, "row_flushes": 0, "commits": 0,
+                      "checkouts": 0, "mask_invalidations": 0,
+                      "capacity_growths": 0}
+
+    # -- registry / slot allocation ------------------------------------------
+    @property
+    def pids(self) -> List[int]:
+        """Live pids in slot order."""
+        with self._lock:
+            return [pid for pid, _ in
+                    sorted(self._slot_of.items(), key=lambda kv: kv[1])]
+
+    def register(self, pid: int) -> int:
+        """Allocate a slot for ``pid`` (a freed one when possible; grow to
+        the next power of two — a generation bump — only when full). The
+        slot goes live in ``active_mask()`` when its first data lands."""
+        with self._lock:
+            if pid in self._slot_of:
+                raise ValueError(f"pid {pid} already registered")
+            if not self._free:
+                self._grow(_pow2_at_least(self.capacity + 1))
+            slot = heapq.heappop(self._free)
+            self._slot_of[pid] = slot
+            for _, cohort_slots in self._checkout_cohort.values():
+                cohort_slots.discard(slot)
+            return slot
+
+    def unregister(self, pid: int) -> int:
+        """Free ``pid``'s slot; the stale row stays in the stacked tensors,
+        masked out, so unregister never restacks or bumps the generation."""
+        with self._lock:
+            slot = self._slot_of.pop(pid)   # KeyError for unknown pid
+            heapq.heappush(self._free, slot)
+            self._activated.discard(slot)
+            for present in self._present.values():
+                present.discard(slot)
+            for rows in self._rows.values():
+                rows.pop(slot, None)
+            for dirty in self._dirty.values():
+                dirty.discard(slot)
+            self._invalidate_mask()
+            return slot
+
+    def _grow(self, new_capacity: int):
+        """Pad every stacked tree to the new capacity (lock held) — the one
+        lifecycle operation that changes stacked shapes."""
+        old, self.capacity = self.capacity, new_capacity
+        for s in range(old, new_capacity):
+            heapq.heappush(self._free, s)
+        for key, st in list(self._stacked.items()):
+            self._stacked[key] = _pad(st, new_capacity - old)
+        self._gen += 1
+        self.stats["capacity_growths"] += 1
+        self._invalidate_mask()
+
+    # -- active mask / versions ----------------------------------------------
+    def _invalidate_mask(self):
+        self._mask_cache = None
+        self.stats["mask_invalidations"] += 1
+
+    def active_mask(self) -> torch.Tensor:
+        """``(capacity,)`` float32 mask on the store's device, 1.0 at
+        activated slots; cached between lifecycle events."""
+        with self._lock:
+            if self._mask_cache is None:
+                m = torch.zeros(self.capacity, dtype=torch.float32)
+                m[sorted(self._activated)] = 1.0
+                self._mask_cache = m.to(self.device)
+            return self._mask_cache
+
+    def snapshot(self, key: str):
+        """(version, active mask, canonical stacked tree), read atomically."""
+        with self._lock:
+            return ((self._gen, self._versions.get(key, 0)),
+                    self.active_mask(), self._flush(key))
+
+    def version(self, key: str):
+        """Token that changes whenever ``key``'s canonical content could."""
+        with self._lock:
+            return (self._gen, self._versions.get(key, 0))
+
+    def generation(self) -> int:
+        """Bumps only on capacity growth or a new state key."""
+        with self._lock:
+            return self._gen
+
+    def _bump(self, key: str):
+        self._versions[key] = self._versions.get(key, 0) + 1
+
+    def _mark_present(self, key: str, slot: int):
+        present = self._present.get(key)
+        if present is None:
+            present = self._present[key] = set()
+            if key not in self._stacked:
+                self._gen += 1      # key-schema change
+        present.add(slot)
+        if slot not in self._activated:
+            self._activated.add(slot)
+            self._invalidate_mask()
+
+    # -- per-particle views --------------------------------------------------
+    def _read_slot(self, key: str, slot: int):
+        rows = self._rows.get(key, {})
+        if slot in rows:
+            return rows[slot]
+        st = self._stacked.get(key)
+        if st is None or slot not in self._present.get(key, ()):
+            raise KeyError(f"store has no {key!r} in slot {slot}")
+        return tree_map(lambda x: x[slot], st)
+
+    def read(self, key: str, pid: int):
+        """View of one particle's entry (no copy)."""
+        with self._lock:
+            return self._read_slot(key, self._slot_of[pid])
+
+    def write(self, key: str, pid: int, tree):
+        """Write-back: the row shadows the stacked entry until the next
+        flush. Leaves move to the store's device."""
+        tree = tree_map(lambda x: x.to(self.device), tree)
+        with self._lock:
+            slot = self._slot_of[pid]
+            self._mark_present(key, slot)
+            self._rows.setdefault(key, {})[slot] = tree
+            self._dirty.setdefault(key, set()).add(slot)
+            self._bump(key)
+
+    # -- canonical stacked form ----------------------------------------------
+    def _flush(self, key: str):
+        """Make the capacity-padded stacked tree canonical (lock held)."""
+        st = self._stacked.get(key)
+        dirty = self._dirty.get(key, set())
+        cap = self.capacity
+        if st is not None and _leading(st) == cap:
+            rows = self._rows.get(key, {})
+            for slot in sorted(dirty):
+                tree_map(lambda s, r, slot=slot: s[slot].copy_(r), st,
+                         rows.pop(slot))
+            self.stats["row_flushes"] += len(dirty)
+        else:
+            present = sorted(self._present.get(key, ()))
+            if not present:
+                raise KeyError(key)
+            rows = {s: self._read_slot(key, s) for s in present}
+            template = rows[present[0]]
+            st = tree_map(
+                lambda t, *rs: torch.stack(list(rs)),
+                template, *[rows.get(s) if s in rows
+                            else tree_map(torch.zeros_like, template)
+                            for s in range(cap)])
+            self._rows.pop(key, None)     # rows are views of st from now on
+            self.stats["stacks"] += 1
+        self._stacked[key] = st
+        self._dirty[key] = set()
+        return st
+
+    def stacked(self, key: str):
+        """The canonical capacity-padded stacked tree (flushing first);
+        consumers combine it with ``active_mask()``."""
+        with self._lock:
+            return self._flush(key)
+
+    def checkout(self, key: str):
+        """Flush and hand the stacked tree to the caller, who must
+        ``commit`` it (or its update) back."""
+        with self._lock:
+            st = self._flush(key)
+            self.stats["checkouts"] += 1
+            self._bump(key)
+            self._checkout_cohort[key] = (
+                self.capacity, set(self._present.get(key, ())))
+            self._stacked.pop(key, None)
+            self._rows.pop(key, None)
+            self._dirty.pop(key, None)
+            return st
+
+    def commit(self, key: str, stacked):
+        """``stacked`` becomes canonical for ``key``. After a checkout it
+        covers the slots checked out (padded if the store grew meanwhile);
+        a direct commit speaks for every live slot."""
+        with self._lock:
+            cohort = self._checkout_cohort.pop(key, None)
+            n = cohort[0] if cohort is not None else self.capacity
+            if _leading(stacked) != n:
+                raise ValueError(f"stacked {key!r} has leading dim "
+                                 f"{_leading(stacked)}, expected {n}")
+            self.stats["commits"] += 1
+            self._bump(key)
+            if cohort is None:
+                if key not in self._present and key not in self._stacked:
+                    self._gen += 1     # key-schema change
+                self._stacked[key] = stacked
+                for slot in self._slot_of.values():
+                    self._mark_present(key, slot)
+                self._rows.pop(key, None)
+                self._dirty.pop(key, None)
+                return
+            co_cap, co_slots = cohort
+            if co_cap < self.capacity:
+                stacked = _pad(stacked, self.capacity - co_cap)
+            self._stacked[key] = stacked
+            self._present.setdefault(key, set()).update(
+                co_slots & set(self._slot_of.values()))
+            rows = self._rows.get(key, {})
+            dirty = self._dirty.get(key, set())
+            for slot in co_slots:
+                rows.pop(slot, None)
+                dirty.discard(slot)
+
+    # -- introspection -------------------------------------------------------
+    def key_dtypes(self, key: str) -> Dict[str, int]:
+        """{dtype name: leaf count} of ``key``'s resident state."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            tree = self._stacked.get(key)
+            if tree is None:
+                rows = self._rows.get(key, {})
+                tree = next(iter(rows.values()), None)
+            for leaf in tree_leaves(tree) if tree is not None else ():
+                name = str(leaf.dtype).replace("torch.", "")
+                out[name] = out.get(name, 0) + 1
+        return out
+
+    def nbytes(self, key: str) -> int:
+        """Bytes of ``key``'s canonical stacked state (0 if none)."""
+        with self._lock:
+            tree = self._stacked.get(key)
+            return 0 if tree is None else sum(
+                x.numel() * x.element_size() for x in tree_leaves(tree))

@@ -1,0 +1,128 @@
+"""Build and load the hand-written CUDA kernels (plain C interface, ctypes).
+
+Each ``csrc/<name>.cu`` compiles on first use with ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into one shared library under
+``build/repro_torch_kernels/`` at the root of the checkout; an installed
+copy of the package, with no checkout around it, builds under
+``$REPRO_TORCH_BUILD_DIR`` or else the user's cache directory. The library
+name carries a hash of the source, so an edited kernel never loads a stale
+build, and a finished build is reused by later processes. ``build_all()``
+starts one ``nvcc`` per source at once; ``load(name)`` returns the loaded
+``ctypes.CDLL``.
+
+Nothing here runs at import: the CPU test suite imports every module on a
+machine with no ``nvcc`` and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+
+
+def _build_dir() -> Path:
+    root = Path(__file__).resolve().parents[3]      # <root>/src/repro_torch
+    if (root / "pyproject.toml").exists() and (root / "src").is_dir():
+        return root / "build" / "repro_torch_kernels"
+    if os.environ.get("REPRO_TORCH_BUILD_DIR"):
+        return Path(os.environ["REPRO_TORCH_BUILD_DIR"])
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "repro_torch_kernels"
+
+
+BUILD_DIR = _build_dir()
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[str]:
+    """Names of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
+             else shutil.which("nvcc"))
+    if not found or not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when an up-to-date build exists."""
+    lib = _lib_path(name)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp, lib
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, lib = started
+    log, _ = proc.communicate()
+    (BUILD_DIR / f"{name}.log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, lib)         # atomic: a concurrent builder sees all or none
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every kernel source in parallel (one nvcc each); returns
+    {name: library path}. Raises if any build fails."""
+    with _lock:
+        started = {n: _start(n) for n in sources()}
+        errors = []
+        for name, st in started.items():
+            if st is None:
+                continue
+            try:
+                _finish(name, st)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return {n: str(_lib_path(n)) for n in started}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with ptxas register / shared-memory use) of the last
+    build of ``name`` in this checkout; empty if it was never built here."""
+    path = BUILD_DIR / f"{name}.log"
+    return path.read_text() if path.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it first if
+    needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        started = _start(name)
+        if started is not None:
+            _finish(name, started)
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _loaded[name] = lib
+        return lib

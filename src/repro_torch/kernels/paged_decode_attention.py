@@ -1,0 +1,111 @@
+"""Paged single-token decode attention: the CUDA kernel's wrapper.
+
+The kernel (``csrc/paged_decode_attention.cu``) replaces the Pallas TPU
+kernel ``repro.kernels.paged_decode_attention.paged_decode_attention``.
+The reference vmaps that kernel over the ParticleStore's capacity axis; a
+CUDA launch cannot be vmapped, so here the particle axis is explicit:
+
+    q            (P, B, H, hd)            fp32 or bf16
+    k/v_pages    (P, NP, ps, KVH, hd)     fp32 or bf16 (a particle-strided
+                                          view is fine: the inner four dims
+                                          must be contiguous)
+    block_tables (B, n_pmax) int32        shared by all particles
+    seq_lens     (B,) int32               last valid position, -1 inactive
+    -> (P, B, H, hd), dtype of q; inactive rows are exact zeros.
+
+The wrapper takes CUDA tensors only and raises on anything else; the CPU
+goes through ``kernels.ops``, which sends CPU tensors to the plain version
+in ``kernels.ref``. ``paged_decode_attention.launches`` counts the kernel
+launches of this process.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from . import build
+        fn = build.load("paged_decode_attention").paged_decode_attention
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k_pages, v_pages, block_tables, seq_lens):
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables), ("seq_lens", seq_lens)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
+                             f"got {t.device}")
+    if q.dim() != 4 or k_pages.dim() != 5:
+        raise ValueError(f"q must be (P, B, H, hd) and pages (P, NP, ps, "
+                         f"KVH, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k_pages.shape)}")
+    P, B, H, hd = q.shape
+    _, NP, ps, KVH, hd_kv = k_pages.shape
+    if k_pages.shape != v_pages.shape or k_pages.shape[0] != P \
+            or hd_kv != hd or H % KVH:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE \
+            or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"dtypes must be float32 or bfloat16 with k and v "
+                         f"alike; got q {q.dtype}, k {k_pages.dtype}, "
+                         f"v {v_pages.dtype}")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise ValueError("block_tables and seq_lens must be int32")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"block_tables must be ({B}, n_pmax) and seq_lens "
+                         f"({B},); got {tuple(block_tables.shape)}, "
+                         f"{tuple(seq_lens.shape)}")
+    # the kernel indexes pages as contiguous past the particle axis; the
+    # stride of a size-1 dim is never used, so views may carry any there
+    inner = (ps * KVH * hd, KVH * hd, hd, 1)
+    for t in (k_pages, v_pages):
+        if any(n > 1 and s != want for n, s, want in
+               zip(t.shape[1:], t.stride()[1:], inner)):
+            raise ValueError("k/v pages must be contiguous past the "
+                             "particle axis")
+    if P > 1 and k_pages.stride(0) != v_pages.stride(0):
+        raise ValueError("k and v pages must share one particle stride")
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
+    """Launch the CUDA kernel (shapes in the module docstring)."""
+    _check(q, k_pages, v_pages, block_tables, seq_lens)
+    q = q.contiguous()
+    block_tables = block_tables.contiguous()
+    seq_lens = seq_lens.contiguous()
+    P, B, H, hd = q.shape
+    _, NP, ps, KVH, _ = k_pages.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                P, B, H, KVH, hd, NP, ps, block_tables.shape[1],
+                k_pages.stride(0), _DTYPE_CODE[q.dtype],
+                _DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: "
+                           f"cudaError {rc}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,231 @@
+"""Core NN blocks over an explicit leading particle axis.
+
+Counterpart of ``repro.models.blocks`` for the paged decode path. The
+reference writes each block for one particle and vmaps it over the
+ParticleStore's stacked axis; here every function takes the stacked form
+directly: parameter leaves carry a leading particle axis ``P`` and
+activations are ``(P, B, S, ...)``. Weights keep the reference's
+``(d_in, d_out)`` layout, so a stacked matmul is one batched GEMM
+``(P, N, d_in) @ (P, d_in, d_out)``.
+
+Token-level inputs (tokens, positions, block tables, seq_lens) are shared
+by all particles and carry no ``P`` axis.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops as _kops
+from ..kernels import ref as _kref
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# init (one particle; ``lead`` prepends axes such as the stacked n_units)
+# --------------------------------------------------------------------------
+
+def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False,
+               scale: float = 1.0, lead=()):
+    w = torch.randn(tuple(lead) + (d_in, d_out), generator=gen,
+                    device=gen.device) * (scale / math.sqrt(d_in))
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros(tuple(lead) + (d_out,), device=gen.device)
+    return p
+
+
+def norm_init(kind: str, d: int, *, device, lead=()):
+    p = {"scale": torch.ones(tuple(lead) + (d,), device=device)}
+    if kind != "rms":
+        p["bias"] = torch.zeros(tuple(lead) + (d,), device=device)
+    return p
+
+
+def attn_init(gen, cfg, lead=()):
+    hd = cfg.hd
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd,
+                         bias=cfg.qkv_bias, lead=lead),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd,
+                         bias=cfg.qkv_bias, lead=lead),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd,
+                         bias=cfg.qkv_bias, lead=lead),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, lead=lead),
+    }
+
+
+def mlp_init(gen, cfg, lead=()):
+    if cfg.act != "swiglu":
+        raise NotImplementedError(f"the port runs swiglu MLPs, not {cfg.act}")
+    return {"wi": dense_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
+            "wg": dense_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
+            "wo": dense_init(gen, cfg.d_ff, cfg.d_model, lead=lead)}
+
+
+# --------------------------------------------------------------------------
+# apply
+# --------------------------------------------------------------------------
+
+def _per_particle(v, x):
+    """(P, d) vector broadcast against x of shape (P, ..., d)."""
+    return v.reshape(v.shape[0], *([1] * (x.dim() - 2)), v.shape[-1])
+
+
+def dense_apply(p, x):
+    """x (P, ..., d_in) @ w (P, d_in, d_out) [+ b (P, d_out)]."""
+    w = p["w"].to(x.dtype)
+    P, d_in = x.shape[0], x.shape[-1]
+    x3 = x.reshape(P, -1, d_in)
+    if "b" in p:
+        y = torch.baddbmm(p["b"].to(x.dtype)[:, None, :], x3, w)
+    else:
+        y = torch.bmm(x3, w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def norm_apply(p, x, *, eps: float = 1e-6):
+    """RMSNorm (or LayerNorm when the params carry a bias), in fp32."""
+    xf = x.float()
+    if "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, unbiased=False, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * _per_particle(p["scale"], x) \
+            + _per_particle(p["bias"], x)
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * _per_particle(p["scale"], x)
+    return y.to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """Half-split RoPE. x (P, B, S, H, hd); positions (B, S) or (S,)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions.float()[..., :, None] * freq             # (..., S, half)
+    ang = ang[..., :, None, :]                               # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def attn_qkv(p, x, cfg, positions):
+    """x (P, B, S, D) -> q (P, B, S, H, hd), k/v (P, B, S, KVH, hd)."""
+    P, B, S, _ = x.shape
+    hd = cfg.hd
+    q = dense_apply(p["wq"], x).reshape(P, B, S, cfg.n_heads, hd)
+    k = dense_apply(p["wk"], x).reshape(P, B, S, cfg.n_kv_heads, hd)
+    v = dense_apply(p["wv"], x).reshape(P, B, S, cfg.n_kv_heads, hd)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def causal_attention(q, k, v):
+    """Plain masked-softmax causal attention for prefill.
+    q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd)."""
+    P, B, S, H, hd = q.shape
+    KVH = k.shape[3]
+    qq = q.float().reshape(P, B, S, KVH, H // KVH, hd) / math.sqrt(hd)
+    s = torch.einsum("pbqngh,pbknh->pbngqk", qq, k.float())
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~causal, NEG_INF)
+    o = torch.einsum("pbngqk,pbknh->pbqngh", torch.softmax(s, dim=-1),
+                     v.float())
+    return o.reshape(P, B, S, H, hd).to(q.dtype)
+
+
+def paged_attention(q, k_pages, v_pages, *, block_tables, seq_lens,
+                    use_kernel: bool = True):
+    """Decode attention over a paged KV pool. q (P, B, H, hd); pages
+    (P, NP, ps, KVH, hd). ``use_kernel=False`` takes the plain version on
+    any device (parity checks); the kernel path is the serve hot spot."""
+    if use_kernel:
+        return _kops.paged_decode_attention(q, k_pages, v_pages,
+                                            block_tables, seq_lens)
+    return _kref.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                        seq_lens)
+
+
+def paged_write_index(block_tables, seq_lens, page_size: int):
+    """(rows, page, slot) of this step's KV writes: the active rows only.
+
+    The reference scatters every row and lets the inactive ones drop as
+    out of range (``mode="drop"``); torch has no dropping scatter, so the
+    active rows are selected first. Computed once per decode step and
+    shared by every layer (``nonzero`` syncs the host once)."""
+    rows = torch.nonzero(seq_lens >= 0).squeeze(1)
+    pos = seq_lens[rows].long()
+    page = block_tables[rows, pos // page_size].long()
+    return rows, page, pos % page_size
+
+
+def attn_apply_paged(p, x, cfg, pages, *, block_tables, seq_lens,
+                     write_index=None, use_kernel: bool = True):
+    """One continuous-batching decode step for one attention layer.
+
+    x (P, B, 1, D); pages {"k", "v"}: (P, NP, ps, KVH, hd), updated IN
+    PLACE (the reference donates the pool; here the step writes its one
+    new K/V row per active sequence into the pool tensors themselves, so
+    no pool of several GB is copied per step). seq_lens (B,) is the
+    absolute position of the token in x; rows with seq_lens < 0 write
+    nothing and return zeros. Returns (out (P, B, 1, D), pages)."""
+    if cfg.logit_softcap > 0.0:
+        raise NotImplementedError("paged decode does not support logit softcap")
+    P, B = x.shape[:2]
+    q, k, v = attn_qkv(p, x, cfg, seq_lens[:, None]
+                       if cfg.rope_theta > 0 else None)
+    if write_index is None:
+        write_index = paged_write_index(block_tables, seq_lens,
+                                        pages["k"].shape[2])
+    rows, page, slot = write_index
+    kp, vp = pages["k"], pages["v"]
+    kp[:, page, slot] = k[:, rows, 0].to(kp.dtype)
+    vp[:, page, slot] = v[:, rows, 0].to(vp.dtype)
+    out = paged_attention(q[:, :, 0], kp, vp, block_tables=block_tables,
+                          seq_lens=seq_lens, use_kernel=use_kernel)
+    out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))
+    return out, pages
+
+
+def attn_apply_prefill_paged(p, x, cfg, pages, *, block_table_row,
+                             n_tokens: int):
+    """Prompt prefill for ONE sequence into the page pool.
+
+    x (P, 1, Sp, D) prompt embeddings padded to a shape bucket; n_tokens
+    real tokens. Causal attention over the padded prompt (the real
+    positions never see the padding), then the K/V rows of the real
+    positions go into the sequence's pages, in place. Returns
+    (out (P, 1, Sp, D), pages)."""
+    P, B, Sp, _ = x.shape
+    positions = torch.arange(Sp, device=x.device)
+    q, k, v = attn_qkv(p, x, cfg,
+                       positions if cfg.rope_theta > 0 else None)
+    out = causal_attention(q, k, v)
+    out = dense_apply(p["wo"], out.reshape(P, B, Sp, -1))
+    ps = pages["k"].shape[2]
+    pos = positions[:n_tokens]
+    page = block_table_row[pos // ps].long()
+    pages["k"][:, page, pos % ps] = k[:, 0, :n_tokens].to(pages["k"].dtype)
+    pages["v"][:, page, pos % ps] = v[:, 0, :n_tokens].to(pages["v"].dtype)
+    return out, pages
+
+
+def attn_pages_init(cfg, num_pages: int, page_size: int, *, dtype, device,
+                    lead=()):
+    shape = tuple(lead) + (num_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def mlp_apply(p, x, cfg):
+    """SwiGLU: wo(silu(wg x) * wi x)."""
+    h = F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x)
+    return dense_apply(p["wo"], h)

@@ -1,0 +1,117 @@
+"""Serving engines over the ParticleStore (counterpart of
+``repro.serve.engine``: ``PagedDecodeEngine`` and the ``PredictiveEngine``
+parts it uses).
+
+The reference compiles each serving step once through its ProgramCache;
+the port runs each step eagerly over the store's stacked particle axis —
+every particle in one batched pass per layer, the BMA heads and greedy
+sampling reduced on the device, one small device-to-host copy of the
+heads per step.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from ..core.store import ParticleStore
+from ..runtime.specs import paged_decode_step, paged_prefill
+from . import uncertainty
+
+
+class PredictiveEngine:
+    """Posterior-predictive core over a ParticleStore: serves the stacked
+    ``key`` tree (cached between store commits by the store's version)
+    with the store's active mask."""
+
+    def __init__(self, *, store: ParticleStore, key: str = "params",
+                 kind: str = "classify"):
+        self.store = store
+        self.key = key
+        self.kind = kind
+        self._params_version: Any = None
+        self._params_cache: Any = None
+        self.stats = {"calls": 0, "param_refreshes": 0}
+
+    def _mask_and_params(self):
+        """Consistent (mask, stacked params) pair: one atomic store
+        snapshot, so a mask bit never goes live before its slot's data."""
+        v, mask, stacked = self.store.snapshot(self.key)
+        if v != self._params_version:
+            self._params_cache, self._params_version = stacked, v
+            self.stats["param_refreshes"] += 1
+        return mask, self._params_cache
+
+    def snapshot_stats(self) -> Dict[str, int]:
+        return dict(self.stats)
+
+
+class PagedDecodeEngine(PredictiveEngine):
+    """Continuous-batching LM decode core over the paged KV pool.
+
+      decode_step(packed)   one token for every active row: params and
+                            pages stacked over the particle axis, BMA +
+                            greedy sampling on the device, pages updated in
+                            place;
+      prefill(packed)       admit one sequence: prompt prefill into its
+                            pages + the first sampled token.
+
+    The pages tree lives in the store under ``pages_key`` and crosses each
+    call by checkout/commit. Packed inputs follow ``runtime.specs``:
+    decode ships ``(B, 2 + n_pmax)`` int32, prefill ``(Sp + n_pmax + 1,)``
+    int32 — one host-to-device copy per call.
+    """
+
+    def __init__(self, decode_fn: Callable, prefill_fn: Callable, *,
+                 store: ParticleStore, n_pmax: int, key: str = "params",
+                 pages_key: str = "kv_pages"):
+        super().__init__(store=store, key=key, kind="classify")
+        self.decode_fn = decode_fn
+        self.prefill_fn = prefill_fn
+        self.pages_key = pages_key
+        self.n_pmax = n_pmax
+        self._decode = paged_decode_step(decode_fn, self._reduce)
+        self._prefill = paged_prefill(prefill_fn, self._reduce,
+                                      n_pmax=n_pmax)
+
+    def _reduce(self, member_logits, mask):
+        """BMA heads + greedy token from member logits (P, B, V)."""
+        heads = uncertainty.predictive_heads(member_logits, self.kind, mask)
+        mean = heads["mean"]                            # (B, V) BMA probs
+        token = mean.argmax(-1)
+        logprob = torch.log(mean.gather(-1, token[:, None])[:, 0] + 1e-12)
+        return {"token": token.to(torch.int32), "logprob": logprob,
+                "entropy": heads["entropy"],
+                "mutual_info": heads["mutual_info"]}
+
+    def kv_page_info(self) -> Dict[str, Any]:
+        """Dtype histogram and resident bytes of the page pool."""
+        return {"key": self.pages_key,
+                "dtypes": self.store.key_dtypes(self.pages_key),
+                "bytes": self.store.nbytes(self.pages_key)}
+
+    def _run_paged(self, fused, packed):
+        self.stats["calls"] += 1
+        mask, params = self._mask_and_params()
+        pages = self.store.checkout(self.pages_key)
+        try:
+            heads, pages = fused(params, pages,
+                                 torch.from_numpy(packed).to(self.store.device),
+                                 mask)
+        finally:
+            # the pool is updated in place: the tree handed back is the one
+            # checked out, so the key stays present even after a failure
+            self.store.commit(self.pages_key, pages)
+        return heads
+
+    def decode_step(self, packed):
+        """packed: (B, 2 + n_pmax) int32 host array — [tokens, seq_lens,
+        block tables]; rows with seq_len -1 are inactive (their heads are
+        garbage — mask downstream). Returns the heads on the device."""
+        return self._run_paged(self._decode, packed)
+
+    def prefill(self, packed):
+        """packed: (Sp + n_pmax + 1,) int32 host array — [prompt tokens
+        padded to the Sp bucket, block table row, n_tokens]. Returns heads
+        for the first generated token (leading axis 1)."""
+        return self._run_paged(self._prefill, packed)

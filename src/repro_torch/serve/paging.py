@@ -1,0 +1,121 @@
+"""Paged KV-cache pool over the particle axis (DESIGN.md §10).
+
+Counterpart of ``repro.serve.paging``. The device side is ONE
+ParticleStore key (``"kv_pages"``): every attention layer's K/V state
+lives in a fixed pool of fixed-size pages — per particle,
+``(num_pages, page_size, KVH, hd)`` per layer — stacked over the store's
+capacity axis like params. Decode steps update the pool in place.
+
+The host side is a free-page allocator plus per-sequence block tables, so
+page allocation and reclaim are pure host metadata: handing a page from a
+finished sequence to a new one changes two Python lists and the next
+step's block-table upload, never the device tree.
+
+Block-table conventions (shared with kernels/paged_decode_attention.py):
+rows are ``(max_seq_pages,)`` int32, logical page i of a sequence at
+entry i, unused entries 0 (in bounds, masked by seq_len).
+"""
+from __future__ import annotations
+
+import threading
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.tree import tree_map
+
+
+def create_kv_pages(store, make_pages: Callable, *, key: str = "kv_pages",
+                    dtype=None):
+    """Install the stacked page pool as a store key.
+
+    ``make_pages(device=...)`` builds ONE particle's page tree (e.g. a partial
+    of ``models.api.paged_cache_init``); it is called on the ``meta``
+    device for shapes only, and the pool is allocated once, zeroed, with
+    the store's capacity as leading axis. ``dtype=`` overrides the storage
+    dtype of every floating page leaf. This is the one generation bump of
+    the paged path (a new key) — do it before serving warmup."""
+    shapes = make_pages(device=torch.device("meta"))
+
+    def alloc(s):
+        dt = dtype if dtype is not None and s.dtype.is_floating_point \
+            else s.dtype
+        return torch.zeros((store.capacity,) + tuple(s.shape), dtype=dt,
+                           device=store.device)
+
+    store.commit(key, tree_map(alloc, shapes))
+    return key
+
+
+class PagePool:
+    """Host-side free-page allocator + per-sequence page lists.
+
+    Thread-safe; never touches the device. ``alloc`` returns None rather
+    than blocking when the pool is dry — the scheduler turns that into
+    admission backpressure or preemption."""
+
+    def __init__(self, num_pages: int, page_size: int, max_seq_pages: int):
+        if num_pages < 1 or page_size < 1 or max_seq_pages < 1:
+            raise ValueError("num_pages, page_size, max_seq_pages must be >= 1")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_seq_pages = max_seq_pages
+        self._lock = threading.Lock()
+        self._free: deque = deque(range(num_pages))
+        self._owned: Dict[int, List[int]] = {}      # seq id -> page ids
+        self.stats = {"allocs": 0, "releases": 0, "alloc_failures": 0,
+                      "peak_used": 0}
+
+    def alloc(self, seq_id: int, n: int = 1) -> Optional[List[int]]:
+        """Append ``n`` pages to ``seq_id``'s list; None if the pool has
+        fewer than ``n`` free pages or the sequence would exceed
+        ``max_seq_pages`` (callers treat both as backpressure)."""
+        with self._lock:
+            owned = self._owned.setdefault(seq_id, [])
+            if len(self._free) < n or len(owned) + n > self.max_seq_pages:
+                self.stats["alloc_failures"] += 1
+                return None
+            got = [self._free.popleft() for _ in range(n)]
+            owned.extend(got)
+            self.stats["allocs"] += n
+            used = self.num_pages - len(self._free)
+            if used > self.stats["peak_used"]:
+                self.stats["peak_used"] = used
+            return got
+
+    def release(self, seq_id: int) -> int:
+        """Return all of ``seq_id``'s pages to the free list."""
+        with self._lock:
+            pages = self._owned.pop(seq_id, [])
+            self._free.extend(pages)
+            self.stats["releases"] += len(pages)
+            return len(pages)
+
+    def pages_of(self, seq_id: int) -> List[int]:
+        with self._lock:
+            return list(self._owned.get(seq_id, ()))
+
+    def fill_block_row(self, seq_id: int, out: np.ndarray):
+        """Write ``seq_id``'s block table into ``out`` (max_seq_pages,)
+        in place — unused tail stays 0 (in bounds, masked by seq_len)."""
+        with self._lock:
+            pages = self._owned.get(seq_id, ())
+            out[:len(pages)] = pages
+            out[len(pages):] = 0
+
+    @property
+    def free_pages(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.num_pages - self.free_pages
+
+    def snapshot_stats(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.stats, num_pages=self.num_pages,
+                        page_size=self.page_size, free_pages=len(self._free),
+                        used_pages=self.num_pages - len(self._free))

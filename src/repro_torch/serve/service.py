@@ -1,0 +1,138 @@
+"""Continuous-batching LM decode front-end (counterpart of
+``repro.serve.service``: ``serve_decode`` and ``DecodeService``; the
+classification ``serve`` waits for a later slice).
+
+    svc = serve_decode(pd, cfg, num_pages=256, page_size=16)
+    gen = svc.generate(prompt_ids, max_new=32)       # Generation
+    h   = svc.generate_async(ids, max_new=8)         # streaming handle
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from ..core.messages import PFuture
+from ..models import api as models_api
+from ..obs import clock
+from .batcher import DecodeScheduler, Generation
+from .engine import PagedDecodeEngine
+from .paging import PagePool, create_kv_pages
+
+
+def percentile(xs: List[float], q: float) -> float:
+    """Linear-interpolated percentile (q in [0, 100]); 0.0 on empty input."""
+    return float(np.percentile(xs, q)) if len(xs) else 0.0
+
+
+class PendingGeneration:
+    """Async handle: resolves to a ``Generation`` when the sequence
+    retires (eos or max_new)."""
+
+    __slots__ = ("_future",)
+
+    def __init__(self, future: PFuture):
+        self._future = future
+
+    def done(self) -> bool:
+        return self._future.done()
+
+    def result(self, timeout: Optional[float] = None) -> Generation:
+        return self._future.wait(timeout)
+
+
+class DecodeService:
+    """``serve_decode(pd, ...)`` handle: streaming generate over the
+    continuous-batching DecodeScheduler. Sequences join the running decode
+    grid at the next step."""
+
+    def __init__(self, scheduler: DecodeScheduler):
+        self.scheduler = scheduler
+        self.engine = scheduler.engine
+        self.pool = scheduler.pool
+        self._t_start = clock.now()
+
+    def generate_async(self, prompt, *, max_new: int,
+                       eos_id: Optional[int] = None) -> PendingGeneration:
+        """Enqueue one prompt (token id list/array); returns immediately."""
+        return PendingGeneration(
+            self.scheduler.submit(prompt, max_new=max_new, eos_id=eos_id))
+
+    def generate(self, prompt, *, max_new: int, eos_id: Optional[int] = None,
+                 timeout: Optional[float] = None) -> Generation:
+        """Synchronous single-sequence generate (enqueue + wait)."""
+        return self.generate_async(prompt, max_new=max_new,
+                                   eos_id=eos_id).result(timeout)
+
+    def stats(self) -> Dict[str, Any]:
+        lat = self.scheduler.latencies_s()
+        sstats = self.scheduler.snapshot_stats()
+        elapsed = max(clock.now() - self._t_start, 1e-9)
+        return {
+            **sstats,
+            "engine": self.engine.snapshot_stats(),
+            "latency_p50_ms": percentile(lat, 50) * 1e3,
+            "latency_p95_ms": percentile(lat, 95) * 1e3,
+            "latency_p99_ms": percentile(lat, 99) * 1e3,
+            "tokens_per_s": sstats["generated_tokens"] / elapsed,
+        }
+
+    def close(self):
+        self.scheduler.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
+                 max_active: int = 8, max_seq_pages: Optional[int] = None,
+                 eos_id: Optional[int] = None, max_queue: int = 256,
+                 cache_dtype=None,
+                 pages_key: str = "kv_pages", warmup: bool = True,
+                 warmup_buckets=()) -> DecodeService:
+    """Turn a PushDistribution holding an LM ensemble into a
+    continuous-batching posterior-predictive decode service.
+
+    Installs the paged KV pool as a store key on the PD's device, builds
+    the host PagePool, and wires the PagedDecodeEngine behind a
+    DecodeScheduler. ``max_seq_pages`` bounds one sequence's block table
+    (defaults to the config's max_seq_len, clamped to the pool).
+    ``cache_dtype`` (e.g. ``torch.bfloat16``) sets the page storage dtype;
+    None takes the PD precision's ``kv_dtype``, then the model's default.
+    Decode attention runs the CUDA kernel on the card and its plain version
+    on the CPU (``kernels.ops``). ``warmup=True`` runs one masked
+    decode step (plus one prefill per pow2 bucket in ``warmup_buckets``)
+    before the first request.
+    """
+    cfg = cfg if cfg is not None else getattr(pd.module, "cfg", None)
+    if cfg is None:
+        raise ValueError("pass cfg= (the module carries none)")
+    if cache_dtype is None:
+        cache_dtype = pd.precision.kv
+    if max_seq_pages is None:
+        max_seq_pages = -(-cfg.max_seq_len // page_size)
+    n_pmax = min(max_seq_pages, num_pages)
+
+    def decode_fn(params, pages, tokens, block_tables, seq_lens):
+        return models_api.decode_step_paged(params, tokens, pages,
+                                            block_tables, seq_lens, cfg)
+
+    def prefill_fn(params, pages, tokens, block_table_row, n_tokens):
+        return models_api.prefill_paged(params, tokens, pages,
+                                        block_table_row, n_tokens, cfg)
+
+    create_kv_pages(pd.store, functools.partial(
+        models_api.paged_cache_init, cfg, num_pages=num_pages,
+        page_size=page_size, dtype=cache_dtype), key=pages_key)
+    pool = PagePool(num_pages, page_size, max_seq_pages=n_pmax)
+    engine = PagedDecodeEngine(decode_fn, prefill_fn, store=pd.store,
+                               n_pmax=n_pmax, pages_key=pages_key)
+    scheduler = DecodeScheduler(engine, pool, max_active=max_active,
+                                eos_id=eos_id, max_queue=max_queue)
+    if warmup:
+        scheduler.warmup(warmup_buckets)
+    return DecodeService(scheduler)

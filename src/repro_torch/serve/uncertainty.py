@@ -1,0 +1,57 @@
+"""Predictive heads computed on the device inside the serving step
+(counterpart of ``repro.serve.uncertainty``, classification heads).
+
+For member outputs = logits (P, B, C), with the store's (P,) active mask
+weighting live slots only:
+
+  mean            BMA predictive distribution p̄ = mean over live i of softmax(z_i)
+  entropy         H[p̄]                       — total predictive uncertainty
+  expected_entropy mean over live i of H[p_i] — aleatoric part
+  mutual_info     H[p̄] − E_i H[p_i]          — epistemic part (BALD)
+  variance        mean_c Var_i[p_i(c)]       — particle disagreement
+"""
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-12
+
+
+def predictive_entropy(mean_probs):
+    """H[p̄] in nats, (B, C) -> (B,)."""
+    return -(mean_probs * torch.log(mean_probs + EPS)).sum(-1)
+
+
+def _mask_stats(x, mask):
+    """Mean/variance over the leading particle axis restricted to live
+    slots. Dead rows are zeroed with ``where`` (NaN in a padding slot can
+    never leak); the divisor is the live count."""
+    m = mask.reshape(mask.shape[0], *([1] * (x.dim() - 1))) > 0
+    live = mask.float().sum().clamp(min=1.0)
+    mean = torch.where(m, x, 0.0).sum(0) / live
+    var = torch.where(m, (x - mean) ** 2, 0.0).sum(0) / live
+    return mean, var
+
+
+def predictive_heads(member_outputs, kind: str = "classify", mask=None):
+    """All heads from one stacked member-output tensor (P, B, C); returns
+    a dict of tensors with leading batch axis B. ``mask`` is the store's
+    (P,) active mask (None = every member live)."""
+    if kind != "classify":
+        raise NotImplementedError(f"kind {kind!r} is not ported")
+    x = member_outputs.float()
+    if mask is None:
+        mask = torch.ones(x.shape[0], device=x.device)
+    probs = torch.softmax(x, dim=-1)                  # (P, B, C)
+    logp = torch.log_softmax(x, dim=-1)
+    member_ent = -(probs * logp).sum(-1)              # (P, B)
+    mean, pvar = _mask_stats(probs, mask)
+    exp_ent, _ = _mask_stats(member_ent, mask)
+    ent = predictive_entropy(mean)
+    return {
+        "mean": mean,
+        "variance": pvar.mean(-1),
+        "entropy": ent,
+        "expected_entropy": exp_ent,
+        "mutual_info": (ent - exp_ent).clamp(min=0.0),
+    }

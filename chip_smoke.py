@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phase 0  builds every CUDA kernel under src/repro_torch/kernels/csrc from
          the checkout (one nvcc per source, all started together).
-Phase 1  holds each kernel against its plain PyTorch version on the card:
+Phase 1  holds the paged-attention kernel against its plain PyTorch version:
          the tests/test_paged.py sweep with a particle axis of 2 and NaN in
          every stale slot, plus the qwen1.5-0.5b serving shape, with fp32
          and bf16 pages, both within 1e-4 (the two sides widen the same
@@ -24,6 +24,45 @@ Phase 2  drives serve_decode over P=4 full-width qwen1.5-0.5b particles
          freshly prefilled rows runs through the kernel and through the
          plain version; their BMA mean probabilities must agree within
          1e-4 of the largest probability, their member logits within 1e-3.
+
+Phase 3  holds the four SVGD and SWAG kernels against their plain versions
+         on the card: the tests/test_kernels.py sweeps, dense and masked
+         with NaN in the dead rows (sqdist 1e-3 absolute, force 2e-4
+         relative, moments and diag_std 1e-5; dead rows of phi exact
+         zeros, dead SWAG rows unchanged), then the training shape of 8
+         ViT-MNIST particles x 19,775,360 parameters (sqdist within 1e-5
+         of its largest entry: distances there are ~1e5; the force also
+         with g = 0, since its repulsive term is ~1e-6 of the driving
+         term at this D and would otherwise go unseen). Then it times
+         each kernel, its plain version and, for sqdist, torch.cdist
+         (library_ms, never called by the port) at the training shape with
+         the L2 flushed before each call.
+Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
+         weights from seed 0, batches of 64 from the seeded loader, 8 per
+         epoch): SteinVGD for 2 epochs with the median heuristic, then
+         MultiSWAG with Adam for 3 epochs collecting after the first
+         (max_rank 20), then serves the MultiSWAG posterior predictive
+         with 4 draws per particle on 64 images from seed 1. Losses and
+         heads must be finite and the launch counts exact (one sqdist and
+         one force per SVGD step, one moments launch per leaf per
+         collection, one diag_std launch per leaf per predictive call).
+         One SVGD force on the same stacked theta, g and mask through the
+         kernels and the plain path must agree within 2e-4 relative, with
+         the trained g and with g = 0; one more SWAG collection of the
+         trained state at the path's per-leaf shapes (its 20-slot ring,
+         its slots and mask) through the kernel and the plain version,
+         each on its own clone of the ring, within 1e-5 for mean', sq'
+         and the ring; and the predictive heads with kernel-made and
+         plain-made diag_std within 1e-5 given the same noise. It prints
+         ms per step and images/s from a profiled window of 3 steps of
+         each, with device busy time, idle share, top kernels and the
+         four kernels' share, and the peak device memory. The MultiSWAG
+         windows run after the predictive, so it serves the state of the
+         driven run (24 steps, 2 collections).
+
+Every launch count in the kernels line comes from a driven run (phase 2's
+serving, phase 4's SVGD, MultiSWAG and predictive runs), with the counts
+set to 0 just before it and read just after.
 
 Output: one JSON object per line (phase results, then the kernels line), the
 card's name and power limit as nvidia-smi prints them, and last
@@ -230,6 +269,7 @@ def decode_parity(torch, pd, cfg, reqs, n_pmax):
         profile = profile_steps(torch, lambda: uncertainty.predictive_heads(
             api.decode_step_paged(params, tok, pages, bt, sl, cfg)[0],
             mask=mask))
+        profile["rows"] = MAX_ACTIVE
     finally:
         store.commit("kv_pages", pages)
     d_logits = float((out[True][0] - out[False][0]).abs().max())
@@ -243,10 +283,10 @@ def decode_parity(torch, pd, cfg, reqs, n_pmax):
             "max_mean_prob": p_max}, profile
 
 
-def profile_steps(torch, step, n=5):
-    """Host-clock time of one decode step over MAX_ACTIVE live rows (model
-    + BMA heads, synchronised as the scheduler's heads copy is), then the
-    device's busy time per step by kernel name from torch.profiler."""
+def profile_steps(torch, step, n=5, track=()):
+    """Host-clock time of one synchronised ``step()``, then the device's
+    busy time per step by kernel name from torch.profiler, and the share
+    of device time spent in kernels whose names contain one of ``track``."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
@@ -271,11 +311,18 @@ def profile_steps(torch, step, n=5):
             per_kernel[e.key] = us / n / 1e3
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": n, "rows": MAX_ACTIVE, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms if busy_ms else "not measured",
-            "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
-            "kernels": len(per_kernel),
-            "top_kernels_ms": {k[:80]: v for k, v in top}}
+    out = {"steps": n, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms if busy_ms else "not measured",
+           "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
+           "kernels": len(per_kernel),
+           "top_kernels_ms": {k[:80]: v for k, v in top}}
+    if track:
+        mine = {t: sum(v for k, v in per_kernel.items() if t in k)
+                for t in track}
+        out["tracked_ms"] = mine
+        out["tracked_share"] = (sum(mine.values()) / busy_ms if busy_ms
+                                else "not measured")
+    return out
 
 
 def phase2(torch, cfg, reqs):
@@ -331,6 +378,458 @@ def phase2(torch, cfg, reqs):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 3-4: SVGD and MultiSWAG training of ViT-MNIST particles
+# --------------------------------------------------------------------------
+
+TRAIN_P = 8                      # configs/vit_mnist.py default_particles
+TRAIN_D = 19_775_360             # parameters per ViT-MNIST particle
+SQDIST_SWEEP = [(2, 16), (4, 100), (8, 5000), (64, 12345), (3, 7)]
+FORCE_SWEEP = [(4, 100, 1.0), (8, 5000, 1.3), (16, 50000, 0.7), (3, 7, 2.0)]
+OURS = ("sqdist_partial_kernel", "sqdist_reduce_kernel", "svgd_force_kernel",
+        "moments_kernel", "diag_std_kernel")
+
+
+def rows_case(torch, seed, n, D, dead=(), scale=0.05):
+    """theta, grads (n, D) on the card and a mask, NaN in the dead rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randn((n, D), generator=gen, device="cuda") * scale
+    g = torch.randn((n, D), generator=gen, device="cuda")
+    if not dead:
+        return t, g, None
+    m = torch.ones(n, device="cuda")
+    m[list(dead)] = 0.0
+    t[m == 0] = float("nan")
+    g[m == 0] = float("nan")
+    return t, g, m
+
+
+def rel_err(got, want):
+    """Largest absolute difference over the largest |want| (which must be
+    positive: a zero reference would make any kernel pass)."""
+    top = float(want.abs().max())
+    if not top > 0.0:
+        raise AssertionError("the plain version's output is all zeros")
+    return float((got - want).abs().max()) / top
+
+
+def plain_force(theta, g, ell, mask=None):
+    """The SVGD force from the plain versions, past the kernels' dispatch."""
+    from repro_torch.bdl.svgd import rbf_glue
+    from repro_torch.kernels import ref
+    sq = ref.pairwise_sqdist(theta, mask)
+    return ref.svgd_force(theta, g, *rbf_glue(sq, ell, mask), mask)
+
+
+def moments_parity(torch, state, params, mask):
+    """One SWAG collection at the path's per-leaf shapes (its ring depth,
+    its slots, its mask) through the kernel and the plain version on the
+    same inputs, each writing its own clone of the leaf's ring; nothing
+    is written back. Returns the largest difference of mean', sq' and the
+    ring over all leaves."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import ref, swag_moments
+    means = tree_flatten(state["mean"], sort_keys=True)[0]
+    sqs, devs, thetas = (tree_flatten(t, sort_keys=True)[0] for t in
+                         (state["sq_mean"], state["dev"], params))
+    n, R = state["n"], devs[0].shape[1]
+    slot = (state["rank"] % R).to(torch.int32)
+    err = 0.0
+    for m, s, t, d in zip(means, sqs, thetas, devs):
+        t = t.contiguous()
+        ring_k, ring_p = d.clone(), d.clone()
+        got = swag_moments.moments(m, s, t, n, mask, ring_k, slot)
+        want = ref.swag_moments(m, s, t, n, mask, ring_p, slot)
+        err = max([err] + [float((a - b).abs().max()) for a, b in
+                           zip(got + (ring_k,), want + (ring_p,))])
+        del ring_k, ring_p, got, want
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "leaves": len(means), "max_rank": R,
+            "slots": sorted(set(slot.tolist()))}
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase3(torch):
+    """The four SVGD/SWAG kernels against their plain versions on the card
+    (sweeps, masked cases with NaN in dead rows, the training shape), then
+    timed at the training shape with the L2 flushed."""
+    from repro_torch.bdl.svgd import rbf_glue
+    from repro_torch.kernels import ref, svgd_rbf, swag_moments
+    sweep = {"sqdist": 0.0, "force_rel": 0.0, "moments": 0.0, "diag_std": 0.0}
+    for i, (n, D) in enumerate(SQDIST_SWEEP):
+        for dead in ((), (n - 1,)):
+            t, _, m = rows_case(torch, 10 + i, n, D, dead)
+            got = svgd_rbf.pairwise_sqdist(t, m)
+            torch.cuda.synchronize()
+            err = float((got - ref.pairwise_sqdist(t, m)).abs().max())
+            if not (err < 1e-3 and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"sqdist {n}x{D} dead={dead}: {err}")
+            sweep["sqdist"] = max(sweep["sqdist"], err)
+    for i, (n, D, ell) in enumerate(FORCE_SWEEP + [(8, 5000, 0.0),
+                                                   (16, 50000, -1.0)]):
+        for dead in ((), (0, n - 1) if n > 3 else (1,)):
+            t, g, m = rows_case(torch, 20 + i, n, D, dead)
+            sq = ref.pairwise_sqdist(t, m)
+            glue = rbf_glue(sq, ell, m)
+            got = svgd_rbf.svgd_force(t, g, *glue, m)
+            torch.cuda.synchronize()
+            want = ref.svgd_force(t, g, *glue, m)
+            rel = float((got - want).abs().max() / want.abs().max())
+            if not (rel < 2e-4 and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"force {n}x{D} ell={ell}: {rel}")
+            if m is not None and float(got[m == 0].abs().max()) != 0.0:
+                raise AssertionError("force: a dead row is not exact zeros")
+            sweep["force_rel"] = max(sweep["force_rel"], rel)
+    for i, (P, L, dead) in enumerate([(3, 123, ()), (4, 8193, (1,)),
+                                      (8, 100000, (0, 5))]):
+        gen = torch.Generator(device="cuda").manual_seed(30 + i)
+        mean, theta = (torch.randn((P, L), generator=gen, device="cuda")
+                       for _ in range(2))
+        sq = mean ** 2 + torch.rand((P, L), generator=gen, device="cuda")
+        ring = torch.randn((P, 4, L), generator=gen, device="cuda")
+        n = torch.arange(P, dtype=torch.float32, device="cuda")
+        slot = (torch.arange(P, device="cuda") * 3 % 4).to(torch.int32)
+        m = torch.ones(P, device="cuda")
+        m[list(dead)] = 0.0
+        theta[m == 0] = float("nan")
+        ring_k, ring_p = ring.clone(), ring.clone()
+        got = swag_moments.moments(mean, sq, theta, n, m, ring_k, slot)
+        torch.cuda.synchronize()
+        want = ref.swag_moments(mean, sq, theta, n, m, ring_p, slot)
+        err = max(float((a - b).abs().max()) for a, b in
+                  zip(got + (ring_k,), want + (ring_p,)))
+        for p in dead:
+            if not (torch.equal(got[0][p], mean[p])
+                    and torch.equal(got[1][p], sq[p])
+                    and torch.equal(ring_k[p], ring[p])):
+                raise AssertionError("moments: a dead row changed")
+        if not err < 1e-5:
+            raise AssertionError(f"moments {P}x{L}: {err}")
+        sweep["moments"] = max(sweep["moments"], err)
+        std = swag_moments.diag_std(mean, sq)
+        torch.cuda.synchronize()
+        err = float((std - ref.diag_std(mean, sq)).abs().max())
+        if not err < 1e-5:
+            raise AssertionError(f"diag_std {P}x{L}: {err}")
+        sweep["diag_std"] = max(sweep["diag_std"], err)
+
+    # the training shape: 8 particles x 19,775,360 parameters
+    P, D = TRAIN_P, TRAIN_D
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    theta = torch.randn((P, D), generator=gen, device="cuda") * 0.05
+    grads = torch.randn((P, D), generator=gen, device="cuda")
+    mb = P * D * 4
+    rows, errs = [], {}
+    sq_k = svgd_rbf.pairwise_sqdist(theta)
+    sq_p = ref.pairwise_sqdist(theta)
+    errs["sqdist"] = float((sq_k - sq_p).abs().max())
+    errs["sqdist_rel_to_max"] = errs["sqdist"] / float(sq_p.abs().max())
+    if not errs["sqdist_rel_to_max"] < 1e-5:
+        raise AssertionError(f"sqdist at the training shape: {errs}")
+    b_ms, b_by = bound(mb, 2 * P * P * D)
+    rows.append({"name": "pairwise_sqdist", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/svgd_rbf.cu",
+                 "replaces": "src/repro/kernels/svgd_rbf.py:57",
+                 "max_abs_err": errs["sqdist"],
+                 "ms": time_ms(torch, lambda: svgd_rbf.pairwise_sqdist(theta)),
+                 "plain_ms": time_ms(torch,
+                                     lambda: ref.pairwise_sqdist(theta)),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": time_ms(torch,
+                                       lambda: torch.cdist(theta, theta))})
+    glue = rbf_glue(sq_p, 0.0)
+    phi_k = svgd_rbf.svgd_force(theta, grads, *glue)
+    phi_p = ref.svgd_force(theta, grads, *glue)
+    errs["force"] = float((phi_k - phi_p).abs().max())
+    errs["force_rel"] = errs["force"] / float(phi_p.abs().max())
+    if not errs["force_rel"] < 2e-4:
+        raise AssertionError(f"force at the training shape: {errs}")
+    del phi_k, phi_p
+    # the repulsive term alone (g = 0): at this D it is ~1e-6 of the
+    # driving term, so the check above cannot see it
+    zeros = torch.zeros_like(grads)
+    errs["force_repulsive_rel"] = rel_err(
+        svgd_rbf.svgd_force(theta, zeros, *glue),
+        ref.svgd_force(theta, zeros, *glue))
+    if not errs["force_repulsive_rel"] < 2e-4:
+        raise AssertionError(f"repulsive force at the training shape: {errs}")
+    del zeros
+    b_ms, b_by = bound(3 * mb, 4 * P * P * D)
+    rows.append({"name": "svgd_force", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/svgd_rbf.cu",
+                 "replaces": "src/repro/kernels/svgd_rbf.py:76",
+                 "max_abs_err": errs["force"],
+                 "ms": time_ms(torch, lambda: svgd_rbf.svgd_force(
+                     theta, grads, *glue)),
+                 "plain_ms": time_ms(torch, lambda: ref.svgd_force(
+                     theta, grads, *glue)),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # moments over the flat (P, D) rows, with the deviation write into a
+    # ring of 2 slots: the bytes moved do not depend on the ring's depth
+    mean, sq = theta, theta * theta + grads.abs() * 1e-3
+    del grads
+    n = torch.full((P,), 3.0, device="cuda")
+    slot = torch.arange(P, device="cuda").remainder(2).to(torch.int32)
+    ring_k = torch.zeros((P, 2, D), device="cuda")
+    ring_p = torch.zeros((P, 2, D), device="cuda")
+    theta2 = theta * 1.01
+    got = swag_moments.moments(mean, sq, theta2, n, None, ring_k, slot)
+    want = ref.swag_moments(mean, sq, theta2, n, None, ring_p, slot)
+    errs["moments"] = max(float((a - b).abs().max()) for a, b in
+                          zip(got + (ring_k,), want + (ring_p,)))
+    if not errs["moments"] < 1e-5:
+        raise AssertionError(f"moments at the training shape: {errs}")
+    del got, want, ring_p
+    b_ms, b_by = bound(6 * mb, 7 * P * D)
+    rows.append({"name": "swag_moments", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/swag_moments.cu",
+                 "replaces": "src/repro/kernels/swag_moments.py:37",
+                 "max_abs_err": errs["moments"],
+                 "ms": time_ms(torch, lambda: swag_moments.moments(
+                     mean, sq, theta2, n, None, ring_k, slot)),
+                 "plain_ms": time_ms(torch, lambda: ref.swag_moments(
+                     mean, sq, theta2, n, None, ring_k, slot)),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    del ring_k, theta2
+    std_k = swag_moments.diag_std(mean, sq)
+    errs["diag_std"] = float((std_k - ref.diag_std(mean, sq)).abs().max())
+    if not errs["diag_std"] < 1e-5:
+        raise AssertionError(f"diag_std at the training shape: {errs}")
+    del std_k
+    b_ms, b_by = bound(3 * mb, 4 * P * D)
+    rows.append({"name": "swag_diag_std", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/swag_moments.cu",
+                 "replaces": "src/repro/kernels/swag_moments.py:73",
+                 "max_abs_err": errs["diag_std"],
+                 "ms": time_ms(torch, lambda: swag_moments.diag_std(mean, sq)),
+                 "plain_ms": time_ms(torch, lambda: ref.diag_std(mean, sq)),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    del theta, mean, sq
+    torch.cuda.empty_cache()
+    emit({"phase": 3, "sweep_max_err": sweep, "train_shape": [P, D],
+          "train_shape_err": errs,
+          "timed": {r["name"]: {k: r[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}
+                    for r in rows}})
+    return rows
+
+
+def reset_counts():
+    from repro_torch.kernels import paged_decode_attention as pk
+    from repro_torch.kernels import svgd_rbf, swag_moments
+    fns = {"paged_decode_attention": pk.paged_decode_attention,
+           "pairwise_sqdist": svgd_rbf.pairwise_sqdist,
+           "svgd_force": svgd_rbf.svgd_force,
+           "swag_moments": swag_moments.moments,
+           "swag_diag_std": swag_moments.diag_std}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def read_counts(fns):
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def phase4(torch):
+    """SVGD and MultiSWAG training of full-width ViT-MNIST particles, then
+    the MultiSWAG posterior predictive; each driven run between a reset
+    and a read of the kernels' launch counts."""
+    from repro_torch import configs
+    from repro_torch.bdl import MultiSWAG, SteinVGD
+    from repro_torch.bdl.svgd import fused_svgd_step, svgd_force
+    from repro_torch.bdl.swag import _sample, swag_collect, swag_sample_stacked
+    from repro_torch.core import ParticleModule
+    from repro_torch.core.functional import (ensemble_value_and_grad,
+                                             flatten_stacked)
+    from repro_torch.core.tree import tree_leaves, tree_map, to_device
+    from repro_torch.data import DataLoader, mnist_like
+    from repro_torch.kernels import ref
+    from repro_torch.models import api
+    from repro_torch.optim import adam
+    from repro_torch.runtime import specs
+    from repro_torch.serve import serve
+    cfg = configs.get("vit-mnist")
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg),
+                            loss=lambda p, b: api.loss_fn(p, b, cfg),
+                            forward=lambda p, b: api.forward(p, b, cfg)[0],
+                            cfg=cfg)
+    P, B, NB = TRAIN_P, 64, 8
+    out, launches = {"phase": 4, "model": cfg.name, "particles": P,
+                     "batch": B, "batches_per_epoch": NB}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) SteinVGD, median heuristic (with ell = 1 and distances of ~1e5,
+    # K would be the identity and the force's off-diagonal work zero)
+    svgd = SteinVGD(module, seed=SEED, backend="compiled")
+    loader = DataLoader(cfg, batch_size=B, num_batches=NB, seed=SEED)
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    _, losses = svgd.bayes_infer(loader, 2, num_particles=P, lengthscale=0.0,
+                                 lr=1e-3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts(fns)
+    steps = 2 * NB
+    if got["pairwise_sqdist"] != steps or got["svgd_force"] != steps:
+        raise AssertionError(f"SVGD launches {got}, want {steps} each")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"SVGD losses {losses}")
+    launches["svgd"] = got
+    # one step's force on the same stacked theta, g and mask: kernels vs
+    # plain (launches not counted: the driven run is over)
+    store = svgd.store
+    params, mask = store.stacked("params"), store.active_mask()
+    batch = to_device(next(iter(DataLoader(cfg, batch_size=B, num_batches=1,
+                                           seed=7))), "cuda")
+    _, grads = ensemble_value_and_grad(module.loss)(params, batch)
+    theta, _ = flatten_stacked(params)
+    g, _ = flatten_stacked(grads)
+    del grads
+    force_rel = rel_err(svgd_force(theta, g, 0.0, mask=mask),
+                        plain_force(theta, g, 0.0, mask))
+    # the repulsive term alone (g = 0), which the driving term swamps
+    zeros = torch.zeros_like(g)
+    repulsive_rel = rel_err(svgd_force(theta, zeros, 0.0, mask=mask),
+                            plain_force(theta, zeros, 0.0, mask))
+    if not (force_rel < 2e-4 and repulsive_rel < 2e-4):
+        raise AssertionError(f"SVGD step kernel vs plain: {force_rel}, "
+                             f"repulsive term alone {repulsive_rel}")
+    del theta, g, zeros
+    step = fused_svgd_step(module.loss, lr=1e-3, lengthscale=0.0)
+    state = {"params": store.checkout("params")}
+
+    def svgd_step():
+        state["params"], _ = step(state["params"], batch, mask)
+
+    try:
+        prof = profile_steps(torch, svgd_step, n=3, track=OURS)
+    finally:
+        store.commit("params", state["params"])
+    out["svgd"] = {"epochs": 2, "steps": steps, "wall_s": wall,
+                   "last_losses": losses, "step_ms": prof["wall_ms"],
+                   "images_per_s": P * B / prof["wall_ms"] * 1e3,
+                   "force_kernel_vs_plain_rel": force_rel,
+                   "repulsive_kernel_vs_plain_rel": repulsive_rel,
+                   "profile": prof}
+    del svgd, store, params, state
+    torch.cuda.empty_cache()
+
+    # (b) MultiSWAG: adam, 3 epochs, collecting after the first
+    swag = MultiSWAG(module, seed=SEED, backend="compiled")
+    loader = DataLoader(cfg, batch_size=B, num_batches=NB, seed=SEED)
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    _, losses = swag.bayes_infer(loader, 3, optimizer=adam(1e-3),
+                                 num_particles=P, pretrain_epochs=1,
+                                 max_rank=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts(fns)
+    n_leaves = len(tree_leaves(swag.p_parameters()[0]))
+    if got["swag_moments"] != 2 * n_leaves or not np.isfinite(losses).all():
+        raise AssertionError(f"MultiSWAG launches {got} (want "
+                             f"{2 * n_leaves} moments), losses {losses}")
+    launches["multiswag"] = got
+    store, mask = swag.store, swag.store.active_mask()
+    # one more collection on the trained state at the path's per-leaf
+    # shapes, kernel vs plain (launches not counted: the driven run is over)
+    parity = moments_parity(torch, store.stacked("swag"),
+                            store.stacked("params"), mask)
+    if not parity["max_abs_err"] <= 1e-5:
+        raise AssertionError(f"SWAG collection kernel vs plain: {parity}")
+    out["multiswag"] = {"epochs": 3, "steps": 3 * NB, "collects": 2,
+                        "wall_s": wall, "last_losses": losses,
+                        "moments_kernel_vs_plain": parity,
+                        "state_gb": sum(store.nbytes(k) for k in
+                                        ("params", "opt_state", "swag"))
+                        / 1e9}
+
+    # (c) the MultiSWAG posterior predictive: 4 draws per particle
+    images = {k: v for k, v in
+              mnist_like(np.random.default_rng(1), B, cfg.vocab_size).items()}
+    fns = reset_counts()
+    svc = swag.posterior_predictive(samples_per_particle=4)
+    heads = svc.predict_batch(images)
+    torch.cuda.synchronize()
+    got = read_counts(fns)
+    if got["swag_diag_std"] != n_leaves:
+        raise AssertionError(f"predictive launches {got}, want {n_leaves} "
+                             f"diag_std")
+    for k, v in heads.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite head {k}")
+    if float((heads["mean"].sum(-1) - 1).abs().max()) > 1e-4:
+        raise AssertionError("BMA mean probabilities do not sum to 1")
+    launches["predictive"] = got
+    # the same noise through the kernel-made and the plain diag_std
+    dense = store.dense("swag")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    noise = (tree_map(lambda m: torch.randn((P, 4) + tuple(m.shape[1:]),
+                                            generator=gen, device="cuda"),
+                      dense["mean"]),
+             torch.randn((P, 4, 20), generator=gen, device="cuda"))
+    pred = {}
+    for plain in (False, True):
+        with torch.no_grad():
+            sampled = (_sample(dense, *noise, 1.0, diag_std=ref.diag_std)
+                       if plain else swag_sample_stacked(dense, 4,
+                                                         noise=noise))
+        pred[plain] = serve(swag, params=sampled).predict_batch(images)
+        del sampled
+    heads_diff = max(float((pred[True][k] - pred[False][k]).abs().max())
+                     for k in pred[True])
+    if not heads_diff <= 1e-5:
+        raise AssertionError(f"predictive heads kernel vs plain: {heads_diff}")
+    out["predictive"] = {"samples_per_particle": 4, "members": P * 4,
+                         "images": B, "entropy_mean":
+                         float(heads["entropy"].mean()),
+                         "heads_kernel_vs_plain": heads_diff}
+    del svc, dense, pred, noise
+    torch.cuda.empty_cache()
+
+    # profiled windows of MultiSWAG train steps and collections, run last:
+    # they advance the trained state, which nothing reads after them
+    opt_step = specs.ensemble_step(module.loss, adam(1e-3))
+    co = {k: store.checkout(k) for k in ("params", "opt_state", "swag")}
+
+    def swag_step():
+        co["params"], co["opt_state"], _ = opt_step(co["params"],
+                                                    co["opt_state"], batch,
+                                                    mask)
+
+    def swag_collect_step():
+        co["swag"] = swag_collect(co["swag"], co["params"], mask=mask)
+
+    try:
+        prof = profile_steps(torch, swag_step, n=3, track=OURS)
+        prof_collect = profile_steps(torch, swag_collect_step, n=3,
+                                     track=OURS)
+    finally:
+        for k, v in co.items():
+            store.commit(k, v)
+    out["multiswag"].update({"step_ms": prof["wall_ms"],
+                             "images_per_s": P * B / prof["wall_ms"] * 1e3,
+                             "collect_ms": prof_collect["wall_ms"],
+                             "profile_train_step": prof,
+                             "profile_collect": prof_collect})
+    out["launches"] = launches
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    emit(out)
+    del swag, store, co
+    torch.cuda.empty_cache()
+    return {"pairwise_sqdist": launches["svgd"]["pairwise_sqdist"],
+            "svgd_force": launches["svgd"]["svgd_force"],
+            "swag_moments": launches["multiswag"]["swag_moments"],
+            "swag_diag_std": launches["predictive"]["swag_diag_std"]}
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -339,6 +838,7 @@ def main():
         fail("src/repro_torch not found beside chip_smoke.py: run it from a "
              "checkout of the repository", code=2)
     sys.path.insert(0, SRC)
+    # fp32 products in full fp32, as the reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -360,7 +860,12 @@ def main():
     reqs = traffic(cfg.vocab_size)
     row = phase1(torch, cfg, reqs)
     row["launches"] = phase2(torch, cfg, reqs)
-    emit({"kernels": [row]})
+    torch.cuda.empty_cache()
+    rows = [row] + phase3(torch)
+    counts = phase4(torch)
+    for r in rows[1:]:
+        r["launches"] = counts[r["name"]]
+    emit({"kernels": rows})
     print(smi.stdout.strip().splitlines()[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,105 @@
+"""Infer base class (paper App. B; counterpart of ``repro.bdl.infer``):
+BDL algorithms extend Infer and express inference over particles.
+
+``bayes_infer`` is the stable entry point; it hands the algorithm to the
+PD's runtime object (``runtime.backends``). Subclasses implement
+``_fused_infer`` (an epoch loop over the store's stacked state, checked
+out once and committed once); the paper-faithful message-passing form
+waits for the actor-messaging slice, so callers pass
+``backend="compiled"``.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+from ..core import ParticleModule, PushDistribution
+from ..core.tree import to_device
+
+
+class Infer:
+    def __init__(self, module: ParticleModule, *, seed: int = 0,
+                 backend: str = "nel", capacity: int = 0, precision=None,
+                 device=None):
+        self.module = module
+        self.push_dist = PushDistribution(module, seed=seed, backend=backend,
+                                          capacity=capacity,
+                                          precision=precision, device=device)
+
+    @property
+    def backend(self) -> str:
+        return self.push_dist.backend
+
+    @property
+    def precision(self):
+        return self.push_dist.precision
+
+    @property
+    def store(self):
+        return self.push_dist.store
+
+    @contextmanager
+    def _checked_out(self, pids, keys):
+        """Checkout/commit protocol shared by every fused epoch loop: yield
+        a dict of stacked state (the loop rebinds its entries as it
+        trains); whatever was checked out is committed back exactly once,
+        even on a mid-loop failure. ``pids`` is None: the full live set."""
+        if pids is not None:
+            raise NotImplementedError("pid-subset checkouts are not ported")
+        store = self.push_dist.store
+        co = {}
+        try:
+            for k in keys:
+                co[k] = store.checkout(k)
+            yield co
+        finally:
+            for k, v in co.items():
+                store.commit(k, v)
+
+    def _fused_plan(self, pids):
+        """(checkout pids, active mask, slot per pid) for one fused run:
+        the full live set -> the canonical capacity-padded trees (None)
+        plus the store's active mask. A subset would need pid-subset
+        views, which are not ported: it raises."""
+        store = self.push_dist.store
+        pids = list(pids)
+        if len(pids) != len(store) or set(pids) != set(store.pids):
+            raise NotImplementedError(
+                "fused runs over a subset of the particles need pid-subset "
+                "store views, which are not ported")
+        return None, store.active_mask(), [store.slot_of(p) for p in pids]
+
+    def _batch(self, batch):
+        """One host batch -> tensors on the store's device (once a step)."""
+        return to_device(batch, self.push_dist.device)
+
+    @staticmethod
+    def _losses(ls, slots):
+        return [] if ls is None else [float(x) for x in ls.cpu()[slots]]
+
+    def bayes_infer(self, dataloader, epochs: int, **kw):
+        return self.push_dist.runtime.infer(self, dataloader, epochs, **kw)
+
+    def _fused_infer(self, dataloader, epochs: int, **kw):
+        raise NotImplementedError
+
+    def posterior_pred(self, batch):
+        return self.push_dist.p_predict(batch)
+
+    def posterior_predictive(self, **kw):
+        """Hand the trained posterior to the serving layer: a
+        PredictiveService doing BMA over this Infer's particles. MultiSWAG
+        overrides it to sample its Gaussians. Caller owns the service."""
+        return self.push_dist.serve(**kw)
+
+    def p_parameters(self):
+        return [self.push_dist.p_params(pid)
+                for pid in self.push_dist.particle_ids()]
+
+    def cleanup(self):
+        self.push_dist.cleanup()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.cleanup()

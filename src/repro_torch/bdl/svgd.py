@@ -1,0 +1,139 @@
+"""Stein Variational Gradient Descent (Liu & Wang, 2016) on particles
+(counterpart of ``repro.bdl.svgd``, compiled stacked-axis path).
+
+Update rule (standard SVGD, descent form):
+
+    theta_i <- theta_i - (lr / n) * sum_j [ k(theta_j, theta_i) * g_j
+                                            - (theta_i - theta_j)/ell^2 * k_ji ]
+
+with g_j = grad of the loss (= -grad log posterior), k = RBF with
+bandwidth ell (fixed, or the median heuristic when lengthscale <= 0).
+
+The all-to-all the paper names as SVGD's bottleneck (§5.1) runs through
+the hand-written kernels (``kernels.ops``: CUDA on the card, the plain
+versions on the CPU): ``pairwise_sqdist`` over the stacked (n, D) matrix,
+then the (n, n) glue in plain torch (diagonal zeroing, exp, the mask's
+outer product, ksum, n_eff, ell — plain jnp in the reference), then the
+force kernel streaming D against K^T / n_eff. Both kernels take the
+store's row mask, so they sit on the fused path; the reference's Pallas
+kernels are dense-only, and its fused step runs the jnp form instead.
+With ``lengthscale <= 0`` the port follows the jnp semantics (the median
+heuristic, over live pairs when masked), not the Pallas path's raw ell.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core import functional
+from ..kernels import ops as _kops
+from .infer import Infer
+
+
+def _median(x):
+    """``jnp.median``: the mean of the two middle values for an even
+    count (``torch.median`` returns the lower one)."""
+    return torch.quantile(x.flatten(), 0.5)
+
+
+def rbf_lengthscale(sq, lengthscale: float, mask=None):
+    """ell from the (n, n) squared distances: ``lengthscale`` when > 0,
+    else the median heuristic (Liu & Wang §5), over live pairs only when
+    a mask is given."""
+    if lengthscale > 0:
+        return torch.tensor(lengthscale, dtype=sq.dtype, device=sq.device)
+    n = sq.shape[0]
+    if mask is None:
+        return torch.sqrt(0.5 * _median(sq) / math.log(n + 1.0) + 1e-12)
+    mb = mask > 0
+    pair = mb[:, None] & mb[None, :]
+    med = torch.nanquantile(torch.where(pair, sq, math.nan).flatten(),
+                            0.5).nan_to_num()
+    n_eff = mask.to(sq.dtype).sum().clamp(min=1.0)
+    return torch.sqrt(0.5 * med / torch.log(n_eff + 1.0) + 1e-12)
+
+
+def svgd_force(theta, grads, lengthscale: float, mask=None):
+    """theta, grads: (n, D) fp32 -> phi: (n, D) descent direction.
+
+    phi_i = (1/n) sum_j [ k_ji g_j - k_ji (theta_i - theta_j) / ell^2 ]
+
+    With an (n,) active ``mask`` the sum runs over live rows only: dead
+    rows are read as zeros (NaN there cannot leak), fall out of the
+    kernel matrix through the mask's outer product, and get phi = 0; the
+    live rows equal the dense force over just those rows."""
+    sq = _kops.pairwise_sqdist(theta, mask)
+    return _kops.svgd_force(theta, grads, *rbf_glue(sq, lengthscale, mask),
+                            mask)
+
+
+def rbf_glue(sq, lengthscale: float, mask=None):
+    """The (n, n) glue between the two kernels, plain torch as it is plain
+    jnp in the reference: from the squared distances, ``(ktn, ksum,
+    inv_ell2)`` = (K^T / n_eff, K.sum(0) / n_eff, 1 / ell^2) with
+    K = exp(-d2 / (2 ell^2)), a zero diagonal and, with a mask, dead pairs
+    out and n_eff the live count."""
+    n = sq.shape[0]
+    ell = rbf_lengthscale(sq, lengthscale, mask)
+    d2 = sq * (1.0 - torch.eye(n, dtype=sq.dtype, device=sq.device))
+    K = torch.exp(-0.5 * d2 / (ell * ell))                   # (n, n), k_ji
+    if mask is None:
+        n_eff = float(n)
+    else:
+        m = mask.to(sq.dtype)
+        K = K * (m[:, None] * m[None, :])   # dead pairs fall out of the kernel
+        n_eff = m.sum().clamp(min=1.0)
+    return ((K.T / n_eff).contiguous(), K.sum(0) / n_eff,
+            (1.0 / (ell * ell)).reshape(1))
+
+
+def fused_svgd_step(loss_fn, *, lr: float, lengthscale: float = 1.0):
+    """One SVGD step over stacked particles: ``step(stacked_params, batch,
+    mask=None) -> (new_params, losses)``. The params flatten to the (n, D)
+    matrix in ``ravel_pytree``'s column order; the new params are views
+    of the updated matrix. Dead slots stay bit-for-bit frozen and report
+    loss 0.0."""
+    vag = functional.ensemble_value_and_grad(loss_fn)
+
+    def step(stacked_params, batch, mask=None):
+        losses, grads = vag(stacked_params, batch)
+        theta, unravel = functional.flatten_stacked(stacked_params)
+        g, _ = functional.flatten_stacked(grads)
+        del grads
+        phi = svgd_force(theta.float(), g.float(), lengthscale, mask=mask)
+        del g
+        new_theta = theta - lr * phi.to(theta.dtype)
+        if mask is not None:
+            new_theta = torch.where(mask[:, None] > 0, new_theta, theta)
+            losses = torch.where(mask > 0, losses, 0.0)
+        return unravel(new_theta), losses
+
+    return step
+
+
+class SteinVGD(Infer):
+    def _create(self, num_particles: int):
+        return [self.push_dist.p_create() for _ in range(num_particles)]
+
+    def _fused_infer(self, dataloader, epochs: int, *, num_particles: int = 4,
+                     lengthscale: float = 1.0, lr: float = 1e-3):
+        """Stacked-axis SVGD over fresh particles (same init stream as
+        every other algorithm of this PD)."""
+        pids = self._create(num_particles)
+        losses = self._fused_epochs(pids, dataloader, epochs, lr=lr,
+                                    lengthscale=lengthscale)
+        return pids, losses
+
+    def _fused_epochs(self, pids, dataloader, epochs: int, *,
+                      lr: float = 1e-3, lengthscale: float = 1.0):
+        step = fused_svgd_step(self.module.loss, lr=lr,
+                               lengthscale=lengthscale)
+        co_pids, mask, slots = self._fused_plan(pids)
+        ls = None
+        with self._checked_out(co_pids, ("params",)) as co:
+            for _ in range(epochs):
+                for batch in dataloader:
+                    co["params"], ls = step(co["params"], self._batch(batch),
+                                            mask)
+        return self._losses(ls, slots)

@@ -1,0 +1,202 @@
+"""SWAG / MultiSWAG (Maddox et al., 2019; Wilson & Izmailov, 2020)
+(counterpart of ``repro.bdl.swag``, compiled stacked-axis path).
+
+SWAG assumes the posterior is Normal with moments taken from the SGD
+trajectory:
+
+    mean     <- running average of theta
+    sq_mean  <- running average of theta^2
+    dev      <- ring buffer of the last K deviations (low-rank covariance)
+
+sample:  theta = mean + sigma_diag^(1/2) z1 / sqrt(2)
+                      + D z2 / sqrt(2 (K - 1))
+
+MultiSWAG = an ensemble of SWAG particles, each with its own moments in
+the store's ``"swag"`` key. Stacked, ``n`` and ``rank`` are ``(P,)``: one
+count per row, so the ring slot ``rank % max_rank`` is per row. The
+moment collection and the serve-time diagonal scale run through the
+hand-written kernels (``kernels.ops``: CUDA on the card, the plain
+versions on the CPU), one launch per parameter leaf. The collection
+writes the deviation ring in place: it is ``max_rank`` times the
+parameters, too large to copy per collection.
+
+Sampling takes its Gaussian noise as an input (``z1`` per leaf, ``z2``
+per rank slot): ``jax.random`` and torch give different numbers, so
+parity checks hand the reference's own noise across; the serving path
+draws it from a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.tree import tree_flatten, tree_leaves, tree_map
+from ..kernels import ops as _kops
+from ..runtime import specs
+from .infer import Infer
+
+
+def swag_state_init(params, max_rank: int = 20):
+    """One particle's SWAG state (zero moments, an empty ring)."""
+    dev = tree_leaves(params)[0].device
+    return {
+        "n": torch.zeros((), dtype=torch.float32, device=dev),
+        "mean": tree_map(torch.zeros_like, params),
+        "sq_mean": tree_map(torch.zeros_like, params),
+        "dev": tree_map(lambda p: p.new_zeros((max_rank,) + tuple(p.shape)),
+                        params),
+        "rank": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def swag_collect(state, params, *, mask=None):
+    """One moment collection over the stacked state (after an epoch, in
+    the paper's setup). Live rows (``mask`` None: all) take the new
+    moments, count and rank, and write their deviation into ring slot
+    ``rank % max_rank``; dead rows keep everything bit for bit. The ring
+    ``state["dev"]`` is updated in place."""
+    means, unflatten = tree_flatten(state["mean"], sort_keys=True)
+    sqs, devs, thetas = (tree_flatten(t, sort_keys=True)[0] for t in
+                         (state["sq_mean"], state["dev"], params))
+    max_rank = devs[0].shape[1]
+    n = state["n"]
+    slot = (state["rank"] % max_rank).to(torch.int32)
+    out = [_kops.swag_moments(m, s, t.contiguous(), n, mask, d, slot)
+           for m, s, t, d in zip(means, sqs, thetas, devs)]
+    live = torch.ones_like(n, dtype=torch.bool) if mask is None else mask > 0
+    return {"n": torch.where(live, n + 1, n),
+            "mean": unflatten([o[0] for o in out]),
+            "sq_mean": unflatten([o[1] for o in out]),
+            "dev": state["dev"],
+            "rank": torch.where(live, state["rank"] + 1, state["rank"])}
+
+
+def _sample(stacked_state, z1, z2, scale: float, diag_std=_kops.diag_std):
+    """S draws from each of P particles' Gaussians. z1: tree like the mean
+    with leaves (P, S, ...); z2: (P, S, max_rank). Returns stacked params
+    with leading P*S (sample j of particle i at row i*S + j). Each
+    particle's state is read once, never repeated per sample; the
+    diagonal scale is computed once per particle row (``diag_std``, the
+    kernel's dispatch; parity checks pass its plain version)."""
+    # leaves matched by key path (sorted keys), whatever the dict order
+    means, unflatten = tree_flatten(stacked_state["mean"], sort_keys=True)
+    sqs, devs, zs = (tree_flatten(t, sort_keys=True)[0] for t in
+                     (stacked_state["sq_mean"], stacked_state["dev"], z1))
+    P, S, max_rank = z2.shape
+    rank = stacked_state["rank"]
+    k_eff = torch.clamp(torch.minimum(rank, torch.full_like(rank, max_rank))
+                        .float(), min=2.0)                          # (P,)
+    slots = torch.arange(max_rank, device=rank.device)
+    zw = z2 * (slots[None, :] < rank[:, None]).float()[:, None, :]  # (P,S,R)
+    lr_scale = torch.sqrt(2.0 * (k_eff - 1.0))                      # (P,)
+    out = []
+    for m, s, d, z in zip(means, sqs, devs, zs):
+        lead = (P,) + (1,) * (z.dim() - 1)
+        diag = diag_std(m.contiguous(), s.contiguous())[:, None] * z \
+            / math.sqrt(2.0)
+        lowrank = torch.bmm(zw, d.reshape(P, max_rank, -1)).reshape(
+            z.shape) / lr_scale.reshape(lead)
+        sample = m[:, None] + scale * (diag + lowrank).to(m.dtype)
+        out.append(sample.reshape((P * S,) + tuple(m.shape[1:])))
+    return unflatten(out)
+
+
+def swag_sample(state, z1, z2, scale: float = 1.0):
+    """One parameter sample from one particle's SWAG Gaussian with the
+    given noise: ``z1`` a tree like the mean, ``z2`` (max_rank,)."""
+    one = tree_map(lambda x: x[None], state)
+    sample = _sample(one, tree_map(lambda z: z[None, None], z1),
+                     z2[None, None], scale)
+    return tree_map(lambda x: x[0], sample)
+
+
+def swag_sample_stacked(stacked_state, samples_per_particle: int,
+                        scale: float = 1.0, *, generator=None, noise=None):
+    """Serve-time sampling over the store's stacked SWAG moments: S draws
+    from every particle's Gaussian, stacked params with leading n*S
+    (sample j of particle i at row i*S + j), the shape a PredictiveEngine
+    serves. ``noise=(z1, z2)`` gives the noise (z1 leaves (n, S, ...), z2
+    (n, S, max_rank)); otherwise it is drawn from ``generator`` (one
+    seeded 0 on the state's device when None, as the reference defaults
+    to ``PRNGKey(0)``)."""
+    S = samples_per_particle
+    if noise is None:
+        mean = stacked_state["mean"]
+        P = tree_leaves(mean)[0].shape[0]
+        max_rank = tree_leaves(stacked_state["dev"])[0].shape[1]
+        dev = tree_leaves(mean)[0].device
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+
+        def draw(shape):
+            return torch.randn(shape, generator=generator, device=dev)
+
+        noise = (tree_map(lambda m: draw((P, S) + tuple(m.shape[1:])), mean),
+                 draw((P, S, max_rank)))
+    return _sample(stacked_state, *noise, scale)
+
+
+class MultiSWAG(Infer):
+    def _create(self, optimizer, num_particles, max_rank):
+        pids = []
+        for _ in range(num_particles):
+            pid = self.push_dist.p_create(optimizer)
+            self.store.write("swag", pid, swag_state_init(
+                self.push_dist.p_params(pid), max_rank))
+            pids.append(pid)
+        return pids
+
+    def _fused_infer(self, dataloader, epochs: int, *, optimizer,
+                     num_particles: int = 4, pretrain_epochs: int = 0,
+                     max_rank: int = 20):
+        pids = self._create(optimizer, num_particles, max_rank)
+        losses = self._fused_epochs(pids, dataloader, epochs,
+                                    optimizer=optimizer,
+                                    pretrain_epochs=pretrain_epochs)
+        return pids, losses
+
+    def _fused_epochs(self, pids, dataloader, epochs: int, *, optimizer,
+                      pretrain_epochs: int = 0):
+        """Stacked-axis MultiSWAG on existing particles: the ensemble
+        train step every batch and, after ``pretrain_epochs``, one moment
+        collection per epoch; params, optimizer state and SWAG state are
+        checked out once and committed back once."""
+        step = specs.ensemble_step(self.module.loss, optimizer,
+                                   precision=self.precision)
+        co_pids, mask, slots = self._fused_plan(pids)
+        ls = None
+        with self._checked_out(co_pids,
+                               ("params", "opt_state", "swag")) as co:
+            for e in range(epochs):
+                for batch in dataloader:
+                    co["params"], co["opt_state"], ls = step(
+                        co["params"], co["opt_state"], self._batch(batch),
+                        mask)
+                if e >= pretrain_epochs:
+                    co["swag"] = swag_collect(co["swag"], co["params"],
+                                              mask=mask)
+        return self._losses(ls, slots)
+
+    def posterior_predictive(self, *, samples_per_particle: int = 0,
+                             scale: float = 1.0, generator=None, noise=None,
+                             **kw):
+        """Serve-time handoff: with ``samples_per_particle=S > 0`` the
+        service does BMA over n*S draws from each particle's SWAG Gaussian
+        (sampled once, up front, into a static stacked tree — the
+        MultiSWAG predictive of Wilson & Izmailov 2020) instead of the
+        particle params. S=0 serves the live particle params like any
+        other Infer. The diagonal scale goes through the diag_std kernel.
+        The noise comes from ``generator`` (a
+        ``torch.Generator`` on the store's device; one seeded 0 when None)
+        or is given as ``noise=(z1, z2)``."""
+        if samples_per_particle <= 0:
+            return super().posterior_predictive(**kw)
+        # dense live rows (not the capacity-padded canonical form): a
+        # padding slot's zero moments must never be sampled as a member
+        stacked_swag = self.store.dense("swag")
+        with torch.no_grad():
+            sampled = swag_sample_stacked(stacked_swag, samples_per_particle,
+                                          scale, generator=generator,
+                                          noise=noise)
+        return self.push_dist.serve(params=sampled, **kw)

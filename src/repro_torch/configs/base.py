@@ -1,9 +1,10 @@
 """Model configs for the port (counterpart of ``repro.configs.base``).
 
 A ``ModelConfig`` describes one architecture. The port runs dense
-attention + MLP stacks only, so the config carries the fields that family
-reads; field names and defaults match the reference, so one set of
-``replace(...)`` keywords builds the same model in both packages.
+attention + MLP stacks (the LM family "dense" and the ViT's family
+"vision"), so the config carries the fields those read; field names and
+defaults match the reference, so one set of ``replace(...)`` keywords
+builds the same model in both packages.
 
 The layer stack is ``head_layers + pattern * n_units + tail_layers``; the
 repeated pattern units are stored stacked on a leading ``n_units`` axis.
@@ -18,7 +19,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense (the only family ported)
+    family: str                      # dense | vision (the families ported)
     d_model: int
     vocab_size: int
 

@@ -1,0 +1,118 @@
+"""Functional view of a Push distribution over the stacked particle axis
+(counterpart of ``repro.core.functional``).
+
+Params of all particles live in one tree with a leading particle axis;
+every particle-local computation runs over that axis at once (the model
+functions take it explicitly), and the all-to-all of SVGD is the stacked
+``(n, D)`` matrix itself.
+
+Elastic stores: stacked trees are capacity-padded and ``mask`` is the
+store's ``(capacity,)`` active mask. Every masked op uses ``where`` (not
+multiply) so garbage in dead slots — even NaN — never leaks into live
+results.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .tree import tree_flatten, tree_map
+
+
+def flatten_stacked(stacked):
+    """(tree with leading n) -> ((n, D) matrix, unravel).
+
+    Columns follow ``jax.flatten_util.ravel_pytree``: leaves in sorted
+    dict-key order, each raveled row-major. ``unravel`` maps an (n, D)
+    matrix back to the stacked tree (the reference unravels one particle
+    and vmaps); its leaves are views of the matrix."""
+    leaves, unflatten = tree_flatten(stacked, sort_keys=True)
+    n = leaves[0].shape[0]
+    shapes = [tuple(x.shape[1:]) for x in leaves]
+    sizes = [x[0].numel() for x in leaves]
+    flat = torch.cat([x.reshape(n, -1) for x in leaves], dim=1)
+
+    def unravel(mat):
+        parts = mat.split(sizes, dim=1)
+        return unflatten([p.reshape((mat.shape[0],) + s)
+                          for p, s in zip(parts, shapes)])
+
+    return flat, unravel
+
+
+def expand_mask(mask, ndim: int):
+    """(P,) mask broadcast-shaped against a (P, ...) tensor of `ndim`."""
+    return mask.reshape(mask.shape + (1,) * (ndim - 1))
+
+
+def masked_select(mask, new_tree, old_tree):
+    """Per-slot select: live slots take `new`, dead slots keep `old` (the
+    frozen padding row) — the update rule of every masked train step."""
+    return tree_map(
+        lambda nw, od: torch.where(expand_mask(mask, nw.dim()) > 0, nw, od),
+        new_tree, old_tree)
+
+
+def masked_mean(tree, mask):
+    """Mean over the leading particle axis restricted to live slots."""
+    live = mask.float().sum().clamp(min=1.0)
+    return tree_map(lambda o: torch.where(expand_mask(mask, o.dim()) > 0,
+                                          o, 0.0).sum(0) / live, tree)
+
+
+def ensemble_value_and_grad(loss_fn: Callable):
+    """``f(stacked_params, batch) -> (losses (P,), grads)``: every
+    particle sees the same batch.
+
+    ``loss_fn(stacked_params, batch) -> (losses (P,), metrics)`` runs the
+    forward over the explicit particle axis; one backward of
+    ``losses.sum()`` then gives each particle's gradient. Particles share
+    no parameters, so d(sum)/d(theta_i) = d(loss_i)/d(theta_i): this is
+    the reference's ``vmap(value_and_grad)``."""
+
+    def f(stacked_params, batch):
+        leaves, unflatten = tree_flatten(stacked_params)
+        with torch.enable_grad():
+            req = [x.detach().requires_grad_(True) for x in leaves]
+            losses, _ = loss_fn(unflatten(req), batch)
+            grads = torch.autograd.grad(losses.sum(), req)
+        return losses.detach(), unflatten(list(grads))
+
+    return f
+
+
+def ensemble_step(loss_fn: Callable, optimizer):
+    """One train step for all particles: grads + optimizer update.
+
+    ``mask=None`` is the dense form; with a (capacity,) active mask, dead
+    slots keep their params/opt state bit-for-bit (frozen padding rows)
+    and report loss 0.0."""
+    vag = ensemble_value_and_grad(loss_fn)
+
+    def step(stacked_params, stacked_opt_state, batch, mask=None):
+        losses, grads = vag(stacked_params, batch)
+        new_p, new_s = optimizer.update(stacked_params, grads,
+                                        stacked_opt_state)
+        if mask is not None:
+            new_p = masked_select(mask, new_p, stacked_params)
+            new_s = masked_select(mask, new_s, stacked_opt_state)
+            losses = torch.where(mask > 0, losses, 0.0)
+        return new_p, new_s, losses
+
+    return step
+
+
+def ensemble_predict(forward: Callable):
+    """hat f(x) = (1/n) sum_i nn_{theta_i}(x); with a mask, the BMA
+    averages live slots only. ``forward(stacked_params, batch)`` returns
+    member outputs with the particle axis leading."""
+
+    def f(stacked_params, batch, mask=None):
+        with torch.no_grad():
+            outs = forward(stacked_params, batch)
+        if mask is None:
+            return tree_map(lambda o: o.mean(0), outs)
+        return masked_mean(outs, mask)
+
+    return f

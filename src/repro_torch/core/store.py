@@ -96,6 +96,13 @@ class ParticleStore:
             return [pid for pid, _ in
                     sorted(self._slot_of.items(), key=lambda kv: kv[1])]
 
+    def slot_of(self, pid: int) -> int:
+        with self._lock:
+            return self._slot_of[pid]
+
+    def __len__(self) -> int:
+        return len(self._slot_of)
+
     def register(self, pid: int) -> int:
         """Allocate a slot for ``pid`` (a freed one when possible; grow to
         the next power of two — a generation bump — only when full). The
@@ -189,10 +196,9 @@ class ParticleStore:
         rows = self._rows.get(key, {})
         if slot in rows:
             return rows[slot]
-        st = self._stacked.get(key)
-        if st is None or slot not in self._present.get(key, ()):
+        if key not in self._stacked or slot not in self._present.get(key, ()):
             raise KeyError(f"store has no {key!r} in slot {slot}")
-        return tree_map(lambda x: x[slot], st)
+        return tree_map(lambda x: x[slot], self._stacked[key])
 
     def read(self, key: str, pid: int):
         """View of one particle's entry (no copy)."""
@@ -245,6 +251,19 @@ class ParticleStore:
         with self._lock:
             return self._flush(key)
 
+    def dense(self, key: str):
+        """Live rows only, stacked in slot order (leading dim = live
+        count): for consumers that must never see a padding slot
+        (serve-time SWAG sampling). With every slot live this is the
+        canonical stacked tree itself, not a copy."""
+        with self._lock:
+            st = self._flush(key)
+            slots = sorted(self._slot_of.values())
+            if len(slots) == self.capacity:
+                return st
+            idx = torch.tensor(slots, device=self.device)
+            return tree_map(lambda x: x.index_select(0, idx), st)
+
     def checkout(self, key: str):
         """Flush and hand the stacked tree to the caller, who must
         ``commit`` it (or its update) back."""
@@ -266,7 +285,7 @@ class ParticleStore:
         with self._lock:
             cohort = self._checkout_cohort.pop(key, None)
             n = cohort[0] if cohort is not None else self.capacity
-            if _leading(stacked) != n:
+            if _leading(stacked) not in (None, n):     # None: a leafless tree
                 raise ValueError(f"stacked {key!r} has leading dim "
                                  f"{_leading(stacked)}, expected {n}")
             self.stats["commits"] += 1

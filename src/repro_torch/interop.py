@@ -19,11 +19,12 @@ def _to_tensor(x, device):
     a = np.asarray(x)
     if not a.flags.writeable:             # e.g. np.asarray of a jax array
         a = a.copy()
+    # ascontiguousarray turns a 0-d array into shape (1,): reshape it back
+    a = np.ascontiguousarray(a).reshape(a.shape)
     if a.dtype.name == "bfloat16":          # ml_dtypes: no numpy<->torch map
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(a)
     return t if device is None else t.to(device)
 
 

@@ -10,6 +10,10 @@ build, and a finished build is reused by later processes. ``build_all()``
 starts one ``nvcc`` per source at once; ``load(name)`` returns the loaded
 ``ctypes.CDLL``.
 
+The wrappers share three helpers: ``entry`` binds a C entry point (every
+one returns the launch's ``cudaError`` code), ``raise_on`` turns that code
+into an error, and ``check`` validates a tensor argument.
+
 Nothing here runs at import: the CPU test suite imports every module on a
 machine with no ``nvcc`` and no card.
 """
@@ -22,7 +26,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -43,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, object] = {}
 
 
 def sources() -> List[str]:
@@ -126,3 +133,35 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
         return lib
+
+
+def entry(lib: str, fn: str, argtypes: Sequence):
+    """The C entry point ``fn`` of ``csrc/<lib>.cu`` (built and loaded on
+    first use) with its argument types set; it returns a cudaError code."""
+    f = _entries.get((lib, fn))
+    if f is None:
+        f = getattr(load(lib), fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _entries[(lib, fn)] = f
+    return f
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise unless the launch's cudaError code ``rc`` is 0."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def check(name, t, device, shape=None, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` CUDA tensor on
+    ``device`` (of ``shape`` when given)."""
+    if not isinstance(t, torch.Tensor) or not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")

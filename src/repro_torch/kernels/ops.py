@@ -6,15 +6,46 @@ from __future__ import annotations
 
 from . import paged_decode_attention as _paged
 from . import ref
+from . import svgd_rbf as _svgd
+from . import swag_moments as _swag
+
+
+def _route(x, kernel, plain, name):
+    if x.is_cuda:
+        return kernel
+    if x.device.type == "cpu":
+        return plain
+    raise ValueError(f"no {name} for device {x.device}")
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     """q (P, B, H, hd); pages (P, NP, ps, KVH, hd); block_tables
     (B, n_pmax) int32; seq_lens (B,) int32 -> (P, B, H, hd)."""
-    if q.is_cuda:
-        return _paged.paged_decode_attention(q, k_pages, v_pages,
-                                             block_tables, seq_lens)
-    if q.device.type == "cpu":
-        return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                          seq_lens)
-    raise ValueError(f"no paged_decode_attention for device {q.device}")
+    fn = _route(q, _paged.paged_decode_attention, ref.paged_decode_attention,
+                "paged_decode_attention")
+    return fn(q, k_pages, v_pages, block_tables, seq_lens)
+
+
+def pairwise_sqdist(theta, mask=None):
+    """theta (n, D) -> (n, n) squared distances; dead rows read as 0."""
+    fn = _route(theta, _svgd.pairwise_sqdist, ref.pairwise_sqdist,
+                "pairwise_sqdist")
+    return fn(theta, mask)
+
+
+def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
+    """(n, D) SVGD force from the (n, n) kernel glue; dead rows give 0."""
+    fn = _route(theta, _svgd.svgd_force, ref.svgd_force, "svgd_force")
+    return fn(theta, grads, ktn, ksum, inv_ell2, mask)
+
+
+def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None):
+    """Stacked SWAG moment update (+ the deviation-ring write, in place)."""
+    fn = _route(mean, _swag.moments, ref.swag_moments, "swag_moments")
+    return fn(mean, sq, theta, n, mask, dev, slot)
+
+
+def diag_std(mean, sq):
+    """sqrt(max(sq - mean^2, 1e-30))."""
+    fn = _route(mean, _swag.diag_std, ref.diag_std, "diag_std")
+    return fn(mean, sq)

@@ -25,21 +25,12 @@ import math
 
 import torch
 
+from .build import entry, raise_on
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from . import build
-        fn = build.load("paged_decode_attention").paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p])
 
 
 def _check(q, k_pages, v_pages, block_tables, seq_lens):
@@ -93,7 +84,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _kernel()
+    fn = entry("paged_decode_attention", "paged_decode_attention", _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -101,9 +92,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
                 P, B, H, KVH, hd, NP, ps, block_tables.shape[1],
                 k_pages.stride(0), _DTYPE_CODE[q.dtype],
                 _DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode_attention launch failed: "
-                           f"cudaError {rc}")
+    raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 

@@ -2,10 +2,14 @@
 
 Ported from ``repro.kernels.ref`` with the particle axis explicit, as the
 CUDA kernels take it. The CPU path runs these; on the card they are the
-reference each kernel is held against. Both functions zero the value rows
-of invalid columns as well as their weights, like the TPU kernel does:
-stale slots past a sequence's tail may hold NaN, and ``0 * NaN`` would
-leak it into the output.
+reference each kernel is held against.
+
+Both attention functions zero the value rows of invalid columns as well
+as their weights, like the TPU kernel does: stale slots past a sequence's
+tail may hold NaN, and ``0 * NaN`` would leak it into the output. The SVGD
+and SWAG functions take the store's row mask the same way: a dead row is
+selected away (``where``), never multiplied, so NaN in a padding slot
+cannot leak.
 """
 from __future__ import annotations
 
@@ -52,3 +56,58 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     out = decode_attention(q, k, v, pos)
     return torch.where((seq_lens >= 0)[None, :, None, None], out,
                        torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _live(mask, x):
+    """(P,) mask -> bool tensor broadcast against x (P, ...)."""
+    return mask.reshape(mask.shape + (1,) * (x.dim() - 1)) > 0
+
+
+def pairwise_sqdist(theta, mask=None):
+    """theta (n, D) -> (n, n) squared distances, the reference oracle's
+    Gram form clamped at 0; dead rows read as zeros."""
+    if mask is not None:
+        theta = torch.where(_live(mask, theta), theta, 0.0)
+    sq = (theta * theta).sum(1)
+    return (sq[:, None] + sq[None, :] - 2.0 * theta @ theta.T).clamp(min=0.0)
+
+
+def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
+    """phi = ktn @ g - (ksum * theta - ktn @ theta) * inv_ell2, the TPU
+    force kernel's formula; theta, grads (n, D), ktn (n, n) = K^T / n_eff,
+    ksum (n,) = K.sum(0) / n_eff. Dead rows read as zeros and come out as
+    exact zeros."""
+    if mask is not None:
+        live = _live(mask, theta)
+        theta = torch.where(live, theta, 0.0)
+        grads = torch.where(live, grads, 0.0)
+    phi = ktn @ grads - (ksum[:, None] * theta - ktn @ theta) * inv_ell2
+    return phi if mask is None else torch.where(live, phi, 0.0)
+
+
+def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None):
+    """One SWAG collection over stacked rows: mean, sq, theta (P, ...),
+    n (P,) -> (mean', sq') = ((mean n + theta)/(n+1), (sq n + theta^2)/
+    (n+1)); dead rows keep their values. With dev (P, R, ...) and slot
+    (P,) int32, ``dev[p, slot[p]] = theta - mean'`` for the live rows, in
+    place."""
+    nn = n.reshape(n.shape + (1,) * (mean.dim() - 1))
+    new_mean = (mean * nn + theta) / (nn + 1)
+    new_sq = (sq * nn + theta * theta) / (nn + 1)
+    if mask is not None:
+        live = _live(mask, mean)
+        new_mean = torch.where(live, new_mean, mean)
+        new_sq = torch.where(live, new_sq, sq)
+    if dev is not None:
+        rows = torch.arange(mean.shape[0], device=mean.device)
+        slot = slot.long()
+        deviation = theta - new_mean
+        if mask is not None:
+            deviation = torch.where(live, deviation, dev[rows, slot])
+        dev[rows, slot] = deviation
+    return new_mean, new_sq
+
+
+def diag_std(mean, sq):
+    """sqrt(max(sq - mean^2, 1e-30)), the SWAG diagonal scale."""
+    return torch.sqrt(torch.clamp(sq - mean * mean, min=1e-30))

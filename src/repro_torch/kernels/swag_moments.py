@@ -1,0 +1,94 @@
+"""SWAG moment passes: the CUDA kernels' wrappers (``csrc/swag_moments.cu``).
+
+The kernels replace the Pallas TPU kernels ``repro.kernels.swag_moments``
+``moments_flat`` and ``diag_std_flat``. They run over the store's stacked
+rows, one leaf at a time (no flatten copy):
+
+    moments(mean, sq, theta, n, mask=None, dev=None, slot=None)
+        mean, sq, theta (P, ...) fp32 contiguous; n (P,) fp32 per row;
+        mask (P,) fp32 or None -> (mean', sq'); a dead row is copied
+        through bit for bit. With dev (P, R, ...) and slot (P,) int32 the
+        live rows' deviations theta - mean' land in dev[p, slot[p]], in
+        place.
+    diag_std(mean, sq) -> sqrt(max(sq - mean^2, 1e-30)), any shape.
+
+The wrappers take CUDA tensors only and raise on anything else; the CPU
+goes through ``kernels.ops`` to the plain versions in ``kernels.ref``.
+``<wrapper>.launches`` counts the wrapper's launches in this process.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import check, entry, raise_on
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_MOMENTS_ARGS = [_P] * 7 + [_I] + [_P] * 2 + [_I, _L, _P]
+_DIAG_STD_ARGS = [_P] * 3 + [_L, _P]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def moments(mean, sq, theta, n, mask=None, dev=None, slot=None):
+    """One SWAG collection over one leaf's stacked rows (module docstring)."""
+    if not isinstance(mean, torch.Tensor) or mean.dim() < 1:
+        raise ValueError("mean must be a (P, ...) tensor")
+    device, shape = mean.device, tuple(mean.shape)
+    P = shape[0]
+    L = mean[0].numel() if P else 0
+    check("mean", mean, device)
+    check("sq", sq, device, shape)
+    check("theta", theta, device, shape)
+    check("n", n, device, (P,))
+    if mask is not None:
+        check("mask", mask, device, (P,))
+    if (dev is None) != (slot is None):
+        raise ValueError("pass dev and slot together")
+    R = 0
+    if dev is not None:
+        if dev.dim() < 2:
+            raise ValueError("dev must be (P, R, ...)")
+        R = dev.shape[1]
+        check("dev", dev, device, (P, R) + shape[1:])
+        check("slot", slot, device, (P,), torch.int32)
+    if P > 65535:
+        raise ValueError(f"at most 65535 rows, got {P}")
+    out_mean = torch.empty_like(mean)
+    out_sq = torch.empty_like(sq)
+    if mean.numel() == 0:
+        return out_mean, out_sq
+    with torch.cuda.device(device):
+        rc = entry("swag_moments", "swag_moments", _MOMENTS_ARGS)(
+            mean.data_ptr(), sq.data_ptr(), theta.data_ptr(), n.data_ptr(),
+            _ptr(mask), _ptr(dev), _ptr(slot), R,
+            out_mean.data_ptr(), out_sq.data_ptr(), P, L,
+            torch.cuda.current_stream(device).cuda_stream)
+    raise_on(rc, "swag moments")
+    moments.launches += 1
+    return out_mean, out_sq
+
+
+def diag_std(mean, sq):
+    """sqrt(max(sq - mean^2, 1e-30)) elementwise (module docstring)."""
+    if not isinstance(mean, torch.Tensor):
+        raise ValueError("mean must be a tensor")
+    check("mean", mean, mean.device)
+    check("sq", sq, mean.device, tuple(mean.shape))
+    out = torch.empty_like(mean)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(mean.device):
+        rc = entry("swag_moments", "swag_diag_std", _DIAG_STD_ARGS)(
+            mean.data_ptr(), sq.data_ptr(), out.data_ptr(), mean.numel(),
+            torch.cuda.current_stream(mean.device).cuda_stream)
+    raise_on(rc, "swag diag_std")
+    diag_std.launches += 1
+    return out
+
+
+moments.launches = 0
+diag_std.launches = 0

@@ -1,1 +1,2 @@
-"""Dense transformer blocks and the paged-decode model facade."""
+"""Transformer blocks, the ViT, and the model facade (paged LM decode,
+vision training)."""

@@ -1,10 +1,13 @@
-"""Model facade for the paged serving path (counterpart of
-``repro.models.api``: the dense branch of ``init_params`` and the paged
-continuous-batching entry points).
+"""Model facade (counterpart of ``repro.models.api``): the dense LM's
+paged continuous-batching entry points and the vision family's training
+forward and loss.
 
 ``init_params`` builds ONE particle's tree (no particle axis); the store
 stacks particles. Every other function takes the stacked tree with a
 leading particle axis ``P`` and returns per-particle outputs ``(P, ...)``.
+Batches carry no particle axis: every particle sees the same batch.
+
+Vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,) int}``.
 """
 from __future__ import annotations
 
@@ -16,10 +19,13 @@ from .blocks import dense_init, norm_apply, norm_init, paged_write_index
 from .transformer import (paged_guard, stack_apply_paged,
                           stack_apply_prefill_paged, stack_init,
                           stack_paged_init)
+from . import vit as vit_mod
 
 
 def init_params(gen, cfg):
     """One particle's params, drawn from ``gen`` on ``gen.device``."""
+    if cfg.family == "vision":
+        return vit_mod.vit_init(gen, cfg)
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     params = {
@@ -31,6 +37,28 @@ def init_params(gen, cfg):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size)
     return params
+
+
+def forward(params, batch, cfg):
+    """Training-style full forward. Returns (per-particle output, aux):
+    logits (P, B, n_classes) for the vision family."""
+    if cfg.family != "vision":
+        raise NotImplementedError(f"family {cfg.family!r} has no ported "
+                                  f"training forward")
+    return vit_mod.vit_apply(params, batch["images"], cfg), {}
+
+
+def loss_fn(params, batch, cfg):
+    """Returns (loss (P,), metrics): class cross-entropy and accuracy,
+    each averaged over the batch, one value per particle."""
+    out, _ = forward(params, batch, cfg)
+    logits = out.float()
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)                       # (P, B)
+    gold = logits.gather(-1, labels.expand(logits.shape[:2])[..., None])
+    loss = (lse - gold[..., 0]).mean(-1)
+    acc = (logits.argmax(-1) == labels).float().mean(-1)
+    return loss, {"loss": loss, "acc": acc}
 
 
 def _dtype(cfg):

@@ -1,6 +1,7 @@
 """Core NN blocks over an explicit leading particle axis.
 
-Counterpart of ``repro.models.blocks`` for the paged decode path. The
+Counterpart of ``repro.models.blocks`` for the paged decode path and the
+full-sequence (training) attention of the encoder stack. The
 reference writes each block for one particle and vmaps it over the
 ParticleStore's stacked axis; here every function takes the stacked form
 directly: parameter leaves carry a leading particle axis ``P`` and
@@ -59,11 +60,17 @@ def attn_init(gen, cfg, lead=()):
 
 
 def mlp_init(gen, cfg, lead=()):
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"the port runs swiglu MLPs, not {cfg.act}")
-    return {"wi": dense_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
-            "wg": dense_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
-            "wo": dense_init(gen, cfg.d_ff, cfg.d_model, lead=lead)}
+    if cfg.act == "swiglu":
+        return {"wi": dense_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
+                "wg": dense_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
+                "wo": dense_init(gen, cfg.d_ff, cfg.d_model, lead=lead)}
+    if cfg.act == "gelu":
+        return {"w1": dense_init(gen, cfg.d_model, cfg.d_ff, bias=True,
+                                 lead=lead),
+                "w2": dense_init(gen, cfg.d_ff, cfg.d_model, bias=True,
+                                 lead=lead)}
+    raise NotImplementedError(f"the port runs swiglu and gelu MLPs, not "
+                              f"{cfg.act}")
 
 
 # --------------------------------------------------------------------------
@@ -128,15 +135,21 @@ def attn_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def causal_attention(q, k, v):
-    """Plain masked-softmax causal attention for prefill.
-    q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd)."""
+def full_attention(q, k, v, *, causal: bool):
+    """Plain masked-softmax attention over a whole sequence (prefill, or
+    the encoder's bidirectional attention), differentiable by autograd.
+    q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd).
+
+    The reference runs its jnp flash attention with a custom VJP here
+    (``repro.models.blocks.flash_attention``), which no Pallas kernel
+    backs; the same softmax in plain PyTorch is its counterpart."""
     P, B, S, H, hd = q.shape
     KVH = k.shape[3]
     qq = q.float().reshape(P, B, S, KVH, H // KVH, hd) / math.sqrt(hd)
     s = torch.einsum("pbqngh,pbknh->pbngqk", qq, k.float())
-    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    s = s.masked_fill(~causal, NEG_INF)
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
     o = torch.einsum("pbngqk,pbknh->pbqngh", torch.softmax(s, dim=-1),
                      v.float())
     return o.reshape(P, B, S, H, hd).to(q.dtype)
@@ -208,7 +221,7 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, block_table_row,
     positions = torch.arange(Sp, device=x.device)
     q, k, v = attn_qkv(p, x, cfg,
                        positions if cfg.rope_theta > 0 else None)
-    out = causal_attention(q, k, v)
+    out = full_attention(q, k, v, causal=True)
     out = dense_apply(p["wo"], out.reshape(P, B, Sp, -1))
     ps = pages["k"].shape[2]
     pos = positions[:n_tokens]
@@ -216,6 +229,20 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, block_table_row,
     pages["k"][:, page, pos % ps] = k[:, 0, :n_tokens].to(pages["k"].dtype)
     pages["v"][:, page, pos % ps] = v[:, 0, :n_tokens].to(pages["v"].dtype)
     return out, pages
+
+
+def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal"):
+    """Full-sequence attention (training). x (P, B, S, D); positions
+    ``arange(S)`` feed RoPE when the config has it (the ViT keeps the
+    default theta, on top of its learned positions). ``kind`` is "causal"
+    or "bidir". Returns (P, B, S, D)."""
+    if kind not in ("causal", "bidir"):
+        raise NotImplementedError(f"attention kind {kind!r} is not ported")
+    P, B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
+    out = full_attention(q, k, v, causal=kind == "causal")
+    return dense_apply(p["wo"], out.reshape(P, B, S, -1))
 
 
 def attn_pages_init(cfg, num_pages: int, page_size: int, *, dtype, device,
@@ -226,6 +253,10 @@ def attn_pages_init(cfg, num_pages: int, page_size: int, *, dtype, device,
 
 
 def mlp_apply(p, x, cfg):
-    """SwiGLU: wo(silu(wg x) * wi x)."""
-    h = F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x)
-    return dense_apply(p["wo"], h)
+    """SwiGLU, wo(silu(wg x) * wi x); or GELU, w2(gelu(w1 x)) with the
+    tanh approximation ``jax.nn.gelu`` defaults to."""
+    if "wi" in p:
+        h = F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x)
+        return dense_apply(p["wo"], h)
+    h = F.gelu(dense_apply(p["w1"], x), approximate="tanh")
+    return dense_apply(p["w2"], h)

@@ -1,27 +1,32 @@
-"""Layer-stacked LM over the paged KV pool (counterpart of
-``repro.models.transformer``, paged decode path).
+"""Layer-stacked transformer (counterpart of ``repro.models.transformer``):
+the paged decode path of the LM and the full-sequence training layer of
+the encoder stack (``enc_attn_mlp``, the ViT's layers).
 
 The stack is ``cfg.head_layers + cfg.pattern * cfg.n_units +
 cfg.tail_layers``. Repeated pattern units keep the reference's storage:
 params and pages stacked on an ``n_units`` axis, which in the port sits
 right after the particle axis (``(P, n_units, ...)``). The reference scans
 over units; here a Python loop indexes each unit's params and pages as
-views, so the in-place page writes land in the stacked pool.
+views, so the in-place page writes land in the stacked pool. The
+training path unbinds each unit leaf once (``unbind_units``: ``unbind``
+backpropagates as one stack, where per-unit indexing would add a
+full-size zero gradient per unit).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from ..core.tree import tree_map
-from .blocks import (attn_apply_paged, attn_apply_prefill_paged, attn_init,
-                     attn_pages_init, mlp_apply, mlp_init, norm_apply,
-                     norm_init)
+from .blocks import (attn_apply_fullseq, attn_apply_paged,
+                     attn_apply_prefill_paged, attn_init, attn_pages_init,
+                     mlp_apply, mlp_init, norm_apply, norm_init)
 
 PAGED_KINDS = ("attn_mlp",)
+FULL_KINDS = {"attn_mlp": "causal", "enc_attn_mlp": "bidir"}
 
 
 def layer_init(kind: str, gen, cfg, lead=()):
-    if kind != "attn_mlp":
+    if kind not in FULL_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     dev = gen.device
     return {"ln1": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead),
@@ -38,6 +43,30 @@ def stack_init(gen, cfg) -> Dict[str, Any]:
         "units": tuple(layer_init(k, gen, cfg, lead=(cfg.n_units,))
                        for k in cfg.pattern),
     }
+
+
+def unbind_units(tree):
+    """A (P, n_units, ...) stacked unit tree -> one tree of (P, ...) views
+    per unit, through one ``unbind(1)`` per leaf."""
+    if isinstance(tree, dict):
+        per = {k: unbind_units(v) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(_n(per))]
+    if isinstance(tree, (tuple, list)):
+        per = [unbind_units(t) for t in tree]
+        return [type(tree)(p[i] for p in per) for i in range(_n(per))]
+    return list(tree.unbind(1))
+
+
+def _n(per):
+    return len(next(iter(per.values())) if isinstance(per, dict) else per[0])
+
+
+def layer_apply_full(kind: str, p, x, cfg):
+    """One pre-norm attention + MLP layer over a whole sequence.
+    x (P, B, S, D) -> (P, B, S, D)."""
+    x = x + attn_apply_fullseq(p["attn"], norm_apply(p["ln1"], x), cfg,
+                               kind=FULL_KINDS[kind])
+    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg)
 
 
 def paged_guard(cfg):

@@ -1,0 +1,62 @@
+"""Runtime protocol: ``backend="nel"|"compiled"`` selects an object
+(counterpart of ``repro.runtime.backends``).
+
+  * ``CompiledRuntime`` — the fused stacked-axis path: an algorithm's
+    ``_fused_infer`` runs over the store's stacked state (checkout ->
+    epochs -> commit); prediction is one forward over all particles,
+    averaged over the live slots. Every ported algorithm has a fused
+    form, so there is no fallback to the actor path.
+  * ``NelRuntime`` — the reference's default, the paper-faithful actor
+    path. Actor messaging is not ported yet (ROADMAP.md, module queue:
+    the actor runtime), so its ``infer`` and ``predict`` raise; pass
+    ``backend="compiled"``.
+"""
+from __future__ import annotations
+
+from ..core.tree import to_device
+from . import specs
+
+BACKENDS = ("nel", "compiled")
+
+
+class NelRuntime:
+    name = "nel"
+
+    def __init__(self, pd):
+        self.pd = pd
+
+    @staticmethod
+    def _missing():
+        return NotImplementedError(
+            "the actor-messaging (NEL) backend is not ported yet (ROADMAP.md, "
+            "module queue: the actor runtime); pass backend=\"compiled\"")
+
+    def infer(self, algo, dataloader, epochs: int, **kw):
+        raise self._missing()
+
+    def predict(self, pd, batch):
+        raise self._missing()
+
+
+class CompiledRuntime(NelRuntime):
+    name = "compiled"
+
+    def infer(self, algo, dataloader, epochs: int, **kw):
+        return algo._fused_infer(dataloader, epochs, **kw)
+
+    def predict(self, pd, batch):
+        if not pd.particle_ids():
+            raise ValueError("the PushDistribution holds no particles")
+        # mask and stacked params from one atomic store snapshot: a mask
+        # bit never goes live before its slot's data
+        _, mask, stacked = pd.store.snapshot("params")
+        return specs.ensemble_predict(pd.module.forward)(
+            stacked, to_device(batch, pd.device), mask)
+
+
+def make_runtime(backend: str, pd):
+    if backend == "nel":
+        return NelRuntime(pd)
+    if backend == "compiled":
+        return CompiledRuntime(pd)
+    raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")

@@ -1,18 +1,42 @@
-"""Serving step builders over an explicit leading particle axis.
+"""Step builders over an explicit leading particle axis (counterpart of
+``repro.runtime.specs``).
 
-Counterparts of ``repro.runtime.specs.paged_decode_step`` and
-``paged_prefill``. The reference wraps a per-particle function in a
-vmapped, donated ProgramSpec; here the model functions already take the
-stacked particle axis, so a builder returns a plain function
-``fused(stacked_params, pages, packed, mask) -> (heads, pages)`` that
-unpacks the step input, runs the model over all particles at once and
-reduces with ``reduce_fn(member_logits (P, B, V), mask)``. Pages are
-updated in place. ``packed`` is the device copy of the scheduler's one
-int32 staging buffer (one host-to-device transfer per step).
+The reference wraps a per-particle function in a vmapped, donated
+ProgramSpec that its ProgramCache compiles; here the model functions
+already take the stacked particle axis and run eagerly, so a builder
+returns a plain function over the stacked state.
+
+Training: ``ensemble_step`` and ``ensemble_predict`` (bodies in
+``core.functional``); the reference's masked ``map_step`` has no
+counterpart, because SWAG collection (``bdl.swag.swag_collect``) takes
+the mask itself and keeps dead rows bit for bit. Serving: ``paged_decode_step`` and
+``paged_prefill`` return ``fused(stacked_params, pages, packed, mask) ->
+(heads, pages)``, which unpacks the step input, runs the model over all
+particles at once and reduces with ``reduce_fn(member_logits (P, B, V),
+mask)``. Pages are updated in place. ``packed`` is the device copy of the
+scheduler's one int32 staging buffer (one host-to-device transfer per
+step).
 """
 from __future__ import annotations
 
 from typing import Callable
+
+from ..core import functional
+from ..core import precision as precision_mod
+
+
+def ensemble_step(loss_fn: Callable, optimizer, precision=None) -> Callable:
+    """One train step for all particles: ``step(params, opt_state, batch,
+    mask=None) -> (params, opt_state, losses)``. Only the fp32 preset is
+    ported: any other ``precision`` raises."""
+    precision_mod.get(precision)
+    return functional.ensemble_step(loss_fn, optimizer)
+
+
+def ensemble_predict(forward: Callable) -> Callable:
+    """hat f(x) = (1/n) sum_i nn_{theta_i}(x): ``f(stacked_params, batch,
+    mask=None)``, mask-weighted over live slots."""
+    return functional.ensemble_predict(forward)
 
 
 def paged_decode_step(decode_fn: Callable, reduce_fn: Callable) -> Callable:

@@ -1,9 +1,10 @@
-"""Continuous-batching BMA decode over a paged KV pool."""
+"""Posterior-predictive serving: BMA over particles and continuous-batching
+BMA decode over a paged KV pool."""
 from .batcher import DecodeScheduler, Generation
 from .engine import PagedDecodeEngine, PredictiveEngine
 from .paging import PagePool, create_kv_pages
-from .service import DecodeService, serve_decode
+from .service import DecodeService, PredictiveService, serve, serve_decode
 
 __all__ = ["DecodeScheduler", "Generation", "PagedDecodeEngine",
            "PredictiveEngine", "PagePool", "create_kv_pages",
-           "DecodeService", "serve_decode"]
+           "DecodeService", "PredictiveService", "serve", "serve_decode"]

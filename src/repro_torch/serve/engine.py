@@ -1,34 +1,50 @@
 """Serving engines over the ParticleStore (counterpart of
-``repro.serve.engine``: ``PagedDecodeEngine`` and the ``PredictiveEngine``
-parts it uses).
+``repro.serve.engine``: ``PredictiveEngine.predict`` and
+``PagedDecodeEngine``).
 
 The reference compiles each serving step once through its ProgramCache;
-the port runs each step eagerly over the store's stacked particle axis —
-every particle in one batched pass per layer, the BMA heads and greedy
-sampling reduced on the device, one small device-to-host copy of the
-heads per step.
+the port runs each step eagerly over the stacked particle axis — every
+particle in one batched pass per layer, the BMA heads (and, for decode,
+greedy sampling) reduced on the device.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..core.store import ParticleStore
+from ..core.tree import tree_leaves, to_device
+from ..runtime.bucketing import bucket_size, pad_rows
 from ..runtime.specs import paged_decode_step, paged_prefill
 from . import uncertainty
 
 
 class PredictiveEngine:
-    """Posterior-predictive core over a ParticleStore: serves the stacked
-    ``key`` tree (cached between store commits by the store's version)
-    with the store's active mask."""
+    """Posterior-predictive core: one BMA forward per request batch.
 
-    def __init__(self, *, store: ParticleStore, key: str = "params",
-                 kind: str = "classify"):
+    ``forward(stacked_params, batch) -> member outputs (P, B, ...)``.
+    Serves either the store's stacked ``key`` tree (cached between store
+    commits by the store's version) with the store's active mask, or a
+    static stacked ``params`` tree (serve-time SWAG samples) with an
+    all-ones mask: exactly one of ``store=`` and ``params=``. ``kind`` is
+    "classify" (member outputs are logits) or "regress"."""
+
+    def __init__(self, forward: Optional[Callable] = None, *,
+                 store: Optional[ParticleStore] = None, key: str = "params",
+                 params: Any = None, kind: str = "classify"):
+        if (store is None) == (params is None):
+            raise ValueError("pass exactly one of store= or params=")
+        if kind not in uncertainty.KINDS:
+            raise ValueError(f"kind must be one of {uncertainty.KINDS}")
+        self.forward = forward
         self.store = store
         self.key = key
         self.kind = kind
+        self._static_params = params
+        self._static_mask = None if params is None else torch.ones(
+            tree_leaves(params)[0].shape[0],
+            device=tree_leaves(params)[0].device)
         self._params_version: Any = None
         self._params_cache: Any = None
         self.stats = {"calls": 0, "param_refreshes": 0}
@@ -36,11 +52,29 @@ class PredictiveEngine:
     def _mask_and_params(self):
         """Consistent (mask, stacked params) pair: one atomic store
         snapshot, so a mask bit never goes live before its slot's data."""
+        if self.store is None:
+            return self._static_mask, self._static_params
         v, mask, stacked = self.store.snapshot(self.key)
         if v != self._params_version:
             self._params_cache, self._params_version = stacked, v
             self.stats["param_refreshes"] += 1
         return mask, self._params_cache
+
+    def predict(self, batch):
+        """BMA forward over a request batch (leading axis B, numpy or
+        tensors). Pads B up to the power-of-two bucket (repeating the last
+        row), runs every member at once, and slices the heads back to B."""
+        if self.forward is None:
+            raise RuntimeError("this engine has no forward")
+        self.stats["calls"] += 1
+        mask, stacked = self._mask_and_params()
+        batch = to_device(batch, mask.device)
+        m = tree_leaves(batch)[0].shape[0]
+        padded = pad_rows(batch, bucket_size(m))
+        with torch.no_grad():
+            outs = self.forward(stacked, padded)
+            heads = uncertainty.predictive_heads(outs, self.kind, mask)
+        return {k: v[:m] for k, v in heads.items()}
 
     def snapshot_stats(self) -> Dict[str, int]:
         return dict(self.stats)
@@ -65,7 +99,7 @@ class PagedDecodeEngine(PredictiveEngine):
     def __init__(self, decode_fn: Callable, prefill_fn: Callable, *,
                  store: ParticleStore, n_pmax: int, key: str = "params",
                  pages_key: str = "kv_pages"):
-        super().__init__(store=store, key=key, kind="classify")
+        super().__init__(store=store, key=key)
         self.decode_fn = decode_fn
         self.prefill_fn = prefill_fn
         self.pages_key = pages_key

@@ -1,10 +1,15 @@
-"""Continuous-batching LM decode front-end (counterpart of
-``repro.serve.service``: ``serve_decode`` and ``DecodeService``; the
-classification ``serve`` waits for a later slice).
+"""Serving front-ends (counterpart of ``repro.serve.service``).
+
+    svc = serve(infer_or_pd)                   # after bayes_infer(...)
+    heads = svc.predict_batch(batch)           # BMA heads, leading axis B
 
     svc = serve_decode(pd, cfg, num_pages=256, page_size=16)
     gen = svc.generate(prompt_ids, max_new=32)       # Generation
     h   = svc.generate_async(ids, max_new=8)         # streaming handle
+
+The reference's request coalescing (``MicroBatcher``, ``predict`` and
+``predict_async`` of one example) waits for a later slice: the port's
+``PredictiveService`` serves caller-assembled batches.
 """
 from __future__ import annotations
 
@@ -17,13 +22,71 @@ from ..core.messages import PFuture
 from ..models import api as models_api
 from ..obs import clock
 from .batcher import DecodeScheduler, Generation
-from .engine import PagedDecodeEngine
+from .engine import PagedDecodeEngine, PredictiveEngine
 from .paging import PagePool, create_kv_pages
 
 
 def percentile(xs: List[float], q: float) -> float:
     """Linear-interpolated percentile (q in [0, 100]); 0.0 on empty input."""
     return float(np.percentile(xs, q)) if len(xs) else 0.0
+
+
+class PredictiveService:
+    """``serve(...)`` handle: batched posterior-predictive BMA."""
+
+    def __init__(self, engine: PredictiveEngine):
+        self.engine = engine
+        self._t_start = clock.now()
+        self._batches = 0
+        self._rows = 0
+
+    def predict_batch(self, batch):
+        """A caller-assembled batch straight through the engine; returns
+        the heads dict (leading axis B)."""
+        out = self.engine.predict(batch)
+        self._batches += 1
+        self._rows += len(next(iter(batch.values())))
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        elapsed = max(clock.now() - self._t_start, 1e-9)
+        return {"batches": self._batches, "requests": self._rows,
+                "engine": self.engine.snapshot_stats(),
+                "requests_per_s": self._rows / elapsed}
+
+    def close(self):
+        """Nothing runs in the background; kept for the context-manager
+        protocol the reference's service has."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _resolve_pd(obj):
+    """Accept an Infer, a PushDistribution, or anything with .push_dist."""
+    pd = getattr(obj, "push_dist", obj)
+    if not hasattr(pd, "store") or not hasattr(pd, "module"):
+        raise TypeError(f"cannot serve {type(obj).__name__}: "
+                        "expected an Infer or PushDistribution")
+    return pd
+
+
+def serve(obj, *, kind: str = "classify", params: Any = None,
+          forward=None) -> PredictiveService:
+    """Turn a trained PushDistribution (or its Infer) into a batched
+    posterior-predictive service: BMA over the store's live ``"params"``,
+    or over a static stacked ``params=`` tree (the MultiSWAG serve-time
+    samples). ``forward`` defaults to the module's."""
+    pd = _resolve_pd(obj)
+    fwd = forward if forward is not None else pd.module.forward
+    if params is not None:
+        engine = PredictiveEngine(fwd, params=params, kind=kind)
+    else:
+        engine = PredictiveEngine(fwd, store=pd.store, kind=kind)
+    return PredictiveService(engine)
 
 
 class PendingGeneration:

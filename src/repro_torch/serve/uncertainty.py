@@ -1,20 +1,31 @@
 """Predictive heads computed on the device inside the serving step
-(counterpart of ``repro.serve.uncertainty``, classification heads).
+(counterpart of ``repro.serve.uncertainty``).
 
-For member outputs = logits (P, B, C), with the store's (P,) active mask
-weighting live slots only:
+For classification (member outputs = logits (P, B, C)), with the store's
+(P,) active mask weighting live slots only:
 
   mean            BMA predictive distribution p̄ = mean over live i of softmax(z_i)
   entropy         H[p̄]                       — total predictive uncertainty
   expected_entropy mean over live i of H[p_i] — aleatoric part
   mutual_info     H[p̄] − E_i H[p_i]          — epistemic part (BALD)
   variance        mean_c Var_i[p_i(c)]       — particle disagreement
+
+For regression (member outputs = point predictions (P, B, ...)):
+
+  mean / variance  moments of the particle mixture (epistemic)
+  entropy          Gaussian-approx 1/2 log(2 pi e sigma^2), averaged
+                   over outputs
+  mutual_info      = variance averaged over outputs
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 EPS = 1e-12
+
+KINDS = ("classify", "regress")
 
 
 def predictive_entropy(mean_probs):
@@ -37,11 +48,19 @@ def predictive_heads(member_outputs, kind: str = "classify", mask=None):
     """All heads from one stacked member-output tensor (P, B, C); returns
     a dict of tensors with leading batch axis B. ``mask`` is the store's
     (P,) active mask (None = every member live)."""
-    if kind != "classify":
-        raise NotImplementedError(f"kind {kind!r} is not ported")
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     x = member_outputs.float()
     if mask is None:
         mask = torch.ones(x.shape[0], device=x.device)
+    if kind == "regress":
+        mean, var = _mask_stats(x, mask)
+        var_scalar = var.mean(dim=tuple(range(1, var.dim()))) \
+            if var.dim() > 1 else var
+        ent = 0.5 * torch.log(2.0 * math.pi * math.e * (var_scalar + EPS))
+        return {"mean": mean, "variance": var, "entropy": ent,
+                "expected_entropy": torch.zeros_like(ent),
+                "mutual_info": var_scalar}
     probs = torch.softmax(x, dim=-1)                  # (P, B, C)
     logp = torch.log_softmax(x, dim=-1)
     member_ent = -(probs * logp).sum(-1)              # (P, B)

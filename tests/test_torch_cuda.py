@@ -4,25 +4,38 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The CUDA kernel is held against its plain PyTorch version on the card on
-the ``tests/test_paged.py`` sweep with a particle axis of 2 and NaN in
-every stale slot, within 1e-4 with fp32 and with bf16 pages: both sides
-widen the same bf16 values and accumulate in fp32, so bf16 pages leave
-no rounding gap between them. A small ``serve_decode`` then runs on the
-card, where every decode step goes through the kernel, and on the CPU,
-where the same weights take the plain version; both emit the same
-tokens.
+The paged-attention kernel is held against its plain PyTorch version on
+the card on the ``tests/test_paged.py`` sweep with a particle axis of 2
+and NaN in every stale slot, within 1e-4 with fp32 and with bf16 pages:
+both sides widen the same bf16 values and accumulate in fp32, so bf16
+pages leave no rounding gap between them. A small ``serve_decode`` then
+runs on the card, where every decode step goes through the kernel, and on
+the CPU, where the same weights take the plain version; both emit the
+same tokens.
+
+The SVGD and SWAG kernels are held against their plain versions on the
+``tests/test_kernels.py`` sweeps, dense and masked with NaN in the dead
+rows (sqdist 1e-3 absolute, force 2e-4 relative, moments and diag_std
+1e-5; dead rows of phi exact zeros, dead SWAG rows unchanged); they refuse
+non-contiguous and wrong-dtype inputs. Small SteinVGD and MultiSWAG runs
+of the ViT on the card match the same runs on the CPU within 1e-4, with
+one launch of each kernel per step, collection leaf or sampled leaf.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.bdl import MultiSWAG, SteinVGD
+from repro_torch.bdl import svgd as bsvgd
 from repro_torch.core import ParticleModule, PushDistribution
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.data import DataLoader
 from repro_torch.kernels import paged_decode_attention as kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import svgd_rbf, swag_moments
 from repro_torch.models import api
+from repro_torch.optim import sgd
 from repro_torch.serve import serve_decode
 
 pytestmark = pytest.mark.cuda
@@ -129,3 +142,227 @@ def test_serve_decode_kernel_matches_plain(dev):
         assert a.tokens == b.tokens
         assert np.allclose(a.entropy, b.entropy, atol=1e-4)
         assert np.allclose(a.mutual_info, b.mutual_info, atol=1e-4)
+
+
+SQDIST_SWEEP = [(2, 16), (4, 100), (8, 5000), (64, 12345), (3, 7)]
+FORCE_SWEEP = [(4, 100, 1.0), (8, 5000, 1.3), (16, 50000, 0.7), (3, 7, 2.0)]
+
+
+def _rows(seed, n, D, dev, dead=(), scale=0.05):
+    """theta, grads (n, D) and a mask with NaN planted in the dead rows."""
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((n, D)).astype(np.float32) * scale
+    g = rng.standard_normal((n, D)).astype(np.float32)
+    m = np.ones(n, np.float32)
+    m[list(dead)] = 0.0
+    t[m == 0] = np.nan
+    g[m == 0] = np.nan
+    return (torch.from_numpy(t).to(dev), torch.from_numpy(g).to(dev),
+            torch.from_numpy(m).to(dev) if dead else None)
+
+
+def _plain_force(t, g, ell, m=None):
+    """The SVGD force from the plain versions, past the kernels' dispatch."""
+    sq = ref.pairwise_sqdist(t, m)
+    return ref.svgd_force(t, g, *bsvgd.rbf_glue(sq, ell, m), m)
+
+
+@pytest.mark.parametrize("n,D", SQDIST_SWEEP)
+@pytest.mark.parametrize("masked", [False, True])
+def test_sqdist_kernel_matches_plain(dev, n, D, masked):
+    t, _, m = _rows(n * 3 + D, n, D, dev, dead=[n - 1] if masked else ())
+    before = svgd_rbf.pairwise_sqdist.launches
+    got = svgd_rbf.pairwise_sqdist(t, m)
+    torch.cuda.synchronize()
+    assert svgd_rbf.pairwise_sqdist.launches == before + 1
+    want = ref.pairwise_sqdist(t, m)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() < 1e-3
+    assert torch.equal(got, got.T) and got.min().item() >= 0.0
+
+
+@pytest.mark.parametrize("n,D,ell", FORCE_SWEEP + [(8, 5000, 0.0),
+                                                   (16, 50000, -1.0)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_force_kernel_matches_plain(dev, n, D, ell, masked):
+    dead = [0, n - 1] if masked and n > 3 else ([1] if masked else ())
+    t, g, m = _rows(n * 5 + D, n, D, dev, dead=dead)
+    before = svgd_rbf.svgd_force.launches
+    got = bsvgd.svgd_force(t, g, ell, mask=m)
+    torch.cuda.synchronize()
+    assert svgd_rbf.svgd_force.launches == before + 1
+    want = _plain_force(t, g, ell, m)
+    assert torch.isfinite(got).all()
+    rel = (got - want).abs().max().item() / (want.abs().max().item() + 1e-9)
+    assert rel < 2e-4
+    if masked:
+        assert got[m == 0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("n,D,ell", [(8, 5000, 0.0), (16, 50000, -1.0)])
+def test_force_kernel_repulsive_term_alone(dev, n, D, ell):
+    """With g = 0, phi is only the repulsive term, which the driving term
+    would swamp at a small lengthscale-scaled magnitude."""
+    t, _, m = _rows(n * 7 + D, n, D, dev, dead=[1])
+    g = torch.zeros_like(t)
+    got = bsvgd.svgd_force(t, g, ell, mask=m)
+    want = _plain_force(t, g, ell, m)
+    assert want.abs().max().item() > 0.0
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    assert rel < 2e-4
+
+
+def test_force_kernel_tiles_receiving_rows_at_n_256(dev):
+    """K^T / n at n = 256 exceeds a block's shared memory: row tiles."""
+    t, g, _ = _rows(256, 256, 3000, dev)
+    got = bsvgd.svgd_force(t, g, 0.0)
+    want = _plain_force(t, g, 0.0)
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    assert rel < 2e-4
+
+
+@pytest.mark.parametrize("P,shape,dead", [(3, (123,), ()), (4, (7, 3), (1,)),
+                                          (8, (8193,), (0, 5))])
+def test_moments_kernel_matches_plain(dev, P, shape, dead):
+    rng = np.random.default_rng(P)
+    R = 4
+
+    def arr(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+
+    mean, theta = arr(P, *shape), arr(P, *shape)
+    sq = mean ** 2 + arr(P, *shape).abs()
+    ring = arr(P, R, *shape)
+    n = torch.arange(P, dtype=torch.float32, device=dev)
+    slot = torch.tensor([(3 * p) % R for p in range(P)], dtype=torch.int32,
+                        device=dev)
+    m = torch.ones(P, device=dev)
+    m[list(dead)] = 0.0
+    theta[m == 0] = float("nan")
+    ring_k, ring_p = ring.clone(), ring.clone()
+    before = swag_moments.moments.launches
+    got = swag_moments.moments(mean, sq, theta, n, m, ring_k, slot)
+    torch.cuda.synchronize()
+    assert swag_moments.moments.launches == before + 1
+    want = ref.swag_moments(mean, sq, theta, n, m, ring_p, slot)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() < 1e-5
+    assert (ring_k - ring_p).abs().max().item() < 1e-5
+    for p in dead:
+        assert torch.equal(got[0][p], mean[p]) and torch.equal(got[1][p], sq[p])
+        assert torch.equal(ring_k[p], ring[p])
+
+
+@pytest.mark.parametrize("D", [1, 123, 8192, 8193, 100000])
+def test_diag_std_kernel_matches_plain(dev, D):
+    rng = np.random.default_rng(D)
+    mean = torch.from_numpy(rng.standard_normal((2, D)).astype(np.float32)).to(dev)
+    sq = mean ** 2 + torch.from_numpy(
+        np.abs(rng.standard_normal((2, D))).astype(np.float32)).to(dev)
+    sq[0, :D // 2] = 0.5 * mean[0, :D // 2] ** 2 - 1e-3
+    before = swag_moments.diag_std.launches
+    got = swag_moments.diag_std(mean, sq)
+    torch.cuda.synchronize()
+    assert swag_moments.diag_std.launches == before + 1
+    assert (got - ref.diag_std(mean, sq)).abs().max().item() < 1e-5
+
+
+def test_new_kernels_refuse_bad_inputs(dev):
+    t = torch.randn(4, 64, device=dev)
+    one = torch.ones(4, device=dev)
+    cases = [
+        (svgd_rbf.pairwise_sqdist, (t.T.contiguous().T,)),       # strided
+        (svgd_rbf.pairwise_sqdist, (t.double(),)),
+        (svgd_rbf.pairwise_sqdist, (t, torch.ones(3, device=dev))),
+        (svgd_rbf.svgd_force, (t, t.double(), torch.ones(4, 4, device=dev),
+                               one, torch.ones(1, device=dev))),
+        (svgd_rbf.svgd_force, (t, t, torch.ones(4, 3, device=dev), one,
+                               torch.ones(1, device=dev))),
+        (swag_moments.moments, (t, t, t.T.contiguous().T, one)),
+        (swag_moments.moments, (t, t, t, one.int())),
+        (swag_moments.moments, (t, t, t, one, None, torch.zeros(4, 2, 64,
+                                                                device=dev),
+                                one)),
+        (swag_moments.diag_std, (t, t.half())),
+        (swag_moments.diag_std, (t.cpu(), t.cpu())),
+    ]
+    for fn, args in cases:
+        before = fn.launches
+        with pytest.raises(ValueError):
+            fn(*args)
+        assert fn.launches == before
+
+
+def _vit_modules(dev, P):
+    cfg = configs.get("vit-mnist").replace(n_units=2, d_model=64, n_heads=4,
+                                           n_kv_heads=4, d_ff=128)
+    gen = torch.Generator().manual_seed(0)
+    inits = [api.init_params(gen, cfg) for _ in range(P)]
+    mods = []
+    for _ in range(2):
+        it = iter(inits)
+        mods.append(ParticleModule(lambda g, it=it: next(it),
+                                   lambda p, b: api.loss_fn(p, b, cfg),
+                                   lambda p, b: api.forward(p, b, cfg)[0],
+                                   cfg=cfg))
+    return cfg, mods
+
+
+def _close(a, b, tol):
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert (x.cpu() - y.cpu()).abs().max().item() < tol
+
+
+def test_svgd_training_on_card_matches_cpu(dev):
+    """6 particles in a store of capacity 8, median heuristic: every step
+    launches sqdist and the force once on the card."""
+    cfg, (mod_gpu, mod_cpu) = _vit_modules(dev, 6)
+    out = {}
+    for d, mod in ((dev, mod_gpu), (torch.device("cpu"), mod_cpu)):
+        algo = SteinVGD(mod, backend="compiled", capacity=8, device=d)
+        before = (svgd_rbf.pairwise_sqdist.launches,
+                  svgd_rbf.svgd_force.launches)
+        _, losses = algo.bayes_infer(DataLoader(cfg, batch_size=8,
+                                                num_batches=2), 2,
+                                     num_particles=6, lengthscale=0.0,
+                                     lr=0.05)
+        launches = (svgd_rbf.pairwise_sqdist.launches - before[0],
+                    svgd_rbf.svgd_force.launches - before[1])
+        assert launches == ((4, 4) if d == dev else (0, 0))
+        out[d.type] = (algo.p_parameters(), losses)
+    _close(out["cuda"][0], out["cpu"][0], 1e-4)
+    assert np.allclose(out["cuda"][1], out["cpu"][1], atol=1e-4)
+
+
+def test_multiswag_on_card_matches_cpu(dev):
+    cfg, (mod_gpu, mod_cpu) = _vit_modules(dev, 4)
+    n_leaves = None
+    out = {}
+    images = DataLoader(cfg, batch_size=6, num_batches=1, seed=1)
+    batch = next(iter(images))
+    for d, mod in ((dev, mod_gpu), (torch.device("cpu"), mod_cpu)):
+        algo = MultiSWAG(mod, backend="compiled", device=d)
+        before = swag_moments.moments.launches
+        algo.bayes_infer(DataLoader(cfg, batch_size=8, num_batches=2), 3,
+                         optimizer=sgd(0.05), num_particles=4,
+                         pretrain_epochs=1, max_rank=3)
+        n_leaves = len(tree_leaves(algo.p_parameters()[0]))
+        assert swag_moments.moments.launches - before == \
+            (2 * n_leaves if d == dev else 0)
+        gen = torch.Generator(device=d).manual_seed(5)
+        noise_gen = torch.Generator().manual_seed(5)
+        swag = algo.store.dense("swag")
+        z1 = tree_map(lambda m: torch.randn((4, 3) + tuple(m.shape[1:]),
+                                            generator=noise_gen).to(d),
+                      swag["mean"])
+        z2 = torch.randn((4, 3, 3), generator=noise_gen).to(d)
+        before = swag_moments.diag_std.launches
+        heads = algo.posterior_predictive(
+            samples_per_particle=3, noise=(z1, z2),
+            generator=gen).predict_batch(batch)
+        assert swag_moments.diag_std.launches - before == \
+            (n_leaves if d == dev else 0)
+        out[d.type] = (algo.p_parameters(), swag, heads)
+    _close(out["cuda"][0], out["cpu"][0], 1e-4)
+    _close(out["cuda"][1], out["cpu"][1], 1e-4)
+    _close(out["cuda"][2], out["cpu"][2], 1e-4)

@@ -1,0 +1,274 @@
+"""The port's training slice against the JAX package, on the CPU.
+
+Both packages run the same weights: the reference initializes them and
+they cross over as numpy through ``repro_torch.interop.params_from_numpy``;
+batches come from each package's own copy of the seeded data loader.
+Checks, on the ViT-MNIST config at a tiny width (2 layers, d_model 64,
+4 heads, d_ff 128):
+
+  * configs, parameter key paths and shapes, and data loader batches;
+  * the ViT forward logits, loss and per-particle gradients, 1e-4;
+  * one ``adam`` and one ``sgd`` update on shared grads with a per-row
+    step, 1e-6;
+  * fused DeepEnsemble and SteinVGD (median heuristic and fixed ell), 2
+    epochs x 2 batches with ``sgd``, 6 particles in a store of capacity 8
+    so the mask is live: params and losses within 1e-4, then
+    ``p_predict`` within 1e-4;
+  * the actor backend raises until it is ported.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from repro import configs as jconfigs
+from repro.bdl import DeepEnsemble as JDeepEnsemble
+from repro.bdl import SteinVGD as JSteinVGD
+from repro.core import ParticleModule as JModule
+from repro.data import DataLoader as JDataLoader
+from repro.models import api as japi
+from repro.optim import adam as jadam
+from repro.optim import sgd as jsgd
+from repro_torch import configs as tconfigs
+from repro_torch.bdl import DeepEnsemble, SteinVGD
+from repro_torch.core import ParticleModule, PushDistribution
+from repro_torch.core.functional import (ensemble_value_and_grad,
+                                         flatten_stacked)
+from repro_torch.core.tree import tree_map
+from repro_torch.data import DataLoader
+from repro_torch.interop import params_from_numpy
+from repro_torch.models import api as tapi
+from repro_torch.optim import adam, sgd
+
+TINY = dict(n_units=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+            d_ff=128)
+N, CAP, EPOCHS, LR = 6, 8, 2, 0.05
+
+
+def _cfgs():
+    return (jconfigs.get("vit-mnist").smoke().replace(**TINY),
+            tconfigs.get("vit-mnist").smoke().replace(**TINY))
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from _paths(t, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _numpy_inits(jcfg, n):
+    """The particles the reference's PushDistribution(seed=0) creates, in
+    creation order, as numpy trees."""
+    rng, out = jax.random.PRNGKey(0), []
+    for _ in range(n):
+        rng, sub = jax.random.split(rng)
+        out.append(jax.tree.map(np.asarray, japi.init_params(sub, jcfg)))
+    return out
+
+
+def _modules(jcfg, tcfg, inits):
+    """A JAX and a port module whose inits hand out the same particles."""
+    jit, tit = iter(inits), iter(inits)
+    jmod = JModule(lambda rng: jax.tree.map(jnp.asarray, next(jit)),
+                   lambda p, b: japi.loss_fn(p, b, jcfg),
+                   lambda p, b: japi.forward(p, b, jcfg)[0], cfg=jcfg)
+    tmod = ParticleModule(lambda gen: params_from_numpy(next(tit)),
+                          lambda p, b: tapi.loss_fn(p, b, tcfg),
+                          lambda p, b: tapi.forward(p, b, tcfg)[0], cfg=tcfg)
+    return jmod, tmod
+
+
+def _flat_jax(tree):
+    return np.asarray(ravel_pytree(tree)[0])
+
+
+def _flat_torch(tree):
+    return flatten_stacked(tree_map(lambda x: x[None], tree))[0][0].numpy()
+
+
+@pytest.mark.parametrize("variant", ["full", "smoke", "tiny"])
+def test_vit_config_fields_match_jax(variant):
+    j, t = jconfigs.get("vit-mnist"), tconfigs.get("vit-mnist")
+    if variant == "smoke":
+        j, t = j.smoke(), t.smoke()
+    elif variant == "tiny":
+        j, t = _cfgs()
+    for f in dataclasses.fields(t):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
+    assert (t.hd, t.n_layers) == (j.hd, j.n_layers)
+
+
+def test_vit_params_key_paths_and_shapes():
+    """The carried-over tree keeps the reference's key paths; the port's
+    own init builds the same paths and shapes; the full config has the
+    reference's parameter count."""
+    jcfg, tcfg = _cfgs()
+    want = jax.tree_util.tree_flatten_with_path(
+        japi.init_params(jax.random.PRNGKey(0), jcfg))[0]
+    want = {tuple(k.key for k in path): leaf for path, leaf in want}
+    got = dict(_paths(params_from_numpy(
+        jax.tree.map(np.asarray, japi.init_params(jax.random.PRNGKey(0),
+                                                  jcfg)))))
+    assert set(got) == set(want)
+    own = dict(_paths(tapi.init_params(torch.Generator().manual_seed(0),
+                                       tcfg)))
+    assert {p: tuple(t.shape) for p, t in own.items()} == \
+        {p: tuple(np.shape(x)) for p, x in want.items()}
+    full = jax.eval_shape(lambda k: japi.init_params(
+        k, jconfigs.get("vit-mnist")), jax.random.PRNGKey(0))
+    n_full = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(full))
+    full_own = tapi.init_params(torch.Generator().manual_seed(0),
+                                tconfigs.get("vit-mnist"))
+    assert sum(x.numel() for _, x in _paths(full_own)) == n_full \
+        == 19_775_360
+
+
+def test_params_from_numpy_keeps_0d_arrays():
+    """Counts and steps are 0-d per particle (SWAG ``n``/``rank``, the
+    optimizer ``step``): they must not come across as shape (1,)."""
+    tree = {"n": np.float32(2.0), "rank": np.array(3, np.int32),
+            "w": np.ones((2, 3), np.float32)}
+    got = params_from_numpy(tree)
+    assert got["n"].shape == () and got["rank"].shape == ()
+    assert got["rank"].dtype == torch.int32 and got["w"].shape == (2, 3)
+
+
+def test_data_loader_batches_identical():
+    jcfg, tcfg = _cfgs()
+    jl = JDataLoader(jcfg, batch_size=7, num_batches=3, seed=4)
+    tl = DataLoader(tcfg, batch_size=7, num_batches=3, seed=4)
+    for _ in range(2):                      # two epochs: the seed advances
+        for jb, tb in zip(jl, tl):
+            assert set(jb) == set(tb)
+            for k in jb:
+                assert jb[k].dtype == tb[k].dtype
+                assert np.array_equal(jb[k], tb[k])
+
+
+def test_vit_forward_loss_and_grads_match_jax():
+    jcfg, tcfg = _cfgs()
+    P = 3
+    stacked = jax.vmap(lambda k: japi.init_params(k, jcfg))(
+        jax.random.split(jax.random.PRNGKey(1), P))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, stacked))
+    batch = next(iter(JDataLoader(jcfg, batch_size=5, num_batches=1)))
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    jlogits = jax.jit(jax.vmap(
+        lambda p: japi.forward(p, batch, jcfg)[0]))(stacked)
+    tlogits = tapi.forward(tparams, tbatch, tcfg)[0]
+    assert np.abs(tlogits.numpy() - np.asarray(jlogits)).max() < 1e-4
+
+    jloss, jgrads = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p: japi.loss_fn(p, batch, jcfg)[0])))(stacked)
+    tloss, tgrads = ensemble_value_and_grad(
+        lambda p, b: tapi.loss_fn(p, b, tcfg))(tparams, tbatch)
+    assert np.abs(tloss.numpy() - np.asarray(jloss)).max() < 1e-4
+    jflat = np.asarray(jax.vmap(lambda t: ravel_pytree(t)[0])(jgrads))
+    tflat, unravel = flatten_stacked(tgrads)
+    assert tflat.shape == jflat.shape
+    assert np.abs(tflat.numpy() - jflat).max() < 1e-4
+    # unravel is the exact inverse of the flatten
+    for a, b in zip(_paths(unravel(tflat)), _paths(tgrads)):
+        assert a[0] == b[0] and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_optimizer_update_matches_jax(name):
+    """One update of stacked state on shared grads, with a different step
+    on every row (what jax.vmap(optimizer.update) sees)."""
+    jopt, topt = {"adam": (jadam(1e-3), adam(1e-3)),
+                  "sgd": (jsgd(0.1, momentum=0.9), sgd(0.1, momentum=0.9))
+                  }[name]
+    rng = np.random.default_rng(3)
+    P = 3
+    params = {"a": rng.standard_normal((P, 4, 5)).astype(np.float32),
+              "b": {"c": rng.standard_normal((P, 7)).astype(np.float32)}}
+    grads = jax.tree.map(
+        lambda x: rng.standard_normal(x.shape).astype(np.float32), params)
+    state = jax.vmap(jopt.init)(jax.tree.map(jnp.asarray, params))
+    state = jax.tree.map(
+        lambda x: np.asarray(x) + rng.standard_normal(x.shape).astype(
+            np.float32) ** 2 if x.dtype == np.float32 else np.asarray(x),
+        state)
+    state["step"] = np.array([0, 3, 7], np.int32)
+    jp, js = jax.vmap(jopt.update)(params, grads, state)
+    tp, ts = topt.update(params_from_numpy(params), params_from_numpy(grads),
+                         params_from_numpy(state))
+    for want, got in ((jp, tp), (js, ts)):
+        want = dict(_paths(jax.tree.map(np.asarray, want)))
+        got = dict(_paths(got))
+        assert set(got) == set(want)
+        for path in want:
+            assert np.abs(got[path].numpy() - want[path]).max() < 1e-6, path
+    own = topt.init(params_from_numpy(jax.tree.map(lambda x: x[0], params)))
+    assert own["step"].dtype == torch.int32 and own["step"].dim() == 0
+
+
+def _loaders(jcfg, tcfg):
+    return (JDataLoader(jcfg, batch_size=8, num_batches=2, seed=0),
+            DataLoader(tcfg, batch_size=8, num_batches=2, seed=0))
+
+
+def _run_both(algo, kw):
+    jcfg, tcfg = _cfgs()
+    jmod, tmod = _modules(jcfg, tcfg, _numpy_inits(jcfg, N))
+    jcls, tcls = {"ensemble": (JDeepEnsemble, DeepEnsemble),
+                  "svgd": (JSteinVGD, SteinVGD)}[algo]
+    jl, tl = _loaders(jcfg, tcfg)
+    jalgo = jcls(jmod, backend="compiled", capacity=CAP)
+    talgo = tcls(tmod, backend="compiled", capacity=CAP, device="cpu")
+    jpids, jloss = jalgo.bayes_infer(jl, EPOCHS, num_particles=N,
+                                     **kw(jsgd))
+    tpids, tloss = talgo.bayes_infer(tl, EPOCHS, num_particles=N,
+                                     **kw(sgd))
+    assert talgo.store.capacity == CAP and len(tpids) == N
+    assert float(talgo.store.active_mask().sum()) == N
+    return jalgo, talgo, jloss, tloss
+
+
+@pytest.mark.parametrize("algo,kw", [
+    ("ensemble", lambda opt: {"optimizer": opt(LR)}),
+    ("svgd", lambda opt: {"lr": LR, "lengthscale": 0.0}),
+    ("svgd", lambda opt: {"lr": LR, "lengthscale": 1.0}),
+], ids=["deep-ensemble", "svgd-median", "svgd-ell1"])
+def test_fused_training_matches_jax(algo, kw):
+    jalgo, talgo, jloss, tloss = _run_both(algo, kw)
+    assert np.abs(np.array(tloss) - np.array(jloss)).max() < 1e-4
+    for jp, tp in zip(jalgo.p_parameters(), talgo.p_parameters()):
+        assert np.abs(_flat_torch(tp) - _flat_jax(jp)).max() < 1e-4
+    # dead slots stay frozen zeros
+    stacked = talgo.store.stacked("params")
+    for leaf in (x for _, x in _paths(stacked)):
+        assert torch.count_nonzero(leaf[N:]) == 0
+    # the BMA prediction over the trained particles
+    batch = next(iter(JDataLoader(jalgo.module.cfg, batch_size=6,
+                                  num_batches=1, seed=9)))
+    want = np.asarray(jalgo.posterior_pred(batch))
+    got = talgo.posterior_pred(batch)
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() < 1e-4
+
+
+def test_actor_backend_is_not_ported_yet():
+    jcfg, tcfg = _cfgs()
+    _, tmod = _modules(jcfg, tcfg, _numpy_inits(jcfg, 2))
+    algo = DeepEnsemble(tmod, device="cpu")       # the reference's default
+    assert algo.backend == "nel"
+    with pytest.raises(NotImplementedError, match="compiled"):
+        algo.bayes_infer([], 1, optimizer=sgd(0.1), num_particles=2)
+    pd = PushDistribution(tmod, device="cpu")
+    pd.p_create()
+    with pytest.raises(NotImplementedError, match="compiled"):
+        pd.p_predict({})
+    with pytest.raises(ValueError, match="backend"):
+        PushDistribution(tmod, backend="xla", device="cpu")

@@ -1,0 +1,75 @@
+"""Single-token decode attention over a dense KV cache: the CUDA kernel's
+wrapper.
+
+The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
+``repro.kernels.decode_attention.decode_attention``. The reference vmaps
+that kernel over the ParticleStore's capacity axis; here the particle
+axis is explicit:
+
+    q        (P, B, H, hd)          fp32 or bf16
+    k/v      (P, B, C, KVH, hd)     fp32 or bf16, contiguous past the
+                                    particle axis (a unit's view of a
+                                    stacked cache is fine)
+    k_pos    (B, C) int32           absolute position of each slot (-1 =
+                                    empty), shared by all particles
+    -> (P, B, H, hd), dtype of q; a row with no valid slot gives zeros.
+
+The wrapper takes CUDA tensors only and raises on anything else; the CPU
+goes through ``kernels.ops``, which sends CPU tensors to the plain version
+in ``kernels.ref``. ``decode_attention.launches`` counts the kernel
+launches of this process.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .build import check, entry, raise_on
+from .paged_decode_attention import DTYPE_CODE
+
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p])
+
+
+def decode_attention(q, k_cache, v_cache, k_pos):
+    """Launch the CUDA kernel (shapes in the module docstring)."""
+    if not isinstance(q, torch.Tensor) or q.dim() != 4 \
+            or k_cache.dim() != 5:
+        raise ValueError("q must be (P, B, H, hd) and the caches "
+                         "(P, B, C, KVH, hd)")
+    P, B, H, hd = q.shape
+    C, KVH = k_cache.shape[2], k_cache.shape[3]
+    if q.dtype not in DTYPE_CODE or k_cache.dtype not in DTYPE_CODE:
+        raise ValueError(f"dtypes must be float32 or bfloat16; got q "
+                         f"{q.dtype}, k {k_cache.dtype}")
+    if k_cache.shape[:2] != (P, B) or k_cache.shape[4] != hd or H % KVH:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}")
+    check("q", q, q.device, dtype=q.dtype)
+    check("k_cache", k_cache[0], q.device, dtype=k_cache.dtype)
+    check("v_cache", v_cache[0], q.device, k_cache.shape[1:],
+          dtype=k_cache.dtype)
+    if v_cache.shape != k_cache.shape or (
+            P > 1 and k_cache.stride(0) != v_cache.stride(0)):
+        raise ValueError("k and v caches must share one shape and one "
+                         "particle stride")
+    check("k_pos", k_pos, q.device, (B, C), dtype=torch.int32)
+    out = torch.empty_like(q)
+    if out.numel() == 0 or C == 0:
+        return out.zero_()
+    fn = entry("decode_attention", "decode_attention", _ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                k_pos.data_ptr(), out.data_ptr(), P, B, H, KVH, hd, C,
+                k_cache.stride(0), DTYPE_CODE[q.dtype],
+                DTYPE_CODE[k_cache.dtype], 1.0 / math.sqrt(hd), stream)
+    raise_on(rc, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

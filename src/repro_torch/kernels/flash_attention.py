@@ -1,0 +1,69 @@
+"""Blocked online-softmax attention forward (prefill): the CUDA kernel's
+wrapper.
+
+The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+``repro.kernels.attention.flash_attention``. The reference runs one
+particle at a time; here the particle axis is explicit and the kernel
+folds it into the batch:
+
+    q     (P, B, S, H, hd)     fp32 or bf16
+    k, v  (P, B, S, KVH, hd)   the dtype of q
+    -> (P, B, S, H, hd), the dtype of q; causal (key j visible to query
+       i iff j <= i) or bidirectional; H a multiple of KVH with
+       H / KVH <= 64; hd <= 128.
+
+Forward only: the training attention, which needs a gradient, stays the
+plain version under autograd (the JAX package has no backward kernel
+either). The wrapper takes CUDA tensors only and raises on anything
+else; the CPU goes through ``kernels.ops`` to the plain version in
+``kernels.ref``. ``flash_attention.launches`` counts the kernel launches
+of this process.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .build import check, entry, raise_on
+from .paged_decode_attention import DTYPE_CODE
+
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                      ctypes.c_void_p]
+_MAX_GROUP = 64
+_MAX_HD = 128
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Launch the CUDA kernel (shapes in the module docstring)."""
+    if not isinstance(q, torch.Tensor) or q.dim() != 5:
+        raise ValueError("q must be a (P, B, S, H, hd) tensor")
+    P, B, S, H, hd = q.shape
+    if q.dtype not in DTYPE_CODE:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    check("q", q, q.device, dtype=q.dtype)
+    if k.dim() != 5 or k.shape[:3] != q.shape[:3] or k.shape[4] != hd:
+        raise ValueError(f"k must be (P, B, S, KVH, hd) beside q "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)}")
+    KVH = k.shape[3]
+    check("k", k, q.device, dtype=q.dtype)
+    check("v", v, q.device, k.shape, dtype=q.dtype)
+    if H % KVH or H // KVH > _MAX_GROUP or hd > _MAX_HD:
+        raise ValueError(f"needs H % KVH == 0, H / KVH <= {_MAX_GROUP} and "
+                         f"hd <= {_MAX_HD}; got H {H}, KVH {KVH}, hd {hd}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = entry("flash_attention", "flash_attention", _ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                P * B, S, H, KVH, hd, int(causal), DTYPE_CODE[q.dtype],
+                1.0 / math.sqrt(hd), stream)
+    raise_on(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

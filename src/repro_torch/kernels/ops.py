@@ -4,7 +4,10 @@ CUDA tensor never falls back to the plain version, and any other device
 raises."""
 from __future__ import annotations
 
+from . import decode_attention as _decode
+from . import flash_attention as _flash
 from . import paged_decode_attention as _paged
+from . import paged_decode_window_attention as _window
 from . import ref
 from . import svgd_rbf as _svgd
 from . import swag_moments as _swag
@@ -24,6 +27,32 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     fn = _route(q, _paged.paged_decode_attention, ref.paged_decode_attention,
                 "paged_decode_attention")
     return fn(q, k_pages, v_pages, block_tables, seq_lens)
+
+
+def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
+                                  seq_lens):
+    """q (P, B, W, H, hd), query w at position seq_lens[b] + w; pages
+    (P, NP, ps, KVH, hd); block_tables (B, n_pmax) int32; seq_lens (B,)
+    int32 -> (P, B, W, H, hd)."""
+    fn = _route(q, _window.paged_decode_window_attention,
+                ref.paged_decode_window_attention,
+                "paged_decode_window_attention")
+    return fn(q, k_pages, v_pages, block_tables, seq_lens)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd)."""
+    fn = _route(q, _flash.flash_attention, ref.flash_attention,
+                "flash_attention")
+    return fn(q, k, v, causal=causal)
+
+
+def decode_attention(q, k_cache, v_cache, k_pos):
+    """q (P, B, H, hd); caches (P, B, C, KVH, hd); k_pos (B, C) int32
+    -> (P, B, H, hd)."""
+    fn = _route(q, _decode.decode_attention, ref.decode_attention,
+                "decode_attention")
+    return fn(q, k_cache, v_cache, k_pos)
 
 
 def pairwise_sqdist(theta, mask=None):

@@ -27,29 +27,33 @@ import torch
 
 from .build import entry, raise_on
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_void_p])
 
 
-def _check(q, k_pages, v_pages, block_tables, seq_lens):
+def check_paged(q, k_pages, v_pages, block_tables, seq_lens, *,
+                window: bool = False):
+    """Validate the arguments of the paged kernels: q is (P, B, H, hd), or
+    (P, B, W, H, hd) with ``window``; raises ValueError on anything the
+    kernels do not take."""
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", block_tables), ("seq_lens", seq_lens)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
-    if q.dim() != 4 or k_pages.dim() != 5:
-        raise ValueError(f"q must be (P, B, H, hd) and pages (P, NP, ps, "
-                         f"KVH, hd); got {tuple(q.shape)}, "
-                         f"{tuple(k_pages.shape)}")
-    P, B, H, hd = q.shape
+    layout = "(P, B, W, H, hd)" if window else "(P, B, H, hd)"
+    if q.dim() != 4 + window or k_pages.dim() != 5:
+        raise ValueError(f"q must be {layout} and pages (P, NP, ps, KVH, hd); "
+                         f"got {tuple(q.shape)}, {tuple(k_pages.shape)}")
+    P, B, H, hd = q.shape[0], q.shape[1], q.shape[-2], q.shape[-1]
     _, NP, ps, KVH, hd_kv = k_pages.shape
     if k_pages.shape != v_pages.shape or k_pages.shape[0] != P \
             or hd_kv != hd or H % KVH:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k_pages.shape)}, v {tuple(v_pages.shape)}")
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE \
+    if q.dtype not in DTYPE_CODE or k_pages.dtype not in DTYPE_CODE \
             or v_pages.dtype != k_pages.dtype:
         raise ValueError(f"dtypes must be float32 or bfloat16 with k and v "
                          f"alike; got q {q.dtype}, k {k_pages.dtype}, "
@@ -61,7 +65,7 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens):
         raise ValueError(f"block_tables must be ({B}, n_pmax) and seq_lens "
                          f"({B},); got {tuple(block_tables.shape)}, "
                          f"{tuple(seq_lens.shape)}")
-    # the kernel indexes pages as contiguous past the particle axis; the
+    # the kernels index pages as contiguous past the particle axis; the
     # stride of a size-1 dim is never used, so views may carry any there
     inner = (ps * KVH * hd, KVH * hd, hd, 1)
     for t in (k_pages, v_pages):
@@ -75,7 +79,7 @@ def _check(q, k_pages, v_pages, block_tables, seq_lens):
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     """Launch the CUDA kernel (shapes in the module docstring)."""
-    _check(q, k_pages, v_pages, block_tables, seq_lens)
+    check_paged(q, k_pages, v_pages, block_tables, seq_lens)
     q = q.contiguous()
     block_tables = block_tables.contiguous()
     seq_lens = seq_lens.contiguous()
@@ -90,8 +94,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                 P, B, H, KVH, hd, NP, ps, block_tables.shape[1],
-                k_pages.stride(0), _DTYPE_CODE[q.dtype],
-                _DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), stream)
+                k_pages.stride(0), DTYPE_CODE[q.dtype],
+                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), stream)
     raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -1,0 +1,67 @@
+"""Paged drafted-window attention (speculative verify): the CUDA kernel's
+wrapper.
+
+The kernel (``csrc/paged_decode_window_attention.cu``) replaces the
+Pallas TPU kernel
+``repro.kernels.paged_decode_attention.paged_decode_window_attention``.
+The reference vmaps that kernel over the ParticleStore's capacity axis;
+here the particle axis is explicit:
+
+    q            (P, B, W, H, hd)         fp32 or bf16; window query w of
+                                          row b at position seq_lens[b] + w
+    k/v_pages    (P, NP, ps, KVH, hd)     fp32 or bf16 (a particle-strided
+                                          view is fine: the inner four dims
+                                          must be contiguous)
+    block_tables (B, n_pmax) int32        shared by all particles
+    seq_lens     (B,) int32               position of query 0, -1 inactive
+    -> (P, B, W, H, hd), dtype of q; inactive rows are exact zeros.
+
+Query w sees columns 0..seq_lens[b] + w; a column it may not see adds
+neither weight nor value (the TPU kernel zeroes only the weight). The
+wrapper takes CUDA tensors only and raises on anything else; the CPU goes
+through ``kernels.ops``, which sends CPU tensors to the plain version in
+``kernels.ref``. ``paged_decode_window_attention.launches`` counts the
+kernel launches of this process.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .build import entry, raise_on
+from .paged_decode_attention import DTYPE_CODE, check_paged
+
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p])
+
+
+def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
+                                  seq_lens):
+    """Launch the CUDA kernel (shapes in the module docstring)."""
+    check_paged(q, k_pages, v_pages, block_tables, seq_lens, window=True)
+    q = q.contiguous()
+    block_tables = block_tables.contiguous()
+    seq_lens = seq_lens.contiguous()
+    P, B, W, H, hd = q.shape
+    _, NP, ps, KVH, _ = k_pages.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = entry("paged_decode_window_attention",
+               "paged_decode_window_attention", _ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                P, B, W, H, KVH, hd, NP, ps, block_tables.shape[1],
+                k_pages.stride(0), DTYPE_CODE[q.dtype],
+                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), stream)
+    raise_on(rc, "paged_decode_window_attention")
+    paged_decode_window_attention.launches += 1
+    return out
+
+
+paged_decode_window_attention.launches = 0

@@ -4,9 +4,10 @@ Ported from ``repro.kernels.ref`` with the particle axis explicit, as the
 CUDA kernels take it. The CPU path runs these; on the card they are the
 reference each kernel is held against.
 
-Both attention functions zero the value rows of invalid columns as well
-as their weights, like the TPU kernel does: stale slots past a sequence's
-tail may hold NaN, and ``0 * NaN`` would leak it into the output. The SVGD
+The decode attention functions zero the value rows of invalid columns as
+well as their weights, like the single-token TPU kernels do: stale slots
+past a sequence's tail may hold NaN, and ``0 * NaN`` would leak it into
+the output. The SVGD
 and SWAG functions take the store's row mask the same way: a dead row is
 selected away (``where``), never multiplied, so NaN in a padding slot
 cannot leak.
@@ -56,6 +57,49 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     out = decode_attention(q, k, v, pos)
     return torch.where((seq_lens >= 0)[None, :, None, None], out,
                        torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
+                                  seq_lens):
+    """q (P, B, W, H, hd), window query w at absolute position
+    ``seq_lens[b] + w``; pages (P, NP, ps, KVH, hd); block_tables
+    (B, n_pmax) int32; seq_lens (B,) int32, the position of query 0
+    (-1 = inactive row) -> (P, B, W, H, hd).
+
+    Query w sees columns 0..seq_lens[b] + w. Each window position is the
+    single-token version at its own limit, so both the weights and the
+    value rows of the columns it may not see are zeroed for it (the
+    reference's oracle zeroes only the weights)."""
+    P, B, W = q.shape[:3]
+    ps = k_pages.shape[2]
+    n_pmax = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pages[:, bt].reshape(P, B, n_pmax * ps, *k_pages.shape[3:])
+    v = v_pages[:, bt].reshape(P, B, n_pmax * ps, *v_pages.shape[3:])
+    col = torch.arange(n_pmax * ps, device=q.device)[None, :]
+    sl = seq_lens[:, None].long()
+    outs = [decode_attention(q[:, :, w], k, v,
+                             torch.where(col <= sl + w, col, -1))
+            for w in range(W)]
+    out = torch.stack(outs, dim=2)
+    return torch.where((seq_lens >= 0)[None, :, None, None, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd).
+    Causal or bidirectional GQA softmax attention; softmax and products
+    in fp32, the output in the dtype of q."""
+    P, B, S, H, hd = q.shape
+    KVH = k.shape[3]
+    qq = q.float().reshape(P, B, S, KVH, H // KVH, hd) / math.sqrt(hd)
+    s = torch.einsum("pbqngh,pbknh->pbngqk", qq, k.float())
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    o = torch.einsum("pbngqk,pbknh->pbqngh", torch.softmax(s, dim=-1),
+                     v.float())
+    return o.reshape(P, B, S, H, hd).to(q.dtype)
 
 
 def _live(mask, x):

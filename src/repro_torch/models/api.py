@@ -1,6 +1,7 @@
 """Model facade (counterpart of ``repro.models.api``): the dense LM's
-paged continuous-batching entry points and the vision family's training
-forward and loss.
+serving entry points (paged continuous-batching prefill, decode and
+speculative verify window; prefill into and decode over a dense cache)
+and the vision family's training forward and loss.
 
 ``init_params`` builds ONE particle's tree (no particle axis); the store
 stacks particles. Every other function takes the stacked tree with a
@@ -15,10 +16,13 @@ from typing import Any, Dict
 
 import torch
 
-from .blocks import dense_init, norm_apply, norm_init, paged_write_index
-from .transformer import (paged_guard, stack_apply_paged,
-                          stack_apply_prefill_paged, stack_init,
-                          stack_paged_init)
+from .blocks import (dense_init, norm_apply, norm_init, paged_write_index,
+                     window_write_index)
+from .transformer import (decode_guard, paged_guard, stack_apply_decode,
+                          stack_apply_paged, stack_apply_prefill,
+                          stack_apply_prefill_paged,
+                          stack_apply_window_paged, stack_cache_init,
+                          stack_init, stack_paged_init)
 from . import vit as vit_mod
 
 
@@ -83,6 +87,51 @@ def _lm_logits(params, x, cfg):
                                                      w.shape[-1])
 
 
+def prefill(params, batch, cfg, max_len=None):
+    """Full-prompt pass that builds the dense decode caches.
+
+    batch {"tokens": (B, S) int}; every particle sees the same prompts.
+    ``max_len`` allocates decode headroom in the caches (defaults to S;
+    pass S + decode budget + 1 for generation). Returns (last-token
+    logits (P, B, V), caches): per attention layer k/v (P, B, max_len,
+    KVH, hd) and pos (B, max_len) int32, shared by the particles."""
+    tokens = torch.as_tensor(batch["tokens"]).to(params["embed"].device)
+    B, S = tokens.shape
+    C = S if max_len is None else max_len
+    if C < S:
+        raise ValueError(f"max_len {C} < prompt length {S}")
+    caches = stack_cache_init(cfg, params["embed"].shape[0], B, C,
+                              dtype=_cache_dtype(cfg), device=tokens.device)
+    x = _embed(params, tokens, _dtype(cfg))
+    x, caches = stack_apply_prefill(params, x, cfg, caches)
+    x = norm_apply(params["final_norm"], x[:, :, -1:])
+    return _lm_logits(params, x, cfg)[:, :, 0], caches
+
+
+def decode_step(params, token, caches, cur_pos, cfg):
+    """One decode step over the dense caches for every particle.
+
+    token (B,) int; cur_pos: the absolute position of every row's token
+    (an int, or a 0-d tensor read once on the host). The caches are
+    updated in place. Returns (logits (P, B, V), caches)."""
+    decode_guard(cfg)
+    x = _embed(params, token.clamp(min=0)[:, None], _dtype(cfg))
+    ctx: Dict[str, Any] = {"cur_pos": int(cur_pos)}
+    x, caches = stack_apply_decode(params, x, cfg, caches, ctx)
+    x = norm_apply(params["final_norm"], x)
+    return _lm_logits(params, x, cfg)[:, :, 0], caches
+
+
+def init_cache(cfg, batch: int, seq_len: int, *, particles: int,
+               dtype=None, device=None):
+    """Empty dense caches for ``particles`` stacked particles (the tree
+    ``prefill`` returns), on ``cuda`` unless ``device`` says otherwise."""
+    return stack_cache_init(cfg, particles, batch, seq_len,
+                            dtype=dtype or _cache_dtype(cfg),
+                            device=torch.device("cuda") if device is None
+                            else device)
+
+
 def paged_cache_init(cfg, *, num_pages: int, page_size: int, dtype=None,
                      device=None):
     """One particle's KV page pool: a (num_pages, page_size, KVH, hd) k/v
@@ -115,6 +164,31 @@ def decode_step_paged(params, tokens, pages, block_tables, seq_lens, cfg, *,
     x, pages = stack_apply_paged(params, x, cfg, pages, ctx)
     x = norm_apply(params["final_norm"], x)
     return _lm_logits(params, x, cfg)[:, :, 0], pages
+
+
+def decode_window_paged(params, tokens, pages, block_tables, seq_lens,
+                        win_lens, cfg):
+    """Speculative verify: score a W-token drafted window in one pass.
+
+    tokens (B, W) int: token w of row b sits at absolute position
+    ``seq_lens[b] + w`` (window token 0 is the last committed token, the
+    rest are drafts); win_lens (B,) int32, the real window tokens per row
+    (positions past it are padding: not written to the pool, logits
+    garbage — mask downstream); seq_lens (B,) int32 (-1 = inactive row).
+    Pages are updated in place. Returns (logits (P, B, W, V), pages);
+    logits[:, :, w] predicts the token AFTER window position w."""
+    paged_guard(cfg)
+    block_tables = block_tables.contiguous()
+    seq_lens = seq_lens.contiguous()
+    W = tokens.shape[1]
+    x = _embed(params, tokens.clamp(min=0), _dtype(cfg))
+    ctx: Dict[str, Any] = {
+        "block_tables": block_tables, "seq_lens": seq_lens,
+        "write_index": window_write_index(block_tables, seq_lens, win_lens,
+                                          W, _page_size(pages))}
+    x, pages = stack_apply_window_paged(params, x, cfg, pages, ctx)
+    x = norm_apply(params["final_norm"], x)
+    return _lm_logits(params, x, cfg), pages
 
 
 def prefill_paged(params, tokens, pages, block_table_row, n_tokens, cfg):

@@ -1,6 +1,7 @@
 """Core NN blocks over an explicit leading particle axis.
 
-Counterpart of ``repro.models.blocks`` for the paged decode path and the
+Counterpart of ``repro.models.blocks`` for the LM's serving paths (paged
+decode, speculative verify, prefill, dense-cache decode) and the
 full-sequence (training) attention of the encoder stack. The
 reference writes each block for one particle and vmaps it over the
 ParticleStore's stacked axis; here every function takes the stacked form
@@ -9,8 +10,9 @@ activations are ``(P, B, S, ...)``. Weights keep the reference's
 ``(d_in, d_out)`` layout, so a stacked matmul is one batched GEMM
 ``(P, N, d_in) @ (P, d_in, d_out)``.
 
-Token-level inputs (tokens, positions, block tables, seq_lens) are shared
-by all particles and carry no ``P`` axis.
+Token-level inputs (tokens, positions, block tables, seq_lens, a dense
+cache's slot positions) are shared by all particles and carry no ``P``
+axis.
 """
 from __future__ import annotations
 
@@ -21,8 +23,6 @@ import torch.nn.functional as F
 
 from ..kernels import ops as _kops
 from ..kernels import ref as _kref
-
-NEG_INF = -1e30
 
 
 # --------------------------------------------------------------------------
@@ -136,23 +136,16 @@ def attn_qkv(p, x, cfg, positions):
 
 
 def full_attention(q, k, v, *, causal: bool):
-    """Plain masked-softmax attention over a whole sequence (prefill, or
-    the encoder's bidirectional attention), differentiable by autograd.
-    q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd).
+    """Whole-sequence attention for the training forward (the ViT
+    encoder's bidirectional layers), differentiable by autograd: the plain
+    version of the prefill kernel. q (P, B, S, H, hd); k, v
+    (P, B, S, KVH, hd) -> (P, B, S, H, hd).
 
-    The reference runs its jnp flash attention with a custom VJP here
-    (``repro.models.blocks.flash_attention``), which no Pallas kernel
-    backs; the same softmax in plain PyTorch is its counterpart."""
-    P, B, S, H, hd = q.shape
-    KVH = k.shape[3]
-    qq = q.float().reshape(P, B, S, KVH, H // KVH, hd) / math.sqrt(hd)
-    s = torch.einsum("pbqngh,pbknh->pbngqk", qq, k.float())
-    if causal:
-        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
-    o = torch.einsum("pbngqk,pbknh->pbqngh", torch.softmax(s, dim=-1),
-                     v.float())
-    return o.reshape(P, B, S, H, hd).to(q.dtype)
+    The reference trains through its jnp flash attention with a custom
+    VJP (``repro.models.blocks.flash_attention``), which no Pallas kernel
+    backs; the Pallas ``flash_attention`` is forward only, and its port
+    (``kernels.ops.flash_attention``) runs the prefill."""
+    return _kref.flash_attention(q, k, v, causal=causal)
 
 
 def paged_attention(q, k_pages, v_pages, *, block_tables, seq_lens,
@@ -208,20 +201,63 @@ def attn_apply_paged(p, x, cfg, pages, *, block_tables, seq_lens,
     return out, pages
 
 
+def window_write_index(block_tables, seq_lens, win_lens, W: int,
+                       page_size: int):
+    """(rows, ws, page, slot) of a W-wide verify window's KV writes: the
+    real window positions (``w < win_lens[b]``) of the active rows only,
+    each at absolute position ``seq_lens[b] + w``. Computed once per
+    verify call and shared by every layer (``nonzero`` syncs the host
+    once)."""
+    w = torch.arange(W, device=seq_lens.device)
+    valid = (seq_lens >= 0)[:, None] & (w[None, :] < win_lens[:, None])
+    rows, ws = torch.nonzero(valid, as_tuple=True)
+    pos = seq_lens[rows].long() + ws
+    page = block_tables[rows, pos // page_size].long()
+    return rows, ws, page, pos % page_size
+
+
+def attn_apply_window_paged(p, x, cfg, pages, *, block_tables, seq_lens,
+                            write_index):
+    """One speculative verify step (a drafted window) for one attention
+    layer.
+
+    x (P, B, W, D): token w of row b sits at absolute position
+    ``seq_lens[b] + w``; ``write_index`` (``window_write_index``) names
+    the real window positions. Their K/V rows go into the pool IN PLACE
+    first, then the window attends through the window kernel, so query w
+    sees drafts 0..w (causal within the window by position) and the whole
+    committed prefix. Positions past a row's window length are neither
+    written nor to be trusted; rows with seq_lens < 0 write nothing and
+    return zeros. Returns (out (P, B, W, D), pages)."""
+    if cfg.logit_softcap > 0.0:
+        raise NotImplementedError("paged decode does not support logit softcap")
+    P, B, W, _ = x.shape
+    pos = seq_lens.clamp(min=0)[:, None] + torch.arange(W, device=x.device)
+    q, k, v = attn_qkv(p, x, cfg, pos if cfg.rope_theta > 0 else None)
+    rows, ws, page, slot = write_index
+    kp, vp = pages["k"], pages["v"]
+    kp[:, page, slot] = k[:, rows, ws].to(kp.dtype)
+    vp[:, page, slot] = v[:, rows, ws].to(vp.dtype)
+    out = _kops.paged_decode_window_attention(q, kp, vp, block_tables,
+                                              seq_lens)
+    out = dense_apply(p["wo"], out.reshape(P, B, W, -1))
+    return out, pages
+
+
 def attn_apply_prefill_paged(p, x, cfg, pages, *, block_table_row,
                              n_tokens: int):
     """Prompt prefill for ONE sequence into the page pool.
 
     x (P, 1, Sp, D) prompt embeddings padded to a shape bucket; n_tokens
-    real tokens. Causal attention over the padded prompt (the real
-    positions never see the padding), then the K/V rows of the real
-    positions go into the sequence's pages, in place. Returns
-    (out (P, 1, Sp, D), pages)."""
+    real tokens. Causal attention over the padded prompt through the
+    prefill kernel (the real positions never see the padding), then the
+    K/V rows of the real positions go into the sequence's pages, in place.
+    Returns (out (P, 1, Sp, D), pages)."""
     P, B, Sp, _ = x.shape
     positions = torch.arange(Sp, device=x.device)
     q, k, v = attn_qkv(p, x, cfg,
                        positions if cfg.rope_theta > 0 else None)
-    out = full_attention(q, k, v, causal=True)
+    out = _kops.flash_attention(q, k, v, causal=True)
     out = dense_apply(p["wo"], out.reshape(P, B, Sp, -1))
     ps = pages["k"].shape[2]
     pos = positions[:n_tokens]
@@ -243,6 +279,61 @@ def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal"):
     q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
     out = full_attention(q, k, v, causal=kind == "causal")
     return dense_apply(p["wo"], out.reshape(P, B, S, -1))
+
+
+def attn_apply_decode(p, x, cfg, cache, *, cur_pos: int):
+    """One-token decode over a dense cache for one attention layer.
+
+    x (P, B, 1, D), every row at absolute position ``cur_pos``; cache
+    {"k", "v": (P, B, C, KVH, hd), "pos": (B, C) int32, the slot
+    positions shared by the particles}. The new K/V row and its position
+    are written at slot ``cur_pos`` IN PLACE (the reference returns a new
+    cache), then the token attends over the cache through the dense-decode
+    kernel. Ring caches (a sliding window) are not ported
+    (``transformer.decode_guard``). Returns (out (P, B, 1, D), cache)."""
+    P, B = x.shape[:2]
+    C = cache["k"].shape[2]
+    if not 0 <= cur_pos < C:
+        raise ValueError(f"cur_pos {cur_pos} is outside the cache of {C} "
+                         f"slots")
+    pos = torch.full((B, 1), cur_pos, device=x.device)
+    q, k, v = attn_qkv(p, x, cfg, pos if cfg.rope_theta > 0 else None)
+    cache["k"][:, :, cur_pos] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, cur_pos] = v[:, :, 0].to(cache["v"].dtype)
+    cache["pos"][:, cur_pos] = cur_pos
+    out = _kops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
+                                 cache["pos"])
+    out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))
+    return out, cache
+
+
+def attn_apply_prefill(p, x, cfg, cache):
+    """Causal prefill of a whole prompt through the prefill kernel, filling
+    the layer's empty dense decode cache. x (P, B, S, D); cache {"k", "v":
+    (P, B, C, KVH, hd), "pos": (B, C)} with C >= S: the prompt's K/V rows
+    and positions 0..S-1 are written IN PLACE, the slots past S stay empty
+    (the decode headroom). Returns (out (P, B, S, D), cache)."""
+    P, B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
+    out = _kops.flash_attention(q, k, v, causal=True)
+    out = dense_apply(p["wo"], out.reshape(P, B, S, -1))
+    cache["k"][:, :, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :, :S] = v.to(cache["v"].dtype)
+    cache["pos"][:, :S] = positions.to(torch.int32)
+    return out, cache
+
+
+def attn_cache_init(cfg, particles: int, batch: int, seq_len: int, *,
+                    dtype, device, lead=()):
+    """An empty dense cache: k/v (P, *lead, B, C, KVH, hd) zeros, pos
+    (*lead, B, C) int32 = -1 (shared by the particles)."""
+    shape = (particles,) + tuple(lead) + (batch, seq_len, cfg.n_kv_heads,
+                                          cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full(tuple(lead) + (batch, seq_len), -1,
+                              dtype=torch.int32, device=device)}
 
 
 def attn_pages_init(cfg, num_pages: int, page_size: int, *, dtype, device,

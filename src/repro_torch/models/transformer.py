@@ -1,13 +1,17 @@
 """Layer-stacked transformer (counterpart of ``repro.models.transformer``):
-the paged decode path of the LM and the full-sequence training layer of
-the encoder stack (``enc_attn_mlp``, the ViT's layers).
+the LM's serving paths (paged decode, speculative verify window and
+prefill over the page pool; prefill into and decode over a dense cache)
+and the full-sequence training layer of the encoder stack
+(``enc_attn_mlp``, the ViT's layers).
 
 The stack is ``cfg.head_layers + cfg.pattern * cfg.n_units +
 cfg.tail_layers``. Repeated pattern units keep the reference's storage:
 params and pages stacked on an ``n_units`` axis, which in the port sits
 right after the particle axis (``(P, n_units, ...)``). The reference scans
-over units; here a Python loop indexes each unit's params and pages as
-views, so the in-place page writes land in the stacked pool. The
+over units; here a Python loop indexes each unit's params, pages and
+dense caches as views, so the in-place writes land in the stacked pool
+or cache (a dense cache's slot positions, shared by the particles, are
+stacked as ``(n_units, B, C)``). The
 training path unbinds each unit leaf once (``unbind_units``: ``unbind``
 backpropagates as one stack, where per-unit indexing would add a
 full-size zero gradient per unit).
@@ -17,11 +21,14 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from ..core.tree import tree_map
-from .blocks import (attn_apply_fullseq, attn_apply_paged,
-                     attn_apply_prefill_paged, attn_init, attn_pages_init,
-                     mlp_apply, mlp_init, norm_apply, norm_init)
+from .blocks import (attn_apply_decode, attn_apply_fullseq,
+                     attn_apply_paged, attn_apply_prefill,
+                     attn_apply_prefill_paged, attn_apply_window_paged,
+                     attn_cache_init, attn_init, attn_pages_init, mlp_apply,
+                     mlp_init, norm_apply, norm_init)
 
 PAGED_KINDS = ("attn_mlp",)
+DECODE_KINDS = ("attn_mlp",)
 FULL_KINDS = {"attn_mlp": "causal", "enc_attn_mlp": "bidir"}
 
 
@@ -67,6 +74,94 @@ def layer_apply_full(kind: str, p, x, cfg):
     x = x + attn_apply_fullseq(p["attn"], norm_apply(p["ln1"], x), cfg,
                                kind=FULL_KINDS[kind])
     return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg)
+
+
+def layer_apply_prefill(kind: str, p, x, cfg, cache):
+    """One causal layer over a whole prompt that also builds the layer's
+    dense decode cache, the counterpart of the cache-building branch of
+    the reference's ``layer_apply_full``: the layer's empty cache is
+    filled in place. x (P, B, S, D). Returns (x, cache)."""
+    h, cache = attn_apply_prefill(p["attn"], norm_apply(p["ln1"], x), cfg,
+                                  cache)
+    x = x + h
+    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), cache
+
+
+def layer_apply_decode(kind: str, p, x, cfg, cache, ctx):
+    """One-token decode of one layer over its dense cache. x (P, B, 1, D);
+    ctx: cur_pos (int). The cache is updated in place. Returns (x, cache)."""
+    h, cache = attn_apply_decode(p["attn"], norm_apply(p["ln1"], x), cfg,
+                                 cache, cur_pos=ctx["cur_pos"])
+    x = x + h
+    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), cache
+
+
+def decode_guard(cfg):
+    """The dense-cache path runs global-attention ``attn_mlp`` stacks:
+    ring caches (``local`` layers), logit softcap and the other layer
+    kinds wait for the rest of the model zoo (ROADMAP.md queue 1, item
+    14)."""
+    kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
+    bad = sorted({k for k in kinds if k not in DECODE_KINDS})
+    if bad:
+        raise NotImplementedError(
+            f"dense-cache decode supports {DECODE_KINDS} stacks only, got "
+            f"{bad} (ROADMAP.md queue 1, item 14)")
+    if cfg.prefix_lm or cfg.logit_softcap > 0.0:
+        raise NotImplementedError("dense-cache decode does not support "
+                                  "prefix_lm or logit softcap (ROADMAP.md "
+                                  "queue 1, item 14)")
+
+
+def stack_apply_prefill(params, x, cfg, caches):
+    """Prompt prefill that fills the empty dense decode caches of
+    ``stack_cache_init`` in place. x (P, B, S, D). Returns (x, caches)."""
+    return _stack_apply_dense(params, x, cfg, caches,
+                              lambda kind, p, x, c: layer_apply_prefill(
+                                  kind, p, x, cfg, c))
+
+
+def stack_apply_decode(params, x, cfg, caches, ctx):
+    """One decode step over the dense caches. x (P, B, 1, D); ctx:
+    cur_pos. Returns (x, caches), updated in place."""
+    return _stack_apply_dense(params, x, cfg, caches,
+                              lambda kind, p, x, c: layer_apply_decode(
+                                  kind, p, x, cfg, c, ctx))
+
+
+def _stack_apply_dense(params, x, cfg, caches, layer_fn):
+    """Run ``layer_fn(kind, p, x, cache)`` over the stack with each layer's
+    params and cache as views (unit caches: k/v ``[:, u]``, pos ``[u]``),
+    so the in-place cache writes land in the stacked caches."""
+    dt = x.dtype
+    for kind, p, c in zip(cfg.head_layers, params["head"], caches["head"]):
+        x, _ = layer_fn(kind, p, x, c)
+    for u in range(cfg.n_units):
+        for j, kind in enumerate(cfg.pattern):
+            p = tree_map(lambda a: a[:, u], params["units"][j])
+            uc = caches["units"][j]
+            c = {"k": uc["k"][:, u], "v": uc["v"][:, u], "pos": uc["pos"][u]}
+            x, _ = layer_fn(kind, p, x, c)
+            x = x.to(dt)
+    for kind, p, c in zip(cfg.tail_layers, params["tail"], caches["tail"]):
+        x, _ = layer_fn(kind, p, x, c)
+    return x, caches
+
+
+def stack_cache_init(cfg, particles: int, batch: int, seq_len: int, *,
+                     dtype, device):
+    """Empty dense caches for ``particles`` stacked particles: per
+    attention layer k/v (P, B, C, KVH, hd) zeros and pos (B, C) = -1; unit
+    layers stacked on n_units (k/v (P, n_units, ...), pos (n_units, ...))."""
+    decode_guard(cfg)
+
+    def one(lead=()):
+        return attn_cache_init(cfg, particles, batch, seq_len, dtype=dtype,
+                               device=device, lead=lead)
+
+    return {"head": tuple(one() for _ in cfg.head_layers),
+            "units": tuple(one((cfg.n_units,)) for _ in cfg.pattern),
+            "tail": tuple(one() for _ in cfg.tail_layers)}
 
 
 def paged_guard(cfg):
@@ -118,6 +213,24 @@ def stack_apply_paged(params, x, cfg, pages, ctx):
     Returns (x, pages) — the same page tensors, updated in place."""
     return _stack_apply_paged_common(params, x, cfg, pages, ctx,
                                      _layer_apply_paged)
+
+
+def _layer_apply_window_paged(kind, p, x, cfg, pages, ctx):
+    h, pages = attn_apply_window_paged(
+        p["attn"], norm_apply(p["ln1"], x), cfg, pages,
+        block_tables=ctx["block_tables"], seq_lens=ctx["seq_lens"],
+        write_index=ctx["write_index"])
+    x = x + h
+    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), pages
+
+
+def stack_apply_window_paged(params, x, cfg, pages, ctx):
+    """Speculative verify over a drafted window. x (P, B, W, D); ctx:
+    block_tables (B, n_pmax), seq_lens (B,) (position of window token 0,
+    -1 = inactive), write_index (``blocks.window_write_index``). Returns
+    (x, pages) — the same page tensors, updated in place."""
+    return _stack_apply_paged_common(params, x, cfg, pages, ctx,
+                                     _layer_apply_window_paged)
 
 
 def stack_apply_prefill_paged(params, x, cfg, pages, ctx):

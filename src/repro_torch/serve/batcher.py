@@ -300,11 +300,13 @@ class DecodeScheduler:
         self.stats["h2d_transfers"] += 1
         return _to_host(self.engine.prefill(buf))
 
-    def _ensure_page(self, seq: _Seq) -> bool:
-        """Make the page for ``seq``'s next write position resident,
-        preempting youngest rows while the pool is dry. False iff ``seq``
-        itself got preempted (it WAS the youngest)."""
-        need = (len(seq.all_tokens) - 1) // self.pool.page_size + 1
+    def _ensure_page(self, seq: _Seq, extra: int = 0) -> bool:
+        """Make the page for ``seq``'s next write position resident, plus
+        ``extra`` further positions (a speculative draft window writes
+        through position ``len - 1 + extra``), preempting youngest rows
+        while the pool is dry. False iff ``seq`` itself got preempted (it
+        WAS the youngest)."""
+        need = (len(seq.all_tokens) - 1 + extra) // self.pool.page_size + 1
         while len(self.pool.pages_of(seq.sid)) < need:
             if self.pool.alloc(seq.sid,
                                need - len(self.pool.pages_of(seq.sid))):

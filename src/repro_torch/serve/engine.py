@@ -1,6 +1,6 @@
 """Serving engines over the ParticleStore (counterpart of
-``repro.serve.engine``: ``PredictiveEngine.predict`` and
-``PagedDecodeEngine``).
+``repro.serve.engine``: ``PredictiveEngine`` with ``predict`` and, when
+``stateful``, ``init_state`` / ``step``; ``PagedDecodeEngine``).
 
 The reference compiles each serving step once through its ProgramCache;
 the port runs each step eagerly over the stacked particle axis — every
@@ -23,16 +23,23 @@ from . import uncertainty
 class PredictiveEngine:
     """Posterior-predictive core: one BMA forward per request batch.
 
-    ``forward(stacked_params, batch) -> member outputs (P, B, ...)``.
-    Serves either the store's stacked ``key`` tree (cached between store
-    commits by the store's version) with the store's active mask, or a
-    static stacked ``params`` tree (serve-time SWAG samples) with an
-    all-ones mask: exactly one of ``store=`` and ``params=``. ``kind`` is
-    "classify" (member outputs are logits) or "regress"."""
+    Stateless (the default): ``forward(stacked_params, batch) -> member
+    outputs (P, B, ...)``, served by ``predict``. Stateful
+    (``stateful=True``, LM decode over dense KV caches):
+    ``forward(stacked_params, state, batch) -> (member outputs, state)``,
+    served by ``step``; the per-particle state (leading axis P, the store's
+    capacity) stays on the device across steps, dead rows riding along
+    masked out of the heads. Serves either the store's stacked ``key``
+    tree (cached between store commits by the store's version) with the
+    store's active mask, or a static stacked ``params`` tree (serve-time
+    SWAG samples) with an all-ones mask: exactly one of ``store=`` and
+    ``params=``. ``kind`` is "classify" (member outputs are logits) or
+    "regress"."""
 
     def __init__(self, forward: Optional[Callable] = None, *,
                  store: Optional[ParticleStore] = None, key: str = "params",
-                 params: Any = None, kind: str = "classify"):
+                 params: Any = None, kind: str = "classify",
+                 stateful: bool = False):
         if (store is None) == (params is None):
             raise ValueError("pass exactly one of store= or params=")
         if kind not in uncertainty.KINDS:
@@ -41,6 +48,7 @@ class PredictiveEngine:
         self.store = store
         self.key = key
         self.kind = kind
+        self.stateful = stateful
         self._static_params = params
         self._static_mask = None if params is None else torch.ones(
             tree_leaves(params)[0].shape[0],
@@ -66,6 +74,8 @@ class PredictiveEngine:
         row), runs every member at once, and slices the heads back to B."""
         if self.forward is None:
             raise RuntimeError("this engine has no forward")
+        if self.stateful:
+            raise RuntimeError("stateful engine: use step(state, batch)")
         self.stats["calls"] += 1
         mask, stacked = self._mask_and_params()
         batch = to_device(batch, mask.device)
@@ -75,6 +85,28 @@ class PredictiveEngine:
             outs = self.forward(stacked, padded)
             heads = uncertainty.predictive_heads(outs, self.kind, mask)
         return {k: v[:m] for k, v in heads.items()}
+
+    def init_state(self, make_state: Callable):
+        """Build the stacked per-particle serving state:
+        ``make_state(stacked_params)`` over every slot of the store's
+        capacity (e.g. a prefill that returns the KV caches), so the state
+        is born capacity-padded."""
+        _, stacked = self._mask_and_params()
+        with torch.no_grad():
+            return make_state(stacked)
+
+    def step(self, state, batch):
+        """One stateful serving step (LM decode): ``forward`` over every
+        particle at once, then the BMA heads over the live slots. The batch
+        goes to ``forward`` as given. Returns (heads, new state)."""
+        if not self.stateful:
+            raise RuntimeError("stateless engine: use predict(batch)")
+        self.stats["calls"] += 1
+        mask, stacked = self._mask_and_params()
+        with torch.no_grad():
+            outs, state = self.forward(stacked, state, batch)
+            heads = uncertainty.predictive_heads(outs, self.kind, mask)
+        return heads, state
 
     def snapshot_stats(self) -> Dict[str, int]:
         return dict(self.stats)
@@ -109,11 +141,12 @@ class PagedDecodeEngine(PredictiveEngine):
                                       n_pmax=n_pmax)
 
     def _reduce(self, member_logits, mask):
-        """BMA heads + greedy token from member logits (P, B, V)."""
+        """BMA heads + greedy token from member logits (P, B, V), or
+        (P, B, W, V) per window position."""
         heads = uncertainty.predictive_heads(member_logits, self.kind, mask)
-        mean = heads["mean"]                            # (B, V) BMA probs
+        mean = heads["mean"]                        # (B, [W,] V) BMA probs
         token = mean.argmax(-1)
-        logprob = torch.log(mean.gather(-1, token[:, None])[:, 0] + 1e-12)
+        logprob = torch.log(mean.gather(-1, token[..., None])[..., 0] + 1e-12)
         return {"token": token.to(torch.int32), "logprob": logprob,
                 "entropy": heads["entropy"],
                 "mutual_info": heads["mutual_info"]}

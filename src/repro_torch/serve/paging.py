@@ -93,6 +93,30 @@ class PagePool:
             self.stats["releases"] += len(pages)
             return len(pages)
 
+    def release_tail(self, seq_id: int, n_tokens: int) -> int:
+        """Truncate ``seq_id``'s page list to what ``n_tokens`` tokens need
+        (``ceil(n_tokens / page_size)`` pages) and return the tail pages to
+        the free list: the rejected-draft rollback of speculative decode.
+        Page-granular: a partly used last page is kept, and its stale slots
+        past the tail are never read (the kernels mask by position).
+        Raises ``KeyError`` for a sequence the pool does not own (e.g. a
+        double release) and ``ValueError`` for a negative count. Returns
+        the number of pages freed."""
+        if n_tokens < 0:
+            raise ValueError(f"n_tokens must be >= 0, got {n_tokens}")
+        with self._lock:
+            if seq_id not in self._owned:
+                raise KeyError(f"pool does not own sequence {seq_id}")
+            owned = self._owned[seq_id]
+            keep = -(-n_tokens // self.page_size)
+            if keep >= len(owned):
+                return 0
+            tail = owned[keep:]
+            del owned[keep:]
+            self._free.extend(tail)
+            self.stats["releases"] += len(tail)
+            return len(tail)
+
     def pages_of(self, seq_id: int) -> List[int]:
         with self._lock:
             return list(self._owned.get(seq_id, ()))

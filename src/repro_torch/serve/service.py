@@ -6,6 +6,7 @@
     svc = serve_decode(pd, cfg, num_pages=256, page_size=16)
     gen = svc.generate(prompt_ids, max_new=32)       # Generation
     h   = svc.generate_async(ids, max_new=8)         # streaming handle
+    svc = serve_decode(pd, cfg, ..., speculative=4)  # draft 4, verify 5
 
 The reference's request coalescing (``MicroBatcher``, ``predict`` and
 ``predict_async`` of one example) waits for a later slice: the port's
@@ -24,6 +25,8 @@ from ..obs import clock
 from .batcher import DecodeScheduler, Generation
 from .engine import PagedDecodeEngine, PredictiveEngine
 from .paging import PagePool, create_kv_pages
+from .speculative import (SpecDecodeEngine, SpeculativeDecodeScheduler,
+                          resolve_spec_config)
 
 
 def percentile(xs: List[float], q: float) -> float:
@@ -156,7 +159,7 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
                  eos_id: Optional[int] = None, max_queue: int = 256,
                  cache_dtype=None,
                  pages_key: str = "kv_pages", warmup: bool = True,
-                 warmup_buckets=()) -> DecodeService:
+                 warmup_buckets=(), speculative: Any = None) -> DecodeService:
     """Turn a PushDistribution holding an LM ensemble into a
     continuous-batching posterior-predictive decode service.
 
@@ -169,8 +172,15 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     Decode attention runs the CUDA kernel on the card and its plain version
     on the CPU (``kernels.ops``). ``warmup=True`` runs one masked
     decode step (plus one prefill per pow2 bucket in ``warmup_buckets``)
-    before the first request.
+    before the first request. Prefill attention runs the prefill kernel on
+    the card.
+
+    ``speculative=`` turns on speculative BMA decoding (DESIGN.md §14):
+    ``True`` for the defaults, an int for that many drafted tokens per
+    step, or a ``serve.SpecConfig``. Greedy output stays token-exact; only
+    the number of tokens per step changes.
     """
+    spec_cfg = resolve_spec_config(speculative)
     cfg = cfg if cfg is not None else getattr(pd.module, "cfg", None)
     if cfg is None:
         raise ValueError("pass cfg= (the module carries none)")
@@ -192,10 +202,23 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
         models_api.paged_cache_init, cfg, num_pages=num_pages,
         page_size=page_size, dtype=cache_dtype), key=pages_key)
     pool = PagePool(num_pages, page_size, max_seq_pages=n_pmax)
-    engine = PagedDecodeEngine(decode_fn, prefill_fn, store=pd.store,
-                               n_pmax=n_pmax, pages_key=pages_key)
-    scheduler = DecodeScheduler(engine, pool, max_active=max_active,
-                                eos_id=eos_id, max_queue=max_queue)
+    if spec_cfg is not None:
+        def verify_fn(params, pages, tokens, block_tables, seq_lens,
+                      win_lens):
+            return models_api.decode_window_paged(
+                params, tokens, pages, block_tables, seq_lens, win_lens, cfg)
+
+        engine = SpecDecodeEngine(decode_fn, prefill_fn, verify_fn,
+                                  spec_cfg=spec_cfg, store=pd.store,
+                                  n_pmax=n_pmax, pages_key=pages_key)
+        scheduler = SpeculativeDecodeScheduler(
+            engine, pool, max_active=max_active, eos_id=eos_id,
+            max_queue=max_queue)
+    else:
+        engine = PagedDecodeEngine(decode_fn, prefill_fn, store=pd.store,
+                                   n_pmax=n_pmax, pages_key=pages_key)
+        scheduler = DecodeScheduler(engine, pool, max_active=max_active,
+                                    eos_id=eos_id, max_queue=max_queue)
     if warmup:
         scheduler.warmup(warmup_buckets)
     return DecodeService(scheduler)

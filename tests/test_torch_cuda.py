@@ -20,6 +20,17 @@ rows (sqdist 1e-3 absolute, force 2e-4 relative, moments and diag_std
 non-contiguous and wrong-dtype inputs. Small SteinVGD and MultiSWAG runs
 of the ViT on the card match the same runs on the CPU within 1e-4, with
 one launch of each kernel per step, collection leaf or sampled leaf.
+
+The window (speculative verify), prefill and dense-decode kernels are held
+against their plain versions: the window kernel on the
+``tests/test_speculative.py`` shapes plus the qwen serving heads with NaN
+past every window and in unowned pages (1e-4, fp32 and bf16 pages; exact
+zeros on inactive rows; W = 1 equals the single-token kernel within
+1e-6), the prefill kernel on the ``tests/test_kernels.py`` flash sweep
+plus longer ragged cases (2e-5; bf16 2e-2), the dense-decode kernel on
+the decode sweeps with NaN in empty slots (2e-5). Speculative serving and
+the stateful dense-cache engine on the card emit the CPU's tokens, with
+one launch per layer per verify, prefill or step.
 """
 import numpy as np
 import pytest
@@ -31,12 +42,15 @@ from repro_torch.bdl import svgd as bsvgd
 from repro_torch.core import ParticleModule, PushDistribution
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import DataLoader
+from repro_torch.kernels import decode_attention as decode_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import paged_decode_attention as kernel
+from repro_torch.kernels import paged_decode_window_attention as window_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import svgd_rbf, swag_moments
 from repro_torch.models import api
 from repro_torch.optim import sgd
-from repro_torch.serve import serve_decode
+from repro_torch.serve import PredictiveEngine, serve_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -366,3 +380,261 @@ def test_multiswag_on_card_matches_cpu(dev):
     _close(out["cuda"][0], out["cpu"][0], 1e-4)
     _close(out["cuda"][1], out["cpu"][1], 1e-4)
     _close(out["cuda"][2], out["cpu"][2], 1e-4)
+
+
+# --------------------------------------------------------------------------
+# the three attention kernels of the LM's serving paths: speculative verify
+# window, prefill, dense-cache decode
+# --------------------------------------------------------------------------
+
+WINDOW_SWEEP = [
+    (2, 3, 4, 2, 16, 8, 4, [13, 20]),        # GQA, mixed lengths
+    (3, 5, 8, 1, 8, 4, 8, [0, 9, 17]),       # MQA, window > page
+    (2, 2, 4, 4, 8, 8, 3, [-1, 11]),         # MHA + inactive row
+    (8, 5, 16, 16, 64, 16, 16, [40, 17, -1, 100, 63, 0, 77, 200]),  # qwen
+]
+
+
+def _window_case(seed, P, B, W, H, KVH, hd, ps, n_pmax, lens, dtype, dev):
+    """Window q and pages with the PagePool conventions; NaN in every slot
+    past each row's window (sl + W - 1) and in every page no row owns."""
+    NP = B * n_pmax + 2
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((P, B, W, H, hd), np.float32))
+    k = torch.from_numpy(rng.standard_normal((P, NP, ps, KVH, hd), np.float32))
+    v = torch.from_numpy(rng.standard_normal((P, NP, ps, KVH, hd), np.float32))
+    bt = np.zeros((B, n_pmax), np.int32)
+    free = list(rng.permutation(NP))
+    owned = set()
+    for b, sl in enumerate(lens):
+        if sl < 0:
+            continue
+        last = sl + W - 1
+        for i in range(last // ps + 1):
+            bt[b, i] = free.pop()
+            owned.add(int(bt[b, i]))
+        k[:, bt[b, last // ps], last % ps + 1:] = float("nan")
+        v[:, bt[b, last // ps], last % ps + 1:] = float("nan")
+    dead = sorted(set(range(NP)) - owned)
+    k[:, dead] = float("nan")
+    v[:, dead] = float("nan")
+    return (q.to(dev), k.to(dev, dtype), v.to(dev, dtype),
+            torch.from_numpy(bt).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,KVH,hd,ps,n_pmax,lens", WINDOW_SWEEP)
+def test_window_kernel_matches_plain(dev, dtype, B, W, H, KVH, hd, ps,
+                                     n_pmax, lens):
+    args = _window_case(B * 3 + W, 2, B, W, H, KVH, hd, ps, n_pmax, lens,
+                        dtype, dev)
+    before = window_kernel.paged_decode_window_attention.launches
+    out = window_kernel.paged_decode_window_attention(*args)
+    torch.cuda.synchronize()
+    assert window_kernel.paged_decode_window_attention.launches == before + 1
+    want = ref.paged_decode_window_attention(*args)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() < 1e-4
+    for b, L in enumerate(lens):
+        if L < 0:
+            assert out[:, b].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("B,H,KVH,hd,ps,n_pmax,lens", SWEEP)
+def test_window_kernel_w1_matches_single_token_kernel(dev, B, H, KVH, hd, ps,
+                                                      n_pmax, lens):
+    q, k, v, bt, sl = _case(B * 7 + ps, 2, B, H, KVH, hd, ps, n_pmax, lens,
+                            torch.float32, dev)
+    single = kernel.paged_decode_attention(q, k, v, bt, sl)
+    window = window_kernel.paged_decode_window_attention(q[:, :, None], k, v,
+                                                         bt, sl)
+    assert (window[:, :, 0] - single).abs().max().item() < 1e-6
+
+
+FLASH_SWEEP = [
+    (1, 64, 4, 2, 32, True),
+    (2, 50, 4, 1, 16, True),
+    (1, 128, 8, 8, 64, False),
+    (2, 33, 2, 2, 8, True),
+    (1, 200, 16, 16, 64, True),      # qwen heads, ragged last tiles
+    (1, 77, 16, 2, 128, False),      # hd 128, bidirectional ragged
+]
+
+
+@pytest.mark.parametrize("B,S,H,KVH,hd,causal", FLASH_SWEEP)
+def test_flash_kernel_matches_plain(dev, B, S, H, KVH, hd, causal):
+    gen = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn((2, B, S, H, hd), generator=gen, device=dev)
+    k = torch.randn((2, B, S, KVH, hd), generator=gen, device=dev)
+    v = torch.randn((2, B, S, KVH, hd), generator=gen, device=dev)
+    before = flash_kernel.flash_attention.launches
+    out = flash_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert (out - want).abs().max().item() < 2e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_dtypes(dev, dtype, tol):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((2, 1, 64, h, 32), generator=gen,
+                           device=dev).to(dtype) for h in (4, 2, 2))
+    out = flash_kernel.flash_attention(q, k, v, causal=True)
+    assert out.dtype == dtype
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal=True)
+    assert (out.float() - want).abs().max().item() < tol
+
+
+DECODE_SWEEP = [
+    (2, 64, 4, 2, 32, False),
+    (1, 100, 8, 1, 16, True),
+    (3, 33, 4, 4, 8, True),
+    (2, 7, 4, 2, 16, False),
+    (2, 65, 4, 2, 16, False),
+    (8, 97, 16, 16, 64, True),       # qwen heads, C = 97
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,KVH,hd,holes", DECODE_SWEEP)
+def test_decode_kernel_matches_plain(dev, dtype, B, C, H, KVH, hd, holes):
+    """Empty slots (k_pos < 0) hold NaN; neither side may leak it."""
+    gen = torch.Generator(device=dev).manual_seed(C)
+    q = torch.randn((2, B, H, hd), generator=gen, device=dev)
+    k = torch.randn((2, B, C, KVH, hd), generator=gen, device=dev)
+    v = torch.randn((2, B, C, KVH, hd), generator=gen, device=dev)
+    pos = torch.arange(C, device=dev).expand(B, C).clone()
+    if holes:
+        keep = torch.rand((B, C), generator=gen, device=dev) < 0.8
+        pos = torch.where(keep, pos, -1)
+    pos[:, -3:] = -1                       # decode headroom
+    k[:, pos < 0] = float("nan")
+    v[:, pos < 0] = float("nan")
+    args = (q, k.to(dtype), v.to(dtype), pos.to(torch.int32))
+    before = decode_kernel.decode_attention.launches
+    out = decode_kernel.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert decode_kernel.decode_attention.launches == before + 1
+    want = ref.decode_attention(*args)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() < 2e-5
+
+
+def test_decode_kernel_takes_particle_strided_cache(dev):
+    """A layer's cache is a view of the stacked (P, n_units, ...) cache."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((2, 3, 4, 16), generator=gen, device=dev)
+    k, v = (torch.randn((2, 2, 3, 20, 2, 16), generator=gen, device=dev)
+            for _ in range(2))
+    pos = torch.arange(20, device=dev, dtype=torch.int32).expand(3, 20)
+    pos = pos.contiguous()
+    out = decode_kernel.decode_attention(q, k[:, 1], v[:, 1], pos)
+    want = ref.decode_attention(q, k[:, 1].contiguous(),
+                                v[:, 1].contiguous(), pos)
+    assert (out - want).abs().max().item() < 2e-5
+
+
+def test_attention_kernels_refuse_bad_inputs(dev):
+    q = torch.randn(2, 1, 8, 4, 16, device=dev)
+    k = torch.randn(2, 1, 8, 2, 16, device=dev)
+    cache = torch.randn(2, 1, 8, 2, 16, device=dev)
+    pos = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+    cases = [
+        (flash_kernel.flash_attention, (q, k, k.double())),
+        (flash_kernel.flash_attention, (q, k.transpose(2, 3), k)),
+        (flash_kernel.flash_attention, (q.cpu(), k.cpu(), k.cpu())),
+        (decode_kernel.decode_attention, (q[:, :, 0], cache, cache,
+                                          pos.long())),
+        (decode_kernel.decode_attention, (q[:, :, 0], cache,
+                                          cache[:, :, :4], pos)),
+        (window_kernel.paged_decode_window_attention,
+         (q, cache, cache, torch.zeros(1, 2, dtype=torch.int32, device=dev),
+          torch.zeros(1, dtype=torch.int64, device=dev))),
+    ]
+    for fn, args in cases:
+        before = fn.launches
+        with pytest.raises(ValueError):
+            fn(*args)
+        assert fn.launches == before
+
+
+def _lm_pds(dev, cfg, n=2):
+    """The same random particles on the card and on the CPU."""
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    gpu_pd = PushDistribution(module, seed=0, device=dev)
+    cpu_pd = PushDistribution(module, device="cpu")
+    for _ in range(n):
+        pid = gpu_pd.p_create()
+        cpu_pd.p_create(params=tree_map(lambda a: a.cpu(),
+                                        gpu_pd.p_params(pid)))
+    return gpu_pd, cpu_pd
+
+
+def test_speculative_serve_decode_kernels_match_plain(dev):
+    """Speculative serve_decode on the card (window, paged and prefill
+    kernels) against the same weights on the CPU (plain versions)."""
+    cfg = configs.get("qwen1.5-0.5b").replace(
+        n_units=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=512, max_seq_len=128)
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, 512, int(rng.integers(3, 20))))
+               for _ in range(5)]
+    outs = []
+    for pd in _lm_pds(dev, cfg):
+        svc = serve_decode(pd, cfg, num_pages=32, page_size=8, max_active=3,
+                           speculative=3)
+        counts = (window_kernel.paged_decode_window_attention.launches,
+                  flash_kernel.flash_attention.launches)
+        try:
+            gens = [h.result(120) for h in
+                    [svc.generate_async(p, max_new=8) for p in prompts]]
+            st = svc.stats()
+        finally:
+            svc.close()
+        got = (window_kernel.paged_decode_window_attention.launches
+               - counts[0], flash_kernel.flash_attention.launches - counts[1])
+        if pd.device.type == "cuda":
+            assert got == (cfg.n_layers * st["speculative"]["verify_calls"],
+                           cfg.n_layers * st["prefills"])
+        else:
+            assert got == (0, 0)
+        assert st["pool"]["used_pages"] == 0
+        outs.append(gens)
+    for a, b in zip(*outs):
+        assert a.tokens == b.tokens
+        assert np.allclose(a.entropy, b.entropy, atol=1e-4)
+        assert np.allclose(a.mutual_info, b.mutual_info, atol=1e-4)
+
+
+def test_stateful_dense_decode_kernels_match_plain(dev):
+    """PredictiveEngine(stateful=True) over api.prefill / api.decode_step
+    on the card (prefill and dense decode kernels) against the CPU."""
+    cfg = configs.get("qwen1.5-0.5b").replace(
+        n_units=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=512, max_seq_len=128)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(1, 512, (3, 12))
+    outs = []
+    for pd in _lm_pds(dev, cfg):
+        eng = PredictiveEngine(
+            lambda p, c, b: api.decode_step(p, b["token"], c, b["cur_pos"],
+                                            cfg),
+            store=pd.store, stateful=True)
+        toks = torch.as_tensor(prompts, device=pd.device)
+        before = decode_kernel.decode_attention.launches
+        state = eng.init_state(lambda p: api.prefill(
+            p, {"tokens": toks[:, :-1]}, cfg, max_len=12 + 6)[1])
+        tok, seq = toks[:, -1], []
+        for step in range(6):
+            heads, state = eng.step(state, {"token": tok,
+                                            "cur_pos": 11 + step})
+            tok = heads["mean"].argmax(-1)
+            seq.append(tok.cpu().numpy())
+        launches = decode_kernel.decode_attention.launches - before
+        assert launches == (6 * cfg.n_layers if pd.device.type == "cuda"
+                            else 0)
+        outs.append(np.stack(seq, 1))
+    assert np.array_equal(outs[0], outs[1])

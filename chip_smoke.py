@@ -6,7 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phase 0  builds every CUDA kernel under src/repro_torch/kernels/csrc from
-         the checkout (one nvcc per source, all started together).
+         the checkout (one nvcc per source, all started together) and
+         prints ptxas's register, shared-memory and spill lines for each
+         kernel entry (each template instance) of each source.
 Phase 1  holds the paged-attention kernel against its plain PyTorch version:
          the tests/test_paged.py sweep with a particle axis of 2 and NaN in
          every stale slot, plus the qwen1.5-0.5b serving shape, with fp32
@@ -71,8 +73,13 @@ Phase 5  holds the three attention kernels of the LM's other serving paths
          sweeps with NaN in empty slots, 2e-5), then each at its serving
          shape. It times each kernel, its plain version and one SDPA call
          (library_ms: is_causal for the prefill, a boolean mask over
-         gathered or dense K/V for the other two) with the L2 flushed, and
-         the prefill also at P=4 x 4096 tokens.
+         gathered or dense K/V for the other two) with the L2 flushed, the
+         prefill also at P=4 x 4096 tokens and the window also at a
+         long-context case (8 rows at ~2048 tokens in a pool of their own,
+         where the split page walk matters more), with the device time
+         of the window and 128-token prefill calls and of their SDPA
+         calls from torch.profiler beside the event times (which also
+         hold any wait for the host).
 Phase 6  drives serve_decode(speculative=4) over phase 2's 8 requests and
          P=4 particles: every request finishes with finite heads, the pool
          drains to 0 pages, and the launch counts are exact (window kernel
@@ -108,6 +115,7 @@ when any phase fails.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -125,6 +133,7 @@ MAX_ACTIVE = 8
 N_REQUESTS = 8
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12        # H100 SXM dense TF32 on the tensor cores
 SWEEP = [
     (2, 4, 2, 32, 16, 4, [47, 63]),
     (3, 8, 1, 16, 8, 6, [0, 33, 21]),
@@ -201,6 +210,26 @@ def time_ms(torch, fn, iters=30):
         e1.record()
     torch.cuda.synchronize()
     return float(np.median([e0.elapsed_time(e1) for e0, e1 in ev]))
+
+
+def device_ms(torch, fn, n=20):
+    """Device time of one ``fn()`` call, summed over the kernels it
+    launches (torch.profiler, L2 warm). Unlike time_ms it leaves out any
+    wait for the host, and the reads that a flushed L2 sends to HBM."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += getattr(e, "self_cuda_time_total", 0) if t is None else t
+    return us / n / 1e3 if us else "not measured"
 
 
 def traffic(vocab):
@@ -447,6 +476,7 @@ DECODE_SWEEP = [(2, 64, 4, 2, 32, False), (1, 100, 8, 1, 16, True),
                 (2, 65, 4, 2, 16, False)]
 SPEC_K = 4
 LONG_PROMPT = 4096
+LONG_CONTEXT = 2048
 DENSE_PROMPTS, DENSE_LEN, DENSE_NEW = 8, 64, 32
 
 
@@ -516,6 +546,24 @@ def max_err(torch, out, want, what, tol):
     return err
 
 
+def ptxas_by_entry(log):
+    """{kernel name and mangled template arguments: its ptxas register,
+    shared-memory and spill lines} from an nvcc -Xptxas -v log."""
+    table, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            # the kernel's name and template arguments, past the anonymous
+            # namespace and before the parameter list
+            m = re.search(r"\d+([A-Za-z_]+_kernel)(I.*?E)Ev", name)
+            name = m.group(1) + m.group(2) if m else name
+            table[name] = []
+        elif name and ("registers" in ln or "spill" in ln or "smem" in ln):
+            table[name].append(ln.split(":", 1)[-1].strip()
+                               if "ptxas" in ln else ln.strip())
+    return {n: "; ".join(v) for n, v in table.items()}
+
+
 def phase5(torch, cfg, reqs):
     """The window, prefill and dense-decode kernels against their plain
     versions (sweeps and serving shapes), then timed with the L2 flushed.
@@ -559,40 +607,64 @@ def phase5(torch, cfg, reqs):
             max_err(torch, window(q[:, :, None], k, v, bt, sl)[:, :, 0],
                     pk.paged_decode_attention(q, k, v, bt, sl),
                     f"window W=1 vs paged case {i}", 1e-6))
-    q, k, v, bt, sl = window_case(torch, 7, P, len(lens), W, H, KVH, hd,
-                                  PAGE_SIZE, NUM_PAGES, NUM_PAGES, lens,
-                                  torch.float32)
-    B = len(lens)
-    Lmax = max(lens) + W
-    idx = torch.arange(Lmax, device="cuda")
-    page = bt.long()[:, idx // PAGE_SIZE]
-    kd = k[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)
-    vd = v[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)
-    kd = kd.reshape(P * B, KVH, Lmax, hd).nan_to_num().contiguous()
-    vd = vd.reshape(P * B, KVH, Lmax, hd).nan_to_num().contiguous()
-    qd = q.permute(0, 1, 3, 2, 4).reshape(P * B, H, W, hd).contiguous()
-    lim = sl.long()[:, None] + torch.arange(W, device="cuda")[None]
-    mask = (idx[None, None, :] <= lim[:, :, None])               # (B, W, L)
-    mask = mask[None].expand(P, B, W, Lmax).reshape(P * B, 1, W, Lmax)
-    pairs = sum(W * L + W * (W + 1) // 2 for L in lens)
-    live = sum(L + W for L in lens)
-    b_ms, b_by = bound(P * live * KVH * hd * 2 * 4 + 2 * q.numel() * 4
-                       + 4 * (sum((L + W - 1) // PAGE_SIZE + 1 for L in lens)
-                              + B), 4 * P * pairs * H * hd)
+    def window_row(seed, lens, n_pmax, NP):
+        """The window kernel at P particles and the serving heads: max abs
+        err against the plain version, then ms, plain ms, SDPA ms (a
+        boolean mask over K/V gathered beforehand) and the bound."""
+        q, k, v, bt, sl = window_case(torch, seed, P, len(lens), W, H, KVH,
+                                      hd, PAGE_SIZE, n_pmax, NP, lens,
+                                      torch.float32)
+        err = max_err(torch, window(q, k, v, bt, sl),
+                      ref.paged_decode_window_attention(q, k, v, bt, sl),
+                      f"window P={P} seq_lens {lens}", 1e-4)
+        B = len(lens)
+        Lmax = max(lens) + W
+        idx = torch.arange(Lmax, device="cuda")
+        page = bt.long()[:, idx // PAGE_SIZE]
+        kd = k[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)
+        vd = v[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)
+        kd = kd.reshape(P * B, KVH, Lmax, hd).nan_to_num().contiguous()
+        vd = vd.reshape(P * B, KVH, Lmax, hd).nan_to_num().contiguous()
+        qd = q.permute(0, 1, 3, 2, 4).reshape(P * B, H, W, hd).contiguous()
+        lim = sl.long()[:, None] + torch.arange(W, device="cuda")[None]
+        mask = (idx[None, None, :] <= lim[:, :, None])           # (B, W, L)
+        mask = mask[None].expand(P, B, W, Lmax).reshape(P * B, 1, W, Lmax)
+        pairs = sum(W * L + W * (W + 1) // 2 for L in lens)
+        live = sum(L + W for L in lens)
+        b_ms, b_by = bound(P * live * KVH * hd * 2 * 4 + 2 * q.numel() * 4
+                           + 4 * (sum((L + W - 1) // PAGE_SIZE + 1
+                                      for L in lens) + B),
+                           4 * P * pairs * H * hd)
+        row = {"max_abs_err": err,
+               "ms": time_ms(torch, lambda: window(q, k, v, bt, sl)),
+               "plain_ms": time_ms(torch, lambda: ref.paged_decode_window_attention(
+                   q, k, v, bt, sl), iters=10 if Lmax < 1024 else 3),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd,
+                                                         attn_mask=mask)),
+               "device_ms": device_ms(torch, lambda: window(q, k, v, bt, sl)),
+               "library_device_ms": device_ms(torch, lambda: sdpa(
+                   qd, kd, vd, attn_mask=mask))}
+        del q, k, v, kd, vd, qd, mask
+        torch.cuda.empty_cache()
+        return row
+
     rows = [{"name": "paged_decode_window_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/"
                        "paged_decode_window_attention.cu",
              "replaces": "src/repro/kernels/paged_decode_attention.py:131",
-             "max_abs_err": errs["window_serve_float32"],
-             "ms": time_ms(torch, lambda: window(q, k, v, bt, sl)),
-             "plain_ms": time_ms(torch, lambda: ref.paged_decode_window_attention(
-                 q, k, v, bt, sl), iters=10),
-             "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd,
-                                                       attn_mask=mask))}]
-    out["window_shape"] = {"P": P, "B": B, "W": W, "H": H, "KVH": KVH,
-                           "hd": hd, "seq_lens": lens}
-    del q, k, v, kd, vd, qd, mask
+             **window_row(7, lens, NUM_PAGES, NUM_PAGES)}]
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                 errs["window_serve_float32"])
+    out["window_shape"] = {"P": P, "B": len(lens), "W": W, "H": H,
+                           "KVH": KVH, "hd": hd, "seq_lens": lens}
+    # the long-context kernel case: 8 rows at ~2048 tokens in a pool of
+    # their own, where the split page walk matters more
+    long_lens = [LONG_CONTEXT - 37 * i for i in range(MAX_ACTIVE)]
+    n_pmax = (max(long_lens) + W - 1) // PAGE_SIZE + 8
+    out["window_long_context"] = {
+        "P": P, "seq_lens": long_lens, "n_pmax": n_pmax,
+        **window_row(8, long_lens, n_pmax, MAX_ACTIVE * n_pmax + 2)}
 
     # -- the prefill kernel ----------------------------------------------------
     for i, (B, S, Hc, KVc, hdc, causal) in enumerate(FLASH_SWEEP):
@@ -618,8 +690,10 @@ def phase5(torch, cfg, reqs):
         err = max_err(torch, flash(q, k, v), ref.flash_attention(q, k, v),
                       f"flash P={P} S={S}", 2e-5)
         qd, kd, vd = (t[:, 0].transpose(1, 2).contiguous() for t in (q, k, v))
-        b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * 4,
-                           4 * P * H * hd * S * (S + 1) // 2)
+        # the kernel takes each fp32 product as three TF32 products
+        flops = 4 * P * H * hd * S * (S + 1) // 2
+        b_ms, b_by = bound((q.numel() * 2 + k.numel() * 2) * 4, 3 * flops,
+                           rate=TF32_FLOPS_PER_S)
         row = {"max_abs_err": err,
                "ms": time_ms(torch, lambda: flash(q, k, v),
                              iters=30 if S <= 1024 else 5),
@@ -629,6 +703,10 @@ def phase5(torch, cfg, reqs):
                "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd,
                                                          is_causal=True),
                                      iters=30 if S <= 1024 else 5)}
+        if S <= 1024:
+            row["device_ms"] = device_ms(torch, lambda: flash(q, k, v))
+            row["library_device_ms"] = device_ms(
+                torch, lambda: sdpa(qd, kd, vd, is_causal=True))
         del q, k, v, qd, kd, vd
         torch.cuda.empty_cache()
         return row
@@ -637,8 +715,11 @@ def phase5(torch, cfg, reqs):
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/attention.py:74",
                  **flash_row(128)})
-    out["flash_long_prompt"] = {"P": P, "S": LONG_PROMPT,
-                                **flash_row(LONG_PROMPT)}
+    out["flash_long_prompt"] = {
+        "P": P, "S": LONG_PROMPT, **flash_row(LONG_PROMPT),
+        # the same work as fp32 FMAs on the CUDA cores (PR 13's kernel)
+        "fp32_ops_bound_ms": bound(0, 4 * P * H * hd * LONG_PROMPT
+                                   * (LONG_PROMPT + 1) // 2)[0]}
 
     # -- the dense-cache decode kernel ----------------------------------------
     for dtype in (torch.float32, torch.bfloat16):
@@ -676,6 +757,10 @@ def phase5(torch, cfg, reqs):
     out["decode_shape"] = {"P": P, "B": B, "C": C, "valid_slots": n_valid}
     del q, k, v, kd, vd
     torch.cuda.empty_cache()
+    # device-only times go in this phase's line, not in the kernels line
+    out["device_ms"] = {r["name"]: {k: r.pop(k) for k in ("device_ms",
+                                                          "library_device_ms")}
+                        for r in rows if "device_ms" in r}
     out["max_abs_err"] = errs
     out["timed"] = {r["name"]: {k: r[k] for k in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")}
@@ -936,9 +1021,9 @@ def moments_parity(torch, state, params, mask):
             "slots": sorted(set(slot.tolist()))}
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, rate=FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1338,10 +1423,7 @@ def main():
     from repro_torch.models import api
     t0 = time.perf_counter()
     build.build_all()
-    ptxas = {n: sorted({ln.split(":", 1)[-1].strip()
-                        for ln in build.build_log(n).splitlines()
-                        if "registers" in ln or "spill" in ln})
-             for n in build.sources()}
+    ptxas = {n: ptxas_by_entry(build.build_log(n)) for n in build.sources()}
     emit({"phase": 0, "built": build.sources(),
           "build_s": time.perf_counter() - t0, "ptxas": ptxas})
 

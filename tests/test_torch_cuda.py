@@ -26,8 +26,10 @@ against their plain versions: the window kernel on the
 ``tests/test_speculative.py`` shapes plus the qwen serving heads with NaN
 past every window and in unowned pages (1e-4, fp32 and bf16 pages; exact
 zeros on inactive rows; W = 1 equals the single-token kernel within
-1e-6), the prefill kernel on the ``tests/test_kernels.py`` flash sweep
-plus longer ragged cases (2e-5; bf16 2e-2), the dense-decode kernel on
+1e-6) and on split page walks (page edges, one-split and many-split rows
+in 256-page tables), the prefill kernel on the ``tests/test_kernels.py``
+flash sweep plus longer ragged cases and a sweep of S, G and hd that no
+tile divides (2e-5; bf16 2e-2), the dense-decode kernel on
 the decode sweeps with NaN in empty slots (2e-5). Speculative serving and
 the stateful dense-cache engine on the card emit the CPU's tokens, with
 one launch per layer per verify, prefill or step.
@@ -486,6 +488,55 @@ def test_flash_kernel_dtypes(dev, dtype, tol):
     assert out.dtype == dtype
     want = ref.flash_attention(q.float(), k.float(), v.float(), causal=True)
     assert (out.float() - want).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [8, 12, 16, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("S", [1, 33, 200, 1000])
+def test_flash_kernel_tile_edges(dev, S, G, hd, causal, dtype, tol):
+    """S a multiple of no tile, any hd up to 128 (12: padded dims), G up to
+    8 heads in a tile's rows; 3xTF32 in fp32, bf16 mma in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(S * 131 + G * 7 + hd)
+    q, k, v = (torch.randn((2, 1, S, h, hd), generator=gen,
+                           device=dev).to(dtype) for h in (2 * G, 2, 2))
+    before = flash_kernel.flash_attention.launches
+    out = flash_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    assert torch.isfinite(out).all()
+    assert (out.float() - want).abs().max().item() < tol
+
+
+WINDOW_SPLIT_CASES = [
+    # page edges: seq_len at the last slot of a page, at the first, and a
+    # window crossing an edge; a one-split row (0) beside many-split rows
+    # (300, 2000) in 256-page tables (n_pmax far above most rows' pages)
+    (8, 5, 8, 2, 64, 16, 256, [15, 16, 12, 11, -1, 0, 300, 2000]),
+    (4, 3, 4, 4, 32, 8, 128, [7, 8, 1000, -1]),
+    (3, 1, 16, 16, 64, 16, 256, [31, 32, 1500]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,KVH,hd,ps,n_pmax,lens", WINDOW_SPLIT_CASES)
+def test_window_kernel_split_walk(dev, dtype, B, W, H, KVH, hd, ps, n_pmax,
+                                  lens):
+    args = _window_case(B * 5 + W + ps, 2, B, W, H, KVH, hd, ps, n_pmax,
+                        lens, dtype, dev)
+    before = window_kernel.paged_decode_window_attention.launches
+    out = window_kernel.paged_decode_window_attention(*args)
+    torch.cuda.synchronize()
+    assert window_kernel.paged_decode_window_attention.launches == before + 1
+    want = ref.paged_decode_window_attention(*args)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() < 1e-4
+    for b, L in enumerate(lens):
+        if L < 0:
+            assert out[:, b].abs().max().item() == 0.0
 
 
 DECODE_SWEEP = [

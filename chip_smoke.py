@@ -11,13 +11,20 @@ Phase 0  builds every CUDA kernel under src/repro_torch/kernels/csrc from
          kernel entry (each template instance) of each source.
 Phase 1  holds the paged-attention kernel against its plain PyTorch version:
          the tests/test_paged.py sweep with a particle axis of 2 and NaN in
-         every stale slot, plus the qwen1.5-0.5b serving shape, with fp32
-         and bf16 pages, both within 1e-4 (the two sides widen the same
-         bf16 values and accumulate in fp32); inactive rows must be exact
-         zeros. Then it times, at the serving shape with the L2 cache
-         flushed before each call: the kernel, its plain version, and one
+         every stale slot, then three shapes, each with fp32 and bf16
+         pages and NaN in stale and unowned slots, all within 1e-4 (the
+         two sides widen the same bf16 values and accumulate in fp32): the
+         qwen1.5-0.5b serving shape (P=4, the 8 rows of the smoke
+         traffic), the speculative draft's call (a one-particle view of
+         that pool, as spec_draft_step takes it) and a long context (8
+         rows at 1789-2048 tokens in a pool of their own). At each it
+         times the kernel with the L2 flushed before each call (event ms)
+         and with the profiler (device ms, L2 warm) at its default kv
+         heads a block and at one and four, the plain version, and one
          scaled_dot_product_attention call on K/V gathered beforehand
-         (library_ms, a yardstick the port never calls).
+         (library_ms, a yardstick the port never calls), beside the bound;
+         at the serving and draft shapes also with the split count forced
+         to 1 and to 8 (split_probe: what the plan's grid rule rests on).
 Phase 2  drives serve_decode over P=4 full-width qwen1.5-0.5b particles
          (24 layers, random weights from seed 0) with 8 mixed-length
          requests (prompts of 16-128 tokens, max_new 16-64). Every request
@@ -67,19 +74,21 @@ Phase 5  holds the three attention kernels of the LM's other serving paths
          against their plain versions on the card: the speculative verify
          window (the tests/test_speculative.py shapes plus the serving
          heads, NaN past every window and in unowned pages, fp32 and bf16
-         pages, 1e-4; W = 1 against the single-token kernel, 1e-6), the
-         prefill (the tests/test_kernels.py flash sweep, 2e-5, and bf16,
-         2e-2) and the dense-cache decode (the decode and ragged-tail
-         sweeps with NaN in empty slots, 2e-5), then each at its serving
-         shape. It times each kernel, its plain version and one SDPA call
-         (library_ms: is_causal for the prefill, a boolean mask over
-         gathered or dense K/V for the other two) with the L2 flushed, the
-         prefill also at P=4 x 4096 tokens and the window also at a
-         long-context case (8 rows at ~2048 tokens in a pool of their own,
-         where the split page walk matters more), with the device time
-         of the window and 128-token prefill calls and of their SDPA
-         calls from torch.profiler beside the event times (which also
-         hold any wait for the host).
+         pages, 1e-4; at W = 1 the same bits as the single-token kernel,
+         max abs err 0, fp32 and bf16), the prefill (the
+         tests/test_kernels.py flash sweep, 2e-5, and bf16, 2e-2) and the
+         dense-cache decode (the decode and ragged-tail sweeps with NaN in
+         empty slots, 2e-5), then each at its serving shape, the dense
+         decode also at C = 2048 slots, all filled. It times each kernel,
+         its plain version and one SDPA call (library_ms: is_causal for
+         the prefill, a boolean mask over gathered or dense K/V for the
+         other two) with the L2 flushed, the prefill also at P=4 x 4096
+         tokens and the window also at a long-context case (8 rows at
+         ~2048 tokens in a pool of their own, where the split page walk
+         matters more), with the device time from torch.profiler beside
+         the event times, the dense decode at one, two and four kv heads
+         a block, and the window and dense decode at their serving shapes
+         with the split count forced to 1 and to 8.
 Phase 6  drives serve_decode(speculative=4) over phase 2's 8 requests and
          P=4 particles: every request finishes with finite heads, the pool
          drains to 0 pages, and the launch counts are exact (window kernel
@@ -113,6 +122,7 @@ card's name and power limit as nvidia-smi prints them, and last
 there is no CUDA device, when run outside a checkout of the repository, or
 when any phase fails.
 """
+import contextlib
 import json
 import os
 import re
@@ -196,7 +206,10 @@ def check_kernel(torch, kernel, ref, args, lens, tol, what):
 
 def time_ms(torch, fn, iters=30):
     """Median device time of one call, with the 50 MB L2 flushed before
-    each call (a decode step streams other layers' weights in between)."""
+    each call (a decode step streams other layers' weights in between).
+    The card zeroes the 256 MB flush buffer four times before each call,
+    about 0.3 ms, so the host has queued the call before the card reaches
+    it and the events hold no wait for the host's Python."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
@@ -204,7 +217,8 @@ def time_ms(torch, fn, iters=30):
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for e0, e1 in ev:
-        flush.zero_()
+        for _ in range(4):
+            flush.zero_()
         e0.record()
         fn()
         e1.record()
@@ -238,6 +252,111 @@ def traffic(vocab):
              int(rng.integers(16, 65))) for _ in range(N_REQUESTS)]
 
 
+def gathered(torch, k, v, bt, sl, lens, W):
+    """K/V of each row gathered from its pages to dense (P * B, KVH, L, hd)
+    beforehand, stale NaN zeroed, and the boolean mask of window query w
+    (columns <= seq_len + w): the SDPA yardstick's inputs."""
+    P, KVH, hd = k.shape[0], k.shape[3], k.shape[4]
+    B, L = len(lens), max(lens) + W
+    idx = torch.arange(L, device="cuda")
+    page = bt.long()[:, idx // PAGE_SIZE]                       # (B, L)
+    kd = k[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)     # (P,B,KVH,L,hd)
+    vd = v[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)
+    # stale slots hold NaN, which an additive mask would not hide
+    kd = kd.reshape(P * B, KVH, L, hd).nan_to_num().contiguous()
+    vd = vd.reshape(P * B, KVH, L, hd).nan_to_num().contiguous()
+    lim = sl.long()[:, None] + torch.arange(W, device="cuda")[None]
+    mask = (idx[None, None, :] <= lim[:, :, None])              # (B, W, L)
+    return kd, vd, mask[None].expand(P, B, W, L).reshape(P * B, 1, W, L)
+
+
+def paged_row(torch, q, k, v, bt, sl, lens):
+    """The paged kernel on (q, pages): max abs err against the plain
+    version, event ms (L2 flushed) and device ms (L2 warm) with each kv
+    head grouping (the default first, then one and four kv heads a block),
+    the plain version's ms, SDPA's (K/V gathered beforehand) and the
+    bound."""
+    from repro_torch.kernels import paged_decode_attention as pk
+    from repro_torch.kernels import ref, split_walk
+    kernel = pk.paged_decode_attention
+    P, B, H, hd = q.shape
+    KVH = k.shape[3]
+    err = max_err(torch, kernel(q, k, v, bt, sl),
+                  ref.paged_decode_attention(q, k, v, bt, sl),
+                  f"paged P={P} {k.dtype} seq_lens {lens}", 1e-4)
+    kd, vd, mask = gathered(torch, k, v, bt, sl, lens, 1)
+    qd = q.reshape(P * B, H, 1, hd).to(k.dtype)   # SDPA takes one dtype
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # bound: each live K/V row read once, q read and out written once
+    live = sum(L + 1 for L in lens if L >= 0)
+    n_bt = sum(L // PAGE_SIZE + 1 for L in lens if L >= 0)
+    b_ms, b_by = bound(P * live * KVH * hd * 2 * k.element_size()
+                       + 2 * q.numel() * q.element_size() + 4 * (n_bt + B),
+                       4 * P * live * H * hd)
+    default = split_walk.heads_per_block(KVH, H // KVH, hd, 2 * PAGE_SIZE,
+                                         k.element_size())
+    heads = by_heads(torch, lambda: kernel(q, k, v, bt, sl), default)
+    row = {"max_abs_err": err, **heads[str(default)],
+           "plain_ms": time_ms(torch, lambda: ref.paged_decode_attention(
+               q, k, v, bt, sl), iters=30 if max(lens) < 1024 else 5),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd,
+                                                     attn_mask=mask)),
+           "library_device_ms": device_ms(torch, lambda: sdpa(
+               qd, kd, vd, attn_mask=mask)),
+           "kv_heads_per_block": default, "by_kv_heads_per_block": heads}
+    del kd, vd, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def forced_plan(heads=None, splits=None):
+    """The decode kernels' launches with the kv heads a block and / or the
+    split count forced (a measurement: what the plan's rules rest on)."""
+    from repro_torch.kernels import split_walk
+    plan_fn = split_walk.launch_plan
+
+    def forced(n_pmax, ps, W, G, KVH, P, B, hd, itemsize, sms):
+        plan, h = plan_fn(n_pmax, ps, W, G, KVH, P, B, hd, itemsize, sms)
+        if heads is not None:
+            h = heads
+            plan = split_walk.split_plan(n_pmax, ps, W, blocks=P * B * KVH // h,
+                                         sms=sms)
+        if splits is not None:
+            plan = plan[:2] + (splits,)
+        return plan, h
+    split_walk.launch_plan = forced
+    try:
+        yield
+    finally:
+        split_walk.launch_plan = plan_fn
+
+
+def by_heads(torch, fn, default):
+    """Event and device ms of ``fn`` at the default kv heads a block, then
+    at one and four."""
+    out = {}
+    for heads in dict.fromkeys((default, 1, 4)):
+        with forced_plan(heads=heads):
+            out[str(heads)] = {"ms": time_ms(torch, fn),
+                               "device_ms": device_ms(torch, fn)}
+    return out
+
+
+def split_probe(torch, fns):
+    """Event and device ms of each call in ``fns`` with the decode
+    kernels' split count forced to 1 and to 8 (the plan's own choice is
+    one of them): what split_walk.split_plan's grid rule rests on."""
+    out = {}
+    for n in (1, 8):
+        with forced_plan(splits=n):
+            for name, fn in fns.items():
+                out.setdefault(name, {})[str(n)] = {
+                    "ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn)}
+    return out
+
+
 def phase1(torch, cfg, reqs):
     from repro_torch.kernels import paged_decode_attention as pk
     from repro_torch.kernels import ref
@@ -251,52 +370,57 @@ def phase1(torch, cfg, reqs):
             errs[key] = max(errs[key], check_kernel(
                 torch, kernel, ref.paged_decode_attention, args, lens, tol,
                 f"sweep case {i} {dtype}"))
-    # the serving shape: P particles, MAX_ACTIVE rows mid-generation
+    # the serving shape: P particles, MAX_ACTIVE rows mid-generation; the
+    # draft's call: a one-particle view of the same pool (spec_draft_step's
+    # a[slot:slot+1]); long context: 8 rows at ~2048 tokens, a pool of
+    # their own. fp32 and bf16 pages each; NaN in stale and unowned slots.
     P, H, KVH, hd = PARTICLES, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    n_pmax = NUM_PAGES
     lens = [len(p) + m // 2 for p, m in reqs][:MAX_ACTIVE]
-    serve_args = {}
-    for dtype, tol, key in ((torch.float32, 1e-4, "serve_fp32"),
-                            (torch.bfloat16, 1e-4, "serve_bf16")):
+    long_lens = [LONG_CONTEXT - 37 * i for i in range(MAX_ACTIVE)]
+    n_long = max(long_lens) // PAGE_SIZE + 8
+    out, rows = {"phase": 1}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
         args = paged_case(torch, 7, P, len(lens), H, KVH, hd, PAGE_SIZE,
-                          n_pmax, NUM_PAGES, lens, dtype)
-        errs[key] = check_kernel(torch, kernel, ref.paged_decode_attention,
-                                 args, lens, tol, f"serving shape {dtype}")
-        serve_args[dtype] = args
-    q, k, v, bt, sl = serve_args[torch.float32]
-    ms = time_ms(torch, lambda: kernel(q, k, v, bt, sl))
-    plain_ms = time_ms(torch, lambda: ref.paged_decode_attention(q, k, v, bt, sl))
-    # library yardstick: one SDPA over K/V gathered to dense beforehand
-    B, Lmax = len(lens), max(lens) + 1
-    idx = torch.arange(Lmax, device="cuda")
-    page = bt.long()[:, idx // PAGE_SIZE]                       # (B, Lmax)
-    kd = k[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)     # (P,B,KVH,L,hd)
-    vd = v[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)
-    # stale slots hold NaN, which an additive mask would not hide
-    kd = kd.reshape(P * B, KVH, Lmax, hd).nan_to_num().contiguous()
-    vd = vd.reshape(P * B, KVH, Lmax, hd).nan_to_num().contiguous()
-    qd = q.reshape(P * B, H, 1, hd)
-    valid = (idx[None, :] <= sl[:, None].long())                # (B, Lmax)
-    mask = valid[None].expand(P, B, Lmax).reshape(P * B, 1, 1, Lmax)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask))
-    # bound: each live K/V row read once, q read and out written once
-    live = sum(L + 1 for L in lens)
-    n_bt = sum(L // PAGE_SIZE + 1 for L in lens)
-    nbytes = (P * live * KVH * hd * 2 * 4 + 2 * q.numel() * 4
-              + 4 * (n_bt + B))
-    flops = 4 * P * live * H * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-    emit({"phase": 1, "max_abs_err": errs, "serve_shape": {
-        "P": P, "B": B, "H": H, "KVH": KVH, "hd": hd, "page_size": PAGE_SIZE,
-        "n_pmax": n_pmax, "seq_lens": lens, "bytes": nbytes, "flops": flops}})
+                          NUM_PAGES, NUM_PAGES, lens, dtype)
+        errs[f"serve_{name}"] = check_kernel(
+            torch, kernel, ref.paged_decode_attention, args, lens, 1e-4,
+            f"serving shape {dtype}")
+        rows[f"serve_{name}"] = paged_row(torch, *args, lens)
+        q, k, v, bt, sl = args
+        s = 1                                   # the drafting particle
+        draft = (q[s:s + 1], k[s:s + 1], v[s:s + 1], bt, sl)
+        if dtype == torch.float32:
+            out["split_probe"] = split_probe(torch, {
+                "serve": lambda: kernel(*args), "draft": lambda: kernel(*draft)})
+        errs[f"draft_{name}"] = check_kernel(
+            torch, kernel, ref.paged_decode_attention, draft, lens, 1e-4,
+            f"draft view {dtype}")
+        rows[f"draft_{name}"] = paged_row(torch, *draft, lens)
+        del args, draft, q, k, v
+        args = paged_case(torch, 8, P, MAX_ACTIVE, H, KVH, hd, PAGE_SIZE,
+                          n_long, MAX_ACTIVE * n_long + 2, long_lens, dtype)
+        errs[f"long_context_{name}"] = check_kernel(
+            torch, kernel, ref.paged_decode_attention, args, long_lens, 1e-4,
+            f"long context {dtype}")
+        rows[f"long_context_{name}"] = paged_row(torch, *args, long_lens)
+        del args
+        torch.cuda.empty_cache()
+    serve = rows["serve_float32"]
+    out.update({"max_abs_err": errs, "shapes": {
+        "serve": {"P": P, "B": len(lens), "H": H, "KVH": KVH, "hd": hd,
+                  "page_size": PAGE_SIZE, "n_pmax": NUM_PAGES,
+                  "seq_lens": lens},
+        "draft": {"P": 1, "view_of_P": P, "seq_lens": lens},
+        "long_context": {"P": P, "n_pmax": n_long, "seq_lens": long_lens}},
+        "timed": rows})
+    emit(out)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:184",
-            "max_abs_err": errs["serve_fp32"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "max_abs_err": max(errs.values()), "ms": serve["ms"],
+            "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
+            "bound_by": serve["bound_by"], "library_ms": serve["library_ms"]}
 
 
 def prefilled_rows(torch, pd, cfg, prompts, n_pmax, pages):
@@ -572,7 +696,7 @@ def phase5(torch, cfg, reqs):
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import paged_decode_attention as pk
     from repro_torch.kernels import paged_decode_window_attention as wk
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, split_walk
     sdpa = torch.nn.functional.scaled_dot_product_attention
     P, H, KVH, hd = PARTICLES, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     errs, out = {}, {"phase": 5}
@@ -598,15 +722,21 @@ def phase5(torch, cfg, reqs):
             for b, L in enumerate(ls):
                 if L < 0 and float(got[:, b].abs().max()) != 0.0:
                     raise AssertionError("window: inactive row not zero")
+    # W = 1: the same walk, plan and arithmetic as the single-token kernel,
+    # so the same bits
+    errs["window_w1_vs_paged"] = 0.0
     for i, (B, Hc, KVc, hdc, ps, n_pmax, ls) in enumerate(SWEEP):
-        q, k, v, bt, sl = paged_case(torch, 100 + i, 2, B, Hc, KVc, hdc, ps,
-                                     n_pmax, B * n_pmax + 2, ls,
-                                     torch.float32)
-        errs["window_w1_vs_paged"] = max(
-            errs.get("window_w1_vs_paged", 0.0),
-            max_err(torch, window(q[:, :, None], k, v, bt, sl)[:, :, 0],
-                    pk.paged_decode_attention(q, k, v, bt, sl),
-                    f"window W=1 vs paged case {i}", 1e-6))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bt, sl = paged_case(torch, 100 + i, 2, B, Hc, KVc, hdc,
+                                         ps, n_pmax, B * n_pmax + 2, ls,
+                                         dtype)
+            err = float((window(q[:, :, None], k, v, bt, sl)[:, :, 0]
+                         - pk.paged_decode_attention(q, k, v, bt, sl))
+                        .abs().max())
+            if err != 0.0:
+                raise AssertionError(f"window W=1 vs paged case {i} {dtype}: "
+                                     f"max abs err {err}, want 0")
+
     def window_row(seed, lens, n_pmax, NP):
         """The window kernel at P particles and the serving heads: max abs
         err against the plain version, then ms, plain ms, SDPA ms (a
@@ -618,17 +748,8 @@ def phase5(torch, cfg, reqs):
                       ref.paged_decode_window_attention(q, k, v, bt, sl),
                       f"window P={P} seq_lens {lens}", 1e-4)
         B = len(lens)
-        Lmax = max(lens) + W
-        idx = torch.arange(Lmax, device="cuda")
-        page = bt.long()[:, idx // PAGE_SIZE]
-        kd = k[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)
-        vd = v[:, page, idx % PAGE_SIZE].permute(0, 1, 3, 2, 4)
-        kd = kd.reshape(P * B, KVH, Lmax, hd).nan_to_num().contiguous()
-        vd = vd.reshape(P * B, KVH, Lmax, hd).nan_to_num().contiguous()
+        kd, vd, mask = gathered(torch, k, v, bt, sl, lens, W)
         qd = q.permute(0, 1, 3, 2, 4).reshape(P * B, H, W, hd).contiguous()
-        lim = sl.long()[:, None] + torch.arange(W, device="cuda")[None]
-        mask = (idx[None, None, :] <= lim[:, :, None])           # (B, W, L)
-        mask = mask[None].expand(P, B, W, Lmax).reshape(P * B, 1, W, Lmax)
         pairs = sum(W * L + W * (W + 1) // 2 for L in lens)
         live = sum(L + W for L in lens)
         b_ms, b_by = bound(P * live * KVH * hd * 2 * 4 + 2 * q.numel() * 4
@@ -638,7 +759,7 @@ def phase5(torch, cfg, reqs):
         row = {"max_abs_err": err,
                "ms": time_ms(torch, lambda: window(q, k, v, bt, sl)),
                "plain_ms": time_ms(torch, lambda: ref.paged_decode_window_attention(
-                   q, k, v, bt, sl), iters=10 if Lmax < 1024 else 3),
+                   q, k, v, bt, sl), iters=10 if max(lens) < 1024 else 3),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd,
                                                          attn_mask=mask)),
@@ -649,6 +770,13 @@ def phase5(torch, cfg, reqs):
         torch.cuda.empty_cache()
         return row
 
+    args = window_case(torch, 7, P, len(lens), W, H, KVH, hd, PAGE_SIZE,
+                       NUM_PAGES, NUM_PAGES, lens, torch.float32)
+    dargs = decode_case(torch, 9, P, DENSE_PROMPTS, DENSE_LEN + DENSE_NEW + 1,
+                        H, KVH, hd, False, DENSE_LEN + DENSE_NEW // 2)
+    out["split_probe"] = split_probe(torch, {
+        "window_serve": lambda: window(*args), "decode_serve": lambda: decode(*dargs)})
+    del args, dargs
     rows = [{"name": "paged_decode_window_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/"
                        "paged_decode_window_attention.cu",
@@ -731,36 +859,67 @@ def phase5(torch, cfg, reqs):
             errs[key] = max(errs.get(key, 0.0), max_err(
                 torch, decode(*args), ref.decode_attention(*args),
                 f"decode case {i} {dtype}", 2e-5))
-    B, C, n_valid = DENSE_PROMPTS, DENSE_LEN + DENSE_NEW + 1, \
-        DENSE_LEN + DENSE_NEW // 2
-    q, k, v, pos = decode_case(torch, 9, P, B, C, H, KVH, hd, False, n_valid)
-    errs["decode_serve"] = max_err(torch, decode(q, k, v, pos),
-                                   ref.decode_attention(q, k, v, pos),
-                                   "decode serving shape", 2e-5)
-    kd = k.reshape(P * B, C, KVH, hd).transpose(1, 2).nan_to_num().contiguous()
-    vd = v.reshape(P * B, C, KVH, hd).transpose(1, 2).nan_to_num().contiguous()
-    qd = q.reshape(P * B, H, 1, hd)
-    mask = (pos >= 0)[None].expand(P, B, C).reshape(P * B, 1, 1, C)
-    valid = int((pos >= 0).sum())
-    b_ms, b_by = bound(P * valid * KVH * hd * 2 * 4 + 2 * q.numel() * 4
-                       + pos.numel() * 4, 4 * P * valid * H * hd)
+
+    def decode_row(C, n_valid):
+        """The dense-decode kernel at P particles, DENSE_PROMPTS rows and
+        the serving heads over C slots (n_valid of them filled, NaN in the
+        rest): max abs err, event and device ms with each kv head grouping
+        (the default first, then one and four), plain ms, SDPA ms (a
+        boolean mask over the dense cache) and the bound at this run's
+        valid slots."""
+        B = DENSE_PROMPTS
+        q, k, v, pos = decode_case(torch, 9, P, B, C, H, KVH, hd, False,
+                                   n_valid)
+        err = max_err(torch, decode(q, k, v, pos),
+                      ref.decode_attention(q, k, v, pos),
+                      f"decode C={C}", 2e-5)
+        kd = k.reshape(P * B, C, KVH, hd).transpose(1, 2).nan_to_num()
+        vd = v.reshape(P * B, C, KVH, hd).transpose(1, 2).nan_to_num()
+        kd, vd = kd.contiguous(), vd.contiguous()
+        qd = q.reshape(P * B, H, 1, hd)
+        mask = (pos >= 0)[None].expand(P, B, C).reshape(P * B, 1, 1, C)
+        valid = int((pos >= 0).sum())
+        b_ms, b_by = bound(P * valid * KVH * hd * 2 * 4 + 2 * q.numel() * 4
+                           + pos.numel() * 4, 4 * P * valid * H * hd)
+        default = split_walk.heads_per_block(KVH, H // KVH, hd,
+                                             split_walk.dense_plan(C)[0], 4)
+        heads = by_heads(torch, lambda: decode(q, k, v, pos), default)
+        row = {"max_abs_err": err, **heads[str(default)],
+               "plain_ms": time_ms(torch, lambda: ref.decode_attention(
+                   q, k, v, pos), iters=30 if C < 1024 else 5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd,
+                                                         attn_mask=mask)),
+               "library_device_ms": device_ms(torch, lambda: sdpa(
+                   qd, kd, vd, attn_mask=mask)),
+               "kv_heads_per_block": default,
+               "by_kv_heads_per_block": heads}
+        del q, k, v, kd, vd, qd, mask
+        torch.cuda.empty_cache()
+        return row
+
+    C = DENSE_LEN + DENSE_NEW + 1
+    n_valid = DENSE_LEN + DENSE_NEW // 2
     rows.append({"name": "decode_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "replaces": "src/repro/kernels/decode_attention.py:67",
-                 "max_abs_err": errs["decode_serve"],
-                 "ms": time_ms(torch, lambda: decode(q, k, v, pos)),
-                 "plain_ms": time_ms(torch, lambda: ref.decode_attention(
-                     q, k, v, pos)),
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": time_ms(torch, lambda: sdpa(qd, kd, vd,
-                                                           attn_mask=mask))})
-    out["decode_shape"] = {"P": P, "B": B, "C": C, "valid_slots": n_valid}
-    del q, k, v, kd, vd
-    torch.cuda.empty_cache()
-    # device-only times go in this phase's line, not in the kernels line
+                 **decode_row(C, n_valid)})
+    errs["decode_serve"] = rows[-1]["max_abs_err"]
+    out["decode_shape"] = {"P": P, "B": DENSE_PROMPTS, "C": C,
+                           "valid_slots": n_valid}
+    # the long cache: C = 2048 slots, all filled (537 MB of K/V in fp32)
+    out["decode_long_cache"] = {"P": P, "B": DENSE_PROMPTS, "C": LONG_CONTEXT,
+                                **decode_row(LONG_CONTEXT, None)}
+    errs["decode_long_cache"] = out["decode_long_cache"]["max_abs_err"]
+    # device-only times and the kv head groupings go in this phase's line,
+    # not in the kernels line
     out["device_ms"] = {r["name"]: {k: r.pop(k) for k in ("device_ms",
                                                           "library_device_ms")}
                         for r in rows if "device_ms" in r}
+    out["by_kv_heads_per_block"] = {
+        r["name"]: {k: r.pop(k) for k in ("kv_heads_per_block",
+                                          "by_kv_heads_per_block")}
+        for r in rows if "by_kv_heads_per_block" in r}
     out["max_abs_err"] = errs
     out["timed"] = {r["name"]: {k: r[k] for k in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")}

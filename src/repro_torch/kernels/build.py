@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` compiles on first use with ``nvcc`` for Hopper
 ``build/repro_torch_kernels/`` at the root of the checkout; an installed
 copy of the package, with no checkout around it, builds under
 ``$REPRO_TORCH_BUILD_DIR`` or else the user's cache directory. The library
-name carries a hash of the source, so an edited kernel never loads a stale
-build, and a finished build is reused by later processes. ``build_all()``
+name carries a hash of the source and of the headers it may include
+(``csrc/*.cuh``, ``csrc/*.h``), so an edited kernel or header never loads
+a stale build, and a finished build is reused by later processes. ``build_all()``
 starts one ``nvcc`` per source at once; ``load(name)`` returns the loaded
 ``ctypes.CDLL``.
 
@@ -68,9 +69,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    of every header in ``csrc/`` (in sorted order) and of the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -16,8 +16,13 @@ axis is explicit:
 
 The wrapper takes CUDA tensors only and raises on anything else; the CPU
 goes through ``kernels.ops``, which sends CPU tensors to the plain version
-in ``kernels.ref``. ``decode_attention.launches`` counts the kernel
-launches of this process.
+in ``kernels.ref``. ``decode_attention.launches`` counts the calls that
+launched the kernel (its split pass and its combine pass, launched when
+the plan has more than one split, count as one).
+
+The kernel walks each row's C slots by the split walk of
+``kernels.split_walk``, with a plan from C and the grid's size
+(``launch_plan``): the host never reads ``k_pos``.
 """
 from __future__ import annotations
 
@@ -26,12 +31,13 @@ import math
 
 import torch
 
+from . import split_walk
 from .build import check, entry, raise_on
 from .paged_decode_attention import DTYPE_CODE
 
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def decode_attention(q, k_cache, v_cache, k_pos):
@@ -60,13 +66,19 @@ def decode_attention(q, k_cache, v_cache, k_pos):
     out = torch.empty_like(q)
     if out.numel() == 0 or C == 0:
         return out.zero_()
+    G = H // KVH
+    plan, heads = split_walk.launch_plan(
+        C, 1, 1, G, KVH, P, B, hd, k_cache.element_size(),
+        split_walk.sm_count(q.device))
+    scratch = split_walk.scratch(plan, P, B, KVH, G, hd, q.device)
     fn = entry("decode_attention", "decode_attention", _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                k_pos.data_ptr(), out.data_ptr(), P, B, H, KVH, hd, C,
-                k_cache.stride(0), DTYPE_CODE[q.dtype],
-                DTYPE_CODE[k_cache.dtype], 1.0 / math.sqrt(hd), stream)
+                k_pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), P, B, H,
+                KVH, hd, C, k_cache.stride(0), DTYPE_CODE[q.dtype],
+                DTYPE_CODE[k_cache.dtype], 1.0 / math.sqrt(hd), heads, *plan,
+                stream)
     raise_on(rc, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -15,8 +15,12 @@ CUDA launch cannot be vmapped, so here the particle axis is explicit:
 
 The wrapper takes CUDA tensors only and raises on anything else; the CPU
 goes through ``kernels.ops``, which sends CPU tensors to the plain version
-in ``kernels.ref``. ``paged_decode_attention.launches`` counts the kernel
-launches of this process.
+in ``kernels.ref``. ``paged_decode_attention.launches`` counts the calls
+that launched the kernel (its split pass and its combine pass, launched
+when the plan has more than one split, count as one).
+
+The kernel is the drafted-window kernel at W = 1: the same split page
+walk (``kernels.split_walk``), the same plan, the same bits.
 """
 from __future__ import annotations
 
@@ -25,12 +29,13 @@ import math
 
 import torch
 
+from . import split_walk
 from .build import entry, raise_on
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def check_paged(q, k_pages, v_pages, block_tables, seq_lens, *,
@@ -85,17 +90,24 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     seq_lens = seq_lens.contiguous()
     P, B, H, hd = q.shape
     _, NP, ps, KVH, _ = k_pages.shape
+    n_pmax = block_tables.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    G = H // KVH
+    plan, heads = split_walk.launch_plan(
+        n_pmax, ps, 1, G, KVH, P, B, hd, k_pages.element_size(),
+        split_walk.sm_count(q.device))
+    scratch = split_walk.scratch(plan, P, B, KVH, G, hd, q.device)
     fn = entry("paged_decode_attention", "paged_decode_attention", _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-                P, B, H, KVH, hd, NP, ps, block_tables.shape[1],
+                scratch.data_ptr(), P, B, H, KVH, hd, NP, ps, n_pmax,
                 k_pages.stride(0), DTYPE_CODE[q.dtype],
-                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), stream)
+                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), heads, *plan,
+                stream)
     raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -24,11 +24,9 @@ through ``kernels.ops``, which sends CPU tensors to the plain version in
 calls that launched the kernel (its split pass and its combine pass,
 launched when the plan has more than one split, count as one).
 
-The page walk of each row is split across blocks. ``split_plan`` fixes
-the split count and a floor of pages per split from ``n_pmax``, ``ps``
-and ``W`` alone (the host never reads ``seq_lens``, which would cost a
-device sync per verify); ``split_ranges`` is the rule by which the
-kernel gives each split its pages once it reads a row's ``seq_len``.
+The page walk of each row is split across blocks by the plan of
+``kernels.split_walk``; at W = 1 the kernel is ``paged_decode_attention``,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -37,40 +35,13 @@ import math
 
 import torch
 
+from . import split_walk
 from .build import entry, raise_on
 from .paged_decode_attention import DTYPE_CODE, check_paged
 
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-STAGE_COLS = 32        # columns a block stages at a time (about)
-MAX_SPLITS = 8         # splits per (kv head, row, particle)
-MAX_ENTRIES = 4096     # W * G * hd: accumulator entries a block keeps
-
-
-def split_plan(n_pmax: int, ps: int, W: int):
-    """(pages per stage, floor of pages per split, number of splits).
-
-    A stage holds about ``STAGE_COLS`` columns; a split holds at least one
-    stage and one whole window, and there are at most ``MAX_SPLITS`` of
-    them, fewer when ``n_pmax`` pages fill fewer floors."""
-    stage = max(1, STAGE_COLS // ps)
-    floor = max(stage, -(-W // ps))
-    return stage, floor, max(1, min(MAX_SPLITS, -(-n_pmax // floor)))
-
-
-def split_ranges(plan, seq_len: int, W: int, ps: int, n_pmax: int):
-    """The pages [start, stop) that each split of a row reads (the kernel's
-    rule): a row with ``n_live`` live pages gives each split
-    ``max(floor, ceil(n_live / n_splits))`` of them in order; splits past
-    the live pages, and every split of an inactive row, get none."""
-    _, floor, n_splits = plan
-    if seq_len < 0:
-        return [(0, 0)] * n_splits
-    n_live = min((seq_len + W - 1) // ps + 1, n_pmax)
-    pps = max(floor, -(-n_live // n_splits))
-    return [(min(s * pps, n_live), min((s + 1) * pps, n_live))
-            for s in range(n_splits)]
+         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
@@ -83,16 +54,14 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
     P, B, W, H, hd = q.shape
     _, NP, ps, KVH, _ = k_pages.shape
     n_pmax = block_tables.shape[1]
-    if W * (H // KVH) * hd > MAX_ENTRIES:
-        raise ValueError(f"needs W * (H / KVH) * hd <= {MAX_ENTRIES}; got W "
-                         f"{W}, H {H}, KVH {KVH}, hd {hd}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    stage, floor, n_splits = split_plan(n_pmax, ps, W)
-    scratch = torch.empty(
-        P * B * KVH * n_splits * W * (H // KVH) * (hd + 2) if n_splits > 1
-        else 1, dtype=torch.float32, device=q.device)
+    G = H // KVH
+    plan, heads = split_walk.launch_plan(
+        n_pmax, ps, W, G, KVH, P, B, hd, k_pages.element_size(),
+        split_walk.sm_count(q.device))
+    scratch = split_walk.scratch(plan, P, B, KVH, W * G, hd, q.device)
     fn = entry("paged_decode_window_attention",
                "paged_decode_window_attention", _ARGS)
     with torch.cuda.device(q.device):
@@ -101,8 +70,8 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
                 block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), P, B, W, H, KVH, hd, NP, ps, n_pmax,
                 k_pages.stride(0), DTYPE_CODE[q.dtype],
-                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), stage, floor,
-                n_splits, stream)
+                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), heads, *plan,
+                stream)
     raise_on(rc, "paged_decode_window_attention")
     paged_decode_window_attention.launches += 1
     return out

@@ -25,12 +25,18 @@ The window (speculative verify), prefill and dense-decode kernels are held
 against their plain versions: the window kernel on the
 ``tests/test_speculative.py`` shapes plus the qwen serving heads with NaN
 past every window and in unowned pages (1e-4, fp32 and bf16 pages; exact
-zeros on inactive rows; W = 1 equals the single-token kernel within
-1e-6) and on split page walks (page edges, one-split and many-split rows
+zeros on inactive rows; W = 1 returns the single-token kernel's bits)
+and on split page walks (page edges, one-split and many-split rows
 in 256-page tables), the prefill kernel on the ``tests/test_kernels.py``
 flash sweep plus longer ragged cases and a sweep of S, G and hd that no
 tile divides (2e-5; bf16 2e-2), the dense-decode kernel on
-the decode sweeps with NaN in empty slots (2e-5). Speculative serving and
+the decode sweeps with NaN in empty slots (2e-5). The single-token
+paged and the dense-decode kernels walk each row split across blocks: both
+are held against their plain versions on split walks (page and stage
+edges, one-split and many-split rows, inactive rows, all-empty stages, a
+row with no valid slot; fp32 and bf16; one and several kv heads a
+block, one split and many), the paged kernel also through the draft's
+one-particle view of a stacked pool. Speculative serving and
 the stateful dense-cache engine on the card emit the CPU's tokens, with
 one launch per layer per verify, prefill or step.
 """
@@ -72,8 +78,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(seed, P, B, H, KVH, hd, ps, n_pmax, lens, dtype, dev):
-    NP = B * n_pmax + 2
+def _case(seed, P, B, H, KVH, hd, ps, n_pmax, lens, dtype, dev, NP=None):
+    NP = NP or B * n_pmax + 2
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((P, B, H, hd)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((P, NP, ps, KVH, hd)).astype(np.float32))
@@ -451,7 +457,7 @@ def test_window_kernel_w1_matches_single_token_kernel(dev, B, H, KVH, hd, ps,
     single = kernel.paged_decode_attention(q, k, v, bt, sl)
     window = window_kernel.paged_decode_window_attention(q[:, :, None], k, v,
                                                          bt, sl)
-    assert (window[:, :, 0] - single).abs().max().item() < 1e-6
+    assert (window[:, :, 0] - single).abs().max().item() == 0.0
 
 
 FLASH_SWEEP = [
@@ -586,6 +592,105 @@ def test_decode_kernel_takes_particle_strided_cache(dev):
     want = ref.decode_attention(q, k[:, 1].contiguous(),
                                 v[:, 1].contiguous(), pos)
     assert (out - want).abs().max().item() < 2e-5
+
+
+PAGED_SPLIT_CASES = [
+    # page edges (last slot of a page, first slot of the next), inactive
+    # rows, one-split rows (0, 15) beside many-split rows (300, 2000) in
+    # 256-page tables; qwen heads (G = 1: two kv heads a block with fp32
+    # pages, four with bf16), GQA, MQA; 16 qwen rows make a grid of a
+    # block per SM or more (fp32), whose rows do not split
+    (8, 16, 16, 64, 16, 256, [15, 16, 31, -1, 0, 300, 2000, 97]),
+    (16, 16, 16, 64, 16, 256, [100, 2047, -1, 16] * 4),
+    (4, 8, 2, 64, 16, 256, [32, 1999, -1, 47]),
+    (3, 8, 1, 32, 8, 128, [7, 8, 1000]),
+    (2, 4, 4, 16, 4, 64, [255, 3]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KVH,hd,ps,n_pmax,lens", PAGED_SPLIT_CASES)
+def test_paged_kernel_split_walk(dev, dtype, B, H, KVH, hd, ps, n_pmax, lens):
+    """The split page walk against the plain version, NaN in stale and
+    unowned slots; the window kernel at W = 1 returns the same bits."""
+    q, k, v, bt, sl = _case(B * 11 + ps, 2, B, H, KVH, hd, ps, n_pmax, lens,
+                            dtype, dev, NP=sum(L // ps + 1 for L in lens) + 9)
+    before = kernel.paged_decode_attention.launches
+    out = kernel.paged_decode_attention(q, k, v, bt, sl)
+    torch.cuda.synchronize()
+    assert kernel.paged_decode_attention.launches == before + 1
+    want = ref.paged_decode_attention(q, k, v, bt, sl)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() < 1e-4
+    for b, L in enumerate(lens):
+        if L < 0:
+            assert out[:, b].abs().max().item() == 0.0
+    window = window_kernel.paged_decode_window_attention(q[:, :, None], k, v,
+                                                         bt, sl)
+    assert (window[:, :, 0] - out).abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_one_particle_view(dev, dtype):
+    """The speculative draft's call: a one-particle view (``a[s:s+1]``) of
+    a stacked 4-particle pool, whose particle stride the kernel never
+    uses."""
+    q, k, v, bt, sl = _case(17, 4, 8, 16, 16, 64, 16, 256,
+                            [100, 37, -1, 128, 15, 16, 2000, 64], dtype, dev,
+                            NP=300)
+    for s in (0, 3):
+        out = kernel.paged_decode_attention(q[s:s + 1], k[s:s + 1],
+                                            v[s:s + 1], bt, sl)
+        want = ref.paged_decode_attention(q[s:s + 1], k[s:s + 1].contiguous(),
+                                          v[s:s + 1].contiguous(), bt, sl)
+        assert torch.isfinite(out).all()
+        assert (out - want).abs().max().item() < 1e-4
+        assert out[:, 2].abs().max().item() == 0.0
+
+
+DECODE_SPLIT_CASES = [
+    # C at and around stage edges, one split (C <= 32) and many (2048),
+    # holes, all-empty stages (a run of 70 empty slots), a row with no
+    # valid slot, a ragged last stage; qwen heads, GQA
+    (4, 32, 16, 16, 64, "holes"),
+    (3, 33, 8, 2, 64, "gap"),
+    (8, 97, 16, 16, 64, "tail"),
+    (2, 257, 4, 1, 32, "gap"),
+    (2, 2048, 16, 16, 64, "holes"),
+    (3, 300, 4, 4, 16, "empty_row"),
+    (16, 300, 16, 16, 64, "holes"),  # a block per SM or more: no split
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,KVH,hd,empty", DECODE_SPLIT_CASES)
+def test_decode_kernel_split_walk(dev, dtype, B, C, H, KVH, hd, empty):
+    gen = torch.Generator(device=dev).manual_seed(C + B)
+    q = torch.randn((2, B, H, hd), generator=gen, device=dev)
+    k = torch.randn((2, B, C, KVH, hd), generator=gen, device=dev)
+    v = torch.randn((2, B, C, KVH, hd), generator=gen, device=dev)
+    pos = torch.arange(C, device=dev).expand(B, C).clone()
+    if empty == "holes":
+        pos = torch.where(torch.rand((B, C), generator=gen, device=dev) < 0.8,
+                          pos, -1)
+    elif empty == "gap":
+        pos[:, 1:71] = -1
+    elif empty == "tail":
+        pos[:, 80:] = -1
+    else:
+        pos[1] = -1
+    k[:, pos < 0] = float("nan")
+    v[:, pos < 0] = float("nan")
+    args = (q, k.to(dtype), v.to(dtype), pos.to(torch.int32))
+    before = decode_kernel.decode_attention.launches
+    out = decode_kernel.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert decode_kernel.decode_attention.launches == before + 1
+    want = ref.decode_attention(*args)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() < 2e-5
+    if empty == "empty_row":
+        assert out[:, 1].abs().max().item() == 0.0
 
 
 def test_attention_kernels_refuse_bad_inputs(dev):

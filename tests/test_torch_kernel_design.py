@@ -13,14 +13,18 @@ accuracy rests on are checked here in plain PyTorch:
     reference within 2e-5 (the reference's tolerance,
     ``tests/test_kernels.py``); one TF32 product alone misses 2e-5, which
     is why the kernel keeps three.
-  * ``csrc/paged_decode_window_attention.cu`` splits each row's page walk
-    across blocks by the wrapper's plan (``split_plan`` /
-    ``split_ranges``) and merges the splits' partials in split order. The
+  * ``csrc/split_walk.cuh`` is the walk of the three decode kernels: each
+    row's walk is split across blocks by the wrapper's plan
+    (``kernels/split_walk.py``: ``split_plan`` / ``split_ranges`` /
+    ``stage_ranges``) and the splits' partials merge in split order. The
     plan covers every live page of every row exactly once for every
-    ``seq_len`` in ``[-1, n_pmax * ps - W]``; the split-then-merge
-    emulation, with NaN planted past every window and in unowned pages,
-    matches the plain version within 1e-6, and at W = 1 the single-token
-    plain version within 1e-6.
+    ``seq_len`` in ``[-1, n_pmax * ps - W]``, and the dense plan every slot
+    of a C-slot cache once, whatever k_pos holds. The split-then-merge
+    emulation, with NaN planted past every window, in unowned pages and in
+    empty cache slots, matches the plain versions within 1e-6: the window
+    kernel's, the single-token kernel's (the walk at W = 1, with its own
+    plan) and the dense-cache kernel's. The emulated window at W = 1 and
+    the emulated single-token walk are equal bit for bit.
 """
 import math
 
@@ -33,8 +37,8 @@ from hypothesis import strategies as st
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
-from repro_torch.kernels.paged_decode_window_attention import (split_plan,
-                                                               split_ranges)
+from repro_torch.kernels.split_walk import (dense_plan, split_plan,
+                                            split_ranges, stage_ranges)
 
 NEG_INF = -1e30
 
@@ -206,42 +210,35 @@ def _window_case(seed, P, B, W, H, KVH, hd, ps, n_pmax, lens):
     return q, k, v, torch.from_numpy(bt), torch.tensor(lens, dtype=torch.int32)
 
 
-def emulated_window(q, k_pages, v_pages, block_tables, seq_lens):
-    """Each split walks its pages in stages with an online softmax and
-    keeps (m, l, acc); a row with one split divides, else the partials
-    merge in split order."""
+def emulated_walk(q, seq_lens, plan, ps, n_pmax, KVH, slots):
+    """The split walk of ``csrc/split_walk.cuh``: q (P, B, W, H, hd), row
+    b's query w at position seq_lens[b] + w; ``slots(b, cols)`` gives the
+    K and V rows (P, n, KVH, hd) of the row's columns and whether each may
+    be read. Each split walks its stages with an online softmax and keeps
+    (m, l, acc); a row with one split divides, else the partials merge in
+    split order. Unreadable columns and columns past the window are
+    zero-filled before any arithmetic, as the kernel's loads do."""
     P, B, W, H, hd = q.shape
-    _, NP, ps, KVH, _ = k_pages.shape
     G = H // KVH
-    n_pmax = block_tables.shape[1]
-    plan = split_plan(n_pmax, ps, W)
-    stage = plan[0]
     qq = (q * (1.0 / math.sqrt(hd))).reshape(P, B, W, KVH, G, hd)
     out = torch.zeros_like(q)
     for b in range(B):
         sl = int(seq_lens[b])
-        last = sl + W - 1
         parts = []
         for a, z in split_ranges(plan, sl, W, ps, n_pmax):
             if a == z:
                 continue
             m = torch.full((P, W, KVH, G), NEG_INF)
-            l = torch.zeros((P, W, KVH, G))
+            l = torch.zeros_like(m)
             acc = torch.zeros((P, W, KVH, G, hd))
-            for pp in range(a, z, stage):
-                cols = [(pi, c) for pi in range(pp, min(pp + stage, z))
-                        for c in range(ps)]
-                col = torch.tensor([pi * ps + c for pi, c in cols])
-                page = [int(block_tables[b, pi]) for pi, _ in cols]
-                ok = torch.tensor([0 <= pg < NP and pi * ps + c <= last
-                                   for pg, (pi, c) in zip(page, cols)])
-                idx = torch.tensor([pg if 0 <= pg < NP else 0 for pg in page])
-                slot = torch.tensor([c for _, c in cols])
-                kk = torch.where(ok[None, :, None, None],
-                                 k_pages[:, idx, slot], 0.0)
-                vv = torch.where(ok[None, :, None, None],
-                                 v_pages[:, idx, slot], 0.0)
-                valid = ok[None, :] & (col[None, :] <= sl + torch.arange(W)[:, None])
+            for s0, s1 in stage_ranges(plan, a, z):
+                col = torch.arange(s0 * ps, s1 * ps)
+                kk, vv, readable = slots(b, col)
+                ok = readable & (col <= sl + W - 1)
+                kk = torch.where(ok[None, :, None, None], kk, 0.0)
+                vv = torch.where(ok[None, :, None, None], vv, 0.0)
+                valid = ok[None, :] & (col[None, :]
+                                       <= sl + torch.arange(W)[:, None])
                 valid = valid[None, :, None, None, :]             # p w n g c
                 s = torch.einsum("pwngh,pcnh->pwngc", qq[:, b], kk)
                 s = torch.where(valid, s, NEG_INF)
@@ -268,6 +265,49 @@ def emulated_window(q, k_pages, v_pages, block_tables, seq_lens):
             o = oo / ll.clamp(min=1e-30)[..., None]
         out[:, b] = o.reshape(P, W, H, hd)
     return out
+
+
+def paged_slots(k_pages, v_pages, block_tables):
+    """The block-table column rule: a page id outside the pool is never
+    read."""
+    NP, ps = k_pages.shape[1:3]
+
+    def slots(b, col):
+        page = block_tables[b, col // ps].long()
+        readable = (page >= 0) & (page < NP)
+        idx = torch.where(readable, page, 0)
+        return k_pages[:, idx, col % ps], v_pages[:, idx, col % ps], readable
+    return slots
+
+
+def emulated_window(q, k_pages, v_pages, block_tables, seq_lens):
+    """The drafted-window kernel: the walk at W = q.shape[2]."""
+    _, _, ps, KVH, _ = k_pages.shape
+    n_pmax = block_tables.shape[1]
+    return emulated_walk(q, seq_lens, split_plan(n_pmax, ps, q.shape[2]), ps,
+                         n_pmax, KVH,
+                         paged_slots(k_pages, v_pages, block_tables))
+
+
+def emulated_paged(q, k_pages, v_pages, block_tables, seq_lens):
+    """The single-token kernel: one query row a kv head, its own plan."""
+    _, _, ps, KVH, _ = k_pages.shape
+    n_pmax = block_tables.shape[1]
+    return emulated_walk(q[:, :, None], seq_lens, split_plan(n_pmax, ps, 1),
+                         ps, n_pmax, KVH,
+                         paged_slots(k_pages, v_pages, block_tables))[:, :, 0]
+
+
+def emulated_dense(q, k_cache, v_cache, k_pos):
+    """The dense-cache kernel: a row of C one-slot units, every row's query
+    at C - 1, a slot readable where k_pos says it is filled."""
+    C, KVH = k_cache.shape[2:4]
+
+    def slots(b, col):
+        return k_cache[:, b, col], v_cache[:, b, col], k_pos[b, col] >= 0
+    sl = torch.full((q.shape[1],), C - 1)
+    return emulated_walk(q[:, :, None], sl, dense_plan(C), 1, C, KVH,
+                         slots)[:, :, 0]
 
 
 WINDOW_CASES = [
@@ -303,3 +343,132 @@ def test_split_merge_w1_matches_single_token_plain(B, H, KVH, hd, ps, n_pmax,
     want = ref.paged_decode_attention(q[:, :, 0], k, v, bt, sl)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() < 1e-6
+
+
+# -- the single-token kernel: the walk at W = 1 --------------------------------
+
+PAGED_CASES = [
+    (4, 16, 16, 16, 16, 64, [40, 17, -1, 100]),   # qwen-like heads, splits
+    (2, 4, 2, 32, 16, 4, [47, 63]),               # GQA, one split each
+    (3, 8, 1, 16, 8, 40, [0, 33, 300]),           # MQA, many splits
+    (4, 6, 3, 8, 4, 64, [5, -1, 255, 31]),        # page edges, full table
+    (3, 4, 4, 8, 16, 256, [15, 16, 2047]),        # 256-page tables
+]
+
+
+def _paged_case(seed, B, H, KVH, hd, ps, n_pmax, lens):
+    q, k, v, bt, sl = _window_case(seed, 2, B, 1, H, KVH, hd, ps, n_pmax,
+                                   lens)
+    return q[:, :, 0], k, v, bt, sl
+
+
+@pytest.mark.parametrize("B,H,KVH,hd,ps,n_pmax,lens", PAGED_CASES)
+def test_single_token_split_merge_matches_plain(B, H, KVH, hd, ps, n_pmax,
+                                                lens):
+    q, k, v, bt, sl = _paged_case(B * 5 + ps, B, H, KVH, hd, ps, n_pmax, lens)
+    got = emulated_paged(q, k, v, bt, sl)
+    want = ref.paged_decode_attention(q, k, v, bt, sl)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() < 1e-6
+    for b, L in enumerate(lens):
+        if L < 0:
+            assert got[:, b].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("B,H,KVH,hd,ps,n_pmax,lens", PAGED_CASES)
+def test_window_walk_at_w1_is_the_single_token_walk_bit_for_bit(
+        B, H, KVH, hd, ps, n_pmax, lens):
+    q, k, v, bt, sl = _paged_case(B * 5 + ps, B, H, KVH, hd, ps, n_pmax, lens)
+    window = emulated_window(q[:, :, None], k, v, bt, sl)[:, :, 0]
+    assert torch.equal(window, emulated_paged(q, k, v, bt, sl))
+
+
+def test_single_token_plan_at_the_serving_and_draft_shapes():
+    # 256-page tables of 16 slots: 2-page stages and splits, 8 splits; a
+    # 100-token row uses 4 of them, 2 pages each, a 2048-token row all 8
+    plan = split_plan(256, 16, 1)
+    assert plan == (2, 2, 8)
+    assert split_ranges(plan, 100, 1, 16, 256)[:5] == [(0, 2), (2, 4), (4, 6),
+                                                      (6, 7), (7, 7)]
+    assert split_ranges(plan, 2047, 1, 16, 256) == [
+        (16 * s, 16 * s + 16) for s in range(8)]
+    # the grid decides whether rows split at all: P=4 x 8 rows x 8 kv head
+    # pairs is 256 blocks, one per SM or more on an H100 (132): no split;
+    # the draft's one-particle call has 64 blocks and splits 8 ways
+    assert split_plan(256, 16, 1, blocks=256, sms=132) == (2, 2, 1)
+    assert split_plan(256, 16, 1, blocks=64, sms=132) == (2, 2, 8)
+    assert dense_plan(97, blocks=256, sms=132) == (32, 32, 1)
+
+
+# -- the dense-cache kernel: a plan over C slots --------------------------------
+
+@settings(max_examples=200, deadline=None)
+@given(st.integers(1, 3000), st.integers(1, 64), st.integers(1, 16),
+       st.data())
+def test_dense_plan_covers_every_slot_once(C, stage_cols, max_splits, data):
+    """Every slot once, in order, in stages of at most ``stage_cols`` (the
+    last of a split may be short: the ragged tail), whatever k_pos holds:
+    the plan never reads it."""
+    plan = dense_plan(C, stage_cols, max_splits)
+    assert plan[0] == stage_cols and 1 <= plan[2] <= max_splits
+    holes = data.draw(st.sets(st.integers(0, C - 1), max_size=64))
+    a0 = data.draw(st.integers(0, C - 1))
+    holes |= set(range(a0, min(C, a0 + data.draw(st.integers(0, 100)))))
+    seen = []
+    for a, z in split_ranges(plan, C - 1, 1, 1, C):
+        for s0, s1 in stage_ranges(plan, a, z):
+            assert 0 < s1 - s0 <= stage_cols
+            seen.extend(range(s0, s1))
+    assert seen == list(range(C))
+    assert [c for c in seen if c not in holes] == sorted(
+        set(range(C)) - holes)
+
+
+def test_dense_plan_at_the_stateful_shapes():
+    # C = 97 (phase 7): four splits, one 32-slot stage each, a 1-slot tail
+    plan = dense_plan(97)
+    assert plan == (32, 32, 4)
+    assert split_ranges(plan, 96, 1, 1, 97) == [(0, 32), (32, 64), (64, 96),
+                                                (96, 97)]
+    # C = 2048: eight splits of eight stages
+    plan = dense_plan(2048)
+    assert plan == (32, 32, 8)
+    assert [stage_ranges(plan, a, z)[-1] for a, z in
+            split_ranges(plan, 2047, 1, 1, 2048)] == [
+        (256 * s + 224, 256 * s + 256) for s in range(8)]
+
+
+DENSE_CASES = [
+    (3, 97, 4, 4, 16, "tail"),      # the phase-7 cache: 1-slot last split
+    (2, 32, 4, 2, 8, "holes"),      # one split
+    (2, 33, 8, 1, 16, "holes"),     # two splits, a 1-slot ragged tail
+    (2, 300, 4, 2, 8, "gap"),       # all-empty stages inside a split
+    (3, 1000, 2, 2, 8, "empty_row"),
+    (1, 1, 2, 1, 4, "none"),
+]
+
+
+@pytest.mark.parametrize("B,C,H,KVH,hd,empty", DENSE_CASES)
+def test_dense_split_merge_matches_plain(B, C, H, KVH, hd, empty):
+    rng = np.random.default_rng(C + B)
+    q = torch.from_numpy(rng.standard_normal((2, B, H, hd), np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, B, C, KVH, hd), np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, B, C, KVH, hd), np.float32))
+    pos = torch.arange(C).expand(B, C).clone()
+    if empty == "holes":
+        pos[torch.from_numpy(rng.random((B, C)) < 0.2)] = -1
+    elif empty == "gap":
+        pos[:, 1:71] = -1
+    elif empty == "tail":
+        pos[:, 80:] = -1
+    elif empty == "empty_row":
+        pos[1] = -1
+    k[:, pos < 0] = float("nan")
+    v[:, pos < 0] = float("nan")
+    pos = pos.to(torch.int32)
+    got = emulated_dense(q, k, v, pos)
+    want = ref.decode_attention(q, k, v, pos)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() < 1e-6
+    if empty == "empty_row":
+        assert got[:, 1].abs().max().item() == 0.0

@@ -43,10 +43,16 @@ Phase 3  holds the four SVGD and SWAG kernels against their plain versions
          ViT-MNIST particles x 19,775,360 parameters (sqdist within 1e-5
          of its largest entry: distances there are ~1e5; the force also
          with g = 0, since its repulsive term is ~1e-6 of the driving
-         term at this D and would otherwise go unseen). Then it times
-         each kernel, its plain version and, for sqdist, torch.cdist
-         (library_ms, never called by the port) at the training shape with
-         the L2 flushed before each call.
+         term at this D and would otherwise go unseen). sqdist must give
+         the same bits twice, an exactly symmetric output and an exact-zero
+         diagonal at every case; its path (bulk copies or plain loads) is
+         printed for each, and the training shape must take the bulk
+         copies. Then it times each kernel, its plain version and, for
+         sqdist, torch.cdist by default and by its cuBLAS Gram route
+         (use_mm_for_euclid_dist; library_ms is the faster, and neither is
+         called by the port) at the training shape with the L2 flushed
+         before each call, and probes sqdist: device ms split between its
+         two kernels, the first stage alone, the ring at 2 and 4 stages.
 Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
          weights from seed 0, batches of 64 from the seeded loader, 8 per
          epoch): SteinVGD for 2 epochs with the median heuristic, then
@@ -78,7 +84,8 @@ Phase 5  holds the three attention kernels of the LM's other serving paths
          max abs err 0, fp32 and bf16), the prefill (the
          tests/test_kernels.py flash sweep, 2e-5, and bf16, 2e-2) and the
          dense-cache decode (the decode and ragged-tail sweeps with NaN in
-         empty slots, 2e-5), then each at its serving shape, the dense
+         empty slots, 2e-5; rows with every slot empty exact zeros), then
+         each at its serving shape, the dense
          decode also at C = 2048 slots, all filled. It times each kernel,
          its plain version and one SDPA call (library_ms: is_causal for
          the prefill, a boolean mask over gathered or dense K/V for the
@@ -226,10 +233,9 @@ def time_ms(torch, fn, iters=30):
     return float(np.median([e0.elapsed_time(e1) for e0, e1 in ev]))
 
 
-def device_ms(torch, fn, n=20):
-    """Device time of one ``fn()`` call, summed over the kernels it
-    launches (torch.profiler, L2 warm). Unlike time_ms it leaves out any
-    wait for the host, and the reads that a flushed L2 sends to HBM."""
+def device_ms_by_kernel(torch, fn, n=20):
+    """{kernel name (its first 80 characters): device ms per ``fn()``
+    call} from torch.profiler (L2 warm)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -238,12 +244,22 @@ def device_ms(torch, fn, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    out = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
-            us += getattr(e, "self_cuda_time_total", 0) if t is None else t
-    return us / n / 1e3 if us else "not measured"
+            t = getattr(e, "self_cuda_time_total", 0) if t is None else t
+            if t > 0:
+                out[e.key[:80]] = out.get(e.key[:80], 0.0) + t / n / 1e3
+    return out
+
+
+def device_ms(torch, fn, n=20):
+    """Device time of one ``fn()`` call, summed over the kernels it
+    launches (torch.profiler, L2 warm). Unlike time_ms it leaves out any
+    wait for the host, and the reads that a flushed L2 sends to HBM."""
+    ms = sum(device_ms_by_kernel(torch, fn, n).values())
+    return ms if ms else "not measured"
 
 
 def traffic(vocab):
@@ -859,6 +875,21 @@ def phase5(torch, cfg, reqs):
             errs[key] = max(errs.get(key, 0.0), max_err(
                 torch, decode(*args), ref.decode_attention(*args),
                 f"decode case {i} {dtype}", 2e-5))
+        # rows with every slot empty (k_pos all -1, NaN in every slot):
+        # exact zeros, as the reference's Pallas kernel gives them
+        q, k, v, pos = decode_case(torch, 410, 2, 4, 97, H, KVH, hd, True)
+        pos[[0, 2]] = -1
+        k[:, [0, 2]] = float("nan")
+        v[:, [0, 2]] = float("nan")
+        args = (q, k.to(dtype), v.to(dtype), pos)
+        got = decode(*args)
+        key = f"decode_sweep_{str(dtype)[6:]}"
+        errs[key] = max(errs[key], max_err(
+            torch, got, ref.decode_attention(*args),
+            f"decode all-empty rows {dtype}", 2e-5))
+        if float(got[:, [0, 2]].abs().max()) != 0.0:
+            raise AssertionError(f"decode: an all-empty row is not exact "
+                                 f"zeros ({dtype})")
 
     def decode_row(C, n_valid):
         """The dense-decode kernel at P particles, DENSE_PROMPTS rows and
@@ -1118,7 +1149,7 @@ TRAIN_P = 8                      # configs/vit_mnist.py default_particles
 TRAIN_D = 19_775_360             # parameters per ViT-MNIST particle
 SQDIST_SWEEP = [(2, 16), (4, 100), (8, 5000), (64, 12345), (3, 7)]
 FORCE_SWEEP = [(4, 100, 1.0), (8, 5000, 1.3), (16, 50000, 0.7), (3, 7, 2.0)]
-OURS = ("sqdist_partial_kernel", "sqdist_reduce_kernel", "svgd_force_kernel",
+OURS = ("sqdist_stream_kernel", "sqdist_sum_kernel", "svgd_force_kernel",
         "moments_kernel", "diag_std_kernel")
 
 
@@ -1186,6 +1217,63 @@ def bound(nbytes, flops, rate=FP32_FLOPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sqdist_exact(torch, svgd_rbf, theta, mask, what):
+    """The sqdist kernel twice on the same input: the same bits, exactly
+    symmetric, an exact-zero diagonal. Returns the first output."""
+    a = svgd_rbf.pairwise_sqdist(theta, mask)
+    b = svgd_rbf.pairwise_sqdist(theta, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: two calls differ")
+    if not (torch.equal(a, a.T) and bool((a.diagonal() == 0).all())):
+        raise AssertionError(f"{what}: not exactly symmetric with a zero "
+                             f"diagonal")
+    return a
+
+
+def sqdist_probe(torch, svgd_rbf, theta, plan):
+    """What the sqdist kernel's time is made of at the training shape
+    (its event ms are the kernels line's): the device ms of the whole
+    call, split by kernel (the streaming first stage and the summing
+    second); the first stage alone; the ring at 2 and 4 stages of the
+    default bytes, event ms (L2 flushed) and device ms each; and event ms
+    over ring shapes (KB a stage x stages x blocks an SM), the table the
+    plan's defaults were chosen from."""
+    def full(**kw):
+        return svgd_rbf.pairwise_sqdist(theta, **kw)
+
+    by_kernel = device_ms_by_kernel(torch, full)
+    out = {"plan": {k: getattr(plan, k) for k in (
+               "path", "nchunks", "grid", "stages", "tile_cols",
+               "stage_rows", "smem", "blocks_per_sm")},
+           "device_ms": device_ms(torch, full),
+           "device_ms_by_kernel": by_kernel,
+           "stage1_only": {
+               "event_ms": time_ms(torch, lambda: full(reduce=False)),
+               "device_ms": device_ms(torch, lambda: full(reduce=False))},
+           "by_stages": {}}
+    for stages in (2, 4):
+        p = svgd_rbf.plan_for(theta, stages=stages)
+        out["by_stages"][str(stages)] = {
+            "grid": p.grid, "blocks_per_sm": p.blocks_per_sm,
+            "event_ms": time_ms(torch, lambda: full(stages=stages)),
+            "device_ms": device_ms(torch, lambda: full(stages=stages))}
+    out["by_ring_event_ms"] = ring = {}
+    for kb in (16, 32, 64):
+        for stages in (1, 2, 3, 4):
+            for per_sm in (2, 1):
+                shape = {"stages": stages, "stage_bytes": kb * 1024,
+                         "blocks_per_sm": per_sm}
+                try:
+                    p = svgd_rbf.plan_for(theta, **shape)
+                except ValueError:      # the ring does not fit an SM
+                    continue
+                if p.blocks_per_sm == per_sm:
+                    ring[f"{kb}KBx{stages}x{per_sm}"] = time_ms(
+                        torch, lambda: full(**shape), iters=10)
+    return out
+
+
 def phase3(torch):
     """The four SVGD/SWAG kernels against their plain versions on the card
     (sweeps, masked cases with NaN in dead rows, the training shape), then
@@ -1193,15 +1281,16 @@ def phase3(torch):
     from repro_torch.bdl.svgd import rbf_glue
     from repro_torch.kernels import ref, svgd_rbf, swag_moments
     sweep = {"sqdist": 0.0, "force_rel": 0.0, "moments": 0.0, "diag_std": 0.0}
+    paths = {}
     for i, (n, D) in enumerate(SQDIST_SWEEP):
         for dead in ((), (n - 1,)):
             t, _, m = rows_case(torch, 10 + i, n, D, dead)
-            got = svgd_rbf.pairwise_sqdist(t, m)
-            torch.cuda.synchronize()
+            got = sqdist_exact(torch, svgd_rbf, t, m, f"sqdist {n}x{D}")
             err = float((got - ref.pairwise_sqdist(t, m)).abs().max())
             if not (err < 1e-3 and bool(torch.isfinite(got).all())):
                 raise AssertionError(f"sqdist {n}x{D} dead={dead}: {err}")
             sweep["sqdist"] = max(sweep["sqdist"], err)
+            paths[f"{n}x{D}"] = svgd_rbf.plan_for(t).path
     for i, (n, D, ell) in enumerate(FORCE_SWEEP + [(8, 5000, 0.0),
                                                    (16, 50000, -1.0)]):
         for dead in ((), (0, n - 1) if n > 3 else (1,)):
@@ -1257,13 +1346,23 @@ def phase3(torch):
     grads = torch.randn((P, D), generator=gen, device="cuda")
     mb = P * D * 4
     rows, errs = [], {}
-    sq_k = svgd_rbf.pairwise_sqdist(theta)
+    plan = svgd_rbf.plan_for(theta)
+    paths[f"{P}x{D}"] = plan.path
+    if plan.path != "bulk":
+        raise AssertionError(f"sqdist at the training shape takes the "
+                             f"{plan.path} path, not the bulk copies")
+    sq_k = sqdist_exact(torch, svgd_rbf, theta, None, "sqdist training shape")
     sq_p = ref.pairwise_sqdist(theta)
     errs["sqdist"] = float((sq_k - sq_p).abs().max())
     errs["sqdist_rel_to_max"] = errs["sqdist"] / float(sq_p.abs().max())
     if not errs["sqdist_rel_to_max"] < 1e-5:
         raise AssertionError(f"sqdist at the training shape: {errs}")
     b_ms, b_by = bound(mb, 2 * P * P * D)
+    library = {
+        "torch.cdist": time_ms(torch, lambda: torch.cdist(theta, theta)),
+        "torch.cdist(use_mm_for_euclid_dist)": time_ms(
+            torch, lambda: torch.cdist(
+                theta, theta, compute_mode="use_mm_for_euclid_dist"))}
     rows.append({"name": "pairwise_sqdist", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/svgd_rbf.cu",
                  "replaces": "src/repro/kernels/svgd_rbf.py:57",
@@ -1272,8 +1371,9 @@ def phase3(torch):
                  "plain_ms": time_ms(torch,
                                      lambda: ref.pairwise_sqdist(theta)),
                  "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": time_ms(torch,
-                                       lambda: torch.cdist(theta, theta))})
+                 "library_ms": min(library.values())})
+    probe = {**sqdist_probe(torch, svgd_rbf, theta, plan),
+             "library_ms": library}
     glue = rbf_glue(sq_p, 0.0)
     phi_k = svgd_rbf.svgd_force(theta, grads, *glue)
     phi_p = ref.svgd_force(theta, grads, *glue)
@@ -1344,7 +1444,8 @@ def phase3(torch):
     del theta, mean, sq
     torch.cuda.empty_cache()
     emit({"phase": 3, "sweep_max_err": sweep, "train_shape": [P, D],
-          "train_shape_err": errs,
+          "train_shape_err": errs, "sqdist_paths": paths,
+          "sqdist_probe": probe,
           "timed": {r["name"]: {k: r[k] for k in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")}
                     for r in rows}})

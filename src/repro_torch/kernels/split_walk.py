@@ -111,8 +111,9 @@ def heads_per_block(KVH: int, rows: int, hd: int, cols: int,
 
 
 @functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=16)
 def sm_count(device) -> int:
-    """Streaming multiprocessors of a CUDA device."""
+    """Streaming multiprocessors of a CUDA device (read once a device)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

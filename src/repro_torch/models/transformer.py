@@ -100,17 +100,17 @@ def decode_guard(cfg):
     """The dense-cache path runs global-attention ``attn_mlp`` stacks:
     ring caches (``local`` layers), logit softcap and the other layer
     kinds wait for the rest of the model zoo (ROADMAP.md queue 1, item
-    14)."""
+    11)."""
     kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
     bad = sorted({k for k in kinds if k not in DECODE_KINDS})
     if bad:
         raise NotImplementedError(
             f"dense-cache decode supports {DECODE_KINDS} stacks only, got "
-            f"{bad} (ROADMAP.md queue 1, item 14)")
+            f"{bad} (ROADMAP.md queue 1, item 11)")
     if cfg.prefix_lm or cfg.logit_softcap > 0.0:
         raise NotImplementedError("dense-cache decode does not support "
                                   "prefix_lm or logit softcap (ROADMAP.md "
-                                  "queue 1, item 14)")
+                                  "queue 1, item 11)")
 
 
 def stack_apply_prefill(params, x, cfg, caches):

@@ -16,7 +16,10 @@ of 2 as serving stacks it:
     are exact zeros;
   * ``flash_attention`` on the ``tests/test_kernels.py`` sweep within 2e-5,
     and the dtype cases (fp32 2e-5, bf16 2e-2);
-  * ``decode_attention`` on the decode and ragged-tail sweeps within 2e-5.
+  * ``decode_attention`` on the decode and ragged-tail sweeps within 2e-5,
+    and a row with every slot empty (k_pos all -1): exact zeros, as the
+    Pallas kernel gives (the reference's jnp oracle would give the mean of
+    v there; the kernel is what the port follows).
 """
 import jax
 import jax.numpy as jnp
@@ -190,6 +193,25 @@ def test_decode_plain_matches_jax_kernel(B, C, H, KVH, hd, cb, holes):
 @pytest.mark.parametrize("C,cb", [(100, 32), (33, 16), (7, 512), (65, 64)])
 def test_decode_plain_ragged_tail(C, cb):
     _check_decode(*_decode_case(C, 2, C, 4, 2, 16, False), cb)
+
+
+@pytest.mark.parametrize("B,row,C,cb", [(3, 1, 40, 16), (2, 0, 7, 512),
+                                        (4, 3, 100, 32)])
+def test_decode_plain_all_empty_row_is_zeros(B, row, C, cb):
+    """A row whose k_pos are all -1: the Pallas kernel zeroes p and v and
+    divides by max(l, 1e-30), so the row is zeros; the plain version
+    (what the CUDA kernel is held against) must give the same exact
+    zeros, and the other rows must still match."""
+    q, k, v, pos = _decode_case(C + row, B, C, 4, 2, 16, True)
+    pos[row] = -1
+    _check_decode(q, k, v, pos, cb)
+    want = np.asarray(jdecode.decode_attention(
+        jnp.asarray(q[0][:, None]), jnp.asarray(k[0]), jnp.asarray(v[0]),
+        jnp.asarray(pos), c_block=cb))[:, 0]
+    assert (want[row] == 0.0).all()
+    out = tops.decode_attention(*(torch.from_numpy(a)
+                                  for a in (q, k, v, pos)))
+    assert (out[:, row] == 0.0).all()
 
 
 @pytest.mark.parametrize("name", ["window", "flash", "decode"])

@@ -17,7 +17,13 @@ The SVGD and SWAG kernels are held against their plain versions on the
 ``tests/test_kernels.py`` sweeps, dense and masked with NaN in the dead
 rows (sqdist 1e-3 absolute, force 2e-4 relative, moments and diag_std
 1e-5; dead rows of phi exact zeros, dead SWAG rows unchanged); they refuse
-non-contiguous and wrong-dtype inputs. Small SteinVGD and MultiSWAG runs
+non-contiguous and wrong-dtype inputs. The sqdist kernel also gives the
+same bits twice, an exactly symmetric output with an exact-zero diagonal
+that is the fixed-order sum of its first stage's partials bit for bit; it
+takes plain loads where rows cannot be bulk-copied (D % 4 != 0, a base
+not 16-byte aligned), holds at every ring depth, and at the training
+shape (8 x 19,775,360) takes the bulk-copy path within 1e-5 of the
+largest distance. Small SteinVGD and MultiSWAG runs
 of the ViT on the card match the same runs on the CPU within 1e-4, with
 one launch of each kernel per step, collection leaf or sampled leaf.
 
@@ -30,7 +36,8 @@ and on split page walks (page edges, one-split and many-split rows
 in 256-page tables), the prefill kernel on the ``tests/test_kernels.py``
 flash sweep plus longer ragged cases and a sweep of S, G and hd that no
 tile divides (2e-5; bf16 2e-2), the dense-decode kernel on
-the decode sweeps with NaN in empty slots (2e-5). The single-token
+the decode sweeps with NaN in empty slots (2e-5; a row with every slot
+empty is exact zeros). The single-token
 paged and the dense-decode kernels walk each row split across blocks: both
 are held against their plain versions on split walks (page and stage
 edges, one-split and many-split rows, inactive rows, all-empty stages, a
@@ -201,6 +208,99 @@ def test_sqdist_kernel_matches_plain(dev, n, D, masked):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() < 1e-3
     assert torch.equal(got, got.T) and got.min().item() >= 0.0
+
+
+SQDIST_EXTRA = [(72, 301), (9, 64), (256, 1000), (1, 100), (5, 4096)]
+
+
+def _fixed_order_sum(partial):
+    """The second stage's order on (n, n, nchunks) partials: lane l adds
+    chunks l, l + 32, ... in order, then an xor-shuffle tree over the
+    lanes; (i, j) and (j, i) from one sum, 0 on the diagonal."""
+    n, _, nchunks = partial.shape
+    iu, ju = torch.triu_indices(n, n, 1, device=partial.device)
+    k = -(-nchunks // 32)
+    lanes = torch.zeros((len(iu), k * 32), device=partial.device)
+    lanes[:, :nchunks] = partial[iu, ju]
+    lanes = lanes.reshape(len(iu), k, 32)
+    s = torch.zeros((len(iu), 32), device=partial.device)
+    for r in range(k):
+        s = s + lanes[:, r]
+    idx = torch.arange(32, device=partial.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, idx ^ o]
+    out = torch.zeros((n, n), device=partial.device)
+    out[iu, ju] = s[:, 0]
+    out[ju, iu] = s[:, 0]
+    return out
+
+
+@pytest.mark.parametrize("n,D", SQDIST_SWEEP + SQDIST_EXTRA)
+@pytest.mark.parametrize("masked", [False, True])
+def test_sqdist_kernel_deterministic_symmetric_zero_diagonal(dev, n, D,
+                                                             masked):
+    """Two calls give the same bits, the output is exactly symmetric with
+    an exact-zero diagonal, and it is the fixed-order sum of the first
+    stage's partials, bit for bit."""
+    t, _, m = _rows(n * 5 + D, n, D, dev,
+                    dead=[n - 1] if masked and n > 1 else ())
+    a = svgd_rbf.pairwise_sqdist(t, m)
+    b = svgd_rbf.pairwise_sqdist(t, m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a).all()
+    assert torch.equal(a, b)
+    assert torch.equal(a, a.T) and (a.diagonal() == 0).all()
+    assert (a - ref.pairwise_sqdist(t, m)).abs().max().item() < 1e-3
+    if n > 1:
+        partial = svgd_rbf.pairwise_sqdist(t, m, reduce=False)
+        assert torch.equal(_fixed_order_sum(partial), a)
+
+
+@pytest.mark.parametrize("n,D,offset", [(3, 7, 0), (64, 12345, 0),
+                                        (8, 4099, 0), (8, 4096, 1),
+                                        (20, 1000, 3)])
+def test_sqdist_kernel_plain_load_path(dev, n, D, offset):
+    """Rows that cannot be bulk-copied (D % 4 != 0, or a base that is not
+    16-byte aligned) take the plain loads, NaN in a dead row."""
+    buf = torch.empty(n * D + offset, device=dev)
+    t = buf[offset:].view(n, D)
+    t.copy_(_rows(D + offset, n, D, dev, dead=[1])[0])
+    m = torch.ones(n, device=dev)
+    m[1] = 0.0
+    assert svgd_rbf.plan_for(t).path == "plain"
+    got = svgd_rbf.pairwise_sqdist(t, m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref.pairwise_sqdist(t, m)).abs().max().item() < 1e-3
+    assert torch.equal(got, got.T) and (got.diagonal() == 0).all()
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3, 4])
+def test_sqdist_kernel_ring_depths(dev, stages):
+    """Every ring depth the probe times gives the plain version's
+    distances, with NaN in dead rows (one of them in a second tile)."""
+    t, _, m = _rows(stages, 12, 40000, dev, dead=[2, 9])
+    got = svgd_rbf.pairwise_sqdist(t, m, stages=stages)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - ref.pairwise_sqdist(t, m)).abs().max().item() < 1e-3
+    assert torch.equal(got, got.T) and (got.diagonal() == 0).all()
+
+
+def test_sqdist_kernel_at_the_training_shape(dev):
+    """8 ViT-MNIST particles x 19,775,360: the bulk-copy path, within 1e-5
+    of the largest distance (~1e5) of the plain version, the same bits
+    twice."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    t = torch.randn((8, 19_775_360), generator=gen, device=dev) * 0.05
+    assert svgd_rbf.plan_for(t).path == "bulk"
+    a = svgd_rbf.pairwise_sqdist(t)
+    b = svgd_rbf.pairwise_sqdist(t)
+    want = ref.pairwise_sqdist(t)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, a.T) and (a.diagonal() == 0).all()
+    assert ((a - want).abs().max() / want.abs().max()).item() < 1e-5
 
 
 @pytest.mark.parametrize("n,D,ell", FORCE_SWEEP + [(8, 5000, 0.0),
@@ -691,6 +791,29 @@ def test_decode_kernel_split_walk(dev, dtype, B, C, H, KVH, hd, empty):
     assert (out - want).abs().max().item() < 2e-5
     if empty == "empty_row":
         assert out[:, 1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,rows", [(4, 97, [0, 2]), (8, 2048, [7]),
+                                      (3, 33, [0, 1, 2])])
+def test_decode_kernel_all_empty_rows_are_zeros(dev, dtype, B, C, rows):
+    """Rows whose k_pos are all -1 (NaN in every slot) come out as exact
+    zeros, as the reference's Pallas kernel gives them."""
+    gen = torch.Generator(device=dev).manual_seed(C + B)
+    q = torch.randn((2, B, 16, 64), generator=gen, device=dev)
+    k = torch.randn((2, B, C, 16, 64), generator=gen, device=dev)
+    v = torch.randn((2, B, C, 16, 64), generator=gen, device=dev)
+    pos = torch.arange(C, device=dev).expand(B, C).clone()
+    pos[rows] = -1
+    k[:, pos < 0] = float("nan")
+    v[:, pos < 0] = float("nan")
+    args = (q, k.to(dtype), v.to(dtype), pos.to(torch.int32))
+    out = decode_kernel.decode_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.decode_attention(*args)
+    assert torch.isfinite(out).all()
+    assert (out[:, rows] == 0).all() and (want[:, rows] == 0).all()
+    assert (out - want).abs().max().item() < 2e-5
 
 
 def test_attention_kernels_refuse_bad_inputs(dev):

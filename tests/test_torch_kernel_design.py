@@ -36,9 +36,11 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels import ref as jref
+from repro.kernels import svgd_rbf as jsvgd_rbf
 from repro_torch.kernels import ref
 from repro_torch.kernels.split_walk import (dense_plan, split_plan,
                                             split_ranges, stage_ranges)
+from repro_torch.kernels.svgd_rbf import sqdist_plan
 
 NEG_INF = -1e30
 
@@ -472,3 +474,163 @@ def test_dense_split_merge_matches_plain(B, C, H, KVH, hd, empty):
     assert (got - want).abs().max().item() < 1e-6
     if empty == "empty_row":
         assert got[:, 1].abs().max().item() == 0.0
+
+
+# -- pairwise_sqdist: the one-wave plan, chunk partials, fixed second stage -----
+
+SM_SMEM = 233_472          # shared memory of a Hopper SM
+BLOCK_SMEM_LIMIT = 232_448  # shared memory a Hopper block may use
+SQDIST_STATIC = 8 * 64 * 4 + 8 * 4   # csrc/svgd_rbf.cu: red, barriers
+# chip_smoke.py's SQDIST_SWEEP, then n = 64 and n > 64 at small D
+SQDIST_CASES = [(2, 16), (4, 100), (8, 5000), (64, 12345), (3, 7), (64, 300),
+                (72, 301), (9, 64)]
+
+
+def _tile_rows(t, n):
+    return range(t * 8, min(t * 8 + 8, n))
+
+
+def _plan_cover(plan):
+    """{tile pair: the column ranges its items get}, walking the blocks'
+    items as the kernel does."""
+    cover = {}
+    for b in range(plan.grid):
+        for item in plan.items(b):
+            p, c = divmod(item, plan.nchunks)
+            cover.setdefault(plan.pairs[p], []).append(plan.chunk(c))
+    return cover
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(1, 256), st.integers(1, 100_000),
+       st.sampled_from([1, 7, 132]), st.integers(1, 4), st.booleans())
+def test_sqdist_plan_covers_every_column_of_every_pair_once(n, D, sms, stages,
+                                                            aligned):
+    plan = sqdist_plan(n, D, sms, stages=stages, base_aligned=aligned)
+    tiles = -(-n // 8)
+    live = sorted((ti, tj) for ti in range(tiles) for tj in range(ti, tiles)
+                  if any(i < j for i in _tile_rows(ti, n)
+                         for j in _tile_rows(tj, n)))
+    assert list(plan.pairs) == live
+    # the kernel finds pair p by walking the row-major order of all pairs
+    # ti <= tj: the plan's pairs must be a prefix of it
+    order = [(ti, tj) for ti in range(tiles) for tj in range(ti, tiles)]
+    assert list(plan.pairs) == order[:len(plan.pairs)]
+    cover = _plan_cover(plan)
+    assert sorted(cover) == live
+    for ranges in cover.values():
+        ranges.sort()
+        assert ranges[0][0] == 0 and ranges[-1][1] == D
+        assert all(a < z for a, z in ranges)
+        assert all(z == a2 for (_, z), (a2, _) in zip(ranges, ranges[1:]))
+    # the bulk path only where rows are 16-byte aligned, and every copy is
+    bulk = D % 4 == 0 and aligned
+    assert plan.path == ("bulk" if bulk else "plain")
+    if bulk:
+        assert plan.tile_cols % 4 == 0
+        for c in range(plan.nchunks):
+            a, z = plan.chunk(c)
+            assert a % 4 == 0 and z % 4 == 0
+        assert plan.smem == 4 * stages * plan.stage_rows * plan.tile_cols
+        assert plan.smem + SQDIST_STATIC <= BLOCK_SMEM_LIMIT
+    # at most one wave; the scratch is bounded by it
+    assert 1 <= plan.blocks_per_sm <= 2
+    assert plan.blocks_per_sm * (plan.smem + SQDIST_STATIC + 1024) <= SM_SMEM
+    assert plan.grid <= sms * plan.blocks_per_sm
+    assert plan.nchunks <= max(1, sms * plan.blocks_per_sm)
+    # near-equal chunks
+    sizes = [z - a for a, z in map(plan.chunk, range(plan.nchunks))]
+    assert max(sizes) - min(sizes) <= plan.unit
+
+
+def test_sqdist_plan_at_the_training_shape():
+    # 8 ViT-MNIST particles x 19,775,360 on 132 SMs: one diagonal tile,
+    # 264 chunks in one wave of two blocks an SM, 2 x 16 KB stages a block
+    plan = sqdist_plan(8, 19_775_360, 132)
+    assert plan.path == "bulk" and plan.pairs == ((0, 0),)
+    assert (plan.nchunks, plan.grid, plan.blocks_per_sm) == (264, 264, 2)
+    assert (plan.stages, plan.stage_rows, plan.tile_cols, plan.smem) == (
+        2, 8, 512, 32768)
+    assert [len(plan.items(b)) for b in range(plan.grid)] == [1] * 264
+    # the probe's ring shapes: 4 stages of 64 KB leave room for one block
+    # an SM; one block an SM halves the grid
+    assert sqdist_plan(8, 19_775_360, 132, stages=3,
+                       stage_bytes=65536).grid == 132
+    assert sqdist_plan(8, 19_775_360, 132, blocks_per_sm=1).grid == 132
+    with pytest.raises(ValueError):
+        sqdist_plan(8, 19_775_360, 132, stages=4, stage_bytes=65536)
+    with pytest.raises(ValueError):
+        sqdist_plan(8, 100, 132, blocks_per_sm=3)
+    # n = 256: 528 tile pairs already fill the wave, so one chunk each
+    wide = sqdist_plan(256, 1_000_000, 132)
+    assert len(wide.pairs) == 528 and wide.nchunks == 1 and wide.grid == 264
+    # rows that cannot be bulk-copied take plain loads
+    assert sqdist_plan(64, 12345, 132).path == "plain"
+    assert sqdist_plan(3, 7, 132).path == "plain"
+    assert sqdist_plan(8, 5000, 132, base_aligned=False).path == "plain"
+    # one particle has no pair: no first stage
+    assert sqdist_plan(1, 1000, 132).grid == 0
+
+
+def emulated_sqdist(theta, mask, plan):
+    """The kernel's two stages in fp32: each item's partial sums of
+    (theta_i - theta_j)^2, i < j, over its chunk (dead rows selected to
+    0), then one warp per pair: lane l adds chunks l, l + 32, ... in
+    order, and a fixed xor-shuffle tree adds the lanes."""
+    n = theta.shape[0]
+    live = torch.ones(n, dtype=torch.bool) if mask is None else mask > 0
+    x = torch.where(live[:, None], theta, torch.zeros(()))
+    partial = torch.full((n, n, plan.nchunks), float("nan"))
+    for b in range(plan.grid):
+        for item in plan.items(b):
+            p, c = divmod(item, plan.nchunks)
+            ti, tj = plan.pairs[p]
+            a, z = plan.chunk(c)
+            ri, rj = list(_tile_rows(ti, n)), list(_tile_rows(tj, n))
+            xi, xj = x[ri, a:z], x[rj, a:z]
+            d = ((xi[:, None] - xj[None]) ** 2).sum(-1)
+            for u, i in enumerate(ri):
+                for w, j in enumerate(rj):
+                    if i < j:
+                        partial[i, j, c] = d[u, w]
+    iu, ju = torch.triu_indices(n, n, 1)
+    chunks = partial[iu, ju]                              # (pairs, nchunks)
+    k = -(-plan.nchunks // 32)
+    lanes = torch.zeros((len(iu), k * 32))
+    lanes[:, :plan.nchunks] = chunks
+    lanes = lanes.reshape(len(iu), k, 32)
+    s = torch.zeros((len(iu), 32))
+    for r in range(k):
+        s = s + lanes[:, r]
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, idx ^ o]
+    out = torch.zeros((n, n))
+    out[iu, ju] = s[:, 0]
+    out[ju, iu] = s[:, 0]
+    return out
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("n,D", SQDIST_CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_sqdist_two_stages_match_plain_and_reference(n, D, sms, masked):
+    rng = np.random.default_rng(n * 31 + D)
+    t = rng.standard_normal((n, D)).astype(np.float32) * 0.1
+    m = np.ones(n, np.float32)
+    if masked:
+        m[[n - 1] + ([0] if n > 3 else [])] = 0.0
+    t_nan = t.copy()
+    t_nan[m == 0] = np.nan
+    tm = torch.from_numpy(m) if masked else None
+    plan = sqdist_plan(n, D, sms)
+    got = emulated_sqdist(torch.from_numpy(t_nan), tm, plan)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, got.T)
+    assert (got.diagonal() == 0).all()
+    assert got.min().item() >= 0.0
+    plain = ref.pairwise_sqdist(torch.from_numpy(t_nan), tm)
+    assert (got - plain).abs().max().item() < 1e-3
+    dense = jnp.where(jnp.asarray(m)[:, None] > 0, jnp.asarray(t), 0.0)
+    pallas = np.asarray(jsvgd_rbf.pairwise_sqdist(dense, block_d=4096))
+    assert np.abs(got.numpy() - pallas).max() < 1e-3

@@ -27,13 +27,25 @@ Phase 1  holds the paged-attention kernel against its plain PyTorch version:
          to 1 and to 8 (split_probe: what the plan's grid rule rests on).
 Phase 2  drives serve_decode over P=4 full-width qwen1.5-0.5b particles
          (24 layers, random weights from seed 0) with 8 mixed-length
-         requests (prompts of 16-128 tokens, max_new 16-64). Every request
-         must finish with finite heads, the pool must drain, and over the
-         driven run the paged kernel must launch 24 times per decode step
-         and the prefill kernel 24 times per prefill. Then one decode step on
-         freshly prefilled rows runs through the kernel and through the
-         plain version; their BMA mean probabilities must agree within
-         1e-4 of the largest probability, their member logits within 1e-3.
+         requests (prompts of 16-128 tokens, max_new 16-64), twice: with
+         every step captured as a CUDA graph and replayed (a fresh
+         runtime.ProgramCache; warmup captures the decode step and each
+         prompt's pow2 prefill bucket), then through an explicitly passed
+         eager cache (ProgramCache(capturer=runtime.eager)). In each run
+         every request must finish with finite heads, the pool must drain,
+         no step may be captured after warmup, and the paged kernel must
+         launch 24 times per decode step and the prefill kernel 24 times
+         per prefill (a replay adds the launches its capture recorded).
+         The captured run's counts must equal the eager run's (each of
+         those a host launch), and its tokens the eager run's up to a
+         near-tie (the rule of phase 6). Then one decode step on freshly
+         prefilled rows runs through the kernel and through the plain
+         version; their BMA mean probabilities must agree within 1e-4 of
+         the largest probability, their member logits within 1e-3; and
+         that step is profiled as a captured program and as an eager one;
+         over each profiled window the counters' launches must equal the
+         kernel launches the profiler saw on the card (PROFILER_NAMES),
+         as in the profiled steps of phases 6 and 7.
 
 Phase 3  holds the four SVGD and SWAG kernels against their plain versions
          on the card: the tests/test_kernels.py sweeps, dense and masked
@@ -97,31 +109,46 @@ Phase 5  holds the three attention kernels of the LM's other serving paths
          a block, and the window and dense decode at their serving shapes
          with the split count forced to 1 and to 8.
 Phase 6  drives serve_decode(speculative=4) over phase 2's 8 requests and
-         P=4 particles: every request finishes with finite heads, the pool
-         drains to 0 pages, and the launch counts are exact (window kernel
-         24 per verify, paged kernel 24 per draft iteration, prefill
-         kernel 24 per prefill). Each request's tokens must equal phase
-         2's; where they first differ, the BMA top-2 gap there must be
-         under 1e-4 of the top probability (a near-tie that GEMMs of
-         another shape may break the other way). It prints the
-         speculative stats, tokens/s, latency and a profiled window of 3
-         verify steps, then runs a short pass in which all 4 particles
-         share one weight set (acceptance ~1: full windows, no rollback).
+         P=4 particles, captured (warmup captures the draft at 1-4
+         iterations, the verify and the prefill buckets) and then eager:
+         every request finishes with finite heads, the pool drains to 0
+         pages, nothing is captured after warmup, and the launch counts
+         are exact (window kernel 24 per verify, paged kernel 24 per draft
+         iteration, prefill kernel 24 per prefill). Each request's tokens
+         must equal phase 2's, and the captured run's the eager run's;
+         where they first differ, the BMA top-2 gap there must be under
+         1e-4 of the top probability (a near-tie that GEMMs of another
+         shape may break the other way). It prints the speculative stats,
+         tokens/s and latency of both runs and profiled windows of 3
+         verify steps and 3 four-iteration drafts, captured and eager,
+         then runs a short captured pass in which all 4 particles share
+         one weight set (acceptance ~1: full windows, no rollback).
 Phase 7  serves 8 prompts of 64 tokens (seed 2) through
          PredictiveEngine(stateful=True) over api.prefill /
-         api.decode_step, 32 tokens each: 24 dense-decode launches per
-         step and 24 prefill launches, the tokens of serve_decode on the
-         same prompts under the same tie rule, and one step's layer-0
-         attention through the kernel and the plain version within 2e-5.
+         api.decode_step, 32 tokens each, captured (the first step
+         captures, the other 31 replay) and then eager: 24 dense-decode
+         launches per step and 24 prefill launches in each run, one
+         program and no capture after the first step, every step's heads
+         unchanged by the later replays,
+         the tokens of serve_decode on the same prompts and of the eager
+         run under the same tie rule, and one step's layer-0 attention
+         through the kernel and the plain version within 2e-5. A captured
+         step at cur_pos = the cache length must raise ValueError on the
+         host, and the card must go on stepping after it.
 
 The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4: the kernel checks
 first, then the serving runs over one set of particles, then training.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
-serving for the paged and prefill kernels, phase 6's for the window
-kernel, phase 7's for the dense-decode kernel, phase 4's SVGD, MultiSWAG
-and predictive runs), with the counts set to 0 just before it and read
-just after.
+captured serving for the paged and prefill kernels, phase 6's for the
+window kernel, phase 7's for the dense-decode kernel, phase 4's SVGD,
+MultiSWAG and predictive runs), with the counts set to 0 just before it
+and read just after; each serving count must equal the eager run's.
+Phases 2, 6 and 7 print, for each run: host ms and device busy ms per
+step with the idle share (the profiled windows), tokens/s, latency p50 /
+p95, the cache's hits, misses and cold_compiles (captures), and each
+program's capture time and the bytes its graph's pool reserved. A failed
+capture raises and fails its phase.
 
 Output: one JSON object per line (phase results, then the kernels line), the
 card's name and power limit as nvidia-smi prints them, and last
@@ -130,6 +157,7 @@ there is no CUDA device, when run outside a checkout of the repository, or
 when any phase fails.
 """
 import contextlib
+import gc
 import json
 import os
 import re
@@ -468,9 +496,12 @@ def prefilled_rows(torch, pd, cfg, prompts, n_pmax, pages):
 
 
 def decode_parity(torch, pd, cfg, reqs, n_pmax):
-    """One decode step on freshly prefilled rows, kernel vs plain version."""
+    """One decode step on freshly prefilled rows, kernel vs plain version;
+    then the profiled step, captured and eager (``step_programs``)."""
     from repro_torch.models import api
+    from repro_torch.runtime import specs
     from repro_torch.serve import uncertainty
+    from repro_torch.serve.engine import sample_heads
     store = pd.store
     pages = store.checkout("kv_pages")
     try:
@@ -482,10 +513,18 @@ def decode_parity(torch, pd, cfg, reqs, n_pmax):
                                               decode_kernel=use_kernel)
             out[use_kernel] = (logits, uncertainty.predictive_heads(
                 logits, mask=mask)["mean"])
-        profile = profile_steps(torch, lambda: uncertainty.predictive_heads(
-            api.decode_step_paged(params, tok, pages, bt, sl, cfg)[0],
-            mask=mask))
-        profile["rows"] = MAX_ACTIVE
+
+        def decode_fn(p, pg, tokens, block_tables, seq_lens):
+            return api.decode_step_paged(p, tokens, pg, block_tables,
+                                         seq_lens, cfg)
+
+        packed = np.concatenate([tok.cpu().numpy()[:, None],
+                                 sl.cpu().numpy()[:, None],
+                                 bt.cpu().numpy()], 1).astype(np.int32)
+        spec = specs.paged_decode_step(decode_fn, sample_heads)
+        profile = step_programs(torch, spec, (params, pages, packed, mask))
+        for prof in profile.values():
+            prof["rows"] = MAX_ACTIVE
     finally:
         store.commit("kv_pages", pages)
     d_logits = float((out[True][0] - out[False][0]).abs().max())
@@ -499,10 +538,30 @@ def decode_parity(torch, pd, cfg, reqs, n_pmax):
             "max_mean_prob": p_max}, profile
 
 
-def profile_steps(torch, step, n=5, track=()):
+def step_programs(torch, spec, args, n=5):
+    """``profile_steps`` of one step program on the same arguments, first
+    captured as a CUDA graph, then run eagerly (``runtime.eager``); the
+    captured program's capture time beside its profile."""
+    from repro_torch.runtime import ProgramCache, eager
+    out = {}
+    for mode, cache in (("captured", ProgramCache()),
+                        ("eager", ProgramCache(capturer=eager))):
+        prog = cache.program(spec, args)
+        out[mode] = profile_steps(torch, lambda: prog(*args), n=n,
+                                  fns=attention_counts())
+        if mode == "captured":
+            if prog.graph is None:
+                raise AssertionError(f"{spec.name} was not captured")
+            out[mode]["capture_s"] = prog.capture_s
+    return out
+
+
+def profile_steps(torch, step, n=5, track=(), fns=None):
     """Host-clock time of one synchronised ``step()``, then the device's
     busy time per step by kernel name from torch.profiler, and the share
-    of device time spent in kernels whose names contain one of ``track``."""
+    of device time spent in kernels whose names contain one of ``track``.
+    With ``fns`` the counters' launches over the profiled window are held
+    to the profiler's kernel counts (``hold_to_profiler``)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
@@ -512,6 +571,7 @@ def profile_steps(torch, step, n=5, track=()):
         step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / n * 1e3
+    before = None if fns is None else read_counts(fns)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -532,6 +592,11 @@ def profile_steps(torch, step, n=5, track=()):
            "idle_share": 1 - busy_ms / wall_ms if busy_ms else "not measured",
            "kernels": len(per_kernel),
            "top_kernels_ms": {k[:80]: v for k, v in top}}
+    if fns is not None:
+        got = {k: v - before[k] for k, v in read_counts(fns).items()}
+        out["launches"] = got
+        out["profiler_launches"] = hold_to_profiler(torch, prof, got,
+                                                    "profiled steps")
     if track:
         mine = {t: sum(v for k, v in per_kernel.items() if t in k)
                 for t in track}
@@ -541,14 +606,52 @@ def profile_steps(torch, step, n=5, track=()):
     return out
 
 
-def serve_requests(torch, pd, cfg, reqs, fns, **kw):
-    """serve_decode over ``reqs`` on ``pd``: the launch counts of ``fns``
-    are set to 0 after warmup and read when the last request resolves.
-    Returns (generations, stats, launches, wall seconds, the engine)."""
+# The profiler's names for the serving kernels the counters count. The
+# single-token paged decode and the verify window are one template
+# instance (csrc/split_walk.cuh's split_kernel over PagedCols), so the
+# profiler sees the sum of their two counts; a split walk's combine_kernel
+# runs only after a split and is not counted.
+PROFILER_NAMES = {"flash_attention": ("flash_kernel<",),
+                  "paged": ("split_kernel<", "PagedCols"),
+                  "decode_attention": ("split_kernel<", "DenseCols")}
+
+
+def hold_to_profiler(torch, prof, got, what):
+    """The counters' launches over a profiled window against the launches
+    of each kernel the profiler saw on the card (PROFILER_NAMES), exactly.
+    Returns the profiler's counts. Windows are a few steps: over a whole
+    speculative run (hundreds of thousands of device events) the profiler
+    drops kernel records."""
+    seen = dict.fromkeys(PROFILER_NAMES, 0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, parts in PROFILER_NAMES.items():
+            if all(p in e.key for p in parts):
+                seen[name] += e.count
+    want = {"flash_attention": got["flash_attention"],
+            "paged": got["paged_decode_attention"]
+            + got["paged_decode_window_attention"],
+            "decode_attention": got["decode_attention"]}
+    if seen != want:
+        raise AssertionError(f"{what}: counters {want}, profiler {seen}")
+    return seen
+
+
+def serve_requests(torch, pd, cfg, reqs, fns, cache, **kw):
+    """serve_decode over ``reqs`` on ``pd`` through ``cache``, with each
+    prompt's pow2 bucket warmed: the launch counts of ``fns`` are set to 0
+    after warmup and read when the last request resolves; no step may be
+    captured after warmup. Returns (generations, stats, launches, wall
+    seconds, the stats at the end of warmup, n_pmax)."""
+    from repro_torch.runtime import bucket_size
     from repro_torch.serve import serve_decode
+    buckets = sorted({bucket_size(len(p)) for p, _ in reqs})
     svc = serve_decode(pd, cfg, num_pages=NUM_PAGES, page_size=PAGE_SIZE,
-                       max_active=MAX_ACTIVE, **kw)
+                       max_active=MAX_ACTIVE, warmup_buckets=buckets,
+                       cache=cache, **kw)
     try:
+        warm = svc.stats()
         for fn in fns.values():
             fn.launches = 0
         t1 = time.perf_counter()
@@ -568,35 +671,95 @@ def serve_requests(torch, pd, cfg, reqs, fns, **kw):
             raise AssertionError("non-finite heads")
     if st["pool"]["used_pages"] != 0:
         raise AssertionError(f"pool holds {st['pool']['used_pages']} pages")
-    return gens, st, launches, wall, svc.engine
+    if st["cold_compiles"] != warm["cold_compiles"]:
+        raise AssertionError(f"{st['cold_compiles'] - warm['cold_compiles']}"
+                             f" captures after warmup")
+    return gens, st, launches, wall, warm, svc.engine.n_pmax
+
+
+def caches():
+    """A captured cache, then an explicit eager one, by name (made one at
+    a time, so that the captured graphs go with their cache)."""
+    from repro_torch.runtime import ProgramCache, eager
+    yield "captured", ProgramCache()
+    yield "eager", ProgramCache(capturer=eager)
+
+
+def same_launches(launches, what):
+    """The captured run's counts (replays add what their capture
+    recorded) must equal the eager run's (each one a host launch)."""
+    if launches["captured"] != launches["eager"]:
+        raise AssertionError(f"{what} launches: captured "
+                             f"{launches['captured']}, eager "
+                             f"{launches['eager']}")
+
+
+def run_summary(gens, st, warm, wall, cache):
+    """The per-run numbers phases 2, 6 and 7 print for each mode."""
+    toks = sum(len(g.tokens) for g in gens)
+    info = cache.program_info()
+    return {"generated_tokens": toks, "wall_s": wall,
+            "tok_per_s": toks / wall, "steps": st["steps"],
+            "prefills": st["prefills"],
+            "ms_per_step_wall": wall / max(1, st["steps"]) * 1e3,
+            "latency_p50_ms": st["latency_p50_ms"],
+            "latency_p95_ms": st["latency_p95_ms"],
+            "cache": {k: st[k] for k in ("hits", "misses", "cold_compiles")},
+            "captures_after_warmup": st["cold_compiles"]
+            - warm["cold_compiles"],
+            "programs": len(info),
+            "graphs": sum(p["graph"] for p in info),
+            "capture_s": {f"{p['name']}#{i}": p["capture_s"]
+                          for i, p in enumerate(info)},
+            "pool_bytes": {f"{p['name']}#{i}": p["pool_bytes"]
+                           for i, p in enumerate(info)},
+            "pool_bytes_total": sum(p["pool_bytes"] for p in info)}
 
 
 def phase2(torch, pd, cfg, reqs):
     fns = attention_counts()
-    gens, st, launches, wall, engine = serve_requests(torch, pd, cfg, reqs,
-                                                      fns)
     L = cfg.n_layers
-    if (launches["paged_decode_attention"] != L * st["steps"]
-            or st["steps"] == 0
-            or launches["flash_attention"] != L * st["prefills"]):
-        raise AssertionError(f"kernel launches {launches}, want {L} x "
-                             f"{st['steps']} steps paged and {L} x "
-                             f"{st['prefills']} prefills flash")
-    parity, profile = decode_parity(torch, pd, cfg, reqs, engine.n_pmax)
-    toks = sum(len(g.tokens) for g in gens)
+    runs, tokens, launches = {}, {}, {}
+    for mode, cache in caches():
+        gens, st, got, wall, warm, n_pmax = serve_requests(
+            torch, pd, cfg, reqs, fns, cache)
+        if (got["paged_decode_attention"] != L * st["steps"]
+                or st["steps"] == 0
+                or got["flash_attention"] != L * st["prefills"]):
+            raise AssertionError(f"{mode} kernel launches {got}, want {L} x "
+                                 f"{st['steps']} steps paged and {L} x "
+                                 f"{st['prefills']} prefills flash")
+        if mode != "eager" and not all(
+                p["graph"] for p in cache.program_info()):
+            raise AssertionError("a captured step ran eagerly")
+        runs[mode] = dict(run_summary(gens, st, warm, wall, cache),
+                          kernel_launches=got)
+        tokens[mode], launches[mode] = [g.tokens for g in gens], got
+        runs[mode]["peak_pages"] = st["pool"]["peak_used"]
+        runs[mode]["row_occupancy"] = st["row_occupancy"]
+        del cache
+        torch.cuda.empty_cache()
+    exact, gaps = compare_tokens(torch, pd, cfg, [p for p, _ in reqs],
+                                 tokens["captured"], tokens["eager"],
+                                 "captured vs eager")
+    same_launches(launches, "phase 2")
+    parity, profile = decode_parity(torch, pd, cfg, reqs, n_pmax)
+    cap = runs["captured"]
     emit({"phase": 2, "model": cfg.name, "particles": PARTICLES,
-          "layers": cfg.n_layers, "requests": len(gens),
-          "generated_tokens": toks, "wall_s": wall,
-          "tok_per_s": toks / wall, "steps": st["steps"],
-          "prefills": st["prefills"], "ms_per_step_wall": wall / st["steps"] * 1e3,
-          "peak_pages": st["pool"]["peak_used"],
-          "row_occupancy": st["row_occupancy"],
-          "latency_p50_ms": st["latency_p50_ms"],
-          "latency_p95_ms": st["latency_p95_ms"],
-          "kernel_launches": launches,
+          "layers": cfg.n_layers, "requests": len(reqs),
+          "generated_tokens": cap["generated_tokens"], "wall_s": cap["wall_s"],
+          "tok_per_s": cap["tok_per_s"], "steps": cap["steps"],
+          "prefills": cap["prefills"],
+          "ms_per_step_wall": cap["ms_per_step_wall"],
+          "latency_p50_ms": cap["latency_p50_ms"],
+          "latency_p95_ms": cap["latency_p95_ms"],
+          "kernel_launches": launches["captured"],
+          "eager_tok_per_s": runs["eager"]["tok_per_s"],
+          "runs": runs, "captured_vs_eager_requests_token_equal": exact,
+          "captured_vs_eager_tie_gaps": gaps,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
           "decode_parity": parity, "step_profile": profile})
-    return launches, [g.tokens for g in gens], toks / wall
+    return launches["captured"], tokens["captured"], cap["tok_per_s"]
 
 
 # --------------------------------------------------------------------------
@@ -995,49 +1158,91 @@ def compare_tokens(torch, pd, cfg, prompts, got, want, what):
 
 def phase6(torch, pd, cfg, reqs, plain_tokens, plain_tok_s):
     """serve_decode(speculative=4) over phase 2's requests and particles,
-    then a short pass with all particles on one weight set."""
+    captured and eager, then a short pass with all particles on one weight
+    set."""
     from repro_torch.core import ParticleModule, PushDistribution
     from repro_torch.models import api
-    from repro_torch.serve import uncertainty
+    from repro_torch.runtime import ProgramCache, specs
+    from repro_torch.serve.engine import sample_heads
     L = cfg.n_layers
     fns = attention_counts()
-    gens, st, launches, wall, engine = serve_requests(
-        torch, pd, cfg, reqs, fns, speculative=SPEC_K)
-    ss = st["speculative"]
-    # the warmup ran one draft iteration before the counts were reset
-    iters = st["engine"]["draft_iterations"] - 1
-    want = {"paged_decode_window_attention": L * ss["verify_calls"],
-            "paged_decode_attention": L * iters,
-            "flash_attention": L * st["prefills"], "decode_attention": 0}
-    if launches != want or ss["verify_calls"] == 0:
-        raise AssertionError(f"speculative launches {launches}, want {want}")
-    exact, gaps = compare_tokens(torch, pd, cfg, [p for p, _ in reqs],
-                                 [g.tokens for g in gens], plain_tokens,
-                                 "speculative vs plain")
-    toks = sum(len(g.tokens) for g in gens)
-    # profiled verify steps: 8 freshly prefilled rows, 5-token windows
+    runs, tokens, launches = {}, {}, {}
+    for mode, cache in caches():
+        gens, st, got, wall, warm, n_pmax = serve_requests(
+            torch, pd, cfg, reqs, fns, cache, speculative=SPEC_K)
+        ss = st["speculative"]
+        iters = (st["engine"]["draft_iterations"]
+                 - warm["engine"]["draft_iterations"])
+        want = {"paged_decode_window_attention": L * ss["verify_calls"],
+                "paged_decode_attention": L * iters,
+                "flash_attention": L * st["prefills"], "decode_attention": 0}
+        if got != want or ss["verify_calls"] == 0:
+            raise AssertionError(f"{mode} speculative launches {got}, want "
+                                 f"{want}")
+        if mode != "eager" and not all(
+                p["graph"] for p in cache.program_info()):
+            raise AssertionError("a captured step ran eagerly")
+        runs[mode] = dict(run_summary(gens, st, warm, wall, cache),
+                          draft_iterations=iters, speculative=ss,
+                          kernel_launches=got)
+        tokens[mode], launches[mode] = [g.tokens for g in gens], got
+        del cache
+        torch.cuda.empty_cache()
+    prompts = [p for p, _ in reqs]
+    exact, gaps = compare_tokens(torch, pd, cfg, prompts, tokens["captured"],
+                                 plain_tokens, "speculative vs plain")
+    exact_e, gaps_e = compare_tokens(torch, pd, cfg, prompts,
+                                     tokens["captured"], tokens["eager"],
+                                     "captured vs eager speculative")
+    same_launches(launches, "phase 6")
+    launches = launches["captured"]
+    # profiled steps on 8 freshly prefilled rows: the verify of 5-token
+    # windows and the draft of 4 iterations, captured and eager
     pages = pd.store.checkout("kv_pages")
     try:
-        params, mask, bt, tok, sl = prefilled_rows(
-            torch, pd, cfg, [p for p, _ in reqs], engine.n_pmax, pages)
+        params, mask, bt, tok, sl = prefilled_rows(torch, pd, cfg, prompts,
+                                                   n_pmax, pages)
         gen = torch.Generator(device="cuda").manual_seed(5)
         win = torch.randint(1, cfg.vocab_size, (len(reqs), SPEC_K + 1),
                             generator=gen, device="cuda", dtype=torch.int32)
         win[:, 0] = tok
-        wl = torch.full_like(sl, SPEC_K + 1)
-        prof = profile_steps(torch, lambda: uncertainty.predictive_heads(
-            api.decode_window_paged(params, win, pages, bt, sl, wl, cfg)[0],
-            mask=mask), n=3)
+        host = [t.cpu().numpy().astype(np.int32) for t in (win, sl, bt)]
+        w, s0, b = host
+        verify = np.concatenate(
+            [w, s0[:, None], np.full_like(s0[:, None], SPEC_K + 1), b], 1)
+        draft = np.concatenate(
+            [w[:, :1], s0[:, None], np.full_like(s0[:, None], SPEC_K), b], 1)
+
+        def decode_fn(p, pg, tokens, block_tables, seq_lens):
+            return api.decode_step_paged(p, tokens, pg, block_tables,
+                                         seq_lens, cfg)
+
+        def verify_fn(p, pg, tokens, block_tables, seq_lens, win_lens):
+            return api.decode_window_paged(p, tokens, pg, block_tables,
+                                           seq_lens, win_lens, cfg)
+
+        prof = step_programs(torch, specs.spec_verify(
+            verify_fn, sample_heads, w_max=SPEC_K + 1),
+            (params, pages, verify, mask), n=3)
+        draft_prof = step_programs(torch, specs.spec_draft_step(
+            decode_fn, slot=0, n_iter=SPEC_K), (params, pages, draft), n=3)
     finally:
         pd.store.commit("kv_pages", pages)
-    out = {"phase": 6, "k_max": SPEC_K, "requests": len(gens),
-           "generated_tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
-           "plain_tok_per_s": plain_tok_s, "steps": st["steps"],
-           "draft_iterations": iters, "speculative": ss,
-           "latency_p50_ms": st["latency_p50_ms"],
-           "latency_p95_ms": st["latency_p95_ms"],
+    cap = runs["captured"]
+    out = {"phase": 6, "k_max": SPEC_K, "requests": len(reqs),
+           "generated_tokens": cap["generated_tokens"],
+           "wall_s": cap["wall_s"], "tok_per_s": cap["tok_per_s"],
+           "plain_tok_per_s": plain_tok_s,
+           "eager_tok_per_s": runs["eager"]["tok_per_s"],
+           "steps": cap["steps"], "draft_iterations": cap["draft_iterations"],
+           "speculative": cap["speculative"],
+           "latency_p50_ms": cap["latency_p50_ms"],
+           "latency_p95_ms": cap["latency_p95_ms"],
            "requests_token_equal_to_phase2": exact, "tie_gaps": gaps,
-           "kernel_launches": launches, "verify_profile": prof}
+           "captured_vs_eager_requests_token_equal": exact_e,
+           "captured_vs_eager_tie_gaps": gaps_e,
+           "kernel_launches": launches, "runs": runs,
+           "verify_profile": prof, "draft_profile": draft_prof}
 
     # all particles on one weight set: the draft always agrees with the BMA
     module = ParticleModule(init=None, cfg=cfg)
@@ -1046,8 +1251,8 @@ def phase6(torch, pd, cfg, reqs, plain_tokens, plain_tok_s):
         for _ in range(PARTICLES):
             twin.p_create(params=first)
         short = [(p, 16) for p, _ in reqs[:4]]
-        tg, tst, _, twall, _ = serve_requests(torch, twin, cfg, short, fns,
-                                              speculative=SPEC_K)
+        tg, tst, _, twall, _, _ = serve_requests(
+            torch, twin, cfg, short, fns, ProgramCache(), speculative=SPEC_K)
         tss = tst["speculative"]
         if not tss["acceptance_rate"] >= 0.9:
             raise AssertionError(f"shared-weight acceptance {tss}")
@@ -1062,83 +1267,132 @@ def phase6(torch, pd, cfg, reqs, plain_tokens, plain_tok_s):
 
 def phase7(torch, pd, cfg):
     """Stateful dense-cache decode through PredictiveEngine(stateful=True),
-    against serve_decode's tokens on the same prompts."""
+    captured and eager, against serve_decode's tokens on the same
+    prompts."""
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import ref
     from repro_torch.models import api
     from repro_torch.models.blocks import attn_qkv, norm_apply
+    from repro_torch.runtime import ProgramCache
     from repro_torch.serve import PredictiveEngine
     L = cfg.n_layers
     rng = np.random.default_rng(2)
     prompts = rng.integers(1, cfg.vocab_size, (DENSE_PROMPTS, DENSE_LEN))
     C = DENSE_LEN + DENSE_NEW + 1
+    cur = DENSE_LEN - 1 + DENSE_NEW
     fns = attention_counts()
-    paged, _, _, _, _ = serve_requests(
-        torch, pd, cfg, [(list(p), DENSE_NEW) for p in prompts], fns)
+    paged = serve_requests(torch, pd, cfg,
+                           [(list(p), DENSE_NEW) for p in prompts], fns,
+                           ProgramCache())[0]
 
     def fwd(params, caches, batch):
         return api.decode_step(params, batch["token"], caches,
                                batch["cur_pos"], cfg)
 
-    engine = PredictiveEngine(fwd, store=pd.store, stateful=True)
     toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
-    for fn in fns.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    state = engine.init_state(lambda p: api.prefill(
-        p, {"tokens": toks[:, :-1]}, cfg, max_len=C)[1])
-    tok, dense, heads = toks[:, -1], [], None
-    for step in range(DENSE_NEW):
-        heads, state = engine.step(state, {"token": tok,
-                                           "cur_pos": DENSE_LEN - 1 + step})
-        tok = heads["mean"].argmax(-1).to(torch.int32)
-        dense.append(tok)
-    dense = torch.stack(dense, 1).cpu().numpy()
-    wall = time.perf_counter() - t0
-    launches = read_counts(fns)
-    want = {"paged_decode_attention": 0, "paged_decode_window_attention": 0,
-            "flash_attention": L, "decode_attention": L * DENSE_NEW}
-    if launches != want:
-        raise AssertionError(f"dense decode launches {launches}, want {want}")
-    for k, v in heads.items():
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite head {k}")
-    exact, gaps = compare_tokens(torch, pd, cfg, prompts, dense.tolist(),
-                                 [g.tokens for g in paged],
-                                 "dense vs paged")
-    # one step's layer-0 attention through the kernel and the plain version
-    params = pd.store.stacked("params")
-    unit0 = {k: {kk: vv[:, 0] for kk, vv in v.items()}
-             for k, v in params["units"][0]["attn"].items()}
-    x = params["embed"][:, tok.long()][:, :, None]
-    x = norm_apply({k: v[:, 0] for k, v in params["units"][0]["ln1"].items()},
-                   x)
-    cur = DENSE_LEN - 1 + DENSE_NEW
-    q, _, _ = attn_qkv(unit0, x, cfg, torch.full((DENSE_PROMPTS, 1), cur,
-                                                 device="cuda"))
-    cache = state["units"][0]
-    kc, vc, pos = cache["k"][:, 0], cache["v"][:, 0], cache["pos"][0]
-    attn_err = max_err(torch, dk.decode_attention(q[:, :, 0], kc, vc, pos),
-                       ref.decode_attention(q[:, :, 0], kc, vc, pos),
-                       "dense decode step attention", 2e-5)
-    last = tok
+    runs, tokens, all_launches = {}, {}, {}
+    for mode, cache in caches():
+        engine = PredictiveEngine(fwd, store=pd.store, stateful=True,
+                                  cache=cache)
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state = engine.init_state(lambda p: api.prefill(
+            p, {"tokens": toks[:, :-1]}, cfg, max_len=C)[1])
+        tok, dense, kept, first = toks[:, -1], [], [], None
+        for step in range(DENSE_NEW):
+            heads, state = engine.step(state, {
+                "token": tok, "cur_pos": DENSE_LEN - 1 + step})
+            tok = heads["mean"].argmax(-1).to(torch.int32)
+            dense.append(tok)
+            kept.append(heads["mean"])
+            if first is None:
+                first = cache.snapshot_stats()["cold_compiles"]
+        dense = torch.stack(dense, 1).cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches = all_launches[mode] = read_counts(fns)
+        # every step's heads are its own, kept past the later replays
+        if not np.array_equal(torch.stack([m.argmax(-1) for m in kept],
+                                          1).cpu().numpy(), dense):
+            raise AssertionError(f"{mode}: a step's heads changed after it "
+                                 f"returned")
+        want = {"paged_decode_attention": 0,
+                "paged_decode_window_attention": 0,
+                "flash_attention": L, "decode_attention": L * DENSE_NEW}
+        if launches != want:
+            raise AssertionError(f"{mode} dense decode launches {launches}, "
+                                 f"want {want}")
+        for k, v in heads.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"non-finite head {k}")
+        st = cache.snapshot_stats()
+        info = cache.program_info()
+        if st["cold_compiles"] != first or first != 1 or (
+                mode != "eager" and not info[0]["graph"]):
+            raise AssertionError(f"{mode} dense step programs {st}")
+        tokens[mode] = dense.tolist()
+        if mode == "captured":
+            # a position outside the cache raises on the host, before the
+            # replay, and the card goes on (the profiled steps below)
+            try:
+                engine.step(state, {"token": tok, "cur_pos": C})
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("a captured step took cur_pos = C")
+            # one step's layer-0 attention through the kernel and the
+            # plain version
+            params = pd.store.stacked("params")
+            unit0 = {k: {kk: vv[:, 0] for kk, vv in v.items()}
+                     for k, v in params["units"][0]["attn"].items()}
+            x = params["embed"][:, tok.long()][:, :, None]
+            x = norm_apply({k: v[:, 0] for k, v in
+                            params["units"][0]["ln1"].items()}, x)
+            q, _, _ = attn_qkv(unit0, x, cfg, torch.full(
+                (DENSE_PROMPTS, 1), cur, device="cuda"))
+            c0 = state["units"][0]
+            kc, vc, pos = c0["k"][:, 0], c0["v"][:, 0], c0["pos"][0]
+            attn_err = max_err(
+                torch, dk.decode_attention(q[:, :, 0], kc, vc, pos),
+                ref.decode_attention(q[:, :, 0], kc, vc, pos),
+                "dense decode step attention", 2e-5)
+            main_launches = launches
+        last = tok
 
-    def step():
-        engine.step(state, {"token": last, "cur_pos": cur})
+        def step():
+            engine.step(state, {"token": last, "cur_pos": cur})
 
-    prof = profile_steps(torch, step, n=3)
+        runs[mode] = {
+            "wall_s": wall, "tok_per_s": DENSE_PROMPTS * DENSE_NEW / wall,
+            "ms_per_step_wall": wall / DENSE_NEW * 1e3,
+            "kernel_launches": launches,
+            "cache": {k: st[k] for k in ("hits", "misses", "cold_compiles")},
+            "captures_after_first_step": st["cold_compiles"] - first,
+            "capture_s": info[0]["capture_s"],
+            "pool_bytes": info[0]["pool_bytes"],
+            "step_profile": profile_steps(torch, step, n=3, fns=fns)}
+        del state, engine, cache, kept, heads
+        torch.cuda.empty_cache()
+    exact, gaps = compare_tokens(torch, pd, cfg, prompts, tokens["captured"],
+                                 [g.tokens for g in paged], "dense vs paged")
+    exact_e, gaps_e = compare_tokens(torch, pd, cfg, prompts,
+                                     tokens["captured"], tokens["eager"],
+                                     "captured vs eager dense")
+    same_launches(all_launches, "phase 7")
+    cap = runs["captured"]
     emit({"phase": 7, "prompts": DENSE_PROMPTS, "prompt_len": DENSE_LEN,
-          "new_tokens": DENSE_NEW, "cache_len": C, "wall_s": wall,
-          "tok_per_s": DENSE_PROMPTS * DENSE_NEW / wall,
-          "ms_per_step_wall": wall / DENSE_NEW * 1e3,
+          "new_tokens": DENSE_NEW, "cache_len": C, "wall_s": cap["wall_s"],
+          "tok_per_s": cap["tok_per_s"],
+          "eager_tok_per_s": runs["eager"]["tok_per_s"],
+          "ms_per_step_wall": cap["ms_per_step_wall"],
           "requests_token_equal_to_serve_decode": exact, "tie_gaps": gaps,
+          "captured_vs_eager_requests_token_equal": exact_e,
+          "captured_vs_eager_tie_gaps": gaps_e,
           "step_attention_kernel_vs_plain": attn_err,
-          "kernel_launches": launches, "step_profile": prof,
+          "kernel_launches": main_launches, "runs": runs,
           "peak_mem_gb_phases_1_to_7":
               torch.cuda.max_memory_allocated() / 2**30})
-    del state, engine
-    torch.cuda.empty_cache()
-    return launches
+    return main_launches
 
 
 # --------------------------------------------------------------------------
@@ -1494,6 +1748,8 @@ def phase4(torch):
     P, B, NB = TRAIN_P, 64, 8
     out, launches = {"phase": 4, "model": cfg.name, "particles": P,
                      "batch": B, "batches_per_epoch": NB}, {}
+    # what the earlier phases left allocated (graph pools, workspaces)
+    out["resident_gb_at_start"] = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
 
     # (a) SteinVGD, median heuristic (with ell = 1 and distances of ~1e5,
@@ -1707,6 +1963,7 @@ def main():
         launches["decode_attention"] = phase7(torch, pd, cfg)[
             "decode_attention"]
     del pd
+    gc.collect()            # the LM's particles sit in reference cycles
     torch.cuda.empty_cache()
     for row in phase3(torch):
         rows[row["name"]] = row

@@ -12,6 +12,12 @@ from . import ref
 from . import svgd_rbf as _svgd
 from . import swag_moments as _swag
 
+# every kernel wrapper that counts its launches (``fn.launches``)
+COUNTED = (_paged.paged_decode_attention,
+           _window.paged_decode_window_attention, _flash.flash_attention,
+           _decode.decode_attention, _svgd.pairwise_sqdist, _svgd.svgd_force,
+           _swag.moments, _swag.diag_std)
+
 
 def _route(x, kernel, plain, name):
     if x.is_cuda:

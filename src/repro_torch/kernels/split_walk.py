@@ -110,7 +110,6 @@ def heads_per_block(KVH: int, rows: int, hd: int, cols: int,
     return heads
 
 
-@functools.lru_cache(maxsize=None)
 @functools.lru_cache(maxsize=16)
 def sm_count(device) -> int:
     """Streaming multiprocessors of a CUDA device (read once a device)."""

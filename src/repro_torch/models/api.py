@@ -12,12 +12,14 @@ Vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,) int}``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 
+from ..runtime.program import host_check
 from .blocks import (dense_init, norm_apply, norm_init, paged_write_index,
-                     window_write_index)
+                     prefill_write_index, window_write_index)
 from .transformer import (decode_guard, paged_guard, stack_apply_decode,
                           stack_apply_paged, stack_apply_prefill,
                           stack_apply_prefill_paged,
@@ -111,15 +113,30 @@ def prefill(params, batch, cfg, max_len=None):
 def decode_step(params, token, caches, cur_pos, cfg):
     """One decode step over the dense caches for every particle.
 
-    token (B,) int; cur_pos: the absolute position of every row's token
-    (an int, or a 0-d tensor read once on the host). The caches are
-    updated in place. Returns (logits (P, B, V), caches)."""
+    token (B,) int; cur_pos: the absolute position of every row's token,
+    an int or a 0-d int tensor, never read on the host. A position outside
+    the cache raises ValueError: an int is checked here, a captured step's
+    tensor through ``runtime.program.host_check`` on the int it is filled
+    from before each replay; any other tensor is its caller's to check.
+    The caches are updated in place. Returns (logits (P, B, V), caches)."""
     decode_guard(cfg)
+    check = functools.partial(_check_cur_pos, C=_first_kv(caches).shape[-3])
+    if isinstance(cur_pos, torch.Tensor):
+        host_check(cur_pos, check)
+    else:
+        check(cur_pos)
+        cur_pos = torch.tensor(cur_pos, device=token.device)
     x = _embed(params, token.clamp(min=0)[:, None], _dtype(cfg))
-    ctx: Dict[str, Any] = {"cur_pos": int(cur_pos)}
+    ctx: Dict[str, Any] = {"cur_pos": cur_pos}
     x, caches = stack_apply_decode(params, x, cfg, caches, ctx)
     x = norm_apply(params["final_norm"], x)
     return _lm_logits(params, x, cfg)[:, :, 0], caches
+
+
+def _check_cur_pos(cur_pos, C: int):
+    if not 0 <= int(cur_pos) < C:
+        raise ValueError(f"cur_pos {int(cur_pos)} is outside the cache of "
+                         f"{C} slots")
 
 
 def init_cache(cfg, batch: int, seq_len: int, *, particles: int,
@@ -134,9 +151,11 @@ def init_cache(cfg, batch: int, seq_len: int, *, particles: int,
 
 def paged_cache_init(cfg, *, num_pages: int, page_size: int, dtype=None,
                      device=None):
-    """One particle's KV page pool: a (num_pages, page_size, KVH, hd) k/v
-    pair per attention layer. Block tables live with the scheduler."""
-    return stack_paged_init(cfg, num_pages, page_size,
+    """One particle's KV page pool: a (num_pages + 1, page_size, KVH, hd)
+    k/v pair per attention layer. Block tables name pages 0..num_pages-1
+    and live with the scheduler; the extra page is the scratch page
+    (``scratch_page``)."""
+    return stack_paged_init(cfg, num_pages + 1, page_size,
                             dtype=dtype or _cache_dtype(cfg),
                             device=torch.device("cuda") if device is None
                             else device)
@@ -149,7 +168,9 @@ def decode_step_paged(params, tokens, pages, block_tables, seq_lens, cfg, *,
     tokens (B,) int (garbage ok on inactive rows); block_tables
     (B, n_pmax) int32; seq_lens (B,) int32 absolute position of each token
     (-1 = inactive row: no pool writes, logits garbage — mask downstream).
-    Pages are updated in place. Returns (logits (P, B, V), pages).
+    ``pages`` is a ``paged_cache_init`` pool: no block table may name its
+    ``scratch_page``. Pages are updated in place. Returns
+    (logits (P, B, V), pages).
     ``decode_kernel=False`` takes the plain attention on any device, for
     parity checks against the kernel; ``serve_decode`` never sets it."""
     paged_guard(cfg)
@@ -159,7 +180,8 @@ def decode_step_paged(params, tokens, pages, block_tables, seq_lens, cfg, *,
     ctx: Dict[str, Any] = {
         "block_tables": block_tables, "seq_lens": seq_lens,
         "write_index": paged_write_index(block_tables, seq_lens,
-                                         _page_size(pages)),
+                                         _page_size(pages),
+                                         scratch_page(pages)),
         "decode_kernel": decode_kernel}
     x, pages = stack_apply_paged(params, x, cfg, pages, ctx)
     x = norm_apply(params["final_norm"], x)
@@ -185,7 +207,8 @@ def decode_window_paged(params, tokens, pages, block_tables, seq_lens,
     ctx: Dict[str, Any] = {
         "block_tables": block_tables, "seq_lens": seq_lens,
         "write_index": window_write_index(block_tables, seq_lens, win_lens,
-                                          W, _page_size(pages))}
+                                          W, _page_size(pages),
+                                          scratch_page(pages))}
     x, pages = stack_apply_window_paged(params, x, cfg, pages, ctx)
     x = norm_apply(params["final_norm"], x)
     return _lm_logits(params, x, cfg), pages
@@ -195,21 +218,39 @@ def prefill_paged(params, tokens, pages, block_table_row, n_tokens, cfg):
     """Prompt prefill for ONE sequence into the page pool.
 
     tokens (1, Sp) int padded to a shape bucket; block_table_row
-    (n_pmax,) int32; n_tokens: count of real tokens. Returns
-    (last-real-token logits (P, 1, V), pages)."""
+    (n_pmax,) int32; n_tokens: count of real tokens, a 0-d device tensor
+    (as the reference traces it) or an int, never read on the host. All
+    Sp positions are written: the padding's go to the scratch page.
+    Returns (last-real-token logits (P, 1, V), pages)."""
     paged_guard(cfg)
-    n_tokens = int(n_tokens)
     x = _embed(params, tokens, _dtype(cfg))
-    ctx: Dict[str, Any] = {"block_table_row": block_table_row,
-                           "n_tokens": n_tokens}
+    n_tokens = torch.as_tensor(n_tokens, device=x.device)
+    ctx: Dict[str, Any] = {
+        "write_index": prefill_write_index(block_table_row, n_tokens,
+                                           tokens.shape[1], _page_size(pages),
+                                           scratch_page(pages))}
     x, pages = stack_apply_prefill_paged(params, x, cfg, pages, ctx)
     x = norm_apply(params["final_norm"], x)
-    last = x[:, :, max(n_tokens - 1, 0)]                    # (P, 1, D)
+    last = (n_tokens.long() - 1).clamp(min=0).reshape(1)
+    last = x.index_select(2, last)[:, :, 0]                 # (P, 1, D)
     return _lm_logits(params, last, cfg), pages
 
 
-def _page_size(pages) -> int:
+def _first_kv(tree):
+    """The k leaf of the first attention layer of a page or cache tree."""
     for group in ("units", "head", "tail"):
-        if pages[group]:
-            return pages[group][0]["k"].shape[-3]
-    raise ValueError("page tree holds no attention layer")
+        if tree[group]:
+            return tree[group][0]["k"]
+    raise ValueError("the tree holds no attention layer")
+
+
+def _page_size(pages) -> int:
+    return _first_kv(pages).shape[-3]
+
+
+def scratch_page(pages) -> int:
+    """The index of the scratch page of a ``paged_cache_init`` pool (its
+    last page, one past the ``num_pages`` it was made for): it takes the
+    KV writes the reference drops (``blocks.paged_write_index``), and no
+    block table names it, so no kernel reads it."""
+    return _first_kv(pages).shape[-4] - 1

@@ -160,41 +160,53 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, seq_lens,
                                         seq_lens)
 
 
-def paged_write_index(block_tables, seq_lens, page_size: int):
-    """(rows, page, slot) of this step's KV writes: the active rows only.
+def paged_write_index(block_tables, seq_lens, page_size: int, scratch: int):
+    """(valid, page, slot) of this step's KV writes, one per row (B,).
 
     The reference scatters every row and lets the inactive ones drop as
-    out of range (``mode="drop"``); torch has no dropping scatter, so the
-    active rows are selected first. Computed once per decode step and
-    shared by every layer (``nonzero`` syncs the host once)."""
-    rows = torch.nonzero(seq_lens >= 0).squeeze(1)
-    pos = seq_lens[rows].long()
-    page = block_tables[rows, pos // page_size].long()
-    return rows, page, pos % page_size
+    out of range (``mode="drop"``); torch has no dropping scatter, so an
+    inactive row's write goes to slot 0 of the ``scratch`` page (one that
+    no block table names: ``models.api.scratch_page``) and ``write_kv``
+    keeps that slot's value there. Fixed shapes, no host sync: computed
+    once per decode step and shared by every layer."""
+    active = seq_lens >= 0
+    pos = torch.where(active, seq_lens, 0).long()
+    page = block_tables.gather(1, (pos // page_size)[:, None])[:, 0].long()
+    return (active, torch.where(active, page, scratch), pos % page_size)
+
+
+def write_kv(pages, k, v, write_index):
+    """Write new K/V rows into the pool IN PLACE at ``write_index``'s
+    (page, slot). ``k``/``v`` (P, *I, KVH, hd) for an index of shape I.
+    A dropped write (``valid`` False, sent to the scratch page) stores
+    the value already at its slot, so the scratch page never changes and
+    the pool stays the reference's, scratch page included."""
+    valid, page, slot = write_index
+    keep = valid.reshape((1,) + tuple(valid.shape) + (1, 1))
+    for pool, new in ((pages["k"], k), (pages["v"], v)):
+        old = pool[:, page, slot]
+        pool[:, page, slot] = torch.where(keep, new.to(pool.dtype), old)
 
 
 def attn_apply_paged(p, x, cfg, pages, *, block_tables, seq_lens,
-                     write_index=None, use_kernel: bool = True):
+                     write_index, use_kernel: bool = True):
     """One continuous-batching decode step for one attention layer.
 
     x (P, B, 1, D); pages {"k", "v"}: (P, NP, ps, KVH, hd), updated IN
     PLACE (the reference donates the pool; here the step writes its one
     new K/V row per active sequence into the pool tensors themselves, so
     no pool of several GB is copied per step). seq_lens (B,) is the
-    absolute position of the token in x; rows with seq_lens < 0 write
-    nothing and return zeros. Returns (out (P, B, 1, D), pages)."""
+    absolute position of the token in x; ``write_index``
+    (``paged_write_index``) sends the writes of rows with seq_lens < 0 to
+    the scratch page, and those rows return zeros. Returns (out
+    (P, B, 1, D), pages)."""
     if cfg.logit_softcap > 0.0:
         raise NotImplementedError("paged decode does not support logit softcap")
     P, B = x.shape[:2]
     q, k, v = attn_qkv(p, x, cfg, seq_lens[:, None]
                        if cfg.rope_theta > 0 else None)
-    if write_index is None:
-        write_index = paged_write_index(block_tables, seq_lens,
-                                        pages["k"].shape[2])
-    rows, page, slot = write_index
+    write_kv(pages, k[:, :, 0], v[:, :, 0], write_index)
     kp, vp = pages["k"], pages["v"]
-    kp[:, page, slot] = k[:, rows, 0].to(kp.dtype)
-    vp[:, page, slot] = v[:, rows, 0].to(vp.dtype)
     out = paged_attention(q[:, :, 0], kp, vp, block_tables=block_tables,
                           seq_lens=seq_lens, use_kernel=use_kernel)
     out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))
@@ -202,18 +214,30 @@ def attn_apply_paged(p, x, cfg, pages, *, block_tables, seq_lens,
 
 
 def window_write_index(block_tables, seq_lens, win_lens, W: int,
-                       page_size: int):
-    """(rows, ws, page, slot) of a W-wide verify window's KV writes: the
-    real window positions (``w < win_lens[b]``) of the active rows only,
-    each at absolute position ``seq_lens[b] + w``. Computed once per
-    verify call and shared by every layer (``nonzero`` syncs the host
-    once)."""
+                       page_size: int, scratch: int):
+    """(valid, page, slot) of a W-wide verify window's KV writes, each
+    (B, W): position w of row b writes at ``seq_lens[b] + w`` when the row
+    is active and ``w < win_lens[b]``; every other position goes to slot 0
+    of the ``scratch`` page (``paged_write_index``). Computed once per
+    verify call and shared by every layer."""
     w = torch.arange(W, device=seq_lens.device)
     valid = (seq_lens >= 0)[:, None] & (w[None, :] < win_lens[:, None])
-    rows, ws = torch.nonzero(valid, as_tuple=True)
-    pos = seq_lens[rows].long() + ws
-    page = block_tables[rows, pos // page_size].long()
-    return rows, ws, page, pos % page_size
+    pos = torch.where(valid, seq_lens[:, None].long() + w, 0)
+    page = block_tables.gather(1, pos // page_size).long()
+    return valid, torch.where(valid, page, scratch), pos % page_size
+
+
+def prefill_write_index(block_table_row, n_tokens, Sp: int, page_size: int,
+                        scratch: int):
+    """(valid, page, slot) of a padded prompt's KV writes, each (Sp,):
+    position i writes at page ``block_table_row[i // page_size]`` when
+    ``i < n_tokens`` (a device scalar or an int); padding positions go to
+    slot ``i % page_size`` of the ``scratch`` page."""
+    positions = torch.arange(Sp, device=block_table_row.device)
+    valid = positions < n_tokens
+    logical = (positions // page_size).clamp(max=block_table_row.shape[0] - 1)
+    page = block_table_row[logical].long()
+    return valid, torch.where(valid, page, scratch), positions % page_size
 
 
 def attn_apply_window_paged(p, x, cfg, pages, *, block_tables, seq_lens,
@@ -234,24 +258,22 @@ def attn_apply_window_paged(p, x, cfg, pages, *, block_tables, seq_lens,
     P, B, W, _ = x.shape
     pos = seq_lens.clamp(min=0)[:, None] + torch.arange(W, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, pos if cfg.rope_theta > 0 else None)
-    rows, ws, page, slot = write_index
+    write_kv(pages, k, v, write_index)
     kp, vp = pages["k"], pages["v"]
-    kp[:, page, slot] = k[:, rows, ws].to(kp.dtype)
-    vp[:, page, slot] = v[:, rows, ws].to(vp.dtype)
     out = _kops.paged_decode_window_attention(q, kp, vp, block_tables,
                                               seq_lens)
     out = dense_apply(p["wo"], out.reshape(P, B, W, -1))
     return out, pages
 
 
-def attn_apply_prefill_paged(p, x, cfg, pages, *, block_table_row,
-                             n_tokens: int):
+def attn_apply_prefill_paged(p, x, cfg, pages, *, write_index):
     """Prompt prefill for ONE sequence into the page pool.
 
-    x (P, 1, Sp, D) prompt embeddings padded to a shape bucket; n_tokens
-    real tokens. Causal attention over the padded prompt through the
-    prefill kernel (the real positions never see the padding), then the
-    K/V rows of the real positions go into the sequence's pages, in place.
+    x (P, 1, Sp, D) prompt embeddings padded to a shape bucket. Causal
+    attention over the padded prompt through the prefill kernel (the real
+    positions never see the padding), then the K/V rows of the real
+    positions go into the sequence's pages, in place, and the padding's
+    to the scratch page (``write_index``, from ``prefill_write_index``).
     Returns (out (P, 1, Sp, D), pages)."""
     P, B, Sp, _ = x.shape
     positions = torch.arange(Sp, device=x.device)
@@ -259,11 +281,7 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, block_table_row,
                        positions if cfg.rope_theta > 0 else None)
     out = _kops.flash_attention(q, k, v, causal=True)
     out = dense_apply(p["wo"], out.reshape(P, B, Sp, -1))
-    ps = pages["k"].shape[2]
-    pos = positions[:n_tokens]
-    page = block_table_row[pos // ps].long()
-    pages["k"][:, page, pos % ps] = k[:, 0, :n_tokens].to(pages["k"].dtype)
-    pages["v"][:, page, pos % ps] = v[:, 0, :n_tokens].to(pages["v"].dtype)
+    write_kv(pages, k[:, 0], v[:, 0], write_index)
     return out, pages
 
 
@@ -281,26 +299,24 @@ def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal"):
     return dense_apply(p["wo"], out.reshape(P, B, S, -1))
 
 
-def attn_apply_decode(p, x, cfg, cache, *, cur_pos: int):
+def attn_apply_decode(p, x, cfg, cache, *, cur_pos):
     """One-token decode over a dense cache for one attention layer.
 
-    x (P, B, 1, D), every row at absolute position ``cur_pos``; cache
-    {"k", "v": (P, B, C, KVH, hd), "pos": (B, C) int32, the slot
-    positions shared by the particles}. The new K/V row and its position
-    are written at slot ``cur_pos`` IN PLACE (the reference returns a new
-    cache), then the token attends over the cache through the dense-decode
-    kernel. Ring caches (a sliding window) are not ported
+    x (P, B, 1, D), every row at absolute position ``cur_pos``, a 0-d
+    int tensor on the device (``api.decode_step`` checks its range on the
+    host); cache {"k", "v": (P, B, C, KVH, hd), "pos": (B, C) int32, the
+    slot positions shared by the particles}. The new K/V row and its
+    position are written at slot ``cur_pos`` IN PLACE (the reference
+    returns a new cache), then the token attends over the cache through
+    the dense-decode kernel. Ring caches (a sliding window) are not ported
     (``transformer.decode_guard``). Returns (out (P, B, 1, D), cache)."""
     P, B = x.shape[:2]
-    C = cache["k"].shape[2]
-    if not 0 <= cur_pos < C:
-        raise ValueError(f"cur_pos {cur_pos} is outside the cache of {C} "
-                         f"slots")
-    pos = torch.full((B, 1), cur_pos, device=x.device)
+    slot = cur_pos.reshape(1).long()
+    pos = cur_pos.reshape(1, 1).expand(B, 1)
     q, k, v = attn_qkv(p, x, cfg, pos if cfg.rope_theta > 0 else None)
-    cache["k"][:, :, cur_pos] = k[:, :, 0].to(cache["k"].dtype)
-    cache["v"][:, :, cur_pos] = v[:, :, 0].to(cache["v"].dtype)
-    cache["pos"][:, cur_pos] = cur_pos
+    cache["k"].index_copy_(2, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, slot, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(1, slot, pos.to(torch.int32))
     out = _kops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
                                  cache["pos"])
     out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))

@@ -89,7 +89,8 @@ def layer_apply_prefill(kind: str, p, x, cfg, cache):
 
 def layer_apply_decode(kind: str, p, x, cfg, cache, ctx):
     """One-token decode of one layer over its dense cache. x (P, B, 1, D);
-    ctx: cur_pos (int). The cache is updated in place. Returns (x, cache)."""
+    ctx: cur_pos (a 0-d int tensor on the device). The cache is updated in
+    place. Returns (x, cache)."""
     h, cache = attn_apply_decode(p["attn"], norm_apply(p["ln1"], x), cfg,
                                  cache, cur_pos=ctx["cur_pos"])
     x = x + h
@@ -178,7 +179,7 @@ def _layer_apply_paged(kind, p, x, cfg, pages, ctx):
     h, pages = attn_apply_paged(
         p["attn"], norm_apply(p["ln1"], x), cfg, pages,
         block_tables=ctx["block_tables"], seq_lens=ctx["seq_lens"],
-        write_index=ctx.get("write_index"),
+        write_index=ctx["write_index"],
         use_kernel=ctx.get("decode_kernel", True))
     x = x + h
     return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), pages
@@ -187,7 +188,7 @@ def _layer_apply_paged(kind, p, x, cfg, pages, ctx):
 def _layer_apply_prefill_paged(kind, p, x, cfg, pages, ctx):
     h, pages = attn_apply_prefill_paged(
         p["attn"], norm_apply(p["ln1"], x), cfg, pages,
-        block_table_row=ctx["block_table_row"], n_tokens=ctx["n_tokens"])
+        write_index=ctx["write_index"])
     x = x + h
     return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), pages
 
@@ -209,8 +210,9 @@ def _stack_apply_paged_common(params, x, cfg, pages, ctx, layer_fn):
 
 def stack_apply_paged(params, x, cfg, pages, ctx):
     """One decode step over the paged pool. x (P, B, 1, D); ctx:
-    block_tables (B, n_pmax), seq_lens (B,), optional write_index.
-    Returns (x, pages) — the same page tensors, updated in place."""
+    block_tables (B, n_pmax), seq_lens (B,), write_index
+    (``blocks.paged_write_index``). Returns (x, pages) — the same page
+    tensors, updated in place."""
     return _stack_apply_paged_common(params, x, cfg, pages, ctx,
                                      _layer_apply_paged)
 
@@ -235,7 +237,8 @@ def stack_apply_window_paged(params, x, cfg, pages, ctx):
 
 def stack_apply_prefill_paged(params, x, cfg, pages, ctx):
     """Prompt prefill for one sequence into the pool. x (P, 1, Sp, D);
-    ctx: block_table_row (n_pmax,), n_tokens int. Returns (x, pages)."""
+    ctx: write_index (``blocks.prefill_write_index``). Returns (x,
+    pages)."""
     return _stack_apply_paged_common(params, x, cfg, pages, ctx,
                                      _layer_apply_prefill_paged)
 

@@ -1,8 +1,23 @@
-"""Step builders over the explicit particle axis and shape bucketing.
+"""repro_torch.runtime: the plan/capture/execute layer (counterpart of
+``repro.runtime``, DESIGN.md §8).
 
-The reference compiles each step once through its ProgramCache; the port
-runs eagerly, so a step is a plain function and there is no cache yet
-(CUDA graphs are later work)."""
+program.py   -- ProgramSpec / BuildCtx / Program; ``lower`` captures a
+                step as a CUDA graph on the card and runs it eagerly on
+                the CPU
+cache.py     -- ProgramCache (hits, misses, captures); global_cache()
+specs.py     -- the steps: ensemble step and predict; the serving steps
+                as ProgramSpecs
+backends.py  -- NelRuntime / CompiledRuntime
+bucketing.py -- power-of-two bucketing shared with serve/
+"""
+from . import specs
+from .backends import BACKENDS, CompiledRuntime, NelRuntime, make_runtime
 from .bucketing import bucket_size, pad_rows
+from .cache import ProgramCache, global_cache
+from .program import (BuildCtx, Program, ProgramSpec, abstract_key, arg_key,
+                      capture, eager, ident, lower)
 
-__all__ = ["bucket_size", "pad_rows"]
+__all__ = ["BACKENDS", "BuildCtx", "CompiledRuntime", "NelRuntime",
+           "Program", "ProgramCache", "ProgramSpec", "abstract_key",
+           "arg_key", "bucket_size", "capture", "eager", "global_cache",
+           "ident", "lower", "make_runtime", "pad_rows", "specs"]

@@ -1,0 +1,170 @@
+"""ProgramCache: the cache of captured steps (counterpart of
+``repro.runtime.cache``).
+
+Cache-key anatomy (DESIGN.md §8, with the device in the place of the
+reference's ``Placement`` until multi-GPU placement is ported):
+
+    (spec.key,            # semantic identity of the step
+     in/out kinds,        # argument roles
+     spec.precision,      # mixed-precision policy token
+     device,              # where the arguments live
+     state_token,         # store generation: particle-set changes miss
+     arg keys)            # per argument (structure, shape, dtype), plus the
+                          # leaves' addresses for the in-place kinds, so a
+                          # replaced tree misses (program.arg_key)
+
+``stats`` keeps the reference's names: ``hits`` (key present), ``misses``
+(key absent), ``cold_compiles`` (a step was captured: here every miss),
+``evictions`` (LRU). A program also goes, outside the stats, once a
+tensor of an in-place argument it was captured on is freed (a pool
+replaced by a new service, params replaced by a commit): its key can
+only be hit again through a new tensor at the same address, and its
+graph's private memory pool would stay resident for nothing.
+``ProgramCache(capturer=...)`` takes the capture strategy:
+``program.lower`` by default (a CUDA graph on the card, the eager body on
+the CPU), ``program.eager`` for an eager pass on the card, or a test's
+stub; a capturer is ``capturer(spec, args, cache_key) -> Program``.
+"""
+from __future__ import annotations
+
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..core.tree import tree_leaves
+from .program import (IN_PLACE, Program, ProgramSpec, arg_device, arg_key,
+                      lower)
+
+
+class ProgramCache:
+    """Process-wide (or private) spec -> Program cache.
+
+    Bounded LRU: ``max_programs`` caps resident programs; an evicted
+    program that is still referenced keeps working, and a re-lookup
+    captures it anew. ``released`` counts the programs dropped because a
+    tensor they were captured on was freed (module doc)."""
+
+    def __init__(self, max_programs: int = 512,
+                 capturer: Optional[Callable] = None):
+        self._lock = threading.Lock()
+        self._programs: "OrderedDict[Tuple, Program]" = OrderedDict()
+        self.max_programs = max_programs
+        self.capturer = capturer if capturer is not None else lower
+        self.stats = {"hits": 0, "misses": 0, "cold_compiles": 0,
+                      "evictions": 0}
+        self.released = 0
+        # key -> weakrefs to the program's in-place leaves; a callback
+        # queues (key, program) on _dead, which the next call under the
+        # lock drops (a callback may fire inside a locked section)
+        self._watch: Dict[Tuple, List] = {}
+        self._dead: List[Tuple[Tuple, Program]] = []
+
+    # -- key construction ----------------------------------------------------
+    @staticmethod
+    def cache_key(spec: ProgramSpec, args, state_token=None,
+                  arg_keys: Optional[Sequence] = None) -> Tuple:
+        keys = tuple(
+            arg_keys[i] if arg_keys is not None and arg_keys[i] is not None
+            else arg_key(kind, a)
+            for i, (kind, a) in enumerate(zip(spec.in_kinds, args)))
+        return (spec.key, spec.in_kinds, spec.out_kinds, spec.precision,
+                str(arg_device(args)), state_token, keys)
+
+    # -- the lookup path -----------------------------------------------------
+    def lookup(self, spec: ProgramSpec, args, state_token=None,
+               arg_keys: Optional[Sequence] = None) -> Tuple[Program, bool]:
+        """(program, hit). On a miss the capturer builds the program (a
+        cold compile). ``arg_keys`` lets hot paths pass precomputed
+        ``program.arg_key`` entries (None entries are computed here):
+        engines keep the params' key between store commits and the page
+        pool's between generations, so a step never walks those trees."""
+        key = self.cache_key(spec, args, state_token, arg_keys)
+        with self._lock:
+            self._release_dead()
+            prog = self._programs.get(key)
+            if prog is not None:
+                self._programs.move_to_end(key)
+                self.stats["hits"] += 1
+                return prog, True
+            self.stats["misses"] += 1
+        built = self.capturer(spec, args, key)
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = built
+                self._programs[key] = built
+                self._watch[key] = self._watchers(key, built, spec, args)
+                while len(self._programs) > self.max_programs:
+                    old, _ = self._programs.popitem(last=False)
+                    self._watch.pop(old, None)
+                    self.stats["evictions"] += 1
+                self.stats["cold_compiles"] += 1
+        return prog, False
+
+    def _watchers(self, key, prog, spec, args) -> List:
+        dead = self._dead
+
+        def freed(_ref):
+            dead.append((key, prog))
+
+        return [weakref.ref(x, freed)
+                for kind, a in zip(spec.in_kinds, args) if kind in IN_PLACE
+                for x in tree_leaves(a)]
+
+    def _release_dead(self):
+        """Drop the programs whose in-place tensors were freed (lock
+        held); a key captured anew since then keeps its new program."""
+        while self._dead:
+            key, prog = self._dead.pop()
+            if self._programs.get(key) is prog:
+                del self._programs[key]
+                del self._watch[key]
+                self.released += 1
+
+    def program(self, spec: ProgramSpec, args, state_token=None,
+                arg_keys: Optional[Sequence] = None) -> Program:
+        return self.lookup(spec, args, state_token, arg_keys)[0]
+
+    def run(self, spec: ProgramSpec, *args, state_token=None):
+        """Lookup (capturing on a miss), then run, in one call."""
+        return self.program(spec, args, state_token)(*args)
+
+    # -- introspection -------------------------------------------------------
+    def __len__(self) -> int:
+        with self._lock:
+            self._release_dead()
+            return len(self._programs)
+
+    def snapshot_stats(self) -> Dict[str, Any]:
+        with self._lock:
+            self._release_dead()
+            s = dict(self.stats)
+            s["programs"] = len(self._programs)
+            total = s["hits"] + s["misses"]
+            s["hit_rate"] = s["hits"] / total if total else 0.0
+            return s
+
+    def program_info(self) -> List[Dict[str, Any]]:
+        """Per entry, least recently used first: name, whether it is a
+        captured graph, the seconds its capture took and the bytes its
+        graph's private pool reserved."""
+        with self._lock:
+            self._release_dead()
+            progs = list(self._programs.values())
+        return [{"name": p.name, "graph": p.graph is not None,
+                 "capture_s": p.capture_s, "pool_bytes": p.pool_bytes}
+                for p in progs]
+
+    def clear(self):
+        with self._lock:
+            self._programs.clear()
+            self._watch.clear()
+            self._dead.clear()
+
+
+_GLOBAL = ProgramCache()
+
+
+def global_cache() -> ProgramCache:
+    return _GLOBAL

@@ -3,31 +3,34 @@
 
 The reference wraps a per-particle function in a vmapped, donated
 ProgramSpec that its ProgramCache compiles; here the model functions
-already take the stacked particle axis and run eagerly, so a builder
-returns a plain function over the stacked state.
+already take the stacked particle axis, so a body needs no vmap.
 
-Training: ``ensemble_step`` and ``ensemble_predict`` (bodies in
+Training (eager in this slice): ``ensemble_step`` and
+``ensemble_predict`` return plain functions (bodies in
 ``core.functional``); the reference's masked ``map_step`` has no
 counterpart, because SWAG collection (``bdl.swag.swag_collect``) takes
-the mask itself and keeps dead rows bit for bit. Serving: ``paged_decode_step``,
-``paged_prefill`` and ``spec_verify`` return ``fused(stacked_params,
-pages, packed, mask) -> (heads, pages)``, which unpacks the step input,
-runs the model over all particles at once and reduces with
-``reduce_fn(member_logits (P, B, [W,] V), mask)``; ``spec_draft_step``
-returns ``fused(stacked_params, pages, packed, slot, n_iter) -> (drafts,
-pages)`` over one particle. Pages are updated in place. ``packed`` is the
-device copy of the scheduler's one int32 staging buffer (one
-host-to-device transfer per call).
+the mask itself and keeps dead rows bit for bit.
+
+Serving: ``paged_decode_step``, ``paged_prefill``, ``spec_draft_step``,
+``spec_verify`` and ``bma_step`` (the stateful dense-cache step) return
+``ProgramSpec``s that a ``ProgramCache`` captures once as a CUDA graph
+and replays. Each body unpacks the step input, runs the model over all
+particles at once and reduces with ``reduce_fn(member_logits (P, B, [W,]
+V), mask)``. The params and the page pool (or the dense caches) are read
+and updated in place; ``packed`` is the scheduler's one int32 staging
+buffer, copied into the program's static input (one host-to-device copy
+per call). No body reads a device value on the host.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
 from ..core import functional
 from ..core import precision as precision_mod
 from ..core.tree import tree_map
+from .program import ProgramSpec
 
 
 def ensemble_step(loss_fn: Callable, optimizer, precision=None) -> Callable:
@@ -44,74 +47,108 @@ def ensemble_predict(forward: Callable) -> Callable:
     return functional.ensemble_predict(forward)
 
 
-def paged_decode_step(decode_fn: Callable, reduce_fn: Callable) -> Callable:
-    """``decode_fn(params, pages, tokens, block_tables, seq_lens) ->
+def paged_decode_step(decode_fn: Callable, reduce_fn: Callable, *,
+                      key: Tuple = ()) -> ProgramSpec:
+    """One fixed-shape continuous-batching decode step: ``fused(
+    stacked_params, pages, packed, mask) -> (heads, pages)``.
+
+    ``decode_fn(params, pages, tokens, block_tables, seq_lens) ->
     (logits (P, B, V), pages)``; ``packed`` is ``(B, 2 + n_pmax)`` int32:
     ``[:, 0]`` tokens, ``[:, 1]`` seq_lens, ``[:, 2:]`` block tables."""
-    def fused(stacked_params, pages, packed, mask):
-        tokens, seq_lens, bt = packed[:, 0], packed[:, 1], packed[:, 2:]
-        logits, pages = decode_fn(stacked_params, pages, tokens, bt, seq_lens)
-        return reduce_fn(logits, mask), pages
+    def make(ctx):
+        def fused(stacked_params, pages, packed, mask):
+            tokens, seq_lens, bt = packed[:, 0], packed[:, 1], packed[:, 2:]
+            logits, pages = decode_fn(stacked_params, pages, tokens, bt,
+                                      seq_lens)
+            return reduce_fn(logits, mask), pages
 
-    return fused
+        return fused
+
+    return ProgramSpec(
+        name="paged_decode_step", key=("paged_decode_step",) + tuple(key),
+        make=make, in_kinds=("state", "state", "replicated", "replicated"),
+        out_kinds=("replicated", "in:1"))
 
 
 def paged_prefill(prefill_fn: Callable, reduce_fn: Callable, *,
-                  n_pmax: int) -> Callable:
-    """``prefill_fn(params, pages, tokens (1, Sp), block_table_row,
-    n_tokens) -> (last-token logits (P, 1, V), pages)``; ``packed`` is
-    ``(Sp + n_pmax + 1,)`` int32: ``[tokens..., block_table...,
-    n_tokens]``."""
-    def fused(stacked_params, pages, packed, mask):
-        sp = packed.shape[0] - n_pmax - 1
-        tokens = packed[None, :sp]
-        bt_row = packed[sp:sp + n_pmax]
-        logits, pages = prefill_fn(stacked_params, pages, tokens, bt_row,
-                                   packed[-1])
-        return reduce_fn(logits, mask), pages
+                  n_pmax: int, key: Tuple = ()) -> ProgramSpec:
+    """Prompt admission of ONE sequence: ``fused(stacked_params, pages,
+    packed, mask) -> (heads, pages)``.
 
-    return fused
+    ``prefill_fn(params, pages, tokens (1, Sp), block_table_row, n_tokens)
+    -> (last-token logits (P, 1, V), pages)``; ``packed`` is ``(Sp + n_pmax
+    + 1,)`` int32: ``[tokens..., block_table..., n_tokens]``. ``n_tokens``
+    stays a device scalar, so one program serves every prompt of a bucket
+    (one program per pow2 bucket Sp)."""
+    def make(ctx):
+        def fused(stacked_params, pages, packed, mask):
+            sp = packed.shape[0] - n_pmax - 1
+            tokens = packed[None, :sp]
+            bt_row = packed[sp:sp + n_pmax]
+            logits, pages = prefill_fn(stacked_params, pages, tokens, bt_row,
+                                       packed[-1])
+            return reduce_fn(logits, mask), pages
+
+        return fused
+
+    return ProgramSpec(
+        name="paged_prefill", key=("paged_prefill", n_pmax) + tuple(key),
+        make=make, in_kinds=("state", "state", "replicated", "replicated"),
+        out_kinds=("replicated", "in:1"))
 
 
-def spec_draft_step(decode_fn: Callable) -> Callable:
-    """Draft tokens from ONE particle: the single-token decode run
-    ``n_iter`` times over a one-particle view (``a[slot:slot+1]``) of the
-    params and the pages, the argmax of each iteration fed back as the
-    next token. The views share storage with the stacked tensors, so the
-    draft's KV writes land in the pool itself.
+def spec_draft_step(decode_fn: Callable, *, slot: int, n_iter: int,
+                    key: Tuple = ()) -> ProgramSpec:
+    """Draft tokens from ONE particle: ``fused(stacked_params, pages,
+    packed) -> (drafts (B, n_iter) int32, pages)``.
+
+    The single-token decode runs ``n_iter`` times over a one-particle
+    view (``a[slot:slot+1]``, taken inside the body) of the params and the
+    pages, the argmax of each iteration fed back as the next token. The
+    views share storage with the stacked tensors, so the draft's KV writes
+    land in the pool itself. The draft slot and the iteration count are
+    host ints, so each ``(slot, n_iter)`` is a spec of its own (the caller
+    passes ``n_iter = max_i k_i <= k_max``: no iteration runs past the
+    longest draft).
 
     ``packed`` is ``(B, 3 + n_pmax)`` int32: ``[:, 0]`` last committed
     token, ``[:, 1]`` its position (-1 = inactive row), ``[:, 2]`` the
-    row's draft length k, ``[:, 3:]`` block tables. The caller passes
-    ``n_iter = max_i k_i`` (known on the host), so no iteration runs past
-    the longest draft; row i stops writing after its own k. Returns
-    ``(drafts (B, n_iter) int32, pages)``; entries past a row's k are
-    garbage the host ignores."""
-    def fused(stacked_params, pages, packed, slot: int, n_iter: int):
-        tok, sl = packed[:, 0], packed[:, 1]
-        k_lens, bt = packed[:, 2], packed[:, 3:]
-        row = slice(slot, slot + 1)
-        params_row = tree_map(lambda a: a[row], stacked_params)
-        pages_row = tree_map(lambda a: a[row], pages)
-        drafts = []
-        for j in range(n_iter):
-            live = (sl >= 0) & (j < k_lens)
-            logits, _ = decode_fn(params_row, pages_row, tok, bt,
-                                  torch.where(live, sl, -1))
-            nxt = logits[0].argmax(-1).to(torch.int32)
-            tok = torch.where(live, nxt, tok)
-            sl = sl + live.to(sl.dtype)
-            drafts.append(tok)
-        if not drafts:
-            return packed.new_zeros((packed.shape[0], 0)), pages
-        return torch.stack(drafts, dim=1), pages
+    row's draft length k, ``[:, 3:]`` block tables; row i stops writing
+    after its own k. Entries of ``drafts`` past a row's k are garbage the
+    host ignores."""
+    def make(ctx):
+        def fused(stacked_params, pages, packed):
+            tok, sl = packed[:, 0], packed[:, 1]
+            k_lens, bt = packed[:, 2], packed[:, 3:]
+            row = slice(slot, slot + 1)
+            params_row = tree_map(lambda a: a[row], stacked_params)
+            pages_row = tree_map(lambda a: a[row], pages)
+            drafts = []
+            for j in range(n_iter):
+                live = (sl >= 0) & (j < k_lens)
+                logits, _ = decode_fn(params_row, pages_row, tok, bt,
+                                      torch.where(live, sl, -1))
+                nxt = logits[0].argmax(-1).to(torch.int32)
+                tok = torch.where(live, nxt, tok)
+                sl = sl + live.to(sl.dtype)
+                drafts.append(tok)
+            if not drafts:
+                return packed.new_zeros((packed.shape[0], 0)), pages
+            return torch.stack(drafts, dim=1), pages
 
-    return fused
+        return fused
+
+    return ProgramSpec(
+        name="spec_draft_step",
+        key=("spec_draft_step", slot, n_iter) + tuple(key), make=make,
+        in_kinds=("state", "state", "replicated"),
+        out_kinds=("replicated", "in:1"))
 
 
-def spec_verify(verify_fn: Callable, reduce_fn: Callable, *,
-                w_max: int) -> Callable:
-    """Score a drafted window across every particle in one pass.
+def spec_verify(verify_fn: Callable, reduce_fn: Callable, *, w_max: int,
+                key: Tuple = ()) -> ProgramSpec:
+    """Score a drafted window across every particle in one pass:
+    ``fused(stacked_params, pages, packed, mask) -> (heads, pages)``.
 
     ``verify_fn(params, pages, tokens (B, W), block_tables, seq_lens,
     win_lens) -> (logits (P, B, W, V), pages)``. ``packed`` is
@@ -127,13 +164,42 @@ def spec_verify(verify_fn: Callable, reduce_fn: Callable, *,
     1-row GEMMs in the last bits, but verify writes last, so the pool
     holds verify's values either way and stays consistent with the heads
     it returned."""
-    def fused(stacked_params, pages, packed, mask):
-        tokens = packed[:, :w_max]
-        seq_lens = packed[:, w_max]
-        win_lens = packed[:, w_max + 1]
-        bt = packed[:, w_max + 2:]
-        logits, pages = verify_fn(stacked_params, pages, tokens, bt,
-                                  seq_lens, win_lens)
-        return reduce_fn(logits, mask), pages
+    def make(ctx):
+        def fused(stacked_params, pages, packed, mask):
+            tokens = packed[:, :w_max]
+            seq_lens = packed[:, w_max]
+            win_lens = packed[:, w_max + 1]
+            bt = packed[:, w_max + 2:]
+            logits, pages = verify_fn(stacked_params, pages, tokens, bt,
+                                      seq_lens, win_lens)
+            return reduce_fn(logits, mask), pages
 
-    return fused
+        return fused
+
+    return ProgramSpec(
+        name="spec_verify", key=("spec_verify", w_max) + tuple(key),
+        make=make, in_kinds=("state", "state", "replicated", "replicated"),
+        out_kinds=("replicated", "in:1"))
+
+
+def bma_step(forward: Callable, reduce_fn: Callable, *,
+             key: Tuple = ()) -> ProgramSpec:
+    """One stateful serving step (dense-cache LM decode): ``fused(
+    stacked_params, state, batch, mask) -> (heads, state)``.
+
+    ``forward(stacked_params, state, batch) -> (member outputs, state)``
+    updates the per-particle state (the dense KV caches) in place;
+    ``reduce_fn(member_outputs, mask)`` gives the BMA heads. A Python int
+    in ``batch`` (a decode position) crosses into a captured step as a
+    0-d device tensor, so one program serves every position."""
+    def make(ctx):
+        def fused(stacked_params, state, batch, mask):
+            outs, state = forward(stacked_params, state, batch)
+            return reduce_fn(outs, mask), state
+
+        return fused
+
+    return ProgramSpec(
+        name="bma_step", key=("bma_step",) + tuple(key), make=make,
+        in_kinds=("state", "rows", "replicated", "replicated"),
+        out_kinds=("replicated", "in:1"))

@@ -189,9 +189,11 @@ class DecodeScheduler:
 
     def warmup(self, prompt_buckets=()):
         """Run the decode step once with every row masked inactive, and one
-        prefill per requested pow2 prompt bucket with zero tokens — no page
-        is written. This builds the kernels and the library handles before
-        the first request."""
+        prefill per requested pow2 prompt bucket with zero tokens (their
+        writes go to the scratch page): this captures each step's program
+        (kernel builds and library handles included) before the first
+        request, so admission, retirement and preemption within the warmed
+        buckets capture nothing more."""
         with self.step_lock:
             self._packed[:, 0] = 0
             self._packed[:, 1] = -1

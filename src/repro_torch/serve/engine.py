@@ -2,10 +2,15 @@
 ``repro.serve.engine``: ``PredictiveEngine`` with ``predict`` and, when
 ``stateful``, ``init_state`` / ``step``; ``PagedDecodeEngine``).
 
-The reference compiles each serving step once through its ProgramCache;
-the port runs each step eagerly over the stacked particle axis — every
-particle in one batched pass per layer, the BMA heads (and, for decode,
-greedy sampling) reduced on the device.
+Each serving step runs every particle in one batched pass per layer and
+reduces the BMA heads (and, for decode, greedy sampling) on the device.
+The stateful ``step``, the paged decode step and the prefill dispatch
+through a ``ProgramCache`` (``runtime.cache``), as the reference's do:
+captured once as a CUDA graph on the card and replayed, run eagerly on
+the CPU. ``cache=`` takes a cache to share (default: one of the
+engine's own, which ``close`` empties, so that the captured graphs and
+their memory go with the engine); ``ProgramCache(capturer=runtime.eager)``
+runs the card eagerly. Every step returns fresh tensors.
 """
 from __future__ import annotations
 
@@ -16,8 +21,21 @@ import torch
 from ..core.store import ParticleStore
 from ..core.tree import tree_leaves, to_device
 from ..runtime.bucketing import bucket_size, pad_rows
-from ..runtime.specs import paged_decode_step, paged_prefill
+from ..runtime.cache import ProgramCache
+from ..runtime.program import ProgramSpec, arg_key, ident
+from ..runtime.specs import bma_step, paged_decode_step, paged_prefill
 from . import uncertainty
+
+
+def sample_heads(member_logits, mask):
+    """BMA heads + greedy token from member logits (P, B, V), or
+    (P, B, W, V) per window position (the paged engines' reduce)."""
+    heads = uncertainty.predictive_heads(member_logits, "classify", mask)
+    mean = heads["mean"]                        # (B, [W,] V) BMA probs
+    token = mean.argmax(-1)
+    logprob = torch.log(mean.gather(-1, token[..., None])[..., 0] + 1e-12)
+    return {"token": token.to(torch.int32), "logprob": logprob,
+            "entropy": heads["entropy"], "mutual_info": heads["mutual_info"]}
 
 
 class PredictiveEngine:
@@ -39,7 +57,8 @@ class PredictiveEngine:
     def __init__(self, forward: Optional[Callable] = None, *,
                  store: Optional[ParticleStore] = None, key: str = "params",
                  params: Any = None, kind: str = "classify",
-                 stateful: bool = False):
+                 stateful: bool = False,
+                 cache: Optional[ProgramCache] = None):
         if (store is None) == (params is None):
             raise ValueError("pass exactly one of store= or params=")
         if kind not in uncertainty.KINDS:
@@ -55,7 +74,17 @@ class PredictiveEngine:
             device=tree_leaves(params)[0].device)
         self._params_version: Any = None
         self._params_cache: Any = None
-        self.stats = {"calls": 0, "param_refreshes": 0}
+        # explicit None test: an empty ProgramCache is falsy (__len__)
+        self._own_cache = cache is None
+        self.cache = ProgramCache() if cache is None else cache
+        # the params' cache-key entry (shapes and addresses), refreshed
+        # only when the store's version of them changes: a step never
+        # walks the params tree
+        self._params_key = (None if params is None
+                            else arg_key("state", params))
+        self._step_spec: Optional[ProgramSpec] = None
+        self.stats = {"calls": 0, "compiles": 0, "bucket_hits": 0,
+                      "param_refreshes": 0}
 
     def _mask_and_params(self):
         """Consistent (mask, stacked params) pair: one atomic store
@@ -63,10 +92,22 @@ class PredictiveEngine:
         if self.store is None:
             return self._static_mask, self._static_params
         v, mask, stacked = self.store.snapshot(self.key)
-        if v != self._params_version:
+        if v != self._params_version or stacked is not self._params_cache:
             self._params_cache, self._params_version = stacked, v
+            self._params_key = arg_key("state", stacked)
             self.stats["param_refreshes"] += 1
         return mask, self._params_cache
+
+    def _state_token(self):
+        """Store generation for the cache key (particle-set changes miss;
+        content commits within it keep their programs)."""
+        return self.store.generation() if self.store is not None else None
+
+    def _program(self, spec: ProgramSpec, args, arg_keys):
+        prog, hit = self.cache.lookup(spec, args, self._state_token(),
+                                      arg_keys)
+        self.stats["bucket_hits" if hit else "compiles"] += 1
+        return prog
 
     def predict(self, batch):
         """BMA forward over a request batch (leading axis B, numpy or
@@ -97,19 +138,36 @@ class PredictiveEngine:
 
     def step(self, state, batch):
         """One stateful serving step (LM decode): ``forward`` over every
-        particle at once, then the BMA heads over the live slots. The batch
-        goes to ``forward`` as given. Returns (heads, new state)."""
+        particle at once, then the BMA heads over the live slots, as one
+        cached program (``runtime.specs.bma_step``; the state is updated
+        in place). The batch reaches ``forward`` as given on the CPU; in a
+        captured step its tensors and Python ints arrive as the program's
+        static copies. Returns (heads, state)."""
         if not self.stateful:
             raise RuntimeError("stateless engine: use predict(batch)")
         self.stats["calls"] += 1
         mask, stacked = self._mask_and_params()
-        with torch.no_grad():
-            outs, state = self.forward(stacked, state, batch)
-            heads = uncertainty.predictive_heads(outs, self.kind, mask)
-        return heads, state
+        if self._step_spec is None:
+            kind = self.kind
+            self._step_spec = bma_step(
+                self.forward,
+                lambda outs, m: uncertainty.predictive_heads(outs, kind, m),
+                key=(ident(self.forward), kind))
+        args = (stacked, state, batch, mask)
+        prog = self._program(self._step_spec, args,
+                             (self._params_key, None, None, None))
+        return prog(*args)
 
-    def snapshot_stats(self) -> Dict[str, int]:
-        return dict(self.stats)
+    def snapshot_stats(self) -> Dict[str, Any]:
+        return dict(self.stats, program_cache=self.cache.snapshot_stats())
+
+    def close(self):
+        """Let go of the store's trees, and drop the engine's programs
+        when the cache is its own (a cache passed in belongs to the
+        caller, and drops them once their trees are freed)."""
+        self._params_cache = self._params_version = None
+        if self._own_cache:
+            self.cache.clear()
 
 
 class PagedDecodeEngine(PredictiveEngine):
@@ -123,33 +181,33 @@ class PagedDecodeEngine(PredictiveEngine):
                             pages + the first sampled token.
 
     The pages tree lives in the store under ``pages_key`` and crosses each
-    call by checkout/commit. Packed inputs follow ``runtime.specs``:
-    decode ships ``(B, 2 + n_pmax)`` int32, prefill ``(Sp + n_pmax + 1,)``
-    int32 — one host-to-device copy per call.
+    call by checkout/commit; it is updated in place, so checkout hands back
+    the same tensors and its cache-key entry is computed once per store
+    generation. Packed inputs follow ``runtime.specs``: decode ships
+    ``(B, 2 + n_pmax)`` int32, prefill ``(Sp + n_pmax + 1,)`` int32, each
+    copied into its program's static input (one host-to-device copy per
+    call). One decode program, one prefill program per pow2 bucket.
     """
 
     def __init__(self, decode_fn: Callable, prefill_fn: Callable, *,
                  store: ParticleStore, n_pmax: int, key: str = "params",
-                 pages_key: str = "kv_pages"):
-        super().__init__(store=store, key=key)
+                 pages_key: str = "kv_pages",
+                 cache: Optional[ProgramCache] = None):
+        super().__init__(store=store, key=key, cache=cache)
         self.decode_fn = decode_fn
         self.prefill_fn = prefill_fn
         self.pages_key = pages_key
         self.n_pmax = n_pmax
-        self._decode = paged_decode_step(decode_fn, self._reduce)
-        self._prefill = paged_prefill(prefill_fn, self._reduce,
-                                      n_pmax=n_pmax)
+        self._pages_memo: Any = None        # (generation, tree, key)
+        self._decode = paged_decode_step(decode_fn, sample_heads,
+                                         key=(ident(decode_fn), self.kind))
+        self._prefill = paged_prefill(prefill_fn, sample_heads,
+                                      n_pmax=n_pmax,
+                                      key=(ident(prefill_fn), self.kind))
 
-    def _reduce(self, member_logits, mask):
-        """BMA heads + greedy token from member logits (P, B, V), or
-        (P, B, W, V) per window position."""
-        heads = uncertainty.predictive_heads(member_logits, self.kind, mask)
-        mean = heads["mean"]                        # (B, [W,] V) BMA probs
-        token = mean.argmax(-1)
-        logprob = torch.log(mean.gather(-1, token[..., None])[..., 0] + 1e-12)
-        return {"token": token.to(torch.int32), "logprob": logprob,
-                "entropy": heads["entropy"],
-                "mutual_info": heads["mutual_info"]}
+    def close(self):
+        self._pages_memo = None
+        super().close()
 
     def kv_page_info(self) -> Dict[str, Any]:
         """Dtype histogram and resident bytes of the page pool."""
@@ -157,14 +215,25 @@ class PagedDecodeEngine(PredictiveEngine):
                 "dtypes": self.store.key_dtypes(self.pages_key),
                 "bytes": self.store.nbytes(self.pages_key)}
 
-    def _run_paged(self, fused, packed):
+    def _checkout_pages(self):
+        """Check the pool out, with its cache-key entry (recomputed only
+        when the generation or the tree itself changes)."""
+        pages = self.store.checkout(self.pages_key)
+        gen = self.store.generation()
+        memo = self._pages_memo
+        if memo is None or memo[0] != gen or memo[1] is not pages:
+            self._pages_memo = memo = (gen, pages, arg_key("state", pages))
+        return pages, memo[2]
+
+    def _run_paged(self, spec: ProgramSpec, packed):
         self.stats["calls"] += 1
         mask, params = self._mask_and_params()
-        pages = self.store.checkout(self.pages_key)
+        pages, pages_key = self._checkout_pages()
         try:
-            heads, pages = fused(params, pages,
-                                 torch.from_numpy(packed).to(self.store.device),
-                                 mask)
+            args = (params, pages, packed, mask)
+            prog = self._program(spec, args,
+                                 (self._params_key, pages_key, None, None))
+            heads, pages = prog(*args)
         finally:
             # the pool is updated in place: the tree handed back is the one
             # checked out, so the key stays present even after a failure

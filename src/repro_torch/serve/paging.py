@@ -14,6 +14,14 @@ step's block-table upload, never the device tree.
 Block-table conventions (shared with kernels/paged_decode_attention.py):
 rows are ``(max_seq_pages,)`` int32, logical page i of a sequence at
 entry i, unused entries 0 (in bounds, masked by seq_len).
+
+The scratch page: ``models.api.paged_cache_init`` makes the device pool
+one page larger than the ``num_pages`` a PagePool of the same size hands
+out, and ``models.api.scratch_page`` names that page. It takes the KV
+writes the reference drops (inactive rows, window positions past a row's
+window, prompt padding), so every step writes at fixed shapes with no
+host sync (``models.blocks.paged_write_index``). No block table names
+it, so no kernel reads it.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ import numpy as np
 from ..core.messages import PFuture
 from ..models import api as models_api
 from ..obs import clock
+from ..runtime.cache import ProgramCache
 from .batcher import DecodeScheduler, Generation
 from .engine import PagedDecodeEngine, PredictiveEngine
 from .paging import PagePool, create_kv_pages
@@ -135,9 +136,13 @@ class DecodeService:
         lat = self.scheduler.latencies_s()
         sstats = self.scheduler.snapshot_stats()
         elapsed = max(clock.now() - self._t_start, 1e-9)
+        estats = self.engine.snapshot_stats()
+        cache = estats["program_cache"]
         return {
             **sstats,
-            "engine": self.engine.snapshot_stats(),
+            "engine": estats,
+            "hits": cache["hits"], "misses": cache["misses"],
+            "cold_compiles": cache["cold_compiles"],
             "latency_p50_ms": percentile(lat, 50) * 1e3,
             "latency_p95_ms": percentile(lat, 95) * 1e3,
             "latency_p99_ms": percentile(lat, 99) * 1e3,
@@ -146,6 +151,7 @@ class DecodeService:
 
     def close(self):
         self.scheduler.close()
+        self.engine.close()
 
     def __enter__(self):
         return self
@@ -159,14 +165,17 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
                  eos_id: Optional[int] = None, max_queue: int = 256,
                  cache_dtype=None,
                  pages_key: str = "kv_pages", warmup: bool = True,
-                 warmup_buckets=(), speculative: Any = None) -> DecodeService:
+                 warmup_buckets=(), speculative: Any = None,
+                 cache: Optional[ProgramCache] = None) -> DecodeService:
     """Turn a PushDistribution holding an LM ensemble into a
     continuous-batching posterior-predictive decode service.
 
-    Installs the paged KV pool as a store key on the PD's device, builds
-    the host PagePool, and wires the PagedDecodeEngine behind a
-    DecodeScheduler. ``max_seq_pages`` bounds one sequence's block table
-    (defaults to the config's max_seq_len, clamped to the pool).
+    Installs the paged KV pool as a store key on the PD's device (with its
+    scratch page past the ``num_pages`` the PagePool hands out:
+    ``models.api.paged_cache_init``), builds the host PagePool, and wires the
+    PagedDecodeEngine behind a DecodeScheduler. ``max_seq_pages`` bounds
+    one sequence's block table (defaults to the config's max_seq_len,
+    clamped to the pool).
     ``cache_dtype`` (e.g. ``torch.bfloat16``) sets the page storage dtype;
     None takes the PD precision's ``kv_dtype``, then the model's default.
     Decode attention runs the CUDA kernel on the card and its plain version
@@ -174,6 +183,14 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     decode step (plus one prefill per pow2 bucket in ``warmup_buckets``)
     before the first request. Prefill attention runs the prefill kernel on
     the card.
+
+    Every step dispatches through ``cache`` (default: the engine's own,
+    emptied by ``close``): captured once as a CUDA graph on the card
+    and replayed, run eagerly on the CPU. Warmup captures the decode step
+    (or every draft iteration count and the verify) and each warmed
+    prefill bucket; ``stats()`` shows the cache's ``hits``, ``misses`` and
+    ``cold_compiles`` (captures). ``cache=ProgramCache(capturer=
+    runtime.eager)`` serves the card eagerly, for comparison.
 
     ``speculative=`` turns on speculative BMA decoding (DESIGN.md §14):
     ``True`` for the defaults, an int for that many drafted tokens per
@@ -210,13 +227,15 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
 
         engine = SpecDecodeEngine(decode_fn, prefill_fn, verify_fn,
                                   spec_cfg=spec_cfg, store=pd.store,
-                                  n_pmax=n_pmax, pages_key=pages_key)
+                                  n_pmax=n_pmax, pages_key=pages_key,
+                                  cache=cache)
         scheduler = SpeculativeDecodeScheduler(
             engine, pool, max_active=max_active, eos_id=eos_id,
             max_queue=max_queue)
     else:
         engine = PagedDecodeEngine(decode_fn, prefill_fn, store=pd.store,
-                                   n_pmax=n_pmax, pages_key=pages_key)
+                                   n_pmax=n_pmax, pages_key=pages_key,
+                                   cache=cache)
         scheduler = DecodeScheduler(engine, pool, max_active=max_active,
                                     eos_id=eos_id, max_queue=max_queue)
     if warmup:

@@ -36,9 +36,10 @@ import numpy as np
 import torch
 
 from ..runtime.bucketing import bucket_size
+from ..runtime.program import ProgramSpec, ident
 from ..runtime.specs import spec_draft_step, spec_verify
 from .batcher import DecodeScheduler, _Seq, _to_host
-from .engine import PagedDecodeEngine
+from .engine import PagedDecodeEngine, sample_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,10 +88,12 @@ def resolve_spec_config(speculative) -> Optional[SpecConfig]:
 
 
 class SpecDecodeEngine(PagedDecodeEngine):
-    """PagedDecodeEngine plus the two speculative calls.
+    """PagedDecodeEngine plus the two speculative calls, each through
+    the engine's ProgramCache.
 
       draft_step(packed, slot)   up to K greedy tokens per row from ONE
-                                 particle, the argmax fed back;
+                                 particle, the argmax fed back: one
+                                 program per (slot, iteration count);
       verify_step(packed)        the W = K+1 token window scored by every
                                  particle in one pass, per-position BMA
                                  heads and argmax reduced on the device.
@@ -105,8 +108,9 @@ class SpecDecodeEngine(PagedDecodeEngine):
         self.w_max = spec_cfg.k_max + 1
         self._draft_slot_memo: Any = None   # (mask object, slot)
         self.stats["draft_iterations"] = 0
-        self._draft = spec_draft_step(decode_fn)
-        self._verify = spec_verify(verify_fn, self._reduce, w_max=self.w_max)
+        self._draft_specs: Dict[Any, ProgramSpec] = {}
+        self._verify = spec_verify(verify_fn, sample_heads, w_max=self.w_max,
+                                   key=(ident(verify_fn), self.kind))
 
     def active_mask(self):
         return self.store.active_mask()
@@ -125,20 +129,30 @@ class SpecDecodeEngine(PagedDecodeEngine):
         self._draft_slot_memo = (mask, slot)
         return slot
 
+    def _draft_spec(self, slot: int, n_iter: int) -> ProgramSpec:
+        spec = self._draft_specs.get((slot, n_iter))
+        if spec is None:
+            spec = spec_draft_step(self.decode_fn, slot=slot, n_iter=n_iter,
+                                   key=(ident(self.decode_fn),))
+            self._draft_specs[(slot, n_iter)] = spec
+        return spec
+
     def draft_step(self, packed: np.ndarray, slot: int):
         """packed: (B, 3 + n_pmax) int32 host array — [last token, its
         position (-1 inactive), k, block tables]. Runs max_i k_i draft
         iterations over particle ``slot``. Returns the (B, max_i k_i)
-        drafted tokens on the device (entries past a row's k are garbage)."""
+        drafted tokens on the device (entries past a row's k are
+        garbage)."""
         self.stats["calls"] += 1
         _, params = self._mask_and_params()
         n_iter = int(packed[:, 2].max()) if len(packed) else 0
         self.stats["draft_iterations"] += n_iter
-        pages = self.store.checkout(self.pages_key)
+        pages, pages_key = self._checkout_pages()
         try:
-            drafts, pages = self._draft(
-                params, pages, torch.from_numpy(packed).to(self.store.device),
-                slot, n_iter)
+            args = (params, pages, packed)
+            prog = self._program(self._draft_spec(slot, n_iter), args,
+                                 (self._params_key, pages_key, None))
+            drafts, pages = prog(*args)
         finally:
             self.store.commit(self.pages_key, pages)
         return drafts
@@ -217,18 +231,20 @@ class SpeculativeDecodeScheduler(DecodeScheduler):
 
     # -- step loop -----------------------------------------------------------
     def warmup(self, prompt_buckets=()):
-        """One draft iteration and one verify pass with every row masked
-        inactive (no page is written), and one prefill per requested pow2
-        prompt bucket with zero tokens: this builds the kernels and the
-        library handles before the first request. The single-token decode
-        step is the draft's, so it is warmed with it."""
+        """Capture the draft at every iteration count 1..k_max and the
+        verify, with every row masked inactive (no real page is written),
+        and one prefill per requested pow2 prompt bucket with zero tokens.
+        After this, admission, retirement and preemption within the warmed
+        buckets capture nothing more. The single-token decode step is the
+        draft's, so it is warmed with it."""
         with self.step_lock:
             d = self._draft_packed
-            d[:] = 0
-            d[:, 1] = -1
-            d[:, 2] = 1       # one iteration, every row inactive
-            self.engine.draft_step(d, self.engine.pick_draft_slot(
-                self.engine.active_mask())).cpu()
+            slot = self.engine.pick_draft_slot(self.engine.active_mask())
+            for n_iter in range(1, self.k_max + 1):
+                d[:] = 0
+                d[:, 1] = -1
+                d[:, 2] = n_iter      # every row inactive
+                self.engine.draft_step(d, slot).cpu()
             v = self._verify_packed
             v[:] = 0
             v[:, self.w_max] = -1

@@ -46,6 +46,15 @@ block, one split and many), the paged kernel also through the draft's
 one-particle view of a stacked pool. Speculative serving and
 the stateful dense-cache engine on the card emit the CPU's tokens, with
 one launch per layer per verify, prefill or step.
+
+Step capture: each serving step (paged decode, prefill, the draft, the
+verify window, the dense-cache step) captured as a CUDA graph and replayed
+on new inputs gives the eager step's bits, outputs and pools alike, with
+the same launches; after warmup, admission, retirement and preemption
+capture nothing and the captured service's tokens and heads equal the
+eager service's exactly; a params commit captures anew (no stale replay);
+and the launch counters moved by replays equal the kernel launches the
+profiler sees in the same window.
 """
 import numpy as np
 import pytest
@@ -917,3 +926,272 @@ def test_stateful_dense_decode_kernels_match_plain(dev):
                             else 0)
         outs.append(np.stack(seq, 1))
     assert np.array_equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
+# step capture: each serving step captured once as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _capture_cfg():
+    return configs.get("qwen1.5-0.5b").replace(
+        n_units=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=512, max_seq_len=128)
+
+
+def _host(tree):
+    return tree_map(lambda a: a.to("cpu", copy=True)
+                    if isinstance(a, torch.Tensor) else a, tree)
+
+
+def _same_bits(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _step_cases(cfg, pd, dev):
+    """(name, spec, a maker of its in-place tree, [args for each call]) of
+    each serving step: paged decode, prefill (bucket 16), the draft at 2
+    iterations, the verify window, the stateful dense-cache step."""
+    from repro_torch.runtime import specs
+    from repro_torch.serve import uncertainty
+    from repro_torch.serve.engine import sample_heads
+    params, mask = pd.store.stacked("params"), pd.store.active_mask()
+    n_pmax = 6
+
+    def decode_fn(p, pg, tokens, bt, sl):
+        return api.decode_step_paged(p, tokens, pg, bt, sl, cfg)
+
+    def prefill_fn(p, pg, tokens, bt_row, n):
+        return api.prefill_paged(p, tokens, pg, bt_row, n, cfg)
+
+    def verify_fn(p, pg, tokens, bt, sl, wl):
+        return api.decode_window_paged(p, tokens, pg, bt, sl, wl, cfg)
+
+    def pool():
+        shapes = api.paged_cache_init(cfg, num_pages=17, page_size=8,
+                                      device="meta")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return tree_map(lambda s: torch.randn((2,) + tuple(s.shape),
+                                              generator=gen, device=dev),
+                        shapes)
+
+    bt = np.zeros((3, n_pmax), np.int32)
+    bt[0, :3], bt[2, :2] = [2, 3, 4], [9, 10]
+
+    def rows(head):
+        return np.concatenate([np.asarray(head, np.int32), bt], 1)
+
+    def prefill(n):
+        buf = np.zeros(16 + n_pmax + 1, np.int32)
+        buf[:n] = np.arange(3, 3 + n)
+        buf[16:16 + n_pmax] = [11, 12, 0, 0, 0, 0]
+        buf[-1] = n
+        return buf
+
+    yield ("decode", specs.paged_decode_step(decode_fn, sample_heads), pool,
+           [(rows([[5, 13], [0, -1], [7, 9]]), mask),
+            (rows([[8, 14], [3, 2], [1, 10]]), mask),
+            (rows([[9, 15], [0, -1], [0, -1]]), mask)])
+    yield ("prefill", specs.paged_prefill(prefill_fn, sample_heads,
+                                          n_pmax=n_pmax), pool,
+           [(prefill(n), mask) for n in (11, 16, 1)])
+    yield ("draft", specs.spec_draft_step(decode_fn, slot=1, n_iter=2), pool,
+           [(rows([[5, 13, 2], [0, -1, 0], [7, 9, 1]]),),
+            (rows([[6, 15, 1], [4, 3, 2], [7, 10, 2]]),)])
+    yield ("verify", specs.spec_verify(verify_fn, sample_heads, w_max=3),
+           pool,
+           [(rows([[5, 6, 7, 13, 3], [0, 0, 0, -1, 0], [7, 1, 0, 9, 2]]),
+             mask),
+            (rows([[1, 2, 3, 14, 2], [0, 0, 0, -1, 0], [3, 4, 5, 10, 3]]),
+             mask)])
+    toks = torch.as_tensor(np.arange(24).reshape(3, 8) % 500 + 1,
+                           device=dev, dtype=torch.int32)
+
+    def caches():
+        return api.prefill(params, {"tokens": toks}, cfg, max_len=12)[1]
+
+    def forward(p, c, batch):
+        return api.decode_step(p, batch["token"], c, batch["cur_pos"], cfg)
+
+    yield ("dense", specs.bma_step(
+        forward, lambda o, m: uncertainty.predictive_heads(o, "classify", m)),
+        caches, [({"token": toks[:, j], "cur_pos": 8 + j}, mask)
+                 for j in range(3)])
+
+
+def test_captured_steps_replay_the_eager_bits(dev):
+    """Each serving step captured as a CUDA graph (first call: capture,
+    then replays on new inputs) gives the same bits as the eager step on
+    the same inputs, outputs and in-place trees alike, and launches each
+    kernel once per call. Each call's outputs are its own: they are read
+    only after the later calls have replayed."""
+    from repro_torch.kernels.ops import COUNTED
+    from repro_torch.runtime import ProgramCache, eager, lower
+    cfg = _capture_cfg()
+    pd, _ = _lm_pds(dev, cfg)
+    params = pd.store.stacked("params")
+    for name, spec, make, calls in _step_cases(cfg, pd, dev):
+        got = {}
+        for mode, capturer in (("graph", lower), ("eager", eager)):
+            cache = ProgramCache(capturer=capturer)
+            tree = make()
+            before = [k.launches for k in COUNTED]
+            outs = []
+            for rest in calls:
+                out = cache.run(spec, params, tree, *rest)
+                outs.append(out[0])
+            torch.cuda.synchronize()
+            got[mode] = ([_host(o) for o in outs], _host(tree),
+                         [k.launches - b for k, b in zip(COUNTED, before)])
+            assert cache.snapshot_stats()["cold_compiles"] == 1
+            assert (cache.program_info()[0]["graph"]) == (mode == "graph")
+        assert _same_bits(got["graph"][0], got["eager"][0]), name
+        assert _same_bits(got["graph"][1], got["eager"][1]), name
+        assert got["graph"][2] == got["eager"][2], name
+        assert sum(got["eager"][2]) > 0, name
+
+
+def test_captured_dense_step_raises_outside_the_cache(dev):
+    """A captured dense-cache step checks cur_pos on the host: at the
+    cache length it raises ValueError, on the capturing call and on a
+    replay, before anything runs on the card; the engine then goes on
+    stepping, and its heads are the eager engine's bit for bit."""
+    from repro_torch.runtime import ProgramCache, eager
+    cfg = _capture_cfg()
+    pd, _ = _lm_pds(dev, cfg)
+    toks = torch.as_tensor(np.arange(24).reshape(3, 8) % 500 + 1,
+                           device=dev, dtype=torch.int32)
+    C = 12
+
+    def forward(p, c, batch):
+        return api.decode_step(p, batch["token"], c, batch["cur_pos"], cfg)
+
+    def run(cache):
+        engine = PredictiveEngine(forward, store=pd.store, stateful=True,
+                                  cache=cache)
+        state = engine.init_state(lambda p: api.prefill(
+            p, {"tokens": toks}, cfg, max_len=C)[1])
+        with pytest.raises(ValueError, match="outside"):
+            engine.step(state, {"token": toks[:, 0], "cur_pos": C})
+        heads = []
+        for j in range(3):
+            heads.append(engine.step(state, {"token": toks[:, j],
+                                             "cur_pos": 8 + j})[0])
+            with pytest.raises(ValueError, match="outside"):
+                engine.step(state, {"token": toks[:, j], "cur_pos": C})
+        torch.cuda.synchronize()
+        return [_host(h) for h in heads], _host(state), cache
+
+    graph, graph_state, cache = run(ProgramCache())
+    assert cache.program_info()[0]["graph"]
+    assert cache.snapshot_stats()["cold_compiles"] == 1
+    plain, plain_state, _ = run(ProgramCache(capturer=eager))
+    assert _same_bits(graph, plain) and _same_bits(graph_state, plain_state)
+
+
+def _serve(pd, cfg, cache, prompts, **kw):
+    svc = serve_decode(pd, cfg, num_pages=12, page_size=4, max_active=3,
+                       warmup_buckets=(8, 16, 32), cache=cache, **kw)
+    try:
+        cold = svc.stats()["cold_compiles"]
+        gens = [h.result(300) for h in
+                [svc.generate_async(p, max_new=8) for p in prompts]]
+        st = svc.stats()
+    finally:
+        svc.close()
+    return gens, st, cold
+
+
+@pytest.mark.parametrize("speculative", [None, 2])
+def test_no_capture_after_warmup_on_the_card(dev, speculative):
+    """Admission, retirement and preemption after warmup capture nothing,
+    and the captured service emits the eager service's tokens bit for bit
+    (logprobs, entropy and mutual information exactly)."""
+    from repro_torch.runtime import ProgramCache, eager
+    cfg = _capture_cfg()
+    rng = np.random.default_rng(3)
+    prompts = [list(rng.integers(1, 500, n)) for n in (9, 13, 11, 12, 7)]
+    pd, _ = _lm_pds(dev, cfg)
+    cache = ProgramCache()
+    graph, st, cold = _serve(pd, cfg, cache, prompts,
+                             speculative=speculative)
+    assert st["preempted"] >= 1 and st["retired"] == len(prompts)
+    assert st["cold_compiles"] == cold > 0
+    assert all(p["graph"] for p in cache.program_info())
+    plain, _, _ = _serve(pd, cfg, ProgramCache(capturer=eager), prompts,
+                         speculative=speculative)
+    for a, b in zip(graph, plain):
+        assert a.tokens == b.tokens
+        assert a.logprobs == b.logprobs and a.entropy == b.entropy
+        assert a.mutual_info == b.mutual_info
+
+
+def test_params_commit_recaptures_on_the_card(dev):
+    """A training commit replaces the stacked params: the next step misses
+    and captures again, and its tokens are the new params' (an eager run
+    over the same new params), not a stale replay of the old tensors."""
+    from repro_torch.runtime import ProgramCache, eager
+    cfg = _capture_cfg()
+    pd, _ = _lm_pds(dev, cfg)
+    prompts = [[5, 6, 7, 8], [9, 10, 11]]
+    cache = ProgramCache()
+    first, _, _ = _serve(pd, cfg, cache, prompts)
+    cold = cache.snapshot_stats()["cold_compiles"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pd.store.commit("params", tree_map(
+        lambda a: a + 0.05 * torch.randn(a.shape, generator=gen, device=dev),
+        pd.store.stacked("params")))
+    torch.cuda.empty_cache()
+    after, st, _ = _serve(pd, cfg, cache, prompts)
+    assert cache.snapshot_stats()["cold_compiles"] > cold
+    want, _, _ = _serve(pd, cfg, ProgramCache(capturer=eager), prompts)
+    for a, b, c in zip(after, want, first):
+        assert a.tokens == b.tokens and a.logprobs == b.logprobs
+        assert a.logprobs != c.logprobs
+
+
+def test_launch_counters_match_the_profiler_through_replays(dev):
+    """Replays add their recorded launches to the kernels' counters: over
+    a profiled window of replayed decode steps and prefills, each counter
+    moves by the number of its kernel's launches the profiler sees."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import ProgramCache
+    cfg = _capture_cfg()
+    pd, _ = _lm_pds(dev, cfg)
+    svc = serve_decode(pd, cfg, num_pages=32, page_size=8, max_active=3,
+                       warmup_buckets=(16,), cache=ProgramCache())
+    try:
+        eng, sched = svc.engine, svc.scheduler
+        packed = sched._packed
+        packed[:] = 0
+        packed[:, 1] = -1
+        packed[0, :3] = [5, 3, 1]
+        buf = sched._prefill_buf(16)
+        buf[:] = 0
+        buf[:5], buf[16], buf[-1] = [1, 2, 3, 4, 5], 1, 5
+        eng.decode_step(packed)
+        eng.prefill(buf)
+        torch.cuda.synchronize()
+        counts = (kernel.paged_decode_attention.launches,
+                  flash_kernel.flash_attention.launches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng.decode_step(packed)
+                eng.prefill(buf)
+            torch.cuda.synchronize()
+        moved = (kernel.paged_decode_attention.launches - counts[0],
+                 flash_kernel.flash_attention.launches - counts[1])
+        assert svc.stats()["cold_compiles"] == 2
+    finally:
+        svc.close()
+    seen = {"split_kernel<": 0, "flash_kernel<": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in seen:
+            if name in e.key:
+                seen[name] += e.count
+    assert moved == (3 * cfg.n_layers, 3 * cfg.n_layers)
+    assert (seen["split_kernel<"], seen["flash_kernel<"]) == moved

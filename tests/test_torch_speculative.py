@@ -36,6 +36,7 @@ from repro_torch.core import ParticleModule, PushDistribution
 from repro_torch.core.tree import tree_map
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import api as tapi
+from repro_torch.runtime import ProgramCache
 from repro_torch.runtime.specs import spec_draft_step
 from repro_torch.serve import PagePool, SpecConfig, serve_decode
 from repro_torch.serve.speculative import resolve_spec_config
@@ -173,7 +174,8 @@ def test_draft_writes_through_the_particle_view():
 
     packed = torch.cat([torch.tensor([[prompt[-1], L - 1, 3]],
                                      dtype=torch.int32), bt], 1)
-    drafts, pages = spec_draft_step(decode_fn)(tparams, pages, packed, 1, 3)
+    spec = spec_draft_step(decode_fn, slot=1, n_iter=3)
+    drafts, pages = ProgramCache().run(spec, tparams, pages, packed)
     assert drafts.shape == (1, 3)
     k_new, k_old = pages["units"][0]["k"], before["units"][0]["k"]
     page, slots = int(bt[0, 1]), [(L - 1 + j) % 8 for j in range(3)]

@@ -69,24 +69,33 @@ Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
          weights from seed 0, batches of 64 from the seeded loader, 8 per
          epoch): SteinVGD for 2 epochs with the median heuristic, then
          MultiSWAG with Adam for 3 epochs collecting after the first
-         (max_rank 20), then serves the MultiSWAG posterior predictive
-         with 4 draws per particle on 64 images from seed 1. Losses and
-         heads must be finite and the launch counts exact (one sqdist and
-         one force per SVGD step, one moments launch per leaf per
-         collection, one diag_std launch per leaf per predictive call).
-         One SVGD force on the same stacked theta, g and mask through the
-         kernels and the plain path must agree within 2e-4 relative, with
-         the trained g and with g = 0; one more SWAG collection of the
-         trained state at the path's per-leaf shapes (its 20-slot ring,
-         its slots and mask) through the kernel and the plain version,
-         each on its own clone of the ring, within 1e-5 for mean', sq'
-         and the ring; and the predictive heads with kernel-made and
-         plain-made diag_std within 1e-5 given the same noise. It prints
-         ms per step and images/s from a profiled window of 3 steps of
-         each, with device busy time, idle share, top kernels and the
-         four kernels' share, and the peak device memory. The MultiSWAG
-         windows run after the predictive, so it serves the state of the
-         driven run (24 steps, 2 collections).
+         (max_rank 20). Each runs twice from the same init: with every
+         train step and collection captured once as a CUDA graph and
+         replayed (a fresh runtime.ProgramCache on the PD's runtime), then
+         through an explicitly passed eager cache (ProgramCache(capturer=
+         runtime.eager)), the captured PD released before the eager one is
+         built. In each run: one program per spec (the SVGD step; the
+         MultiSWAG step and collection), looked up once, each a graph in
+         the captured run (no capture after the first step); finite losses
+         and exact launch counts (one sqdist and one force per SVGD step,
+         one moments launch per leaf per collection), counted through the
+         replays. The captured run's losses and launch counts must equal
+         the eager run's, and so must p_predict over 64 images (seed 1),
+         bit for bit. After the captured runs: one SVGD force on the
+         trained theta, g and mask through the kernels and the plain path
+         within 2e-4 relative, with the trained g and with g = 0; one more
+         SWAG collection of the trained state at the path's per-leaf
+         shapes (its 20-slot ring, slots and mask) through the kernel and
+         the plain version, each on its own clone of the ring, within 1e-5
+         for mean', sq' and the ring; the MultiSWAG posterior predictive
+         with 4 draws per particle (one diag_std launch per leaf); and the
+         predictive heads with kernel-made and plain-made diag_std within
+         1e-5 given the same noise. Each run then profiles 3 steps of its
+         own step program (and, for MultiSWAG, of its collection) on its
+         trained state: host ms and images/s, device busy time, idle
+         share, top kernels and the four kernels' share, with each
+         program's capture seconds and graph pool bytes, and the phase's
+         peak device memory.
 
 Phase 5  holds the three attention kernels of the LM's other serving paths
          against their plain versions on the card: the speculative verify
@@ -141,14 +150,15 @@ first, then the serving runs over one set of particles, then training.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
-window kernel, phase 7's for the dense-decode kernel, phase 4's SVGD,
-MultiSWAG and predictive runs), with the counts set to 0 just before it
-and read just after; each serving count must equal the eager run's.
-Phases 2, 6 and 7 print, for each run: host ms and device busy ms per
-step with the idle share (the profiled windows), tokens/s, latency p50 /
-p95, the cache's hits, misses and cold_compiles (captures), and each
-program's capture time and the bytes its graph's pool reserved. A failed
-capture raises and fails its phase.
+window kernel, phase 7's for the dense-decode kernel, phase 4's captured
+SVGD and MultiSWAG runs and its predictive), with the counts set to 0
+just before it and read just after; each count of a captured run must
+equal the eager run's.
+Phases 2, 4, 6 and 7 print, for each run: host ms and device busy ms
+per step with the idle share (the profiled windows), tokens/s (phase 4:
+images/s), latency p50 / p95 (serving), the cache's hits, misses and
+cold_compiles (captures), and each program's capture time and the bytes
+its graph's pool reserved. A failed capture raises and fails its phase.
 
 Output: one JSON object per line (phase results, then the kernels line), the
 card's name and power limit as nvidia-smi prints them, and last
@@ -1400,6 +1410,7 @@ def phase7(torch, pd, cfg):
 # --------------------------------------------------------------------------
 
 TRAIN_P = 8                      # configs/vit_mnist.py default_particles
+TRAIN_B, TRAIN_NB = 64, 8        # batch, batches per epoch (the paper: 40)
 TRAIN_D = 19_775_360             # parameters per ViT-MNIST particle
 SQDIST_SWEEP = [(2, 16), (4, 100), (8, 5000), (64, 12345), (3, 7)]
 FORCE_SWEEP = [(4, 100, 1.0), (8, 5000, 1.3), (16, 50000, 0.7), (3, 7, 2.0)]
@@ -1722,127 +1733,240 @@ def read_counts(fns):
     return {k: fn.launches for k, fn in fns.items()}
 
 
+def train_run(torch, cls, module, cache, epochs, **kw):
+    """One driven fused run of ``cls`` over TRAIN_P fresh particles (seed
+    SEED, the seeded loader) with ``cache`` on the PD's runtime, between a
+    reset and a read of the kernels' launch counts. Returns (algorithm,
+    last losses, launches, wall s, cache stats, program info, the GB left
+    allocated before it); the peak memory statistic starts anew here."""
+    from repro_torch.data import DataLoader
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    algo = cls(module, seed=SEED, backend="compiled")
+    algo.push_dist.runtime.cache = cache
+    loader = DataLoader(module.cfg, batch_size=TRAIN_B, num_batches=TRAIN_NB,
+                        seed=SEED)
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    _, losses = algo.bayes_infer(loader, epochs, num_particles=TRAIN_P, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts(fns)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{cls.__name__} losses {losses}")
+    return (algo, losses, got, wall, cache.snapshot_stats(),
+            cache.program_info(), resident)
+
+
+def one_program_each(mode, stats, info, names):
+    """After a fused run: one program per spec, looked up once (a miss)
+    and, in the captured run, each a CUDA graph."""
+    got = sorted(p["name"] for p in info)
+    if got != sorted(names) or stats["misses"] != len(names) \
+            or stats["cold_compiles"] != len(names):
+        raise AssertionError(f"{mode} run: programs {got}, stats {stats}; "
+                             f"want one each of {names}")
+    if mode == "captured" and not all(p["graph"] for p in info):
+        raise AssertionError(f"captured run left an eager program: {info}")
+
+
+def program_window(torch, rt, spec, args, track=OURS):
+    """``profile_steps`` of ``spec``'s program at ``args``, which must be
+    the cache's own (a hit: nothing is captured), with its capture time
+    and pool bytes beside the profile."""
+    cold = rt.cache.snapshot_stats()["cold_compiles"]
+    prog = rt.program(spec, *args)
+    if rt.cache.snapshot_stats()["cold_compiles"] != cold:
+        raise AssertionError(f"{spec.name}: captured again after the run")
+    prof = profile_steps(torch, lambda: prog(*args), n=3, track=track)
+    prof["capture_s"], prof["pool_bytes"] = prog.capture_s, prog.pool_bytes
+    return prof
+
+
+def same_runs(runs, what):
+    """The captured run's losses and launch counts equal the eager run's."""
+    a, b = runs["captured"], runs["eager"]
+    if a["last_losses"] != b["last_losses"]:
+        raise AssertionError(f"{what} losses: captured {a['last_losses']}, "
+                             f"eager {b['last_losses']}")
+    same_launches({m: r["launches"] for m, r in runs.items()}, what)
+
+
 def phase4(torch):
-    """SVGD and MultiSWAG training of full-width ViT-MNIST particles, then
-    the MultiSWAG posterior predictive; each driven run between a reset
-    and a read of the kernels' launch counts."""
+    """SVGD and MultiSWAG training of full-width ViT-MNIST particles, each
+    run captured and then eager, and the MultiSWAG posterior predictive;
+    each driven run between a reset and a read of the kernels' launch
+    counts."""
     from repro_torch import configs
     from repro_torch.bdl import MultiSWAG, SteinVGD
-    from repro_torch.bdl.svgd import fused_svgd_step, svgd_force
-    from repro_torch.bdl.swag import _sample, swag_collect, swag_sample_stacked
+    from repro_torch.bdl.svgd import svgd_force, svgd_step_spec
+    from repro_torch.bdl.swag import swag_collect
     from repro_torch.core import ParticleModule
     from repro_torch.core.functional import (ensemble_value_and_grad,
                                              flatten_stacked)
-    from repro_torch.core.tree import tree_leaves, tree_map, to_device
+    from repro_torch.core.tree import tree_leaves, to_device
     from repro_torch.data import DataLoader, mnist_like
-    from repro_torch.kernels import ref
     from repro_torch.models import api
     from repro_torch.optim import adam
     from repro_torch.runtime import specs
-    from repro_torch.serve import serve
     cfg = configs.get("vit-mnist")
     module = ParticleModule(init=lambda g: api.init_params(g, cfg),
                             loss=lambda p, b: api.loss_fn(p, b, cfg),
                             forward=lambda p, b: api.forward(p, b, cfg)[0],
                             cfg=cfg)
-    P, B, NB = TRAIN_P, 64, 8
+    P, B, NB = TRAIN_P, TRAIN_B, TRAIN_NB
     out, launches = {"phase": 4, "model": cfg.name, "particles": P,
                      "batch": B, "batches_per_epoch": NB}, {}
     # what the earlier phases left allocated (graph pools, workspaces)
     out["resident_gb_at_start"] = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-
-    # (a) SteinVGD, median heuristic (with ell = 1 and distances of ~1e5,
-    # K would be the identity and the force's off-diagonal work zero)
-    svgd = SteinVGD(module, seed=SEED, backend="compiled")
-    loader = DataLoader(cfg, batch_size=B, num_batches=NB, seed=SEED)
-    fns = reset_counts()
-    t0 = time.perf_counter()
-    _, losses = svgd.bayes_infer(loader, 2, num_particles=P, lengthscale=0.0,
-                                 lr=1e-3)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = read_counts(fns)
-    steps = 2 * NB
-    if got["pairwise_sqdist"] != steps or got["svgd_force"] != steps:
-        raise AssertionError(f"SVGD launches {got}, want {steps} each")
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"SVGD losses {losses}")
-    launches["svgd"] = got
-    # one step's force on the same stacked theta, g and mask: kernels vs
-    # plain (launches not counted: the driven run is over)
-    store = svgd.store
-    params, mask = store.stacked("params"), store.active_mask()
+    peak = 0.0                  # each run restarts the peak statistic
     batch = to_device(next(iter(DataLoader(cfg, batch_size=B, num_batches=1,
                                            seed=7))), "cuda")
-    _, grads = ensemble_value_and_grad(module.loss)(params, batch)
-    theta, _ = flatten_stacked(params)
-    g, _ = flatten_stacked(grads)
-    del grads
-    force_rel = rel_err(svgd_force(theta, g, 0.0, mask=mask),
-                        plain_force(theta, g, 0.0, mask))
-    # the repulsive term alone (g = 0), which the driving term swamps
-    zeros = torch.zeros_like(g)
-    repulsive_rel = rel_err(svgd_force(theta, zeros, 0.0, mask=mask),
-                            plain_force(theta, zeros, 0.0, mask))
-    if not (force_rel < 2e-4 and repulsive_rel < 2e-4):
-        raise AssertionError(f"SVGD step kernel vs plain: {force_rel}, "
-                             f"repulsive term alone {repulsive_rel}")
-    del theta, g, zeros
-    step = fused_svgd_step(module.loss, lr=1e-3, lengthscale=0.0)
-    state = {"params": store.checkout("params")}
+    images = mnist_like(np.random.default_rng(1), B, cfg.vocab_size)
 
-    def svgd_step():
-        state["params"], _ = step(state["params"], batch, mask)
+    # (a) SteinVGD, median heuristic (with ell = 1 and distances of ~1e5,
+    # K would be the identity and the force's off-diagonal work zero);
+    # captured, then eager
+    svgd_kw = {"lengthscale": 0.0, "lr": 1e-3}
+    steps, runs = 2 * NB, {}
+    for mode, cache in caches():
+        algo, losses, got, wall, stats, info, resident = train_run(
+            torch, SteinVGD, module, cache, 2, **svgd_kw)
+        if got["pairwise_sqdist"] != steps or got["svgd_force"] != steps:
+            raise AssertionError(f"SVGD launches {got}, want {steps} each")
+        one_program_each(mode, stats, info, ["svgd_step"])
+        row = {"wall_s": wall, "last_losses": losses, "launches": got,
+               "cache": stats, "programs": info, "resident_gb": resident}
+        store, mask = algo.store, algo.store.active_mask()
+        if mode == "captured":
+            # one step's force on the same stacked theta, g and mask:
+            # kernels vs plain (launches not counted: the run is over)
+            params = store.stacked("params")
+            grads = ensemble_value_and_grad(module.loss)(params, batch)[1]
+            # the matrices alone: an unravel closure would keep its tree
+            theta = flatten_stacked(params)[0]
+            g = flatten_stacked(grads)[0]
+            del grads, params
+            row["force_kernel_vs_plain_rel"] = rel_err(
+                svgd_force(theta, g, 0.0, mask=mask),
+                plain_force(theta, g, 0.0, mask))
+            # the repulsive term alone (g = 0), which the driving term
+            # swamps
+            zeros = torch.zeros_like(g)
+            row["repulsive_kernel_vs_plain_rel"] = rel_err(
+                svgd_force(theta, zeros, 0.0, mask=mask),
+                plain_force(theta, zeros, 0.0, mask))
+            if not (row["force_kernel_vs_plain_rel"] < 2e-4
+                    and row["repulsive_kernel_vs_plain_rel"] < 2e-4):
+                raise AssertionError(f"SVGD step kernel vs plain: {row}")
+            del theta, g, zeros
+        # a profiled window of the run's own step program
+        params = store.checkout("params")
+        try:
+            prof = program_window(torch, algo.push_dist.runtime,
+                                  svgd_step_spec(module.loss, **svgd_kw),
+                                  (params, batch, mask))
+        finally:
+            store.commit("params", params)
+        row.update({"step_ms": prof["wall_ms"],
+                    "images_per_s": P * B / prof["wall_ms"] * 1e3,
+                    "profile": prof,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 2**30})
+        peak = max(peak, row["peak_gb"])
+        runs[mode] = row
+        del algo, store, params, cache, mask
+        gc.collect()            # the run's PD and its graphs' pools
+        torch.cuda.empty_cache()
+    same_runs(runs, "SVGD")
+    launches["svgd"] = runs["captured"]["launches"]
+    out["svgd"] = {"epochs": 2, "steps": steps, **runs}
 
-    try:
-        prof = profile_steps(torch, svgd_step, n=3, track=OURS)
-    finally:
-        store.commit("params", state["params"])
-    out["svgd"] = {"epochs": 2, "steps": steps, "wall_s": wall,
-                   "last_losses": losses, "step_ms": prof["wall_ms"],
-                   "images_per_s": P * B / prof["wall_ms"] * 1e3,
-                   "force_kernel_vs_plain_rel": force_rel,
-                   "repulsive_kernel_vs_plain_rel": repulsive_rel,
-                   "profile": prof}
-    del svgd, store, params, state
-    torch.cuda.empty_cache()
+    # (b) MultiSWAG: adam, 3 epochs, collecting after the first; captured,
+    # then eager
+    opt = adam(1e-3)
+    step_spec = specs.ensemble_step(module.loss, opt)
+    collect_spec = specs.map_step(swag_collect, key=("swag_collect",),
+                                  n_state=2, masked=True)
+    runs = {}
+    for mode, cache in caches():
+        algo, losses, got, wall, stats, info, resident = train_run(
+            torch, MultiSWAG, module, cache, 3, optimizer=opt,
+            pretrain_epochs=1, max_rank=20)
+        n_leaves = len(tree_leaves(algo.p_parameters()[0]))
+        if got["swag_moments"] != 2 * n_leaves:
+            raise AssertionError(f"MultiSWAG launches {got} (want "
+                                 f"{2 * n_leaves} moments)")
+        one_program_each(mode, stats, info, ["ensemble_step", "map_step"])
+        row = {"wall_s": wall, "last_losses": losses, "launches": got,
+               "cache": stats, "programs": info, "resident_gb": resident}
+        store, mask = algo.store, algo.store.active_mask()
+        if mode == "captured":
+            row.update(swag_checks(torch, algo, images, n_leaves, launches))
+            row["state_gb"] = sum(store.nbytes(k) for k in
+                                  ("params", "opt_state", "swag")) / 1e9
+        # p_predict through the runtime: one more program, captured once
+        row["predict"] = algo.posterior_pred(images).cpu()
+        # profiled windows of the run's own step and collection programs,
+        # run last: they advance the trained state
+        co = {k: store.checkout(k) for k in ("params", "opt_state", "swag")}
+        rt = algo.push_dist.runtime
+        try:
+            prof = program_window(torch, rt, step_spec,
+                                  (co["params"], co["opt_state"], batch,
+                                   mask))
+            prof_collect = program_window(torch, rt, collect_spec,
+                                          (co["swag"], co["params"], mask))
+        finally:
+            for k in co:
+                store.commit(k, co[k])
+        row.update({"step_ms": prof["wall_ms"],
+                    "images_per_s": P * B / prof["wall_ms"] * 1e3,
+                    "collect_ms": prof_collect["wall_ms"],
+                    "profile_train_step": prof,
+                    "profile_collect": prof_collect,
+                    "programs_after_predict": rt.cache.program_info(),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 2**30})
+        peak = max(peak, row["peak_gb"])
+        runs[mode] = row
+        del algo, store, co, rt, cache, mask
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_runs(runs, "MultiSWAG")
+    pred = {m: r.pop("predict") for m, r in runs.items()}
+    if not torch.equal(pred["captured"], pred["eager"]):
+        raise AssertionError("p_predict: captured and eager differ by "
+                             f"{float((pred['captured'] - pred['eager']).abs().max())}")
+    launches["multiswag"] = runs["captured"]["launches"]
+    out["multiswag"] = {"epochs": 3, "steps": 3 * NB, "collects": 2,
+                        "predict_equal": True, **runs}
+    out["launches"] = launches
+    out["peak_mem_gb"] = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+    emit(out)
+    return {"pairwise_sqdist": launches["svgd"]["pairwise_sqdist"],
+            "svgd_force": launches["svgd"]["svgd_force"],
+            "swag_moments": launches["multiswag"]["swag_moments"],
+            "swag_diag_std": launches["predictive"]["swag_diag_std"]}
 
-    # (b) MultiSWAG: adam, 3 epochs, collecting after the first
-    swag = MultiSWAG(module, seed=SEED, backend="compiled")
-    loader = DataLoader(cfg, batch_size=B, num_batches=NB, seed=SEED)
-    fns = reset_counts()
-    t0 = time.perf_counter()
-    _, losses = swag.bayes_infer(loader, 3, optimizer=adam(1e-3),
-                                 num_particles=P, pretrain_epochs=1,
-                                 max_rank=20)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = read_counts(fns)
-    n_leaves = len(tree_leaves(swag.p_parameters()[0]))
-    if got["swag_moments"] != 2 * n_leaves or not np.isfinite(losses).all():
-        raise AssertionError(f"MultiSWAG launches {got} (want "
-                             f"{2 * n_leaves} moments), losses {losses}")
-    launches["multiswag"] = got
-    store, mask = swag.store, swag.store.active_mask()
-    # one more collection on the trained state at the path's per-leaf
-    # shapes, kernel vs plain (launches not counted: the driven run is over)
+
+def swag_checks(torch, algo, images, n_leaves, launches):
+    """On the trained MultiSWAG state: one more collection at the path's
+    per-leaf shapes, kernel vs plain; the posterior predictive with 4
+    draws per particle (its diag_std launches counted into
+    ``launches["predictive"]``); the same noise through the kernel-made
+    and the plain diag_std."""
+    from repro_torch.bdl.swag import _sample, swag_sample_stacked
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import ref
+    from repro_torch.serve import serve
+    P = TRAIN_P
+    store, mask = algo.store, algo.store.active_mask()
     parity = moments_parity(torch, store.stacked("swag"),
                             store.stacked("params"), mask)
     if not parity["max_abs_err"] <= 1e-5:
         raise AssertionError(f"SWAG collection kernel vs plain: {parity}")
-    out["multiswag"] = {"epochs": 3, "steps": 3 * NB, "collects": 2,
-                        "wall_s": wall, "last_losses": losses,
-                        "moments_kernel_vs_plain": parity,
-                        "state_gb": sum(store.nbytes(k) for k in
-                                        ("params", "opt_state", "swag"))
-                        / 1e9}
-
-    # (c) the MultiSWAG posterior predictive: 4 draws per particle
-    images = {k: v for k, v in
-              mnist_like(np.random.default_rng(1), B, cfg.vocab_size).items()}
     fns = reset_counts()
-    svc = swag.posterior_predictive(samples_per_particle=4)
+    svc = algo.posterior_predictive(samples_per_particle=4)
     heads = svc.predict_batch(images)
     torch.cuda.synchronize()
     got = read_counts(fns)
@@ -1855,7 +1979,6 @@ def phase4(torch):
     if float((heads["mean"].sum(-1) - 1).abs().max()) > 1e-4:
         raise AssertionError("BMA mean probabilities do not sum to 1")
     launches["predictive"] = got
-    # the same noise through the kernel-made and the plain diag_std
     dense = store.dense("swag")
     gen = torch.Generator(device="cuda").manual_seed(3)
     noise = (tree_map(lambda m: torch.randn((P, 4) + tuple(m.shape[1:]),
@@ -1868,54 +1991,19 @@ def phase4(torch):
             sampled = (_sample(dense, *noise, 1.0, diag_std=ref.diag_std)
                        if plain else swag_sample_stacked(dense, 4,
                                                          noise=noise))
-        pred[plain] = serve(swag, params=sampled).predict_batch(images)
+        pred[plain] = serve(algo, params=sampled).predict_batch(images)
         del sampled
     heads_diff = max(float((pred[True][k] - pred[False][k]).abs().max())
                      for k in pred[True])
     if not heads_diff <= 1e-5:
         raise AssertionError(f"predictive heads kernel vs plain: {heads_diff}")
-    out["predictive"] = {"samples_per_particle": 4, "members": P * 4,
-                         "images": B, "entropy_mean":
-                         float(heads["entropy"].mean()),
-                         "heads_kernel_vs_plain": heads_diff}
     del svc, dense, pred, noise
     torch.cuda.empty_cache()
-
-    # profiled windows of MultiSWAG train steps and collections, run last:
-    # they advance the trained state, which nothing reads after them
-    opt_step = specs.ensemble_step(module.loss, adam(1e-3))
-    co = {k: store.checkout(k) for k in ("params", "opt_state", "swag")}
-
-    def swag_step():
-        co["params"], co["opt_state"], _ = opt_step(co["params"],
-                                                    co["opt_state"], batch,
-                                                    mask)
-
-    def swag_collect_step():
-        co["swag"] = swag_collect(co["swag"], co["params"], mask=mask)
-
-    try:
-        prof = profile_steps(torch, swag_step, n=3, track=OURS)
-        prof_collect = profile_steps(torch, swag_collect_step, n=3,
-                                     track=OURS)
-    finally:
-        for k, v in co.items():
-            store.commit(k, v)
-    out["multiswag"].update({"step_ms": prof["wall_ms"],
-                             "images_per_s": P * B / prof["wall_ms"] * 1e3,
-                             "collect_ms": prof_collect["wall_ms"],
-                             "profile_train_step": prof,
-                             "profile_collect": prof_collect})
-    out["launches"] = launches
-    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
-    emit(out)
-    del swag, store, co
-    torch.cuda.empty_cache()
-    return {"pairwise_sqdist": launches["svgd"]["pairwise_sqdist"],
-            "svgd_force": launches["svgd"]["svgd_force"],
-            "swag_moments": launches["multiswag"]["swag_moments"],
-            "swag_diag_std": launches["predictive"]["swag_diag_std"]}
-
+    return {"moments_kernel_vs_plain": parity,
+            "predictive": {"samples_per_particle": 4, "members": P * 4,
+                           "images": TRAIN_B,
+                           "entropy_mean": float(heads["entropy"].mean()),
+                           "heads_kernel_vs_plain": heads_diff}}
 
 
 def main():

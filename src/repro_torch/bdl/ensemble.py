@@ -3,8 +3,9 @@
 
 No communication between particles (paper §3.1). Under
 ``backend="compiled"`` every particle trains in one step over the stacked
-particle axis: state checked out of the ParticleStore once, updated every
-step, committed back once at the end.
+particle axis, a ``ProgramSpec`` (a CUDA graph on the card): state
+checked out of the ParticleStore once, updated in place every step,
+committed back once at the end.
 """
 from __future__ import annotations
 
@@ -22,16 +23,22 @@ class DeepEnsemble(Infer):
         return pids, losses
 
     def _fused_epochs(self, pids, dataloader, epochs: int, *, optimizer):
-        """Train existing particles for `epochs` (store checkout -> fused
-        steps -> one commit); returns the last step's loss per pid."""
-        step = specs.ensemble_step(self.module.loss, optimizer,
+        """Train existing particles for `epochs` through the step program,
+        fetched once per fused run (store checkout -> steps updating the
+        state in place -> one commit); returns the last step's loss per
+        pid."""
+        rt = self._compiled_runtime()
+        spec = specs.ensemble_step(self.module.loss, optimizer,
                                    precision=self.precision)
         co_pids, mask, slots = self._fused_plan(pids)
-        ls = None
+        prog, ls = None, None
         with self._checked_out(co_pids, ("params", "opt_state")) as co:
             for _ in range(epochs):
                 for batch in dataloader:
-                    co["params"], co["opt_state"], ls = step(
-                        co["params"], co["opt_state"], self._batch(batch),
-                        mask)
+                    batch = self._batch(batch)
+                    if prog is None:    # one cache lookup per fused run
+                        prog = rt.program(spec, co["params"],
+                                          co["opt_state"], batch, mask)
+                    co["params"], co["opt_state"], ls = prog(
+                        co["params"], co["opt_state"], batch, mask)
         return self._losses(ls, slots)

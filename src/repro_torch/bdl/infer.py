@@ -4,9 +4,10 @@ BDL algorithms extend Infer and express inference over particles.
 ``bayes_infer`` is the stable entry point; it hands the algorithm to the
 PD's runtime object (``runtime.backends``). Subclasses implement
 ``_fused_infer`` (an epoch loop over the store's stacked state, checked
-out once and committed once); the paper-faithful message-passing form
-waits for the actor-messaging slice, so callers pass
-``backend="compiled"``.
+out once and committed once, each step a program of the runtime's
+``ProgramCache`` fetched once per run); the paper-faithful
+message-passing form waits for the actor-messaging slice, so callers
+pass ``backend="compiled"``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from contextlib import contextmanager
 
 from ..core import ParticleModule, PushDistribution
 from ..core.tree import to_device
+from ..runtime.backends import CompiledRuntime
 
 
 class Infer:
@@ -68,8 +70,20 @@ class Infer:
                 "store views, which are not ported")
         return None, store.active_mask(), [store.slot_of(p) for p in pids]
 
+    def _compiled_runtime(self):
+        """The PD's runtime when it is the compiled one, else a
+        CompiledRuntime over the same PD and cache: a caller may drive
+        ``_fused_epochs`` on a PD of another backend."""
+        rt = self.push_dist.runtime
+        return rt if isinstance(rt, CompiledRuntime) \
+            else CompiledRuntime(self.push_dist, rt.cache)
+
     def _batch(self, batch):
-        """One host batch -> tensors on the store's device (once a step)."""
+        """One host batch -> tensors on the store's device, once a step.
+        The loop passes the very object it gets to the program lookup and
+        to the call: a capture's warm-up is the first call only when the
+        arguments are the same objects, else the first batch would be
+        trained twice."""
         return to_device(batch, self.push_dist.device)
 
     @staticmethod

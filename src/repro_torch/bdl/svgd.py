@@ -27,7 +27,10 @@ import math
 import torch
 
 from ..core import functional
+from ..core import precision as precision_mod
+from ..core.tree import tree_map
 from ..kernels import ops as _kops
+from ..runtime.program import ProgramSpec, ident
 from .infer import Infer
 
 
@@ -42,7 +45,9 @@ def rbf_lengthscale(sq, lengthscale: float, mask=None):
     else the median heuristic (Liu & Wang §5), over live pairs only when
     a mask is given."""
     if lengthscale > 0:
-        return torch.tensor(lengthscale, dtype=sq.dtype, device=sq.device)
+        # a fill on the device: no host-to-device copy, which a stream
+        # being captured refuses
+        return torch.full((), lengthscale, dtype=sq.dtype, device=sq.device)
     n = sq.shape[0]
     if mask is None:
         return torch.sqrt(0.5 * _median(sq) / math.log(n + 1.0) + 1e-12)
@@ -90,10 +95,10 @@ def rbf_glue(sq, lengthscale: float, mask=None):
 
 def fused_svgd_step(loss_fn, *, lr: float, lengthscale: float = 1.0):
     """One SVGD step over stacked particles: ``step(stacked_params, batch,
-    mask=None) -> (new_params, losses)``. The params flatten to the (n, D)
-    matrix in ``ravel_pytree``'s column order; the new params are views
-    of the updated matrix. Dead slots stay bit-for-bit frozen and report
-    loss 0.0."""
+    mask=None) -> (stacked_params, losses)``. The params flatten to the
+    (n, D) matrix in ``ravel_pytree``'s column order; each leaf takes its
+    columns of the update in place, so the caller's own tree comes back.
+    Dead slots stay bit-for-bit frozen and report loss 0.0."""
     vag = functional.ensemble_value_and_grad(loss_fn)
 
     def step(stacked_params, batch, mask=None):
@@ -102,14 +107,32 @@ def fused_svgd_step(loss_fn, *, lr: float, lengthscale: float = 1.0):
         g, _ = functional.flatten_stacked(grads)
         del grads
         phi = svgd_force(theta.float(), g.float(), lengthscale, mask=mask)
-        del g
-        new_theta = theta - lr * phi.to(theta.dtype)
+        del g, theta
+        # theta - lr * phi into each leaf, a leaf at a time over its own
+        # columns of phi (the matrix's elementwise arithmetic)
+        tree_map(lambda p, f: functional.masked_assign(
+            mask, p - lr * f.to(p.dtype), p), stacked_params, unravel(phi))
         if mask is not None:
-            new_theta = torch.where(mask[:, None] > 0, new_theta, theta)
             losses = torch.where(mask > 0, losses, 0.0)
-        return unravel(new_theta), losses
+        return stacked_params, losses
 
     return step
+
+
+def svgd_step_spec(loss_fn, *, lr: float, lengthscale: float = 1.0,
+                   precision=None) -> ProgramSpec:
+    """The fused SVGD step as a ``ProgramSpec``: ``fused(stacked_params,
+    batch, mask) -> (stacked_params, losses)``, the params updated in
+    place (the reference donates them). Only the fp32 preset is ported:
+    any other ``precision`` raises."""
+    precision_mod.get(precision)
+    return ProgramSpec(
+        name="svgd_step",
+        key=("svgd_step", ident(loss_fn), float(lr), float(lengthscale)),
+        make=lambda ctx: fused_svgd_step(loss_fn, lr=lr,
+                                         lengthscale=lengthscale),
+        in_kinds=("state", "replicated", "vector"),
+        out_kinds=("in:0", "vector"))
 
 
 class SteinVGD(Infer):
@@ -127,13 +150,20 @@ class SteinVGD(Infer):
 
     def _fused_epochs(self, pids, dataloader, epochs: int, *,
                       lr: float = 1e-3, lengthscale: float = 1.0):
-        step = fused_svgd_step(self.module.loss, lr=lr,
-                               lengthscale=lengthscale)
+        """SVGD on existing particles through the step program, fetched
+        once per fused run; the params are checked out once, updated in
+        place every step and committed back once."""
+        rt = self._compiled_runtime()
+        spec = svgd_step_spec(self.module.loss, lr=lr,
+                              lengthscale=lengthscale,
+                              precision=self.precision)
         co_pids, mask, slots = self._fused_plan(pids)
-        ls = None
+        prog, ls = None, None
         with self._checked_out(co_pids, ("params",)) as co:
             for _ in range(epochs):
                 for batch in dataloader:
-                    co["params"], ls = step(co["params"], self._batch(batch),
-                                            mask)
+                    batch = self._batch(batch)
+                    if prog is None:    # one cache lookup per fused run
+                        prog = rt.program(spec, co["params"], batch, mask)
+                    co["params"], ls = prog(co["params"], batch, mask)
         return self._losses(ls, slots)

@@ -50,26 +50,26 @@ def swag_state_init(params, max_rank: int = 20):
     }
 
 
-def swag_collect(state, params, *, mask=None):
+def swag_collect(state, params, mask=None):
     """One moment collection over the stacked state (after an epoch, in
-    the paper's setup). Live rows (``mask`` None: all) take the new
-    moments, count and rank, and write their deviation into ring slot
-    ``rank % max_rank``; dead rows keep everything bit for bit. The ring
-    ``state["dev"]`` is updated in place."""
-    means, unflatten = tree_flatten(state["mean"], sort_keys=True)
+    the paper's setup), in place: live rows (``mask`` None: all) take the
+    new moments, count and rank, and write their deviation into ring slot
+    ``rank % max_rank``; dead rows keep everything bit for bit. Returns
+    ``state`` itself, every leaf at its address (a captured collection
+    replays on the store's tensors)."""
+    means = tree_flatten(state["mean"], sort_keys=True)[0]
     sqs, devs, thetas = (tree_flatten(t, sort_keys=True)[0] for t in
                          (state["sq_mean"], state["dev"], params))
     max_rank = devs[0].shape[1]
-    n = state["n"]
-    slot = (state["rank"] % max_rank).to(torch.int32)
-    out = [_kops.swag_moments(m, s, t.contiguous(), n, mask, d, slot)
-           for m, s, t, d in zip(means, sqs, thetas, devs)]
+    n, rank = state["n"], state["rank"]
+    slot = (rank % max_rank).to(torch.int32)
+    for m, s, t, d in zip(means, sqs, thetas, devs):
+        _kops.swag_moments(m, s, t.contiguous(), n, mask, d, slot,
+                           out_mean=m, out_sq=s)
     live = torch.ones_like(n, dtype=torch.bool) if mask is None else mask > 0
-    return {"n": torch.where(live, n + 1, n),
-            "mean": unflatten([o[0] for o in out]),
-            "sq_mean": unflatten([o[1] for o in out]),
-            "dev": state["dev"],
-            "rank": torch.where(live, state["rank"] + 1, state["rank"])}
+    torch.where(live, n + 1, n, out=n)
+    torch.where(live, rank + 1, rank, out=rank)
+    return state
 
 
 def _sample(stacked_state, z1, z2, scale: float, diag_std=_kops.diag_std):
@@ -160,22 +160,31 @@ class MultiSWAG(Infer):
                       pretrain_epochs: int = 0):
         """Stacked-axis MultiSWAG on existing particles: the ensemble
         train step every batch and, after ``pretrain_epochs``, one moment
-        collection per epoch; params, optimizer state and SWAG state are
-        checked out once and committed back once."""
-        step = specs.ensemble_step(self.module.loss, optimizer,
-                                   precision=self.precision)
+        collection per epoch, two programs fetched once each per fused
+        run; params, optimizer state and SWAG state are checked out once,
+        updated in place and committed back once."""
+        rt = self._compiled_runtime()
+        step_spec = specs.ensemble_step(self.module.loss, optimizer,
+                                        precision=self.precision)
+        collect_spec = specs.map_step(swag_collect, key=("swag_collect",),
+                                      n_state=2, masked=True)
         co_pids, mask, slots = self._fused_plan(pids)
-        ls = None
+        step, collect, ls = None, None, None
         with self._checked_out(co_pids,
                                ("params", "opt_state", "swag")) as co:
             for e in range(epochs):
                 for batch in dataloader:
+                    batch = self._batch(batch)
+                    if step is None:    # one cache lookup per fused run
+                        step = rt.program(step_spec, co["params"],
+                                          co["opt_state"], batch, mask)
                     co["params"], co["opt_state"], ls = step(
-                        co["params"], co["opt_state"], self._batch(batch),
-                        mask)
+                        co["params"], co["opt_state"], batch, mask)
                 if e >= pretrain_epochs:
-                    co["swag"] = swag_collect(co["swag"], co["params"],
-                                              mask=mask)
+                    if collect is None:
+                        collect = rt.program(collect_spec, co["swag"],
+                                             co["params"], mask)
+                    co["swag"], = collect(co["swag"], co["params"], mask)
         return self._losses(ls, slots)
 
     def posterior_predictive(self, *, samples_per_particle: int = 0,

@@ -46,12 +46,19 @@ def expand_mask(mask, ndim: int):
     return mask.reshape(mask.shape + (1,) * (ndim - 1))
 
 
-def masked_select(mask, new_tree, old_tree):
-    """Per-slot select: live slots take `new`, dead slots keep `old` (the
-    frozen padding row) — the update rule of every masked train step."""
-    return tree_map(
-        lambda nw, od: torch.where(expand_mask(mask, nw.dim()) > 0, nw, od),
-        new_tree, old_tree)
+def masked_assign(mask, new_tree, dst_tree):
+    """Write ``new_tree`` into ``dst_tree`` in place; with a mask, live
+    slots take `new` and dead slots keep their row bit for bit (the frozen
+    padding row): the update rule of every masked train step. ``None``
+    mask: every slot is live."""
+    def write(dst, nw):
+        if mask is None:
+            return dst.copy_(nw)
+        return torch.where(expand_mask(mask, dst.dim()) > 0, nw, dst,
+                           out=dst)
+
+    tree_map(write, dst_tree, new_tree)     # leaves matched by key path
+    return dst_tree
 
 
 def masked_mean(tree, mask):
@@ -83,22 +90,25 @@ def ensemble_value_and_grad(loss_fn: Callable):
 
 
 def ensemble_step(loss_fn: Callable, optimizer):
-    """One train step for all particles: grads + optimizer update.
+    """One train step for all particles: grads + optimizer update, written
+    into the caller's param and optimizer-state leaves in place (a
+    captured step replays on fixed addresses).
 
     ``mask=None`` is the dense form; with a (capacity,) active mask, dead
     slots keep their params/opt state bit-for-bit (frozen padding rows)
-    and report loss 0.0."""
+    and report loss 0.0. Returns ``(stacked_params, stacked_opt_state,
+    losses)``, the first two the caller's own trees."""
     vag = ensemble_value_and_grad(loss_fn)
 
     def step(stacked_params, stacked_opt_state, batch, mask=None):
         losses, grads = vag(stacked_params, batch)
         new_p, new_s = optimizer.update(stacked_params, grads,
                                         stacked_opt_state)
+        masked_assign(mask, new_p, stacked_params)
+        masked_assign(mask, new_s, stacked_opt_state)
         if mask is not None:
-            new_p = masked_select(mask, new_p, stacked_params)
-            new_s = masked_select(mask, new_s, stacked_opt_state)
             losses = torch.where(mask > 0, losses, 0.0)
-        return new_p, new_s, losses
+        return stacked_params, stacked_opt_state, losses
 
     return step
 

@@ -18,6 +18,13 @@
 // of one leaf: the SWAG diagonal scale, read once per particle row at
 // serve-time sampling (not once per drawn sample).
 //
+// The moments may be updated in place: out_mean may be mean and out_sq
+// may be sq (the collection passes the store's own leaves). Each element
+// is read and then written by one thread, and by no other, so the alias is
+// safe; those four pointers carry no __restrict__, which would promise the
+// compiler they do not alias. A dead row updated in place is left as it
+// is, unread.
+//
 // Both are elementwise streams, bound by bytes on an H100 SXM (3.35 TB/s):
 // at 8 x 19,775,360 parameters, moments reads 3 x 632.8 MB and writes
 // 3 x 632.8 MB (two moments and the deviation row): 1.13 ms; diag_std reads
@@ -34,14 +41,15 @@ constexpr int kThreads = 256;
 constexpr long long kMaxBlocksX = 8192;
 
 __global__ void __launch_bounds__(kThreads)
-moments_kernel(const float* __restrict__ mean, const float* __restrict__ sq,
+moments_kernel(const float* mean, const float* sq,
                const float* __restrict__ theta, const float* __restrict__ n,
                const float* __restrict__ mask, float* __restrict__ dev,
-               const int* __restrict__ slot, int R, float* __restrict__ out_mean,
-               float* __restrict__ out_sq, long long L) {
+               const int* __restrict__ slot, int R, float* out_mean,
+               float* out_sq, long long L) {
   const int p = blockIdx.y;
   const long long base = static_cast<long long>(p) * L;
   const bool live = mask == nullptr || mask[p] > 0.f;
+  if (!live && out_mean == mean && out_sq == sq) return;
   const float np = n[p];
   const float np1 = np + 1.f;
   float* drow = (dev != nullptr && live)
@@ -90,8 +98,9 @@ unsigned blocks_for(long long count) {
 
 }  // namespace
 
-// mean, sq, theta, out_mean, out_sq: (P, L) fp32; n: (P,) fp32; mask: (P,)
-// fp32 or null; dev: (P, R, L) fp32 or null, with slot (P,) int32 in [0, R).
+// mean, sq, theta, out_mean, out_sq: (P, L) fp32 (out_mean may be mean and
+// out_sq may be sq; no other overlap); n: (P,) fp32; mask: (P,) fp32 or
+// null; dev: (P, R, L) fp32 or null, with slot (P,) int32 in [0, R).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int swag_moments(const void* mean, const void* sq, const void* theta,
                             const void* n, const void* mask, void* dev,

@@ -74,10 +74,12 @@ def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
     return fn(theta, grads, ktn, ksum, inv_ell2, mask)
 
 
-def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None):
-    """Stacked SWAG moment update (+ the deviation-ring write, in place)."""
+def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
+                 out_mean=None, out_sq=None):
+    """Stacked SWAG moment update (+ the deviation-ring write, in place);
+    ``out_mean=mean, out_sq=sq`` updates the moments in place too."""
     fn = _route(mean, _swag.moments, ref.swag_moments, "swag_moments")
-    return fn(mean, sq, theta, n, mask, dev, slot)
+    return fn(mean, sq, theta, n, mask, dev, slot, out_mean, out_sq)
 
 
 def diag_std(mean, sq):

@@ -129,12 +129,14 @@ def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
     return phi if mask is None else torch.where(live, phi, 0.0)
 
 
-def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None):
+def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
+                 out_mean=None, out_sq=None):
     """One SWAG collection over stacked rows: mean, sq, theta (P, ...),
     n (P,) -> (mean', sq') = ((mean n + theta)/(n+1), (sq n + theta^2)/
     (n+1)); dead rows keep their values. With dev (P, R, ...) and slot
     (P,) int32, ``dev[p, slot[p]] = theta - mean'`` for the live rows, in
-    place."""
+    place. ``out_mean`` / ``out_sq`` (which may be ``mean`` / ``sq``)
+    receive mean' / sq' when given."""
     nn = n.reshape(n.shape + (1,) * (mean.dim() - 1))
     new_mean = (mean * nn + theta) / (nn + 1)
     new_sq = (sq * nn + theta * theta) / (nn + 1)
@@ -149,6 +151,10 @@ def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None):
         if mask is not None:
             deviation = torch.where(live, deviation, dev[rows, slot])
         dev[rows, slot] = deviation
+    if out_mean is not None:
+        new_mean = out_mean.copy_(new_mean)
+    if out_sq is not None:
+        new_sq = out_sq.copy_(new_sq)
     return new_mean, new_sq
 
 

@@ -4,12 +4,15 @@ The kernels replace the Pallas TPU kernels ``repro.kernels.swag_moments``
 ``moments_flat`` and ``diag_std_flat``. They run over the store's stacked
 rows, one leaf at a time (no flatten copy):
 
-    moments(mean, sq, theta, n, mask=None, dev=None, slot=None)
+    moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
+            out_mean=None, out_sq=None)
         mean, sq, theta (P, ...) fp32 contiguous; n (P,) fp32 per row;
         mask (P,) fp32 or None -> (mean', sq'); a dead row is copied
         through bit for bit. With dev (P, R, ...) and slot (P,) int32 the
         live rows' deviations theta - mean' land in dev[p, slot[p]], in
-        place.
+        place. mean' and sq' are written into ``out_mean`` and ``out_sq``
+        when given (new tensors otherwise); ``out_mean=mean, out_sq=sq``
+        updates the moments in place.
     diag_std(mean, sq) -> sqrt(max(sq - mean^2, 1e-30)), any shape.
 
 The wrappers take CUDA tensors only and raise on anything else; the CPU
@@ -33,7 +36,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def moments(mean, sq, theta, n, mask=None, dev=None, slot=None):
+def _out(name, out, own, others):
+    """The output tensor of one moment: ``out`` (checked to be ``own``
+    itself or to share no address with the other inputs) or a new one."""
+    if out is None:
+        return torch.empty_like(own)
+    check(name, out, own.device, tuple(own.shape))
+    if out.data_ptr() != own.data_ptr() and any(
+            out.data_ptr() == o.data_ptr() for o in others):
+        raise ValueError(f"{name} may alias its own moment, nothing else")
+    return out
+
+
+def moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
+            out_mean=None, out_sq=None):
     """One SWAG collection over one leaf's stacked rows (module docstring)."""
     if not isinstance(mean, torch.Tensor) or mean.dim() < 1:
         raise ValueError("mean must be a (P, ...) tensor")
@@ -57,8 +73,8 @@ def moments(mean, sq, theta, n, mask=None, dev=None, slot=None):
         check("slot", slot, device, (P,), torch.int32)
     if P > 65535:
         raise ValueError(f"at most 65535 rows, got {P}")
-    out_mean = torch.empty_like(mean)
-    out_sq = torch.empty_like(sq)
+    out_mean = _out("out_mean", out_mean, mean, (sq, theta))
+    out_sq = _out("out_sq", out_sq, sq, (mean, theta))
     if mean.numel() == 0:
         return out_mean, out_sq
     with torch.cuda.device(device):

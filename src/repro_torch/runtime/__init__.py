@@ -5,8 +5,8 @@ program.py   -- ProgramSpec / BuildCtx / Program; ``lower`` captures a
                 step as a CUDA graph on the card and runs it eagerly on
                 the CPU
 cache.py     -- ProgramCache (hits, misses, captures); global_cache()
-specs.py     -- the steps: ensemble step and predict; the serving steps
-                as ProgramSpecs
+specs.py     -- the steps as ProgramSpecs: the ensemble train step and
+                predict, map_step (the SWAG collection), the serving steps
 backends.py  -- NelRuntime / CompiledRuntime
 bucketing.py -- power-of-two bucketing shared with serve/
 """

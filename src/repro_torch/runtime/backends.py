@@ -7,7 +7,8 @@
     averaged over the live slots. Every ported algorithm has a fused
     form, so there is no fallback to the actor path. ``program`` and
     ``run`` dispatch a ``ProgramSpec`` through the ProgramCache under the
-    PD's store generation; the train paths stay eager in this slice.
+    PD's store generation: the train steps, the SWAG collection and
+    ``predict`` (a CUDA graph each on the card, eager on the CPU).
   * ``NelRuntime`` — the reference's default, the paper-faithful actor
     path. Actor messaging is not ported yet (ROADMAP.md, module queue:
     the actor runtime), so its ``infer`` and ``predict`` raise; pass
@@ -74,8 +75,8 @@ class CompiledRuntime(NelRuntime):
         # mask and stacked params from one atomic store snapshot: a mask
         # bit never goes live before its slot's data
         _, mask, stacked = pd.store.snapshot("params")
-        return specs.ensemble_predict(pd.module.forward)(
-            stacked, to_device(batch, pd.device), mask)
+        return self.run(specs.ensemble_predict(pd.module.forward), stacked,
+                        to_device(batch, pd.device), mask)
 
 
 def make_runtime(backend: str, pd, cache: Optional[ProgramCache] = None):

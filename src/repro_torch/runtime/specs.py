@@ -5,11 +5,12 @@ The reference wraps a per-particle function in a vmapped, donated
 ProgramSpec that its ProgramCache compiles; here the model functions
 already take the stacked particle axis, so a body needs no vmap.
 
-Training (eager in this slice): ``ensemble_step`` and
-``ensemble_predict`` return plain functions (bodies in
-``core.functional``); the reference's masked ``map_step`` has no
-counterpart, because SWAG collection (``bdl.swag.swag_collect``) takes
-the mask itself and keeps dead rows bit for bit.
+Training: ``ensemble_step``, ``ensemble_predict`` and ``map_step``
+(the SWAG collection; ``bdl.svgd.svgd_step_spec`` lives beside its math)
+return ``ProgramSpec``s. Their bodies (``core.functional``) update the
+stacked state in place and return the caller's own trees, so a captured
+train step replays on the store's tensors; the batch and the active mask
+are copied into the program's static inputs on each call.
 
 Serving: ``paged_decode_step``, ``paged_prefill``, ``spec_draft_step``,
 ``spec_verify`` and ``bma_step`` (the stateful dense-cache step) return
@@ -30,21 +31,52 @@ import torch
 from ..core import functional
 from ..core import precision as precision_mod
 from ..core.tree import tree_map
-from .program import ProgramSpec
+from .program import ProgramSpec, ident
 
 
-def ensemble_step(loss_fn: Callable, optimizer, precision=None) -> Callable:
-    """One train step for all particles: ``step(params, opt_state, batch,
-    mask=None) -> (params, opt_state, losses)``. Only the fp32 preset is
-    ported: any other ``precision`` raises."""
+def ensemble_step(loss_fn: Callable, optimizer,
+                  precision=None) -> ProgramSpec:
+    """One train step for all particles: ``fused(stacked_params,
+    stacked_opt_state, batch, mask) -> (stacked_params, stacked_opt_state,
+    losses)``, the params and optimizer state updated in place (the
+    reference donates them). Only the fp32 preset is ported: any other
+    ``precision`` raises."""
     precision_mod.get(precision)
-    return functional.ensemble_step(loss_fn, optimizer)
+    return ProgramSpec(
+        name="ensemble_step",
+        key=("ensemble_step", ident(loss_fn), ident(optimizer)),
+        make=lambda ctx: functional.ensemble_step(loss_fn, optimizer),
+        in_kinds=("state", "state", "replicated", "vector"),
+        out_kinds=("in:0", "in:1", "vector"))
 
 
-def ensemble_predict(forward: Callable) -> Callable:
-    """hat f(x) = (1/n) sum_i nn_{theta_i}(x): ``f(stacked_params, batch,
-    mask=None)``, mask-weighted over live slots."""
-    return functional.ensemble_predict(forward)
+def ensemble_predict(forward: Callable) -> ProgramSpec:
+    """hat f(x) = (1/n) sum_i nn_{theta_i}(x): ``fused(stacked_params,
+    batch, mask)``, mask-weighted over live slots."""
+    return ProgramSpec(
+        name="ensemble_predict",
+        key=("ensemble_predict", ident(forward)),
+        make=lambda ctx: functional.ensemble_predict(forward),
+        in_kinds=("state", "replicated", "vector"))
+
+
+def map_step(fn: Callable, *, key: Tuple, n_state: int = 1,
+             masked: bool = False) -> ProgramSpec:
+    """A map over ``n_state`` stacked trees (the SWAG moment collection):
+    ``fn(*stacked_trees)`` or, with ``masked=True``, ``fn(*stacked_trees,
+    mask)`` updates the first tree in place and returns it. ``fn`` takes
+    the whole particle axis and the mask itself (the reference vmaps a
+    per-particle ``fn``; a CUDA launch cannot be vmapped), and keeps dead
+    slots bit for bit. ``key`` must be stable across calls."""
+    def make(ctx):
+        return lambda *args: (fn(*args),)
+
+    return ProgramSpec(
+        name="map_step",
+        key=("map_step",) + (("masked",) if masked else ()) + tuple(key),
+        make=make,
+        in_kinds=("state",) * n_state + (("vector",) if masked else ()),
+        out_kinds=("in:0",))
 
 
 def paged_decode_step(decode_fn: Callable, reduce_fn: Callable, *,

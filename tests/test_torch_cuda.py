@@ -55,6 +55,13 @@ capture nothing and the captured service's tokens and heads equal the
 eager service's exactly; a params commit captures anew (no stale replay);
 and the launch counters moved by replays equal the kernel launches the
 profiler sees in the same window.
+
+Train-step capture: DeepEnsemble, SteinVGD (ell = 1 and the median
+heuristic) and MultiSWAG on a narrow ViT, with every train step, SWAG
+collection and p_predict captured once and replayed, equal the eager run
+from the same init bit for bit (state, losses, predictions), with the
+same kernel launches and no capture after the first step. The moments
+kernel updating mean and sq in place gives its out-of-place bits.
 """
 import numpy as np
 import pytest
@@ -73,7 +80,7 @@ from repro_torch.kernels import paged_decode_window_attention as window_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import svgd_rbf, swag_moments
 from repro_torch.models import api
-from repro_torch.optim import sgd
+from repro_torch.optim import adam, sgd
 from repro_torch.serve import PredictiveEngine, serve_decode
 
 pytestmark = pytest.mark.cuda
@@ -382,6 +389,43 @@ def test_moments_kernel_matches_plain(dev, P, shape, dead):
     for p in dead:
         assert torch.equal(got[0][p], mean[p]) and torch.equal(got[1][p], sq[p])
         assert torch.equal(ring_k[p], ring[p])
+
+
+@pytest.mark.parametrize("P,shape,dead", [(3, (123,), ()), (4, (7, 3), (1,)),
+                                          (8, (8193,), (0, 5))])
+def test_moments_kernel_in_place(dev, P, shape, dead):
+    """out_mean=mean, out_sq=sq (what the SWAG collection passes) gives
+    the out-of-place kernel's bits, ring included, and leaves a dead row
+    as it was; an output may alias only its own moment."""
+    rng = np.random.default_rng(P + 1)
+
+    def arr(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+
+    mean, theta = arr(P, *shape), arr(P, *shape)
+    sq = mean ** 2 + arr(P, *shape).abs()
+    ring = arr(P, 4, *shape)
+    n = torch.arange(P, dtype=torch.float32, device=dev)
+    slot = torch.tensor([(3 * p) % 4 for p in range(P)], dtype=torch.int32,
+                        device=dev)
+    m = torch.ones(P, device=dev)
+    m[list(dead)] = 0.0
+    theta[m == 0] = float("nan")
+    ring_o, ring_i = ring.clone(), ring.clone()
+    want = swag_moments.moments(mean, sq, theta, n, m, ring_o, slot)
+    mi, si = mean.clone(), sq.clone()
+    got = swag_moments.moments(mi, si, theta, n, m, ring_i, slot,
+                               out_mean=mi, out_sq=si)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == mi.data_ptr()
+    assert got[1].data_ptr() == si.data_ptr()
+    assert torch.equal(mi, want[0]) and torch.equal(si, want[1])
+    assert torch.equal(ring_i, ring_o)
+    for p in dead:
+        assert torch.equal(mi[p], mean[p]) and torch.equal(si[p], sq[p])
+    for out in ({"out_mean": sq}, {"out_sq": mean}, {"out_mean": theta}):
+        with pytest.raises(ValueError, match="alias"):
+            swag_moments.moments(mean, sq, theta, n, m, **out)
 
 
 @pytest.mark.parametrize("D", [1, 123, 8192, 8193, 100000])
@@ -1195,3 +1239,75 @@ def test_launch_counters_match_the_profiler_through_replays(dev):
                 seen[name] += e.count
     assert moved == (3 * cfg.n_layers, 3 * cfg.n_layers)
     assert (seen["split_kernel<"], seen["flash_kernel<"]) == moved
+
+
+# --------------------------------------------------------------------------
+# train-step capture: the fused DeepEnsemble, SteinVGD and MultiSWAG steps,
+# the SWAG collection and p_predict as captured programs
+# --------------------------------------------------------------------------
+
+TRAIN_CAPTURE = {
+    "ensemble": (lambda: {"optimizer": sgd(0.05)}, ("params", "opt_state"),
+                 ["ensemble_step"]),
+    "svgd-ell1": (lambda: {"lr": 0.05, "lengthscale": 1.0}, ("params",),
+                  ["svgd_step"]),
+    "svgd-median": (lambda: {"lr": 0.05, "lengthscale": 0.0}, ("params",),
+                    ["svgd_step"]),
+    "multiswag": (lambda: {"optimizer": adam(1e-3), "pretrain_epochs": 1,
+                           "max_rank": 3},
+                  ("params", "opt_state", "swag"),
+                  ["ensemble_step", "map_step"]),
+}
+
+
+def _train_capture_run(dev, name, capturer):
+    """6 particles in a store of capacity 8 (2 dead slots) trained for 3
+    epochs of 2 batches through a ProgramCache with ``capturer``; returns
+    the state, losses, kernel launches, cache stats and program info,
+    and one p_predict."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.runtime import ProgramCache
+    cls = {"ensemble": DeepEnsemble, "multiswag": MultiSWAG}.get(
+        name, SteinVGD)
+    kw, keys, _ = TRAIN_CAPTURE[name]
+    cfg, (mod, _) = _vit_modules(dev, 6)
+    algo = cls(mod, backend="compiled", capacity=8, device=dev)
+    cache = ProgramCache(capturer=capturer)
+    algo.push_dist.runtime.cache = cache
+    counters = (svgd_rbf.pairwise_sqdist, svgd_rbf.svgd_force,
+                swag_moments.moments)
+    before = [k.launches for k in counters]
+    _, losses = algo.bayes_infer(DataLoader(cfg, batch_size=8,
+                                            num_batches=2), 3,
+                                 num_particles=6, **kw())
+    torch.cuda.synchronize()
+    launches = [k.launches - b for k, b in zip(counters, before)]
+    stats, info = cache.snapshot_stats(), cache.program_info()
+    state = [_host(algo.store.stacked(k)) for k in keys]
+    batch = next(iter(DataLoader(cfg, batch_size=6, num_batches=1, seed=1)))
+    pred = algo.posterior_pred(batch).cpu()
+    return state, losses, launches, stats, info, pred
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_CAPTURE))
+def test_captured_training_matches_eager(dev, name):
+    """The fused run with every step (and collection) captured once as a
+    CUDA graph and replayed gives the eager run's params, optimizer
+    state, SWAG moments and ring, losses and p_predict bit for bit, with
+    the same kernel launches; each spec is captured once, at the first
+    step, and nothing after it."""
+    from repro_torch.runtime import eager, lower
+    names = TRAIN_CAPTURE[name][2]
+    got = {mode: _train_capture_run(dev, name, capturer)
+           for mode, capturer in (("graph", lower), ("eager", eager))}
+    g, e = got["graph"], got["eager"]
+    assert _same_bits(g[0], e[0])
+    assert g[1] == e[1]
+    assert g[2] == e[2]
+    if name != "ensemble":
+        assert sum(g[2]) > 0
+    for stats, info, graph in ((g[3], g[4], True), (e[3], e[4], False)):
+        assert sorted(p["name"] for p in info) == sorted(names)
+        assert stats["misses"] == stats["cold_compiles"] == len(names)
+        assert all(p["graph"] == graph for p in info)
+    assert torch.equal(g[5], e[5])

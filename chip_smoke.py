@@ -97,6 +97,47 @@ Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
          program's capture seconds and graph pool bytes, and the phase's
          peak device memory.
 
+Phase 8  trains the same 8 full-width ViT-MNIST particles (random weights
+         from seed 0, batches of 64, 8 per epoch) with backend="nel", the
+         default: the executor, the NEL on cuda:0 (num_devices=1) and
+         particle messaging. DeepEnsemble (Adam, 1 epoch: one step hop a
+         particle a batch), SteinVGD (2 epochs, the median heuristic: the
+         paper's leader protocol, whose dense force over the gathered
+         (8, 19,775,360) matrices launches sqdist and the force once a
+         step) and MultiSWAG (Adam, 3 epochs, max_rank 20, collecting
+         after the first: SWAG_COLLECT on one-row views, one moments
+         launch per leaf per particle). Every NEL run and wait is joined
+         within NEL_T seconds (a deadlock fails the phase). Checks: one NEL
+         step against one captured compiled step from the same init and
+         batch, params within 1e-4 (DeepEnsemble with sgd(0.05), and
+         SteinVGD) and the NEL's grads within 1e-4 of one batched
+         backward's (also for DeepEnsemble's Adam step, whose params
+         difference is printed, not held: Adam's first update is about
+         sign(g), so an entry with |g| near eps may move by up to 2 lr on
+         one path and not the other); one NEL
+         collection against the fused collection on the same state,
+         moments and ring within 1e-5, equal ranks and counts; finite
+         losses; NelRuntime.predict against CompiledRuntime.predict on
+         each trained store within 1e-5; the leader's force at its shape
+         (trained g and g = 0) against the plain versions within 2e-4
+         relative; exact launch counts (16 sqdist and 16 force launches,
+         2 x 8 x 18 moments launches, nothing else), and over profiled
+         windows of two NEL steps (and two collections) the counters
+         equal to the profiler's kernel counts (each window opens with
+         32 spin kernels: the profiler misses the first kernel records
+         after it starts, which matters where a window's first launches
+         are counted ones, as a collection's are; profiler_start_probe
+         shows it and prints it); the executor's dispatched
+         and completed equal to the messages the protocols send, nothing
+         in flight after a drain, a fixed thread count and every worker
+         joined at cleanup. It prints, per algorithm, host and device
+         busy ms per step with the idle share, images/s, the executor's
+         wait and run time, queue depth and pool dispatches, the NEL's
+         dispatches and cross-device transfers, and the peak device
+         memory, beside the captured compiled step (DeepEnsemble and
+         SteinVGD profiled here on the parity PDs; SteinVGD and MultiSWAG
+         also as phase 4 measured them).
+
 Phase 5  holds the three attention kernels of the LM's other serving paths
          against their plain versions on the card: the speculative verify
          window (the tests/test_speculative.py shapes plus the serving
@@ -145,15 +186,17 @@ Phase 7  serves 8 prompts of 64 tokens (seed 2) through
          step at cur_pos = the cache length must raise ValueError on the
          host, and the card must go on stepping after it.
 
-The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4: the kernel checks
-first, then the serving runs over one set of particles, then training.
+The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8: the kernel checks
+first, then the serving runs over one set of particles, then training,
+fused and then on the NEL.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
 window kernel, phase 7's for the dense-decode kernel, phase 4's captured
 SVGD and MultiSWAG runs and its predictive), with the counts set to 0
 just before it and read just after; each count of a captured run must
-equal the eager run's.
+equal the eager run's. Each kernel's ``nel_launches`` are phase 8's, read
+the same way around its NEL runs.
 Phases 2, 4, 6 and 7 print, for each run: host ms and device busy ms
 per step with the idle share (the profiled windows), tokens/s (phase 4:
 images/s), latency p50 / p95 (serving), the cache's hits, misses and
@@ -566,12 +609,17 @@ def step_programs(torch, spec, args, n=5):
     return out
 
 
-def profile_steps(torch, step, n=5, track=(), fns=None):
+def profile_steps(torch, step, n=5, track=(), fns=None, hold=None,
+                  prologue=0):
     """Host-clock time of one synchronised ``step()``, then the device's
     busy time per step by kernel name from torch.profiler, and the share
     of device time spent in kernels whose names contain one of ``track``.
     With ``fns`` the counters' launches over the profiled window are held
-    to the profiler's kernel counts (``hold_to_profiler``)."""
+    to the profiler's kernel counts (``hold``, by default
+    ``hold_to_profiler``). ``prologue`` spin kernels open the profiled
+    window (left out of the sums): the profiler misses the first kernel
+    records after it starts (``profiler_start_probe``), which matters
+    where the window's first launches are counted ones."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
@@ -584,12 +632,15 @@ def profile_steps(torch, step, n=5, track=(), fns=None):
     before = None if fns is None else read_counts(fns)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(prologue):
+            torch.cuda._sleep(1000)
         for _ in range(n):
             step()
             torch.cuda.synchronize()
     per_kernel = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or (prologue and "spin_kernel" in e.key):
             continue
         us = getattr(e, "self_device_time_total", None)
         us = getattr(e, "self_cuda_time_total", 0) if us is None else us
@@ -605,8 +656,8 @@ def profile_steps(torch, step, n=5, track=(), fns=None):
     if fns is not None:
         got = {k: v - before[k] for k, v in read_counts(fns).items()}
         out["launches"] = got
-        out["profiler_launches"] = hold_to_profiler(torch, prof, got,
-                                                    "profiled steps")
+        out["profiler_launches"] = (hold or hold_to_profiler)(
+            torch, prof, got, "profiled steps")
     if track:
         mine = {t: sum(v for k, v in per_kernel.items() if t in k)
                 for t in track}
@@ -1792,28 +1843,33 @@ def same_runs(runs, what):
     same_launches({m: r["launches"] for m, r in runs.items()}, what)
 
 
+def vit_module():
+    """The full-width ViT-MNIST config and its ParticleModule."""
+    from repro_torch import configs
+    from repro_torch.core import ParticleModule
+    from repro_torch.models import api
+    cfg = configs.get("vit-mnist")
+    return cfg, ParticleModule(init=lambda g: api.init_params(g, cfg),
+                               loss=lambda p, b: api.loss_fn(p, b, cfg),
+                               forward=lambda p, b: api.forward(p, b, cfg)[0],
+                               cfg=cfg)
+
+
 def phase4(torch):
     """SVGD and MultiSWAG training of full-width ViT-MNIST particles, each
     run captured and then eager, and the MultiSWAG posterior predictive;
     each driven run between a reset and a read of the kernels' launch
     counts."""
-    from repro_torch import configs
     from repro_torch.bdl import MultiSWAG, SteinVGD
     from repro_torch.bdl.svgd import svgd_force, svgd_step_spec
     from repro_torch.bdl.swag import swag_collect
-    from repro_torch.core import ParticleModule
     from repro_torch.core.functional import (ensemble_value_and_grad,
                                              flatten_stacked)
     from repro_torch.core.tree import tree_leaves, to_device
     from repro_torch.data import DataLoader, mnist_like
-    from repro_torch.models import api
     from repro_torch.optim import adam
     from repro_torch.runtime import specs
-    cfg = configs.get("vit-mnist")
-    module = ParticleModule(init=lambda g: api.init_params(g, cfg),
-                            loss=lambda p, b: api.loss_fn(p, b, cfg),
-                            forward=lambda p, b: api.forward(p, b, cfg)[0],
-                            cfg=cfg)
+    cfg, module = vit_module()
     P, B, NB = TRAIN_P, TRAIN_B, TRAIN_NB
     out, launches = {"phase": 4, "model": cfg.name, "particles": P,
                      "batch": B, "batches_per_epoch": NB}, {}
@@ -1943,10 +1999,17 @@ def phase4(torch):
     out["launches"] = launches
     out["peak_mem_gb"] = max(peak, torch.cuda.max_memory_allocated() / 2**30)
     emit(out)
-    return {"pairwise_sqdist": launches["svgd"]["pairwise_sqdist"],
-            "svgd_force": launches["svgd"]["svgd_force"],
-            "swag_moments": launches["multiswag"]["swag_moments"],
-            "swag_diag_std": launches["predictive"]["swag_diag_std"]}
+    captured = {name: {"step_ms": out[name]["captured"]["step_ms"],
+                       "images_per_s": out[name]["captured"]["images_per_s"],
+                       "profile": out[name]["captured"].get(
+                           "profile", out[name]["captured"].get(
+                               "profile_train_step"))}
+                for name in ("svgd", "multiswag")}
+    return ({"pairwise_sqdist": launches["svgd"]["pairwise_sqdist"],
+             "svgd_force": launches["svgd"]["svgd_force"],
+             "swag_moments": launches["multiswag"]["swag_moments"],
+             "swag_diag_std": launches["predictive"]["swag_diag_std"]},
+            captured)
 
 
 def swag_checks(torch, algo, images, n_leaves, launches):
@@ -2006,6 +2069,481 @@ def swag_checks(torch, algo, images, n_leaves, launches):
                            "heads_kernel_vs_plain": heads_diff}}
 
 
+# --------------------------------------------------------------------------
+# phase 8: the actor runtime — backend="nel" training of ViT-MNIST particles
+# --------------------------------------------------------------------------
+
+NEL_T = 600.0       # seconds any one NEL run or wait may take
+# the profiler's names for the training kernels the counters count (the
+# sqdist wrapper's second stage is counted with its first)
+TRAIN_PROFILER_NAMES = {"pairwise_sqdist": "sqdist_stream_kernel",
+                        "svgd_force": "svgd_force_kernel",
+                        "swag_moments": "moments_kernel"}
+
+
+def bounded(fn, *args, timeout=NEL_T, **kw):
+    """``fn(*args, **kw)`` on a thread joined within ``timeout`` s: a
+    deadlocked protocol fails the phase instead of eating the time
+    limit (the thread is a daemon and dies with the process)."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kw)
+        except BaseException as e:      # re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        raise AssertionError(f"{getattr(fn, '__name__', fn)} did not finish "
+                             f"within {timeout} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def train_counts():
+    fns = reset_counts()
+    return {k: fns[k] for k in TRAIN_PROFILER_NAMES}
+
+
+def train_kernels_seen(torch, prof, names=TRAIN_PROFILER_NAMES):
+    """{counter: launches the profiler saw of its kernel} over a window."""
+    seen = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, part in names.items():
+            if part in e.key:
+                seen[name] += e.count
+    return seen
+
+
+def hold_train_to_profiler(torch, prof, got, what):
+    """The training kernels' counters over a profiled window against the
+    launches the profiler saw on the card, exactly."""
+    seen = train_kernels_seen(torch, prof)
+    if seen != got:
+        raise AssertionError(f"{what}: counters {got}, profiler {seen}")
+    return seen
+
+
+def profiler_start_probe(torch, fn, k=32):
+    """Does torch.profiler see the first kernels launched after it
+    starts? ``fn`` alone in a fresh profile, then after ``k`` untracked
+    spin kernels (``torch.cuda._sleep``): the training counters' launches
+    in ``fn`` and what the profiler saw of them and of the spins."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for spins in (0, k):
+        fns = train_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(spins):
+                torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        out[f"after_{spins}_spins"] = {
+            "counters": read_counts(fns),
+            "profiler": train_kernels_seen(torch, prof),
+            "spins_seen": train_kernels_seen(
+                torch, prof, {"spin": "spin_kernel"})["spin"]}
+    return out
+
+
+def one_step_parity(torch, cls, module, batch, **kw):
+    """One NEL step and one captured compiled step from the same init
+    (seed SEED) on the same host batch. Returns the params' max abs
+    difference (with how many entries exceed 1e-4 and the largest |g| of
+    the NEL's grads there), the NEL's per-particle grads against one
+    batched backward at the same init (the compiled path's), and the
+    compiled algorithm, its step program captured once."""
+    from repro_torch.core import PushDistribution
+    from repro_torch.core.functional import (ensemble_value_and_grad,
+                                             flatten_rows, flatten_stacked)
+    from repro_torch.core.tree import to_device
+    from repro_torch.runtime import ProgramCache
+    algos = {}
+    for backend in ("nel", "compiled"):
+        algo = cls(module, seed=SEED, backend=backend)
+        if backend == "compiled":
+            algo.push_dist.runtime.cache = ProgramCache()
+        bounded(algo.bayes_infer, [batch], 1, num_particles=TRAIN_P, **kw)
+        algos[backend] = algo
+    nel, comp = algos["nel"], algos["compiled"]
+    info = comp.push_dist.runtime.cache.program_info()
+    if not (len(info) == 1 and info[0]["graph"]):
+        raise AssertionError(f"{cls.__name__}: compiled step not one "
+                             f"captured program: {info}")
+    pids = nel.push_dist.particle_ids()
+    theta = flatten_rows([nel.push_dist.p_params(p) for p in pids])[0]
+    diff = (theta - flatten_rows([comp.push_dist.p_params(p) for p in
+                                  comp.push_dist.particle_ids()])[0]).abs()
+    del theta
+    g = flatten_rows([nel.push_dist.particles[p].gradients()
+                      for p in pids])[0]
+    over = diff > 1e-4
+    out = {"params_max_abs": float(diff.max()),
+           "params_over_1e-4": int(over.sum()),
+           "max_abs_grad_where_over": (float(g[over].abs().max())
+                                       if bool(over.any()) else 0.0)}
+    del diff, over
+    nel.cleanup()
+    del nel, algos
+    # the compiled path's grads: one batched backward at the same init
+    init = PushDistribution(module, seed=SEED, backend="compiled")
+    for _ in range(TRAIN_P):
+        init.p_create()
+    gb = flatten_stacked(ensemble_value_and_grad(module.loss)(
+        init.store.dense("params"), to_device(batch, "cuda"))[1])[0]
+    out["grads_max_abs"] = float((g - gb).abs().max())
+    out["grad_abs_max"] = float(g.abs().max())
+    del g, gb, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, comp
+
+
+def compiled_step_window(torch, comp, spec, keys, batch):
+    """``program_window`` of the compiled PD's own step program."""
+    store = comp.store
+    mask = store.active_mask()
+    co = {k: store.checkout(k) for k in keys}
+    try:
+        prof = program_window(torch, comp.push_dist.runtime, spec,
+                              tuple(co[k] for k in keys) + (batch, mask))
+    finally:
+        for k in keys:
+            store.commit(k, co[k])
+    return {"step_ms": prof["wall_ms"],
+            "images_per_s": TRAIN_P * TRAIN_B / prof["wall_ms"] * 1e3,
+            "profile": prof}
+
+
+def nel_run(torch, cls, module, epochs, **kw):
+    """One driven NEL run (backend="nel", the default) of ``cls`` over
+    TRAIN_P fresh particles (seed SEED, the seeded loader), between a
+    reset and a read of the kernels' launch counts. Returns (algorithm,
+    last losses, launches, wall s, the GB left allocated before it)."""
+    from repro_torch.data import DataLoader
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    algo = cls(module, seed=SEED)
+    if algo.backend != "nel":
+        raise AssertionError(f"default backend {algo.backend}")
+    loader = DataLoader(module.cfg, batch_size=TRAIN_B,
+                        num_batches=TRAIN_NB, seed=SEED)
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    _, losses = bounded(algo.bayes_infer, loader, epochs,
+                        num_particles=TRAIN_P, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts(fns)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"NEL {cls.__name__} losses {losses}")
+    return algo, losses, got, wall, resident
+
+
+def executor_health(algo, dispatches, pool, threads_before):
+    """The protocol's message count, nothing in flight, a fixed thread
+    count; returns the executor's and the NEL's counters."""
+    pd = algo.push_dist
+    pd.drain(NEL_T)
+    ex, nel = pd.nel.executor.stats(), dict(pd.nel.stats)
+    want = {"dispatched": dispatches, "completed": dispatches,
+            "pool_dispatched": pool, "threads": pd.nel.executor.num_threads}
+    got = {k: ex[k] for k in want}
+    if got != want or nel["dispatches"] != dispatches \
+            or nel["xdev_transfers"] != 0:
+        raise AssertionError(f"executor {got} / NEL {nel}, want {want}")
+    import threading
+    if threading.active_count() != threads_before + ex["threads"]:
+        raise AssertionError(f"{threading.active_count()} threads, want "
+                             f"{threads_before} + {ex['threads']}")
+    return {"executor": {k: ex[k] for k in (
+                "dispatched", "pool_dispatched", "wait_time_s",
+                "run_time_s", "max_queue_depth", "threads")},
+            "nel": {k: nel[k] for k in ("dispatches", "xdev_transfers",
+                                        "swaps_in", "swaps_out")}}
+
+
+def predict_parity(torch, algo, images):
+    """NelRuntime.predict (per-particle forwards, host average) against
+    CompiledRuntime.predict (one captured forward) on the same store:
+    their max abs difference."""
+    from repro_torch.runtime import CompiledRuntime, ProgramCache
+    nel = bounded(algo.posterior_pred, images)
+    pd = algo.push_dist
+    comp = CompiledRuntime(pd, ProgramCache()).predict(pd, images)
+    if not bool(torch.isfinite(nel).all()):
+        raise AssertionError("NEL predict is not finite")
+    return float((nel - comp).abs().max())
+
+
+def shut(algo, threads_before):
+    """cleanup(): the NEL drains and its workers are joined."""
+    import threading
+    ex = algo.push_dist.nel.executor
+    algo.cleanup()
+    alive = [t.name for t in ex._threads if t.is_alive()]
+    if alive or threading.active_count() != threads_before:
+        raise AssertionError(f"shutdown left {alive} alive")
+
+
+def nel_window(torch, step, what, failed, images=True):
+    """Two NEL steps profiled (``profile_steps``, n = 2, after a
+    prologue of 32 spin kernels), the training kernels' counters held to
+    the profiler's counts; with ``images`` the rate of a train step over
+    P x B images."""
+    try:
+        prof = profile_steps(torch, lambda: bounded(step), n=2, track=OURS,
+                             fns=train_counts(), hold=hold_train_to_profiler,
+                             prologue=32)
+    except AssertionError as e:     # the phase fails at its end
+        failed.append(f"{what}: {e}")
+        prof = profile_steps(torch, lambda: bounded(step), n=2, track=OURS,
+                             prologue=32)
+    if images:
+        prof["images_per_s"] = TRAIN_P * TRAIN_B / prof["wall_ms"] * 1e3
+    prof["what"] = what
+    return prof
+
+
+def phase8(torch, captured):
+    """DeepEnsemble, SteinVGD and MultiSWAG of full-width ViT-MNIST
+    particles with backend="nel" (the default): the executor, the NEL,
+    particle messaging and the SVGD leader protocol on the card."""
+    import threading
+    from repro_torch.bdl import DeepEnsemble, MultiSWAG, SteinVGD
+    from repro_torch.bdl.svgd import svgd_force, svgd_step_spec
+    from repro_torch.bdl.swag import swag_collect
+    from repro_torch.core.functional import flatten_rows
+    from repro_torch.core.tree import tree_flatten, tree_leaves, \
+        tree_map, to_device
+    from repro_torch.data import DataLoader, mnist_like
+    from repro_torch.optim import adam, sgd
+    from repro_torch.runtime import specs
+    cfg, module = vit_module()
+    P, B, NB = TRAIN_P, TRAIN_B, TRAIN_NB
+    out = {"phase": 8, "model": cfg.name, "particles": P, "batch": B,
+           "batches_per_epoch": NB, "backend": "nel", "num_devices": 1,
+           "resident_gb": torch.cuda.memory_allocated() / 2**30}
+    host_batch = next(iter(DataLoader(cfg, batch_size=B, num_batches=1,
+                                      seed=7)))
+    batch = to_device(host_batch, "cuda")
+    images = mnist_like(np.random.default_rng(1), B, cfg.vocab_size)
+    threads = threading.active_count()
+    launches, peak, failed = {}, 0.0, []
+    opt = adam(1e-3)
+
+    def check(ok, what):
+        """A failed check fails the phase at its end, after the rest ran."""
+        if not ok:
+            failed.append(what)
+
+    # (a) DeepEnsemble. One step with sgd(0.05) is held to 1e-4: Adam's
+    # first update is g / (|g| + eps), about sign(g), so rounding at a
+    # gradient entry near eps (1e-8) may move that parameter by up to
+    # 2 lr on one path and not the other; Adam's step is printed beside
+    # it with the entries over 1e-4 and the largest |g| among them. Both
+    # hold the NEL's grads to one batched backward's within 1e-4.
+    row = {}
+    for name, o in (("sgd", sgd(0.05)), ("adam", opt)):
+        par, comp = one_step_parity(torch, DeepEnsemble, module,
+                                    host_batch, optimizer=o)
+        row[f"one_step_vs_captured_{name}"] = par
+        check(par["grads_max_abs"] < 1e-4, f"DeepEnsemble {name} grads "
+              f"{par}")
+        if name == "sgd":
+            check(par["params_max_abs"] < 1e-4,
+                  f"DeepEnsemble sgd one step {par}")
+        else:
+            row["compiled_captured"] = compiled_step_window(
+                torch, comp, specs.ensemble_step(module.loss, o),
+                ("params", "opt_state"), batch)
+        comp.cleanup()
+        del comp
+        gc.collect()
+        torch.cuda.empty_cache()
+    algo, losses, got, wall, resident = nel_run(torch, DeepEnsemble, module,
+                                                1, optimizer=opt)
+    if any(got.values()):
+        raise AssertionError(f"NEL DeepEnsemble launched kernels: {got}")
+    row.update({"epochs": 1, "steps": NB, "wall_s": wall,
+                "last_losses": losses, "resident_gb": resident,
+                **executor_health(algo, NB * P, 0, threads),
+                "predict_vs_compiled_max_abs": predict_parity(torch, algo,
+                                                              images)})
+    pd = algo.push_dist
+    pids = pd.particle_ids()
+
+    def de_step():
+        futs = [pd.particles[p].step(batch) for p in pids]
+        return [float(f.wait()) for f in futs]
+
+    row["nel_step"] = nel_window(torch, de_step, "one step hop a particle",
+                                 failed)
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(peak, row["peak_gb"])
+    shut(algo, threads)
+    del algo, pd, de_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["deep_ensemble"] = row
+    emit({"phase": 8, "part": "deep_ensemble", **row})
+
+    # (b) SteinVGD, the leader protocol, median heuristic, 2 epochs
+    svgd_kw = {"lengthscale": 0.0, "lr": 1e-3}
+    par, comp = one_step_parity(torch, SteinVGD, module, host_batch,
+                                **svgd_kw)
+    check(par["params_max_abs"] < 1e-4 and par["grads_max_abs"] < 1e-4,
+          f"SteinVGD one step {par}")
+    row = {"one_step_vs_captured": par,
+           "compiled_captured": compiled_step_window(
+               torch, comp, svgd_step_spec(module.loss, **svgd_kw),
+               ("params",), batch),
+           "phase4_captured": captured["svgd"]}
+    comp.cleanup()
+    del comp
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = 2 * NB
+    algo, losses, got, wall, resident = nel_run(torch, SteinVGD, module, 2,
+                                                **svgd_kw)
+    want = {k: 0 for k in got}
+    want.update(pairwise_sqdist=steps, svgd_force=steps)
+    if got != want:
+        raise AssertionError(f"NEL SVGD launches {got}, want {want}")
+    launches["svgd"] = got
+    # per step: the leader's grad, P - 1 SVGD_STEP sends and their grads,
+    # P - 1 gets (on the pool), P - 1 SVGD_FOLLOW sends and their
+    # updates, the leader's update; plus the one SVGD_LEADER launch
+    row.update({"epochs": 2, "steps": steps, "wall_s": wall,
+                "last_losses": losses, "resident_gb": resident,
+                "launches": got,
+                **executor_health(algo, 1 + steps * (5 * (P - 1) + 2),
+                                  steps * (P - 1), threads),
+                "predict_vs_compiled_max_abs": predict_parity(torch, algo,
+                                                              images)})
+    pd = algo.push_dist
+    pids = pd.particle_ids()
+    # the leader's force once more, at its (P, D) shape: the particles'
+    # params and last grads gathered as the leader gathers them, dense
+    theta = flatten_rows([pd.p_params(p) for p in pids])[0]
+    g = flatten_rows([pd.particles[p].gradients() for p in pids])[0]
+    if tuple(theta.shape) != (P, TRAIN_D):
+        raise AssertionError(f"leader's theta {tuple(theta.shape)}")
+    row["leader_force_vs_plain_rel"] = rel_err(svgd_force(theta, g, 0.0),
+                                               plain_force(theta, g, 0.0))
+    zeros = torch.zeros_like(g)
+    row["leader_repulsive_vs_plain_rel"] = rel_err(
+        svgd_force(theta, zeros, 0.0), plain_force(theta, zeros, 0.0))
+    check(row["leader_force_vs_plain_rel"] < 2e-4
+          and row["leader_repulsive_vs_plain_rel"] < 2e-4,
+          f"leader force kernel vs plain: {row}")
+    del theta, g, zeros
+    torch.cuda.empty_cache()
+    leader = pids[0]
+
+    def svgd_step():
+        return pd.p_launch(leader, "SVGD_LEADER", svgd_kw["lr"],
+                           svgd_kw["lengthscale"], [batch], 1).wait(NEL_T)
+
+    row["nel_step"] = nel_window(torch, svgd_step, "one leader step",
+                                 failed)
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(peak, row["peak_gb"])
+    shut(algo, threads)
+    del algo, pd, svgd_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["svgd"] = row
+    emit({"phase": 8, "part": "svgd", **row})
+
+    # (c) MultiSWAG, Adam, 3 epochs collecting after the first, rank 20
+    algo, losses, got, wall, resident = nel_run(
+        torch, MultiSWAG, module, 3, optimizer=opt, pretrain_epochs=1,
+        max_rank=20)
+    pd = algo.push_dist
+    pids = pd.particle_ids()
+    n_leaves = len(tree_leaves(pd.p_params(pids[0])))
+    want = {k: 0 for k in got}
+    want["swag_moments"] = 2 * P * n_leaves     # P = 1 views
+    if got != want:
+        raise AssertionError(f"NEL MultiSWAG launches {got}, want {want}")
+    launches["multiswag"] = got
+    row = {"epochs": 3, "steps": 3 * NB, "collects": 2, "wall_s": wall,
+           "last_losses": losses, "resident_gb": resident,
+           "launches": got, "phase4_captured": captured["multiswag"],
+           **executor_health(algo, 3 * NB * P + 2 * P, 0, threads),
+           "predict_vs_compiled_max_abs": predict_parity(torch, algo,
+                                                         images)}
+    # one NEL collection against the fused collection on the same state
+    store, mask = algo.store, algo.store.active_mask()
+    fused = tree_map(torch.clone, store.stacked("swag"))
+    swag_collect(fused, store.stacked("params"), mask)
+    bounded(pd.p_wait, [pd.p_launch(p, "SWAG_COLLECT") for p in pids],
+            NEL_T)
+    nel = store.stacked("swag")
+    check(torch.equal(nel["rank"], fused["rank"])
+          and torch.equal(nel["n"], fused["n"]),
+          "NEL vs fused collection: ranks or counts differ")
+    row["collect_vs_fused"] = {
+        key: max(float((a - b).abs().max()) for a, b in zip(
+            tree_flatten(nel[key], sort_keys=True)[0],
+            tree_flatten(fused[key], sort_keys=True)[0]))
+        for key in ("mean", "sq_mean", "dev")}
+    check(max(row["collect_vs_fused"].values()) <= 1e-5,
+          f"NEL vs fused collection: {row['collect_vs_fused']}")
+    row["rank_after"] = int(nel["rank"][0])
+    del fused, nel
+    torch.cuda.empty_cache()
+
+    def swag_step():
+        futs = [pd.particles[p].step(batch) for p in pids]
+        return [float(f.wait()) for f in futs]
+
+    def swag_collection():
+        return pd.p_wait([pd.p_launch(p, "SWAG_COLLECT") for p in pids],
+                         NEL_T)
+
+    row["nel_step"] = nel_window(torch, swag_step, "one step hop a particle",
+                                 failed)
+    row["profiler_start_probe"] = profiler_start_probe(
+        torch, lambda: bounded(swag_collection))
+    row["nel_collect"] = nel_window(torch, swag_collection,
+                                    "one SWAG_COLLECT a particle", failed,
+                                    images=False)
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(peak, row["peak_gb"])
+    shut(algo, threads)
+    del algo, pd, store, mask, swag_step, swag_collection
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["multiswag"] = row
+    emit({"phase": 8, "part": "multiswag", **row})
+    out["launches"] = launches
+    out["peak_mem_gb"] = peak
+    out["threads_after"] = threading.active_count()
+    for name in ("deep_ensemble", "svgd", "multiswag"):
+        check(out[name]["predict_vs_compiled_max_abs"] < 1e-5,
+              f"{name}: NEL vs compiled predict "
+              f"{out[name]['predict_vs_compiled_max_abs']}")
+    out["failed_checks"] = failed
+    emit({k: v for k, v in out.items()
+          if k not in ("deep_ensemble", "svgd", "multiswag")})
+    if failed:
+        raise AssertionError(f"phase 8: {failed}")
+    return {"pairwise_sqdist": launches["svgd"]["pairwise_sqdist"],
+            "svgd_force": launches["svgd"]["svgd_force"],
+            "swag_moments": launches["multiswag"]["swag_moments"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2055,9 +2593,14 @@ def main():
     torch.cuda.empty_cache()
     for row in phase3(torch):
         rows[row["name"]] = row
-    launches.update(phase4(torch))
+    got, captured = phase4(torch)
+    launches.update(got)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nel_launches = phase8(torch, captured)
     for name, row in rows.items():
         row["launches"] = launches[name]
+        row["nel_launches"] = nel_launches.get(name, 0)
     rows = list(rows.values())
     emit({"kernels": rows})
     print(smi.stdout.strip().splitlines()[0], flush=True)

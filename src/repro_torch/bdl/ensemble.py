@@ -1,11 +1,13 @@
 """Deep ensembles (Lakshminarayanan et al., 2017) on particles
 (counterpart of ``repro.bdl.ensemble``).
 
-No communication between particles (paper §3.1). Under
-``backend="compiled"`` every particle trains in one step over the stacked
-particle axis, a ``ProgramSpec`` (a CUDA graph on the card): state
-checked out of the ParticleStore once, updated in place every step,
-committed back once at the end.
+No communication between particles (paper §3.1): under the default
+``backend="nel"`` each particle trains on its own device timeline, one
+``step`` hop per particle per batch. Under ``backend="compiled"`` every
+particle trains in one step over the stacked particle axis, a
+``ProgramSpec`` (a CUDA graph on the card): state checked out of the
+ParticleStore once, updated in place every step, committed back once at
+the end.
 """
 from __future__ import annotations
 
@@ -14,6 +16,18 @@ from .infer import Infer
 
 
 class DeepEnsemble(Infer):
+    def _nel_infer(self, dataloader, epochs: int, *, optimizer,
+                   num_particles: int = 4):
+        pd = self.push_dist
+        pids = [pd.p_create(optimizer) for _ in range(num_particles)]
+        losses = []
+        for _ in range(epochs):
+            for batch in dataloader:
+                batch = self._batch(batch)
+                futs = [pd.particles[pid].step(batch) for pid in pids]
+                losses = [float(f.wait()) for f in futs]
+        return pids, losses
+
     def _fused_infer(self, dataloader, epochs: int, *, optimizer,
                      num_particles: int = 4):
         pids = [self.push_dist.p_create(optimizer)

@@ -3,11 +3,18 @@ BDL algorithms extend Infer and express inference over particles.
 
 ``bayes_infer`` is the stable entry point; it hands the algorithm to the
 PD's runtime object (``runtime.backends``). Subclasses implement
+``_nel_infer`` (the paper-faithful message-passing procedure on the
+PD's NEL, the default ``backend="nel"``) and may implement
 ``_fused_infer`` (an epoch loop over the store's stacked state, checked
 out once and committed once, each step a program of the runtime's
-``ProgramCache`` fetched once per run); the paper-faithful
-message-passing form waits for the actor-messaging slice, so callers
-pass ``backend="compiled"``.
+``ProgramCache`` fetched once per run). The CompiledRuntime takes the
+fused form when there is one and falls back to the NEL procedure
+otherwise. Both paths share the PD's ParticleStore.
+
+The NEL procedures convert each host batch to tensors on the store's
+device once (``_batch``) and hand that one object to every particle's
+hop, and they keep the reference's protocol of one host wait per
+particle per step (``float(f.wait())``).
 """
 from __future__ import annotations
 
@@ -18,13 +25,27 @@ from ..core.tree import to_device
 from ..runtime.backends import CompiledRuntime
 
 
+class _OnDevice:
+    """A data loader seen through ``to_device``: each pass iterates the
+    loader anew (a new epoch's batches), each batch moved as it comes."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.device = device
+
+    def __iter__(self):
+        return (to_device(b, self.device) for b in self.loader)
+
+
 class Infer:
-    def __init__(self, module: ParticleModule, *, seed: int = 0,
-                 backend: str = "nel", capacity: int = 0, precision=None,
-                 device=None):
+    def __init__(self, module: ParticleModule, *, num_devices: int = 1,
+                 cache_size: int = 4, seed: int = 0, backend: str = "nel",
+                 capacity: int = 0, precision=None, device=None):
         self.module = module
-        self.push_dist = PushDistribution(module, seed=seed, backend=backend,
-                                          capacity=capacity,
+        self.num_devices = num_devices
+        self.push_dist = PushDistribution(module, num_devices=num_devices,
+                                          cache_size=cache_size, seed=seed,
+                                          backend=backend, capacity=capacity,
                                           precision=precision, device=device)
 
     @property
@@ -39,14 +60,20 @@ class Infer:
     def store(self):
         return self.push_dist.store
 
+    def _has_fused(self) -> bool:
+        return type(self)._fused_infer is not Infer._fused_infer
+
     @contextmanager
     def _checked_out(self, pids, keys):
         """Checkout/commit protocol shared by every fused epoch loop: yield
         a dict of stacked state (the loop rebinds its entries as it
         trains); whatever was checked out is committed back exactly once,
-        even on a mid-loop failure. ``pids`` is None: the full live set."""
+        even on a mid-loop failure. ``pids`` is None: the full live set.
+        The NEL is drained first: no hop may write the state once it is
+        checked out, nor launch while a step is being captured."""
         if pids is not None:
             raise NotImplementedError("pid-subset checkouts are not ported")
+        self.push_dist.drain()
         store = self.push_dist.store
         co = {}
         try:
@@ -86,6 +113,11 @@ class Infer:
         trained twice."""
         return to_device(batch, self.push_dist.device)
 
+    def _on_device(self, dataloader):
+        """``dataloader`` with every batch moved to the store's device,
+        for a NEL handler that iterates it on a worker."""
+        return _OnDevice(dataloader, self.push_dist.device)
+
     @staticmethod
     def _losses(ls, slots):
         return [] if ls is None else [float(x) for x in ls.cpu()[slots]]
@@ -93,8 +125,11 @@ class Infer:
     def bayes_infer(self, dataloader, epochs: int, **kw):
         return self.push_dist.runtime.infer(self, dataloader, epochs, **kw)
 
-    def _fused_infer(self, dataloader, epochs: int, **kw):
+    def _nel_infer(self, dataloader, epochs: int, **kw):
         raise NotImplementedError
+
+    def _fused_infer(self, dataloader, epochs: int, **kw):
+        raise NotImplementedError   # overriding marks the algorithm fusable
 
     def posterior_pred(self, batch):
         return self.push_dist.p_predict(batch)

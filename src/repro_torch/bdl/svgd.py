@@ -1,5 +1,6 @@
 """Stein Variational Gradient Descent (Liu & Wang, 2016) on particles
-(counterpart of ``repro.bdl.svgd``, compiled stacked-axis path).
+(counterpart of ``repro.bdl.svgd``: the paper's leader protocol on the
+NEL, and the compiled stacked-axis path).
 
 Update rule (standard SVGD, descent form):
 
@@ -19,6 +20,13 @@ store's row mask, so they sit on the fused path; the reference's Pallas
 kernels are dense-only, and its fused step runs the jnp form instead.
 With ``lengthscale <= 0`` the port follows the jnp semantics (the median
 heuristic, over live pairs when masked), not the Pallas path's raw ell.
+
+Under ``backend="nel"`` (paper Fig. 6) the leader particle steps every
+particle (``SVGD_STEP``: a backward pass, grads stashed in the store),
+gathers read-only clones of their params and grads (``get``), stacks
+them into (n, D) fp32 ``theta`` and ``g`` and calls ``svgd_force`` with
+no mask: on the card one launch of each kernel per step. It then sends
+each particle its row of phi (``SVGD_FOLLOW``).
 """
 from __future__ import annotations
 
@@ -135,9 +143,80 @@ def svgd_step_spec(loss_fn, *, lr: float, lengthscale: float = 1.0,
         out_kinds=("in:0", "vector"))
 
 
+# ---------------------------------------------------------------------------
+# paper-faithful message-passing SVGD (Fig. 5 / Fig. 6)
+# ---------------------------------------------------------------------------
+
+def _svgd_step(particle, batch):
+    """SVGD_STEP handler: local backward pass, stash grads."""
+    return particle.grad(batch).wait()
+
+
+def _svgd_follow(particle, lr, update):
+    """SVGD_FOLLOW handler: apply the leader's kernel update."""
+    return particle.apply_update(update, lr).wait()
+
+
+def _svgd_leader(particle, lr, lengthscale, dataloader, epochs):
+    """SVGD_LEADER handler (paper Fig. 6). Per batch: (1) step every
+    particle (their backward passes queue on their devices), (2) gather
+    every other particle's params and grads as read-only clones, (3) the
+    kernel force over the (n, D) matrices, (4) SVGD_FOLLOW to every
+    particle. ``dataloader`` yields batches already on the device."""
+    others = [pid for pid in particle.particle_ids() if pid != particle.pid]
+    losses = []
+    for _ in range(epochs):
+        for batch in dataloader:
+            # 1. step every particle
+            fut = particle.grad(batch)
+            futs = [particle.send(pid, "SVGD_STEP", batch) for pid in others]
+            losses = [float(fut.wait())] + [float(f.wait()) for f in futs]
+
+            # 2. gather every other particle's parameters + grads
+            views = [particle.get(pid) for pid in others]
+            views = [f.wait() for f in views]
+            theta, unravel = functional.flatten_rows(
+                [particle.state["params"]] + [v.parameters() for v in views])
+            g, _ = functional.flatten_rows(
+                [particle.state["grads"]] + [v.gradients() for v in views])
+            del views
+
+            # 3. kernel force (dense: every particle is live)
+            phi = svgd_force(theta.float(), g.float(), lengthscale)
+            del theta, g
+
+            # 4. send updates (concurrent follow)
+            futs = [particle.send(pid, "SVGD_FOLLOW", lr, unravel(phi[i + 1]))
+                    for i, pid in enumerate(others)]
+            _svgd_follow(particle, lr, unravel(phi[0]))
+            for f in futs:
+                f.wait()
+    return losses
+
+
 class SteinVGD(Infer):
     def _create(self, num_particles: int):
-        return [self.push_dist.p_create() for _ in range(num_particles)]
+        """The leader on device 0, the others round-robin, each with the
+        handlers of its role."""
+        pd = self.push_dist
+        pids = [pd.p_create(None, device=0,
+                            receive={"SVGD_LEADER": _svgd_leader,
+                                     "SVGD_STEP": _svgd_step,
+                                     "SVGD_FOLLOW": _svgd_follow})]
+        for p in range(num_particles - 1):
+            pids.append(pd.p_create(
+                None, device=(p + 1) % self.num_devices,
+                receive={"SVGD_STEP": _svgd_step,
+                         "SVGD_FOLLOW": _svgd_follow}))
+        return pids
+
+    def _nel_infer(self, dataloader, epochs: int, *, num_particles: int = 4,
+                   lengthscale: float = 1.0, lr: float = 1e-3):
+        pids = self._create(num_particles)
+        losses = self.push_dist.p_wait([self.push_dist.p_launch(
+            pids[0], "SVGD_LEADER", lr, lengthscale,
+            self._on_device(dataloader), epochs)])[0]
+        return pids, losses
 
     def _fused_infer(self, dataloader, epochs: int, *, num_particles: int = 4,
                      lengthscale: float = 1.0, lr: float = 1e-3):

@@ -1,5 +1,6 @@
 """SWAG / MultiSWAG (Maddox et al., 2019; Wilson & Izmailov, 2020)
-(counterpart of ``repro.bdl.swag``, compiled stacked-axis path).
+(counterpart of ``repro.bdl.swag``: the NEL and the compiled stacked-axis
+paths).
 
 SWAG assumes the posterior is Normal with moments taken from the SGD
 trajectory:
@@ -19,6 +20,12 @@ hand-written kernels (``kernels.ops``: CUDA on the card, the plain
 versions on the CPU), one launch per parameter leaf. The collection
 writes the deviation ring in place: it is ``max_rank`` times the
 parameters, too large to copy per collection.
+
+Under ``backend="nel"`` every particle steps on its own timeline and,
+once per epoch after the pretraining, handles ``SWAG_COLLECT``: the same
+collection over one-row views of its own state (P = 1: one moments
+launch per leaf per particle), written back through ``particle.state``
+so that the store's version and dirty tracking see it.
 
 Sampling takes its Gaussian noise as an input (``z1`` per leaf, ``z2``
 per rank slot): ``jax.random`` and torch give different numbers, so
@@ -137,15 +144,40 @@ def swag_sample_stacked(stacked_state, samples_per_particle: int,
     return _sample(stacked_state, *noise, scale)
 
 
+def _swag_collect_msg(particle):
+    """SWAG_COLLECT handler: one collection of this particle's moments,
+    in place on one-row views of its state, then written back."""
+    swag = particle.state["swag"]
+    swag_collect(tree_map(lambda x: x[None], swag),
+                 tree_map(lambda x: x[None], particle.state["params"]))
+    particle.state["swag"] = swag
+
+
 class MultiSWAG(Infer):
     def _create(self, optimizer, num_particles, max_rank):
         pids = []
         for _ in range(num_particles):
-            pid = self.push_dist.p_create(optimizer)
-            self.store.write("swag", pid, swag_state_init(
-                self.push_dist.p_params(pid), max_rank))
+            pid = self.push_dist.p_create(
+                optimizer, receive={"SWAG_COLLECT": _swag_collect_msg})
+            p = self.push_dist.particles[pid]
+            p.state["swag"] = swag_state_init(p.state["params"], max_rank)
             pids.append(pid)
         return pids
+
+    def _nel_infer(self, dataloader, epochs: int, *, optimizer,
+                   num_particles: int = 4, pretrain_epochs: int = 0,
+                   max_rank: int = 20):
+        pd = self.push_dist
+        pids = self._create(optimizer, num_particles, max_rank)
+        losses = []
+        for e in range(epochs):
+            for batch in dataloader:
+                batch = self._batch(batch)
+                futs = [pd.particles[pid].step(batch) for pid in pids]
+                losses = [float(f.wait()) for f in futs]
+            if e >= pretrain_epochs:    # collect moments once per epoch
+                pd.p_wait([pd.p_launch(pid, "SWAG_COLLECT") for pid in pids])
+        return pids, losses
 
     def _fused_infer(self, dataloader, epochs: int, *, optimizer,
                      num_particles: int = 4, pretrain_epochs: int = 0,

@@ -41,6 +41,26 @@ def flatten_stacked(stacked):
     return flat, unravel
 
 
+def flatten_rows(trees):
+    """[one particle's tree, ...] -> ((n, D) matrix, unravel): row i is
+    tree i raveled in ``flatten_stacked``'s column order, written into
+    one matrix (the NEL's SVGD leader gathers views this way).
+    ``unravel`` maps one (D,) row back to a tree of views of it."""
+    first, unflatten = tree_flatten(trees[0], sort_keys=True)
+    shapes = [tuple(x.shape) for x in first]
+    sizes = [x.numel() for x in first]
+    out = first[0].new_empty((len(trees), sum(sizes)))
+    for row, tree in zip(out, trees):
+        torch.cat([x.reshape(-1) for x in
+                   tree_flatten(tree, sort_keys=True)[0]], out=row)
+
+    def unravel(row):
+        return unflatten([p.reshape(s) for p, s in
+                          zip(row.split(sizes), shapes)])
+
+    return out, unravel
+
+
 def expand_mask(mask, ndim: int):
     """(P,) mask broadcast-shaped against a (P, ...) tensor of `ndim`."""
     return mask.reshape(mask.shape + (1,) * (ndim - 1))

@@ -1,12 +1,33 @@
-"""The NN a particle wraps (counterpart of ``repro.core.particle``).
+"""The particle abstraction (paper §3.2; counterpart of
+``repro.core.particle``).
 
-The port has ``ParticleModule`` only: particles live as slots of the
-PushDistribution's ParticleStore, and actor messaging (``Particle.send`` /
-``get``, the NEL) waits for a later slice.
+A particle wraps a NN with (1) local state — parameters, optimizer state,
+user state — held in the PushDistribution's ParticleStore, (2) its own
+logical thread of execution (dispatches run on its device's NEL worker),
+and (3) message passing: a receive dictionary mapping messages to
+locally-defined functions, plus send/get primitives returning PFutures.
+
+The paper's Fig. 1 ``_gather`` runs on this API:
+
+    futures  = {pid: particle.get(pid) for pid in other_particles}
+    views    = {pid: fut.wait() for pid, fut in futures.items()}
+    views[other].view()
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from .functional import ensemble_value_and_grad
+from .messages import ParticleView, PFuture, snapshot
+from .store import ParticleStore, StoreState
+from .tree import tree_map
+
+
+def _one_row(tree):
+    """One particle's tree as a one-row stacked view (no copy)."""
+    return tree_map(lambda x: x.unsqueeze(0), tree)
 
 
 class ParticleModule:
@@ -17,7 +38,11 @@ class ParticleModule:
     metrics)`` and ``forward(stacked_params, batch) -> outputs (P, ...)``
     take the store's stacked tree with its leading particle axis (the
     reference's take one particle and are vmapped). ``cfg`` is the model
-    config serving reads."""
+    config serving reads.
+
+    The NEL's per-particle hops call ``_value_and_grad``, ``_forward``
+    and ``_loss_value`` on one particle's tree: each runs the stacked
+    function on a one-row view and drops the particle axis again."""
 
     def __init__(self, init: Callable, loss: Optional[Callable] = None,
                  forward: Optional[Callable] = None, cfg: Any = None):
@@ -25,3 +50,120 @@ class ParticleModule:
         self.loss = loss
         self.forward = forward
         self.cfg = cfg
+        self._vag = None if loss is None else ensemble_value_and_grad(loss)
+
+    def _value_and_grad(self, params, batch):
+        """(0-d loss, grads) of one particle (the fused path's
+        ``ensemble_value_and_grad`` over one row)."""
+        losses, grads = self._vag(_one_row(params), batch)
+        return losses[0], tree_map(lambda g: g[0], grads)
+
+    def _forward(self, params, batch):
+        with torch.no_grad():
+            return tree_map(lambda o: o[0],
+                            self.forward(_one_row(params), batch))
+
+    def _loss_value(self, params, batch):
+        """One particle's scalar loss, no grads."""
+        with torch.no_grad():
+            return self.loss(_one_row(params), batch)[0][0]
+
+
+class Particle:
+    """One particle: ``state`` is its mapping view of the PD's store
+    (``StoreState``); ``receive`` maps message names to handlers
+    ``fn(particle, *args)``."""
+
+    def __init__(self, pid: int, nel, module: ParticleModule,
+                 store: ParticleStore, optimizer=None):
+        self.pid = pid
+        self.nel = nel
+        self.module = module
+        self.optimizer = optimizer
+        self.store = store
+        self.state: StoreState = StoreState(store, pid)
+        self.receive: Dict[str, Callable] = {}
+
+    # -- local state access ------------------------------------------------
+    def parameters(self):
+        return self.state["params"]
+
+    def gradients(self):
+        return self.state["grads"]
+
+    # -- registry ------------------------------------------------------------
+    def particle_ids(self) -> List[int]:
+        return self.nel.particle_ids()
+
+    def on(self, msg: str, fn: Callable):
+        self.receive[msg] = fn
+
+    # -- messaging (actor + async-await) ------------------------------------
+    def send(self, pid: int, msg: str, *args, **kwargs) -> PFuture:
+        """Trigger `msg`'s handler on particle `pid` (its own timeline)."""
+        target = self.nel.particle(pid)
+        if msg not in target.receive:
+            raise KeyError(f"particle {pid} has no handler for {msg!r}")
+        if self.nel._device_of[pid] != self.nel._device_of[self.pid]:
+            self.nel._bump("xdev_transfers")
+        fn = target.receive[msg]
+        return self.nel.dispatch(pid, fn, target, *args, **kwargs)
+
+    def get(self, pid: int) -> PFuture:
+        """Asynchronously snapshot particle `pid`'s parameters and grads
+        (read-only clones, taken on the shared pool)."""
+        target = self.nel.particle(pid)
+        if self.nel._device_of[pid] != self.nel._device_of[self.pid]:
+            self.nel._bump("xdev_transfers")
+
+        def grab(_t):
+            grads = _t.state["grads"]
+            return ParticleView(pid, snapshot(_t.state["params"]),
+                                None if grads is None else snapshot(grads))
+
+        # lock-free read: runs on the shared pool, never queues behind the
+        # target device's compute (paper §4.2)
+        return self.nel.dispatch(pid, grab, target, lightweight=True)
+
+    # -- local NN computations (dispatched to this particle's device) -------
+    def step(self, batch) -> PFuture:
+        """Forward+backward+optimizer update on this particle's device."""
+
+        def do(_self):
+            loss, grads = _self.module._value_and_grad(
+                _self.state["params"], batch)
+            _self.state["grads"] = grads
+            if _self.optimizer is not None:
+                p, s = _self.optimizer.update(_self.state["params"], grads,
+                                              _self.state["opt_state"])
+                _self.state["params"], _self.state["opt_state"] = p, s
+            return loss
+
+        return self.nel.dispatch(self.pid, do, self, needs_device=True)
+
+    def grad(self, batch) -> PFuture:
+        """Backward only: stash grads, do not update params (SVGD phase 1)."""
+
+        def do(_self):
+            loss, grads = _self.module._value_and_grad(
+                _self.state["params"], batch)
+            _self.state["grads"] = grads
+            return loss
+
+        return self.nel.dispatch(self.pid, do, self, needs_device=True)
+
+    def forward(self, batch) -> PFuture:
+        def do(_self):
+            return _self.module._forward(_self.state["params"], batch)
+
+        return self.nel.dispatch(self.pid, do, self, needs_device=True)
+
+    def apply_update(self, update, lr: float) -> PFuture:
+        """theta <- theta - lr * update (SVGD follow; paper Fig. 6)."""
+
+        def do(_self):
+            _self.state["params"] = tree_map(
+                lambda p, u: p - lr * u.to(p.dtype), _self.state["params"],
+                update)
+
+        return self.nel.dispatch(self.pid, do, self, needs_device=True)

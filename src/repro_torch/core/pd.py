@@ -1,47 +1,62 @@
 """Push distribution (paper §3.3): P(nn_Theta) = (1/n) sum_i delta_{nn_theta_i}.
 
 Counterpart of ``repro.core.pd``: a PD wraps a ``ParticleModule`` and owns
-the ParticleStore its particles live in.
+the NEL (``core.nel``) and the ParticleStore its particles live in. The
+API follows the paper's Fig. 2:
 
-    with PushDistribution(module, seed=0, backend="compiled") as pd:
-        pids = [pd.p_create(adam(1e-3)) for _ in range(4)]   # on cuda
-        svc = serve_decode(pd, cfg, num_pages=256, page_size=16)
+    with PushDistribution(module, seed=0) as pd:        # on cuda
+        pids = [pd.p_create(adam(1e-3), receive={"GATHER": _gather})
+                for _ in range(4)]
+        pd.p_wait([pd.p_launch(pids[0], "GATHER")], timeout=60)
 
 ``device=`` sets the store's device (``cuda`` unless the caller asks for
-another); everything downstream follows the store. ``backend=`` selects
-the runtime object once (``runtime.backends``): ``"compiled"`` runs the
-fused stacked-axis algorithms and predictions; ``"nel"``, the reference's
-default, is the actor-messaging path (``p_launch``, the NEL), which is
-not ported yet — its ``infer`` and ``predict`` raise.
+another); the NEL's workers and everything downstream follow it.
+``backend=`` selects the runtime object once (``runtime.backends``):
+``"nel"`` (the default) runs every message through the actor runtime;
+``"compiled"`` runs the algorithms' fused stacked-axis forms and
+predictions as captured programs. Both share the store, so state written
+by one is visible to the other.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..runtime.backends import make_runtime
-from .particle import ParticleModule
+from ..runtime.backends import BACKENDS, make_runtime
+from .messages import PFuture
+from .nel import NodeEventLoop
+from .particle import Particle, ParticleModule
 from .precision import get as resolve_precision
 from .store import ParticleStore
 
 
 class PushDistribution:
-    def __init__(self, module: ParticleModule, *, seed: int = 0,
-                 backend: str = "nel", capacity: int = 0, precision=None,
+    def __init__(self, module: ParticleModule, *,
+                 num_devices: Optional[int] = None, cache_size: int = 4,
+                 seed: int = 0, offload: bool = False, backend: str = "nel",
+                 max_pending: int = 4096, capacity: int = 0, precision=None,
                  device=None):
+        if backend not in BACKENDS:
+            # validate before the NEL exists: a bad backend must not leave
+            # an executor behind
+            raise ValueError(
+                f"backend must be one of {BACKENDS}, got {backend!r}")
         self.module = module
         if precision is None:
             precision = getattr(getattr(module, "cfg", None), "precision",
                                 None)
         self.precision = resolve_precision(precision)
+        self.nel = NodeEventLoop(num_devices=num_devices,
+                                 cache_size=cache_size, offload=offload,
+                                 max_pending=max_pending, device=device)
         self.store = ParticleStore(capacity=capacity,
                                    precision=self.precision, device=device)
         # one generator on the store's device: particle inits draw from it
         # in creation order, so a seed fixes every particle's weights
         self._gen = torch.Generator(device=self.store.device)
         self._gen.manual_seed(seed)
-        self._next_pid = 0
+        self.particles: Dict[int, Particle] = {}
         self.runtime = make_runtime(backend, self)
 
     @property
@@ -52,33 +67,63 @@ class PushDistribution:
     def device(self) -> torch.device:
         return self.store.device
 
-    def p_create(self, optimizer=None, *, params=None) -> int:
+    def p_create(self, optimizer=None, *, device: Optional[int] = None,
+                 receive: Optional[Dict[str, Callable]] = None,
+                 state: Optional[dict] = None, params=None) -> int:
         """Create one particle: a fresh init from the PD's generator, or the
-        given ``params`` tree (moved to the store's device). Writes
-        ``"params"`` (first: the slot goes live in the mask with it) and
-        ``"opt_state"`` (``optimizer.init(params)``, or empty)."""
+        given ``params`` tree (moved to the store's device), on NEL device
+        ``device`` (round-robin when None), with message handlers
+        ``receive``. Writes ``"params"`` first (the slot goes live in the
+        mask with it), then ``"opt_state"`` (``optimizer.init(params)``, or
+        None), ``"grads"`` (None until a step) and the ``state`` keys."""
         if params is None:
             params = self.module.init(self._gen)
-        pid = self._next_pid
-        self._next_pid += 1
+        pid = self.nel.register(None, device=device)
         self.store.register(pid)
-        self.store.write("params", pid, params)
-        params = self.store.read("params", pid)
-        self.store.write("opt_state", pid, None if optimizer is None
-                         else optimizer.init(params))
+        p = Particle(pid, self.nel, self.module, self.store, optimizer)
+        p.state["params"] = params
+        params = p.state["params"]
+        p.state["opt_state"] = (None if optimizer is None
+                                else optimizer.init(params))
+        p.state["grads"] = None
+        for k, v in (state or {}).items():
+            p.state[k] = v
+        for msg, fn in (receive or {}).items():
+            p.on(msg, fn)
+        self.nel._particles[pid] = p
+        self.particles[pid] = p
         return pid
 
+    def p_launch(self, pid: int, msg: str, *args, **kwargs) -> PFuture:
+        p = self.particles[pid]
+        if msg not in p.receive:
+            raise KeyError(f"particle {pid} has no handler for {msg!r}")
+        return self.nel.dispatch(pid, p.receive[msg], p, *args, **kwargs)
+
+    @staticmethod
+    def p_wait(futures: Sequence[PFuture],
+               timeout: Optional[float] = None) -> List[Any]:
+        """Each future's value, in order; ``timeout`` bounds each wait."""
+        return [f.wait(timeout) for f in futures]
+
     def p_params(self, pid: int):
-        return self.store.read("params", pid)
+        return self.particles[pid].parameters()
 
     def particle_ids(self) -> List[int]:
-        return sorted(self.store.pids)
+        return self.nel.particle_ids()
 
     def p_predict(self, batch):
         """hat f(x) = (1/n) sum_i nn_{theta_i}(x) (paper §3.4), through the
-        runtime: one forward over the store's stacked params, averaged over
-        the live slots."""
+        runtime: the CompiledRuntime runs one forward over the store's
+        stacked params averaged over the live slots; the NelRuntime runs n
+        per-particle forwards on the event loops and averages on the
+        host."""
         return self.runtime.predict(self, batch)
+
+    def stats(self) -> Dict[str, Any]:
+        """Executor, dispatch, store, program-cache and obs counters in
+        one dict (``runtime.stats()``)."""
+        return self.runtime.stats()
 
     def serve(self, **kw):
         """Batched posterior-predictive service over this PD's store
@@ -86,9 +131,12 @@ class PushDistribution:
         from ..serve import serve as _serve
         return _serve(self, **kw)
 
+    def drain(self, timeout: Optional[float] = None):
+        self.nel.drain(timeout)
+
     def cleanup(self):
-        """Nothing runs in the background; kept for the reference's
-        context-manager protocol."""
+        """Finish the NEL's in-flight messages and stop its workers."""
+        self.nel.shutdown()
 
     def __enter__(self):
         return self

@@ -2,6 +2,7 @@
 
 Counterpart of ``repro.core.store`` on one device (the mesh ``Placement``,
 subset views and fused slot cloning wait for later slices).
+``StoreState`` is one particle's mapping view of it (``particle.state``).
 
   * canonical form — one *stacked* tree per state key ("params",
     "kv_pages", ...) with a leading particle axis, on ``device``;
@@ -205,6 +206,17 @@ class ParticleStore:
         with self._lock:
             return self._read_slot(key, self._slot_of[pid])
 
+    def has(self, key: str, pid: int) -> bool:
+        with self._lock:
+            return self._slot_of[pid] in self._present.get(key, ())
+
+    def keys_for(self, pid: int) -> List[str]:
+        """State keys holding an entry for ``pid``."""
+        with self._lock:
+            slot = self._slot_of[pid]
+            return [k for k, present in self._present.items()
+                    if slot in present]
+
     def write(self, key: str, pid: int, tree):
         """Write-back: the row shadows the stacked entry until the next
         flush. Leaves move to the store's device."""
@@ -331,3 +343,49 @@ class ParticleStore:
             tree = self._stacked.get(key)
             return 0 if tree is None else sum(
                 x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# per-particle mapping facade (what Particle.state is)
+# ---------------------------------------------------------------------------
+
+class StoreState:
+    """Mutable-mapping view of one particle's slice of a ParticleStore.
+
+    ``particle.state["params"]`` reads through ``store.read`` (a view of
+    the stacked tensor, or the particle's pending row) and writes through
+    ``store.write`` (a dirty row, versioned), so the NEL backend and the
+    fused backend observe one source of truth. A handler that updates a
+    read tree in place writes it back through ``state[key] = tree`` so
+    the store's version and dirty tracking see the change."""
+
+    def __init__(self, store: ParticleStore, pid: int):
+        self.store = store
+        self.pid = pid
+
+    def __getitem__(self, key: str):
+        return self.store.read(key, self.pid)
+
+    def __setitem__(self, key: str, value):
+        self.store.write(key, self.pid, value)
+
+    def __contains__(self, key: str) -> bool:
+        return self.store.has(key, self.pid)
+
+    def get(self, key: str, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+    def keys(self):
+        return self.store.keys_for(self.pid)
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def __len__(self) -> int:
+        return len(self.keys())
+
+    def __repr__(self) -> str:
+        return f"StoreState(pid={self.pid}, keys={sorted(self.keys())})"

@@ -1,24 +1,34 @@
 """Runtime protocol: ``backend="nel"|"compiled"`` selects an object
 (counterpart of ``repro.runtime.backends``).
 
+  * ``NelRuntime`` (the default) — the paper-faithful actor path: an
+    algorithm's ``_nel_infer`` runs its message-passing procedure on the
+    PD's NEL (persistent per-device event loops, ``core.executor``);
+    prediction is n per-particle forwards on the event loops, averaged
+    on the host.
   * ``CompiledRuntime`` — the fused stacked-axis path: an algorithm's
     ``_fused_infer`` runs over the store's stacked state (checkout ->
-    epochs -> commit); prediction is one forward over all particles,
-    averaged over the live slots. Every ported algorithm has a fused
-    form, so there is no fallback to the actor path. ``program`` and
-    ``run`` dispatch a ``ProgramSpec`` through the ProgramCache under the
-    PD's store generation: the train steps, the SWAG collection and
-    ``predict`` (a CUDA graph each on the card, eager on the CPU).
-  * ``NelRuntime`` — the reference's default, the paper-faithful actor
-    path. Actor messaging is not ported yet (ROADMAP.md, module queue:
-    the actor runtime), so its ``infer`` and ``predict`` raise; pass
-    ``backend="compiled"``.
+    epochs -> commit); algorithms without a fused form fall back to the
+    NEL procedure. Prediction is one forward over all particles,
+    averaged over the live slots.
+
+Both dispatch a ``ProgramSpec`` through the ProgramCache under the PD's
+store generation (``program`` / ``run``: the train steps, the SWAG
+collection and ``predict``; a CUDA graph each on the card, eager on the
+CPU), and both report ``stats()``: the executor's wait-vs-run counters,
+the NEL's dispatch counters, the store's, the cache's and obs's.
+
+A graph capture on the card runs in global mode, which refuses launches
+from other threads: ``program`` drains the PD's NEL before a lookup
+(which may capture) unless it is called from a NEL worker itself.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from ..core.tree import to_device
+from ..core.messages import current_wait_hook
+from ..core.tree import to_device, tree_map
+from ..obs import summary as _obs_summary
 from . import specs
 from .cache import ProgramCache, global_cache
 from .program import Program, ProgramSpec
@@ -26,33 +36,23 @@ from .program import Program, ProgramSpec
 BACKENDS = ("nel", "compiled")
 
 
-class NelRuntime:
-    name = "nel"
+class _BaseRuntime:
+    name = "base"
 
     def __init__(self, pd, cache: Optional[ProgramCache] = None):
         self.pd = pd
         self.cache = cache if cache is not None else global_cache()
 
-    @staticmethod
-    def _missing():
-        return NotImplementedError(
-            "the actor-messaging (NEL) backend is not ported yet (ROADMAP.md, "
-            "module queue: the actor runtime); pass backend=\"compiled\"")
-
-    def infer(self, algo, dataloader, epochs: int, **kw):
-        raise self._missing()
-
-    def predict(self, pd, batch):
-        raise self._missing()
-
-
-class CompiledRuntime(NelRuntime):
-    name = "compiled"
+    def _quiesce(self):
+        """Drain the PD's NEL, unless this is one of its workers."""
+        if current_wait_hook() is None:
+            self.pd.drain()
 
     def program(self, spec: ProgramSpec, *args,
                 state_token=None) -> Program:
         """The cached program for ``spec`` at these arguments, keyed on the
         PD's store generation unless ``state_token`` says otherwise."""
+        self._quiesce()
         if state_token is None:
             state_token = self.pd.store.generation()
         return self.cache.program(spec, args, state_token)
@@ -63,15 +63,40 @@ class CompiledRuntime(NelRuntime):
 
     def stats(self) -> Dict[str, Any]:
         return {"backend": self.name,
+                "executor": self.pd.nel.executor.stats(),
+                "dispatch": dict(self.pd.nel.stats),
                 "store": dict(self.pd.store.stats),
-                "program_cache": self.cache.snapshot_stats()}
+                "program_cache": self.cache.snapshot_stats(),
+                "obs": _obs_summary()}
+
+
+class NelRuntime(_BaseRuntime):
+    name = "nel"
 
     def infer(self, algo, dataloader, epochs: int, **kw):
-        return algo._fused_infer(dataloader, epochs, **kw)
+        return algo._nel_infer(dataloader, epochs, **kw)
+
+    def predict(self, pd, batch):
+        """n per-particle forwards on the event loops + host average."""
+        batch = to_device(batch, pd.device)
+        futs = [pd.particles[pid].forward(batch)
+                for pid in pd.particle_ids()]
+        outs = [f.wait() for f in futs]
+        return tree_map(lambda *xs: sum(xs) / len(xs), *outs)
+
+
+class CompiledRuntime(_BaseRuntime):
+    name = "compiled"
+
+    def infer(self, algo, dataloader, epochs: int, **kw):
+        if algo._has_fused():
+            return algo._fused_infer(dataloader, epochs, **kw)
+        return algo._nel_infer(dataloader, epochs, **kw)
 
     def predict(self, pd, batch):
         if not pd.particle_ids():
             raise ValueError("the PushDistribution holds no particles")
+        self._quiesce()
         # mask and stacked params from one atomic store snapshot: a mask
         # bit never goes live before its slot's data
         _, mask, stacked = pd.store.snapshot("params")

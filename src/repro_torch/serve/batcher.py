@@ -10,8 +10,8 @@ waiting queue in the SAME loop iteration. Admission backpressure is keyed
 on free pages in the PagePool; when a running row cannot get its next
 page, the youngest row is preempted (pages reclaimed, sequence requeued —
 greedy sampling makes the re-run deterministic). The loop runs as a work
-item on its own ``core.executor.Executor``, so an idle scheduler is one
-parked worker.
+item on its own ``core.executor.Executor`` (one device worker, no pool,
+the pump's own mailbox), so an idle scheduler is one parked worker.
 """
 from __future__ import annotations
 
@@ -127,7 +127,10 @@ class DecodeScheduler:
             raise ValueError(
                 f"pool.max_seq_pages ({pool.max_seq_pages}) must equal the "
                 f"engine's block-table width n_pmax ({self.n_pmax})")
-        self._exec = Executor()
+        self._exec = Executor(num_devices=1, pool_size=0,
+                              max_pending=2 * max_queue)
+        self._pump_pid = id(self)
+        self._exec.add_particle(self._pump_pid, 0)
         self._cond = threading.Condition()
         self._waiting: deque = deque()
         self._rows: List[Optional[_Seq]] = [None] * max_active
@@ -183,7 +186,7 @@ class DecodeScheduler:
                                                 len(self._waiting))
             if not self._pump_scheduled:
                 self._pump_scheduled = True
-                self._exec.submit(self._pump)
+                self._exec.submit(self._pump_pid, self._pump)
             self._cond.notify_all()
         return fut
 

@@ -17,11 +17,9 @@ from __future__ import annotations
 import functools
 from typing import Any, Dict, List, Optional
 
-import numpy as np
-
 from ..core.messages import PFuture
 from ..models import api as models_api
-from ..obs import clock
+from ..obs import clock, metrics
 from ..runtime.cache import ProgramCache
 from .batcher import DecodeScheduler, Generation
 from .engine import PagedDecodeEngine, PredictiveEngine
@@ -32,7 +30,7 @@ from .speculative import (SpecDecodeEngine, SpeculativeDecodeScheduler,
 
 def percentile(xs: List[float], q: float) -> float:
     """Linear-interpolated percentile (q in [0, 100]); 0.0 on empty input."""
-    return float(np.percentile(xs, q)) if len(xs) else 0.0
+    return metrics.percentile(xs, q)
 
 
 class PredictiveService:

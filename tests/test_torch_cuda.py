@@ -62,7 +62,16 @@ collection and p_predict captured once and replayed, equal the eager run
 from the same init bit for bit (state, losses, predictions), with the
 same kernel launches and no capture after the first step. The moments
 kernel updating mean and sq in place gives its out-of-place bits.
+
+The actor runtime: NEL SteinVGD (the leader's dense force: one sqdist
+and one force launch per step) and NEL MultiSWAG (one moments launch
+per leaf per particle per collection, on one-row views) on a narrow ViT
+match the compiled path on the card within 1e-4; a handler that sends
+to another particle and waits on it finishes on the one device worker,
+with the card current there. Every run is joined within a time limit.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -1311,3 +1320,113 @@ def test_captured_training_matches_eager(dev, name):
         assert stats["misses"] == stats["cold_compiles"] == len(names)
         assert all(p["graph"] == graph for p in info)
     assert torch.equal(g[5], e[5])
+
+
+# --------------------------------------------------------------------------
+# the actor runtime on the card: NEL SteinVGD and MultiSWAG against the
+# compiled path, a nested send-and-wait on the one device worker
+# --------------------------------------------------------------------------
+
+def _bounded(fn, *args, timeout=300.0, **kw):
+    """``fn(*args, **kw)`` on a thread joined within ``timeout`` s: a
+    deadlocked protocol fails the test instead of hanging it."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kw)
+        except BaseException as e:      # handed to the test below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"{fn} did not finish within {timeout} s"
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def _nel_and_compiled(dev, cls, **kw):
+    """The same 4 particles trained 3 epochs of 2 batches under each
+    backend on the card; returns {backend: (algo, pids, launches)}, the
+    launches of sqdist, force and moments over the run."""
+    cfg, mods = _vit_modules(dev, 4)
+    counters = (svgd_rbf.pairwise_sqdist, svgd_rbf.svgd_force,
+                swag_moments.moments)
+    out = {}
+    for backend, mod in zip(("nel", "compiled"), mods):
+        algo = cls(mod, backend=backend, device=dev)
+        before = [k.launches for k in counters]
+        pids, _ = _bounded(algo.bayes_infer,
+                           DataLoader(cfg, batch_size=8, num_batches=2), 3,
+                           num_particles=4, **kw)
+        torch.cuda.synchronize()
+        out[backend] = (algo, pids, [k.launches - b for k, b in
+                                     zip(counters, before)])
+    return cfg, out
+
+
+def test_nel_svgd_on_card_matches_compiled(dev):
+    cfg, out = _nel_and_compiled(dev, SteinVGD, lr=0.05, lengthscale=0.0)
+    (nel, _, nl), (comp, _, cl) = out["nel"], out["compiled"]
+    try:
+        assert nl == [6, 6, 0] and cl == [6, 6, 0]     # one each a step
+        _close(nel.p_parameters(), comp.p_parameters(), 1e-4)
+        batch = next(iter(DataLoader(cfg, batch_size=6, num_batches=1,
+                                     seed=1)))
+        got = _bounded(nel.posterior_pred, batch)
+        _close([got], [comp.posterior_pred(batch)], 1e-4)
+    finally:
+        nel.cleanup()
+        comp.cleanup()
+
+
+def test_nel_multiswag_on_card_matches_compiled(dev):
+    cfg, out = _nel_and_compiled(dev, MultiSWAG, optimizer=adam(1e-3),
+                                 pretrain_epochs=1, max_rank=3)
+    (nel, npids, nl), (comp, cpids, cl) = out["nel"], out["compiled"]
+    try:
+        n_leaves = len(tree_leaves(nel.p_parameters()[0]))
+        assert nl == [0, 0, 2 * 4 * n_leaves]    # P = 1 views
+        assert cl == [0, 0, 2 * n_leaves]
+        _close(nel.p_parameters(), comp.p_parameters(), 1e-4)
+        for a, b in zip(npids, cpids):
+            sa = nel.push_dist.particles[a].state["swag"]
+            sb = comp.push_dist.particles[b].state["swag"]
+            assert int(sa["rank"]) == int(sb["rank"]) == 2
+            _close([sa["mean"], sa["sq_mean"], sa["dev"]],
+                   [sb["mean"], sb["sq_mean"], sb["dev"]], 1e-4)
+    finally:
+        nel.cleanup()
+        comp.cleanup()
+
+
+def test_nested_send_and_wait_on_one_device_worker(dev):
+    """On one device worker, a handler that sends to another particle and
+    waits on it finishes: the worker runs the queued message inline (the
+    context switch on wait). Both ran on that worker, the card current."""
+    def init(gen):
+        return {"w": torch.randn((64, 64), generator=gen, device=gen.device)}
+
+    def inner(p):
+        w = p.parameters()["w"]
+        return (threading.current_thread().name,
+                torch.cuda.current_device(), float((w @ w).sum()))
+
+    def outer(p, other):
+        name = threading.current_thread().name
+        return name, p.send(other, "INNER").wait(30)
+
+    with PushDistribution(ParticleModule(init), device=dev) as pd:
+        a = pd.p_create(receive={"OUTER": outer})
+        b = pd.p_create(receive={"INNER": inner})
+        name, (inner_name, cur, val) = _bounded(
+            lambda: pd.p_launch(a, "OUTER", b).wait(30))
+        w = pd.p_params(b)["w"]
+        assert name == inner_name == "push-dev0"
+        assert cur == 0                     # the NEL's device, cuda:0
+        assert abs(val - float((w @ w).sum())) <= 1e-3 * abs(val) + 1e-3
+        st = pd.stats()["executor"]
+        assert st["dispatched"] == st["completed"] == 2
+        assert st["threads"] == pd.nel.executor.num_threads

@@ -21,32 +21,40 @@ from repro_torch.serve import serve_decode
 # executor
 # ---------------------------------------------------------------------------
 
+def _one_mailbox():
+    """One device worker, no pool, one particle's mailbox (the decode
+    scheduler's shape)."""
+    ex = Executor(1, pool_size=0)
+    ex.add_particle(0, 0)
+    return ex
+
+
 def test_executor_fifo_resolves_and_rejects():
-    ex = Executor()
+    ex = _one_mailbox()
     log = []
-    futs = [ex.submit(log.append, (i,)) for i in range(100)]
+    futs = [ex.submit(0, log.append, (i,)) for i in range(100)]
 
     def boom():
         raise ValueError("boom")
 
-    bad = ex.submit(boom)
-    assert ex.submit(lambda a, b=0: a + b, (40,), {"b": 2}).wait(10) == 42
+    bad = ex.submit(0, boom)
+    assert ex.submit(0, lambda a, b=0: a + b, (40,), {"b": 2}).wait(10) == 42
     with pytest.raises(ValueError, match="boom"):
         bad.wait(10)
     assert all(f.done() for f in futs) and log == list(range(100))
     ex.shutdown()
     with pytest.raises(RuntimeError):
-        ex.submit(lambda: None)
+        ex.submit(0, lambda: None)
 
 
 @pytest.mark.parametrize("drain", [True, False])
 def test_executor_shutdown_finishes_or_rejects_queued_work(drain):
     """A call blocks the worker with work queued behind it: ``drain()``
     times out; ``shutdown`` then runs the queue (drain) or rejects it."""
-    ex = Executor()
+    ex = _one_mailbox()
     release = threading.Event()
-    first = ex.submit(release.wait, (10,))
-    queued = [ex.submit(lambda i=i: i) for i in range(5)]
+    first = ex.submit(0, release.wait, (10,))
+    queued = [ex.submit(0, lambda i=i: i) for i in range(5)]
     with pytest.raises(TimeoutError):
         ex.drain(timeout=0.1)
     threading.Timer(0.2, release.set).start()

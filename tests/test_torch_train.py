@@ -14,7 +14,9 @@ Checks, on the ViT-MNIST config at a tiny width (2 layers, d_model 64,
     epochs x 2 batches with ``sgd``, 6 particles in a store of capacity 8
     so the mask is live: params and losses within 1e-4, then
     ``p_predict`` within 1e-4;
-  * the actor backend raises until it is ported.
+  * the actor backend (``backend="nel"``) is the default: it trains and
+    predicts (``tests/test_torch_nel.py`` holds it to the compiled path
+    and to the reference's NEL).
 """
 import dataclasses
 
@@ -259,16 +261,22 @@ def test_fused_training_matches_jax(algo, kw):
     assert np.abs(got.numpy() - want).max() < 1e-4
 
 
-def test_actor_backend_is_not_ported_yet():
+def test_actor_backend_is_the_default():
+    """``backend="nel"``, the reference's default, trains through the
+    port's NEL and predicts through it; a bad backend still raises."""
     jcfg, tcfg = _cfgs()
     _, tmod = _modules(jcfg, tcfg, _numpy_inits(jcfg, 2))
-    algo = DeepEnsemble(tmod, device="cpu")       # the reference's default
-    assert algo.backend == "nel"
-    with pytest.raises(NotImplementedError, match="compiled"):
-        algo.bayes_infer([], 1, optimizer=sgd(0.1), num_particles=2)
-    pd = PushDistribution(tmod, device="cpu")
-    pd.p_create()
-    with pytest.raises(NotImplementedError, match="compiled"):
-        pd.p_predict({})
+    with DeepEnsemble(tmod, device="cpu") as algo:  # the reference's default
+        assert algo.backend == "nel"
+        pids, losses = algo.bayes_infer(_loaders(jcfg, tcfg)[1], 1,
+                                        optimizer=sgd(0.1), num_particles=2)
+        assert len(pids) == 2 and np.isfinite(losses).all()
+        batch = next(iter(DataLoader(tcfg, batch_size=3, num_batches=1)))
+        pred = algo.posterior_pred(batch)
+        assert pred.shape == (3, tcfg.vocab_size)
+        assert torch.isfinite(pred).all()
+        st = algo.push_dist.stats()
+        assert st["backend"] == "nel"
+        assert st["dispatch"]["dispatches"] == 2 * 2 + 2    # steps, forwards
     with pytest.raises(ValueError, match="backend"):
         PushDistribution(tmod, backend="xla", device="cpu")

@@ -186,9 +186,49 @@ Phase 7  serves 8 prompts of 64 tokens (seed 2) through
          step at cur_pos = the cache length must raise ValueError on the
          host, and the card must go on stepping after it.
 
-The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8: the kernel checks
-first, then the serving runs over one set of particles, then training,
-fused and then on the NEL.
+Phase 9  the particle lifecycle (p_clone / p_kill / bdl.lifecycle) with
+         every step captured. It first holds #5, #7 and #8 against their
+         plain versions at its shapes (the prefill at P = 4 over a
+         128-token bucket, the paged decode at P = 4 and through the
+         one-particle view at slot 1, the draft slot re-picked after slot
+         0's kill, the verify window W = 5). Serving: qwen1.5-0.5b at full
+         width and depth in a store of capacity 4 with 3 live particles
+         (seed 0), phase 2's first 4 requests per round, plain and then
+         speculative (k_max 4; warmup captures the draft at every slot and
+         iteration count): a round; a jittered clone under step_lock (4
+         live) and a round; the twin's kill and a round, whose tokens and
+         logprobs must equal the first round's exactly; speculative: the
+         drafting particle's kill and a round. Nothing may be captured
+         after warmup, generation() must not move, the pool must drain,
+         the launch counts are exact and every program is a graph. It
+         prints the host ms of each p_clone and p_kill, the clone's copies
+         alone (params and the KV pool's row: event ms with the L2
+         flushed, device ms) beside their byte bound, slot_uploads and the
+         draft programs' pool bytes and capture seconds. Training: 8
+         full-width ViT-MNIST particles in a store of capacity 8 (seed 0,
+         batches of 64, 2 per epoch), SteinVGD (median heuristic) and
+         MultiSWAG (Adam, rank 20), each captured: after one epoch, two
+         kills (slots 1, 5) and a jittered clone (into slot 1), the fused
+         run over the 7 live captures nothing, slot 5's params, optimizer
+         state and SWAG state stay bit for bit and its loss is 0; #1 and #2
+         at the churned (8, 19,775,360) state with its mask and #3 and #4
+         at the churned moments against their plain versions (sqdist 1e-5
+         of its largest entry, the force 2e-4 relative with seeded g and
+         g = 0, dead rows exact zeros; moments and diag_std 1e-5); one
+         backend="nel" leader step over the 7 (#1 and #2 at n = 7) against
+         the captured step from the same params within 1e-4; the
+         MultiSWAG predictive over the 7 live rows (store.dense, one
+         diag_std a leaf); then resample (jitter 0.01), prune to 6 and
+         grow by 2 with Adam: live counts 7, 6, 8, no capacity growth, no
+         generation bump, and a last fused epoch over the 8 captures
+         nothing. Each kernel's ``lifecycle_launches`` in the kernels line
+         are phase 9's, summed over its driven runs (each between a reset
+         and a read of the counts), and each kernel of its path must have
+         launched.
+
+The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9: the kernel
+checks first, then the serving runs over one set of particles, then
+training, fused and then on the NEL, then the lifecycle.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -196,7 +236,7 @@ window kernel, phase 7's for the dense-decode kernel, phase 4's captured
 SVGD and MultiSWAG runs and its predictive), with the counts set to 0
 just before it and read just after; each count of a captured run must
 equal the eager run's. Each kernel's ``nel_launches`` are phase 8's, read
-the same way around its NEL runs.
+the same way around its NEL runs, and its ``lifecycle_launches`` phase 9's.
 Phases 2, 4, 6 and 7 print, for each run: host ms and device busy ms
 per step with the idle share (the profiled windows), tokens/s (phase 4:
 images/s), latency p50 / p95 (serving), the cache's hits, misses and
@@ -2544,6 +2584,451 @@ def phase8(torch, captured):
             "swag_moments": launches["multiswag"]["swag_moments"]}
 
 
+# --------------------------------------------------------------------------
+# phase 9: the particle lifecycle — clone / kill / resample / prune / grow
+# under served and trained ensembles, with every step captured
+# --------------------------------------------------------------------------
+
+LC_CAPACITY, LC_LIVE = 4, 3          # serving: a step's work as in phase 2
+LC_REQS = 4                          # requests per round (phase 2's first)
+LC_NB = 2                            # training batches per epoch
+
+
+def add_counts(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def lc_round(torch, svc, reqs, fns, total):
+    """One driven round of ``reqs`` on a running service, between a reset
+    and a read of the kernels' counts (added to ``total``). Every request
+    must finish with finite heads. Returns the token lists."""
+    for fn in fns.values():
+        fn.launches = 0
+    gens = [h.result(600) for h in
+            [svc.generate_async(p, max_new=m) for p, m in reqs]]
+    add_counts(total, read_counts(fns))
+    for g, (_, m) in zip(gens, reqs):
+        if len(g.tokens) != m or not np.isfinite(
+                [g.logprobs, g.entropy, g.mutual_info]).all():
+            raise AssertionError(f"request: {len(g.tokens)}/{m} tokens or "
+                                 f"non-finite heads")
+    return [g.tokens for g in gens], [g.logprobs for g in gens]
+
+
+def clone_copy(torch, store, keys, src, dst):
+    """The clone's copies alone (``clone_slot`` of ``keys`` from ``src``
+    into ``dst``, the particle re-copied in place): event ms with the L2
+    flushed, device busy ms from a profiled window opened by spin kernels
+    (the profiler misses the first kernel records after it starts, and a
+    copy is a few large kernels), and the byte bound (each key's row read
+    once and written once)."""
+    def copy():
+        for k in keys:
+            store.clone_slot(k, src, dst)
+    nbytes = sum(store.per_particle_bytes(k) for k in keys)
+    b_ms, b_by = bound(2 * nbytes, 0)
+    prof = profile_steps(torch, copy, n=5, prologue=32)
+    return {"keys": list(keys), "bytes": nbytes,
+            "ms": time_ms(torch, copy, iters=10),
+            "device_ms": prof["device_busy_ms"], "kernels": prof["kernels"],
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def lc_serving(torch, cfg, reqs):
+    """Clone and kill under ``step_lock`` between rounds of requests, on
+    plain and on speculative serving of qwen1.5-0.5b (capacity 4, 3 live),
+    with every step captured at warmup. Returns (summary, launches)."""
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache, bucket_size
+    from repro_torch.serve import serve_decode
+    fns, L = attention_counts(), cfg.n_layers
+    reqs = reqs[:LC_REQS]
+    buckets = sorted({bucket_size(len(p)) for p, _ in reqs})
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    out, total = {}, {}
+    with PushDistribution(module, seed=SEED, capacity=LC_CAPACITY) as pd:
+        pids = [pd.p_create() for _ in range(LC_LIVE)]
+        for name, spec in (("plain", None), ("speculative", SPEC_K)):
+            cache = ProgramCache()
+            t0 = time.perf_counter()
+            svc = serve_decode(pd, cfg, num_pages=NUM_PAGES,
+                               page_size=PAGE_SIZE, max_active=MAX_ACTIVE,
+                               warmup_buckets=buckets, speculative=spec,
+                               cache=cache)
+            warmup_s = time.perf_counter() - t0
+            row = {"warmup_s": warmup_s}
+            try:
+                warm, gen0 = svc.stats(), pd.store.generation()
+                seen = {}
+                base, base_lp = lc_round(torch, svc, reqs, fns, seen)
+                with svc.scheduler.step_lock:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    twin = pd.p_clone(pids[0], jitter=0.01)
+                    row["clone_host_ms"] = (time.perf_counter() - t0) * 1e3
+                    torch.cuda.synchronize()
+                    row["clone_synced_ms"] = (time.perf_counter() - t0) * 1e3
+                wide, _ = lc_round(torch, svc, reqs, fns, seen)
+                with svc.scheduler.step_lock:
+                    row["clone_copy"] = clone_copy(
+                        torch, pd.store, ("params", "kv_pages"), pids[0],
+                        twin)
+                    t0 = time.perf_counter()
+                    pd.p_kill(twin)
+                    row["kill_host_ms"] = (time.perf_counter() - t0) * 1e3
+                back, back_lp = lc_round(torch, svc, reqs, fns, seen)
+                if back != base or back_lp != base_lp:
+                    raise AssertionError(f"{name}: tokens after the round "
+                                         f"trip differ from before it")
+                rounds = 3
+                if spec:
+                    with svc.scheduler.step_lock:
+                        t0 = time.perf_counter()
+                        pd.p_kill(pids[0])          # the drafting particle
+                        row["kill_drafter_host_ms"] = \
+                            (time.perf_counter() - t0) * 1e3
+                    solo, _ = lc_round(torch, svc, reqs, fns, seen)
+                    rounds += 1
+                st = svc.stats()
+                info = cache.program_info()
+            finally:
+                svc.close()
+            sp = st.get("speculative", {})
+            want = {"flash_attention": L * (st["prefills"]
+                                            - warm["prefills"]),
+                    "paged_decode_attention": L * (
+                        st["engine"].get("draft_iterations", 0)
+                        - warm["engine"].get("draft_iterations", 0)
+                        if spec else st["steps"] - warm["steps"]),
+                    "paged_decode_window_attention": L * sp.get(
+                        "verify_calls", 0)}
+            got = {k: seen.get(k, 0) for k in want}
+            row.update({
+                "captures_after_warmup": st["cold_compiles"]
+                - warm["cold_compiles"],
+                "programs": len(info),
+                "graphs": sum(p["graph"] for p in info),
+                "pool_bytes_total": sum(p["pool_bytes"] for p in info),
+                "generation_before": gen0,
+                "generation_after": pd.store.generation(),
+                "retired": st["retired"], "used_pages": st["pool"][
+                    "used_pages"],
+                "tokens_equal_after_round_trip": True,
+                "widened_tokens_differ": wide != base,
+                "launches": got})
+            if spec:
+                drafts = [p for p in info if p["name"] == "spec_draft_step"]
+                row.update({
+                    "slot_uploads": st["engine"]["slot_uploads"],
+                    "draft_programs": len(drafts),
+                    "draft_pool_bytes": sum(p["pool_bytes"] for p in drafts),
+                    "draft_capture_s": sum(p["capture_s"] for p in drafts),
+                    "acceptance_rate": sp["acceptance_rate"]})
+                if len(drafts) != LC_CAPACITY * SPEC_K:
+                    raise AssertionError(f"{len(drafts)} draft programs")
+            if (row["captures_after_warmup"] != 0
+                    or row["generation_after"] != gen0
+                    or row["used_pages"] != 0 or row["graphs"] != len(info)
+                    or st["retired"] != rounds * len(reqs) or got != want
+                    or (spec and row["slot_uploads"] < 2)):
+                raise AssertionError(f"{name} serving under churn: {row}, "
+                                     f"launches want {want}")
+            out[name] = row
+            add_counts(total, got)
+            emit({"phase": 9, "part": f"serving_{name}", **row})
+            del cache, svc
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out, total
+
+
+def lc_kernels_serving(torch, cfg, reqs):
+    """#5, #7 and #8 against their plain versions at phase 9's shapes:
+    the prefill at P = capacity over a 128-token bucket, the paged decode
+    at P = capacity and through the one-particle view at slot 1 (the
+    draft slot re-picked after slot 0's kill), the verify window W = 5."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode_attention as pk
+    from repro_torch.kernels import paged_decode_window_attention as wk
+    from repro_torch.kernels import ref
+    P, H, KVH, hd = LC_CAPACITY, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lens = [len(p) + m // 2 for p, m in reqs][:MAX_ACTIVE]
+    errs = {}
+    args = paged_case(torch, 90, P, len(lens), H, KVH, hd, PAGE_SIZE,
+                      NUM_PAGES, NUM_PAGES, lens, torch.float32)
+    errs["paged_decode_attention"] = check_kernel(
+        torch, pk.paged_decode_attention, ref.paged_decode_attention, args,
+        lens, 1e-4, "phase 9 paged")
+    q, k, v, bt, sl = args
+    errs["paged_decode_attention_draft_slot1"] = check_kernel(
+        torch, pk.paged_decode_attention, ref.paged_decode_attention,
+        (q[1:2], k[1:2], v[1:2], bt, sl), lens, 1e-4, "phase 9 draft view")
+    del args, q, k, v
+    args = window_case(torch, 91, P, len(lens), SPEC_K + 1, H, KVH, hd,
+                       PAGE_SIZE, NUM_PAGES, NUM_PAGES, lens, torch.float32)
+    errs["paged_decode_window_attention"] = max_err(
+        torch, wk.paged_decode_window_attention(*args),
+        ref.paged_decode_window_attention(*args), "phase 9 window", 1e-4)
+    del args
+    gen = torch.Generator(device="cuda").manual_seed(92)
+    q = torch.randn((P, 1, 128, H, hd), generator=gen, device="cuda")
+    k, v = (torch.randn((P, 1, 128, KVH, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    errs["flash_attention"] = max_err(
+        torch, fk.flash_attention(q, k, v), ref.flash_attention(q, k, v),
+        "phase 9 flash", 2e-5)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return errs
+
+
+def lc_force_checks(torch, theta, mask, what):
+    """#1 and #2 through the kernels against the plain versions on
+    ``theta`` with ``mask`` and seeded g (and g = 0): sqdist within 1e-5 of
+    its largest entry, the force within 2e-4 relative, dead rows 0."""
+    from repro_torch.bdl.svgd import svgd_force
+    from repro_torch.kernels import ref, svgd_rbf
+    sq = svgd_rbf.pairwise_sqdist(theta, mask)
+    want = ref.pairwise_sqdist(theta, mask)
+    out = {"sqdist_rel": float((sq - want).abs().max() / want.max())}
+    g = torch.randn(theta.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    for name, gg in (("force_rel", g), ("force_g0_rel", torch.zeros_like(g))):
+        got = svgd_force(theta, gg, 0.0, mask=mask)
+        ref_phi = plain_force(theta, gg, 0.0, mask)
+        out[name] = float((got - ref_phi).abs().max()
+                          / ref_phi.abs().max())
+        if mask is not None and float(got[mask == 0].abs().max()) != 0.0:
+            raise AssertionError(f"{what}: dead rows of phi not zero")
+    del g, sq, want
+    if not (out["sqdist_rel"] < 1e-5 and out["force_rel"] < 2e-4
+            and out["force_g0_rel"] < 2e-4):
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
+def slot_rows(torch, store, keys, slot):
+    """Device copies of ``slot``'s row of each key (bit-for-bit checks)."""
+    from repro_torch.core.tree import tree_map
+    return {k: tree_map(lambda a: a[slot].clone(), store.stacked(k))
+            for k in keys}
+
+
+def same_rows(torch, store, rows, slot):
+    from repro_torch.core.tree import tree_leaves
+    return all(torch.equal(a[slot], b) for k, r in rows.items()
+               for a, b in zip(tree_leaves(store.stacked(k)),
+                               tree_leaves(r)))
+
+
+def lc_training(torch):
+    """SteinVGD and MultiSWAG of 8 full-width ViT-MNIST particles in a
+    store of capacity 8: after two kills and a jittered clone the captured
+    fused runs over 7 live reuse their programs and keep the dead slot bit
+    for bit; one NEL leader step over the 7 against the captured step;
+    the MultiSWAG predictive over the live rows; resample, prune and grow
+    within capacity. Returns (summary, launches)."""
+    from repro_torch.bdl import MultiSWAG, SteinVGD, lifecycle
+    from repro_torch.core.functional import flatten_rows, flatten_stacked
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import DataLoader, mnist_like
+    from repro_torch.kernels import ref, swag_moments
+    from repro_torch.optim import adam
+    from repro_torch.runtime import ProgramCache
+    cfg, module = vit_module()
+    loader = DataLoader(cfg, batch_size=TRAIN_B, num_batches=LC_NB,
+                        seed=SEED)
+    batch = next(iter(loader))
+    images = mnist_like(np.random.default_rng(1), 64, cfg.vocab_size)
+    out, total = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def churn(pd, pids):
+        pd.p_kill(pids[1])
+        pd.p_kill(pids[5])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clone = pd.p_clone(pids[0], jitter=0.01)
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        synced = (time.perf_counter() - t0) * 1e3
+        if pd.store.slot_of(clone) != 1 or pd.store.live_count() != 7:
+            raise AssertionError("churn: the clone did not take slot 1")
+        return clone, {"clone_host_ms": host, "clone_synced_ms": synced}
+
+    def driven(fn, *args, **kw):
+        fns = reset_counts()
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        add_counts(total, read_counts(fns))
+        return got
+
+    # (a) SteinVGD, median heuristic
+    svgd = SteinVGD(module, seed=SEED, backend="compiled", capacity=8)
+    pd, cache = svgd.push_dist, ProgramCache()
+    pd.runtime.cache = cache
+    pids, _ = svgd.bayes_infer(loader, 1, num_particles=TRAIN_P, lr=1e-3,
+                               lengthscale=0.0)
+    clone, row = churn(pd, pids)
+    dead = slot_rows(torch, pd.store, ("params",), 5)
+    misses = cache.snapshot_stats()["misses"]
+    losses = driven(svgd._fused_epochs, pd.particle_ids(), loader, 1,
+                    lr=1e-3, lengthscale=0.0)
+    row["captures_after_churn"] = cache.snapshot_stats()["misses"] - misses
+    row["dead_slot_bit_for_bit"] = same_rows(torch, pd.store, dead, 5)
+    mask = pd.store.active_mask()
+    row["kernels"] = lc_force_checks(
+        torch, flatten_stacked(pd.store.stacked("params"))[0], mask,
+        "phase 9 SVGD at 8 rows, slot 5 dead")
+    # the dead slot reports loss 0: the captured step once more (a hit)
+    from repro_torch.bdl.svgd import svgd_step_spec
+    co = pd.store.checkout("params")
+    try:
+        b = svgd._batch(batch)
+        prog = pd.runtime.program(svgd_step_spec(module.loss, lr=1e-3,
+                                                 lengthscale=0.0),
+                                  co, b, mask)
+        _, ls = prog(co, b, mask)
+        row["dead_slot_loss"] = float(ls[5])
+    finally:
+        pd.store.commit("params", co)
+    # one NEL leader step over the 7 against the captured step from the
+    # same params and batch
+    theta0 = tree_map(torch.clone, pd.store.stacked("params"))
+    leader = pd.particle_ids()[0]
+    driven(bounded, lambda: pd.p_wait([pd.p_launch(
+        leader, "SVGD_LEADER", 1e-3, 0.0, svgd._on_device([batch]), 1)],
+        timeout=NEL_T))
+    nel = flatten_rows([pd.p_params(p) for p in pd.particle_ids()])[0]
+    tree_map(lambda s, o: s.copy_(o), pd.store.stacked("params"), theta0)
+    del theta0
+    svgd._fused_epochs(pd.particle_ids(), [batch], 1, lr=1e-3,
+                       lengthscale=0.0)
+    comp = flatten_rows([pd.p_params(p) for p in pd.particle_ids()])[0]
+    row["nel_vs_captured_max_abs"] = float((nel - comp).abs().max())
+    row["nel_kernels"] = lc_force_checks(torch, nel, None,
+                                         "phase 9 NEL leader, n = 7")
+    del nel, comp
+    row["captures_total_after_churn"] = \
+        cache.snapshot_stats()["misses"] - misses
+    # the clone's copies alone, timed last (they overwrite the clone)
+    row["clone_copy"] = clone_copy(torch, pd.store, ("params",), pids[0],
+                                   clone)
+    ok = (row["captures_after_churn"] == 0 and row["dead_slot_bit_for_bit"]
+          and row["dead_slot_loss"] == 0.0 and np.isfinite(losses).all()
+          and row["nel_vs_captured_max_abs"] < 1e-4
+          and row["captures_total_after_churn"] == 0)
+    out["svgd"] = row
+    emit({"phase": 9, "part": "svgd", **row})
+    svgd.cleanup()
+    del svgd, pd, cache, prog, co, mask, dead
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"phase 9 SVGD under churn: {row}")
+
+    # (b) MultiSWAG, Adam, rank 20, collecting every epoch
+    swag = MultiSWAG(module, seed=SEED, backend="compiled", capacity=8)
+    pd, cache = swag.push_dist, ProgramCache()
+    pd.runtime.cache = cache
+    opt = adam(1e-3)
+    pids, _ = swag.bayes_infer(loader, 1, num_particles=TRAIN_P,
+                               optimizer=opt, max_rank=20)
+    clone, row = churn(pd, pids)
+    keys = ("params", "opt_state", "swag")
+    dead = slot_rows(torch, pd.store, keys, 5)
+    misses = cache.snapshot_stats()["misses"]
+    losses = driven(swag._fused_epochs, pd.particle_ids(), loader, 2,
+                    optimizer=opt)
+    row["captures_after_churn"] = cache.snapshot_stats()["misses"] - misses
+    row["dead_slot_bit_for_bit"] = same_rows(torch, pd.store, dead, 5)
+    del dead
+    mask = pd.store.active_mask()
+    st = pd.store.stacked("swag")
+    m0, s0 = (flatten_stacked(st[k])[0] for k in ("mean", "sq_mean"))
+    theta = flatten_stacked(pd.store.stacked("params"))[0]
+    mk, sk = swag_moments.moments(m0, s0, theta, st["n"], mask)
+    mp, sp = ref.swag_moments(m0, s0, theta, st["n"], mask)
+    live = mask > 0
+    dk = swag_moments.diag_std(mk[live].contiguous(), sk[live].contiguous())
+    dp = ref.diag_std(mp[live].contiguous(), sp[live].contiguous())
+    row["kernels"] = {
+        "moments_max_abs": max(float((mk - mp).abs().max()),
+                               float((sk - sp).abs().max())),
+        "moments_dead_row_kept": bool(torch.equal(mk[5], m0[5])
+                                      and torch.equal(sk[5], s0[5])),
+        "diag_std_max_abs": float((dk - dp).abs().max())}
+    del m0, s0, theta, mk, sk, mp, sp, dk, dp, st
+    # the predictive over the live rows (store.dense): diag_std per leaf
+    svc = driven(swag.posterior_predictive, samples_per_particle=1)
+    heads = svc.predict_batch(images)
+    row["predictive_finite"] = bool(all(
+        torch.isfinite(v).all() for v in heads.values()))
+    row["predictive_members"] = int(svc.engine._static_mask.numel())
+    del svc, heads
+    # resample, prune and grow within capacity, then one more fused run
+    cap, gen0 = pd.store.capacity, pd.store.generation()
+    w = lifecycle.ensemble_weights(swag, batch)
+    live_counts = [len(lifecycle.resample(
+        swag, w, jitter=0.01, rng=np.random.default_rng(SEED)))]
+    live_counts.append(len(lifecycle.prune(swag, 6, batch=batch)))
+    lifecycle.grow(swag, 2, batch=batch, optimizer=opt)
+    live_counts.append(len(pd.particle_ids()))
+    misses = cache.snapshot_stats()["misses"]
+    losses2 = driven(swag._fused_epochs, pd.particle_ids(), loader, 1,
+                     optimizer=opt)
+    row.update({
+        "live_counts": live_counts, "capacity": pd.store.capacity,
+        "generation_unchanged": pd.store.generation() == gen0,
+        "captures_after_policies": cache.snapshot_stats()["misses"] - misses,
+        "lifecycle": pd.stats()["lifecycle"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    ids = pd.particle_ids()
+    row["clone_copy"] = clone_copy(torch, pd.store, keys, ids[0], ids[1])
+    k = row["kernels"]
+    ok = (row["captures_after_churn"] == 0 and row["dead_slot_bit_for_bit"]
+          and np.isfinite(losses).all() and np.isfinite(losses2).all()
+          and k["moments_max_abs"] < 1e-5 and k["moments_dead_row_kept"]
+          and k["diag_std_max_abs"] < 1e-5 and row["predictive_finite"]
+          and row["predictive_members"] == 7
+          and live_counts == [7, 6, 8] and pd.store.capacity == cap
+          and row["generation_unchanged"]
+          and row["captures_after_policies"] == 0)
+    out["multiswag"] = row
+    emit({"phase": 9, "part": "multiswag", **row})
+    swag.cleanup()
+    del swag, pd, cache, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"phase 9 MultiSWAG under churn: {row}")
+    return out, total
+
+
+def phase9(torch, cfg, reqs):
+    """The particle lifecycle on the card (module doc). Returns each
+    kernel's launches over phase 9's driven runs."""
+    t0 = time.perf_counter()
+    errs = lc_kernels_serving(torch, cfg, reqs)
+    _, launches = lc_serving(torch, cfg, reqs)
+    gc.collect()            # the LM's particles sit in reference cycles
+    torch.cuda.empty_cache()
+    _, got = lc_training(torch)
+    add_counts(launches, got)
+    on_path = ("pairwise_sqdist", "svgd_force", "swag_moments",
+               "swag_diag_std", "flash_attention", "paged_decode_attention",
+               "paged_decode_window_attention")
+    missing = [k for k in on_path if not launches.get(k)]
+    emit({"phase": 9, "kernel_max_abs_err": errs, "launches": launches,
+          "wall_s": time.perf_counter() - t0})
+    if missing:
+        raise AssertionError(f"phase 9: {missing} never launched")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2598,9 +3083,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     nel_launches = phase8(torch, captured)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lc_launches = phase9(torch, cfg, reqs)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
+        row["lifecycle_launches"] = lc_launches.get(name, 0)
     rows = list(rows.values())
     emit({"kernels": rows})
     print(smi.stdout.strip().splitlines()[0], flush=True)

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 
+import torch
+
 from ..core import ParticleModule, PushDistribution
 from ..core.tree import to_device
 from ..runtime.backends import CompiledRuntime
@@ -68,34 +70,39 @@ class Infer:
         """Checkout/commit protocol shared by every fused epoch loop: yield
         a dict of stacked state (the loop rebinds its entries as it
         trains); whatever was checked out is committed back exactly once,
-        even on a mid-loop failure. ``pids`` is None: the full live set.
-        The NEL is drained first: no hop may write the state once it is
-        checked out, nor launch while a step is being captured."""
-        if pids is not None:
-            raise NotImplementedError("pid-subset checkouts are not ported")
+        even on a mid-loop failure. ``pids`` None: the full live set's
+        canonical trees; a pid list: a dense stack of those rows. The NEL
+        is drained first: no hop may write the state once it is checked
+        out, nor launch while a step is being captured."""
         self.push_dist.drain()
         store = self.push_dist.store
         co = {}
         try:
             for k in keys:
-                co[k] = store.checkout(k)
+                co[k] = store.checkout(k, pids)
             yield co
         finally:
             for k, v in co.items():
-                store.commit(k, v)
+                store.commit(k, v, pids)
 
     def _fused_plan(self, pids):
-        """(checkout pids, active mask, slot per pid) for one fused run:
-        the full live set -> the canonical capacity-padded trees (None)
-        plus the store's active mask. A subset would need pid-subset
-        views, which are not ported: it raises."""
+        """(checkout pids, active mask, row index per pid) for one fused
+        run over ``pids``.
+
+        The full live set (in any order) -> the canonical capacity-padded
+        trees (None) plus the store's active mask: their tensors keep
+        their addresses under churn, so the run reuses its captured steps.
+        Any other subset -> a dense checkout of exactly those rows under
+        an all-ones mask; that stack is new each run, so each subset run
+        captures its steps once. Loss vectors are indexed with the
+        returned rows."""
         store = self.push_dist.store
         pids = list(pids)
-        if len(pids) != len(store) or set(pids) != set(store.pids):
-            raise NotImplementedError(
-                "fused runs over a subset of the particles need pid-subset "
-                "store views, which are not ported")
-        return None, store.active_mask(), [store.slot_of(p) for p in pids]
+        if len(pids) == len(store) and set(pids) == set(store.pids):
+            return None, store.active_mask(), [store.slot_of(p)
+                                               for p in pids]
+        return pids, torch.ones(len(pids), device=store.device), \
+            list(range(len(pids)))
 
     def _compiled_runtime(self):
         """The PD's runtime when it is the compiled one, else a

@@ -72,10 +72,17 @@ class ParticleModule:
 class Particle:
     """One particle: ``state`` is its mapping view of the PD's store
     (``StoreState``); ``receive`` maps message names to handlers
-    ``fn(particle, *args)``."""
+    ``fn(particle, *args)``.
+
+    A new particle writes ``"params"`` first (its slot goes live in the
+    store's mask with that key), then ``"opt_state"``
+    (``optimizer.init(params)``, or None), ``"grads"`` (None until a step)
+    and the ``state`` keys. ``write_state=False`` attaches to state
+    already in the store (``p_clone``'s slot copy)."""
 
     def __init__(self, pid: int, nel, module: ParticleModule,
-                 store: ParticleStore, optimizer=None):
+                 store: ParticleStore, optimizer=None, params=None,
+                 state: Optional[dict] = None, write_state: bool = True):
         self.pid = pid
         self.nel = nel
         self.module = module
@@ -83,6 +90,14 @@ class Particle:
         self.store = store
         self.state: StoreState = StoreState(store, pid)
         self.receive: Dict[str, Callable] = {}
+        if write_state:
+            self.state["params"] = params
+            self.state["opt_state"] = (
+                None if optimizer is None
+                else optimizer.init(self.state["params"]))
+            self.state["grads"] = None
+            for k, v in (state or {}).items():
+                self.state[k] = v
 
     # -- local state access ------------------------------------------------
     def parameters(self):

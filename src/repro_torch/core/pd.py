@@ -11,6 +11,10 @@ API follows the paper's Fig. 2:
 
 ``device=`` sets the store's device (``cuda`` unless the caller asks for
 another); the NEL's workers and everything downstream follow it.
+``p_clone`` / ``p_kill`` / ``p_rebalance`` churn the particle set; within
+the store's capacity they move no stacked tensor, so no captured step is
+captured again (``lifecycle`` counts them; ``bdl.lifecycle`` holds the
+policies built on them).
 ``backend=`` selects the runtime object once (``runtime.backends``):
 ``"nel"`` (the default) runs every message through the actor runtime;
 ``"compiled"`` runs the algorithms' fused stacked-axis forms and
@@ -57,6 +61,7 @@ class PushDistribution:
         self._gen = torch.Generator(device=self.store.device)
         self._gen.manual_seed(seed)
         self.particles: Dict[int, Particle] = {}
+        self.lifecycle = {"clones": 0, "kills": 0, "rebalances": 0}
         self.runtime = make_runtime(backend, self)
 
     @property
@@ -80,19 +85,68 @@ class PushDistribution:
             params = self.module.init(self._gen)
         pid = self.nel.register(None, device=device)
         self.store.register(pid)
-        p = Particle(pid, self.nel, self.module, self.store, optimizer)
-        p.state["params"] = params
-        params = p.state["params"]
-        p.state["opt_state"] = (None if optimizer is None
-                                else optimizer.init(params))
-        p.state["grads"] = None
-        for k, v in (state or {}).items():
-            p.state[k] = v
+        p = Particle(pid, self.nel, self.module, self.store, optimizer,
+                     params=params, state=state)
         for msg, fn in (receive or {}).items():
             p.on(msg, fn)
         self.nel._particles[pid] = p
         self.particles[pid] = p
         return pid
+
+    # -- elastic lifecycle (DESIGN.md §9) ------------------------------------
+    def p_clone(self, pid: int, jitter: float = 0.0, *,
+                device: Optional[int] = None) -> int:
+        """Replicate a live particle into a free slot: params (plus
+        ``jitter`` times N(0, 1) from the PD's generator), optimizer
+        state, message handlers and every other state key (the paged KV
+        pool's row too) are copied. Params go first, so the slot goes live
+        in the mask with the key that serving reads. Within capacity each
+        key is a copy inside the stacked tensors (``store.clone_slot``):
+        no stacked tensor moves, ``generation()`` does not bump, and no
+        captured step is captured again. A clone that fails (a key checked
+        out by a fused run) raises and leaves no particle behind. Call it
+        under a decode scheduler's ``step_lock`` while that serves."""
+        src = self.particles[pid]
+        new_pid = self.nel.register(None, device=device)
+        self.store.register(new_pid)
+        try:
+            keys = sorted(self.store.keys_for(pid), key=lambda k: k != "params")
+            for key in keys:
+                self.store.clone_slot(
+                    key, pid, new_pid,
+                    jitter=jitter if key == "params" else 0.0,
+                    generator=self._gen)
+        except BaseException:
+            self.nel.unregister(new_pid)
+            self.store.unregister(new_pid)
+            raise
+        p = Particle(new_pid, self.nel, self.module, self.store,
+                     src.optimizer, write_state=False)
+        p.receive = dict(src.receive)
+        self.nel._particles[new_pid] = p
+        self.particles[new_pid] = p
+        self.lifecycle["clones"] += 1
+        return new_pid
+
+    def p_kill(self, pid: int):
+        """Retire a particle: its slot goes on the store's free list (the
+        mask flips to 0 there; the stale rows stay, masked out) and the NEL
+        drops its mailbox, device entry and active-set entry. Within
+        capacity this never changes ``generation()``: nothing is captured
+        again. KeyError for an unknown or dead pid."""
+        self.particles.pop(pid)
+        self.nel.unregister(pid)
+        self.store.unregister(pid)
+        self.lifecycle["kills"] += 1
+
+    def p_rebalance(self) -> Dict[int, Any]:
+        """Re-place live particles evenly across the NEL's devices
+        (draining first) and flush the store; returns {pid: (old_dev,
+        new_dev)} for the particles that moved ({} on one device)."""
+        moves = self.nel.rebalance()
+        self.store.rebalance()
+        self.lifecycle["rebalances"] += 1
+        return moves
 
     def p_launch(self, pid: int, msg: str, *args, **kwargs) -> PFuture:
         p = self.particles[pid]

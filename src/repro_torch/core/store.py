@@ -1,7 +1,7 @@
 """ParticleStore: the single source of truth for per-particle state.
 
-Counterpart of ``repro.core.store`` on one device (the mesh ``Placement``,
-subset views and fused slot cloning wait for later slices).
+Counterpart of ``repro.core.store`` on one device (the mesh ``Placement``
+waits for multi-GPU placement, ROADMAP.md queue 1 item 10).
 ``StoreState`` is one particle's mapping view of it (``particle.state``).
 
   * canonical form — one *stacked* tree per state key ("params",
@@ -14,7 +14,12 @@ count**. Stacked trees are padded to a power-of-two ``capacity``; each
 live particle owns a *slot*, freed slots go on a free list, and
 ``active_mask()`` (shape ``(capacity,)``, 1.0 at live slots) tells fused
 steps which rows are real. ``generation()`` bumps only on capacity growth
-or a key seen for the first time, never on churn within capacity.
+or a key seen for the first time, never on churn within capacity:
+``clone_slot`` copies one slot's rows into another inside the stacked
+tensors (``copy_``, jitter added in place), and ``unregister`` flips the
+mask, so both keep every stacked tensor at its address and a step
+captured on those addresses (``runtime.program``) stays valid. Capacity
+growth (``_grow``, ``torch.cat``) is the one event that moves them.
 
 Consistency protocol (all transitions under one lock):
 
@@ -27,6 +32,13 @@ Consistency protocol (all transitions under one lock):
                       must ``commit`` them back
   commit(stacked)  -> the caller's tree becomes canonical
 
+With a pid list, ``stacked`` / ``dense`` / ``checkout`` return a fresh
+dense stack of those rows (index i <-> pids[i]) and ``commit`` writes
+row i back as pids[i]'s dirty row, flushed in place into the canonical
+tensors. The canonical form is never dropped for a subset (the
+reference demotes it to rows, ``_demote_to_rows``): a restack would give
+the full-live-set steps new addresses, and so new captures.
+
 Unlike the reference's immutable arrays, a flush writes into the stacked
 tensors in place: a consumer holding the stacked tree sees the new rows.
 Serving steps and store churn are serialized by the scheduler's
@@ -36,7 +48,7 @@ from __future__ import annotations
 
 import heapq
 import threading
-from typing import Any, Dict, List, Optional, Set
+from typing import Any, Dict, List, Optional, Sequence, Set
 
 import torch
 
@@ -54,6 +66,11 @@ def _pow2_at_least(n: int) -> int:
 def _leading(tree) -> Optional[int]:
     leaves = [x for x in tree_leaves(tree) if x is not None]
     return leaves[0].shape[0] if leaves else None
+
+
+def _stack(rows):
+    """Rows of one key (trees of the same structure) -> a dense stack."""
+    return tree_map(lambda *xs: torch.stack(xs), *rows)
 
 
 def _pad(tree, n: int):
@@ -87,7 +104,7 @@ class ParticleStore:
         self._mask_cache: Optional[torch.Tensor] = None
         self.stats = {"stacks": 0, "row_flushes": 0, "commits": 0,
                       "checkouts": 0, "mask_invalidations": 0,
-                      "capacity_growths": 0}
+                      "capacity_growths": 0, "slot_clones": 0}
 
     # -- registry / slot allocation ------------------------------------------
     @property
@@ -103,6 +120,19 @@ class ParticleStore:
 
     def __len__(self) -> int:
         return len(self._slot_of)
+
+    def live_count(self) -> int:
+        with self._lock:
+            return len(self._slot_of)
+
+    def free_slots(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    def live_slots(self) -> List[int]:
+        """Sorted activated slots (host-side; no device sync)."""
+        with self._lock:
+            return sorted(self._activated)
 
     def register(self, pid: int) -> int:
         """Allocate a slot for ``pid`` (a freed one when possible; grow to
@@ -181,6 +211,27 @@ class ParticleStore:
     def _bump(self, key: str):
         self._versions[key] = self._versions.get(key, 0) + 1
 
+    def keys(self) -> List[str]:
+        """Every state key any particle holds (stacked or row form)."""
+        with self._lock:
+            return sorted(set(self._present) | set(self._stacked))
+
+    def _subset(self, pids: Optional[Sequence[int]]) -> Optional[List[int]]:
+        """None -> the canonical capacity-padded path. An explicit pid list
+        keeps the dense "index i <-> pids[i]" contract; it collapses onto
+        the canonical path only when that is the same thing (the full live
+        set in slot order, no free slot). Unregistered pids raise
+        KeyError (lock held)."""
+        if pids is None:
+            return None
+        pids = list(pids)
+        if pids == self.pids and len(pids) == self.capacity:
+            return None
+        missing = [p for p in pids if p not in self._slot_of]
+        if missing:
+            raise KeyError(f"unregistered pids {missing}")
+        return pids
+
     def _mark_present(self, key: str, slot: int):
         present = self._present.get(key)
         if present is None:
@@ -222,10 +273,30 @@ class ParticleStore:
         flush. Leaves move to the store's device."""
         tree = tree_map(lambda x: x.to(self.device), tree)
         with self._lock:
+            self._write_row(key, self._slot_of[pid], tree)
+            self._bump(key)
+
+    def _write_row(self, key: str, slot: int, tree):
+        """A dirty row that shadows the stacked entry (lock held)."""
+        self._mark_present(key, slot)
+        self._rows.setdefault(key, {})[slot] = tree
+        self._dirty.setdefault(key, set()).add(slot)
+
+    def discard(self, key: str, pid: int):
+        """Drop ``pid``'s row of a row-only key (a stacked key would no
+        longer cover the pid: ValueError)."""
+        with self._lock:
+            if key in self._stacked:
+                raise ValueError(
+                    f"cannot delete {key!r} of particle {pid}: the key is "
+                    "stacked; delete is only supported for row-only keys")
             slot = self._slot_of[pid]
-            self._mark_present(key, slot)
-            self._rows.setdefault(key, {})[slot] = tree
-            self._dirty.setdefault(key, set()).add(slot)
+            rows = self._rows.get(key, {})
+            if slot not in rows:
+                raise KeyError(key)
+            del rows[slot]
+            self._present.get(key, set()).discard(slot)
+            self._dirty.get(key, set()).discard(slot)
             self._bump(key)
 
     # -- canonical stacked form ----------------------------------------------
@@ -257,32 +328,52 @@ class ParticleStore:
         self._dirty[key] = set()
         return st
 
-    def stacked(self, key: str):
-        """The canonical capacity-padded stacked tree (flushing first);
-        consumers combine it with ``active_mask()``."""
-        with self._lock:
-            return self._flush(key)
+    def _dense_rows(self, key: str, pids: Sequence[int]):
+        """A fresh dense stack of ``pids``' rows, index i <-> pids[i]
+        (lock held)."""
+        self.stats["stacks"] += 1
+        return _stack([self._read_slot(key, self._slot_of[p]) for p in pids])
 
-    def dense(self, key: str):
-        """Live rows only, stacked in slot order (leading dim = live
-        count): for consumers that must never see a padding slot
-        (serve-time SWAG sampling). With every slot live this is the
-        canonical stacked tree itself, not a copy."""
+    def stacked(self, key: str, pids: Optional[Sequence[int]] = None):
+        """The canonical capacity-padded stacked tree (flushing first);
+        consumers combine it with ``active_mask()``. With a pid subset, a
+        fresh dense stack of those rows that leaves the canonical form
+        alone."""
+        with self._lock:
+            sub = self._subset(pids)
+            if sub is None:
+                return self._flush(key)
+            return self._dense_rows(key, sub)
+
+    def dense(self, key: str, pids: Optional[Sequence[int]] = None):
+        """Live rows only (or ``pids``' rows, in that order), stacked dense
+        (leading dim = their count): for consumers that must never see a
+        padding slot (serve-time SWAG sampling). With every slot live this
+        is the canonical stacked tree itself, not a copy."""
         with self._lock:
             st = self._flush(key)
-            slots = sorted(self._slot_of.values())
-            if len(slots) == self.capacity:
-                return st
+            if pids is None:
+                slots = sorted(self._slot_of.values())
+                if len(slots) == self.capacity:
+                    return st
+            else:
+                slots = [self._slot_of[p] for p in pids]
+            self.stats["stacks"] += 1
             idx = torch.tensor(slots, device=self.device)
             return tree_map(lambda x: x.index_select(0, idx), st)
 
-    def checkout(self, key: str):
+    def checkout(self, key: str, pids: Optional[Sequence[int]] = None):
         """Flush and hand the stacked tree to the caller, who must
-        ``commit`` it (or its update) back."""
+        ``commit`` it (or its update) back. With a pid subset the caller
+        gets a fresh dense stack of those rows and the store keeps the
+        canonical tensors (module doc)."""
         with self._lock:
-            st = self._flush(key)
+            sub = self._subset(pids)
             self.stats["checkouts"] += 1
             self._bump(key)
+            if sub is not None:
+                return self._dense_rows(key, sub)
+            st = self._flush(key)
             self._checkout_cohort[key] = (
                 self.capacity, set(self._present.get(key, ())))
             self._stacked.pop(key, None)
@@ -290,18 +381,31 @@ class ParticleStore:
             self._dirty.pop(key, None)
             return st
 
-    def commit(self, key: str, stacked):
+    def commit(self, key: str, stacked,
+               pids: Optional[Sequence[int]] = None):
         """``stacked`` becomes canonical for ``key``. After a checkout it
         covers the slots checked out (padded if the store grew meanwhile);
-        a direct commit speaks for every live slot."""
+        a direct commit speaks for every live slot. With a pid subset, row
+        i of ``stacked`` becomes pids[i]'s dirty row, which the next flush
+        copies into the canonical tensors in place."""
         with self._lock:
-            cohort = self._checkout_cohort.pop(key, None)
-            n = cohort[0] if cohort is not None else self.capacity
+            sub = self._subset(pids)
+            cohort = None if sub is not None \
+                else self._checkout_cohort.pop(key, None)
+            if sub is not None:
+                n = len(sub)
+            else:
+                n = cohort[0] if cohort is not None else self.capacity
             if _leading(stacked) not in (None, n):     # None: a leafless tree
                 raise ValueError(f"stacked {key!r} has leading dim "
                                  f"{_leading(stacked)}, expected {n}")
             self.stats["commits"] += 1
             self._bump(key)
+            if sub is not None:
+                for j, pid in enumerate(sub):
+                    self._write_row(key, self._slot_of[pid],
+                                    tree_map(lambda x, j=j: x[j], stacked))
+                return
             if cohort is None:
                 if key not in self._present and key not in self._stacked:
                     self._gen += 1     # key-schema change
@@ -322,6 +426,90 @@ class ParticleStore:
             for slot in co_slots:
                 rows.pop(slot, None)
                 dirty.discard(slot)
+
+    # -- fused slot cloning (the p_clone path) -------------------------------
+    def clone_slot(self, key: str, src_pid: int, dst_pid: int,
+                   jitter: float = 0.0, generator=None):
+        """Copy ``key``'s row of ``src_pid``'s slot into ``dst_pid``'s slot
+        inside the canonical stacked tensors, one ``copy_`` per leaf, with
+        ``jitter`` times N(0, 1) from ``generator`` added in place to the
+        floating leaves. Every stacked tensor keeps its address, so a step
+        captured on them needs no new capture, and the next flush is a
+        no-op. A leafless tree (``grads`` None) is copied as a row.
+
+        The copy is eager for every key: the reference's lazy row copy
+        (``prefer_row``) would here be a view of the source's row, which
+        changes as the source trains on. Raises RuntimeError while the key
+        is checked out by a fused run (its tensors are in the run's
+        hands), KeyError when the source holds no ``key``."""
+        with self._lock:
+            src = self._slot_of[src_pid]
+            dst = self._slot_of[dst_pid]
+            if key in self._checkout_cohort:
+                raise RuntimeError(
+                    f"{key!r} is checked out by an in-flight fused run; "
+                    "commit it back before cloning")
+            if src not in self._present.get(key, ()):
+                raise KeyError(f"store has no {key!r} for particle "
+                               f"{src_pid}")
+            st = self._flush(key)
+            leaves = tree_leaves(st)
+            if not leaves:
+                self._write_row(key, dst, self._read_slot(key, src))
+            else:
+                with torch.no_grad():
+                    for leaf in leaves:
+                        row = leaf[dst]
+                        row.copy_(leaf[src])
+                        if jitter and leaf.is_floating_point():
+                            row.add_(torch.randn(
+                                row.shape, generator=generator,
+                                device=leaf.device, dtype=leaf.dtype),
+                                alpha=jitter)
+                self._mark_present(key, dst)
+                self.stats["slot_clones"] += 1
+            self._bump(key)
+
+    # -- lifecycle introspection -----------------------------------------
+    def rebalance(self):
+        """The store half of ``pd.p_rebalance()``: flush every key and
+        rebuild the mask. On one device there is nothing to re-place (the
+        reference re-places each key against its mesh ``Placement``)."""
+        with self._lock:
+            for key in self.keys():
+                try:
+                    self._flush(key)
+                except KeyError:
+                    continue
+            self._invalidate_mask()
+
+    def per_particle_bytes(self, key: str = "params") -> int:
+        """Bytes of ``key`` per slot (the stacked tree over capacity, or
+        one row), actual leaf dtypes; 0 when the store holds no ``key``."""
+        with self._lock:
+            tree = self._stacked.get(key)
+            if tree is None:
+                rows = self._rows.get(key, {})
+                if not rows:
+                    return 0
+                return sum(x.numel() * x.element_size()
+                           for x in tree_leaves(next(iter(rows.values()))))
+            total = sum(x.numel() * x.element_size()
+                        for x in tree_leaves(tree))
+            return total // max(self.capacity, 1)
+
+    def lifecycle_stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"capacity": self.capacity,
+                    "live": len(self._slot_of),
+                    "free_slots": len(self._free),
+                    "generation": self._gen,
+                    "mask_invalidations": self.stats["mask_invalidations"],
+                    "capacity_growths": self.stats["capacity_growths"]}
+
+    def snapshot_stats(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.stats)
 
     # -- introspection -------------------------------------------------------
     def key_dtypes(self, key: str) -> Dict[str, int]:
@@ -368,6 +556,9 @@ class StoreState:
 
     def __setitem__(self, key: str, value):
         self.store.write(key, self.pid, value)
+
+    def __delitem__(self, key: str):
+        self.store.discard(key, self.pid)
 
     def __contains__(self, key: str) -> bool:
         return self.store.has(key, self.pid)

@@ -16,7 +16,9 @@ Both dispatch a ``ProgramSpec`` through the ProgramCache under the PD's
 store generation (``program`` / ``run``: the train steps, the SWAG
 collection and ``predict``; a CUDA graph each on the card, eager on the
 CPU), and both report ``stats()``: the executor's wait-vs-run counters,
-the NEL's dispatch counters, the store's, the cache's and obs's.
+the NEL's dispatch counters, the store's, the cache's, the lifecycle's
+(capacity, live and free slots, generation, clones, kills, rebalances)
+and obs's.
 
 A graph capture on the card runs in global mode, which refuses launches
 from other threads: ``program`` drains the PD's NEL before a lookup
@@ -65,8 +67,10 @@ class _BaseRuntime:
         return {"backend": self.name,
                 "executor": self.pd.nel.executor.stats(),
                 "dispatch": dict(self.pd.nel.stats),
-                "store": dict(self.pd.store.stats),
+                "store": self.pd.store.snapshot_stats(),
                 "program_cache": self.cache.snapshot_stats(),
+                "lifecycle": {**self.pd.store.lifecycle_stats(),
+                              **self.pd.lifecycle},
                 "obs": _obs_summary()}
 
 

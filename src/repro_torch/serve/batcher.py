@@ -110,7 +110,10 @@ class DecodeScheduler:
       retire   rows hitting eos/max_new release pages and resolve their
                PFuture in the SAME iteration the row frees up.
 
-    ``step_lock`` serializes steps against external store churn.
+    ``step_lock`` serializes steps against external store churn: a
+    ``p_clone`` / ``p_kill`` made under it never meets a step's page
+    checkout, and a clone copies its source's ``kv_pages`` row in place,
+    so the clone holds the KV of every sequence in flight.
     """
 
     def __init__(self, engine, pool, *, max_active: int = 8,

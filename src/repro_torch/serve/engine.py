@@ -83,6 +83,7 @@ class PredictiveEngine:
         self._params_key = (None if params is None
                             else arg_key("state", params))
         self._step_spec: Optional[ProgramSpec] = None
+        self._live_idx: Any = None          # (mask object, live rows)
         self.stats = {"calls": 0, "compiles": 0, "bucket_hits": 0,
                       "param_refreshes": 0}
 
@@ -109,10 +110,12 @@ class PredictiveEngine:
         self.stats["bucket_hits" if hit else "compiles"] += 1
         return prog
 
-    def predict(self, batch):
+    def predict(self, batch, members: bool = False):
         """BMA forward over a request batch (leading axis B, numpy or
         tensors). Pads B up to the power-of-two bucket (repeating the last
-        row), runs every member at once, and slices the heads back to B."""
+        row), runs every member at once, and slices the heads back to B.
+        ``members=True`` also returns the member outputs of the live rows
+        only, in slot order (live count, B, ...), whatever the churn."""
         if self.forward is None:
             raise RuntimeError("this engine has no forward")
         if self.stateful:
@@ -125,7 +128,14 @@ class PredictiveEngine:
         with torch.no_grad():
             outs = self.forward(stacked, padded)
             heads = uncertainty.predictive_heads(outs, self.kind, mask)
-        return {k: v[:m] for k, v in heads.items()}
+        heads = {k: v[:m] for k, v in heads.items()}
+        if not members:
+            return heads
+        # live rows memoized on the mask object, which the store keeps
+        # between lifecycle events: one host read per churn event
+        if self._live_idx is None or self._live_idx[0] is not mask:
+            self._live_idx = (mask, torch.nonzero(mask > 0)[:, 0])
+        return heads, outs[self._live_idx[1], :m]
 
     def init_state(self, make_state: Callable):
         """Build the stacked per-particle serving state:

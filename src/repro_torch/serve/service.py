@@ -190,6 +190,11 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     ``cold_compiles`` (captures). ``cache=ProgramCache(capturer=
     runtime.eager)`` serves the card eagerly, for comparison.
 
+    Clone/kill churn within the store's capacity (``pd.p_clone`` /
+    ``pd.p_kill`` under ``svc.scheduler.step_lock``) captures nothing
+    after warmup and leaves ``generation()`` alone: the params and the
+    page pool keep their addresses, and the mask is copied into each step.
+
     ``speculative=`` turns on speculative BMA decoding (DESIGN.md §14):
     ``True`` for the defaults, an int for that many drafted tokens per
     step, or a ``serve.SpecConfig``. Greedy output stays token-exact; only

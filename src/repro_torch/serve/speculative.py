@@ -21,10 +21,18 @@ the accepted prefix is stale but unreachable (the kernels mask by
 position), so rollback is host page accounting: ``PagePool.release_tail``
 returns any page the rejected tail had crossed into.
 
+Churn (``p_clone`` / ``p_kill`` under ``step_lock``): the draft reads its
+particle's rows in place through ``a[slot:slot+1]`` views, so each draft
+program is captured for one slot (the reference slices a traced slot
+scalar instead). Warmup therefore captures the draft at every slot of the
+store's capacity and every iteration count: killing the drafting particle
+re-picks the first live slot and switches programs (``slot_uploads``
+counts the switches), and nothing is captured after warmup. Reading the
+slot on the device instead would gather the draft particle's whole
+parameter tree on every draft.
+
 Not ported yet: the int8-quantized draft (``SpecConfig(quantized=True)``
-raises; it needs the precision ladder's ``quantize_int8``), and the
-reference's clone/kill churn between requests (the port's store has no
-``p_clone``/``p_kill`` yet).
+raises; it needs the precision ladder's ``quantize_int8``).
 """
 from __future__ import annotations
 
@@ -93,7 +101,10 @@ class SpecDecodeEngine(PagedDecodeEngine):
 
       draft_step(packed, slot)   up to K greedy tokens per row from ONE
                                  particle, the argmax fed back: one
-                                 program per (slot, iteration count);
+                                 program per (slot, iteration count),
+                                 ``stats["slot_uploads"]`` counting the
+                                 calls whose slot differs from the last
+                                 call's (the reference's slot uploads);
       verify_step(packed)        the W = K+1 token window scored by every
                                  particle in one pass, per-position BMA
                                  heads and argmax reduced on the device.
@@ -107,7 +118,9 @@ class SpecDecodeEngine(PagedDecodeEngine):
         self.k_max = spec_cfg.k_max
         self.w_max = spec_cfg.k_max + 1
         self._draft_slot_memo: Any = None   # (mask object, slot)
+        self._last_draft_slot: Optional[int] = None
         self.stats["draft_iterations"] = 0
+        self.stats["slot_uploads"] = 0
         self._draft_specs: Dict[Any, ProgramSpec] = {}
         self._verify = spec_verify(verify_fn, sample_heads, w_max=self.w_max,
                                    key=(ident(verify_fn), self.kind))
@@ -144,6 +157,9 @@ class SpecDecodeEngine(PagedDecodeEngine):
         drafted tokens on the device (entries past a row's k are
         garbage)."""
         self.stats["calls"] += 1
+        if slot != self._last_draft_slot:
+            self._last_draft_slot = slot
+            self.stats["slot_uploads"] += 1
         _, params = self._mask_and_params()
         n_iter = int(packed[:, 2].max()) if len(packed) else 0
         self.stats["draft_iterations"] += n_iter
@@ -231,20 +247,22 @@ class SpeculativeDecodeScheduler(DecodeScheduler):
 
     # -- step loop -----------------------------------------------------------
     def warmup(self, prompt_buckets=()):
-        """Capture the draft at every iteration count 1..k_max and the
-        verify, with every row masked inactive (no real page is written),
-        and one prefill per requested pow2 prompt bucket with zero tokens.
-        After this, admission, retirement and preemption within the warmed
-        buckets capture nothing more. The single-token decode step is the
-        draft's, so it is warmed with it."""
+        """Capture the draft at every slot of the store's capacity and every
+        iteration count 1..k_max, and the verify, with every row masked
+        inactive (no real page is written), and one prefill per requested
+        pow2 prompt bucket with zero tokens. After this, admission,
+        retirement, preemption within the warmed buckets and clone/kill
+        churn within capacity (a re-picked draft slot included) capture
+        nothing more. The single-token decode step is the draft's, so it is
+        warmed with it."""
         with self.step_lock:
             d = self._draft_packed
-            slot = self.engine.pick_draft_slot(self.engine.active_mask())
-            for n_iter in range(1, self.k_max + 1):
-                d[:] = 0
-                d[:, 1] = -1
-                d[:, 2] = n_iter      # every row inactive
-                self.engine.draft_step(d, slot).cpu()
+            for slot in range(self.engine.store.capacity):
+                for n_iter in range(1, self.k_max + 1):
+                    d[:] = 0
+                    d[:, 1] = -1
+                    d[:, 2] = n_iter      # every row inactive
+                    self.engine.draft_step(d, slot).cpu()
             v = self._verify_packed
             v[:] = 0
             v[:, self.w_max] = -1

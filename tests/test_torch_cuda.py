@@ -1430,3 +1430,155 @@ def test_nested_send_and_wait_on_one_device_worker(dev):
         st = pd.stats()["executor"]
         assert st["dispatched"] == st["completed"] == 2
         assert st["threads"] == pd.nel.executor.num_threads
+
+
+# --------------------------------------------------------------------------
+# the particle lifecycle on the card: clone / kill within capacity keep
+# every stacked tensor at its address, so nothing is captured again
+# --------------------------------------------------------------------------
+
+def _churn_pd(dev, cfg, n=2):
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    pd = PushDistribution(module, seed=0, capacity=4, device=dev)
+    for _ in range(n):
+        pd.p_create()
+    return pd
+
+
+def _ptrs(store, key):
+    return [x.data_ptr() for x in tree_leaves(store.stacked(key))]
+
+
+@pytest.mark.parametrize("speculative", [None, 2])
+def test_clone_within_capacity_keeps_addresses_and_captures_nothing(
+        dev, speculative):
+    """A jittered clone under ``step_lock`` writes into the params' and the
+    page pool's stacked tensors in place: no address moves, no step is
+    captured again, ``generation()`` holds; after the twin's kill the
+    captured service emits its pre-churn tokens and logprobs exactly."""
+    from repro_torch.runtime import ProgramCache
+    cfg = _capture_cfg()
+    pd = _churn_pd(dev, cfg)
+    prompts = [[5, 6, 7, 8, 9], [9, 10, 11]]
+    cache = ProgramCache()
+    svc = serve_decode(pd, cfg, num_pages=32, page_size=8, max_active=2,
+                       warmup_buckets=(4, 8), speculative=speculative,
+                       cache=cache)
+    try:
+        base = [svc.generate(p, max_new=6) for p in prompts]
+        cold, gen = svc.stats()["cold_compiles"], pd.store.generation()
+        with svc.scheduler.step_lock:
+            ptrs = {k: _ptrs(pd.store, k) for k in ("params", "kv_pages")}
+            twin = pd.p_clone(0, jitter=0.01)
+            assert {k: _ptrs(pd.store, k) for k in ptrs} == ptrs
+        wide = [svc.generate(p, max_new=6) for p in prompts]
+        with svc.scheduler.step_lock:
+            pd.p_kill(twin)
+        back = [svc.generate(p, max_new=6) for p in prompts]
+        st = svc.stats()
+        assert all(p["graph"] for p in cache.program_info())
+    finally:
+        svc.close()
+    assert st["cold_compiles"] == cold and pd.store.generation() == gen
+    assert st["pool"]["used_pages"] == 0
+    assert all(len(w.tokens) == 6 for w in wide)
+    for a, b in zip(base, back):
+        assert a.tokens == b.tokens and a.logprobs == b.logprobs
+
+
+def test_killing_the_drafter_repicks_without_a_capture(dev):
+    """Warmup captures the draft at every slot of the capacity: killing
+    the drafting particle switches the draft to the next live slot's
+    program (``slot_uploads``) without a capture, and the one remaining
+    particle's tokens equal an eager plain service's over it."""
+    from repro_torch.runtime import ProgramCache, eager
+    cfg = _capture_cfg()
+    pd = _churn_pd(dev, cfg)
+    prompt = [5, 6, 7, 8, 9, 10, 11]
+    cache = ProgramCache()
+    svc = serve_decode(pd, cfg, num_pages=32, page_size=8, max_active=2,
+                       warmup_buckets=(8,), speculative=2, cache=cache)
+    try:
+        drafts = [p for p in cache.program_info()
+                  if p["name"] == "spec_draft_step"]
+        assert len(drafts) == 2 * pd.store.capacity
+        svc.generate(prompt, max_new=6)
+        st = svc.stats()
+        cold, uploads = st["cold_compiles"], st["engine"]["slot_uploads"]
+        with svc.scheduler.step_lock:
+            pd.p_kill(0)
+        solo = svc.generate(prompt, max_new=6)
+        st = svc.stats()
+    finally:
+        svc.close()
+    assert st["cold_compiles"] == cold
+    assert st["engine"]["slot_uploads"] == uploads + 1
+    plain = serve_decode(pd, cfg, num_pages=32, page_size=8, max_active=2,
+                         warmup=False, cache=ProgramCache(capturer=eager))
+    try:
+        want = plain.generate(prompt, max_new=6)
+    finally:
+        plain.close()
+    assert solo.tokens == want.tokens
+
+
+@pytest.mark.parametrize("name", ["svgd", "multiswag"])
+def test_fused_training_after_churn_on_the_card(dev, name):
+    """8 particles in a store of capacity 8: after two kills and one
+    jittered clone (7 live, slot 5 dead) the captured fused run reuses
+    its programs, leaves the dead slot's params, optimizer state and SWAG
+    state bit for bit and reports loss 0 there; the kernels #1-#4 at the
+    churned state, dead row and all, match their plain versions."""
+    from repro_torch.core.functional import flatten_stacked
+    from repro_torch.runtime import ProgramCache
+    cfg, (mod, _) = _vit_modules(dev, 8)
+    cls = SteinVGD if name == "svgd" else MultiSWAG
+    kw = ({"lr": 0.05, "lengthscale": 0.0} if name == "svgd" else
+          {"optimizer": adam(1e-3), "max_rank": 3})
+    algo = cls(mod, backend="compiled", capacity=8, device=dev)
+    pd, cache = algo.push_dist, ProgramCache()
+    pd.runtime.cache = cache
+    data = DataLoader(cfg, batch_size=8, num_batches=2)
+    pids, _ = algo.bayes_infer(data, 2, num_particles=8, **kw)
+    pd.p_kill(pids[1])
+    pd.p_kill(pids[5])
+    clone = pd.p_clone(pids[0], jitter=0.01)
+    assert pd.store.slot_of(clone) == 1 and pd.store.live_count() == 7
+    keys = pd.store.keys()
+    dead = {k: _host(tree_map(lambda a: a[5], pd.store.stacked(k)))
+            for k in keys if k != "grads"}
+    misses = cache.snapshot_stats()["misses"]
+    kw.pop("max_rank", None)
+    losses = algo._fused_epochs(pd.particle_ids(), data, 2, **kw)
+    torch.cuda.synchronize()
+    assert cache.snapshot_stats()["misses"] == misses
+    assert len(losses) == 7 and np.isfinite(losses).all()
+    for k, row in dead.items():
+        assert _same_bits(_host(tree_map(lambda a: a[5],
+                                         pd.store.stacked(k))), row)
+    mask = pd.store.active_mask()
+    assert mask.tolist() == [1, 1, 1, 1, 1, 0, 1, 1]
+    theta, _ = flatten_stacked(pd.store.stacked("params"))
+    got = svgd_rbf.pairwise_sqdist(theta, mask)
+    assert (got - ref.pairwise_sqdist(theta, mask)).abs().max().item() \
+        < 1e-5 * got.max().item()
+    g = torch.randn(theta.shape, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    phi = bsvgd.svgd_force(theta, g, 0.0, mask=mask)
+    want = _plain_force(theta, g, 0.0, mask)
+    assert (phi - want).abs().max().item() < 2e-4 * want.abs().max().item()
+    assert phi[5].abs().max().item() == 0.0
+    if name == "multiswag":
+        swag = pd.store.stacked("swag")
+        m0, s0 = flatten_stacked(swag["mean"])[0], \
+            flatten_stacked(swag["sq_mean"])[0]
+        mk, sk = swag_moments.moments(m0, s0, theta, swag["n"], mask)
+        mp, sp = ref.swag_moments(m0, s0, theta, swag["n"], mask)
+        assert (mk - mp).abs().max().item() < 1e-5
+        assert (sk - sp).abs().max().item() < 1e-5
+        assert torch.equal(mk[5], m0[5]) and torch.equal(sk[5], s0[5])
+        live = mask > 0
+        got = swag_moments.diag_std(mk[live].contiguous(),
+                                    sk[live].contiguous())
+        want = ref.diag_std(mp[live].contiguous(), sp[live].contiguous())
+        assert (got - want).abs().max().item() < 1e-5

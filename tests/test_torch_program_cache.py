@@ -220,9 +220,10 @@ def test_compiled_runtime_runs_under_the_store_generation():
 @pytest.mark.parametrize("speculative", [None, 2])
 def test_no_capture_after_warmup_under_churn(speculative):
     """Warmup captures every step the scheduler runs (the decode step, or
-    the draft at each iteration count and the verify; each warmed prefill
-    bucket). Then requests that admit, retire and preempt (a pool of 12
-    pages for three rows growing to 5-6 pages each) capture nothing."""
+    the draft at each slot of the store's capacity and each iteration
+    count, and the verify; each warmed prefill bucket). Then requests that
+    admit, retire and preempt (a pool of 12 pages for three rows growing
+    to 5-6 pages each) capture nothing."""
     pd, cfg = _pd()
     stub = Stub()
     cache = ProgramCache(capturer=stub)
@@ -233,7 +234,8 @@ def test_no_capture_after_warmup_under_churn(speculative):
         warm = sorted(stub.captured)
         want = (["paged_prefill"] * 4
                 + (["paged_decode_step"] if speculative is None
-                   else ["spec_draft_step"] * 2 + ["spec_verify"]))
+                   else ["spec_draft_step"] * 2 * pd.store.capacity
+                   + ["spec_verify"]))
         assert warm == sorted(want)
         rng = np.random.default_rng(1)
         handles = [svc.generate_async(list(rng.integers(1, 100, n)),

@@ -112,9 +112,10 @@ Phase 8  trains the same 8 full-width ViT-MNIST particles (random weights
          batch, params within 1e-4 (DeepEnsemble with sgd(0.05), and
          SteinVGD) and the NEL's grads within 1e-4 of one batched
          backward's (also for DeepEnsemble's Adam step, whose params
-         difference is printed, not held: Adam's first update is about
-         sign(g), so an entry with |g| near eps may move by up to 2 lr on
-         one path and not the other); one NEL
+         are held within 1e-4 where |g| > G_HOLD = 1e-6, 100 eps: Adam's
+         first update is about sign(g), so an entry with |g| near eps may
+         move by up to 2 lr on one path and not the other; those entries
+         are counted and printed); one NEL
          collection against the fused collection on the same state,
          moments and ring within 1e-5, equal ranks and counts; finite
          losses; NelRuntime.predict against CompiledRuntime.predict on
@@ -226,9 +227,41 @@ Phase 9  the particle lifecycle (p_clone / p_kill / bdl.lifecycle) with
          and a read of the counts), and each kernel of its path must have
          launched.
 
-The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9: the kernel
+Phase 10 predictive serving: 8 full-width ViT-MNIST particles trained
+         with MultiSWAG (Adam, rank 20, 3 epochs of 2 batches, collecting
+         after the first; phase 4's trained store is released by then),
+         then posterior_predictive(samples_per_particle=4, max_batch=32,
+         max_wait_ms=2): 32 sampled members (a 2.53 GB static tree), the
+         BMA program captured at buckets 1-32 from one example request
+         before serve() returns (the batcher's worker replays it). 256 single-example requests from 8
+         client threads (predict_async), then 256 from one thread
+         (predict, a closed loop: one row a flush), and the concurrent
+         run again through an eager cache (ProgramCache(capturer=
+         runtime.eager)) on the same tree. Checks: every served head
+         within 1e-5 of the same row of one predict_batch over all 256;
+         no capture after warmup, every program a graph; one
+         host-to-device copy per flush (the request's one leaf); no
+         error, the queue drained; #4 against its plain version at the
+         (8, leaf) stacks and at P = 1, every leaf (1e-5), its launches
+         exact (18 for the handoff, 18 x 8 x 2 for sample_predict over 8
+         images at S = 2, which must equal a loop of plain draws and
+         forwards on the same noise within 1e-5); then serve() over the
+         particles' own params with a p_kill under traffic: the 7 live
+         rows' BMA, no capture, generation() unchanged; and F1:
+         after a p_create into the killed slot, store.dense("swag")
+         raises KeyError. It prints requests/s, latency p50 / p95 / p99
+         and the flush mix of each run, occupancy and padded rows, host
+         and device busy ms per flush at buckets 1 and 32 with the idle
+         share (profiled windows opened with spins) beside the byte and
+         operation bounds, capture seconds and pool bytes per bucket,
+         #4's event and device ms at P = 1 and the peak device memory.
+         Each kernel's ``serve_launches`` in the kernels line are phase
+         10's driven runs (the training, the handoff, sample_predict).
+
+The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10: the kernel
 checks first, then the serving runs over one set of particles, then
-training, fused and then on the NEL, then the lifecycle.
+training, fused and then on the NEL, then the lifecycle, then predictive
+serving.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -2195,6 +2228,16 @@ def profiler_start_probe(torch, fn, k=32):
     return out
 
 
+# Adam's first update is g / (|g| + eps) (eps 1e-8) times lr (1e-3). Where
+# |g| > G_HOLD = 100 eps, a grad difference dg between the two paths
+# moves that update by at most lr * eps * dg / g^2: with dg up to the
+# grads' largest difference between the paths on the card (about 1.2e-6)
+# that is 1.2e-5, under the 1e-4 the params are held to. Entries at or
+# under it may flip the update's sign (a move of up to 2 lr): they are
+# counted, not held.
+G_HOLD = 1e-6
+
+
 def one_step_parity(torch, cls, module, batch, **kw):
     """One NEL step and one captured compiled step from the same init
     (seed SEED) on the same host batch. Returns the params' max abs
@@ -2227,11 +2270,16 @@ def one_step_parity(torch, cls, module, batch, **kw):
     g = flatten_rows([nel.push_dist.particles[p].gradients()
                       for p in pids])[0]
     over = diff > 1e-4
+    held = g.abs() > G_HOLD
     out = {"params_max_abs": float(diff.max()),
            "params_over_1e-4": int(over.sum()),
            "max_abs_grad_where_over": (float(g[over].abs().max())
-                                       if bool(over.any()) else 0.0)}
-    del diff, over
+                                       if bool(over.any()) else 0.0),
+           "params_max_abs_where_grad_over_hold": float(diff[held].max()),
+           "grad_hold": G_HOLD,
+           "entries_at_or_under_hold": int((~held).sum()),
+           "entries": int(held.numel())}
+    del diff, over, held
     nel.cleanup()
     del nel, algos
     # the compiled path's grads: one batched backward at the same init
@@ -2386,12 +2434,14 @@ def phase8(torch, captured):
         if not ok:
             failed.append(what)
 
-    # (a) DeepEnsemble. One step with sgd(0.05) is held to 1e-4: Adam's
-    # first update is g / (|g| + eps), about sign(g), so rounding at a
-    # gradient entry near eps (1e-8) may move that parameter by up to
-    # 2 lr on one path and not the other; Adam's step is printed beside
-    # it with the entries over 1e-4 and the largest |g| among them. Both
-    # hold the NEL's grads to one batched backward's within 1e-4.
+    # (a) DeepEnsemble. One step with sgd(0.05) is held to 1e-4 on every
+    # entry. Adam's first update is g / (|g| + eps), about sign(g), so
+    # rounding at a gradient entry near eps (1e-8) may move that
+    # parameter by up to 2 lr on one path and not the other: Adam's step
+    # is held to 1e-4 where |g| > G_HOLD, and the entries at or under it
+    # are counted beside the entries over 1e-4 and the largest |g| among
+    # them. Both hold the NEL's grads to one batched backward's within
+    # 1e-4.
     row = {}
     for name, o in (("sgd", sgd(0.05)), ("adam", opt)):
         par, comp = one_step_parity(torch, DeepEnsemble, module,
@@ -2403,6 +2453,8 @@ def phase8(torch, captured):
             check(par["params_max_abs"] < 1e-4,
                   f"DeepEnsemble sgd one step {par}")
         else:
+            check(par["params_max_abs_where_grad_over_hold"] < 1e-4,
+                  f"DeepEnsemble adam one step where |g| > {G_HOLD}: {par}")
             row["compiled_captured"] = compiled_step_window(
                 torch, comp, specs.ensemble_step(module.loss, o),
                 ("params", "opt_state"), batch)
@@ -3029,6 +3081,363 @@ def phase9(torch, cfg, reqs):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 10: predictive serving — ViT-MNIST MultiSWAG predictions served to
+# concurrent single-example requests
+# --------------------------------------------------------------------------
+
+SERVE_S = 4                  # SWAG draws per particle: 32 members
+SERVE_MAX_BATCH = 32
+SERVE_WAIT_MS = 2.0
+SERVE_N = 256                # requests per traffic run
+SERVE_CLIENTS = 8
+SERVE_NB = 2                 # training batches per epoch
+SERVE_TOKENS = 5             # ViT-MNIST: 4 patches + the CLS token
+HEADS = ("mean", "variance", "entropy", "mutual_info", "expected_entropy")
+FLUSH_KEYS = ("requests", "batches", "rows", "padded_rows", "size_flushes",
+              "deadline_flushes", "close_flushes", "errors", "h2d_transfers")
+
+
+def serve_traffic(svc, reqs, clients):
+    """``reqs`` through ``svc``: from ``clients`` threads, each submitting
+    its share through ``predict_async`` and then waiting on it, or (0)
+    from one thread calling ``predict`` (a closed loop: each flush holds
+    one row). Returns the predictions in request order and this run's
+    numbers: requests/s, latency percentiles and the batcher's counters
+    over the run."""
+    import threading
+    before = svc.stats()
+    n_lat = len(svc.batcher.latencies_s())
+    out = [None] * len(reqs)
+    t0 = time.perf_counter()
+    if clients:
+        def client(c):
+            handles = [(i, svc.predict_async(reqs[i]))
+                       for i in range(c, len(reqs), clients)]
+            for i, h in handles:
+                out[i] = h.result(120.0)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300.0)
+    else:
+        for i, r in enumerate(reqs):
+            out[i] = svc.predict(r, timeout=120.0)
+    wall = time.perf_counter() - t0
+    st = svc.stats()
+    lat = np.array(svc.batcher.latencies_s()[n_lat:]) * 1e3
+    row = {k: st[k] - before[k] for k in FLUSH_KEYS}
+    row.update({"clients": clients or 1, "wall_s": wall,
+                "requests_per_s": len(reqs) / wall,
+                "latency_p50_ms": float(np.percentile(lat, 50)),
+                "latency_p95_ms": float(np.percentile(lat, 95)),
+                "latency_p99_ms": float(np.percentile(lat, 99)),
+                "occupancy": row["rows"] / max(1, row["rows"]
+                                               + row["padded_rows"]),
+                "queue_depth": st["queue_depth"],
+                "max_queue_depth": st["max_queue_depth"]})
+    if any(o is None for o in out) or row["errors"] or st["queue_depth"]:
+        raise AssertionError(f"serving run did not finish clean: {row}")
+    # counted where the programs copy: one leaf a request, so one copy a
+    # flush; a second copy of the staged batch, or one made before the
+    # program, would show here
+    if row["h2d_transfers"] != row["batches"]:
+        raise AssertionError(f"h2d copies {row['h2d_transfers']} for "
+                             f"{row['batches']} flushes of one leaf")
+    return out, row
+
+
+def served_vs_batch(preds, heads):
+    """Largest difference of any served head from the same row of one
+    ``predict_batch`` over every request."""
+    return max(float(np.abs(getattr(p, k) - heads[k][i].cpu().numpy())
+                     .max()) for i, p in enumerate(preds) for k in HEADS)
+
+
+def flush_profile(torch, svc, reqs, B, members):
+    """Host ms and device busy ms of one flush of B rows (stage, one BMA
+    program, read back), a profiled window opened with spins, beside the
+    flush's bounds: the members' params read once, and 2 x params x
+    tokens x members x B fp32 operations."""
+    xs = reqs[:B]
+    prof = profile_steps(torch, lambda: svc.batcher.run_batch(xs), n=5,
+                         prologue=32)
+    ms, by = bound(members * TRAIN_D * 4,
+                   2 * TRAIN_D * SERVE_TOKENS * members * B)
+    return {"rows": B, "host_ms": prof["wall_ms"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"],
+            "top_kernels_ms": prof["top_kernels_ms"],
+            "bound_ms": ms, "bound_by": by,
+            "bytes_bound_ms": members * TRAIN_D * 4 / HBM_BYTES_PER_S * 1e3,
+            "flops_bound_ms": 2 * TRAIN_D * SERVE_TOKENS * members * B
+            / FP32_FLOPS_PER_S * 1e3}
+
+
+def diag_std_serving_shapes(torch, swag):
+    """#4 against its plain version at the serving path's two shapes: the
+    (8, leaf) dense stacks ``posterior_predictive`` reads and the
+    one-particle rows of ``sample_predict``'s draws, every leaf; then
+    timed at P = 1 over all 18 leaves (one call each, L2 flushed before
+    the set) beside the bound (mean and sq read, the scale written)."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import ref, swag_moments
+    means = tree_flatten(swag["mean"], sort_keys=True)[0]
+    sqs = tree_flatten(swag["sq_mean"], sort_keys=True)[0]
+    err = {}
+    for P in (len(means[0]), 1):
+        pairs = [(m[:P].contiguous(), s[:P].contiguous())
+                 for m, s in zip(means, sqs)]
+        err[f"P={P}"] = max(
+            float((swag_moments.diag_std(m, s) - ref.diag_std(m, s))
+                  .abs().max()) for m, s in pairs)
+    one = [(m[:1].contiguous(), s[:1].contiguous())
+           for m, s in zip(means, sqs)]
+    ms, by = bound(3 * TRAIN_D * 4, 2 * TRAIN_D)
+    out = {"max_abs_err": err, "leaves": len(means),
+           "p1_ms": time_ms(torch, lambda: [swag_moments.diag_std(m, s)
+                                            for m, s in one]),
+           "p1_plain_ms": time_ms(torch, lambda: [ref.diag_std(m, s)
+                                                  for m, s in one]),
+           "p1_device_ms": device_ms(torch, lambda: [
+               swag_moments.diag_std(m, s) for m, s in one]),
+           "p1_bound_ms": ms, "p1_bound_by": by}
+    if not all(e <= 1e-5 for e in err.values()):
+        raise AssertionError(f"diag_std kernel vs plain: {err}")
+    return out
+
+
+def sample_predict_check(torch, algo, images, S=2):
+    """``MultiSWAG.sample_predict`` over ``images`` (8), S draws a
+    particle from noise drawn here, against a loop of plain draws (the
+    plain diag_std, past the kernel's dispatch) and forwards on the same
+    noise. Returns the largest difference and the driven launches."""
+    from repro_torch.bdl.swag import _sample
+    from repro_torch.core.tree import to_device, tree_leaves, tree_map
+    from repro_torch.kernels import ref
+    pd = algo.push_dist
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    noise = []
+    for pid in pd.particle_ids():
+        swag = pd.particles[pid].state["swag"]
+        for _ in range(S):
+            noise.append((tree_map(lambda m: torch.randn(
+                m.shape, generator=gen, device="cuda"), swag["mean"]),
+                torch.randn(tree_leaves(swag["dev"])[0].shape[0],
+                            generator=gen, device="cuda")))
+    fns = reset_counts()
+    got = algo.sample_predict(images, samples_per_particle=S, noise=noise)
+    torch.cuda.synchronize()
+    launches = read_counts(fns)
+    batch = to_device(images, "cuda")
+    total, draws = None, iter(noise)
+    with torch.no_grad():
+        for pid in pd.particle_ids():
+            swag = pd.particles[pid].state["swag"]
+            one = tree_map(lambda x: x[None], swag)
+            for _ in range(S):
+                z1, z2 = next(draws)
+                theta = tree_map(lambda x: x[0], _sample(
+                    one, tree_map(lambda z: z[None, None], z1),
+                    z2[None, None], 1.0, diag_std=ref.diag_std))
+                out = algo.module._forward(theta, batch)
+                total = out if total is None else total + out
+    want = total / (len(pd.particle_ids()) * S)
+    return float((got - want).abs().max()), launches, tuple(got.shape)
+
+
+def phase10(torch):
+    """Predictive serving on the card (module doc). Returns each kernel's
+    launches over phase 10's driven runs."""
+    import threading
+    from repro_torch.bdl import MultiSWAG
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import DataLoader, mnist_like
+    from repro_torch.optim import adam
+    from repro_torch.runtime import ProgramCache, eager
+    from repro_torch.serve import serve
+    t_start = time.perf_counter()
+    cfg, module = vit_module()
+    P, S = TRAIN_P, SERVE_S
+    members = P * S
+    out = {"phase": 10, "model": cfg.name, "particles": P,
+           "samples_per_particle": S, "members": members,
+           "max_batch": SERVE_MAX_BATCH, "max_wait_ms": SERVE_WAIT_MS,
+           "resident_gb_at_start": torch.cuda.memory_allocated() / 2**30}
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+
+    # phase 4's MultiSWAG store is gone by now (phase 4 frees each run
+    # before the next, to keep the peak down): train 8 particles anew,
+    # Adam, rank 20, 3 epochs of 2 batches, collecting after the first
+    opt = adam(1e-3)
+    algo = MultiSWAG(module, seed=SEED, backend="compiled")
+    algo.push_dist.runtime.cache = ProgramCache()
+    loader = DataLoader(cfg, batch_size=TRAIN_B, num_batches=SERVE_NB,
+                        seed=SEED)
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    _, losses = algo.bayes_infer(loader, 3, num_particles=P, optimizer=opt,
+                                 pretrain_epochs=1, max_rank=20)
+    torch.cuda.synchronize()
+    add_counts(launches, read_counts(fns))
+    out["train"] = {"epochs": 3, "batches_per_epoch": SERVE_NB,
+                    "wall_s": time.perf_counter() - t0,
+                    "last_losses": losses, "launches": read_counts(fns),
+                    "why": "phase 4's trained MultiSWAG is released before "
+                           "phase 8; phase 10 trains its own"}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"MultiSWAG losses {losses}")
+    n_leaves = len(tree_leaves(algo.p_parameters()[0]))
+    if launches.get("swag_moments") != 2 * n_leaves:
+        raise AssertionError(f"training launches {launches}")
+
+    rng = np.random.default_rng(11)
+    data = mnist_like(rng, SERVE_N, cfg.vocab_size)
+    images = data["images"]
+    reqs = [{"images": im} for im in images]
+
+    # (a) posterior_predictive(S=4): sampling (one diag_std a leaf over the
+    # dense (8, ·) stack), warmup captures buckets 1-32 on this thread from
+    # one request; then the concurrent and the closed-loop traffic
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    svc = algo.posterior_predictive(samples_per_particle=S,
+                                    max_batch=SERVE_MAX_BATCH,
+                                    max_wait_ms=SERVE_WAIT_MS,
+                                    warmup=reqs[0])
+    torch.cuda.synchronize()
+    got = read_counts(fns)
+    add_counts(launches, got)
+    if got["swag_diag_std"] != n_leaves or got["swag_moments"]:
+        raise AssertionError(f"predictive launches {got}")
+    row = {"handoff_s": time.perf_counter() - t0, "launches": got,
+           "static_tree_gb": members * TRAIN_D * 4 / 1e9}
+    try:
+        cache = svc.engine.cache
+        warm = cache.snapshot_stats()
+        info = cache.program_info()
+        row["warmup"] = {"programs": len(info), "cache": warm,
+                         "by_bucket": [
+                             {"bucket": 2**i, "graph": p["graph"],
+                              "capture_s": p["capture_s"],
+                              "pool_bytes": p["pool_bytes"]}
+                             for i, p in enumerate(info)]}
+        if len(info) != 6 or not all(p["graph"] for p in info):
+            raise AssertionError(f"warmup programs {info}")
+        conc, row["concurrent"] = serve_traffic(svc, reqs, SERVE_CLIENTS)
+        closed, row["closed_loop"] = serve_traffic(svc, reqs, 0)
+        after = cache.snapshot_stats()
+        extra = after["cold_compiles"] - warm["cold_compiles"]
+        if extra:
+            raise AssertionError(f"{extra} captures after warmup")
+        row["captures_after_warmup"] = 0
+        row["profile"] = {f"bucket_{B}": flush_profile(torch, svc, reqs, B,
+                                                       members)
+                          for B in (1, SERVE_MAX_BATCH)}
+        heads = svc.predict_batch({"images": images})
+        row["served_vs_predict_batch"] = {
+            "concurrent": served_vs_batch(conc, heads),
+            "closed_loop": served_vs_batch(closed, heads)}
+        if not max(row["served_vs_predict_batch"].values()) <= 1e-5:
+            raise AssertionError(f"served vs predict_batch: "
+                                 f"{row['served_vs_predict_batch']}")
+        # the same concurrent run through an eager cache, on the same tree
+        esvc = serve(algo, params=svc.engine._static_params,
+                     max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                     cache=ProgramCache(capturer=eager), warmup=reqs[0])
+        try:
+            eager_preds, row["eager_concurrent"] = serve_traffic(
+                esvc, reqs, SERVE_CLIENTS)
+            row["eager_vs_predict_batch"] = served_vs_batch(eager_preds,
+                                                            heads)
+            if not row["eager_vs_predict_batch"] <= 1e-5:
+                raise AssertionError(f"eager served vs predict_batch: "
+                                     f"{row['eager_vs_predict_batch']}")
+        finally:
+            esvc.close()
+        row["stats"] = svc.stats()
+        row["entropy_mean"] = float(heads["entropy"].mean())
+    finally:
+        svc.close()     # the engine lets its 2.53 GB tree go
+    out["predictive"] = row
+
+    # (b) #4 at the serving shapes, then sample_predict (8 images, S = 2)
+    out["diag_std"] = diag_std_serving_shapes(torch, algo.store.dense("swag"))
+    err, got, shape = sample_predict_check(
+        torch, algo, {"images": images[:8]})
+    add_counts(launches, got)
+    if got["swag_diag_std"] != n_leaves * P * 2 or got["swag_moments"]:
+        raise AssertionError(f"sample_predict launches {got}")
+    if not err <= 1e-5:
+        raise AssertionError(f"sample_predict vs plain loop: {err}")
+    out["sample_predict"] = {"images": 8, "samples_per_particle": 2,
+                             "launches": got, "max_abs_err": err,
+                             "shape": shape}
+
+    # (c) the store's own params behind the batcher; a p_kill under
+    # traffic serves the 7 live rows' BMA with no capture
+    pd = algo.push_dist
+    row = {}
+    with serve(algo, max_batch=8, max_wait_ms=SERVE_WAIT_MS,
+               warmup=reqs[0]) as ssvc:
+        cold = ssvc.engine.cache.snapshot_stats()["cold_compiles"]
+        gen = pd.store.generation()
+        handles = []
+
+        def client():
+            for r in reqs[:128]:
+                handles.append(ssvc.predict_async(r))
+
+        t = threading.Thread(target=client)
+        t.start()
+        while len(handles) < 64:
+            time.sleep(0.0005)
+        pd.p_kill(pd.particle_ids()[3])
+        t.join(120.0)
+        for h in handles:
+            h.result(120.0)
+        post = [ssvc.predict(r, timeout=120.0) for r in reqs[:8]]
+        st = ssvc.stats()
+        heads, outs = ssvc.predict_batch({"images": images[:8]},
+                                         members=True)
+        bma = torch.softmax(outs.float(), -1).mean(0).cpu().numpy()
+        row = {"live": pd.store.live_count(), "member_rows": outs.shape[0],
+               "captures_after_warmup_and_kill":
+                   st["engine"]["program_cache"]["cold_compiles"] - cold,
+               "generation_unchanged": pd.store.generation() == gen,
+               "errors": st["errors"], "requests": st["requests"],
+               "post_kill_vs_members_bma": max(
+                   float(np.abs(p.mean - bma[i]).max())
+                   for i, p in enumerate(post))}
+        if row["captures_after_warmup_and_kill"] or not \
+                row["generation_unchanged"] or row["errors"] or \
+                row["member_rows"] != P - 1 or \
+                not row["post_kill_vs_members_bma"] <= 1e-5:
+            raise AssertionError(f"store-backed serving under churn: {row}")
+        del heads, outs
+    out["store_serving"] = row
+
+    # (d) F1 on the card: a particle created in the killed one's slot
+    # holds params but no SWAG state, so dense("swag") must raise
+    pd.p_create(opt)
+    try:
+        algo.store.dense("swag")
+    except KeyError as e:
+        out["f1_dense_raises"] = str(e)
+    else:
+        raise AssertionError("dense('swag') handed back a dead row")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_start
+    emit(out)
+    algo.cleanup()
+    return launches, out["diag_std"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3086,10 +3495,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lc_launches = phase9(torch, cfg, reqs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_launches, diag_std_p1 = phase10(torch)
+    rows["swag_diag_std"]["serving_p1"] = diag_std_p1
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
         row["lifecycle_launches"] = lc_launches.get(name, 0)
+        row["serve_launches"] = serve_launches.get(name, 0)
     rows = list(rows.values())
     emit({"kernels": rows})
     print(smi.stdout.strip().splitlines()[0], flush=True)

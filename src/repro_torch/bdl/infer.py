@@ -143,8 +143,11 @@ class Infer:
 
     def posterior_predictive(self, **kw):
         """Hand the trained posterior to the serving layer: a
-        PredictiveService doing BMA over this Infer's particles. MultiSWAG
-        overrides it to sample its Gaussians. Caller owns the service."""
+        PredictiveService doing BMA over this Infer's particles, with
+        every keyword (``max_batch``, ``max_wait_ms``, ``max_queue``,
+        ``kind``, ``warmup``, ``cache``, ...) passed on to ``serve``.
+        MultiSWAG overrides it to sample its Gaussians. Caller owns the
+        service."""
         return self.push_dist.serve(**kw)
 
     def p_parameters(self):

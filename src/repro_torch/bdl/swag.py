@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from ..core.tree import tree_flatten, tree_leaves, tree_map
+from ..core.tree import to_device, tree_flatten, tree_leaves, tree_map
 from ..kernels import ops as _kops
 from ..runtime import specs
 from .infer import Infer
@@ -230,7 +230,9 @@ class MultiSWAG(Infer):
         other Infer. The diagonal scale goes through the diag_std kernel.
         The noise comes from ``generator`` (a
         ``torch.Generator`` on the store's device; one seeded 0 when None)
-        or is given as ``noise=(z1, z2)``."""
+        or is given as ``noise=(z1, z2)``. Every other keyword goes on to
+        ``serve``. A live particle with no SWAG state (a fresh particle in
+        a killed one's slot) raises KeyError (``store.dense``)."""
         if samples_per_particle <= 0:
             return super().posterior_predictive(**kw)
         # dense live rows (not the capacity-padded canonical form): a
@@ -241,3 +243,39 @@ class MultiSWAG(Infer):
                                           scale, generator=generator,
                                           noise=noise)
         return self.push_dist.serve(params=sampled, **kw)
+
+    def sample_predict(self, batch, *, samples_per_particle: int = 5,
+                       scale: float = 1.0, generator=None, noise=None):
+        """MultiSWAG prediction: the mean over S draws from every live
+        particle's SWAG Gaussian of the raw forward outputs (the logits,
+        not their probabilities), as the reference's. Each draw is one
+        ``swag_sample`` of that particle's ``state["swag"]`` and one
+        ``module._forward``. ``noise`` is the list of per-draw ``(z1,
+        z2)`` in draw order (particle by particle, S draws each);
+        otherwise each draw's noise comes from ``generator`` (one seeded
+        0 on the store's device when None)."""
+        pd = self.push_dist
+        draws = iter(noise) if noise is not None else None
+        dev = torch.device(self.store.device)
+        if draws is None and generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        batch = to_device(batch, dev)
+        total, count = None, 0
+        for pid in pd.particle_ids():
+            swag = pd.particles[pid].state["swag"]
+            for _ in range(samples_per_particle):
+                if draws is not None:
+                    z1, z2 = next(draws)
+                else:
+                    z1 = tree_map(lambda m: torch.randn(
+                        m.shape, generator=generator, device=dev),
+                        swag["mean"])
+                    z2 = torch.randn(tree_leaves(swag["dev"])[0].shape[0],
+                                     generator=generator, device=dev)
+                with torch.no_grad():
+                    out = self.module._forward(
+                        swag_sample(swag, z1, z2, scale), batch)
+                total = out if total is None else tree_map(
+                    torch.add, total, out)
+                count += 1
+        return tree_map(lambda t: t / count, total)

@@ -349,15 +349,20 @@ class ParticleStore:
         """Live rows only (or ``pids``' rows, in that order), stacked dense
         (leading dim = their count): for consumers that must never see a
         padding slot (serve-time SWAG sampling). With every slot live this
-        is the canonical stacked tree itself, not a copy."""
+        is the canonical stacked tree itself, not a copy. A pid whose slot
+        holds no ``key`` (a fresh particle in a killed one's slot, whose
+        stale row is still stacked) raises KeyError, as ``read`` does."""
         with self._lock:
+            live = pids is None
+            pids = self.pids if live else list(pids)
+            present = self._present.get(key, ())
+            for p in pids:
+                if self._slot_of[p] not in present:
+                    raise KeyError(f"store has no {key!r} for particle {p}")
             st = self._flush(key)
-            if pids is None:
-                slots = sorted(self._slot_of.values())
-                if len(slots) == self.capacity:
-                    return st
-            else:
-                slots = [self._slot_of[p] for p in pids]
+            slots = [self._slot_of[p] for p in pids]
+            if live and len(slots) == self.capacity:
+                return st
             self.stats["stacks"] += 1
             idx = torch.tensor(slots, device=self.device)
             return tree_map(lambda x: x.index_select(0, idx), st)

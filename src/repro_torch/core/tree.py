@@ -41,20 +41,25 @@ def tree_flatten(tree, *, sort_keys: bool = False) -> Tuple[List[Any],
         if t is None:
             return lambda it: None
         if isinstance(t, dict):
-            keys = sorted(t) if sort_keys else list(t)
+            order = list(t)
+            keys = sorted(order) if sort_keys else order
             subs = {k: walk(t[k]) for k in keys}
 
             def build_dict(it):
                 vals = {k: subs[k](it) for k in keys}    # walk order
-                return {k: vals[k] for k in t}           # container order
+                return {k: vals[k] for k in order}       # container order
             return build_dict
         if isinstance(t, (tuple, list)):
-            subs = [walk(x) for x in t]
-            return lambda it: type(t)(s(it) for s in subs)
+            kind, subs = type(t), [walk(x) for x in t]
+            return lambda it: kind(s(it) for s in subs)
         leaves.append(t)
         return lambda it: next(it)
 
     build = walk(tree)
+    # walk refers to itself through its closure: break that cycle, or the
+    # leaves it holds would live on until the cyclic collector runs; the
+    # closures that rebuild the tree keep its structure, never a leaf
+    walk = None
     return leaves, lambda new: build(iter(new))
 
 

@@ -226,7 +226,8 @@ class Program:
     outputs, so a caller may keep them across calls, with every
     ``"in:<i>"`` output replaced by the caller's argument ``i``.
     ``pool_bytes`` is the device memory the capture reserved for the
-    graph's private pool."""
+    graph's private pool. A pinned host tensor is copied asynchronously:
+    its caller may refill it only once the stream has passed the call."""
 
     __slots__ = ("name", "cache_key", "num_particles", "fn", "graph",
                  "in_kinds", "static_args", "static_out", "out_args",
@@ -280,13 +281,34 @@ class Program:
         return f"Program({self.name!r}, n={self.num_particles}, {mode})"
 
 
+_h2d = threading.local()
+
+
+def h2d_copies() -> int:
+    """The host-to-device copies that programs have issued on the calling
+    thread: one per host leaf (a numpy array, or a tensor on the CPU) of a
+    copied argument, counted where the leaf is copied into a static input
+    (``_copy_into``, ``_static_copy``) or moved to the device eagerly
+    (``_as_tensors``). A caller reads it before and after its calls."""
+    return getattr(_h2d, "n", 0)
+
+
+def _on_host(x) -> bool:
+    return isinstance(x, (np.ndarray, np.generic)) or (
+        isinstance(x, torch.Tensor) and x.device.type == "cpu")
+
+
+def _count_h2d(leaf, device) -> None:
+    if _on_host(leaf) and torch.device(device).type != "cpu":
+        _h2d.n = h2d_copies() + 1
+
+
 def _copy_into(static, arg):
     leaves, _ = tree_flatten(static)
     for s, a in zip(leaves, tree_leaves(arg)):
-        if isinstance(a, torch.Tensor):
-            s.copy_(a, non_blocking=True)
-        elif isinstance(a, (np.ndarray, np.generic)):
-            s.copy_(torch.from_numpy(np.asarray(a)), non_blocking=True)
+        if isinstance(a, (torch.Tensor, np.ndarray, np.generic)):
+            _count_h2d(a, s.device)
+            s.copy_(torch.as_tensor(a), non_blocking=True)
         else:
             s.fill_(a)
 
@@ -294,16 +316,20 @@ def _copy_into(static, arg):
 def _static_copy(arg, device):
     """A device-resident copy of a copied argument: the static input."""
     leaves, unflatten = tree_flatten(arg)
+    for a in leaves:
+        _count_h2d(a, device)
     return unflatten([torch.as_tensor(a).to(device, copy=True)
                       for a in leaves])
 
 
 def _as_tensors(arg, device):
-    """Numpy leaves of a copied argument as tensors on ``device`` (the
-    eager path); tensors and Python scalars pass through."""
+    """Host leaves of a copied argument (numpy arrays, CPU tensors) as
+    tensors on ``device`` (the eager path); device tensors and Python
+    scalars pass through."""
     leaves, unflatten = tree_flatten(arg)
-    return unflatten([torch.from_numpy(np.asarray(a)).to(device)
-                      if isinstance(a, (np.ndarray, np.generic)) else a
+    for a in leaves:
+        _count_h2d(a, device)
+    return unflatten([torch.as_tensor(a).to(device) if _on_host(a) else a
                       for a in leaves])
 
 

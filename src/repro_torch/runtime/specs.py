@@ -13,7 +13,8 @@ train step replays on the store's tensors; the batch and the active mask
 are copied into the program's static inputs on each call.
 
 Serving: ``paged_decode_step``, ``paged_prefill``, ``spec_draft_step``,
-``spec_verify`` and ``bma_step`` (the stateful dense-cache step) return
+``spec_verify``, ``bma_step`` (the stateful dense-cache step) and
+``bma_predict`` (the stateless BMA forward of one batch bucket) return
 ``ProgramSpec``s that a ``ProgramCache`` captures once as a CUDA graph
 and replays. Each body unpacks the step input, runs the model over all
 particles at once and reduces with ``reduce_fn(member_logits (P, B, [W,]
@@ -235,3 +236,28 @@ def bma_step(forward: Callable, reduce_fn: Callable, *,
         name="bma_step", key=("bma_step",) + tuple(key), make=make,
         in_kinds=("state", "rows", "replicated", "replicated"),
         out_kinds=("replicated", "in:1"))
+
+
+def bma_predict(forward: Callable, heads_fn: Callable, *, members: bool,
+                key: Tuple = ()) -> ProgramSpec:
+    """The stateless BMA forward of one request batch (counterpart of the
+    reference engine's ``bma_predict``): ``fused(stacked_params, batch,
+    mask) -> heads``, or ``(heads, member outputs)`` with ``members``.
+
+    ``forward(stacked_params, batch) -> member outputs (P, B, ...)``;
+    ``heads_fn(outs, mask)`` gives the heads. The params are read in
+    place (a static stacked tree or the store's), the batch (one bucket
+    of rows, host or device) and the (P,) mask are copied into the
+    program's static inputs, so one program serves every batch of its
+    bucket and every churn of the mask."""
+    def make(ctx):
+        def fused(stacked_params, batch, mask):
+            outs = forward(stacked_params, batch)
+            heads = heads_fn(outs, mask)
+            return (heads, outs) if members else heads
+
+        return fused
+
+    return ProgramSpec(
+        name="bma_predict", key=("bma_predict", members) + tuple(key),
+        make=make, in_kinds=("state", "replicated", "vector"))

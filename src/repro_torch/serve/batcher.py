@@ -1,6 +1,26 @@
-"""Continuous batching for paged LM decode (counterpart of
-``repro.serve.batcher``: ``DecodeScheduler``, ``Generation``, ``_Seq``;
-the stateless ``MicroBatcher`` waits for the classification slice).
+"""Request scheduling: micro-batching (stateless) and continuous
+batching (LM decode) (counterpart of ``repro.serve.batcher``:
+``MicroBatcher``, ``_Request``, ``_Staging``, ``DecodeScheduler``,
+``Generation``, ``_Seq``).
+
+``MicroBatcher`` coalesces single-example requests into padded batches,
+one BMA forward per batch instead of one per request, flushed by
+whichever trigger fires first:
+
+  size      the pending set reached ``max_batch`` — flush at once;
+  deadline  the oldest pending request has waited ``max_wait_ms`` —
+            flush whatever has accumulated (bounded tail latency);
+  close     the batcher is shutting down — flush the remainder.
+
+The flush loop runs as work items on its own ``core.executor.Executor``
+(one device worker, no pool, the pump's own mailbox), scheduled only
+while requests are pending. The queue is bounded: ``submit`` blocks once
+``max_queue`` requests are pending. Each request is ONE example (no
+leading batch axis); a flush copies the rows into a preallocated staging
+buffer per batch signature (pinned host memory when the engine runs on
+the card), so that each leaf crosses to the device by one copy straight
+into the captured program's static input, and reads the result tree back
+with one device-to-host copy per leaf and one sync.
 
 Where flush batching admits and retires work per *flush*, the decode loop
 admits and retires sequences per *decode step* (DESIGN.md §10). A fixed
@@ -10,8 +30,8 @@ waiting queue in the SAME loop iteration. Admission backpressure is keyed
 on free pages in the PagePool; when a running row cannot get its next
 page, the youngest row is preempted (pages reclaimed, sequence requeued —
 greedy sampling makes the re-run deterministic). The loop runs as a work
-item on its own ``core.executor.Executor`` (one device worker, no pool,
-the pump's own mailbox), so an idle scheduler is one parked worker.
+item on its own executor, as the micro-batcher's does, so an idle
+scheduler is one parked worker.
 """
 from __future__ import annotations
 
@@ -19,14 +39,18 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..core.executor import Executor
 from ..core.messages import PFuture
-from ..obs import clock
+from ..core.tree import tree_flatten, tree_map
+from ..obs import clock, metrics
+from ..obs import trace as _trace
 from ..runtime.bucketing import bucket_size
+from ..runtime.program import abstract_key, h2d_copies
 
 _LAT_RING = 4096
 
@@ -35,6 +59,246 @@ def _to_host(heads) -> Dict[str, np.ndarray]:
     """The step's heads as host numpy arrays (the one device-to-host
     copy of a step)."""
     return {k: v.cpu().numpy() for k, v in heads.items()}
+
+
+def _readback(tree, staged=()):
+    """The result tree on the host as numpy: one device-to-host copy per
+    device leaf, all queued before the one sync. A host leaf that shares
+    memory with a ``staged`` buffer (a consumer that hands back its
+    input) is copied, since the next flush refills that buffer."""
+    leaves, unflatten = tree_flatten(tree)
+    ptrs = {b.untyped_storage().data_ptr() for b in staged}
+
+    def host(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.device.type != "cpu":
+            return x.to("cpu", non_blocking=True)
+        return x.clone() if x.untyped_storage().data_ptr() in ptrs else x
+
+    out = [host(x) for x in leaves]
+    dev = [x.device for x in leaves if isinstance(x, torch.Tensor)
+           and x.device.type == "cuda"]
+    if dev:
+        torch.cuda.current_stream(dev[0]).synchronize()
+    return unflatten([x.numpy() if isinstance(x, torch.Tensor)
+                      else np.asarray(x) for x in out])
+
+
+class _Request:
+    __slots__ = ("x", "future", "t_enqueue")
+
+    def __init__(self, x, future: PFuture):
+        self.x = x
+        self.future = future
+        self.t_enqueue = clock.now()
+
+
+class _Staging:
+    """Preallocated host staging buffers, one set per (bucket, tree
+    structure, leaf shapes and dtypes).
+
+    Request rows are copied into the buffers in place and pad rows repeat
+    the last real row (the semantics of ``runtime.bucketing.pad_rows``).
+    With ``pin_memory`` the buffers are page-locked, so that the
+    program's copy of each leaf into its static input is one
+    asynchronous host-to-device copy straight from the buffer.
+
+    Reuse across flushes is safe because stagings run one at a time
+    (``MicroBatcher.run_batch`` holds a lock), and each reads its result
+    back and synchronizes the stream (``_readback``) before the next one
+    refills a buffer: by then the stream has run the copies out of the
+    buffer, which an asynchronous copy from pinned memory would otherwise
+    still be reading. ``batch`` returns the staged tree and its buffers."""
+
+    def __init__(self, pin_memory: bool = False):
+        self.pin_memory = pin_memory
+        self._bufs: Dict[Any, Any] = {}
+        self.builds = 0
+        self.reuses = 0
+
+    def batch(self, rows: List[Any], bucket: int):
+        leaves, unflatten = tree_flatten(rows[0])
+        sig = (bucket, abstract_key(rows[0]))
+        bufs = self._bufs.get(sig)
+        if bufs is None:
+            bufs = self._bufs[sig] = [
+                torch.empty((bucket,) + tuple(t.shape), dtype=t.dtype,
+                            pin_memory=self.pin_memory)
+                for t in map(torch.as_tensor, leaves)]
+            self.builds += 1
+        else:
+            self.reuses += 1
+        for i, row in enumerate(rows):
+            for buf, leaf in zip(bufs, tree_flatten(row)[0]):
+                buf[i].copy_(torch.as_tensor(leaf))
+        m = len(rows)
+        if m < bucket:
+            for buf in bufs:
+                buf[m:] = buf[m - 1]        # pad = repeat the last real row
+        return unflatten(bufs), bufs
+
+
+class MicroBatcher:
+    """Coalesces single-example requests into padded batches for
+    ``predict_fn`` (module doc). ``stats["h2d_transfers"]`` adds up the
+    host-to-device copies that each flush's ``predict_fn`` call issued
+    through its programs (``runtime.program.h2d_copies``, read on the
+    flushing thread): one per leaf when the staged buffers go straight
+    into the program, none for a consumer that stays on the host."""
+
+    def __init__(self, predict_fn: Callable, *, max_batch: int = 32,
+                 max_wait_ms: float = 2.0, max_queue: int = 512,
+                 executor: Optional[Executor] = None,
+                 pin_memory: bool = False):
+        if max_batch < 1 or max_queue < 1:
+            raise ValueError("max_batch and max_queue must be >= 1")
+        self.predict_fn = predict_fn
+        self.max_batch = max_batch
+        self.max_wait = max_wait_ms / 1e3
+        self.max_queue = max_queue
+        self._owns_executor = executor is None
+        # one "device" worker is the flush loop; no pool threads needed
+        self._exec = executor or Executor(num_devices=1, pool_size=0,
+                                          max_pending=2 * max_queue)
+        self._pump_pid = id(self)   # any stable key works as a mailbox id
+        self._exec.add_particle(self._pump_pid, 0)
+        self._cond = threading.Condition()
+        self._pending: deque = deque()
+        self._pump_scheduled = False
+        self._closed = False
+        self.latency = metrics.Histogram("serve_request_latency_seconds",
+                                         ring=_LAT_RING)
+        self._staging = _Staging(pin_memory)
+        self._staging_lock = threading.Lock()  # flushes and run_batch
+        self.stats: Dict[str, Any] = {
+            "requests": 0, "batches": 0, "rows": 0, "padded_rows": 0,
+            "size_flushes": 0, "deadline_flushes": 0, "close_flushes": 0,
+            "max_queue_depth": 0, "errors": 0, "h2d_transfers": 0,
+        }
+
+    # -- submission ----------------------------------------------------------
+    def submit(self, x) -> PFuture:
+        """Enqueue one example; resolves to its row of the prediction.
+        Blocks while ``max_queue`` requests are already pending."""
+        fut = PFuture()
+        req = _Request(x, fut)
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            while len(self._pending) >= self.max_queue:
+                self._cond.wait(0.05)
+                if self._closed:
+                    raise RuntimeError("batcher is closed")
+            self._pending.append(req)
+            self.stats["requests"] += 1
+            depth = len(self._pending)
+            if depth > self.stats["max_queue_depth"]:
+                self.stats["max_queue_depth"] = depth
+            if not self._pump_scheduled:
+                self._pump_scheduled = True
+                self._exec.submit(self._pump_pid, self._pump)
+            self._cond.notify_all()
+        return fut
+
+    # -- flush loop (runs on the executor worker) ----------------------------
+    def _pump(self):
+        while True:
+            with self._cond:
+                if not self._pending:
+                    self._pump_scheduled = False
+                    return
+                deadline = self._pending[0].t_enqueue + self.max_wait
+                while (not self._closed
+                       and len(self._pending) < self.max_batch):
+                    rem = deadline - clock.now()
+                    if rem <= 0:
+                        break
+                    self._cond.wait(rem)
+                if len(self._pending) >= self.max_batch:
+                    reason = "size"
+                elif self._closed:
+                    reason = "close"
+                else:
+                    reason = "deadline"
+                reqs = [self._pending.popleft()
+                        for _ in range(min(len(self._pending),
+                                           self.max_batch))]
+                self._cond.notify_all()   # wake backpressured submitters
+            if not reqs:    # close() raced the deadline wait and drained
+                continue    # the queue itself; nothing to flush
+            self._flush(reqs, reason)
+
+    def run_batch(self, xs: List[Any]):
+        """Stage ``xs`` (one example each) into their bucket's buffer,
+        run ``predict_fn`` once and read the result back: the host-side
+        result tree (leading axis the bucket) and the bucket. What a
+        flush does, without its bookkeeping; it waits for a flush in
+        progress, whose staging buffers it may share."""
+        bucket = bucket_size(len(xs))
+        with self._staging_lock:
+            padded, bufs = self._staging.batch(xs, bucket)
+            return _readback(self.predict_fn(padded), bufs), bucket
+
+    def _flush(self, reqs: List[_Request], reason: str):
+        self.stats[f"{reason}_flushes"] += 1
+        self.stats["batches"] += 1
+        self.stats["rows"] += len(reqs)
+        try:
+            before = h2d_copies()
+            with _trace.span("serve.flush", "serve", reason=reason,
+                             rows=len(reqs), bucket=bucket_size(len(reqs))):
+                result, bucket = self.run_batch([r.x for r in reqs])
+            self.stats["padded_rows"] += bucket - len(reqs)
+            self.stats["h2d_transfers"] += h2d_copies() - before
+            now = clock.now()
+            for i, r in enumerate(reqs):
+                self.latency.observe(now - r.t_enqueue)
+                r.future._resolve(tree_map(lambda a, i=i: a[i], result))
+        except BaseException as e:      # surfaced on each request's wait()
+            self.stats["errors"] += 1
+            for r in reqs:
+                r.future._reject(e)
+
+    # -- introspection -------------------------------------------------------
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._pending)
+
+    def latencies_s(self) -> List[float]:
+        return self.latency.values()
+
+    def snapshot_stats(self) -> Dict[str, Any]:
+        with self._cond:
+            out = dict(self.stats)
+            out["queue_depth"] = len(self._pending)
+            out["staging_builds"] = self._staging.builds
+            out["staging_reuses"] = self._staging.reuses
+        n = max(1, out["rows"] + out["padded_rows"])
+        out["occupancy"] = out["rows"] / n
+        return out
+
+    # -- lifecycle -----------------------------------------------------------
+    def close(self, timeout: float = 30.0):
+        """Flush whatever is pending, then stop accepting requests and
+        stop the executor (when it is the batcher's own)."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        if self._owns_executor:
+            self._exec.shutdown(drain=True, timeout=timeout)
+        # reject anything the pump never got to (executor already down)
+        with self._cond:
+            leftovers = list(self._pending)
+            self._pending.clear()
+        for r in leftovers:
+            r.future._reject(RuntimeError("batcher closed"))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 @dataclass

@@ -4,26 +4,31 @@
 
 Each serving step runs every particle in one batched pass per layer and
 reduces the BMA heads (and, for decode, greedy sampling) on the device.
-The stateful ``step``, the paged decode step and the prefill dispatch
-through a ``ProgramCache`` (``runtime.cache``), as the reference's do:
-captured once as a CUDA graph on the card and replayed, run eagerly on
-the CPU. ``cache=`` takes a cache to share (default: one of the
-engine's own, which ``close`` empties, so that the captured graphs and
-their memory go with the engine); ``ProgramCache(capturer=runtime.eager)``
-runs the card eagerly. Every step returns fresh tensors.
+``predict`` (one program per power-of-two batch bucket, and per
+``members``), the stateful ``step``, the paged decode step and the
+prefill dispatch through a ``ProgramCache`` (``runtime.cache``), as the
+reference's do: captured once as a CUDA graph on the card and replayed,
+run eagerly on the CPU. ``cache=`` takes a cache to share (default: one
+of the engine's own, which ``close`` empties, so that the captured
+graphs and their memory go with the engine);
+``ProgramCache(capturer=runtime.eager)`` runs the card eagerly. Every
+step returns fresh tensors.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..core.store import ParticleStore
-from ..core.tree import tree_leaves, to_device
+from ..core.tree import tree_leaves, tree_map
 from ..runtime.bucketing import bucket_size, pad_rows
 from ..runtime.cache import ProgramCache
 from ..runtime.program import ProgramSpec, arg_key, ident
-from ..runtime.specs import bma_step, paged_decode_step, paged_prefill
+from ..runtime.specs import (bma_predict, bma_step, paged_decode_step,
+                             paged_prefill)
 from . import uncertainty
 
 
@@ -83,13 +88,35 @@ class PredictiveEngine:
         self._params_key = (None if params is None
                             else arg_key("state", params))
         self._step_spec: Optional[ProgramSpec] = None
+        self._predict_specs: Dict[bool, ProgramSpec] = {}
         self._live_idx: Any = None          # (mask object, live rows)
+        # one predict at a time: a program's static inputs and outputs
+        # are shared by every call (the batcher's worker and a caller's
+        # predict_batch may both call)
+        self._lock = threading.Lock()
+        self._closed = False
         self.stats = {"calls": 0, "compiles": 0, "bucket_hits": 0,
                       "param_refreshes": 0}
+
+    @property
+    def device(self) -> torch.device:
+        """Where the served params live (and the programs run)."""
+        if self.store is not None:
+            return torch.device(self.store.device)
+        return tree_leaves(self._static_params)[0].device
+
+    @property
+    def num_particles(self) -> int:
+        """Leading member axis of the served tree: the store's capacity
+        (``store.live_count()`` for the live members), or the static
+        tree's member count."""
+        return tree_leaves(self._mask_and_params()[1])[0].shape[0]
 
     def _mask_and_params(self):
         """Consistent (mask, stacked params) pair: one atomic store
         snapshot, so a mask bit never goes live before its slot's data."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
         if self.store is None:
             return self._static_mask, self._static_params
         v, mask, stacked = self.store.snapshot(self.key)
@@ -110,24 +137,43 @@ class PredictiveEngine:
         self.stats["bucket_hits" if hit else "compiles"] += 1
         return prog
 
+    def _predict_spec(self, members: bool) -> ProgramSpec:
+        spec = self._predict_specs.get(members)
+        if spec is None:
+            kind = self.kind
+            spec = self._predict_specs[members] = bma_predict(
+                self.forward,
+                lambda outs, m: uncertainty.predictive_heads(outs, kind, m),
+                members=members, key=(ident(self.forward), kind))
+        return spec
+
     def predict(self, batch, members: bool = False):
         """BMA forward over a request batch (leading axis B, numpy or
-        tensors). Pads B up to the power-of-two bucket (repeating the last
-        row), runs every member at once, and slices the heads back to B.
-        ``members=True`` also returns the member outputs of the live rows
-        only, in slot order (live count, B, ...), whatever the churn."""
+        tensors, on the host or the device), as one cached program per
+        power-of-two bucket (``runtime.specs.bma_predict``): B is padded
+        up to its bucket (repeating the last row), every member runs at
+        once, and the heads are sliced back to B. Host rows reach the
+        device by one copy per leaf, into the program's static input
+        (``runtime.program.h2d_copies``). ``members=True`` also returns the
+        member outputs of the live rows only, in slot order (live count,
+        B, ...), whatever the churn (a program of its own)."""
         if self.forward is None:
             raise RuntimeError("this engine has no forward")
         if self.stateful:
             raise RuntimeError("stateful engine: use step(state, batch)")
-        self.stats["calls"] += 1
-        mask, stacked = self._mask_and_params()
-        batch = to_device(batch, mask.device)
+        batch = tree_map(lambda x: torch.as_tensor(x)
+                         if isinstance(x, (np.ndarray, np.generic)) else x,
+                         batch)
         m = tree_leaves(batch)[0].shape[0]
         padded = pad_rows(batch, bucket_size(m))
-        with torch.no_grad():
-            outs = self.forward(stacked, padded)
-            heads = uncertainty.predictive_heads(outs, self.kind, mask)
+        with self._lock:
+            self.stats["calls"] += 1
+            mask, stacked = self._mask_and_params()
+            args = (stacked, padded, mask)
+            prog = self._program(self._predict_spec(members), args,
+                                 (self._params_key, None, None))
+            out = prog(*args)
+        heads, outs = out if members else (out, None)
         heads = {k: v[:m] for k, v in heads.items()}
         if not members:
             return heads
@@ -136,6 +182,17 @@ class PredictiveEngine:
         if self._live_idx is None or self._live_idx[0] is not mask:
             self._live_idx = (mask, torch.nonzero(mask > 0)[:, 0])
         return heads, outs[self._live_idx[1], :m]
+
+    def warmup(self, example, max_batch: int):
+        """Run ``predict`` once at every bucket up to ``max_batch``'s, on
+        rows that repeat ``example`` (one request: no leading batch axis),
+        so that each bucket's program is captured before traffic."""
+        rows = tree_map(torch.as_tensor, example)
+        b = 1
+        while b <= bucket_size(max_batch):
+            self.predict(tree_map(
+                lambda x, b=b: x[None].expand(b, *x.shape).clone(), rows))
+            b *= 2
 
     def init_state(self, make_state: Callable):
         """Build the stacked per-particle serving state:
@@ -172,12 +229,16 @@ class PredictiveEngine:
         return dict(self.stats, program_cache=self.cache.snapshot_stats())
 
     def close(self):
-        """Let go of the store's trees, and drop the engine's programs
-        when the cache is its own (a cache passed in belongs to the
-        caller, and drops them once their trees are freed)."""
-        self._params_cache = self._params_version = None
-        if self._own_cache:
-            self.cache.clear()
+        """Let go of the served trees (a static ``params=`` tree too), and
+        drop the engine's programs when the cache is its own (a cache
+        passed in belongs to the caller, and drops them once their trees
+        are freed)."""
+        with self._lock:
+            self._closed = True
+            self._params_cache = self._params_version = None
+            self._static_params = None
+            if self._own_cache:
+                self.cache.clear()
 
 
 class PagedDecodeEngine(PredictiveEngine):

@@ -1,27 +1,34 @@
 """Serving front-ends (counterpart of ``repro.serve.service``).
 
     svc = serve(infer_or_pd)                   # after bayes_infer(...)
-    heads = svc.predict_batch(batch)           # BMA heads, leading axis B
+    pred = svc.predict(x)                      # one example -> Prediction
+    fut  = svc.predict_async(x)                # PendingPrediction
+    pred = fut.result()                        # Prediction
+    heads = svc.predict_batch(batch)           # caller-batched fast path
 
     svc = serve_decode(pd, cfg, num_pages=256, page_size=16)
     gen = svc.generate(prompt_ids, max_new=32)       # Generation
     h   = svc.generate_async(ids, max_new=8)         # streaming handle
     svc = serve_decode(pd, cfg, ..., speculative=4)  # draft 4, verify 5
 
-The reference's request coalescing (``MicroBatcher``, ``predict`` and
-``predict_async`` of one example) waits for a later slice: the port's
-``PredictiveService`` serves caller-assembled batches.
+``serve`` wires a ``PredictiveEngine`` (the BMA forward and heads, one
+captured program per batch bucket) to a ``MicroBatcher`` (request
+coalescing). ``stats()`` gives the batcher's request and batch counts,
+flush-trigger mix, queue depth, padding occupancy and host-to-device
+copies, the engine's, and p50/p95/p99 request latency.
 """
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from ..core.messages import PFuture
+from ..core.tree import tree_map
 from ..models import api as models_api
 from ..obs import clock, metrics
 from ..runtime.cache import ProgramCache
-from .batcher import DecodeScheduler, Generation
+from .batcher import DecodeScheduler, Generation, MicroBatcher
 from .engine import PagedDecodeEngine, PredictiveEngine
 from .paging import PagePool, create_kv_pages
 from .speculative import (SpecDecodeEngine, SpeculativeDecodeScheduler,
@@ -33,32 +40,104 @@ def percentile(xs: List[float], q: float) -> float:
     return metrics.percentile(xs, q)
 
 
+@dataclass
+class Prediction:
+    """One request's posterior-predictive summary (every head computed
+    inside the BMA program), each a numpy row."""
+    mean: Any                       # BMA mean (probs / regression mean)
+    variance: Any                   # particle disagreement
+    entropy: Any                    # total predictive uncertainty
+    mutual_info: Any                # epistemic part (BALD)
+    expected_entropy: Any = None    # aleatoric part
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+    @staticmethod
+    def from_heads(heads: Dict[str, Any]) -> "Prediction":
+        known = ("mean", "variance", "entropy", "mutual_info",
+                 "expected_entropy")
+        return Prediction(**{k: heads[k] for k in known if k in heads},
+                          extras={k: v for k, v in heads.items()
+                                  if k not in known})
+
+
+class PendingPrediction:
+    """Async handle: wraps the batcher's PFuture; ``result()`` blocks."""
+
+    __slots__ = ("_future",)
+
+    def __init__(self, future: PFuture):
+        self._future = future
+
+    def done(self) -> bool:
+        return self._future.done()
+
+    def result(self, timeout: Optional[float] = None) -> Prediction:
+        return Prediction.from_heads(self._future.wait(timeout))
+
+
 class PredictiveService:
-    """``serve(...)`` handle: batched posterior-predictive BMA."""
+    """``serve(...)`` handle: single-example requests coalesced by a
+    ``MicroBatcher`` into the engine's bucketed BMA programs, plus the
+    caller-batched ``predict_batch``. The batcher stages rows in pinned
+    host memory when the engine runs on the card."""
 
-    def __init__(self, engine: PredictiveEngine):
+    def __init__(self, engine: PredictiveEngine, *, max_batch: int = 32,
+                 max_wait_ms: float = 2.0, max_queue: int = 512,
+                 warm_on_first_flush: bool = False):
         self.engine = engine
+        self._warm_on_first_flush = warm_on_first_flush
+        self.batcher = MicroBatcher(
+            self._predict_flush, max_batch=max_batch,
+            max_wait_ms=max_wait_ms, max_queue=max_queue,
+            pin_memory=engine.device.type == "cuda")
         self._t_start = clock.now()
-        self._batches = 0
-        self._rows = 0
 
-    def predict_batch(self, batch):
-        """A caller-assembled batch straight through the engine; returns
-        the heads dict (leading axis B)."""
-        out = self.engine.predict(batch)
-        self._batches += 1
-        self._rows += len(next(iter(batch.values())))
-        return out
+    def _predict_flush(self, batch):
+        """One flush on the batcher's worker; the first one, when asked,
+        first captures every bucket up to ``max_batch``'s on its first
+        row's structure."""
+        if self._warm_on_first_flush:
+            self._warm_on_first_flush = False
+            self.engine.warmup(tree_map(lambda x: x[0], batch),
+                               self.batcher.max_batch)
+        return self.engine.predict(batch)
 
+    # -- request paths -------------------------------------------------------
+    def predict_async(self, x) -> PendingPrediction:
+        """Enqueue ONE example (no leading batch axis) for the next
+        micro-batch; returns at once."""
+        return PendingPrediction(self.batcher.submit(x))
+
+    def predict(self, x, timeout: Optional[float] = None) -> Prediction:
+        """Synchronous single-example predict (enqueue and wait)."""
+        return self.predict_async(x).result(timeout)
+
+    def predict_batch(self, batch, members: bool = False):
+        """A caller-assembled batch straight through the engine (no
+        coalescing wait); returns the heads dict (leading axis B), and
+        with ``members=True`` also the live members' outputs."""
+        return self.engine.predict(batch, members=members)
+
+    # -- introspection -------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
+        lat = self.batcher.latency
+        bstats = self.batcher.snapshot_stats()
         elapsed = max(clock.now() - self._t_start, 1e-9)
-        return {"batches": self._batches, "requests": self._rows,
-                "engine": self.engine.snapshot_stats(),
-                "requests_per_s": self._rows / elapsed}
+        return {
+            **bstats,
+            "engine": self.engine.snapshot_stats(),
+            "latency_p50_ms": lat.percentile(50) * 1e3,
+            "latency_p95_ms": lat.percentile(95) * 1e3,
+            "latency_p99_ms": lat.percentile(99) * 1e3,
+            "requests_per_s": bstats["requests"] / elapsed,
+        }
 
+    # -- lifecycle -----------------------------------------------------------
     def close(self):
-        """Nothing runs in the background; kept for the context-manager
-        protocol the reference's service has."""
+        """Flush what is pending, stop the batcher's executor, then let
+        go of the engine's trees and programs."""
+        self.batcher.close()
+        self.engine.close()
 
     def __enter__(self):
         return self
@@ -76,19 +155,59 @@ def _resolve_pd(obj):
     return pd
 
 
-def serve(obj, *, kind: str = "classify", params: Any = None,
-          forward=None) -> PredictiveService:
+def serve(obj, *, kind: str = "classify", max_batch: int = 32,
+          max_wait_ms: float = 2.0, max_queue: int = 512,
+          params: Any = None, forward=None, placement: Any = None,
+          precision: Any = None, warmup: Any = True,
+          cache: Optional[ProgramCache] = None) -> PredictiveService:
     """Turn a trained PushDistribution (or its Infer) into a batched
     posterior-predictive service: BMA over the store's live ``"params"``,
     or over a static stacked ``params=`` tree (the MultiSWAG serve-time
-    samples). ``forward`` defaults to the module's."""
+    samples). ``forward`` defaults to the module's.
+
+    ``warmup=<one example>`` (a request as ``predict`` takes it) captures
+    the BMA program at every batch bucket up to ``max_batch``'s before
+    ``serve`` returns, on the caller's thread, so nothing is captured
+    under traffic; the batcher's worker replays the graphs.
+    ``warmup=True`` (the default: a module gives no example of its own)
+    does the same on the first flush's first row, on the worker, before
+    that flush runs; ``warmup=False`` captures each bucket on its first
+    flush. Every call dispatches through ``cache`` (default: the
+    engine's own, emptied by ``close``); ``ProgramCache(capturer=
+    runtime.eager)`` serves the card eagerly, for comparison.
+
+    Churn within the store's capacity (``p_kill``, ``p_clone``) changes
+    only the mask that each call copies in: it captures nothing. Only
+    one device is ported (``placement`` other than None raises: ROADMAP.md
+    queue 1 item 10) and only fp32 serving (``precision`` other than None
+    or "fp32" raises: queue 1 item 5).
+    """
+    if placement is not None:
+        raise NotImplementedError(
+            "serve(placement=): multi-GPU placement is not ported yet "
+            "(ROADMAP.md queue 1 item 10)")
+    if precision not in (None, "fp32"):
+        raise NotImplementedError(
+            f"serve(precision={precision!r}): only fp32 serving is ported "
+            "(the precision ladder is ROADMAP.md queue 1 item 5)")
     pd = _resolve_pd(obj)
     fwd = forward if forward is not None else pd.module.forward
     if params is not None:
-        engine = PredictiveEngine(fwd, params=params, kind=kind)
+        engine = PredictiveEngine(fwd, params=params, kind=kind, cache=cache)
     else:
-        engine = PredictiveEngine(fwd, store=pd.store, kind=kind)
-    return PredictiveService(engine)
+        engine = PredictiveEngine(fwd, store=pd.store, kind=kind,
+                                  cache=cache)
+    svc = PredictiveService(engine, max_batch=max_batch,
+                            max_wait_ms=max_wait_ms, max_queue=max_queue,
+                            warm_on_first_flush=warmup is True)
+    if warmup is not True and warmup is not False and warmup is not None:
+        pd.drain()          # no NEL work may launch during a capture
+        try:
+            engine.warmup(warmup, max_batch)
+        except BaseException:
+            svc.close()
+            raise
+    return svc
 
 
 class PendingGeneration:

@@ -16,6 +16,10 @@ For regression (member outputs = point predictions (P, B, ...)):
   entropy          Gaussian-approx 1/2 log(2 pi e sigma^2), averaged
                    over outputs
   mutual_info      = variance averaged over outputs
+
+``bma_mean_probs``, ``expected_entropy``, ``mutual_information`` and
+``particle_variance`` are the classification heads as standalone
+functions over every member (no mask).
 """
 from __future__ import annotations
 
@@ -28,9 +32,34 @@ EPS = 1e-12
 KINDS = ("classify", "regress")
 
 
+def bma_mean_probs(member_logits):
+    """(P, B, C) logits -> (B, C) BMA predictive probabilities."""
+    return torch.softmax(member_logits.float(), dim=-1).mean(0)
+
+
 def predictive_entropy(mean_probs):
     """H[p̄] in nats, (B, C) -> (B,)."""
     return -(mean_probs * torch.log(mean_probs + EPS)).sum(-1)
+
+
+def expected_entropy(member_logits):
+    """(1/P) Σ_i H[p_i] in nats, (P, B, C) -> (B,)."""
+    logp = torch.log_softmax(member_logits.float(), dim=-1)
+    return -(logp.exp() * logp).sum(-1).mean(0)
+
+
+def mutual_information(member_logits):
+    """BALD score H[p̄] − E_i H[p_i], (P, B, C) -> (B,). Clamped >= 0
+    (float cancellation can push the difference slightly negative)."""
+    mi = (predictive_entropy(bma_mean_probs(member_logits))
+          - expected_entropy(member_logits))
+    return mi.clamp(min=0.0)
+
+
+def particle_variance(member_probs):
+    """Mean over classes of the across-particle variance, (P, B, C) ->
+    (B,) (population variance, as ``jnp.var``)."""
+    return member_probs.var(0, unbiased=False).mean(-1)
 
 
 def _mask_stats(x, mask):

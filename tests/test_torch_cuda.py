@@ -90,7 +90,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import svgd_rbf, swag_moments
 from repro_torch.models import api
 from repro_torch.optim import adam, sgd
-from repro_torch.serve import PredictiveEngine, serve_decode
+from repro_torch.serve import PredictiveEngine, serve, serve_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -1134,12 +1134,14 @@ def test_captured_dense_step_raises_outside_the_cache(dev):
             with pytest.raises(ValueError, match="outside"):
                 engine.step(state, {"token": toks[:, j], "cur_pos": C})
         torch.cuda.synchronize()
-        return [_host(h) for h in heads], _host(state), cache
+        return [_host(h) for h in heads], _host(state), cache, state
 
-    graph, graph_state, cache = run(ProgramCache())
+    # the cache keeps the program while its dense caches live (``live``)
+    graph, graph_state, cache, live = run(ProgramCache())
     assert cache.program_info()[0]["graph"]
     assert cache.snapshot_stats()["cold_compiles"] == 1
-    plain, plain_state, _ = run(ProgramCache(capturer=eager))
+    del live
+    plain, plain_state, _, _ = run(ProgramCache(capturer=eager))
     assert _same_bits(graph, plain) and _same_bits(graph_state, plain_state)
 
 
@@ -1582,3 +1584,153 @@ def test_fused_training_after_churn_on_the_card(dev, name):
                                     sk[live].contiguous())
         want = ref.diag_std(mp[live].contiguous(), sp[live].contiguous())
         assert (got - want).abs().max().item() < 1e-5
+
+
+# --------------------------------------------------------------------------
+# classification serving: the BMA predict captured per bucket, the
+# micro-batcher's pinned staging
+# --------------------------------------------------------------------------
+
+def _vit_pd(dev, P, capacity=0):
+    cfg, (mod, _) = _vit_modules(dev, P)
+    pd = PushDistribution(mod, capacity=capacity, device=dev)
+    for _ in range(P):
+        pd.p_create()
+    return cfg, pd
+
+
+def _requests(cfg, n, seed=3):
+    from repro_torch.data import mnist_like
+    images = mnist_like(np.random.default_rng(seed), n,
+                        cfg.vocab_size)["images"]
+    return images, [{"images": im} for im in images]
+
+
+def test_predict_captures_each_bucket_once_and_replays_eager_bits(dev):
+    """Buckets 1-8: the first call of each captures, later calls replay
+    on new rows, and every result equals an eager engine's bits."""
+    from repro_torch.runtime import ProgramCache, eager
+    cfg, pd = _vit_pd(dev, 4)
+    fwd = pd.module.forward
+    graph = PredictiveEngine(fwd, store=pd.store)
+    plain = PredictiveEngine(fwd, store=pd.store,
+                             cache=ProgramCache(capturer=eager))
+    from repro_torch.runtime.program import h2d_copies
+    images, _ = _requests(cfg, 16)
+    copies = {"graph": 0, "eager": 0}
+    for m in (1, 2, 3, 4, 8, 5):
+        for lo in (0, 8):
+            batch = {"images": images[lo:lo + m]}
+            c0 = h2d_copies()
+            got = graph.predict(batch)
+            c1 = h2d_copies()
+            want = plain.predict(batch)
+            copies["graph"] += c1 - c0
+            copies["eager"] += h2d_copies() - c1
+            for k in want:
+                assert torch.equal(got[k], want[k]), (m, k)
+    st = graph.snapshot_stats()
+    assert st["compiles"] == 4 and st["bucket_hits"] == 8
+    assert all(p["graph"] for p in graph.cache.program_info())
+    assert not any(p["graph"] for p in plain.cache.program_info())
+    # one host-to-device copy per call (one leaf), graph and eager alike
+    assert copies == {"graph": 12, "eager": 12}
+    graph.close()
+    assert len(graph.cache) == 0
+    pd.cleanup()
+
+
+def test_predict_async_under_threads_equals_predict_batch(dev):
+    cfg, pd = _vit_pd(dev, 4)
+    images, reqs = _requests(cfg, 64)
+    with serve(pd, max_batch=8, max_wait_ms=2.0, warmup=reqs[0]) as svc:
+        warm = svc.engine.cache.snapshot_stats()
+        assert warm["cold_compiles"] == 4          # buckets 1, 2, 4, 8
+        out = {}
+
+        def client(c):
+            hs = [(i, svc.predict_async(reqs[i]))
+                  for i in range(c, 64, 8)]
+            for i, h in hs:
+                out[i] = h.result(60.0)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+        want = svc.predict_batch({"images": images[:8]})
+        st = svc.stats()
+        assert st["errors"] == 0 and st["queue_depth"] == 0
+        assert st["requests"] == 64
+        assert svc.engine.cache.snapshot_stats()["cold_compiles"] == \
+            warm["cold_compiles"]
+        for i in range(8):
+            assert abs(out[i].mean - want["mean"][i].cpu().numpy()
+                       ).max() < 1e-5
+        rest = svc.predict_batch({"images": images[8:64]})   # bucket 64
+        for i in range(8, 64):
+            for k in ("mean", "entropy", "mutual_info", "variance",
+                      "expected_entropy"):
+                assert abs(getattr(out[i], k) - rest[k][i - 8].cpu().numpy()
+                           ).max() < 1e-5, (i, k)
+    pd.cleanup()
+
+
+def test_no_capture_after_a_kill_on_the_card(dev):
+    cfg, pd = _vit_pd(dev, 4, capacity=4)
+    images, reqs = _requests(cfg, 8)
+    with serve(pd, max_batch=8, max_wait_ms=1.0, warmup=reqs[0]) as svc:
+        cold = svc.engine.cache.snapshot_stats()["cold_compiles"]
+        gen = pd.store.generation()
+        before = [h.result(60.0) for h in
+                  [svc.predict_async(r) for r in reqs]]
+        pd.p_kill(pd.particle_ids()[2])
+        after = [h.result(60.0) for h in
+                 [svc.predict_async(r) for r in reqs]]
+        assert svc.engine.cache.snapshot_stats()["cold_compiles"] == cold
+        assert pd.store.generation() == gen
+        # the live members' outputs (a spec of its own: one capture)
+        heads, outs = svc.predict_batch({"images": images}, members=True)
+        assert outs.shape[0] == 3
+        bma = torch.softmax(outs.float(), -1).mean(0)
+        assert (heads["mean"] - bma).abs().max().item() < 1e-5
+        for i, p in enumerate(after):
+            assert abs(p.mean - bma[i].cpu().numpy()).max() < 1e-5
+        assert max(abs(a.mean - b.mean).max()
+                   for a, b in zip(after, before)) > 1e-6
+    pd.cleanup()
+
+
+def test_pinned_staging_one_copy_per_leaf_per_flush(dev):
+    cfg, pd = _vit_pd(dev, 2)
+    images, _ = _requests(cfg, 12)
+    labels = np.arange(12, dtype=np.int32)
+    reqs = [{"images": im, "labels": lab} for im, lab in zip(images, labels)]
+    with serve(pd, max_batch=4, max_wait_ms=60_000,
+               warmup=reqs[0]) as svc:
+        for r in range(3):
+            for h in [svc.predict_async(q) for q in reqs[4 * r:4 * r + 4]]:
+                h.result(60.0)
+        st = svc.stats()
+        assert st["batches"] == st["size_flushes"] == 3
+        assert st["h2d_transfers"] == 3 * 2
+        assert st["staging_builds"] == 1 and st["staging_reuses"] == 2
+        bufs = list(svc.batcher._staging._bufs.values())[0]
+        assert all(buf.is_pinned() for buf in bufs)
+    pd.cleanup()
+
+
+@pytest.mark.parametrize("P", [1, 8])
+def test_diag_std_kernel_at_the_serving_shapes(dev, P):
+    """#4 at P = 1 (``sample_predict``'s draws) and P = 8 (the dense
+    stack of ``posterior_predictive``), at ViT-MNIST leaf widths."""
+    gen = torch.Generator(device=dev).manual_seed(P)
+    for D in (320, 40 * 320, 320 * 1280, 3 * 320 * 320 + 7):
+        m = torch.randn((P, D), generator=gen, device=dev) * 0.1
+        s = m * m + torch.rand((P, D), generator=gen, device=dev) * 1e-3
+        before = swag_moments.diag_std.launches
+        got = swag_moments.diag_std(m, s)
+        assert swag_moments.diag_std.launches - before == 1
+        assert (got - ref.diag_std(m, s)).abs().max().item() < 1e-5

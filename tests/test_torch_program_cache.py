@@ -139,9 +139,12 @@ def test_in_place_arguments_key_on_addresses():
 def test_default_capturer_runs_the_cpu_eagerly():
     cache = ProgramCache()
     _, spec = _double()
-    prog, hit = cache.lookup(spec, (torch.ones(2, 3), np.ones(4, np.float32)))
+    # the state lives on: the cache drops a program once its in-place
+    # tensors are freed
+    st = torch.ones(2, 3)
+    prog, hit = cache.lookup(spec, (st, np.ones(4, np.float32)))
     assert not hit and isinstance(prog, Program) and prog.graph is None
-    _, out = prog(torch.ones(2, 3), np.full(4, 3.0, np.float32))
+    _, out = prog(st, np.full(4, 3.0, np.float32))
     assert out.tolist() == [6.0] * 4
     assert cache.program_info()[0]["graph"] is False
 

@@ -155,6 +155,35 @@ def test_store_rejects_bad_pids_and_counts():
                          [0, 1])                     # wrong row count
 
 
+@pytest.mark.parametrize("pid_list", [False, True])
+def test_dense_raises_for_a_pid_without_the_key(pid_list):
+    """Fault F1: a particle created in a killed particle's slot, holding
+    only "params", has no "swag" row, though the killed particle's stale
+    row is still stacked there. ``dense("swag")`` (all live pids, or a
+    pid list naming it) raises KeyError in both stores, as the
+    reference's ``read`` does; the pids that hold the key still read."""
+    shapes = [(3, 2), (4,)]
+    for store, conv in (
+            (JParticleStore(capacity=2),
+             lambda t: {k: jnp.asarray(v) for k, v in t.items()}),
+            (ParticleStore(capacity=2, device="cpu"),
+             lambda t: {k: torch.from_numpy(v.copy())
+                        for k, v in t.items()})):
+        for pid in (0, 1):
+            store.register(pid)
+            store.write("params", pid, conv(_rows(pid, shapes)))
+            store.write("swag", pid, conv(_rows(10 + pid, shapes)))
+        store.stacked("swag")
+        store.unregister(1)
+        store.register(2)
+        store.write("params", 2, conv(_rows(2, shapes)))
+        assert store.slot_of(2) == 1        # the killed particle's slot
+        with pytest.raises(KeyError, match="for particle 2"):
+            store.dense("swag", [0, 2] if pid_list else None)
+        assert _eq(_row(store.dense("swag", [0]), 0), _rows(10, shapes))
+        assert _eq(_row(store.dense("params"), 1), _rows(2, shapes))
+
+
 def test_store_discard_and_keys():
     for store, conv in _stores():
         store.register(0)

@@ -184,14 +184,75 @@ def test_posterior_predictive_and_predict_match_jax(trained):
         samples_per_particle=S,
         noise=(params_from_numpy(noise[0]), torch.from_numpy(noise[1])))
     with svc:
+        calls = svc.stats()["engine"]["calls"]
         got = svc.predict_batch(batch)
-        assert svc.stats()["requests"] == 5
+        # a caller's batch goes straight to the engine: no batcher request
+        st = svc.stats()
+        assert st["requests"] == 0 and st["engine"]["calls"] == calls + 1
     _close(got, want, 1e-4)
     # S = 0 serves the particle params; p_predict is the mean of logits
     _close(talgo.posterior_predictive().predict_batch(batch),
            jalgo.posterior_predictive().predict_batch(batch), 1e-4)
     assert np.abs(talgo.posterior_pred(batch).numpy()
                   - np.asarray(jalgo.posterior_pred(batch))).max() < 1e-4
+
+
+def _sample_predict_noise(jalgo, rng, S):
+    """The per-draw noise of the reference's ``MultiSWAG.sample_predict``:
+    particle by particle, S draws each, ``rng, sub = split(rng)`` a draw,
+    ``sub`` split as ``swag_sample`` splits it. A list of (z1, z2)."""
+    pd = jalgo.push_dist
+    noise = []
+    for pid in pd.particle_ids():
+        swag = pd.particles[pid].state["swag"]
+        leaves, tdef = jax.tree.flatten(swag["mean"])
+        max_rank = jax.tree.leaves(swag["dev"])[0].shape[0]
+        for _ in range(S):
+            rng, sub = jax.random.split(rng)
+            k1, k2 = jax.random.split(sub)
+            zks = jax.random.split(k1, len(leaves))
+            z1 = tdef.unflatten([np.array(jax.random.normal(zk, m.shape))
+                                 for zk, m in zip(zks, leaves)])
+            noise.append((params_from_numpy(z1), torch.from_numpy(
+                np.array(jax.random.normal(k2, (max_rank,))))))
+    return noise
+
+
+def test_sample_predict_matches_jax_with_its_draws(trained):
+    """``MultiSWAG.sample_predict`` against the reference's on the same
+    trained state (two collections, so a draw is not the mean), fed the
+    reference's own draws: the mean of the raw logits within 1e-5."""
+    jalgo, talgo, _, _ = trained
+    batch = next(iter(JDataLoader(jalgo.module.cfg, batch_size=4,
+                                  num_batches=1, seed=5)))
+    rng = jax.random.PRNGKey(7)
+    want = jalgo.sample_predict(batch, samples_per_particle=2, rng=rng,
+                                scale=0.5)
+    noise = _sample_predict_noise(jalgo, rng, 2)
+    assert len(noise) == 2 * N
+    # shared SWAG state: the reference's, in the port's store for this
+    # test (the packages' trained moments differ by up to ~1e-4, which
+    # moves the diagonal scale where a leaf barely moved)
+    own = talgo.store.checkout("swag")
+    talgo.store.commit("swag", params_from_numpy(
+        jax.tree.map(np.array, jalgo.store.stacked("swag"))))
+    try:
+        got = talgo.sample_predict(batch, samples_per_particle=2,
+                                   scale=0.5, noise=noise)
+        # with a generator: deterministic per seed, and not these draws
+        a, b = (talgo.sample_predict(
+            batch, samples_per_particle=2,
+            generator=torch.Generator().manual_seed(1)) for _ in range(2))
+    finally:
+        talgo.store.commit("swag", own)
+    assert got.shape == (4, jalgo.module.cfg.vocab_size)
+    assert np.abs(got.numpy() - np.asarray(want)).max() < 1e-5
+    # the mean of raw logits (not of probabilities), and not the logits
+    # of the mean params
+    assert not np.allclose(got.sum(-1).numpy(), 1.0)
+    assert np.abs(got.numpy() - talgo.posterior_pred(batch).numpy()
+                  ).max() > 1e-3
+    assert torch.equal(a, b) and not torch.equal(a, got)
 
 
 @pytest.mark.parametrize("kind", ["classify", "regress"])

@@ -258,10 +258,69 @@ Phase 10 predictive serving: 8 full-width ViT-MNIST particles trained
          Each kernel's ``serve_launches`` in the kernels line are phase
          10's driven runs (the training, the handoff, sample_predict).
 
-The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10: the kernel
-checks first, then the serving runs over one set of particles, then
-training, fused and then on the NEL, then the lifecycle, then predictive
-serving.
+Phase 11 the precision ladder (core.precision), every step captured.
+         (a) qwen1.5-0.5b at full width and depth, 4 particles (seed 0)
+         in a "mixed" store of capacity 4: fp32 masters, a bf16 serve
+         copy rewritten in place by the serve_cast program, fp32
+         arithmetic (the config's dtype). Phase 2's requests served plain,
+         speculative with the fp32 draft and with the int8 draft
+         (SpecConfig(quantized=True)), in one call; launches as phases 2
+         and 6; each speculative run's tokens, and a dense-cache decode's
+         (PredictiveEngine(stateful=True), 8 steps over phase 7's prompts)
+         against plain decode, under phase 6's near-tie rule; #5-#8 against
+         their plain versions on the layer-0 inputs of a freshly prefilled
+         step (phases 1 and 5's fp32 tolerances); then rounds of phase 2's
+         first 4 requests on the int8-draft service around a p_kill, a
+         jittered p_clone into the freed slot (whose serve-copy row must
+         be the bf16 cast of its master, bit for bit) and the twin's kill:
+         nothing captured after warmup, the served params at fixed
+         addresses, the copy at half the masters' bytes; then the
+         drafter's kill: the draft moves to the next live slot, one pack
+         is built, and the draft row equals the bf16 dequantization of that
+         slot's int8 pack bit for bit. Last, 4 particles on one weight set
+         served with the int8 draft (phase 2's prompts, 16 tokens each):
+         verify corrects any draft, so only the acceptance shows a draft
+         of garbage; it must reach ACCEPT_INT8. It prints tokens/s
+         of the three runs, profiled windows of a plain step and of the
+         fp32 and the int8 draft (4 iterations; device ms per iteration),
+         the serve_cast program's ms against its byte bound, draft_packs,
+         the draft programs' pool bytes and the peak memory.
+         (b) the same model with cfg.replace(dtype="bfloat16") in a "bf16"
+         store (capacity 4, 3 live): bf16 masters and pages, so #5-#8
+         take bf16 q. Plain and speculative serving and the dense-cache
+         steps as in (a), tokens under a near-tie bar of BF16_TIE; #5-#8
+         against their plain versions at one freshly prefilled step
+         (BF16_TOL, phase 5's bf16 bar) and timed there (event ms with the
+         L2 flushed, device ms, plain ms, SDPA at the same bf16 shapes, the
+         byte bound: the kernels line's ``bf16`` rows); a clone/kill round
+         trip that must give the same tokens back.
+         (c) 8 full-width ViT-MNIST particles, phase 4's epochs and
+         batches, captured: SteinVGD under "mixed" (fp32 masters) and
+         MultiSWAG under "bf16" masters (bf16 params and Adam state, fp32
+         moments, a bf16 ring). Losses within the reference's bar of phase
+         4's fp32 losses (|d| < 0.1 |fp32| + 0.05), launches of #1-#3 as
+         phase 4, one program per spec; the force at the trained state and
+         one collection (through the fp32 working copies) against the plain
+         versions; images/s beside phase 4's.
+         (d) phase 10's MultiSWAG posterior (32 members, trained anew the
+         same way) served under "mixed" and "mixed_int8": the burst and
+         the closed loop, one copy a flush, nothing captured after
+         warmup, served heads within BF16_SERVED_TOL of predict_batch
+         (a bucket's bf16 GEMMs round otherwise than the batch's; fp32
+         holds 1e-5 in phase 10), BMA means within 0.03 and 0.06 of the
+         fp32 service's; flush profiles at
+         buckets 1 and 32 against bf16 bounds, beside phase 10's fp32
+         figures; then the store's own params under "mixed_int8" (its
+         int8 serve copy) with a p_kill under traffic: no capture, the copy
+         at fixed addresses, one serve_cast program.
+         Each part prints its line with the card's name and power limit;
+         every kernel must have launched in phase 11, and each kernel's
+         ``precision_launches`` in the kernels line are phase 11's.
+
+The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11: the
+kernel checks first, then the serving runs over one set of particles,
+then training, fused and then on the NEL, then the lifecycle, then
+predictive serving, then the precision ladder.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -283,6 +342,7 @@ there is no CUDA device, when run outside a checkout of the repository, or
 when any phase fails.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -593,14 +653,17 @@ def phase1(torch, cfg, reqs):
             "bound_by": serve["bound_by"], "library_ms": serve["library_ms"]}
 
 
-def prefilled_rows(torch, pd, cfg, prompts, n_pmax, pages):
+def prefilled_rows(torch, pd, cfg, prompts, n_pmax, pages, params=None):
     """Prefill each prompt into its own pages of the checked-out pool, as a
-    row about to decode its first token. Returns (params, mask, block
-    tables, first tokens, seq_lens), all on the card."""
+    row about to decode its first token, through ``params`` (the store's
+    when None). Returns (params, mask, block tables, first tokens,
+    seq_lens), all on the card."""
     from repro_torch.models import api
     from repro_torch.runtime import bucket_size
     from repro_torch.serve import uncertainty
-    params, mask = pd.store.stacked("params"), pd.store.active_mask()
+    if params is None:
+        params = pd.store.stacked("params")
+    mask = pd.store.active_mask()
     B = len(prompts)
     bt = torch.zeros((B, n_pmax), dtype=torch.int32, device="cuda")
     tokens, seq_lens, nxt = [], [], 0
@@ -772,11 +835,15 @@ def hold_to_profiler(torch, prof, got, what):
     return seen
 
 
-def serve_requests(torch, pd, cfg, reqs, fns, cache, **kw):
+def serve_requests(torch, pd, cfg, reqs, fns, cache, info=None, hold=None,
+                   **kw):
     """serve_decode over ``reqs`` on ``pd`` through ``cache``, with each
     prompt's pow2 bucket warmed: the launch counts of ``fns`` are set to 0
     after warmup and read when the last request resolves; no step may be
-    captured after warmup. Returns (generations, stats, launches, wall
+    captured after warmup. ``info`` (a list) receives the cache's
+    program_info before the service closes (a serve copy's programs go
+    with it). ``hold(svc, generations)`` runs on the open service after
+    the traffic and its stats. Returns (generations, stats, launches, wall
     seconds, the stats at the end of warmup, n_pmax)."""
     from repro_torch.runtime import bucket_size
     from repro_torch.serve import serve_decode
@@ -794,6 +861,10 @@ def serve_requests(torch, pd, cfg, reqs, fns, cache, **kw):
         wall = time.perf_counter() - t1
         launches = read_counts(fns)
         st = svc.stats()
+        if info is not None:
+            info.extend(cache.program_info())
+        if hold is not None:
+            hold(svc, gens)
     finally:
         svc.close()
     for g, (p, m) in zip(gens, reqs):
@@ -828,10 +899,11 @@ def same_launches(launches, what):
                              f"{launches['eager']}")
 
 
-def run_summary(gens, st, warm, wall, cache):
-    """The per-run numbers phases 2, 6 and 7 print for each mode."""
+def run_summary(gens, st, warm, wall, cache, info=None):
+    """The per-run numbers phases 2, 6 and 7 print for each mode (``info``:
+    the cache's program_info taken earlier)."""
     toks = sum(len(g.tokens) for g in gens)
-    info = cache.program_info()
+    info = cache.program_info() if info is None else info
     return {"generated_tokens": toks, "wall_s": wall,
             "tok_per_s": toks / wall, "steps": st["steps"],
             "prefills": st["prefills"],
@@ -1256,25 +1328,29 @@ def phase5(torch, cfg, reqs):
     return rows
 
 
-def tie_gap(torch, pd, cfg, tokens):
+def tie_gap(torch, pd, cfg, tokens, params=None):
     """The BMA top-2 gap of the next-token probabilities after ``tokens``,
-    over the top probability (a dense prefill of all particles)."""
+    over the top probability (a dense prefill of all particles, through
+    ``params``: the store's when None)."""
     from repro_torch.models import api
     from repro_torch.serve import uncertainty
     toks = torch.tensor([tokens], dtype=torch.int32, device="cuda")
+    if params is None:
+        params = pd.store.stacked("params")
     with torch.no_grad():
-        logits, _ = api.prefill(pd.store.stacked("params"), {"tokens": toks},
-                                cfg)
+        logits, _ = api.prefill(params, {"tokens": toks}, cfg)
     mean = uncertainty.predictive_heads(logits, mask=pd.store.active_mask())[
         "mean"][0]
     top2 = torch.topk(mean, 2).values
     return float((top2[0] - top2[1]) / top2[0])
 
 
-def compare_tokens(torch, pd, cfg, prompts, got, want, what):
+def compare_tokens(torch, pd, cfg, prompts, got, want, what, params=None,
+                   tie=1e-4):
     """Tokens equal, or the first difference sits on a near-tie of the
-    reference run (top-2 gap under 1e-4 of the top probability). Returns
-    (requests equal, [gap at each first difference])."""
+    reference run (top-2 gap under ``tie`` of the top probability, through
+    ``params``: the store's when None). Returns (requests equal, [gap at
+    each first difference])."""
     exact, gaps = 0, []
     for prompt, a, b in zip(prompts, got, want):
         k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -1282,9 +1358,9 @@ def compare_tokens(torch, pd, cfg, prompts, got, want, what):
             exact += 1
             continue
         k = min(len(a), len(b)) if k is None else k
-        gap = tie_gap(torch, pd, cfg, list(prompt) + list(b[:k]))
+        gap = tie_gap(torch, pd, cfg, list(prompt) + list(b[:k]), params)
         gaps.append(gap)
-        if not gap < 1e-4:
+        if not gap < tie:
             raise AssertionError(f"{what}: tokens differ at {k} where the "
                                  f"top-2 gap is {gap}")
     return exact, gaps
@@ -1857,16 +1933,17 @@ def read_counts(fns):
     return {k: fn.launches for k, fn in fns.items()}
 
 
-def train_run(torch, cls, module, cache, epochs, **kw):
+def train_run(torch, cls, module, cache, epochs, precision=None, **kw):
     """One driven fused run of ``cls`` over TRAIN_P fresh particles (seed
-    SEED, the seeded loader) with ``cache`` on the PD's runtime, between a
-    reset and a read of the kernels' launch counts. Returns (algorithm,
-    last losses, launches, wall s, cache stats, program info, the GB left
-    allocated before it); the peak memory statistic starts anew here."""
+    SEED, the seeded loader, the ``precision`` policy) with ``cache`` on
+    the PD's runtime, between a reset and a read of the kernels' launch
+    counts. Returns (algorithm, last losses, launches, wall s, cache stats,
+    program info, the GB left allocated before it); the peak memory
+    statistic starts anew here."""
     from repro_torch.data import DataLoader
     resident = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    algo = cls(module, seed=SEED, backend="compiled")
+    algo = cls(module, seed=SEED, backend="compiled", precision=precision)
     algo.push_dist.runtime.cache = cache
     loader = DataLoader(module.cfg, batch_size=TRAIN_B, num_batches=TRAIN_NB,
                         seed=SEED)
@@ -2074,6 +2151,7 @@ def phase4(torch):
     emit(out)
     captured = {name: {"step_ms": out[name]["captured"]["step_ms"],
                        "images_per_s": out[name]["captured"]["images_per_s"],
+                       "last_losses": out[name]["captured"]["last_losses"],
                        "profile": out[name]["captured"].get(
                            "profile", out[name]["captured"].get(
                                "profile_train_step"))}
@@ -3435,7 +3513,1031 @@ def phase10(torch):
     out["wall_s"] = time.perf_counter() - t_start
     emit(out)
     algo.cleanup()
-    return launches, out["diag_std"]
+    return launches, out["diag_std"], out["predictive"]
+
+
+# --------------------------------------------------------------------------
+# phase 11: the precision ladder
+# --------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
+P11_NEW = 8                      # dense-cache steps in (a) and (b)
+# a bf16 computation rounds every product to 8 bits of mantissa: two
+# programs that order a sum differently (a W-row verify GEMM against a
+# 1-row decode GEMV) may split a greedy token where the top-2 gap is within
+# a few roundings, as fp32 programs may within 1e-4 (phase 6)
+BF16_TIE = 3e-2
+FP32_TOLS = {"paged": 1e-4, "window": 1e-4, "flash": 2e-5, "decode": 2e-5}
+BF16_TOL = 2e-2                  # phase 5's bf16 bar (one bf16 rounding)
+# a served row under a bf16 policy against the same row of one
+# predict_batch: the bucket's bf16 GEMMs round otherwise than the batch's
+BF16_SERVED_TOL = 1e-2
+# the int8 draft's acceptance over particles that share one weight set:
+# int8 rounding flips some near-ties (a correct draft: ~0.8 on these
+# random weights), a draft of garbage gets ~0 and one of another random
+# particle ~0.11 (phase 6)
+ACCEPT_INT8 = 0.5
+
+
+def unit0(tree, key):
+    """Layer 0 of the stacked units' ``key`` subtree (particle axis kept)."""
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda a: a[:, 0], tree["units"][0][key])
+
+
+def tree_gb(tree):
+    from repro_torch.core.tree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)) / 1e9
+
+
+def dense_prompts(torch, cfg):
+    rng = np.random.default_rng(2)
+    return torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                        (DENSE_PROMPTS, DENSE_LEN)),
+                           dtype=torch.int32, device="cuda")
+
+
+def timed_row(torch, fn, plain, lib, nbytes, flops, rate):
+    """Event ms (L2 flushed) and device ms of ``fn``, its plain version's
+    and one SDPA call's (``lib``), beside the bound."""
+    b_ms, b_by = bound(nbytes, flops, rate)
+    return {"ms": time_ms(torch, fn), "device_ms": device_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain, iters=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, lib),
+            "library_device_ms": device_ms(torch, lib)}
+
+
+def step_kernel_checks(torch, pd, cfg, params, prompts, n_pmax, tols,
+                       timed=False):
+    """#5-#8 against their plain versions on the layer-0 inputs of one
+    freshly prefilled step through ``params`` (the serve copy, or the bf16
+    masters), in ``cfg.dtype``: the paged decode of each prompt's next
+    token (its K/V written first), a W = SPEC_K + 1 verify window after
+    it, the prefill of the first prompt at its bucket, and a dense-cache
+    decode step after a prefill of the DENSE prompts. ``tols`` by kernel.
+    With ``timed``, each kernel's timed row (``timed_row``) with SDPA at
+    the same shapes and dtypes. Returns (errors, rows)."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode_attention as pk
+    from repro_torch.kernels import paged_decode_window_attention as wk
+    from repro_torch.kernels import ref
+    from repro_torch.models import api
+    from repro_torch.models.blocks import (attn_qkv, norm_apply,
+                                           paged_write_index,
+                                           window_write_index, write_kv)
+    from repro_torch.runtime import bucket_size
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dt = getattr(torch, cfg.dtype)
+    attn0, ln0 = unit0(params, "attn"), unit0(params, "ln1")
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    W = SPEC_K + 1
+    errs, rows = {}, {}
+    pages = pd.store.checkout("kv_pages")
+    try:
+        _, _, bt, tok, sl = prefilled_rows(torch, pd, cfg, prompts, n_pmax,
+                                           pages, params=params)
+        pool = {"k": pages["units"][0]["k"][:, 0],
+                "v": pages["units"][0]["v"][:, 0]}
+        esz = pool["k"].element_size()
+        P, B, lens = pool["k"].shape[0], len(prompts), sl.tolist()
+        scratch = api.scratch_page(pages)
+        # #7: the next token's q, its K/V written at its slot first
+        x = norm_apply(ln0, api._embed(params, tok[:, None], dt))
+        q, k, v = attn_qkv(attn0, x, cfg, sl[:, None])
+        write_kv(pool, k[:, :, 0], v[:, :, 0],
+                 paged_write_index(bt, sl, PAGE_SIZE, scratch))
+        pargs = (q[:, :, 0].contiguous(), pool["k"], pool["v"], bt, sl)
+        errs["paged"] = max_err(torch, pk.paged_decode_attention(*pargs),
+                                ref.paged_decode_attention(*pargs),
+                                "paged step", tols["paged"])
+        # #8: a window of the token and W - 1 drafts after it
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        win = torch.randint(1, cfg.vocab_size, (B, W), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        win[:, 0] = tok
+        pos = sl[:, None] + torch.arange(W, device="cuda")
+        xw = norm_apply(ln0, api._embed(params, win, dt))
+        qw, kw, vw = attn_qkv(attn0, xw, cfg, pos)
+        write_kv(pool, kw, vw, window_write_index(
+            bt, sl, torch.full_like(sl, W), W, PAGE_SIZE, scratch))
+        wargs = (qw.contiguous(), pool["k"], pool["v"], bt, sl)
+        errs["window"] = max_err(
+            torch, wk.paged_decode_window_attention(*wargs),
+            ref.paged_decode_window_attention(*wargs), "window step",
+            tols["window"])
+        # #5: the first prompt's prefill at its bucket
+        n = len(prompts[0])
+        Sp = bucket_size(n)
+        toks = torch.zeros((1, Sp), dtype=torch.int32, device="cuda")
+        toks[0, :n] = torch.tensor(prompts[0], dtype=torch.int32)
+        xp = norm_apply(ln0, api._embed(params, toks, dt))
+        fargs = attn_qkv(attn0, xp, cfg, torch.arange(Sp, device="cuda"))
+        fargs = tuple(t.contiguous() for t in fargs)
+        errs["flash"] = max_err(torch, fk.flash_attention(*fargs),
+                                ref.flash_attention(*fargs), "prefill step",
+                                tols["flash"])
+        # #6: a dense-cache step after a prefill of the DENSE prompts
+        dtoks = dense_prompts(torch, cfg)
+        C, cur = DENSE_LEN + P11_NEW + 1, DENSE_LEN - 1
+        with torch.no_grad():
+            caches = api.prefill(params, {"tokens": dtoks[:, :-1]}, cfg,
+                                 max_len=C)[1]
+        c0 = caches["units"][0]
+        kc, vc, kpos = c0["k"][:, 0], c0["v"][:, 0], c0["pos"][0]
+        xd = norm_apply(ln0, api._embed(params, dtoks[:, -1:], dt))
+        qd, kd1, vd1 = attn_qkv(attn0, xd, cfg, torch.full(
+            (DENSE_PROMPTS, 1), cur, device="cuda"))
+        kc[:, :, cur] = kd1[:, :, 0].to(kc.dtype)
+        vc[:, :, cur] = vd1[:, :, 0].to(vc.dtype)
+        kpos[:, cur] = cur
+        dargs = (qd[:, :, 0].contiguous(), kc, vc, kpos)
+        errs["decode"] = max_err(torch, dk.decode_attention(*dargs),
+                                 ref.decode_attention(*dargs),
+                                 "dense step", tols["decode"])
+        if timed:
+            qe = pargs[0].element_size()
+            gqa = H != KVH
+            live = sum(L + 1 for L in lens)
+            n_bt = sum(L // PAGE_SIZE + 1 for L in lens)
+            kg, vg, mask = gathered(torch, pool["k"], pool["v"], bt, sl,
+                                    lens, 1)
+            q1 = pargs[0].reshape(P * B, H, 1, hd)
+            rows["paged_decode_attention"] = timed_row(
+                torch, lambda: pk.paged_decode_attention(*pargs),
+                lambda: ref.paged_decode_attention(*pargs),
+                lambda: sdpa(q1, kg, vg, attn_mask=mask, enable_gqa=gqa),
+                P * live * KVH * hd * 2 * esz + 2 * pargs[0].numel() * qe
+                + 4 * (n_bt + B), 4 * P * live * H * hd, FP32_FLOPS_PER_S)
+            kg, vg, mask = gathered(torch, pool["k"], pool["v"], bt, sl,
+                                    lens, W)
+            qw1 = wargs[0].permute(0, 1, 3, 2, 4).reshape(P * B, H, W, hd)
+            pairs = sum(W * L + W * (W + 1) // 2 for L in lens)
+            live = sum(L + W for L in lens)
+            n_bt = sum((L + W - 1) // PAGE_SIZE + 1 for L in lens)
+            rows["paged_decode_window_attention"] = timed_row(
+                torch, lambda: wk.paged_decode_window_attention(*wargs),
+                lambda: ref.paged_decode_window_attention(*wargs),
+                lambda: sdpa(qw1, kg, vg, attn_mask=mask, enable_gqa=gqa),
+                P * live * KVH * hd * 2 * esz + 2 * wargs[0].numel() * qe
+                + 4 * (n_bt + B), 4 * P * pairs * H * hd, FP32_FLOPS_PER_S)
+            qf, kf, vf = (t[:, 0].transpose(1, 2).contiguous()
+                          for t in fargs)
+            rows["flash_attention"] = timed_row(
+                torch, lambda: fk.flash_attention(*fargs),
+                lambda: ref.flash_attention(*fargs),
+                lambda: sdpa(qf, kf, vf, is_causal=True, enable_gqa=gqa),
+                (fargs[0].numel() * 2 + fargs[1].numel() * 2) * qe,
+                4 * P * H * hd * Sp * (Sp + 1) // 2, BF16_FLOPS_PER_S)
+            Bd = DENSE_PROMPTS
+            kdd = kc.reshape(P * Bd, C, KVH, hd).transpose(1, 2).contiguous()
+            vdd = vc.reshape(P * Bd, C, KVH, hd).transpose(1, 2).contiguous()
+            qdd = dargs[0].reshape(P * Bd, H, 1, hd)
+            dmask = (kpos >= 0)[None].expand(P, Bd, C).reshape(P * Bd, 1, 1, C)
+            valid = int((kpos >= 0).sum())
+            rows["decode_attention"] = timed_row(
+                torch, lambda: dk.decode_attention(*dargs),
+                lambda: ref.decode_attention(*dargs),
+                lambda: sdpa(qdd, kdd, vdd, attn_mask=dmask,
+                                  enable_gqa=gqa),
+                P * valid * KVH * hd * 2 * kc.element_size()
+                + 2 * dargs[0].numel() * qe + kpos.numel() * 4,
+                4 * P * valid * H * hd, FP32_FLOPS_PER_S)
+            shapes = {"P": P, "B": B, "W": W, "prefill_S": Sp,
+                      "dense_B": Bd, "dense_C": C, "dense_valid": valid,
+                      "seq_lens": lens, "dtype": cfg.dtype}
+            rows = {k: dict(v, max_abs_err=errs[n], shapes=shapes)
+                    for (k, v), n in zip(rows.items(),
+                                         ("paged", "window", "flash",
+                                          "decode"))}
+    finally:
+        pd.store.commit("kv_pages", pages)
+    torch.cuda.empty_cache()
+    return errs, rows
+
+
+def speculative_launches(st, warm, got, L, what):
+    """Phase 6's launch rule over one speculative run."""
+    ss = st["speculative"]
+    iters = (st["engine"]["draft_iterations"]
+             - warm["engine"]["draft_iterations"])
+    want = {"paged_decode_window_attention": L * ss["verify_calls"],
+            "paged_decode_attention": L * iters,
+            "flash_attention": L * st["prefills"], "decode_attention": 0}
+    if got != want or ss["verify_calls"] == 0:
+        raise AssertionError(f"{what} launches {got}, want {want}")
+    return iters
+
+
+def plain_launches(st, got, L, what):
+    """Phase 2's launch rule over one plain run."""
+    want = {"paged_decode_attention": L * st["steps"],
+            "paged_decode_window_attention": 0,
+            "flash_attention": L * st["prefills"], "decode_attention": 0}
+    if got != want or st["steps"] == 0:
+        raise AssertionError(f"{what} launches {got}, want {want}")
+
+
+def ladder_serving(torch, pd, cfg, reqs, total, spec_cfgs, plain=True,
+                   holds=None, precision=None):
+    """serve_decode(precision=) over phase 2's requests on ``pd``, plain
+    (unless ``plain`` is False) and then with each of ``spec_cfgs``, each
+    through a fresh captured cache; launch counts as phases 2 and 6, every
+    program a graph, nothing captured after warmup; ``holds[name]`` runs on
+    that run's open service (``serve_requests``). Returns (runs, tokens by
+    run)."""
+    from repro_torch.runtime import ProgramCache
+    fns, L = attention_counts(), cfg.n_layers
+    runs, tokens = {}, {}
+    holds = holds or {}
+    plan = ((("plain", None),) if plain else ()) + tuple(spec_cfgs.items())
+    for name, spec in plan:
+        cache, info = ProgramCache(), []
+        gens, st, got, wall, warm, _ = serve_requests(
+            torch, pd, cfg, reqs, fns, cache, info=info,
+            hold=holds.get(name), speculative=spec, precision=precision)
+        if spec is None:
+            plain_launches(st, got, L, f"{name} serving")
+            row = run_summary(gens, st, warm, wall, cache, info)
+        else:
+            iters = speculative_launches(st, warm, got, L, f"{name} serving")
+            row = dict(run_summary(gens, st, warm, wall, cache, info),
+                       draft_iterations=iters, speculative=st["speculative"])
+            row["draft_packs"] = st["engine"]["draft_packs"]
+            row["draft_programs"] = sum(p["name"] == "spec_draft_step"
+                                        for p in info)
+            row["draft_pool_bytes"] = sum(
+                p["pool_bytes"] for p in info
+                if p["name"] in ("spec_draft_step", "spec_draft_pack"))
+            row["pack_programs"] = sum(p["name"] == "spec_draft_pack"
+                                       for p in info)
+        if not info or not all(p["graph"] for p in info):
+            raise AssertionError(f"{name}: a captured step ran eagerly")
+        row["kernel_launches"] = got
+        add_counts(total, got)
+        runs[name], tokens[name] = row, [g.tokens for g in gens]
+        del cache
+        torch.cuda.empty_cache()
+    return runs, tokens
+
+
+def dense_steps(torch, pd, cfg, total, n=P11_NEW):
+    """PredictiveEngine(stateful=True) over the DENSE prompts under the
+    store's policy, captured: a prefill, then ``n`` steps (24 dense-decode
+    launches a step, 24 prefill launches, one step program, and under a
+    casting policy the serve_cast program, each a graph). Returns
+    (tokens, launches, the step's profile)."""
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import PredictiveEngine
+    fns, L = attention_counts(), cfg.n_layers
+    toks = dense_prompts(torch, cfg)
+    C = DENSE_LEN + n + 1
+
+    def fwd(params, caches, batch):
+        return api.decode_step(params, batch["token"], caches,
+                               batch["cur_pos"], cfg)
+
+    cache = ProgramCache()
+    engine = PredictiveEngine(fwd, store=pd.store, stateful=True, cache=cache)
+    for fn in fns.values():
+        fn.launches = 0
+    state = engine.init_state(lambda p: api.prefill(
+        p, {"tokens": toks[:, :-1]}, cfg, max_len=C)[1])
+    tok, out = toks[:, -1], []
+    for step in range(n):
+        heads, state = engine.step(state, {"token": tok,
+                                           "cur_pos": DENSE_LEN - 1 + step})
+        tok = heads["mean"].argmax(-1).to(torch.int32)
+        out.append(tok)
+    got = read_counts(fns)
+    want = {"paged_decode_attention": 0, "paged_decode_window_attention": 0,
+            "flash_attention": L, "decode_attention": L * n}
+    info = cache.program_info()
+    steps = [p for p in info if p["name"] == "bma_step"]
+    if got != want or len(steps) != 1 or not all(p["graph"] for p in info):
+        raise AssertionError(f"dense steps: launches {got}, want {want}; "
+                             f"programs {info}")
+    add_counts(total, got)
+    last = tok
+
+    def step():
+        engine.step(state, {"token": last, "cur_pos": DENSE_LEN - 1 + n})
+
+    prof = profile_steps(torch, step, n=3, fns=fns)
+    tokens = torch.stack(out, 1).cpu().numpy().tolist()
+    engine.close()
+    del state
+    torch.cuda.empty_cache()
+    return tokens, got, prof
+
+
+def churn_rounds(torch, pd, cfg, reqs, total, serve_kw, check_row=None):
+    """``churn_on`` a service of its own over LC_REQS requests (warmup
+    captures their buckets), closed after."""
+    from repro_torch.runtime import ProgramCache, bucket_size
+    from repro_torch.serve import serve_decode
+    reqs = reqs[:LC_REQS]
+    buckets = sorted({bucket_size(len(p)) for p, _ in reqs})
+    svc = serve_decode(pd, cfg, num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+                       max_active=MAX_ACTIVE, warmup_buckets=buckets,
+                       cache=ProgramCache(), **serve_kw)
+    try:
+        return churn_on(torch, svc, pd, reqs, total, check_row)
+    finally:
+        svc.close()
+
+
+def churn_on(torch, svc, pd, reqs, total, check_row=None):
+    """Rounds of LC_REQS requests on a running service whose buckets were
+    captured at its warmup: a round; ``p_kill`` of the last particle under
+    ``step_lock`` and a round; a jittered ``p_clone`` of the first into the
+    freed slot and a round; the twin's kill and a round. No capture, no
+    generation bump, the pool drained, every program a graph, the served
+    params at fixed addresses; ``check_row(engine, twin)`` runs after the
+    clone. Returns (summary, tokens of the first round, tokens after the
+    kill, tokens after the twin's kill)."""
+    from repro_torch.core.tree import tree_leaves
+    fns = attention_counts()
+    reqs = reqs[:LC_REQS]
+    cache = svc.engine.cache
+    eng = svc.engine
+    first, _ = lc_round(torch, svc, reqs, fns, total)
+    cold, gen = svc.stats()["cold_compiles"], pd.store.generation()
+    served = eng._mask_and_params()[1]
+    ptrs = [x.data_ptr() for x in tree_leaves(served)]
+    out = {"served_gb": tree_gb(served),
+           "masters_gb": pd.store.nbytes("params") / 1e9}
+    pids = pd.particle_ids()
+    t0 = time.perf_counter()
+    with svc.scheduler.step_lock:
+        pd.p_kill(pids[-1])
+    out["kill_ms"] = (time.perf_counter() - t0) * 1e3
+    killed, _ = lc_round(torch, svc, reqs, fns, total)
+    t0 = time.perf_counter()
+    with svc.scheduler.step_lock:
+        twin = pd.p_clone(pids[0], jitter=0.01)
+    out["clone_ms"] = (time.perf_counter() - t0) * 1e3
+    lc_round(torch, svc, reqs, fns, total)
+    if check_row is not None:
+        with svc.scheduler.step_lock:
+            out.update(check_row(eng, twin))
+    with svc.scheduler.step_lock:
+        pd.p_kill(twin)
+    back, _ = lc_round(torch, svc, reqs, fns, total)
+    st = svc.stats()
+    out.update({
+        "captures_after_warmup_and_churn": st["cold_compiles"] - cold,
+        "generation_unchanged": pd.store.generation() == gen,
+        "served_addresses_kept": [x.data_ptr() for x in tree_leaves(
+            eng._mask_and_params()[1])] == ptrs,
+        "pool_pages_used": st["pool"]["used_pages"],
+        "all_graphs": all(p["graph"] for p in cache.program_info())})
+    if "draft_packs" in st["engine"]:
+        out["draft_packs"] = st["engine"]["draft_packs"]
+    if out["captures_after_warmup_and_churn"] or not (
+            out["generation_unchanged"] and out["served_addresses_kept"]
+            and out["all_graphs"]) or out["pool_pages_used"]:
+        raise AssertionError(f"churn under the ladder: {out}")
+    return out, first, killed, back
+
+
+def drafter_kill(torch, svc, pd, reqs, total):
+    """Kill the int8 draft's particle (the first live slot) under
+    ``step_lock`` and serve a round: the draft moves to the next live slot,
+    one more pack is built, nothing is captured, and the draft row is the
+    bf16 dequantization of ``quantize_int8`` of that slot's serve-copy row,
+    bit for bit (held in the config's fp32)."""
+    from repro_torch.core import precision as prec
+    from repro_torch.core.tree import tree_leaves, tree_map
+    eng = svc.engine
+    before = svc.stats()
+    with svc.scheduler.step_lock:
+        pd.p_kill(pd.particle_ids()[0])
+    lc_round(torch, svc, reqs[:LC_REQS], attention_counts(), total)
+    after = svc.stats()
+    with svc.scheduler.step_lock:
+        slot = eng.pick_draft_slot(eng.active_mask())
+        served = eng._mask_and_params()[1]
+        want = prec.quantize_int8(tree_map(lambda a: a[slot:slot + 1],
+                                           served))
+        pack, row = eng._pack[0], eng._pack[1]
+        same_pack = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(pack), tree_leaves(want)))
+        same_row = all(a.dtype == torch.float32 and torch.equal(
+            a, b.float()) for a, b in zip(
+                tree_leaves(row),
+                tree_leaves(prec.dequantize(want, torch.bfloat16))))
+        del want
+    out = {"draft_slot": slot, "pack_equal": same_pack,
+           "row_equal": same_row,
+           "draft_packs": after["engine"]["draft_packs"]
+           - before["engine"]["draft_packs"],
+           "captures": after["cold_compiles"] - before["cold_compiles"]}
+    if not (slot > 0 and same_pack and same_row and out["draft_packs"] == 1
+            and out["captures"] == 0):
+        raise AssertionError(f"the int8 draft after its drafter's kill: "
+                             f"{out}")
+    return out
+
+
+def phase11_mixed(torch, cfg, reqs, card):
+    """(a) full-width qwen1.5-0.5b, 4 particles, precision="mixed"."""
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.core import precision as prec
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache, specs
+    from repro_torch.serve import SpecConfig
+    from repro_torch.serve.engine import sample_heads
+    total = {}
+    torch.cuda.reset_peak_memory_stats()
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    out = {"phase": 11, "part": "a", "model": cfg.name, "precision": "mixed",
+           "particles": PARTICLES, "capacity": PARTICLES, "card": card}
+    with PushDistribution(module, seed=SEED, capacity=PARTICLES,
+                          precision="mixed") as pd:
+        for _ in range(PARTICLES):
+            pd.p_create()
+        masters = pd.store.stacked("params")
+        if not all(x.dtype == torch.float32 for x in tree_leaves(masters)):
+            raise AssertionError("mixed masters are not fp32")
+        runs, tokens = ladder_serving(torch, pd, cfg, reqs, total,
+                                      {"fp32_draft": SPEC_K},
+                                      precision="mixed")
+        copy = prec.cast_for_serve(masters, "mixed")
+        prompts = [p for p, _ in reqs]
+        ties = {"fp32_draft": compare_tokens(
+            torch, pd, cfg, prompts, tokens["fp32_draft"], tokens["plain"],
+            "mixed fp32_draft vs plain", params=copy)}
+        # the dense-cache step against plain paged decode of its prompts
+        dtoks, got, dprof = dense_steps(torch, pd, cfg, total)
+        dreqs = [(p, P11_NEW) for p in dense_prompts(torch, cfg).tolist()]
+        dgens, dst, dgot, _, _, _ = serve_requests(
+            torch, pd, cfg, dreqs, attention_counts(), ProgramCache())
+        plain_launches(dst, dgot, cfg.n_layers, "mixed dense prompts")
+        add_counts(total, dgot)
+        ties["dense"] = compare_tokens(
+            torch, pd, cfg, [p for p, _ in dreqs], dtoks,
+            [g.tokens for g in dgens], "mixed dense vs paged", params=copy)
+        # #5-#8 against their plain versions at this path's fp32 q
+        errs, _ = step_kernel_checks(torch, pd, cfg, copy, prompts,
+                                     NUM_PAGES, FP32_TOLS)
+        out["kernel_vs_plain_max_abs_err"] = errs
+        # the serve cast alone: masters read, the copy written
+        cast_prog = ProgramCache().program(specs.serve_cast("mixed"),
+                                           (masters, copy))
+        n_params = sum(x.numel() for x in tree_leaves(masters))
+        c_ms, c_by = bound(n_params * (4 + 2), 0)
+        out["serve_cast"] = {
+            "graph": cast_prog.graph is not None,
+            "ms": time_ms(torch, lambda: cast_prog(masters, copy), iters=10),
+            "device_ms": device_ms(torch, lambda: cast_prog(masters, copy),
+                                   n=5),
+            "bound_ms": c_ms, "bound_by": c_by,
+            "read_gb": n_params * 4 / 1e9, "write_gb": n_params * 2 / 1e9,
+            "pool_bytes": cast_prog.pool_bytes}
+        del cast_prog
+        # profiled windows: a plain step, the fp32 draft and the int8
+        # draft (4 iterations of slot 0), each a captured program on 8
+        # freshly prefilled rows
+        n_pmax = NUM_PAGES
+        pages = pd.store.checkout("kv_pages")
+        try:
+            _, mask, bt, tok, sl = prefilled_rows(torch, pd, cfg, prompts,
+                                                  n_pmax, pages, params=copy)
+            host = [t.cpu().numpy().astype(np.int32) for t in (tok, sl, bt)]
+            t, s0, b = host
+            step_packed = np.concatenate([t[:, None], s0[:, None], b], 1)
+            draft_packed = np.concatenate(
+                [t[:, None], s0[:, None], np.full_like(s0[:, None], SPEC_K),
+                 b], 1)
+
+            def decode_fn(p, pg, tokens, block_tables, seq_lens):
+                return api.decode_step_paged(p, tokens, pg, block_tables,
+                                             seq_lens, cfg)
+
+            # the int8 draft's operand: slot 0's row packed and dequantized
+            # to bf16, held in the config's fp32, as the engine's
+            # spec_draft_pack program writes it
+            key = prec.get("mixed").key()
+            pack = prec.quantize_int8_like(tree_map(lambda a: a[:1], copy))
+            row = tree_map(lambda a: torch.empty(
+                (1,) + tuple(a.shape[1:]), dtype=torch.float32,
+                device="cuda"), copy)
+            prec.quantize_int8_into(pack, copy, row, dtype=torch.bfloat16,
+                                    take=lambda a: a[:1])
+            windows = {}
+            for name, spec, args in (
+                    ("plain_step", specs.paged_decode_step(
+                        decode_fn, sample_heads), (copy, pages, step_packed,
+                                                   mask)),
+                    ("fp32_draft", specs.spec_draft_step(
+                        decode_fn, slot=0, n_iter=SPEC_K),
+                     (copy, pages, draft_packed)),
+                    ("int8_draft", specs.spec_draft_step(
+                        decode_fn, slot=0, n_iter=SPEC_K, quantized=True),
+                     (row, pages, draft_packed))):
+                prog = ProgramCache().program(
+                    dataclasses.replace(spec, precision=key), args)
+                if prog.graph is None:
+                    raise AssertionError(f"{name} was not captured")
+                windows[name] = dict(profile_steps(
+                    torch, lambda: prog(*args), n=3,
+                    fns=attention_counts()), capture_s=prog.capture_s,
+                    pool_bytes=prog.pool_bytes)
+                del prog
+            for name in ("fp32_draft", "int8_draft"):
+                w = windows[name]
+                if isinstance(w["device_busy_ms"], float):
+                    w["device_ms_per_iteration"] = w["device_busy_ms"] / SPEC_K
+            out["profiles"] = windows
+            del pack, row
+        finally:
+            pd.store.commit("kv_pages", pages)
+        torch.cuda.empty_cache()
+
+        # the int8 draft, last: after its traffic (tokens against plain
+        # while every particle is live), churn on its open service, with
+        # the serve copy at half the masters' bytes and the clone's row the
+        # bf16 cast of its master
+        def check_row(eng, twin):
+            served = eng._mask_and_params()[1]
+            slot = pd.store.slot_of(twin)
+            exact = all(torch.equal(a[slot], b.to(torch.bfloat16))
+                        for a, b in zip(tree_leaves(served),
+                                        tree_leaves(pd.p_params(twin))))
+            if not exact:
+                raise AssertionError("the clone's serve-copy row is not "
+                                     "the bf16 cast of its master")
+            return {"clone_row_is_bf16_cast": exact}
+
+        def hold(svc, gens):
+            ties["int8_draft"] = compare_tokens(
+                torch, pd, cfg, prompts, [g.tokens for g in gens],
+                tokens["plain"], "mixed int8_draft vs plain", params=copy)
+            out["churn"] = churn_on(torch, svc, pd, reqs, total,
+                                    check_row)[0]
+            out["drafter_kill"] = drafter_kill(torch, svc, pd, reqs, total)
+
+        got8, tok8 = ladder_serving(
+            torch, pd, cfg, reqs, total,
+            {"int8_draft": SpecConfig(k_max=SPEC_K, quantized=True)},
+            plain=False, holds={"int8_draft": hold}, precision="mixed")
+        runs.update(got8)
+        churn = out["churn"]
+        if not abs(churn["served_gb"] * 2 - churn["masters_gb"]) \
+                < 1e-6 * churn["masters_gb"]:
+            raise AssertionError(f"serve copy {churn['served_gb']} GB for "
+                                 f"masters of {churn['masters_gb']} GB")
+        out["tokens_vs_plain"] = {k: {"requests_equal": v[0], "tie_gaps": v[1]}
+                                  for k, v in ties.items()}
+        del copy
+        torch.cuda.empty_cache()
+        # every particle on one weight set: the int8 draft's row is a pack
+        # of the very weights verify reads, so it agrees with the BMA but
+        # where int8 rounding flips a near-tie of the greedy argmax (about
+        # 1 token in 10 on these random weights, one scale a channel
+        # across all 24 layers). Verify corrects any draft, so only the
+        # acceptance shows a draft of garbage (~0) or of another particle
+        # (phase 6's distinct particles: ~0.11). The drafter's kill above
+        # holds the row itself to the new slot's pack, bit for bit.
+        first = pd.p_params(pd.particle_ids()[0])
+        with PushDistribution(module, seed=SEED, precision="mixed") as twin:
+            for _ in range(PARTICLES):
+                twin.p_create(params=first)
+            short = [(p, 16) for p, _ in reqs]
+            tg, tst, tgot, twall, _, _ = serve_requests(
+                torch, twin, cfg, short, attention_counts(), ProgramCache(),
+                speculative=SpecConfig(k_max=SPEC_K, quantized=True))
+            add_counts(total, tgot)
+            tss = tst["speculative"]
+            out["shared_weights_int8_draft"] = {
+                "requests": len(tg), "generated_tokens": 16 * len(tg),
+                "tok_per_s": 16 * len(tg) / twall, "steps": tst["steps"],
+                "draft_packs": tst["engine"]["draft_packs"],
+                "speculative": tss}
+            if not tss["acceptance_rate"] >= ACCEPT_INT8:
+                raise AssertionError(f"shared-weight int8-draft acceptance "
+                                     f"{tss}")
+        del first
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    out["tok_per_s"] = {k: r["tok_per_s"] for k, r in runs.items()}
+    out["dense_step"] = {"steps": P11_NEW, "launches": got,
+                         "profile": dprof}
+    out["launches"] = total
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    emit(out)
+    return total
+
+
+def phase11_bf16(torch, cfg, reqs, card):
+    """(b) the same model under ``cfg.replace(dtype="bfloat16")`` and a
+    "bf16" store: #5-#8 take bf16 q over bf16 pages."""
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    cfg = cfg.replace(dtype="bfloat16")
+    total = {}
+    torch.cuda.reset_peak_memory_stats()
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    live = PARTICLES - 1            # a free slot for the clone
+    out = {"phase": 11, "part": "b", "model": cfg.name, "dtype": cfg.dtype,
+           "precision": "bf16", "particles": live, "capacity": PARTICLES,
+           "card": card}
+    with PushDistribution(module, seed=SEED, capacity=PARTICLES,
+                          precision="bf16") as pd:
+        for _ in range(live):
+            pd.p_create()
+        if not all(x.dtype == torch.bfloat16
+                   for x in tree_leaves(pd.store.stacked("params"))):
+            raise AssertionError("bf16 masters are not bf16")
+        out["masters_gb"] = pd.store.nbytes("params") / 1e9
+        runs, tokens = ladder_serving(torch, pd, cfg, reqs, total,
+                                      {"speculative": SPEC_K})
+        prompts = [p for p, _ in reqs]
+        ties = {"speculative": compare_tokens(
+            torch, pd, cfg, prompts, tokens["speculative"], tokens["plain"],
+            "bf16 speculative vs plain", tie=BF16_TIE)}
+        dtoks, got, dprof = dense_steps(torch, pd, cfg, total)
+        dreqs = [(p, P11_NEW) for p in dense_prompts(torch, cfg).tolist()]
+        dgens, dst, dgot, _, _, _ = serve_requests(
+            torch, pd, cfg, dreqs, attention_counts(), ProgramCache())
+        plain_launches(dst, dgot, cfg.n_layers, "bf16 dense prompts")
+        add_counts(total, dgot)
+        ties["dense"] = compare_tokens(
+            torch, pd, cfg, [p for p, _ in dreqs], dtoks,
+            [g.tokens for g in dgens], "bf16 dense vs paged", tie=BF16_TIE)
+        out["tokens_vs_plain"] = {k: {"requests_equal": v[0], "tie_gaps": v[1]}
+                                  for k, v in ties.items()}
+        out["pages_dtype"] = str(tree_leaves(pd.store.stacked(
+            "kv_pages"))[0].dtype)
+        errs, rows = step_kernel_checks(
+            torch, pd, cfg, pd.store.stacked("params"), prompts, NUM_PAGES,
+            dict.fromkeys(FP32_TOLS, BF16_TOL), timed=True)
+        out["kernel_vs_plain_max_abs_err"] = errs
+        out["kernel_rows"] = rows
+        churn, _, killed, back = churn_rounds(torch, pd, cfg, reqs, total, {})
+        if killed != back:
+            raise AssertionError("bf16 tokens changed across a clone/kill "
+                                 "round trip")
+        churn["round_trip_tokens_equal"] = True
+        out["churn"] = churn
+    out["runs"] = runs
+    out["tok_per_s"] = {k: r["tok_per_s"] for k, r in runs.items()}
+    out["dense_step"] = {"steps": P11_NEW, "launches": got, "profile": dprof}
+    out["launches"] = total
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    emit(out)
+    return total, rows
+
+
+def losses_track(got, want, what):
+    """The reference's bar: |mixed - fp32| < 0.1 |fp32| + 0.05 per row."""
+    got, want = np.asarray(got), np.asarray(want)
+    if not np.all(np.abs(got - want) < 0.1 * np.abs(want) + 0.05):
+        raise AssertionError(f"{what} losses {got.tolist()} against fp32 "
+                             f"{want.tolist()}")
+    return float(np.abs(got - want).max())
+
+
+def phase11_training(torch, fp32, card):
+    """(c) 8 full-width ViT-MNIST particles, captured: SteinVGD under
+    "mixed" and MultiSWAG under "bf16" masters, phase 4's epochs and
+    batches, against phase 4's fp32 runs (``fp32``)."""
+    from repro_torch.bdl import MultiSWAG, SteinVGD
+    from repro_torch.bdl.svgd import svgd_force, svgd_step_spec
+    from repro_torch.core.functional import (ensemble_value_and_grad,
+                                             flatten_stacked)
+    from repro_torch.core.tree import to_device, tree_flatten, tree_leaves
+    from repro_torch.data import DataLoader
+    from repro_torch.kernels import ref, swag_moments
+    from repro_torch.optim import adam
+    from repro_torch.runtime import ProgramCache, specs
+    cfg, module = vit_module()
+    P, B, NB = TRAIN_P, TRAIN_B, TRAIN_NB
+    total = {}
+    out = {"phase": 11, "part": "c", "model": cfg.name, "particles": P,
+           "batch": B, "batches_per_epoch": NB, "card": card}
+    batch = to_device(next(iter(DataLoader(cfg, batch_size=B, num_batches=1,
+                                           seed=7))), "cuda")
+
+    # SteinVGD under "mixed": fp32 masters, bf16 forward and backward, the
+    # force on fp32 theta
+    svgd_kw = {"lengthscale": 0.0, "lr": 1e-3}
+    steps = 2 * NB
+    cache = ProgramCache()
+    algo, losses, got, wall, stats, info, _ = train_run(
+        torch, SteinVGD, module, cache, 2, precision="mixed", **svgd_kw)
+    if got["pairwise_sqdist"] != steps or got["svgd_force"] != steps:
+        raise AssertionError(f"mixed SVGD launches {got}")
+    one_program_each("captured", stats, info, ["svgd_step"])
+    add_counts(total, got)
+    store, mask = algo.store, algo.store.active_mask()
+    params = store.stacked("params")
+    if not all(x.dtype == torch.float32 for x in tree_leaves(params)):
+        raise AssertionError("mixed SVGD masters are not fp32")
+    row = {"precision": "mixed", "wall_s": wall, "last_losses": losses,
+           "fp32_last_losses": fp32["svgd"]["last_losses"],
+           "max_abs_loss_diff": losses_track(
+               losses, fp32["svgd"]["last_losses"], "mixed SVGD"),
+           "launches": got, "programs": info}
+    grads = ensemble_value_and_grad(module.loss, torch.bfloat16)(
+        params, batch)[1]
+    theta, g = flatten_stacked(params)[0], flatten_stacked(grads)[0]
+    del grads, params
+    row["force_kernel_vs_plain_rel"] = rel_err(
+        svgd_force(theta, g, 0.0, mask=mask), plain_force(theta, g, 0.0, mask))
+    if not row["force_kernel_vs_plain_rel"] < 2e-4:
+        raise AssertionError(f"mixed SVGD force kernel vs plain: {row}")
+    del theta, g
+    params = store.checkout("params")
+    try:
+        prof = program_window(torch, algo.push_dist.runtime, svgd_step_spec(
+            module.loss, precision="mixed", **svgd_kw), (params, batch, mask))
+    finally:
+        store.commit("params", params)
+    row.update({"step_ms": prof["wall_ms"],
+                "images_per_s": P * B / prof["wall_ms"] * 1e3,
+                "fp32_images_per_s": fp32["svgd"]["images_per_s"],
+                "profile": prof})
+    out["svgd"] = row
+    del algo, store, params, cache, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MultiSWAG under "bf16": bf16 params and Adam state, fp32 moments, a
+    # bf16 ring; #3 on fp32 working copies
+    opt = adam(1e-3)
+    cache = ProgramCache()
+    algo, losses, got, wall, stats, info, _ = train_run(
+        torch, MultiSWAG, module, cache, 3, precision="bf16", optimizer=opt,
+        pretrain_epochs=1, max_rank=20)
+    n_leaves = len(tree_leaves(algo.p_parameters()[0]))
+    if got["swag_moments"] != 2 * n_leaves:
+        raise AssertionError(f"bf16 MultiSWAG launches {got}")
+    one_program_each("captured", stats, info, ["ensemble_step", "map_step"])
+    add_counts(total, got)
+    store, mask = algo.store, algo.store.active_mask()
+    swag = store.stacked("swag")
+    dtypes = {"params": str(tree_leaves(store.stacked("params"))[0].dtype),
+              "adam_m": str(tree_leaves(store.stacked("opt_state")["m"])[0]
+                            .dtype),
+              "swag_mean": str(tree_leaves(swag["mean"])[0].dtype),
+              "swag_ring": str(tree_leaves(swag["dev"])[0].dtype)}
+    if dtypes != {"params": "torch.bfloat16", "adam_m": "torch.bfloat16",
+                  "swag_mean": "torch.float32",
+                  "swag_ring": "torch.bfloat16"}:
+        raise AssertionError(f"bf16 MultiSWAG state dtypes {dtypes}")
+    # #3 at the path's inputs (fp32 moments, widened bf16 theta), the
+    # kernel and the plain version each through moments_via_fp32 onto its
+    # own clone of the bf16 ring
+    means = tree_flatten(swag["mean"], sort_keys=True)[0]
+    sqs, devs, thetas = (tree_flatten(t, sort_keys=True)[0] for t in
+                         (swag["sq_mean"], swag["dev"],
+                          store.stacked("params")))
+    slot = (swag["rank"] % devs[0].shape[1]).to(torch.int32)
+    err = 0.0
+    for m, s, t, d in zip(means, sqs, thetas, devs):
+        rk, rp = d.clone(), d.clone()
+        a = swag_moments.moments_via_fp32(swag_moments.moments, m, s, t,
+                                          swag["n"], mask, rk, slot)
+        b = swag_moments.moments_via_fp32(ref.swag_moments, m, s, t,
+                                          swag["n"], mask, rp, slot)
+        err = max([err] + [float((x.float() - y.float()).abs().max())
+                           for x, y in zip(a + (rk,), b + (rp,))])
+        del rk, rp, a, b
+    if not err <= 1e-5:
+        raise AssertionError(f"bf16 SWAG collection kernel vs plain: {err}")
+    row = {"precision": "bf16", "wall_s": wall, "last_losses": losses,
+           "fp32_last_losses": fp32["multiswag"]["last_losses"],
+           "max_abs_loss_diff": losses_track(
+               losses, fp32["multiswag"]["last_losses"], "bf16 MultiSWAG"),
+           "launches": got, "programs": info, "state_dtypes": dtypes,
+           "state_gb": sum(store.nbytes(k) for k in
+                           ("params", "opt_state", "swag")) / 1e9,
+           "moments_kernel_vs_plain": err}
+    del swag, means, sqs, devs, thetas
+    co = {k: store.checkout(k) for k in ("params", "opt_state")}
+    try:
+        prof = program_window(torch, algo.push_dist.runtime,
+                              specs.ensemble_step(module.loss, opt,
+                                                  precision="bf16"),
+                              (co["params"], co["opt_state"], batch, mask))
+    finally:
+        for k in co:
+            store.commit(k, co[k])
+    row.update({"step_ms": prof["wall_ms"],
+                "images_per_s": P * B / prof["wall_ms"] * 1e3,
+                "fp32_images_per_s": fp32["multiswag"]["images_per_s"],
+                "profile": prof,
+                "peak_gb": torch.cuda.max_memory_allocated() / 2**30})
+    out["multiswag"] = row
+    out["master_cast_bound_ms"] = bound(P * TRAIN_D * (4 + 2), 0)[0]
+    out["launches"] = total
+    emit(out)
+    del algo, store, co, cache, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def flush_bounds(B, members, weight_bytes):
+    """One flush of B rows under a bf16 policy: the members' weights read
+    once (``weight_bytes`` an element: 2 for bf16, 1 for int8 packs), and
+    2 x params x tokens x members x B operations at the bf16 rate."""
+    nbytes = members * TRAIN_D * weight_bytes
+    flops = 2 * TRAIN_D * SERVE_TOKENS * members * B
+    ms, by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return {"bound_ms": ms, "bound_by": by,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "flops_bound_ms": flops / BF16_FLOPS_PER_S * 1e3}
+
+
+def phase11_predictive(torch, fp32, card):
+    """(d) phase 10's MultiSWAG posterior (32 members) served under
+    "mixed" and "mixed_int8", against the fp32 service's heads and phase
+    10's fp32 figures (``fp32``); then the store's own params under
+    "mixed_int8" with a p_kill under traffic."""
+    import threading
+    from repro_torch.bdl import MultiSWAG
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import DataLoader, mnist_like
+    from repro_torch.optim import adam
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import serve
+    cfg, module = vit_module()
+    P, S = TRAIN_P, SERVE_S
+    members = P * S
+    total = {}
+    out = {"phase": 11, "part": "d", "model": cfg.name, "particles": P,
+           "members": members, "card": card}
+    torch.cuda.reset_peak_memory_stats()
+    algo = MultiSWAG(module, seed=SEED, backend="compiled")
+    algo.push_dist.runtime.cache = ProgramCache()
+    loader = DataLoader(cfg, batch_size=TRAIN_B, num_batches=SERVE_NB,
+                        seed=SEED)
+    fns = reset_counts()
+    _, losses = algo.bayes_infer(loader, 3, num_particles=P,
+                                 optimizer=adam(1e-3), pretrain_epochs=1,
+                                 max_rank=20)
+    add_counts(total, read_counts(fns))
+    n_leaves = len(tree_leaves(algo.p_parameters()[0]))
+    images = mnist_like(np.random.default_rng(11), SERVE_N,
+                        cfg.vocab_size)["images"]
+    reqs = [{"images": im} for im in images]
+    with algo.posterior_predictive(samples_per_particle=S,
+                                   max_batch=SERVE_MAX_BATCH,
+                                   warmup=False) as svc:
+        want = svc.predict_batch({"images": images})
+    out["diag_std"] = diag_std_serving_shapes(torch, algo.store.dense("swag"))
+    for policy, tol, wbytes in (("mixed", 0.03, 2), ("mixed_int8", 0.06, 1)):
+        fns = reset_counts()
+        svc = algo.posterior_predictive(
+            samples_per_particle=S, max_batch=SERVE_MAX_BATCH,
+            max_wait_ms=SERVE_WAIT_MS, warmup=reqs[0], precision=policy)
+        got = read_counts(fns)
+        add_counts(total, got)
+        if got["swag_diag_std"] != n_leaves:
+            raise AssertionError(f"{policy} handoff launches {got}")
+        try:
+            cache = svc.engine.cache
+            tree = svc.engine._static_params
+            row = {"static_tree_gb": tree_gb(tree),
+                   "leaf_dtypes": sorted({str(x.dtype)
+                                          for x in tree_leaves(tree)})}
+            del tree
+            warm = cache.snapshot_stats()
+            info = cache.program_info()
+            row["warmup"] = {"programs": len(info), "by_bucket": [
+                {"bucket": 2**i, "graph": p["graph"],
+                 "capture_s": p["capture_s"], "pool_bytes": p["pool_bytes"]}
+                for i, p in enumerate(info)],
+                "pool_bytes_total": sum(p["pool_bytes"] for p in info)}
+            if len(info) != 6 or not all(p["graph"] for p in info):
+                raise AssertionError(f"{policy} warmup programs {info}")
+            conc, row["concurrent"] = serve_traffic(svc, reqs, SERVE_CLIENTS)
+            closed, row["closed_loop"] = serve_traffic(svc, reqs, 0)
+            extra = cache.snapshot_stats()["cold_compiles"] \
+                - warm["cold_compiles"]
+            if extra:
+                raise AssertionError(f"{policy}: {extra} captures after "
+                                     f"warmup")
+            row["profile"] = {}
+            for B in (1, SERVE_MAX_BATCH):
+                fp = flush_profile(torch, svc, reqs, B, members)
+                row["profile"][f"bucket_{B}"] = dict(
+                    {k: fp[k] for k in ("rows", "host_ms", "device_busy_ms",
+                                        "idle_share", "top_kernels_ms")},
+                    **flush_bounds(B, members, wbytes))
+            heads = svc.predict_batch({"images": images})
+            row["served_vs_predict_batch"] = max(
+                served_vs_batch(conc, heads), served_vs_batch(closed, heads))
+            row["mean_vs_fp32"] = float((heads["mean"]
+                                         - want["mean"]).abs().max())
+            row["heads_vs_fp32"] = {k: float((heads[k] - want[k]).abs().max())
+                                    for k in HEADS}
+            row["tolerance"] = tol
+            if not row["served_vs_predict_batch"] <= BF16_SERVED_TOL \
+                    or not row["mean_vs_fp32"] < tol:
+                raise AssertionError(f"{policy} heads: {row}")
+        finally:
+            svc.close()
+        out[policy] = row
+        del cache, heads, conc, closed
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["fp32_phase10"] = {
+        "concurrent": {k: fp32["concurrent"][k] for k in (
+            "requests_per_s", "latency_p50_ms", "latency_p95_ms",
+            "latency_p99_ms")},
+        "closed_loop": {k: fp32["closed_loop"][k] for k in (
+            "requests_per_s", "latency_p50_ms", "latency_p95_ms",
+            "latency_p99_ms")},
+        "profile": {b: {k: fp32["profile"][b][k] for k in (
+            "host_ms", "device_busy_ms", "bound_ms", "bound_by")}
+            for b in fp32["profile"]}}
+
+    # the store's own params under "mixed_int8": the serve copy refreshed
+    # by the serve_cast program, a p_kill under traffic captures nothing
+    pd = algo.push_dist
+    with serve(algo, max_batch=8, max_wait_ms=SERVE_WAIT_MS, warmup=reqs[0],
+               precision="mixed_int8") as ssvc:
+        eng = ssvc.engine
+        cold = eng.cache.snapshot_stats()["cold_compiles"]
+        gen = pd.store.generation()
+        ptrs = [x.data_ptr() for x in tree_leaves(eng._mask_and_params()[1])]
+        handles = []
+
+        def client():
+            for r in reqs[:128]:
+                handles.append(ssvc.predict_async(r))
+
+        t = threading.Thread(target=client)
+        t.start()
+        while len(handles) < 64 and t.is_alive():
+            time.sleep(0.0005)
+        pd.p_kill(pd.particle_ids()[-1])
+        t.join(120.0)
+        for h in handles:
+            h.result(120.0)
+        st = ssvc.stats()
+        row = {"live": pd.store.live_count(),
+               "captures_after_warmup_and_kill":
+                   st["engine"]["program_cache"]["cold_compiles"] - cold,
+               "generation_unchanged": pd.store.generation() == gen,
+               "serve_copy_addresses_kept": [
+                   x.data_ptr() for x in tree_leaves(
+                       eng._mask_and_params()[1])] == ptrs,
+               "serve_casts": sum(p["name"] == "serve_cast"
+                                  for p in eng.cache.program_info()),
+               "errors": st["errors"], "requests": st["requests"]}
+        if row["captures_after_warmup_and_kill"] or not (
+                row["generation_unchanged"]
+                and row["serve_copy_addresses_kept"]) or row["errors"] \
+                or row["serve_casts"] != 1:
+            raise AssertionError(f"mixed_int8 store serving under churn: "
+                                 f"{row}")
+    out["store_serving"] = row
+    out["launches"] = total
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    emit(out)
+    algo.cleanup()
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase11(torch, cfg, reqs, fp32_train, fp32_predictive, card):
+    """The precision ladder on the card (module doc). Returns each
+    kernel's launches over phase 11's driven runs and the bf16 timed rows
+    of #5-#8."""
+    t0 = time.perf_counter()
+    total, walls = {}, {}
+    add_counts(total, phase11_mixed(torch, cfg, reqs, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls["a"] = time.perf_counter() - t0
+    got, bf16_rows = phase11_bf16(torch, cfg, reqs, card)
+    add_counts(total, got)
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls["b"] = time.perf_counter() - t0 - sum(walls.values())
+    add_counts(total, phase11_training(torch, fp32_train, card))
+    walls["c"] = time.perf_counter() - t0 - sum(walls.values())
+    add_counts(total, phase11_predictive(torch, fp32_predictive, card))
+    walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+    missing = [k for k, fn in reset_counts().items() if not total.get(k)]
+    if missing:
+        raise AssertionError(f"phase 11 never launched {missing}")
+    emit({"phase": 11, "part": "end", "launches": total,
+          "wall_s": time.perf_counter() - t0, "wall_s_by_part": walls,
+          "card": card})
+    return total, bf16_rows
 
 
 def main():
@@ -3497,16 +4599,24 @@ def main():
     lc_launches = phase9(torch, cfg, reqs)
     gc.collect()
     torch.cuda.empty_cache()
-    serve_launches, diag_std_p1 = phase10(torch)
+    serve_launches, diag_std_p1, fp32_predictive = phase10(torch)
     rows["swag_diag_std"]["serving_p1"] = diag_std_p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = smi.stdout.strip().splitlines()[0]
+    precision_launches, bf16_rows = phase11(torch, cfg, reqs, captured,
+                                            fp32_predictive, card)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
         row["lifecycle_launches"] = lc_launches.get(name, 0)
         row["serve_launches"] = serve_launches.get(name, 0)
+        row["precision_launches"] = precision_launches.get(name, 0)
+        if name in bf16_rows:
+            row["bf16"] = bf16_rows[name]
     rows = list(rows.values())
     emit({"kernels": rows})
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -101,13 +101,17 @@ def rbf_glue(sq, lengthscale: float, mask=None):
             (1.0 / (ell * ell)).reshape(1))
 
 
-def fused_svgd_step(loss_fn, *, lr: float, lengthscale: float = 1.0):
+def fused_svgd_step(loss_fn, *, lr: float, lengthscale: float = 1.0,
+                    compute_dtype=None):
     """One SVGD step over stacked particles: ``step(stacked_params, batch,
     mask=None) -> (stacked_params, losses)``. The params flatten to the
     (n, D) matrix in ``ravel_pytree``'s column order; each leaf takes its
     columns of the update in place, so the caller's own tree comes back.
-    Dead slots stay bit-for-bit frozen and report loss 0.0."""
-    vag = functional.ensemble_value_and_grad(loss_fn)
+    Dead slots stay bit-for-bit frozen and report loss 0.0.
+    ``compute_dtype``: the backward pass runs on a cast of the params and
+    the batch (``functional.ensemble_value_and_grad``); the kernel force
+    is fp32 either way, and the update lands in the masters' dtype."""
+    vag = functional.ensemble_value_and_grad(loss_fn, compute_dtype)
 
     def step(stacked_params, batch, mask=None):
         losses, grads = vag(stacked_params, batch)
@@ -131,16 +135,20 @@ def svgd_step_spec(loss_fn, *, lr: float, lengthscale: float = 1.0,
                    precision=None) -> ProgramSpec:
     """The fused SVGD step as a ``ProgramSpec``: ``fused(stacked_params,
     batch, mask) -> (stacked_params, losses)``, the params updated in
-    place (the reference donates them). Only the fp32 preset is ported:
-    any other ``precision`` raises."""
-    precision_mod.get(precision)
+    place (the reference donates them). ``precision`` selects the compute
+    dtype of the backward pass (``fused_svgd_step``); a spec that casts
+    carries ``Precision.key()``, the fp32 spec None."""
+    prec = precision_mod.get(precision)
+    cd = prec.compute if prec.casts_compute else None
     return ProgramSpec(
         name="svgd_step",
         key=("svgd_step", ident(loss_fn), float(lr), float(lengthscale)),
         make=lambda ctx: fused_svgd_step(loss_fn, lr=lr,
-                                         lengthscale=lengthscale),
+                                         lengthscale=lengthscale,
+                                         compute_dtype=cd),
         in_kinds=("state", "replicated", "vector"),
-        out_kinds=("in:0", "vector"))
+        out_kinds=("in:0", "vector"),
+        precision=prec.key() if prec.casts_compute else None)
 
 
 # ---------------------------------------------------------------------------

@@ -44,13 +44,21 @@ from ..runtime import specs
 from .infer import Infer
 
 
+def _moment_zeros(p):
+    return torch.zeros_like(p, dtype=torch.float32)
+
+
 def swag_state_init(params, max_rank: int = 20):
-    """One particle's SWAG state (zero moments, an empty ring)."""
+    """One particle's SWAG state (zero moments, an empty ring). The moments
+    are fp32 whatever the params' dtype, the ring follows the params: the
+    reference's state takes the same dtypes at its first collection (its
+    bf16 params times its fp32 count give fp32 moments), and the port's
+    in-place collection cannot change a dtype."""
     dev = tree_leaves(params)[0].device
     return {
         "n": torch.zeros((), dtype=torch.float32, device=dev),
-        "mean": tree_map(torch.zeros_like, params),
-        "sq_mean": tree_map(torch.zeros_like, params),
+        "mean": tree_map(_moment_zeros, params),
+        "sq_mean": tree_map(_moment_zeros, params),
         "dev": tree_map(lambda p: p.new_zeros((max_rank,) + tuple(p.shape)),
                         params),
         "rank": torch.zeros((), dtype=torch.int32, device=dev),
@@ -102,8 +110,8 @@ def _sample(stacked_state, z1, z2, scale: float, diag_std=_kops.diag_std):
         lead = (P,) + (1,) * (z.dim() - 1)
         diag = diag_std(m.contiguous(), s.contiguous())[:, None] * z \
             / math.sqrt(2.0)
-        lowrank = torch.bmm(zw, d.reshape(P, max_rank, -1)).reshape(
-            z.shape) / lr_scale.reshape(lead)
+        lowrank = torch.bmm(zw.to(d.dtype), d.reshape(P, max_rank, -1)
+                            ).reshape(z.shape) / lr_scale.reshape(lead)
         sample = m[:, None] + scale * (diag + lowrank).to(m.dtype)
         out.append(sample.reshape((P * S,) + tuple(m.shape[1:])))
     return unflatten(out)

@@ -17,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from .precision import cast_floats
 from .tree import tree_flatten, tree_map
 
 
@@ -88,7 +89,7 @@ def masked_mean(tree, mask):
                                           o, 0.0).sum(0) / live, tree)
 
 
-def ensemble_value_and_grad(loss_fn: Callable):
+def ensemble_value_and_grad(loss_fn: Callable, compute_dtype=None):
     """``f(stacked_params, batch) -> (losses (P,), grads)``: every
     particle sees the same batch.
 
@@ -96,20 +97,33 @@ def ensemble_value_and_grad(loss_fn: Callable):
     forward over the explicit particle axis; one backward of
     ``losses.sum()`` then gives each particle's gradient. Particles share
     no parameters, so d(sum)/d(theta_i) = d(loss_i)/d(theta_i): this is
-    the reference's ``vmap(value_and_grad)``."""
+    the reference's ``vmap(value_and_grad)``.
+
+    ``compute_dtype`` is the master/compute split (``core.precision``):
+    the forward and backward run on a cast of the params and of the
+    batch's floating leaves; autograd through the cast hands each
+    gradient back in its master's dtype (the compute-dtype gradient,
+    widened: the reference's ``g.astype(p.dtype)``), and the losses come
+    back in fp32."""
 
     def f(stacked_params, batch):
         leaves, unflatten = tree_flatten(stacked_params)
         with torch.enable_grad():
             req = [x.detach().requires_grad_(True) for x in leaves]
-            losses, _ = loss_fn(unflatten(req), batch)
+            params = unflatten(req)
+            if compute_dtype is not None:
+                params = cast_floats(params, compute_dtype)
+                batch = cast_floats(batch, compute_dtype)
+            losses, _ = loss_fn(params, batch)
             grads = torch.autograd.grad(losses.sum(), req)
+        if compute_dtype is not None:
+            losses = losses.float()
         return losses.detach(), unflatten(list(grads))
 
     return f
 
 
-def ensemble_step(loss_fn: Callable, optimizer):
+def ensemble_step(loss_fn: Callable, optimizer, compute_dtype=None):
     """One train step for all particles: grads + optimizer update, written
     into the caller's param and optimizer-state leaves in place (a
     captured step replays on fixed addresses).
@@ -117,8 +131,10 @@ def ensemble_step(loss_fn: Callable, optimizer):
     ``mask=None`` is the dense form; with a (capacity,) active mask, dead
     slots keep their params/opt state bit-for-bit (frozen padding rows)
     and report loss 0.0. Returns ``(stacked_params, stacked_opt_state,
-    losses)``, the first two the caller's own trees."""
-    vag = ensemble_value_and_grad(loss_fn)
+    losses)``, the first two the caller's own trees. ``compute_dtype``:
+    the grads come from ``ensemble_value_and_grad``'s cast, and the
+    optimizer updates the masters in their own dtype."""
+    vag = ensemble_value_and_grad(loss_fn, compute_dtype)
 
     def step(stacked_params, stacked_opt_state, batch, mask=None):
         losses, grads = vag(stacked_params, batch)

@@ -50,12 +50,19 @@ class ParticleModule:
         self.loss = loss
         self.forward = forward
         self.cfg = cfg
-        self._vag = None if loss is None else ensemble_value_and_grad(loss)
+        self._vags: Dict[Any, Callable] = {}
 
-    def _value_and_grad(self, params, batch):
+    def _value_and_grad(self, params, batch, compute_dtype=None):
         """(0-d loss, grads) of one particle (the fused path's
-        ``ensemble_value_and_grad`` over one row)."""
-        losses, grads = self._vag(_one_row(params), batch)
+        ``ensemble_value_and_grad`` over one row); ``compute_dtype`` is
+        the master/compute split of the fused step: the loss and grads
+        are computed on a cast of the params and the batch's floats, the
+        grads come back in the params' dtype and the loss in fp32."""
+        vag = self._vags.get(compute_dtype)
+        if vag is None:
+            vag = self._vags[compute_dtype] = ensemble_value_and_grad(
+                self.loss, compute_dtype)
+        losses, grads = vag(_one_row(params), batch)
         return losses[0], tree_map(lambda g: g[0], grads)
 
     def _forward(self, params, batch):
@@ -78,15 +85,19 @@ class Particle:
     store's mask with that key), then ``"opt_state"``
     (``optimizer.init(params)``, or None), ``"grads"`` (None until a step)
     and the ``state`` keys. ``write_state=False`` attaches to state
-    already in the store (``p_clone``'s slot copy)."""
+    already in the store (``p_clone``'s slot copy). ``compute_dtype``
+    (None: the params' own) is the dtype its ``step`` and ``grad`` hops
+    compute in."""
 
     def __init__(self, pid: int, nel, module: ParticleModule,
                  store: ParticleStore, optimizer=None, params=None,
-                 state: Optional[dict] = None, write_state: bool = True):
+                 state: Optional[dict] = None, write_state: bool = True,
+                 compute_dtype=None):
         self.pid = pid
         self.nel = nel
         self.module = module
         self.optimizer = optimizer
+        self.compute_dtype = compute_dtype
         self.store = store
         self.state: StoreState = StoreState(store, pid)
         self.receive: Dict[str, Callable] = {}
@@ -146,7 +157,7 @@ class Particle:
 
         def do(_self):
             loss, grads = _self.module._value_and_grad(
-                _self.state["params"], batch)
+                _self.state["params"], batch, _self.compute_dtype)
             _self.state["grads"] = grads
             if _self.optimizer is not None:
                 p, s = _self.optimizer.update(_self.state["params"], grads,
@@ -161,7 +172,7 @@ class Particle:
 
         def do(_self):
             loss, grads = _self.module._value_and_grad(
-                _self.state["params"], batch)
+                _self.state["params"], batch, _self.compute_dtype)
             _self.state["grads"] = grads
             return loss
 

@@ -31,6 +31,7 @@ from ..runtime.backends import BACKENDS, make_runtime
 from .messages import PFuture
 from .nel import NodeEventLoop
 from .particle import Particle, ParticleModule
+from .precision import cast_floats
 from .precision import get as resolve_precision
 from .store import ParticleStore
 
@@ -47,6 +48,10 @@ class PushDistribution:
             raise ValueError(
                 f"backend must be one of {BACKENDS}, got {backend!r}")
         self.module = module
+        # the precision ladder: explicit argument > module config > fp32.
+        # It decides the store's master dtype (params are cast once, at
+        # creation), the compute dtype of the train steps and the serve
+        # copy (core.precision)
         if precision is None:
             precision = getattr(getattr(module, "cfg", None), "precision",
                                 None)
@@ -78,15 +83,21 @@ class PushDistribution:
         """Create one particle: a fresh init from the PD's generator, or the
         given ``params`` tree (moved to the store's device), on NEL device
         ``device`` (round-robin when None), with message handlers
-        ``receive``. Writes ``"params"`` first (the slot goes live in the
-        mask with it), then ``"opt_state"`` (``optimizer.init(params)``, or
-        None), ``"grads"`` (None until a step) and the ``state`` keys."""
+        ``receive``. The params are cast to the policy's master dtype
+        first, so the optimizer state follows it. Writes ``"params"``
+        first (the slot goes live in the mask with it), then
+        ``"opt_state"`` (``optimizer.init(params)``, or None), ``"grads"``
+        (None until a step) and the ``state`` keys. The particle's hops
+        compute in the policy's compute dtype."""
         if params is None:
             params = self.module.init(self._gen)
+        params = cast_floats(params, self.precision.master)
         pid = self.nel.register(None, device=device)
         self.store.register(pid)
         p = Particle(pid, self.nel, self.module, self.store, optimizer,
-                     params=params, state=state)
+                     params=params, state=state,
+                     compute_dtype=self.precision.compute
+                     if self.precision.casts_compute else None)
         for msg, fn in (receive or {}).items():
             p.on(msg, fn)
         self.nel._particles[pid] = p
@@ -121,7 +132,8 @@ class PushDistribution:
             self.store.unregister(new_pid)
             raise
         p = Particle(new_pid, self.nel, self.module, self.store,
-                     src.optimizer, write_state=False)
+                     src.optimizer, write_state=False,
+                     compute_dtype=src.compute_dtype)
         p.receive = dict(src.receive)
         self.nel._particles[new_pid] = p
         self.particles[new_pid] = p

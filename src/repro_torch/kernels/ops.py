@@ -4,6 +4,8 @@ CUDA tensor never falls back to the plain version, and any other device
 raises."""
 from __future__ import annotations
 
+import torch
+
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import paged_decode_attention as _paged
@@ -77,8 +79,13 @@ def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
 def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
                  out_mean=None, out_sq=None):
     """Stacked SWAG moment update (+ the deviation-ring write, in place);
-    ``out_mean=mean, out_sq=sq`` updates the moments in place too."""
+    ``out_mean=mean, out_sq=sq`` updates the moments in place too. Params
+    of another dtype than fp32 (bf16 masters) go through
+    ``swag_moments.moments_via_fp32``."""
     fn = _route(mean, _swag.moments, ref.swag_moments, "swag_moments")
+    if theta.dtype != torch.float32:
+        return _swag.moments_via_fp32(fn, mean, sq, theta, n, mask, dev,
+                                      slot, out_mean, out_sq)
     return fn(mean, sq, theta, n, mask, dev, slot, out_mean, out_sq)
 
 

@@ -18,6 +18,13 @@ rows, one leaf at a time (no flatten copy):
 The wrappers take CUDA tensors only and raise on anything else; the CPU
 goes through ``kernels.ops`` to the plain versions in ``kernels.ref``.
 ``<wrapper>.launches`` counts the wrapper's launches in this process.
+
+The kernels are fp32 only. Under bf16 masters the SWAG moments stay fp32
+and the params and the deviation ring are bf16 (``bdl.swag``);
+``kernels.ops`` then runs the moments kernel (or its plain version) on
+the params widened to fp32 through ``moments_via_fp32``, as the
+reference's ``update_moments`` widens its inputs, and writes the ring
+there.
 """
 from __future__ import annotations
 
@@ -108,3 +115,26 @@ def diag_std(mean, sq):
 
 moments.launches = 0
 diag_std.launches = 0
+
+
+def moments_via_fp32(fn, mean, sq, theta, n, mask=None, dev=None, slot=None,
+                     out_mean=None, out_sq=None):
+    """``moments`` under bf16 masters: the moments are fp32
+    (``bdl.swag.swag_state_init``), theta and the deviation ring are not.
+    ``fn`` (the kernel or its plain version) runs on theta widened to
+    fp32, and a live row's deviation lands in ``dev[p, slot[p]]`` here,
+    as ``theta - mean'`` in fp32 cast to the ring's dtype (the
+    reference's ``(p - m).astype(d.dtype)`` with its fp32 moments); dead
+    rows keep their ring slot bit for bit."""
+    theta = theta.float()
+    new_mean, new_sq = fn(mean, sq, theta, n, mask, None, None, out_mean,
+                          out_sq)
+    if dev is not None:
+        rows = torch.arange(mean.shape[0], device=mean.device)
+        idx = slot.long()
+        deviation = (theta - new_mean).to(dev.dtype)
+        if mask is not None:
+            live = (mask > 0).reshape((-1,) + (1,) * (mean.dim() - 1))
+            deviation = torch.where(live, deviation, dev[rows, idx])
+        dev[rows, idx] = deviation
+    return new_mean, new_sq

@@ -17,6 +17,7 @@ from typing import Any, Dict
 
 import torch
 
+from ..core.precision import tree_bytes
 from ..runtime.program import host_check
 from .blocks import (dense_init, norm_apply, norm_init, paged_write_index,
                      prefill_write_index, window_write_index)
@@ -67,6 +68,17 @@ def loss_fn(params, batch, cfg):
     return loss, {"loss": loss, "acc": acc}
 
 
+def param_footprint(cfg, precision=None) -> int:
+    """One particle's parameter bytes under a precision policy: floating
+    leaves at the policy's master itemsize (``core.precision.tree_bytes``),
+    from an init traced under a fake-tensor mode (shapes only: no memory,
+    no random numbers drawn)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = init_params(torch.Generator(), cfg)
+    return tree_bytes(tree, precision)
+
+
 def _dtype(cfg):
     return getattr(torch, cfg.dtype)
 
@@ -76,8 +88,10 @@ def _cache_dtype(cfg):
 
 
 def _embed(params, tokens, dtype):
-    """tokens (B, S) -> (P, B, S, D)."""
-    return params["embed"].to(dtype)[:, tokens.long()]
+    """tokens (B, S) -> (P, B, S, D): the rows are gathered, then cast (the
+    same values as casting the table first, without writing a cast copy
+    of the whole table when it is stored in another dtype)."""
+    return params["embed"][:, tokens.long()].to(dtype)
 
 
 def _lm_logits(params, x, cfg):

@@ -83,8 +83,14 @@ def _per_particle(v, x):
 
 
 def dense_apply(p, x):
-    """x (P, ..., d_in) @ w (P, d_in, d_out) [+ b (P, d_out)]."""
-    w = p["w"].to(x.dtype)
+    """x (P, ..., d_in) @ w (P, d_in, d_out) [+ b (P, d_out)]. The weight
+    is widened (or narrowed) to the activation's dtype; an int8 serve pack
+    ``{"q", "s"}`` (``core.precision.quantize_int8``) expands to ``q * s``
+    in fp32 first, so a packed tree runs through the model as it is."""
+    w = p["w"]
+    if isinstance(w, dict):
+        w = w["q"] * w["s"]
+    w = w.to(x.dtype)
     P, d_in = x.shape[0], x.shape[-1]
     x3 = x.reshape(P, -1, d_in)
     if "b" in p:

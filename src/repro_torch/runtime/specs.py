@@ -40,15 +40,24 @@ def ensemble_step(loss_fn: Callable, optimizer,
     """One train step for all particles: ``fused(stacked_params,
     stacked_opt_state, batch, mask) -> (stacked_params, stacked_opt_state,
     losses)``, the params and optimizer state updated in place (the
-    reference donates them). Only the fp32 preset is ported: any other
-    ``precision`` raises."""
-    precision_mod.get(precision)
+    reference donates them).
+
+    ``precision`` (None, a preset name or a ``Precision``) selects the
+    master/compute split: when the compute dtype differs from the
+    masters', the body casts the masters and the batch's floats to it,
+    the grads come back in the masters' dtype and the update applies to
+    the masters (``core.functional.ensemble_step``). Such a spec carries
+    ``Precision.key()`` (the cache keys on it); the fp32 spec carries
+    None, as the reference's does."""
+    prec = precision_mod.get(precision)
+    cd = prec.compute if prec.casts_compute else None
     return ProgramSpec(
         name="ensemble_step",
         key=("ensemble_step", ident(loss_fn), ident(optimizer)),
-        make=lambda ctx: functional.ensemble_step(loss_fn, optimizer),
+        make=lambda ctx: functional.ensemble_step(loss_fn, optimizer, cd),
         in_kinds=("state", "state", "replicated", "vector"),
-        out_kinds=("in:0", "in:1", "vector"))
+        out_kinds=("in:0", "in:1", "vector"),
+        precision=prec.key() if prec.casts_compute else None)
 
 
 def ensemble_predict(forward: Callable) -> ProgramSpec:
@@ -131,7 +140,7 @@ def paged_prefill(prefill_fn: Callable, reduce_fn: Callable, *,
 
 
 def spec_draft_step(decode_fn: Callable, *, slot: int, n_iter: int,
-                    key: Tuple = ()) -> ProgramSpec:
+                    key: Tuple = (), quantized: bool = False) -> ProgramSpec:
     """Draft tokens from ONE particle: ``fused(stacked_params, pages,
     packed) -> (drafts (B, n_iter) int32, pages)``.
 
@@ -148,13 +157,19 @@ def spec_draft_step(decode_fn: Callable, *, slot: int, n_iter: int,
     token, ``[:, 1]`` its position (-1 = inactive row), ``[:, 2]`` the
     row's draft length k, ``[:, 3:]`` block tables; row i stops writing
     after its own k. Entries of ``drafts`` past a row's k are garbage the
-    host ignores."""
+    host ignores.
+
+    ``quantized=True``: the first operand is the draft row itself, leading
+    axis 1: the int8 pack of the draft particle's row, dequantized
+    (``spec_draft_pack``); the pages are still read through the slot's
+    view."""
     def make(ctx):
         def fused(stacked_params, pages, packed):
             tok, sl = packed[:, 0], packed[:, 1]
             k_lens, bt = packed[:, 2], packed[:, 3:]
             row = slice(slot, slot + 1)
-            params_row = tree_map(lambda a: a[row], stacked_params)
+            params_row = stacked_params if quantized else tree_map(
+                lambda a: a[row], stacked_params)
             pages_row = tree_map(lambda a: a[row], pages)
             drafts = []
             for j in range(n_iter):
@@ -173,9 +188,36 @@ def spec_draft_step(decode_fn: Callable, *, slot: int, n_iter: int,
 
     return ProgramSpec(
         name="spec_draft_step",
-        key=("spec_draft_step", slot, n_iter) + tuple(key), make=make,
+        key=("spec_draft_step", slot, n_iter) + (("quantized",) if quantized
+                                                  else ()) + tuple(key),
+        make=make,
         in_kinds=("state", "state", "replicated"),
         out_kinds=("replicated", "in:1"))
+
+
+def spec_draft_pack(dtype) -> ProgramSpec:
+    """The int8 draft's pack: ``fused(stacked_params, pack, row, slot) ->
+    (pack, row)`` writes ``precision.quantize_int8`` of particle
+    ``slot``'s row (leading axis 1) into ``pack`` and its dequantization
+    to ``dtype`` into ``row``, held in the row buffer's dtype, both in
+    place (``precision.quantize_int8_into``). ``slot`` is a copied scalar,
+    so one program serves every slot; the row is gathered one leaf at a
+    time."""
+    def make(ctx):
+        def fused(stacked_params, pack, row, slot):
+            idx = torch.as_tensor(slot).reshape(1).long()
+            precision_mod.quantize_int8_into(
+                pack, stacked_params, row, dtype=dtype,
+                take=lambda a: a.index_select(0, idx))
+            return pack, row
+
+        return fused
+
+    return ProgramSpec(
+        name="spec_draft_pack",
+        key=("spec_draft_pack", precision_mod.dtype_name(dtype)), make=make,
+        in_kinds=("state", "state", "state", "replicated"),
+        out_kinds=("in:1", "in:2"))
 
 
 def spec_verify(verify_fn: Callable, reduce_fn: Callable, *, w_max: int,
@@ -215,8 +257,38 @@ def spec_verify(verify_fn: Callable, reduce_fn: Callable, *, w_max: int,
         out_kinds=("replicated", "in:1"))
 
 
+def _serving(prec):
+    """The policy a serving spec casts under: None for one that does not
+    (the fp32 default), whose spec then carries no precision token."""
+    prec = precision_mod.get(prec)
+    return prec if prec.casts_serve else None
+
+
+def served(forward: Callable, prec) -> Callable:
+    """``forward(stacked_params, *rest)`` under a serving policy: the served
+    copy's int8 packs expand and every float leaf goes to the serve dtype
+    at the top (``precision.dequantize``), as do the floats of the LAST
+    argument (the batch), and the member outputs come back in fp32, so
+    the heads reduce in fp32 whatever the members computed in. ``prec``
+    None: ``forward`` itself."""
+    if prec is None:
+        return forward
+
+    def fwd(stacked_params, *rest):
+        stacked_params = precision_mod.dequantize(stacked_params, prec.serve)
+        rest = rest[:-1] + (precision_mod.cast_floats(rest[-1],
+                                                      prec.serve),)
+        out = forward(stacked_params, *rest)
+        if isinstance(out, tuple):          # (member outputs, state)
+            return (precision_mod.cast_floats(out[0], torch.float32),
+                    ) + out[1:]
+        return precision_mod.cast_floats(out, torch.float32)
+
+    return fwd
+
+
 def bma_step(forward: Callable, reduce_fn: Callable, *,
-             key: Tuple = ()) -> ProgramSpec:
+             key: Tuple = (), precision=None) -> ProgramSpec:
     """One stateful serving step (dense-cache LM decode): ``fused(
     stacked_params, state, batch, mask) -> (heads, state)``.
 
@@ -224,10 +296,15 @@ def bma_step(forward: Callable, reduce_fn: Callable, *,
     updates the per-particle state (the dense KV caches) in place;
     ``reduce_fn(member_outputs, mask)`` gives the BMA heads. A Python int
     in ``batch`` (a decode position) crosses into a captured step as a
-    0-d device tensor, so one program serves every position."""
+    0-d device tensor, so one program serves every position. Under a
+    ``precision`` that casts for serving, the body runs ``served(forward,
+    precision)`` and the spec carries the policy's key."""
+    prec = _serving(precision)
+    fwd = served(forward, prec)
+
     def make(ctx):
         def fused(stacked_params, state, batch, mask):
-            outs, state = forward(stacked_params, state, batch)
+            outs, state = fwd(stacked_params, state, batch)
             return reduce_fn(outs, mask), state
 
         return fused
@@ -235,11 +312,12 @@ def bma_step(forward: Callable, reduce_fn: Callable, *,
     return ProgramSpec(
         name="bma_step", key=("bma_step",) + tuple(key), make=make,
         in_kinds=("state", "rows", "replicated", "replicated"),
-        out_kinds=("replicated", "in:1"))
+        out_kinds=("replicated", "in:1"),
+        precision=None if prec is None else prec.key())
 
 
 def bma_predict(forward: Callable, heads_fn: Callable, *, members: bool,
-                key: Tuple = ()) -> ProgramSpec:
+                key: Tuple = (), precision=None) -> ProgramSpec:
     """The stateless BMA forward of one request batch (counterpart of the
     reference engine's ``bma_predict``): ``fused(stacked_params, batch,
     mask) -> heads``, or ``(heads, member outputs)`` with ``members``.
@@ -249,10 +327,17 @@ def bma_predict(forward: Callable, heads_fn: Callable, *, members: bool,
     place (a static stacked tree or the store's), the batch (one bucket
     of rows, host or device) and the (P,) mask are copied into the
     program's static inputs, so one program serves every batch of its
-    bucket and every churn of the mask."""
+    bucket and every churn of the mask. Under a ``precision`` that casts
+    for serving, the params are the serve copy, the body runs
+    ``served(forward, precision)`` (the packs dequantized and the batch
+    cast at its top, the members widened to fp32) and the spec carries
+    the policy's key."""
+    prec = _serving(precision)
+    fwd = served(forward, prec)
+
     def make(ctx):
         def fused(stacked_params, batch, mask):
-            outs = forward(stacked_params, batch)
+            outs = fwd(stacked_params, batch)
             heads = heads_fn(outs, mask)
             return (heads, outs) if members else heads
 
@@ -260,4 +345,24 @@ def bma_predict(forward: Callable, heads_fn: Callable, *, members: bool,
 
     return ProgramSpec(
         name="bma_predict", key=("bma_predict", members) + tuple(key),
-        make=make, in_kinds=("state", "replicated", "vector"))
+        make=make, in_kinds=("state", "replicated", "vector"),
+        precision=None if prec is None else prec.key())
+
+
+def serve_cast(precision) -> ProgramSpec:
+    """The serve copy's refresh: ``fused(stacked_masters, copy) ->
+    (copy,)`` writes ``precision.cast_for_serve(masters)`` into ``copy``
+    (a ``precision.serve_copy_like`` tree) in place, so the copy keeps its
+    addresses and the programs captured on it stay valid across store
+    commits. One program per (policy, masters, copy): no ``ident``, so
+    every engine over the same store and policy shares it."""
+    prec = precision_mod.get(precision)
+
+    def make(ctx):
+        return lambda masters, copy: (
+            precision_mod.cast_for_serve_into(copy, masters),)
+
+    return ProgramSpec(
+        name="serve_cast", key=("serve_cast",), make=make,
+        in_kinds=("state", "state"), out_kinds=("in:1",),
+        precision=prec.key())

@@ -13,22 +13,37 @@ of the engine's own, which ``close`` empties, so that the captured
 graphs and their memory go with the engine);
 ``ProgramCache(capturer=runtime.eager)`` runs the card eagerly. Every
 step returns fresh tensors.
+
+The precision ladder (``core.precision``): an engine serves under
+``precision=`` when given, else its store's policy, else fp32. A policy
+that casts for serving serves a copy of the params: a static tree is
+cast (and int8-packed) once, at construction; a store-backed engine
+keeps one serve copy, allocated once per store generation and rewritten
+in place by the ``serve_cast`` program (``runtime.specs.serve_cast``)
+whenever the store's version of the params changes, so the copy keeps
+its addresses and no program captured on it is captured again after a
+commit, a clone or a kill. The predict and step programs dequantize the
+packs and cast the batch at their top and widen the member outputs to
+fp32 (``runtime.specs.served``). Under fp32 the engine serves the
+masters themselves, through the programs of the pre-policy code.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..core import precision as precision_mod
 from ..core.store import ParticleStore
 from ..core.tree import tree_leaves, tree_map
 from ..runtime.bucketing import bucket_size, pad_rows
 from ..runtime.cache import ProgramCache
 from ..runtime.program import ProgramSpec, arg_key, ident
 from ..runtime.specs import (bma_predict, bma_step, paged_decode_step,
-                             paged_prefill)
+                             paged_prefill, serve_cast)
 from . import uncertainty
 
 
@@ -57,13 +72,14 @@ class PredictiveEngine:
     store's active mask, or a static stacked ``params`` tree (serve-time
     SWAG samples) with an all-ones mask: exactly one of ``store=`` and
     ``params=``. ``kind`` is "classify" (member outputs are logits) or
-    "regress"."""
+    "regress". ``precision`` (None: the store's policy, or fp32 for a
+    static tree) decides the serve copy (module doc)."""
 
     def __init__(self, forward: Optional[Callable] = None, *,
                  store: Optional[ParticleStore] = None, key: str = "params",
                  params: Any = None, kind: str = "classify",
                  stateful: bool = False,
-                 cache: Optional[ProgramCache] = None):
+                 cache: Optional[ProgramCache] = None, precision: Any = None):
         if (store is None) == (params is None):
             raise ValueError("pass exactly one of store= or params=")
         if kind not in uncertainty.KINDS:
@@ -73,12 +89,21 @@ class PredictiveEngine:
         self.key = key
         self.kind = kind
         self.stateful = stateful
+        if precision is None and store is not None:
+            precision = store.precision
+        self.precision = precision_mod.get(precision)
+        if params is not None and self.precision.casts_serve:
+            # a static tree has no commits: cast it once, eagerly
+            with torch.no_grad():
+                params = precision_mod.cast_for_serve(params, self.precision)
         self._static_params = params
         self._static_mask = None if params is None else torch.ones(
             tree_leaves(params)[0].shape[0],
             device=tree_leaves(params)[0].device)
         self._params_version: Any = None
-        self._params_cache: Any = None
+        self._params_cache: Any = None      # the served tree
+        self._masters: Any = None           # the store's tree it serves
+        self._serve: Any = None             # (masters' key, serve copy)
         # explicit None test: an empty ProgramCache is falsy (__len__)
         self._own_cache = cache is None
         self.cache = ProgramCache() if cache is None else cache
@@ -113,18 +138,39 @@ class PredictiveEngine:
         return tree_leaves(self._mask_and_params()[1])[0].shape[0]
 
     def _mask_and_params(self):
-        """Consistent (mask, stacked params) pair: one atomic store
-        snapshot, so a mask bit never goes live before its slot's data."""
+        """Consistent (mask, served params) pair: one atomic store
+        snapshot, so a mask bit never goes live before its slot's data.
+        The served params are the store's tree, or under a casting policy
+        its serve copy, refreshed here when the store's version moved."""
         if self._closed:
             raise RuntimeError("engine is closed")
         if self.store is None:
             return self._static_mask, self._static_params
         v, mask, stacked = self.store.snapshot(self.key)
-        if v != self._params_version or stacked is not self._params_cache:
-            self._params_cache, self._params_version = stacked, v
-            self._params_key = arg_key("state", stacked)
+        if v != self._params_version or stacked is not self._masters:
+            self._masters, self._params_version = stacked, v
+            if self.precision.casts_serve:
+                self._params_cache = self._refresh_serve_copy(stacked)
+            else:
+                self._params_cache = stacked
+                self._params_key = arg_key("state", stacked)
             self.stats["param_refreshes"] += 1
         return mask, self._params_cache
+
+    def _refresh_serve_copy(self, masters):
+        """Rewrite the serve copy from ``masters`` in place through the
+        cached ``serve_cast`` program; the copy is allocated anew only when
+        the masters' shapes or addresses change (capacity growth, a
+        replaced tree), and its cache-key entry with it."""
+        masters_key = arg_key("state", masters)
+        if self._serve is None or self._serve[0] != masters_key:
+            copy = precision_mod.serve_copy_like(masters, self.precision)
+            self._serve = (masters_key, copy)
+            self._params_key = arg_key("state", copy)
+        copy = self._serve[1]
+        self.cache.run(serve_cast(self.precision), masters, copy,
+                       state_token=self._state_token())
+        return copy
 
     def _state_token(self):
         """Store generation for the cache key (particle-set changes miss;
@@ -144,7 +190,8 @@ class PredictiveEngine:
             spec = self._predict_specs[members] = bma_predict(
                 self.forward,
                 lambda outs, m: uncertainty.predictive_heads(outs, kind, m),
-                members=members, key=(ident(self.forward), kind))
+                members=members, key=(ident(self.forward), kind),
+                precision=self.precision)
         return spec
 
     def predict(self, batch, members: bool = False):
@@ -198,9 +245,13 @@ class PredictiveEngine:
         """Build the stacked per-particle serving state:
         ``make_state(stacked_params)`` over every slot of the store's
         capacity (e.g. a prefill that returns the KV caches), so the state
-        is born capacity-padded."""
+        is born capacity-padded. Under a casting policy ``make_state``
+        sees the serve copy with its packs expanded to the serve dtype."""
         _, stacked = self._mask_and_params()
         with torch.no_grad():
+            if self.precision.casts_serve:
+                stacked = precision_mod.dequantize(stacked,
+                                                   self.precision.serve)
             return make_state(stacked)
 
     def step(self, state, batch):
@@ -219,7 +270,7 @@ class PredictiveEngine:
             self._step_spec = bma_step(
                 self.forward,
                 lambda outs, m: uncertainty.predictive_heads(outs, kind, m),
-                key=(ident(self.forward), kind))
+                key=(ident(self.forward), kind), precision=self.precision)
         args = (stacked, state, batch, mask)
         prog = self._program(self._step_spec, args,
                              (self._params_key, None, None, None))
@@ -236,6 +287,7 @@ class PredictiveEngine:
         with self._lock:
             self._closed = True
             self._params_cache = self._params_version = None
+            self._masters = self._serve = None
             self._static_params = None
             if self._own_cache:
                 self.cache.clear()
@@ -258,23 +310,40 @@ class PagedDecodeEngine(PredictiveEngine):
     ``(B, 2 + n_pmax)`` int32, prefill ``(Sp + n_pmax + 1,)`` int32, each
     copied into its program's static input (one host-to-device copy per
     call). One decode program, one prefill program per pow2 bucket.
+
+    Under a policy that casts for serving the steps read the serve copy in
+    the serve dtype; int8 packing is dropped (``serve_quant=None``, as the
+    reference does: it is a BMA-forward option). The model computes in its
+    config's dtype whatever the weights' (``blocks.dense_apply`` widens
+    each weight to the activations'), and every paged spec carries the
+    policy's key.
     """
 
     def __init__(self, decode_fn: Callable, prefill_fn: Callable, *,
                  store: ParticleStore, n_pmax: int, key: str = "params",
                  pages_key: str = "kv_pages",
-                 cache: Optional[ProgramCache] = None):
-        super().__init__(store=store, key=key, cache=cache)
+                 cache: Optional[ProgramCache] = None, precision: Any = None):
+        super().__init__(store=store, key=key, cache=cache,
+                         precision=precision)
+        if self.precision.serve_quant is not None:
+            self.precision = dataclasses.replace(self.precision,
+                                                 serve_quant=None)
         self.decode_fn = decode_fn
         self.prefill_fn = prefill_fn
         self.pages_key = pages_key
         self.n_pmax = n_pmax
         self._pages_memo: Any = None        # (generation, tree, key)
-        self._decode = paged_decode_step(decode_fn, sample_heads,
-                                         key=(ident(decode_fn), self.kind))
-        self._prefill = paged_prefill(prefill_fn, sample_heads,
-                                      n_pmax=n_pmax,
-                                      key=(ident(prefill_fn), self.kind))
+        self._decode = self._with_precision(paged_decode_step(
+            decode_fn, sample_heads, key=(ident(decode_fn), self.kind)))
+        self._prefill = self._with_precision(paged_prefill(
+            prefill_fn, sample_heads, n_pmax=n_pmax,
+            key=(ident(prefill_fn), self.kind)))
+
+    def _with_precision(self, spec: ProgramSpec) -> ProgramSpec:
+        """``spec`` carrying the policy's key when the policy casts."""
+        if not self.precision.casts_serve:
+            return spec
+        return dataclasses.replace(spec, precision=self.precision.key())
 
     def close(self):
         self._pages_memo = None

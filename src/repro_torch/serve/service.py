@@ -23,6 +23,8 @@ import functools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from ..core.messages import PFuture
 from ..core.tree import tree_map
 from ..models import api as models_api
@@ -179,24 +181,28 @@ def serve(obj, *, kind: str = "classify", max_batch: int = 32,
     Churn within the store's capacity (``p_kill``, ``p_clone``) changes
     only the mask that each call copies in: it captures nothing. Only
     one device is ported (``placement`` other than None raises: ROADMAP.md
-    queue 1 item 10) and only fp32 serving (``precision`` other than None
-    or "fp32" raises: queue 1 item 5).
+    queue 1 item 10).
+
+    ``precision=`` (a preset name or a ``Precision``) sets the serving
+    policy; None takes the store's own for the store's params, and the
+    PD's for a static ``params=`` tree (which leaves the store), so a PD
+    built with ``precision="mixed"`` serves its bf16 copy with no flag
+    here (``serve.engine``).
     """
     if placement is not None:
         raise NotImplementedError(
             "serve(placement=): multi-GPU placement is not ported yet "
             "(ROADMAP.md queue 1 item 10)")
-    if precision not in (None, "fp32"):
-        raise NotImplementedError(
-            f"serve(precision={precision!r}): only fp32 serving is ported "
-            "(the precision ladder is ROADMAP.md queue 1 item 5)")
     pd = _resolve_pd(obj)
     fwd = forward if forward is not None else pd.module.forward
     if params is not None:
-        engine = PredictiveEngine(fwd, params=params, kind=kind, cache=cache)
+        if precision is None:
+            precision = getattr(pd, "precision", None)
+        engine = PredictiveEngine(fwd, params=params, kind=kind, cache=cache,
+                                  precision=precision)
     else:
         engine = PredictiveEngine(fwd, store=pd.store, kind=kind,
-                                  cache=cache)
+                                  cache=cache, precision=precision)
     svc = PredictiveService(engine, max_batch=max_batch,
                             max_wait_ms=max_wait_ms, max_queue=max_queue,
                             warm_on_first_flush=warmup is True)
@@ -282,7 +288,8 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
                  eos_id: Optional[int] = None, max_queue: int = 256,
                  cache_dtype=None,
                  pages_key: str = "kv_pages", warmup: bool = True,
-                 warmup_buckets=(), speculative: Any = None,
+                 warmup_buckets=(), precision: Any = None,
+                 speculative: Any = None,
                  cache: Optional[ProgramCache] = None) -> DecodeService:
     """Turn a PushDistribution holding an LM ensemble into a
     continuous-batching posterior-predictive decode service.
@@ -318,6 +325,13 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     ``True`` for the defaults, an int for that many drafted tokens per
     step, or a ``serve.SpecConfig``. Greedy output stays token-exact; only
     the number of tokens per step changes.
+
+    ``precision=`` sets the serving policy (None: the store's own). A
+    policy that casts serves a copy of the params in the serve dtype,
+    rewritten in place once per store commit (``serve.engine``); int8
+    packing applies to the BMA forward and the int8 draft only, so
+    decode serves the plain cast. The model computes in ``cfg.dtype``
+    either way.
     """
     spec_cfg = resolve_spec_config(speculative)
     cfg = cfg if cfg is not None else getattr(pd.module, "cfg", None)
@@ -349,15 +363,16 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
 
         engine = SpecDecodeEngine(decode_fn, prefill_fn, verify_fn,
                                   spec_cfg=spec_cfg, store=pd.store,
+                                  model_dtype=getattr(torch, cfg.dtype),
                                   n_pmax=n_pmax, pages_key=pages_key,
-                                  cache=cache)
+                                  cache=cache, precision=precision)
         scheduler = SpeculativeDecodeScheduler(
             engine, pool, max_active=max_active, eos_id=eos_id,
             max_queue=max_queue)
     else:
         engine = PagedDecodeEngine(decode_fn, prefill_fn, store=pd.store,
                                    n_pmax=n_pmax, pages_key=pages_key,
-                                   cache=cache)
+                                   cache=cache, precision=precision)
         scheduler = DecodeScheduler(engine, pool, max_active=max_active,
                                     eos_id=eos_id, max_queue=max_queue)
     if warmup:

@@ -31,8 +31,17 @@ counts the switches), and nothing is captured after warmup. Reading the
 slot on the device instead would gather the draft particle's whole
 parameter tree on every draft.
 
-Not ported yet: the int8-quantized draft (``SpecConfig(quantized=True)``
-raises; it needs the precision ladder's ``quantize_int8``).
+The int8 draft (``SpecConfig(quantized=True)``): the draft particle's
+row is packed per output channel (``precision.quantize_int8``) into a
+persistent buffer and dequantized to the serve dtype (fp32 when the
+policy does not cast) into a persistent row, held in the model's dtype
+(``model_dtype``, its config's) when that is wider, both rewritten by
+one ``spec_draft_pack`` program when the params' version or the draft
+slot changes (``stats["draft_packs"]``): the slot is a copied scalar, so
+the one pack program serves every slot. The draft reads that row, the
+same values the reference dequantizes inside its draft program, so each
+draft program per (slot, iteration count) still reads its slot's pages
+through a view, but no draft program holds a copy of the weights.
 """
 from __future__ import annotations
 
@@ -43,9 +52,11 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..core import precision as precision_mod
+from ..core.tree import tree_map
 from ..runtime.bucketing import bucket_size
-from ..runtime.program import ProgramSpec, ident
-from ..runtime.specs import spec_draft_step, spec_verify
+from ..runtime.program import ProgramSpec, arg_key, ident
+from ..runtime.specs import spec_draft_pack, spec_draft_step, spec_verify
 from .batcher import DecodeScheduler, _Seq, _to_host
 from .engine import PagedDecodeEngine, sample_heads
 
@@ -59,8 +70,9 @@ class SpecConfig:
     adaptive:   drive per-sequence K from an acceptance-rate EMA.
     ema_alpha:  EMA smoothing of the measured acceptance rate.
     ema_init:   optimistic prior (start at full K, shrink on evidence).
-    quantized:  draft from an int8 copy of the draft particle — not
-                ported: True raises NotImplementedError.
+    quantized:  draft from an int8 pack of the draft particle's row
+                (dequantized to the serve dtype); verify still reads the
+                full-precision particles, so the tokens do not change.
     """
     k_max: int = 4
     adaptive: bool = True
@@ -73,11 +85,6 @@ class SpecConfig:
             raise ValueError("k_max must be >= 1")
         if not 0.0 < self.ema_alpha <= 1.0:
             raise ValueError("ema_alpha must be in (0, 1]")
-        if self.quantized:
-            raise NotImplementedError(
-                "the int8 draft needs precision.quantize_int8, part of the "
-                "precision ladder (ROADMAP.md queue 1, item 5 of the "
-                "modules still to port)")
 
 
 def resolve_spec_config(speculative) -> Optional[SpecConfig]:
@@ -100,20 +107,25 @@ class SpecDecodeEngine(PagedDecodeEngine):
     the engine's ProgramCache.
 
       draft_step(packed, slot)   up to K greedy tokens per row from ONE
-                                 particle, the argmax fed back: one
-                                 program per (slot, iteration count),
+                                 particle (or its int8 pack), the argmax
+                                 fed back: one program per (slot,
+                                 iteration count),
                                  ``stats["slot_uploads"]`` counting the
                                  calls whose slot differs from the last
-                                 call's (the reference's slot uploads);
+                                 call's (the reference's slot uploads),
+                                 ``stats["draft_packs"]`` the int8
+                                 packs built;
       verify_step(packed)        the W = K+1 token window scored by every
                                  particle in one pass, per-position BMA
                                  heads and argmax reduced on the device.
     """
 
     def __init__(self, decode_fn: Callable, prefill_fn: Callable,
-                 verify_fn: Callable, *, spec_cfg: SpecConfig, **kw):
+                 verify_fn: Callable, *, spec_cfg: SpecConfig,
+                 model_dtype: Optional[torch.dtype] = None, **kw):
         super().__init__(decode_fn, prefill_fn, **kw)
         self.verify_fn = verify_fn
+        self.model_dtype = model_dtype
         self.spec_cfg = spec_cfg
         self.k_max = spec_cfg.k_max
         self.w_max = spec_cfg.k_max + 1
@@ -121,9 +133,31 @@ class SpecDecodeEngine(PagedDecodeEngine):
         self._last_draft_slot: Optional[int] = None
         self.stats["draft_iterations"] = 0
         self.stats["slot_uploads"] = 0
+        self.stats["draft_packs"] = 0
         self._draft_specs: Dict[Any, ProgramSpec] = {}
-        self._verify = spec_verify(verify_fn, sample_heads, w_max=self.w_max,
-                                   key=(ident(verify_fn), self.kind))
+        self._pack: Any = None      # (pack, row, row's key, params key)
+        self._pack_memo: Any = None     # (params version, slot)
+        self._verify = self._with_precision(spec_verify(
+            verify_fn, sample_heads, w_max=self.w_max,
+            key=(ident(verify_fn), self.kind)))
+
+    def close(self):
+        self._pack = self._pack_memo = None
+        super().close()
+
+    def _dequant_dtype(self) -> torch.dtype:
+        prec = self.precision
+        return prec.serve if prec.casts_serve else torch.float32
+
+    def _row_dtype(self) -> torch.dtype:
+        """The int8 draft row's storage: the dequantized values, held in
+        the model's compute dtype when that is wider (the model widens
+        every weight to its activations', so it computes the same), and
+        no draft program widens them again."""
+        dd = self._dequant_dtype()
+        if self.model_dtype is None:
+            return dd
+        return torch.promote_types(dd, self.model_dtype)
 
     def active_mask(self):
         return self.store.active_mask()
@@ -145,10 +179,40 @@ class SpecDecodeEngine(PagedDecodeEngine):
     def _draft_spec(self, slot: int, n_iter: int) -> ProgramSpec:
         spec = self._draft_specs.get((slot, n_iter))
         if spec is None:
-            spec = spec_draft_step(self.decode_fn, slot=slot, n_iter=n_iter,
-                                   key=(ident(self.decode_fn),))
+            spec = self._with_precision(spec_draft_step(
+                self.decode_fn, slot=slot, n_iter=n_iter,
+                key=(ident(self.decode_fn),),
+                quantized=self.spec_cfg.quantized))
             self._draft_specs[(slot, n_iter)] = spec
         return spec
+
+    def _draft_params(self, params, slot: int):
+        """The draft program's first operand and its cache-key entry: the
+        served stacked params, or with ``quantized`` the dequantized int8
+        pack of ``slot``'s row, rebuilt in place (one ``spec_draft_pack``
+        run) when the params' version or the slot changed since the last
+        build. The pack is a derived value: never a store key."""
+        if not self.spec_cfg.quantized:
+            return params, self._params_key
+        if self._pack is None or self._pack[3] != self._params_key:
+            def row_like(a):
+                return torch.empty((1,) + tuple(a.shape[1:]),
+                                   dtype=self._row_dtype(), device=a.device)
+            rows = tree_map(lambda a: a[:1], params)
+            pack = precision_mod.quantize_int8_like(rows)
+            row = tree_map(row_like, params)
+            self._pack = (pack, row, arg_key("state", row), self._params_key)
+            self._pack_memo = None
+        memo = (self._params_version, slot)
+        if memo != self._pack_memo:
+            pack, row = self._pack[0], self._pack[1]
+            spec = self._with_precision(spec_draft_pack(
+                self._dequant_dtype()))
+            self.cache.run(spec, params, pack, row, slot,
+                           state_token=self._state_token())
+            self._pack_memo = memo
+            self.stats["draft_packs"] += 1
+        return self._pack[1], self._pack[2]
 
     def draft_step(self, packed: np.ndarray, slot: int):
         """packed: (B, 3 + n_pmax) int32 host array — [last token, its
@@ -161,13 +225,14 @@ class SpecDecodeEngine(PagedDecodeEngine):
             self._last_draft_slot = slot
             self.stats["slot_uploads"] += 1
         _, params = self._mask_and_params()
+        params, params_key = self._draft_params(params, slot)
         n_iter = int(packed[:, 2].max()) if len(packed) else 0
         self.stats["draft_iterations"] += n_iter
         pages, pages_key = self._checkout_pages()
         try:
             args = (params, pages, packed)
             prog = self._program(self._draft_spec(slot, n_iter), args,
-                                 (self._params_key, pages_key, None))
+                                 (params_key, pages_key, None))
             drafts, pages = prog(*args)
         finally:
             self.store.commit(self.pages_key, pages)

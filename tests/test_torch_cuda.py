@@ -63,6 +63,12 @@ from the same init bit for bit (state, losses, predictions), with the
 same kernel launches and no capture after the first step. The moments
 kernel updating mean and sq in place gives its out-of-place bits.
 
+The precision ladder: the serve copy and the int8 draft's pack keep
+their addresses across a clone and capture nothing, the clone's row in
+the copy is its master's bf16 cast; the card's int8 packs equal the
+CPU's bit for bit; the int8 draft's tokens equal plain decode's (fp32
+and "mixed"); "mixed" training keeps fp32 masters and tracks fp32.
+
 The actor runtime: NEL SteinVGD (the leader's dense force: one sqdist
 and one force launch per step) and NEL MultiSWAG (one moments launch
 per leaf per particle per collection, on one-row views) on a narrow ViT
@@ -1734,3 +1740,128 @@ def test_diag_std_kernel_at_the_serving_shapes(dev, P):
         got = swag_moments.diag_std(m, s)
         assert swag_moments.diag_std.launches - before == 1
         assert (got - ref.diag_std(m, s)).abs().max().item() < 1e-5
+
+
+# --------------------------------------------------------------------------
+# the precision ladder: the serve copy, the int8 packs, mixed training
+# --------------------------------------------------------------------------
+
+def _served_ptrs(engine):
+    return [x.data_ptr() for x in tree_leaves(engine._mask_and_params()[1])]
+
+
+def test_serve_copy_and_int8_pack_keep_addresses_across_a_commit(dev):
+    """"mixed" speculative serving with the int8 draft: a jittered clone
+    under ``step_lock`` rewrites the bf16 serve copy and the draft's pack
+    in place (no address moves, nothing captured), and the clone's row in
+    the copy is the bf16 cast of its master."""
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import SpecConfig
+    cfg = _capture_cfg()
+    pd = _churn_pd(dev, cfg)
+    prompts = [[5, 6, 7, 8, 9], [9, 10, 11]]
+    cache = ProgramCache()
+    svc = serve_decode(pd, cfg, num_pages=32, page_size=8, max_active=2,
+                       warmup_buckets=(4, 8), precision="mixed", cache=cache,
+                       speculative=SpecConfig(k_max=2, quantized=True))
+    try:
+        eng = svc.engine
+        base = [svc.generate(p, max_new=6) for p in prompts]
+        cold = svc.stats()["cold_compiles"]
+        copy_ptrs = _served_ptrs(eng)
+        pack_ptrs = [x.data_ptr() for x in tree_leaves(eng._pack[:2])]
+        packs = eng.stats["draft_packs"]
+        with svc.scheduler.step_lock:
+            twin = pd.p_clone(0, jitter=0.01)
+        wide = [svc.generate(p, max_new=6) for p in prompts]
+        with svc.scheduler.step_lock:
+            served = eng._mask_and_params()[1]
+            slot = pd.store.slot_of(twin)
+            master = pd.p_params(twin)
+            for a, b in zip(tree_leaves(served), tree_leaves(master)):
+                assert torch.equal(a[slot], b.to(torch.bfloat16))
+            pd.p_kill(twin)
+        back = [svc.generate(p, max_new=6) for p in prompts]
+        st = svc.stats()
+        assert _served_ptrs(eng) == copy_ptrs
+        assert [x.data_ptr() for x in tree_leaves(eng._pack[:2])] \
+            == pack_ptrs
+        assert eng.stats["draft_packs"] > packs
+        assert all(p["graph"] for p in cache.program_info())
+    finally:
+        svc.close()
+    assert st["cold_compiles"] == cold
+    assert all(len(w.tokens) == 6 for w in wide)
+    for a, b in zip(base, back):
+        assert a.tokens == b.tokens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_pack_on_the_card_equals_the_cpu(dev, dtype):
+    """``quantize_int8`` / ``cast_for_serve_into`` on the card give the
+    CPU's bits: q and s exactly (round half to even, IEEE division)."""
+    from repro_torch.core import precision as prec
+    cfg = _capture_cfg()
+    gen = torch.Generator().manual_seed(1)
+    one = api.init_params(gen, cfg)
+    cpu = tree_map(lambda a: torch.stack([a, 3 * a]).to(dtype), one)
+    card = tree_map(lambda a: a.to(dev), cpu)
+    want = prec.quantize_int8(cpu)
+    got = prec.quantize_int8(card)
+    _same_bits(_host(got), want)
+    copy = prec.serve_copy_like(card, "mixed_int8")
+    ptrs = [x.data_ptr() for x in tree_leaves(copy)]
+    prec.cast_for_serve_into(copy, card)
+    _same_bits(_host(copy), prec.cast_for_serve(cpu, "mixed_int8"))
+    assert [x.data_ptr() for x in tree_leaves(copy)] == ptrs
+
+
+@pytest.mark.parametrize("policy", [None, "mixed"])
+def test_quantized_draft_tokens_equal_plain_tokens(dev, policy):
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import SpecConfig
+    cfg = _capture_cfg()
+    pd = _churn_pd(dev, cfg)
+    prompts = [[5, 6, 7, 8, 9], [9, 10, 11], [3, 4]]
+    out = []
+    for spec in (None, SpecConfig(k_max=3, quantized=True)):
+        svc = serve_decode(pd, cfg, num_pages=32, page_size=8, max_active=2,
+                           warmup_buckets=(2, 4, 8), precision=policy,
+                           speculative=spec, cache=ProgramCache())
+        try:
+            out.append([svc.generate(p, max_new=8).tokens for p in prompts])
+            st = svc.stats()
+        finally:
+            svc.close()
+    assert out[0] == out[1]
+    assert st["engine"]["draft_packs"] >= 1
+    assert st["pool"]["used_pages"] == 0
+
+
+def test_mixed_training_keeps_fp32_masters_on_the_card(dev):
+    """SteinVGD and DeepEnsemble under "mixed", captured: the masters and
+    the optimizer state stay fp32, the losses track the card's fp32 run
+    within the reference's bar, one program per spec."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.runtime import ProgramCache
+    losses = {}
+    for name in ("fp32", "mixed"):
+        for cls, kw in ((SteinVGD, {"lr": 0.05}),
+                        (DeepEnsemble, {"optimizer": adam(1e-3)})):
+            cfg, (mod, _) = _vit_modules(dev, 4)
+            loader = DataLoader(cfg, batch_size=8, num_batches=2, seed=0)
+            with cls(mod, backend="compiled", precision=name,
+                     device=dev) as algo:
+                algo.push_dist.runtime.cache = cache = ProgramCache()
+                _, ls = algo.bayes_infer(loader, 2, num_particles=4, **kw)
+                for leaf in tree_leaves(algo.store.stacked("params")):
+                    assert leaf.dtype == torch.float32
+                if cls is DeepEnsemble:
+                    st = algo.store.stacked("opt_state")
+                    assert st["m"]["head"]["w"].dtype == torch.float32
+                info = cache.program_info()
+                assert len(info) == 1 and info[0]["graph"]
+            losses[name, cls.__name__] = np.asarray(ls)
+    for cls in ("SteinVGD", "DeepEnsemble"):
+        f32, mixed = losses["fp32", cls], losses["mixed", cls]
+        assert np.all(np.abs(mixed - f32) < 0.1 * np.abs(f32) + 0.05), cls

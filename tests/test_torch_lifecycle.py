@@ -31,9 +31,8 @@ decode tests, initialized by the reference and carried over as numpy).
     mid-run register across a commit, a clone during a checkout failing
     loudly, growth during a checkout.
 
-Left for later queue items: the bf16 serving tests (queue 1 item 5, the
-precision ladder) and the checkpoint round trip across capacities
-(item 8).
+Left for a later queue item: the checkpoint round trip across capacities
+(item 8). The bf16 serving tests run in ``tests/test_torch_precision.py``.
 """
 import jax
 import jax.numpy as jnp

@@ -20,8 +20,8 @@ numpy and handed to both).
     handoff with ``max_batch=``, ``predict_batch(members=)``, a static
     tree captured anew per ``posterior_predictive`` and its programs
     dropped by ``close``, the default warm-up on the first flush, the
-    refusals (placement, precision), a failing forward's error on every
-    future;
+    placement refusal, a precision preset resolved (a typo refused), a
+    failing forward's error on every future;
   * metrics against the NumPy references and the reference's jnp
     metrics (1e-5, accuracy 1e-6), the calibrated-ECE case, degenerate
     heads, and the standalone heads against the reference's;
@@ -583,8 +583,11 @@ def test_service_rejects_what_is_not_ported_and_reports_errors():
     try:
         with pytest.raises(NotImplementedError, match="item 10"):
             serve(tpd, placement=object(), warmup=False)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            serve(tpd, precision="bf16", warmup=False)
+        # the precision ladder is ported: a preset resolves, a typo raises
+        with serve(tpd, precision="bf16", warmup=False) as svc:
+            assert svc.engine.precision.master == torch.bfloat16
+        with pytest.raises(ValueError, match="unknown precision preset"):
+            serve(tpd, precision="fp8", warmup=False)
 
         def broken(p, b):
             raise RuntimeError("forward exploded")

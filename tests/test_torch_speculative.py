@@ -333,8 +333,8 @@ def test_resolve_spec_config_and_unported_options():
         SpecConfig(k_max=0)
     with pytest.raises(ValueError):
         SpecConfig(ema_alpha=0.0)
-    with pytest.raises(NotImplementedError, match="precision ladder"):
-        SpecConfig(quantized=True)
+    # the int8 draft is ported (tests/test_torch_precision.py runs it)
+    assert resolve_spec_config(SpecConfig(quantized=True)).quantized
 
 
 RELEASE_OPS = [

@@ -317,10 +317,62 @@ Phase 11 the precision ladder (core.precision), every step captured.
          every kernel must have launched in phase 11, and each kernel's
          ``precision_launches`` in the kernels line are phase 11's.
 
-The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11: the
-kernel checks first, then the serving runs over one set of particles,
-then training, fused and then on the NEL, then the lifecycle, then
-predictive serving, then the precision ladder.
+Phase 12 the paper's SciML workload and its Fig. 4 baselines
+         (configs/unet_advection.py, models/unet1d.py, bdl/baselines.py),
+         with TF32 off as everywhere. (a) 8 full-width UNet-advection
+         particles (d_model 32, depth 4: 1,240,065 parameters in 34
+         leaves; random weights from seed 0), the paper's batch of 50 on
+         a 128-point grid, 8 batches an epoch: DeepEnsemble (Adam, 2
+         epochs), SteinVGD (the median heuristic, lr 0.05, 2 epochs) and
+         MultiSWAG (Adam, 3 epochs collecting after the first, rank 20),
+         each captured, then eager (an explicit eager cache), then with
+         backend="nel". Checks: one program per spec, each a graph in the
+         captured run; the captured run's losses and launches equal the
+         eager run's; the loss on the first batch falls below the init's;
+         the NEL runs' launches exact (16 sqdist and 16 force launches,
+         2 x 8 x 34 moments launches); one NEL step (and, for MultiSWAG,
+         one collection) within 1e-4 of one captured step from the same
+         init (sgd(0.05) for DeepEnsemble and MultiSWAG); at the trained
+         state #1 on its plain-load path (D is odd) within 1e-5 of the
+         largest distance, #2 within 2e-4 relative (trained g and g = 0)
+         and one collection of #3 within 1e-5, each timed beside its
+         bound. It prints each captured step's host and device busy ms,
+         idle share and samples/s against the step's fp32 operation bound
+         (3 x 58.2 MFLOP x 400 samples at 67 TFLOP/s), the peak memory,
+         and the forward + backward ms of the package's conv form (im2col
+         and one batched GEMM a conv) and of grouped conv1d (cuDNN, with
+         its autotuner off and on), the two forms held within 1e-4.
+         (b) the captured MultiSWAG posterior, 4 draws a particle (32
+         members), served with kind="regress" to phase 10's traffic of
+         single-example u0 (128, 1) requests (8-thread burst, then a
+         closed loop): buckets 1-32 captured before serve() returns and
+         nothing after; served heads within 1e-5 of predict_batch's, the
+         mean and variance within 1e-5 of the members' computed on the
+         host; #4 34 launches at the handoff and 34 a draw in
+         sample_predict (8 draws, held to a loop of plain draws within
+         1e-5), and against its plain version at the (8, leaf) stacks and
+         at P = 1; then the store's own params with a p_kill under
+         traffic: the 7 live rows' mean, no capture. It prints requests/s,
+         latency p50 / p95 / p99 and the flush profiles at buckets 1 and
+         32 against their bounds. (c) the Fig. 4 rows: ms per epoch (the
+         last epoch of two, or part (a)'s) and samples/s of ensemble,
+         multiswag and svgd under captured, nel and baseline
+         (bdl.baselines: sequential NNs, one captured program a NN, the
+         programs and pool bytes read as the last epoch starts), for the
+         UNet at 2, 4 and 8 particles and for ViT-MNIST's baselines at
+         phase 4's shape beside phase 4's captured and phase 8's NEL step
+         times; and ensemble_baseline within 1e-5 of the fused
+         DeepEnsemble from the same seed at full width (sgd(0.05), one
+         epoch). Each part prints its line with the card's name and power
+         limit; every SVGD and SWAG kernel must have launched, and each
+         kernel's ``sciml_launches`` in the kernels line are phase 12's
+         driven runs, its ``unet`` entry #1-#4 timed at the UNet's shapes.
+
+The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12:
+the kernel checks first, then the serving runs over one set of
+particles, then training, fused and then on the NEL, then the lifecycle,
+then predictive serving, then the precision ladder, then the SciML
+workload and the baselines.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -2150,6 +2202,7 @@ def phase4(torch):
     out["peak_mem_gb"] = max(peak, torch.cuda.max_memory_allocated() / 2**30)
     emit(out)
     captured = {name: {"step_ms": out[name]["captured"]["step_ms"],
+                       "collect_ms": out[name]["captured"].get("collect_ms"),
                        "images_per_s": out[name]["captured"]["images_per_s"],
                        "last_losses": out[name]["captured"]["last_losses"],
                        "profile": out[name]["captured"].get(
@@ -2709,9 +2762,26 @@ def phase8(torch, captured):
           if k not in ("deep_ensemble", "svgd", "multiswag")})
     if failed:
         raise AssertionError(f"phase 8: {failed}")
-    return {"pairwise_sqdist": launches["svgd"]["pairwise_sqdist"],
-            "svgd_force": launches["svgd"]["svgd_force"],
-            "swag_moments": launches["multiswag"]["swag_moments"]}
+    # the step times phase 12's Fig. 4 rows of ViT-MNIST are made of
+    de, sv, ms = out["deep_ensemble"], out["svgd"], out["multiswag"]
+    steps = {
+        "ensemble": {"captured_step_ms": de["compiled_captured"]["step_ms"],
+                     "nel_step_ms": de["nel_step"]["wall_ms"],
+                     "from": {"captured": "phase 8, the Adam parity PD's "
+                                          "captured step",
+                              "nel": "phase 8"}},
+        "svgd": {"captured_step_ms": captured["svgd"]["step_ms"],
+                 "nel_step_ms": sv["nel_step"]["wall_ms"],
+                 "from": {"captured": "phase 4", "nel": "phase 8"}},
+        "multiswag": {"captured_step_ms": captured["multiswag"]["step_ms"],
+                      "captured_collect_ms":
+                          captured["multiswag"]["collect_ms"],
+                      "nel_step_ms": ms["nel_step"]["wall_ms"],
+                      "nel_collect_ms": ms["nel_collect"]["wall_ms"],
+                      "from": {"captured": "phase 4", "nel": "phase 8"}}}
+    return ({"pairwise_sqdist": launches["svgd"]["pairwise_sqdist"],
+             "svgd_force": launches["svgd"]["svgd_force"],
+             "swag_moments": launches["multiswag"]["swag_moments"]}, steps)
 
 
 # --------------------------------------------------------------------------
@@ -3255,12 +3325,13 @@ def flush_profile(torch, svc, reqs, B, members):
             / FP32_FLOPS_PER_S * 1e3}
 
 
-def diag_std_serving_shapes(torch, swag):
+def diag_std_serving_shapes(torch, swag, D=TRAIN_D):
     """#4 against its plain version at the serving path's two shapes: the
     (8, leaf) dense stacks ``posterior_predictive`` reads and the
     one-particle rows of ``sample_predict``'s draws, every leaf; then
-    timed at P = 1 over all 18 leaves (one call each, L2 flushed before
-    the set) beside the bound (mean and sq read, the scale written)."""
+    timed at P = 1 over all the leaves (one call each, L2 flushed before
+    the set) beside the bound (mean and sq read, the scale written) of a
+    particle's D parameters."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.kernels import ref, swag_moments
     means = tree_flatten(swag["mean"], sort_keys=True)[0]
@@ -3274,7 +3345,7 @@ def diag_std_serving_shapes(torch, swag):
                   .abs().max()) for m, s in pairs)
     one = [(m[:1].contiguous(), s[:1].contiguous())
            for m, s in zip(means, sqs)]
-    ms, by = bound(3 * TRAIN_D * 4, 2 * TRAIN_D)
+    ms, by = bound(3 * D * 4, 2 * D)
     out = {"max_abs_err": err, "leaves": len(means),
            "p1_ms": time_ms(torch, lambda: [swag_moments.diag_std(m, s)
                                             for m, s in one]),
@@ -4540,6 +4611,836 @@ def phase11(torch, cfg, reqs, fp32_train, fp32_predictive, card):
     return total, bf16_rows
 
 
+# --------------------------------------------------------------------------
+# phase 12: the paper's SciML workload (Fig. 4) — full-width UNet-advection
+# particles trained by DeepEnsemble, SteinVGD and MultiSWAG, served as a
+# regression BMA, and the sequential baselines of both workloads
+# --------------------------------------------------------------------------
+
+SCI_P = 8                        # configs/unet_advection.py default_particles
+SCI_B, SCI_NB = 50, 8            # the paper's batch; phase 4's batches an epoch
+SCI_D = 1_240_065                # parameters per UNet particle
+SCI_LEAVES = 34
+SCI_FIG4_P = (2, 4)              # the P = 8 rows are part (a)'s runs
+SCI_KERNELS = ("pairwise_sqdist", "svgd_force", "swag_moments",
+               "swag_diag_std")
+
+
+def unet_module():
+    """The full-width UNet-advection config and its ParticleModule."""
+    from repro_torch import configs
+    from repro_torch.core import ParticleModule
+    from repro_torch.models import api
+    cfg = configs.get("unet-advection")
+    return cfg, ParticleModule(init=lambda g: api.init_params(g, cfg),
+                               loss=lambda p, b: api.loss_fn(p, b, cfg),
+                               forward=lambda p, b: api.forward(p, b, cfg)[0],
+                               cfg=cfg)
+
+
+def unet_flops(cfg, L):
+    """fp32 operations of one sample's forward (two a multiply-add), from
+    the shapes: the k = 3 convs of each stage at its grid, the 1x1 head."""
+    chans = [cfg.d_model * 2 ** i for i in range(cfg.n_units)]
+    total, cin, grids = 0, 1, []
+    for c in chans:
+        grids.append(L)
+        total += 2 * L * 3 * (cin * c + c * c)
+        cin, L = c, (L + 1) // 2
+    for c, g in zip(reversed(chans), reversed(grids)):
+        total += 2 * g * 3 * ((cin + c) * c + c * c)
+        cin = c
+    return total + 2 * grids[0] * cin
+
+
+class EpochClock:
+    """A data loader whose every pass marks the card's clock: it
+    synchronises and reads the host clock as an epoch starts, and
+    ``stop()`` after the run, so the last epoch's ms hold every step and
+    collection of that epoch (the first holds the captures). ``probe()``,
+    when given, runs as the last epoch starts (programs alive then)."""
+
+    def __init__(self, torch, loader, probe=None):
+        self.torch, self.loader, self.probe = torch, loader, probe
+        self.marks, self.probed = [], None
+
+    def __iter__(self):
+        self.torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        if self.probe is not None:
+            self.probed = self.probe()
+        yield from self.loader
+
+    def stop(self):
+        self.torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+
+    def last_ms(self):
+        return (self.marks[-1] - self.marks[-2]) * 1e3
+
+
+def sci_loader(torch, cfg, B, NB, probe=None):
+    from repro_torch.data import DataLoader
+    return EpochClock(torch, DataLoader(cfg, batch_size=B, num_batches=NB,
+                                        seed=SEED), probe)
+
+
+def sci_train(torch, cls, module, P, epochs, backend, cache=None, **kw):
+    """One driven run of ``cls`` over P fresh particles (seed SEED, SCI_NB
+    batches of SCI_B an epoch) on ``backend`` (a compiled run takes
+    ``cache``), between a reset and a read of the kernels' counts.
+    Returns the algorithm and the run's numbers (last losses, launches,
+    wall s, last epoch ms, samples/s, peak GB)."""
+    B, NB = SCI_B, SCI_NB
+    torch.cuda.reset_peak_memory_stats()
+    algo = cls(module, seed=SEED, backend=backend)
+    if cache is not None:
+        algo.push_dist.runtime.cache = cache
+    clock = sci_loader(torch, module.cfg, B, NB)
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    _, losses = bounded(algo.bayes_infer, clock, epochs, num_particles=P,
+                        **kw)
+    clock.stop()
+    row = {"particles": P, "epochs": epochs, "last_losses": losses,
+           "launches": read_counts(fns),
+           "wall_s": time.perf_counter() - t0,
+           "ms_per_epoch": clock.last_ms(),
+           "samples_per_s": P * B * NB / clock.last_ms() * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{cls.__name__} {backend} losses {losses}")
+    return algo, row
+
+
+def baseline_programs():
+    """The baseline programs alive in the process cache: name, graph,
+    capture s and pool bytes, with the totals."""
+    from repro_torch.runtime.cache import global_cache
+    info = [p for p in global_cache().program_info()
+            if p["name"].startswith("baseline_")]
+    return {"programs": len(info),
+            "graphs": sum(p["graph"] for p in info),
+            "by_name": sorted({p["name"] for p in info}),
+            "capture_s": sum(p["capture_s"] for p in info),
+            "pool_bytes": sum(p["pool_bytes"] for p in info)}
+
+
+def sci_baseline(torch, name, module, P, epochs, B, NB, **kw):
+    """One driven baseline run (``bdl.baselines``) over P NNs on the card,
+    timed per epoch by an EpochClock whose probe reads the baseline
+    programs as the last epoch starts. Returns (its result, its row)."""
+    from repro_torch.bdl import baselines
+    from repro_torch.runtime.cache import global_cache
+    fn = getattr(baselines, f"{name}_baseline")
+    clock = sci_loader(torch, module.cfg, B, NB, probe=baseline_programs)
+    torch.cuda.reset_peak_memory_stats()
+    before = global_cache().snapshot_stats()
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    if name == "svgd":
+        out = fn(module, P, clock, epochs, seed=SEED, **kw)
+    else:
+        out = fn(module, kw.pop("optimizer"), P, clock, epochs, seed=SEED,
+                 **kw)
+    clock.stop()
+    after = global_cache().snapshot_stats()
+    row = {"particles": P, "epochs": epochs, "launches": read_counts(fns),
+           "wall_s": time.perf_counter() - t0,
+           "ms_per_epoch": clock.last_ms(),
+           "samples_per_s": P * B * NB / clock.last_ms() * 1e3,
+           "cache": {k: after[k] - before[k] for k in ("hits", "misses",
+                                                       "cold_compiles")},
+           "captured": clock.probed,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    want = {"ensemble": P, "multiswag": 2 * P, "svgd": P + 1}[name]
+    if row["cache"]["misses"] != want or clock.probed["programs"] != want \
+            or clock.probed["graphs"] != want:
+        raise AssertionError(f"{name} baseline programs {row}, want {want}"
+                             f" graphs, each looked up once")
+    return out, row
+
+
+def unet_grouped(torch, params, u):
+    """The UNet forward in the other form: NCW activations (B, P * C, L)
+    and each conv one grouped ``conv1d`` over the particles (what XLA
+    makes of the reference's vmapped convs). Returns (P, B, L, 1)."""
+    F = torch.nn.functional
+    P = params["head"]["b"].shape[0]
+    B = u.shape[0]
+
+    def conv(p, x):
+        w = p["w"]                                  # (P, k, cin, cout)
+        k = w.shape[1]
+        wt = w.permute(0, 3, 2, 1).reshape(-1, w.shape[2], k)
+        return F.conv1d(x, wt, p["b"].reshape(-1), padding=k // 2, groups=P)
+
+    def gelu(x):
+        return F.gelu(x, approximate="tanh")
+
+    x = u.permute(0, 2, 1).repeat(1, P, 1)              # (B, P, L)
+    skips = []
+    for st in params["enc"]:
+        x = gelu(conv(st["c2"], gelu(conv(st["c1"], x))))
+        skips.append(x)
+        x = x[:, :, ::2]
+    for st, sk in zip(params["dec"], reversed(skips)):
+        L = sk.shape[2]
+        x = x.repeat_interleave(2, dim=2)[:, :, :L]
+        x = torch.cat([x.reshape(B, P, -1, L), sk.reshape(B, P, -1, L)],
+                      dim=2).reshape(B, -1, L)
+        x = gelu(conv(st["c2"], gelu(conv(st["c1"], x))))
+    y = conv(params["head"], x)                         # (B, P, L)
+    return y.reshape(B, P, L, 1).permute(1, 0, 2, 3)
+
+
+def conv_forms(torch, module, batch):
+    """Forward + backward of the P = 8, B = 50, L = 128 UNet in the
+    package's form (im2col + one batched GEMM a conv, NWC) and in the
+    grouped-conv form (NCW, cuDNN, with its autotuner off and on), event
+    ms with the L2 flushed; the two forms' outputs held within 1e-4 of the
+    largest."""
+    from repro_torch.core import PushDistribution
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.models import unet1d
+    pd = PushDistribution(module, seed=SEED, backend="compiled")
+    for _ in range(SCI_P):
+        pd.p_create()
+    leaves, unflatten = tree_flatten(pd.store.dense("params"))
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    params = unflatten(leaves)
+    pd.cleanup()
+    u, u1 = batch["u0"], batch["u1"]
+    forms = {"im2col_bmm": lambda: unet1d.unet_apply(params, u, module.cfg),
+             "grouped_conv1d": lambda: unet_grouped(torch, params, u)}
+
+    def fwd_bwd(apply):
+        def run():
+            loss = (apply() - u1).square().mean()
+            torch.autograd.grad(loss, leaves)
+        return run
+
+    with torch.no_grad():
+        a, b = forms["im2col_bmm"](), forms["grouped_conv1d"]()
+    out = {"forms_max_rel": rel_err(b, a)}
+    if not out["forms_max_rel"] < 1e-4:
+        raise AssertionError(f"the two conv forms differ: {out}")
+    out["fwd_bwd_ms"] = {k: time_ms(torch, fwd_bwd(f), iters=20)
+                         for k, f in forms.items()}
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        out["fwd_bwd_ms"]["grouped_conv1d_cudnn_benchmark"] = time_ms(
+            torch, fwd_bwd(forms["grouped_conv1d"]), iters=20)
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    out["chosen"] = "im2col_bmm"
+    return out
+
+
+def sci_one_step(torch, cls, module, batch, **kw):
+    """One NEL step (SteinVGD: one leader step; MultiSWAG: a step and a
+    collection) against one captured compiled step from the same init on
+    the same host batch: the params' (and SWAG moments') largest
+    difference."""
+    from repro_torch.core.functional import flatten_rows
+    from repro_torch.runtime import ProgramCache
+    algos = {}
+    for backend in ("nel", "compiled"):
+        algo = cls(module, seed=SEED, backend=backend)
+        if backend == "compiled":
+            algo.push_dist.runtime.cache = ProgramCache()
+        bounded(algo.bayes_infer, [batch], 1, num_particles=SCI_P, **kw)
+        algos[backend] = algo
+    out = {}
+    keys = [("params",)] + ([("swag", "mean"), ("swag", "sq_mean")]
+                            if cls.__name__ == "MultiSWAG" else [])
+    for key in keys:
+        rows = {}
+        for backend, algo in algos.items():
+            pd = algo.push_dist
+            trees = [pd.particles[p].state[key[0]] for p in
+                     pd.particle_ids()]
+            if len(key) > 1:
+                trees = [t[key[1]] for t in trees]
+            rows[backend] = flatten_rows(trees)[0]
+        out["/".join(key)] = float((rows["nel"] - rows["compiled"]).abs()
+                                   .max())
+    for algo in algos.values():
+        algo.cleanup()
+    return out
+
+
+def sci_training(torch, card):
+    """Part (a): DeepEnsemble, SteinVGD and MultiSWAG over 8 full-width
+    UNet particles, each captured, eager and on the NEL. Returns the
+    launches, the Fig. 4 rows at P = 8, the captured MultiSWAG algorithm
+    (part (b) serves it) and the part's line."""
+    from repro_torch.bdl import DeepEnsemble, MultiSWAG, SteinVGD
+    from repro_torch.bdl.svgd import svgd_step_spec
+    from repro_torch.bdl.swag import swag_collect
+    from repro_torch.core import PushDistribution
+    from repro_torch.core.tree import to_device
+    from repro_torch.data import DataLoader
+    from repro_torch.optim import adam, sgd
+    from repro_torch.runtime import specs
+    cfg, module = unet_module()
+    P, B, NB = SCI_P, SCI_B, SCI_NB
+    step_flops = 3 * unet_flops(cfg, cfg.max_seq_len) * P * B
+    out = {"phase": 12, "part": "a", "model": cfg.name, "particles": P,
+           "batch": B, "grid": cfg.max_seq_len, "batches_per_epoch": NB,
+           "params_per_particle": SCI_D, "card": card,
+           "forward_flops_per_sample": unet_flops(cfg, cfg.max_seq_len),
+           "step_flops": step_flops,
+           "step_bound_ms": step_flops / FP32_FLOPS_PER_S * 1e3}
+    host_batch = next(iter(DataLoader(cfg, batch_size=B, num_batches=1,
+                                      seed=SEED)))
+    batch = to_device(host_batch, "cuda")
+    out["conv_forms"] = conv_forms(torch, module, batch)
+    init = PushDistribution(module, seed=SEED, backend="compiled")
+    for _ in range(P):
+        init.p_create()
+    with torch.no_grad():
+        loss0 = float(module.loss(init.store.dense("params"), batch)[0]
+                      .mean())
+    init.cleanup()
+    del init
+    opt = adam(1e-3)
+    collect_spec = specs.map_step(swag_collect, key=("swag_collect",),
+                                  n_state=2, masked=True)
+    svgd_kw = {"lengthscale": 0.0, "lr": 5e-2}
+    algos = {
+        "ensemble": (DeepEnsemble, 2, {"optimizer": opt},
+                     ["ensemble_step"], {"optimizer": sgd(0.05)}),
+        "svgd": (SteinVGD, 2, svgd_kw, ["svgd_step"], svgd_kw),
+        "multiswag": (MultiSWAG, 3, {"optimizer": opt, "pretrain_epochs": 1,
+                                     "max_rank": 20},
+                      ["ensemble_step", "map_step"],
+                      {"optimizer": sgd(0.05), "max_rank": 20})}
+    launches, fig4, keep = {}, {}, None
+    for name, (cls, epochs, kw, names, one_kw) in algos.items():
+        runs = {}
+        for mode, cache in caches():
+            algo, row = sci_train(torch, cls, module, P, epochs, "compiled",
+                                  cache, **kw)
+            one_program_each(mode, cache.snapshot_stats(),
+                             cache.program_info(), names)
+            row["programs"] = cache.program_info()
+            if mode == "captured":
+                add_counts(launches, row["launches"])
+                row.update(sci_trained_checks(torch, name, algo, module,
+                                              batch, loss0))
+                row["step"], collect = sci_profiles(
+                    torch, name, algo, batch,
+                    svgd_step_spec(module.loss, **svgd_kw)
+                    if name == "svgd" else specs.ensemble_step(module.loss,
+                                                               opt),
+                    collect_spec, out["step_bound_ms"])
+                if collect is not None:
+                    row["collect"] = collect
+            runs[mode] = row
+            if mode == "captured" and name == "multiswag":
+                keep = algo
+            else:
+                algo.cleanup()
+            del algo, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        same_runs(runs, f"UNet {name}")
+        nel, row = sci_train(torch, cls, module, P, epochs, "nel", **kw)
+        add_counts(launches, row["launches"])
+        want = {"ensemble": {},
+                "svgd": {"pairwise_sqdist": epochs * NB,
+                         "svgd_force": epochs * NB},
+                "multiswag": {"swag_moments": 2 * P * SCI_LEAVES}}[name]
+        if {k: v for k, v in row["launches"].items() if v} != want:
+            raise AssertionError(f"NEL {name} launches {row['launches']}")
+        nel.cleanup()
+        del nel
+        runs["nel"] = row
+        runs["nel_one_step_vs_captured"] = sci_one_step(
+            torch, cls, module, host_batch, **one_kw)
+        if not max(runs["nel_one_step_vs_captured"].values()) < 1e-4:
+            raise AssertionError(f"NEL vs compiled one step {name}: "
+                                 f"{runs['nel_one_step_vs_captured']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = runs
+        fig4[name] = {"captured": runs["captured"], "nel": runs["nel"]}
+    out["launches"] = launches
+    return launches, fig4, keep, out
+
+
+def sci_trained_checks(torch, name, algo, module, batch, loss0):
+    """At a captured run's trained state, before anything advances it:
+    the loss has fallen below the init's on the first batch; SteinVGD's
+    #1 and #2 and MultiSWAG's #3 against their plain versions."""
+    store, mask = algo.store, algo.store.active_mask()
+    with torch.no_grad():
+        after = float(module.loss(store.dense("params"), batch)[0].mean())
+    out = {"loss_before": loss0, "loss_after": after}
+    if not after < loss0:
+        raise AssertionError(f"{name}: the loss did not fall: {loss0} -> "
+                             f"{after}")
+    if name == "svgd":
+        out["kernels_vs_plain"] = sci_force_checks(torch, store, module,
+                                                   batch, mask)
+    if name == "multiswag":
+        out["moments_kernel_vs_plain"] = moments_parity(
+            torch, store.stacked("swag"), store.stacked("params"), mask)
+        if not out["moments_kernel_vs_plain"]["max_abs_err"] <= 1e-5:
+            raise AssertionError(f"SWAG collection kernel vs plain: {out}")
+        out["moments_timed"] = sci_moments_timed(
+            torch, store.stacked("swag"), store.stacked("params"), mask)
+    return out
+
+
+def sci_profiles(torch, name, algo, batch, step_spec, collect_spec,
+                 bound_ms):
+    """Profiled windows of a captured run's own step program (and, for
+    MultiSWAG, its collection), run last: they advance the state.
+    Returns (the step's numbers, the collection's or None)."""
+    store, mask = algo.store, algo.store.active_mask()
+    keys = {"ensemble": ("params", "opt_state"), "svgd": ("params",),
+            "multiswag": ("params", "opt_state", "swag")}[name]
+    co = {k: store.checkout(k) for k in keys}
+    rt = algo.push_dist.runtime
+    try:
+        step_args = (co["params"],) + (
+            (co["opt_state"],) if "opt_state" in co else ()) + (batch, mask)
+        prof = program_window(torch, rt, step_spec, step_args)
+        collect = (program_window(torch, rt, collect_spec,
+                                  (co["swag"], co["params"], mask))
+                   if name == "multiswag" else None)
+    finally:
+        for k in co:
+            store.commit(k, co[k])
+    busy = prof["device_busy_ms"]
+    return {"host_ms": prof["wall_ms"], "device_busy_ms": busy,
+            "idle_share": prof["idle_share"],
+            "samples_per_s": SCI_P * SCI_B / prof["wall_ms"] * 1e3,
+            "bound_ms": bound_ms,
+            "device_over_bound": (busy / bound_ms
+                                  if isinstance(busy, float) else None),
+            "tracked_ms": prof.get("tracked_ms"),
+            "top_kernels_ms": prof["top_kernels_ms"],
+            "capture_s": prof["capture_s"],
+            "pool_bytes": prof["pool_bytes"]}, collect
+
+
+def sci_moments_timed(torch, state, params, mask):
+    """One collection's #3 launches over the 34 leaves (each on its own
+    clone of its ring), kernel and plain, event ms with the L2 flushed,
+    beside the bound: mean, sq and theta read, mean, sq and the ring's
+    slot written."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import ref, swag_moments
+    means = tree_flatten(state["mean"], sort_keys=True)[0]
+    sqs, devs, thetas = (tree_flatten(t, sort_keys=True)[0] for t in
+                         (state["sq_mean"], state["dev"], params))
+    n, R = state["n"], devs[0].shape[1]
+    slot = (state["rank"] % R).to(torch.int32)
+    rings = [d.clone() for d in devs]
+    thetas = [t.contiguous() for t in thetas]
+
+    def run(fn):
+        return lambda: [fn(m, s, t, n, mask, d, slot) for m, s, t, d in
+                        zip(means, sqs, thetas, rings)]
+
+    P = means[0].shape[0]
+    ms, by = bound(6 * 4 * P * SCI_D, 4 * P * SCI_D)
+    out = {"leaves": len(means), "launches_per_collection": len(means),
+           "ms": time_ms(torch, run(swag_moments.moments)),
+           "plain_ms": time_ms(torch, run(ref.swag_moments)),
+           "device_ms": device_ms(torch, run(swag_moments.moments)),
+           "bound_ms": ms, "bound_by": by,
+           "leaf_sizes": sorted({m[0].numel() for m in means})}
+    del rings
+    torch.cuda.empty_cache()
+    return out
+
+
+def sci_force_checks(torch, store, module, batch, mask):
+    """#1 and #2 at the trained (8, 1,240,065) state against their plain
+    versions: sqdist within 1e-5 of its largest entry (and on the
+    plain-load path: D is odd), the force with the trained g and with
+    g = 0, 2e-4 relative; then each timed (L2 flushed) beside its bound
+    and device ms."""
+    from repro_torch.bdl.svgd import rbf_glue, svgd_force
+    from repro_torch.core.functional import (ensemble_value_and_grad,
+                                             flatten_stacked)
+    from repro_torch.kernels import ref, svgd_rbf
+    params = store.stacked("params")
+    grads = ensemble_value_and_grad(module.loss)(params, batch)[1]
+    theta = flatten_stacked(params)[0]
+    g = flatten_stacked(grads)[0]
+    del grads, params
+    n, D = theta.shape
+    plan = svgd_rbf.plan_for(theta)
+    sq = sqdist_exact(torch, svgd_rbf, theta, mask, "UNet sqdist")
+    want = ref.pairwise_sqdist(theta, mask)
+    out = {"shape": [n, D], "sqdist_path": plan.path,
+           "sqdist_rel": float((sq - want).abs().max() / want.abs().max()),
+           "force_rel": rel_err(svgd_force(theta, g, 0.0, mask=mask),
+                                plain_force(theta, g, 0.0, mask)),
+           "repulsive_rel": rel_err(
+               svgd_force(theta, torch.zeros_like(g), 0.0, mask=mask),
+               plain_force(theta, torch.zeros_like(g), 0.0, mask))}
+    if plan.path != "plain" or D != SCI_D or not (
+            out["sqdist_rel"] < 1e-5 and out["force_rel"] < 2e-4
+            and out["repulsive_rel"] < 2e-4):
+        raise AssertionError(f"UNet SVGD kernels vs plain: {out}")
+    glue = rbf_glue(sq, 0.0, mask)
+    nbytes = n * D * 4
+    rows = {}
+    for name, kern, plain, nb, fl in (
+            ("pairwise_sqdist", lambda: svgd_rbf.pairwise_sqdist(theta, mask),
+             lambda: ref.pairwise_sqdist(theta, mask), nbytes,
+             3 * n * n * D),
+            ("svgd_force", lambda: svgd_rbf.svgd_force(theta, g, *glue, mask),
+             lambda: ref.svgd_force(theta, g, *glue, mask), 3 * nbytes,
+             6 * n * n * D)):
+        ms, by = bound(nb, fl)
+        rows[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(
+            torch, plain), "device_ms": device_ms(torch, kern),
+            "bound_ms": ms, "bound_by": by}
+    out["timed"] = rows
+    del theta, g, sq, want, glue
+    torch.cuda.empty_cache()
+    return out
+
+
+def sci_flush_profile(torch, svc, reqs, B, members, fwd_flops):
+    """Host and device busy ms of one flush of B rows, a profiled window
+    opened with spins, beside its bounds: the members' params read once,
+    and the members' forwards over B rows."""
+    prof = profile_steps(torch, lambda: svc.batcher.run_batch(reqs[:B]),
+                         n=5, prologue=32)
+    ms, by = bound(members * SCI_D * 4, members * B * fwd_flops)
+    return {"rows": B, "host_ms": prof["wall_ms"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"],
+            "top_kernels_ms": prof["top_kernels_ms"],
+            "bound_ms": ms, "bound_by": by}
+
+
+def sci_diag_std_stack(torch, swag):
+    """#4 over the (8, leaf) stacks of all 34 leaves (the handoff's
+    launches), kernel and plain, event ms with the L2 flushed, beside the
+    bound (mean and sq read, the scale written)."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import ref, swag_moments
+    pairs = [(m.contiguous(), s.contiguous()) for m, s in zip(
+        tree_flatten(swag["mean"], sort_keys=True)[0],
+        tree_flatten(swag["sq_mean"], sort_keys=True)[0])]
+    P = pairs[0][0].shape[0]
+    ms, by = bound(3 * 4 * P * SCI_D, 2 * P * SCI_D)
+    return {"particles": P, "leaves": len(pairs),
+            "ms": time_ms(torch, lambda: [swag_moments.diag_std(m, s)
+                                          for m, s in pairs]),
+            "plain_ms": time_ms(torch, lambda: [ref.diag_std(m, s)
+                                                for m, s in pairs]),
+            "device_ms": device_ms(torch, lambda: [
+                swag_moments.diag_std(m, s) for m, s in pairs]),
+            "bound_ms": ms, "bound_by": by}
+
+
+def sci_serving(torch, algo, card):
+    """Part (b): the trained MultiSWAG posterior (8 particles x 4 draws)
+    served as a regression BMA to single-example ``u0 (L, 1)`` requests,
+    then the store's own params with a p_kill under traffic. Returns the
+    launches and the part's line."""
+    import threading
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import advection_batch
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import serve
+    cfg = algo.module.cfg
+    L = cfg.max_seq_len
+    P, S = SCI_P, SERVE_S
+    members = P * S
+    fwd_flops = unet_flops(cfg, L)
+    out = {"phase": 12, "part": "b", "model": cfg.name, "particles": P,
+           "samples_per_particle": S, "members": members,
+           "static_tree_mb": members * SCI_D * 4 / 1e6, "card": card}
+    launches = {}
+    data = advection_batch(np.random.default_rng(11), SERVE_N, L)["u0"]
+    reqs = [{"u0": u} for u in data]
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    svc = algo.posterior_predictive(samples_per_particle=S, kind="regress",
+                                    max_batch=SERVE_MAX_BATCH,
+                                    max_wait_ms=SERVE_WAIT_MS,
+                                    warmup=reqs[0])
+    torch.cuda.synchronize()
+    got = read_counts(fns)
+    add_counts(launches, got)
+    if got["swag_diag_std"] != SCI_LEAVES or got["swag_moments"]:
+        raise AssertionError(f"regress handoff launches {got}")
+    row = {"handoff_s": time.perf_counter() - t0, "launches": got}
+    try:
+        cache = svc.engine.cache
+        warm = cache.snapshot_stats()
+        info = cache.program_info()
+        row["warmup"] = [{"bucket": 2**i, "graph": p["graph"],
+                          "capture_s": p["capture_s"],
+                          "pool_bytes": p["pool_bytes"]}
+                         for i, p in enumerate(info)]
+        if len(info) != 6 or not all(p["graph"] for p in info):
+            raise AssertionError(f"warmup programs {info}")
+        conc, row["concurrent"] = serve_traffic(svc, reqs, SERVE_CLIENTS)
+        closed, row["closed_loop"] = serve_traffic(svc, reqs, 0)
+        extra = cache.snapshot_stats()["cold_compiles"] \
+            - warm["cold_compiles"]
+        if extra:
+            raise AssertionError(f"{extra} captures after warmup")
+        row["profile"] = {f"bucket_{B}": sci_flush_profile(
+            torch, svc, reqs, B, members, fwd_flops)
+            for B in (1, SERVE_MAX_BATCH)}
+        heads, outs = svc.predict_batch({"u0": data}, members=True)
+        for p in conc[:1] + closed[:1]:
+            if p.mean.shape != (L, 1) or p.variance.shape != (L, 1) \
+                    or np.shape(p.entropy) or np.shape(p.mutual_info):
+                raise AssertionError(f"served shapes {p.mean.shape}, "
+                                     f"{p.variance.shape}")
+        host = outs.double().cpu()
+        row["members"] = tuple(outs.shape)
+        row["served_vs_predict_batch"] = {
+            "concurrent": served_vs_batch(conc, heads),
+            "closed_loop": served_vs_batch(closed, heads)}
+        row["mean_vs_host_members"] = float(
+            (heads["mean"].double().cpu() - host.mean(0)).abs().max())
+        row["variance_vs_host_members"] = float(
+            (heads["variance"].double().cpu() - host.var(0, unbiased=False))
+            .abs().max())
+        if not (max(row["served_vs_predict_batch"].values()) <= 1e-5
+                and row["mean_vs_host_members"] <= 1e-5
+                and row["variance_vs_host_members"] <= 1e-5
+                and row["members"][0] == members):
+            raise AssertionError(f"regress serving: {row}")
+        row["stats"] = svc.stats()
+        row["variance_mean"] = float(heads["variance"].mean())
+        del heads, outs, host
+    finally:
+        svc.close()
+    out["predictive"] = row
+
+    # #4 at the UNet's 34 leaves (P = 1 rows, and the (8, leaf) stacks the
+    # handoff reads, timed over all the leaves), then sample_predict: 34
+    # launches a draw
+    swag = algo.store.dense("swag")
+    out["diag_std"] = diag_std_serving_shapes(torch, swag, D=SCI_D)
+    out["diag_std_stack"] = sci_diag_std_stack(torch, swag)
+    del swag
+    err, got, shape = sample_predict_check(torch, algo, {"u0": data[:8]},
+                                           S=1)
+    add_counts(launches, got)
+    if got["swag_diag_std"] != SCI_LEAVES * P or got["swag_moments"] \
+            or not err <= 1e-5:
+        raise AssertionError(f"sample_predict: {got}, {err}")
+    out["sample_predict"] = {"draws": P, "launches": got,
+                             "max_abs_err": err, "shape": shape}
+
+    # the store's own params, a p_kill under traffic: the 7 live rows
+    pd = algo.push_dist
+    with serve(algo, kind="regress", max_batch=8, max_wait_ms=SERVE_WAIT_MS,
+               warmup=reqs[0], cache=ProgramCache()) as ssvc:
+        cold = ssvc.engine.cache.snapshot_stats()["cold_compiles"]
+        gen = pd.store.generation()
+        handles = []
+
+        def client():
+            for r in reqs[:128]:
+                handles.append(ssvc.predict_async(r))
+
+        t = threading.Thread(target=client)
+        t.start()
+        while len(handles) < 64:
+            time.sleep(0.0005)
+        pd.p_kill(pd.particle_ids()[3])
+        t.join(120.0)
+        for h in handles:
+            h.result(120.0)
+        post = [ssvc.predict(r, timeout=120.0) for r in reqs[:8]]
+        st = ssvc.stats()
+        _, outs = ssvc.predict_batch({"u0": data[:8]}, members=True)
+        mean = outs.double().mean(0).cpu().numpy()
+        srow = {"live": pd.store.live_count(), "member_rows": outs.shape[0],
+                "captures_after_warmup_and_kill":
+                    st["engine"]["program_cache"]["cold_compiles"] - cold,
+                "generation_unchanged": pd.store.generation() == gen,
+                "errors": st["errors"], "requests": st["requests"],
+                "post_kill_vs_members_mean": max(
+                    float(np.abs(p.mean - mean[i]).max())
+                    for i, p in enumerate(post))}
+        if srow["captures_after_warmup_and_kill"] or not \
+                srow["generation_unchanged"] or srow["errors"] or \
+                srow["member_rows"] != P - 1 or \
+                not srow["post_kill_vs_members_mean"] <= 1e-5:
+            raise AssertionError(f"regress store serving under churn: "
+                                 f"{srow}")
+        del outs
+    out["store_serving"] = srow
+    out["launches"] = launches
+    n_leaves = len(tree_leaves(pd.p_params(pd.particle_ids()[0])))
+    if n_leaves != SCI_LEAVES:
+        raise AssertionError(f"{n_leaves} leaves")
+    return launches, out
+
+
+def fig4_rows(torch, card, fig4_p8, vit_rows):
+    """Part (c): ms per epoch and samples/s of ensemble, multiswag and svgd
+    under captured, nel and baseline: the UNet at 2, 4 and 8 particles
+    (8: part (a)'s runs), ViT-MNIST's baselines at phase 4's shape beside
+    phases 4 and 8's step times; and the ensemble baseline held to the
+    fused DeepEnsemble at full width. Returns the launches and the
+    part's line."""
+    from repro_torch.bdl import DeepEnsemble, MultiSWAG, SteinVGD, baselines
+    from repro_torch.core.functional import flatten_rows
+    from repro_torch.optim import adam, sgd
+    from repro_torch.runtime import ProgramCache
+    cfg, module = unet_module()
+    opt = adam(1e-3)
+    algos = {"ensemble": (DeepEnsemble, {"optimizer": opt}),
+             "multiswag": (MultiSWAG, {"optimizer": opt,
+                                       "pretrain_epochs": 0,
+                                       "max_rank": 20}),
+             "svgd": (SteinVGD, {"lengthscale": 0.0, "lr": 5e-2})}
+    keys = ("ms_per_epoch", "samples_per_s", "wall_s", "peak_gb")
+    out = {"phase": 12, "part": "c", "card": card,
+           "unet": {"batch": SCI_B, "batches_per_epoch": SCI_NB,
+                    "epochs": 2, "timed": "the last epoch"},
+           "vit_mnist": {"batch": TRAIN_B, "batches_per_epoch": TRAIN_NB}}
+    launches, rows = {}, {}
+    for name, (cls, kw) in algos.items():
+        rows[name] = {}
+        for P in SCI_FIG4_P + (SCI_P,):
+            r = {}
+            if P == SCI_P:
+                r["captured"] = {k: fig4_p8[name]["captured"][k]
+                                 for k in keys}
+                r["nel"] = {k: fig4_p8[name]["nel"][k] for k in keys}
+            else:
+                for impl, backend, cache in (
+                        ("captured", "compiled", ProgramCache()),
+                        ("nel", "nel", None)):
+                    algo, row = sci_train(torch, cls, module, P, 2, backend,
+                                          cache, **kw)
+                    add_counts(launches, row["launches"])
+                    r[impl] = {k: row[k] for k in keys}
+                    algo.cleanup()
+                    del algo
+            _, row = sci_baseline(torch, name, module, P, 2, SCI_B, SCI_NB,
+                                  **kw)
+            add_counts(launches, row["launches"])
+            r["baseline"] = {k: row[k] for k in keys + ("captured", "cache")}
+            rows[name][f"P={P}"] = r
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["unet"]["rows"] = rows
+
+    # the gate: tests/test_bdl.py's check at full width
+    got, _ = baselines.ensemble_baseline(
+        module, sgd(0.05), SCI_P, sci_loader(torch, cfg, SCI_B, SCI_NB), 1,
+        seed=SEED)
+    fused = DeepEnsemble(module, seed=SEED, backend="compiled")
+    fused.push_dist.runtime.cache = ProgramCache()
+    fused.bayes_infer(sci_loader(torch, cfg, SCI_B, SCI_NB), 1,
+                      optimizer=sgd(0.05), num_particles=SCI_P)
+    out["ensemble_baseline_vs_fused"] = float(
+        (flatten_rows(got)[0] - flatten_rows(fused.p_parameters())[0])
+        .abs().max())
+    fused.cleanup()
+    del got, fused
+    if not out["ensemble_baseline_vs_fused"] <= 1e-5:
+        raise AssertionError(f"ensemble baseline vs fused: "
+                             f"{out['ensemble_baseline_vs_fused']}")
+
+    # ViT-MNIST: the baselines at phase 4's shape, beside the captured and
+    # NEL step times of phases 4 and 8 (an epoch: TRAIN_NB steps, plus a
+    # collection for multiswag)
+    vcfg, vmodule = vit_module()
+    vkw = {"ensemble": {"optimizer": adam(1e-3)},
+           "multiswag": {"optimizer": adam(1e-3), "pretrain_epochs": 0,
+                         "max_rank": 20},
+           "svgd": {"lengthscale": 0.0, "lr": 1e-3}}
+    vrows = {}
+    for name, kw in vkw.items():
+        _, row = sci_baseline(torch, name, vmodule, TRAIN_P, 2, TRAIN_B,
+                              TRAIN_NB, **kw)
+        add_counts(launches, row["launches"])
+        vrows[name] = {**vit_rows[name],
+                       "baseline": {k: row[k] for k in
+                                    keys + ("captured", "cache")}}
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["vit_mnist"]["rows"] = vrows
+    return launches, out
+
+
+def vit_fig4(steps):
+    """Phase 4's captured and phase 8's NEL step times of ViT-MNIST as
+    Fig. 4 rows: ms per epoch (TRAIN_NB steps, plus one collection for
+    multiswag) and samples/s."""
+    rows = {}
+    for name, s in steps.items():
+        rows[name] = {}
+        for impl in ("captured", "nel"):
+            ms = TRAIN_NB * s[f"{impl}_step_ms"] \
+                + s.get(f"{impl}_collect_ms", 0.0)
+            rows[name][impl] = {
+                "ms_per_epoch": ms,
+                "samples_per_s": TRAIN_P * TRAIN_B * TRAIN_NB / ms * 1e3,
+                "from": s["from"][impl]}
+    return rows
+
+
+def phase12(torch, card, vit_rows):
+    """The paper's SciML workload and Fig. 4 on the card (module doc).
+    Returns each kernel's launches over phase 12's driven runs."""
+    t0 = time.perf_counter()
+    total, walls = {}, {}
+    got, fig4_p8, algo, a_line = sci_training(torch, card)
+    add_counts(total, got)
+    emit(a_line)
+    walls["a"] = time.perf_counter() - t0
+    got, b_line = sci_serving(torch, algo, card)
+    add_counts(total, got)
+    emit(b_line)
+    algo.cleanup()
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls["b"] = time.perf_counter() - t0 - sum(walls.values())
+    got, line = fig4_rows(torch, card, fig4_p8, vit_rows)
+    add_counts(total, got)
+    emit(line)
+    walls["c"] = time.perf_counter() - t0 - sum(walls.values())
+    missing = [k for k in SCI_KERNELS if not total.get(k)]
+    if missing:
+        raise AssertionError(f"phase 12 never launched {missing}")
+    emit({"phase": 12, "part": "end", "launches": total,
+          "wall_s": time.perf_counter() - t0, "wall_s_by_part": walls,
+          "card": card})
+    # #1-#4 at the UNet's shapes, for the kernels line
+    kv = a_line["svgd"]["captured"]["kernels_vs_plain"]
+    moments = a_line["multiswag"]["captured"]
+    rows = {"pairwise_sqdist": {"shape": kv["shape"],
+                                "path": kv["sqdist_path"],
+                                "max_rel_err": kv["sqdist_rel"],
+                                **kv["timed"]["pairwise_sqdist"]},
+            "svgd_force": {"shape": kv["shape"],
+                           "max_rel_err": kv["force_rel"],
+                           **kv["timed"]["svgd_force"]},
+            "swag_moments": {
+                "max_abs_err":
+                    moments["moments_kernel_vs_plain"]["max_abs_err"],
+                **moments["moments_timed"]},
+            "swag_diag_std": {**b_line["diag_std"],
+                              "stack": b_line["diag_std_stack"]}}
+    return total, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4593,7 +5494,7 @@ def main():
     launches.update(got)
     gc.collect()
     torch.cuda.empty_cache()
-    nel_launches = phase8(torch, captured)
+    nel_launches, vit_steps = phase8(torch, captured)
     gc.collect()
     torch.cuda.empty_cache()
     lc_launches = phase9(torch, cfg, reqs)
@@ -4606,12 +5507,18 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     precision_launches, bf16_rows = phase11(torch, cfg, reqs, captured,
                                             fp32_predictive, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sciml_launches, sci_rows = phase12(torch, card, vit_fig4(vit_steps))
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
         row["lifecycle_launches"] = lc_launches.get(name, 0)
         row["serve_launches"] = serve_launches.get(name, 0)
         row["precision_launches"] = precision_launches.get(name, 0)
+        row["sciml_launches"] = sciml_launches.get(name, 0)
+        if name in sci_rows:
+            row["unet"] = sci_rows[name]
         if name in bf16_rows:
             row["bf16"] = bf16_rows[name]
     rows = list(rows.values())

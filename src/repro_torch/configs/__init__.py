@@ -1,10 +1,11 @@
 """Registry of the configs the port runs (``get(name)``)."""
 from .base import ModelConfig
-from . import qwen1p5_0p5b, vit_mnist
+from . import qwen1p5_0p5b, unet_advection, vit_mnist
 
 ALL = {
     "qwen1.5-0.5b": qwen1p5_0p5b.CONFIG,
     "vit-mnist": vit_mnist.CONFIG,
+    "unet-advection": unet_advection.CONFIG,
 }
 
 

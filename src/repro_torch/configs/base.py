@@ -2,7 +2,9 @@
 
 A ``ModelConfig`` describes one architecture. The port runs dense
 attention + MLP stacks (the LM family "dense" and the ViT's family
-"vision"), so the config carries the fields those read; field names and
+"vision") and the 1-D conv UNet (family "pde": ``d_model`` is its base
+channel count, ``n_units`` its depth, ``max_seq_len`` its grid), so the
+config carries the fields those read; field names and
 defaults match the reference, so one set of ``replace(...)`` keywords
 builds the same model in both packages.
 
@@ -19,7 +21,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | vision (the families ported)
+    family: str                      # dense | vision | pde (the families ported)
     d_model: int
     vocab_size: int
 

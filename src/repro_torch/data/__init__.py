@@ -1,5 +1,5 @@
 """Seeded synthetic data and the batched host loader (numpy only)."""
 from .loader import DataLoader
-from .synthetic import make_batch, mnist_like
+from .synthetic import advection_batch, make_batch, mnist_like
 
-__all__ = ["DataLoader", "make_batch", "mnist_like"]
+__all__ = ["DataLoader", "advection_batch", "make_batch", "mnist_like"]

@@ -1,10 +1,13 @@
 """Synthetic datasets (fully offline, seeded); numpy only.
 
-A copy of ``repro.data.synthetic`` cut to the vision family, so the same
-seed gives byte-identical batches in both packages:
+A copy of ``repro.data.synthetic`` cut to the paper's two workloads, so
+the same seed gives byte-identical batches in both packages:
 
-  mnist_like : class-conditional blob images, 28x28x1, 10 classes — a
-               stand-in for MNIST in the paper's ViT experiments.
+  mnist_like      : class-conditional blob images, 28x28x1, 10 classes —
+                    a stand-in for MNIST in the paper's ViT experiments.
+  advection_batch : 1-D advection PDE u_t + c u_x = 0 pairs (u(t), u(t+dt))
+                    with random smooth initial conditions — the paper's
+                    PDEBench UNet task, 1-D.
 """
 from __future__ import annotations
 
@@ -23,8 +26,25 @@ def mnist_like(rng: np.random.Generator, batch: int, n_classes: int = 10):
     return {"images": xs, "labels": labels}
 
 
+def advection_batch(rng: np.random.Generator, batch: int, L: int = 128,
+                    c: float = 1.0, dt: float = 4.0):
+    """Periodic 1-D advection: u(x, t+dt) = u(x - c*dt, t) (exact shift)."""
+    x = np.arange(L, dtype=np.float32)
+    u0 = np.zeros((batch, L), np.float32)
+    for k in range(1, 4):
+        amp = rng.standard_normal((batch, 1)).astype(np.float32) / k
+        phase = rng.uniform(0, 2 * np.pi, (batch, 1)).astype(np.float32)
+        u0 += amp * np.sin(2 * np.pi * k * x[None] / L + phase)
+    shift = int(round(c * dt)) % L
+    u1 = np.roll(u0, shift, axis=1)
+    return {"u0": u0[..., None], "u1": u1[..., None]}
+
+
 def make_batch(cfg, rng: np.random.Generator, batch: int, seq: int):
-    """Family-dispatching batch builder for a ModelConfig (vision only)."""
+    """Family-dispatching batch builder for a ModelConfig (the vision and
+    pde families)."""
     if cfg.family == "vision":
         return mnist_like(rng, batch, cfg.vocab_size)
+    if cfg.family == "pde":
+        return advection_batch(rng, batch, cfg.max_seq_len)
     raise NotImplementedError(f"family {cfg.family!r} has no ported data")

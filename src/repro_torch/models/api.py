@@ -1,14 +1,16 @@
 """Model facade (counterpart of ``repro.models.api``): the dense LM's
 serving entry points (paged continuous-batching prefill, decode and
 speculative verify window; prefill into and decode over a dense cache)
-and the vision family's training forward and loss.
+and the training forward and loss of the paper's two workloads, the
+vision family (ViT) and the pde family (the 1-D UNet).
 
 ``init_params`` builds ONE particle's tree (no particle axis); the store
 stacks particles. Every other function takes the stacked tree with a
 leading particle axis ``P`` and returns per-particle outputs ``(P, ...)``.
 Batches carry no particle axis: every particle sees the same batch.
 
-Vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,) int}``.
+Vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,) int}``;
+pde batches: ``{"u0": (B, L, 1) f32, "u1": (B, L, 1) f32}``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from .transformer import (decode_guard, paged_guard, stack_apply_decode,
                           stack_apply_prefill_paged,
                           stack_apply_window_paged, stack_cache_init,
                           stack_init, stack_paged_init)
+from . import unet1d as unet_mod
 from . import vit as vit_mod
 
 
@@ -33,6 +36,8 @@ def init_params(gen, cfg):
     """One particle's params, drawn from ``gen`` on ``gen.device``."""
     if cfg.family == "vision":
         return vit_mod.vit_init(gen, cfg)
+    if cfg.family == "pde":
+        return unet_mod.unet_init(gen, cfg)
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     params = {
@@ -48,17 +53,24 @@ def init_params(gen, cfg):
 
 def forward(params, batch, cfg):
     """Training-style full forward. Returns (per-particle output, aux):
-    logits (P, B, n_classes) for the vision family."""
-    if cfg.family != "vision":
-        raise NotImplementedError(f"family {cfg.family!r} has no ported "
-                                  f"training forward")
-    return vit_mod.vit_apply(params, batch["images"], cfg), {}
+    logits (P, B, n_classes) for the vision family, the predicted next
+    state (P, B, L, 1) for the pde family."""
+    if cfg.family == "vision":
+        return vit_mod.vit_apply(params, batch["images"], cfg), {}
+    if cfg.family == "pde":
+        return unet_mod.unet_apply(params, batch["u0"], cfg), {}
+    raise NotImplementedError(f"family {cfg.family!r} has no ported "
+                              f"training forward")
 
 
 def loss_fn(params, batch, cfg):
-    """Returns (loss (P,), metrics): class cross-entropy and accuracy,
-    each averaged over the batch, one value per particle."""
+    """Returns (loss (P,), metrics), one value per particle: the class
+    cross-entropy and accuracy averaged over the batch (vision), or the
+    squared error against ``u1`` averaged over (B, L, 1) (pde)."""
     out, _ = forward(params, batch, cfg)
+    if cfg.family == "pde":
+        loss = (out - batch["u1"]).square().flatten(1).mean(-1)
+        return loss, {"loss": loss}
     logits = out.float()
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)                       # (P, B)

@@ -75,6 +75,14 @@ per leaf per particle per collection, on one-row views) on a narrow ViT
 match the compiled path on the card within 1e-4; a handler that sends
 to another particle and waits on it finishes on the one device worker,
 with the card current there. Every run is joined within a time limit.
+
+The SciML workload: the full-width UNet's outputs, loss and grads on the
+card equal the CPU's within 1e-5 of the largest (TF32 off); #1 and #2 at
+the UNet's (8, 1,240,065) shape, #1 on its plain-load path (D is odd);
+each Fig. 4 baseline on the card equals the CPU run, every program a
+graph, one a NN; regression serving of a narrow UNet answers
+single-example requests with ``predict_batch``'s rows and captures
+nothing after warmup.
 """
 import threading
 
@@ -1865,3 +1873,150 @@ def test_mixed_training_keeps_fp32_masters_on_the_card(dev):
     for cls in ("SteinVGD", "DeepEnsemble"):
         f32, mixed = losses["fp32", cls], losses["mixed", cls]
         assert np.all(np.abs(mixed - f32) < 0.1 * np.abs(f32) + 0.05), cls
+
+
+# ---------------------------------------------------------------------------
+# the SciML workload: the UNet, its baselines and its regression serving
+# ---------------------------------------------------------------------------
+
+def _fp32(dev):
+    """Full fp32 products (the reference's): TF32 off for cuBLAS and
+    cuDNN, whatever an earlier test left."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _unet_module(cfg):
+    return ParticleModule(init=lambda g: api.init_params(g, cfg),
+                          loss=lambda p, b: api.loss_fn(p, b, cfg),
+                          forward=lambda p, b: api.forward(p, b, cfg)[0],
+                          cfg=cfg)
+
+
+def test_unet_forward_and_grads_on_the_card_equal_the_cpu(dev):
+    """The full-width UNet (P = 2, B = 4, L = 128) on the card against the
+    CPU on the same weights and batch: outputs and loss within 1e-5 of
+    the largest, grads within 1e-5 of the largest (another summation
+    order in the batched GEMMs, no TF32)."""
+    from repro_torch.core.functional import (ensemble_value_and_grad,
+                                             flatten_stacked)
+    _fp32(dev)
+    cfg = configs.get("unet-advection")
+    gen = torch.Generator().manual_seed(0)
+    one = [api.init_params(gen, cfg) for _ in range(2)]
+    params = tree_map(lambda *xs: torch.stack(xs), *one)
+    batch = {k: torch.from_numpy(v) for k, v in next(iter(DataLoader(
+        cfg, batch_size=4, num_batches=1, seed=3))).items()}
+    out = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda x: x.to(where), params)
+        b = {k: v.to(where) for k, v in batch.items()}
+        y = api.forward(p, b, cfg)[0]
+        loss, grads = ensemble_value_and_grad(
+            lambda pp, bb: api.loss_fn(pp, bb, cfg))(p, b)
+        out[str(where)] = (y.cpu(), loss.cpu(),
+                           flatten_stacked(grads)[0].cpu())
+    (y0, l0, g0), (y1, l1, g1) = out["cpu"], out[str(dev)]
+    assert y1.shape == (2, 4, 128, 1)
+    for a, b in ((y1, y0), (l1, l0), (g1, g0)):
+        assert ((a - b).abs().max() / b.abs().max()).item() < 1e-5
+
+
+def test_sqdist_and_force_at_the_unet_shape(dev):
+    """8 UNet particles x 1,240,065: D is odd, so #1 takes its plain
+    loads; within 1e-5 of the largest distance, exactly symmetric with a
+    zero diagonal; #2 within 2e-4 relative with the median heuristic."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    t = torch.randn((8, 1_240_065), generator=gen, device=dev) * 0.05
+    g = torch.randn((8, 1_240_065), generator=gen, device=dev)
+    assert svgd_rbf.plan_for(t).path == "plain"
+    a = svgd_rbf.pairwise_sqdist(t)
+    want = ref.pairwise_sqdist(t)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a.T) and (a.diagonal() == 0).all()
+    assert ((a - want).abs().max() / want.abs().max()).item() < 1e-5
+    got = bsvgd.svgd_force(t, g, 0.0)
+    glue = bsvgd.rbf_glue(ref.pairwise_sqdist(t), 0.0)
+    plain = ref.svgd_force(t, g, *glue)
+    assert ((got - plain).abs().max() / plain.abs().max()).item() < 2e-4
+
+
+@pytest.mark.parametrize("name", ["ensemble", "svgd", "multiswag"])
+def test_baselines_on_the_card_equal_the_cpu(dev, name):
+    """Each Fig. 4 baseline over 3 NNs of a narrow UNet on the card against
+    the same run on the CPU (params within 1e-4; SWAG moments within
+    1e-5), every program a graph on the card, one a NN (SVGD: and one
+    update)."""
+    from repro_torch.bdl import baselines
+    from repro_torch.core.functional import flatten_rows
+    from repro_torch.runtime.cache import global_cache
+    _fp32(dev)
+    cfg = configs.get("unet-advection").smoke().replace(max_seq_len=32)
+    gen = torch.Generator().manual_seed(4)
+    inits = [api.init_params(gen, cfg) for _ in range(3)]
+    runs = {}
+    for where in ("cpu", dev):
+        # the same three NNs on both devices (a card generator draws
+        # another stream than the CPU's)
+        it = iter(inits)
+        module = ParticleModule(
+            init=lambda g: tree_map(lambda x: x.to(g.device, copy=True),
+                                    next(it)),
+            loss=lambda p, b: api.loss_fn(p, b, cfg),
+            forward=lambda p, b: api.forward(p, b, cfg)[0], cfg=cfg)
+        data = DataLoader(cfg, batch_size=8, num_batches=2, seed=1)
+        before = global_cache().snapshot_stats()["cold_compiles"]
+        if name == "svgd":
+            out = (baselines.svgd_baseline(module, 3, data, 2, lr=0.05,
+                                           lengthscale=0.0, device=where),)
+        else:
+            fn = getattr(baselines, f"{name}_baseline")
+            out = fn(module, sgd(0.05), 3, data, 2, device=where)
+        runs[str(where)] = out
+        if where != "cpu":
+            info = [p for p in global_cache().program_info()
+                    if p["name"].startswith("baseline_")]
+            assert global_cache().snapshot_stats()["cold_compiles"] \
+                - before == {"ensemble": 3, "svgd": 4, "multiswag": 6}[name]
+            assert all(p["graph"] for p in info)
+    cpu, card = runs["cpu"], runs[str(dev)]
+    a, b = flatten_rows(cpu[0])[0], flatten_rows(card[0])[0].cpu()
+    assert (a - b).abs().max().item() < 1e-4
+    if name == "multiswag":
+        for sa, sb in zip(cpu[1], card[1]):
+            for key in ("mean", "sq_mean", "dev"):
+                x = flatten_rows([sa[key]])[0]
+                y = flatten_rows([sb[key]])[0].cpu()
+                assert (x - y).abs().max().item() < 1e-5
+
+
+def test_unet_regress_serving_on_the_card(dev):
+    """``serve(kind="regress")`` over 4 narrow UNet particles on the card:
+    single-example requests give (L, 1) means and variances equal to
+    ``predict_batch``'s rows within 1e-5, every bucket a graph, nothing
+    captured after warmup."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.data import advection_batch
+    _fp32(dev)
+    cfg = configs.get("unet-advection").smoke().replace(max_seq_len=32)
+    with DeepEnsemble(_unet_module(cfg), backend="compiled",
+                      device=dev) as algo:
+        algo.bayes_infer(DataLoader(cfg, batch_size=8, num_batches=2), 1,
+                         optimizer=adam(1e-3), num_particles=4)
+        data = advection_batch(np.random.default_rng(2), 12, 32)["u0"]
+        reqs = [{"u0": u} for u in data]
+        with serve(algo, kind="regress", max_batch=8,
+                   warmup=reqs[0]) as svc:
+            cache = svc.engine.cache
+            info = cache.program_info()
+            assert len(info) == 4 and all(p["graph"] for p in info)
+            cold = cache.snapshot_stats()["cold_compiles"]
+            preds = [h.result(60.0) for h in
+                     [svc.predict_async(r) for r in reqs]]
+            assert cache.snapshot_stats()["cold_compiles"] == cold
+            heads = svc.predict_batch({"u0": data[:8]})
+        for i, p in enumerate(preds[:8]):
+            assert p.mean.shape == p.variance.shape == (32, 1)
+            for k in ("mean", "variance", "entropy", "mutual_info"):
+                assert np.abs(getattr(p, k) - heads[k][i].cpu().numpy()
+                              ).max() <= 1e-5

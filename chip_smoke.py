@@ -368,11 +368,63 @@ Phase 12 the paper's SciML workload and its Fig. 4 baselines
          kernel's ``sciml_launches`` in the kernels line are phase 12's
          driven runs, its ``unet`` entry #1-#4 timed at the UNet's shapes.
 
-The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12:
-the kernel checks first, then the serving runs over one set of
+Phase 13 LM training: 4 full-width qwen1.5-0.5b particles (24 layers,
+         463,987,712 parameters each, random weights from seed 0, TF32
+         off) fed one 2048-token lm_batch sequence a step by the seeded
+         DataLoader, through ParticleModule(loss=api.loss_fn) (the
+         chunked flash attention with its blockwise backward, the
+         chunked cross-entropy). First, at one layer's shape (P 4, B 1,
+         S 2048, 16 heads of 64), the chunked attention's forward and
+         backward against full_attention's autograd within 1e-4 of the
+         largest entry, and _chunked_ce's loss and grads against one
+         unchunked cross-entropy of the same logits within 1e-5
+         relative, each timed beside an SDPA forward + backward (a
+         yardstick only) and its bound (the work the function needs:
+         S(S+1)/2 causal entries a head, 6 FLOPs a MAC for the
+         cross-entropy; what the code computes beside it as
+         ``code_flops``). (a) DeepEnsemble with
+         adam(warmup_cosine(3e-3, 2, 8)) through an eager cache for 2
+         steps, then captured (backend="compiled") for 8 from the same
+         init, a step a call (bayes_infer, then the fused epoch loop on
+         the same particles): one capture, none after the first step;
+         the captured losses and params after step 1 equal the eager
+         run's bit for bit, the losses of step 2 too; no kernel launched;
+         the schedule read back on the card at steps 1-8 within 1e-6 of
+         numpy's formula. It prints tokens/s (P x B x S over a
+         synchronised step's host ms), the step's host and device ms and
+         idle share (a profiled window), peak memory, pool bytes and the
+         step's FLOP bound at 67 TFLOP/s fp32 (the products and the
+         causal attention a step needs; what the code computes, with
+         the loss chunks' recompute and the masked blocks, beside it as
+         ``code_bound_ms``).
+         (b) step 1 again under remat_policy "nothing_saveable" and
+         "dots_saveable", each captured: losses within 1e-5 of (a)'s
+         first step, params within 1e-6 relative; peak memory, pool and
+         device ms beside (a)'s. (c) adafactor(warmup_cosine(1e-2, 2,
+         8)), made by make_optimizer from the config with
+         optimizer="adafactor", captured, 4 steps: finite losses, one
+         capture, the first update of the factored leaf units.attn.wq.w
+         within 1e-5 (of its largest entry) of the formula in float64
+         on the same grads; its state's bytes beside Adam's. (d) SteinVGD (the median heuristic, lr
+         1e-3), captured, 4 steps: #1 and #2 once a step at (4,
+         463,987,712), #1 on its bulk-copy path, the counters equal to
+         the profiler's over a profiled window; each kernel against its
+         plain version on the trained state (sqdist 1e-5 of its largest
+         entry, against the plain version in fp64: the fp32 Gram form
+         sums 463,987,712 products an entry; the force 2e-4 relative),
+         timed beside its bound. (e)
+         DeepEnsemble on the NEL (backend="nel"), Adam, 2 steps: step
+         1's losses within 1e-5 of (a)'s; a profiled NEL step's host and
+         device ms and idle share. Each part prints its line with the
+         card's name and power limit; each kernel's
+         ``lm_training_launches`` in the kernels line are phase 13's
+         driven runs, and #1 and #2 carry their ``lm`` rows.
+
+The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12,
+13: the kernel checks first, then the serving runs over one set of
 particles, then training, fused and then on the NEL, then the lifecycle,
 then predictive serving, then the precision ladder, then the SciML
-workload and the baselines.
+workload and the baselines, then LM training.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -2023,15 +2075,15 @@ def one_program_each(mode, stats, info, names):
         raise AssertionError(f"captured run left an eager program: {info}")
 
 
-def program_window(torch, rt, spec, args, track=OURS):
+def program_window(torch, rt, spec, args, track=OURS, n=3, **kw):
     """``profile_steps`` of ``spec``'s program at ``args``, which must be
     the cache's own (a hit: nothing is captured), with its capture time
-    and pool bytes beside the profile."""
+    and pool bytes beside the profile; ``kw`` goes to profile_steps."""
     cold = rt.cache.snapshot_stats()["cold_compiles"]
     prog = rt.program(spec, *args)
     if rt.cache.snapshot_stats()["cold_compiles"] != cold:
         raise AssertionError(f"{spec.name}: captured again after the run")
-    prof = profile_steps(torch, lambda: prog(*args), n=3, track=track)
+    prof = profile_steps(torch, lambda: prog(*args), n=n, track=track, **kw)
     prof["capture_s"], prof["pool_bytes"] = prog.capture_s, prog.pool_bytes
     return prof
 
@@ -5441,6 +5493,671 @@ def phase12(torch, card, vit_rows):
     return total, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LM training (qwen1.5-0.5b particles through the normal entry
+# points: DeepEnsemble with Adam under warmup_cosine and with Adafactor,
+# captured and on the NEL, and SteinVGD)
+# ---------------------------------------------------------------------------
+
+LM_P = 4                         # particles (phase 2's serving count)
+LM_B, LM_S = 1, 2048             # one 2048-token sequence a step
+LM_STEPS = 8                     # part (a)'s captured steps
+LM_EAGER = 2                     # ... and the eager cache's from the same init
+LM_SCHED = (3e-3, 2, 8)          # examples/train_lm.py's warmup_cosine(3e-3, 20, steps), cut to 8 steps
+LM_AF_SCHED = (1e-2, 2, 8)       # adafactor's default lr under the same warmup
+LM_AF_STEPS = 4
+LM_SVGD_STEPS = 4
+LM_SVGD_LR = 1e-3
+LM_REMAT = ("nothing_saveable", "dots_saveable")
+LM_D = 463_987_712               # parameters per qwen1.5-0.5b particle
+LM_Q_CHUNK, LM_K_CHUNK = 512, 1024   # models.blocks.flash_attention's chunks
+LM_LOSS_CHUNK = 512              # models.api.LOSS_CHUNK
+
+
+def lm_module(cfg):
+    """qwen1.5-0.5b's ParticleModule for training: the dense family's
+    ``api.loss_fn`` over the stacked particles."""
+    from repro_torch.core import ParticleModule
+    from repro_torch.models import api
+    return ParticleModule(init=lambda g: api.init_params(g, cfg),
+                          loss=lambda p, b: api.loss_fn(p, b, cfg), cfg=cfg)
+
+
+def lm_batches(cfg, n):
+    """The seeded loader's first ``n`` host batches (lm_batch, B x S)."""
+    from repro_torch.data import DataLoader
+    return list(DataLoader(cfg, batch_size=LM_B, seq_len=LM_S,
+                           num_batches=n, seed=SEED))
+
+
+def lm_live_entries(S, q_chunk=LM_Q_CHUNK, k_chunk=LM_K_CHUNK):
+    """Score entries the causal chunked attention computes for one
+    sequence and head: every block but those its mask empties (k_lo >
+    q_hi), which ``blocks.flash_attention`` skips."""
+    qc, kc = min(q_chunk, S), min(k_chunk, S)
+    nq, nk = -(-S // qc), -(-S // kc)
+    return sum(qc * kc for qi in range(nq) for ki in range(nk)
+               if not ki * kc > (qi + 1) * qc - 1)
+
+
+def lm_attention_flops(S, hd, code=False):
+    """FLOPs of one sequence and head of causal attention, forward and
+    backward: 4 hd a score entry forward (QK^T, PV) and 8 hd backward
+    (dP, dQ, dK, dV) over the S(S+1)/2 entries the mask keeps. With
+    ``code``, what ``blocks.flash_attention`` computes: every entry of the
+    blocks the mask does not empty (``lm_live_entries``), and 2 hd more
+    for the backward's recompute of the scores."""
+    if code:
+        return lm_live_entries(S) * hd * 14
+    return S * (S + 1) // 2 * hd * 12
+
+
+def lm_step_flops(cfg, P, B, S):
+    """FLOPs of one train step. ``total`` is what the step needs: the
+    dense and head products forward and backward (3 x 2 x MACs a token)
+    and the causal attention (``lm_attention_flops``). ``code_total`` is
+    what the code computes: also the loss chunks' checkpointed head
+    forward again (2 x MACs a token) and the chunked attention's masked
+    entries and score recompute."""
+    D, F, V, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.hd
+    H, KVH, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    dense = L * (D * H * hd + 2 * D * KVH * hd + H * hd * D + 3 * D * F)
+    head = D * V
+    tokens = P * B * S
+    heads = P * B * L * H
+    attn = heads * lm_attention_flops(S, hd)
+    code_attn = heads * lm_attention_flops(S, hd, code=True)
+    return {"dense_head": 6 * (dense + head) * tokens, "attention": attn,
+            "total": 6 * (dense + head) * tokens + attn,
+            "code_loss_recompute": 2 * head * tokens,
+            "code_attention": code_attn,
+            "code_total": 6 * (dense + head) * tokens + 2 * head * tokens
+            + code_attn}
+
+
+def np_warmup_cosine(lr, warmup, total, s, final_frac=0.1):
+    """The schedule's formula in float64 (numpy), for the read-back gate."""
+    s = np.asarray(s, np.float64)
+    t = np.minimum(s - warmup, max(total - warmup, 1)) / max(total - warmup, 1)
+    cos = lr * (final_frac + (1 - final_frac) * 0.5 * (1 + np.cos(np.pi * t)))
+    return np.where(s < warmup, lr * s / max(warmup, 1), cos)
+
+
+def host_tree(tree):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def tree_rel(torch, got, want):
+    """Largest per-leaf max |got - want| / max |want| (``want`` may live
+    on the host: each leaf is moved over in turn)."""
+    from repro_torch.core.tree import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        b = b.to(a.device)
+        top = float(b.abs().max())
+        worst = max(worst, float((a - b).abs().max()) / (top or 1.0))
+    return worst
+
+
+def tree_equal(torch, got, want):
+    from repro_torch.core.tree import tree_leaves
+    return all(torch.equal(a, b.to(a.device))
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def lm_run(torch, cls, module, batches, cache, keep_first=False, **kw):
+    """One driven run of ``cls`` over LM_P fresh particles (seed SEED) with
+    ``cache`` on the PD's runtime, a step a call so that every step's
+    losses come back: ``bayes_infer`` over the first batch (the step
+    program is looked up, and captured, there), then the algorithm's
+    fused epoch loop over each next batch on the same particles (a cache
+    hit each). Between a reset and a read of the kernels' counts. Returns
+    (algorithm, row, the params after the first step on the host or
+    None)."""
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    algo = cls(module, seed=SEED, backend="compiled")
+    algo.push_dist.runtime.cache = cache
+    fns = reset_counts()
+    losses, step_s, first = [], [], None
+    t0 = time.perf_counter()
+    pids, ls = algo.bayes_infer([batches[0]], 1, num_particles=LM_P, **kw)
+    losses.append(ls)
+    step_s.append(time.perf_counter() - t0)
+    if keep_first:
+        first = host_tree(algo.store.stacked("params"))
+    for b in batches[1:]:
+        t1 = time.perf_counter()
+        losses.append(algo._fused_epochs(pids, [b], 1, **kw))
+        step_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    row = {"steps": len(batches), "losses": losses,
+           "launches": read_counts(fns), "wall_s": time.perf_counter() - t0,
+           "step_host_s": step_s, "stats": cache.snapshot_stats(),
+           "programs": cache.program_info(), "resident_gb": resident,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"LM {cls.__name__} losses {losses}")
+    return algo, row, first
+
+
+def lm_captured_once(row, what):
+    """One program, looked up and captured once (at the first step), a
+    CUDA graph; nothing captured after it."""
+    st, info = row["stats"], row["programs"]
+    if not (len(info) == 1 and info[0]["graph"] and st["misses"] == 1
+            and st["cold_compiles"] == 1 and st["hits"] == row["steps"] - 1):
+        raise AssertionError(f"{what}: programs {info}, stats {st}")
+
+
+def lm_window(torch, algo, spec, keys, batch, **kw):
+    """``program_window`` of the algorithm's own step program on its
+    checked-out state (``kw``: n, fns, hold, prologue)."""
+    store = algo.store
+    co = {k: store.checkout(k) for k in keys}
+    try:
+        prof = program_window(torch, algo.push_dist.runtime, spec,
+                              tuple(co[k] for k in keys)
+                              + (algo._batch(batch), store.active_mask()),
+                              **kw)
+    finally:
+        for k in keys:
+            store.commit(k, co[k])
+    prof["pool_gb"] = prof.pop("pool_bytes") / 2**30
+    return prof
+
+
+def lm_free(torch):
+    """After the caller dropped its last reference to a run's algorithm:
+    collect the PD's reference cycles and return the cached blocks, so
+    that the next run's state finds the card empty."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_attention_check(torch, cfg, card):
+    """The chunked attention's forward and backward at one layer's shape
+    (P 4, B 1, S 2048, 16 heads of 64) against ``full_attention`` under
+    autograd, within 1e-4 of each output's largest entry; both timed
+    (event ms, L2 flushed) beside one SDPA forward + backward at the same
+    shape (a yardstick the port never calls) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.models import blocks
+    P, B, S, H, hd = LM_P, LM_B, LM_S, cfg.n_heads, cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn((P, B, S, H, hd), generator=gen,
+                               device="cuda") for _ in range(4))
+
+    def fwd_bwd(fn):
+        def run():
+            args = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = fn(*args)
+            return (out.detach(),) + torch.autograd.grad(out, args, do)
+        return run
+
+    flash = fwd_bwd(lambda a, b, c: blocks.flash_attention(a, b, c,
+                                                           kind="causal"))
+    plain = fwd_bwd(lambda a, b, c: blocks.full_attention(a, b, c,
+                                                          causal=True))
+
+    def sdpa_layout(x):
+        return x.reshape(P * B, S, H, hd).transpose(1, 2)
+
+    sdpa = fwd_bwd(lambda a, b, c: F.scaled_dot_product_attention(
+        sdpa_layout(a), sdpa_layout(b), sdpa_layout(c),
+        is_causal=True).transpose(1, 2).reshape(P, B, S, H, hd))
+    got, want = flash(), plain()
+    errs = {n: rel_err(a, b) for n, a, b in zip(("out", "dq", "dk", "dv"),
+                                                got, want)}
+    del got, want
+    if not all(e < 1e-4 for e in errs.values()):
+        raise AssertionError(f"chunked attention vs full_attention: {errs}")
+    flops = P * B * H * lm_attention_flops(S, hd)
+    code_flops = P * B * H * lm_attention_flops(S, hd, code=True)
+    ms, by = bound(8 * P * B * S * H * hd * 4, flops)
+    row = {"shape": [P, B, S, H, hd], "max_rel_err": errs,
+           "fwd_bwd_ms": time_ms(torch, flash, iters=10),
+           "fwd_bwd_device_ms": device_ms(torch, flash, n=5),
+           "plain_fwd_bwd_ms": time_ms(torch, plain, iters=10),
+           "sdpa_fwd_bwd_ms": time_ms(torch, sdpa, iters=10),
+           "bound_ms": ms, "bound_by": by, "flops": flops,
+           "code_flops": code_flops,
+           "code_bound_ms": bound(8 * P * B * S * H * hd * 4, code_flops)[0],
+           "card": card}
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_ce_check(torch, cfg, card):
+    """``_chunked_ce``'s per-particle loss and its grads in x and the tied
+    head against one unchunked cross-entropy of the same logits (the
+    whole (P, S, V) logits at once), within 1e-5 relative, at the step's
+    shape with a few labels masked; both timed (forward + backward)."""
+    from repro_torch.models import api
+    P, B, S, D, V = LM_P, LM_B, LM_S, cfg.d_model, cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.randn((P, B, S, D), generator=gen, device="cuda")
+    emb = torch.randn((P, V, D), generator=gen, device="cuda") * 0.02
+    labels = torch.from_numpy(lm_batches(cfg, 1)[0]["labels"]).to("cuda")
+    labels[:, ::97] = -1
+
+    def unchunked(e, xx):
+        logits = torch.bmm(xx.reshape(P, -1, D), e.transpose(1, 2)).float()
+        lse = torch.logsumexp(logits, -1)
+        lab = labels.reshape(-1)
+        gold = logits.gather(-1, lab.clamp(min=0).long().expand(
+            P, -1)[..., None])[..., 0]
+        m = (lab >= 0).float()
+        return ((lse - gold) * m).sum(-1) / m.sum().clamp(min=1.0)
+
+    def fwd_bwd(fn):
+        def run():
+            e, xx = emb.detach().requires_grad_(True), \
+                x.detach().requires_grad_(True)
+            loss = fn(e, xx)
+            return (loss.detach(),) + torch.autograd.grad(loss.sum(),
+                                                          (e, xx))
+        return run
+
+    chunked = fwd_bwd(lambda e, xx: api._chunked_ce({"embed": e}, xx, labels,
+                                                    cfg))
+    plain = fwd_bwd(unchunked)
+    got, want = chunked(), plain()
+    errs = {n: rel_err(a, b) for n, a, b in zip(("loss", "d_embed", "d_x"),
+                                                got, want)}
+    del got, want
+    if not all(e < 1e-5 for e in errs.values()):
+        raise AssertionError(f"chunked CE vs unchunked: {errs}")
+    # 6 FLOPs a MAC: the logits, d_x and d_embed; the chunks' checkpoint
+    # computes the logits twice (8)
+    flops, code_flops = 6 * P * B * S * D * V, 8 * P * B * S * D * V
+    nbytes = 4 * (2 * P * V * D + 2 * P * B * S * D)
+    ms, by = bound(nbytes, flops)
+    row = {"shape": [P, B, S, D, V], "chunks": -(-S // LM_LOSS_CHUNK),
+           "max_rel_err": errs, "fwd_bwd_ms": time_ms(torch, chunked,
+                                                      iters=5),
+           "unchunked_fwd_bwd_ms": time_ms(torch, plain, iters=5),
+           "bound_ms": ms, "bound_by": by, "flops": flops,
+           "code_flops": code_flops,
+           "code_bound_ms": bound(nbytes, code_flops)[0], "card": card}
+    del x, emb, labels
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_ensemble(torch, cfg, module, batches, card, total):
+    """(a) DeepEnsemble with adam(warmup_cosine(3e-3, 2, 8)), eager for 2
+    steps and then captured for 8 from the same init (its line printed
+    here); (b) the first step again under each remat policy, captured.
+    Returns the two parts' lines and the first step's losses and params
+    (on the host) for part (e)."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.optim import adam, warmup_cosine
+    from repro_torch.runtime import ProgramCache, eager, specs
+    sched = warmup_cosine(*LM_SCHED)
+    flops = lm_step_flops(cfg, LM_P, LM_B, LM_S)
+    b_ms, b_by = bound(4 * 4 * LM_P * LM_D, flops["total"])
+    runs = {}
+    algo, runs["eager"], first = lm_run(
+        torch, DeepEnsemble, module, batches[:LM_EAGER],
+        ProgramCache(capturer=eager), keep_first=True, optimizer=adam(sched))
+    add_counts(total, runs["eager"]["launches"])
+    algo.cleanup()
+    del algo
+    lm_free(torch)
+    opt = adam(sched)
+    algo, runs["captured"], first_c = lm_run(
+        torch, DeepEnsemble, module, batches[:LM_STEPS], ProgramCache(),
+        keep_first=True, optimizer=opt)
+    add_counts(total, runs["captured"]["launches"])
+    cap, eag = runs["captured"], runs["eager"]
+    lm_captured_once(cap, "captured DeepEnsemble")
+    if cap["losses"][:LM_EAGER] != eag["losses"]:
+        raise AssertionError(f"captured losses {cap['losses'][:LM_EAGER]} "
+                             f"!= eager {eag['losses']}")
+    if not tree_equal(torch, first_c, first):
+        raise AssertionError(f"captured params after step 1 != eager's: "
+                             f"{tree_rel(torch, first_c, first)}")
+    del first_c
+    same_launches({m: r["launches"] for m, r in runs.items()}, "LM ensemble")
+    if any(cap["launches"].values()):
+        raise AssertionError(f"LM training launched {cap['launches']}")
+    # the schedule read back on the card: the store's steps, then steps
+    # 1-8 one by one, against the formula in numpy
+    steps = [int(s) for s in algo.store.dense("opt_state")["step"].cpu()]
+    got = [float(sched(torch.full((LM_P,), s, dtype=torch.int32,
+                                  device="cuda"))[0])
+           for s in range(1, LM_STEPS + 1)]
+    want = np_warmup_cosine(*LM_SCHED, np.arange(1, LM_STEPS + 1))
+    lr_rel = float(np.abs(np.array(got) - want).max() / want.max())
+    if not (lr_rel < 1e-6 and steps == [LM_STEPS] * LM_P):
+        raise AssertionError(f"schedule read back {got} at steps {steps}, "
+                             f"numpy {want.tolist()}")
+    spec = specs.ensemble_step(module.loss, opt, precision=algo.precision)
+    prof = lm_window(torch, algo, spec, ("params", "opt_state"), batches[0])
+    adam_gb = algo.store.nbytes("opt_state") / 2**30
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    algo.cleanup()
+    del algo
+    lm_free(torch)
+    tokens = LM_P * LM_B * LM_S
+    a_line = {"phase": 13, "part": "a", "config": cfg.name,
+              "particles": LM_P, "batch": LM_B, "seq_len": LM_S,
+              "optimizer": "adam(warmup_cosine(%g, %d, %d))" % LM_SCHED,
+              "runs": runs, "opt_state_steps": steps, "lr_by_step": got,
+              "lr_rel_err": lr_rel, "step_host_ms": prof["wall_ms"],
+              "step_device_ms": prof["device_busy_ms"],
+              "idle_share": prof["idle_share"],
+              "tokens_per_s": tokens / prof["wall_ms"] * 1e3,
+              "profile": prof, "peak_gb": peak, "opt_state_gb": adam_gb,
+              "step_flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+              "code_bound_ms": bound(4 * 4 * LM_P * LM_D,
+                                     flops["code_total"])[0],
+              "card": card}
+    emit(a_line)
+    remat = {"none": {"peak_gb": cap["peak_gb"],
+                      "pool_gb": cap["programs"][0]["pool_bytes"] / 2**30,
+                      "step_device_ms": prof["device_busy_ms"],
+                      "step_host_ms": prof["wall_ms"]}}
+    for name in LM_REMAT:
+        mod = lm_module(cfg.replace(remat_policy=name))
+        opt = adam(sched)
+        algo, row, p1 = lm_run(torch, DeepEnsemble, mod, batches[:1],
+                               ProgramCache(), keep_first=True,
+                               optimizer=opt)
+        add_counts(total, row["launches"])
+        lm_captured_once(row, f"remat {name}")
+        d_loss = float(np.abs(np.array(row["losses"][0])
+                              - eag["losses"][0]).max())
+        p_rel = tree_rel(torch, p1, first)
+        del p1
+        if not (d_loss < 1e-5 and p_rel < 1e-6):
+            raise AssertionError(f"remat {name}: losses {row['losses'][0]} "
+                                 f"vs {eag['losses'][0]}, params rel {p_rel}")
+        prof = lm_window(torch, algo, specs.ensemble_step(
+            mod.loss, opt, precision=algo.precision),
+            ("params", "opt_state"), batches[0], n=1)
+        remat[name] = {"loss_max_abs_diff": d_loss, "params_max_rel": p_rel,
+                       "peak_gb": row["peak_gb"],
+                       "pool_gb": row["programs"][0]["pool_bytes"] / 2**30,
+                       "capture_s": row["programs"][0]["capture_s"],
+                       "step_device_ms": prof["device_busy_ms"],
+                       "step_host_ms": prof["wall_ms"]}
+        algo.cleanup()
+        del algo
+        lm_free(torch)
+    b_line = {"phase": 13, "part": "b", "remat": remat, "card": card}
+    return a_line, b_line, eag["losses"][0], first
+
+
+LM_AF_LEAF = ("units", 0, "attn", "wq", "w")   # (P, 24, 1024, 1024)
+
+
+def lm_leaf(tree, path=LM_AF_LEAF):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def np_adafactor_first(g, lr, eps=1e-30, clip=1.0):
+    """Adafactor's first update of one factored leaf (P, ..., r, c), the
+    formula in float64: beta = 0 at step 1, so vr and vc are the row and
+    column means of g^2 + eps; u = g / sqrt(vr vc / mean(vr) + eps),
+    clipped by its RMS over each particle's axes. Returns lr * u."""
+    g2 = g * g + eps
+    vr, vc = g2.mean(-1), g2.mean(-2)
+    denom = vr[..., None] * vc[..., None, :] / np.maximum(
+        vr.mean(-1, keepdims=True)[..., None], eps)
+    u = g / np.sqrt(denom + eps)
+    rms = np.sqrt((u * u).reshape(len(u), -1).mean(-1) + 1e-12)
+    u = u / np.maximum(rms / clip, 1.0).reshape((-1,) + (1,) * (u.ndim - 1))
+    return lr * u
+
+
+def lm_adafactor_first(torch, module, opt, batch, p1):
+    """The captured run's first Adafactor update of one factored leaf
+    (``LM_AF_LEAF``: p0 - p1, p1 that leaf after step 1) against
+    ``np_adafactor_first`` of the same grads: the particles made again
+    from SEED (the run's init), the grads of the step's
+    ``ensemble_value_and_grad`` at it. Returns the largest difference
+    over the largest update."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.core.functional import ensemble_value_and_grad
+    from repro_torch.core.tree import tree_map
+    probe = DeepEnsemble(module, seed=SEED, backend="compiled")
+    for _ in range(LM_P):
+        probe.push_dist.p_create(opt)
+    params = tree_map(lambda x: x[:LM_P], probe.store.stacked("params"))
+    p0 = lm_leaf(params).double().cpu().numpy()
+    _, grads = ensemble_value_and_grad(module.loss)(params,
+                                                    probe._batch(batch))
+    g = lm_leaf(grads).double().cpu().numpy()
+    del params, grads
+    probe.cleanup()
+    del probe
+    lm_free(torch)
+    want = np_adafactor_first(g, float(np_warmup_cosine(*LM_AF_SCHED, 1)))
+    got = p0 - p1[:LM_P].double().numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def lm_adafactor(torch, cfg, batches, card, total, adam_gb):
+    """(c) DeepEnsemble with adafactor(warmup_cosine(1e-2, 2, 8)), built
+    from the config (``optimizer="adafactor"``), captured, 4 steps: finite
+    losses, one capture, and the first update of a factored leaf within
+    1e-5 of the formula's (``lm_adafactor_first``); its state's bytes
+    beside Adam's."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.runtime import ProgramCache
+    af_cfg = cfg.replace(optimizer="adafactor")
+    module = lm_module(af_cfg)
+    opt = make_optimizer(af_cfg, warmup_cosine(*LM_AF_SCHED))
+    algo, row, p1 = lm_run(torch, DeepEnsemble, module,
+                           batches[:LM_AF_STEPS], ProgramCache(),
+                           keep_first=True, optimizer=opt)
+    add_counts(total, row["launches"])
+    lm_captured_once(row, "captured Adafactor")
+    af_gb = algo.store.nbytes("opt_state") / 2**30
+    algo.cleanup()
+    del algo
+    lm_free(torch)
+    first_rel = lm_adafactor_first(torch, module, opt, batches[0],
+                                   lm_leaf(p1))
+    if not first_rel < 1e-5:
+        raise AssertionError(f"Adafactor's first update of {LM_AF_LEAF} is "
+                             f"{first_rel} off the formula's")
+    return {"phase": 13, "part": "c", "optimizer": af_cfg.optimizer,
+            "schedule": "warmup_cosine(%g, %d, %d)" % LM_AF_SCHED,
+            "run": row, "first_update_leaf": list(LM_AF_LEAF),
+            "first_update_rel_err": first_rel, "opt_state_gb": af_gb,
+            "adam_opt_state_gb": adam_gb,
+            "step_host_ms_after_capture": [s * 1e3 for s in
+                                           row["step_host_s"][1:]],
+            "card": card}
+
+
+def lm_svgd(torch, module, batches, card, total):
+    """(d) SteinVGD (median heuristic), captured, 4 steps at P = 4: #1 and
+    #2 once a step at (4, 463,987,712), #1 on its bulk-copy path; a
+    profiled window of the step program whose counters equal the
+    profiler's; then each kernel on the trained state against its plain
+    version (sqdist within 1e-5 of its largest entry, against the plain
+    version in fp64, the force 2e-4 relative), timed beside its bound."""
+    from repro_torch.bdl import SteinVGD
+    from repro_torch.bdl.svgd import rbf_glue, svgd_force, svgd_step_spec
+    from repro_torch.core.functional import (ensemble_value_and_grad,
+                                             flatten_stacked)
+    from repro_torch.kernels import ref, svgd_rbf
+    from repro_torch.runtime import ProgramCache
+    kw = {"lr": LM_SVGD_LR, "lengthscale": 0.0}
+    algo, row, _ = lm_run(torch, SteinVGD, module, batches[:LM_SVGD_STEPS],
+                          ProgramCache(), **kw)
+    add_counts(total, row["launches"])
+    lm_captured_once(row, "captured SteinVGD")
+    want = {"pairwise_sqdist": LM_SVGD_STEPS, "svgd_force": LM_SVGD_STEPS}
+    got = {k: row["launches"][k] for k in want}
+    if got != want or sum(row["launches"].values()) != sum(want.values()):
+        raise AssertionError(f"SteinVGD launches {row['launches']}")
+    spec = svgd_step_spec(module.loss, precision=algo.precision, **kw)
+    prof = lm_window(torch, algo, spec, ("params",), batches[0], n=2,
+                     fns=train_counts(), hold=hold_train_to_profiler,
+                     prologue=32)
+    # each kernel's device ms a step in the profiled window (one launch
+    # a step; the sqdist wrapper's second kernel counted with its first)
+    mine = prof["tracked_ms"]
+    in_step = {"pairwise_sqdist": mine["sqdist_stream_kernel"]
+               + mine["sqdist_sum_kernel"],
+               "svgd_force": mine["svgd_force_kernel"]}
+    algo.push_dist.runtime.cache.clear()        # the step's graph pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = algo.store.stacked("params")
+    batch = algo._batch(batches[0])
+    grads = ensemble_value_and_grad(module.loss)(params, batch)[1]
+    theta = flatten_stacked(params)[0]
+    g = flatten_stacked(grads)[0]
+    del grads, params
+    n, D = theta.shape
+    plan = svgd_rbf.plan_for(theta)
+    sq = sqdist_exact(torch, svgd_rbf, theta, None, "LM sqdist")
+    # the plain version's Gram form in fp32 sums 463,987,712 products an
+    # entry and lands ~5e-4 of the largest entry off on an H100: both are
+    # held to the plain version computed in fp64
+    exact = ref.pairwise_sqdist(theta.double()).float()
+    plain = ref.pairwise_sqdist(theta)
+    top = exact.abs().max()
+    checks = {"shape": [n, D], "sqdist_path": plan.path,
+              "sqdist_rel": float((sq - exact).abs().max() / top),
+              "plain_fp32_sqdist_rel": float((plain - exact).abs().max()
+                                             / top)}
+    del plain, exact
+    torch.cuda.empty_cache()
+    checks["force_rel"] = rel_err(svgd_force(theta, g, 0.0),
+                                  plain_force(theta, g, 0.0))
+    torch.cuda.empty_cache()
+    if plan.path != "bulk" or D != LM_D or not (
+            checks["sqdist_rel"] < 1e-5 and checks["force_rel"] < 2e-4):
+        raise AssertionError(f"LM SVGD kernels vs plain: {checks}")
+    glue = rbf_glue(sq, 0.0)
+    nbytes = n * D * 4
+    timed = {}
+    for name, kern, pl, nb, fl in (
+            ("pairwise_sqdist", lambda: svgd_rbf.pairwise_sqdist(theta),
+             lambda: ref.pairwise_sqdist(theta), nbytes + n * n * 4,
+             3 * n * n * D),
+            ("svgd_force", lambda: svgd_rbf.svgd_force(theta, g, *glue),
+             lambda: ref.svgd_force(theta, g, *glue), 3 * nbytes,
+             6 * n * n * D)):
+        ms, by = bound(nb, fl)
+        timed[name] = {"ms": time_ms(torch, kern, iters=10),
+                       "plain_ms": time_ms(torch, pl, iters=5),
+                       "device_ms": device_ms(torch, kern, n=5),
+                       "in_step_device_ms": in_step[name],
+                       "bound_ms": ms, "bound_by": by, "bytes": nb}
+        torch.cuda.empty_cache()
+    checks["timed"] = timed
+    del theta, g, sq, glue
+    algo.cleanup()
+    del algo
+    lm_free(torch)
+    return {"phase": 13, "part": "d", "run": row, "lr": LM_SVGD_LR,
+            "lengthscale": "median", "step_host_ms": prof["wall_ms"],
+            "step_device_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"], "profile": prof,
+            "tokens_per_s": LM_P * LM_B * LM_S / prof["wall_ms"] * 1e3,
+            "kernels_vs_plain": checks, "card": card}
+
+
+def lm_nel(torch, module, batches, card, total, loss0):
+    """(e) DeepEnsemble on the NEL (backend="nel", the default), Adam under
+    the same schedule, 2 steps: the first step's losses within 1e-5 of
+    part (a)'s first step from the same init; a profiled NEL step (LM_P
+    step hops) for host and device ms and the idle share."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.optim import adam, warmup_cosine
+    torch.cuda.reset_peak_memory_stats()
+    algo = DeepEnsemble(module, seed=SEED)
+    if algo.backend != "nel":
+        raise AssertionError(f"default backend {algo.backend}")
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    _, l1 = bounded(algo.bayes_infer, [batches[0]], 1, num_particles=LM_P,
+                    optimizer=adam(warmup_cosine(*LM_SCHED)))
+    pd = algo.push_dist
+    pids = pd.particle_ids()
+
+    def step(b=algo._batch(batches[1])):
+        futs = [pd.particles[p].step(b) for p in pids]
+        return [float(f.wait(NEL_T)) for f in futs]
+
+    l2 = bounded(step)
+    torch.cuda.synchronize()
+    launches = read_counts(fns)
+    add_counts(total, launches)
+    d = float(np.abs(np.array(l1) - loss0).max())
+    if not (d < 1e-5 and np.isfinite(l2).all()):
+        raise AssertionError(f"NEL step 1 losses {l1} vs captured {loss0}; "
+                             f"step 2 {l2}")
+    wall = time.perf_counter() - t0
+    prof = bounded(profile_steps, torch, step, n=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    algo.cleanup()
+    del algo, pd, step
+    lm_free(torch)
+    return {"phase": 13, "part": "e", "losses": [l1, l2],
+            "step1_vs_captured_max_abs": d, "launches": launches,
+            "wall_s": wall, "step_host_ms": prof["wall_ms"],
+            "step_device_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"], "profile": prof,
+            "tokens_per_s": LM_P * LM_B * LM_S / prof["wall_ms"] * 1e3,
+            "peak_gb": peak, "card": card}
+
+
+def phase13(torch, card):
+    """LM training on the card (module doc). Returns each kernel's
+    launches over phase 13's driven runs and #1 / #2's rows at the LM's
+    shape."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    cfg = configs.get("qwen1.5-0.5b")
+    module = lm_module(cfg)
+    batches = lm_batches(cfg, LM_STEPS)
+    total, walls = {}, {}
+    checks = {"attention": lm_attention_check(torch, cfg, card),
+              "chunked_ce": lm_ce_check(torch, cfg, card)}
+    emit({"phase": 13, "part": "checks", **checks})
+    walls["checks"] = time.perf_counter() - t0
+    a_line, b_line, loss0, _ = lm_ensemble(torch, cfg, module, batches, card,
+                                           total)
+    emit(b_line)
+    walls["a_b"] = time.perf_counter() - t0 - sum(walls.values())
+    emit(lm_adafactor(torch, cfg, batches, card, total,
+                      a_line["opt_state_gb"]))
+    walls["c"] = time.perf_counter() - t0 - sum(walls.values())
+    d_line = lm_svgd(torch, module, batches, card, total)
+    emit(d_line)
+    walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+    emit(lm_nel(torch, module, batches, card, total, loss0))
+    walls["e"] = time.perf_counter() - t0 - sum(walls.values())
+    if not (total.get("pairwise_sqdist") and total.get("svgd_force")):
+        raise AssertionError(f"phase 13 never launched #1 and #2: {total}")
+    emit({"phase": 13, "part": "end", "launches": total,
+          "wall_s": time.perf_counter() - t0, "wall_s_by_part": walls,
+          "card": card})
+    kv = d_line["kernels_vs_plain"]
+    rows = {"pairwise_sqdist": {"shape": kv["shape"],
+                                "path": kv["sqdist_path"],
+                                "max_rel_err": kv["sqdist_rel"],
+                                **kv["timed"]["pairwise_sqdist"]},
+            "svgd_force": {"shape": kv["shape"],
+                           "max_rel_err": kv["force_rel"],
+                           **kv["timed"]["svgd_force"]}}
+    return total, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5510,6 +6227,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     sciml_launches, sci_rows = phase12(torch, card, vit_fig4(vit_steps))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_launches, lm_rows = phase13(torch, card)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
@@ -5517,6 +6237,9 @@ def main():
         row["serve_launches"] = serve_launches.get(name, 0)
         row["precision_launches"] = precision_launches.get(name, 0)
         row["sciml_launches"] = sciml_launches.get(name, 0)
+        row["lm_training_launches"] = lm_launches.get(name, 0)
+        if name in lm_rows:
+            row["lm"] = lm_rows[name]
         if name in sci_rows:
             row["unet"] = sci_rows[name]
         if name in bf16_rows:

@@ -49,7 +49,12 @@ class ModelConfig:
     tie_embeddings: bool = False
     max_seq_len: int = 8192
     dtype: str = "float32"           # compute dtype
+    remat: bool = False              # alias of remat_policy="nothing_saveable"
+    # named checkpoint policy for each unit of the LM stack
+    # (core.precision.checkpoint_policy menu); overrides `remat`
+    remat_policy: Optional[str] = None
     precision: Optional[str] = None  # store precision preset; None -> fp32
+    optimizer: str = "adam"          # adam | adafactor | sgd: make_optimizer(cfg)
     default_particles: int = 1
 
     @property

@@ -28,8 +28,9 @@ which ``runtime.cache.ProgramCache`` folds into the cache key; the fp32
 specs carry None. Dtype names are the reference's strings ("float32",
 "bfloat16"), so ``key()`` and ``describe()`` equal the reference's.
 
-The reference's remat menu (``checkpoint_policy``) comes with the LM
-training stack, its one caller (ROADMAP.md queue 1 item 13).
+The remat menu (``CHECKPOINT_POLICIES``, ``checkpoint_policy``) names
+what the LM training stack's checkpointed units keep for the backward
+(``models.transformer.stack_apply_full``, its one caller).
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ from .tree import tree_leaves, tree_map
 __all__ = ["Precision", "PRESETS", "get", "cast_floats", "tree_bytes",
            "quantize_int8", "dequantize", "is_quantized_leaf",
            "cast_for_serve", "serve_copy_like", "cast_for_serve_into",
-           "quantize_int8_like", "quantize_int8_into"]
+           "quantize_int8_like", "quantize_int8_into",
+           "CHECKPOINT_POLICIES", "checkpoint_policy"]
 
 
 def _torch_dtype(name) -> torch.dtype:
@@ -347,3 +349,82 @@ def quantize_int8_into(pack, tree, row=None, take=None, dtype=None):
     else:
         tree_map(write, tree, pack, row)
     return pack
+
+
+# ---------------------------------------------------------------------------
+# named checkpoint policies (the reference's remat menu)
+# ---------------------------------------------------------------------------
+
+# the product ops: every dense of the port is a bmm (or a baddbmm with its
+# bias) over the particle axis
+_DOTS = frozenset(("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the products, recompute the rest.
+    An ``autograd.Function``'s forward runs without grad, and its backward
+    never reads those products (the chunked flash attention recomputes its
+    score blocks itself; no reference policy sees inside its custom VJP),
+    so they are not kept either."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    name = getattr(op, "overloadpacket", op).__name__
+    if name in _DOTS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(body, context_fn=None):
+    """``body`` under a non-reentrant checkpoint that saves no RNG state:
+    the models draw no random numbers, and a captured step must not read
+    the generator's state."""
+    from torch.utils.checkpoint import checkpoint
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if context_fn is not None:
+        kw["context_fn"] = context_fn
+    return lambda *args: checkpoint(body, *args, **kw)
+
+
+def _keep_everything(body):
+    return body
+
+
+def _keep_nothing(body):
+    return _checkpointed(body)
+
+
+def _keep_dots(body):
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return _checkpointed(
+        body, lambda: create_selective_checkpoint_contexts(_save_dots))
+
+
+CHECKPOINT_POLICIES = {
+    "everything_saveable": _keep_everything,
+    "nothing_saveable": _keep_nothing,
+    "dots_saveable": _keep_dots,
+    "dots_with_no_batch_dims": _keep_dots,
+    "dots_with_no_batch_dims_saveable": _keep_dots,
+}
+
+
+def checkpoint_policy(name: str):
+    """Named rematerialization policy: a function ``body -> body`` that
+    wraps a unit's forward as the policy says, on ``torch.utils.checkpoint``.
+
+    ``nothing_saveable`` is a plain checkpoint (every op recomputed in the
+    backward: the least activation memory), ``everything_saveable`` no
+    checkpoint (every output autograd needs is kept), ``dots_saveable`` a
+    selective checkpoint that keeps the outputs of the product ops (aten
+    ``mm``, ``bmm``, ``addmm``, ``baddbmm``) and recomputes the rest.
+    ``dots_with_no_batch_dims`` (and its ``_saveable`` spelling) keeps the
+    same ops: the reference's policy sees one particle's dots inside its
+    vmap, where every dense is a dot with no batch dimension, and the
+    port's denses are those dots batched over the particle axis. No policy
+    keeps the products inside the chunked flash attention (``_save_dots``).
+    A policy changes memory and recompute, never values."""
+    try:
+        return CHECKPOINT_POLICIES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown checkpoint policy {name!r}; "
+            f"options: {sorted(CHECKPOINT_POLICIES)}") from None

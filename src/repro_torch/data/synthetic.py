@@ -1,8 +1,10 @@
 """Synthetic datasets (fully offline, seeded); numpy only.
 
-A copy of ``repro.data.synthetic`` cut to the paper's two workloads, so
-the same seed gives byte-identical batches in both packages:
+A copy of ``repro.data.synthetic`` cut to the families the port trains,
+so the same seed gives byte-identical batches in both packages:
 
+  lm_batch        : Zipf-ish token stream with local n-gram structure so a
+                    LM has signal to fit (loss visibly decreases).
   mnist_like      : class-conditional blob images, 28x28x1, 10 classes —
                     a stand-in for MNIST in the paper's ViT experiments.
   advection_batch : 1-D advection PDE u_t + c u_x = 0 pairs (u(t), u(t+dt))
@@ -12,6 +14,26 @@ the same seed gives byte-identical batches in both packages:
 from __future__ import annotations
 
 import numpy as np
+
+
+_PERM_CACHE = {}
+
+
+def lm_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int,
+             noise_p: float = 0.1):
+    """Markov token stream: next = perm[prev] with prob 1-noise_p, else
+    uniform — a bigram-learnable signal (optimal CE ~= H(noise) ~ 1.1 nats
+    at the default noise), seeded per vocab so every batch shares the map."""
+    if vocab not in _PERM_CACHE:
+        _PERM_CACHE[vocab] = np.random.default_rng(vocab).permutation(vocab)
+    perm = _PERM_CACHE[vocab]
+    toks = np.empty((batch, seq + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, batch)
+    flip = rng.random((batch, seq)) < noise_p
+    rand = rng.integers(0, vocab, (batch, seq))
+    for t in range(seq):
+        toks[:, t + 1] = np.where(flip[:, t], rand[:, t], perm[toks[:, t]])
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def mnist_like(rng: np.random.Generator, batch: int, n_classes: int = 10):
@@ -41,10 +63,15 @@ def advection_batch(rng: np.random.Generator, batch: int, L: int = 128,
 
 
 def make_batch(cfg, rng: np.random.Generator, batch: int, seq: int):
-    """Family-dispatching batch builder for a ModelConfig (the vision and
-    pde families)."""
+    """Family-dispatching batch builder for a ModelConfig (the vision, pde
+    and dense LM families; the audio and vlm frontends wait for the rest
+    of the model zoo, ROADMAP.md queue 1 item 11)."""
     if cfg.family == "vision":
         return mnist_like(rng, batch, cfg.vocab_size)
     if cfg.family == "pde":
         return advection_batch(rng, batch, cfg.max_seq_len)
-    raise NotImplementedError(f"family {cfg.family!r} has no ported data")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no ported data (ROADMAP.md queue 1, "
+            f"item 11)")
+    return lm_batch(rng, batch, seq, cfg.vocab_size)

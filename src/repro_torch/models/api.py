@@ -1,16 +1,18 @@
 """Model facade (counterpart of ``repro.models.api``): the dense LM's
 serving entry points (paged continuous-batching prefill, decode and
 speculative verify window; prefill into and decode over a dense cache)
-and the training forward and loss of the paper's two workloads, the
-vision family (ViT) and the pde family (the 1-D UNet).
+and the training forward and loss of three families: the dense LM (token
+cross-entropy in sequence chunks), the vision family (ViT) and the pde
+family (the 1-D UNet).
 
 ``init_params`` builds ONE particle's tree (no particle axis); the store
 stacks particles. Every other function takes the stacked tree with a
 leading particle axis ``P`` and returns per-particle outputs ``(P, ...)``.
 Batches carry no particle axis: every particle sees the same batch.
 
-Vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,) int}``;
-pde batches: ``{"u0": (B, L, 1) f32, "u1": (B, L, 1) f32}``.
+LM batches: ``{"tokens": (B, S) int, "labels": (B, S) int}`` (labels < 0
+masked); vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,)
+int}``; pde batches: ``{"u0": (B, L, 1) f32, "u1": (B, L, 1) f32}``.
 """
 from __future__ import annotations
 
@@ -18,18 +20,23 @@ import functools
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint as _ckpt
 
 from ..core.precision import tree_bytes
 from ..runtime.program import host_check
 from .blocks import (dense_init, norm_apply, norm_init, paged_write_index,
                      prefill_write_index, window_write_index)
 from .transformer import (decode_guard, paged_guard, stack_apply_decode,
-                          stack_apply_paged, stack_apply_prefill,
+                          stack_apply_full, stack_apply_paged,
+                          stack_apply_prefill,
                           stack_apply_prefill_paged,
                           stack_apply_window_paged, stack_cache_init,
                           stack_init, stack_paged_init)
 from . import unet1d as unet_mod
 from . import vit as vit_mod
+
+LOSS_CHUNK = 512
 
 
 def init_params(gen, cfg):
@@ -51,23 +58,76 @@ def init_params(gen, cfg):
     return params
 
 
+def _backbone_inputs(params, batch, cfg, dtype):
+    """The dense family's stack input x (P, B, S, D). The audio and vlm
+    frontends (and the vlm's offset of the text positions) wait for the
+    rest of the model zoo (ROADMAP.md queue 1, item 11)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no ported training forward "
+            f"(ROADMAP.md queue 1, item 11)")
+    return _embed(params, batch["tokens"], dtype)
+
+
+def _ce_chunk(params, xi, li, cfg):
+    """One loss chunk: per-particle sums of (lse - gold) over the live
+    labels (P,), and the count of live labels."""
+    logits = _lm_logits(params, xi, cfg).float()            # (P, B, C, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    idx = li.clamp(min=0).long()
+    gold = logits.gather(-1, idx.expand(logits.shape[:3])[..., None])[..., 0]
+    mask = (li >= 0).float()
+    return ((lse - gold) * mask).sum((1, 2)), mask.sum()
+
+
+def _chunked_ce(params, x, labels, cfg):
+    """Cross-entropy over sequence chunks of LOSS_CHUNK, per particle
+    (P,); never a full (P, B, S, V) tensor. Each chunk's head and
+    log-sum-exp run under a checkpoint, as the reference's
+    ``jax.checkpoint`` does, so the backward recomputes the chunk's
+    logits instead of keeping every chunk's. Labels < 0 are masked."""
+    P, B, S, D = x.shape
+    C = min(LOSS_CHUNK, S)
+    n = -(-S // C)
+    pad = n * C - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = cnt = 0.0
+    for i in range(n):
+        cols = slice(i * C, (i + 1) * C)
+        l, m = _ckpt.checkpoint(_ce_chunk, params, x[:, :, cols],
+                                labels[:, cols], cfg, use_reentrant=False,
+                                preserve_rng_state=False)
+        tot, cnt = tot + l, cnt + m
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 def forward(params, batch, cfg):
     """Training-style full forward. Returns (per-particle output, aux):
-    logits (P, B, n_classes) for the vision family, the predicted next
-    state (P, B, L, 1) for the pde family."""
+    the final-norm hidden states (P, B, S, D) for the dense LM family
+    (``loss_fn`` applies the head chunk by chunk), logits (P, B,
+    n_classes) for the vision family, the predicted next state (P, B, L,
+    1) for the pde family."""
     if cfg.family == "vision":
         return vit_mod.vit_apply(params, batch["images"], cfg), {}
     if cfg.family == "pde":
         return unet_mod.unet_apply(params, batch["u0"], cfg), {}
-    raise NotImplementedError(f"family {cfg.family!r} has no ported "
-                              f"training forward")
+    x = stack_apply_full(params, _backbone_inputs(params, batch, cfg,
+                                                  _dtype(cfg)), cfg)
+    return norm_apply(params["final_norm"], x), {}
 
 
 def loss_fn(params, batch, cfg):
-    """Returns (loss (P,), metrics), one value per particle: the class
-    cross-entropy and accuracy averaged over the batch (vision), or the
-    squared error against ``u1`` averaged over (B, L, 1) (pde)."""
+    """Returns (loss (P,), metrics), one value per particle: the token
+    cross-entropy over the live labels (dense; MoE's aux losses wait with
+    its layers for item 11), the class cross-entropy and accuracy
+    averaged over the batch (vision), or the squared error against ``u1``
+    averaged over (B, L, 1) (pde)."""
     out, _ = forward(params, batch, cfg)
+    if cfg.family == "dense":
+        loss = _chunked_ce(params, out, batch["labels"], cfg)
+        return loss, {"loss": loss}
     if cfg.family == "pde":
         loss = (out - batch["u1"]).square().flatten(1).mean(-1)
         return loss, {"loss": loss}

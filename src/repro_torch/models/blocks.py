@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.models.blocks`` for the LM's serving paths (paged
 decode, speculative verify, prefill, dense-cache decode) and the
-full-sequence (training) attention of the encoder stack. The
+full-sequence (training) attention: the reference's double-chunked flash
+attention with its blockwise backward for the LM's causal layers, the
+plain whole-sequence attention for the ViT's bidirectional ones. The
 reference writes each block for one particle and vmaps it over the
 ParticleStore's stacked axis; here every function takes the stacked form
 directly: parameter leaves carry a leading particle axis ``P`` and
@@ -142,16 +144,211 @@ def attn_qkv(p, x, cfg, positions):
 
 
 def full_attention(q, k, v, *, causal: bool):
-    """Whole-sequence attention for the training forward (the ViT
-    encoder's bidirectional layers), differentiable by autograd: the plain
-    version of the prefill kernel. q (P, B, S, H, hd); k, v
+    """Whole-sequence attention for the training forward of the ViT
+    encoder's bidirectional layers, differentiable by autograd: the plain
+    version of the prefill kernel, and the plain version the chunked
+    ``flash_attention`` is held against. q (P, B, S, H, hd); k, v
     (P, B, S, KVH, hd) -> (P, B, S, H, hd).
 
     The reference trains through its jnp flash attention with a custom
-    VJP (``repro.models.blocks.flash_attention``), which no Pallas kernel
-    backs; the Pallas ``flash_attention`` is forward only, and its port
+    VJP (``flash_attention`` here), which no Pallas kernel backs; the
+    Pallas ``flash_attention`` is forward only, and its port
     (``kernels.ops.flash_attention``) runs the prefill."""
     return _kref.flash_attention(q, k, v, causal=causal)
+
+
+# --------------------------------------------------------------------------
+# flash attention (plain torch, double-chunked online softmax; the
+# reference's jnp form, which no Pallas kernel backs)
+# --------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _chunk_mask(kind: str, q_pos, k_pos, *, prefix_len: int = 0):
+    """q_pos (qc,), k_pos (kc,) -> bool (qc, kc) allowed."""
+    q = q_pos[:, None]
+    k = k_pos[None, :]
+    if kind == "bidir":
+        return torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                          device=q_pos.device)
+    causal = k <= q
+    if kind == "causal":
+        return causal
+    if kind == "prefix":
+        return causal | (k < prefix_len)
+    raise ValueError(kind)
+
+
+def _block_mask(kind, prefix_len, q_offset, qi, q_chunk, ki, k_chunk,
+                device):
+    """The mask of block (qi, ki): None when every pair is allowed, False
+    when none is (a block the reference computes to exact zeros: its
+    weights are exp(-1e30 - m) = 0, its correction 1, so leaving it out
+    changes no bit), else the (qc, kc) bool mask. Decided on the block's
+    position bounds, which are Python ints."""
+    if kind == "bidir":
+        return None
+    q_lo = q_offset + qi * q_chunk
+    q_hi = q_lo + q_chunk - 1
+    k_lo, k_hi = ki * k_chunk, (ki + 1) * k_chunk - 1
+    if kind == "causal" or kind == "prefix":
+        pre = kind == "prefix"
+        if k_hi <= q_lo or (pre and k_hi < prefix_len):
+            return None
+        if k_lo > q_hi and not (pre and k_lo < prefix_len):
+            return False
+    q_pos = q_lo + torch.arange(q_chunk, device=device)
+    k_pos = k_lo + torch.arange(k_chunk, device=device)
+    return _chunk_mask(kind, q_pos, k_pos, prefix_len=prefix_len)
+
+
+def _fa_fwd_impl(q, k, v, kind, prefix_len, q_offset, q_chunk, k_chunk):
+    """Padded-shape flash forward over the folded particle and batch axis
+    N = P * B. q (N, Sqp, KVH, G, hd); k, v (N, Skp, KVH, hd). Returns
+    (out (N, Sqp, KVH, G, hd), L (N, KVH, G, Sqp)) with L the log-sum-exp
+    of the score rows (the flash softmax stats)."""
+    N, Sqp, KVH, G, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = Sqp // q_chunk, k.shape[1] // k_chunk
+    out = torch.empty_like(q)
+    L = torch.empty((N, KVH, G, Sqp), dtype=torch.float32, device=q.device)
+    for qi in range(nq):
+        rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        qq = q[:, rows] * scale                      # (N, qc, KVH, G, hd)
+        m = torch.full((N, KVH, G, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((N, KVH, G, q_chunk, hd), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            mask = _block_mask(kind, prefix_len, q_offset, qi, q_chunk, ki,
+                               k_chunk, q.device)
+            if mask is False:
+                continue
+            cols = slice(ki * k_chunk, (ki + 1) * k_chunk)
+            kk, vv = k[:, cols], v[:, cols]
+            s = torch.einsum("bqngh,bknh->bngqk", qq, kk).float()
+            if mask is not None:
+                s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))     # (N, KVH, G, qc)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bngqk,bknh->bngqh", p.to(vv.dtype), vv)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        lsafe = torch.clamp(l, min=1e-30)
+        out[:, rows] = (acc / lsafe[..., None]).to(q.dtype).permute(
+            0, 3, 1, 2, 4)
+        L[..., rows] = m + torch.log(lsafe)
+    return out, L
+
+
+def _fa_bwd_impl(q, k, v, out, L, do, kind, prefix_len, q_offset, q_chunk,
+                 k_chunk):
+    """Blockwise flash backward: each block's scores are recomputed from
+    q, k and L, so memory stays O(S * chunk); D = rowsum(do * out)."""
+    N, Sqp, KVH, G, hd = q.shape
+    Skp = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = Sqp // q_chunk, Skp // k_chunk
+    D = (do.float() * out.float()).sum(-1)           # (N, Sqp, KVH, G)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros((N, Skp, KVH, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for qi in range(nq):
+        rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        qq = q[:, rows].float()                      # (N, qc, KVH, G, hd)
+        doo = do[:, rows].float()
+        Li = L[..., rows]                            # (N, KVH, G, qc)
+        Di = D[:, rows].permute(0, 2, 3, 1)          # (N, KVH, G, qc)
+        dq_c = torch.zeros_like(qq)
+        for ki in range(nk):
+            mask = _block_mask(kind, prefix_len, q_offset, qi, q_chunk, ki,
+                               k_chunk, q.device)
+            if mask is False:
+                continue
+            cols = slice(ki * k_chunk, (ki + 1) * k_chunk)
+            kk, vv = k[:, cols].float(), v[:, cols].float()
+            s = torch.einsum("bqngh,bknh->bngqk", qq * scale, kk)
+            if mask is not None:
+                s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - Li[..., None])         # (N, KVH, G, qc, kc)
+            dp = torch.einsum("bqngh,bknh->bngqk", doo, vv)
+            ds = p * (dp - Di[..., None])
+            dq_c = dq_c + torch.einsum("bngqk,bknh->bqngh", ds, kk) * scale
+            dk[:, cols] += torch.einsum("bngqk,bqngh->bknh", ds, qq) * scale
+            dv[:, cols] += torch.einsum("bngqk,bqngh->bknh", p, doo)
+        dq[:, rows] = dq_c
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward keeps (q, k, v, out,
+    L), the backward recomputes every block (``_fa_bwd_impl``), so no
+    (S, S) score block outlives its chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, statics):
+        out, L = _fa_fwd_impl(q, k, v, *statics)
+        ctx.save_for_backward(q, k, v, out, L)
+        ctx.statics = statics
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, L = ctx.saved_tensors
+        dq, dk, dv = _fa_bwd_impl(q, k, v, out, L, do.contiguous(),
+                                  *ctx.statics)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, kind: str = "causal", softcap: float = 0.0,
+                    q_chunk: int = 512, k_chunk: int = 1024):
+    """q (P, B, Sq, H, hd); k, v (P, B, Sk, KVH, hd) -> (P, B, Sq, H, hd).
+
+    The reference's training attention: GQA by head grouping, a
+    double-chunked online softmax whose memory is O(Sq * k_chunk), never
+    (Sq, Sk), and a custom backward that recomputes attention blockwise
+    (``_FlashAttention``). The particle and batch axes fold into one
+    (N = P * B), as the reference's vmap over particles sees each
+    particle's batch. Its chunk defaults and padding rules: a chunk is
+    at most the sequence, the sequence is padded up to whole chunks, and
+    padded keys of a "bidir" attention are masked by a prefix mask over
+    the real keys with the queries moved to negative positions. Blocks
+    the mask empties entirely are skipped (exact: the reference's sums
+    get zeros there). "causal" and "bidir" are ported; "sliding",
+    "prefix" and softcap wait for the rest of the model zoo (ROADMAP.md
+    queue 1, item 11)."""
+    if kind not in ("causal", "bidir") or softcap > 0.0:
+        raise NotImplementedError(
+            f"flash attention kind {kind!r} with softcap {softcap} is not "
+            f"ported (ROADMAP.md queue 1, item 11)")
+    P, B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[2], k.shape[3]
+    q_chunk = min(q_chunk, max(Sq, 1))
+    k_chunk = min(k_chunk, max(Sk, 1))
+    nq, nk = -(-Sq // q_chunk), -(-Sk // k_chunk)
+    pq, pk = nq * q_chunk - Sq, nk * k_chunk - Sk
+    qf = q.reshape(P * B, Sq, KVH, H // KVH, hd)
+    kf = k.reshape(P * B, Sk, KVH, hd)
+    vf = v.reshape(P * B, Sk, KVH, hd)
+    if pq:
+        qf = F.pad(qf, (0, 0, 0, 0, 0, 0, 0, pq))
+    if pk:      # padded keys are masked by position (causal: in the future)
+        kf = F.pad(kf, (0, 0, 0, 0, 0, pk))
+        vf = F.pad(vf, (0, 0, 0, 0, 0, pk))
+    pad_kind, prefix_len, q_offset = kind, 0, 0
+    if kind == "bidir" and pk:
+        # every query sees exactly the keys [0, Sk): a prefix mask over
+        # them, with the queries at negative positions so that its causal
+        # branch never fires
+        pad_kind, prefix_len = "prefix", Sk
+        q_offset = -(nq * q_chunk + 1)
+    statics = (pad_kind, prefix_len, q_offset, q_chunk, k_chunk)
+    out = _FlashAttention.apply(qf, kf, vf, statics)
+    return out[:, :Sq].reshape(P, B, Sq, H, hd)
 
 
 def paged_attention(q, k_pages, v_pages, *, block_tables, seq_lens,
@@ -294,14 +491,21 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, write_index):
 def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal"):
     """Full-sequence attention (training). x (P, B, S, D); positions
     ``arange(S)`` feed RoPE when the config has it (the ViT keeps the
-    default theta, on top of its learned positions). ``kind`` is "causal"
-    or "bidir". Returns (P, B, S, D)."""
+    default theta, on top of its learned positions). ``kind`` "causal"
+    (the LM's layers) runs the chunked ``flash_attention``; "bidir" (the
+    ViT's encoder layers, S = 5) the plain ``full_attention``. Returns
+    (P, B, S, D)."""
     if kind not in ("causal", "bidir"):
-        raise NotImplementedError(f"attention kind {kind!r} is not ported")
+        raise NotImplementedError(f"attention kind {kind!r} is not ported "
+                                  f"(ROADMAP.md queue 1, item 11)")
     P, B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
-    out = full_attention(q, k, v, causal=kind == "causal")
+    if kind == "causal":
+        out = flash_attention(q, k, v, kind="causal",
+                              softcap=cfg.logit_softcap)
+    else:
+        out = full_attention(q, k, v, causal=False)
     return dense_apply(p["wo"], out.reshape(P, B, S, -1))
 
 

@@ -1,8 +1,9 @@
 """Layer-stacked transformer (counterpart of ``repro.models.transformer``):
 the LM's serving paths (paged decode, speculative verify window and
-prefill over the page pool; prefill into and decode over a dense cache)
-and the full-sequence training layer of the encoder stack
-(``enc_attn_mlp``, the ViT's layers).
+prefill over the page pool; prefill into and decode over a dense cache),
+the LM's training stack (``stack_apply_full``, with the remat menu) and
+the full-sequence training layer of the encoder stack (``enc_attn_mlp``,
+the ViT's layers).
 
 The stack is ``cfg.head_layers + cfg.pattern * cfg.n_units +
 cfg.tail_layers``. Repeated pattern units keep the reference's storage:
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+from ..core.precision import checkpoint_policy
 from ..core.tree import tree_map
 from .blocks import (attn_apply_decode, attn_apply_fullseq,
                      attn_apply_paged, attn_apply_prefill,
@@ -74,6 +76,55 @@ def layer_apply_full(kind: str, p, x, cfg):
     x = x + attn_apply_fullseq(p["attn"], norm_apply(p["ln1"], x), cfg,
                                kind=FULL_KINDS[kind])
     return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg)
+
+
+def full_guard(cfg):
+    """The training stack runs ``attn_mlp`` layers (causal) and
+    ``enc_attn_mlp`` (bidirectional); MoE, local (sliding-window) and the
+    other layer kinds, prefix-LM and logit softcap wait for the rest of
+    the model zoo (ROADMAP.md queue 1, item 11)."""
+    kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
+    bad = sorted({k for k in kinds if k not in FULL_KINDS})
+    if bad:
+        raise NotImplementedError(
+            f"the training stack supports {tuple(FULL_KINDS)} layers only, "
+            f"got {bad} (ROADMAP.md queue 1, item 11)")
+    if cfg.prefix_lm or cfg.logit_softcap > 0.0:
+        raise NotImplementedError("the training stack does not support "
+                                  "prefix_lm or logit softcap (ROADMAP.md "
+                                  "queue 1, item 11)")
+
+
+def _remat(cfg, body):
+    """``body`` wrapped as the reference wraps its scanned unit: by
+    ``checkpoint_policy(cfg.remat_policy)``; ``cfg.remat`` alone names
+    "nothing_saveable", and neither means no checkpoint."""
+    name = cfg.remat_policy or ("nothing_saveable" if cfg.remat else
+                                "everything_saveable")
+    return checkpoint_policy(name)(body)
+
+
+def stack_apply_full(params, x, cfg):
+    """The training forward through the stack. x (P, B, S, D) -> (P, B,
+    S, D). The reference scans its units; here a Python loop takes each
+    unit's params as views (``unbind_units``), and the unit body is
+    checkpointed as ``_remat`` says."""
+    full_guard(cfg)
+
+    def body(x, unit):
+        for kind, p in zip(cfg.pattern, unit):
+            x = layer_apply_full(kind, p, x, cfg)
+        return x
+
+    body = _remat(cfg, body)
+    for kind, p in zip(cfg.head_layers, params["head"]):
+        x = layer_apply_full(kind, p, x, cfg)
+    if cfg.n_units:
+        for unit in unbind_units(params["units"]):
+            x = body(x, unit)
+    for kind, p in zip(cfg.tail_layers, params["tail"]):
+        x = layer_apply_full(kind, p, x, cfg)
+    return x
 
 
 def layer_apply_prefill(kind: str, p, x, cfg, cache):

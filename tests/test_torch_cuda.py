@@ -83,6 +83,12 @@ each Fig. 4 baseline on the card equals the CPU run, every program a
 graph, one a NN; regression serving of a narrow UNet answers
 single-example requests with ``predict_batch``'s rows and captures
 nothing after warmup.
+
+LM training: a narrow qwen's DeepEnsemble steps (Adam under
+warmup_cosine) captured equal the eager steps bit for bit; the chunked
+flash attention's backward on the card equals ``full_attention``'s
+autograd and the CPU's; a schedule is read with no host sync and a CUDA
+graph of the update replays the eager bits.
 """
 import threading
 
@@ -2020,3 +2026,134 @@ def test_unet_regress_serving_on_the_card(dev):
             for k in ("mean", "variance", "entropy", "mutual_info"):
                 assert np.abs(getattr(p, k) - heads[k][i].cpu().numpy()
                               ).max() <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# LM training: a captured DeepEnsemble step of a narrow qwen, the chunked
+# attention's backward on the card, a schedule read with no host sync
+# --------------------------------------------------------------------------
+
+def _lm_run(dev, capturer):
+    """2 narrow-qwen particles, 3 captured (or eager) steps of
+    adam(warmup_cosine(3e-3, 2, 4)) over 64-token sequences; the state,
+    the losses and the cache's stats and programs."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.runtime import ProgramCache
+    cfg = _capture_cfg()
+    mod = ParticleModule(init=lambda g: api.init_params(g, cfg),
+                         loss=lambda p, b: api.loss_fn(p, b, cfg), cfg=cfg)
+    algo = DeepEnsemble(mod, backend="compiled", device=dev)
+    cache = ProgramCache(capturer=capturer)
+    algo.push_dist.runtime.cache = cache
+    _, losses = algo.bayes_infer(
+        DataLoader(cfg, batch_size=2, seq_len=64, num_batches=3), 1,
+        num_particles=2, optimizer=adam(warmup_cosine(3e-3, 2, 4)))
+    torch.cuda.synchronize()
+    out = ([_host(algo.store.stacked(k)) for k in ("params", "opt_state")],
+           losses, cache.snapshot_stats(), cache.program_info())
+    algo.cleanup()
+    return out
+
+
+def test_captured_lm_ensemble_step_matches_eager(dev):
+    """The LM's DeepEnsemble step captured once as a CUDA graph and
+    replayed gives the eager run's params, Adam state and losses bit for
+    bit (the embedding's backward accumulates in a sorted order on the
+    card), with one program captured at the first step."""
+    from repro_torch.runtime import eager, lower
+    _fp32(dev)
+    g, e = _lm_run(dev, lower), _lm_run(dev, eager)
+    assert _same_bits(g[0], e[0]) and g[1] == e[1]
+    assert np.isfinite(g[1]).all()
+    for (stats, info), graph in (((g[2], g[3]), True), ((e[2], e[3]), False)):
+        assert [p["name"] for p in info] == ["ensemble_step"]
+        assert stats["misses"] == stats["cold_compiles"] == 1
+        assert info[0]["graph"] == graph
+
+
+def test_chunked_attention_backward_on_the_card(dev):
+    """The chunked flash attention's forward and custom backward on the
+    card against ``full_attention`` under autograd (700 tokens over
+    chunks of 256 and 512, both padded; 2 queries a kv head), within 1e-4
+    of each output's largest entry, causal and bidir; and against the
+    CPU's chunked run within 1e-5."""
+    from repro_torch.models import blocks
+    _fp32(dev)
+    gen = torch.Generator().manual_seed(3)
+    shape = (2, 2, 700)
+    q = torch.randn(shape + (4, 64), generator=gen)
+    k, v = (torch.randn(shape + (2, 64), generator=gen) for _ in range(2))
+    do = torch.randn(shape + (4, 64), generator=gen)
+
+    def fwd_bwd(fn, where):
+        args = [x.to(where).requires_grad_(True) for x in (q, k, v)]
+        out = fn(*args)
+        grads = torch.autograd.grad(out, args, do.to(where))
+        return [x.detach().cpu() for x in (out,) + grads]
+
+    for kind in ("causal", "bidir"):
+        def flash(a, b, c):
+            return blocks.flash_attention(a, b, c, kind=kind, q_chunk=256,
+                                          k_chunk=512)
+
+        got = fwd_bwd(flash, dev)
+        plain = fwd_bwd(lambda a, b, c: blocks.full_attention(
+            a, b, c, causal=kind == "causal"), dev)
+        cpu = fwd_bwd(flash, "cpu")
+        for a, b, c in zip(got, plain, cpu):
+            top = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 1e-4 * top, kind
+            assert float((a - c).abs().max()) <= 1e-5 * top, kind
+
+
+def test_captured_schedule_reads_no_host_sync(dev):
+    """Adam under warmup_cosine and Adafactor under cosine on a stacked
+    (P,) step: the update runs with no host sync (the dispatch mode of
+    tests/test_torch_capture.py refuses ``nonzero``,
+    ``_local_scalar_dense`` and ``is_nonzero``), and a CUDA graph of it,
+    replayed across the warmup's end, gives the eager updates' bits
+    step by step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.optim import adafactor, cosine, warmup_cosine
+    syncs = (torch.ops.aten.nonzero, torch.ops.aten._local_scalar_dense,
+             torch.ops.aten.is_nonzero)
+
+    class NoHostSync(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket in syncs:
+                raise AssertionError(f"host sync in an update: {func}")
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator().manual_seed(5)
+    params = {"w": torch.randn((3, 4, 5), generator=gen),
+              "b": torch.randn((3, 5), generator=gen)}
+    grads = [tree_map(lambda x: torch.randn(x.shape, generator=gen), params)
+             for _ in range(4)]
+    for opt in (adam(warmup_cosine(0.1, 2, 4)), adafactor(cosine(0.1, 4))):
+        one = opt.init(tree_map(lambda x: x[0], params))
+        state = tree_map(lambda x: x.expand((3,) + x.shape).contiguous()
+                         .to(dev), one)
+        p = tree_map(lambda x: x.to(dev), params)
+        want, ps, ss = [], p, state
+        for g in grads:
+            with NoHostSync():
+                ps, ss = opt.update(ps, tree_map(lambda x: x.to(dev), g), ss)
+            want.append(_host(ps))
+        # the same four steps through one captured update on static tensors
+        sp, sst = tree_map(torch.clone, p), tree_map(torch.clone, state)
+        sg = tree_map(lambda x: torch.zeros_like(x, device=dev), params)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            opt.update(sp, sg, sst)         # warm-up, off the graph
+        torch.cuda.current_stream().wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            np_, ns = opt.update(sp, sg, sst)
+        for g, w in zip(grads, want):
+            tree_map(lambda d, x: d.copy_(x), sg, g)
+            graph.replay()
+            tree_map(lambda d, x: d.copy_(x), sp, np_)
+            tree_map(lambda d, x: d.copy_(x), sst, ns)
+            assert _same_bits(_host(sp), w)

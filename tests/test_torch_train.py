@@ -9,7 +9,11 @@ Checks, on the ViT-MNIST config at a tiny width (2 layers, d_model 64,
   * configs, parameter key paths and shapes, and data loader batches;
   * the ViT forward logits, loss and per-particle gradients, 1e-4;
   * one ``adam`` and one ``sgd`` update on shared grads with a per-row
-    step, 1e-6;
+    step, 1e-6; three ``adafactor`` updates of a stacked 1-D, 2-D and
+    unit-stacked 3-D leaf against ``jax.vmap`` of the reference's, 1e-6,
+    with and without the clip firing; the three schedules at steps 0, 1,
+    warmup, total and past it, 0-d and per row, 1e-6 relative; the
+    reference's quadratic for each optimizer on the port;
   * fused DeepEnsemble and SteinVGD (median heuristic and fixed ell), 2
     epochs x 2 batches with ``sgd``, 6 particles in a store of capacity 8
     so the mask is live: params and losses within 1e-4, then
@@ -33,7 +37,9 @@ from repro.bdl import SteinVGD as JSteinVGD
 from repro.core import ParticleModule as JModule
 from repro.data import DataLoader as JDataLoader
 from repro.models import api as japi
+from repro.optim import adafactor as jadafactor
 from repro.optim import adam as jadam
+from repro.optim import schedules as jschedules
 from repro.optim import sgd as jsgd
 from repro_torch import configs as tconfigs
 from repro_torch.bdl import DeepEnsemble, SteinVGD
@@ -44,7 +50,8 @@ from repro_torch.core.tree import tree_map
 from repro_torch.data import DataLoader
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import api as tapi
-from repro_torch.optim import adam, sgd
+from repro_torch import optim as toptim
+from repro_torch.optim import adafactor, adam, sgd
 
 TINY = dict(n_units=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
             d_ff=128)
@@ -214,6 +221,103 @@ def test_optimizer_update_matches_jax(name):
             assert np.abs(got[path].numpy() - want[path]).max() < 1e-6, path
     own = topt.init(params_from_numpy(jax.tree.map(lambda x: x[0], params)))
     assert own["step"].dtype == torch.int32 and own["step"].dim() == 0
+
+
+SCHEDULES = {"constant": ((0.3,), (4, 9, 14)),
+             "cosine": ((0.3, 10), (4, 10, 14)),
+             "warmup_cosine": ((3e-3, 4, 12), (4, 12, 17))}
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULES))
+@pytest.mark.parametrize("rows", [False, True], ids=["0d", "per-row"])
+def test_schedules_match_jax(name, rows):
+    """Each schedule at steps 0, 1, warmup (or mid), total and past total,
+    as a 0-d step and as one (P,) step of all five, against the
+    reference's on the same int32 steps."""
+    args, _ = SCHEDULES[name]
+    steps = np.array([0, 1] + list(SCHEDULES[name][1]), np.int32)
+    jf, tf = getattr(jschedules, name)(*args), getattr(toptim, name)(*args)
+    want = np.array([float(jf(jnp.int32(s))) for s in steps])
+    if rows:
+        got = np.broadcast_to(np.asarray(tf(torch.from_numpy(steps))),
+                              steps.shape)
+    else:
+        got = np.array([float(tf(torch.tensor(s))) for s in steps])
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def _adafactor_case(seed=4, P=3):
+    rng = np.random.default_rng(seed)
+    params = {"b": rng.standard_normal((P, 7)).astype(np.float32),
+              "w": rng.standard_normal((P, 4, 6)).astype(np.float32),
+              "units": {"w": rng.standard_normal((P, 2, 5, 3)).astype(
+                  np.float32)}}
+    grads = [jax.tree.map(lambda x: (rng.standard_normal(x.shape) * 3.0
+                                     ).astype(np.float32), params)
+             for _ in range(3)]
+    return params, grads
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.05, 1e9],
+                         ids=["clip1", "clip-fires", "no-clip"])
+def test_adafactor_update_matches_jax(clip):
+    """Three stacked updates on shared grads against ``jax.vmap`` of the
+    reference's per-particle update (what its fused step runs), per-row
+    steps starting at 0, 2 and 5: a 1-D leaf (unfactored), a 2-D one and
+    a unit-stacked (n_units, d_in, d_out) one (factored over the last two
+    axes, one RMS across its units). The schedule is warmup_cosine."""
+    params, grads = _adafactor_case()
+    jopt = jadafactor(jschedules.warmup_cosine(0.1, 2, 8),
+                      clip_threshold=clip)
+    topt = adafactor(toptim.warmup_cosine(0.1, 2, 8), clip_threshold=clip)
+    js = jax.vmap(jopt.init)(jax.tree.map(jnp.asarray, params))
+    js["step"] = jnp.array([0, 2, 5], jnp.int32)
+    ts = params_from_numpy(jax.tree.map(np.asarray, js))
+    jp, tp = params, params_from_numpy(params)
+    upd = jax.jit(jax.vmap(jopt.update))
+    for g in grads:
+        jp, js = upd(jp, g, js)
+        tp, ts = topt.update(tp, params_from_numpy(g), ts)
+    for want, got in ((jp, tp), (js, ts)):
+        want = dict(_paths(jax.tree.map(np.asarray, want)))
+        got = dict(_paths(got))
+        assert set(got) == set(want)
+        for path in want:
+            assert str(got[path].dtype) == f"torch.{want[path].dtype}"
+            assert np.abs(got[path].numpy() - want[path]).max() \
+                <= 1e-6 * max(1.0, np.abs(want[path]).max()), path
+    assert ts["v"]["w"]["vr"].shape == (3, 4)
+    assert ts["v"]["units"]["w"]["vc"].shape == (3, 2, 3)
+    if clip == 0.05:     # the clip fired: the update differs from no clip
+        free = adafactor(toptim.warmup_cosine(0.1, 2, 8), clip_threshold=1e9)
+        fs = params_from_numpy(jax.tree.map(np.asarray, jax.vmap(
+            jopt.init)(jax.tree.map(jnp.asarray, params))))
+        fp, _ = free.update(params_from_numpy(params),
+                            params_from_numpy(grads[0]), fs)
+        cp, _ = topt.update(params_from_numpy(params),
+                            params_from_numpy(grads[0]), fs)
+        assert not torch.allclose(fp["w"], cp["w"])
+
+
+@pytest.mark.parametrize("name", ["sgd", "adam", "adafactor"])
+def test_optimizers_minimize_quadratic(name):
+    """``tests/test_substrate.py``'s quadratic on the port: one particle,
+    a 0-d step, 100 updates."""
+    opt = {"sgd": sgd(0.1, momentum=0.9), "adam": adam(0.05),
+           "adafactor": toptim.make_optimizer("adafactor", 0.1)}[name]
+    assert opt.name == name
+    params = {"w": torch.tensor([3.0, -2.0]), "m": torch.ones((2, 2))}
+
+    def loss(p):
+        return (p["w"] ** 2).sum() + ((p["m"] - 1.0) ** 2).sum()
+
+    state = opt.init(params)
+    l0 = float(loss(params))
+    for _ in range(100):
+        req = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        g = dict(zip(req, torch.autograd.grad(loss(req), list(req.values()))))
+        params, state = opt.update(params, g, state)
+    assert float(loss(params)) < 0.05 * l0
 
 
 def _loaders(jcfg, tcfg):

@@ -418,13 +418,52 @@ Phase 13 LM training: 4 full-width qwen1.5-0.5b particles (24 layers,
          device ms and idle share. Each part prints its line with the
          card's name and power limit; each kernel's
          ``lm_training_launches`` in the kernels line are phase 13's
-         driven runs, and #1 and #2 carry their ``lm`` rows.
+         driven runs, and #1 and #2 carry their ``lm`` rows. Part (a)
+         also holds the captured step's FLOPs as obs counts them on its
+         first run (``Program.cost()``) within 3% of ``code_flops``.
+
+Phase 14 checkpoints and obs. (a) 4 full-width qwen1.5-0.5b particles
+         (seed 0, built as phase 2's: 7,423,803,392 bytes of params)
+         saved by checkpoint.save_store into a temporary directory under
+         build/ and restored by restore_store: every leaf of the file
+         equal to the store's bytes, the restored store equal bit for
+         bit; phase 2's requests served from the restored store by
+         serve_decode under a fresh captured cache give phase 2's
+         captured tokens and logprobs bit for bit, and one decode step on
+         freshly prefilled rows (decode_parity's setup) the same BMA heads
+         from both stores. (b) the UNet-advection MultiSWAG store of
+         phase 12 (8 particles, rank 20), trained anew and captured,
+         saved and restored: every key bit for bit and the regression BMA
+         of PredictiveEngine(kind="regress") equal; then a captured
+         DeepEnsemble's {"params", "opt"} saved by checkpoint.save after 3
+         steps and restored (restore(like=)) into a fresh PD's store by
+         commit: one more step gives the losses, params and optimizer
+         state of the run that never stopped, bit for bit. Each save and
+         restore prints the file bytes and seconds, the device-to-host
+         and host-to-device part apart (the store.d2h / store.h2d spans).
+         (c) phase 2's load served from the LM PD's store through the
+         process cache, warm, untraced and traced by turns (two each):
+         the same tokens, the best traced tokens/s at least 0.95 x the
+         best untraced; a captured UNet DeepEnsemble epoch and a
+         regression service traced; then pd.obs(): the snapshot's keys,
+         devices[0] a "gpu" whose bytes_in_use equals
+         torch.cuda.memory_allocated() read just after, the store's
+         params 7,423,803,392 bytes, a cost for every program, the
+         decode step's counted FLOPs within 2% of 2 x its products'
+         parameters x 4 particles x 8 rows (its first run is the warm-up
+         with every row masked, so #7 adds 0), the Perfetto dump's JSON
+         holding each category (executor, store, runtime, serve, decode,
+         bdl) and a program.<name> span for every program looked up while
+         traced, and Prometheus text with repro_program_cache_hits that
+         parses line by line. Each kernel's ``ckpt_obs_launches`` in the
+         kernels line are phase 14's driven runs; #5, #7 and #3 must have
+         launched.
 
 The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12,
-13: the kernel checks first, then the serving runs over one set of
+13, 14: the kernel checks first, then the serving runs over one set of
 particles, then training, fused and then on the NEL, then the lifecycle,
 then predictive serving, then the precision ladder, then the SciML
-workload and the baselines, then LM training.
+workload and the baselines, then LM training, then checkpoints and obs.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -945,7 +984,7 @@ def serve_requests(torch, pd, cfg, reqs, fns, cache, info=None, hold=None,
     prompt's pow2 bucket warmed: the launch counts of ``fns`` are set to 0
     after warmup and read when the last request resolves; no step may be
     captured after warmup. ``info`` (a list) receives the cache's
-    program_info before the service closes (a serve copy's programs go
+    program_costs before the service closes (a serve copy's programs go
     with it). ``hold(svc, generations)`` runs on the open service after
     the traffic and its stats. Returns (generations, stats, launches, wall
     seconds, the stats at the end of warmup, n_pmax)."""
@@ -966,7 +1005,7 @@ def serve_requests(torch, pd, cfg, reqs, fns, cache, info=None, hold=None,
         launches = read_counts(fns)
         st = svc.stats()
         if info is not None:
-            info.extend(cache.program_info())
+            info.extend(cache.program_costs())
         if hold is not None:
             hold(svc, gens)
     finally:
@@ -1005,9 +1044,9 @@ def same_launches(launches, what):
 
 def run_summary(gens, st, warm, wall, cache, info=None):
     """The per-run numbers phases 2, 6 and 7 print for each mode (``info``:
-    the cache's program_info taken earlier)."""
+    the cache's program_costs taken earlier)."""
     toks = sum(len(g.tokens) for g in gens)
-    info = cache.program_info() if info is None else info
+    info = cache.program_costs() if info is None else info
     return {"generated_tokens": toks, "wall_s": wall,
             "tok_per_s": toks / wall, "steps": st["steps"],
             "prefills": st["prefills"],
@@ -1040,11 +1079,13 @@ def phase2(torch, pd, cfg, reqs):
                                  f"{st['steps']} steps paged and {L} x "
                                  f"{st['prefills']} prefills flash")
         if mode != "eager" and not all(
-                p["graph"] for p in cache.program_info()):
+                p["graph"] for p in cache.program_costs()):
             raise AssertionError("a captured step ran eagerly")
         runs[mode] = dict(run_summary(gens, st, warm, wall, cache),
                           kernel_launches=got)
         tokens[mode], launches[mode] = [g.tokens for g in gens], got
+        if mode == "captured":
+            logprobs = [g.logprobs for g in gens]
         runs[mode]["peak_pages"] = st["pool"]["peak_used"]
         runs[mode]["row_occupancy"] = st["row_occupancy"]
         del cache
@@ -1069,7 +1110,8 @@ def phase2(torch, pd, cfg, reqs):
           "captured_vs_eager_tie_gaps": gaps,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
           "decode_parity": parity, "step_profile": profile})
-    return launches["captured"], tokens["captured"], cap["tok_per_s"]
+    return (launches["captured"], tokens["captured"], cap["tok_per_s"],
+            logprobs)
 
 
 # --------------------------------------------------------------------------
@@ -1494,7 +1536,7 @@ def phase6(torch, pd, cfg, reqs, plain_tokens, plain_tok_s):
             raise AssertionError(f"{mode} speculative launches {got}, want "
                                  f"{want}")
         if mode != "eager" and not all(
-                p["graph"] for p in cache.program_info()):
+                p["graph"] for p in cache.program_costs()):
             raise AssertionError("a captured step ran eagerly")
         runs[mode] = dict(run_summary(gens, st, warm, wall, cache),
                           draft_iterations=iters, speculative=ss,
@@ -1640,7 +1682,7 @@ def phase7(torch, pd, cfg):
             if not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"non-finite head {k}")
         st = cache.snapshot_stats()
-        info = cache.program_info()
+        info = cache.program_costs()
         if st["cold_compiles"] != first or first != 1 or (
                 mode != "eager" and not info[0]["graph"]):
             raise AssertionError(f"{mode} dense step programs {st}")
@@ -2060,7 +2102,7 @@ def train_run(torch, cls, module, cache, epochs, precision=None, **kw):
     if not np.isfinite(losses).all():
         raise AssertionError(f"{cls.__name__} losses {losses}")
     return (algo, losses, got, wall, cache.snapshot_stats(),
-            cache.program_info(), resident)
+            cache.program_costs(), resident)
 
 
 def one_program_each(mode, stats, info, names):
@@ -2213,7 +2255,7 @@ def phase4(torch):
         store, mask = algo.store, algo.store.active_mask()
         if mode == "captured":
             row.update(swag_checks(torch, algo, images, n_leaves, launches))
-            row["state_gb"] = sum(store.nbytes(k) for k in
+            row["state_gb"] = sum(store.per_device_bytes(k) for k in
                                   ("params", "opt_state", "swag")) / 1e9
         # p_predict through the runtime: one more program, captured once
         row["predict"] = algo.posterior_pred(images).cpu()
@@ -2235,7 +2277,7 @@ def phase4(torch):
                     "collect_ms": prof_collect["wall_ms"],
                     "profile_train_step": prof,
                     "profile_collect": prof_collect,
-                    "programs_after_predict": rt.cache.program_info(),
+                    "programs_after_predict": rt.cache.program_costs(),
                     "peak_gb": torch.cuda.max_memory_allocated() / 2**30})
         peak = max(peak, row["peak_gb"])
         runs[mode] = row
@@ -2441,7 +2483,7 @@ def one_step_parity(torch, cls, module, batch, **kw):
         bounded(algo.bayes_infer, [batch], 1, num_particles=TRAIN_P, **kw)
         algos[backend] = algo
     nel, comp = algos["nel"], algos["compiled"]
-    info = comp.push_dist.runtime.cache.program_info()
+    info = comp.push_dist.runtime.cache.program_costs()
     if not (len(info) == 1 and info[0]["graph"]):
         raise AssertionError(f"{cls.__name__}: compiled step not one "
                              f"captured program: {info}")
@@ -2944,10 +2986,10 @@ def lc_serving(torch, cfg, reqs):
                     solo, _ = lc_round(torch, svc, reqs, fns, seen)
                     rounds += 1
                 st = svc.stats()
-                info = cache.program_info()
+                info = cache.program_costs()
             finally:
                 svc.close()
-            sp = st.get("speculative", {})
+            sp = st["speculative"] or {}
             want = {"flash_attention": L * (st["prefills"]
                                             - warm["prefills"]),
                     "paged_decode_attention": L * (
@@ -3520,7 +3562,7 @@ def phase10(torch):
     try:
         cache = svc.engine.cache
         warm = cache.snapshot_stats()
-        info = cache.program_info()
+        info = cache.program_costs()
         row["warmup"] = {"programs": len(info), "cache": warm,
                          "by_bucket": [
                              {"bucket": 2**i, "graph": p["graph"],
@@ -3937,7 +3979,7 @@ def dense_steps(torch, pd, cfg, total, n=P11_NEW):
     got = read_counts(fns)
     want = {"paged_decode_attention": 0, "paged_decode_window_attention": 0,
             "flash_attention": L, "decode_attention": L * n}
-    info = cache.program_info()
+    info = cache.program_costs()
     steps = [p for p in info if p["name"] == "bma_step"]
     if got != want or len(steps) != 1 or not all(p["graph"] for p in info):
         raise AssertionError(f"dense steps: launches {got}, want {want}; "
@@ -3991,7 +4033,7 @@ def churn_on(torch, svc, pd, reqs, total, check_row=None):
     served = eng._mask_and_params()[1]
     ptrs = [x.data_ptr() for x in tree_leaves(served)]
     out = {"served_gb": tree_gb(served),
-           "masters_gb": pd.store.nbytes("params") / 1e9}
+           "masters_gb": pd.store.per_device_bytes("params") / 1e9}
     pids = pd.particle_ids()
     t0 = time.perf_counter()
     with svc.scheduler.step_lock:
@@ -4016,7 +4058,7 @@ def churn_on(torch, svc, pd, reqs, total, check_row=None):
         "served_addresses_kept": [x.data_ptr() for x in tree_leaves(
             eng._mask_and_params()[1])] == ptrs,
         "pool_pages_used": st["pool"]["used_pages"],
-        "all_graphs": all(p["graph"] for p in cache.program_info())})
+        "all_graphs": all(p["graph"] for p in cache.program_costs())})
     if "draft_packs" in st["engine"]:
         out["draft_packs"] = st["engine"]["draft_packs"]
     if out["captures_after_warmup_and_churn"] or not (
@@ -4278,7 +4320,7 @@ def phase11_bf16(torch, cfg, reqs, card):
         if not all(x.dtype == torch.bfloat16
                    for x in tree_leaves(pd.store.stacked("params"))):
             raise AssertionError("bf16 masters are not bf16")
-        out["masters_gb"] = pd.store.nbytes("params") / 1e9
+        out["masters_gb"] = pd.store.per_device_bytes("params") / 1e9
         runs, tokens = ladder_serving(torch, pd, cfg, reqs, total,
                                       {"speculative": SPEC_K})
         prompts = [p for p, _ in reqs]
@@ -4440,7 +4482,7 @@ def phase11_training(torch, fp32, card):
            "max_abs_loss_diff": losses_track(
                losses, fp32["multiswag"]["last_losses"], "bf16 MultiSWAG"),
            "launches": got, "programs": info, "state_dtypes": dtypes,
-           "state_gb": sum(store.nbytes(k) for k in
+           "state_gb": sum(store.per_device_bytes(k) for k in
                            ("params", "opt_state", "swag")) / 1e9,
            "moments_kernel_vs_plain": err}
     del swag, means, sqs, devs, thetas
@@ -4534,7 +4576,7 @@ def phase11_predictive(torch, fp32, card):
                                           for x in tree_leaves(tree)})}
             del tree
             warm = cache.snapshot_stats()
-            info = cache.program_info()
+            info = cache.program_costs()
             row["warmup"] = {"programs": len(info), "by_bucket": [
                 {"bucket": 2**i, "graph": p["graph"],
                  "capture_s": p["capture_s"], "pool_bytes": p["pool_bytes"]}
@@ -4616,7 +4658,7 @@ def phase11_predictive(torch, fp32, card):
                    x.data_ptr() for x in tree_leaves(
                        eng._mask_and_params()[1])] == ptrs,
                "serve_casts": sum(p["name"] == "serve_cast"
-                                  for p in eng.cache.program_info()),
+                                  for p in eng.cache.program_costs()),
                "errors": st["errors"], "requests": st["requests"]}
         if row["captures_after_warmup_and_kill"] or not (
                 row["generation_unchanged"]
@@ -4769,7 +4811,7 @@ def baseline_programs():
     """The baseline programs alive in the process cache: name, graph,
     capture s and pool bytes, with the totals."""
     from repro_torch.runtime.cache import global_cache
-    info = [p for p in global_cache().program_info()
+    info = [p for p in global_cache().program_costs()
             if p["name"].startswith("baseline_")]
     return {"programs": len(info),
             "graphs": sum(p["graph"] for p in info),
@@ -4976,8 +5018,8 @@ def sci_training(torch, card):
             algo, row = sci_train(torch, cls, module, P, epochs, "compiled",
                                   cache, **kw)
             one_program_each(mode, cache.snapshot_stats(),
-                             cache.program_info(), names)
-            row["programs"] = cache.program_info()
+                             cache.program_costs(), names)
+            row["programs"] = cache.program_costs()
             if mode == "captured":
                 add_counts(launches, row["launches"])
                 row.update(sci_trained_checks(torch, name, algo, module,
@@ -5233,7 +5275,7 @@ def sci_serving(torch, algo, card):
     try:
         cache = svc.engine.cache
         warm = cache.snapshot_stats()
-        info = cache.program_info()
+        info = cache.program_costs()
         row["warmup"] = [{"bucket": 2**i, "graph": p["graph"],
                           "capture_s": p["capture_s"],
                           "pool_bytes": p["pool_bytes"]}
@@ -5635,7 +5677,8 @@ def lm_run(torch, cls, module, batches, cache, keep_first=False, **kw):
     row = {"steps": len(batches), "losses": losses,
            "launches": read_counts(fns), "wall_s": time.perf_counter() - t0,
            "step_host_s": step_s, "stats": cache.snapshot_stats(),
-           "programs": cache.program_info(), "resident_gb": resident,
+           "programs": cache.program_costs(compute=True),
+           "resident_gb": resident,
            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
     if not np.isfinite(losses).all():
         raise AssertionError(f"LM {cls.__name__} losses {losses}")
@@ -5821,6 +5864,13 @@ def lm_ensemble(torch, cfg, module, batches, card, total):
         raise AssertionError(f"captured params after step 1 != eager's: "
                              f"{tree_rel(torch, first_c, first)}")
     del first_c
+    # the step's FLOPs as obs counts them on its first run (the capture's
+    # warm-up), against lm_step_flops' count of what the code computes
+    counted = cap["programs"][0]["cost"]["flops"]
+    counted_rel = counted / flops["code_total"] - 1
+    if not abs(counted_rel) < P14_CODE_TOL:
+        raise AssertionError(f"counted {counted} FLOPs a step, code_flops "
+                             f"{flops['code_total']}")
     same_launches({m: r["launches"] for m, r in runs.items()}, "LM ensemble")
     if any(cap["launches"].values()):
         raise AssertionError(f"LM training launched {cap['launches']}")
@@ -5837,7 +5887,7 @@ def lm_ensemble(torch, cfg, module, batches, card, total):
                              f"numpy {want.tolist()}")
     spec = specs.ensemble_step(module.loss, opt, precision=algo.precision)
     prof = lm_window(torch, algo, spec, ("params", "opt_state"), batches[0])
-    adam_gb = algo.store.nbytes("opt_state") / 2**30
+    adam_gb = algo.store.per_device_bytes("opt_state") / 2**30
     peak = torch.cuda.max_memory_allocated() / 2**30
     algo.cleanup()
     del algo
@@ -5855,7 +5905,8 @@ def lm_ensemble(torch, cfg, module, batches, card, total):
               "step_flops": flops, "bound_ms": b_ms, "bound_by": b_by,
               "code_bound_ms": bound(4 * 4 * LM_P * LM_D,
                                      flops["code_total"])[0],
-              "card": card}
+              "counted_flops": counted, "code_flops": flops["code_total"],
+              "counted_over_code": counted_rel + 1, "card": card}
     emit(a_line)
     remat = {"none": {"peak_gb": cap["peak_gb"],
                       "pool_gb": cap["programs"][0]["pool_bytes"] / 2**30,
@@ -5960,7 +6011,7 @@ def lm_adafactor(torch, cfg, batches, card, total, adam_gb):
                            keep_first=True, optimizer=opt)
     add_counts(total, row["launches"])
     lm_captured_once(row, "captured Adafactor")
-    af_gb = algo.store.nbytes("opt_state") / 2**30
+    af_gb = algo.store.per_device_bytes("opt_state") / 2**30
     algo.cleanup()
     del algo
     lm_free(torch)
@@ -6157,6 +6208,415 @@ def phase13(torch, card):
                            **kv["timed"]["svgd_force"]}}
     return total, rows
 
+# --------------------------------------------------------------------------
+# phase 14: checkpoints and obs
+# --------------------------------------------------------------------------
+
+P14_RUNS = 2                     # untraced and traced passes of phase 2's load
+P14_TRACE_GATE = 0.95            # traced tok/s over untraced (DESIGN.md §12)
+P14_CATS = {"executor", "store", "runtime", "serve", "decode", "bdl"}
+P14_RESUME_K = 3                 # DeepEnsemble steps before the checkpoint
+P14_DECODE_TOL = 0.02            # counted decode FLOPs against the analytic
+P14_CODE_TOL = 0.03              # phase 13's counted FLOPs against code_flops
+PROM_LINE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (\S+)$")
+
+
+def span_s(name):
+    """Seconds of the tracer's ``name`` spans in its ring."""
+    from repro_torch.obs import trace
+    return sum(s["t1"] - s["t0"] for s in trace.snapshot()
+               if s["name"] == name)
+
+
+def timed_save_restore(torch, store, ckpt_dir):
+    """checkpoint.save_store then restore_store (on the card) with tracing
+    on. Returns the restored store, the file and its numbers: bytes, save
+    and restore seconds, each with its device-to-host or host-to-device
+    part (the store.d2h and store.h2d spans) apart from the rest (the
+    file), and the rates."""
+    from repro_torch import checkpoint
+    from repro_torch.obs import trace
+    trace.clear()
+    trace.enable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save_store(ckpt_dir, 0, store)
+        save_s = time.perf_counter() - t0
+        d2h = span_s("store.d2h")
+        trace.clear()
+        t0 = time.perf_counter()
+        _, restored = checkpoint.restore_store(ckpt_dir)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        h2d = span_s("store.h2d")
+    finally:
+        trace.disable()
+        trace.clear()
+    nb = os.path.getsize(path)
+    return restored, path, {
+        "file_bytes": nb, "save_s": save_s, "save_d2h_s": d2h,
+        "save_file_s": save_s - d2h, "restore_s": restore_s,
+        "restore_h2d_s": h2d, "restore_file_s": restore_s - h2d,
+        "save_gb_per_s": nb / save_s / 1e9, "d2h_gb_per_s": nb / d2h / 1e9,
+        "restore_gb_per_s": nb / restore_s / 1e9,
+        "h2d_gb_per_s": nb / h2d / 1e9}
+
+
+def file_equals_store(torch, path, store):
+    """Every leaf of a store file against the store's live rows of its key
+    on the card (a bf16 leaf through its fp32 copy), bit for bit. Returns
+    the bytes held."""
+    from repro_torch.core.tree import tree_leaves
+    data = np.load(path)
+    manifest = json.loads(str(data["__store_manifest__"]))
+    held = 0
+    for key, skel in manifest["keys"].items():
+        leaves = tree_leaves(store.dense(key, skel["_pids"]))
+        for i, leaf in enumerate(leaves):
+            a = torch.from_numpy(data[f"k{skel['_slot']}_l{i}"]).to("cuda")
+            want = leaf.float() if leaf.dtype == torch.bfloat16 else leaf
+            if not torch.equal(a, want):
+                raise AssertionError(f"{path}: {key} leaf {i} differs from "
+                                     f"the store")
+            held += a.numel() * a.element_size()
+    return held
+
+
+def stores_equal(torch, a, b):
+    """Every key of store ``a`` equal in ``b``, live rows bit for bit."""
+    from repro_torch.core.tree import tree_leaves
+    for key in a.keys():
+        want = a.dense(key)
+        if not tree_leaves(want):
+            continue
+        if not tree_equal(torch, b.dense(key), want):
+            raise AssertionError(f"restored store: {key} differs")
+
+
+def store_heads(torch, cfg, reqs, n_pmax, store):
+    """decode_parity's setup on ``store``: phase 2's prompts prefilled
+    into the store's own pool, then one decode step; its BMA heads."""
+    import functools
+    import types
+    from repro_torch.models import api
+    from repro_torch.serve import uncertainty
+    from repro_torch.serve.paging import create_kv_pages
+    if "kv_pages" not in store.keys():
+        create_kv_pages(store, functools.partial(
+            api.paged_cache_init, cfg, num_pages=NUM_PAGES,
+            page_size=PAGE_SIZE))
+    pages = store.checkout("kv_pages")
+    try:
+        params, mask, bt, tok, sl = prefilled_rows(
+            torch, types.SimpleNamespace(store=store), cfg,
+            [p for p, _ in reqs], n_pmax, pages)
+        logits, _ = api.decode_step_paged(params, tok, pages, bt, sl, cfg)
+        return uncertainty.predictive_heads(logits, mask=mask)
+    finally:
+        store.commit("kv_pages", pages)
+
+
+def p14_lm(torch, cfg, reqs, want, card, launches, tmp):
+    """(a) 4 full-width qwen1.5-0.5b particles (seed 0, as phase 2's)
+    saved with save_store and restored with restore_store, then phase 2's
+    requests served from the restored store under a fresh captured cache.
+    Returns the original PD (part (c) serves it) and the part's line."""
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    pd = PushDistribution(module, seed=SEED)
+    for _ in range(PARTICLES):
+        pd.p_create()
+    pd.store.stacked("params")
+    params_bytes = pd.store.per_device_bytes("params")
+    if params_bytes != PARTICLES * LM_D * 4:
+        raise AssertionError(f"LM params {params_bytes} bytes")
+    restored, path, io = timed_save_restore(torch, pd.store,
+                                            os.path.join(tmp, "lm"))
+    held = file_equals_store(torch, path, pd.store)
+    stores_equal(torch, pd.store, restored)
+    fns = attention_counts()
+    gens, st, got, wall, warm, n_pmax = serve_requests(
+        torch, restored, cfg, reqs, fns, ProgramCache())
+    add_counts(launches, got)
+    tokens = [g.tokens for g in gens]
+    logprobs = [g.logprobs for g in gens]
+    if (tokens, logprobs) != want:
+        raise AssertionError("the restored store's tokens or logprobs differ "
+                             "from phase 2's captured run")
+    heads = [store_heads(torch, cfg, reqs, n_pmax, s)
+             for s in (pd.store, restored)]
+    for k, v in heads[0].items():
+        if not torch.equal(v, heads[1][k]):
+            raise AssertionError(f"decode step head {k}: restored != saved")
+    del restored, heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pd, {"phase": 14, "part": "a", "model": cfg.name,
+                "particles": PARTICLES, "params_bytes": params_bytes,
+                "file_leaf_bytes": held, **io,
+                "requests": len(reqs), "tok_per_s": sum(map(len, tokens))
+                / wall, "steps": st["steps"], "launches": got,
+                "tokens_equal_phase2": True, "logprobs_equal_phase2": True,
+                "decode_heads_equal": True, "card": card}
+
+
+def p14_sciml(torch, card, launches, tmp):
+    """(b) phase 12's UNet-advection MultiSWAG store (8 particles, rank 20)
+    trained anew, saved and restored: every key bit for bit, the
+    regression BMA equal; then a captured DeepEnsemble resumed from a
+    checkpoint.save of its {"params", "opt"} after step k, as
+    examples/train_lm.py writes them."""
+    from repro_torch import checkpoint
+    from repro_torch.bdl import DeepEnsemble, MultiSWAG
+    from repro_torch.core.tree import to_device
+    from repro_torch.data import DataLoader
+    from repro_torch.optim import adam
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import PredictiveEngine
+    cfg, module = unet_module()
+    algo, row = sci_train(torch, MultiSWAG, module, SCI_P, 3, "compiled",
+                          ProgramCache(), optimizer=adam(1e-3),
+                          pretrain_epochs=1, max_rank=20)
+    add_counts(launches, row["launches"])
+    store = algo.store
+    restored, path, io = timed_save_restore(torch, store,
+                                            os.path.join(tmp, "sciml"))
+    held = file_equals_store(torch, path, store)
+    stores_equal(torch, store, restored)
+    batches = [to_device(b, "cuda") for b in DataLoader(
+        cfg, batch_size=SCI_B, num_batches=P14_RESUME_K + 1, seed=SEED)]
+    x = {"u0": batches[0]["u0"]}
+    engines = [PredictiveEngine(module.forward, store=s, kind="regress")
+               for s in (store, restored)]
+    heads = [e.predict(x) for e in engines]
+    for e in engines:
+        e.close()
+    for k, v in heads[0].items():
+        if not torch.equal(v, heads[1][k]):
+            raise AssertionError(f"regression BMA {k}: restored != saved")
+    keys = store.keys()
+    algo.cleanup()
+    del algo, store, restored, engines, heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the resume: k captured steps, a checkpoint, one more step, against
+    # a fresh PD that commits the checkpoint and takes that step
+    opt = adam(1e-3)
+    a = DeepEnsemble(module, seed=SEED, backend="compiled")
+    pids, _ = a.bayes_infer(batches[:P14_RESUME_K], 1, optimizer=opt,
+                            num_particles=SCI_P)
+    ck = os.path.join(tmp, "resume")
+    checkpoint.save(ck, P14_RESUME_K, {"params": a.store.stacked("params"),
+                                       "opt": a.store.stacked("opt_state")})
+    loss_a = a._fused_epochs(pids, batches[P14_RESUME_K:], 1, optimizer=opt)
+    b = DeepEnsemble(module, seed=SEED + 1, backend="compiled")
+    pids_b = [b.push_dist.p_create(opt) for _ in range(SCI_P)]
+    step, tree = checkpoint.restore(
+        ck, like={"params": b.store.stacked("params"),
+                  "opt": b.store.stacked("opt_state")})
+    b.store.commit("params", tree["params"])
+    b.store.commit("opt_state", tree["opt"])
+    del tree
+    loss_b = b._fused_epochs(pids_b, batches[P14_RESUME_K:], 1, optimizer=opt)
+    same = (loss_a == loss_b and step == P14_RESUME_K
+            and tree_equal(torch, b.store.stacked("params"),
+                           a.store.stacked("params"))
+            and tree_equal(torch, b.store.stacked("opt_state"),
+                           a.store.stacked("opt_state")))
+    if not same:
+        raise AssertionError(f"resumed step: losses {loss_b} vs {loss_a}")
+    a.cleanup()
+    b.cleanup()
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": 14, "part": "b", "model": cfg.name,
+            "particles": SCI_P, "keys": keys, "file_leaf_bytes": held,
+            **io, "multiswag_launches": row["launches"],
+            "regress_heads_equal": True, "resume_step": step,
+            "resumed_losses": loss_b, "resumed_equal": True, "card": card}
+
+
+def prometheus_parses(text):
+    """Each line a ``# TYPE name kind`` comment or ``name{labels} value``
+    with a float value; returns the number of samples."""
+    n = 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            parts = line.split()
+            if len(parts) != 4 or parts[3] not in ("counter", "gauge",
+                                                   "summary"):
+                raise AssertionError(f"prometheus comment {line!r}")
+            continue
+        m = PROM_LINE.match(line)
+        if m is None:
+            raise AssertionError(f"prometheus line {line!r}")
+        float(m.group(2))
+        n += 1
+    return n
+
+
+def decode_matmul_params(cfg):
+    """Parameters of qwen's products a decode step multiplies: every
+    layer's q, k, v, o and MLP matrices and the tied head."""
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    H, KVH = cfg.n_heads, cfg.n_kv_heads
+    return cfg.n_layers * (D * H * hd + 2 * D * KVH * hd + H * hd * D
+                           + 3 * D * F) + cfg.vocab_size * D
+
+
+def p14_obs(torch, pd, cfg, reqs, card, launches, tmp):
+    """(c) phase 2's load served from the LM PD's store through the
+    process cache, untraced and traced by turns, all warm; a captured UNet
+    DeepEnsemble epoch and a regression service traced; then pd.obs()."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.data import DataLoader
+    from repro_torch.obs import trace
+    from repro_torch.optim import adam
+    from repro_torch.runtime import bucket_size
+    from repro_torch.runtime.cache import global_cache
+    from repro_torch.serve import serve_decode
+    buckets = sorted({bucket_size(len(p)) for p, _ in reqs})
+    trace.clear()
+    svc = serve_decode(pd, cfg, num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+                       max_active=MAX_ACTIVE, warmup_buckets=buckets,
+                       cache=global_cache())
+    runs, algo = [], None
+    try:
+        fns = attention_counts()
+        for fn in fns.values():
+            fn.launches = 0
+        for traced in (False, True) * P14_RUNS:
+            (trace.enable if traced else trace.disable)()
+            t1 = time.perf_counter()
+            gens = [h.result(600) for h in [svc.generate_async(p, max_new=m)
+                                            for p, m in reqs]]
+            wall = time.perf_counter() - t1
+            runs.append({"traced": traced, "wall_s": wall,
+                         "tok_per_s": sum(len(g.tokens) for g in gens) / wall,
+                         "tokens": [g.tokens for g in gens]})
+        add_counts(launches, read_counts(fns))
+        if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+            raise AssertionError("traced and untraced tokens differ")
+        best = {t: max(r["tok_per_s"] for r in runs if r["traced"] == t)
+                for t in (False, True)}
+        if not best[True] >= P14_TRACE_GATE * best[False]:
+            raise AssertionError(f"traced {best[True]} tok/s against "
+                                 f"untraced {best[False]}")
+        trace.enable()
+        ucfg, umodule = unet_module()
+        algo = DeepEnsemble(umodule, seed=SEED, backend="compiled")
+        loader = DataLoader(ucfg, batch_size=SCI_B, num_batches=SCI_NB,
+                            seed=SEED)
+        algo.bayes_infer(loader, 1, optimizer=adam(1e-3), num_particles=SCI_P)
+        u0 = next(iter(loader))["u0"]
+        with algo.posterior_predictive(kind="regress", max_batch=4,
+                                       max_wait_ms=SERVE_WAIT_MS,
+                                       warmup={"u0": u0[0]}) as ssvc:
+            for u in u0[:8]:
+                ssvc.predict({"u0": u})
+        obs = pd.obs()
+        snap = obs.snapshot(costs=True)
+        in_use = torch.cuda.memory_allocated()
+        path = obs.dump_trace(os.path.join(tmp, "trace.json"))
+        text = obs.prometheus()
+        trace.disable()
+    finally:
+        trace.disable()
+        svc.close()
+        if algo is not None:
+            algo.cleanup()
+    if set(snap) != {"stats", "devices", "store", "programs", "trace"}:
+        raise AssertionError(f"snapshot keys {sorted(snap)}")
+    dev = snap["devices"][0]
+    if dev["platform"] != "gpu" or dev["bytes_in_use"] != in_use:
+        raise AssertionError(f"device gauge {dev}, allocated {in_use}")
+    if snap["store"]["per_device_bytes"]["params"] != PARTICLES * LM_D * 4:
+        raise AssertionError(f"store gauge {snap['store']}")
+    if "decode" not in snap["stats"]:
+        raise AssertionError("no decode section while serving")
+    missing = [p["name"] for p in snap["programs"] if p["cost"] is None]
+    if missing:
+        raise AssertionError(f"programs without a cost: {missing}")
+    (decode,) = [p for p in snap["programs"]
+                 if p["name"] == "paged_decode_step"]
+    M = decode_matmul_params(cfg)
+    # the program's first run is the warm-up step with every row masked
+    # (seq_len -1), so #7's own count there is 0
+    analytic = 2 * M * PARTICLES * MAX_ACTIVE
+    counted = decode["cost"]["flops"]
+    if not abs(counted / analytic - 1) < P14_DECODE_TOL:
+        raise AssertionError(f"decode step counted {counted} FLOPs, "
+                             f"analytic {analytic}")
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    cats = {e["cat"] for e in events if "cat" in e}
+    names = {e["name"] for e in events}
+    looked_up = {e["args"]["program"] for e in events
+                 if e["name"] in ("cache.hit", "cache.miss")}
+    want = looked_up | {"paged_decode_step", "paged_prefill",
+                        "ensemble_step", "bma_predict"}
+    if not (P14_CATS <= cats and {f"program.{n}" for n in want} <= names):
+        raise AssertionError(f"trace categories {sorted(cats)}, programs "
+                             f"{sorted(n for n in names if n.startswith('program.'))}"
+                             f", want {sorted(want)}")
+    if "repro_program_cache_hits" not in text:
+        raise AssertionError("prometheus text lacks repro_program_cache_hits")
+    samples = prometheus_parses(text)
+    return {"phase": 14, "part": "c", "runs": [
+                {k: v for k, v in r.items() if k != "tokens"} for r in runs],
+            "traced_over_untraced": best[True] / best[False],
+            "tokens_equal": True, "devices": snap["devices"],
+            "store_per_device_bytes": snap["store"]["per_device_bytes"],
+            "programs": [{k: p[k] for k in ("name", "fingerprint",
+                                            "num_particles",
+                                            "param_bytes_per_device", "cost",
+                                            "graph", "pool_bytes")}
+                         for p in snap["programs"]],
+            "decode_counted_flops": counted,
+            "decode_analytic_flops": analytic, "decode_matmul_params": M,
+            "decode_paged_kernel_flops_at_first_run": 0,
+            "trace_events": len(events), "trace_categories": sorted(cats),
+            "trace_spans": snap["trace"], "prometheus_samples": samples,
+            "card": card}
+
+
+def phase14(torch, cfg, reqs, phase2_out, card):
+    """Checkpoints and obs on the card (module doc). Returns each kernel's
+    launches over phase 14's driven runs."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase14_", dir=os.path.join(ROOT, "build"))
+    launches, walls = {}, {}
+    try:
+        pd, a_line = p14_lm(torch, cfg, reqs, phase2_out, card, launches, tmp)
+        emit(a_line)
+        walls["a"] = time.perf_counter() - t0
+        emit(p14_sciml(torch, card, launches, tmp))
+        walls["b"] = time.perf_counter() - t0 - sum(walls.values())
+        with pd:
+            emit(p14_obs(torch, pd, cfg, reqs, card, launches, tmp))
+        del pd
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls["c"] = time.perf_counter() - t0 - sum(walls.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("paged_decode_attention", "flash_attention", "swag_moments"):
+        if not launches.get(name):
+            raise AssertionError(f"phase 14 never launched {name}: "
+                                 f"{launches}")
+    emit({"phase": 14, "part": "end", "launches": launches,
+          "wall_s": time.perf_counter() - t0, "wall_s_by_part": walls,
+          "card": card})
+    return launches
+
 
 def main():
     import torch
@@ -6194,7 +6654,8 @@ def main():
         for _ in range(PARTICLES):
             pd.p_create()
         pd.store.stacked("params")
-        got, plain_tokens, plain_tok_s = phase2(torch, pd, cfg, reqs)
+        got, plain_tokens, plain_tok_s, plain_logprobs = phase2(
+            torch, pd, cfg, reqs)
         for name in ("paged_decode_attention", "flash_attention"):
             launches[name] = got[name]
         got = phase6(torch, pd, cfg, reqs, plain_tokens, plain_tok_s)
@@ -6230,6 +6691,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lm_launches, lm_rows = phase13(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs_launches = phase14(torch, cfg, reqs, (plain_tokens, plain_logprobs),
+                           card)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
@@ -6238,6 +6703,7 @@ def main():
         row["precision_launches"] = precision_launches.get(name, 0)
         row["sciml_launches"] = sciml_launches.get(name, 0)
         row["lm_training_launches"] = lm_launches.get(name, 0)
+        row["ckpt_obs_launches"] = obs_launches.get(name, 0)
         if name in lm_rows:
             row["lm"] = lm_rows[name]
         if name in sci_rows:

@@ -12,7 +12,7 @@ the end.
 from __future__ import annotations
 
 from ..runtime import specs
-from .infer import Infer
+from .infer import Infer, traced_epochs
 
 
 class DeepEnsemble(Infer):
@@ -21,7 +21,7 @@ class DeepEnsemble(Infer):
         pd = self.push_dist
         pids = [pd.p_create(optimizer) for _ in range(num_particles)]
         losses = []
-        for _ in range(epochs):
+        for _ in traced_epochs(epochs, "ensemble"):
             for batch in dataloader:
                 batch = self._batch(batch)
                 futs = [pd.particles[pid].step(batch) for pid in pids]
@@ -47,7 +47,7 @@ class DeepEnsemble(Infer):
         co_pids, mask, slots = self._fused_plan(pids)
         prog, ls = None, None
         with self._checked_out(co_pids, ("params", "opt_state")) as co:
-            for _ in range(epochs):
+            for _ in traced_epochs(epochs, "ensemble"):
                 for batch in dataloader:
                     batch = self._batch(batch)
                     if prog is None:    # one cache lookup per fused run

@@ -15,6 +15,10 @@ The NEL procedures convert each host batch to tensors on the store's
 device once (``_batch``) and hand that one object to every particle's
 hop, and they keep the reference's protocol of one host wait per
 particle per step (``float(f.wait())``).
+
+Every epoch loop, fused or on the NEL, iterates ``traced_epochs``: with
+tracing on, each epoch is a ``bdl.epoch`` span (DESIGN.md §12) inside a
+``torch.profiler.record_function("repro.epoch.<algo>")`` marker.
 """
 from __future__ import annotations
 
@@ -24,7 +28,21 @@ import torch
 
 from ..core import ParticleModule, PushDistribution
 from ..core.tree import to_device
+from ..obs import trace as _trace
 from ..runtime.backends import CompiledRuntime
+
+
+def traced_epochs(epochs: int, algo: str):
+    """``range(epochs)``, each epoch's body (the code between yields) in a
+    ``bdl.epoch`` span and a profiler marker while tracing is on; a plain
+    ``range`` when it is off."""
+    if not _trace.enabled():
+        yield from range(epochs)
+        return
+    for e in range(epochs):
+        with _trace.span("bdl.epoch", "bdl", algo=algo, epoch=e), \
+                torch.profiler.record_function(f"repro.epoch.{algo}"):
+            yield e
 
 
 class _OnDevice:

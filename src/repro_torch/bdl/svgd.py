@@ -39,7 +39,7 @@ from ..core import precision as precision_mod
 from ..core.tree import tree_map
 from ..kernels import ops as _kops
 from ..runtime.program import ProgramSpec, ident
-from .infer import Infer
+from .infer import Infer, traced_epochs
 
 
 def _median(x):
@@ -173,7 +173,7 @@ def _svgd_leader(particle, lr, lengthscale, dataloader, epochs):
     particle. ``dataloader`` yields batches already on the device."""
     others = [pid for pid in particle.particle_ids() if pid != particle.pid]
     losses = []
-    for _ in range(epochs):
+    for _ in traced_epochs(epochs, "svgd"):
         for batch in dataloader:
             # 1. step every particle
             fut = particle.grad(batch)
@@ -247,7 +247,7 @@ class SteinVGD(Infer):
         co_pids, mask, slots = self._fused_plan(pids)
         prog, ls = None, None
         with self._checked_out(co_pids, ("params",)) as co:
-            for _ in range(epochs):
+            for _ in traced_epochs(epochs, "svgd"):
                 for batch in dataloader:
                     batch = self._batch(batch)
                     if prog is None:    # one cache lookup per fused run

@@ -41,7 +41,7 @@ import torch
 from ..core.tree import to_device, tree_flatten, tree_leaves, tree_map
 from ..kernels import ops as _kops
 from ..runtime import specs
-from .infer import Infer
+from .infer import Infer, traced_epochs
 
 
 def _moment_zeros(p):
@@ -178,7 +178,7 @@ class MultiSWAG(Infer):
         pd = self.push_dist
         pids = self._create(optimizer, num_particles, max_rank)
         losses = []
-        for e in range(epochs):
+        for e in traced_epochs(epochs, "swag"):
             for batch in dataloader:
                 batch = self._batch(batch)
                 futs = [pd.particles[pid].step(batch) for pid in pids]
@@ -212,7 +212,7 @@ class MultiSWAG(Infer):
         step, collect, ls = None, None, None
         with self._checked_out(co_pids,
                                ("params", "opt_state", "swag")) as co:
-            for e in range(epochs):
+            for e in traced_epochs(epochs, "swag"):
                 for batch in dataloader:
                     batch = self._batch(batch)
                     if step is None:    # one cache lookup per fused run

@@ -77,6 +77,10 @@ class PushDistribution:
     def device(self) -> torch.device:
         return self.store.device
 
+    @property
+    def placement(self):
+        return self.store.placement
+
     def p_create(self, optimizer=None, *, device: Optional[int] = None,
                  receive: Optional[Dict[str, Callable]] = None,
                  state: Optional[dict] = None, params=None) -> int:
@@ -187,9 +191,20 @@ class PushDistribution:
         return self.runtime.predict(self, batch)
 
     def stats(self) -> Dict[str, Any]:
-        """Executor, dispatch, store, program-cache and obs counters in
-        one dict (``runtime.stats()``)."""
+        """Executor, dispatch, store, program-cache, lifecycle, placement
+        and obs counters in one dict, and the decode section while a
+        DecodeScheduler serves the store (``runtime.stats()``)."""
         return self.runtime.stats()
+
+    def obs(self):
+        """Observability handle (``repro_torch.obs.Obs``): a snapshot of
+        stats, device gauges and per-program costs, the Chrome/Perfetto
+        trace dump and Prometheus text::
+
+            trace.enable(); ...; pd.obs().dump_trace("trace.json")
+        """
+        from ..obs import Obs
+        return Obs(self)
 
     def serve(self, **kw):
         """Batched posterior-predictive service over this PD's store

@@ -1,7 +1,8 @@
 """ParticleStore: the single source of truth for per-particle state.
 
-Counterpart of ``repro.core.store`` on one device (the mesh ``Placement``
-waits for multi-GPU placement, ROADMAP.md queue 1 item 10).
+Counterpart of ``repro.core.store`` on one device: ``Placement`` is the
+reference's plan record with its single-device plan only (a mesh waits
+for multi-GPU placement, ROADMAP.md queue 1 item 10).
 ``StoreState`` is one particle's mapping view of it (``particle.state``).
 
   * canonical form — one *stacked* tree per state key ("params",
@@ -43,17 +44,49 @@ Unlike the reference's immutable arrays, a flush writes into the stacked
 tensors in place: a consumer holding the stacked tree sees the new rows.
 Serving steps and store churn are serialized by the scheduler's
 ``step_lock``.
+
+``stats`` keeps the reference's counters: ``unstacks`` counts rows sliced
+out of a stacked tree (a read of a stacked row, a subset commit's rows),
+``device_puts`` re-placements onto a mesh (0 on one device, as the
+reference's with ``mesh=None``). Spans (DESIGN.md §12, cat ``store``):
+``store.checkout``, ``store.commit``, ``store.h2d`` around a write whose
+leaves come from the host, and the ``store.generation_bump`` instant at
+capacity growth.
 """
 from __future__ import annotations
 
 import heapq
 import threading
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Set
 
 import torch
 
+from ..obs import trace as _trace
 from .precision import get as _resolve_precision
 from .tree import tree_leaves, tree_map
+
+
+@dataclass(frozen=True)
+class Placement:
+    """The reference's placement plan (``repro.core.store.Placement``) on
+    one device: ``mesh=None`` keeps every particle on the store's device,
+    so the particle and model axes have size 1. A mesh raises until
+    multi-GPU placement is ported (ROADMAP.md queue 1 item 10)."""
+    mesh: Any = None
+    particle_axis: Optional[str] = "data"
+    mode: str = "tp"
+    model_axis: Optional[str] = "model"
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the port's ParticleStore keeps every particle on one "
+                "device; a placement mesh waits for multi-GPU placement "
+                "(ROADMAP.md, queue 1 item 10)")
+
+    def model_axis_size(self) -> int:
+        return 1
 
 
 def _pow2_at_least(n: int) -> int:
@@ -86,7 +119,9 @@ class ParticleStore:
     first ``capacity`` registrations never bump ``generation()``; 0 grows
     on demand (1, 2, 4, ... — one generation bump per doubling)."""
 
-    def __init__(self, capacity: int = 0, precision=None, device=None):
+    def __init__(self, capacity: int = 0, precision=None, device=None,
+                 placement: Optional[Placement] = None):
+        self.placement = placement if placement is not None else Placement()
         self.device = torch.device("cuda" if device is None else device)
         self.precision = _resolve_precision(precision)
         self.capacity = _pow2_at_least(capacity) if capacity > 0 else 0
@@ -102,9 +137,10 @@ class ParticleStore:
         self._gen = 0
         self._versions: Dict[str, int] = {}
         self._mask_cache: Optional[torch.Tensor] = None
-        self.stats = {"stacks": 0, "row_flushes": 0, "commits": 0,
-                      "checkouts": 0, "mask_invalidations": 0,
-                      "capacity_growths": 0, "slot_clones": 0}
+        self.stats = {"stacks": 0, "unstacks": 0, "row_flushes": 0,
+                      "commits": 0, "device_puts": 0, "checkouts": 0,
+                      "mask_invalidations": 0, "capacity_growths": 0,
+                      "slot_clones": 0}
 
     # -- registry / slot allocation ------------------------------------------
     @property
@@ -175,6 +211,8 @@ class ParticleStore:
             self._stacked[key] = _pad(st, new_capacity - old)
         self._gen += 1
         self.stats["capacity_growths"] += 1
+        _trace.instant("store.generation_bump", "store",
+                       capacity=new_capacity, generation=self._gen)
         self._invalidate_mask()
 
     # -- active mask / versions ----------------------------------------------
@@ -250,6 +288,7 @@ class ParticleStore:
             return rows[slot]
         if key not in self._stacked or slot not in self._present.get(key, ()):
             raise KeyError(f"store has no {key!r} in slot {slot}")
+        self.stats["unstacks"] += 1
         return tree_map(lambda x: x[slot], self._stacked[key])
 
     def read(self, key: str, pid: int):
@@ -270,8 +309,11 @@ class ParticleStore:
 
     def write(self, key: str, pid: int, tree):
         """Write-back: the row shadows the stacked entry until the next
-        flush. Leaves move to the store's device."""
-        tree = tree_map(lambda x: x.to(self.device), tree)
+        flush. Leaves move to the store's device (a ``store.h2d`` span when
+        they come from elsewhere)."""
+        if any(x.device != self.device for x in tree_leaves(tree)):
+            with _trace.span("store.h2d", "store", key=key):
+                tree = tree_map(lambda x: x.to(self.device), tree)
         with self._lock:
             self._write_row(key, self._slot_of[pid], tree)
             self._bump(key)
@@ -372,7 +414,7 @@ class ParticleStore:
         ``commit`` it (or its update) back. With a pid subset the caller
         gets a fresh dense stack of those rows and the store keeps the
         canonical tensors (module doc)."""
-        with self._lock:
+        with _trace.span("store.checkout", "store", key=key), self._lock:
             sub = self._subset(pids)
             self.stats["checkouts"] += 1
             self._bump(key)
@@ -393,7 +435,7 @@ class ParticleStore:
         a direct commit speaks for every live slot. With a pid subset, row
         i of ``stacked`` becomes pids[i]'s dirty row, which the next flush
         copies into the canonical tensors in place."""
-        with self._lock:
+        with _trace.span("store.commit", "store", key=key), self._lock:
             sub = self._subset(pids)
             cohort = None if sub is not None \
                 else self._checkout_cohort.pop(key, None)
@@ -410,6 +452,7 @@ class ParticleStore:
                 for j, pid in enumerate(sub):
                     self._write_row(key, self._slot_of[pid],
                                     tree_map(lambda x, j=j: x[j], stacked))
+                self.stats["unstacks"] += len(sub)
                 return
             if cohort is None:
                 if key not in self._present and key not in self._stacked:
@@ -530,12 +573,17 @@ class ParticleStore:
                 out[name] = out.get(name, 0) + 1
         return out
 
-    def nbytes(self, key: str) -> int:
-        """Bytes of ``key``'s canonical stacked state (0 if none)."""
+    def per_device_bytes(self, key: str = "params") -> int:
+        """Bytes of ``key``'s state resident on the store's one device:
+        the canonical stacked tree, or the rows when none is stacked. Reads
+        without flushing or counting; 0 when the store holds nothing for
+        ``key``."""
         with self._lock:
             tree = self._stacked.get(key)
-            return 0 if tree is None else sum(
-                x.numel() * x.element_size() for x in tree_leaves(tree))
+            trees = [tree] if tree is not None \
+                else list(self._rows.get(key, {}).values())
+            return sum(x.numel() * x.element_size()
+                       for t in trees for x in tree_leaves(t))
 
 
 # ---------------------------------------------------------------------------

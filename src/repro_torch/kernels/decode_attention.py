@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from ..obs import device as _obs
 from . import split_walk
 from .build import check, entry, raise_on
 from .paged_decode_attention import DTYPE_CODE
@@ -81,7 +82,21 @@ def decode_attention(q, k_cache, v_cache, k_pos):
                 stream)
     raise_on(rc, "decode_attention")
     decode_attention.launches += 1
+    if _obs.counting_now():
+        _obs.charge(*cost(q, k_cache, v_cache, k_pos))
     return out
 
 
 decode_attention.launches = 0
+
+
+def cost(q, k_cache, v_cache, k_pos):
+    """(FLOPs, bytes) of one launch on this call's data: each valid slot's
+    K/V read once, q read and out written once, ``k_pos`` read; 4 FLOPs a
+    (query head, valid slot, dim). Reads ``k_pos`` on the host."""
+    P, _, H, hd = q.shape
+    KVH = k_cache.shape[3]
+    valid = int((k_pos >= 0).sum())
+    nbytes = (P * valid * KVH * hd * 2 * k_cache.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * k_pos.numel())
+    return 4 * P * valid * H * hd, nbytes

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from ..obs import device as _obs
 from .build import check, entry, raise_on
 from .paged_decode_attention import DTYPE_CODE
 
@@ -63,7 +64,20 @@ def flash_attention(q, k, v, *, causal: bool = True):
                 1.0 / math.sqrt(hd), stream)
     raise_on(rc, "flash_attention")
     flash_attention.launches += 1
+    if _obs.counting_now():
+        _obs.charge(*cost(q, k, v, causal=causal))
     return out
 
 
 flash_attention.launches = 0
+
+
+def cost(q, k, v, *, causal: bool = True):
+    """(FLOPs, bytes) of one launch: q, k, v read and out written once;
+    4 FLOPs a (query head, key, dim) over S(S+1)/2 causal pairs (S^2
+    without the mask) a sequence. The 3xTF32 products of an fp32 launch
+    are one FLOP each here, as the operation bound counts them."""
+    P, B, S, H, hd = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return 4 * P * B * H * hd * pairs, nbytes

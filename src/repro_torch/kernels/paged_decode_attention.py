@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from ..obs import device as _obs
 from . import split_walk
 from .build import entry, raise_on
 
@@ -110,7 +111,25 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
                 stream)
     raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
+    if _obs.counting_now():
+        _obs.charge(*cost(q, k_pages, v_pages, block_tables, seq_lens))
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def cost(q, k_pages, v_pages, block_tables, seq_lens):
+    """(FLOPs, bytes) of one launch on this call's data: each live K/V row
+    read once, q read and out written once, each row's live block-table
+    entries and its length; 4 FLOPs a (query head, key, dim). Reads
+    ``seq_lens`` on the host."""
+    P, _, H, hd = q.shape
+    ps, KVH = k_pages.shape[2], k_pages.shape[3]
+    lens = [L for L in seq_lens.tolist() if L >= 0]
+    live = sum(L + 1 for L in lens)
+    pages = sum(L // ps + 1 for L in lens)
+    nbytes = (P * live * KVH * hd * 2 * k_pages.element_size()
+              + 2 * q.numel() * q.element_size()
+              + 4 * (pages + seq_lens.numel()))
+    return 4 * P * live * H * hd, nbytes

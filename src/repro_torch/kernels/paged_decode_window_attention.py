@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from ..obs import device as _obs
 from . import split_walk
 from .build import entry, raise_on
 from .paged_decode_attention import DTYPE_CODE, check_paged
@@ -74,7 +75,27 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
                 stream)
     raise_on(rc, "paged_decode_window_attention")
     paged_decode_window_attention.launches += 1
+    if _obs.counting_now():
+        _obs.charge(*cost(q, k_pages, v_pages, block_tables, seq_lens))
     return out
 
 
 paged_decode_window_attention.launches = 0
+
+
+def cost(q, k_pages, v_pages, block_tables, seq_lens):
+    """(FLOPs, bytes) of one launch on this call's data: each active
+    row's live pages read once per window (its prefix and the window's W
+    positions), q read and out written once, the block-table entries and
+    lengths; 4 FLOPs a (query head, key, dim) over the causal window's
+    (query, key) pairs. Reads ``seq_lens`` on the host."""
+    P, _, W, H, hd = q.shape
+    ps, KVH = k_pages.shape[2], k_pages.shape[3]
+    lens = [L for L in seq_lens.tolist() if L >= 0]
+    pairs = sum(W * L + W * (W + 1) // 2 for L in lens)
+    live = sum(L + W for L in lens)
+    pages = sum((L + W - 1) // ps + 1 for L in lens)
+    nbytes = (P * live * KVH * hd * 2 * k_pages.element_size()
+              + 2 * q.numel() * q.element_size()
+              + 4 * (pages + seq_lens.numel()))
+    return 4 * P * pairs * H * hd, nbytes

@@ -31,6 +31,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..obs import device as _obs
 from .build import check, entry, raise_on
 from .split_walk import sm_count
 
@@ -165,6 +166,8 @@ def pairwise_sqdist(theta, mask=None, *, reduce: bool = True, **ring):
             int(reduce), _stream(theta.device))
     raise_on(rc, "pairwise_sqdist")
     pairwise_sqdist.launches += 1
+    if _obs.counting_now():
+        _obs.charge(*sqdist_cost(theta))
     return out if reduce else partial
 
 
@@ -192,8 +195,24 @@ def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
             n, D, _stream(dev))
     raise_on(rc, "svgd_force")
     svgd_force.launches += 1
+    if _obs.counting_now():
+        _obs.charge(*force_cost(theta))
     return out
 
 
 pairwise_sqdist.launches = 0
 svgd_force.launches = 0
+
+
+def sqdist_cost(theta):
+    """(FLOPs, bytes) of one ``pairwise_sqdist``: theta (n, D) read once,
+    2 FLOPs a (pair, coordinate) over the n^2 pairs."""
+    n, D = theta.shape
+    return 2 * n * n * D, n * D * theta.element_size()
+
+
+def force_cost(theta):
+    """(FLOPs, bytes) of one ``svgd_force``: theta and the grads read and
+    phi written once, 4 FLOPs a (pair, coordinate)."""
+    n, D = theta.shape
+    return 4 * n * n * D, 3 * n * D * theta.element_size()

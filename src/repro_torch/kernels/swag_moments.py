@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..obs import device as _obs
 from .build import check, entry, raise_on
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -92,6 +93,8 @@ def moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
             torch.cuda.current_stream(device).cuda_stream)
     raise_on(rc, "swag moments")
     moments.launches += 1
+    if _obs.counting_now():
+        _obs.charge(*moments_cost(mean, dev))
     return out_mean, out_sq
 
 
@@ -110,11 +113,27 @@ def diag_std(mean, sq):
             torch.cuda.current_stream(mean.device).cuda_stream)
     raise_on(rc, "swag diag_std")
     diag_std.launches += 1
+    if _obs.counting_now():
+        _obs.charge(*diag_std_cost(mean))
     return out
 
 
 moments.launches = 0
 diag_std.launches = 0
+
+
+def moments_cost(mean, dev=None):
+    """(FLOPs, bytes) of one ``moments`` launch: mean, sq and theta read,
+    mean and sq written, and the deviation row written when the ring is
+    given; 7 FLOPs an entry."""
+    nbytes = mean.numel() * mean.element_size()
+    return 7 * mean.numel(), (5 + (dev is not None)) * nbytes
+
+
+def diag_std_cost(mean):
+    """(FLOPs, bytes) of one ``diag_std``: mean and sq read, the scale
+    written; 4 FLOPs an entry."""
+    return 4 * mean.numel(), 3 * mean.numel() * mean.element_size()
 
 
 def moments_via_fp32(fn, mean, sq, theta, n, mask=None, dev=None, slot=None,

@@ -17,8 +17,9 @@ store generation (``program`` / ``run``: the train steps, the SWAG
 collection and ``predict``; a CUDA graph each on the card, eager on the
 CPU), and both report ``stats()``: the executor's wait-vs-run counters,
 the NEL's dispatch counters, the store's, the cache's, the lifecycle's
-(capacity, live and free slots, generation, clones, kills, rebalances)
-and obs's.
+(capacity, live and free slots, generation, clones, kills, rebalances),
+the placement plan's, obs's and, while a DecodeScheduler serves the
+store, the decode section (the reference's keys, section by section).
 
 A graph capture on the card runs in global mode, which refuses launches
 from other threads: ``program`` drains the PD's NEL before a lookup
@@ -64,14 +65,31 @@ class _BaseRuntime:
         return self.program(spec, *args, state_token=state_token)(*args)
 
     def stats(self) -> Dict[str, Any]:
-        return {"backend": self.name,
-                "executor": self.pd.nel.executor.stats(),
-                "dispatch": dict(self.pd.nel.stats),
-                "store": self.pd.store.snapshot_stats(),
-                "program_cache": self.cache.snapshot_stats(),
-                "lifecycle": {**self.pd.store.lifecycle_stats(),
-                              **self.pd.lifecycle},
-                "obs": _obs_summary()}
+        store = self.pd.store
+        store_stats = store.snapshot_stats()
+        pl = store.placement
+        out = {"backend": self.name,
+               "executor": self.pd.nel.executor.stats(),
+               "dispatch": dict(self.pd.nel.stats),
+               "store": store_stats,
+               "program_cache": self.cache.snapshot_stats(),
+               "lifecycle": {**store.lifecycle_stats(), **self.pd.lifecycle},
+               # the placement plan (one device: no mesh) and its footprint
+               "placement": {
+                   "mesh_shape": None, "mode": pl.mode,
+                   "particle_axis": pl.particle_axis,
+                   "model_axis": pl.model_axis,
+                   "model_axis_size": pl.model_axis_size(),
+                   "per_device_param_bytes": store.per_device_bytes("params"),
+                   "reshards": store_stats["device_puts"]},
+               "obs": _obs_summary()}
+        # while a DecodeScheduler serves the store (serve imports runtime,
+        # so the import waits for the call)
+        from ..serve.batcher import decode_stats_for
+        decode = decode_stats_for(store)
+        if decode is not None:
+            out["decode"] = decode
+        return out
 
 
 class NelRuntime(_BaseRuntime):

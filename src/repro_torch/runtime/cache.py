@@ -24,17 +24,30 @@ graph's private memory pool would stay resident for nothing.
 ``program.lower`` by default (a CUDA graph on the card, the eager body on
 the CPU), ``program.eager`` for an eager pass on the card, or a test's
 stub; a capturer is ``capturer(spec, args, cache_key) -> Program``.
+
+``program_costs()`` gives each entry's cost attribution (the reference's
+keys: name, a 16-hex fingerprint of its key, particle count, param bytes
+per device, the ``Program.cost()`` dict) beside what only a captured
+program has (``graph``, ``capture_s``, ``pool_bytes``). Spans (DESIGN.md
+§12, cat ``runtime``): the ``cache.hit`` and ``cache.miss`` instants of a
+lookup and a ``runtime.lower`` span around a capture.
 """
 from __future__ import annotations
 
+import hashlib
 import threading
 import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..core.tree import tree_leaves
+from ..obs import trace as _trace
 from .program import (IN_PLACE, Program, ProgramSpec, arg_device, arg_key,
                       lower)
+
+
+def _key_fingerprint(key: Tuple) -> str:
+    return hashlib.sha256(repr(key).encode()).hexdigest()[:16]
 
 
 class ProgramCache:
@@ -86,9 +99,12 @@ class ProgramCache:
             if prog is not None:
                 self._programs.move_to_end(key)
                 self.stats["hits"] += 1
+                _trace.instant("cache.hit", "runtime", program=spec.name)
                 return prog, True
             self.stats["misses"] += 1
-        built = self.capturer(spec, args, key)
+            _trace.instant("cache.miss", "runtime", program=spec.name)
+        with _trace.span("runtime.lower", "runtime", program=spec.name):
+            built = self.capturer(spec, args, key)
         with self._lock:
             prog = self._programs.get(key)
             if prog is None:
@@ -145,16 +161,24 @@ class ProgramCache:
             s["hit_rate"] = s["hits"] / total if total else 0.0
             return s
 
-    def program_info(self) -> List[Dict[str, Any]]:
-        """Per entry, least recently used first: name, whether it is a
-        captured graph, the seconds its capture took and the bytes its
-        graph's private pool reserved."""
+    def program_costs(self, compute: bool = False) -> List[Dict[str, Any]]:
+        """Per entry, least recently used first: name, key fingerprint,
+        particle count, param bytes per device and ``cost``: the
+        ``Program.cost()`` dict once it has been asked for, or with
+        ``compute=True`` for every program that has run (None before a
+        program's first run, which is where its cost is counted); then
+        whether it is a captured graph, the seconds its capture took and
+        the bytes its graph's private pool reserved."""
         with self._lock:
             self._release_dead()
-            progs = list(self._programs.values())
-        return [{"name": p.name, "graph": p.graph is not None,
-                 "capture_s": p.capture_s, "pool_bytes": p.pool_bytes}
-                for p in progs]
+            items = list(self._programs.items())
+        return [{"name": p.name, "fingerprint": _key_fingerprint(key),
+                 "num_particles": p.num_particles,
+                 "param_bytes_per_device": p.param_bytes_per_device,
+                 "cost": p.cost() if compute else p.cost_if_computed(),
+                 "graph": p.graph is not None, "capture_s": p.capture_s,
+                 "pool_bytes": p.pool_bytes}
+                for key, p in items]
 
     def clear(self):
         with self._lock:

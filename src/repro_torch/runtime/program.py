@@ -48,10 +48,17 @@ The kernels' launch counters (``launches`` on each wrapper of
 not count: a captured ``Program`` records each counter's change during
 capture, takes it back (nothing ran), and adds it again at every replay.
 
-The reference's ``cost()``, ``aot_dump`` and ``preload`` have no
-counterpart: a CUDA graph cannot be serialized, and ``kernels/build.py``
-already caches the compiled kernels between processes. A program's cost
-attribution comes with the port of ``obs/device`` (ROADMAP.md queue 1).
+A program's cost (``Program.cost()``, the reference's keys) is counted on
+its first run, under ``obs.device.counting``: the capture's warm-up, or an
+eager program's first call (a step that updates its state in place cannot
+be run again to be counted). Before that run ``cost()`` is None.
+With tracing on, each call records a ``program.<name>`` span (cat
+``runtime``) and opens ``torch.profiler.record_function(
+"repro.program.<name>")``, so a profile taken alongside carries a marker
+per program; with tracing off a call pays one flag check. The reference's
+``aot_dump`` and ``preload`` have no counterpart: a CUDA graph cannot be
+serialized, and ``kernels/build.py`` already caches the compiled kernels
+between processes.
 """
 from __future__ import annotations
 
@@ -69,6 +76,9 @@ import torch
 
 from ..core.tree import tree_flatten, tree_leaves, tree_map
 from ..kernels.ops import COUNTED
+from ..obs import clock
+from ..obs import device as _obs
+from ..obs import trace as _trace
 
 IN_KINDS = ("state", "replicated", "vector", "rows")
 IN_PLACE = ("state", "rows")
@@ -227,16 +237,20 @@ class Program:
     ``"in:<i>"`` output replaced by the caller's argument ``i``.
     ``pool_bytes`` is the device memory the capture reserved for the
     graph's private pool. A pinned host tensor is copied asynchronously:
-    its caller may refill it only once the stream has passed the call."""
+    its caller may refill it only once the stream has passed the call.
+    ``counted`` holds what the first run counted (module doc), and
+    ``param_bytes_per_device`` the bytes of the first "state" argument."""
 
     __slots__ = ("name", "cache_key", "num_particles", "fn", "graph",
                  "in_kinds", "static_args", "static_out", "out_args",
-                 "launches", "capture_s", "first", "checks", "pool_bytes")
+                 "launches", "capture_s", "first", "checks", "pool_bytes",
+                 "param_bytes_per_device", "counted", "_cost")
 
     def __init__(self, name, cache_key, num_particles, fn=None, graph=None,
                  in_kinds=(), static_args=(), static_out=None, out_args=(),
                  launches=(), capture_s: float = 0.0, first=None, checks=(),
-                 pool_bytes: int = 0):
+                 pool_bytes: int = 0, param_bytes_per_device: int = 0,
+                 counted=None):
         self.name = name
         self.cache_key = cache_key
         self.num_particles = num_particles
@@ -251,10 +265,40 @@ class Program:
         self.first = first                  # (warm-up args, its outputs)
         self.checks = checks                # ((arg index, leaf, check),)
         self.pool_bytes = pool_bytes
+        self.param_bytes_per_device = param_bytes_per_device
+        self.counted = counted
+        self._cost = None
 
     def __call__(self, *args):
+        tr = _trace.TRACER
+        if not tr.enabled:
+            return self._run(args)
+        t0 = clock.now()
+        with torch.profiler.record_function(f"repro.program.{self.name}"):
+            out = self._run(args)
+        tr.record(f"program.{self.name}", "runtime", t0, clock.now(),
+                  {"n": self.num_particles})
+        return out
+
+    def cost(self):
+        """The memoized cost dict (``obs.device.program_cost``: flops,
+        bytes_accessed, param_bytes_per_device, memory, loop_aware); None
+        until the program's first run has been counted."""
+        if self._cost is None:
+            self._cost = _obs.program_cost(self)
+        return self._cost
+
+    def cost_if_computed(self):
+        return self._cost
+
+    def _run(self, args):
         if self.graph is None:
-            return self.fn(*args)
+            if self.counted is not None:
+                return self.fn(*args)
+            with _obs.counting() as count:
+                out = self.fn(*args)
+            self.counted = _counted(count, args, out)
+            return out
         first, self.first = self.first, None
         if first is not None and all(a is b for a, b in zip(args, first[0])):
             return first[1]         # the warm-up ran this very call
@@ -340,6 +384,26 @@ def _num_particles(spec: ProgramSpec, args) -> int:
     return 0
 
 
+def _tree_bytes(tree) -> int:
+    return sum(_obs.leaf_bytes(x) for x in tree_leaves(tree))
+
+
+def _param_bytes_per_device(spec: ProgramSpec, args) -> int:
+    """Bytes of the first "state" argument, all of it on the one device
+    (the reference's per-device param bytes without a mesh)."""
+    for kind, a in zip(spec.in_kinds, args):
+        if kind == "state":
+            return _tree_bytes(a)
+    return 0
+
+
+def _counted(count, args, out):
+    """What a counted first run gives ``obs.device.program_cost``."""
+    return {"flops": count.flops, "bytes": count.bytes,
+            "argument_bytes": _tree_bytes(args),
+            "output_bytes": _tree_bytes(out)}
+
+
 def _build(spec: ProgramSpec, args):
     if len(args) != len(spec.in_kinds):
         raise ValueError(f"{spec.name}: {len(args)} arguments for "
@@ -361,7 +425,8 @@ def eager(spec: ProgramSpec, args, cache_key=None) -> Program:
             return fn(*(a if k in IN_PLACE else _as_tensors(a, device)
                         for k, a in zip(kinds, call_args)))
 
-    return Program(spec.name, cache_key, n, fn=run, in_kinds=kinds)
+    return Program(spec.name, cache_key, n, fn=run, in_kinds=kinds,
+                   param_bytes_per_device=_param_bytes_per_device(spec, args))
 
 
 def _in_place_outputs(spec: ProgramSpec, out, args):
@@ -418,9 +483,10 @@ def capture(spec: ProgramSpec, args, cache_key=None) -> Program:
     anything with the value it checks.
 
     The warm-up runs the step for real on these arguments: it is the
-    first call's execution. The program's first call with these very
-    argument objects returns the warm-up's outputs without a replay, so
-    every call runs the step, and launches each kernel, exactly once."""
+    first call's execution, and the run the program's cost is counted
+    on. The program's first call with these very argument objects returns
+    the warm-up's outputs without a replay, so every call runs the step,
+    and launches each kernel, exactly once."""
     fn, device, n = _build(spec, args)
     if device is None or device.type != "cuda":
         raise ValueError(f"{spec.name}: capture needs CUDA arguments, got "
@@ -433,8 +499,10 @@ def capture(spec: ProgramSpec, args, cache_key=None) -> Program:
         side = _warm_up_stream(device)
         side.wait_stream(current)
         with torch.cuda.stream(side), _host_checks(kinds, static,
-                                                   args) as checks:
+                                                   args) as checks, \
+                _obs.counting() as count:
             warm = fn(*static)
+        counted = _counted(count, static, warm)
         current.wait_stream(side)
         torch.cuda.synchronize(device)
         before = [k.launches for k in COUNTED]
@@ -469,7 +537,9 @@ def capture(spec: ProgramSpec, args, cache_key=None) -> Program:
                    launches=tuple((k, r) for k, r in zip(COUNTED, recorded)
                                   if r),
                    capture_s=took, first=(tuple(args), warm),
-                   checks=tuple(checks), pool_bytes=pool_bytes)
+                   checks=tuple(checks), pool_bytes=pool_bytes,
+                   param_bytes_per_device=_param_bytes_per_device(spec, args),
+                   counted=counted)
 
 
 def lower(spec: ProgramSpec, args, cache_key=None) -> Program:

@@ -31,12 +31,17 @@ on free pages in the PagePool; when a running row cannot get its next
 page, the youngest row is preempted (pages reclaimed, sequence requeued —
 greedy sampling makes the re-run deterministic). The loop runs as a work
 item on its own executor, as the micro-batcher's does, so an idle
-scheduler is one parked worker.
+scheduler is one parked worker. ``decode_stats_for(store)`` is the
+``pd.stats()["decode"]`` section of the scheduler serving that store.
+Spans (DESIGN.md §12, cat ``decode``): ``decode.step`` and
+``decode.prefill``, the instants ``decode.admit``, ``decode.grow``,
+``decode.preempt`` and ``decode.retire``.
 """
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
@@ -361,6 +366,19 @@ class _Seq:
                           preemptions=self.preemptions)
 
 
+# store -> the scheduler serving it, read by runtime.backends' stats(). Weak
+# values: a dropped scheduler is not kept alive by its stats hook.
+_DECODE_SCHEDULERS: "weakref.WeakValueDictionary" = \
+    weakref.WeakValueDictionary()
+
+
+def decode_stats_for(store) -> Optional[Dict[str, Any]]:
+    """The ``pd.stats()["decode"]`` section: the stats of the
+    DecodeScheduler serving ``store``, None when none does."""
+    sched = _DECODE_SCHEDULERS.get(id(store))
+    return None if sched is None else sched.snapshot_stats()
+
+
 class DecodeScheduler:
     """Continuous batching over a ``PagedDecodeEngine`` + ``PagePool``.
 
@@ -417,6 +435,7 @@ class DecodeScheduler:
             "active_row_steps": 0, "admission_blocked": 0,
             "h2d_transfers": 0, "errors": 0, "max_queue_depth": 0,
         }
+        _DECODE_SCHEDULERS[id(engine.store)] = self
 
     # -- submission ----------------------------------------------------------
     def submit(self, prompt, *, max_new: int,
@@ -504,15 +523,16 @@ class DecodeScheduler:
         active = [(i, s) for i, s in enumerate(self._rows) if s is not None]
         if not active:
             return
-        self._packed[:, 0] = 0
-        self._packed[:, 1] = -1
-        self._packed[:, 2:] = 0
-        for i, seq in active:
-            self._packed[i, 0] = seq.all_tokens[-1]
-            self._packed[i, 1] = len(seq.all_tokens) - 1
-            self.pool.fill_block_row(seq.sid, self._packed[i, 2:])
-        self.stats["h2d_transfers"] += 1
-        heads = _to_host(self.engine.decode_step(self._packed))
+        with _trace.span("decode.step", "decode", rows=len(active)):
+            self._packed[:, 0] = 0
+            self._packed[:, 1] = -1
+            self._packed[:, 2:] = 0
+            for i, seq in active:
+                self._packed[i, 0] = seq.all_tokens[-1]
+                self._packed[i, 1] = len(seq.all_tokens) - 1
+                self.pool.fill_block_row(seq.sid, self._packed[i, 2:])
+            self.stats["h2d_transfers"] += 1
+            heads = _to_host(self.engine.decode_step(self._packed))
         self.stats["steps"] += 1
         self.stats["active_row_steps"] += len(active)
         for i, seq in active:
@@ -548,6 +568,8 @@ class DecodeScheduler:
                 continue
             self._rows[row] = seq
             self.stats["admitted"] += 1
+            _trace.instant("decode.admit", "decode", sid=seq.sid,
+                           replay=bool(seq.generated))
             if not seq.generated:
                 # the prefill head IS the first generated token; replays
                 # discard it (greedy => it equals the token already held)
@@ -563,14 +585,17 @@ class DecodeScheduler:
 
     def _prefill(self, seq: _Seq, n_pf: int):
         bucket = bucket_size(n_pf)
-        buf = self._prefill_buf(bucket)
-        buf[:n_pf] = seq.all_tokens[:n_pf]
-        buf[n_pf:bucket] = 0
-        self.pool.fill_block_row(seq.sid, buf[bucket:bucket + self.n_pmax])
-        buf[-1] = n_pf
-        self.stats["prefills"] += 1
-        self.stats["h2d_transfers"] += 1
-        return _to_host(self.engine.prefill(buf))
+        with _trace.span("decode.prefill", "decode", sid=seq.sid,
+                         tokens=n_pf, bucket=bucket):
+            buf = self._prefill_buf(bucket)
+            buf[:n_pf] = seq.all_tokens[:n_pf]
+            buf[n_pf:bucket] = 0
+            self.pool.fill_block_row(seq.sid,
+                                     buf[bucket:bucket + self.n_pmax])
+            buf[-1] = n_pf
+            self.stats["prefills"] += 1
+            self.stats["h2d_transfers"] += 1
+            return _to_host(self.engine.prefill(buf))
 
     def _ensure_page(self, seq: _Seq, extra: int = 0) -> bool:
         """Make the page for ``seq``'s next write position resident, plus
@@ -582,6 +607,8 @@ class DecodeScheduler:
         while len(self.pool.pages_of(seq.sid)) < need:
             if self.pool.alloc(seq.sid,
                                need - len(self.pool.pages_of(seq.sid))):
+                _trace.instant("decode.grow", "decode", sid=seq.sid,
+                               pages=need)
                 return True
             victim = max((s for s in self._rows if s is not None),
                          key=lambda s: s.sid)
@@ -595,6 +622,8 @@ class DecodeScheduler:
         self.pool.release(seq.sid)
         seq.preemptions += 1
         self.stats["preempted"] += 1
+        _trace.instant("decode.preempt", "decode", sid=seq.sid,
+                       tokens=len(seq.all_tokens))
         with self._cond:
             self._waiting.appendleft(seq)
 
@@ -612,6 +641,9 @@ class DecodeScheduler:
         self.pool.release(seq.sid)
         self.stats["retired"] += 1
         self.latency.append(clock.now() - seq.t_enqueue)
+        _trace.instant("decode.retire", "decode", sid=seq.sid,
+                       tokens=len(seq.generated),
+                       reason=seq.finish_reason())
         seq.future._resolve(seq.result())
 
     def _fail_all(self, e: BaseException):
@@ -646,6 +678,8 @@ class DecodeScheduler:
             steps * self.max_active)
         out["pool"] = self.pool.snapshot_stats()
         out["kv_pages"] = self.engine.kv_page_info()
+        # the speculative scheduler fills this section in
+        out["speculative"] = None
         return out
 
     # -- lifecycle -----------------------------------------------------------

@@ -353,7 +353,8 @@ class PagedDecodeEngine(PredictiveEngine):
         """Dtype histogram and resident bytes of the page pool."""
         return {"key": self.pages_key,
                 "dtypes": self.store.key_dtypes(self.pages_key),
-                "bytes": self.store.nbytes(self.pages_key)}
+                "per_device_bytes": self.store.per_device_bytes(
+                    self.pages_key)}
 
     def _checkout_pages(self):
         """Check the pool out, with its cache-key entry (recomputed only

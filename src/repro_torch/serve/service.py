@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..core.messages import PFuture
+from ..core.store import ParticleStore
 from ..core.tree import tree_map
 from ..models import api as models_api
 from ..obs import clock, metrics
@@ -291,8 +292,9 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
                  warmup_buckets=(), precision: Any = None,
                  speculative: Any = None,
                  cache: Optional[ProgramCache] = None) -> DecodeService:
-    """Turn a PushDistribution holding an LM ensemble into a
-    continuous-batching posterior-predictive decode service.
+    """Turn a PushDistribution holding an LM ensemble, or a ParticleStore
+    (one that ``checkpoint.restore_store`` handed back; pass ``cfg``), into
+    a continuous-batching posterior-predictive decode service.
 
     Installs the paged KV pool as a store key on the PD's device (with its
     scratch page past the ``num_pages`` the PagePool hands out:
@@ -334,11 +336,13 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     either way.
     """
     spec_cfg = resolve_spec_config(speculative)
-    cfg = cfg if cfg is not None else getattr(pd.module, "cfg", None)
+    store = pd if isinstance(pd, ParticleStore) else pd.store
+    if cfg is None and store is not pd:
+        cfg = getattr(pd.module, "cfg", None)
     if cfg is None:
         raise ValueError("pass cfg= (the module carries none)")
     if cache_dtype is None:
-        cache_dtype = pd.precision.kv
+        cache_dtype = store.precision.kv
     if max_seq_pages is None:
         max_seq_pages = -(-cfg.max_seq_len // page_size)
     n_pmax = min(max_seq_pages, num_pages)
@@ -351,7 +355,7 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
         return models_api.prefill_paged(params, tokens, pages,
                                         block_table_row, n_tokens, cfg)
 
-    create_kv_pages(pd.store, functools.partial(
+    create_kv_pages(store, functools.partial(
         models_api.paged_cache_init, cfg, num_pages=num_pages,
         page_size=page_size, dtype=cache_dtype), key=pages_key)
     pool = PagePool(num_pages, page_size, max_seq_pages=n_pmax)
@@ -362,7 +366,7 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
                 params, tokens, pages, block_tables, seq_lens, win_lens, cfg)
 
         engine = SpecDecodeEngine(decode_fn, prefill_fn, verify_fn,
-                                  spec_cfg=spec_cfg, store=pd.store,
+                                  spec_cfg=spec_cfg, store=store,
                                   model_dtype=getattr(torch, cfg.dtype),
                                   n_pmax=n_pmax, pages_key=pages_key,
                                   cache=cache, precision=precision)
@@ -370,7 +374,7 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
             engine, pool, max_active=max_active, eos_id=eos_id,
             max_queue=max_queue)
     else:
-        engine = PagedDecodeEngine(decode_fn, prefill_fn, store=pd.store,
+        engine = PagedDecodeEngine(decode_fn, prefill_fn, store=store,
                                    n_pmax=n_pmax, pages_key=pages_key,
                                    cache=cache, precision=precision)
         scheduler = DecodeScheduler(engine, pool, max_active=max_active,

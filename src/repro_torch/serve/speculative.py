@@ -42,6 +42,10 @@ the one pack program serves every slot. The draft reads that row, the
 same values the reference dequantizes inside its draft program, so each
 draft program per (slot, iteration count) still reads its slot's pages
 through a view, but no draft program holds a copy of the weights.
+
+Spans (DESIGN.md §12, cat ``decode``): ``decode.draft`` and
+``decode.verify`` a step, the ``decode.rollback`` instant where a
+rejected tail gives pages back.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ import torch
 
 from ..core import precision as precision_mod
 from ..core.tree import tree_map
+from ..obs import trace as _trace
 from ..runtime.bucketing import bucket_size
 from ..runtime.program import ProgramSpec, arg_key, ident
 from ..runtime.specs import spec_draft_pack, spec_draft_step, spec_verify
@@ -361,34 +366,39 @@ class SpeculativeDecodeScheduler(DecodeScheduler):
 
         drafts = None
         if any(plans.get(s.sid, 0) > 0 for _, s in active):
-            d = self._draft_packed
-            d[:, 0] = 0
-            d[:, 1] = -1
-            d[:, 2:] = 0
-            for i, seq in active:
-                d[i, 0] = seq.all_tokens[-1]
-                d[i, 1] = len(seq.all_tokens) - 1
-                d[i, 2] = plans.get(seq.sid, 0)
-                self.pool.fill_block_row(seq.sid, d[i, 3:])
-            self.stats["h2d_transfers"] += 1
-            drafts = self.engine.draft_step(d, slot).cpu().numpy()
+            with _trace.span("decode.draft", "decode", rows=len(active),
+                             slot=slot,
+                             tokens=sum(plans.get(s.sid, 0)
+                                        for _, s in active)):
+                d = self._draft_packed
+                d[:, 0] = 0
+                d[:, 1] = -1
+                d[:, 2:] = 0
+                for i, seq in active:
+                    d[i, 0] = seq.all_tokens[-1]
+                    d[i, 1] = len(seq.all_tokens) - 1
+                    d[i, 2] = plans.get(seq.sid, 0)
+                    self.pool.fill_block_row(seq.sid, d[i, 3:])
+                self.stats["h2d_transfers"] += 1
+                drafts = self.engine.draft_step(d, slot).cpu().numpy()
             self.spec_stats["draft_calls"] += 1
             self.spec_stats["drafted_tokens"] += int(
                 sum(plans.get(s.sid, 0) for _, s in active))
 
-        v = self._verify_packed
-        v[:] = 0
-        v[:, self.w_max] = -1
-        for i, seq in active:
-            k_i = plans.get(seq.sid, 0)
-            v[i, 0] = seq.all_tokens[-1]
-            if k_i:
-                v[i, 1:1 + k_i] = drafts[i, :k_i]
-            v[i, self.w_max] = len(seq.all_tokens) - 1
-            v[i, self.w_max + 1] = k_i + 1
-            self.pool.fill_block_row(seq.sid, v[i, self.w_max + 2:])
-        self.stats["h2d_transfers"] += 1
-        heads = _to_host(self.engine.verify_step(v))
+        with _trace.span("decode.verify", "decode", rows=len(active)):
+            v = self._verify_packed
+            v[:] = 0
+            v[:, self.w_max] = -1
+            for i, seq in active:
+                k_i = plans.get(seq.sid, 0)
+                v[i, 0] = seq.all_tokens[-1]
+                if k_i:
+                    v[i, 1:1 + k_i] = drafts[i, :k_i]
+                v[i, self.w_max] = len(seq.all_tokens) - 1
+                v[i, self.w_max + 1] = k_i + 1
+                self.pool.fill_block_row(seq.sid, v[i, self.w_max + 2:])
+            self.stats["h2d_transfers"] += 1
+            heads = _to_host(self.engine.verify_step(v))
         self.spec_stats["verify_calls"] += 1
         self.spec_stats["spec_steps"] += 1
         self.stats["steps"] += 1
@@ -414,8 +424,11 @@ class SpeculativeDecodeScheduler(DecodeScheduler):
             self._observe_acceptance(seq, k_i, m - 1)
             # rollback: keep the pages the accepted prefix needs (entries
             # for all_tokens[:-1]); the rejected tail's pages go back
-            self.spec_stats["rollback_pages"] += self.pool.release_tail(
-                seq.sid, len(seq.all_tokens) - 1)
+            freed = self.pool.release_tail(seq.sid, len(seq.all_tokens) - 1)
+            if freed:
+                self.spec_stats["rollback_pages"] += freed
+                _trace.instant("decode.rollback", "decode", sid=seq.sid,
+                               pages=freed)
             self._maybe_retire(i, seq)
 
     def _append_window_token(self, seq: _Seq, heads, i: int, j: int):

@@ -84,6 +84,10 @@ graph, one a NN; regression serving of a narrow UNet answers
 single-example requests with ``predict_batch``'s rows and captures
 nothing after warmup.
 
+Obs: the device gauges read the caching allocator and the device total;
+a captured program's cost is counted on its warm-up, a kernel charging
+its own FLOPs and bytes.
+
 LM training: a narrow qwen's DeepEnsemble steps (Adam under
 warmup_cosine) captured equal the eager steps bit for bit; the chunked
 flash attention's backward on the card equals ``full_attention``'s
@@ -1118,7 +1122,7 @@ def test_captured_steps_replay_the_eager_bits(dev):
             got[mode] = ([_host(o) for o in outs], _host(tree),
                          [k.launches - b for k, b in zip(COUNTED, before)])
             assert cache.snapshot_stats()["cold_compiles"] == 1
-            assert (cache.program_info()[0]["graph"]) == (mode == "graph")
+            assert (cache.program_costs()[0]["graph"]) == (mode == "graph")
         assert _same_bits(got["graph"][0], got["eager"][0]), name
         assert _same_bits(got["graph"][1], got["eager"][1]), name
         assert got["graph"][2] == got["eager"][2], name
@@ -1158,7 +1162,7 @@ def test_captured_dense_step_raises_outside_the_cache(dev):
 
     # the cache keeps the program while its dense caches live (``live``)
     graph, graph_state, cache, live = run(ProgramCache())
-    assert cache.program_info()[0]["graph"]
+    assert cache.program_costs()[0]["graph"]
     assert cache.snapshot_stats()["cold_compiles"] == 1
     del live
     plain, plain_state, _, _ = run(ProgramCache(capturer=eager))
@@ -1193,7 +1197,7 @@ def test_no_capture_after_warmup_on_the_card(dev, speculative):
                              speculative=speculative)
     assert st["preempted"] >= 1 and st["retired"] == len(prompts)
     assert st["cold_compiles"] == cold > 0
-    assert all(p["graph"] for p in cache.program_info())
+    assert all(p["graph"] for p in cache.program_costs())
     plain, _, _ = _serve(pd, cfg, ProgramCache(capturer=eager), prompts,
                          speculative=speculative)
     for a, b in zip(graph, plain):
@@ -1313,7 +1317,7 @@ def _train_capture_run(dev, name, capturer):
                                  num_particles=6, **kw())
     torch.cuda.synchronize()
     launches = [k.launches - b for k, b in zip(counters, before)]
-    stats, info = cache.snapshot_stats(), cache.program_info()
+    stats, info = cache.snapshot_stats(), cache.program_costs()
     state = [_host(algo.store.stacked(k)) for k in keys]
     batch = next(iter(DataLoader(cfg, batch_size=6, num_batches=1, seed=1)))
     pred = algo.posterior_pred(batch).cpu()
@@ -1498,7 +1502,7 @@ def test_clone_within_capacity_keeps_addresses_and_captures_nothing(
             pd.p_kill(twin)
         back = [svc.generate(p, max_new=6) for p in prompts]
         st = svc.stats()
-        assert all(p["graph"] for p in cache.program_info())
+        assert all(p["graph"] for p in cache.program_costs())
     finally:
         svc.close()
     assert st["cold_compiles"] == cold and pd.store.generation() == gen
@@ -1521,7 +1525,7 @@ def test_killing_the_drafter_repicks_without_a_capture(dev):
     svc = serve_decode(pd, cfg, num_pages=32, page_size=8, max_active=2,
                        warmup_buckets=(8,), speculative=2, cache=cache)
     try:
-        drafts = [p for p in cache.program_info()
+        drafts = [p for p in cache.program_costs()
                   if p["name"] == "spec_draft_step"]
         assert len(drafts) == 2 * pd.store.capacity
         svc.generate(prompt, max_new=6)
@@ -1651,8 +1655,8 @@ def test_predict_captures_each_bucket_once_and_replays_eager_bits(dev):
                 assert torch.equal(got[k], want[k]), (m, k)
     st = graph.snapshot_stats()
     assert st["compiles"] == 4 and st["bucket_hits"] == 8
-    assert all(p["graph"] for p in graph.cache.program_info())
-    assert not any(p["graph"] for p in plain.cache.program_info())
+    assert all(p["graph"] for p in graph.cache.program_costs())
+    assert not any(p["graph"] for p in plain.cache.program_costs())
     # one host-to-device copy per call (one leaf), graph and eager alike
     assert copies == {"graph": 12, "eager": 12}
     graph.close()
@@ -1801,7 +1805,7 @@ def test_serve_copy_and_int8_pack_keep_addresses_across_a_commit(dev):
         assert [x.data_ptr() for x in tree_leaves(eng._pack[:2])] \
             == pack_ptrs
         assert eng.stats["draft_packs"] > packs
-        assert all(p["graph"] for p in cache.program_info())
+        assert all(p["graph"] for p in cache.program_costs())
     finally:
         svc.close()
     assert st["cold_compiles"] == cold
@@ -1873,7 +1877,7 @@ def test_mixed_training_keeps_fp32_masters_on_the_card(dev):
                 if cls is DeepEnsemble:
                     st = algo.store.stacked("opt_state")
                     assert st["m"]["head"]["w"].dtype == torch.float32
-                info = cache.program_info()
+                info = cache.program_costs()
                 assert len(info) == 1 and info[0]["graph"]
             losses[name, cls.__name__] = np.asarray(ls)
     for cls in ("SteinVGD", "DeepEnsemble"):
@@ -1980,7 +1984,7 @@ def test_baselines_on_the_card_equal_the_cpu(dev, name):
             out = fn(module, sgd(0.05), 3, data, 2, device=where)
         runs[str(where)] = out
         if where != "cpu":
-            info = [p for p in global_cache().program_info()
+            info = [p for p in global_cache().program_costs()
                     if p["name"].startswith("baseline_")]
             assert global_cache().snapshot_stats()["cold_compiles"] \
                 - before == {"ensemble": 3, "svgd": 4, "multiswag": 6}[name]
@@ -2014,7 +2018,7 @@ def test_unet_regress_serving_on_the_card(dev):
         with serve(algo, kind="regress", max_batch=8,
                    warmup=reqs[0]) as svc:
             cache = svc.engine.cache
-            info = cache.program_info()
+            info = cache.program_costs()
             assert len(info) == 4 and all(p["graph"] for p in info)
             cold = cache.snapshot_stats()["cold_compiles"]
             preds = [h.result(60.0) for h in
@@ -2051,7 +2055,7 @@ def _lm_run(dev, capturer):
         num_particles=2, optimizer=adam(warmup_cosine(3e-3, 2, 4)))
     torch.cuda.synchronize()
     out = ([_host(algo.store.stacked(k)) for k in ("params", "opt_state")],
-           losses, cache.snapshot_stats(), cache.program_info())
+           losses, cache.snapshot_stats(), cache.program_costs())
     algo.cleanup()
     return out
 
@@ -2157,3 +2161,56 @@ def test_captured_schedule_reads_no_host_sync(dev):
             tree_map(lambda d, x: d.copy_(x), sp, np_)
             tree_map(lambda d, x: d.copy_(x), sst, ns)
             assert _same_bits(_host(sp), w)
+
+
+def test_device_gauges_on_the_card(dev):
+    """obs.device_gauges: one "gpu" entry per device, its bytes those of
+    the caching allocator and the device's total."""
+    from repro_torch.obs import device
+    x = torch.empty((3, 1 << 20), device=dev)
+    gauges = device.device_gauges()
+    assert len(gauges) == torch.cuda.device_count()
+    g = gauges[0]
+    assert g["platform"] == "gpu"
+    assert g["kind"] == torch.cuda.get_device_name(0)
+    assert g["bytes_in_use"] == torch.cuda.memory_allocated(0)
+    assert g["peak_bytes_in_use"] >= g["bytes_in_use"]
+    assert g["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+    assert g["largest_alloc_size"] >= x.numel() * 4
+    del x
+
+
+def test_captured_program_cost(dev):
+    """A captured program's cost is counted on its warm-up: a hand-written
+    kernel charges its own FLOPs and bytes (it is no aten op), a product
+    counts as on the CPU, and ``temp_bytes`` is the graph's pool."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ProgramCache, ProgramSpec, specs
+    mean = torch.randn((4, 1000), device=dev)
+    sq = mean * mean + 1.0
+    spec = ProgramSpec(name="diag_std", key=("diag_std",),
+                       make=lambda ctx: lambda m, s: (ops.diag_std(m, s),),
+                       in_kinds=("replicated", "replicated"))
+    before = swag_moments.diag_std.launches
+    prog = ProgramCache().program(spec, (mean, sq))
+    assert prog.graph is not None
+    assert swag_moments.diag_std.launches == before + 1     # the warm-up
+    cost = prog.cost()
+    assert cost["flops"] == 4 * 4000
+    assert cost["bytes_accessed"] == 3 * 4000 * 4
+    assert cost["memory"]["temp_bytes"] == prog.pool_bytes
+    # a product: the same count captured on the card as eager on the CPU
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn((3, 5, 4), generator=gen)
+
+    def fwd(p, b):
+        return torch.einsum("bi,pio->pbo", b["x"], p["w"])
+
+    counts = []
+    for d in (dev, torch.device("cpu")):
+        args = ({"w": w.to(d)}, {"x": torch.ones((6, 5), device=d)},
+                torch.ones(3, device=d))
+        p = ProgramCache().program(specs.ensemble_predict(fwd), args)
+        p(*args)
+        counts.append(p.cost()["flops"])
+    assert counts[0] == counts[1] == 2 * 6 * 5 * 4 * 3

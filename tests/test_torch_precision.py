@@ -581,7 +581,7 @@ def test_bf16_serving_survives_churn_with_zero_captures():
                                pd.p_params(twin)["w"].to(torch.bfloat16))
         assert [t.data_ptr() for t in tree_leaves(copy)] == ptrs
         assert eng.cache.snapshot_stats()["misses"] == misses
-        names = [p["name"] for p in eng.cache.program_info()]
+        names = [p["name"] for p in eng.cache.program_costs()]
         assert names.count("serve_cast") == 1
     finally:
         pd.cleanup()

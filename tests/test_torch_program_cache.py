@@ -146,7 +146,7 @@ def test_default_capturer_runs_the_cpu_eagerly():
     assert not hit and isinstance(prog, Program) and prog.graph is None
     _, out = prog(st, np.full(4, 3.0, np.float32))
     assert out.tolist() == [6.0] * 4
-    assert cache.program_info()[0]["graph"] is False
+    assert cache.program_costs()[0]["graph"] is False
 
 
 def test_bad_kinds_rejected():

@@ -641,7 +641,7 @@ def test_predict_batch_members_are_the_live_rows():
             assert tuple(outs.shape) == (2, 5, 4)
             assert np.abs(outs.numpy() - np.asarray(jouts)).max() < 1e-5
             _close(heads, jh, 1e-5)
-            names = sorted(p["name"] for p in svc.engine.cache.program_info())
+            names = sorted(p["name"] for p in svc.engine.cache.program_costs())
             assert names == ["bma_predict"]     # members: a spec of its own
             svc.predict_batch({"x": x})
             assert len(svc.engine.cache) == 2

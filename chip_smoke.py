@@ -459,11 +459,62 @@ Phase 14 checkpoints and obs. (a) 4 full-width qwen1.5-0.5b particles
          kernels line are phase 14's driven runs; #5, #7 and #3 must have
          launched.
 
+Phase 15 particles across GPUs: the store's particle axis on a data mesh
+         of 4 positions (real GPUs where there are 4, else 4 positions of
+         cuda:0) and the NEL with host offload. (a) 8 full-width ViT-MNIST
+         particles, 2 a position, trained captured by DeepEnsemble (sgd
+         at P15_LR, 2 epochs), SteinVGD and MultiSWAG (phase 4's, Adam)
+         at phase 4's seed, loader and batches, each once on one device
+         and once on the mesh (DeepEnsemble and SteinVGD also on a mesh
+         of one position, the mesh path with nothing split): losses
+         within HOLD (1e-4) and params within HOLD, MultiSWAG's where
+         the first step's |g| > G_HOLD (1e-5; fewer than 5% of the
+         entries under it: Adam's first update is lr * sign(g)) and its
+         SWAG mean, sq_mean and written deviation rows held there too;
+         every particle moved by at least 5 HOLD; bit equality printed;
+         the one-device SteinVGD and MultiSWAG losses equal to phase 4's
+         captured ones; the last epoch's images/s of every run; zero
+         stacks / unstacks / device_puts / checkouts inside the epoch
+         loop (read when the loop takes its first and last batch); one
+         capture per position per step kind (SVGD: grads and update at
+         each position, the force once), each a graph; 1/n of the
+         one-device per_device_bytes; exact launches (#1 and #2 once a
+         step, #3 once a leaf a position a collection); #3 and #4 at a
+         position's shapes on the trained state against their plain
+         versions (1e-5), position 0's collection and scales timed. (b)
+         phase 2's requests through serve_decode(placement=) over 4
+         qwen1.5-0.5b particles (seed 0, capacity 4, one a position):
+         tokens equal to phase 2's, logprobs within 1e-5, #7 and #5 4 x
+         24 a step and a prefill; the same store moved to one position
+         and then to one device (serve_decode reshards it), phase 2's
+         tokens each time, tokens/s of each; #5-#8 at one particle
+         against their plain versions, timed; then (a)'s MultiSWAG
+         posterior of 32 members (4 draws a particle, sampled per
+         position: #4 once a leaf a position) through
+         serve(placement=).predict, 64 single-example requests, within
+         1e-5 of the one-device posterior from the same generator; the
+         store-backed BMA on the mesh with no store traffic per request
+         and a second service over the same store and cache capturing
+         nothing, then on the store moved to one position and to one
+         device, ms a request each, heads within 1e-5 of the mesh's. (c)
+         8 qwen1.5-0.5b particles (8 x 1.856 GB of fp32 params) trained
+         by DeepEnsemble with sgd on the NEL with cache_size 2, 2 steps
+         of 256 tokens, with offload and without: losses and params bit
+         for bit, the offloaded run's peak max_memory_allocated at least
+         5 particles' params under the other's; swaps, the swaps' GB/s
+         each way and seconds printed. (d) (a)'s DeepEnsemble mesh store
+         through save_store, restored onto the mesh and onto mesh=None:
+         params bit for bit. (e) with 2 or more CUDA devices, (a)-(c)
+         again over the real devices; else a line says "multi_gpu": "not
+         run: 1 device". Each kernel's ``placement_launches`` in the
+         kernels line are (a)'s and (b)'s 4-position mesh runs.
+
 The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12,
-13, 14: the kernel checks first, then the serving runs over one set of
-particles, then training, fused and then on the NEL, then the lifecycle,
-then predictive serving, then the precision ladder, then the SciML
-workload and the baselines, then LM training, then checkpoints and obs.
+13, 14, 15: the kernel checks first, then the serving runs over one set
+of particles, then training, fused and then on the NEL, then the
+lifecycle, then predictive serving, then the precision ladder, then the
+SciML workload and the baselines, then LM training, then checkpoints and
+obs, then the particle axis across GPUs.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -6618,6 +6669,732 @@ def phase14(torch, cfg, reqs, phase2_out, card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 15: particles across GPUs — the store's particle axis on a mesh,
+# the NEL over every GPU, host offload
+# --------------------------------------------------------------------------
+
+MESH_N = 4                          # positions of the data axis
+OFF_P = 8                           # (c): qwen1.5-0.5b particles on the NEL
+OFF_CACHE = 2                       # (c): the NEL's active set a device
+OFF_S = 256                         # (c): tokens a step
+OFF_STEPS = 2
+OFF_LR = 1e-3
+TRAFFIC = ("stacks", "unstacks", "device_puts", "checkouts")
+# (a)'s DeepEnsemble trains with sgd at P15_LR: a position's 2-row GEMMs
+# round otherwise than one device's 8-row ones (8.9e-7 in the step-0
+# grads), and sgd at phase 8's 0.05 grows that past HOLD in 16 steps. Its
+# MultiSWAG runs phase 4's Adam: Adam's first update is about lr * sign(g),
+# so an entry whose first grad is rounding noise takes lr with either sign
+# on either side. Its params and SWAG moments are held where the first
+# step's |g| > G_HOLD and the entries under it counted (fewer than
+# G_REST: 2.43% of the ViT's entries on the H100), as the LM's Adam runs
+# are in the CPU tests. G_HOLD = 1e-5 keeps lr * dg / |g| under HOLD for
+# the grad differences dg ~ 9e-7 measured between the two layouts. Every
+# particle must move by MOVED x HOLD at least, so that the bar would see
+# a position's updates dropped or sent to another position's rows.
+P15_LR = 1e-3
+HOLD = 1e-4
+G_HOLD = 1e-5
+G_REST = 0.05
+MOVED = 5
+
+
+def one_position(torch):
+    """A data mesh of one position, cuda:0: the mesh path with nothing to
+    split, beside the one-device path on the same work."""
+    from repro_torch.core.store import Placement
+    from repro_torch.launch import make_bench_mesh
+    return Placement(mesh=make_bench_mesh(1, devices=["cuda:0"]))
+
+
+def mesh_placement(torch, real=False):
+    """The data mesh of (a)-(d): MESH_N real GPUs where there are that
+    many, else MESH_N logical positions of cuda:0; ``real``: the real
+    GPUs of (e), MESH_N of them where there are that many, else 2."""
+    from repro_torch.core.store import Placement
+    from repro_torch.launch import make_bench_mesh
+    count = torch.cuda.device_count()
+    if real or count >= MESH_N:
+        n = MESH_N if count >= MESH_N else 2
+        devices = [f"cuda:{i}" for i in range(n)]
+    else:
+        n, devices = MESH_N, ["cuda:0"] * MESH_N
+    return Placement(mesh=make_bench_mesh(n, devices=devices))
+
+
+class WatchedLoader:
+    """The seeded loader, reading the store's counters and the clock (the
+    card synchronised) when the epoch loop asks for its first batch and
+    after it took its last one."""
+
+    def __init__(self, torch, loader):
+        self.torch, self.loader, self.store = torch, loader, None
+        self.seen, self.times = [], []
+
+    def _mark(self):
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+        self.seen.append(self.store.snapshot_stats())
+
+    def __iter__(self):
+        self._mark()
+        yield from self.loader
+        self._mark()
+
+    def traffic(self):
+        a, b = self.seen[0], self.seen[-1]
+        return {k: b[k] - a[k] for k in TRAFFIC}
+
+    def last_epoch_s(self):
+        """The last epoch's steps, captured in an earlier one."""
+        return self.times[-1] - self.times[-2]
+
+
+def flat_host(torch, tree):
+    """A stacked tree (a Sharded one: its shards in slot order) as one
+    (P, D) fp32 host matrix, leaves in ``flatten_stacked``'s order."""
+    from repro_torch.core.functional import flatten_stacked
+    from repro_torch.core.store import Sharded
+    parts = tree.shards if isinstance(tree, Sharded) else (tree,)
+    return torch.cat([flatten_stacked(p)[0].float().cpu() for p in parts])
+
+
+def swag_host(torch, store):
+    """The SWAG state on the host: mean and sq_mean (P, D), the ring's
+    deviation rows written so far (one (P, D) matrix a ring slot), n and
+    rank."""
+    from repro_torch.core.store import Sharded
+    from repro_torch.core.tree import tree_leaves, tree_map
+    st = store.stacked("swag")
+    parts = st.shards if isinstance(st, Sharded) else (st,)
+    rank = torch.cat([p["rank"].cpu() for p in parts])
+    R = tree_leaves(parts[0]["dev"])[0].shape[1]
+    return {"mean": flat_host(torch, Sharded.apply(lambda p: p["mean"], st)),
+            "sq": flat_host(torch, Sharded.apply(lambda p: p["sq_mean"], st)),
+            "dev": [flat_host(torch, Sharded.apply(
+                lambda p, j=j: tree_map(lambda x: x[:, j], p["dev"]), st))
+                for j in range(min(int(rank.max()), R))],
+            "n": torch.cat([p["n"].cpu() for p in parts]), "rank": rank}
+
+
+def p15_probe(torch, module):
+    """(a)'s particles made again from SEED (the runs' init) and their
+    first step's grads on the loader's first batch, as (P, D) host
+    matrices: where the grads are rounding noise, and how far the runs
+    moved the params."""
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.core.functional import ensemble_value_and_grad
+    from repro_torch.data import DataLoader
+    from repro_torch.optim import sgd
+    probe = DeepEnsemble(module, seed=SEED, backend="compiled")
+    for _ in range(TRAIN_P):
+        probe.push_dist.p_create(sgd(P15_LR))
+    params = probe.store.stacked("params")
+    batch = probe._batch(next(iter(DataLoader(
+        module.cfg, batch_size=TRAIN_B, num_batches=TRAIN_NB, seed=SEED))))
+    _, grads = ensemble_value_and_grad(module.loss)(params, batch)
+    out = {"p0": flat_host(torch, params), "g1": flat_host(torch, grads)}
+    del params, grads
+    probe.cleanup()
+    del probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p15_train(torch, module, name, placement, fresh, lr=P15_LR,
+              epochs=None, batches=TRAIN_NB):
+    """One captured fused run of ``name`` (phase 4's seed and loader; sgd
+    at ``lr`` for DeepEnsemble, phase 4's Adam for MultiSWAG) on
+    ``placement``: (algo, losses, params on the host, launches, wall s,
+    cache stats, program costs, in-loop store traffic, the last epoch's
+    images/s, per-device param bytes; MultiSWAG's state on the host)."""
+    from repro_torch.bdl import DeepEnsemble, MultiSWAG, SteinVGD
+    from repro_torch.data import DataLoader
+    from repro_torch.optim import adam, sgd
+    from repro_torch.runtime import ProgramCache
+    cls, kw, n_epochs = {
+        "ensemble": (DeepEnsemble, {"optimizer": sgd(lr)}, 2),
+        "svgd": (SteinVGD, {"lengthscale": 0.0, "lr": 1e-3}, 2),
+        "multiswag": (MultiSWAG, {"optimizer": adam(1e-3),
+                                  "pretrain_epochs": 1, "max_rank": 20}, 3),
+    }[name]
+    epochs = n_epochs if epochs is None else epochs
+    algo = cls(module, seed=SEED, backend="compiled", placement=placement)
+    cache = algo.push_dist.runtime.cache = ProgramCache()
+    loader = WatchedLoader(torch, DataLoader(module.cfg, batch_size=TRAIN_B,
+                                             num_batches=batches, seed=SEED))
+    loader.store = algo.store
+    fns = reset_counts() if fresh else None
+    t0 = time.perf_counter()
+    _, losses = algo.bayes_infer(loader, epochs, num_particles=TRAIN_P, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts(fns) if fresh else None
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name} losses {losses}")
+    return {"algo": algo, "losses": losses,
+            "params": flat_host(torch, algo.store.stacked("params")),
+            "swag": (swag_host(torch, algo.store) if name == "multiswag"
+                     else None),
+            "launches": got, "wall_s": wall, "steps": epochs * batches,
+            "cache": cache.snapshot_stats(), "programs": cache.program_costs(),
+            "traffic": loader.traffic(),
+            "images_per_s": TRAIN_P * TRAIN_B * batches
+            / loader.last_epoch_s(),
+            "per_device_bytes": algo.store.per_device_bytes("params")}
+
+
+def held(a, b, big, bar=HOLD):
+    """Where ``big``: the largest |a - b| over its bar (a tensor or a
+    float); elsewhere the largest |a - b| and the share of entries."""
+    d = (a - b).abs()
+    over = d / bar
+    return {"held_max_over_bar": float(over[big].max()),
+            "held_max_abs": float(d[big].max()),
+            "rest_max_abs": float(d[~big].max()) if bool((~big).any())
+            else 0.0,
+            "rest_share": float((~big).float().mean())}
+
+
+def p15_swag_compare(one, mesh, big):
+    """(a)'s MultiSWAG state on the mesh against one device's, held where
+    the first |g| > G_HOLD: the mean (an average of the params) within
+    HOLD, sq_mean within HOLD (1 + sq) (|a^2 - b^2| <= 2 |a| |a - b| <=
+    (1 + a^2) |a - b|), each written deviation row (theta - mean) within
+    2 HOLD; n and rank equal."""
+    out = {"mean": held(one["mean"], mesh["mean"], big),
+           "sq_mean": held(one["sq"], mesh["sq"], big,
+                           HOLD * (1 + one["sq"].abs())),
+           "dev_rows": len(one["dev"]),
+           "dev": max((held(a, b, big, 2 * HOLD) for a, b in
+                       zip(one["dev"], mesh["dev"])),
+                      key=lambda r: r["held_max_over_bar"]),
+           "n_equal": bool((one["n"] == mesh["n"]).all()),
+           "rank_equal": bool((one["rank"] == mesh["rank"]).all())}
+    bad = [k for k in ("mean", "sq_mean", "dev")
+           if not out[k]["held_max_over_bar"] < 1] + [
+        k for k in ("n_equal", "rank_equal") if not out[k]]
+    if len(one["dev"]) != len(mesh["dev"]) or not one["dev"]:
+        bad.append("dev rows")
+    return out, bad
+
+
+def p15_compare(torch, name, one, mesh, n, probe, want_losses=None):
+    """Gates of (a) for one algorithm: losses within HOLD of the
+    unsharded run and params within HOLD (MultiSWAG: where the first |g|
+    > G_HOLD, fewer than G_REST of the entries under it; its SWAG state by
+    ``p15_swag_compare``), bits reported; every particle moved by at least
+    MOVED x HOLD (so that dropped updates would show); no store traffic in
+    the loop, one capture per position per step kind (SVGD: its force
+    once), each a graph, 1/n of the unsharded per-device bytes."""
+    dl = float(np.abs(np.array(one["losses"]) - np.array(mesh["losses"])).max())
+    big = (probe["g1"].abs() > G_HOLD if name == "multiswag"
+           else torch.ones_like(probe["g1"], dtype=torch.bool))
+    hp = held(one["params"], mesh["params"], big)
+    moved = (mesh["params"] - probe["p0"]).abs().amax(1)
+    bits = one["losses"] == mesh["losses"] and bool(
+        (one["params"] == mesh["params"]).all())
+    kinds = {"ensemble": 1, "svgd": 2, "multiswag": 2}[name]
+    want_captures = n * kinds + (1 if name == "svgd" else 0)
+    row = {"loss_max_abs": dl, "params": hp, "bits_equal": bits,
+           "moved_min": float(moved.min()), "moved_max": float(moved.max()),
+           "traffic_in_loop": mesh["traffic"],
+           "captures": mesh["cache"]["cold_compiles"],
+           "want_captures": want_captures,
+           "graphs": all(p["graph"] for p in mesh["programs"]),
+           "per_device_bytes": mesh["per_device_bytes"],
+           "unsharded_per_device_bytes": one["per_device_bytes"],
+           "wall_s": {"one": one["wall_s"], "mesh": mesh["wall_s"]},
+           "last_epoch_images_per_s": {"one": one["images_per_s"],
+                                       "mesh": mesh["images_per_s"]},
+           "losses_equal_phase4": (None if want_losses is None
+                                   else one["losses"] == want_losses)}
+    failed = [what for what, bad in (
+        ("losses past HOLD", not dl < HOLD),
+        ("params past HOLD", not hp["held_max_over_bar"] < 1),
+        ("too many entries under G_HOLD", not hp["rest_share"] < G_REST),
+        ("a particle moved less than MOVED x HOLD",
+         not row["moved_min"] > MOVED * HOLD),
+        ("store traffic in the epoch loop", any(mesh["traffic"].values())),
+        ("captures", row["captures"] != want_captures or not row["graphs"]),
+        ("per-device bytes", mesh["per_device_bytes"] * n
+         != one["per_device_bytes"]),
+        ("one-device losses other than phase 4's",
+         want_losses is not None and not row["losses_equal_phase4"]))
+        if bad]
+    if name == "multiswag":
+        row["swag"], bad = p15_swag_compare(one["swag"], mesh["swag"], big)
+        failed += [f"SWAG {b}" for b in bad]
+    return row, failed
+
+
+def p15_shard_kernels(torch, store):
+    """#3 and #4 at a position's shapes, on (a)'s trained mesh MultiSWAG
+    state: one more collection over each position's rows and its slice of
+    the mask (``moments_parity``: kernel against plain, each on its own
+    clone of the ring) and ``diag_std`` of each position's (rows, leaf)
+    mean and sq, both within 1e-5 of the plain versions; position 0's
+    collection and its scales timed (L2 flushed, every leaf's launch in
+    one call) beside the plain versions and the bound. Nothing is
+    written back; these launches are not the path's."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import ref, swag_moments
+    params, swag = store.stacked("params"), store.stacked("swag")
+    mask = store.active_mask()
+    out = {"rows": [hi - lo for lo, hi in zip(params.bounds[:-1],
+                                               params.bounds[1:])],
+           "moments_max_abs_err": [], "diag_std_max_abs_err": []}
+    for i, (lo, hi) in enumerate(zip(params.bounds[:-1], params.bounds[1:])):
+        m_i = mask[lo:hi].to(params.devices[i])
+        out["moments_max_abs_err"].append(moments_parity(
+            torch, swag.shards[i], params.shards[i], m_i)["max_abs_err"])
+        means, sqs = (tree_flatten(swag.shards[i][k], sort_keys=True)[0]
+                      for k in ("mean", "sq_mean"))
+        out["diag_std_max_abs_err"].append(max(
+            float((swag_moments.diag_std(m, q) - ref.diag_std(m, q)).abs()
+                  .max()) for m, q in zip(means, sqs)))
+    if not (max(out["moments_max_abs_err"]) <= 1e-5
+            and max(out["diag_std_max_abs_err"]) < 1e-5):
+        raise AssertionError(f"#3 / #4 at a position's shapes: {out}")
+    # position 0: every leaf's launch, outputs apart from the state
+    sh = swag.shards[0]
+    m0 = mask[: params.bounds[1]].to(params.devices[0])
+    means, sqs, devs = (tree_flatten(sh[k], sort_keys=True)[0]
+                        for k in ("mean", "sq_mean", "dev"))
+    thetas = [t.contiguous() for t in
+              tree_flatten(params.shards[0], sort_keys=True)[0]]
+    n, R = sh["n"], devs[0].shape[1]
+    slot = (sh["rank"] % R).to(torch.int32)
+    rings = [d.clone() for d in devs]
+    outs = [(torch.empty_like(m), torch.empty_like(m)) for m in means]
+    args = list(zip(means, sqs, thetas, rings, outs))
+
+    def kernel():
+        for m, q, t, r, (om, oq) in args:
+            swag_moments.moments(m, q, t, n, m0, r, slot, out_mean=om,
+                                 out_sq=oq)
+
+    def plain():
+        for m, q, t, r, (om, oq) in args:
+            ref.swag_moments(m, q, t, n, m0, r, slot, out_mean=om,
+                             out_sq=oq)
+    costs = [swag_moments.moments_cost(m, r) for m, r in zip(means, rings)]
+    b_ms, b_by = bound(sum(c[1] for c in costs), sum(c[0] for c in costs))
+    out["moments_position0"] = {
+        "launches": len(means), "ms": time_ms(torch, kernel, iters=10),
+        "plain_ms": time_ms(torch, plain, iters=10), "bound_ms": b_ms,
+        "bound_by": b_by}
+    costs = [swag_moments.diag_std_cost(m) for m in means]
+    b_ms, b_by = bound(sum(c[1] for c in costs), sum(c[0] for c in costs))
+    out["diag_std_position0"] = {
+        "launches": len(means),
+        "ms": time_ms(torch, lambda: [swag_moments.diag_std(m, q)
+                                      for m, q in zip(means, sqs)],
+                      iters=10),
+        "plain_ms": time_ms(torch, lambda: [ref.diag_std(m, q)
+                                            for m, q in zip(means, sqs)],
+                            iters=10),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del rings, outs, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def p15_training(torch, card, captured, real=False):
+    """(a) DeepEnsemble, SteinVGD and MultiSWAG of 8 full-width ViT-MNIST
+    particles, captured, on one device and on a MESH_N-position mesh;
+    DeepEnsemble and SteinVGD also on a mesh of one position (the mesh
+    path's cost with nothing split); #3 and #4 at a position's shapes."""
+    _, module = vit_module()
+    pl = mesh_placement(torch, real)
+    n = len(pl.positions())
+    probe = p15_probe(torch, module)
+    out, keep, launches, failed = {}, {}, {}, []
+    for name in ("ensemble", "svgd", "multiswag"):
+        one = p15_train(torch, module, name, None, False)
+        one["algo"].cleanup()
+        del one["algo"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name != "multiswag" and not real:
+            # the mesh path at one position, beside one device
+            pos1 = p15_train(torch, module, name, one_position(torch), False)
+            pos1["algo"].cleanup()
+            del pos1["algo"]
+            row1, bad = p15_compare(torch, name, one, pos1, 1, probe)
+            failed += [f"{name} at one position: {b}" for b in bad]
+            del pos1
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = p15_train(torch, module, name, pl, True)
+        for k, v in mesh["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        # phase 4 runs SteinVGD and MultiSWAG as here
+        want = (None if name == "ensemble" else
+                (captured or {}).get(name, {}).get("last_losses"))
+        row, bad = p15_compare(torch, name, one, mesh, n, probe, want)
+        failed += [f"{name}: {b}" for b in bad]
+        out[name] = dict(row, launches=mesh["launches"], steps=mesh["steps"],
+                         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+                         images_per_s_wall=TRAIN_P * TRAIN_B * mesh["steps"]
+                         / mesh["wall_s"])
+        if name != "multiswag" and not real:
+            out[name]["one_position"] = {
+                k: row1[k] for k in ("loss_max_abs", "params", "bits_equal",
+                                     "captures", "wall_s",
+                                     "last_epoch_images_per_s")}
+        if name == "svgd":
+            steps = mesh["steps"]
+            if (mesh["launches"]["pairwise_sqdist"] != steps
+                    or mesh["launches"]["svgd_force"] != steps):
+                failed.append(f"SVGD launches {mesh['launches']}, want "
+                              f"{steps} each")
+        if name == "multiswag":
+            from repro_torch.core.tree import tree_leaves
+            n_leaves = len(tree_leaves(mesh["algo"].p_parameters()[0]))
+            if mesh["launches"]["swag_moments"] != 2 * n_leaves * n:
+                failed.append(f"MultiSWAG launches {mesh['launches']}")
+            out[name]["shard_kernels"] = p15_shard_kernels(
+                torch, mesh["algo"].store)
+        if name == "svgd":
+            mesh["algo"].cleanup()
+        else:
+            keep[name] = mesh["algo"]
+        del one, mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": 15, "part": "a",
+          "placement": [str(d) for d in pl.positions()], **out,
+          "g_hold": G_HOLD, "failed": failed, "card": card})
+    if failed:
+        raise AssertionError(f"phase 15 (a): {failed}")
+    return keep, launches
+
+
+def p15_one_particle_kernels(torch, cfg, module, reqs):
+    """#5-#8 at one particle, a position's shard in (b): a store of capacity
+    1 holding particle 0 (seed SEED), ``step_kernel_checks`` timed, at
+    FP32_TOLS. #6 and #8 are not on this path (item 10b). These launches
+    are not the path's."""
+    import functools
+    from repro_torch.core import PushDistribution
+    from repro_torch.models import api
+    from repro_torch.serve.paging import create_kv_pages
+    with PushDistribution(module, seed=SEED, capacity=1) as pd:
+        pd.p_create()
+        create_kv_pages(pd.store, functools.partial(
+            api.paged_cache_init, cfg, num_pages=NUM_PAGES,
+            page_size=PAGE_SIZE, dtype=pd.store.precision.kv))
+        errs, rows = step_kernel_checks(
+            torch, pd, cfg, pd.store.stacked("params"), [p for p, _ in reqs],
+            NUM_PAGES, FP32_TOLS, timed=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "rows": rows}
+
+
+def p15_serving(torch, cfg, reqs, plain, keep, card, real=False):
+    """(b) phase 2's requests through serve_decode(placement=) over 4
+    qwen1.5-0.5b particles, one a position, then through the same store
+    moved to one position and back to one device; #5-#8 at one particle;
+    then the MultiSWAG posterior of 32 members, and the store-backed BMA
+    through serve(placement=) on the mesh, at one position and on one
+    device."""
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.core.store import Placement
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import mnist_like
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import serve
+    pl = mesh_placement(torch, real)
+    fns = attention_counts()
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    L = cfg.n_layers
+
+    def against_phase2(gens, what):
+        tokens = [g.tokens for g in gens]
+        lp = max(float(np.abs(np.array(g.logprobs) - np.array(w)).max())
+                 for g, w in zip(gens, plain["logprobs"]))
+        if tokens != plain["tokens"] or not lp < 1e-5:
+            raise AssertionError(f"{what} vs phase 2: logprobs {lp}")
+        return lp
+
+    moved = {}
+    with PushDistribution(module, seed=SEED, capacity=PARTICLES,
+                          placement=pl) as pd:
+        for _ in range(PARTICLES):
+            pd.p_create()
+        st0 = pd.store.snapshot_stats()
+        gens, st, got, wall, warm, _ = serve_requests(
+            torch, pd, cfg, reqs, fns, ProgramCache(), placement=pl)
+        st1 = pd.store.snapshot_stats()
+        per_dev = pd.store.per_device_bytes("params")
+        lp = against_phase2(gens, "sharded decode")
+        if not real:
+            # the same store moved to one position, then to one device
+            # (serve_decode reshards it): the mesh path's cost with
+            # nothing split, beside the one-device path on the same work
+            for where, place in (("one_position", one_position(torch)),
+                                 ("one_device", Placement())):
+                gens1, st_w, _, wall1, _, _ = serve_requests(
+                    torch, pd, cfg, reqs, attention_counts(), ProgramCache(),
+                    placement=place)
+                moved[where] = {
+                    "logprob_max_abs": against_phase2(gens1, where),
+                    "tok_per_s": sum(len(g.tokens) for g in gens1) / wall1,
+                    "steps": st_w["steps"]}
+    decode = dict(run_summary(gens, st, warm, wall, None, info=[]),
+                  kernel_launches=got, tokens_equal_phase2=True,
+                  logprob_max_abs=lp, tok_per_s_phase2=plain["tok_per_s"],
+                  per_device_param_gb=per_dev / 1e9, moved=moved)
+    n = len(pl.positions())
+    if (got["paged_decode_attention"] != n * L * st["steps"]
+            or got["flash_attention"] != n * L * st["prefills"]):
+        raise AssertionError(f"sharded decode launches {got}")
+    decode["store_traffic"] = {k: st1[k] - st0[k] for k in TRAFFIC}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not real:
+        decode["one_particle_kernels"] = p15_one_particle_kernels(
+            torch, cfg, module, reqs)
+
+    # the MultiSWAG posterior of 32 members (phase 10's count) and the
+    # store-backed BMA, through the batcher's predict
+    algo = keep["multiswag"]
+    images = mnist_like(np.random.default_rng(1), 64, 10)["images"]
+    rows = [{"images": im} for im in images]
+    heads, info = {}, {}
+    diag = reset_counts()["swag_diag_std"]
+    for where, place in (("one", None), ("mesh", pl)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        cache = ProgramCache()
+        place = Placement() if place is None else place
+        diag.launches = 0
+        with algo.posterior_predictive(
+                samples_per_particle=SERVE_S, generator=gen,
+                placement=place, cache=cache, warmup=rows[0],
+                max_batch=SERVE_MAX_BATCH) as svc:
+            t0 = time.perf_counter()
+            preds = [svc.predict(r, timeout=60) for r in rows]
+            info[where] = {"diag_std_launches": diag.launches,
+                           "wall_s": time.perf_counter() - t0,
+                           "captures": cache.snapshot_stats()
+                           ["cold_compiles"],
+                           "members": svc.engine.num_particles}
+        heads[where] = {k: np.stack([getattr(p, k) for p in preds])
+                        for k in ("mean", "variance", "entropy",
+                                  "mutual_info")}
+    bma = max(float(np.abs(heads["one"][k] - heads["mesh"][k]).max())
+              for k in heads["one"])
+    n_leaves = len(tree_leaves(algo.p_parameters()[0]))
+    if (not bma < 1e-5 or info["mesh"]["members"] != TRAIN_P * SERVE_S
+            or info["mesh"]["diag_std_launches"] != n * n_leaves
+            or info["one"]["diag_std_launches"] != n_leaves):
+        raise AssertionError(f"sharded posterior vs one device: {bma} "
+                             f"{info}")
+    got["swag_diag_std"] = info["mesh"]["diag_std_launches"]
+    # store-backed: per-request traffic and a second service on the mesh;
+    # then the store moved to one position and to one device (serve
+    # reshards it), the same requests timed on each
+    store = algo.store
+    store_bma, bma_heads = {}, {}
+    plan = [("mesh", pl)] + ([] if real else [
+        ("one_position", one_position(torch)), ("one_device", Placement())])
+    for where, place in plan:
+        cache = ProgramCache()
+        with serve(algo, placement=place, cache=cache, warmup=rows[0],
+                   max_batch=SERVE_MAX_BATCH) as svc:
+            s0 = store.snapshot_stats()
+            t0 = time.perf_counter()
+            preds = [svc.predict(r, timeout=60) for r in rows]
+            ms = (time.perf_counter() - t0) / len(rows) * 1e3
+            s1 = store.snapshot_stats()
+        bma_heads[where] = np.stack([p.mean for p in preds])
+        store_bma[where] = {"ms_a_request": ms,
+                            "traffic": {k: s1[k] - s0[k] for k in TRAFFIC},
+                            "captures": cache.snapshot_stats()
+                            ["cold_compiles"]}
+        if where == "mesh":
+            with serve(algo, placement=pl, cache=cache, warmup=rows[0],
+                       max_batch=SERVE_MAX_BATCH) as svc:
+                for r in rows[:8]:
+                    svc.predict(r, timeout=60)
+            store_bma[where]["captures_second_service"] = (
+                cache.snapshot_stats()["cold_compiles"]
+                - store_bma[where]["captures"])
+    traffic = store_bma["mesh"]["traffic"]
+    second = store_bma["mesh"]["captures_second_service"]
+    spread = max(float(np.abs(h - bma_heads["mesh"]).max())
+                 for h in bma_heads.values())
+    if any(traffic.values()) or second or not spread < 1e-5:
+        raise AssertionError(f"store-backed BMA: {store_bma}, heads apart "
+                             f"by {spread}")
+    emit({"phase": 15, "part": "b", "decode": decode,
+          "posterior": {"members": info["mesh"]["members"],
+                        "max_abs_vs_one_device": bma, "runs": info},
+          "store_bma": dict(store_bma, requests=len(rows),
+                            heads_max_abs_apart=spread),
+          "card": card})
+    return got
+
+
+def p15_offload(torch, card, real=False):
+    """(c) OFF_P qwen1.5-0.5b particles trained by DeepEnsemble with sgd on
+    the NEL (cache_size OFF_CACHE), OFF_STEPS steps of OFF_S tokens, with
+    and without offload: equal losses and params bit for bit, and the
+    offloaded run's peak device memory at least 5 particles' params
+    under the other's."""
+    from repro_torch import configs
+    from repro_torch.bdl import DeepEnsemble
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import DataLoader
+    from repro_torch.optim import sgd
+    cfg = configs.get("qwen1.5-0.5b")
+    module = lm_module(cfg)
+    batches = list(DataLoader(cfg, batch_size=1, seq_len=OFF_S,
+                              num_batches=OFF_STEPS, seed=SEED))
+    runs, want = {}, None
+    for offload in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        kw = ({"devices": [str(d) for d in
+                           mesh_placement(torch, True).positions()]}
+              if real else {})
+        algo = DeepEnsemble(module, seed=SEED, cache_size=OFF_CACHE,
+                            offload=offload, **kw)
+        pd = algo.push_dist
+        t0 = time.perf_counter()
+        pids = [pd.p_create(sgd(OFF_LR)) for _ in range(OFF_P)]
+        torch.cuda.synchronize()
+        created = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = []
+        for b in batches:
+            b = algo._batch(b)
+            futs = [pd.particles[p].step(b) for p in pids]
+            losses.append([float(f.wait(NEL_T)) for f in futs])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        params = [[x.to("cpu", copy=True) for x in
+                   tree_leaves(pd.particles[p].state["params"])]
+                  for p in pids]
+        nel = pd.nel
+        sw = dict(nel.swap_stats)
+        runs["offload" if offload else "resident"] = {
+            "losses": losses, "peak_gb": peak / 1e9, "wall_s": wall,
+            "create_s": created, "swaps_in": nel.stats["swaps_in"],
+            "swaps_out": nel.stats["swaps_out"],
+            "swap_bytes": {"in": sw["bytes_in"], "out": sw["bytes_out"]},
+            "h2d_gb_per_s": sw["bytes_in"] / sw["s_in"] / 1e9
+            if sw["s_in"] else None,
+            "d2h_gb_per_s": sw["bytes_out"] / sw["s_out"] / 1e9
+            if sw["s_out"] else None,
+            "stacked_params_on_device": algo.store.is_stacked("params")}
+        if want is None:
+            want = (losses, params)
+        else:
+            same = losses == want[0] and all(
+                torch.equal(x, y) for a, b in zip(params, want[1])
+                for x, y in zip(a, b))
+            runs["offload"]["bits_equal"] = same
+        algo.cleanup()
+        del algo, pd, params, nel
+    per_particle = LM_D * 4
+    drop = (runs["resident"]["peak_gb"] - runs["offload"]["peak_gb"]) * 1e9
+    row = {"phase": 15, "part": "c", "particles": OFF_P,
+           "cache_size": OFF_CACHE, "tokens_per_step": OFF_S,
+           "steps": OFF_STEPS, **runs, "peak_drop_gb": drop / 1e9,
+           "want_drop_gb": 5 * per_particle / 1e9, "card": card}
+    emit(row)
+    if not runs["offload"]["bits_equal"]:
+        raise AssertionError("offloaded NEL training differs from resident")
+    if drop < 5 * per_particle or runs["offload"]["swaps_out"] == 0:
+        raise AssertionError(f"offload freed {drop / 1e9} GB")
+    return row
+
+
+def p15_checkpoint(torch, keep, card):
+    """(d) (a)'s DeepEnsemble mesh store through save_store, restored onto
+    the mesh and onto mesh=None: params bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_store, save_store
+    from repro_torch.core.store import Placement, Sharded
+    from repro_torch.core.tree import tree_leaves
+    store = keep["ensemble"].store
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase15_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        save_store(tmp, 1, store)
+        save_s = time.perf_counter() - t0
+        want = {p: store.read("params", p) for p in store.pids}
+        out = {"save_s": save_s}
+        for where, pl in (("mesh", store.placement), ("one", Placement())):
+            t0 = time.perf_counter()
+            _, got = restore_store(tmp, placement=pl, device=store.device)
+            st = got.stacked("params")
+            out[where] = {
+                "restore_s": time.perf_counter() - t0,
+                "sharded": isinstance(st, Sharded),
+                "bits_equal": got.pids == store.pids and all(
+                    torch.equal(a.to(b.device), b) for p in store.pids
+                    for a, b in zip(tree_leaves(got.read("params", p)),
+                                    tree_leaves(want[p])))}
+            del got, st
+        emit({"phase": 15, "part": "d", **out, "card": card})
+        if not (out["mesh"]["bits_equal"] and out["one"]["bits_equal"]
+                and out["mesh"]["sharded"] and not out["one"]["sharded"]):
+            raise AssertionError(f"mesh store checkpoint: {out}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase15(torch, cfg, reqs, plain, captured, card):
+    """The particle axis across GPUs: (a) sharded fused training, (b)
+    sharded serving, (c) host offload on the NEL, (d) a mesh store's
+    checkpoint, (e) real GPUs when there are several. Returns the
+    kernels' launches over (a) and (b)."""
+    t0 = time.perf_counter()
+    keep, launches = p15_training(torch, card, captured)
+    got = p15_serving(torch, cfg, reqs, plain, keep, card)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    p15_checkpoint(torch, keep, card)
+    for algo in keep.values():
+        algo.cleanup()
+    del keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    p15_offload(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    if n >= 2:
+        keep, _ = p15_training(torch, card, None, real=True)
+        p15_serving(torch, cfg, reqs, plain, keep, card, real=True)
+        for algo in keep.values():
+            algo.cleanup()
+        del keep
+        gc.collect()
+        torch.cuda.empty_cache()
+        p15_offload(torch, card, real=True)
+        multi = "run over " + ", ".join(
+            str(d) for d in mesh_placement(torch, True).positions())
+    else:
+        multi = f"not run: {n} device"
+    emit({"phase": 15, "part": "e", "multi_gpu": multi,
+          "phase_s": time.perf_counter() - t0, "launches": launches,
+          "card": card})
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6695,6 +7472,11 @@ def main():
     torch.cuda.empty_cache()
     obs_launches = phase14(torch, cfg, reqs, (plain_tokens, plain_logprobs),
                            card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    placement_launches = phase15(
+        torch, cfg, reqs, {"tokens": plain_tokens, "logprobs": plain_logprobs,
+                           "tok_per_s": plain_tok_s}, captured, card)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
@@ -6704,6 +7486,7 @@ def main():
         row["sciml_launches"] = sciml_launches.get(name, 0)
         row["lm_training_launches"] = lm_launches.get(name, 0)
         row["ckpt_obs_launches"] = obs_launches.get(name, 0)
+        row["placement_launches"] = placement_launches.get(name, 0)
         if name in lm_rows:
             row["lm"] = lm_rows[name]
         if name in sci_rows:

@@ -1,6 +1,11 @@
 """Infer base class (paper App. B; counterpart of ``repro.bdl.infer``):
 BDL algorithms extend Infer and express inference over particles.
 
+``placement=`` (a ``Placement``, or ``"auto"`` for
+``Placement.auto(model="auto")`` sized against one particle's bytes)
+goes to the PD's store: under a mesh the fused loops run one program per
+position (``runtime.program.ShardedProgram``).
+
 ``bayes_infer`` is the stable entry point; it hands the algorithm to the
 PD's runtime object (``runtime.backends``). Subclasses implement
 ``_nel_infer`` (the paper-faithful message-passing procedure on the
@@ -23,10 +28,12 @@ tracing on, each epoch is a ``bdl.epoch`` span (DESIGN.md §12) inside a
 from __future__ import annotations
 
 from contextlib import contextmanager
+from typing import Optional, Union
 
 import torch
 
 from ..core import ParticleModule, PushDistribution
+from ..core.store import Placement
 from ..core.tree import to_device
 from ..obs import trace as _trace
 from ..runtime.backends import CompiledRuntime
@@ -45,6 +52,21 @@ def traced_epochs(epochs: int, algo: str):
             yield e
 
 
+def _init_shapes(module):
+    """One particle's parameter tree as fake tensors (shapes and dtypes, no
+    memory), what ``placement="auto"`` sizes the model axis from. A module
+    whose init cannot run on fake tensors raises: pass a ``Placement``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    try:
+        with FakeTensorMode():
+            return module.init(torch.Generator())
+    except (RuntimeError, TypeError) as e:
+        raise ValueError(
+            'placement="auto" sizes the model axis from one particle\'s '
+            "init on fake tensors, which this module's init refused: pass "
+            "a Placement") from e
+
+
 class _OnDevice:
     """A data loader seen through ``to_device``: each pass iterates the
     loader anew (a new epoch's batches), each batch moved as it comes."""
@@ -60,13 +82,28 @@ class _OnDevice:
 class Infer:
     def __init__(self, module: ParticleModule, *, num_devices: int = 1,
                  cache_size: int = 4, seed: int = 0, backend: str = "nel",
-                 capacity: int = 0, precision=None, device=None):
+                 capacity: int = 0, precision=None, device=None,
+                 placement: Optional[Union[Placement, str]] = None,
+                 offload: bool = False, devices=None):
         self.module = module
-        self.num_devices = num_devices
+        self.num_devices = num_devices if devices is None else len(devices)
+        if placement == "auto":
+            # sized against the master-dtype bytes of one particle, drawn
+            # on the meta device (no memory, no generator draw)
+            placement = Placement.auto(
+                model="auto", precision=precision,
+                param_tree=_init_shapes(module))
         self.push_dist = PushDistribution(module, num_devices=num_devices,
                                           cache_size=cache_size, seed=seed,
                                           backend=backend, capacity=capacity,
-                                          precision=precision, device=device)
+                                          precision=precision, device=device,
+                                          placement=placement,
+                                          offload=offload, devices=devices)
+
+    @property
+    def placement(self) -> Placement:
+        """The store's placement plan (``core.store.Placement``)."""
+        return self.push_dist.placement
 
     @property
     def backend(self) -> str:

@@ -21,6 +21,10 @@ kernels are dense-only, and its fused step runs the jnp form instead.
 With ``lengthscale <= 0`` the port follows the jnp semantics (the median
 heuristic, over live pairs when masked), not the Pallas path's raw ell.
 
+On a store split over a mesh the fused step is three programs with the
+gather between them (``_MeshStep``); with one position it is the step
+above.
+
 Under ``backend="nel"`` (paper Fig. 6) the leader particle steps every
 particle (``SVGD_STEP``: a backward pass, grads stashed in the store),
 gathers read-only clones of their params and grads (``get``), stacks
@@ -36,7 +40,8 @@ import torch
 
 from ..core import functional
 from ..core import precision as precision_mod
-from ..core.tree import tree_map
+from ..core.store import Sharded
+from ..core.tree import tree_leaves, tree_map
 from ..kernels import ops as _kops
 from ..runtime.program import ProgramSpec, ident
 from .infer import Infer, traced_epochs
@@ -152,6 +157,148 @@ def svgd_step_spec(loss_fn, *, lr: float, lengthscale: float = 1.0,
 
 
 # ---------------------------------------------------------------------------
+# the step over a mesh: three programs with the gather between them
+# ---------------------------------------------------------------------------
+
+def svgd_grads_spec(loss_fn, *, precision=None) -> ProgramSpec:
+    """A position's first stage of the SVGD step on a mesh: ``fused(
+    stacked_params, batch, mask, theta, g) -> (losses, theta, g)``, its
+    rows' losses (0.0 at dead slots) and grads, the params and grads
+    flattened in ``ravel_pytree``'s column order into the fp32 matrices
+    ``theta`` and ``g`` in place."""
+    prec = precision_mod.get(precision)
+    cd = prec.compute if prec.casts_compute else None
+
+    def make(ctx):
+        vag = functional.ensemble_value_and_grad(loss_fn, cd)
+
+        def fused(stacked_params, batch, mask, theta, g):
+            losses, grads = vag(stacked_params, batch)
+            functional.flatten_into(stacked_params, theta)
+            functional.flatten_into(grads, g)
+            return torch.where(mask > 0, losses, 0.0), theta, g
+
+        return fused
+
+    return ProgramSpec(
+        name="svgd_grads", key=("svgd_grads", ident(loss_fn)), make=make,
+        in_kinds=("state", "replicated", "vector", "rows", "rows"),
+        out_kinds=("vector", "in:3", "in:4"),
+        precision=prec.key() if prec.casts_compute else None)
+
+
+def svgd_phi_spec(lengthscale: float) -> ProgramSpec:
+    """The middle stage, once, on the first position: ``fused(theta, g,
+    mask, phi) -> (phi,)``, the kernel force over the gathered (n, D)
+    matrices written into ``phi`` in place."""
+    def make(ctx):
+        def fused(theta, g, mask, phi):
+            phi.copy_(svgd_force(theta, g, lengthscale, mask=mask))
+            return (phi,)
+
+        return fused
+
+    return ProgramSpec(
+        name="svgd_phi", key=("svgd_phi", float(lengthscale)), make=make,
+        in_kinds=("rows", "rows", "vector", "rows"), out_kinds=("in:3",))
+
+
+def svgd_apply_spec(lr: float) -> ProgramSpec:
+    """A position's last stage: ``fused(stacked_params, phi, mask) ->
+    (stacked_params,)``, theta - lr * phi into each live row in place."""
+    def make(ctx):
+        def fused(stacked_params, phi, mask):
+            _, unravel = functional.flatten_stacked(
+                stacked_params, values=False)
+            tree_map(lambda p, f: functional.masked_assign(
+                mask, p - lr * f.to(p.dtype), p), stacked_params,
+                unravel(phi))
+            return (stacked_params,)
+
+        return fused
+
+    return ProgramSpec(
+        name="svgd_apply", key=("svgd_apply", float(lr)), make=make,
+        in_kinds=("state", "rows", "vector"), out_kinds=("in:0",))
+
+
+class _MeshStep:
+    """The SVGD step over params split on a mesh (``core.store.Sharded``):
+    each position computes its rows' grads (``svgd_grads_spec``); theta
+    and g are gathered in slot order into (n, D) matrices on the first
+    position, where #1 and #2 run once (``svgd_phi_spec``); each position
+    takes its rows of phi back and applies its update
+    (``svgd_apply_spec``). A position on the first position's device
+    works on views of the gathered matrices, so the gather and the
+    scatter copy only what lives elsewhere. Three programs per step, each
+    captured once per position it runs at; no collective in any."""
+
+    def __init__(self, rt, module, params, batch, mask, *, placement, lr,
+                 lengthscale, precision):
+        from ..core.store import Sharded
+        d = sum(x[0].numel() for x in tree_leaves(params.shards[0]))
+        n = len(params)
+        # the layouts of the (n, D) matrices: split as the params' rows,
+        # and gathered whole on the first position
+        rows = placement.matrix(n, d)
+        (_, first, _), = placement.gathered_matrix(d)
+        self.theta, self.g, self.phi = (
+            torch.empty((n, d), dtype=torch.float32, device=first)
+            for _ in range(3))
+
+        def local(full):
+            return Sharded([full[s] if dev == first else
+                            torch.empty((s.stop - s.start, d),
+                                        dtype=torch.float32, device=dev)
+                            for _, dev, s in rows],
+                           [dev for _, dev, _ in rows], params.plan)
+
+        self.t_loc, self.g_loc, self.phi_loc = (
+            local(self.theta), local(self.g), local(self.phi))
+        self.copies = [(dev == first, s.start, s.stop) for _, dev, s in rows]
+        self.mask = mask
+        self.grads = rt.program(svgd_grads_spec(module.loss,
+                                                precision=precision),
+                                params, batch, mask, self.t_loc, self.g_loc)
+        self._first = (params, batch)
+        self.losses, _, _ = self.grads(params, batch, mask, self.t_loc,
+                                       self.g_loc)
+        self._gather()
+        self.force = rt.program(svgd_phi_spec(lengthscale), self.theta,
+                                self.g, mask, self.phi)
+        self.force(self.theta, self.g, mask, self.phi)
+        self._scatter()
+        self.apply = rt.program(svgd_apply_spec(lr), params, self.phi_loc,
+                                mask)
+
+    def _gather(self):
+        for (here, lo, hi), t, g in zip(self.copies, self.t_loc.shards,
+                                        self.g_loc.shards):
+            if not here:
+                self.theta[lo:hi].copy_(t)
+                self.g[lo:hi].copy_(g)
+
+    def _scatter(self):
+        for (here, lo, hi), f in zip(self.copies, self.phi_loc.shards):
+            if not here:
+                f.copy_(self.phi[lo:hi])
+
+    def __call__(self, params, batch, mask):
+        """One step: (params, losses)."""
+        if self._first is not None:
+            # the first step's grads and force ran at construction
+            self._first = None
+            self.apply(params, self.phi_loc, mask)
+            return params, self.losses
+        losses, _, _ = self.grads(params, batch, mask, self.t_loc, self.g_loc)
+        self._gather()
+        self.force(self.theta, self.g, mask, self.phi)
+        self._scatter()
+        self.apply(params, self.phi_loc, mask)
+        return params, losses
+
+
+# ---------------------------------------------------------------------------
 # paper-faithful message-passing SVGD (Fig. 5 / Fig. 6)
 # ---------------------------------------------------------------------------
 
@@ -251,6 +398,14 @@ class SteinVGD(Infer):
                 for batch in dataloader:
                     batch = self._batch(batch)
                     if prog is None:    # one cache lookup per fused run
-                        prog = rt.program(spec, co["params"], batch, mask)
+                        prog = (_MeshStep(rt, self.module, co["params"],
+                                          batch, mask,
+                                          placement=self.store.placement,
+                                          lr=lr,
+                                          lengthscale=lengthscale,
+                                          precision=self.precision)
+                                if isinstance(co["params"], Sharded)
+                                else rt.program(spec, co["params"], batch,
+                                                mask))
                     co["params"], ls = prog(co["params"], batch, mask)
         return self._losses(ls, slots)

@@ -38,6 +38,7 @@ import math
 
 import torch
 
+from ..core.store import Sharded
 from ..core.tree import to_device, tree_flatten, tree_leaves, tree_map
 from ..kernels import ops as _kops
 from ..runtime import specs
@@ -135,21 +136,62 @@ def swag_sample_stacked(stacked_state, samples_per_particle: int,
     (n, S, max_rank)); otherwise it is drawn from ``generator`` (one
     seeded 0 on the state's device when None, as the reference defaults
     to ``PRNGKey(0)``)."""
-    S = samples_per_particle
     if noise is None:
-        mean = stacked_state["mean"]
-        P = tree_leaves(mean)[0].shape[0]
-        max_rank = tree_leaves(stacked_state["dev"])[0].shape[1]
-        dev = tree_leaves(mean)[0].device
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-
-        def draw(shape):
-            return torch.randn(shape, generator=generator, device=dev)
-
-        noise = (tree_map(lambda m: draw((P, S) + tuple(m.shape[1:])), mean),
-                 draw((P, S, max_rank)))
+        noise = swag_noise(stacked_state, tree_leaves(
+            stacked_state["mean"])[0].shape[0], samples_per_particle,
+            generator)
     return _sample(stacked_state, *noise, scale)
+
+
+def swag_noise(stacked_state, n: int, samples_per_particle: int,
+               generator=None):
+    """The noise ``swag_sample_stacked`` draws for ``n`` particles shaped
+    like ``stacked_state``'s rows: (z1 leaves (n, S, ...), z2 (n, S,
+    max_rank)), from ``generator`` (one seeded 0 on the state's device
+    when None) in that order."""
+    S = samples_per_particle
+    mean = stacked_state["mean"]
+    max_rank = tree_leaves(stacked_state["dev"])[0].shape[1]
+    dev = tree_leaves(mean)[0].device if generator is None \
+        else generator.device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    return (tree_map(lambda m: draw((n, S) + tuple(m.shape[1:])), mean),
+            draw((n, S, max_rank)))
+
+
+def _sample_on_positions(store, samples_per_particle, scale, generator,
+                         noise):
+    """Serve-time sampling on a store split over a mesh: each position
+    samples its own live particles' Gaussians (the diagonal scale runs
+    there, once per leaf), from the noise drawn for every live particle
+    at once as ``swag_sample_stacked`` draws it, so the members equal the
+    one-device sampling's, in the same order. A ``Sharded`` tree of the
+    draws, position by position."""
+    sw = store.stacked("swag")
+    live = [store.slot_of(p) for p in store.pids]
+    if noise is None:
+        noise = swag_noise(sw.shards[0], len(live), samples_per_particle,
+                           generator)
+    z1, z2 = noise
+    parts, devices, at = [], [], 0
+    for dev, shard, lo, hi in zip(sw.devices, sw.shards, sw.bounds[:-1],
+                                  sw.bounds[1:]):
+        rows = [s - lo for s in live if lo <= s < hi]
+        if not rows:
+            continue
+        idx = torch.tensor(rows, device=dev)
+        state = tree_map(lambda x: x.index_select(0, idx), shard)
+        take = slice(at, at + len(rows))
+        at += len(rows)
+        parts.append(_sample(state, tree_map(lambda z: z[take].to(dev), z1),
+                             z2[take].to(dev), scale))
+        devices.append(dev)
+    return Sharded(parts, devices, sw.plan)
 
 
 def _swag_collect_msg(particle):
@@ -236,6 +278,9 @@ class MultiSWAG(Infer):
         MultiSWAG predictive of Wilson & Izmailov 2020) instead of the
         particle params. S=0 serves the live particle params like any
         other Infer. The diagonal scale goes through the diag_std kernel.
+        On a store split over a mesh (served on its own placement) each
+        position samples its own particles and keeps their draws, one
+        shard a position (``_sample_on_positions``).
         The noise comes from ``generator`` (a
         ``torch.Generator`` on the store's device; one seeded 0 when None)
         or is given as ``noise=(z1, z2)``. Every other keyword goes on to
@@ -243,9 +288,16 @@ class MultiSWAG(Infer):
         a killed one's slot) raises KeyError (``store.dense``)."""
         if samples_per_particle <= 0:
             return super().posterior_predictive(**kw)
+        store = self.store
+        if (isinstance(store.stacked("swag"), Sharded)
+                and kw.get("placement") in (None, store.placement)):
+            with torch.no_grad():
+                sampled = _sample_on_positions(
+                    store, samples_per_particle, scale, generator, noise)
+            return self.push_dist.serve(params=sampled, **kw)
         # dense live rows (not the capacity-padded canonical form): a
         # padding slot's zero moments must never be sampled as a member
-        stacked_swag = self.store.dense("swag")
+        stacked_swag = store.dense("swag")
         with torch.no_grad():
             sampled = swag_sample_stacked(stacked_swag, samples_per_particle,
                                           scale, generator=generator,

@@ -22,8 +22,10 @@ rebuilds a store ready to serve from it (no inference replayed): at
 another ``capacity`` (rounded up to a power of two, never below the live
 count), under another ``precision`` (the masters re-cast, ``kv*`` keys
 following the policy's ``kv_dtype``), on ``device`` (the card by
-default). A store saved under a mesh restores onto the one device, as
-the reference's does where the saved mesh does not fit.
+default). The manifest records the mesh's shape and axes; restore
+revives the saved plan over the visible CUDA devices when they allow it
+and otherwise restores onto ``mesh=None``, as the reference's does where
+the saved mesh does not fit; an explicit ``placement=`` wins.
 
 numpy has no bfloat16 that npz keeps without pickling: bf16 leaves are
 widened to fp32 on disk and recorded as ``"bfloat16"``, and restore casts
@@ -48,6 +50,7 @@ import torch
 from ..core.precision import Precision, cast_floats, dtype_name
 from ..core.precision import get as _resolve_precision
 from ..core.store import ParticleStore, Placement
+from ..launch.mesh import make_mesh
 from ..core.tree import tree_flatten, tree_map
 from ..obs import trace as _trace
 
@@ -226,13 +229,33 @@ def save_store(ckpt_dir: str, step: int, store: ParticleStore,
         "active_mask": [int(s in occupied) for s in range(store.capacity)],
         "placement": {"particle_axis": pl.particle_axis,
                       "model_axis": pl.model_axis, "mode": pl.mode,
-                      "mesh_shape": None, "mesh_axes": None},
+                      "mesh_shape": (None if pl.mesh is None else
+                                     [int(pl.mesh.shape[a])
+                                      for a in pl.mesh.axis_names]),
+                      "mesh_axes": (None if pl.mesh is None
+                                    else list(pl.mesh.axis_names))},
         "precision": store.precision.describe(),
         "dtypes": {k: store.key_dtypes(k) for k in skels},
         "keys": skels,
     }
     return _write(ckpt_dir, f"store_{step:08d}.npz",
                   __store_manifest__=json.dumps(manifest), **arrays)
+
+
+def _saved_placement(meta) -> Placement:
+    """The saved plan, revived over the visible CUDA devices when they
+    allow it (as many as the mesh, or a multiple), else on ``mesh=None``
+    (the reference's rule, with the CUDA device count)."""
+    mesh = None
+    if meta.get("mesh_shape") is not None:
+        n_want = int(np.prod(meta["mesh_shape"]))
+        n_have = torch.cuda.device_count()
+        if n_want <= n_have and n_have % n_want == 0:
+            mesh = make_mesh(tuple(meta["mesh_shape"]),
+                             tuple(meta["mesh_axes"]))
+    return Placement(mesh=mesh, particle_axis=meta["particle_axis"],
+                     mode=meta["mode"],
+                     model_axis=meta.get("model_axis", "model"))
 
 
 def latest_store_step(ckpt_dir: str) -> Optional[int]:
@@ -255,10 +278,7 @@ def restore_store(ckpt_dir: str, step: Optional[int] = None,
                    allow_pickle=False)
     manifest = json.loads(str(data["__store_manifest__"]))
     if placement is None:
-        meta = manifest["placement"]
-        placement = Placement(particle_axis=meta["particle_axis"],
-                              mode=meta["mode"],
-                              model_axis=meta.get("model_axis", "model"))
+        placement = _saved_placement(manifest["placement"])
     saved = manifest.get("precision")
     if precision is None and saved is not None:
         precision = Precision(master_dtype=saved["master"],

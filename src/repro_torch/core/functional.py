@@ -21,18 +21,36 @@ from .precision import cast_floats
 from .tree import tree_flatten, tree_map
 
 
-def flatten_stacked(stacked):
+def init_stacked(module, n: int, generator):
+    """n independent inits from ``generator`` (drawn in order, as a PD's
+    particles are), stacked on a leading particle axis."""
+    return stack_pytrees([module.init(generator) for _ in range(n)])
+
+
+def stack_pytrees(trees):
+    """Trees of one structure -> one tree of stacked leaves."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def unstack_pytree(stacked, n: int):
+    """The first ``n`` rows of a stacked tree, one tree (of views) each."""
+    return [tree_map(lambda x, i=i: x[i], stacked) for i in range(n)]
+
+
+def flatten_stacked(stacked, values: bool = True):
     """(tree with leading n) -> ((n, D) matrix, unravel).
 
     Columns follow ``jax.flatten_util.ravel_pytree``: leaves in sorted
     dict-key order, each raveled row-major. ``unravel`` maps an (n, D)
     matrix back to the stacked tree (the reference unravels one particle
-    and vmaps); its leaves are views of the matrix."""
+    and vmaps); its leaves are views of the matrix. ``values=False``
+    skips the matrix (None) and gives ``unravel`` alone."""
     leaves, unflatten = tree_flatten(stacked, sort_keys=True)
     n = leaves[0].shape[0]
     shapes = [tuple(x.shape[1:]) for x in leaves]
     sizes = [x[0].numel() for x in leaves]
-    flat = torch.cat([x.reshape(n, -1) for x in leaves], dim=1)
+    flat = (torch.cat([x.reshape(n, -1) for x in leaves], dim=1)
+            if values else None)
 
     def unravel(mat):
         parts = mat.split(sizes, dim=1)
@@ -40,6 +58,19 @@ def flatten_stacked(stacked):
                           for p, s in zip(parts, shapes)])
 
     return flat, unravel
+
+
+def flatten_into(stacked, out):
+    """``flatten_stacked(stacked)``'s matrix written into ``out`` in
+    place (cast to its dtype)."""
+    leaves = tree_flatten(stacked, sort_keys=True)[0]
+    n = leaves[0].shape[0]
+    parts = [x.reshape(n, -1) for x in leaves]
+    if all(x.dtype == out.dtype for x in parts):
+        torch.cat(parts, dim=1, out=out)
+    else:
+        out.copy_(torch.cat(parts, dim=1))
+    return out
 
 
 def flatten_rows(trees):
@@ -65,6 +96,13 @@ def flatten_rows(trees):
 def expand_mask(mask, ndim: int):
     """(P,) mask broadcast-shaped against a (P, ...) tensor of `ndim`."""
     return mask.reshape(mask.shape + (1,) * (ndim - 1))
+
+
+def masked_select(mask, new_tree, old_tree):
+    """Per-slot select, out of place: live slots take ``new``, dead slots
+    keep ``old`` (the frozen padding row)."""
+    return tree_map(lambda nw, od: torch.where(
+        expand_mask(mask, nw.dim()) > 0, nw, od), new_tree, old_tree)
 
 
 def masked_assign(mask, new_tree, dst_tree):

@@ -9,12 +9,14 @@ shared lightweight pool (executor.py). ``dispatch`` *enqueues* one hop of
 a particle's logical timeline onto its device's loop; no thread is ever
 created per message.
 
-  * "device" = a ``torch.device``. On the card the NEL runs one worker
-    for ``cuda:0``; each worker makes its device current before a hop
-    (``device_prep``), since the current CUDA device is per thread. With
-    a CPU store, ``num_devices`` logical workers share the CPU: that is
-    how the tests exercise cross-device scheduling, as the reference's
-    use forced host devices.
+  * "device" = a ``torch.device``. ``num_devices=N`` on CUDA gives one
+    worker for each of ``cuda:0 .. cuda:N-1``; ``devices=`` takes an
+    explicit list, which may name one device several times (logical
+    workers sharing it: the CPU tests' and a one-card machine's
+    counterpart of the reference's forced host devices). With a CPU
+    store, ``num_devices`` logical workers share the CPU. Each worker
+    makes its device current before a hop (``device_prep``), since the
+    current CUDA device is per thread.
   * *device* work (forward / backward / parameter updates) runs on the
     target device's single worker loop, which serializes compute per
     device while letting different devices progress concurrently (the
@@ -25,11 +27,16 @@ created per message.
     never queue behind device compute.
   * ``send`` returns immediately with a PFuture (async-await).
 
-The port's ParticleStore holds every row of a key in one stacked tensor
-on one device, so a particle has no other home: ``num_devices > 1`` on
-CUDA and ``offload=True`` raise (ROADMAP.md, queue 1 item 10: multi-GPU
-placement). The active set then only keeps the LRU accounting
-(``swaps_in`` / ``swaps_out``) that the reference's keeps.
+Residency, as the reference's: on a swap-in a particle's ``"params"``
+row moves to its device when ``offload`` is set or the NEL has more than
+one worker; under ``offload`` the least recently used particle's
+``"params"`` row leaves the device for host memory (pinned on CUDA,
+allocated once per particle and reused) when the active set is full.
+Only ``"params"`` moves. Under either, the PD's store keeps rows where
+the NEL put them (``ParticleStore.keep_row_devices``) and a stacked
+``"params"`` is demoted to rows at the first swap, so that an offloaded
+row frees its device memory; a fused consumer restacks it.
+``swap_stats`` counts the bytes and seconds of those copies.
 
 Handlers may freely send-and-wait on other particles: a blocked handler
 context-switches its worker into servicing the device queue (the
@@ -42,43 +49,63 @@ swaps, cross-device transfers, queue depths and wait-vs-run time.
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from .executor import Executor
 from .messages import PFuture
+from .tree import tree_leaves, tree_map, tree_to
 
-_ONE_DEVICE = ("the port's ParticleStore keeps every particle on one device; "
-               "{what} waits for multi-GPU placement (ROADMAP.md, queue 1 "
-               "item 10)")
+
+def _has_state(p) -> bool:
+    """A particle with store-backed params (a bare registered object, as
+    scheduling tests use, has no rows to move)."""
+    return hasattr(p, "state") and "params" in p.state
+
+
+def _nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
 
 
 class NodeEventLoop:
     def __init__(self, num_devices: Optional[int] = None, cache_size: int = 4,
                  offload: bool = False, max_pending: int = 4096,
-                 pool_size: Optional[int] = None, device=None):
-        device = torch.device("cuda" if device is None else device)
-        if num_devices is None:
-            num_devices = 1
-        if offload:
-            raise NotImplementedError(_ONE_DEVICE.format(
-                what="offloading particles to the host"))
-        if device.type == "cuda":
-            if num_devices > 1:
-                raise NotImplementedError(_ONE_DEVICE.format(
-                    what=f"a NEL over {num_devices} GPUs"))
-            present = torch.cuda.device_count()
-            if num_devices > present:
-                raise ValueError(f"requested {num_devices} devices but only "
-                                 f"{present} present")
-            index = device.index if device.index is not None else 0
-            self.devices = [torch.device("cuda", index)]
+                 pool_size: Optional[int] = None, device=None,
+                 devices: Optional[Sequence] = None):
+        if devices is not None:
+            self.devices = [torch.device(d) for d in devices]
+            if not self.devices:
+                raise ValueError("devices= names no device")
+            num_devices = len(self.devices)
         else:
-            self.devices = [device] * num_devices   # logical workers
+            device = torch.device("cuda" if device is None else device)
+            if num_devices is None:
+                num_devices = 1
+            if device.type == "cuda":
+                present = torch.cuda.device_count()
+                if num_devices > present:
+                    raise ValueError(
+                        f"requested {num_devices} devices but only {present} "
+                        "present; pass devices= with a device repeated to "
+                        "emulate")
+                if num_devices == 1:
+                    index = device.index if device.index is not None else 0
+                    self.devices = [torch.device("cuda", index)]
+                else:
+                    self.devices = [torch.device("cuda", i)
+                                    for i in range(num_devices)]
+            else:
+                self.devices = [device] * num_devices   # logical workers
         self.cache_size = cache_size
         self.offload = offload
+        # offloaded rows: pid -> host tree reused at every eviction
+        self._host: Dict[int, Any] = {}
+        self._out: set = set()              # pids whose row is on the host
+        self.swap_stats = {"bytes_in": 0, "bytes_out": 0, "s_in": 0.0,
+                           "s_out": 0.0}
         # particle-to-device lookup table
         self._device_of: Dict[int, int] = {}
         self._particles: Dict[int, Any] = {}
@@ -104,6 +131,12 @@ class NodeEventLoop:
         self.executor.add_particle(pid, dev)
         return pid
 
+    @property
+    def homes_rows(self) -> bool:
+        """Whether swaps move particles' params rows (offload, or more
+        than one worker)."""
+        return self.offload or len(self.devices) > 1
+
     def unregister(self, pid: int):
         """Retire a particle: drop it from the device table and registry,
         evict it from its device's LRU active set, and remove its
@@ -113,13 +146,16 @@ class NodeEventLoop:
         self._particles.pop(pid, None)
         with self._cache_locks[dev]:
             self._active[dev].pop(pid, None)
+        self._host.pop(pid, None)
+        self._out.discard(pid)
         self.executor.remove_particle(pid)
 
     def rebalance(self) -> Dict[int, tuple]:
         """Re-place live particles evenly across devices (round-robin in
         pid order). Drains in-flight messages first so no mailbox is
-        moved while scheduled; returns {pid: (old_dev, new_dev)} for the
-        particles that moved."""
+        moved while scheduled; a moved particle's mailbox and, when the
+        NEL homes rows, its device-resident params row move together.
+        Returns {pid: (old_dev, new_dev)} for the particles that moved."""
         self.drain()
         moves: Dict[int, tuple] = {}
         for i, pid in enumerate(sorted(self._particles)):
@@ -131,6 +167,10 @@ class NodeEventLoop:
                 self._active[old].pop(pid, None)
             self._device_of[pid] = dev
             self.executor.move_particle(pid, dev)
+            p = self._particles[pid]
+            if self.homes_rows and _has_state(p) and pid not in self._out:
+                p.state["params"] = tree_to(p.state["params"],
+                                           self.devices[dev])
             moves[pid] = (old, dev)
         return moves
 
@@ -159,19 +199,58 @@ class NodeEventLoop:
             self.ensure_resident(pid)
 
     def ensure_resident(self, pid: int):
-        """LRU bookkeeping of the device's active set. The particle's rows
-        stay in the store on its one device (no offload in the port)."""
+        """The device's active set (LRU): a particle not in it is swapped
+        in, evicting the least recently used when full (module doc)."""
         dev_idx = self._device_of[pid]
+        dev = self.devices[dev_idx]
         with self._cache_locks[dev_idx]:
             active = self._active[dev_idx]
             if pid in active:
                 active.move_to_end(pid)
                 return
             if len(active) >= self.cache_size:
-                active.popitem(last=False)      # LRU evict
+                victim, _ = active.popitem(last=False)      # LRU evict
                 self._bump("swaps_out")
+                vp = self._particles[victim]
+                if self.offload and _has_state(vp):
+                    self._swap_out(vp)
+            p = self._particles[pid]
+            if self.homes_rows and _has_state(p):
+                self._swap_in(p, dev)
             active[pid] = True
             self._bump("swaps_in")
+
+    def _swap_out(self, p):
+        """The victim's params row into its host buffer (pinned on CUDA),
+        which becomes the row."""
+        p.store.demote("params")
+        row = p.state["params"]
+        host = self._host.get(p.pid)
+        if host is None:
+            host = self._host[p.pid] = tree_map(
+                lambda x: torch.empty(x.shape, dtype=x.dtype, device="cpu",
+                                      pin_memory=x.is_cuda), row)
+        t0 = time.perf_counter()
+        tree_map(lambda h, x: h.copy_(x), host, row)
+        self.swap_stats["s_out"] += time.perf_counter() - t0
+        self.swap_stats["bytes_out"] += _nbytes(row)
+        p.state["params"] = host
+        self._out.add(p.pid)
+
+    def _swap_in(self, p, dev):
+        """The particle's params row onto its device: a copy from its host
+        buffer when offloaded, else a move (no copy where it already is)."""
+        p.store.demote("params")
+        row = p.state["params"]
+        if p.pid in self._out:
+            t0 = time.perf_counter()
+            row = tree_map(lambda x: x.to(dev, copy=True), row)
+            self.swap_stats["s_in"] += time.perf_counter() - t0
+            self.swap_stats["bytes_in"] += _nbytes(row)
+            self._out.discard(p.pid)
+        else:
+            row = tree_to(row, dev)
+        p.state["params"] = row
 
     # ------------------------------------------------------------------
     # dispatch: one hop of particle `pid`'s timeline

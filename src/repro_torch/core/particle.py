@@ -22,7 +22,15 @@ import torch
 from .functional import ensemble_value_and_grad
 from .messages import ParticleView, PFuture, snapshot
 from .store import ParticleStore, StoreState
-from .tree import tree_map
+from .tree import tree_map, tree_to
+
+
+def _on_receiver(fn, device):
+    """A handler whose tensor arguments cross to ``device`` (the
+    receiver's) when it runs: the message boundary between two devices."""
+    def handler(target, *args, **kwargs):
+        return fn(target, *tree_to(args, device), **tree_to(kwargs, device))
+    return handler
 
 
 def _one_row(tree):
@@ -130,9 +138,10 @@ class Particle:
         target = self.nel.particle(pid)
         if msg not in target.receive:
             raise KeyError(f"particle {pid} has no handler for {msg!r}")
+        fn = target.receive[msg]
         if self.nel._device_of[pid] != self.nel._device_of[self.pid]:
             self.nel._bump("xdev_transfers")
-        fn = target.receive[msg]
+            fn = _on_receiver(fn, self.nel.device_of(pid))
         return self.nel.dispatch(pid, fn, target, *args, **kwargs)
 
     def get(self, pid: int) -> PFuture:
@@ -141,11 +150,15 @@ class Particle:
         target = self.nel.particle(pid)
         if self.nel._device_of[pid] != self.nel._device_of[self.pid]:
             self.nel._bump("xdev_transfers")
+        here = self.nel.device_of(self.pid)
 
         def grab(_t):
+            # snapshots on the requester's device (a copy only from another
+            # device, or from the host where an offloaded row lives)
             grads = _t.state["grads"]
-            return ParticleView(pid, snapshot(_t.state["params"]),
-                                None if grads is None else snapshot(grads))
+            return ParticleView(
+                pid, tree_to(snapshot(_t.state["params"]), here),
+                None if grads is None else tree_to(snapshot(grads), here))
 
         # lock-free read: runs on the shared pool, never queues behind the
         # target device's compute (paper §4.2)

@@ -11,6 +11,11 @@ API follows the paper's Fig. 2:
 
 ``device=`` sets the store's device (``cuda`` unless the caller asks for
 another); the NEL's workers and everything downstream follow it.
+``placement=`` (a ``core.store.Placement`` over a ``launch.mesh.Mesh``)
+splits the store's particle axis over the mesh's positions, whose first
+device is then the store's; ``num_devices=`` / ``devices=`` give the NEL
+its workers, and ``offload=True`` lets it page particles' params out to
+host memory (``core.nel``).
 ``p_clone`` / ``p_kill`` / ``p_rebalance`` churn the particle set; within
 the store's capacity they move no stacked tensor, so no captured step is
 captured again (``lifecycle`` counts them; ``bdl.lifecycle`` holds the
@@ -33,7 +38,7 @@ from .nel import NodeEventLoop
 from .particle import Particle, ParticleModule
 from .precision import cast_floats
 from .precision import get as resolve_precision
-from .store import ParticleStore
+from .store import ParticleStore, Placement
 
 
 class PushDistribution:
@@ -41,7 +46,8 @@ class PushDistribution:
                  num_devices: Optional[int] = None, cache_size: int = 4,
                  seed: int = 0, offload: bool = False, backend: str = "nel",
                  max_pending: int = 4096, capacity: int = 0, precision=None,
-                 device=None):
+                 device=None, placement: Optional[Placement] = None,
+                 devices: Optional[Sequence] = None):
         if backend not in BACKENDS:
             # validate before the NEL exists: a bad backend must not leave
             # an executor behind
@@ -56,11 +62,18 @@ class PushDistribution:
             precision = getattr(getattr(module, "cfg", None), "precision",
                                 None)
         self.precision = resolve_precision(precision)
+        if placement is not None and placement.mesh is not None:
+            device = placement.positions()[0]
         self.nel = NodeEventLoop(num_devices=num_devices,
                                  cache_size=cache_size, offload=offload,
-                                 max_pending=max_pending, device=device)
+                                 max_pending=max_pending, device=device,
+                                 devices=devices)
         self.store = ParticleStore(capacity=capacity,
-                                   precision=self.precision, device=device)
+                                   precision=self.precision, device=device,
+                                   placement=placement)
+        # a NEL that offloads or spans several devices homes its particles'
+        # rows itself (core.nel.ensure_resident)
+        self.store.keep_row_devices = self.nel.homes_rows
         # one generator on the store's device: particle inits draw from it
         # in creation order, so a seed fixes every particle's weights
         self._gen = torch.Generator(device=self.store.device)

@@ -1,12 +1,20 @@
 """ParticleStore: the single source of truth for per-particle state.
 
-Counterpart of ``repro.core.store`` on one device: ``Placement`` is the
-reference's plan record with its single-device plan only (a mesh waits
-for multi-GPU placement, ROADMAP.md queue 1 item 10).
-``StoreState`` is one particle's mapping view of it (``particle.state``).
+Counterpart of ``repro.core.store``. ``Placement`` is the reference's
+plan record: ``mesh=None`` keeps every particle on the store's device; a
+``launch.mesh.Mesh`` puts the particle axis on a ``data`` axis of
+positions (a model axis larger than 1 waits for ROADMAP.md queue 1 item
+10b). ``StoreState`` is one particle's mapping view of the store
+(``particle.state``).
 
   * canonical form — one *stacked* tree per state key ("params",
-    "kv_pages", ...) with a leading particle axis, on ``device``;
+    "kv_pages", ...) with a leading particle axis, on ``device``; under a
+    mesh whose ``data`` axis divides the capacity, one such stack per
+    position (``Sharded``): ``capacity / data`` contiguous slots on that
+    position's device, the layout the reference's GSPMD split of the
+    padded axis gives. A capacity the axis does not divide is not split
+    (the reference's ``_axis_fits``): it stays one stack on the first
+    position;
   * derived form — per-particle *views* (``leaf[slot]``, no copy) with
     dirty-tracked write-back.
 
@@ -14,13 +22,14 @@ Elastic lifecycle (DESIGN.md §9): the store allocates by **capacity, not
 count**. Stacked trees are padded to a power-of-two ``capacity``; each
 live particle owns a *slot*, freed slots go on a free list, and
 ``active_mask()`` (shape ``(capacity,)``, 1.0 at live slots) tells fused
-steps which rows are real. ``generation()`` bumps only on capacity growth
-or a key seen for the first time, never on churn within capacity:
-``clone_slot`` copies one slot's rows into another inside the stacked
-tensors (``copy_``, jitter added in place), and ``unregister`` flips the
-mask, so both keep every stacked tensor at its address and a step
+steps which rows are real. ``generation()`` bumps only on capacity growth,
+a key seen for the first time or a ``reshard``, never on churn within
+capacity: ``clone_slot`` copies one slot's rows into another inside the
+stacked tensors (``copy_``, jitter added in place), and ``unregister``
+flips the mask, so both keep every stacked tensor at its address and a step
 captured on those addresses (``runtime.program``) stays valid. Capacity
-growth (``_grow``, ``torch.cat``) is the one event that moves them.
+growth (``_grow``, ``torch.cat``) and ``reshard`` (the store moved onto
+another placement) are the events that move them.
 
 Consistency protocol (all transitions under one lock):
 
@@ -45,20 +54,31 @@ tensors in place: a consumer holding the stacked tree sees the new rows.
 Serving steps and store churn are serialized by the scheduler's
 ``step_lock``.
 
+Rows may live elsewhere than their stack: with ``keep_row_devices`` set
+(the PD sets it when its NEL offloads or spans several devices) a
+written row stays where its leaves are (a NEL device, or pinned host
+memory under offload) and moves to its stack only at the next flush;
+``demote`` drops a key's stacked form for independent rows, so that an
+offloaded row frees its device memory. Capacity growth under a mesh
+re-lays the slots out: the stacks become rows (views of the old shards)
+that the next flush restacks.
+
 ``stats`` keeps the reference's counters: ``unstacks`` counts rows sliced
 out of a stacked tree (a read of a stacked row, a subset commit's rows),
-``device_puts`` re-placements onto a mesh (0 on one device, as the
-reference's with ``mesh=None``). Spans (DESIGN.md §12, cat ``store``):
+``device_puts`` placements onto a mesh (a restack split over the
+positions, a plain tree committed to a mesh store; 0 on one device, as
+the reference's with ``mesh=None``). Spans (DESIGN.md §12, cat ``store``):
 ``store.checkout``, ``store.commit``, ``store.h2d`` around a write whose
 leaves come from the host, and the ``store.generation_bump`` instant at
-capacity growth.
+capacity growth and at a reshard.
 """
 from __future__ import annotations
 
+import bisect
 import heapq
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Set
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -67,26 +87,213 @@ from .precision import get as _resolve_precision
 from .tree import tree_leaves, tree_map
 
 
-@dataclass(frozen=True)
+ITEM_10B = ("waits for the model axis: tensor parallelism, 2D placement "
+            "and multi-host meshes (ROADMAP.md, queue 1 item 10b)")
+
+
+@dataclass(frozen=True, eq=False)
 class Placement:
-    """The reference's placement plan (``repro.core.store.Placement``) on
-    one device: ``mesh=None`` keeps every particle on the store's device,
-    so the particle and model axes have size 1. A mesh raises until
-    multi-GPU placement is ported (ROADMAP.md queue 1 item 10)."""
+    """The reference's placement plan (``repro.core.store.Placement``):
+    a mesh (``launch.mesh.Mesh``) and which of its axes carries which
+    role. ``particle_axis`` splits the stacked particle axis into
+    contiguous slot ranges, one per position; ``mesh=None`` keeps every
+    particle on the store's device. A ``model_axis`` larger than 1 (one
+    particle across devices) raises ``NotImplementedError``.
+
+    Equality and hashing are by plan: two placements over separately
+    built meshes with the same axes, sizes and devices (a device's key is
+    ``(type, index, position)``, so logical positions on one card stay
+    distinct) compare equal, and the program cache keys on
+    ``plan_key()``."""
     mesh: Any = None
     particle_axis: Optional[str] = "data"
     mode: str = "tp"
     model_axis: Optional[str] = "model"
 
     def __post_init__(self):
-        if self.mesh is not None:
+        m = self.model_axis_size()
+        if m > 1:
             raise NotImplementedError(
-                "the port's ParticleStore keeps every particle on one "
-                "device; a placement mesh waits for multi-GPU placement "
-                "(ROADMAP.md, queue 1 item 10)")
+                f"a model axis of size {m} (one particle across devices) "
+                f"{ITEM_10B}")
+
+    # -- plan identity -------------------------------------------------------
+    def plan_key(self) -> tuple:
+        if self.mesh is None:
+            mesh_key = None
+        else:
+            mesh_key = (tuple(self.mesh.axis_names),
+                        tuple(int(self.mesh.shape[a])
+                              for a in self.mesh.axis_names),
+                        tuple((d.type, d.index, pos) for pos, d in
+                              enumerate(self.mesh.flat_devices())))
+        return (mesh_key, self.particle_axis, self.model_axis, self.mode)
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, Placement):
+            return NotImplemented
+        return self.plan_key() == other.plan_key()
+
+    def __hash__(self) -> int:
+        return hash(self.plan_key())
+
+    @staticmethod
+    def auto(particle_axis: str = "data", mode: str = "tp", model: Any = 1,
+             *, params_bytes: Optional[int] = None, param_tree: Any = None,
+             precision: Any = None,
+             device_memory_bytes: Optional[int] = None,
+             devices: Optional[Sequence] = None) -> "Placement":
+        """A mesh over every visible CUDA device (or ``devices``).
+        ``model`` sets the model-axis size; ``model="auto"`` picks the
+        smallest whose parameter shard fits the device's memory
+        (``launch.mesh.pick_model_axis``), from ``params_bytes`` or from
+        ``param_tree`` counted at the ``precision``'s master itemsize
+        (``core.precision.tree_bytes``; an explicit ``params_bytes`` with a
+        ``precision`` is rescaled from fp32). With n <= 1 devices and
+        model <= 1: ``Placement(mesh=None)``. A model axis above 1 raises
+        (item 10b)."""
+        from ..launch.mesh import make_bench_mesh, pick_model_axis
+        from .precision import tree_bytes
+        n = (len(devices) if devices is not None
+             else torch.cuda.device_count())
+        if model == "auto":
+            if params_bytes is None and param_tree is not None:
+                params_bytes = tree_bytes(param_tree, precision)
+            elif params_bytes is not None and precision is not None:
+                itemsize = torch.finfo(
+                    _resolve_precision(precision).master).bits // 8
+                params_bytes = int(params_bytes * itemsize / 4)
+            model = pick_model_axis(params_bytes or 0, n,
+                                    device_memory_bytes=device_memory_bytes)
+        model = int(model)
+        if model > 1:
+            raise NotImplementedError(
+                f"a model axis of size {model} (one particle across "
+                f"devices) {ITEM_10B}")
+        if n <= 1 and model <= 1:
+            return Placement(mesh=None)
+        return Placement(mesh=make_bench_mesh(n, model=model,
+                                              devices=devices),
+                         particle_axis=particle_axis, mode=mode)
+
+    # -- axis sizes ----------------------------------------------------------
+    def _axis_size(self, axis: Optional[str]) -> int:
+        if self.mesh is None or axis is None:
+            return 1
+        return int(dict(self.mesh.shape).get(axis, 1))
+
+    def particle_axis_size(self) -> int:
+        return self._axis_size(self.particle_axis)
 
     def model_axis_size(self) -> int:
-        return 1
+        return self._axis_size(self.model_axis)
+
+    def _axis_fits(self, n: int, axis: Optional[str]) -> Optional[str]:
+        if self.mesh is None or axis is None:
+            return None
+        size = dict(self.mesh.shape).get(axis)
+        return axis if size and n > 0 and n % size == 0 else None
+
+    def spmd_axis(self, n: int) -> Optional[str]:
+        """The particle axis when it divides ``n`` rows, else None."""
+        return self._axis_fits(n, self.particle_axis)
+
+    # -- layouts -------------------------------------------------------------
+    def positions(self) -> List[torch.device]:
+        """The device of each position of the particle axis, in order."""
+        if self.mesh is None:
+            return []
+        return list(self.mesh.flat_devices())
+
+    def vector(self, n: int) -> Optional[Tuple[Tuple[int, Any, slice], ...]]:
+        """Where the rows of an (n, ...) stack live: ``(position, device,
+        slice of rows)`` per position, contiguous in slot order, when the
+        particle axis divides n; None (no split) otherwise or with no
+        mesh."""
+        if self.spmd_axis(n) is None:
+            return None
+        pos = self.positions()
+        k = n // len(pos)
+        return tuple((i, d, slice(i * k, (i + 1) * k))
+                     for i, d in enumerate(pos))
+
+    def shardings(self, stacked_tree):
+        """``vector`` of the tree's leading dimension."""
+        return self.vector(_leading(stacked_tree) or 0)
+
+    def matrix(self, n: int, d: int):
+        """The flattened (n, D) particle matrix (SVGD): split as its rows
+        (the model axis is 1, so D stays whole)."""
+        return self.vector(n)
+
+    def gathered_matrix(self, d: int):
+        """The (n, D) matrix after the gather: every row on the first
+        position, where the port runs the SVGD kernels once."""
+        if self.mesh is None:
+            return None
+        return ((0, self.positions()[0], slice(None)),)
+
+
+class Sharded:
+    """A stacked tree split over the positions of a mesh: ``shards[i]``
+    holds rows ``[bounds[i], bounds[i+1])`` on ``devices[i]``, in slot
+    order. ``plan`` is the placement's ``plan_key()``. Consumers run a
+    program per shard (``runtime.program.ShardedProgram``)."""
+
+    __slots__ = ("shards", "devices", "bounds", "plan", "__weakref__")
+
+    def __init__(self, shards, devices, plan=None):
+        self.shards = tuple(shards)
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.plan = plan
+        bounds = [0]
+        for s in self.shards:
+            bounds.append(bounds[-1] + (_leading(s) or 0))
+        self.bounds = tuple(bounds)
+
+    def __len__(self) -> int:
+        return self.bounds[-1]
+
+    def __repr__(self) -> str:
+        return f"Sharded(rows={self.bounds}, devices={list(self.devices)})"
+
+    def locate(self, slot: int) -> Tuple[int, int]:
+        """(position, row within its shard) of a slot."""
+        i = bisect.bisect_right(self.bounds, slot) - 1
+        return i, slot - self.bounds[i]
+
+    def row(self, slot: int):
+        """One slot's row: a view into its shard."""
+        i, j = self.locate(slot)
+        return tree_map(lambda x: x[j], self.shards[i])
+
+    def map(self, fn) -> "Sharded":
+        """``fn`` applied to every shard, same layout."""
+        return Sharded([fn(s) for s in self.shards], self.devices, self.plan)
+
+    def leaves(self) -> list:
+        return [x for s in self.shards for x in tree_leaves(s)]
+
+    def gather(self, device=None):
+        """The whole stack as one tree on ``device`` (the first
+        position's by default): one copy of every shard."""
+        device = self.devices[0] if device is None else torch.device(device)
+        return tree_map(lambda *xs: torch.cat([x.to(device) for x in xs]),
+                        *self.shards)
+
+    @staticmethod
+    def apply(fn, tree):
+        """``fn`` on each shard of a Sharded tree (a Sharded back), or on
+        a plain tree."""
+        return tree.map(fn) if isinstance(tree, Sharded) else fn(tree)
+
+    @staticmethod
+    def split(tree, layout, plan=None) -> "Sharded":
+        """A plain stacked tree copied onto a layout
+        (``Placement.vector``): each position's rows on its device."""
+        return Sharded([tree_map(lambda x, s=s, d=d: x[s].to(d, copy=True),
+                                 tree) for _, d, s in layout],
+                       [d for _, d, _ in layout], plan)
 
 
 def _pow2_at_least(n: int) -> int:
@@ -106,6 +313,15 @@ def _stack(rows):
     return tree_map(lambda *xs: torch.stack(xs), *rows)
 
 
+def _to(tree, device):
+    """``tree``'s leaves on ``device`` (no copy for those already there)."""
+    return tree_map(lambda x: x.to(device), tree)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
 def _pad(tree, n: int):
     """Append n zero rows on the leading axis of every leaf."""
     return tree_map(lambda x: torch.cat(
@@ -117,14 +333,21 @@ class ParticleStore:
 
     ``capacity`` preallocates slots (rounded up to a power of two) so the
     first ``capacity`` registrations never bump ``generation()``; 0 grows
-    on demand (1, 2, 4, ... — one generation bump per doubling)."""
+    on demand (1, 2, 4, ... — one generation bump per doubling). Under a
+    ``placement`` with a mesh the store's ``device`` is the first
+    position's."""
 
     def __init__(self, capacity: int = 0, precision=None, device=None,
                  placement: Optional[Placement] = None):
         self.placement = placement if placement is not None else Placement()
+        if self.placement.mesh is not None:
+            device = self.placement.positions()[0]
         self.device = torch.device("cuda" if device is None else device)
         self.precision = _resolve_precision(precision)
         self.capacity = _pow2_at_least(capacity) if capacity > 0 else 0
+        # rows stay on the device they were written on (a NEL device, or
+        # pinned host memory under offload) instead of moving here
+        self.keep_row_devices = False
         self._slot_of: Dict[int, int] = {}
         self._free: List[int] = list(range(self.capacity))   # min-heap
         self._activated: Set[int] = set()       # slots with data landed
@@ -141,6 +364,49 @@ class ParticleStore:
                       "commits": 0, "device_puts": 0, "checkouts": 0,
                       "mask_invalidations": 0, "capacity_growths": 0,
                       "slot_clones": 0}
+
+    # -- layout ----------------------------------------------------------------
+    def _layout(self, n: Optional[int] = None):
+        """``Placement.vector`` of ``n`` rows (the capacity by default):
+        None when the stack is not split."""
+        return self.placement.vector(self.capacity if n is None else n)
+
+    def devices(self) -> List[torch.device]:
+        """Every device the store's stacks live on (one per position)."""
+        return self.placement.positions() or [self.device]
+
+    def _fits(self, st, n: int) -> bool:
+        """Whether a stacked tree has the layout of ``n`` rows."""
+        layout = self._layout(n)
+        if layout is None:
+            return not isinstance(st, Sharded) and _leading(st) in (None, n)
+        return (isinstance(st, Sharded) and len(st) == n
+                and len(st.shards) == len(layout))
+
+    def _place(self, tree, n: int):
+        """A plain stacked tree of ``n`` rows onto the layout of ``n`` rows
+        (one ``device_puts``), or a Sharded gathered back to one stack."""
+        layout = self._layout(n)
+        if isinstance(tree, Sharded):
+            if layout is None:
+                return tree.gather(self.device)
+            return tree
+        if layout is None or not tree_leaves(tree):
+            return tree
+        self.stats["device_puts"] += 1
+        with _trace.span("store.h2d", "store", leaves=len(tree_leaves(tree))):
+            return Sharded.split(tree, layout, self.placement.plan_key())
+
+    def _stack_rows(self, rows: List[Any]):
+        """Rows of one key in slot order -> a stack on the layout of their
+        count (each row moved to its position's device)."""
+        layout = self._layout(len(rows))
+        if layout is None:
+            return _stack([_to(r, self.device) for r in rows])
+        self.stats["device_puts"] += 1
+        return Sharded([_stack([_to(r, d) for r in rows[s]])
+                        for _, d, s in layout], [d for _, d, _ in layout],
+                       self.placement.plan_key())
 
     # -- registry / slot allocation ------------------------------------------
     @property
@@ -203,17 +469,56 @@ class ParticleStore:
 
     def _grow(self, new_capacity: int):
         """Pad every stacked tree to the new capacity (lock held) — the one
-        lifecycle operation that changes stacked shapes."""
+        lifecycle operation that changes stacked shapes. When the old or
+        the new capacity is split over a mesh, the slots change position:
+        each stack becomes rows (views of it) that the next flush
+        restacks on the new layout."""
         old, self.capacity = self.capacity, new_capacity
         for s in range(old, new_capacity):
             heapq.heappush(self._free, s)
+        relayout = (self._layout(old) is not None
+                    or self._layout(new_capacity) is not None)
         for key, st in list(self._stacked.items()):
-            self._stacked[key] = _pad(st, new_capacity - old)
+            if relayout and tree_leaves(st if not isinstance(st, Sharded)
+                                        else st.shards[0]):
+                self._to_rows(key, st, clone=False)
+            elif not isinstance(st, Sharded):
+                self._stacked[key] = _pad(st, new_capacity - old)
         self._gen += 1
         self.stats["capacity_growths"] += 1
         _trace.instant("store.generation_bump", "store",
                        capacity=new_capacity, generation=self._gen)
         self._invalidate_mask()
+
+    def _to_rows(self, key: str, st, clone: bool):
+        """Replace ``key``'s stacked form by per-slot rows of it (lock
+        held): views, or independent copies with ``clone``. Rows already
+        pending stay."""
+        rows = self._rows.setdefault(key, {})
+        n = 0
+        for slot in sorted(self._present.get(key, ())):
+            if slot in rows:
+                continue
+            row = (st.row(slot) if isinstance(st, Sharded)
+                   else tree_map(lambda x, slot=slot: x[slot], st))
+            rows[slot] = tree_map(torch.clone, row) if clone else row
+            n += 1
+        self.stats["unstacks"] += n
+        self._stacked.pop(key, None)
+        self._dirty[key] = set()
+
+    def demote(self, key: str) -> bool:
+        """Drop ``key``'s stacked form for independent per-slot rows (one
+        copy each), so that moving a row elsewhere (offload) frees its
+        memory; the next flush restacks. False when the key is not stacked
+        (nothing to do) or is checked out."""
+        with self._lock:
+            st = self._stacked.get(key)
+            if st is None or key in self._checkout_cohort:
+                return False
+            self._to_rows(key, st, clone=True)
+            self._bump(key)
+            return True
 
     # -- active mask / versions ----------------------------------------------
     def _invalidate_mask(self):
@@ -221,8 +526,10 @@ class ParticleStore:
         self.stats["mask_invalidations"] += 1
 
     def active_mask(self) -> torch.Tensor:
-        """``(capacity,)`` float32 mask on the store's device, 1.0 at
-        activated slots; cached between lifecycle events."""
+        """``(capacity,)`` float32 mask on the store's device (the first
+        position's under a mesh), 1.0 at activated slots; cached between
+        lifecycle events. A program over a sharded stack takes each
+        position's slice of it."""
         with self._lock:
             if self._mask_cache is None:
                 m = torch.zeros(self.capacity, dtype=torch.float32)
@@ -242,7 +549,7 @@ class ParticleStore:
             return (self._gen, self._versions.get(key, 0))
 
     def generation(self) -> int:
-        """Bumps only on capacity growth or a new state key."""
+        """Bumps only on capacity growth, a new state key or a reshard."""
         with self._lock:
             return self._gen
 
@@ -289,12 +596,19 @@ class ParticleStore:
         if key not in self._stacked or slot not in self._present.get(key, ()):
             raise KeyError(f"store has no {key!r} in slot {slot}")
         self.stats["unstacks"] += 1
-        return tree_map(lambda x: x[slot], self._stacked[key])
+        st = self._stacked[key]
+        if isinstance(st, Sharded):
+            return st.row(slot)
+        return tree_map(lambda x: x[slot], st)
 
     def read(self, key: str, pid: int):
         """View of one particle's entry (no copy)."""
         with self._lock:
             return self._read_slot(key, self._slot_of[pid])
+
+    def is_stacked(self, key: str) -> bool:
+        with self._lock:
+            return key in self._stacked
 
     def has(self, key: str, pid: int) -> bool:
         with self._lock:
@@ -310,8 +624,9 @@ class ParticleStore:
     def write(self, key: str, pid: int, tree):
         """Write-back: the row shadows the stacked entry until the next
         flush. Leaves move to the store's device (a ``store.h2d`` span when
-        they come from elsewhere)."""
-        if any(x.device != self.device for x in tree_leaves(tree)):
+        they come from elsewhere), unless ``keep_row_devices`` is set."""
+        if not self.keep_row_devices and any(
+                x.device != self.device for x in tree_leaves(tree)):
             with _trace.span("store.h2d", "store", key=key):
                 tree = tree_map(lambda x: x.to(self.device), tree)
         with self._lock:
@@ -343,15 +658,18 @@ class ParticleStore:
 
     # -- canonical stacked form ----------------------------------------------
     def _flush(self, key: str):
-        """Make the capacity-padded stacked tree canonical (lock held)."""
+        """Make the capacity-padded stacked tree canonical (lock held):
+        dirty rows copied into their stack (their shard, under a mesh) in
+        place, or a full restack on the capacity's layout."""
         st = self._stacked.get(key)
         dirty = self._dirty.get(key, set())
         cap = self.capacity
-        if st is not None and _leading(st) == cap:
+        if st is not None and self._fits(st, cap):
             rows = self._rows.get(key, {})
             for slot in sorted(dirty):
-                tree_map(lambda s, r, slot=slot: s[slot].copy_(r), st,
-                         rows.pop(slot))
+                dst = (st.row(slot) if isinstance(st, Sharded)
+                       else tree_map(lambda x, slot=slot: x[slot], st))
+                tree_map(lambda s, r: s.copy_(r), dst, rows.pop(slot))
             self.stats["row_flushes"] += len(dirty)
         else:
             present = sorted(self._present.get(key, ()))
@@ -359,11 +677,13 @@ class ParticleStore:
                 raise KeyError(key)
             rows = {s: self._read_slot(key, s) for s in present}
             template = rows[present[0]]
-            st = tree_map(
-                lambda t, *rs: torch.stack(list(rs)),
-                template, *[rows.get(s) if s in rows
-                            else tree_map(torch.zeros_like, template)
-                            for s in range(cap)])
+            if not tree_leaves(template):
+                st = template
+            else:
+                zero = tree_map(lambda x: torch.zeros_like(
+                    x, device=self.device), template)
+                st = self._stack_rows([rows.get(s, zero)
+                                       for s in range(cap)])
             self._rows.pop(key, None)     # rows are views of st from now on
             self.stats["stacks"] += 1
         self._stacked[key] = st
@@ -371,10 +691,11 @@ class ParticleStore:
         return st
 
     def _dense_rows(self, key: str, pids: Sequence[int]):
-        """A fresh dense stack of ``pids``' rows, index i <-> pids[i]
-        (lock held)."""
+        """A fresh dense stack of ``pids``' rows, index i <-> pids[i], on
+        the layout of their count (lock held)."""
         self.stats["stacks"] += 1
-        return _stack([self._read_slot(key, self._slot_of[p]) for p in pids])
+        return self._stack_rows([self._read_slot(key, self._slot_of[p])
+                                 for p in pids])
 
     def stacked(self, key: str, pids: Optional[Sequence[int]] = None):
         """The canonical capacity-padded stacked tree (flushing first);
@@ -389,11 +710,12 @@ class ParticleStore:
 
     def dense(self, key: str, pids: Optional[Sequence[int]] = None):
         """Live rows only (or ``pids``' rows, in that order), stacked dense
-        (leading dim = their count): for consumers that must never see a
-        padding slot (serve-time SWAG sampling). With every slot live this
-        is the canonical stacked tree itself, not a copy. A pid whose slot
-        holds no ``key`` (a fresh particle in a killed one's slot, whose
-        stale row is still stacked) raises KeyError, as ``read`` does."""
+        (leading dim = their count) on the store's device: for consumers
+        that must never see a padding slot (serve-time SWAG sampling).
+        With every slot live on one device this is the canonical stacked
+        tree itself, not a copy. A pid whose slot holds no ``key`` (a
+        fresh particle in a killed one's slot, whose stale row is still
+        stacked) raises KeyError, as ``read`` does."""
         with self._lock:
             live = pids is None
             pids = self.pids if live else list(pids)
@@ -403,6 +725,9 @@ class ParticleStore:
                     raise KeyError(f"store has no {key!r} for particle {p}")
             st = self._flush(key)
             slots = [self._slot_of[p] for p in pids]
+            if isinstance(st, Sharded):
+                self.stats["stacks"] += 1
+                return _stack([_to(st.row(s), self.device) for s in slots])
             if live and len(slots) == self.capacity:
                 return st
             self.stats["stacks"] += 1
@@ -432,9 +757,11 @@ class ParticleStore:
                pids: Optional[Sequence[int]] = None):
         """``stacked`` becomes canonical for ``key``. After a checkout it
         covers the slots checked out (padded if the store grew meanwhile);
-        a direct commit speaks for every live slot. With a pid subset, row
-        i of ``stacked`` becomes pids[i]'s dirty row, which the next flush
-        copies into the canonical tensors in place."""
+        a direct commit speaks for every live slot, and a plain tree
+        committed to a store split over a mesh is placed onto it (one
+        ``device_puts``). With a pid subset, row i of ``stacked`` becomes
+        pids[i]'s dirty row, which the next flush copies into the
+        canonical tensors in place."""
         with _trace.span("store.commit", "store", key=key), self._lock:
             sub = self._subset(pids)
             cohort = None if sub is not None \
@@ -443,47 +770,59 @@ class ParticleStore:
                 n = len(sub)
             else:
                 n = cohort[0] if cohort is not None else self.capacity
-            if _leading(stacked) not in (None, n):     # None: a leafless tree
+            lead = (len(stacked) if isinstance(stacked, Sharded)
+                    else _leading(stacked))
+            if lead not in (None, n):     # None: a leafless tree
                 raise ValueError(f"stacked {key!r} has leading dim "
-                                 f"{_leading(stacked)}, expected {n}")
+                                 f"{lead}, expected {n}")
             self.stats["commits"] += 1
             self._bump(key)
             if sub is not None:
                 for j, pid in enumerate(sub):
-                    self._write_row(key, self._slot_of[pid],
-                                    tree_map(lambda x, j=j: x[j], stacked))
+                    row = (stacked.row(j) if isinstance(stacked, Sharded)
+                           else tree_map(lambda x, j=j: x[j], stacked))
+                    self._write_row(key, self._slot_of[pid], row)
                 self.stats["unstacks"] += len(sub)
                 return
             if cohort is None:
                 if key not in self._present and key not in self._stacked:
                     self._gen += 1     # key-schema change
-                self._stacked[key] = stacked
+                self._stacked[key] = self._place(stacked, n)
                 for slot in self._slot_of.values():
                     self._mark_present(key, slot)
                 self._rows.pop(key, None)
                 self._dirty.pop(key, None)
                 return
             co_cap, co_slots = cohort
-            if co_cap < self.capacity:
-                stacked = _pad(stacked, self.capacity - co_cap)
-            self._stacked[key] = stacked
-            self._present.setdefault(key, set()).update(
-                co_slots & set(self._slot_of.values()))
             rows = self._rows.get(key, {})
             dirty = self._dirty.get(key, set())
             for slot in co_slots:
                 rows.pop(slot, None)
                 dirty.discard(slot)
+            self._present.setdefault(key, set()).update(
+                co_slots & set(self._slot_of.values()))
+            if co_cap < self.capacity and (
+                    isinstance(stacked, Sharded)
+                    or self._layout() is not None):
+                # the store grew under the run onto another layout: the
+                # run's rows become pending rows, restacked at next flush
+                self._to_rows(key, stacked, clone=False)
+                self._dirty[key] = dirty
+                return
+            if co_cap < self.capacity:
+                stacked = _pad(stacked, self.capacity - co_cap)
+            self._stacked[key] = stacked
 
     # -- fused slot cloning (the p_clone path) -------------------------------
     def clone_slot(self, key: str, src_pid: int, dst_pid: int,
                    jitter: float = 0.0, generator=None):
         """Copy ``key``'s row of ``src_pid``'s slot into ``dst_pid``'s slot
-        inside the canonical stacked tensors, one ``copy_`` per leaf, with
-        ``jitter`` times N(0, 1) from ``generator`` added in place to the
-        floating leaves. Every stacked tensor keeps its address, so a step
-        captured on them needs no new capture, and the next flush is a
-        no-op. A leafless tree (``grads`` None) is copied as a row.
+        inside the canonical stacked tensors, one ``copy_`` per leaf (from
+        one position's shard into another's under a mesh), with ``jitter``
+        times N(0, 1) from ``generator`` added in place to the floating
+        leaves. Every stacked tensor keeps its address, so a step captured
+        on them needs no new capture, and the next flush is a no-op. A
+        leafless tree (``grads`` None) is copied as a row.
 
         The copy is eager for every key: the reference's lazy row copy
         (``prefer_row``) would here be a view of the source's row, which
@@ -501,35 +840,75 @@ class ParticleStore:
                 raise KeyError(f"store has no {key!r} for particle "
                                f"{src_pid}")
             st = self._flush(key)
-            leaves = tree_leaves(st)
-            if not leaves:
+            if isinstance(st, Sharded):
+                src_row, dst_row = st.row(src), st.row(dst)
+            else:
+                src_row = tree_map(lambda x: x[src], st)
+                dst_row = tree_map(lambda x: x[dst], st)
+            pairs = list(zip(tree_leaves(dst_row), tree_leaves(src_row)))
+            if not pairs:
                 self._write_row(key, dst, self._read_slot(key, src))
             else:
                 with torch.no_grad():
-                    for leaf in leaves:
-                        row = leaf[dst]
-                        row.copy_(leaf[src])
-                        if jitter and leaf.is_floating_point():
-                            row.add_(torch.randn(
+                    for row, from_row in pairs:
+                        row.copy_(from_row)
+                        if jitter and row.is_floating_point():
+                            noise = torch.randn(
                                 row.shape, generator=generator,
-                                device=leaf.device, dtype=leaf.dtype),
-                                alpha=jitter)
+                                device=(row.device if generator is None
+                                        else generator.device),
+                                dtype=row.dtype)
+                            row.add_(noise.to(row.device), alpha=jitter)
                 self._mark_present(key, dst)
                 self.stats["slot_clones"] += 1
             self._bump(key)
 
     # -- lifecycle introspection -----------------------------------------
     def rebalance(self):
-        """The store half of ``pd.p_rebalance()``: flush every key and
-        rebuild the mask. On one device there is nothing to re-place (the
-        reference re-places each key against its mesh ``Placement``)."""
+        """The store half of ``pd.p_rebalance()``: flush every key onto
+        the current layout (a key stacked on another layout is restacked)
+        and rebuild the mask."""
         with self._lock:
             for key in self.keys():
+                if key in self._checkout_cohort:
+                    continue
+                st = self._stacked.get(key)
+                if st is not None and not self._fits(st, self.capacity):
+                    self._to_rows(key, st, clone=False)
                 try:
                     self._flush(key)
                 except KeyError:
                     continue
             self._invalidate_mask()
+
+    def reshard(self, placement: Placement):
+        """Move every key onto ``placement`` (another mesh, or one device
+        with ``mesh=None``): each stack becomes rows that are restacked at
+        once on the new layout (``device_puts`` counts the placements onto
+        a mesh), as capacity growth re-lays the slots out. Every address
+        changes, so ``generation()`` bumps. RuntimeError while a fused run
+        holds a key."""
+        with self._lock:
+            if placement == self.placement:
+                return
+            if self._checkout_cohort:
+                raise RuntimeError(
+                    f"{sorted(self._checkout_cohort)} checked out by an "
+                    "in-flight fused run; commit it back before resharding")
+            for key, st in list(self._stacked.items()):
+                if tree_leaves(st.shards[0] if isinstance(st, Sharded)
+                               else st):
+                    self._to_rows(key, st, clone=False)
+            self.placement = placement
+            if placement.mesh is not None:
+                self.device = placement.positions()[0]
+            self._gen += 1
+            _trace.instant("store.generation_bump", "store",
+                           capacity=self.capacity, generation=self._gen)
+            self._invalidate_mask()
+            for key in self.keys():
+                if key in self._rows:
+                    self._flush(key)
 
     def per_particle_bytes(self, key: str = "params") -> int:
         """Bytes of ``key`` per slot (the stacked tree over capacity, or
@@ -540,10 +919,9 @@ class ParticleStore:
                 rows = self._rows.get(key, {})
                 if not rows:
                     return 0
-                return sum(x.numel() * x.element_size()
-                           for x in tree_leaves(next(iter(rows.values()))))
-            total = sum(x.numel() * x.element_size()
-                        for x in tree_leaves(tree))
+                return _tree_bytes(next(iter(rows.values())))
+            total = (sum(_tree_bytes(s) for s in tree.shards)
+                     if isinstance(tree, Sharded) else _tree_bytes(tree))
             return total // max(self.capacity, 1)
 
     def lifecycle_stats(self) -> Dict[str, int]:
@@ -565,6 +943,8 @@ class ParticleStore:
         out: Dict[str, int] = {}
         with self._lock:
             tree = self._stacked.get(key)
+            if isinstance(tree, Sharded):
+                tree = tree.shards[0]
             if tree is None:
                 rows = self._rows.get(key, {})
                 tree = next(iter(rows.values()), None)
@@ -574,16 +954,18 @@ class ParticleStore:
         return out
 
     def per_device_bytes(self, key: str = "params") -> int:
-        """Bytes of ``key``'s state resident on the store's one device:
-        the canonical stacked tree, or the rows when none is stacked. Reads
-        without flushing or counting; 0 when the store holds nothing for
-        ``key``."""
+        """Bytes of ``key``'s state resident on one device: the canonical
+        stacked tree (its largest position's shard under a mesh), or the
+        rows when none is stacked. Reads without flushing or counting; 0
+        when the store holds nothing for ``key``."""
         with self._lock:
             tree = self._stacked.get(key)
-            trees = [tree] if tree is not None \
-                else list(self._rows.get(key, {}).values())
-            return sum(x.numel() * x.element_size()
-                       for t in trees for x in tree_leaves(t))
+            if isinstance(tree, Sharded):
+                return max(_tree_bytes(s) for s in tree.shards)
+            if tree is not None:
+                return _tree_bytes(tree)
+            return sum(_tree_bytes(t)
+                       for t in self._rows.get(key, {}).values())
 
 
 # ---------------------------------------------------------------------------

@@ -66,3 +66,10 @@ def tree_flatten(tree, *, sort_keys: bool = False) -> Tuple[List[Any],
 def to_device(batch, device):
     """A batch of numpy arrays or tensors -> tensors on ``device``."""
     return tree_map(lambda x: torch.as_tensor(x).to(device), batch)
+
+
+def tree_to(tree, device):
+    """Tensor leaves of ``tree`` on ``device`` (no copy for those already
+    there); other leaves (a learning rate, a loader) as they are."""
+    return tree_map(lambda x: x.to(device)
+                    if isinstance(x, torch.Tensor) else x, tree)

@@ -50,7 +50,8 @@ class Obs:
         costs already asked for appear) and the tracer's counters."""
         return {
             "stats": self.pd.stats(),
-            "devices": device.device_gauges(),
+            "devices": device.device_gauges(
+                self.pd.store.devices() + list(self.pd.nel.devices)),
             "store": device.store_gauges(self.pd.store),
             "programs": self.pd.runtime.cache.program_costs(compute=costs),
             "trace": trace.TRACER.counts(),

@@ -50,11 +50,22 @@ def _largest_alloc(i: int) -> int:
                 if b["state"] == "active_allocated"), default=0)
 
 
-def device_gauges() -> List[Dict[str, Any]]:
+def device_gauges(devices=None) -> List[Dict[str, Any]]:
     """One entry per CUDA device (platform ``"gpu"``, kind its name, the
     caching allocator's bytes in use and peak, the device's total and the
     largest live block); one ``"cpu"`` entry with None memory fields where
-    there is no CUDA device."""
+    there is no CUDA device. ``devices`` (the ``torch.device``s a PD's mesh
+    and NEL use, repeats allowed) narrows the entries to the CUDA devices
+    among them, one each, and keeps the ``"cpu"`` entry when a CPU device
+    is among them."""
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        cuda = sorted({d.index or 0 for d in devices if d.type == "cuda"})
+        out = [{"id": 0, "platform": "cpu", "kind": "cpu",
+                **dict.fromkeys(_MEM_KEYS)}] if any(
+            d.type == "cpu" for d in devices) else []
+        return out + [g for g in device_gauges() if g["platform"] == "gpu"
+                      and g["id"] in cuda]
     if not torch.cuda.is_available():
         return [{"id": 0, "platform": "cpu", "kind": "cpu",
                  **dict.fromkeys(_MEM_KEYS)}]

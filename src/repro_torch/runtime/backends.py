@@ -27,7 +27,7 @@ from other threads: ``program`` drains the PD's NEL before a lookup
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Protocol, runtime_checkable
 
 from ..core.messages import current_wait_hook
 from ..core.tree import to_device, tree_map
@@ -37,6 +37,21 @@ from .cache import ProgramCache, global_cache
 from .program import Program, ProgramSpec
 
 BACKENDS = ("nel", "compiled")
+
+
+@runtime_checkable
+class Runtime(Protocol):
+    """What a runtime backend must provide (DESIGN.md §8). The placement
+    comes with the arguments: a ``Sharded`` one runs per position."""
+    name: str
+
+    def infer(self, algo, dataloader, epochs: int, **kw): ...
+
+    def predict(self, pd, batch): ...
+
+    def run(self, spec: ProgramSpec, *args, state_token=None): ...
+
+    def stats(self) -> Dict[str, Any]: ...
 
 
 class _BaseRuntime:
@@ -74,9 +89,12 @@ class _BaseRuntime:
                "store": store_stats,
                "program_cache": self.cache.snapshot_stats(),
                "lifecycle": {**store.lifecycle_stats(), **self.pd.lifecycle},
-               # the placement plan (one device: no mesh) and its footprint
+               # the placement plan and its footprint
                "placement": {
-                   "mesh_shape": None, "mode": pl.mode,
+                   "mesh_shape": (None if pl.mesh is None else
+                                  {a: int(pl.mesh.shape[a])
+                                   for a in pl.mesh.axis_names}),
+                   "mode": pl.mode,
                    "particle_axis": pl.particle_axis,
                    "model_axis": pl.model_axis,
                    "model_axis_size": pl.model_axis_size(),

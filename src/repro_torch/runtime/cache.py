@@ -1,8 +1,10 @@
 """ProgramCache: the cache of captured steps (counterpart of
 ``repro.runtime.cache``).
 
-Cache-key anatomy (DESIGN.md §8, with the device in the place of the
-reference's ``Placement`` until multi-GPU placement is ported):
+Cache-key anatomy (DESIGN.md §8; the reference's ``Placement`` enters
+through the arguments: a program over ``Sharded`` ones is one program
+per position, each keyed with the plan's ``plan_key()`` and its position
+in the state token, ``program.ShardedProgram``):
 
     (spec.key,            # semantic identity of the step
      in/out kinds,        # argument roles
@@ -40,10 +42,11 @@ import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..core.store import Sharded
 from ..core.tree import tree_leaves
 from ..obs import trace as _trace
-from .program import (IN_PLACE, Program, ProgramSpec, arg_device, arg_key,
-                      lower)
+from .program import (IN_PLACE, Program, ProgramSpec, ShardedProgram,
+                      arg_device, arg_key, lower)
 
 
 def _key_fingerprint(key: Tuple) -> str:
@@ -72,6 +75,9 @@ class ProgramCache:
         # lock drops (a callback may fire inside a locked section)
         self._watch: Dict[Tuple, List] = {}
         self._dead: List[Tuple[Tuple, Program]] = []
+        # programs over sharded arguments: one per (spec, plan, layout),
+        # holding a cached Program per position (program.ShardedProgram)
+        self._sharded: "OrderedDict[Tuple, ShardedProgram]" = OrderedDict()
 
     # -- key construction ----------------------------------------------------
     @staticmethod
@@ -92,6 +98,8 @@ class ProgramCache:
         ``program.arg_key`` entries (None entries are computed here):
         engines keep the params' key between store commits and the page
         pool's between generations, so a step never walks those trees."""
+        if any(isinstance(a, Sharded) for a in args):
+            return self._lookup_sharded(spec, args, state_token, arg_keys)
         key = self.cache_key(spec, args, state_token, arg_keys)
         with self._lock:
             self._release_dead()
@@ -118,6 +126,44 @@ class ProgramCache:
                 self.stats["cold_compiles"] += 1
         return prog, False
 
+    def _lookup_sharded(self, spec, args, state_token, arg_keys):
+        """(ShardedProgram, hit) for arguments split over a mesh: the
+        per-position programs are entries of this cache (captured, and
+        counted in ``stats``, once per position), keyed on the plan and
+        the position; the wrapper is found again by the plan, the
+        per-shard keys of the sharded arguments and the abstract keys of
+        the others, and goes once a tensor of a shard is freed."""
+        keys = tuple(
+            arg_keys[i] if arg_keys is not None and arg_keys[i] is not None
+            else arg_key(kind, a) if isinstance(a, Sharded)
+            else arg_key(kind if kind not in IN_PLACE else "replicated", a)
+            for i, (kind, a) in enumerate(zip(spec.in_kinds, args)))
+        key = ("sharded", spec.key, spec.in_kinds, spec.out_kinds,
+               spec.precision, state_token, keys)
+        with self._lock:
+            self._release_dead()
+            sp = self._sharded.get(key)
+            if sp is not None:
+                self._sharded.move_to_end(key)
+                self.stats["hits"] += 1
+                _trace.instant("cache.hit", "runtime", program=spec.name)
+                return sp, True
+        sp = ShardedProgram(self, spec, args, state_token, keys)
+        with self._lock:
+            self._sharded[key] = sp
+            dead = self._dead
+
+            def freed(_ref, key=key, sp=sp):
+                dead.append((("sharded", key), sp))
+
+            self._watch[("sharded", key)] = [
+                weakref.ref(x, freed) for a in args
+                if isinstance(a, Sharded) for x in a.leaves()]
+            while len(self._sharded) > self.max_programs:
+                old, _ = self._sharded.popitem(last=False)
+                self._watch.pop(("sharded", old), None)
+        return sp, False
+
     def _watchers(self, key, prog, spec, args) -> List:
         dead = self._dead
 
@@ -133,6 +179,11 @@ class ProgramCache:
         held); a key captured anew since then keeps its new program."""
         while self._dead:
             key, prog = self._dead.pop()
+            if key[0] == "sharded":
+                if self._sharded.get(key[1]) is prog:
+                    del self._sharded[key[1]]
+                    del self._watch[key]
+                continue
             if self._programs.get(key) is prog:
                 del self._programs[key]
                 del self._watch[key]
@@ -183,6 +234,7 @@ class ProgramCache:
     def clear(self):
         with self._lock:
             self._programs.clear()
+            self._sharded.clear()
             self._watch.clear()
             self._dead.clear()
 

@@ -74,6 +74,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.store import Sharded
 from ..core.tree import tree_flatten, tree_leaves, tree_map
 from ..kernels.ops import COUNTED
 from ..obs import clock
@@ -137,7 +138,11 @@ def abstract_key(tree) -> Tuple:
 
 def arg_key(kind: str, arg) -> Tuple:
     """The cache-key entry of one argument: its abstract key, plus the
-    addresses and strides of its leaves when ``kind`` is read in place."""
+    addresses and strides of its leaves when ``kind`` is read in place;
+    for a ``Sharded`` argument, the plan and one such entry per shard."""
+    if isinstance(arg, Sharded):
+        return ("sharded", arg.plan,
+                tuple(arg_key(kind, s) for s in arg.shards))
     key = abstract_key(arg)
     if kind in IN_PLACE:
         key += (tuple((x.data_ptr(), x.stride())
@@ -215,6 +220,12 @@ class ProgramSpec:
     in_kinds: Tuple[str, ...]       # one kind per positional argument
     out_kinds: Optional[Tuple[str, ...]] = None
     precision: Optional[Tuple] = None   # core.precision key; None = fp32
+    # (members, combine) for a body that reduces over the particle axis:
+    # on sharded arguments the members spec runs at every position on
+    # all arguments but the last (the mask) and returns (member outputs,
+    # *in-place outputs); the combine spec reduces the gathered member
+    # outputs with the mask on the first position (ShardedProgram)
+    split: Optional[Tuple["ProgramSpec", "ProgramSpec"]] = None
 
     def __post_init__(self):
         for k in self.in_kinds:
@@ -494,7 +505,7 @@ def capture(spec: ProgramSpec, args, cache_key=None) -> Program:
     kinds = spec.in_kinds
     static = tuple(a if k in IN_PLACE else _static_copy(a, device)
                    for k, a in zip(kinds, args))
-    with torch.no_grad():
+    with torch.no_grad(), torch.cuda.device(device):
         current = torch.cuda.current_stream(device)
         side = _warm_up_stream(device)
         side.wait_stream(current)
@@ -551,3 +562,173 @@ def lower(spec: ProgramSpec, args, cache_key=None) -> Program:
     if device is None or device.type == "cpu":
         return eager(spec, args, cache_key)
     raise ValueError(f"{spec.name}: no program for device {device}")
+
+
+# ---------------------------------------------------------------------------
+# programs over a mesh: one per position
+# ---------------------------------------------------------------------------
+
+def device_guard(device):
+    """The current-device context a position's launches and captures run
+    in (CUDA; nothing for the CPU)."""
+    if device is not None and device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class ShardedProgram:
+    """A spec over ``Sharded`` arguments (``core.store``): one ``Program``
+    per position, each run on that position's shard of every sharded
+    argument, under the position's device.
+
+    Arguments: a ``Sharded`` one gives each position its shard; a
+    "vector" tensor of the stack's length gives each position its slice
+    (memoized on the tensor object, so the store's mask is sliced once per
+    lifecycle event); any other argument (a batch, the scheduler's staging
+    buffer) reaches every position whole, a device tensor copied once per
+    call to each other device. Outputs: ``"in:<i>"`` is argument i itself;
+    "vector" outputs are gathered in slot order onto the first position.
+
+    A spec with a ``split`` reduces over the particle axis: its members
+    spec runs at every position, the member outputs are copied in slot
+    order into a buffer on the first position, and the combine spec (one
+    more program there, captured on that buffer) reduces them with the
+    mask, the last argument; the result does not depend on the number of
+    positions. No collective is inside a captured graph: a gather is a
+    copy between two programs.
+
+    The programs come from the cache that built this one, keyed on the
+    placement's plan and the position. The first call with the very
+    arguments of the lookup reuses the per-position arguments each
+    program was captured with, so each warm-up is that call's run."""
+
+    def __init__(self, cache, spec: ProgramSpec, args, state_token,
+                 arg_keys):
+        sharded = next(a for a in args if isinstance(a, Sharded))
+        self.cache = cache
+        self.spec = spec
+        self.name = spec.name
+        self.devices = sharded.devices
+        self.bounds = sharded.bounds
+        self.plan = sharded.plan
+        self.token = state_token
+        self.members, self.combine_spec = (spec.split if spec.split
+                                           else (spec, None))
+        self.combine: Optional[Program] = None
+        self._buf = None
+        self._vector = None                 # (tensor, its slices)
+        m_args = args[:-1] if spec.split else args
+        per = self._position_args(m_args)
+        self.programs = []
+        for i, (device, a) in enumerate(zip(self.devices, per)):
+            keys = None if arg_keys is None else [
+                k[2][i] if isinstance(k, tuple) and k and k[0] == "sharded"
+                else None for k in arg_keys[:len(m_args)]]
+            with device_guard(device):
+                prog, _ = cache.lookup(self.members, a,
+                                       (state_token, self.plan, i), keys)
+            self.programs.append(prog)
+        self._first = (tuple(args), per)
+
+    @property
+    def num_particles(self) -> int:
+        return self.bounds[-1]
+
+    def _vector_parts(self, v):
+        memo = self._vector
+        if memo is not None and memo[0] is v:
+            return memo[1]
+        v = torch.as_tensor(v)
+        parts = [v[lo:hi].to(d) for d, lo, hi in
+                 zip(self.devices, self.bounds[:-1], self.bounds[1:])]
+        self._vector = (v, parts)
+        return parts
+
+    def _position_args(self, args):
+        kinds = self.members.in_kinds
+        per = [[] for _ in self.devices]
+        moved = {}
+        for kind, a in zip(kinds, args):
+            if isinstance(a, Sharded):
+                if a.bounds != self.bounds:
+                    raise ValueError(f"{self.name}: sharded arguments on "
+                                     "different layouts")
+                parts = a.shards
+            elif kind in IN_PLACE:
+                raise ValueError(f"{self.name}: an in-place argument of a "
+                                 "program on a mesh must be sharded")
+            elif kind == "vector":
+                parts = self._vector_parts(a)
+            else:
+                parts = []
+                for d in self.devices:
+                    if d not in moved:
+                        moved[d] = tree_map(
+                            lambda x, d=d: x.to(d)
+                            if isinstance(x, torch.Tensor)
+                            and not _on_host(x) else x, a)
+                    parts.append(moved[d])
+            for p, part in zip(per, parts):
+                p.append(part)
+        return [tuple(p) for p in per]
+
+    def __call__(self, *args):
+        first, self._first = self._first, None
+        m_args = args[:-1] if self.spec.split else args
+        if first is not None and all(a is b for a, b in zip(args, first[0])):
+            per = first[1]
+        else:
+            per = self._position_args(m_args)
+        outs = []
+        for device, prog, a in zip(self.devices, self.programs, per):
+            with device_guard(device):
+                outs.append(prog(*a))
+        if self.spec.split:
+            return self._combined(outs, args)
+        return self._assembled(self.spec.out_kinds, outs, args, 0)
+
+    def _assembled(self, kinds, outs, args, start):
+        """The outputs of kinds[start:] from each position's outputs."""
+        if kinds is None:
+            raise ValueError(f"{self.name}: a program on a mesh needs out "
+                             "kinds (or a split)")
+        res = []
+        for o, kind in enumerate(kinds[start:], start):
+            if kind.startswith("in:"):
+                res.append(args[int(kind[3:])])
+            elif kind in ("vector", "rows"):
+                first = self.devices[0]
+                res.append(tree_map(
+                    lambda *xs: torch.cat([x.to(first) for x in xs]),
+                    *[out[o] for out in outs]))
+            else:
+                raise ValueError(f"{self.name}: a {kind!r} output of a "
+                                 "program on a mesh needs a split")
+        return res
+
+    def _combined(self, outs, args):
+        first = self.devices[0]
+        members = [out[0] for out in outs]
+        if self._buf is None:
+            self._buf = tree_map(
+                lambda *xs: torch.empty((self.bounds[-1],) + tuple(
+                    xs[0].shape[1:]), dtype=xs[0].dtype, device=first),
+                *members)
+        buf = self._buf
+        for lo, hi, m in zip(self.bounds[:-1], self.bounds[1:], members):
+            tree_map(lambda b, x, lo=lo, hi=hi: b[lo:hi].copy_(x), buf, m)
+        mask = args[-1]
+        with device_guard(first):
+            if self.combine is None:
+                self.combine, _ = self.cache.lookup(
+                    self.combine_spec, (buf, mask),
+                    (self.token, self.plan, "combine"))
+            head = self.combine(buf, mask)
+        if self.spec.out_kinds is None:
+            return head
+        return (head,) + tuple(self._assembled(self.spec.out_kinds, outs,
+                                               args, 1))
+
+    def __repr__(self) -> str:
+        return (f"ShardedProgram({self.name!r}, n={self.bounds[-1]}, "
+                f"positions={len(self.devices)})")

@@ -63,11 +63,43 @@ def ensemble_step(loss_fn: Callable, optimizer,
 def ensemble_predict(forward: Callable) -> ProgramSpec:
     """hat f(x) = (1/n) sum_i nn_{theta_i}(x): ``fused(stacked_params,
     batch, mask)``, mask-weighted over live slots."""
+    def members(ctx):
+        def fwd(stacked_params, batch):
+            with torch.no_grad():
+                return (forward(stacked_params, batch),)
+        return fwd
+
+    key = ("ensemble_predict", ident(forward))
     return ProgramSpec(
-        name="ensemble_predict",
-        key=("ensemble_predict", ident(forward)),
+        name="ensemble_predict", key=key,
         make=lambda ctx: functional.ensemble_predict(forward),
-        in_kinds=("state", "replicated", "vector"))
+        in_kinds=("state", "replicated", "vector"),
+        split=_split(key, members, lambda ctx: functional.masked_mean,
+                     ("state", "replicated"), ("replicated",), "vector"))
+
+
+def _split(key, members, combine, in_kinds, out_kinds, mask_kind,
+           precision=None):
+    """The (members, combine) pair of a reducing spec (``ProgramSpec.
+    split``): ``members`` builds the per-position body over every argument
+    but the mask, returning (member outputs, *in-place outputs);
+    ``combine`` builds ``(gathered member outputs, mask) -> result``."""
+    return (ProgramSpec(name=f"{key[0]}.members", key=key + ("members",),
+                        make=members, in_kinds=in_kinds,
+                        out_kinds=out_kinds, precision=precision),
+            ProgramSpec(name=f"{key[0]}.combine", key=key + ("combine",),
+                        make=combine, in_kinds=("rows", mask_kind),
+                        precision=precision))
+
+
+def _paged_split(key, body, reduce_fn):
+    """The split of a paged serving step: ``body(params, pages, packed) ->
+    (member logits, pages)`` at every position, the heads from the
+    gathered logits on the first."""
+    return _split(key, lambda ctx: body,
+                  lambda ctx: lambda logits, mask: reduce_fn(logits, mask),
+                  ("state", "state", "replicated"), ("replicated", "in:1"),
+                  "replicated")
 
 
 def map_step(fn: Callable, *, key: Tuple, n_state: int = 1,
@@ -97,19 +129,23 @@ def paged_decode_step(decode_fn: Callable, reduce_fn: Callable, *,
     ``decode_fn(params, pages, tokens, block_tables, seq_lens) ->
     (logits (P, B, V), pages)``; ``packed`` is ``(B, 2 + n_pmax)`` int32:
     ``[:, 0]`` tokens, ``[:, 1]`` seq_lens, ``[:, 2:]`` block tables."""
+    def members(stacked_params, pages, packed):
+        tokens, seq_lens, bt = packed[:, 0], packed[:, 1], packed[:, 2:]
+        return decode_fn(stacked_params, pages, tokens, bt, seq_lens)
+
     def make(ctx):
         def fused(stacked_params, pages, packed, mask):
-            tokens, seq_lens, bt = packed[:, 0], packed[:, 1], packed[:, 2:]
-            logits, pages = decode_fn(stacked_params, pages, tokens, bt,
-                                      seq_lens)
+            logits, pages = members(stacked_params, pages, packed)
             return reduce_fn(logits, mask), pages
 
         return fused
 
+    key = ("paged_decode_step",) + tuple(key)
     return ProgramSpec(
-        name="paged_decode_step", key=("paged_decode_step",) + tuple(key),
+        name="paged_decode_step", key=key,
         make=make, in_kinds=("state", "state", "replicated", "replicated"),
-        out_kinds=("replicated", "in:1"))
+        out_kinds=("replicated", "in:1"),
+        split=_paged_split(key, members, reduce_fn))
 
 
 def paged_prefill(prefill_fn: Callable, reduce_fn: Callable, *,
@@ -122,21 +158,25 @@ def paged_prefill(prefill_fn: Callable, reduce_fn: Callable, *,
     + 1,)`` int32: ``[tokens..., block_table..., n_tokens]``. ``n_tokens``
     stays a device scalar, so one program serves every prompt of a bucket
     (one program per pow2 bucket Sp)."""
+    def members(stacked_params, pages, packed):
+        sp = packed.shape[0] - n_pmax - 1
+        tokens = packed[None, :sp]
+        bt_row = packed[sp:sp + n_pmax]
+        return prefill_fn(stacked_params, pages, tokens, bt_row, packed[-1])
+
     def make(ctx):
         def fused(stacked_params, pages, packed, mask):
-            sp = packed.shape[0] - n_pmax - 1
-            tokens = packed[None, :sp]
-            bt_row = packed[sp:sp + n_pmax]
-            logits, pages = prefill_fn(stacked_params, pages, tokens, bt_row,
-                                       packed[-1])
+            logits, pages = members(stacked_params, pages, packed)
             return reduce_fn(logits, mask), pages
 
         return fused
 
+    key = ("paged_prefill", n_pmax) + tuple(key)
     return ProgramSpec(
-        name="paged_prefill", key=("paged_prefill", n_pmax) + tuple(key),
+        name="paged_prefill", key=key,
         make=make, in_kinds=("state", "state", "replicated", "replicated"),
-        out_kinds=("replicated", "in:1"))
+        out_kinds=("replicated", "in:1"),
+        split=_paged_split(key, members, reduce_fn))
 
 
 def spec_draft_step(decode_fn: Callable, *, slot: int, n_iter: int,
@@ -335,18 +375,25 @@ def bma_predict(forward: Callable, heads_fn: Callable, *, members: bool,
     prec = _serving(precision)
     fwd = served(forward, prec)
 
+    def reduce(outs, mask):
+        heads = heads_fn(outs, mask)
+        return (heads, outs) if members else heads
+
     def make(ctx):
         def fused(stacked_params, batch, mask):
-            outs = fwd(stacked_params, batch)
-            heads = heads_fn(outs, mask)
-            return (heads, outs) if members else heads
+            return reduce(fwd(stacked_params, batch), mask)
 
         return fused
 
+    key = ("bma_predict", members) + tuple(key)
+    pkey = None if prec is None else prec.key()
     return ProgramSpec(
-        name="bma_predict", key=("bma_predict", members) + tuple(key),
+        name="bma_predict", key=key,
         make=make, in_kinds=("state", "replicated", "vector"),
-        precision=None if prec is None else prec.key())
+        precision=pkey,
+        split=_split(key, lambda ctx: lambda p, b: (fwd(p, b),),
+                     lambda ctx: reduce, ("state", "replicated"),
+                     ("replicated",), "vector", pkey))
 
 
 def serve_cast(precision) -> ProgramSpec:

@@ -661,6 +661,11 @@ class DecodeScheduler:
             seq.future._reject(e)
 
     # -- introspection -------------------------------------------------------
+    def queue_depth(self) -> int:
+        """Sequences waiting for a row."""
+        with self._cond:
+            return len(self._waiting)
+
     def active_count(self) -> int:
         return sum(1 for s in self._rows if s is not None)
 

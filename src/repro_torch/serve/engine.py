@@ -26,6 +26,17 @@ commit, a clone or a kill. The predict and step programs dequantize the
 packs and cast the batch at their top and widen the member outputs to
 fp32 (``runtime.specs.served``). Under fp32 the engine serves the
 masters themselves, through the programs of the pre-policy code.
+
+On a mesh (``placement``: the store's, which an engine built with
+another moves onto it, or a static tree's own) the
+predict and paged decode steps run per position on the store's shards
+(``runtime.program.ShardedProgram``) with no unstack or restack; the
+member outputs are gathered onto the first position in slot order and
+reduced there by the same heads, so the result does not depend on the
+number of positions. Each position's page pool stays on its device. A
+static tree whose member count the particle axis divides is split over
+the positions once, at construction. The dense-cache (``stateful``)
+engine on a mesh waits for ROADMAP.md queue 1 item 10b.
 """
 from __future__ import annotations
 
@@ -37,7 +48,7 @@ import numpy as np
 import torch
 
 from ..core import precision as precision_mod
-from ..core.store import ParticleStore
+from ..core.store import ITEM_10B, ParticleStore, Placement, Sharded
 from ..core.tree import tree_leaves, tree_map
 from ..runtime.bucketing import bucket_size, pad_rows
 from ..runtime.cache import ProgramCache
@@ -79,11 +90,22 @@ class PredictiveEngine:
                  store: Optional[ParticleStore] = None, key: str = "params",
                  params: Any = None, kind: str = "classify",
                  stateful: bool = False,
-                 cache: Optional[ProgramCache] = None, precision: Any = None):
+                 cache: Optional[ProgramCache] = None, precision: Any = None,
+                 placement: Optional[Placement] = None):
         if (store is None) == (params is None):
             raise ValueError("pass exactly one of store= or params=")
         if kind not in uncertainty.KINDS:
             raise ValueError(f"kind must be one of {uncertainty.KINDS}")
+        if placement is None:
+            placement = store.placement if store is not None \
+                else Placement()
+        if stateful and placement.mesh is not None:
+            raise NotImplementedError(
+                f"dense-cache serving on a mesh {ITEM_10B}")
+        if store is not None:
+            # the engine serves the store's shards where they live
+            store.reshard(placement)
+        self._placement = placement
         self.forward = forward
         self.store = store
         self.key = key
@@ -95,11 +117,24 @@ class PredictiveEngine:
         if params is not None and self.precision.casts_serve:
             # a static tree has no commits: cast it once, eagerly
             with torch.no_grad():
-                params = precision_mod.cast_for_serve(params, self.precision)
+                params = Sharded.apply(lambda t: precision_mod.cast_for_serve(
+                    t, self.precision), params)
+        if isinstance(params, Sharded):     # already on the positions
+            self._static_mask = torch.ones(len(params),
+                                           device=params.devices[0])
+            layout = None
+        else:
+            self._static_mask = None if params is None else torch.ones(
+                tree_leaves(params)[0].shape[0],
+                device=tree_leaves(params)[0].device)
+            layout = None if params is None \
+                else placement.shardings(params)
+        if layout is not None:
+            # the members split over the mesh's positions, as the store's
+            # particles are
+            params = Sharded.split(params, layout, placement.plan_key())
+            self._static_mask = self._static_mask.to(layout[0][1])
         self._static_params = params
-        self._static_mask = None if params is None else torch.ones(
-            tree_leaves(params)[0].shape[0],
-            device=tree_leaves(params)[0].device)
         self._params_version: Any = None
         self._params_cache: Any = None      # the served tree
         self._masters: Any = None           # the store's tree it serves
@@ -124,18 +159,39 @@ class PredictiveEngine:
                       "param_refreshes": 0}
 
     @property
+    def placement(self) -> Placement:
+        """The store's plan (a later ``reshard`` included), or the static
+        tree's."""
+        return self.store.placement if self.store is not None \
+            else self._placement
+
+    @property
     def device(self) -> torch.device:
         """Where the served params live (and the programs run)."""
         if self.store is not None:
             return torch.device(self.store.device)
-        return tree_leaves(self._static_params)[0].device
+        return self._static_mask.device
 
     @property
     def num_particles(self) -> int:
         """Leading member axis of the served tree: the store's capacity
         (``store.live_count()`` for the live members), or the static
         tree's member count."""
-        return tree_leaves(self._mask_and_params()[1])[0].shape[0]
+        params = self._mask_and_params()[1]
+        if isinstance(params, Sharded):
+            return len(params)
+        return tree_leaves(params)[0].shape[0]
+
+    def stacked_params(self):
+        """The served stacked params (the store's tree, or its serve copy
+        under a casting policy; a ``Sharded`` one under a mesh), refreshed
+        when the store's version of them moved."""
+        return self._mask_and_params()[1]
+
+    def active_mask(self):
+        """The (P,) live-slot mask each call copies in: the store's, or
+        all ones for a static tree."""
+        return self._mask_and_params()[0]
 
     def _mask_and_params(self):
         """Consistent (mask, served params) pair: one atomic store
@@ -164,7 +220,8 @@ class PredictiveEngine:
         replaced tree), and its cache-key entry with it."""
         masters_key = arg_key("state", masters)
         if self._serve is None or self._serve[0] != masters_key:
-            copy = precision_mod.serve_copy_like(masters, self.precision)
+            copy = Sharded.apply(lambda t: precision_mod.serve_copy_like(
+                t, self.precision), masters)
             self._serve = (masters_key, copy)
             self._params_key = arg_key("state", copy)
         copy = self._serve[1]
@@ -322,9 +379,10 @@ class PagedDecodeEngine(PredictiveEngine):
     def __init__(self, decode_fn: Callable, prefill_fn: Callable, *,
                  store: ParticleStore, n_pmax: int, key: str = "params",
                  pages_key: str = "kv_pages",
-                 cache: Optional[ProgramCache] = None, precision: Any = None):
+                 cache: Optional[ProgramCache] = None, precision: Any = None,
+                 placement: Optional[Placement] = None):
         super().__init__(store=store, key=key, cache=cache,
-                         precision=precision)
+                         precision=precision, placement=placement)
         if self.precision.serve_quant is not None:
             self.precision = dataclasses.replace(self.precision,
                                                  serve_quant=None)

@@ -32,6 +32,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.store import Sharded
 from ..core.tree import tree_map
 
 
@@ -43,17 +44,27 @@ def create_kv_pages(store, make_pages: Callable, *, key: str = "kv_pages",
     of ``models.api.paged_cache_init``); it is called on the ``meta``
     device for shapes only, and the pool is allocated once, zeroed, with
     the store's capacity as leading axis. ``dtype=`` overrides the storage
-    dtype of every floating page leaf. This is the one generation bump of
+    dtype of every floating page leaf. Under a mesh each position's
+    pages are allocated on its device. This is the one generation bump of
     the paged path (a new key) — do it before serving warmup."""
     shapes = make_pages(device=torch.device("meta"))
 
-    def alloc(s):
+    def alloc(s, n, device):
         dt = dtype if dtype is not None and s.dtype.is_floating_point \
             else s.dtype
-        return torch.zeros((store.capacity,) + tuple(s.shape), dtype=dt,
-                           device=store.device)
+        return torch.zeros((n,) + tuple(s.shape), dtype=dt, device=device)
 
-    store.commit(key, tree_map(alloc, shapes))
+    layout = store.placement.vector(store.capacity)
+    if layout is None:
+        pool = tree_map(lambda s: alloc(s, store.capacity, store.device),
+                        shapes)
+    else:
+        # each position's pages on its device, allocated there
+        pool = Sharded([tree_map(lambda s, n=sl.stop - sl.start, d=d:
+                                 alloc(s, n, d), shapes)
+                        for _, d, sl in layout], [d for _, d, _ in layout],
+                       store.placement.plan_key())
+    store.commit(key, pool)
     return key
 
 

@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..core.messages import PFuture
-from ..core.store import ParticleStore
+from ..core.store import ITEM_10B, ParticleStore
 from ..core.tree import tree_map
 from ..models import api as models_api
 from ..obs import clock, metrics
@@ -180,9 +180,14 @@ def serve(obj, *, kind: str = "classify", max_batch: int = 32,
     runtime.eager)`` serves the card eagerly, for comparison.
 
     Churn within the store's capacity (``p_kill``, ``p_clone``) changes
-    only the mask that each call copies in: it captures nothing. Only
-    one device is ported (``placement`` other than None raises: ROADMAP.md
-    queue 1 item 10).
+    only the mask that each call copies in: it captures nothing.
+
+    ``placement=`` (default: the store's) is the mesh the BMA forward runs
+    on: per position on the store's shards, the member outputs gathered
+    to the first position and reduced there (``serve.engine``). Another
+    plan than the store's moves the store onto it first
+    (``ParticleStore.reshard``: one restack, a new generation); a static
+    ``params=`` tree is split over its positions.
 
     ``precision=`` (a preset name or a ``Precision``) sets the serving
     policy; None takes the store's own for the store's params, and the
@@ -190,20 +195,19 @@ def serve(obj, *, kind: str = "classify", max_batch: int = 32,
     built with ``precision="mixed"`` serves its bf16 copy with no flag
     here (``serve.engine``).
     """
-    if placement is not None:
-        raise NotImplementedError(
-            "serve(placement=): multi-GPU placement is not ported yet "
-            "(ROADMAP.md queue 1 item 10)")
     pd = _resolve_pd(obj)
+    if placement is None:
+        placement = pd.store.placement
     fwd = forward if forward is not None else pd.module.forward
     if params is not None:
         if precision is None:
             precision = getattr(pd, "precision", None)
         engine = PredictiveEngine(fwd, params=params, kind=kind, cache=cache,
-                                  precision=precision)
+                                  precision=precision, placement=placement)
     else:
         engine = PredictiveEngine(fwd, store=pd.store, kind=kind,
-                                  cache=cache, precision=precision)
+                                  cache=cache, precision=precision,
+                                  placement=placement)
     svc = PredictiveService(engine, max_batch=max_batch,
                             max_wait_ms=max_wait_ms, max_queue=max_queue,
                             warm_on_first_flush=warmup is True)
@@ -291,7 +295,8 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
                  pages_key: str = "kv_pages", warmup: bool = True,
                  warmup_buckets=(), precision: Any = None,
                  speculative: Any = None,
-                 cache: Optional[ProgramCache] = None) -> DecodeService:
+                 cache: Optional[ProgramCache] = None,
+                 placement: Any = None) -> DecodeService:
     """Turn a PushDistribution holding an LM ensemble, or a ParticleStore
     (one that ``checkpoint.restore_store`` handed back; pass ``cfg``), into
     a continuous-batching posterior-predictive decode service.
@@ -323,6 +328,14 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     after warmup and leaves ``generation()`` alone: the params and the
     page pool keep their addresses, and the mask is copied into each step.
 
+    ``placement=`` (default: the store's; another plan moves the store
+    onto it first, ``ParticleStore.reshard``) serves a store split over a
+    mesh: the decode step and the prefill run
+    per position on its shards, each position's page pool on its device,
+    and the heads come from the member logits gathered onto the first
+    position. Speculative serving on a mesh waits for ROADMAP.md queue 1
+    item 10b.
+
     ``speculative=`` turns on speculative BMA decoding (DESIGN.md §14):
     ``True`` for the defaults, an int for that many drafted tokens per
     step, or a ``serve.SpecConfig``. Greedy output stays token-exact; only
@@ -337,6 +350,12 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     """
     spec_cfg = resolve_spec_config(speculative)
     store = pd if isinstance(pd, ParticleStore) else pd.store
+    if placement is None:
+        placement = store.placement
+    if spec_cfg is not None and placement.mesh is not None:
+        raise NotImplementedError(
+            f"speculative serving on a mesh {ITEM_10B}")
+    store.reshard(placement)        # before the page pool is laid out
     if cfg is None and store is not pd:
         cfg = getattr(pd.module, "cfg", None)
     if cfg is None:
@@ -369,14 +388,16 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
                                   spec_cfg=spec_cfg, store=store,
                                   model_dtype=getattr(torch, cfg.dtype),
                                   n_pmax=n_pmax, pages_key=pages_key,
-                                  cache=cache, precision=precision)
+                                  cache=cache, precision=precision,
+                                  placement=placement)
         scheduler = SpeculativeDecodeScheduler(
             engine, pool, max_active=max_active, eos_id=eos_id,
             max_queue=max_queue)
     else:
         engine = PagedDecodeEngine(decode_fn, prefill_fn, store=store,
                                    n_pmax=n_pmax, pages_key=pages_key,
-                                   cache=cache, precision=precision)
+                                   cache=cache, precision=precision,
+                                   placement=placement)
         scheduler = DecodeScheduler(engine, pool, max_active=max_active,
                                     eos_id=eos_id, max_queue=max_queue)
     if warmup:

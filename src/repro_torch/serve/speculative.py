@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from ..core import precision as precision_mod
+from ..core.store import ITEM_10B
 from ..core.tree import tree_map
 from ..obs import trace as _trace
 from ..runtime.bucketing import bucket_size
@@ -128,6 +129,10 @@ class SpecDecodeEngine(PagedDecodeEngine):
     def __init__(self, decode_fn: Callable, prefill_fn: Callable,
                  verify_fn: Callable, *, spec_cfg: SpecConfig,
                  model_dtype: Optional[torch.dtype] = None, **kw):
+        place = kw.get("placement") or kw["store"].placement
+        if place.mesh is not None:
+            raise NotImplementedError(
+                f"speculative serving on a mesh {ITEM_10B}")
         super().__init__(decode_fn, prefill_fn, **kw)
         self.verify_fn = verify_fn
         self.model_dtype = model_dtype

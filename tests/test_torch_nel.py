@@ -264,16 +264,20 @@ def test_compiled_runtime_falls_back_to_nel():
 
 
 def test_several_gpus_and_offload_refused():
-    """The port's store holds every particle on one device: a NEL over
-    several GPUs and host offload raise, citing queue 1 item 10, before
-    any worker or store exists."""
+    """Since the particle axis was ported (queue 1 item 10), a NEL over
+    several GPUs and host offload are no longer refused: a request past
+    the visible CUDA devices raises the reference's ValueError before any
+    worker or store exists, and ``offload=True`` builds a PD whose store
+    keeps rows where the NEL puts them."""
     jcfg, tcfg = _cfgs()
     _, tmod = _modules(jcfg, tcfg, _numpy_inits(jcfg, 1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        PushDistribution(tmod, num_devices=2, device="cuda")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        NodeEventLoop(num_devices=4, device="cuda:0")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        PushDistribution(tmod, offload=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        SteinVGD(tmod, num_devices=2, device="cuda")
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"requested {n + 2} devices but "
+                                         f"only {n} present"):
+        PushDistribution(tmod, num_devices=n + 2, device="cuda")
+    with pytest.raises(ValueError, match="present"):
+        NodeEventLoop(num_devices=n + 4, device="cuda:0")
+    with pytest.raises(ValueError, match="present"):
+        SteinVGD(tmod, num_devices=n + 2, device="cuda")
+    with PushDistribution(tmod, offload=True, device="cpu") as pd:
+        assert pd.nel.offload and pd.store.keep_row_devices

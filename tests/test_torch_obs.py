@@ -227,7 +227,8 @@ def test_f2_store_counts_unstacks_and_device_puts():
 
 def test_f3_stats_has_the_placement_section():
     """F3: ``pd.stats()["placement"]`` reads the store's single-device
-    ``Placement``; a mesh raises, naming ROADMAP item 10."""
+    ``Placement``; a model axis above 1 raises, naming ROADMAP item 10b
+    (the particle axis on a mesh is ``tests/test_torch_placement.py``'s)."""
     pd = _pd()
     try:
         pl = pd.stats()["placement"]
@@ -239,8 +240,10 @@ def test_f3_stats_has_the_placement_section():
         assert pd.placement == Placement() == pd.store.placement
     finally:
         pd.cleanup()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Placement(mesh=object())
+    from repro_torch.launch import make_mesh
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        Placement(mesh=make_mesh((2, 2), ("data", "model"),
+                                 devices=["cpu"] * 4))
 
 
 def test_f4_stats_has_the_decode_section_while_serving():

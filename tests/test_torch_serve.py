@@ -28,8 +28,9 @@ numpy and handed to both).
   * ``MultiSWAG.posterior_predictive`` serving samples (the reference's
     noise) against the reference's.
 
-Left out: the checkpoint round trips (ROADMAP.md queue 1 item 8a) and
-the sharded subprocess check (item 10).
+Left out: the checkpoint round trips (``tests/test_torch_checkpoint.py``
+holds them) and the sharded subprocess check (its counterpart is
+``tests/test_torch_placement.py``).
 """
 import threading
 import time
@@ -581,8 +582,26 @@ def test_service_concurrent_requests_end_to_end():
 def test_service_rejects_what_is_not_ported_and_reports_errors():
     _, tpd = _pds(2)
     try:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            serve(tpd, placement=object(), warmup=False)
+        # a placement other than the store's moves the store onto it
+        # (one reshard, a new generation) and serves the same heads there
+        from repro_torch.core.store import Placement, Sharded
+        from repro_torch.launch import make_bench_mesh
+        x = {"x": _x(3, seed=4)}
+        with serve(tpd, warmup=False) as svc:
+            want = svc.predict_batch(x)
+        mesh = Placement(mesh=make_bench_mesh(2, devices=["cpu"] * 2))
+        gen = tpd.store.generation()
+        with serve(tpd, placement=mesh, warmup=False) as svc:
+            assert svc.engine.placement == mesh == tpd.store.placement
+            assert isinstance(tpd.store.stacked("params"), Sharded)
+            got = svc.predict_batch(x)
+        assert tpd.store.generation() == gen + 1
+        with serve(tpd, placement=Placement(), warmup=False) as svc:
+            assert not isinstance(tpd.store.stacked("params"), Sharded)
+            back = svc.predict_batch(x)
+        for k in want:
+            assert (got[k] - want[k]).abs().max() < 1e-6, k
+            assert torch.equal(back[k], want[k]), k
         # the precision ladder is ported: a preset resolves, a typo raises
         with serve(tpd, precision="bf16", warmup=False) as svc:
             assert svc.engine.precision.master == torch.bfloat16

@@ -567,6 +567,9 @@ SWEEP = [
 ]
 
 
+KEEP = {}       # what a later phase holds against an earlier one's run
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -940,7 +943,7 @@ def step_programs(torch, spec, args, n=5):
 
 
 def profile_steps(torch, step, n=5, track=(), fns=None, hold=None,
-                  prologue=0):
+                  prologue=0, epilogue=0):
     """Host-clock time of one synchronised ``step()``, then the device's
     busy time per step by kernel name from torch.profiler, and the share
     of device time spent in kernels whose names contain one of ``track``.
@@ -949,7 +952,11 @@ def profile_steps(torch, step, n=5, track=(), fns=None, hold=None,
     ``hold_to_profiler``). ``prologue`` spin kernels open the profiled
     window (left out of the sums): the profiler misses the first kernel
     records after it starts (``profiler_start_probe``), which matters
-    where the window's first launches are counted ones."""
+    where the window's first launches are counted ones. ``epilogue`` spin
+    kernels close it, as the prologue opens it: on the NEL's windows the
+    profiler has also dropped the last records before it stopped (1 of 2
+    force launches, 8 of 288 collection launches, both the window's
+    last)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
@@ -967,10 +974,13 @@ def profile_steps(torch, step, n=5, track=(), fns=None, hold=None,
         for _ in range(n):
             step()
             torch.cuda.synchronize()
+        for _ in range(epilogue):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     per_kernel = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or (prologue and "spin_kernel" in e.key):
+                or ((prologue or epilogue) and "spin_kernel" in e.key):
             continue
         us = getattr(e, "self_device_time_total", None)
         us = getattr(e, "self_cuda_time_total", 0) if us is None else us
@@ -1738,6 +1748,7 @@ def phase7(torch, pd, cfg):
                 mode != "eager" and not info[0]["graph"]):
             raise AssertionError(f"{mode} dense step programs {st}")
         tokens[mode] = dense.tolist()
+        KEEP["phase7_tokens"] = tokens.get("captured")
         if mode == "captured":
             # a position outside the cache raises on the host, before the
             # replay, and the card goes on (the profiled steps below)
@@ -2660,14 +2671,14 @@ def shut(algo, threads_before):
 
 
 def nel_window(torch, step, what, failed, images=True):
-    """Two NEL steps profiled (``profile_steps``, n = 2, after a
-    prologue of 32 spin kernels), the training kernels' counters held to
-    the profiler's counts; with ``images`` the rate of a train step over
-    P x B images."""
+    """Two NEL steps profiled (``profile_steps``, n = 2, between a
+    prologue and an epilogue of 32 spin kernels), the training kernels'
+    counters held to the profiler's counts; with ``images`` the rate of a
+    train step over P x B images."""
     try:
         prof = profile_steps(torch, lambda: bounded(step), n=2, track=OURS,
                              fns=train_counts(), hold=hold_train_to_profiler,
-                             prologue=32)
+                             prologue=32, epilogue=32)
     except AssertionError as e:     # the phase fails at its end
         failed.append(f"{what}: {e}")
         prof = profile_steps(torch, lambda: bounded(step), n=2, track=OURS,
@@ -6752,10 +6763,14 @@ class WatchedLoader:
 
 
 def flat_host(torch, tree):
-    """A stacked tree (a Sharded one: its shards in slot order) as one
-    (P, D) fp32 host matrix, leaves in ``flatten_stacked``'s order."""
+    """A stacked tree (a Sharded one: its shards in slot order, model
+    shards joined) as one (P, D) fp32 host matrix, leaves in
+    ``flatten_stacked``'s order."""
     from repro_torch.core.functional import flatten_stacked
     from repro_torch.core.store import Sharded
+    from repro_torch.core.tree import Group
+    if isinstance(tree, Sharded) and isinstance(tree.shards[0], Group):
+        tree = tree.gather()
     parts = tree.shards if isinstance(tree, Sharded) else (tree,)
     return torch.cat([flatten_stacked(p)[0].float().cpu() for p in parts])
 
@@ -6765,17 +6780,33 @@ def swag_host(torch, store):
     deviation rows written so far (one (P, D) matrix a ring slot), n and
     rank."""
     from repro_torch.core.store import Sharded
-    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.core.tree import Group, tree_leaves, tree_map
     st = store.stacked("swag")
     parts = st.shards if isinstance(st, Sharded) else (st,)
-    rank = torch.cat([p["rank"].cpu() for p in parts])
-    R = tree_leaves(parts[0]["dev"])[0].shape[1]
-    return {"mean": flat_host(torch, Sharded.apply(lambda p: p["mean"], st)),
-            "sq": flat_host(torch, Sharded.apply(lambda p: p["sq_mean"], st)),
-            "dev": [flat_host(torch, Sharded.apply(
-                lambda p, j=j: tree_map(lambda x: x[:, j], p["dev"]), st))
+    first = [p[0] if isinstance(p, Group) else p for p in parts]
+    rank = torch.cat([p["rank"].cpu() for p in first])
+    R = tree_leaves(first[0]["dev"])[0].shape[1]
+
+    def sub(key, pick=lambda t: t):
+        return Sharded.apply(lambda p: pick(sub_key(p, key)), st)
+    return {"mean": flat_host(torch, sub("mean")),
+            "sq": flat_host(torch, sub("sq_mean")),
+            "dev": [flat_host(torch, sub("dev", lambda t, j=j: tree_map(
+                lambda x: x[:, j], t)))
                 for j in range(min(int(rank.max()), R))],
-            "n": torch.cat([p["n"].cpu() for p in parts]), "rank": rank}
+            "n": torch.cat([p["n"].cpu() for p in first]), "rank": rank}
+
+
+def sub_key(tree, key):
+    """``tree[key]``; of a model group, the Group of its shards' ``key``
+    subtrees (their dims without the key's prefix)."""
+    from repro_torch.core.tree import Group
+    if not isinstance(tree, Group):
+        return tree[key]
+    n = len(key) + 1
+    return Group([s[key] for s in tree.shards],
+                 {p[n:]: d for p, d in tree.dims.items()
+                  if p.startswith(key + "/")}, tree.devices)
 
 
 def p15_probe(torch, module):
@@ -7016,6 +7047,11 @@ def p15_training(torch, card, captured, real=False):
         one = p15_train(torch, module, name, None, False)
         one["algo"].cleanup()
         del one["algo"]
+        if not real:
+            KEEP.setdefault("p15_one", {})[name] = {
+                k: one[k] for k in ("losses", "params", "swag", "wall_s",
+                                    "images_per_s", "per_device_bytes")}
+            KEEP["p15_probe"] = probe
         gc.collect()
         torch.cuda.empty_cache()
         if name != "multiswag" and not real:
@@ -7077,8 +7113,8 @@ def p15_training(torch, card, captured, real=False):
 def p15_one_particle_kernels(torch, cfg, module, reqs):
     """#5-#8 at one particle, a position's shard in (b): a store of capacity
     1 holding particle 0 (seed SEED), ``step_kernel_checks`` timed, at
-    FP32_TOLS. #6 and #8 are not on this path (item 10b). These launches
-    are not the path's."""
+    FP32_TOLS. #6 and #8 run on a mesh in phase 16. These launches are not
+    the path's."""
     import functools
     from repro_torch.core import PushDistribution
     from repro_torch.models import api
@@ -7395,6 +7431,612 @@ def phase15(torch, cfg, reqs, plain, captured, card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 16: the model axis, one particle across a model group
+# --------------------------------------------------------------------------
+
+P16_MESH = (4, 2)                # positions, model axis: data 2 x model 2
+P16_TIE = 1e-4                   # phase 6's near-tie rule
+P16_PROB = 1e-4                  # BMA probabilities against one device
+
+
+def p16_placement(torch, model=2, n=4):
+    """``data x model`` over n real GPUs where there are that many, else
+    over n logical positions of cuda:0."""
+    from repro_torch.core.store import Placement
+    from repro_torch.launch import make_bench_mesh
+    devices = ([f"cuda:{i}" for i in range(n)]
+               if torch.cuda.device_count() >= n else ["cuda:0"] * n)
+    return Placement(mesh=make_bench_mesh(n, model=model, devices=devices))
+
+
+def p16_tokens(torch, pd, cfg, prompts, got, want, what):
+    """Tokens equal to ``want``, or the first difference on a near-tie of
+    the one-device run (``compare_tokens``, through the joined params)."""
+    if [list(a) for a in got] == [list(b) for b in want]:
+        return len(got), []
+    dense = pd.store.dense("params")
+    try:
+        return compare_tokens(torch, pd, cfg, prompts, got, want, what,
+                              params=dense, tie=P16_TIE)
+    finally:
+        del dense
+        torch.cuda.empty_cache()
+
+
+def p16_prob_gap(gens, logprobs):
+    """The largest gap between the BMA probabilities of the generated
+    tokens here and on one device, on each token both runs share."""
+    gap = 0.0
+    for g, w in zip(gens, logprobs):
+        a, b = np.exp(np.array(g.logprobs)), np.exp(np.array(w))
+        n = min(len(a), len(b))
+        gap = max(gap, float(np.abs(a[:n] - b[:n]).max()))
+    return gap
+
+
+def p16_position_kernels(torch, lens, n_pmax, H, hd):
+    """#5-#8 at a position's shapes (2 particles, H heads of hd, the pool
+    of NUM_PAGES + 1 pages of PAGE_SIZE), on random inputs with NaN where
+    no row reads, each against its plain version and timed beside it and
+    the bound. These launches are not the path's."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_decode_attention as pk
+    from repro_torch.kernels import paged_decode_window_attention as wk
+    from repro_torch.kernels import ref
+    from repro_torch.runtime import bucket_size
+    P, B, NP, W = 2, len(lens), NUM_PAGES + 1, SPEC_K + 1
+    rows = {}
+    args = paged_case(torch, 161, P, B, H, H, hd, PAGE_SIZE, n_pmax, NP, lens,
+                      torch.float32)
+    err = check_kernel(torch, pk.paged_decode_attention,
+                       ref.paged_decode_attention, args, lens, 1e-4,
+                       "#7 at a position")
+    live = sum(L + 1 for L in lens)
+    rows["paged_decode_attention"] = (err, args, pk.paged_decode_attention,
+                                      ref.paged_decode_attention,
+                                      P * live * H * hd * 2 * 4
+                                      + 2 * args[0].numel() * 4,
+                                      4 * P * live * H * hd)
+    wlens = [L - W + 1 for L in lens]
+    args = window_case(torch, 162, P, B, W, H, H, hd, PAGE_SIZE, n_pmax, NP,
+                       wlens, torch.float32)
+    err = check_kernel(torch, wk.paged_decode_window_attention,
+                       ref.paged_decode_window_attention, args, wlens, 1e-4,
+                       "#8 at a position")
+    pairs = sum(W * L + W * (W + 1) // 2 for L in wlens)
+    rows["paged_decode_window_attention"] = (
+        err, args, wk.paged_decode_window_attention,
+        ref.paged_decode_window_attention,
+        P * sum(L + W for L in wlens) * H * hd * 2 * 4
+        + 2 * args[0].numel() * 4, 4 * P * pairs * H * hd)
+    Sp = bucket_size(max(lens) + 1)
+    gen = torch.Generator(device="cuda").manual_seed(163)
+    args = tuple(torch.randn((P, 1, Sp, H, hd), generator=gen, device="cuda")
+                 for _ in range(3))
+    err = max_err(torch, fk.flash_attention(*args), ref.flash_attention(*args),
+                  "#5 at a position", 2e-5)
+    rows["flash_attention"] = (err, args, fk.flash_attention,
+                               ref.flash_attention, 4 * args[0].numel() * 4,
+                               4 * P * H * hd * Sp * (Sp + 1) // 2)
+    C = DENSE_LEN + DENSE_NEW + 1
+    args = decode_case(torch, 164, P, DENSE_PROMPTS, C, H, H, hd, False,
+                       n_valid=DENSE_LEN + DENSE_NEW)
+    err = max_err(torch, dk.decode_attention(*args),
+                  ref.decode_attention(*args), "#6 at a position", 2e-5)
+    valid = DENSE_LEN + DENSE_NEW
+    rows["decode_attention"] = (err, args, dk.decode_attention,
+                                ref.decode_attention,
+                                P * DENSE_PROMPTS * valid * H * hd * 2 * 4
+                                + 2 * args[0].numel() * 4,
+                                4 * P * DENSE_PROMPTS * valid * H * hd)
+    out = {}
+    for name, (err, a, fn, plain, nbytes, flops) in rows.items():
+        b_ms, b_by = bound(nbytes, flops)
+        out[name] = {"max_abs_err": err, "ms": time_ms(torch, lambda: fn(*a)),
+                     "plain_ms": time_ms(torch, lambda: plain(*a), iters=10),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": {"P": P, "H": H, "hd": hd,
+                               "q": list(a[0].shape)}}
+    del rows, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def p16_serving(torch, cfg, reqs, plain, card):
+    """(a) phase 2's load on data 2 x model 2, captured; (c) phase 6's
+    speculative run; (b) phase 7's dense-cache run; (f) the store through
+    save_store / restore_store. Returns (launches over the runs, the
+    per-position kernel rows, the card's seconds)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_store, save_store
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.core.tree import Group, tree_leaves
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import PredictiveEngine
+    pl = p16_placement(torch)
+    n_pos, L = P16_MESH[0], cfg.n_layers
+    H = cfg.n_heads // P16_MESH[1]
+    # a group on one device captures every step as a CUDA graph; on
+    # distinct GPUs a group's steps run eagerly (runtime.program.lower)
+    one_card = all(len(set(g)) == 1 for g in pl.groups())
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    prompts = [p for p, _ in reqs]
+    fns = attention_counts()
+    out, launches, failed = {}, {}, []
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    torch.cuda.reset_peak_memory_stats()
+    with PushDistribution(module, seed=SEED, capacity=PARTICLES,
+                          placement=pl) as pd:
+        for _ in range(PARTICLES):
+            pd.p_create()
+        marks = [("start", time.perf_counter())]
+        # (a) plain paged decode; then one decode step's device time
+        # (every row inactive: the same GEMVs, no page read)
+        prof = {}
+
+        def profile_a(svc, _):
+            packed = np.zeros((MAX_ACTIVE, 2 + svc.engine.n_pmax), np.int32)
+            packed[:, 1] = -1
+            prof["a"] = profile_steps(
+                torch, lambda: svc.engine.decode_step(packed), n=3)
+
+        st0 = pd.store.snapshot_stats()
+        info_a = []
+        gens, st, got, wall, warm, n_pmax = serve_requests(
+            torch, pd, cfg, reqs, fns, ProgramCache(), info=info_a,
+            placement=pl, hold=profile_a)
+        st1 = pd.store.snapshot_stats()
+        add(got)
+        pages = pd.store.stacked("kv_pages")
+        grp = pages.shards[0]
+        heads = grp[0]["units"][0]["k"].shape[-2]
+        exact, gaps = p16_tokens(torch, pd, cfg, prompts,
+                                 [g.tokens for g in gens], plain["tokens"],
+                                 "2 x 2 decode vs phase 2")
+        gap = p16_prob_gap(gens, plain["logprobs"])
+        want = {"paged_decode_attention": n_pos * L * st["steps"],
+                "flash_attention": n_pos * L * st["prefills"],
+                "paged_decode_window_attention": 0, "decode_attention": 0}
+        out["a"] = dict(run_summary(gens, st, warm, wall, None, info=info_a),
+                        kernel_launches=got, want_launches=want,
+                        requests_token_equal=exact, tie_gaps=gaps,
+                        prob_max_abs=gap, pool_heads_a_position=heads,
+                        step_profile=prof["a"],
+                        store_traffic={k: st1[k] - st0[k] for k in TRAFFIC},
+                        tok_per_s_one_device=plain["tok_per_s"],
+                        per_device_param_gb=pd.store.per_device_bytes(
+                            "params") / 1e9)
+        failed += [w for w, bad in (
+            ("(a) launches", got != want),
+            ("(a) BMA probabilities", not gap < P16_PROB),
+            ("(a) a step not captured", one_card and not (info_a and all(
+                p["graph"] for p in info_a))),
+            ("(a) pool heads", heads != cfg.n_kv_heads // P16_MESH[1]
+             or not isinstance(grp, Group))) if bad]
+        lens = [min(len(p) + m - 1, n_pmax * PAGE_SIZE - SPEC_K - 2)
+                for p, m in reqs]
+        del pages, grp
+        marks.append(("a", time.perf_counter()))
+        # (c) speculative
+        info_c = []
+        gens_s, st, got, wall, warm, _ = serve_requests(
+            torch, pd, cfg, reqs, fns, ProgramCache(), info=info_c,
+            placement=pl, speculative=SPEC_K)
+        add(got)
+        ss = st["speculative"]
+        iters = (st["engine"]["draft_iterations"]
+                 - warm["engine"]["draft_iterations"])
+        want = {"paged_decode_window_attention": n_pos * L * ss["verify_calls"],
+                "paged_decode_attention": P16_MESH[1] * L * iters,
+                "flash_attention": n_pos * L * st["prefills"],
+                "decode_attention": 0}
+        exact_s, gaps_s = p16_tokens(torch, pd, cfg, prompts,
+                                     [g.tokens for g in gens_s],
+                                     plain["tokens"],
+                                     "2 x 2 speculative vs phase 2")
+        out["c"] = dict(run_summary(gens_s, st, warm, wall, None,
+                                    info=info_c),
+                        kernel_launches=got, want_launches=want,
+                        draft_iterations=iters, speculative=ss,
+                        requests_token_equal=exact_s, tie_gaps=gaps_s)
+        if got != want or ss["verify_calls"] == 0:
+            failed.append("(c) launches")
+        if one_card and not (info_c and all(p["graph"] for p in info_c)):
+            failed.append("(c) a step not captured")
+        marks.append(("c", time.perf_counter()))
+        # (b) dense caches through PredictiveEngine(stateful=True)
+        rng = np.random.default_rng(2)
+        dprompts = rng.integers(1, cfg.vocab_size, (DENSE_PROMPTS, DENSE_LEN))
+        toks = torch.as_tensor(dprompts, dtype=torch.int32, device="cuda")
+        C = DENSE_LEN + DENSE_NEW + 1
+
+        def fwd(params, caches, batch):
+            return api.decode_step(params, batch["token"], caches,
+                                   batch["cur_pos"], cfg)
+
+        cache = ProgramCache()
+        engine = PredictiveEngine(fwd, store=pd.store, stateful=True,
+                                  cache=cache)
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state = engine.init_state(lambda p: api.prefill(
+            p, {"tokens": toks[:, :-1]}, cfg, max_len=C)[1])
+        tok, dense = toks[:, -1], []
+        for step in range(DENSE_NEW):
+            heads_, state = engine.step(state, {
+                "token": tok, "cur_pos": DENSE_LEN - 1 + step})
+            tok = heads_["mean"].argmax(-1).to(torch.int32)
+            dense.append(tok)
+        dense = torch.stack(dense, 1).cpu().numpy().tolist()
+        wall = time.perf_counter() - t0
+        got = read_counts(fns)
+        add(got)
+        last, cur = tok, DENSE_LEN - 1 + DENSE_NEW
+        step_prof = profile_steps(torch, lambda: engine.step(
+            state, {"token": last, "cur_pos": cur}), n=3)
+        want = {"paged_decode_attention": 0,
+                "paged_decode_window_attention": 0,
+                "flash_attention": n_pos * L,
+                "decode_attention": n_pos * L * DENSE_NEW}
+        kheads = state.shards[0][0]["units"][0]["k"].shape[-2]
+        p7 = KEEP.get("phase7_tokens")
+        exact_d, gaps_d = (p16_tokens(torch, pd, cfg, dprompts, dense, p7,
+                                      "2 x 2 dense vs phase 7")
+                           if p7 is not None else (None, []))
+        out["b"] = {"wall_s": wall,
+                    "tok_per_s": DENSE_PROMPTS * DENSE_NEW / wall,
+                    "kernel_launches": got, "want_launches": want,
+                    "captures": cache.snapshot_stats()["cold_compiles"],
+                    "graphs": all(p["graph"] for p in cache.program_costs()),
+                    "step_profile": step_prof,
+                    "cache_heads_a_position": kheads,
+                    "requests_token_equal_phase7": exact_d,
+                    "tie_gaps": gaps_d}
+        failed += [w for w, bad in (
+            ("(b) launches", got != want),
+            # a step program per data position and the heads' combine
+            ("(b) captures", out["b"]["captures"] != P16_MESH[0] // P16_MESH[1]
+             + 1 or not out["b"]["graphs"]),
+            ("(b) cache heads", kheads != cfg.n_kv_heads // P16_MESH[1]),
+            ("(b) no phase 7 tokens", p7 is None)) if bad]
+        del state, engine, cache
+        torch.cuda.empty_cache()
+        marks.append(("b", time.perf_counter()))
+        # (f) checkpoints: the 2 x 2 store through a file, restored onto
+        # 2 x 2; its rows (the file's arrays, copied exactly) against the
+        # one-device store's, and (a)'s load served again
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="phase16_",
+                               dir=os.path.join(ROOT, "build"))
+        try:
+            t0 = time.perf_counter()
+            save_store(tmp, 1, pd.store, keys=["params"])
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, store = restore_store(tmp, placement=pl, device="cuda:0")
+            restore_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        replicas = p16_replicas_equal(torch, store.stacked("params"))
+        with PushDistribution(module, seed=SEED, capacity=PARTICLES) as one:
+            for _ in range(PARTICLES):
+                one.p_create()
+            same = store.pids == one.store.pids and all(
+                torch.equal(a, b) for p in one.store.pids
+                for a, b in zip(tree_leaves(store.read("params", p)),
+                                tree_leaves(one.store.read("params", p))))
+        gc.collect()
+        torch.cuda.empty_cache()
+        gens_r, _, got, _, _, _ = serve_requests(
+            torch, store, cfg, reqs, fns, ProgramCache())
+        add(got)
+        same_tokens = [g.tokens for g in gens_r] == [g.tokens for g in gens]
+        del store
+        out["f"] = {"rows_bit_equal_one_device": same,
+                    "save_s": save_s, "restore_s": restore_s,
+                    "restored_replicas_bit_equal": replicas,
+                    "restored_tokens_equal_a": same_tokens}
+        failed += [w for w, bad in (
+            ("(f) rows", not same), ("(f) replicas", not replicas),
+            ("(f) tokens", not same_tokens)) if bad]
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("f", time.perf_counter()))
+    kernels = p16_position_kernels(torch, lens, n_pmax, H, cfg.hd)
+    marks.append(("position_kernels", time.perf_counter()))
+    out["part_s"] = {k: t - marks[i][1] for i, (k, t) in
+                     enumerate(marks[1:])}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": 16, "part": "serving", "placement": str(pl.groups()),
+          **out, "position_kernels": kernels, "failed": failed,
+          "card": card})
+    if failed:
+        raise AssertionError(f"phase 16 serving: {failed}")
+    return launches, kernels
+
+
+def p16_replicas_equal(torch, sharded):
+    """Every replicated leaf bit-equal across each model group."""
+    from repro_torch.sharding.rules import named_leaves
+    for grp in sharded.shards:
+        first = named_leaves(grp[0])
+        for shard in grp.shards[1:]:
+            for (path, a), (_, b) in zip(first, named_leaves(shard)):
+                if grp.dims[path] is None and not torch.equal(
+                        a, b.to(a.device)):
+                    return False
+    return True
+
+
+def p16_footprint(torch, cfg, reqs, card):
+    """(e) one full-width qwen1.5-0.5b particle on a model-only 1 x 4 plan
+    against one device: the per-device param bytes and one greedy
+    decode."""
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    req = [(reqs[0][0], 16)]
+    fns = attention_counts()
+    runs = {}
+    for tag, pl in (("one", None), ("model4", p16_placement(torch, 4))):
+        with PushDistribution(module, seed=SEED, capacity=1,
+                              placement=pl) as pd:
+            pd.p_create()
+            pd.store.stacked("params")
+            bytes_ = pd.stats()["placement"]["per_device_param_bytes"]
+            gens, st, got, wall, _, _ = serve_requests(
+                torch, pd, cfg, req, fns, ProgramCache(), placement=pl)
+            runs[tag] = {"per_device_param_bytes": bytes_,
+                         "tokens": gens[0].tokens, "kernel_launches": got,
+                         "tok_per_s": len(gens[0].tokens) / wall,
+                         "steps": st["steps"]}
+            if tag == "model4":
+                exact, gaps = p16_tokens(torch, pd, cfg, [req[0][0]],
+                                         [gens[0].tokens],
+                                         [runs["one"]["tokens"]],
+                                         "1 x 4 vs one device")
+        gc.collect()
+        torch.cuda.empty_cache()
+    ratio = (runs["model4"]["per_device_param_bytes"]
+             / runs["one"]["per_device_param_bytes"])
+    row = {"phase": 16, "part": "e", **runs, "ratio": ratio,
+           "token_equal": exact, "tie_gaps": gaps, "card": card}
+    emit(row)
+    if not ratio <= 0.3:
+        raise AssertionError(f"1 x 4 footprint ratio {ratio}")
+    return runs["model4"]["kernel_launches"]
+
+
+def p16_svgd_kernels(torch, store):
+    """#1 and #2 at a position's shapes on (d)'s trained 2 x 2 SteinVGD
+    store: each model shard's (n, D_j) block of the gathered matrix (its
+    split leaves, the replicated ones in the first block), #1 per block
+    against its plain version and the blocks' sum against #1 over the
+    whole matrix (within 1e-5 of its largest entry), then #2 per block
+    with the shared K against its plain version; each timed beside its
+    plain version and the bound. These launches are not the path's."""
+    from repro_torch.bdl.svgd import _owned, rbf_glue
+    from repro_torch.core.functional import flatten_stacked
+    from repro_torch.kernels import ref, svgd_rbf
+    params, mask = store.stacked("params"), store.active_mask()
+    m = len(params.shards[0])
+    blocks = []
+    for j in range(m):
+        rows = []
+        for grp in params.shards:
+            leaves = _owned(grp[j], grp.dims, j)
+            n = leaves[0].shape[0]
+            rows.append(torch.cat([x.reshape(n, -1).float() for x in leaves],
+                                  1).to("cuda:0"))
+        blocks.append(torch.cat(rows))
+    full = flatten_stacked(params.gather("cuda:0"))[0].float()
+    whole = svgd_rbf.pairwise_sqdist(full, mask)
+    parts = [svgd_rbf.pairwise_sqdist(b, mask) for b in blocks]
+    errs = [float((p - ref.pairwise_sqdist(b, mask)).abs().max()
+                  / ref.pairwise_sqdist(b, mask).abs().max().clamp(min=1e-30))
+            for p, b in zip(parts, blocks)]
+    summed = parts[0]
+    for p in parts[1:]:
+        summed = summed + p
+    sum_err = float((summed - whole).abs().max() / whole.abs().max())
+    glue = rbf_glue(summed, 0.0, mask)
+    gen = torch.Generator(device="cuda").manual_seed(165)
+    gs = [torch.randn(b.shape, generator=gen, device="cuda") * 1e-3
+          for b in blocks]
+    ferrs = []
+    for b, g in zip(blocks, gs):
+        got = svgd_rbf.svgd_force(b, g, *glue, mask)
+        want = ref.svgd_force(b, g, *glue, mask)
+        ferrs.append(float((got - want).abs().max()
+                           / want.abs().max().clamp(min=1e-30)))
+    b0, g0 = blocks[0], gs[0]
+    out = {"pairwise_sqdist": {
+        "max_rel_err": max(errs), "sum_vs_whole_rel": sum_err,
+        "D_blocks": [b.shape[1] for b in blocks], "D": full.shape[1],
+        "ms": time_ms(torch, lambda: svgd_rbf.pairwise_sqdist(b0, mask)),
+        "plain_ms": time_ms(torch, lambda: ref.pairwise_sqdist(b0, mask),
+                            iters=10)},
+        "svgd_force": {
+        "max_rel_err": max(ferrs),
+        "ms": time_ms(torch, lambda: svgd_rbf.svgd_force(b0, g0, *glue,
+                                                         mask)),
+        "plain_ms": time_ms(torch, lambda: ref.svgd_force(b0, g0, *glue,
+                                                          mask), iters=10)}}
+    for name, cost in (("pairwise_sqdist", svgd_rbf.sqdist_cost(b0)),
+                       ("svgd_force", svgd_rbf.force_cost(b0))):
+        out[name]["bound_ms"], out[name]["bound_by"] = bound(cost[1],
+                                                             cost[0])
+    del blocks, full, gs
+    torch.cuda.empty_cache()
+    if not (max(errs) < 1e-5 and sum_err < 1e-5 and max(ferrs) < 1e-5):
+        raise AssertionError(f"#1 / #2 at a position's shapes: {out}")
+    return out
+
+
+def p16_training(torch, card):
+    """(d) phase 15 (a)'s runs (8 full-width ViT-MNIST particles,
+    DeepEnsemble with sgd, SteinVGD with the median heuristic, MultiSWAG
+    with Adam) on data 2 x model 2, captured, held to phase 15's
+    one-device runs as phase 15 holds its mesh; #1 and #2 at a position's
+    shapes."""
+    _, module = vit_module()
+    pl = p16_placement(torch)
+    n_data, m = P16_MESH[0] // P16_MESH[1], P16_MESH[1]
+    ones, probe = KEEP.get("p15_one", {}), KEEP.get("p15_probe")
+    out, launches, failed = {}, {}, []
+    if probe is None:
+        probe = p15_probe(torch, module)
+    for name in ("ensemble", "svgd", "multiswag"):
+        t0 = time.perf_counter()
+        one = ones.get(name)
+        if one is None:
+            one = p15_train(torch, module, name, None, False)
+            one["algo"].cleanup()
+            del one["algo"]
+        torch.cuda.reset_peak_memory_stats()
+        run = p15_train(torch, module, name, pl, True)
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        row, bad = p15_compare(torch, name, one, run, n_data, probe)
+        # a position holds its 1/n_data of the rows and, of a split leaf,
+        # its 1/m: within 1.2x of 1/(n_data * m) of one device, as (e)
+        # holds the LM's 1 x 4 at 0.3 (1.2 / 4)
+        bad = [b for b in bad if b != "per-device bytes"]
+        row["bytes_ratio"] = run["per_device_bytes"] / one["per_device_bytes"]
+        if not row["bytes_ratio"] <= 1.2 / (n_data * m):
+            bad.append("per-device bytes")
+        store = run["algo"].store
+        keys = {"ensemble": ("params", "opt_state"), "svgd": ("params",),
+                "multiswag": ("params", "opt_state", "swag")}[name]
+        replicas = all(p16_replicas_equal(torch, store.stacked(k))
+                       for k in keys)
+        if not replicas:
+            bad.append("replicated copies apart")
+        steps = run["steps"]
+        if name == "svgd" and (run["launches"]["pairwise_sqdist"] != m * steps
+                               or run["launches"]["svgd_force"] != m * steps):
+            bad.append(f"SVGD launches {run['launches']}")
+        if name == "multiswag":
+            from repro_torch.core.tree import tree_leaves
+            n_leaves = len(tree_leaves(run["algo"].p_parameters()[0]))
+            if run["launches"]["swag_moments"] != 2 * n_leaves * n_data * m:
+                bad.append(f"MultiSWAG launches {run['launches']}")
+        out[name] = dict(row, launches=run["launches"], steps=steps,
+                         replicas_bit_equal=replicas,
+                         peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+                         images_per_s_wall=TRAIN_P * TRAIN_B * steps
+                         / run["wall_s"])
+        if name == "multiswag":
+            post, diag = p16_posterior(torch, run["algo"], pl)
+            out[name]["posterior"] = post
+            launches["swag_diag_std"] = launches.get("swag_diag_std",
+                                                     0) + diag
+            if not post["max_abs_vs_one_device"] < P16_PROB or \
+                    diag != n_leaves * n_data * m:
+                bad.append(f"MultiSWAG posterior {post}")
+        if name == "ensemble":
+            # the fused step alone (a SteinVGD run captures its force
+            # program anew on its own blocks, so a profile of short runs
+            # would time captures)
+            out[name]["epoch_profile"] = p16_epoch_profile(
+                torch, module, run["algo"], name)
+        out[name]["part_s"] = time.perf_counter() - t0
+        if name == "svgd":
+            out[name]["position_kernels"] = p16_svgd_kernels(torch, store)
+        failed += [f"{name}: {b}" for b in bad]
+        run["algo"].cleanup()
+        del run, store
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": 16, "part": "d", "placement": str(pl.groups()), **out,
+          "failed": failed, "card": card})
+    if failed:
+        raise AssertionError(f"phase 16 (d): {failed}")
+    return launches, out["svgd"]["position_kernels"]
+
+
+def p16_posterior(torch, algo, pl):
+    """The MultiSWAG posterior of SERVE_S draws a particle (32 members)
+    sampled per model shard on the 2 x 2 store, and on one device from
+    the same state and noise: the BMA heads of one batch of 8 images.
+    Returns (the row, #4's launches on 2 x 2)."""
+    from repro_torch.core.store import Placement
+    from repro_torch.data import mnist_like
+    images = {"images": mnist_like(np.random.default_rng(1), 8,
+                                   10)["images"]}
+    diag = reset_counts()["swag_diag_std"]
+    heads, launches = {}, {}
+    for where, place in (("one", Placement()), ("two", pl)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        diag.launches = 0
+        with algo.posterior_predictive(
+                samples_per_particle=SERVE_S, generator=gen, placement=place,
+                warmup=False) as svc:
+            heads[where] = svc.predict_batch(images)
+            launches[where] = diag.launches
+            members = svc.engine.num_particles
+    err = max(float((heads["one"][k] - heads["two"][k]).abs().max())
+              for k in heads["one"])
+    torch.cuda.empty_cache()
+    return {"members": members, "max_abs_vs_one_device": err,
+            "diag_std_launches": launches}, launches["two"]
+
+
+def p16_epoch_profile(torch, module, algo, name):
+    """The device time of one more fused run of one batch on a trained
+    DeepEnsemble store (host ms include the run's checkout and
+    commit)."""
+    from repro_torch.data import DataLoader
+    from repro_torch.optim import sgd
+    kw = {"ensemble": {"optimizer": sgd(P15_LR)}}[name]
+    batch = [next(iter(DataLoader(module.cfg, batch_size=TRAIN_B,
+                                  num_batches=1, seed=SEED)))]
+    pids = algo.push_dist.particle_ids()
+    return profile_steps(torch, lambda: algo._fused_epochs(pids, batch, 1,
+                                                           **kw), n=3)
+
+
+def phase16(torch, cfg, reqs, plain, card):
+    """The model axis: one particle across a model group (data 2 x model
+    2 on one card's logical positions, or on four GPUs): serving (a),
+    dense caches (b), speculative decode (c), training (d), the 1 x 4
+    footprint (e) and checkpoints (f). Returns (the kernels' launches
+    over the runs, the per-position kernel rows)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_s = time.perf_counter() - t0
+    gc_objects = len(gc.get_objects())
+    launches, rows = p16_serving(torch, cfg, reqs, plain, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for k, v in p16_footprint(torch, cfg, reqs, card).items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    got, svgd_rows = p16_training(torch, card)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    rows.update(svgd_rows)
+    emit({"phase": 16, "part": "summary", "phase_s": time.perf_counter() - t0,
+          "part_s": {"serving": t1 - t0, "footprint": t2 - t1,
+                     "training": time.perf_counter() - t2},
+          "gc_collect_s": gc_s, "gc_objects": gc_objects,
+          "launches": launches, "card": card})
+    return launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7477,6 +8119,11 @@ def main():
     placement_launches = phase15(
         torch, cfg, reqs, {"tokens": plain_tokens, "logprobs": plain_logprobs,
                            "tok_per_s": plain_tok_s}, captured, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_launches, position_rows = phase16(
+        torch, cfg, reqs, {"tokens": plain_tokens, "logprobs": plain_logprobs,
+                           "tok_per_s": plain_tok_s}, card)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
@@ -7487,6 +8134,9 @@ def main():
         row["lm_training_launches"] = lm_launches.get(name, 0)
         row["ckpt_obs_launches"] = obs_launches.get(name, 0)
         row["placement_launches"] = placement_launches.get(name, 0)
+        row["model_axis_launches"] = model_launches.get(name, 0)
+        if name in position_rows:
+            row["per_position"] = position_rows[name]
         if name in lm_rows:
             row["lm"] = lm_rows[name]
         if name in sci_rows:

@@ -23,7 +23,14 @@ heuristic, over live pairs when masked), not the Pallas path's raw ell.
 
 On a store split over a mesh the fused step is three programs with the
 gather between them (``_MeshStep``); with one position it is the step
-above.
+above. The gather runs over ``data`` only, per model shard (a
+particle-only mesh has one): each shard's columns of the (n, D)
+matrix stay at its model position, #1 gives a partial (n, n) per shard,
+the partials are summed in position order and the kernel matrix is
+built from that sum, and #2 runs on each shard's columns with the
+shared K. A replicated leaf's columns belong to the first model shard
+alone (counted once in the distances), and its update is copied from
+there to every copy.
 
 Under ``backend="nel"`` (paper Fig. 6) the leader particle steps every
 particle (``SVGD_STEP``: a backward pass, grads stashed in the store),
@@ -41,7 +48,9 @@ import torch
 from ..core import functional
 from ..core import precision as precision_mod
 from ..core.store import Sharded
-from ..core.tree import tree_leaves, tree_map
+from ..core.tree import Group, tree_map
+from ..runtime.program import device_guard
+from ..sharding.rules import named_leaves
 from ..kernels import ops as _kops
 from ..runtime.program import ProgramSpec, ident
 from .infer import Infer, traced_epochs
@@ -160,60 +169,101 @@ def svgd_step_spec(loss_fn, *, lr: float, lengthscale: float = 1.0,
 # the step over a mesh: three programs with the gather between them
 # ---------------------------------------------------------------------------
 
+def _owned(shard, dims, j: int):
+    """The leaves whose columns model position j's block of the flattened
+    matrix holds, in ``ravel_pytree``'s order: its split leaves, and the
+    replicated ones at the first position only."""
+    return [x for p, x in named_leaves(shard, sort_keys=True)
+            if dims[p] is not None or j == 0]
+
+
+def _flatten_leaves_into(leaves, out):
+    n = out.shape[0]
+    parts = [x.reshape(n, -1) for x in leaves]
+    if all(x.dtype == out.dtype for x in parts):
+        torch.cat(parts, dim=1, out=out)
+    else:
+        out.copy_(torch.cat(parts, dim=1))
+
+
 def svgd_grads_spec(loss_fn, *, precision=None) -> ProgramSpec:
-    """A position's first stage of the SVGD step on a mesh: ``fused(
-    stacked_params, batch, mask, theta, g) -> (losses, theta, g)``, its
-    rows' losses (0.0 at dead slots) and grads, the params and grads
-    flattened in ``ravel_pytree``'s column order into the fp32 matrices
-    ``theta`` and ``g`` in place."""
+    """A data position's first stage of the SVGD step on a mesh, over its
+    model group: ``fused(params, batch, mask, theta, g) -> (losses,
+    theta, g)``, its rows' losses (0.0 at dead slots) and grads, the
+    params and grads flattened in ``ravel_pytree``'s column order into
+    ``theta`` / ``g``, Groups of each model position's fp32 (rows, D_j)
+    block, in place."""
     prec = precision_mod.get(precision)
     cd = prec.compute if prec.casts_compute else None
 
     def make(ctx):
         vag = functional.ensemble_value_and_grad(loss_fn, cd)
 
-        def fused(stacked_params, batch, mask, theta, g):
-            losses, grads = vag(stacked_params, batch)
-            functional.flatten_into(stacked_params, theta)
-            functional.flatten_into(grads, g)
+        def fused(params, batch, mask, theta, g):
+            losses, grads = vag(params, batch)
+            for j in range(len(params)):
+                _flatten_leaves_into(_owned(params[j], params.dims, j),
+                                     theta[j])
+                _flatten_leaves_into(_owned(grads[j], params.dims, j), g[j])
             return torch.where(mask > 0, losses, 0.0), theta, g
 
         return fused
 
     return ProgramSpec(
-        name="svgd_grads", key=("svgd_grads", ident(loss_fn)), make=make,
-        in_kinds=("state", "replicated", "vector", "rows", "rows"),
+        name="svgd_grads", key=("svgd_grads", ident(loss_fn)),
+        make=make, in_kinds=("state", "replicated", "vector", "rows", "rows"),
         out_kinds=("vector", "in:3", "in:4"),
         precision=prec.key() if prec.casts_compute else None)
 
 
 def svgd_phi_spec(lengthscale: float) -> ProgramSpec:
-    """The middle stage, once, on the first position: ``fused(theta, g,
-    mask, phi) -> (phi,)``, the kernel force over the gathered (n, D)
-    matrices written into ``phi`` in place."""
+    """The middle stage, once, on the first data position's model group:
+    ``fused(theta, g, mask, phi) -> (phi,)`` over Groups of the gathered
+    (n, D_j) blocks: #1 per block, the partial distances summed in
+    position order on the first position, the glue once on that sum, and
+    #2 per block with the shared K, written into ``phi`` in place."""
     def make(ctx):
         def fused(theta, g, mask, phi):
-            phi.copy_(svgd_force(theta, g, lengthscale, mask=mask))
+            sq = None
+            for t in theta:
+                part = _kops.pairwise_sqdist(t, mask.to(t.device))
+                sq = part if sq is None else sq + part.to(sq.device)
+            glue = rbf_glue(sq, lengthscale, mask)
+            for t, gj, f in zip(theta, g, phi):
+                d = t.device
+                f.copy_(_kops.svgd_force(t, gj, *(x.to(d) for x in glue),
+                                         mask.to(d)))
             return (phi,)
 
         return fused
 
     return ProgramSpec(
-        name="svgd_phi", key=("svgd_phi", float(lengthscale)), make=make,
-        in_kinds=("rows", "rows", "vector", "rows"), out_kinds=("in:3",))
+        name="svgd_phi", key=("svgd_phi", float(lengthscale)),
+        make=make, in_kinds=("rows", "rows", "vector", "rows"),
+        out_kinds=("in:3",))
 
 
 def svgd_apply_spec(lr: float) -> ProgramSpec:
-    """A position's last stage: ``fused(stacked_params, phi, mask) ->
-    (stacked_params,)``, theta - lr * phi into each live row in place."""
+    """A data position's last stage over its model group: ``fused(params,
+    phi, mask) -> (params,)``, theta - lr * phi into each owned leaf's
+    live rows in place, then every replicated leaf copied from the first
+    position to the others (bit-equal copies)."""
     def make(ctx):
-        def fused(stacked_params, phi, mask):
-            _, unravel = functional.flatten_stacked(
-                stacked_params, values=False)
-            tree_map(lambda p, f: functional.masked_assign(
-                mask, p - lr * f.to(p.dtype), p), stacked_params,
-                unravel(phi))
-            return (stacked_params,)
+        def fused(params, phi, mask):
+            dims = params.dims
+            for j, (shard, f) in enumerate(zip(params, phi)):
+                leaves = _owned(shard, dims, j)
+                mk = mask.to(f.device)
+                cols = f.split([x[0].numel() for x in leaves], dim=1)
+                for x, c in zip(leaves, cols):
+                    functional.masked_assign(
+                        mk, x - lr * c.reshape(x.shape).to(x.dtype), x)
+            first = named_leaves(params[0])
+            for j in range(1, len(params)):
+                for (p, x0), (_, x) in zip(first, named_leaves(params[j])):
+                    if dims[p] is None:
+                        x.copy_(x0)
+            return (params,)
 
         return fused
 
@@ -223,40 +273,56 @@ def svgd_apply_spec(lr: float) -> ProgramSpec:
 
 
 class _MeshStep:
-    """The SVGD step over params split on a mesh (``core.store.Sharded``):
-    each position computes its rows' grads (``svgd_grads_spec``); theta
-    and g are gathered in slot order into (n, D) matrices on the first
-    position, where #1 and #2 run once (``svgd_phi_spec``); each position
-    takes its rows of phi back and applies its update
-    (``svgd_apply_spec``). A position on the first position's device
-    works on views of the gathered matrices, so the gather and the
-    scatter copy only what lives elsewhere. Three programs per step, each
-    captured once per position it runs at; no collective in any."""
+    """The SVGD step over params split on a mesh (``core.store.Sharded``)
+    as model groups: a particle-only mesh's shard is a group of one
+    (``_grouped``). Per data position the grads stage over its group
+    (``svgd_grads_spec``); per model position j the (rows, D_j) blocks
+    gathered over ``data`` in slot order into (n, D_j) on position
+    (0, j), where #1 and #2 run (``svgd_phi_spec``); each data position
+    takes its rows of phi back (``svgd_apply_spec``). A block on its
+    gathered block's device is a view of it, so the gather and the
+    scatter copy only what lives elsewhere. Three programs per step,
+    each captured once per data position it runs at; no collective over
+    the particle axis in any."""
 
-    def __init__(self, rt, module, params, batch, mask, *, placement, lr,
-                 lengthscale, precision):
-        from ..core.store import Sharded
-        d = sum(x[0].numel() for x in tree_leaves(params.shards[0]))
+    def __init__(self, rt, module, params, batch, mask, *, lr, lengthscale,
+                 precision):
+        # the same wrapper every step for the same params: a captured
+        # program's first call returns its warm-up's outputs only for the
+        # very argument objects it was captured with
+        self._wrapped = (params, _grouped(params))
+        params = self._wrapped[1]
+        g0 = params.shards[0]
+        m = len(g0)
+        widths = [sum(x[0].numel() for x in _owned(g0[j], g0.dims, j))
+                  for j in range(m)]
         n = len(params)
-        # the layouts of the (n, D) matrices: split as the params' rows,
-        # and gathered whole on the first position
-        rows = placement.matrix(n, d)
-        (_, first, _), = placement.gathered_matrix(d)
+        first = g0.devices
+
+        def block(rows, j, dev):
+            return torch.empty((rows, widths[j]), dtype=torch.float32,
+                               device=dev)
+
         self.theta, self.g, self.phi = (
-            torch.empty((n, d), dtype=torch.float32, device=first)
+            Group([block(n, j, d) for j, d in enumerate(first)], None, first)
             for _ in range(3))
+        self.copies = []                    # (i, j, here, lo, hi)
+        for i, (lo, hi) in enumerate(zip(params.bounds[:-1],
+                                         params.bounds[1:])):
+            for j, d in enumerate(params.shards[i].devices):
+                self.copies.append((i, j, d == first[j], lo, hi))
 
         def local(full):
-            return Sharded([full[s] if dev == first else
-                            torch.empty((s.stop - s.start, d),
-                                        dtype=torch.float32, device=dev)
-                            for _, dev, s in rows],
-                           [dev for _, dev, _ in rows], params.plan)
+            shards = []
+            for i, grp in enumerate(params.shards):
+                lo, hi = params.bounds[i], params.bounds[i + 1]
+                shards.append(Group(
+                    [full[j][lo:hi] if d == first[j] else block(hi - lo, j, d)
+                     for j, d in enumerate(grp.devices)], None, grp.devices))
+            return Sharded(shards, params.devices, params.plan)
 
         self.t_loc, self.g_loc, self.phi_loc = (
             local(self.theta), local(self.g), local(self.phi))
-        self.copies = [(dev == first, s.start, s.stop) for _, dev, s in rows]
-        self.mask = mask
         self.grads = rt.program(svgd_grads_spec(module.loss,
                                                 precision=precision),
                                 params, batch, mask, self.t_loc, self.g_loc)
@@ -264,38 +330,57 @@ class _MeshStep:
         self.losses, _, _ = self.grads(params, batch, mask, self.t_loc,
                                        self.g_loc)
         self._gather()
-        self.force = rt.program(svgd_phi_spec(lengthscale), self.theta,
-                                self.g, mask, self.phi)
-        self.force(self.theta, self.g, mask, self.phi)
+        mask0 = mask.to(first[0])
+        with device_guard(first[0]):
+            self.force = rt.program(svgd_phi_spec(lengthscale),
+                                    self.theta, self.g, mask0, self.phi)
+            self.force(self.theta, self.g, mask0, self.phi)
         self._scatter()
         self.apply = rt.program(svgd_apply_spec(lr), params, self.phi_loc,
                                 mask)
 
     def _gather(self):
-        for (here, lo, hi), t, g in zip(self.copies, self.t_loc.shards,
-                                        self.g_loc.shards):
+        for i, j, here, lo, hi in self.copies:
             if not here:
-                self.theta[lo:hi].copy_(t)
-                self.g[lo:hi].copy_(g)
+                self.theta[j][lo:hi].copy_(self.t_loc.shards[i][j])
+                self.g[j][lo:hi].copy_(self.g_loc.shards[i][j])
 
     def _scatter(self):
-        for (here, lo, hi), f in zip(self.copies, self.phi_loc.shards):
+        for i, j, here, lo, hi in self.copies:
             if not here:
-                f.copy_(self.phi[lo:hi])
+                self.phi_loc.shards[i][j].copy_(self.phi[j][lo:hi])
 
     def __call__(self, params, batch, mask):
         """One step: (params, losses)."""
+        if params is not self._wrapped[0]:
+            self._wrapped = (params, _grouped(params))
+        grouped = self._wrapped[1]
         if self._first is not None:
             # the first step's grads and force ran at construction
             self._first = None
-            self.apply(params, self.phi_loc, mask)
+            self.apply(grouped, self.phi_loc, mask)
             return params, self.losses
-        losses, _, _ = self.grads(params, batch, mask, self.t_loc, self.g_loc)
+        losses, _, _ = self.grads(grouped, batch, mask, self.t_loc,
+                                  self.g_loc)
         self._gather()
-        self.force(self.theta, self.g, mask, self.phi)
+        mask0 = mask.to(self.theta.devices[0])
+        with device_guard(self.theta.devices[0]):
+            self.force(self.theta, self.g, mask0, self.phi)
         self._scatter()
-        self.apply(params, self.phi_loc, mask)
+        self.apply(grouped, self.phi_loc, mask)
         return params, losses
+
+
+def _grouped(params: Sharded) -> Sharded:
+    """``params`` with each data position's shard a model group: a
+    particle-only mesh's plain trees become groups of one, every leaf
+    whole (the same tensors)."""
+    if isinstance(params.shards[0], Group):
+        return params
+    dims = {p: None for p, _ in named_leaves(params.shards[0])}
+    return Sharded([Group([s], dims, [d])
+                    for s, d in zip(params.shards, params.devices)],
+                   params.devices, params.plan)
 
 
 # ---------------------------------------------------------------------------
@@ -399,9 +484,7 @@ class SteinVGD(Infer):
                     batch = self._batch(batch)
                     if prog is None:    # one cache lookup per fused run
                         prog = (_MeshStep(rt, self.module, co["params"],
-                                          batch, mask,
-                                          placement=self.store.placement,
-                                          lr=lr,
+                                          batch, mask, lr=lr,
                                           lengthscale=lengthscale,
                                           precision=self.precision)
                                 if isinstance(co["params"], Sharded)

@@ -39,7 +39,8 @@ import math
 import torch
 
 from ..core.store import Sharded
-from ..core.tree import to_device, tree_flatten, tree_leaves, tree_map
+from ..core.tree import Group, to_device, tree_flatten, tree_leaves, tree_map
+from ..sharding.rules import named_leaves, split_leaf
 from ..kernels import ops as _kops
 from ..runtime import specs
 from .infer import Infer, traced_epochs
@@ -171,11 +172,21 @@ def _sample_on_positions(store, samples_per_particle, scale, generator,
     there, once per leaf), from the noise drawn for every live particle
     at once as ``swag_sample_stacked`` draws it, so the members equal the
     one-device sampling's, in the same order. A ``Sharded`` tree of the
-    draws, position by position."""
+    draws, position by position. Under a model axis each model position
+    samples its shard of every leaf, from its part of the same noise (a
+    replicated leaf from the whole of it), and the draws of a data
+    position are a ``Group``."""
     sw = store.stacked("swag")
     live = [store.slot_of(p) for p in store.pids]
     if noise is None:
-        noise = swag_noise(sw.shards[0], len(live), samples_per_particle,
+        template = sw.shards[0]
+        if isinstance(template, Group):
+            if generator is None:
+                generator = torch.Generator(
+                    device=sw.devices[0]).manual_seed(0)
+            template = {"mean": _whole_shapes(template, "mean/"),
+                        "dev": template[0]["dev"]}
+        noise = swag_noise(template, len(live), samples_per_particle,
                            generator)
     z1, z2 = noise
     parts, devices, at = [], [], 0
@@ -188,10 +199,50 @@ def _sample_on_positions(store, samples_per_particle, scale, generator,
         state = tree_map(lambda x: x.index_select(0, idx), shard)
         take = slice(at, at + len(rows))
         at += len(rows)
-        parts.append(_sample(state, tree_map(lambda z: z[take].to(dev), z1),
-                             z2[take].to(dev), scale))
+        if isinstance(state, Group):
+            parts.append(_sample_group(state, tree_map(lambda z: z[take], z1),
+                                       z2[take], scale))
+        else:
+            parts.append(_sample(state, tree_map(lambda z: z[take].to(dev),
+                                                 z1), z2[take].to(dev),
+                                 scale))
         devices.append(dev)
     return Sharded(parts, devices, sw.plan)
+
+
+def _whole_shapes(group: Group, prefix: str):
+    """The ``prefix`` subtree of a Group's first shard with each leaf's
+    whole (joined) shape, on the meta device."""
+    m = len(group)
+
+    def full(path, x):
+        shape = list(x.shape)
+        dim = group.dims[prefix + path]
+        if dim is not None:
+            shape[dim] *= m
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+
+    sub = group[0][prefix.rstrip("/")]
+    leaves, unflatten = tree_flatten(sub)
+    return unflatten([full(p, x) for (p, _), x in
+                      zip(named_leaves(sub), leaves)])
+
+
+def _sample_group(state: Group, z1, z2, scale: float) -> Group:
+    """``_sample`` on each model position of a group's SWAG state, with
+    its part of the noise ``z1`` (split like the means) and all of
+    ``z2``: a Group of the draws, with the params' dims."""
+    m = len(state)
+    dims = {p[len("mean/"):]: d for p, d in state.dims.items()
+            if p.startswith("mean/")}
+    leaves, unflatten = tree_flatten(z1)
+    paths = [p for p, _ in named_leaves(z1)]
+    shards = []
+    for j, (shard, d) in enumerate(zip(state, state.devices)):
+        zj = unflatten([split_leaf(z, dims[p], m, j).to(d)
+                        for p, z in zip(paths, leaves)])
+        shards.append(_sample(shard, zj, z2.to(d), scale))
+    return Group(shards, dims, state.devices)
 
 
 def _swag_collect_msg(particle):

@@ -1,8 +1,9 @@
 """Registry of the configs the port runs (``get(name)``)."""
 from .base import ModelConfig
-from . import qwen1p5_0p5b, unet_advection, vit_mnist
+from . import llama3_8b, qwen1p5_0p5b, unet_advection, vit_mnist
 
 ALL = {
+    "llama3-8b": llama3_8b.CONFIG,
     "qwen1.5-0.5b": qwen1p5_0p5b.CONFIG,
     "vit-mnist": vit_mnist.CONFIG,
     "unet-advection": unet_advection.CONFIG,

@@ -18,7 +18,7 @@ from typing import Callable
 import torch
 
 from .precision import cast_floats
-from .tree import tree_flatten, tree_map
+from .tree import Group, tree_flatten, tree_leaves, tree_map
 
 
 def init_stacked(module, n: int, generator):
@@ -142,9 +142,16 @@ def ensemble_value_and_grad(loss_fn: Callable, compute_dtype=None):
     batch's floating leaves; autograd through the cast hands each
     gradient back in its master's dtype (the compute-dtype gradient,
     widened: the reference's ``g.astype(p.dtype)``), and the losses come
-    back in fp32."""
+    back in fp32.
+
+    Over a model group (``core.tree.Group``, a 2D placement) the loss
+    runs tensor-parallel (``models.tp``) and the gradient comes back as a
+    Group: split leaves per shard, replicated leaves summed over their
+    copies (``models.tp.group_grads``)."""
+    from ..models import tp
 
     def f(stacked_params, batch):
+        group = isinstance(stacked_params, Group)
         leaves, unflatten = tree_flatten(stacked_params)
         with torch.enable_grad():
             req = [x.detach().requires_grad_(True) for x in leaves]
@@ -152,11 +159,19 @@ def ensemble_value_and_grad(loss_fn: Callable, compute_dtype=None):
             if compute_dtype is not None:
                 params = cast_floats(params, compute_dtype)
                 batch = cast_floats(batch, compute_dtype)
-            losses, _ = loss_fn(params, batch)
-            grads = torch.autograd.grad(losses.sum(), req)
+            losses, _ = loss_fn(tp.entry(params), batch)
+            grads = torch.autograd.grad(losses.sum(), req,
+                                        allow_unused=group)
         if compute_dtype is not None:
             losses = losses.float()
-        return losses.detach(), unflatten(list(grads))
+        if not group:
+            return losses.detach(), unflatten(list(grads))
+        per, at = [], 0
+        for s in stacked_params.shards:
+            n = len(tree_leaves(s))
+            per.append(list(grads[at:at + n]))
+            at += n
+        return losses.detach(), tp.group_grads(stacked_params, per)
 
     return f
 
@@ -172,14 +187,21 @@ def ensemble_step(loss_fn: Callable, optimizer, compute_dtype=None):
     losses)``, the first two the caller's own trees. ``compute_dtype``:
     the grads come from ``ensemble_value_and_grad``'s cast, and the
     optimizer updates the masters in their own dtype."""
+    from ..models import tp
     vag = ensemble_value_and_grad(loss_fn, compute_dtype)
 
     def step(stacked_params, stacked_opt_state, batch, mask=None):
+        if optimizer.name == "adafactor" and tp.has_split(stacked_params):
+            raise NotImplementedError(
+                "adafactor factors each weight's second moment over the whole "
+                "leaf; a model shard's row and column means are not the "
+                "leaf's: train with adam or sgd on a model axis")
         losses, grads = vag(stacked_params, batch)
-        new_p, new_s = optimizer.update(stacked_params, grads,
-                                        stacked_opt_state)
-        masked_assign(mask, new_p, stacked_params)
-        masked_assign(mask, new_s, stacked_opt_state)
+        for p, g, s, mk in per_shard(stacked_params, grads,
+                                     stacked_opt_state, mask):
+            new_p, new_s = optimizer.update(p, g, s)
+            masked_assign(mk, new_p, p)
+            masked_assign(mk, new_s, s)
         if mask is not None:
             losses = torch.where(mask > 0, losses, 0.0)
         return stacked_params, stacked_opt_state, losses
@@ -187,14 +209,31 @@ def ensemble_step(loss_fn: Callable, optimizer, compute_dtype=None):
     return step
 
 
+def per_shard(*trees):
+    """(tree, ..., mask) per model position: the shards of Group trees
+    side by side, with the last argument (a mask, or None) on each
+    position's device; plain trees give one such tuple. An elementwise
+    update (an optimizer's, SVGD's, a SWAG collection) runs on each
+    shard as it is, so a replicated leaf's copies stay bit-equal."""
+    *trees, mask = trees
+    if not isinstance(trees[0], Group):
+        return [tuple(trees) + (mask,)]
+    devices = trees[0].devices
+    return [tuple(t.shards[j] for t in trees)
+            + (None if mask is None else mask.to(d),)
+            for j, d in enumerate(devices)]
+
+
 def ensemble_predict(forward: Callable):
     """hat f(x) = (1/n) sum_i nn_{theta_i}(x); with a mask, the BMA
     averages live slots only. ``forward(stacked_params, batch)`` returns
     member outputs with the particle axis leading."""
 
+    from ..models import tp
+
     def f(stacked_params, batch, mask=None):
         with torch.no_grad():
-            outs = forward(stacked_params, batch)
+            outs = forward(tp.entry(stacked_params), batch)
         if mask is None:
             return tree_map(lambda o: o.mean(0), outs)
         return masked_mean(outs, mask)

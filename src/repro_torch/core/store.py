@@ -3,8 +3,14 @@
 Counterpart of ``repro.core.store``. ``Placement`` is the reference's
 plan record: ``mesh=None`` keeps every particle on the store's device; a
 ``launch.mesh.Mesh`` puts the particle axis on a ``data`` axis of
-positions (a model axis larger than 1 waits for ROADMAP.md queue 1 item
-10b). ``StoreState`` is one particle's mapping view of the store
+positions and, with a ``model`` axis larger than 1, each particle across
+a model group of positions (2D placement): position ``(i, j)`` holds
+data slice ``i`` of the slot rows and model shard ``j`` of every leaf the
+sharding rules split (``sharding.rules``); a leaf with no rule, or one
+whose dim the axis does not divide, is replicated, whole at every
+position of the group, and every write keeps its ``m`` copies bit-equal.
+One data position's stack is then a ``core.tree.Group`` of its model
+shards. ``StoreState`` is one particle's mapping view of the store
 (``particle.state``).
 
   * canonical form — one *stacked* tree per state key ("params",
@@ -14,7 +20,7 @@ positions (a model axis larger than 1 waits for ROADMAP.md queue 1 item
     position's device, the layout the reference's GSPMD split of the
     padded axis gives. A capacity the axis does not divide is not split
     (the reference's ``_axis_fits``): it stays one stack on the first
-    position;
+    position (its first model group, under a model axis);
   * derived form — per-particle *views* (``leaf[slot]``, no copy) with
     dirty-tracked write-back.
 
@@ -80,15 +86,13 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
+import numpy as np
 import torch
 
 from ..obs import trace as _trace
+from ..sharding import rules as _rules
 from .precision import get as _resolve_precision
-from .tree import tree_leaves, tree_map
-
-
-ITEM_10B = ("waits for the model axis: tensor parallelism, 2D placement "
-            "and multi-host meshes (ROADMAP.md, queue 1 item 10b)")
+from .tree import Group, tree_flatten, tree_leaves, tree_map
 
 
 @dataclass(frozen=True, eq=False)
@@ -111,11 +115,9 @@ class Placement:
     model_axis: Optional[str] = "model"
 
     def __post_init__(self):
-        m = self.model_axis_size()
-        if m > 1:
-            raise NotImplementedError(
-                f"a model axis of size {m} (one particle across devices) "
-                f"{ITEM_10B}")
+        if self.model_axis_size() > 1 and self.mode != "tp":
+            raise ValueError(f"a model axis places in mode 'tp', not "
+                             f"{self.mode!r}")
 
     # -- plan identity -------------------------------------------------------
     def plan_key(self) -> tuple:
@@ -150,8 +152,7 @@ class Placement:
         ``param_tree`` counted at the ``precision``'s master itemsize
         (``core.precision.tree_bytes``; an explicit ``params_bytes`` with a
         ``precision`` is rescaled from fp32). With n <= 1 devices and
-        model <= 1: ``Placement(mesh=None)``. A model axis above 1 raises
-        (item 10b)."""
+        model <= 1: ``Placement(mesh=None)``."""
         from ..launch.mesh import make_bench_mesh, pick_model_axis
         from .precision import tree_bytes
         n = (len(devices) if devices is not None
@@ -166,10 +167,6 @@ class Placement:
             model = pick_model_axis(params_bytes or 0, n,
                                     device_memory_bytes=device_memory_bytes)
         model = int(model)
-        if model > 1:
-            raise NotImplementedError(
-                f"a model axis of size {model} (one particle across "
-                f"devices) {ITEM_10B}")
         if n <= 1 and model <= 1:
             return Placement(mesh=None)
         return Placement(mesh=make_bench_mesh(n, model=model,
@@ -199,19 +196,42 @@ class Placement:
         return self._axis_fits(n, self.particle_axis)
 
     # -- layouts -------------------------------------------------------------
-    def positions(self) -> List[torch.device]:
-        """The device of each position of the particle axis, in order."""
+    def groups(self) -> List[Tuple[torch.device, ...]]:
+        """The devices of each data position's model group, data position
+        by data position: ``(i, 0) .. (i, m-1)``; one device each without
+        a model axis (every position of the mesh is then a data
+        position)."""
         if self.mesh is None:
             return []
-        return list(self.mesh.flat_devices())
+        if self.model_axis_size() <= 1:
+            return [(d,) for d in self.mesh.flat_devices()]
+        names = list(self.mesh.axis_names)
+        grid = np.moveaxis(self.mesh.devices, names.index(self.model_axis),
+                           -1)
+        return [tuple(g) for g in grid.reshape(-1, grid.shape[-1])]
+
+    def positions(self) -> List[torch.device]:
+        """The device of each data position, in order: its model group's
+        first device."""
+        return [g[0] for g in self.groups()]
+
+    def devices(self) -> List[torch.device]:
+        """Every position's device, data position by data position."""
+        return [d for g in self.groups() for d in g]
 
     def vector(self, n: int) -> Optional[Tuple[Tuple[int, Any, slice], ...]]:
-        """Where the rows of an (n, ...) stack live: ``(position, device,
-        slice of rows)`` per position, contiguous in slot order, when the
-        particle axis divides n; None (no split) otherwise or with no
-        mesh."""
-        if self.spmd_axis(n) is None:
+        """Where the rows of an (n, ...) stack live: ``(data position,
+        device, slice of rows)`` per data position, contiguous in slot
+        order, when the particle axis divides n; None (no split) otherwise
+        or with no mesh. Under a model axis a stack is always split over
+        the model group: rows the particle axis does not divide stay on
+        the first data position."""
+        if self.mesh is None or n <= 0:
             return None
+        if self.spmd_axis(n) is None:
+            if self.model_axis_size() <= 1:
+                return None
+            return ((0, self.positions()[0], slice(0, n)),)
         pos = self.positions()
         k = n // len(pos)
         return tuple((i, d, slice(i * k, (i + 1) * k))
@@ -222,23 +242,116 @@ class Placement:
         return self.vector(_leading(stacked_tree) or 0)
 
     def matrix(self, n: int, d: int):
-        """The flattened (n, D) particle matrix (SVGD): split as its rows
-        (the model axis is 1, so D stays whole)."""
+        """The flattened (n, D) particle matrix (SVGD): rows over the data
+        positions (``vector``); under a model axis each position of a
+        group holds its model shard's block of the D columns
+        (``bdl.svgd._MeshStep``)."""
         return self.vector(n)
 
     def gathered_matrix(self, d: int):
-        """The (n, D) matrix after the gather: every row on the first
-        position, where the port runs the SVGD kernels once."""
+        """The (n, D) matrix after the gather over ``data`` only: every
+        row at the first data position's group, D still split over the
+        model axis: ``(model position j, device of (0, j), every row)``
+        per j (one entry without a model axis)."""
         if self.mesh is None:
             return None
-        return ((0, self.positions()[0], slice(None)),)
+        return tuple((j, dev, slice(None))
+                     for j, dev in enumerate(self.groups()[0]))
+
+    def activation_policy(self) -> Optional[Dict[str, Any]]:
+        """The ``sharding.policy`` map of this plan (None without a model
+        axis to split over)."""
+        if self.mesh is None or self.model_axis_size() <= 1:
+            return None
+        from ..sharding.policy import tp_activation_policy
+        return tp_activation_policy(dict(self.mesh.shape), self.model_axis)
+
+    # -- the model axis ----------------------------------------------------
+    def model_dims(self, tree, lead: int = 1) -> Dict[str, Optional[int]]:
+        """Each leaf's model dim under this plan (``sharding.rules.
+        model_dims``; ``lead`` leading stacking axes)."""
+        return _rules.model_dims(tree, self.model_axis_size(), lead=lead,
+                                 mode=self.mode,
+                                 model_axis=self.model_axis or "model")
+
+    def to_group(self, tree, i: int, *, lead: int = 1, dims=None) -> Group:
+        """``tree`` (a plain tree, or a Group of any layout) as a Group on
+        data position ``i``'s model group: each position's shard copied
+        to its device (a replicated leaf copied whole to every
+        position, so the copies are bit-equal)."""
+        devs = self.groups()[i]
+        m = len(devs)
+        if isinstance(tree, Group):
+            if len(tree) == m and tree.dims is not None:
+                return Group([tree_map(lambda x, d=d: x.to(d), s)
+                              for s, d in zip(tree.shards, devs)],
+                             tree.dims, devs)
+            tree = join_group(tree)
+        if dims is None:
+            dims = self.model_dims(tree, lead)
+        leaves, unflatten = tree_flatten(tree)
+        paths = [p for p, _ in _rules.named_leaves(tree)]
+        return Group([unflatten([
+            _rules.split_leaf(x, dims[p], m, j).to(d, copy=True).contiguous()
+            for p, x in zip(paths, leaves)]) for j, d in enumerate(devs)],
+            dims, devs)
+
+    def split(self, tree, n: Optional[int] = None) -> "Sharded":
+        """A plain stacked tree copied onto this plan's layout of its
+        ``n`` rows (the tree's leading dim by default): each data
+        position's rows on its device or, under a model axis, as a Group
+        over its model group."""
+        n = _leading(tree) if n is None else n
+        layout = self.vector(n)
+        if self.model_axis_size() <= 1:
+            shards = [tree_map(lambda x, s=s, d=d: x[s].to(d, copy=True),
+                               tree) for _, d, s in layout]
+        else:
+            dims = self.model_dims(tree, 1)
+            shards = [self.to_group(tree_map(lambda x, s=s: x[s], tree), i,
+                                    dims=dims) for i, _, s in layout]
+        return Sharded(shards, [d for _, d, _ in layout], self.plan_key())
+
+
+def join_group(group, device=None):
+    """The whole tree of a Group (``core.tree.Group``) on ``device`` (its
+    first position's by default): each split leaf's shards concatenated
+    in position order, each replicated leaf taken from the first
+    position. A plain tree is moved as it is."""
+    if not isinstance(group, Group):
+        return tree_map(lambda x: x.to(device), group) if device is not None \
+            else group
+    if group.dims is None:
+        raise ValueError("a Group made by model code has no dims to join by")
+    per = [tree_leaves(s) for s in group.shards]
+    _, unflatten = tree_flatten(group.shards[0])
+    paths = [p for p, _ in _rules.named_leaves(group.shards[0])]
+    return unflatten([_rules.join_leaf([leaves[k] for leaves in per],
+                                       group.dims[path], device)
+                      for k, path in enumerate(paths)])
+
+
+def _whole(tree, device):
+    """A row or stack on ``device``: joined when it is a Group."""
+    if isinstance(tree, Group):
+        return join_group(tree, device)
+    return _to(tree, device)
+
+
+def _bytes_per_device(tree) -> int:
+    """The bytes one device holds of a stack (a Group's largest shard)."""
+    if isinstance(tree, Group):
+        return max(_tree_bytes(s) for s in tree.shards)
+    return _tree_bytes(tree)
 
 
 class Sharded:
     """A stacked tree split over the positions of a mesh: ``shards[i]``
     holds rows ``[bounds[i], bounds[i+1])`` on ``devices[i]``, in slot
-    order. ``plan`` is the placement's ``plan_key()``. Consumers run a
-    program per shard (``runtime.program.ShardedProgram``)."""
+    order; under a model axis ``shards[i]`` is a ``Group`` over data
+    position i's model group and ``devices[i]`` its first device.
+    ``plan`` is the placement's ``plan_key()``. Consumers run a program
+    per data position (``runtime.program.ShardedProgram``)."""
 
     __slots__ = ("shards", "devices", "bounds", "plan", "__weakref__")
 
@@ -276,10 +389,11 @@ class Sharded:
 
     def gather(self, device=None):
         """The whole stack as one tree on ``device`` (the first
-        position's by default): one copy of every shard."""
+        position's by default): one copy of every shard, model shards
+        joined."""
         device = self.devices[0] if device is None else torch.device(device)
         return tree_map(lambda *xs: torch.cat([x.to(device) for x in xs]),
-                        *self.shards)
+                        *[_whole(s, device) for s in self.shards])
 
     @staticmethod
     def apply(fn, tree):
@@ -287,13 +401,6 @@ class Sharded:
         a plain tree."""
         return tree.map(fn) if isinstance(tree, Sharded) else fn(tree)
 
-    @staticmethod
-    def split(tree, layout, plan=None) -> "Sharded":
-        """A plain stacked tree copied onto a layout
-        (``Placement.vector``): each position's rows on its device."""
-        return Sharded([tree_map(lambda x, s=s, d=d: x[s].to(d, copy=True),
-                                 tree) for _, d, s in layout],
-                       [d for _, d, _ in layout], plan)
 
 
 def _pow2_at_least(n: int) -> int:
@@ -320,6 +427,76 @@ def _to(tree, device):
 
 def _tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def _logical_bytes(tree) -> int:
+    """The bytes of a stack counted once: a Group's replicated leaves
+    once, its split leaves over every shard."""
+    if not isinstance(tree, Group):
+        return _tree_bytes(tree)
+    paths = [p for p, _ in _rules.named_leaves(tree.shards[0])]
+    per = [tree_leaves(s) for s in tree.shards]
+    return sum(sum(lv[k].numel() * lv[k].element_size() for lv in
+                   (per if tree.dims[p] is not None else per[:1]))
+               for k, p in enumerate(paths))
+
+
+def _row_dims(placement, row):
+    """The model dims of one row (a Group's own when it has the plan's
+    model-axis size)."""
+    if isinstance(row, Group):
+        if len(row) == placement.model_axis_size() and row.dims is not None:
+            return row.dims
+        row = join_group(row)
+    return placement.model_dims(row, 0)
+
+
+def _copy_row(dst, src):
+    """``src`` (a plain row or a Group) written into the row view ``dst``
+    in place: a Group destination takes each model shard of ``src``,
+    every replicated leaf copied whole to each position (bit-equal)."""
+    if isinstance(dst, Group):
+        if isinstance(src, Group) and len(src) == len(dst):
+            tree_map(lambda d, x: d.copy_(x), dst, src)
+            return
+        whole = join_group(src)
+        paths = [p for p, _ in _rules.named_leaves(dst.shards[0])]
+        leaves = tree_leaves(whole)
+        for j, shard in enumerate(dst.shards):
+            for p, d, x in zip(paths, tree_leaves(shard), leaves):
+                d.copy_(_rules.split_leaf(x, dst.dims[p], len(dst), j))
+        return
+    tree_map(lambda d, x: d.copy_(x), dst, join_group(src))
+
+
+def _clone_group_row(dst, src, jitter: float, generator):
+    """``clone_slot`` over Group rows: each leaf copied shard by shard,
+    then (floating leaves, ``jitter`` > 0) the noise of the whole leaf
+    drawn once, in the one-device order, and added split like the leaf,
+    so the replicated copies stay bit-equal and the draws are the
+    one-device clone's."""
+    m = len(dst)
+    paths = [p for p, _ in _rules.named_leaves(dst.shards[0])]
+    dl = [tree_leaves(s) for s in dst.shards]
+    sl = [tree_leaves(s) for s in src.shards]
+    with torch.no_grad():
+        for k, p in enumerate(paths):
+            dim = dst.dims[p]
+            for j in range(m):
+                dl[j][k].copy_(sl[j][k])
+            first = dl[0][k]
+            if not (jitter and first.is_floating_point()):
+                continue
+            shape = list(first.shape)
+            if dim is not None:
+                shape[dim] *= m
+            noise = torch.randn(shape, generator=generator,
+                                device=(first.device if generator is None
+                                        else generator.device),
+                                dtype=first.dtype)
+            for j in range(m):
+                part = _rules.split_leaf(noise, dim, m, j)
+                dl[j][k].add_(part.to(dl[j][k].device), alpha=jitter)
 
 
 def _pad(tree, n: int):
@@ -373,7 +550,7 @@ class ParticleStore:
 
     def devices(self) -> List[torch.device]:
         """Every device the store's stacks live on (one per position)."""
-        return self.placement.positions() or [self.device]
+        return self.placement.devices() or [self.device]
 
     def _fits(self, st, n: int) -> bool:
         """Whether a stacked tree has the layout of ``n`` rows."""
@@ -395,18 +572,24 @@ class ParticleStore:
             return tree
         self.stats["device_puts"] += 1
         with _trace.span("store.h2d", "store", leaves=len(tree_leaves(tree))):
-            return Sharded.split(tree, layout, self.placement.plan_key())
+            return self.placement.split(tree, n)
 
     def _stack_rows(self, rows: List[Any]):
         """Rows of one key in slot order -> a stack on the layout of their
         count (each row moved to its position's device)."""
         layout = self._layout(len(rows))
         if layout is None:
-            return _stack([_to(r, self.device) for r in rows])
+            return _stack([_whole(r, self.device) for r in rows])
         self.stats["device_puts"] += 1
-        return Sharded([_stack([_to(r, d) for r in rows[s]])
-                        for _, d, s in layout], [d for _, d, _ in layout],
-                       self.placement.plan_key())
+        pl = self.placement
+        if pl.model_axis_size() <= 1:
+            shards = [_stack([_whole(r, d) for r in rows[s]])
+                      for _, d, s in layout]
+        else:
+            dims = _row_dims(pl, rows[0])
+            shards = [_stack([pl.to_group(r, i, lead=0, dims=dims)
+                              for r in rows[s]]) for i, _, s in layout]
+        return Sharded(shards, [d for _, d, _ in layout], pl.plan_key())
 
     # -- registry / slot allocation ------------------------------------------
     @property
@@ -602,9 +785,13 @@ class ParticleStore:
         return tree_map(lambda x: x[slot], st)
 
     def read(self, key: str, pid: int):
-        """View of one particle's entry (no copy)."""
+        """View of one particle's entry (no copy); under a model axis its
+        model shards joined on the store's device (a copy of each split
+        leaf)."""
         with self._lock:
-            return self._read_slot(key, self._slot_of[pid])
+            row = self._read_slot(key, self._slot_of[pid])
+        return join_group(row, self.device) if isinstance(row, Group) \
+            else row
 
     def is_stacked(self, key: str) -> bool:
         with self._lock:
@@ -669,7 +856,7 @@ class ParticleStore:
             for slot in sorted(dirty):
                 dst = (st.row(slot) if isinstance(st, Sharded)
                        else tree_map(lambda x, slot=slot: x[slot], st))
-                tree_map(lambda s, r: s.copy_(r), dst, rows.pop(slot))
+                _copy_row(dst, rows.pop(slot))
             self.stats["row_flushes"] += len(dirty)
         else:
             present = sorted(self._present.get(key, ()))
@@ -727,7 +914,7 @@ class ParticleStore:
             slots = [self._slot_of[p] for p in pids]
             if isinstance(st, Sharded):
                 self.stats["stacks"] += 1
-                return _stack([_to(st.row(s), self.device) for s in slots])
+                return _stack([_whole(st.row(s), self.device) for s in slots])
             if live and len(slots) == self.capacity:
                 return st
             self.stats["stacks"] += 1
@@ -848,6 +1035,10 @@ class ParticleStore:
             pairs = list(zip(tree_leaves(dst_row), tree_leaves(src_row)))
             if not pairs:
                 self._write_row(key, dst, self._read_slot(key, src))
+            elif isinstance(dst_row, Group):
+                _clone_group_row(dst_row, src_row, jitter, generator)
+                self._mark_present(key, dst)
+                self.stats["slot_clones"] += 1
             else:
                 with torch.no_grad():
                     for row, from_row in pairs:
@@ -920,7 +1111,7 @@ class ParticleStore:
                 if not rows:
                     return 0
                 return _tree_bytes(next(iter(rows.values())))
-            total = (sum(_tree_bytes(s) for s in tree.shards)
+            total = (sum(_logical_bytes(s) for s in tree.shards)
                      if isinstance(tree, Sharded) else _tree_bytes(tree))
             return total // max(self.capacity, 1)
 
@@ -945,6 +1136,8 @@ class ParticleStore:
             tree = self._stacked.get(key)
             if isinstance(tree, Sharded):
                 tree = tree.shards[0]
+            if isinstance(tree, Group):
+                tree = tree.shards[0]
             if tree is None:
                 rows = self._rows.get(key, {})
                 tree = next(iter(rows.values()), None)
@@ -955,13 +1148,14 @@ class ParticleStore:
 
     def per_device_bytes(self, key: str = "params") -> int:
         """Bytes of ``key``'s state resident on one device: the canonical
-        stacked tree (its largest position's shard under a mesh), or the
-        rows when none is stacked. Reads without flushing or counting; 0
-        when the store holds nothing for ``key``."""
+        stacked tree (its largest position's shard under a mesh, a model
+        shard under a model axis), or the rows when none is stacked.
+        Reads without flushing or counting; 0 when the store holds
+        nothing for ``key``."""
         with self._lock:
             tree = self._stacked.get(key)
             if isinstance(tree, Sharded):
-                return max(_tree_bytes(s) for s in tree.shards)
+                return max(_bytes_per_device(s) for s in tree.shards)
             if tree is not None:
                 return _tree_bytes(tree)
             return sum(_tree_bytes(t)

@@ -10,6 +10,11 @@ stacks particles. Every other function takes the stacked tree with a
 leading particle axis ``P`` and returns per-particle outputs ``(P, ...)``.
 Batches carry no particle axis: every particle sees the same batch.
 
+Under a model axis (a 2D placement) the stacked tree arrives as a
+``core.tree.Group`` of model shards: ``forward`` and the serving entry
+points hand it to their tensor-parallel counterparts in ``models.tp``,
+and ``loss_fn`` takes the same loss on what ``tp.forward`` returns.
+
 LM batches: ``{"tokens": (B, S) int, "labels": (B, S) int}`` (labels < 0
 masked); vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,)
 int}``; pde batches: ``{"u0": (B, L, 1) f32, "u1": (B, L, 1) f32}``.
@@ -24,7 +29,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as _ckpt
 
 from ..core.precision import tree_bytes
+from ..core.tree import Group
 from ..runtime.program import host_check
+from ..sharding.policy import maybe_shard
 from .blocks import (dense_init, norm_apply, norm_init, paged_write_index,
                      prefill_write_index, window_write_index)
 from .transformer import (decode_guard, paged_guard, stack_apply_decode,
@@ -33,6 +40,7 @@ from .transformer import (decode_guard, paged_guard, stack_apply_decode,
                           stack_apply_prefill_paged,
                           stack_apply_window_paged, stack_cache_init,
                           stack_init, stack_paged_init)
+from . import tp
 from . import unet1d as unet_mod
 from . import vit as vit_mod
 
@@ -109,6 +117,8 @@ def forward(params, batch, cfg):
     (``loss_fn`` applies the head chunk by chunk), logits (P, B,
     n_classes) for the vision family, the predicted next state (P, B, L,
     1) for the pde family."""
+    if isinstance(params, Group):
+        return tp.forward(params, batch, cfg)
     if cfg.family == "vision":
         return vit_mod.vit_apply(params, batch["images"], cfg), {}
     if cfg.family == "pde":
@@ -163,16 +173,20 @@ def _embed(params, tokens, dtype):
     """tokens (B, S) -> (P, B, S, D): the rows are gathered, then cast (the
     same values as casting the table first, without writing a cast copy
     of the whole table when it is stored in another dtype)."""
-    return params["embed"][:, tokens.long()].to(dtype)
+    return maybe_shard(params["embed"][:, tokens.long()].to(dtype),
+                       "residual")
 
 
 def _lm_logits(params, x, cfg):
-    """x (P, ..., D) -> (P, ..., V); the tied head is x @ embed.T."""
+    """x (P, ..., D) -> (P, ..., V); the tied head is x @ embed.T (over a
+    model group, ``tp.logits``)."""
+    if isinstance(params, Group):
+        return tp.logits(params, x, cfg)
     w = (params["embed"].transpose(1, 2) if cfg.tie_embeddings
          else params["lm_head"]["w"]).to(x.dtype)
     P, D = x.shape[0], x.shape[-1]
-    return torch.bmm(x.reshape(P, -1, D), w).reshape(*x.shape[:-1],
-                                                     w.shape[-1])
+    return maybe_shard(torch.bmm(x.reshape(P, -1, D), w).reshape(
+        *x.shape[:-1], w.shape[-1]), "logits")
 
 
 def prefill(params, batch, cfg, max_len=None):
@@ -183,11 +197,15 @@ def prefill(params, batch, cfg, max_len=None):
     pass S + decode budget + 1 for generation). Returns (last-token
     logits (P, B, V), caches): per attention layer k/v (P, B, max_len,
     KVH, hd) and pos (B, max_len) int32, shared by the particles."""
-    tokens = torch.as_tensor(batch["tokens"]).to(params["embed"].device)
+    device = (params.devices[0] if isinstance(params, Group)
+              else params["embed"].device)
+    tokens = torch.as_tensor(batch["tokens"]).to(device)
     B, S = tokens.shape
     C = S if max_len is None else max_len
     if C < S:
         raise ValueError(f"max_len {C} < prompt length {S}")
+    if isinstance(params, Group):
+        return tp.prefill(params, tokens, cfg, C)
     caches = stack_cache_init(cfg, params["embed"].shape[0], B, C,
                               dtype=_cache_dtype(cfg), device=tokens.device)
     x = _embed(params, tokens, _dtype(cfg))
@@ -212,6 +230,8 @@ def decode_step(params, token, caches, cur_pos, cfg):
     else:
         check(cur_pos)
         cur_pos = torch.tensor(cur_pos, device=token.device)
+    if isinstance(params, Group):
+        return tp.decode_step(params, token, caches, cur_pos, cfg)
     x = _embed(params, token.clamp(min=0)[:, None], _dtype(cfg))
     ctx: Dict[str, Any] = {"cur_pos": cur_pos}
     x, caches = stack_apply_decode(params, x, cfg, caches, ctx)
@@ -262,13 +282,16 @@ def decode_step_paged(params, tokens, pages, block_tables, seq_lens, cfg, *,
     paged_guard(cfg)
     block_tables = block_tables.contiguous()
     seq_lens = seq_lens.contiguous()
-    x = _embed(params, tokens.clamp(min=0)[:, None], _dtype(cfg))
+    x = (None if isinstance(params, Group) else
+         _embed(params, tokens.clamp(min=0)[:, None], _dtype(cfg)))
     ctx: Dict[str, Any] = {
         "block_tables": block_tables, "seq_lens": seq_lens,
         "write_index": paged_write_index(block_tables, seq_lens,
                                          _page_size(pages),
                                          scratch_page(pages)),
         "decode_kernel": decode_kernel}
+    if isinstance(params, Group):
+        return tp.decode_step_paged(params, tokens, pages, ctx, cfg)
     x, pages = stack_apply_paged(params, x, cfg, pages, ctx)
     x = norm_apply(params["final_norm"], x)
     return _lm_logits(params, x, cfg)[:, :, 0], pages
@@ -289,12 +312,14 @@ def decode_window_paged(params, tokens, pages, block_tables, seq_lens,
     block_tables = block_tables.contiguous()
     seq_lens = seq_lens.contiguous()
     W = tokens.shape[1]
-    x = _embed(params, tokens.clamp(min=0), _dtype(cfg))
     ctx: Dict[str, Any] = {
         "block_tables": block_tables, "seq_lens": seq_lens,
         "write_index": window_write_index(block_tables, seq_lens, win_lens,
                                           W, _page_size(pages),
                                           scratch_page(pages))}
+    if isinstance(params, Group):
+        return tp.decode_window_paged(params, tokens, pages, ctx, cfg)
+    x = _embed(params, tokens.clamp(min=0), _dtype(cfg))
     x, pages = stack_apply_window_paged(params, x, cfg, pages, ctx)
     x = norm_apply(params["final_norm"], x)
     return _lm_logits(params, x, cfg), pages
@@ -309,12 +334,14 @@ def prefill_paged(params, tokens, pages, block_table_row, n_tokens, cfg):
     Sp positions are written: the padding's go to the scratch page.
     Returns (last-real-token logits (P, 1, V), pages)."""
     paged_guard(cfg)
-    x = _embed(params, tokens, _dtype(cfg))
-    n_tokens = torch.as_tensor(n_tokens, device=x.device)
+    n_tokens = torch.as_tensor(n_tokens, device=tokens.device)
     ctx: Dict[str, Any] = {
         "write_index": prefill_write_index(block_table_row, n_tokens,
                                            tokens.shape[1], _page_size(pages),
                                            scratch_page(pages))}
+    if isinstance(params, Group):
+        return tp.prefill_paged(params, tokens, pages, ctx, n_tokens, cfg)
+    x = _embed(params, tokens, _dtype(cfg))
     x, pages = stack_apply_prefill_paged(params, x, cfg, pages, ctx)
     x = norm_apply(params["final_norm"], x)
     last = (n_tokens.long() - 1).clamp(min=0).reshape(1)
@@ -323,7 +350,10 @@ def prefill_paged(params, tokens, pages, block_table_row, n_tokens, cfg):
 
 
 def _first_kv(tree):
-    """The k leaf of the first attention layer of a page or cache tree."""
+    """The k leaf of the first attention layer of a page or cache tree
+    (its first model shard's, for a Group)."""
+    if isinstance(tree, Group):
+        tree = tree.shards[0]
     for group in ("units", "head", "tail"):
         if tree[group]:
             return tree[group][0]["k"]

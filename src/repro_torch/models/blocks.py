@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops as _kops
 from ..kernels import ref as _kref
+from ..sharding.policy import maybe_shard
 
 
 # --------------------------------------------------------------------------
@@ -140,7 +141,17 @@ def attn_qkv(p, x, cfg, positions):
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (maybe_shard(q, "attn_heads"), maybe_shard(k, "attn_kv"),
+            maybe_shard(v, "attn_kv"))
+
+
+def kv_heads(t, cfg):
+    """k or v (..., KVH, hd), or a pool or cache of them, cut to the kv
+    heads a model position's q heads read: ``cfg.kv_window`` (set by
+    ``models.tp`` when the model axis does not divide the kv-head count,
+    so every position holds every kv head), else ``t`` itself."""
+    w = getattr(cfg, "kv_window", None)
+    return t if w is None else t[..., w[0]:w[1], :]
 
 
 def full_attention(q, k, v, *, causal: bool):
@@ -409,7 +420,7 @@ def attn_apply_paged(p, x, cfg, pages, *, block_tables, seq_lens,
     q, k, v = attn_qkv(p, x, cfg, seq_lens[:, None]
                        if cfg.rope_theta > 0 else None)
     write_kv(pages, k[:, :, 0], v[:, :, 0], write_index)
-    kp, vp = pages["k"], pages["v"]
+    kp, vp = kv_heads(pages["k"], cfg), kv_heads(pages["v"], cfg)
     out = paged_attention(q[:, :, 0], kp, vp, block_tables=block_tables,
                           seq_lens=seq_lens, use_kernel=use_kernel)
     out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))
@@ -462,7 +473,7 @@ def attn_apply_window_paged(p, x, cfg, pages, *, block_tables, seq_lens,
     pos = seq_lens.clamp(min=0)[:, None] + torch.arange(W, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, pos if cfg.rope_theta > 0 else None)
     write_kv(pages, k, v, write_index)
-    kp, vp = pages["k"], pages["v"]
+    kp, vp = kv_heads(pages["k"], cfg), kv_heads(pages["v"], cfg)
     out = _kops.paged_decode_window_attention(q, kp, vp, block_tables,
                                               seq_lens)
     out = dense_apply(p["wo"], out.reshape(P, B, W, -1))
@@ -482,7 +493,8 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, write_index):
     positions = torch.arange(Sp, device=x.device)
     q, k, v = attn_qkv(p, x, cfg,
                        positions if cfg.rope_theta > 0 else None)
-    out = _kops.flash_attention(q, k, v, causal=True)
+    out = _kops.flash_attention(q, kv_heads(k, cfg), kv_heads(v, cfg),
+                                causal=True)
     out = dense_apply(p["wo"], out.reshape(P, B, Sp, -1))
     write_kv(pages, k[:, 0], v[:, 0], write_index)
     return out, pages
@@ -501,6 +513,7 @@ def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal"):
     P, B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
+    k, v = kv_heads(k, cfg), kv_heads(v, cfg)
     if kind == "causal":
         out = flash_attention(q, k, v, kind="causal",
                               softcap=cfg.logit_softcap)
@@ -527,8 +540,8 @@ def attn_apply_decode(p, x, cfg, cache, *, cur_pos):
     cache["k"].index_copy_(2, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(2, slot, v.to(cache["v"].dtype))
     cache["pos"].index_copy_(1, slot, pos.to(torch.int32))
-    out = _kops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
-                                 cache["pos"])
+    out = _kops.decode_attention(q[:, :, 0], kv_heads(cache["k"], cfg),
+                                 kv_heads(cache["v"], cfg), cache["pos"])
     out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))
     return out, cache
 
@@ -542,7 +555,8 @@ def attn_apply_prefill(p, x, cfg, cache):
     P, B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
-    out = _kops.flash_attention(q, k, v, causal=True)
+    out = _kops.flash_attention(q, kv_heads(k, cfg), kv_heads(v, cfg),
+                                causal=True)
     out = dense_apply(p["wo"], out.reshape(P, B, S, -1))
     cache["k"][:, :, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :, :S] = v.to(cache["v"].dtype)
@@ -574,6 +588,6 @@ def mlp_apply(p, x, cfg):
     tanh approximation ``jax.nn.gelu`` defaults to."""
     if "wi" in p:
         h = F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x)
-        return dense_apply(p["wo"], h)
+        return dense_apply(p["wo"], maybe_shard(h, "mlp_hidden"))
     h = F.gelu(dense_apply(p["w1"], x), approximate="tanh")
-    return dense_apply(p["w2"], h)
+    return dense_apply(p["w2"], maybe_shard(h, "mlp_hidden"))

@@ -104,26 +104,29 @@ def _remat(cfg, body):
     return checkpoint_policy(name)(body)
 
 
-def stack_apply_full(params, x, cfg):
+def stack_apply_full(params, x, cfg, layer=layer_apply_full):
     """The training forward through the stack. x (P, B, S, D) -> (P, B,
     S, D). The reference scans its units; here a Python loop takes each
     unit's params as views (``unbind_units``), and the unit body is
-    checkpointed as ``_remat`` says."""
+    checkpointed as ``_remat`` says. ``layer(kind, p, x, cfg)`` runs one
+    layer: ``models.tp`` passes its tensor-parallel layer, with ``params``
+    a tree whose layers hold one tree per model position and ``x`` a list
+    with one tensor per position."""
     full_guard(cfg)
 
     def body(x, unit):
         for kind, p in zip(cfg.pattern, unit):
-            x = layer_apply_full(kind, p, x, cfg)
+            x = layer(kind, p, x, cfg)
         return x
 
     body = _remat(cfg, body)
     for kind, p in zip(cfg.head_layers, params["head"]):
-        x = layer_apply_full(kind, p, x, cfg)
+        x = layer(kind, p, x, cfg)
     if cfg.n_units:
         for unit in unbind_units(params["units"]):
             x = body(x, unit)
     for kind, p in zip(cfg.tail_layers, params["tail"]):
-        x = layer_apply_full(kind, p, x, cfg)
+        x = layer(kind, p, x, cfg)
     return x
 
 
@@ -168,7 +171,7 @@ def decode_guard(cfg):
 def stack_apply_prefill(params, x, cfg, caches):
     """Prompt prefill that fills the empty dense decode caches of
     ``stack_cache_init`` in place. x (P, B, S, D). Returns (x, caches)."""
-    return _stack_apply_dense(params, x, cfg, caches,
+    return _stack_apply_state(params, x, cfg, caches, cache_unit,
                               lambda kind, p, x, c: layer_apply_prefill(
                                   kind, p, x, cfg, c))
 
@@ -176,28 +179,48 @@ def stack_apply_prefill(params, x, cfg, caches):
 def stack_apply_decode(params, x, cfg, caches, ctx):
     """One decode step over the dense caches. x (P, B, 1, D); ctx:
     cur_pos. Returns (x, caches), updated in place."""
-    return _stack_apply_dense(params, x, cfg, caches,
+    return _stack_apply_state(params, x, cfg, caches, cache_unit,
                               lambda kind, p, x, c: layer_apply_decode(
                                   kind, p, x, cfg, c, ctx))
 
 
-def _stack_apply_dense(params, x, cfg, caches, layer_fn):
-    """Run ``layer_fn(kind, p, x, cache)`` over the stack with each layer's
-    params and cache as views (unit caches: k/v ``[:, u]``, pos ``[u]``),
-    so the in-place cache writes land in the stacked caches."""
-    dt = x.dtype
-    for kind, p, c in zip(cfg.head_layers, params["head"], caches["head"]):
-        x, _ = layer_fn(kind, p, x, c)
+def stack_layers(params, state, cfg, pick):
+    """(where, kind, p, s) of every layer of the stack, in order: ``where``
+    is "head", "units" or "tail"; a unit layer's params are views
+    ``a[:, u]`` of the stacked tree and its state (pages or a dense cache)
+    is ``pick(unit state, u)``, so in-place writes land in the stacked
+    state."""
+    for kind, p, s in zip(cfg.head_layers, params["head"], state["head"]):
+        yield "head", kind, p, s
     for u in range(cfg.n_units):
         for j, kind in enumerate(cfg.pattern):
-            p = tree_map(lambda a: a[:, u], params["units"][j])
-            uc = caches["units"][j]
-            c = {"k": uc["k"][:, u], "v": uc["v"][:, u], "pos": uc["pos"][u]}
-            x, _ = layer_fn(kind, p, x, c)
+            yield ("units", kind,
+                   tree_map(lambda a: a[:, u], params["units"][j]),
+                   pick(state["units"][j], u))
+    for kind, p, s in zip(cfg.tail_layers, params["tail"], state["tail"]):
+        yield "tail", kind, p, s
+
+
+def cache_unit(c, u: int):
+    """Unit u's dense cache: k/v ``[:, u]``, pos ``[u]``."""
+    return {"k": c["k"][:, u], "v": c["v"][:, u], "pos": c["pos"][u]}
+
+
+def page_unit(pg, u: int):
+    """Unit u's page pool: every leaf ``[:, u]``."""
+    return tree_map(lambda a: a[:, u], pg)
+
+
+def _stack_apply_state(params, x, cfg, state, pick, layer_fn):
+    """Run ``layer_fn(kind, p, x, state)`` over the stack (``stack_layers``),
+    casting x back to its dtype after each unit layer as the reference's
+    scan carry does. Returns (x, state)."""
+    dt = x.dtype
+    for where, kind, p, st in stack_layers(params, state, cfg, pick):
+        x, _ = layer_fn(kind, p, x, st)
+        if where == "units":
             x = x.to(dt)
-    for kind, p, c in zip(cfg.tail_layers, params["tail"], caches["tail"]):
-        x, _ = layer_fn(kind, p, x, c)
-    return x, caches
+    return x, state
 
 
 def stack_cache_init(cfg, particles: int, batch: int, seq_len: int, *,
@@ -245,18 +268,9 @@ def _layer_apply_prefill_paged(kind, p, x, cfg, pages, ctx):
 
 
 def _stack_apply_paged_common(params, x, cfg, pages, ctx, layer_fn):
-    dt = x.dtype
-    for kind, p, pg in zip(cfg.head_layers, params["head"], pages["head"]):
-        x, _ = layer_fn(kind, p, x, cfg, pg, ctx)
-    for u in range(cfg.n_units):
-        for j, kind in enumerate(cfg.pattern):
-            p = tree_map(lambda a: a[:, u], params["units"][j])
-            pg = tree_map(lambda a: a[:, u], pages["units"][j])
-            x, _ = layer_fn(kind, p, x, cfg, pg, ctx)
-            x = x.to(dt)
-    for kind, p, pg in zip(cfg.tail_layers, params["tail"], pages["tail"]):
-        x, _ = layer_fn(kind, p, x, cfg, pg, ctx)
-    return x, pages
+    return _stack_apply_state(params, x, cfg, pages, page_unit,
+                              lambda kind, p, x, pg: layer_fn(
+                                  kind, p, x, cfg, pg, ctx))
 
 
 def stack_apply_paged(params, x, cfg, pages, ctx):

@@ -35,8 +35,10 @@ def vit_init(gen, cfg):
     }
 
 
-def vit_apply(params, images, cfg):
-    """images (B, 28, 28, 1) -> logits (P, B, n_classes)."""
+def vit_apply(params, images, cfg, encoder=None):
+    """images (B, 28, 28, 1) -> logits (P, B, n_classes). ``encoder(x)``
+    runs the encoder layers on the embedded patches (default: this tree's
+    units in turn; ``models.tp`` runs them over a model group)."""
     P = params["pos"].shape[0]
     B = images.shape[0]
     g = IMG // PATCH
@@ -45,8 +47,11 @@ def vit_apply(params, images, cfg):
     x = dense_apply(params["patch"], x.expand(P, *x.shape))    # (P, B, 4, D)
     cls = params["cls"].to(x.dtype).expand(P, B, 1, cfg.d_model)
     x = torch.cat([cls, x], dim=2) + params["pos"].to(x.dtype)
-    # a Python loop over the stacked units takes the place of lax.scan
-    for unit in unbind_units(params["units"]):
-        x = layer_apply_full("enc_attn_mlp", unit, x, cfg)
+    if encoder is None:
+        # a Python loop over the stacked units takes the place of lax.scan
+        for unit in unbind_units(params["units"]):
+            x = layer_apply_full("enc_attn_mlp", unit, x, cfg)
+    else:
+        x = encoder(x)
     x = norm_apply(params["final_norm"], x)
     return dense_apply(params["head"], x[:, :, 0])

@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from ..core.store import Sharded
-from ..core.tree import tree_flatten, tree_leaves, tree_map
+from ..core.tree import Group, tree_flatten, tree_leaves, tree_map
 from ..kernels.ops import COUNTED
 from ..obs import clock
 from ..obs import device as _obs
@@ -112,6 +112,8 @@ def ident(obj) -> Any:
 def _structure(tree):
     if tree is None:
         return None
+    if isinstance(tree, Group):
+        return ("group", tuple(_structure(s) for s in tree.shards))
     if isinstance(tree, dict):
         return ("dict", tuple((k, _structure(v)) for k, v in tree.items()))
     if isinstance(tree, (tuple, list)):
@@ -190,6 +192,8 @@ def arg_device(args) -> Optional[torch.device]:
     walk stops there, so a step's lookup never flattens the params."""
     if isinstance(args, torch.Tensor):
         return args.device
+    if isinstance(args, Group):
+        return args.devices[0]
     if isinstance(args, dict):
         args = list(args.values())
     for a in args if isinstance(args, (tuple, list)) else ():
@@ -400,10 +404,12 @@ def _tree_bytes(tree) -> int:
 
 
 def _param_bytes_per_device(spec: ProgramSpec, args) -> int:
-    """Bytes of the first "state" argument, all of it on the one device
-    (the reference's per-device param bytes without a mesh)."""
+    """Bytes of the first "state" argument on one device: all of it, or
+    a model group's largest shard."""
     for kind, a in zip(spec.in_kinds, args):
         if kind == "state":
+            if isinstance(a, Group):
+                return max(_tree_bytes(s) for s in a.shards)
             return _tree_bytes(a)
     return 0
 
@@ -518,8 +524,13 @@ def capture(spec: ProgramSpec, args, cache_key=None) -> Program:
         torch.cuda.synchronize(device)
         before = [k.launches for k in COUNTED]
         # what torch.cuda.graph does on entry, done first, so that the
-        # reserved bytes grow by the graph's private pool alone
-        gc.collect()
+        # reserved bytes grow by the graph's private pool alone. A full
+        # collection (the LM's particles sit in reference cycles) only
+        # when less than half the device is free: it costs 0.1-0.2 s at a
+        # large heap, and torch's own entry stopped collecting for that
+        free, total = torch.cuda.mem_get_info(device)
+        if free < total // 2:
+            gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
@@ -553,12 +564,23 @@ def capture(spec: ProgramSpec, args, cache_key=None) -> Program:
                    counted=counted)
 
 
+def spans_devices(args) -> bool:
+    """Whether a model group among ``args`` sits on more than one device
+    (distinct GPUs)."""
+    return any(isinstance(a, Group) and len(set(a.devices)) > 1
+               for a in args)
+
+
 def lower(spec: ProgramSpec, args, cache_key=None) -> Program:
     """The default capturer: a CUDA graph for CUDA arguments, the eager
-    body for CPU ones; any other device raises."""
+    body for CPU ones; any other device raises. A step over a model group
+    that spans several GPUs runs eagerly (``ShardedProgram``)."""
     device = arg_device(args)
-    if device is not None and device.type == "cuda":
+    if device is not None and device.type == "cuda" \
+            and not spans_devices(args):
         return capture(spec, args, cache_key)
+    if device is not None and device.type == "cuda":
+        return eager(spec, args, cache_key)
     if device is None or device.type == "cpu":
         return eager(spec, args, cache_key)
     raise ValueError(f"{spec.name}: no program for device {device}")
@@ -578,8 +600,21 @@ def device_guard(device):
 
 class ShardedProgram:
     """A spec over ``Sharded`` arguments (``core.store``): one ``Program``
-    per position, each run on that position's shard of every sharded
-    argument, under the position's device.
+    per data position, each run on that position's shard of every
+    sharded argument, under the position's device.
+
+    Under a model axis a data position's shard is a ``core.tree.Group``
+    and its program runs the model group's ``m`` shards layer by layer
+    (``models.tp``): the row-parallel reductions sit inside every layer,
+    twice, so they are inside the program, each a sum of the ``m``
+    partials in position order handed to every position. When every
+    position of the group is one device (one card, the CPU tests) the
+    program captures as one CUDA graph. On distinct GPUs it runs eagerly
+    (``lower``): one graph would have to hold launches on several
+    devices and the copies between them, and a graph per device between
+    reductions would be ``2 * n_layers + 1`` programs a step with a
+    host-side hand-off at every one; neither is measured on a machine
+    with one card.
 
     Arguments: a ``Sharded`` one gives each position its shard; a
     "vector" tensor of the stack's length gives each position its slice
@@ -594,8 +629,8 @@ class ShardedProgram:
     order into a buffer on the first position, and the combine spec (one
     more program there, captured on that buffer) reduces them with the
     mask, the last argument; the result does not depend on the number of
-    positions. No collective is inside a captured graph: a gather is a
-    copy between two programs.
+    positions. No collective over the particle axis is inside a captured
+    graph: a gather is a copy between two programs.
 
     The programs come from the cache that built this one, keyed on the
     placement's plan and the position. The first call with the very

@@ -31,7 +31,7 @@ import torch
 
 from ..core import functional
 from ..core import precision as precision_mod
-from ..core.tree import tree_map
+from ..core.tree import Group, tree_map
 from .program import ProgramSpec, ident
 
 
@@ -64,9 +64,11 @@ def ensemble_predict(forward: Callable) -> ProgramSpec:
     """hat f(x) = (1/n) sum_i nn_{theta_i}(x): ``fused(stacked_params,
     batch, mask)``, mask-weighted over live slots."""
     def members(ctx):
+        from ..models import tp
+
         def fwd(stacked_params, batch):
             with torch.no_grad():
-                return (forward(stacked_params, batch),)
+                return (forward(tp.entry(stacked_params), batch),)
         return fwd
 
     key = ("ensemble_predict", ident(forward))
@@ -109,9 +111,21 @@ def map_step(fn: Callable, *, key: Tuple, n_state: int = 1,
     mask)`` updates the first tree in place and returns it. ``fn`` takes
     the whole particle axis and the mask itself (the reference vmaps a
     per-particle ``fn``; a CUDA launch cannot be vmapped), and keeps dead
-    slots bit for bit. ``key`` must be stable across calls."""
+    slots bit for bit. ``key`` must be stable across calls. Over model
+    groups (``core.tree.Group``) ``fn`` runs on each model shard
+    (``functional.per_shard``): the map is elementwise, so a replicated
+    leaf's copies stay bit-equal."""
     def make(ctx):
-        return lambda *args: (fn(*args),)
+        def fused(*args):
+            if not isinstance(args[0], Group):
+                return (fn(*args),)
+            trees = args if not masked else args[:-1]
+            mask = args[-1] if masked else None
+            for part in functional.per_shard(*trees, mask):
+                fn(*(part if masked else part[:-1]))
+            return (args[0],)
+
+        return fused
 
     return ProgramSpec(
         name="map_step",
@@ -279,22 +293,27 @@ def spec_verify(verify_fn: Callable, reduce_fn: Callable, *, w_max: int,
     1-row GEMMs in the last bits, but verify writes last, so the pool
     holds verify's values either way and stays consistent with the heads
     it returned."""
+    def members(stacked_params, pages, packed):
+        tokens = packed[:, :w_max]
+        seq_lens = packed[:, w_max]
+        win_lens = packed[:, w_max + 1]
+        bt = packed[:, w_max + 2:]
+        return verify_fn(stacked_params, pages, tokens, bt, seq_lens,
+                         win_lens)
+
     def make(ctx):
         def fused(stacked_params, pages, packed, mask):
-            tokens = packed[:, :w_max]
-            seq_lens = packed[:, w_max]
-            win_lens = packed[:, w_max + 1]
-            bt = packed[:, w_max + 2:]
-            logits, pages = verify_fn(stacked_params, pages, tokens, bt,
-                                      seq_lens, win_lens)
+            logits, pages = members(stacked_params, pages, packed)
             return reduce_fn(logits, mask), pages
 
         return fused
 
+    key = ("spec_verify", w_max) + tuple(key)
     return ProgramSpec(
-        name="spec_verify", key=("spec_verify", w_max) + tuple(key),
+        name="spec_verify", key=key,
         make=make, in_kinds=("state", "state", "replicated", "replicated"),
-        out_kinds=("replicated", "in:1"))
+        out_kinds=("replicated", "in:1"),
+        split=_paged_split(key, members, reduce_fn))
 
 
 def _serving(prec):
@@ -339,8 +358,12 @@ def bma_step(forward: Callable, reduce_fn: Callable, *,
     0-d device tensor, so one program serves every position. Under a
     ``precision`` that casts for serving, the body runs ``served(forward,
     precision)`` and the spec carries the policy's key."""
+    from ..models import tp
     prec = _serving(precision)
-    fwd = served(forward, prec)
+    served_fwd = served(forward, prec)
+
+    def fwd(stacked_params, state, batch):
+        return served_fwd(tp.entry(stacked_params), state, batch)
 
     def make(ctx):
         def fused(stacked_params, state, batch, mask):
@@ -349,11 +372,16 @@ def bma_step(forward: Callable, reduce_fn: Callable, *,
 
         return fused
 
+    key = ("bma_step",) + tuple(key)
+    pkey = None if prec is None else prec.key()
     return ProgramSpec(
-        name="bma_step", key=("bma_step",) + tuple(key), make=make,
+        name="bma_step", key=key, make=make,
         in_kinds=("state", "rows", "replicated", "replicated"),
-        out_kinds=("replicated", "in:1"),
-        precision=None if prec is None else prec.key())
+        out_kinds=("replicated", "in:1"), precision=pkey,
+        split=_split(key, lambda ctx: fwd,
+                     lambda ctx: lambda outs, mask: reduce_fn(outs, mask),
+                     ("state", "rows", "replicated"), ("replicated", "in:1"),
+                     "replicated", pkey))
 
 
 def bma_predict(forward: Callable, heads_fn: Callable, *, members: bool,
@@ -375,13 +403,15 @@ def bma_predict(forward: Callable, heads_fn: Callable, *, members: bool,
     prec = _serving(precision)
     fwd = served(forward, prec)
 
+    from ..models import tp
+
     def reduce(outs, mask):
         heads = heads_fn(outs, mask)
         return (heads, outs) if members else heads
 
     def make(ctx):
         def fused(stacked_params, batch, mask):
-            return reduce(fwd(stacked_params, batch), mask)
+            return reduce(fwd(tp.entry(stacked_params), batch), mask)
 
         return fused
 
@@ -391,7 +421,7 @@ def bma_predict(forward: Callable, heads_fn: Callable, *, members: bool,
         name="bma_predict", key=key,
         make=make, in_kinds=("state", "replicated", "vector"),
         precision=pkey,
-        split=_split(key, lambda ctx: lambda p, b: (fwd(p, b),),
+        split=_split(key, lambda ctx: lambda p, b: (fwd(tp.entry(p), b),),
                      lambda ctx: reduce, ("state", "replicated"),
                      ("replicated",), "vector", pkey))
 

@@ -36,7 +36,10 @@ reduced there by the same heads, so the result does not depend on the
 number of positions. Each position's page pool stays on its device. A
 static tree whose member count the particle axis divides is split over
 the positions once, at construction. The dense-cache (``stateful``)
-engine on a mesh waits for ROADMAP.md queue 1 item 10b.
+engine on a mesh builds its caches per data position (``init_state``)
+and steps them there. Under a model axis each data position's step runs
+its model group tensor-parallel (``models.tp``), the kv heads of the
+pool and of the dense caches split over the group.
 """
 from __future__ import annotations
 
@@ -48,11 +51,11 @@ import numpy as np
 import torch
 
 from ..core import precision as precision_mod
-from ..core.store import ITEM_10B, ParticleStore, Placement, Sharded
+from ..core.store import ParticleStore, Placement, Sharded
 from ..core.tree import tree_leaves, tree_map
 from ..runtime.bucketing import bucket_size, pad_rows
 from ..runtime.cache import ProgramCache
-from ..runtime.program import ProgramSpec, arg_key, ident
+from ..runtime.program import ProgramSpec, arg_key, device_guard, ident
 from ..runtime.specs import (bma_predict, bma_step, paged_decode_step,
                              paged_prefill, serve_cast)
 from . import uncertainty
@@ -99,9 +102,6 @@ class PredictiveEngine:
         if placement is None:
             placement = store.placement if store is not None \
                 else Placement()
-        if stateful and placement.mesh is not None:
-            raise NotImplementedError(
-                f"dense-cache serving on a mesh {ITEM_10B}")
         if store is not None:
             # the engine serves the store's shards where they live
             store.reshard(placement)
@@ -132,7 +132,7 @@ class PredictiveEngine:
         if layout is not None:
             # the members split over the mesh's positions, as the store's
             # particles are
-            params = Sharded.split(params, layout, placement.plan_key())
+            params = placement.split(params)
             self._static_mask = self._static_mask.to(layout[0][1])
         self._static_params = params
         self._params_version: Any = None
@@ -303,13 +303,23 @@ class PredictiveEngine:
         ``make_state(stacked_params)`` over every slot of the store's
         capacity (e.g. a prefill that returns the KV caches), so the state
         is born capacity-padded. Under a casting policy ``make_state``
-        sees the serve copy with its packs expanded to the serve dtype."""
+        sees the serve copy with its packs expanded to the serve dtype.
+        On a mesh ``make_state`` runs per data position on its shard (a
+        model group's under a model axis), and the state is a ``Sharded``
+        of the results."""
         _, stacked = self._mask_and_params()
         with torch.no_grad():
             if self.precision.casts_serve:
-                stacked = precision_mod.dequantize(stacked,
-                                                   self.precision.serve)
-            return make_state(stacked)
+                stacked = Sharded.apply(lambda t: precision_mod.dequantize(
+                    t, self.precision.serve), stacked)
+            if not isinstance(stacked, Sharded):
+                return make_state(stacked)
+            from ..models import tp
+            parts = []
+            for device, shard in zip(stacked.devices, stacked.shards):
+                with device_guard(device):
+                    parts.append(make_state(tp.entry(shard)))
+            return Sharded(parts, stacked.devices, stacked.plan)
 
     def step(self, state, batch):
         """One stateful serving step (LM decode): ``forward`` over every

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from ..core.store import Sharded
-from ..core.tree import tree_map
+from ..core.tree import Group, tree_flatten, tree_map
+from ..sharding.rules import named_leaves, split_leaf
 
 
 def create_kv_pages(store, make_pages: Callable, *, key: str = "kv_pages",
@@ -45,8 +46,11 @@ def create_kv_pages(store, make_pages: Callable, *, key: str = "kv_pages",
     device for shapes only, and the pool is allocated once, zeroed, with
     the store's capacity as leading axis. ``dtype=`` overrides the storage
     dtype of every floating page leaf. Under a mesh each position's
-    pages are allocated on its device. This is the one generation bump of
-    the paged path (a new key) — do it before serving warmup."""
+    pages are allocated on its device; under a model axis each position
+    of a model group holds its kv heads (the ``(^|/)(k|v)$`` rule), or
+    every head when the axis does not divide them. This is the one
+    generation bump of the paged path (a new key) — do it before serving
+    warmup."""
     shapes = make_pages(device=torch.device("meta"))
 
     def alloc(s, n, device):
@@ -54,10 +58,24 @@ def create_kv_pages(store, make_pages: Callable, *, key: str = "kv_pages",
             else s.dtype
         return torch.zeros((n,) + tuple(s.shape), dtype=dt, device=device)
 
-    layout = store.placement.vector(store.capacity)
+    pl = store.placement
+    layout = pl.vector(store.capacity)
     if layout is None:
         pool = tree_map(lambda s: alloc(s, store.capacity, store.device),
                         shapes)
+    elif pl.model_axis_size() > 1:
+        dims = pl.model_dims(shapes, lead=0)
+        leaves, unflatten = tree_flatten(shapes)
+        paths = [p for p, _ in named_leaves(shapes)]
+        groups = []
+        for i, _, sl in layout:
+            devs = pl.groups()[i]
+            groups.append(Group([unflatten([
+                alloc(split_leaf(s, dims[p], len(devs), j),
+                      sl.stop - sl.start, d)
+                for p, s in zip(paths, leaves)])
+                for j, d in enumerate(devs)], dims, devs))
+        pool = Sharded(groups, [d for _, d, _ in layout], pl.plan_key())
     else:
         # each position's pages on its device, allocated there
         pool = Sharded([tree_map(lambda s, n=sl.stop - sl.start, d=d:

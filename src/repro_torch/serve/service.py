@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..core.messages import PFuture
-from ..core.store import ITEM_10B, ParticleStore
+from ..core.store import ParticleStore
 from ..core.tree import tree_map
 from ..models import api as models_api
 from ..obs import clock, metrics
@@ -333,8 +333,10 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     mesh: the decode step and the prefill run
     per position on its shards, each position's page pool on its device,
     and the heads come from the member logits gathered onto the first
-    position. Speculative serving on a mesh waits for ROADMAP.md queue 1
-    item 10b.
+    position. Under a model axis each data position's steps run its
+    model group tensor-parallel (``models.tp``), the pool's kv heads split
+    over the group. Speculative serving on a mesh drafts on the data
+    position that holds the drafter's row and verifies per position.
 
     ``speculative=`` turns on speculative BMA decoding (DESIGN.md §14):
     ``True`` for the defaults, an int for that many drafted tokens per
@@ -352,9 +354,6 @@ def serve_decode(pd, cfg=None, *, num_pages: int, page_size: int,
     store = pd if isinstance(pd, ParticleStore) else pd.store
     if placement is None:
         placement = store.placement
-    if spec_cfg is not None and placement.mesh is not None:
-        raise NotImplementedError(
-            f"speculative serving on a mesh {ITEM_10B}")
     store.reshard(placement)        # before the page pool is laid out
     if cfg is None and store is not pd:
         cfg = getattr(pd.module, "cfg", None)

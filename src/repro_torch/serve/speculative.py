@@ -57,11 +57,11 @@ import numpy as np
 import torch
 
 from ..core import precision as precision_mod
-from ..core.store import ITEM_10B
+from ..core.store import Sharded
 from ..core.tree import tree_map
 from ..obs import trace as _trace
 from ..runtime.bucketing import bucket_size
-from ..runtime.program import ProgramSpec, arg_key, ident
+from ..runtime.program import ProgramSpec, arg_key, device_guard, ident
 from ..runtime.specs import spec_draft_pack, spec_draft_step, spec_verify
 from .batcher import DecodeScheduler, _Seq, _to_host
 from .engine import PagedDecodeEngine, sample_heads
@@ -130,9 +130,10 @@ class SpecDecodeEngine(PagedDecodeEngine):
                  verify_fn: Callable, *, spec_cfg: SpecConfig,
                  model_dtype: Optional[torch.dtype] = None, **kw):
         place = kw.get("placement") or kw["store"].placement
-        if place.mesh is not None:
+        if place.mesh is not None and spec_cfg.quantized:
             raise NotImplementedError(
-                f"speculative serving on a mesh {ITEM_10B}")
+                "the int8 draft on a mesh is not ported: draft from the "
+                "particle's own row (quantized=False)")
         super().__init__(decode_fn, prefill_fn, **kw)
         self.verify_fn = verify_fn
         self.model_dtype = model_dtype
@@ -186,14 +187,15 @@ class SpecDecodeEngine(PagedDecodeEngine):
         self._draft_slot_memo = (mask, slot)
         return slot
 
-    def _draft_spec(self, slot: int, n_iter: int) -> ProgramSpec:
-        spec = self._draft_specs.get((slot, n_iter))
+    def _draft_spec(self, slot: int, n_iter: int,
+                    position: int = 0) -> ProgramSpec:
+        spec = self._draft_specs.get((slot, n_iter, position))
         if spec is None:
             spec = self._with_precision(spec_draft_step(
                 self.decode_fn, slot=slot, n_iter=n_iter,
-                key=(ident(self.decode_fn),),
+                key=(ident(self.decode_fn), position),
                 quantized=self.spec_cfg.quantized))
-            self._draft_specs[(slot, n_iter)] = spec
+            self._draft_specs[(slot, n_iter, position)] = spec
         return spec
 
     def _draft_params(self, params, slot: int):
@@ -240,10 +242,21 @@ class SpecDecodeEngine(PagedDecodeEngine):
         self.stats["draft_iterations"] += n_iter
         pages, pages_key = self._checkout_pages()
         try:
-            args = (params, pages, packed)
-            prog = self._program(self._draft_spec(slot, n_iter), args,
-                                 (params_key, pages_key, None))
-            drafts, pages = prog(*args)
+            if isinstance(params, Sharded):
+                # on a mesh the draft runs on the data position (and its
+                # model group) that holds the drafter's row
+                i, local = params.locate(slot)
+                args = (params.shards[i], pages.shards[i], packed)
+                with device_guard(params.devices[i]):
+                    prog = self._program(
+                        self._draft_spec(local, n_iter, i), args,
+                        (params_key[2][i], pages_key[2][i], None))
+                    drafts, _ = prog(*args)
+            else:
+                args = (params, pages, packed)
+                prog = self._program(self._draft_spec(slot, n_iter), args,
+                                     (params_key, pages_key, None))
+                drafts, pages = prog(*args)
         finally:
             self.store.commit(self.pages_key, pages)
         return drafts

@@ -162,7 +162,7 @@ def test_infer_placement_is_the_stores_plan():
         assert algo.push_dist.stats()["placement"]["mesh_shape"] is None
 
     # sized from the init's bytes: a particle past the memory budget
-    # would need a model axis above 1 (item 10b)
+    # takes a model axis above 1
     from repro_torch.bdl import infer
     tree = infer._init_shapes(ParticleModule(
         init=lambda g: {"w": torch.zeros(1000, device=g.device),

@@ -6,8 +6,8 @@ validation errors, the 2D ``(data, model)`` axes and
 ``pick_model_axis``'s budget table, value for value against the
 reference's function. A ``devices=`` list stands in for the reference's
 forced host devices (and may repeat one device). Then the ``Placement``
-record: equality by plan, ``auto`` and its item-10b refusal, the axis
-sizes and the layouts it describes.
+record: equality by plan, ``auto`` with a model axis, the axis sizes
+and the layouts it describes.
 """
 import itertools
 
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro.launch import mesh as jmesh
-from repro_torch.core.store import ITEM_10B, Placement
+from repro_torch.core.store import Placement
 from repro_torch.launch import make_bench_mesh, make_mesh, pick_model_axis
 
 CPU4 = ["cpu"] * 4
@@ -87,14 +87,21 @@ def test_placement_plan_equality_and_refusals():
     # positions key the plan: the same device at another position is
     # another plan, on the card's logical positions as on real ones
     assert a.plan_key()[0][2] == tuple(("cpu", None, i) for i in range(4))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Placement(mesh=make_bench_mesh(4, model=2, devices=CPU4))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Placement.auto(model=2, devices=CPU4)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Placement.auto(model="auto", params_bytes=2000,
-                       device_memory_bytes=1000, devices=CPU4)
-    assert "ROADMAP.md, queue 1 item 10b" in ITEM_10B
+    # the model axis: a particle across a model group of positions
+    two = Placement(mesh=make_bench_mesh(4, model=2, devices=CPU4))
+    assert two.particle_axis_size() == 2 and two.model_axis_size() == 2
+    assert two != a and two == Placement(
+        mesh=make_bench_mesh(4, model=2, devices=CPU4))
+    assert len(two.groups()) == 2 and all(len(g) == 2 for g in two.groups())
+    assert dict(Placement.auto(model=2, devices=CPU4).mesh.shape) == {
+        "data": 2, "model": 2}
+    # 2000 bytes against 60% of 1000: a shard fits at model = 4
+    auto = Placement.auto(model="auto", params_bytes=2000,
+                          device_memory_bytes=1000, devices=CPU4)
+    assert dict(auto.mesh.shape) == {"data": 1, "model": 4}
+    assert auto.activation_policy()["__mesh__"] == {"data": 1, "model": 4}
+    with pytest.raises(ValueError, match="mode 'tp'"):
+        Placement(mesh=two.mesh, mode="dp")
 
 
 def test_placement_auto_and_layouts():

@@ -227,8 +227,10 @@ def test_f2_store_counts_unstacks_and_device_puts():
 
 def test_f3_stats_has_the_placement_section():
     """F3: ``pd.stats()["placement"]`` reads the store's single-device
-    ``Placement``; a model axis above 1 raises, naming ROADMAP item 10b
-    (the particle axis on a mesh is ``tests/test_torch_placement.py``'s)."""
+    ``Placement``; under a 2D plan it reports the mesh, the model axis
+    and the bytes of the largest model shard (the particle axis on a mesh
+    is ``tests/test_torch_placement.py``'s, the model axis
+    ``tests/test_torch_placement2d.py``'s)."""
     pd = _pd()
     try:
         pl = pd.stats()["placement"]
@@ -241,9 +243,26 @@ def test_f3_stats_has_the_placement_section():
     finally:
         pd.cleanup()
     from repro_torch.launch import make_mesh
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Placement(mesh=make_mesh((2, 2), ("data", "model"),
-                                 devices=["cpu"] * 4))
+    two = Placement(mesh=make_mesh((2, 2), ("data", "model"),
+                                   devices=["cpu"] * 4))
+    _, tmod = _modules(_inits(3))
+    pd = PushDistribution(tmod, backend="compiled", device="cpu",
+                          placement=two)
+    try:
+        for _ in range(3):
+            pd.p_create(sgd(0.1))
+        pd.store.stacked("params")
+        pl = pd.stats()["placement"]
+        assert pl["mesh_shape"] == {"data": 2, "model": 2}
+        assert pl["model_axis_size"] == 2 and pl["mode"] == "tp"
+        # 4 slots over 2 data positions; these params match no rule, so
+        # each model position holds its 2 rows whole
+        assert pl["per_device_param_bytes"] == 2 * 4 * (12 + 4)
+        # the gauges cover every position (four logical CPU positions)
+        assert [g["platform"] for g in pd.obs().snapshot()["devices"]] \
+            == ["cpu"]
+    finally:
+        pd.cleanup()
 
 
 def test_f4_stats_has_the_decode_section_while_serving():

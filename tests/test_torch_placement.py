@@ -27,8 +27,8 @@ speculative.py``'s tiny qwen). Held:
     unsharded port's tokens and logprobs, also on a one-device store that
     ``serve_decode(placement=)`` moves onto the mesh;
   * ``plan_key`` equal across separately built equal meshes and unequal
-    across positions; a model axis above 1, speculative and dense-cache
-    serving on a mesh raising with item 10b's text; a mesh store's
+    across positions; a model axis above 1 placing, speculative and
+    dense-cache serving on a mesh running; a mesh store's
     layout through growth, clones across positions, ``dense``,
     ``per_device_bytes`` and ``rebalance``.
 """
@@ -294,22 +294,37 @@ def test_plan_keys_and_item_10b_refusals():
     other = Placement(mesh=make_mesh((2, 1), ("data", "model"),
                                      devices=["meta", "cpu"]))
     assert swapped != other
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Placement(mesh=make_bench_mesh(4, model=2, devices=["cpu"] * 4))
+    # the model axis places (tests/test_torch_placement2d.py holds it)
+    two = Placement(mesh=make_bench_mesh(4, model=2, devices=["cpu"] * 4))
+    assert two.model_axis_size() == 2 and two.particle_axis_size() == 2
     pd = PushDistribution(ParticleModule(init=None, cfg=tcfg), capacity=4,
                           device="cpu", placement=a)
     try:
         stacked = jax.tree.map(np.asarray, _jax_stacked(jcfg, 4))
-        for i in range(4):
-            pd.p_create(params=_to_port(jax.tree.map(lambda x, i=i: x[i],
-                                                     stacked)))
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            serve_decode(pd, tcfg, num_pages=16, page_size=8,
-                         speculative=2)
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            PredictiveEngine(lambda p, s, b: (p, s), store=pd.store,
-                             stateful=True)
-        # a refused engine leaves the store where it was
+        rows = [jax.tree.map(lambda x, i=i: x[i], stacked) for i in range(4)]
+        for r in rows:
+            pd.p_create(params=_to_port(r))
+        # speculative serving on a mesh: token-exact against the plain
+        # reference scheduler
+        prompt = [3, 5, 7, 11, 13]
+        with serve_decode(pd, tcfg, num_pages=16, page_size=8,
+                          speculative=2, warmup_buckets=(8,)) as svc:
+            got = svc.generate(prompt, max_new=4)
+        assert got.tokens == _ref_plain(jcfg, rows, [prompt], 4)[0].tokens
+        # dense-cache serving on a mesh: state born per position
+        def step_fwd(p, s, b):      # the state is updated in place
+            out = tree_leaves(p)[0].sum((1, 2))[:, None] + s["acc"][:, None]
+            s["acc"].add_(1.0)
+            return out, s
+
+        eng = PredictiveEngine(step_fwd, store=pd.store, kind="regress",
+                               stateful=True)
+        state = eng.init_state(lambda p: {"acc": torch.zeros(
+            tree_leaves(p)[0].shape[0])})
+        assert isinstance(state, Sharded) and state.bounds == (0, 1, 2, 3, 4)
+        heads, state = eng.step(state, {"x": torch.zeros(1)})
+        heads2, state = eng.step(state, {"x": torch.zeros(1)})
+        assert torch.allclose(heads2["mean"], heads["mean"] + 1.0)
         assert pd.store.placement == a
     finally:
         pd.cleanup()

@@ -294,6 +294,31 @@ def test_the_first_batch_is_trained_once(name):
     assert got["warm"][1] == got["eager"][1]
 
 
+@pytest.mark.parametrize("model", [1, 2], ids=["data4", "data2xmodel2"])
+@pytest.mark.parametrize("name", sorted(ALGOS))
+def test_the_first_batch_is_trained_once_on_a_mesh(name, model):
+    """The same on a store split over 4 CPU positions (particles only,
+    and data 2 x model 2): every position's program answers its first
+    call from its warm-up, so a step object that wraps the store's
+    shards anew for a call (SteinVGD's groups of one) must hand the
+    programs the objects they were captured with."""
+    from repro_torch.core.store import Placement
+    from repro_torch.launch import make_bench_mesh
+    got = {}
+    for mode, capturer in (("warm", WarmUpFirst()), ("eager", eager)):
+        algo = ALGOS[name][0](MODULE, seed=0, backend="compiled",
+                              device="cpu", placement=Placement(
+                                  mesh=make_bench_mesh(4, model=model,
+                                                       devices=["cpu"] * 4)))
+        algo.push_dist.runtime.cache = ProgramCache(capturer=capturer)
+        _, losses = algo.bayes_infer(_loader(), 2, num_particles=4,
+                                     **_infer_kw(name, adam(LR)))
+        got[mode] = ([algo.p_parameters()], losses)
+    for a, b in zip(tree_leaves(got["warm"][0]), tree_leaves(got["eager"][0])):
+        assert torch.equal(a, b)
+    assert got["warm"][1] == got["eager"][1]
+
+
 def test_a_new_batch_object_runs_the_step_again():
     """The check above has teeth: a first call with a copy of the batch
     (what converting the batch twice gives) steps the state a second

@@ -509,12 +509,50 @@ Phase 15 particles across GPUs: the store's particle axis on a data mesh
          run: 1 device". Each kernel's ``placement_launches`` in the
          kernels line are (a)'s and (b)'s 4-position mesh runs.
 
+Phase 17 the decoder-only model zoo at full width, depth cut (each part
+         prints its cut), random fp32 weights from seed 0. (a)
+         deepseek-moe-16b, the head attn_mlp layer + 2 of 27 attn_moe
+         units (1.68 B parameters a particle), 2 particles: phase 2's
+         load through serve_decode captured and eager (tokens equal up
+         to the near-tie rule, no capture after warmup, #7 and #5 3 a
+         step and a prefill), speculative (k_max 4; phase 6's launch
+         rule), and phase 7's prompts through the dense-cache engine
+         (tokens equal to serve_decode's up to a near-tie, #6 3 a step);
+         one decode step's moe_apply (unit 0, every particle) within 1e-4
+         of moe_ref's largest |y| with nothing dropped; each prefill
+         bucket's dropped_frac; a profiled captured decode step with its
+         Program.cost() FLOPs beside the routed tokens' expert FLOPs (C
+         = 128 slots an expert) and the three expert products' event ms
+         over the step's device ms; #5-#8 at its shapes (16 heads of
+         128) against their plain versions. (b) the head + 1 unit, 2
+         particles, one 512-token lm_batch sequence a step:
+         DeepEnsemble (Adam) captured and eager for 4 steps, losses and
+         params bit for bit, the aux values per particle; SteinVGD (the
+         median) 2 steps, #1 and #2 once a step, then held against their
+         plain versions at (2, D). (c) qwen3-moe-235b-a22b, 1 of 94
+         units, 1 particle: 4 of phase 2's prompts for 16 tokens on one
+         device and on a 1 x 4 model mesh (cuda:0's positions, or 4
+         GPUs): tokens equal up to a near-tie, per-device param bytes at
+         most 0.3 of one device's; #8 at the verify shape (P 1, B 8, W
+         5, 64 heads over 4 kv heads of 128: its rows split over blocks)
+         against its plain version. (d) gemma3-4b, 1 unit + 4 tail
+         local layers (10 of 34), 2 particles: 4 prompts of 1,237
+         tokens, past the 1,024-token window, through the dense-cache
+         engine, 32 steps captured and eager (tokens equal up to a
+         near-tie, #5 once a prefill and #6 10 a step); every ring slot
+         s holds the position p with p % 1024 == s; #6 on a ring and the
+         global cache and #5 at hd 256 against their plain versions,
+         timed. Each kernel's ``zoo_launches`` in the kernels line are
+         (a)-(d)'s main-path runs; its ``zoo`` entry the rows at the
+         zoo's shapes.
+
 The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12,
-13, 14, 15: the kernel checks first, then the serving runs over one set
-of particles, then training, fused and then on the NEL, then the
+13, 14, 15, 16, 17: the kernel checks first, then the serving runs over
+one set of particles, then training, fused and then on the NEL, then the
 lifecycle, then predictive serving, then the precision ladder, then the
 SciML workload and the baselines, then LM training, then checkpoints and
-obs, then the particle axis across GPUs.
+obs, then the particle axis across GPUs, then the model axis, then the
+decoder-only model zoo.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -745,14 +783,15 @@ def forced_plan(heads=None, splits=None):
     plan_fn = split_walk.launch_plan
 
     def forced(n_pmax, ps, W, G, KVH, P, B, hd, itemsize, sms):
-        plan, h = plan_fn(n_pmax, ps, W, G, KVH, P, B, hd, itemsize, sms)
+        plan, h, rb = plan_fn(n_pmax, ps, W, G, KVH, P, B, hd, itemsize, sms)
         if heads is not None:
             h = heads
-            plan = split_walk.split_plan(n_pmax, ps, W, blocks=P * B * KVH // h,
+            plan = split_walk.split_plan(n_pmax, ps, W,
+                                         blocks=P * B * KVH // h * rb,
                                          sms=sms)
         if splits is not None:
             plan = plan[:2] + (splits,)
-        return plan, h
+        return plan, h, rb
     split_walk.launch_plan = forced
     try:
         yield
@@ -7438,6 +7477,7 @@ def phase15(torch, cfg, reqs, plain, captured, card):
 P16_MESH = (4, 2)                # positions, model axis: data 2 x model 2
 P16_TIE = 1e-4                   # phase 6's near-tie rule
 P16_PROB = 1e-4                  # BMA probabilities against one device
+P16_CKPT_UNITS = 2               # (f): the checkpointed store's depth cut
 
 
 def p16_placement(torch, model=2, n=4):
@@ -7546,8 +7586,8 @@ def p16_position_kernels(torch, lens, n_pmax, H, hd):
 
 def p16_serving(torch, cfg, reqs, plain, card):
     """(a) phase 2's load on data 2 x model 2, captured; (c) phase 6's
-    speculative run; (b) phase 7's dense-cache run; (f) the store through
-    save_store / restore_store. Returns (launches over the runs, the
+    speculative run; (b) phase 7's dense-cache run; (f) a depth-cut store
+    through save_store / restore_store. Returns (launches over the runs, the
     per-position kernel rows, the card's seconds)."""
     import shutil
     import tempfile
@@ -7711,43 +7751,56 @@ def p16_serving(torch, cfg, reqs, plain, card):
         del state, engine, cache
         torch.cuda.empty_cache()
         marks.append(("b", time.perf_counter()))
-        # (f) checkpoints: the 2 x 2 store through a file, restored onto
-        # 2 x 2; its rows (the file's arrays, copied exactly) against the
-        # one-device store's, and (a)'s load served again
+    # (f) checkpoints, the depth cut to P16_CKPT_UNITS of 24 units (full
+    # width; the full store's npz path is phase 14's): a 2 x 2 store of
+    # PARTICLES through a file, restored onto 2 x 2; its rows (the file's
+    # arrays, copied exactly) against the one-device store's, and the
+    # load it served before the file served again
+    gc.collect()
+    torch.cuda.empty_cache()
+    ccfg = cfg.replace(n_units=P16_CKPT_UNITS)
+    cmod = ParticleModule(init=lambda g: api.init_params(g, ccfg), cfg=ccfg)
+    with PushDistribution(cmod, seed=SEED, capacity=PARTICLES,
+                          placement=pl) as cpd:
+        for _ in range(PARTICLES):
+            cpd.p_create()
+        gens_c, _, got, _, _, _ = serve_requests(
+            torch, cpd, ccfg, reqs, fns, ProgramCache(), placement=pl)
+        add(got)
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         tmp = tempfile.mkdtemp(prefix="phase16_",
                                dir=os.path.join(ROOT, "build"))
         try:
             t0 = time.perf_counter()
-            save_store(tmp, 1, pd.store, keys=["params"])
+            save_store(tmp, 1, cpd.store, keys=["params"])
             save_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             _, store = restore_store(tmp, placement=pl, device="cuda:0")
             restore_s = time.perf_counter() - t0
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        replicas = p16_replicas_equal(torch, store.stacked("params"))
-        with PushDistribution(module, seed=SEED, capacity=PARTICLES) as one:
-            for _ in range(PARTICLES):
-                one.p_create()
-            same = store.pids == one.store.pids and all(
-                torch.equal(a, b) for p in one.store.pids
-                for a, b in zip(tree_leaves(store.read("params", p)),
-                                tree_leaves(one.store.read("params", p))))
-        gc.collect()
-        torch.cuda.empty_cache()
-        gens_r, _, got, _, _, _ = serve_requests(
-            torch, store, cfg, reqs, fns, ProgramCache())
-        add(got)
-        same_tokens = [g.tokens for g in gens_r] == [g.tokens for g in gens]
-        del store
-        out["f"] = {"rows_bit_equal_one_device": same,
-                    "save_s": save_s, "restore_s": restore_s,
-                    "restored_replicas_bit_equal": replicas,
-                    "restored_tokens_equal_a": same_tokens}
-        failed += [w for w, bad in (
-            ("(f) rows", not same), ("(f) replicas", not replicas),
-            ("(f) tokens", not same_tokens)) if bad]
+    replicas = p16_replicas_equal(torch, store.stacked("params"))
+    with PushDistribution(cmod, seed=SEED, capacity=PARTICLES) as one:
+        for _ in range(PARTICLES):
+            one.p_create()
+        same = store.pids == one.store.pids and all(
+            torch.equal(a, b) for p in one.store.pids
+            for a, b in zip(tree_leaves(store.read("params", p)),
+                            tree_leaves(one.store.read("params", p))))
+    gc.collect()
+    torch.cuda.empty_cache()
+    gens_r, _, got, _, _, _ = serve_requests(
+        torch, store, ccfg, reqs, fns, ProgramCache())
+    add(got)
+    same_tokens = [g.tokens for g in gens_r] == [g.tokens for g in gens_c]
+    del store
+    out["f"] = {"units": P16_CKPT_UNITS, "rows_bit_equal_one_device": same,
+                "save_s": save_s, "restore_s": restore_s,
+                "restored_replicas_bit_equal": replicas,
+                "restored_tokens_equal_before": same_tokens}
+    failed += [w for w, bad in (
+        ("(f) rows", not same), ("(f) replicas", not replicas),
+        ("(f) tokens", not same_tokens)) if bad]
     gc.collect()
     torch.cuda.empty_cache()
     marks.append(("f", time.perf_counter()))
@@ -8037,6 +8090,718 @@ def phase16(torch, cfg, reqs, plain, card):
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 17: the decoder-only model zoo (MoE and sliding-window layers)
+# --------------------------------------------------------------------------
+
+P17_DS_UNITS = 2                 # (a): head attn_mlp + 2 of 27 attn_moe units
+P17_DS_P = 2                     # deepseek-moe-16b default_particles
+P17_TRAIN_UNITS = 1              # (b): head + 1 unit
+P17_TRAIN_S = 512                # one lm_batch sequence a step
+P17_TRAIN_STEPS = 4
+P17_SVGD_STEPS = 2
+P17_QW_UNITS = 1                 # (c): 1 of 94 attn_moe units, 1 particle
+P17_GM_P = 2                     # (d): gemma3-4b, 1 unit + 4 tail local
+P17_GM_B, P17_GM_LEN, P17_GM_NEW = 4, 1237, 32   # prompts past the 1,024 window
+P17_MOE_TOL = 1e-4               # moe_apply vs moe_ref, of the largest |y|
+
+
+def p17_cut(cfg, **kw):
+    """A zoo config cut in depth only (printed beside each part)."""
+    cut = cfg.replace(**kw)
+    return cut, {"name": cfg.name, "layers": cut.n_layers,
+                 "of_layers": cfg.n_layers, "cut": kw}
+
+
+def p17_param_count(cfg):
+    from repro_torch.models import api
+    return api.param_footprint(cfg) // 4
+
+
+def p17_expert_share(torch, params, cfg, T, step_ms):
+    """Event ms of the step's own expert products (``moe._expert_products``
+    over each MoE layer's wi, wg and wo as the step holds them: a unit's
+    are strided views of its stacked leaves) on a (P, E, C, D) buffer of
+    ``T`` routed tokens a particle, over ``step_ms``. A separate timing
+    (the captured step's profile does not say which GEMM is whose),
+    beside the computed (capacity-padded) and the routed tokens' FLOPs of
+    one step."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import unbind_units
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    P, C = params["embed"].shape[0], moe.capacity(cfg, T)
+    layers = [p["moe"] for k, p in zip(
+        [*cfg.head_layers, *cfg.tail_layers],
+        [*params["head"], *params["tail"]]) if k == "attn_moe"]
+    for kind, unit in zip(cfg.pattern, params["units"]):
+        if kind == "attn_moe":
+            layers += [u["moe"] for u in unbind_units(unit)]
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    buf = torch.randn((P, E, C, D), generator=gen, device="cuda")
+
+    def experts():
+        for p in layers:
+            h = moe._expert_products(buf, p["wi"])
+            moe._expert_products(buf, p["wg"])
+            moe._expert_products(h, p["wo"])
+
+    ms = time_ms(torch, experts, iters=10)
+    del buf
+    torch.cuda.empty_cache()
+    per = 2 * 3 * D * F * P * len(layers)
+    return {"expert_products_ms": ms, "moe_layers": len(layers),
+            "step_device_ms": step_ms,
+            "expert_share": ms / step_ms if isinstance(step_ms, float)
+            else "not measured",
+            "capacity": C, "routed_tokens": T,
+            "computed_expert_flops": per * E * C,
+            "routed_expert_flops": per * T * cfg.top_k}
+
+
+def p17_moe_check(torch, params, cfg, B):
+    """One decode step's MoE (unit 0's, every particle) on a random normed
+    input of B tokens: moe_apply within P17_MOE_TOL of the largest |y| of
+    moe_ref, and nothing dropped."""
+    from repro_torch.models import moe
+    from repro_torch.models.blocks import norm_apply
+    p = unit0(params, "moe")
+    gen = torch.Generator(device="cuda").manual_seed(172)
+    x = torch.randn((params["embed"].shape[0], B, 1, cfg.d_model),
+                    generator=gen, device="cuda")
+    x = norm_apply(unit0(params, "ln2"), x)
+    with torch.no_grad():
+        y, aux = moe.moe_apply(p, x, cfg)
+        yr = moe.moe_ref(p, x, cfg)
+    err = float((y - yr).abs().max() / yr.abs().max())
+    dropped = aux["dropped_frac"].tolist()
+    if not err < P17_MOE_TOL or max(dropped) != 0.0:
+        raise AssertionError(f"decode-step MoE vs moe_ref {err}, dropped "
+                             f"{dropped}")
+    return {"rel_err": err, "dropped_frac": dropped}
+
+
+def p17_bucket_drops(torch, params, cfg, reqs):
+    """Each prefill bucket's dropped_frac, per MoE layer and particle: the
+    first prompt of each pow2 bucket, padded as the engine pads it,
+    through a dense prefill."""
+    from repro_torch.models import moe
+    from repro_torch.runtime import bucket_size
+    out = {}
+    for prompt, _ in reqs:
+        Sp = bucket_size(len(prompt))
+        if str(Sp) in out:
+            continue
+        toks = torch.zeros((1, Sp), dtype=torch.int32, device="cuda")
+        toks[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+        out[str(Sp)] = {"capacity": moe.capacity(cfg, Sp),
+                        "dropped_frac_by_layer": p17_prefill_drops(
+                            torch, params, cfg, toks)}
+    return out
+
+
+def p17_prefill_drops(torch, params, cfg, toks):
+    """dropped_frac of each MoE layer and particle in one dense prefill of
+    the prompts ``toks`` (B, S), all routed together."""
+    from repro_torch.models import api, moe
+    got, orig = [], moe.moe_apply
+
+    def rec(*a, **k):
+        y, aux = orig(*a, **k)
+        got.append(aux["dropped_frac"].tolist())
+        return y, aux
+
+    moe.moe_apply = rec
+    try:
+        with torch.no_grad():
+            api.prefill(params, {"tokens": toks}, cfg)
+    finally:
+        moe.moe_apply = orig
+    return got
+
+
+def p17_decode_profile(torch, pd, cfg, reqs, n_pmax):
+    """One decode step of phase 2's shape (the first MAX_ACTIVE prompts
+    freshly prefilled into the checked-out pool) as a captured program:
+    its profile (counters held to the profiler) and its
+    ``Program.cost()``."""
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache, specs
+    from repro_torch.serve.engine import sample_heads
+    store = pd.store
+    pages = store.checkout("kv_pages")
+    try:
+        params, mask, bt, tok, sl = prefilled_rows(
+            torch, pd, cfg, [p for p, _ in reqs[:MAX_ACTIVE]], n_pmax, pages)
+        packed = np.concatenate([tok.cpu().numpy()[:, None],
+                                 sl.cpu().numpy()[:, None],
+                                 bt.cpu().numpy()], 1).astype(np.int32)
+        spec = specs.paged_decode_step(
+            lambda p, pg, t, b, s: api.decode_step_paged(p, t, pg, b, s, cfg),
+            sample_heads, key=("p17", cfg.name))
+        cache = ProgramCache()
+        args = (params, pages, packed, mask)
+        prog = cache.program(spec, args)
+        if prog.graph is None:
+            raise AssertionError("(a) the decode step was not captured")
+        prof = profile_steps(torch, lambda: prog(*args), n=3,
+                             fns=attention_counts(), prologue=32,
+                             epilogue=32)
+        prof["program_cost"] = prog.cost()
+        del prog, cache, args
+    finally:
+        store.commit("kv_pages", pages)
+    torch.cuda.empty_cache()
+    return prof
+
+
+def p17_deepseek_serving(torch, card):
+    """(a) deepseek-moe-16b: plain paged serving captured and eager,
+    speculative, and the dense-cache engine, over phase 2's requests."""
+    from repro_torch import configs
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    cfg, cut = p17_cut(configs.get("deepseek-moe-16b"), n_units=P17_DS_UNITS)
+    L = cfg.n_layers
+    reqs = traffic(cfg.vocab_size)
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    fns = attention_counts()
+    total = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with PushDistribution(module, seed=SEED) as pd:
+        for _ in range(P17_DS_P):
+            pd.p_create()
+        params = pd.store.stacked("params")
+        runs, toks, launches = {}, {}, {}
+        for mode, cache in caches():
+            gens, st, got, wall, warm, n_pmax = serve_requests(
+                torch, pd, cfg, reqs, fns, cache)
+            plain_launches(st, got, L, f"(a) {mode}")
+            add_counts(total, got)
+            runs[mode] = run_summary(gens, st, warm, wall, cache)
+            toks[mode] = [g.tokens for g in gens]
+            launches[mode] = got
+        same_launches(launches, "phase 17 (a)")
+        prompts = [p for p, _ in reqs]
+        exact, gaps = compare_tokens(torch, pd, cfg, prompts,
+                                     toks["captured"], toks["eager"],
+                                     "(a) captured vs eager")
+        gens, st, got, wall, warm, _ = serve_requests(
+            torch, pd, cfg, reqs, fns, ProgramCache(), speculative=SPEC_K)
+        speculative_launches(st, warm, got, L, "(a) speculative")
+        add_counts(total, got)
+        spec = {**run_summary(gens, st, warm, wall, None, info=[]),
+                "acceptance_rate": st["speculative"]["acceptance_rate"],
+                "launches": got}
+        spec_exact, spec_gaps = compare_tokens(
+            torch, pd, cfg, prompts, [g.tokens for g in gens],
+            toks["captured"], "(a) speculative vs plain")
+        dense = p17_dense(torch, pd, cfg, fns, total)
+        moe_check = p17_moe_check(torch, params, cfg, MAX_ACTIVE)
+        drops = p17_bucket_drops(torch, params, cfg, reqs)
+        prof = p17_decode_profile(torch, pd, cfg, reqs, n_pmax)
+        lens = [min(len(p) + m - 1, n_pmax * PAGE_SIZE - SPEC_K - 1)
+                for p, m in reqs]
+        kernels = p16_position_kernels(torch, lens, n_pmax, cfg.n_heads,
+                                       cfg.hd)
+        share = p17_expert_share(torch, params, cfg, MAX_ACTIVE,
+                                 prof["device_busy_ms"])
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    share["program_cost_flops"] = (prof["program_cost"] or {}).get("flops")
+    row = {"phase": 17, "part": "a", "config": cut,
+           "params_per_particle": p17_param_count(cfg),
+           "particles": P17_DS_P, "runs": runs,
+           "captured_vs_eager_requests_token_equal": exact,
+           "captured_vs_eager_tie_gaps": gaps, "speculative": spec,
+           "speculative_vs_plain_requests_token_equal": spec_exact,
+           "speculative_tie_gaps": spec_gaps, "dense": dense,
+           "decode_moe_vs_moe_ref": moe_check, "prefill_bucket_drops": drops,
+           "decode_step_profile": prof, "expert_products": share,
+           "kernels_at_shape": kernels, "tok_per_s": runs["captured"][
+               "tok_per_s"], "launches": total,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "part_s": time.perf_counter() - t0, "card": card}
+    emit(row)
+    return total, kernels
+
+
+def p17_dense(torch, pd, cfg, fns, total):
+    """(a) the dense-cache engine (captured) over phase 7's prompts against
+    serve_decode's tokens on the same prompts (near-tie rule)."""
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    from repro_torch.serve import PredictiveEngine
+    L = cfg.n_layers
+    params = pd.store.stacked("params")
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(1, cfg.vocab_size, (DENSE_PROMPTS, DENSE_LEN))
+    C = DENSE_LEN + DENSE_NEW + 1
+    paged = serve_requests(torch, pd, cfg,
+                           [(list(p), DENSE_NEW) for p in prompts], fns,
+                           ProgramCache())
+    add_counts(total, paged[2])
+    cache = ProgramCache()
+    engine = PredictiveEngine(
+        lambda p, c, b: api.decode_step(p, b["token"], c, b["cur_pos"], cfg),
+        store=pd.store, stateful=True, cache=cache)
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state = engine.init_state(lambda p: api.prefill(
+        p, {"tokens": toks[:, :-1]}, cfg, max_len=C)[1])
+    tok, dense = toks[:, -1], []
+    for step in range(DENSE_NEW):
+        heads, state = engine.step(state, {"token": tok,
+                                           "cur_pos": DENSE_LEN - 1 + step})
+        tok = heads["mean"].argmax(-1).to(torch.int32)
+        dense.append(tok)
+    dense = torch.stack(dense, 1).cpu().numpy().tolist()
+    wall = time.perf_counter() - t0
+    got = read_counts(fns)
+    want = {"paged_decode_attention": 0, "paged_decode_window_attention": 0,
+            "flash_attention": L, "decode_attention": L * DENSE_NEW}
+    if got != want:
+        raise AssertionError(f"(a) dense launches {got}, want {want}")
+    add_counts(total, got)
+    st = cache.snapshot_stats()
+    if st["cold_compiles"] != 1:
+        raise AssertionError(f"(a) dense step programs {st}")
+    # the batched dense prefill routes all prompts' tokens together (one
+    # capacity per particle), the paged one prompt at a time: they agree
+    # while neither drops an assignment, and its drops are printed
+    try:
+        exact, gaps = compare_tokens(torch, pd, cfg, prompts, dense,
+                                     [g.tokens for g in paged[0]],
+                                     "(a) dense vs paged")
+    except AssertionError as e:
+        drops = p17_prefill_drops(torch, params, cfg, toks[:, :-1])
+        raise AssertionError(f"{e}; dense prefill dropped {drops}")
+    del state, engine, cache
+    torch.cuda.empty_cache()
+    return {"tok_per_s": DENSE_PROMPTS * DENSE_NEW / wall,
+            "requests_token_equal_to_serve_decode": exact, "tie_gaps": gaps,
+            "prefill_dropped_frac": p17_prefill_drops(torch, params, cfg,
+                                                      toks[:, :-1]),
+            "launches": got}
+
+
+def p17_train_run(torch, cls, module, batches, cache, **kw):
+    """``cls`` over P17_DS_P fresh particles (seed SEED) with ``cache``: a
+    step a call, every step's losses kept. Returns (algorithm, row)."""
+    torch.cuda.reset_peak_memory_stats()
+    algo = cls(module, seed=SEED, backend="compiled")
+    algo.push_dist.runtime.cache = cache
+    fns = reset_counts()
+    losses, t0 = [], time.perf_counter()
+    pids, ls = algo.bayes_infer([batches[0]], 1, num_particles=P17_DS_P,
+                                **kw)
+    losses.append(ls)
+    for b in batches[1:]:
+        losses.append(algo._fused_epochs(pids, [b], 1, **kw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"(b) {cls.__name__} losses {losses}")
+    return algo, {"losses": losses, "launches": read_counts(fns),
+                  "wall_s": wall, "stats": cache.snapshot_stats(),
+                  "programs": cache.program_costs(),
+                  "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def p17_training(torch, card):
+    """(b) deepseek-moe-16b training: DeepEnsemble (Adam) captured vs eager
+    bit for bit over 4 steps; SteinVGD (median) with #1 and #2 held against
+    their plain versions at (2, D)."""
+    from repro_torch import configs
+    from repro_torch.bdl import DeepEnsemble, SteinVGD
+    from repro_torch.bdl.svgd import rbf_glue, svgd_force
+    from repro_torch.core import ParticleModule
+    from repro_torch.core.functional import (ensemble_value_and_grad,
+                                             flatten_stacked)
+    from repro_torch.data import DataLoader
+    from repro_torch.kernels import ref, svgd_rbf
+    from repro_torch.models import api
+    from repro_torch.optim import adam
+    from repro_torch.runtime import ProgramCache
+    cfg, cut = p17_cut(configs.get("deepseek-moe-16b"),
+                       n_units=P17_TRAIN_UNITS)
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg),
+                            loss=lambda p, b: api.loss_fn(p, b, cfg), cfg=cfg)
+    batches = list(DataLoader(cfg, batch_size=1, seq_len=P17_TRAIN_S,
+                              num_batches=P17_TRAIN_STEPS, seed=SEED))
+    t0 = time.perf_counter()
+    runs, finals = {}, {}
+    for mode, cache in caches():
+        algo, row = p17_train_run(torch, DeepEnsemble, module, batches,
+                                  cache, optimizer=adam(1e-4))
+        if mode == "captured":
+            info = row["programs"]
+            if not (len(info) == 1 and info[0]["graph"]
+                    and row["stats"]["cold_compiles"] == 1):
+                raise AssertionError(f"(b) captured programs {info}")
+            params = algo.store.stacked("params")
+            b0 = algo._batch(batches[0])
+            with torch.no_grad():
+                _, metrics = api.loss_fn(params, b0, cfg)
+            row["aux_per_particle"] = {k: v.tolist()
+                                       for k, v in metrics.items()}
+            del params, b0
+        finals[mode] = host_tree(algo.store.stacked("params"))
+        runs[mode] = row
+        algo.cleanup()
+        del algo, cache
+        lm_free(torch)
+    if runs["captured"]["losses"] != runs["eager"]["losses"] or \
+            not tree_equal(torch, finals["captured"], finals["eager"]):
+        raise AssertionError("(b) captured and eager DeepEnsemble differ")
+    del finals
+    t1 = time.perf_counter()
+    kw = {"lr": 1e-3, "lengthscale": 0.0}
+    algo, svgd = p17_train_run(torch, SteinVGD, module,
+                               batches[:P17_SVGD_STEPS], ProgramCache(), **kw)
+    want = {"pairwise_sqdist": P17_SVGD_STEPS, "svgd_force": P17_SVGD_STEPS}
+    got = {k: svgd["launches"][k] for k in want}
+    if got != want or sum(svgd["launches"].values()) != P17_SVGD_STEPS * 2:
+        raise AssertionError(f"(b) SteinVGD launches {svgd['launches']}")
+    launches = dict(svgd["launches"])
+    algo.push_dist.runtime.cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = algo.store.stacked("params")
+    grads = ensemble_value_and_grad(module.loss)(
+        params, algo._batch(batches[0]))[1]
+    theta = flatten_stacked(params)[0]
+    g = flatten_stacked(grads)[0]
+    del grads, params
+    n, D = theta.shape
+    sq = sqdist_exact(torch, svgd_rbf, theta, None, "(b) sqdist")
+    # the plain version's fp32 Gram form sums 1.09e9 products an entry:
+    # both sqdists are held to the plain version in fp64, and the force
+    # kernel, alone and as SteinVGD runs it (kernel sqdist, glue, kernel
+    # force), to the plain force on the glue of that fp64 sqdist
+    exact = ref.pairwise_sqdist(theta.double()).float()
+    plain = ref.pairwise_sqdist(theta)
+    glue = rbf_glue(exact, 0.0)
+    top = exact.abs().max()
+    checks = {"shape": [n, D], "sqdist_path": svgd_rbf.plan_for(theta).path,
+              "sqdist_rel": float((sq - exact).abs().max() / top),
+              "plain_fp32_sqdist_rel": float((plain - exact).abs().max()
+                                             / top)}
+    del plain
+    torch.cuda.empty_cache()
+    want = ref.svgd_force(theta, g, *glue)
+    checks["force_rel"] = rel_err(svgd_rbf.svgd_force(theta, g, *glue), want)
+    checks["svgd_force_end_to_end_rel"] = rel_err(svgd_force(theta, g, 0.0),
+                                                  want)
+    del want
+    torch.cuda.empty_cache()
+    if D != p17_param_count(cfg) or not (
+            checks["sqdist_rel"] < 1e-5 and checks["force_rel"] < 2e-4
+            and checks["svgd_force_end_to_end_rel"] < 2e-4):
+        raise AssertionError(f"(b) SVGD kernels vs plain: {checks}")
+    for name, kern, pl, nb, fl in (
+            ("pairwise_sqdist", lambda: svgd_rbf.pairwise_sqdist(theta),
+             lambda: ref.pairwise_sqdist(theta), n * D * 4 + n * n * 4,
+             3 * n * n * D),
+            ("svgd_force", lambda: svgd_rbf.svgd_force(theta, g, *glue),
+             lambda: ref.svgd_force(theta, g, *glue), 3 * n * D * 4,
+             6 * n * n * D)):
+        b_ms, b_by = bound(nb, fl)
+        checks[name] = {"ms": time_ms(torch, kern, iters=5),
+                        "plain_ms": time_ms(torch, pl, iters=3),
+                        "bound_ms": b_ms, "bound_by": b_by}
+    del theta, g, sq, glue
+    algo.cleanup()
+    del algo
+    lm_free(torch)
+    tokens = P17_DS_P * P17_TRAIN_S
+    cap = runs["captured"]
+    row = {"phase": 17, "part": "b", "config": cut,
+           "params_per_particle": p17_param_count(cfg),
+           "particles": P17_DS_P, "seq_len": P17_TRAIN_S,
+           "ensemble": runs, "captured_equals_eager_bit_for_bit": True,
+           "ensemble_tokens_per_s": tokens * P17_TRAIN_STEPS / cap["wall_s"],
+           "svgd": svgd, "svgd_kernels_vs_plain": checks,
+           "launches": launches, "part_s": {"ensemble": t1 - t0,
+                                            "svgd": time.perf_counter() - t1},
+           "card": card}
+    emit(row)
+    return launches
+
+
+def p17_qwen3(torch, card):
+    """(c) qwen3-moe-235b-a22b, 1 particle: plain paged serving of phase
+    2's requests on one device and on a 1 x 4 model mesh of the card's
+    positions (experts, heads and vocab split 4 ways); #8 at the verify
+    shape."""
+    from repro_torch import configs
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.kernels import paged_decode_window_attention as wk
+    from repro_torch.kernels import ref, split_walk
+    from repro_torch.models import api
+    from repro_torch.runtime import ProgramCache
+    cfg, cut = p17_cut(configs.get("qwen3-moe-235b-a22b"),
+                       n_units=P17_QW_UNITS)
+    L = cfg.n_layers
+    reqs = traffic(cfg.vocab_size)
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    fns = attention_counts()
+    total, runs = {}, {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for tag, pl in (("one", None), ("model4", p16_placement(torch, 4, 4))):
+        with PushDistribution(module, seed=SEED, capacity=1,
+                              placement=pl) as pd:
+            pd.p_create()
+            pd.store.stacked("params")
+            nbytes = pd.stats()["placement"]["per_device_param_bytes"]
+            gens, st, got, wall, _, _ = serve_requests(
+                torch, pd, cfg, reqs, fns, ProgramCache(), placement=pl)
+            # each model position launches its own kernels
+            m = 1 if pl is None else 4
+            plain_launches(st, {k: v // m for k, v in got.items()}, L,
+                           f"(c) {tag}")
+            if any(v % m for v in got.values()):
+                raise AssertionError(f"(c) {tag} launches {got}")
+            add_counts(total, got)
+            n_tok = sum(len(g.tokens) for g in gens)
+            runs[tag] = {"per_device_param_bytes": nbytes,
+                         "tokens": [g.tokens for g in gens],
+                         "generated_tokens": n_tok, "wall_s": wall,
+                         "tok_per_s": n_tok / wall, "steps": st["steps"],
+                         "launches": got}
+            if tag == "model4":
+                exact, gaps = p16_tokens(torch, pd, cfg,
+                                         [p for p, _ in reqs],
+                                         runs[tag]["tokens"],
+                                         runs["one"]["tokens"],
+                                         "(c) 1 x 4 vs one device")
+        gc.collect()
+        torch.cuda.empty_cache()
+    ratio = (runs["model4"]["per_device_param_bytes"]
+             / runs["one"]["per_device_param_bytes"])
+    if not ratio <= 0.3:
+        raise AssertionError(f"(c) 1 x 4 footprint ratio {ratio}")
+    # #8 at the verify shape of one particle: W 5, 64 heads over 4 kv heads
+    P, B, W, H, KVH, hd = 1, MAX_ACTIVE, SPEC_K + 1, cfg.n_heads, \
+        cfg.n_kv_heads, cfg.hd
+    n_pmax = NUM_PAGES // MAX_ACTIVE
+    wlens = [min(len(p) + m - W, n_pmax * PAGE_SIZE - W)
+             for p, m in traffic(cfg.vocab_size)]
+    args = window_case(torch, 173, P, B, W, H, KVH, hd, PAGE_SIZE, n_pmax,
+                       NUM_PAGES + 1, wlens, torch.float32)
+    fn, plain = wk.paged_decode_window_attention, \
+        ref.paged_decode_window_attention
+    err = check_kernel(torch, fn, plain, args, wlens, 1e-4,
+                       "(c) #8 at qwen3-moe's verify shape")
+    plan = split_walk.launch_plan(n_pmax, PAGE_SIZE, W, H // KVH, KVH, P, B,
+                                  hd, 4, split_walk.sm_count(args[0].device))
+    pairs = sum(W * Ln + W * (W + 1) // 2 for Ln in wlens)
+    b_ms, b_by = bound(P * sum(Ln + W for Ln in wlens) * KVH * hd * 2 * 4
+                       + 2 * args[0].numel() * 4, 4 * P * pairs * H * hd)
+    verify = {"max_abs_err": err, "ms": time_ms(torch, lambda: fn(*args)),
+              "device_ms": device_ms(torch, lambda: fn(*args)),
+              "plain_ms": time_ms(torch, lambda: plain(*args), iters=10),
+              "bound_ms": b_ms, "bound_by": b_by,
+              "plan": {"split_plan": list(plan[0]),
+                       "kv_heads_a_block": plan[1], "row_blocks": plan[2]},
+              "shape": {"P": P, "B": B, "W": W, "H": H, "KVH": KVH, "hd": hd}}
+    if plan[2] < 2:
+        raise AssertionError(f"(c) the verify rows did not split: {plan}")
+    del args
+    torch.cuda.empty_cache()
+    row = {"phase": 17, "part": "c", "config": cut,
+           "params_per_particle": p17_param_count(cfg), "particles": 1,
+           "runs": runs, "ratio": ratio, "token_equal": exact,
+           "tie_gaps": gaps, "verify_kernel": verify, "launches": total,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "part_s": time.perf_counter() - t0, "card": card}
+    emit(row)
+    return total, verify
+
+
+def p17_gemma(torch, card):
+    """(d) gemma3-4b dense-cache serving over prompts past the 1,024-token
+    window: captured vs eager, the ring's layout, #5 at hd 256 and #6 on a
+    ring and a global cache."""
+    from repro_torch import configs
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    from repro_torch.models import api
+    from repro_torch.serve import PredictiveEngine
+    cfg, cut = p17_cut(configs.get("gemma3-4b"), n_units=1)
+    L, W = cfg.n_layers, cfg.sliding_window
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    fns = attention_counts()
+    rng = np.random.default_rng(17)
+    prompts = rng.integers(1, cfg.vocab_size, (P17_GM_B, P17_GM_LEN))
+    C = P17_GM_LEN + P17_GM_NEW
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    runs, tokens, launches, total = {}, {}, {}, {}
+    with PushDistribution(module, seed=SEED) as pd:
+        for _ in range(P17_GM_P):
+            pd.p_create()
+        params = pd.store.stacked("params")
+        for mode, cache in caches():
+            engine = PredictiveEngine(
+                lambda p, c, b: api.decode_step(p, b["token"], c,
+                                                b["cur_pos"], cfg),
+                store=pd.store, stateful=True, cache=cache)
+            for fn in fns.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            state = engine.init_state(lambda p: api.prefill(
+                p, {"tokens": toks[:, :-1]}, cfg, max_len=C)[1])
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+            tok, out = toks[:, -1], []
+            t2 = time.perf_counter()
+            for step in range(P17_GM_NEW):
+                heads, state = engine.step(state, {
+                    "token": tok, "cur_pos": P17_GM_LEN - 1 + step})
+                tok = heads["mean"].argmax(-1).to(torch.int32)
+                out.append(tok)
+            tokens[mode] = torch.stack(out, 1).cpu().numpy().tolist()
+            decode_s = time.perf_counter() - t2
+            got = launches[mode] = read_counts(fns)
+            want = {"paged_decode_attention": 0,
+                    "paged_decode_window_attention": 0,
+                    "flash_attention": 1, "decode_attention": L * P17_GM_NEW}
+            if got != want:
+                raise AssertionError(f"(d) {mode} launches {got}, want {want}")
+            add_counts(total, got) if mode == "captured" else None
+            st = cache.snapshot_stats()
+            if st["cold_compiles"] != 1:
+                raise AssertionError(f"(d) {mode} step programs {st}")
+            runs[mode] = {"prefill_s": prefill_s,
+                          "decode_tok_per_s": P17_GM_B * P17_GM_NEW / decode_s,
+                          "ms_per_step_wall": decode_s / P17_GM_NEW * 1e3}
+            if mode == "captured":
+                last = tok
+                runs[mode]["step_profile"] = profile_steps(
+                    torch, lambda: engine.step(state, {
+                        "token": last, "cur_pos": C - 1}), n=3, fns=fns,
+                    prologue=32, epilogue=32)
+                ring = state["units"][0]
+                pos = ring["pos"][0]
+                slot = torch.arange(pos.shape[-1], device="cuda")
+                if pos.shape[-1] != W or not bool(((pos >= 0)
+                                                   & (pos % W == slot)).all()):
+                    raise AssertionError("(d) a ring slot s holds a position "
+                                         "p with p % 1024 != s")
+                gen = torch.Generator(device="cuda").manual_seed(174)
+                q = torch.randn((P17_GM_P, P17_GM_B, cfg.n_heads, cfg.hd),
+                                generator=gen, device="cuda")
+                caches6 = {"ring": state["units"][0],
+                           "global": state["units"][cfg.pattern.index(
+                               "attn_mlp")]}
+                dec = {}
+                for name, c in caches6.items():
+                    a = (q, c["k"][:, 0], c["v"][:, 0], c["pos"][0])
+                    valid = int((a[3] >= 0).sum())
+                    b_ms, b_by = bound(
+                        P17_GM_P * valid * cfg.n_kv_heads * cfg.hd * 2 * 4
+                        + 2 * q.numel() * 4,
+                        4 * P17_GM_P * valid * cfg.n_heads * cfg.hd)
+                    dec[name] = {
+                        "max_abs_err": max_err(torch, dk.decode_attention(*a),
+                                               ref.decode_attention(*a),
+                                               f"(d) #6 on the {name} cache",
+                                               2e-5),
+                        "C": int(a[1].shape[2]), "valid": valid,
+                        "ms": time_ms(torch, lambda: dk.decode_attention(*a)),
+                        "plain_ms": time_ms(
+                            torch, lambda: ref.decode_attention(*a),
+                            iters=10),
+                        "bound_ms": b_ms, "bound_by": b_by}
+                del q
+            del state, engine, cache
+            torch.cuda.empty_cache()
+        exact, gaps = compare_tokens(
+            torch, pd, cfg, prompts, tokens["captured"], tokens["eager"],
+            "(d) captured vs eager")
+        same_launches(launches, "phase 17 (d)")
+        # #5 at the global layer's prefill shape: hd 256, 8 heads over 4
+        gen = torch.Generator(device="cuda").manual_seed(175)
+        S = P17_GM_LEN - 1
+        qkv = [torch.randn((P17_GM_P, P17_GM_B, S, h, cfg.hd), generator=gen,
+                           device="cuda")
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+        err = max_err(torch, fk.flash_attention(*qkv),
+                      ref.flash_attention(*qkv), "(d) #5 at hd 256", 2e-5)
+        # each fp32 product as three TF32 products (phase 5's bound)
+        b_ms, b_by = bound(4 * (2 * qkv[0].numel() + 2 * qkv[1].numel()),
+                           3 * 4 * P17_GM_P * P17_GM_B * cfg.n_heads * cfg.hd
+                           * S * (S + 1) // 2, rate=TF32_FLOPS_PER_S)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qs, ks, vs = (t.reshape(-1, *t.shape[2:]).transpose(1, 2)
+                      .repeat_interleave(cfg.n_heads // t.shape[3], 1)
+                      for t in qkv)
+        flash = {"max_abs_err": err,
+                 "ms": time_ms(torch, lambda: fk.flash_attention(*qkv)),
+                 "device_ms": device_ms(torch,
+                                        lambda: fk.flash_attention(*qkv)),
+                 "plain_ms": time_ms(torch, lambda: ref.flash_attention(*qkv),
+                                     iters=5),
+                 "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs,
+                                                           is_causal=True)),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "shape": {"P": P17_GM_P, "B": P17_GM_B, "S": S,
+                           "H": cfg.n_heads, "KVH": cfg.n_kv_heads,
+                           "hd": cfg.hd}}
+        del qkv, qs, ks, vs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": 17, "part": "d", "config": cut,
+           "params_per_particle": p17_param_count(cfg),
+           "particles": P17_GM_P, "prompts": P17_GM_B,
+           "prompt_len": P17_GM_LEN, "new_tokens": P17_GM_NEW,
+           "window": W, "runs": runs,
+           "captured_vs_eager_requests_token_equal": exact,
+           "tie_gaps": gaps, "decode_kernel": dec, "flash_kernel": flash,
+           "launches": total,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "part_s": time.perf_counter() - t0, "card": card}
+    emit(row)
+    return total, flash
+
+
+def phase17(torch, card):
+    """The decoder-only model zoo: deepseek-moe-16b serving (a) and
+    training (b), qwen3-moe-235b-a22b on one device and a 1 x 4 model
+    mesh (c), gemma3-4b's ring caches (d). Returns (the kernels' launches
+    over the parts' main-path runs, phase 17's kernel rows)."""
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+    got, rows["position"] = p17_deepseek_serving(torch, card)
+    add_counts(launches, got)
+    lm_free(torch)
+    t1 = time.perf_counter()
+    add_counts(launches, p17_training(torch, card))
+    lm_free(torch)
+    t2 = time.perf_counter()
+    got, rows["verify"] = p17_qwen3(torch, card)
+    add_counts(launches, got)
+    lm_free(torch)
+    t3 = time.perf_counter()
+    got, rows["flash_hd256"] = p17_gemma(torch, card)
+    add_counts(launches, got)
+    lm_free(torch)
+    emit({"phase": 17, "part": "summary", "phase_s": time.perf_counter() - t0,
+          "part_s": {"a": t1 - t0, "b": t2 - t1, "c": t3 - t2,
+                     "d": time.perf_counter() - t3},
+          "launches": launches, "card": card})
+    return launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8124,6 +8889,9 @@ def main():
     model_launches, position_rows = phase16(
         torch, cfg, reqs, {"tokens": plain_tokens, "logprobs": plain_logprobs,
                            "tok_per_s": plain_tok_s}, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_launches, zoo_rows = phase17(torch, card)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
@@ -8135,6 +8903,16 @@ def main():
         row["ckpt_obs_launches"] = obs_launches.get(name, 0)
         row["placement_launches"] = placement_launches.get(name, 0)
         row["model_axis_launches"] = model_launches.get(name, 0)
+        row["zoo_launches"] = zoo_launches.get(name, 0)
+        zoo = {}
+        if name in zoo_rows["position"]:
+            zoo["deepseek"] = zoo_rows["position"][name]
+        if name == "paged_decode_window_attention":
+            zoo["qwen3_verify"] = zoo_rows["verify"]
+        if name == "flash_attention":
+            zoo["gemma3_hd256"] = zoo_rows["flash_hd256"]
+        if zoo:
+            row["zoo"] = zoo
         if name in position_rows:
             row["per_position"] = position_rows[name]
         if name in lm_rows:

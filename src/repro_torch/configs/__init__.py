@@ -1,9 +1,14 @@
 """Registry of the configs the port runs (``get(name)``)."""
 from .base import ModelConfig
-from . import llama3_8b, qwen1p5_0p5b, unet_advection, vit_mnist
+from . import (deepseek_moe_16b, gemma3_4b, llama3_405b, llama3_8b,
+               qwen1p5_0p5b, qwen3_moe_235b, unet_advection, vit_mnist)
 
 ALL = {
+    "deepseek-moe-16b": deepseek_moe_16b.CONFIG,
+    "gemma3-4b": gemma3_4b.CONFIG,
+    "llama3-405b": llama3_405b.CONFIG,
     "llama3-8b": llama3_8b.CONFIG,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b.CONFIG,
     "qwen1.5-0.5b": qwen1p5_0p5b.CONFIG,
     "vit-mnist": vit_mnist.CONFIG,
     "unet-advection": unet_advection.CONFIG,

@@ -1,8 +1,9 @@
 """Model configs for the port (counterpart of ``repro.configs.base``).
 
-A ``ModelConfig`` describes one architecture. The port runs dense
-attention + MLP stacks (the LM family "dense" and the ViT's family
-"vision") and the 1-D conv UNet (family "pde": ``d_model`` is its base
+A ``ModelConfig`` describes one architecture. The port runs decoder-only
+attention stacks (the LM families "dense" and "moe": ``attn_mlp``,
+``attn_moe`` and sliding-window ``local`` layers), the ViT's family
+"vision" and the 1-D conv UNet (family "pde": ``d_model`` is its base
 channel count, ``n_units`` its depth, ``max_seq_len`` its grid), so the
 config carries the fields those read; field names and
 defaults match the reference, so one set of ``replace(...)`` keywords
@@ -21,7 +22,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | vision | pde (the families ported)
+    family: str                      # dense | moe | vision | pde (the families ported)
     d_model: int
     vocab_size: int
 
@@ -37,12 +38,22 @@ class ModelConfig:
     head_dim: int = 0                # 0 -> d_model // n_heads
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    sliding_window: int = 0          # for 'local' layers
     logit_softcap: float = 0.0
 
     # --- mlp ---------------------------------------------------------------
     d_ff: int = 0
     act: str = "swiglu"
     norm: str = "rms"                # rms | layer
+
+    # --- moe ---------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                # per-expert hidden dim
+    n_shared_experts: int = 0
+    shared_d_ff: int = 0             # hidden dim of the shared-expert MLP
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
     # --- misc ----------------------------------------------------------------
     prefix_lm: bool = False
@@ -84,6 +95,12 @@ class ModelConfig:
             n_units=min(self.n_units, 2 if len(self.pattern) == 1 else 1),
             head_layers=self.head_layers[:1],
             tail_layers=self.tail_layers[:1],
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            moe_d_ff=min(self.moe_d_ff, 128) if self.moe_d_ff else 0,
+            shared_d_ff=min(self.shared_d_ff, 128) if self.shared_d_ff else 0,
+            sliding_window=(min(self.sliding_window, 16)
+                            if self.sliding_window else 0),
             max_seq_len=256,
             default_particles=1,
         )

@@ -51,16 +51,17 @@ struct DenseCols {
 
 // Returns the cudaError_t of the launches (0 = success). dtype codes: 0
 // fp32, 1 bf16. The caller checks shapes, dtypes, devices and contiguity,
-// and passes kv heads per block, the split plan over C (stage_slots,
-// min_slots, n_splits) and the scratch it sized.
+// and passes kv heads per block, the blocks a kv head's query rows split
+// over, the split plan over C (stage_slots, min_slots, n_splits) and the
+// scratch it sized.
 extern "C" int decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                 const void* k_pos, void* out, void* scratch, int P, int B,
                                 int H, int KVH, int hd, int C, long long kv_p_stride,
                                 int q_dtype, int kv_dtype, float scale, int heads,
-                                int stage_slots, int min_slots, int n_splits,
+                                int row_blocks, int stage_slots, int min_slots, int n_splits,
                                 void* stream) {
   using namespace split_walk;
-  const Walk wk{P, B, 1, H, KVH, hd, heads, 1, C, kv_p_stride, scale,
+  const Walk wk{P, B, 1, H, KVH, hd, heads, row_blocks, 1, C, kv_p_stride, scale,
                 stage_slots, min_slots, n_splits, 0};
   const DenseCols cols{static_cast<const int*>(k_pos), C, static_cast<long long>(KVH) * hd};
   return run(q, k_cache, v_cache, out, scratch, wk, cols, q_dtype, kv_dtype,

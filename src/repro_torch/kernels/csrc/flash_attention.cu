@@ -73,6 +73,12 @@
 //   instead of 64). Causal: the heaviest (last) q tiles are scheduled
 //   first, each warp skips the key tiles above its own rows, and no block
 //   visits a tile above its last row.
+// - Wide heads (128 < hd <= 256: gemma3's 256): the 128-row, 64-key
+//   tiles would need 403 KB of fp32 shared memory, past Hopper's 227 KB a
+//   block, so these take 64-row tiles of four warps with 32-key tiles
+//   (202 KB fp32, 101 KB bf16), or 32-row tiles of two warps when 64-row
+//   tiles give fewer than two blocks per SM; each warp keeps 32 dim tiles
+//   of the output (128 fp32 registers of accumulator).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -548,7 +554,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int N
   return cudaGetLastError();
 }
 
-template <typename T, int NO>
+// The big tile (BW warps of 16 query rows, BK keys) when its grid gives at
+// least two blocks per SM, else 2 warps and 32 keys.
+template <typename T, int NO, int BW, int BK>
 cudaError_t pick_tiles(const void* q, const void* k, const void* v, void* out, int N,
                        int S, int H, int KVH, int hd, int causal, float scale, int vec,
                        cudaStream_t s) {
@@ -558,9 +566,9 @@ cudaError_t pick_tiles(const void* q, const void* k, const void* v, void* out, i
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long big_blocks = (rows + 127) / 128 * KVH * N;
+  const long long big_blocks = (rows + 16 * BW - 1) / (16 * BW) * KVH * N;
   if (big_blocks >= 2LL * sms)
-    return launch<T, 8, 64, NO>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return launch<T, BW, BK, NO>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
   return launch<T, 2, 32, NO>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
 }
 
@@ -568,12 +576,18 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int N,
                      int S, int H, int KVH, int hd, int causal, float scale, int vec,
                      cudaStream_t s) {
-  if (hd <= 8) return pick_tiles<T, 1>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
-  if (hd <= 16) return pick_tiles<T, 2>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
-  if (hd <= 32) return pick_tiles<T, 4>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
-  if (hd <= 64) return pick_tiles<T, 8>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+  if (hd <= 8)
+    return pick_tiles<T, 1, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+  if (hd <= 16)
+    return pick_tiles<T, 2, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+  if (hd <= 32)
+    return pick_tiles<T, 4, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+  if (hd <= 64)
+    return pick_tiles<T, 8, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
   if (hd <= 128)
-    return pick_tiles<T, 16>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return pick_tiles<T, 16, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+  if (hd <= 256)  // 8 warps of 64 keys would not fit shared memory here
+    return pick_tiles<T, 32, 4, 32>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
   return cudaErrorInvalidValue;
 }
 
@@ -581,7 +595,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 
 // Returns the cudaError_t of the launch (0 = success). dtype code: 0 fp32,
 // 1 bf16 (q, k, v and out alike). The caller checks shapes, dtypes,
-// devices and contiguity, hd <= 128 and G = H / KVH <= 64. Q, K and V
+// devices and contiguity, hd <= 256 and G = H / KVH <= 64. Q, K and V
 // rows go through 16-byte cp.async when a row of hd elements is a whole
 // number of 16-byte chunks and q, k and v start on 16 bytes; else through
 // plain loads.

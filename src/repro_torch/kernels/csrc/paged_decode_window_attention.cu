@@ -34,15 +34,17 @@
 
 // Returns the cudaError_t of the launches (0 = success). dtype codes: 0
 // fp32, 1 bf16. The caller checks shapes, dtypes, devices and contiguity,
-// heads * W * G * hd <= 4096, and passes kv heads per block, the split
-// plan (stage_pages, min_pps, n_splits) and the scratch it sized.
+// and passes kv heads per block and the blocks a kv head's W * G query
+// rows split over (a block's rows x hd <= 4096), the split plan
+// (stage_pages, min_pps, n_splits) and the scratch it sized.
 extern "C" int paged_decode_window_attention(
     const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
     const void* seq_lens, void* out, void* scratch, int P, int B, int W, int H, int KVH,
     int hd, int NP, int ps, int n_pmax, long long kv_p_stride, int q_dtype, int kv_dtype,
-    float scale, int heads, int stage_pages, int min_pps, int n_splits, void* stream) {
+    float scale, int heads, int row_blocks, int stage_pages, int min_pps, int n_splits,
+    void* stream) {
   using namespace split_walk;
-  const Walk wk{P, B, W, H, KVH, hd, heads, ps, n_pmax, kv_p_stride, scale,
+  const Walk wk{P, B, W, H, KVH, hd, heads, row_blocks, ps, n_pmax, kv_p_stride, scale,
                 stage_pages, min_pps, n_splits, 0};
   const PagedCols cols{static_cast<const int*>(block_tables),
                        static_cast<const int*>(seq_lens), NP, ps, n_pmax,

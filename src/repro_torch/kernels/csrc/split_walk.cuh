@@ -37,7 +37,11 @@
 //   particle, split) (kernels/split_walk.py::heads_per_block: at one
 //   query row per kv head, two with fp32 K/V and four with bf16, which
 //   beat one on the card), and a stage reads each slot's heads as one
-//   contiguous run.
+//   contiguous run. A kv head whose W * G query rows' accumulators do not
+//   fit a block (more than 4096 entries: qwen3-moe's verify window, W 5 x
+//   G 16 x hd 128) has its rows split over row_blocks blocks of one kv
+//   head (kernels/split_walk.py::block_rows); each walks the same columns
+//   for its own rows, and writes its rows' outputs or partials.
 // - Inside a split the block walks its units in stages of about 32
 //   columns. K and V rows of the next stage arrive by 16-byte cp.async
 //   while the current one is computed (a two-stage ring). A few threads
@@ -143,6 +147,7 @@ __host__ __device__ int kv_stride_smem(int hd) {
 struct Walk {
   int P, B, W, H, KVH, hd;
   int heads;              // kv heads per block; divides KVH
+  int row_blocks;         // blocks a kv head group's query rows split over
   int ps, n_pmax;         // a row is n_pmax units of ps columns
   long long kv_p_stride;  // elements from one particle's K/V to the next
   float scale;
@@ -187,22 +192,29 @@ __global__ void __launch_bounds__(kThreads)
 split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
              TQ* __restrict__ out, float* __restrict__ scratch, const Walk wk,
              const Cols cols) {
-  const int kvh0 = blockIdx.x * wk.heads;
+  const int kvh0 = static_cast<int>(blockIdx.x) / wk.row_blocks * wk.heads;
   const int b = blockIdx.y;
   const int p = blockIdx.z / wk.n_splits;
   const int split = blockIdx.z - p * wk.n_splits;
   const int W = wk.W, H = wk.H, hd = wk.hd, ps = wk.ps;
   const int G = H / wk.KVH;
   const int R1 = W * G;          // query rows of a kv head, w * G + g
-  const int R = wk.heads * R1;   // query rows of the block, h * R1 + w * G + g
+  // the group's query rows h * R1 + w * G + g, split over row_blocks
+  // blocks: this block takes R of them from row0 on; r below is a row of
+  // the block, r + row0 its row in the group
+  const int RB = (wk.heads * R1 + wk.row_blocks - 1) / wk.row_blocks;
+  const int row0 = static_cast<int>(blockIdx.x) % wk.row_blocks * RB;
+  const int R = RB < wk.heads * R1 - row0 ? RB : wk.heads * R1 - row0;
+  if (R <= 0) return;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const long long row_base = (static_cast<long long>(p) * wk.B + b) * W;
   auto q_off = [&](int r, int d) {
-    const int h = r / R1;
-    const int w = (r - h * R1) / G;
-    const int g = r - h * R1 - w * G;
+    const int rr = r + row0;
+    const int h = rr / R1;
+    const int w = (rr - h * R1) / G;
+    const int g = rr - h * R1 - w * G;
     return ((row_base + w) * H + static_cast<long long>(kvh0 + h) * G + g) * hd + d;
   };
 
@@ -289,10 +301,10 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
   for (int j = 0; j < NQ; ++j) {
     const int u = tid + j * kThreads;
     const int r = vw == 4 && u < units ? 4 * u / hd : 0;
-    const int h = r / R1;
+    const int h = (r + row0) / R1;
     const int d = 4 * u - r * hd;
     quad_row[j] = r;
-    quad_lim[j] = sl + (r - h * R1) / G;
+    quad_lim[j] = sl + (r + row0 - h * R1) / G;
     quad_v[j] = h * HS + d;
     quad_q[j] = q_off(r, d);
     if (vw == 4 && u < units)
@@ -324,8 +336,8 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
       // a warp per query row; a lane per column computes the full
       // hd-length score, then the row's max and sum by shuffles
       for (int r = warp; r < R; r += kWarps) {
-        const int h = r / R1;
-        const int lim = sl + (r - h * R1) / G;  // the row's last visible column
+        const int h = (r + row0) / R1;
+        const int lim = sl + (r + row0 - h * R1) / G;  // the row's last visible column
         const float* qr = q_s + r * hd;
         const TKV* kh = ks + h * HS;
         float mx = kNegInf;
@@ -405,9 +417,9 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
           if (e < units) {
             const int r = e / hd;
             const int d = e - r * hd;
-            const int c_end = clamp_end(sl + (r % R1) / G);
+            const int c_end = clamp_end(sl + ((r + row0) % R1) / G);
             const float* pr = p_s + r * SC;
-            const TKV* vh = vs + (r / R1) * HS + d;
+            const TKV* vh = vs + ((r + row0) / R1) * HS + d;
             float a = acc[i] * c_s[r];
             for (int c = 0; c < c_end; ++c) a += pr[c] * to_f32(vh[c * KS]);
             acc[i] = a;
@@ -426,9 +438,9 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
       ((static_cast<long long>(p) * wk.B + b) * wk.KVH + kvh0) * wk.n_splits + split;
   if (!one) {
     for (int r = tid; r < R; r += kThreads) {
-      const int h = r / R1;
+      const int h = (r + row0) / R1;
       float* ml = scratch + (unit0 + static_cast<long long>(h) * wk.n_splits) * R1 * 2 +
-                  2 * (r - h * R1);
+                  2 * (r + row0 - h * R1);
       ml[0] = m_s[r];
       ml[1] = l_s[r];
     }
@@ -436,7 +448,7 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
   // entries (r, d .. d + n - 1) of the accumulator, n = 1 or 4, whose
   // element (r, d) lies at qo in q and out
   auto put = [&](int r, int d, long long qo, int n, float a0, float a1, float a2, float a3) {
-    const int h = r / R1;
+    const int h = (r + row0) / R1;
     if (one) {
       const float l = fmaxf(l_s[r], 1e-30f);
       TQ* o = out + qo;
@@ -449,7 +461,7 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __r
     } else {
       float* pa = scratch + n_units * R1 * 2 +
                   (unit0 + static_cast<long long>(h) * wk.n_splits) * R1 * hd +
-                  (r - h * R1) * hd + d;
+                  (r + row0 - h * R1) * hd + d;
       pa[0] = a0;
       if (n == 4) {
         pa[1] = a1;
@@ -513,7 +525,9 @@ combine_kernel(const float* __restrict__ scratch, TQ* __restrict__ out, const Wa
 template <typename TQ, typename TKV, int NE, class Cols>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* scratch,
                    const Walk& wk, const Cols& cols, cudaStream_t stream) {
-  const size_t R = static_cast<size_t>(wk.heads) * wk.W * (wk.H / wk.KVH);
+  // rows of a block
+  const size_t R = (static_cast<size_t>(wk.heads) * wk.W * (wk.H / wk.KVH) + wk.row_blocks - 1) /
+                   wk.row_blocks;
   const size_t SC = static_cast<size_t>(wk.stage_units) * wk.ps;
   const size_t smem = sizeof(TKV) * 4 * wk.heads * SC * kv_stride_smem<TKV>(wk.hd) +
                       sizeof(float) * (R * wk.hd + R * SC + 3 * R) + sizeof(int) * 2 * SC;
@@ -523,7 +537,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(wk.KVH / wk.heads, wk.B, wk.P * wk.n_splits), kThreads, smem, stream>>>(
+  kernel<<<dim3(wk.KVH / wk.heads * wk.row_blocks, wk.B, wk.P * wk.n_splits), kThreads, smem,
+           stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
       static_cast<TQ*>(out), scratch, wk, cols);
   cudaError_t err = cudaGetLastError();
@@ -536,7 +551,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 template <typename TQ, typename TKV, class Cols>
 cudaError_t dispatch_ne(const void* q, const void* k, const void* v, void* out, float* scratch,
                         const Walk& wk, const Cols& cols, cudaStream_t s) {
-  const int entries = wk.heads * wk.W * (wk.H / wk.KVH) * wk.hd;  // accumulator of a block
+  // accumulator entries of a block: its rows x hd
+  const int rows = (wk.heads * wk.W * (wk.H / wk.KVH) + wk.row_blocks - 1) / wk.row_blocks;
+  const int entries = rows * wk.hd;
   if (entries <= 4 * kThreads) return launch<TQ, TKV, 4>(q, k, v, out, scratch, wk, cols, s);
   if (entries <= 8 * kThreads) return launch<TQ, TKV, 8>(q, k, v, out, scratch, wk, cols, s);
   if (entries <= 32 * kThreads) return launch<TQ, TKV, 32>(q, k, v, out, scratch, wk, cols, s);
@@ -552,6 +569,7 @@ template <class Cols>
 int run(const void* q, const void* k, const void* v, void* out, void* scratch, Walk wk,
         const Cols& cols, int q_dtype, int kv_dtype, cudaStream_t s) {
   if (wk.KVH <= 0 || wk.H % wk.KVH != 0 || wk.heads < 1 || wk.KVH % wk.heads != 0 ||
+      wk.row_blocks < 1 || (wk.row_blocks > 1 && wk.heads != 1) ||
       wk.W < 1 || wk.ps < 1 || wk.stage_units < 1 || wk.min_units < 1 || wk.n_splits < 1 ||
       static_cast<long long>(wk.P) * wk.n_splits > 65535 || wk.B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

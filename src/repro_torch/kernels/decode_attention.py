@@ -38,7 +38,7 @@ from .paged_decode_attention import DTYPE_CODE
 
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
-         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def decode_attention(q, k_cache, v_cache, k_pos):
@@ -68,7 +68,7 @@ def decode_attention(q, k_cache, v_cache, k_pos):
     if out.numel() == 0 or C == 0:
         return out.zero_()
     G = H // KVH
-    plan, heads = split_walk.launch_plan(
+    plan, heads, row_blocks = split_walk.launch_plan(
         C, 1, 1, G, KVH, P, B, hd, k_cache.element_size(),
         split_walk.sm_count(q.device))
     scratch = split_walk.scratch(plan, P, B, KVH, G, hd, q.device)
@@ -78,8 +78,8 @@ def decode_attention(q, k_cache, v_cache, k_pos):
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 k_pos.data_ptr(), out.data_ptr(), scratch.data_ptr(), P, B, H,
                 KVH, hd, C, k_cache.stride(0), DTYPE_CODE[q.dtype],
-                DTYPE_CODE[k_cache.dtype], 1.0 / math.sqrt(hd), heads, *plan,
-                stream)
+                DTYPE_CODE[k_cache.dtype], 1.0 / math.sqrt(hd), heads,
+                row_blocks, *plan, stream)
     raise_on(rc, "decode_attention")
     decode_attention.launches += 1
     if _obs.counting_now():

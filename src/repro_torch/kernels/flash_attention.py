@@ -10,7 +10,7 @@ folds it into the batch:
     k, v  (P, B, S, KVH, hd)   the dtype of q
     -> (P, B, S, H, hd), the dtype of q; causal (key j visible to query
        i iff j <= i) or bidirectional; H a multiple of KVH with
-       H / KVH <= 64; hd <= 128.
+       H / KVH <= 64; hd <= 256.
 
 Forward only: the training attention, which needs a gradient, stays the
 plain version under autograd (the JAX package has no backward kernel
@@ -33,7 +33,7 @@ from .paged_decode_attention import DTYPE_CODE
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                       ctypes.c_void_p]
 _MAX_GROUP = 64
-_MAX_HD = 128
+_MAX_HD = 256
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

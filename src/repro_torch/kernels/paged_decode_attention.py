@@ -36,7 +36,7 @@ from .build import entry, raise_on
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
-         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def check_paged(q, k_pages, v_pages, block_tables, seq_lens, *,
@@ -96,7 +96,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     if out.numel() == 0:
         return out
     G = H // KVH
-    plan, heads = split_walk.launch_plan(
+    plan, heads, row_blocks = split_walk.launch_plan(
         n_pmax, ps, 1, G, KVH, P, B, hd, k_pages.element_size(),
         split_walk.sm_count(q.device))
     scratch = split_walk.scratch(plan, P, B, KVH, G, hd, q.device)
@@ -107,8 +107,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
                 block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), P, B, H, KVH, hd, NP, ps, n_pmax,
                 k_pages.stride(0), DTYPE_CODE[q.dtype],
-                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), heads, *plan,
-                stream)
+                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), heads,
+                row_blocks, *plan, stream)
     raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     if _obs.counting_now():

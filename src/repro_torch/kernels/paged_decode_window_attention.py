@@ -42,7 +42,7 @@ from .paged_decode_attention import DTYPE_CODE, check_paged
 
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
-         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
@@ -59,7 +59,7 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
     if out.numel() == 0:
         return out
     G = H // KVH
-    plan, heads = split_walk.launch_plan(
+    plan, heads, row_blocks = split_walk.launch_plan(
         n_pmax, ps, W, G, KVH, P, B, hd, k_pages.element_size(),
         split_walk.sm_count(q.device))
     scratch = split_walk.scratch(plan, P, B, KVH, W * G, hd, q.device)
@@ -71,8 +71,8 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
                 block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), P, B, W, H, KVH, hd, NP, ps, n_pmax,
                 k_pages.stride(0), DTYPE_CODE[q.dtype],
-                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), heads, *plan,
-                stream)
+                DTYPE_CODE[k_pages.dtype], 1.0 / math.sqrt(hd), heads,
+                row_blocks, *plan, stream)
     raise_on(rc, "paged_decode_window_attention")
     paged_decode_window_attention.launches += 1
     if _obs.counting_now():

@@ -21,16 +21,21 @@ import torch
 NEG_INF = -1e30
 
 
-def decode_attention(q, k_cache, v_cache, k_pos):
+def decode_attention(q, k_cache, v_cache, k_pos, *, softcap: float = 0.0):
     """q (P, B, H, hd); caches (P, B, C, KVH, hd); k_pos (B, C) int, the
     absolute position of each cache slot (-1 = empty) -> (P, B, H, hd).
-    Softmax and products in fp32; the output takes the dtype of q."""
+    Softmax and products in fp32; the output takes the dtype of q. With
+    ``softcap`` > 0 the scores are capped to ``softcap * tanh(s /
+    softcap)`` first (the reference's jnp decode form; no kernel takes
+    a softcap)."""
     P, B, H, hd = q.shape
     KVH = k_cache.shape[3]
     G = H // KVH
     qq = (q.float() / math.sqrt(hd)).reshape(P, B, KVH, G, hd)
     valid = k_pos >= 0                                        # (B, C)
     s = torch.einsum("pbngh,pbknh->pbngk", qq, k_cache.float())
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
     s = torch.where(valid[None, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(valid[None, :, None, None, :], p, 0.0)

@@ -16,6 +16,14 @@ rule by which the kernel gives each split its units once it reads a
 row's ``seq_len``; ``stage_ranges`` the stages a split walks.
 ``dense_plan`` is the plan of a dense row of C slots, which the kernel
 walks as if every row's last query sat at C - 1.
+
+A block takes ``heads`` kv heads of one (row, particle, split) and all
+their W * G query rows, while those rows' accumulators fit a block
+(``MAX_ENTRIES``). A kv head whose rows do not fit (qwen3-moe's verify:
+W 5 x G 16 x hd 128 = 10,240 entries) has its query rows split over
+``row_blocks`` blocks of one kv head each (``block_rows``); each block
+walks the same columns for its own rows (``row_ranges``), and a row's
+arithmetic is the same in any of them.
 """
 from __future__ import annotations
 
@@ -90,6 +98,39 @@ def _fits(heads, KVH, rows, hd, cols, itemsize):
             and smem_bytes(heads, rows, hd, cols, itemsize) <= MAX_SMEM)
 
 
+def block_rows(KVH: int, rows: int, hd: int, cols: int,
+               itemsize: int):
+    """(kv heads a block takes, blocks a kv head's ``rows`` query rows are
+    split over): ``heads_per_block`` kv heads and 1 while one kv head's
+    rows fit a block; else one kv head, its rows in the fewest blocks of
+    at most ``MAX_ENTRIES / hd`` rows that fit ``MAX_SMEM``. Raises if
+    not even one row fits."""
+    if _fits(1, KVH, rows, hd, cols, itemsize):
+        return heads_per_block(KVH, rows, hd, cols, itemsize), 1
+    for n in range(2, rows + 1):
+        per = -(-rows // n)
+        if per * hd <= MAX_ENTRIES and \
+                smem_bytes(1, per, hd, cols, itemsize) <= MAX_SMEM:
+            return 1, -(-rows // per)
+    raise ValueError(f"no block fits one query row of hd {hd} with {cols} "
+                     f"columns a stage")
+
+
+def row_ranges(heads: int, row_blocks: int, KVH: int, rows: int):
+    """(first kv head, kv heads, first row, rows) of each block along the
+    grid's x axis, the kernel's rule: block x takes kv heads ``(x //
+    row_blocks) * heads`` on and the rows ``[row0, row0 + n)`` of their
+    ``heads * rows`` query rows, ``row0 = (x % row_blocks) * per`` with
+    ``per = ceil(heads * rows / row_blocks)``."""
+    per = -(-heads * rows // row_blocks)
+    out = []
+    for x in range(KVH // heads * row_blocks):
+        row0 = (x % row_blocks) * per
+        out.append(((x // row_blocks) * heads, heads, row0,
+                    max(0, min(per, heads * rows - row0))))
+    return out
+
+
 def heads_per_block(KVH: int, rows: int, hd: int, cols: int,
                     itemsize: int) -> int:
     """Kv heads a block takes: as many as give each warp at most one query
@@ -119,13 +160,15 @@ def sm_count(device) -> int:
 @functools.lru_cache(maxsize=256)
 def launch_plan(n_pmax: int, ps: int, W: int, G: int, KVH: int, P: int,
                 B: int, hd: int, itemsize: int, sms: int):
-    """(plan, kv heads a block) of one launch over P particles and B rows:
-    the kv heads by ``heads_per_block``, then the plan for the grid of
-    P * B * KVH / heads (row, particle, kv head group) blocks."""
+    """(plan, kv heads a block, row blocks a kv head) of one launch over P
+    particles and B rows: the blocks' rows by ``block_rows``, then the
+    plan for the grid of P * B * (KVH / heads) * row_blocks (row,
+    particle, kv head group, row block) blocks."""
     stage = split_plan(n_pmax, ps, W)[0]
-    heads = heads_per_block(KVH, W * G, hd, stage * ps, itemsize)
-    return split_plan(n_pmax, ps, W, blocks=P * B * KVH // heads,
-                      sms=sms), heads
+    heads, row_blocks = block_rows(KVH, W * G, hd, stage * ps, itemsize)
+    return split_plan(n_pmax, ps, W,
+                      blocks=P * B * KVH // heads * row_blocks,
+                      sms=sms), heads, row_blocks
 
 
 def scratch(plan, P: int, B: int, KVH: int, rows: int, hd: int, device):

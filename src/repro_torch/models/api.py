@@ -1,9 +1,9 @@
-"""Model facade (counterpart of ``repro.models.api``): the dense LM's
-serving entry points (paged continuous-batching prefill, decode and
+"""Model facade (counterpart of ``repro.models.api``): the decoder-only
+LM's serving entry points (paged continuous-batching prefill, decode and
 speculative verify window; prefill into and decode over a dense cache)
-and the training forward and loss of three families: the dense LM (token
-cross-entropy in sequence chunks), the vision family (ViT) and the pde
-family (the 1-D UNet).
+and the training forward and loss of four families: the dense and MoE
+LMs (token cross-entropy in sequence chunks; MoE adds its router's aux
+losses), the vision family (ViT) and the pde family (the 1-D UNet).
 
 ``init_params`` builds ONE particle's tree (no particle axis); the store
 stacks particles. Every other function takes the stacked tree with a
@@ -15,7 +15,8 @@ Under a model axis (a 2D placement) the stacked tree arrives as a
 points hand it to their tensor-parallel counterparts in ``models.tp``,
 and ``loss_fn`` takes the same loss on what ``tp.forward`` returns.
 
-LM batches: ``{"tokens": (B, S) int, "labels": (B, S) int}`` (labels < 0
+LM batches (families "dense" and "moe"): ``{"tokens": (B, S) int,
+"labels": (B, S) int}`` (labels < 0
 masked); vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,)
 int}``; pde batches: ``{"u0": (B, L, 1) f32, "u1": (B, L, 1) f32}``.
 """
@@ -45,6 +46,7 @@ from . import unet1d as unet_mod
 from . import vit as vit_mod
 
 LOSS_CHUNK = 512
+LM_FAMILIES = ("dense", "moe")
 
 
 def init_params(gen, cfg):
@@ -53,8 +55,9 @@ def init_params(gen, cfg):
         return vit_mod.vit_init(gen, cfg)
     if cfg.family == "pde":
         return unet_mod.unet_init(gen, cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    if cfg.family not in LM_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported "
+                                  f"(ROADMAP.md queue 1, item 11)")
     params = {
         "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                              device=gen.device) * 0.02,
@@ -67,10 +70,10 @@ def init_params(gen, cfg):
 
 
 def _backbone_inputs(params, batch, cfg, dtype):
-    """The dense family's stack input x (P, B, S, D). The audio and vlm
+    """The LM families' stack input x (P, B, S, D). The audio and vlm
     frontends (and the vlm's offset of the text positions) wait for the
     rest of the model zoo (ROADMAP.md queue 1, item 11)."""
-    if cfg.family != "dense":
+    if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} has no ported training forward "
             f"(ROADMAP.md queue 1, item 11)")
@@ -113,31 +116,39 @@ def _chunked_ce(params, x, labels, cfg):
 
 def forward(params, batch, cfg):
     """Training-style full forward. Returns (per-particle output, aux):
-    the final-norm hidden states (P, B, S, D) for the dense LM family
+    the final-norm hidden states (P, B, S, D) for the LM families
     (``loss_fn`` applies the head chunk by chunk), logits (P, B,
     n_classes) for the vision family, the predicted next state (P, B, L,
-    1) for the pde family."""
+    1) for the pde family. aux holds the MoE layers' summed aux values
+    (``lb_loss``, ``z_loss``, ``dropped_frac``, each (P,)); it is {} for
+    a stack with no MoE layer and for the other families."""
     if isinstance(params, Group):
         return tp.forward(params, batch, cfg)
     if cfg.family == "vision":
         return vit_mod.vit_apply(params, batch["images"], cfg), {}
     if cfg.family == "pde":
         return unet_mod.unet_apply(params, batch["u0"], cfg), {}
-    x = stack_apply_full(params, _backbone_inputs(params, batch, cfg,
-                                                  _dtype(cfg)), cfg)
-    return norm_apply(params["final_norm"], x), {}
+    x, aux = stack_apply_full(params, _backbone_inputs(params, batch, cfg,
+                                                       _dtype(cfg)), cfg)
+    return norm_apply(params["final_norm"], x), aux
 
 
 def loss_fn(params, batch, cfg):
     """Returns (loss (P,), metrics), one value per particle: the token
-    cross-entropy over the live labels (dense; MoE's aux losses wait with
-    its layers for item 11), the class cross-entropy and accuracy
-    averaged over the batch (vision), or the squared error against ``u1``
+    cross-entropy over the live labels (the LM families; with experts,
+    plus ``router_aux_coef * (lb_loss + z_loss)``, and the metrics carry
+    the three aux values), the class cross-entropy and accuracy averaged
+    over the batch (vision), or the squared error against ``u1``
     averaged over (B, L, 1) (pde)."""
-    out, _ = forward(params, batch, cfg)
-    if cfg.family == "dense":
+    out, aux = forward(params, batch, cfg)
+    if cfg.family in LM_FAMILIES:
         loss = _chunked_ce(params, out, batch["labels"], cfg)
-        return loss, {"loss": loss}
+        metrics = {"loss": loss}
+        if cfg.n_experts:
+            loss = loss + cfg.router_aux_coef * (aux["lb_loss"]
+                                                 + aux["z_loss"])
+            metrics.update(aux)
+        return loss, metrics
     if cfg.family == "pde":
         loss = (out - batch["u1"]).square().flatten(1).mean(-1)
         return loss, {"loss": loss}
@@ -224,7 +235,7 @@ def decode_step(params, token, caches, cur_pos, cfg):
     from before each replay; any other tensor is its caller's to check.
     The caches are updated in place. Returns (logits (P, B, V), caches)."""
     decode_guard(cfg)
-    check = functools.partial(_check_cur_pos, C=_first_kv(caches).shape[-3])
+    check = functools.partial(_check_cur_pos, C=_global_len(caches, cfg))
     if isinstance(cur_pos, torch.Tensor):
         host_check(cur_pos, check)
     else:
@@ -239,8 +250,22 @@ def decode_step(params, token, caches, cur_pos, cfg):
     return _lm_logits(params, x, cfg)[:, :, 0], caches
 
 
-def _check_cur_pos(cur_pos, C: int):
-    if not 0 <= int(cur_pos) < C:
+def _global_len(caches, cfg):
+    """The slots of the stack's global (non-ring) caches: the positions a
+    decode may reach; None when every layer is a ``local`` ring (any
+    position is then in range)."""
+    tree = caches.shards[0] if isinstance(caches, Group) else caches
+    kinds = {"head": cfg.head_layers, "units": cfg.pattern,
+             "tail": cfg.tail_layers}
+    for group in ("units", "head", "tail"):
+        for kind, c in zip(kinds[group], tree[group]):
+            if kind != "local":
+                return c["k"].shape[-3]
+    return None
+
+
+def _check_cur_pos(cur_pos, C):
+    if int(cur_pos) < 0 or (C is not None and int(cur_pos) >= C):
         raise ValueError(f"cur_pos {int(cur_pos)} is outside the cache of "
                          f"{C} slots")
 

@@ -62,15 +62,18 @@ def attn_init(gen, cfg, lead=()):
     }
 
 
-def mlp_init(gen, cfg, lead=()):
+def mlp_init(gen, cfg, lead=(), d_ff=None):
+    """An MLP of hidden width ``d_ff`` (default ``cfg.d_ff``; MoE's shared
+    experts pass ``cfg.shared_d_ff``)."""
+    d_ff = d_ff or cfg.d_ff
     if cfg.act == "swiglu":
-        return {"wi": dense_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
-                "wg": dense_init(gen, cfg.d_model, cfg.d_ff, lead=lead),
-                "wo": dense_init(gen, cfg.d_ff, cfg.d_model, lead=lead)}
+        return {"wi": dense_init(gen, cfg.d_model, d_ff, lead=lead),
+                "wg": dense_init(gen, cfg.d_model, d_ff, lead=lead),
+                "wo": dense_init(gen, d_ff, cfg.d_model, lead=lead)}
     if cfg.act == "gelu":
-        return {"w1": dense_init(gen, cfg.d_model, cfg.d_ff, bias=True,
+        return {"w1": dense_init(gen, cfg.d_model, d_ff, bias=True,
                                  lead=lead),
-                "w2": dense_init(gen, cfg.d_ff, cfg.d_model, bias=True,
+                "w2": dense_init(gen, d_ff, cfg.d_model, bias=True,
                                  lead=lead)}
     raise NotImplementedError(f"the port runs swiglu and gelu MLPs, not "
                               f"{cfg.act}")
@@ -176,7 +179,8 @@ def full_attention(q, k, v, *, causal: bool):
 NEG_INF = -1e30
 
 
-def _chunk_mask(kind: str, q_pos, k_pos, *, prefix_len: int = 0):
+def _chunk_mask(kind: str, q_pos, k_pos, *, window: int = 0,
+                prefix_len: int = 0):
     """q_pos (qc,), k_pos (kc,) -> bool (qc, kc) allowed."""
     q = q_pos[:, None]
     k = k_pos[None, :]
@@ -186,12 +190,14 @@ def _chunk_mask(kind: str, q_pos, k_pos, *, prefix_len: int = 0):
     causal = k <= q
     if kind == "causal":
         return causal
+    if kind == "sliding":
+        return causal & (k > q - window)
     if kind == "prefix":
         return causal | (k < prefix_len)
     raise ValueError(kind)
 
 
-def _block_mask(kind, prefix_len, q_offset, qi, q_chunk, ki, k_chunk,
+def _block_mask(kind, window, prefix_len, q_offset, qi, q_chunk, ki, k_chunk,
                 device):
     """The mask of block (qi, ki): None when every pair is allowed, False
     when none is (a block the reference computes to exact zeros: its
@@ -209,16 +215,25 @@ def _block_mask(kind, prefix_len, q_offset, qi, q_chunk, ki, k_chunk,
             return None
         if k_lo > q_hi and not (pre and k_lo < prefix_len):
             return False
+    if kind == "sliding":
+        if k_hi <= q_lo and k_lo > q_hi - window:
+            return None
+        if k_lo > q_hi or k_hi <= q_lo - window:
+            return False
     q_pos = q_lo + torch.arange(q_chunk, device=device)
     k_pos = k_lo + torch.arange(k_chunk, device=device)
-    return _chunk_mask(kind, q_pos, k_pos, prefix_len=prefix_len)
+    return _chunk_mask(kind, q_pos, k_pos, window=window,
+                       prefix_len=prefix_len)
 
 
-def _fa_fwd_impl(q, k, v, kind, prefix_len, q_offset, q_chunk, k_chunk):
+def _fa_fwd_impl(q, k, v, kind, window, prefix_len, q_offset, softcap,
+                 q_chunk, k_chunk):
     """Padded-shape flash forward over the folded particle and batch axis
     N = P * B. q (N, Sqp, KVH, G, hd); k, v (N, Skp, KVH, hd). Returns
     (out (N, Sqp, KVH, G, hd), L (N, KVH, G, Sqp)) with L the log-sum-exp
-    of the score rows (the flash softmax stats)."""
+    of the score rows (the flash softmax stats). With ``softcap`` > 0 the
+    scores are capped (``softcap * tanh(s / softcap)``) before the mask,
+    as the reference's are."""
     N, Sqp, KVH, G, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     nq, nk = Sqp // q_chunk, k.shape[1] // k_chunk
@@ -233,13 +248,15 @@ def _fa_fwd_impl(q, k, v, kind, prefix_len, q_offset, q_chunk, k_chunk):
         acc = torch.zeros((N, KVH, G, q_chunk, hd), dtype=torch.float32,
                           device=q.device)
         for ki in range(nk):
-            mask = _block_mask(kind, prefix_len, q_offset, qi, q_chunk, ki,
-                               k_chunk, q.device)
+            mask = _block_mask(kind, window, prefix_len, q_offset, qi,
+                               q_chunk, ki, k_chunk, q.device)
             if mask is False:
                 continue
             cols = slice(ki * k_chunk, (ki + 1) * k_chunk)
             kk, vv = k[:, cols], v[:, cols]
             s = torch.einsum("bqngh,bknh->bngqk", qq, kk).float()
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
             if mask is not None:
                 s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))     # (N, KVH, G, qc)
@@ -256,10 +273,13 @@ def _fa_fwd_impl(q, k, v, kind, prefix_len, q_offset, q_chunk, k_chunk):
     return out, L
 
 
-def _fa_bwd_impl(q, k, v, out, L, do, kind, prefix_len, q_offset, q_chunk,
-                 k_chunk):
+def _fa_bwd_impl(q, k, v, out, L, do, kind, window, prefix_len, q_offset,
+                 softcap, q_chunk, k_chunk):
     """Blockwise flash backward: each block's scores are recomputed from
-    q, k and L, so memory stays O(S * chunk); D = rowsum(do * out)."""
+    q, k and L, so memory stays O(S * chunk); D = rowsum(do * out). Never
+    taken with a softcap (``flash_attention`` differentiates the capped
+    forward itself, as the reference does)."""
+    assert softcap == 0.0
     N, Sqp, KVH, G, hd = q.shape
     Skp = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
@@ -276,8 +296,8 @@ def _fa_bwd_impl(q, k, v, out, L, do, kind, prefix_len, q_offset, q_chunk,
         Di = D[:, rows].permute(0, 2, 3, 1)          # (N, KVH, G, qc)
         dq_c = torch.zeros_like(qq)
         for ki in range(nk):
-            mask = _block_mask(kind, prefix_len, q_offset, qi, q_chunk, ki,
-                               k_chunk, q.device)
+            mask = _block_mask(kind, window, prefix_len, q_offset, qi,
+                               q_chunk, ki, k_chunk, q.device)
             if mask is False:
                 continue
             cols = slice(ki * k_chunk, (ki + 1) * k_chunk)
@@ -315,8 +335,9 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention(q, k, v, *, kind: str = "causal", softcap: float = 0.0,
-                    q_chunk: int = 512, k_chunk: int = 1024):
+def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
+                    softcap: float = 0.0, q_chunk: int = 512,
+                    k_chunk: int = 1024):
     """q (P, B, Sq, H, hd); k, v (P, B, Sk, KVH, hd) -> (P, B, Sq, H, hd).
 
     The reference's training attention: GQA by head grouping, a
@@ -329,13 +350,16 @@ def flash_attention(q, k, v, *, kind: str = "causal", softcap: float = 0.0,
     padded keys of a "bidir" attention are masked by a prefix mask over
     the real keys with the queries moved to negative positions. Blocks
     the mask empties entirely are skipped (exact: the reference's sums
-    get zeros there). "causal" and "bidir" are ported; "sliding",
-    "prefix" and softcap wait for the rest of the model zoo (ROADMAP.md
-    queue 1, item 11)."""
-    if kind not in ("causal", "bidir") or softcap > 0.0:
+    get zeros there). "causal", "bidir" and "sliding" (key j visible to
+    query i iff i - window < j <= i: gemma3's local layers) are ported;
+    "prefix" waits for the rest of the model zoo (ROADMAP.md queue 1,
+    item 11). With ``softcap`` > 0 only the forward is the flash form and
+    autograd differentiates it, as the reference has no custom backward
+    for a capped score."""
+    if kind not in ("causal", "bidir", "sliding"):
         raise NotImplementedError(
-            f"flash attention kind {kind!r} with softcap {softcap} is not "
-            f"ported (ROADMAP.md queue 1, item 11)")
+            f"flash attention kind {kind!r} is not ported (ROADMAP.md queue "
+            f"1, item 11)")
     P, B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[2], k.shape[3]
     q_chunk = min(q_chunk, max(Sq, 1))
@@ -357,8 +381,12 @@ def flash_attention(q, k, v, *, kind: str = "causal", softcap: float = 0.0,
         # branch never fires
         pad_kind, prefix_len = "prefix", Sk
         q_offset = -(nq * q_chunk + 1)
-    statics = (pad_kind, prefix_len, q_offset, q_chunk, k_chunk)
-    out = _FlashAttention.apply(qf, kf, vf, statics)
+    statics = (pad_kind, window, prefix_len, q_offset, softcap, q_chunk,
+               k_chunk)
+    if softcap > 0.0:
+        out = _fa_fwd_impl(qf, kf, vf, *statics)[0]
+    else:
+        out = _FlashAttention.apply(qf, kf, vf, statics)
     return out[:, :Sq].reshape(P, B, Sq, H, hd)
 
 
@@ -489,6 +517,8 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, write_index):
     positions go into the sequence's pages, in place, and the padding's
     to the scratch page (``write_index``, from ``prefill_write_index``).
     Returns (out (P, 1, Sp, D), pages)."""
+    if cfg.logit_softcap > 0.0:
+        raise NotImplementedError("paged decode does not support logit softcap")
     P, B, Sp, _ = x.shape
     positions = torch.arange(Sp, device=x.device)
     q, k, v = attn_qkv(p, x, cfg,
@@ -500,29 +530,30 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, write_index):
     return out, pages
 
 
-def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal"):
+def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal", window: int = 0):
     """Full-sequence attention (training). x (P, B, S, D); positions
     ``arange(S)`` feed RoPE when the config has it (the ViT keeps the
     default theta, on top of its learned positions). ``kind`` "causal"
-    (the LM's layers) runs the chunked ``flash_attention``; "bidir" (the
-    ViT's encoder layers, S = 5) the plain ``full_attention``. Returns
-    (P, B, S, D)."""
-    if kind not in ("causal", "bidir"):
+    (the LM's layers) and "sliding" (``local`` layers, ``window`` keys)
+    run the chunked ``flash_attention`` with the config's softcap;
+    "bidir" (the ViT's encoder layers, S = 5) the plain
+    ``full_attention``. Returns (P, B, S, D)."""
+    if kind not in ("causal", "bidir", "sliding"):
         raise NotImplementedError(f"attention kind {kind!r} is not ported "
                                   f"(ROADMAP.md queue 1, item 11)")
     P, B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
     k, v = kv_heads(k, cfg), kv_heads(v, cfg)
-    if kind == "causal":
-        out = flash_attention(q, k, v, kind="causal",
+    if kind != "bidir":
+        out = flash_attention(q, k, v, kind=kind, window=window,
                               softcap=cfg.logit_softcap)
     else:
         out = full_attention(q, k, v, causal=False)
     return dense_apply(p["wo"], out.reshape(P, B, S, -1))
 
 
-def attn_apply_decode(p, x, cfg, cache, *, cur_pos):
+def attn_apply_decode(p, x, cfg, cache, *, cur_pos, window: int = 0):
     """One-token decode over a dense cache for one attention layer.
 
     x (P, B, 1, D), every row at absolute position ``cur_pos``, a 0-d
@@ -530,34 +561,61 @@ def attn_apply_decode(p, x, cfg, cache, *, cur_pos):
     host); cache {"k", "v": (P, B, C, KVH, hd), "pos": (B, C) int32, the
     slot positions shared by the particles}. The new K/V row and its
     position are written at slot ``cur_pos`` IN PLACE (the reference
-    returns a new cache), then the token attends over the cache through
-    the dense-decode kernel. Ring caches (a sliding window) are not ported
-    (``transformer.decode_guard``). Returns (out (P, B, 1, D), cache)."""
+    returns a new cache), or at ``cur_pos % C`` for a ring cache
+    (``window`` > 0: a ``local`` layer's C = min(window, max_len) slots,
+    the oldest overwritten), then the token attends over the cache's
+    filled slots through the dense-decode kernel; with a logit softcap,
+    through the plain form (the reference's decode kernel has no
+    softcap). Returns (out (P, B, 1, D), cache)."""
     P, B = x.shape[:2]
-    slot = cur_pos.reshape(1).long()
+    C = cache["k"].shape[2]
+    slot = (cur_pos % C if window else cur_pos).reshape(1).long()
     pos = cur_pos.reshape(1, 1).expand(B, 1)
     q, k, v = attn_qkv(p, x, cfg, pos if cfg.rope_theta > 0 else None)
     cache["k"].index_copy_(2, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(2, slot, v.to(cache["v"].dtype))
     cache["pos"].index_copy_(1, slot, pos.to(torch.int32))
-    out = _kops.decode_attention(q[:, :, 0], kv_heads(cache["k"], cfg),
-                                 kv_heads(cache["v"], cfg), cache["pos"])
+    args = (q[:, :, 0], kv_heads(cache["k"], cfg), kv_heads(cache["v"], cfg),
+            cache["pos"])
+    if cfg.logit_softcap > 0.0:
+        out = _kref.decode_attention(*args, softcap=cfg.logit_softcap)
+    else:
+        out = _kops.decode_attention(*args)
     out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))
     return out, cache
 
 
-def attn_apply_prefill(p, x, cfg, cache):
-    """Causal prefill of a whole prompt through the prefill kernel, filling
-    the layer's empty dense decode cache. x (P, B, S, D); cache {"k", "v":
-    (P, B, C, KVH, hd), "pos": (B, C)} with C >= S: the prompt's K/V rows
-    and positions 0..S-1 are written IN PLACE, the slots past S stay empty
-    (the decode headroom). Returns (out (P, B, S, D), cache)."""
+def attn_apply_prefill(p, x, cfg, cache, *, window: int = 0):
+    """Prefill of a whole prompt that fills the layer's empty dense decode
+    cache. x (P, B, S, D); cache {"k", "v": (P, B, C, KVH, hd), "pos":
+    (B, C)}. A global layer (``window`` 0) attends causally through the
+    prefill kernel, or, with a logit softcap, through the plain flash
+    form (the kernel has no softcap); C >= S, and the prompt's K/V rows
+    and positions 0..S-1 are written IN PLACE, the slots past S left
+    empty (the decode headroom). A ``local`` layer attends through the
+    plain sliding-window flash form (the reference's jnp one: no kernel
+    computes a window) and fills its ring in the reference's layout: the
+    entry for position p at slot p % C, so a prompt longer than the ring
+    keeps its last C positions. Returns (out (P, B, S, D), cache)."""
     P, B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
-    out = _kops.flash_attention(q, kv_heads(k, cfg), kv_heads(v, cfg),
-                                causal=True)
+    kk, vv = kv_heads(k, cfg), kv_heads(v, cfg)
+    if window or cfg.logit_softcap > 0.0:
+        out = flash_attention(q, kk, vv, kind="sliding" if window
+                              else "causal", window=window,
+                              softcap=cfg.logit_softcap)
+    else:
+        out = _kops.flash_attention(q, kk, vv, causal=True)
     out = dense_apply(p["wo"], out.reshape(P, B, S, -1))
+    C = cache["k"].shape[2]
+    if window and S > C:
+        kept = positions[S - C:]
+        slot = kept % C
+        cache["k"].index_copy_(2, slot, k[:, :, S - C:].to(cache["k"].dtype))
+        cache["v"].index_copy_(2, slot, v[:, :, S - C:].to(cache["v"].dtype))
+        cache["pos"].index_copy_(1, slot, kept.to(torch.int32).expand(B, C))
+        return out, cache
     cache["k"][:, :, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :, :S] = v.to(cache["v"].dtype)
     cache["pos"][:, :S] = positions.to(torch.int32)
@@ -565,14 +623,16 @@ def attn_apply_prefill(p, x, cfg, cache):
 
 
 def attn_cache_init(cfg, particles: int, batch: int, seq_len: int, *,
-                    dtype, device, lead=()):
+                    dtype, device, lead=(), window: int = 0):
     """An empty dense cache: k/v (P, *lead, B, C, KVH, hd) zeros, pos
-    (*lead, B, C) int32 = -1 (shared by the particles)."""
-    shape = (particles,) + tuple(lead) + (batch, seq_len, cfg.n_kv_heads,
+    (*lead, B, C) int32 = -1 (shared by the particles); C = seq_len, or
+    min(window, seq_len) for a ``local`` layer's ring."""
+    C = min(window, seq_len) if window else seq_len
+    shape = (particles,) + tuple(lead) + (batch, C, cfg.n_kv_heads,
                                           cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full(tuple(lead) + (batch, seq_len), -1,
+            "pos": torch.full(tuple(lead) + (batch, C), -1,
                               dtype=torch.int32, device=device)}
 
 

@@ -23,6 +23,15 @@ between blocks are a list with one tensor per position.
     kv head (and writes them all into its replicated page pool or cache)
     and its q heads read the kv heads their global index maps to
     (``blocks.kv_heads``).
+  * MoE layers (``attn_moe``): the experts' leading E axis rides the
+    axis (``wi`` / ``wg`` / ``wo``), the router is replicated and the
+    shared experts are an MLP as above. Each position routes every
+    token with its copy of the router (the same routing at each),
+    computes only its own E / m experts' slots and combines them into a
+    partial output; the partials are summed as a row-parallel product's
+    are. A count the axis does not divide leaves the experts replicated
+    (the rules' divisibility drop): each position then computes them
+    all. The aux values come from the first position's router.
   * The tied embedding is split over the vocab: a lookup takes the
     local vocab range (zeros elsewhere) and the group sums the parts,
     which is exact; the logits come out vocab-split and are joined on
@@ -49,10 +58,11 @@ import torch
 from ..core.tree import Group, tree_map
 from ..sharding.policy import maybe_shard
 from . import blocks
+from . import moe as moe_mod
 from .blocks import norm_apply
-from .transformer import (FULL_KINDS, cache_unit, decode_guard, page_unit,
+from .transformer import (cache_unit, decode_guard, mask_kind, page_unit,
                           paged_guard, stack_apply_full, stack_layers,
-                          unbind_units)
+                          unbind_units, window_of)
 
 
 # --------------------------------------------------------------------------
@@ -208,20 +218,49 @@ def _mlp(pm: List[Dict], xs, cfg, devices):
     return ys
 
 
+def _moe(pm: List[Dict], xs, cfg, devices):
+    """The MoE over the group: (outputs, one per position; the aux values
+    of the first position's router). Experts split over the axis give
+    partial outputs, summed in position order; the shared experts run as
+    an MLP of ``shared_d_ff`` over the group."""
+    El = pm[0]["wi"].shape[-3]
+    split = El != cfg.n_experts
+    P, B, S, D = xs[0].shape
+    parts, aux = [], None
+    for j, (p, x) in enumerate(zip(pm, xs)):
+        xt = x.reshape(P, B * S, D)
+        r = moe_mod.route(p, xt, cfg)
+        parts.append(moe_mod.experts_apply(p, xt, r, cfg,
+                                           j * El if split else 0))
+        if j == 0:
+            aux = moe_mod.aux_values(r, cfg)
+    ys = reduce_sum(parts, devices) if split else parts
+    if "shared" in pm[0]:
+        sh = _mlp([p["shared"] for p in pm],
+                  [x.reshape(P, B * S, D) for x in xs],
+                  _Local(cfg, d_ff=cfg.shared_d_ff), devices)
+        ys = [y + s for y, s in zip(ys, sh)]
+    return [maybe_shard(y, "moe_tokens").reshape(P, B, S, D)
+            for y in ys], aux
+
+
 def _layer(ps, xs, cfg, devices, attn):
-    """One pre-norm attention + MLP layer over the group. ``attn(p_attn,
-    h, local cfg, j)`` is position j's attention (through its ``wo``
-    rows); returns the new residuals, one per position."""
+    """One pre-norm attention + (MLP | MoE) layer over the group.
+    ``attn(p_attn, h, local cfg, j)`` is position j's attention (through
+    its ``wo`` rows); returns (the new residuals, one per position; the
+    MoE's aux values or None)."""
     pa, local, partial = _attn_plan([p["attn"] for p in ps], cfg, devices)
     hs = [attn(pa[j], norm_apply(ps[j]["ln1"], xs[j]), local[j], j)
           for j in range(len(ps))]
     if partial:
         hs = reduce_sum(hs, devices)
     xs = [maybe_shard(x + h, "residual") for x, h in zip(xs, hs)]
-    ys = _mlp([p["mlp"] for p in ps],
-              [norm_apply(p["ln2"], x) for p, x in zip(ps, xs)], cfg,
-              devices)
-    return [x + y for x, y in zip(xs, ys)]
+    normed = [norm_apply(p["ln2"], x) for p, x in zip(ps, xs)]
+    if "moe" in ps[0]:
+        ys, aux = _moe([p["moe"] for p in ps], normed, cfg, devices)
+    else:
+        ys, aux = _mlp([p["mlp"] for p in ps], normed, cfg, devices), None
+    return [x + y for x, y in zip(xs, ys)], aux
 
 
 def _zip(shards):
@@ -234,10 +273,11 @@ def _zip(shards):
 
 def _full_layer(kind, ps, xs, cfg, devices):
     """One training layer over the group (``layer_apply_full``'s
-    counterpart)."""
+    counterpart): (residuals, aux or None)."""
+    mk, window = mask_kind(kind, cfg)
     return _layer(ps, xs, cfg, devices,
                   lambda p, h, lc, j: blocks.attn_apply_fullseq(
-                      p, h, lc, kind=FULL_KINDS[kind]))
+                      p, h, lc, kind=mk, window=window))
 
 
 # --------------------------------------------------------------------------
@@ -290,7 +330,7 @@ def vit_forward(group: Group, images, cfg):
     def encoder(x):
         xs = [x.to(d) for d in devices]
         for unit in unbind_units([s["units"] for s in group.shards]):
-            xs = _full_layer("enc_attn_mlp", unit, xs, cfg, devices)
+            xs, _ = _full_layer("enc_attn_mlp", unit, xs, cfg, devices)
         return xs[0]
 
     return vit_apply(group.shards[0], images, cfg, encoder=encoder)
@@ -298,21 +338,22 @@ def vit_forward(group: Group, images, cfg):
 
 def forward(group, batch, cfg):
     """``api.forward`` over a group: the output on the first position
-    (the dense LM's final-norm hidden states, the ViT's logits)."""
+    (the LM's final-norm hidden states and its MoE aux values, the ViT's
+    logits)."""
     from . import api
     if not has_split(group):
         return api.forward(entry(group), batch, cfg)
     if cfg.family == "vision":
         return vit_forward(group, batch["images"], cfg), {}
-    if cfg.family != "dense":
+    if cfg.family not in api.LM_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} has no tensor-parallel forward")
     shards, devices = group.shards, group.devices
     xs = _embed(shards, batch["tokens"], api._dtype(cfg), cfg, devices)
-    xs = stack_apply_full(_zip(shards), xs, cfg,
-                          layer=functools.partial(_full_layer,
-                                                  devices=devices))
-    return norm_apply(shards[0]["final_norm"], xs[0]), {}
+    xs, aux = stack_apply_full(_zip(shards), xs, cfg,
+                               layer=functools.partial(_full_layer,
+                                                       devices=devices))
+    return norm_apply(shards[0]["final_norm"], xs[0]), aux
 
 
 # --------------------------------------------------------------------------
@@ -323,36 +364,40 @@ def _serve(group: Group, tokens, cfg, state: Group, ctx, attn, pick):
     """Embedding, the stack over each position's state (``state``: a Group
     of page pools or dense caches; ``pick`` takes a unit's) and the final
     norm, on the first position; ``ctx`` (the step's block tables,
-    lengths, write index) is moved to every position."""
+    lengths, write index) is moved to every position. ``attn(p, h, lc,
+    st, ctx, window)`` is one position's attention; ``window`` is a
+    ``local`` layer's ring bound (0 for the others)."""
     from .api import _dtype
     shards, devices = group.shards, group.devices
     ctxs = [_on(ctx, d) for d in devices]
     xs = _embed(shards, tokens, _dtype(cfg), cfg, devices)
     dt = xs[0].dtype
-    for where, _, ps, sts in stack_layers(
+    for where, kind, ps, sts in stack_layers(
             _zip(shards), _zip(state.shards), cfg,
             lambda s, u: [pick(x, u) for x in s]):
-        xs = _layer(ps, xs, cfg, devices,
-                    lambda p, h, lc, j: attn(p, h, lc, sts[j], ctxs[j]))
+        w = window_of(kind, cfg)
+        xs, _ = _layer(ps, xs, cfg, devices,
+                       lambda p, h, lc, j: attn(p, h, lc, sts[j], ctxs[j],
+                                                w))
         if where == "units":
             xs = [x.to(dt) for x in xs]
     return norm_apply(shards[0]["final_norm"], xs[0])
 
 
-def _paged_attn(p, h, lc, st, ctx):
+def _paged_attn(p, h, lc, st, ctx, window):
     return blocks.attn_apply_paged(
         p, h, lc, st, block_tables=ctx["block_tables"],
         seq_lens=ctx["seq_lens"], write_index=ctx["write_index"],
         use_kernel=ctx.get("decode_kernel", True))[0]
 
 
-def _window_attn(p, h, lc, st, ctx):
+def _window_attn(p, h, lc, st, ctx, window):
     return blocks.attn_apply_window_paged(
         p, h, lc, st, block_tables=ctx["block_tables"],
         seq_lens=ctx["seq_lens"], write_index=ctx["write_index"])[0]
 
 
-def _prefill_paged_attn(p, h, lc, st, ctx):
+def _prefill_paged_attn(p, h, lc, st, ctx, window):
     return blocks.attn_apply_prefill_paged(
         p, h, lc, st, write_index=ctx["write_index"])[0]
 
@@ -396,8 +441,8 @@ def prefill(group: Group, tokens, cfg, C: int):
                     for s, lc, d in zip(group.shards, plan, group.devices)],
                    None, group.devices)
     x = _serve(group, tokens, cfg, caches, {},
-               lambda p, h, lc, st, ctx: blocks.attn_apply_prefill(
-                   p, h, lc, st)[0], cache_unit)
+               lambda p, h, lc, st, ctx, w: blocks.attn_apply_prefill(
+                   p, h, lc, st, window=w)[0], cache_unit)
     return logits(group, x[:, :, -1:], cfg)[:, :, 0], caches
 
 
@@ -407,8 +452,9 @@ def decode_step(group: Group, token, caches: Group, cur_pos, cfg):
     decode_guard(cfg)
     x = _serve(group, token.clamp(min=0)[:, None], cfg, caches,
                {"cur_pos": cur_pos},
-               lambda p, h, lc, st, ctx: blocks.attn_apply_decode(
-                   p, h, lc, st, cur_pos=ctx["cur_pos"])[0], cache_unit)
+               lambda p, h, lc, st, ctx, w: blocks.attn_apply_decode(
+                   p, h, lc, st, cur_pos=ctx["cur_pos"], window=w)[0],
+               cache_unit)
     return logits(group, x, cfg)[:, :, 0], caches
 
 

@@ -5,6 +5,14 @@ the LM's training stack (``stack_apply_full``, with the remat menu) and
 the full-sequence training layer of the encoder stack (``enc_attn_mlp``,
 the ViT's layers).
 
+Layer kinds: ``attn_mlp`` (global attention + MLP), ``attn_moe`` (global
+attention + the MoE of ``models.moe``), ``local`` (``attn_mlp`` with a
+sliding window of ``cfg.sliding_window`` keys: a ring cache of that many
+slots in dense-cache decode; no paged form, as in the reference) and
+``enc_attn_mlp`` (bidirectional). The recurrent kinds, ``shared_attn``,
+the encoder-decoder and prefix-LM wait for the rest of the model zoo
+(ROADMAP.md queue 1, item 11).
+
 The stack is ``cfg.head_layers + cfg.pattern * cfg.n_units +
 cfg.tail_layers``. Repeated pattern units keep the reference's storage:
 params and pages stacked on an ``n_units`` axis, which in the port sits
@@ -23,25 +31,65 @@ from typing import Any, Dict
 
 from ..core.precision import checkpoint_policy
 from ..core.tree import tree_map
+from . import moe as moe_mod
 from .blocks import (attn_apply_decode, attn_apply_fullseq,
                      attn_apply_paged, attn_apply_prefill,
                      attn_apply_prefill_paged, attn_apply_window_paged,
                      attn_cache_init, attn_init, attn_pages_init, mlp_apply,
                      mlp_init, norm_apply, norm_init)
 
-PAGED_KINDS = ("attn_mlp",)
-DECODE_KINDS = ("attn_mlp",)
-FULL_KINDS = {"attn_mlp": "causal", "enc_attn_mlp": "bidir"}
+PAGED_KINDS = ("attn_mlp", "attn_moe")
+DECODE_KINDS = ("attn_mlp", "attn_moe", "local")
+FULL_KINDS = ("attn_mlp", "attn_moe", "local", "enc_attn_mlp")
+AUX_KEYS = moe_mod.AUX_KEYS
 
 
 def layer_init(kind: str, gen, cfg, lead=()):
     if kind not in FULL_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+        raise NotImplementedError(f"layer kind {kind!r} is not ported "
+                                  f"(ROADMAP.md queue 1, item 11)")
     dev = gen.device
-    return {"ln1": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead),
-            "attn": attn_init(gen, cfg, lead=lead),
-            "ln2": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead),
-            "mlp": mlp_init(gen, cfg, lead=lead)}
+    p = {"ln1": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead),
+         "attn": attn_init(gen, cfg, lead=lead),
+         "ln2": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead)}
+    if kind == "attn_moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg, lead=lead)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, lead=lead)
+    return p
+
+
+def mask_kind(kind: str, cfg):
+    """(attention mask kind, window) of a layer kind (the reference's
+    ``_mask_kind``, less prefix-LM, which ``full_guard`` refuses)."""
+    if kind == "enc_attn_mlp":
+        return "bidir", 0
+    if kind == "local":
+        return "sliding", cfg.sliding_window
+    return "causal", 0
+
+
+def window_of(kind: str, cfg) -> int:
+    """A layer's ring size bound: the sliding window of a ``local`` layer,
+    0 (no ring) for the others."""
+    return cfg.sliding_window if kind == "local" else 0
+
+
+def ffn_apply(p, h, cfg):
+    """The layer's second half on its normed input: the MoE (returns its
+    aux values) or the MLP (aux None)."""
+    if "moe" in p:
+        return moe_mod.moe_apply(p["moe"], h, cfg)
+    return mlp_apply(p["mlp"], h, cfg), None
+
+
+def add_aux(total, aux):
+    """Sum of two aux dicts (either may be None)."""
+    if aux is None:
+        return total
+    if total is None:
+        return dict(aux)
+    return {k: total[k] + aux[k] for k in AUX_KEYS}
 
 
 def stack_init(gen, cfg) -> Dict[str, Any]:
@@ -71,28 +119,31 @@ def _n(per):
 
 
 def layer_apply_full(kind: str, p, x, cfg):
-    """One pre-norm attention + MLP layer over a whole sequence.
-    x (P, B, S, D) -> (P, B, S, D)."""
+    """One pre-norm attention + (MLP | MoE) layer over a whole sequence.
+    x (P, B, S, D) -> (x (P, B, S, D), aux: the MoE's aux values (P,) or
+    None)."""
+    mk, window = mask_kind(kind, cfg)
     x = x + attn_apply_fullseq(p["attn"], norm_apply(p["ln1"], x), cfg,
-                               kind=FULL_KINDS[kind])
-    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg)
+                               kind=mk, window=window)
+    h, aux = ffn_apply(p, norm_apply(p["ln2"], x), cfg)
+    return x + h, aux
 
 
 def full_guard(cfg):
-    """The training stack runs ``attn_mlp`` layers (causal) and
-    ``enc_attn_mlp`` (bidirectional); MoE, local (sliding-window) and the
-    other layer kinds, prefix-LM and logit softcap wait for the rest of
-    the model zoo (ROADMAP.md queue 1, item 11)."""
+    """The training stack runs ``attn_mlp`` and ``attn_moe`` layers
+    (causal), ``local`` (sliding window) and ``enc_attn_mlp``
+    (bidirectional), with or without a logit softcap; the other layer
+    kinds and prefix-LM wait for the rest of the model zoo (ROADMAP.md
+    queue 1, item 11)."""
     kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
     bad = sorted({k for k in kinds if k not in FULL_KINDS})
     if bad:
         raise NotImplementedError(
-            f"the training stack supports {tuple(FULL_KINDS)} layers only, "
+            f"the training stack supports {FULL_KINDS} layers only, "
             f"got {bad} (ROADMAP.md queue 1, item 11)")
-    if cfg.prefix_lm or cfg.logit_softcap > 0.0:
+    if cfg.prefix_lm:
         raise NotImplementedError("the training stack does not support "
-                                  "prefix_lm or logit softcap (ROADMAP.md "
-                                  "queue 1, item 11)")
+                                  "prefix_lm (ROADMAP.md queue 1, item 11)")
 
 
 def _remat(cfg, body):
@@ -105,67 +156,77 @@ def _remat(cfg, body):
 
 
 def stack_apply_full(params, x, cfg, layer=layer_apply_full):
-    """The training forward through the stack. x (P, B, S, D) -> (P, B,
-    S, D). The reference scans its units; here a Python loop takes each
+    """The training forward through the stack. x (P, B, S, D) -> (x (P,
+    B, S, D), aux): aux the MoE layers' aux values summed over the layers
+    (each (P,)), as the reference sums them, or {} for a stack with no MoE
+    layer. The reference scans its units; here a Python loop takes each
     unit's params as views (``unbind_units``), and the unit body is
     checkpointed as ``_remat`` says. ``layer(kind, p, x, cfg)`` runs one
-    layer: ``models.tp`` passes its tensor-parallel layer, with ``params``
-    a tree whose layers hold one tree per model position and ``x`` a list
-    with one tensor per position."""
+    layer and returns (x, aux or None): ``models.tp`` passes its
+    tensor-parallel layer, with ``params`` a tree whose layers hold one
+    tree per model position and ``x`` a list with one tensor per
+    position."""
     full_guard(cfg)
 
     def body(x, unit):
+        aux = None
         for kind, p in zip(cfg.pattern, unit):
-            x = layer(kind, p, x, cfg)
-        return x
+            x, a = layer(kind, p, x, cfg)
+            aux = add_aux(aux, a)
+        return x, aux
 
     body = _remat(cfg, body)
+    aux = None
     for kind, p in zip(cfg.head_layers, params["head"]):
-        x = layer(kind, p, x, cfg)
+        x, a = layer(kind, p, x, cfg)
+        aux = add_aux(aux, a)
     if cfg.n_units:
         for unit in unbind_units(params["units"]):
-            x = body(x, unit)
+            x, a = body(x, unit)
+            aux = add_aux(aux, a)
     for kind, p in zip(cfg.tail_layers, params["tail"]):
-        x = layer(kind, p, x, cfg)
-    return x
+        x, a = layer(kind, p, x, cfg)
+        aux = add_aux(aux, a)
+    return x, aux or {}
 
 
 def layer_apply_prefill(kind: str, p, x, cfg, cache):
-    """One causal layer over a whole prompt that also builds the layer's
-    dense decode cache, the counterpart of the cache-building branch of
-    the reference's ``layer_apply_full``: the layer's empty cache is
-    filled in place. x (P, B, S, D). Returns (x, cache)."""
+    """One layer over a whole prompt that also builds the layer's dense
+    decode cache (a ring for a ``local`` layer), the counterpart of the
+    cache-building branch of the reference's ``layer_apply_full``: the
+    layer's empty cache is filled in place. x (P, B, S, D). Returns (x,
+    cache)."""
     h, cache = attn_apply_prefill(p["attn"], norm_apply(p["ln1"], x), cfg,
-                                  cache)
+                                  cache, window=window_of(kind, cfg))
     x = x + h
-    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), cache
+    return x + ffn_apply(p, norm_apply(p["ln2"], x), cfg)[0], cache
 
 
 def layer_apply_decode(kind: str, p, x, cfg, cache, ctx):
-    """One-token decode of one layer over its dense cache. x (P, B, 1, D);
-    ctx: cur_pos (a 0-d int tensor on the device). The cache is updated in
-    place. Returns (x, cache)."""
+    """One-token decode of one layer over its dense cache (a ring for a
+    ``local`` layer). x (P, B, 1, D); ctx: cur_pos (a 0-d int tensor on
+    the device). The cache is updated in place. Returns (x, cache)."""
     h, cache = attn_apply_decode(p["attn"], norm_apply(p["ln1"], x), cfg,
-                                 cache, cur_pos=ctx["cur_pos"])
+                                 cache, cur_pos=ctx["cur_pos"],
+                                 window=window_of(kind, cfg))
     x = x + h
-    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), cache
+    return x + ffn_apply(p, norm_apply(p["ln2"], x), cfg)[0], cache
 
 
 def decode_guard(cfg):
-    """The dense-cache path runs global-attention ``attn_mlp`` stacks:
-    ring caches (``local`` layers), logit softcap and the other layer
-    kinds wait for the rest of the model zoo (ROADMAP.md queue 1, item
-    11)."""
+    """The dense-cache path runs ``attn_mlp``, ``attn_moe`` and ``local``
+    (ring cache) stacks, with or without a logit softcap; the other layer
+    kinds and prefix-LM wait for the rest of the model zoo (ROADMAP.md
+    queue 1, item 11)."""
     kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
     bad = sorted({k for k in kinds if k not in DECODE_KINDS})
     if bad:
         raise NotImplementedError(
             f"dense-cache decode supports {DECODE_KINDS} stacks only, got "
             f"{bad} (ROADMAP.md queue 1, item 11)")
-    if cfg.prefix_lm or cfg.logit_softcap > 0.0:
+    if cfg.prefix_lm:
         raise NotImplementedError("dense-cache decode does not support "
-                                  "prefix_lm or logit softcap (ROADMAP.md "
-                                  "queue 1, item 11)")
+                                  "prefix_lm (ROADMAP.md queue 1, item 11)")
 
 
 def stack_apply_prefill(params, x, cfg, caches):
@@ -226,17 +287,20 @@ def _stack_apply_state(params, x, cfg, state, pick, layer_fn):
 def stack_cache_init(cfg, particles: int, batch: int, seq_len: int, *,
                      dtype, device):
     """Empty dense caches for ``particles`` stacked particles: per
-    attention layer k/v (P, B, C, KVH, hd) zeros and pos (B, C) = -1; unit
-    layers stacked on n_units (k/v (P, n_units, ...), pos (n_units, ...))."""
+    attention layer k/v (P, B, C, KVH, hd) zeros and pos (B, C) = -1, C =
+    seq_len, or min(sliding_window, seq_len) for a ``local`` layer's ring
+    (each pattern position keeps its own C); unit layers stacked on
+    n_units (k/v (P, n_units, ...), pos (n_units, ...))."""
     decode_guard(cfg)
 
-    def one(lead=()):
+    def one(kind, lead=()):
         return attn_cache_init(cfg, particles, batch, seq_len, dtype=dtype,
-                               device=device, lead=lead)
+                               device=device, lead=lead,
+                               window=window_of(kind, cfg))
 
-    return {"head": tuple(one() for _ in cfg.head_layers),
-            "units": tuple(one((cfg.n_units,)) for _ in cfg.pattern),
-            "tail": tuple(one() for _ in cfg.tail_layers)}
+    return {"head": tuple(one(k) for k in cfg.head_layers),
+            "units": tuple(one(k, (cfg.n_units,)) for k in cfg.pattern),
+            "tail": tuple(one(k) for k in cfg.tail_layers)}
 
 
 def paged_guard(cfg):
@@ -256,7 +320,7 @@ def _layer_apply_paged(kind, p, x, cfg, pages, ctx):
         write_index=ctx["write_index"],
         use_kernel=ctx.get("decode_kernel", True))
     x = x + h
-    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), pages
+    return x + ffn_apply(p, norm_apply(p["ln2"], x), cfg)[0], pages
 
 
 def _layer_apply_prefill_paged(kind, p, x, cfg, pages, ctx):
@@ -264,7 +328,7 @@ def _layer_apply_prefill_paged(kind, p, x, cfg, pages, ctx):
         p["attn"], norm_apply(p["ln1"], x), cfg, pages,
         write_index=ctx["write_index"])
     x = x + h
-    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), pages
+    return x + ffn_apply(p, norm_apply(p["ln2"], x), cfg)[0], pages
 
 
 def _stack_apply_paged_common(params, x, cfg, pages, ctx, layer_fn):
@@ -288,7 +352,7 @@ def _layer_apply_window_paged(kind, p, x, cfg, pages, ctx):
         block_tables=ctx["block_tables"], seq_lens=ctx["seq_lens"],
         write_index=ctx["write_index"])
     x = x + h
-    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), pages
+    return x + ffn_apply(p, norm_apply(p["ln2"], x), cfg)[0], pages
 
 
 def stack_apply_window_paged(params, x, cfg, pages, ctx):

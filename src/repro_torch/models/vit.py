@@ -50,7 +50,7 @@ def vit_apply(params, images, cfg, encoder=None):
     if encoder is None:
         # a Python loop over the stacked units takes the place of lax.scan
         for unit in unbind_units(params["units"]):
-            x = layer_apply_full("enc_attn_mlp", unit, x, cfg)
+            x, _ = layer_apply_full("enc_attn_mlp", unit, x, cfg)
     else:
         x = encoder(x)
     x = norm_apply(params["final_norm"], x)

@@ -98,7 +98,7 @@ class NoHostSync(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _step_cases(tcfg, tparams, pages):
+def _step_cases(tcfg, tparams, pages, paged=True):
     def decode_fn(params, pg, tokens, bt, sl):
         return tapi.decode_step_paged(params, tokens, pg, bt, sl, tcfg)
 
@@ -122,15 +122,17 @@ def _step_cases(tcfg, tparams, pages):
     verify = np.concatenate([np.array([[5, 6, 7, 8, 13, 4],
                                        [0, 0, 0, 0, -1, 0],
                                        [7, 1, 0, 0, 9, 2]], np.int32), bt], 1)
-    yield paged_decode_step(decode_fn, sample_heads), (tparams, pages,
-                                                       decode, mask)
-    yield paged_prefill(prefill_fn, sample_heads, n_pmax=N_PMAX), (
-        tparams, pages, prefill, mask)
-    for n_iter in (1, 3):
-        yield spec_draft_step(decode_fn, slot=1, n_iter=n_iter), (
-            tparams, pages, draft)
-    yield spec_verify(verify_fn, sample_heads, w_max=4), (tparams, pages,
-                                                          verify, mask)
+    if paged:
+        yield paged_decode_step(decode_fn, sample_heads), (tparams, pages,
+                                                           decode, mask)
+        yield paged_prefill(prefill_fn, sample_heads, n_pmax=N_PMAX), (
+            tparams, pages, prefill, mask)
+        for n_iter in (1, 3):
+            yield spec_draft_step(decode_fn, slot=1, n_iter=n_iter), (
+                tparams, pages, draft)
+        yield spec_verify(verify_fn, sample_heads, w_max=4), (tparams,
+                                                              pages, verify,
+                                                              mask)
     toks = torch.ones((3, 4), dtype=torch.int32)
     caches = tapi.prefill(tparams, {"tokens": toks}, tcfg, max_len=6)[1]
 
@@ -159,6 +161,33 @@ def test_serving_step_bodies_never_sync_the_host():
     with pytest.raises(AssertionError, match="host sync"):
         with NoHostSync():
             torch.nonzero(torch.ones(3))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+                                  "gemma3-4b"])
+def test_zoo_step_bodies_never_sync_the_host(arch):
+    """The same step bodies over the zoo's stacks: MoE layers (routing,
+    capacity, the dispatch into fixed slots and the combine) and, for
+    gemma3 (``local`` layers have no paged form), the dense-cache step
+    over its ring caches; every shape fixed on the device."""
+    tcfg = tconfigs.get(arch).smoke().replace(n_units=1, vocab_size=128)
+    tparams = tree_map(lambda a: a[None].repeat(P, *([1] * a.dim())),
+                       tapi.init_params(torch.Generator().manual_seed(0),
+                                        tcfg))
+    if arch == "gemma3-4b":
+        cases = [c for c in _step_cases(tcfg, tparams, None, paged=False)]
+    else:
+        cases = list(_step_cases(tcfg, tparams, _pool(tcfg)))
+    names = []
+    for spec, args in cases:
+        prog = eager(spec, args)
+        with NoHostSync():
+            prog(*args)
+        names.append(spec.name)
+    want = ["bma_step", "bma_step"]
+    assert names == (want if arch == "gemma3-4b" else
+                     ["paged_decode_step", "paged_prefill", "spec_draft_step",
+                      "spec_draft_step", "spec_verify"] + want)
 
 
 # ---------------------------------------------------------------------------

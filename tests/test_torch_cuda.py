@@ -2214,3 +2214,63 @@ def test_captured_program_cost(dev):
         p(*args)
         counts.append(p.cost()["flops"])
     assert counts[0] == counts[1] == 2 * 6 * 5 * 4 * 3
+
+
+# -- the decoder-only zoo's shapes: gemma3's hd 256, qwen3-moe's verify --------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [160, 256])
+@pytest.mark.parametrize("G,S", [(1, 1), (2, 33), (2, 300), (1, 1200)])
+def test_flash_kernel_wide_heads(dev, G, S, hd, causal, dtype, tol):
+    """hd past 128 (gemma3: 256) takes the wide tiles (4 warps, 32 keys;
+    2 warps on a small grid) within Hopper's shared memory."""
+    gen = torch.Generator(device=dev).manual_seed(S * 7 + hd + G)
+    q, k, v = (torch.randn((2, 1, S, h, hd), generator=gen,
+                           device=dev).to(dtype) for h in (4 * G, 4, 4))
+    before = flash_kernel.flash_attention.launches
+    out = flash_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    assert torch.isfinite(out).all()
+    assert (out.float() - want).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,KVH,hd,lens", [
+    (8, 5, 64, 4, 128, [40, 17, -1, 100, 5, 300, 0, 63]),   # qwen3-moe verify
+    (2, 3, 96, 2, 128, [9, 70]),                           # 3 row blocks
+])
+def test_window_kernel_rows_split_over_blocks(dev, dtype, B, W, H, KVH, hd,
+                                              lens):
+    """W * G * hd past 4096 entries: a kv head's query rows split over
+    blocks (``split_walk.block_rows``), against the plain version."""
+    from repro_torch.kernels import split_walk
+    heads, row_blocks = split_walk.block_rows(KVH, W * (H // KVH), hd, 32,
+                                              4 if dtype == torch.float32
+                                              else 2)
+    assert heads == 1 and row_blocks > 1
+    args = _window_case(B + W, 1, B, W, H, KVH, hd, 16, 32, lens, dtype, dev)
+    out = window_kernel.paged_decode_window_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.paged_decode_window_attention(*args)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() < 1e-4
+    for b, L in enumerate(lens):
+        if L < 0:
+            assert out[:, b].abs().max().item() == 0.0
+
+
+def test_window_kernel_w1_with_split_rows_matches_single_token_kernel(dev):
+    """G * hd = 8192 entries at W = 1: both kernels split the rows the same
+    way and return the same bits."""
+    q, k, v, bt, sl = _case(5, 2, 3, 128, 2, 128, 16, 8, [0, 47, 100],
+                            torch.float32, dev)
+    single = kernel.paged_decode_attention(q, k, v, bt, sl)
+    window = window_kernel.paged_decode_window_attention(q[:, :, None], k, v,
+                                                         bt, sl)
+    assert (window[:, :, 0] - single).abs().max().item() == 0.0
+    want = ref.paged_decode_attention(q, k, v, bt, sl)
+    assert (single - want).abs().max().item() < 1e-4

@@ -184,7 +184,8 @@ def test_init_cache_and_unported_options():
     with pytest.raises(ValueError, match="outside"):
         tapi.decode_step(params, torch.ones(1, dtype=torch.int32), caches, 5,
                          tcfg)
-    for bad in (dict(logit_softcap=30.0), dict(pattern=("local",))):
+    for bad in (dict(prefix_lm=True), dict(pattern=("rwkv",)),
+                dict(tail_layers=("mamba",))):
         with pytest.raises(NotImplementedError, match="queue 1"):
             tapi.prefill(params, {"tokens": torch.ones(1, 4,
                                                        dtype=torch.int32)},

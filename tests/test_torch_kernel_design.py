@@ -25,6 +25,17 @@ accuracy rests on are checked here in plain PyTorch:
     kernel's, the single-token kernel's (the walk at W = 1, with its own
     plan) and the dense-cache kernel's. The emulated window at W = 1 and
     the emulated single-token walk are equal bit for bit.
+  * Past 4096 accumulator entries a block (qwen3-moe's verify window: W
+    5 x G 16 x hd 128) a kv head's query rows split over blocks
+    (``split_walk.block_rows`` / ``row_ranges``): every query row of
+    every kv head in exactly one block, each block within the entry and
+    shared-memory limits; the walk of one block's rows, with every other
+    row of q NaN, gives those rows the plain version's values.
+  * gemma3's hd 256 takes the flash kernel's wide tiles (4 or 2 warps,
+    32 keys): within Hopper's shared memory at every hd up to 256, which
+    the 128-row, 64-key tiles are not past hd 128; the 3xTF32 emulation
+    over 32-key tiles at hd 256 holds the plain version and the
+    reference at 2e-5.
 """
 import math
 
@@ -38,6 +49,7 @@ from hypothesis import strategies as st
 from repro.kernels import ref as jref
 from repro.kernels import svgd_rbf as jsvgd_rbf
 from repro_torch.kernels import ref
+from repro_torch.kernels import split_walk
 from repro_torch.kernels.split_walk import (dense_plan, split_plan,
                                             split_ranges, stage_ranges)
 from repro_torch.kernels.svgd_rbf import sqdist_plan
@@ -634,3 +646,121 @@ def test_sqdist_two_stages_match_plain_and_reference(n, D, sms, masked):
     dense = jnp.where(jnp.asarray(m)[:, None] > 0, jnp.asarray(t), 0.0)
     pallas = np.asarray(jsvgd_rbf.pairwise_sqdist(dense, block_d=4096))
     assert np.abs(got.numpy() - pallas).max() < 1e-3
+
+
+# -- wide heads: the flash kernel at hd 256 ------------------------------------
+
+def flash_tiles(N, S, H, KVH, hd, sms):
+    """(warps a block, keys a tile) that ``csrc/flash_attention.cu``
+    launches: 16 query rows a warp; up to hd 128, 8 warps and 64 keys
+    when that grid has two blocks an SM, else 2 warps and 32 keys; past
+    hd 128, 4 warps and 32 keys when that grid has two blocks an SM,
+    else 2 and 32."""
+    warps, keys = (8, 64) if hd <= 128 else (4, 32)
+    big = -(-(S * (H // KVH)) // (16 * warps)) * KVH * N
+    return (warps, keys) if big >= 2 * sms else (2, 32)
+
+
+def flash_smem_bytes(warps, keys, hd, itemsize):
+    """Dynamic shared memory of a block (``smem_elems`` in the .cu): q
+    rows and two stages of K and V rows at the padded strides."""
+    r32, r64 = -(-hd // 32) * 32, -(-hd // 64) * 64
+    ks, vs = (r32 + 8, r32 + 4) if itemsize == 4 else (r64 + 8, r64 + 8)
+    return itemsize * ((16 * warps + 2 * keys) * ks + 2 * keys * vs)
+
+
+def test_flash_tiles_fit_shared_memory_up_to_hd_256():
+    for hd in range(1, 257):
+        for itemsize in (4, 2):
+            for S in (1, 128, 4096):
+                nw, bn = flash_tiles(2, S, 8, 4, hd, 132)
+                assert flash_smem_bytes(nw, bn, hd, itemsize) \
+                    <= split_walk.MAX_SMEM, (hd, itemsize, S)
+                assert (bn == 32) == (nw != 8)
+    # the 128-row, 64-key tiles would not fit at gemma3's hd
+    assert flash_smem_bytes(8, 64, 256, 4) > split_walk.MAX_SMEM
+    # gemma3's prefill (P 2, 1,200 tokens, 8 heads over 4 kv heads): the
+    # 4-warp tiles
+    assert flash_tiles(2, 1200, 8, 4, 256, 132) == (4, 32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_flash_at_hd_256_matches_reference(causal):
+    q, k, v = _flash_inputs(3, 96, 4, 2, 256)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = emulated_flash(tq, tk, tv, causal=causal, products=3, tile=32)
+    want = ref.flash_attention(tq, tk, tv, causal=causal)
+    assert (got - want).abs().max().item() < 2e-5
+    for p in range(2):
+        jwant = np.asarray(jref.flash_attention(
+            jnp.asarray(q[p]), jnp.asarray(k[p]), jnp.asarray(v[p]),
+            causal=causal))
+        assert np.abs(got[p].numpy() - jwant).max() < 2e-5
+
+
+# -- query rows split over blocks ----------------------------------------------
+
+@settings(max_examples=200, deadline=None)
+@given(st.sampled_from([1, 2, 4, 8]), st.integers(1, 8),
+       st.sampled_from([1, 2, 8, 16, 32, 64]), st.sampled_from([64, 128, 256]),
+       st.sampled_from([4, 2]))
+def test_block_rows_cover_every_query_row_once(KVH, W, G, hd, itemsize):
+    rows = W * G
+    try:
+        heads, row_blocks = split_walk.block_rows(KVH, rows, hd, 32, itemsize)
+    except ValueError:
+        assert hd > split_walk.MAX_ENTRIES
+        return
+    assert KVH % heads == 0 and (row_blocks == 1 or heads == 1)
+    seen = set()
+    for kvh0, h, row0, n in split_walk.row_ranges(heads, row_blocks, KVH,
+                                                  rows):
+        assert n >= 1
+        assert n * hd <= split_walk.MAX_ENTRIES
+        assert split_walk.smem_bytes(1, n, hd, 32, itemsize) \
+            <= split_walk.MAX_SMEM
+        for r in range(row0, row0 + n):
+            key = (kvh0 + r // rows, r % rows)
+            assert key not in seen
+            seen.add(key)
+    assert seen == {(h, r) for h in range(KVH) for r in range(rows)}
+    if heads * rows * hd <= split_walk.MAX_ENTRIES:
+        assert row_blocks == 1
+
+
+def test_block_rows_at_qwen3_moe_verify_shape():
+    # W 5 x G 16 x hd 128 = 10,240 entries: one kv head a block, its 80
+    # rows in 3 blocks of 27, 27 and 26; the single-token walk (W = 1,
+    # 2,048 entries) keeps whole kv heads
+    assert split_walk.block_rows(4, 80, 128, 32, 4) == (1, 3)
+    assert [r[2:] for r in split_walk.row_ranges(1, 3, 4, 80)[:3]] == [
+        (0, 27), (27, 27), (54, 26)]
+    plan, heads, row_blocks = split_walk.launch_plan(
+        256, 16, 5, 16, 4, 1, 8, 128, 4, 132)
+    assert (heads, row_blocks) == (1, 3)
+    assert split_walk.launch_plan(256, 16, 1, 16, 4, 1, 8, 128, 4,
+                                  132)[1:] == (1, 1)
+
+
+def test_split_rows_walk_matches_plain():
+    """The window walk of each row block alone (every query row outside
+    the block NaN) gives the block's rows the plain version's values at a
+    shape whose rows split: W 3, G 32, hd 64 (6,144 entries a kv head)."""
+    B, W, H, KVH, hd, ps, n_pmax = 2, 3, 64, 2, 64, 8, 6
+    args = _window_case(11, 1, B, W, H, KVH, hd, ps, n_pmax, [13, 30])
+    q = args[0]
+    G, rows = H // KVH, W * (H // KVH)
+    heads, row_blocks = split_walk.block_rows(KVH, rows, hd, 32, 4)
+    assert (heads, row_blocks) == (1, 2)
+    want = ref.paged_decode_window_attention(*args)
+    got = torch.full_like(want, float("nan"))
+    for kvh0, _, row0, n in split_walk.row_ranges(heads, row_blocks, KVH,
+                                                  rows):
+        mine = torch.zeros((W, H), dtype=torch.bool)
+        for r in range(row0, row0 + n):
+            mine[r // G, kvh0 * G + r % G] = True
+        qb = torch.where(mine[None, None, :, :, None], q, float("nan"))
+        out = emulated_window(qb, *args[1:])
+        got = torch.where(mine[None, None, :, :, None], out, got)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() < 1e-6

@@ -205,7 +205,8 @@ def test_flash_attention_and_vjp_match_jax(kind, chunks):
 
 def test_flash_attention_refuses_unported_kinds():
     q, k, v, _ = (torch.from_numpy(x) for x in _qkv(1))
-    for kw in ({"kind": "sliding"}, {"kind": "prefix"}, {"softcap": 30.0}):
+    for kw in ({"kind": "prefix"}, {"kind": "prefix", "softcap": 30.0},
+               {"kind": "prefix", "window": 4}):
         with pytest.raises(NotImplementedError, match="item 11"):
             tblocks.flash_attention(q, k, v, **kw)
 
@@ -277,10 +278,10 @@ def test_lm_forward_refuses_unported_layers():
     _, tcfg = _cfgs()
     tb = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
     params = _stacked_port(_numpy_inits(P))
-    for bad in (tcfg.replace(pattern=("attn_moe",)),
-                tcfg.replace(pattern=("local",)),
+    for bad in (tcfg.replace(pattern=("rwkv",)),
+                tcfg.replace(pattern=("mamba",)),
                 tcfg.replace(prefix_lm=True),
-                tcfg.replace(logit_softcap=30.0),
+                tcfg.replace(family="audio"),
                 tcfg.replace(family="vlm")):
         with pytest.raises(NotImplementedError, match="item 11"):
             tapi.loss_fn(params, tb, bad)

@@ -31,7 +31,15 @@ from the reference (``tests/test_torch_train.py``'s tiny ViT,
     ``pd.stats()["placement"]``;
   * a 2 x 2 store's checkpoint read by the reference, the reference's
     restored onto 2 x 2 (serving its tokens), and the 2 x 2 file's arrays
-    equal to the one-device store's bit for bit.
+    equal to the one-device store's bit for bit;
+  * deepseek-moe-16b's smoke model on 2 x 2 (each position holding 2 of
+    the 4 experts, half the shared expert's columns and 2 of the 4 kv
+    heads): paged decode, plain and speculative, token-exact against the
+    reference's plain scheduler, a fused DeepEnsemble epoch within 1e-4
+    of the reference's compiled run, and the aux metrics of the loss; 3
+    experts (the axis does not divide them) replicated at both
+    positions; gemma3-4b's smoke model (``local`` rings) in the
+    dense-cache engine on 2 x 2 within 1e-4 of the reference's engine.
 """
 import jax
 import jax.numpy as jnp
@@ -49,6 +57,7 @@ from repro.optim import adam as jadam
 from repro.optim import sgd as jsgd
 from repro.serve import PredictiveEngine as JEngine
 from repro.serve import serve as jserve
+from repro import configs as jconfigs
 from repro_torch import checkpoint
 from repro_torch import configs as tconfigs
 from repro_torch.bdl import DeepEnsemble
@@ -474,3 +483,135 @@ def test_2d_refusals_name_what_is_left_out():
         with pytest.raises(NotImplementedError, match="int8 draft"):
             serve_decode(pd, tcfg, num_pages=16, page_size=8,
                          speculative=SpecConfig(k_max=2, quantized=True))
+
+
+# ---------------------------------------------------------------------------
+# the decoder-only zoo on the model axis: MoE and local layers
+# ---------------------------------------------------------------------------
+
+def _zoo_rows(name, n=4, **kw):
+    jcfg = jconfigs.get(name).smoke().replace(**kw)
+    tcfg = tconfigs.get(name).smoke().replace(**kw)
+    stacked = jax.tree.map(np.asarray, jax.jit(jax.vmap(
+        lambda k: japi.init_params(k, jcfg)))(
+        jax.random.split(jax.random.PRNGKey(0), n)))
+    return jcfg, tcfg, [jax.tree.map(lambda a, i=i: a[i], stacked)
+                        for i in range(n)]
+
+
+@pytest.mark.parametrize("experts,speculative", [(4, None), (4, 2),
+                                                 (3, None)])
+def test_2d_moe_paged_decode_is_token_exact(experts, speculative):
+    """deepseek's smoke MoE on 2 x 2: each position routes every token
+    and computes its 2 experts (3 experts: all 3 at both positions);
+    tokens equal the reference's plain scheduler's, logprobs within
+    1e-4."""
+    jcfg, tcfg, rows = _zoo_rows("deepseek-moe-16b", n_experts=experts)
+    prompts = _prompts(tcfg.vocab_size)
+    want = _ref_plain(jcfg, rows, prompts, 5)
+    pd = PushDistribution(ParticleModule(init=None, cfg=tcfg), capacity=4,
+                          device="cpu", placement=_two())
+    for r in rows:
+        pd.p_create(params=_to_port(r))
+    grp = pd.store.stacked("params").shards[0]
+    wi = "units/0/moe/wi"
+    if experts == 4:
+        assert grp.dims[wi] == -3 and grp[0]["units"][0]["moe"]["wi"].shape[
+            -3] == 2
+    else:
+        assert grp.dims[wi] is None
+    assert grp.dims["units/0/moe/router/w"] is None
+    svc = serve_decode(pd, tcfg, num_pages=16, page_size=8, max_active=2,
+                       warmup=False, speculative=speculative)
+    try:
+        got = [svc.generate(p, max_new=5) for p in prompts]
+    finally:
+        svc.close()
+        pd.cleanup()
+    for w, g in zip(want, got):
+        assert g.tokens == w.tokens
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-4)
+
+
+def test_2d_moe_training_matches_the_reference():
+    """A deepseek smoke DeepEnsemble (4 particles, sgd, one epoch of 2
+    batches) on 2 x 2 against the reference's single-device compiled run:
+    losses (with the aux term) and params within 1e-4, replicated copies
+    (the router among them) bit-equal; the tensor-parallel loss's aux
+    metrics within 1e-5 of the one-device loss's."""
+    jcfg, tcfg, inits = _zoo_rows("deepseek-moe-16b")
+    n, b, s = 4, 2, 16
+    jmod, tmod = _modules(jcfg, tcfg, inits)
+    jalgo = JDeepEnsemble(jmod, backend="compiled", capacity=n)
+    talgo = DeepEnsemble(tmod, backend="compiled", capacity=n, device="cpu",
+                         placement=_two())
+    _, jloss = jalgo.bayes_infer(
+        JDataLoader(jcfg, batch_size=b, seq_len=s, num_batches=2, seed=0), 1,
+        num_particles=n, optimizer=jsgd(1e-2))
+    tloader = DataLoader(tcfg, batch_size=b, seq_len=s, num_batches=2,
+                         seed=0)
+    _, tloss = talgo.bayes_infer(tloader, 1, num_particles=n,
+                                 optimizer=sgd(1e-2))
+    assert np.abs(np.array(tloss) - np.array(jloss)).max() < 1e-4
+    got = np.stack([_flat_torch(p) for p in talgo.p_parameters()])
+    want = np.stack([_flat_jax(p) for p in jalgo.p_parameters()])
+    assert np.abs(got - want).max() < 1e-4
+    st = talgo.store.stacked("params")
+    _replicas_equal(st)
+    tb = {k: torch.as_tensor(v) for k, v in next(iter(tloader)).items()}
+    two = tapi.loss_fn(st.shards[0], tb, tcfg)[1]
+    one = tapi.loss_fn(params_from_numpy(jax.tree.map(
+        lambda *x: np.stack(x), *[_flat_rows(p) for p in
+                                  talgo.p_parameters()[:2]])), tb, tcfg)[1]
+    for k in ("loss", "lb_loss", "z_loss", "dropped_frac"):
+        assert (two[k] - one[k]).abs().max() < 1e-5, k
+
+
+def _flat_rows(p):
+    return tree_map(lambda x: x.detach().numpy(), p)
+
+
+def test_2d_gemma_dense_cache_engine_matches_the_reference():
+    """gemma3's smoke model (5 local ring layers, 1 global, 1 local tail)
+    in the stateful engine on 2 x 2, prompts past the 16-token window:
+    the heads of 5 greedy steps within 1e-4 of the reference's engine;
+    each position's rings hold its 2 kv heads and 16 slots."""
+    jcfg, tcfg, rows = _zoo_rows("gemma3-4b", n=2)
+    L, max_new = 20, 5
+    prompts = np.random.default_rng(3).integers(
+        1, jcfg.vocab_size, (2, L)).astype(np.int32)
+    module = JModule(init=lambda r: japi.init_params(r, jcfg),
+                     loss=lambda p, b: japi.loss_fn(p, b, jcfg),
+                     forward=lambda p, b: japi.forward(p, b, jcfg)[0],
+                     cfg=jcfg)
+    with JPD(module, num_devices=1, seed=0, capacity=2) as jpd:
+        for r in rows:
+            jpd.p_create(params=jax.tree.map(jnp.asarray, r))
+        jeng = JEngine(lambda p, c, b: japi.decode_step(
+            p, b["token"], c, b["cur_pos"], jcfg, decode_kernel=True),
+            store=jpd.store, stateful=True)
+        jstate = jeng.init_state(lambda p: japi.prefill(
+            p, {"tokens": jnp.asarray(prompts[:, :-1])}, jcfg,
+            max_len=L + max_new)[1])
+        tok, jheads = jnp.asarray(prompts[:, -1]), []
+        for step in range(max_new):
+            h, jstate = jeng.step(jstate, {"token": tok,
+                                           "cur_pos": jnp.int32(L - 1 + step)})
+            jheads.append({k: np.asarray(v) for k, v in h.items()})
+            tok = jnp.argmax(h["mean"], -1).astype(jnp.int32)
+    pd = PushDistribution(ParticleModule(init=None, cfg=tcfg), device="cpu",
+                          capacity=2, placement=_two())
+    for r in rows:
+        pd.p_create(params=params_from_numpy(r))
+    eng = PredictiveEngine(_lm_forward(tcfg), store=pd.store, stateful=True)
+    toks = torch.from_numpy(prompts)
+    state = eng.init_state(lambda p: tapi.prefill(
+        p, {"tokens": toks[:, :-1]}, tcfg, max_len=L + max_new)[1])
+    k = state.shards[0][0]["units"][0]["k"]
+    assert k.shape[-2] == tcfg.n_kv_heads // 2 and k.shape[-3] == 16
+    tok = toks[:, -1]
+    for step in range(max_new):
+        heads, state = eng.step(state, {"token": tok, "cur_pos": L - 1 + step})
+        for key, want in jheads[step].items():
+            assert np.abs(heads[key].numpy() - want).max() < 1e-4, (step, key)
+        tok = heads["mean"].argmax(-1).to(torch.int32)

@@ -51,7 +51,9 @@ Phase 3  holds the four SVGD and SWAG kernels against their plain versions
          on the card: the tests/test_kernels.py sweeps, dense and masked
          with NaN in the dead rows (sqdist 1e-3 absolute, force 2e-4
          relative, moments and diag_std 1e-5; dead rows of phi exact
-         zeros, dead SWAG rows unchanged), then the training shape of 8
+         zeros, dead SWAG rows unchanged; the streamed force also equal
+         to the column kernel, the probe svgd_force_columns, bit for bit,
+         at n = 1-16 and 256 besides), then the training shape of 8
          ViT-MNIST particles x 19,775,360 parameters (sqdist within 1e-5
          of its largest entry: distances there are ~1e5; the force also
          with g = 0, since its repulsive term is ~1e-6 of the driving
@@ -65,6 +67,16 @@ Phase 3  holds the four SVGD and SWAG kernels against their plain versions
          called by the port) at the training shape with the L2 flushed
          before each call, and probes sqdist: device ms split between its
          two kernels, the first stage alone, the ring at 2 and 4 stages.
+         The force at the training shape (trained-like g and g = 0)
+         equals the column kernel's bit for bit, and both are timed in this
+         call (force_vs_columns: event and device ms, shares of the bound).
+         #3 runs one collection over the ViT's 18 leaves and over the
+         UNet's 34 (8 rows, a dead one with NaN in its theta), through
+         the one-launch kernel, the per-leaf kernel's loop and the plain
+         version, each on its own copy of the state, bit for bit; each
+         collection timed (event and device ms) against the per-leaf
+         loop and the bound (collections; the ViT's is the kernels
+         line's row).
 Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
          weights from seed 0, batches of 64 from the seeded loader, 8 per
          epoch): SteinVGD for 2 epochs with the median heuristic, then
@@ -78,16 +90,17 @@ Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
          MultiSWAG step and collection), looked up once, each a graph in
          the captured run (no capture after the first step); finite losses
          and exact launch counts (one sqdist and one force per SVGD step,
-         one moments launch per leaf per collection), counted through the
+         one moments launch per collection), counted through the
          replays. The captured run's losses and launch counts must equal
          the eager run's, and so must p_predict over 64 images (seed 1),
          bit for bit. After the captured runs: one SVGD force on the
          trained theta, g and mask through the kernels and the plain path
          within 2e-4 relative, with the trained g and with g = 0; one more
          SWAG collection of the trained state at the path's per-leaf
-         shapes (its 20-slot ring, slots and mask) through the kernel and
-         the plain version, each on its own clone of the ring, within 1e-5
-         for mean', sq' and the ring; the MultiSWAG posterior predictive
+         shapes (its 20-slot ring, slots and mask) through the one-launch
+         kernel, the per-leaf kernel and the plain version, each on
+         its own copy of the state, within 1e-5 for mean', sq' and the
+         ring and bit-equal to both; the MultiSWAG posterior predictive
          with 4 draws per particle (one diag_std launch per leaf); and the
          predictive heads with kernel-made and plain-made diag_std within
          1e-5 given the same noise. Each run then profiles 3 steps of its
@@ -106,7 +119,7 @@ Phase 8  trains the same 8 full-width ViT-MNIST particles (random weights
          (8, 19,775,360) matrices launches sqdist and the force once a
          step) and MultiSWAG (Adam, 3 epochs, max_rank 20, collecting
          after the first: SWAG_COLLECT on one-row views, one moments
-         launch per leaf per particle). Every NEL run and wait is joined
+         launch per particle). Every NEL run and wait is joined
          within NEL_T seconds (a deadlock fails the phase). Checks: one NEL
          step against one captured compiled step from the same init and
          batch, params within 1e-4 (DeepEnsemble with sgd(0.05), and
@@ -122,7 +135,7 @@ Phase 8  trains the same 8 full-width ViT-MNIST particles (random weights
          each trained store within 1e-5; the leader's force at its shape
          (trained g and g = 0) against the plain versions within 2e-4
          relative; exact launch counts (16 sqdist and 16 force launches,
-         2 x 8 x 18 moments launches, nothing else), and over profiled
+         2 x 8 moments launches, nothing else), and over profiled
          windows of two NEL steps (and two collections) the counters
          equal to the profiler's kernel counts (each window opens with
          32 spin kernels: the profiler misses the first kernel records
@@ -330,13 +343,17 @@ Phase 12 the paper's SciML workload and its Fig. 4 baselines
          captured run; the captured run's losses and launches equal the
          eager run's; the loss on the first batch falls below the init's;
          the NEL runs' launches exact (16 sqdist and 16 force launches,
-         2 x 8 x 34 moments launches); one NEL step (and, for MultiSWAG,
+         2 x 8 moments launches); one NEL step (and, for MultiSWAG,
          one collection) within 1e-4 of one captured step from the same
          init (sgd(0.05) for DeepEnsemble and MultiSWAG); at the trained
          state #1 on its plain-load path (D is odd) within 1e-5 of the
          largest distance, #2 within 2e-4 relative (trained g and g = 0)
-         and one collection of #3 within 1e-5, each timed beside its
-         bound. It prints each captured step's host and device busy ms,
+         and equal to the column kernel's bit for bit, and one collection
+         of #3 within 1e-5 (one launch, bit-equal to the per-leaf kernel
+         and the plain version), each timed beside its bound (#2 beside
+         the column kernel, #3 beside the per-leaf loop), and the captured
+         collection's device ms. It prints each captured step's host and
+         device busy ms,
          idle share and samples/s against the step's fp32 operation bound
          (3 x 58.2 MFLOP x 400 samples at 67 TFLOP/s), the peak memory,
          and the forward + backward ms of the package's conv form (im2col
@@ -411,8 +428,9 @@ Phase 13 LM training: 4 full-width qwen1.5-0.5b particles (24 layers,
          the profiler's over a profiled window; each kernel against its
          plain version on the trained state (sqdist 1e-5 of its largest
          entry, against the plain version in fp64: the fp32 Gram form
-         sums 463,987,712 products an entry; the force 2e-4 relative),
-         timed beside its bound. (e)
+         sums 463,987,712 products an entry; the force 2e-4 relative,
+         and bit-equal to the column kernel's), timed beside its bound
+         and the column kernel. (e)
          DeepEnsemble on the NEL (backend="nel"), Adam, 2 steps: step
          1's losses within 1e-5 of (a)'s; a profiled NEL step's host and
          device ms and idle share. Each part prints its line with the
@@ -479,7 +497,7 @@ Phase 15 particles across GPUs: the store's particle axis on a data mesh
          capture per position per step kind (SVGD: grads and update at
          each position, the force once), each a graph; 1/n of the
          one-device per_device_bytes; exact launches (#1 and #2 once a
-         step, #3 once a leaf a position a collection); #3 and #4 at a
+         step, #3 once a position a collection); #3 and #4 at a
          position's shapes on the trained state against their plain
          versions (1e-5), position 0's collection and scales timed. (b)
          phase 2's requests through serve_decode(placement=) over 4
@@ -529,7 +547,9 @@ Phase 17 the decoder-only model zoo at full width, depth cut (each part
          DeepEnsemble (Adam) captured and eager for 4 steps, losses and
          params bit for bit, the aux values per particle; SteinVGD (the
          median) 2 steps, #1 and #2 once a step, then held against their
-         plain versions at (2, D). (c) qwen3-moe-235b-a22b, 1 of 94
+         plain versions at (2, D), #2 also against the column kernel bit for
+         bit where the card has room for both outputs, and timed beside
+         it. (c) qwen3-moe-235b-a22b, 1 of 94
          units, 1 particle: 4 of phase 2's prompts for 16 tokens on one
          device and on a 1 x 4 model mesh (cuda:0's positions, or 4
          GPUs): tokens equal up to a near-tie, per-device param bytes at
@@ -684,18 +704,26 @@ def time_ms(torch, fn, iters=30):
 
 def device_ms_by_kernel(torch, fn, n=20):
     """{kernel name (its first 80 characters): device ms per ``fn()``
-    call} from torch.profiler (L2 warm)."""
+    call} from torch.profiler (L2 warm). 32 spin kernels open and close
+    the window and are left out: the profiler drops the first and last
+    kernel records of a window (profile_steps), which a call of one
+    launch would lose whole."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            torch.cuda._sleep(1000)
         for _ in range(n):
             fn()
+        for _ in range(32):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "spin_kernel" not in e.key:
             t = getattr(e, "self_device_time_total", None)
             t = getattr(e, "self_cuda_time_total", 0) if t is None else t
             if t > 0:
@@ -1861,8 +1889,16 @@ TRAIN_B, TRAIN_NB = 64, 8        # batch, batches per epoch (the paper: 40)
 TRAIN_D = 19_775_360             # parameters per ViT-MNIST particle
 SQDIST_SWEEP = [(2, 16), (4, 100), (8, 5000), (64, 12345), (3, 7)]
 FORCE_SWEEP = [(4, 100, 1.0), (8, 5000, 1.3), (16, 50000, 0.7), (3, 7, 2.0)]
-OURS = ("sqdist_stream_kernel", "sqdist_sum_kernel", "svgd_force_kernel",
-        "moments_kernel", "diag_std_kernel")
+OURS = ("sqdist_stream_kernel", "sqdist_sum_kernel", "force_stream_kernel",
+        "moments_leaves_kernel", "diag_std_kernel")
+
+
+def collect_launches(n_leaves):
+    """#3's launches a collection over a tree of ``n_leaves`` leaves: one
+    per swag_moments.MAX_LEAVES of them (one for every tree driven
+    here)."""
+    from repro_torch.kernels import swag_moments
+    return -(-n_leaves // swag_moments.MAX_LEAVES)
 
 
 def rows_case(torch, seed, n, D, dead=(), scale=0.05):
@@ -1897,30 +1933,43 @@ def plain_force(theta, g, ell, mask=None):
 
 
 def moments_parity(torch, state, params, mask):
-    """One SWAG collection at the path's per-leaf shapes (its ring depth,
-    its slots, its mask) through the kernel and the plain version on the
-    same inputs, each writing its own clone of the leaf's ring; nothing
-    is written back. Returns the largest difference of mean', sq' and the
-    ring over all leaves."""
+    """One SWAG collection at the path's shapes (its leaves, ring depth,
+    slots and mask): the one-launch kernel on a clone of the whole state,
+    the per-leaf kernel and the plain version leaf by leaf, each on
+    its own clone of the leaf's ring; nothing is written back. Returns
+    the largest difference to the plain version; raises unless the
+    one-launch kernel equals the per-leaf kernel and the plain version
+    bit for bit."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.kernels import ref, swag_moments
     means = tree_flatten(state["mean"], sort_keys=True)[0]
     sqs, devs, thetas = (tree_flatten(t, sort_keys=True)[0] for t in
                          (state["sq_mean"], state["dev"], params))
+    thetas = [t.contiguous() for t in thetas]
     n, R = state["n"], devs[0].shape[1]
     slot = (state["rank"] % R).to(torch.int32)
-    err = 0.0
-    for m, s, t, d in zip(means, sqs, thetas, devs):
-        t = t.contiguous()
+    one = [[x.clone() for x in xs] for xs in (means, sqs, devs)]
+    swag_moments.moments_leaves(one[0], one[1], thetas, n, mask, one[2],
+                                slot)
+    err, same = 0.0, {"per_leaf_kernel": True, "plain": True}
+    for i, (m, s, t, d) in enumerate(zip(means, sqs, thetas, devs)):
         ring_k, ring_p = d.clone(), d.clone()
         got = swag_moments.moments(m, s, t, n, mask, ring_k, slot)
         want = ref.swag_moments(m, s, t, n, mask, ring_p, slot)
+        mine = (one[0][i], one[1][i], one[2][i])
         err = max([err] + [float((a - b).abs().max()) for a, b in
-                           zip(got + (ring_k,), want + (ring_p,))])
-        del ring_k, ring_p, got, want
+                           zip(mine, want + (ring_p,))])
+        same["per_leaf_kernel"] &= all(
+            torch.equal(a, b) for a, b in zip(mine, got + (ring_k,)))
+        same["plain"] &= all(
+            torch.equal(a, b) for a, b in zip(mine, want + (ring_p,)))
+        del ring_k, ring_p, got, want, mine
+    del one
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "leaves": len(means), "max_rank": R,
-            "slots": sorted(set(slot.tolist()))}
+    if not all(same.values()):
+        raise AssertionError(f"one-launch collection not bit-equal: {same}")
+    return {"max_abs_err": err, "bit_equal": same, "leaves": len(means),
+            "max_rank": R, "slots": sorted(set(slot.tolist()))}
 
 
 def bound(nbytes, flops, rate=FP32_FLOPS_PER_S):
@@ -1993,7 +2042,7 @@ def phase3(torch):
     from repro_torch.bdl.svgd import rbf_glue
     from repro_torch.kernels import ref, svgd_rbf, swag_moments
     sweep = {"sqdist": 0.0, "force_rel": 0.0, "moments": 0.0, "diag_std": 0.0}
-    paths = {}
+    paths, force_paths = {}, {}
     for i, (n, D) in enumerate(SQDIST_SWEEP):
         for dead in ((), (n - 1,)):
             t, _, m = rows_case(torch, 10 + i, n, D, dead)
@@ -2003,9 +2052,11 @@ def phase3(torch):
                 raise AssertionError(f"sqdist {n}x{D} dead={dead}: {err}")
             sweep["sqdist"] = max(sweep["sqdist"], err)
             paths[f"{n}x{D}"] = svgd_rbf.plan_for(t).path
-    for i, (n, D, ell) in enumerate(FORCE_SWEEP + [(8, 5000, 0.0),
-                                                   (16, 50000, -1.0)]):
-        for dead in ((), (0, n - 1) if n > 3 else (1,)):
+    for i, (n, D, ell) in enumerate(FORCE_SWEEP + [
+            (8, 5000, 0.0), (16, 50000, -1.0), (2, 4099, 1.0),
+            (1, 4096, 1.0), (256, 3001, 0.0)]):
+        dead_rows = (0, n - 1) if n > 3 else ((1,) if n > 1 else ())
+        for dead in ((), dead_rows):
             t, g, m = rows_case(torch, 20 + i, n, D, dead)
             sq = ref.pairwise_sqdist(t, m)
             glue = rbf_glue(sq, ell, m)
@@ -2017,7 +2068,13 @@ def phase3(torch):
                 raise AssertionError(f"force {n}x{D} ell={ell}: {rel}")
             if m is not None and float(got[m == 0].abs().max()) != 0.0:
                 raise AssertionError("force: a dead row is not exact zeros")
+            if not torch.equal(got, svgd_rbf.svgd_force_columns(t, g, *glue,
+                                                             m)):
+                raise AssertionError(f"force {n}x{D}: not the column "
+                                     f"kernel's bits")
             sweep["force_rel"] = max(sweep["force_rel"], rel)
+            force_paths[f"{n}x{D}"] = svgd_rbf.force_plan_for(t, g,
+                                                              got).path
     for i, (P, L, dead) in enumerate([(3, 123, ()), (4, 8193, (1,)),
                                       (8, 100000, (0, 5))]):
         gen = torch.Generator(device="cuda").manual_seed(30 + i)
@@ -2093,53 +2150,43 @@ def phase3(torch):
     errs["force_rel"] = errs["force"] / float(phi_p.abs().max())
     if not errs["force_rel"] < 2e-4:
         raise AssertionError(f"force at the training shape: {errs}")
-    del phi_k, phi_p
+    del phi_p
+    # the redesign against the column kernel (the probe): the same bits
+    errs["force_equals_columns"] = torch.equal(
+        phi_k, svgd_rbf.svgd_force_columns(theta, grads, *glue))
+    del phi_k
     # the repulsive term alone (g = 0): at this D it is ~1e-6 of the
     # driving term, so the check above cannot see it
     zeros = torch.zeros_like(grads)
+    phi_k = svgd_rbf.svgd_force(theta, zeros, *glue)
     errs["force_repulsive_rel"] = rel_err(
-        svgd_rbf.svgd_force(theta, zeros, *glue),
-        ref.svgd_force(theta, zeros, *glue))
+        phi_k, ref.svgd_force(theta, zeros, *glue))
+    errs["repulsive_equals_columns"] = torch.equal(
+        phi_k, svgd_rbf.svgd_force_columns(theta, zeros, *glue))
     if not errs["force_repulsive_rel"] < 2e-4:
         raise AssertionError(f"repulsive force at the training shape: {errs}")
-    del zeros
-    b_ms, b_by = bound(3 * mb, 4 * P * P * D)
-    rows.append({"name": "svgd_force", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/svgd_rbf.cu",
-                 "replaces": "src/repro/kernels/svgd_rbf.py:76",
-                 "max_abs_err": errs["force"],
-                 "ms": time_ms(torch, lambda: svgd_rbf.svgd_force(
-                     theta, grads, *glue)),
-                 "plain_ms": time_ms(torch, lambda: ref.svgd_force(
-                     theta, grads, *glue)),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    # moments over the flat (P, D) rows, with the deviation write into a
-    # ring of 2 slots: the bytes moved do not depend on the ring's depth
-    mean, sq = theta, theta * theta + grads.abs() * 1e-3
-    del grads
-    n = torch.full((P,), 3.0, device="cuda")
-    slot = torch.arange(P, device="cuda").remainder(2).to(torch.int32)
-    ring_k = torch.zeros((P, 2, D), device="cuda")
-    ring_p = torch.zeros((P, 2, D), device="cuda")
-    theta2 = theta * 1.01
-    got = swag_moments.moments(mean, sq, theta2, n, None, ring_k, slot)
-    want = ref.swag_moments(mean, sq, theta2, n, None, ring_p, slot)
-    errs["moments"] = max(float((a - b).abs().max()) for a, b in
-                          zip(got + (ring_k,), want + (ring_p,)))
-    if not errs["moments"] < 1e-5:
-        raise AssertionError(f"moments at the training shape: {errs}")
-    del got, want, ring_p
-    b_ms, b_by = bound(6 * mb, 7 * P * D)
+    if not (errs["force_equals_columns"] and errs["repulsive_equals_columns"]):
+        raise AssertionError(f"force at the training shape: not the "
+                             f"column kernel's "
+                             f"bits: {errs}")
+    del zeros, phi_k
+    rows.append({**force_row(torch, theta, grads, glue),
+                 "max_abs_err": errs["force"]})
+    # #3: one collection over the ViT's 18 leaves (the kernels line's
+    # row) and over the UNet's 34, each against the per-leaf loop
+    vit = collection_probe(torch, leaf_shapes(torch, vit_module()[0]),
+                           seed=41, raveled=True)
+    unet = collection_probe(torch, leaf_shapes(torch, unet_module()[0]),
+                            seed=42)
     rows.append({"name": "swag_moments", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/swag_moments.cu",
                  "replaces": "src/repro/kernels/swag_moments.py:37",
-                 "max_abs_err": errs["moments"],
-                 "ms": time_ms(torch, lambda: swag_moments.moments(
-                     mean, sq, theta2, n, None, ring_k, slot)),
-                 "plain_ms": time_ms(torch, lambda: ref.swag_moments(
-                     mean, sq, theta2, n, None, ring_k, slot)),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    del ring_k, theta2
+                 **{k: vit[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+                 "library_ms": None,
+                 "vit_collection": vit, "unet_collection": unet})
+    mean, sq = theta, theta * theta + grads.abs() * 1e-3
+    del grads
     std_k = swag_moments.diag_std(mean, sq)
     errs["diag_std"] = float((std_k - ref.diag_std(mean, sq)).abs().max())
     if not errs["diag_std"] < 1e-5:
@@ -2157,11 +2204,162 @@ def phase3(torch):
     torch.cuda.empty_cache()
     emit({"phase": 3, "sweep_max_err": sweep, "train_shape": [P, D],
           "train_shape_err": errs, "sqdist_paths": paths,
+          "force_paths": force_paths,
           "sqdist_probe": probe,
           "timed": {r["name"]: {k: r[k] for k in ("ms", "plain_ms",
                                                   "bound_ms", "library_ms")}
-                    for r in rows}})
+                    for r in rows},
+          "force_vs_columns": rows[1]["vs_columns"],
+          "collections": {"vit": rows[2]["vit_collection"],
+                          "unet": rows[2]["unet_collection"]}})
     return rows
+
+
+def force_row(torch, theta, grads, glue, mask=None, iters=30):
+    """#2 at (theta, grads): the streamed kernel and the column kernel (the
+    probe)
+    each timed in this call, event ms (L2 flushed) and device ms, beside
+    the plain version and the bound (theta and g read, phi written once;
+    4 FLOPs a (pair, coordinate)): the kernels line's row."""
+    from repro_torch.kernels import ref, svgd_rbf
+    n, D = theta.shape
+    out = torch.empty_like(theta)
+    new = lambda: svgd_rbf.svgd_force(theta, grads, *glue, mask, out=out)
+    old = lambda: svgd_rbf.svgd_force_columns(theta, grads, *glue, mask,
+                                           out=out)
+    b_ms, b_by = bound(3 * n * D * 4, 4 * n * n * D)
+    row = {"name": "svgd_force", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/svgd_rbf.cu",
+           "replaces": "src/repro/kernels/svgd_rbf.py:76",
+           "ms": time_ms(torch, new, iters=iters),
+           "plain_ms": time_ms(torch, lambda: ref.svgd_force(
+               theta, grads, *glue, mask), iters=max(iters // 3, 3)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    plan = svgd_rbf.force_plan_for(theta, grads, out)
+    row["vs_columns"] = {
+        "shape": [n, D], "path": plan.path, "grid": plan.grid,
+        "cols": plan.cols, "blocks_per_sm": plan.blocks_per_sm,
+        "ms": row["ms"], "columns_ms": time_ms(torch, old, iters=iters),
+        "device_ms": device_ms(torch, new, n=min(iters, 20)),
+        "columns_device_ms": device_ms(torch, old, n=min(iters, 20)),
+        "bound_ms": b_ms}
+    row["vs_columns"]["share_of_bound"] = b_ms / row["ms"]
+    row["vs_columns"]["columns_share_of_bound"] = b_ms / row["vs_columns"]["columns_ms"]
+    return row
+
+
+def force_equals_columns(torch, theta, grads, glue, mask=None):
+    """Does the streamed force give the column kernel's bits at (theta,
+    grads)? Both outputs are held at once: where the card's free memory
+    cannot take them (with a tenth to spare) the answer is a string that
+    says so, and nothing is run."""
+    from repro_torch.kernels import svgd_rbf
+    need = 2.2 * theta.numel() * 4
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        return (f"not checked: {free / 1e9:.1f} GB free, two outputs need "
+                f"{need / 1e9:.1f} GB")
+    new = svgd_rbf.svgd_force(theta, grads, *glue, mask)
+    same = torch.equal(new, svgd_rbf.svgd_force_columns(theta, grads, *glue,
+                                                     mask))
+    del new
+    torch.cuda.empty_cache()
+    return same
+
+
+def leaf_shapes(torch, cfg):
+    """The shapes of one particle's leaves in the collection's order
+    (sorted key paths), from an init on the card."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.models import api
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    leaves = tree_flatten(api.init_params(gen, cfg), sort_keys=True)[0]
+    return [tuple(x.shape) for x in leaves]
+
+
+def collection_probe(torch, shapes, P=TRAIN_P, R=2, seed=0, raveled=False):
+    """#3 over a tree of leaves of ``shapes`` (P rows each; a ring of R
+    slots: the bytes moved do not depend on its depth): one collection
+    with a dead row (NaN in its theta) through the one-launch kernel, the
+    per-leaf kernel and the plain version, each on its own copy of
+    the state, bit for bit; then, every row live, each timed (event ms,
+    L2 flushed; device ms) beside the bound (mean, sq and theta read,
+    mean, sq and the ring's slot written once). With ``raveled``, also the
+    per-leaf kernel once over the tree raveled into one (P, D) leaf, out
+    of place: the shape #3 was timed at before the one-launch kernel."""
+    from repro_torch.kernels import ref, swag_moments
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    thetas = [torch.randn((P,) + s, generator=gen, device="cuda") * 0.05
+              for s in shapes]
+    base = [[t * 1.01 for t in thetas], [t * t + 1e-3 for t in thetas],
+            [torch.zeros((P, R) + s, device="cuda") for s in shapes]]
+    n = torch.full((P,), 3.0, device="cuda")
+    slot = (torch.arange(P, device="cuda") % R).to(torch.int32)
+    mask = torch.ones(P, device="cuda")
+    mask[P - 1] = 0.0
+    for t in thetas:
+        t[P - 1] = float("nan")
+    sides = {k: [[x.clone() for x in xs] for xs in base]
+             for k in ("one", "per_leaf", "plain")}
+    one, per, pl = sides["one"], sides["per_leaf"], sides["plain"]
+    swag_moments.moments_leaves(one[0], one[1], thetas, n, mask, one[2],
+                                slot)
+    for m, s, t, d in zip(per[0], per[1], thetas, per[2]):
+        swag_moments.moments(m, s, t, n, mask, d, slot, out_mean=m, out_sq=s)
+    ref.swag_moments_leaves(pl[0], pl[1], thetas, n, mask, pl[2], slot)
+    torch.cuda.synchronize()
+    flat = {k: sum(v, []) for k, v in sides.items()}
+    err = max(float((a - b).abs().max())
+              for a, b in zip(flat["one"], flat["plain"]))
+    same = {k: all(torch.equal(a, b) for a, b in zip(flat["one"], flat[k]))
+            for k in ("per_leaf", "plain")}
+    dead_kept = all(torch.equal(a[P - 1], b[P - 1])
+                    for a, b in zip(flat["one"], sum(base, [])))
+    del sides, one, per, pl, flat
+    if not (err <= 1e-5 and all(same.values()) and dead_kept):
+        raise AssertionError(f"collection over {len(shapes)} leaves: err "
+                             f"{err}, bit-equal {same}, dead kept "
+                             f"{dead_kept}")
+    for t in thetas:
+        t[P - 1] = 0.0
+    m, s, d = base
+
+    def run_one():
+        swag_moments.moments_leaves(m, s, thetas, n, None, d, slot)
+
+    def run_per_leaf():
+        for a, b, t, r in zip(m, s, thetas, d):
+            swag_moments.moments(a, b, t, n, None, r, slot, out_mean=a,
+                                 out_sq=b)
+
+    elems = P * sum(int(np.prod(x)) for x in shapes)
+    b_ms, b_by = bound(6 * 4 * elems, 7 * elems)
+    out = {"leaves": len(shapes), "rows": P, "elements": elems,
+           "launches": collect_launches(len(shapes)),
+           "per_leaf_launches": len(shapes), "max_abs_err": err,
+           "bit_equal": same, "dead_row_kept": dead_kept,
+           "ms": time_ms(torch, run_one),
+           "per_leaf_ms": time_ms(torch, run_per_leaf),
+           "plain_ms": time_ms(torch, lambda: ref.swag_moments_leaves(
+               m, s, thetas, n, None, d, slot), iters=5),
+           "device_ms": device_ms(torch, run_one),
+           "per_leaf_device_ms": device_ms(torch, run_per_leaf),
+           "bound_ms": b_ms, "bound_by": b_by}
+    out["share_of_bound"] = b_ms / out["ms"]
+    del base, m, s, d
+    torch.cuda.empty_cache()
+    if raveled:
+        t = torch.cat([x.reshape(P, -1) for x in thetas], 1)
+        del thetas
+        mean, sq = t * 1.01, t * t + 1e-3
+        ring = torch.zeros((P, R, t.shape[1]), device="cuda")
+        one_leaf = lambda: swag_moments.moments(mean, sq, t, n, None, ring,
+                                                slot)
+        out["raveled_ms"] = time_ms(torch, one_leaf)
+        out["raveled_device_ms"] = device_ms(torch, one_leaf)
+        del t, mean, sq, ring
+    torch.cuda.empty_cache()
+    return out
 
 
 def reset_counts():
@@ -2169,7 +2367,7 @@ def reset_counts():
     fns = {**attention_counts(),
            "pairwise_sqdist": svgd_rbf.pairwise_sqdist,
            "svgd_force": svgd_rbf.svgd_force,
-           "swag_moments": swag_moments.moments,
+           "swag_moments": swag_moments.moments_leaves,
            "swag_diag_std": swag_moments.diag_std}
     for fn in fns.values():
         fn.launches = 0
@@ -2347,9 +2545,10 @@ def phase4(torch):
             torch, MultiSWAG, module, cache, 3, optimizer=opt,
             pretrain_epochs=1, max_rank=20)
         n_leaves = len(tree_leaves(algo.p_parameters()[0]))
-        if got["swag_moments"] != 2 * n_leaves:
+        if got["swag_moments"] != 2 * collect_launches(n_leaves):
             raise AssertionError(f"MultiSWAG launches {got} (want "
-                                 f"{2 * n_leaves} moments)")
+                                 f"{2 * collect_launches(n_leaves)} "
+                                 f"moments)")
         one_program_each(mode, stats, info, ["ensemble_step", "map_step"])
         row = {"wall_s": wall, "last_losses": losses, "launches": got,
                "cache": stats, "programs": info, "resident_gb": resident}
@@ -2369,7 +2568,8 @@ def phase4(torch):
                                   (co["params"], co["opt_state"], batch,
                                    mask))
             prof_collect = program_window(torch, rt, collect_spec,
-                                          (co["swag"], co["params"], mask))
+                                          (co["swag"], co["params"], mask),
+                                          prologue=32, epilogue=32)
         finally:
             for k in co:
                 store.commit(k, co[k])
@@ -2476,8 +2676,8 @@ NEL_T = 600.0       # seconds any one NEL run or wait may take
 # the profiler's names for the training kernels the counters count (the
 # sqdist wrapper's second stage is counted with its first)
 TRAIN_PROFILER_NAMES = {"pairwise_sqdist": "sqdist_stream_kernel",
-                        "svgd_force": "svgd_force_kernel",
-                        "swag_moments": "moments_kernel"}
+                        "svgd_force": "force_stream_kernel",
+                        "swag_moments": "moments_leaves_kernel"}
 
 
 def bounded(fn, *args, timeout=NEL_T, **kw):
@@ -2891,7 +3091,8 @@ def phase8(torch, captured):
     pids = pd.particle_ids()
     n_leaves = len(tree_leaves(pd.p_params(pids[0])))
     want = {k: 0 for k in got}
-    want["swag_moments"] = 2 * P * n_leaves     # P = 1 views
+    # P = 1 views: one launch a particle a collection
+    want["swag_moments"] = 2 * P * collect_launches(n_leaves)
     if got != want:
         raise AssertionError(f"NEL MultiSWAG launches {got}, want {want}")
     launches["multiswag"] = got
@@ -3345,7 +3546,8 @@ def lc_training(torch):
     st = pd.store.stacked("swag")
     m0, s0 = (flatten_stacked(st[k])[0] for k in ("mean", "sq_mean"))
     theta = flatten_stacked(pd.store.stacked("params"))[0]
-    mk, sk = swag_moments.moments(m0, s0, theta, st["n"], mask)
+    mk, sk = m0.clone(), s0.clone()         # #3 as the path runs it
+    swag_moments.moments_leaves([mk], [sk], [theta], st["n"], mask)
     mp, sp = ref.swag_moments(m0, s0, theta, st["n"], mask)
     live = mask > 0
     dk = swag_moments.diag_std(mk[live].contiguous(), sk[live].contiguous())
@@ -3636,7 +3838,7 @@ def phase10(torch):
     if not np.isfinite(losses).all():
         raise AssertionError(f"MultiSWAG losses {losses}")
     n_leaves = len(tree_leaves(algo.p_parameters()[0]))
-    if launches.get("swag_moments") != 2 * n_leaves:
+    if launches.get("swag_moments") != 2 * collect_launches(n_leaves):
         raise AssertionError(f"training launches {launches}")
 
     rng = np.random.default_rng(11)
@@ -4543,7 +4745,7 @@ def phase11_training(torch, fp32, card):
         torch, MultiSWAG, module, cache, 3, precision="bf16", optimizer=opt,
         pretrain_epochs=1, max_rank=20)
     n_leaves = len(tree_leaves(algo.p_parameters()[0]))
-    if got["swag_moments"] != 2 * n_leaves:
+    if got["swag_moments"] != 2 * collect_launches(n_leaves):
         raise AssertionError(f"bf16 MultiSWAG launches {got}")
     one_program_each("captured", stats, info, ["ensemble_step", "map_step"])
     add_counts(total, got)
@@ -4558,24 +4760,28 @@ def phase11_training(torch, fp32, card):
                   "swag_mean": "torch.float32",
                   "swag_ring": "torch.bfloat16"}:
         raise AssertionError(f"bf16 MultiSWAG state dtypes {dtypes}")
-    # #3 at the path's inputs (fp32 moments, widened bf16 theta), the
-    # kernel and the plain version each through moments_via_fp32 onto its
-    # own clone of the bf16 ring
+    # #3 at the path's inputs (fp32 moments, widened bf16 theta): the
+    # one-launch kernel and the plain version each through
+    # leaves_via_fp32 onto its own clone of the state, the bf16 ring's
+    # included
     means = tree_flatten(swag["mean"], sort_keys=True)[0]
     sqs, devs, thetas = (tree_flatten(t, sort_keys=True)[0] for t in
                          (swag["sq_mean"], swag["dev"],
                           store.stacked("params")))
     slot = (swag["rank"] % devs[0].shape[1]).to(torch.int32)
-    err = 0.0
-    for m, s, t, d in zip(means, sqs, thetas, devs):
-        rk, rp = d.clone(), d.clone()
-        a = swag_moments.moments_via_fp32(swag_moments.moments, m, s, t,
-                                          swag["n"], mask, rk, slot)
-        b = swag_moments.moments_via_fp32(ref.swag_moments, m, s, t,
-                                          swag["n"], mask, rp, slot)
-        err = max([err] + [float((x.float() - y.float()).abs().max())
-                           for x, y in zip(a + (rk,), b + (rp,))])
-        del rk, rp, a, b
+    sides = {}
+    for side, fn in (("kernel", swag_moments.moments_leaves),
+                     ("plain", ref.swag_moments_leaves)):
+        st = [[x.clone() for x in xs] for xs in (means, sqs, devs)]
+        swag_moments.leaves_via_fp32(fn, st[0], st[1], thetas, swag["n"],
+                                     mask, st[2], slot)
+        sides[side] = sum(st, [])
+    err = max(float((x.float() - y.float()).abs().max())
+              for x, y in zip(sides["kernel"], sides["plain"]))
+    same = all(torch.equal(x, y)
+               for x, y in zip(sides["kernel"], sides["plain"]))
+    del sides
+    torch.cuda.empty_cache()
     if not err <= 1e-5:
         raise AssertionError(f"bf16 SWAG collection kernel vs plain: {err}")
     row = {"precision": "bf16", "wall_s": wall, "last_losses": losses,
@@ -4585,7 +4791,8 @@ def phase11_training(torch, fp32, card):
            "launches": got, "programs": info, "state_dtypes": dtypes,
            "state_gb": sum(store.per_device_bytes(k) for k in
                            ("params", "opt_state", "swag")) / 1e9,
-           "moments_kernel_vs_plain": err}
+           "moments_kernel_vs_plain": err,
+           "moments_kernel_equals_plain": same}
     del swag, means, sqs, devs, thetas
     co = {k: store.checkout(k) for k in ("params", "opt_state")}
     try:
@@ -5147,7 +5354,8 @@ def sci_training(torch, card):
         want = {"ensemble": {},
                 "svgd": {"pairwise_sqdist": epochs * NB,
                          "svgd_force": epochs * NB},
-                "multiswag": {"swag_moments": 2 * P * SCI_LEAVES}}[name]
+                "multiswag": {"swag_moments":
+                              2 * P * collect_launches(SCI_LEAVES)}}[name]
         if {k: v for k, v in row["launches"].items() if v} != want:
             raise AssertionError(f"NEL {name} launches {row['launches']}")
         nel.cleanup()
@@ -5205,7 +5413,8 @@ def sci_profiles(torch, name, algo, batch, step_spec, collect_spec,
             (co["opt_state"],) if "opt_state" in co else ()) + (batch, mask)
         prof = program_window(torch, rt, step_spec, step_args)
         collect = (program_window(torch, rt, collect_spec,
-                                  (co["swag"], co["params"], mask))
+                                  (co["swag"], co["params"], mask),
+                                  prologue=32, epilogue=32)
                    if name == "multiswag" else None)
     finally:
         for k in co:
@@ -5224,10 +5433,11 @@ def sci_profiles(torch, name, algo, batch, step_spec, collect_spec,
 
 
 def sci_moments_timed(torch, state, params, mask):
-    """One collection's #3 launches over the 34 leaves (each on its own
-    clone of its ring), kernel and plain, event ms with the L2 flushed,
-    beside the bound: mean, sq and theta read, mean, sq and the ring's
-    slot written."""
+    """One eager collection's #3 over the 34 leaves, on a copy of the
+    trained state: the one-launch kernel (the path's), the per-leaf
+    kernel's loop and the plain version, event ms with the L2 flushed and device
+    ms, beside the bound: mean, sq and theta read, mean, sq and the
+    ring's slot written, for the live rows."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.kernels import ref, swag_moments
     means = tree_flatten(state["mean"], sort_keys=True)[0]
@@ -5235,22 +5445,30 @@ def sci_moments_timed(torch, state, params, mask):
                          (state["sq_mean"], state["dev"], params))
     n, R = state["n"], devs[0].shape[1]
     slot = (state["rank"] % R).to(torch.int32)
-    rings = [d.clone() for d in devs]
+    m, s, d = ([x.clone() for x in xs] for xs in (means, sqs, devs))
     thetas = [t.contiguous() for t in thetas]
 
-    def run(fn):
-        return lambda: [fn(m, s, t, n, mask, d, slot) for m, s, t, d in
-                        zip(means, sqs, thetas, rings)]
+    def one():
+        swag_moments.moments_leaves(m, s, thetas, n, mask, d, slot)
 
-    P = means[0].shape[0]
-    ms, by = bound(6 * 4 * P * SCI_D, 4 * P * SCI_D)
-    out = {"leaves": len(means), "launches_per_collection": len(means),
-           "ms": time_ms(torch, run(swag_moments.moments)),
-           "plain_ms": time_ms(torch, run(ref.swag_moments)),
-           "device_ms": device_ms(torch, run(swag_moments.moments)),
+    def per_leaf():
+        for a, b, t, r in zip(m, s, thetas, d):
+            swag_moments.moments(a, b, t, n, mask, r, slot, out_mean=a,
+                                 out_sq=b)
+
+    live = int((mask > 0).sum())
+    ms, by = bound(6 * 4 * live * SCI_D, 7 * live * SCI_D)
+    out = {"leaves": len(means),
+           "launches_per_collection": collect_launches(len(means)),
+           "ms": time_ms(torch, one),
+           "per_leaf_ms": time_ms(torch, per_leaf),
+           "plain_ms": time_ms(torch, lambda: ref.swag_moments_leaves(
+               m, s, thetas, n, mask, d, slot)),
+           "device_ms": device_ms(torch, one),
+           "per_leaf_device_ms": device_ms(torch, per_leaf),
            "bound_ms": ms, "bound_by": by,
-           "leaf_sizes": sorted({m[0].numel() for m in means})}
-    del rings
+           "leaf_sizes": sorted({x[0].numel() for x in means})}
+    del m, s, d
     torch.cuda.empty_cache()
     return out
 
@@ -5286,19 +5504,24 @@ def sci_force_checks(torch, store, module, batch, mask):
             and out["repulsive_rel"] < 2e-4):
         raise AssertionError(f"UNet SVGD kernels vs plain: {out}")
     glue = rbf_glue(sq, 0.0, mask)
-    nbytes = n * D * 4
-    rows = {}
-    for name, kern, plain, nb, fl in (
-            ("pairwise_sqdist", lambda: svgd_rbf.pairwise_sqdist(theta, mask),
-             lambda: ref.pairwise_sqdist(theta, mask), nbytes,
-             3 * n * n * D),
-            ("svgd_force", lambda: svgd_rbf.svgd_force(theta, g, *glue, mask),
-             lambda: ref.svgd_force(theta, g, *glue, mask), 3 * nbytes,
-             6 * n * n * D)):
-        ms, by = bound(nb, fl)
-        rows[name] = {"ms": time_ms(torch, kern), "plain_ms": time_ms(
-            torch, plain), "device_ms": device_ms(torch, kern),
-            "bound_ms": ms, "bound_by": by}
+    out["force_equals_columns"] = all(torch.equal(
+        svgd_rbf.svgd_force(theta, x, *glue, mask),
+        svgd_rbf.svgd_force_columns(theta, x, *glue, mask))
+        for x in (g, torch.zeros_like(g)))
+    if not out["force_equals_columns"]:
+        raise AssertionError("UNet force: not the column kernel's bits")
+    ms, by = bound(n * D * 4, 3 * n * n * D)
+    kern = lambda: svgd_rbf.pairwise_sqdist(theta, mask)
+    rows = {"pairwise_sqdist": {
+        "ms": time_ms(torch, kern),
+        "plain_ms": time_ms(torch, lambda: ref.pairwise_sqdist(theta, mask)),
+        "device_ms": device_ms(torch, kern), "bound_ms": ms,
+        "bound_by": by}}
+    fr = force_row(torch, theta, g, glue, mask)
+    rows["svgd_force"] = {**{k: fr[k] for k in ("ms", "plain_ms",
+                                                "bound_ms", "bound_by")},
+                          "device_ms": fr["vs_columns"]["device_ms"],
+                          "vs_columns": fr["vs_columns"]}
     out["timed"] = rows
     del theta, g, sq, want, glue
     torch.cuda.empty_cache()
@@ -5630,7 +5853,9 @@ def phase12(torch, card, vit_rows):
             "swag_moments": {
                 "max_abs_err":
                     moments["moments_kernel_vs_plain"]["max_abs_err"],
-                **moments["moments_timed"]},
+                **moments["moments_timed"],
+                "captured_collection_device_ms":
+                    moments["collect"]["device_busy_ms"]},
             "swag_diag_std": {**b_line["diag_std"],
                               "stack": b_line["diag_std_stack"]}}
     return total, rows
@@ -6162,7 +6387,7 @@ def lm_svgd(torch, module, batches, card, total):
     mine = prof["tracked_ms"]
     in_step = {"pairwise_sqdist": mine["sqdist_stream_kernel"]
                + mine["sqdist_sum_kernel"],
-               "svgd_force": mine["svgd_force_kernel"]}
+               "svgd_force": mine["force_stream_kernel"]}
     algo.push_dist.runtime.cache.clear()        # the step's graph pool
     gc.collect()
     torch.cuda.empty_cache()
@@ -6194,22 +6419,28 @@ def lm_svgd(torch, module, batches, card, total):
             checks["sqdist_rel"] < 1e-5 and checks["force_rel"] < 2e-4):
         raise AssertionError(f"LM SVGD kernels vs plain: {checks}")
     glue = rbf_glue(sq, 0.0)
+    checks["force_equals_columns"] = force_equals_columns(torch, theta, g, glue)
+    if checks["force_equals_columns"] is not True:
+        raise AssertionError(f"LM force: not the column kernel's bits: "
+                             f"{checks}")
     nbytes = n * D * 4
-    timed = {}
-    for name, kern, pl, nb, fl in (
-            ("pairwise_sqdist", lambda: svgd_rbf.pairwise_sqdist(theta),
-             lambda: ref.pairwise_sqdist(theta), nbytes + n * n * 4,
-             3 * n * n * D),
-            ("svgd_force", lambda: svgd_rbf.svgd_force(theta, g, *glue),
-             lambda: ref.svgd_force(theta, g, *glue), 3 * nbytes,
-             6 * n * n * D)):
-        ms, by = bound(nb, fl)
-        timed[name] = {"ms": time_ms(torch, kern, iters=10),
-                       "plain_ms": time_ms(torch, pl, iters=5),
-                       "device_ms": device_ms(torch, kern, n=5),
-                       "in_step_device_ms": in_step[name],
-                       "bound_ms": ms, "bound_by": by, "bytes": nb}
-        torch.cuda.empty_cache()
+    ms, by = bound(nbytes + n * n * 4, 3 * n * n * D)
+    kern = lambda: svgd_rbf.pairwise_sqdist(theta)
+    timed = {"pairwise_sqdist": {
+        "ms": time_ms(torch, kern, iters=10),
+        "plain_ms": time_ms(torch, lambda: ref.pairwise_sqdist(theta),
+                            iters=5),
+        "device_ms": device_ms(torch, kern, n=5),
+        "in_step_device_ms": in_step["pairwise_sqdist"],
+        "bound_ms": ms, "bound_by": by, "bytes": nbytes + n * n * 4}}
+    torch.cuda.empty_cache()
+    fr = force_row(torch, theta, g, glue, iters=10)
+    timed["svgd_force"] = {**{k: fr[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "bound_by")},
+                           "device_ms": fr["vs_columns"]["device_ms"],
+                           "in_step_device_ms": in_step["svgd_force"],
+                           "bytes": 3 * nbytes, "vs_columns": fr["vs_columns"]}
+    torch.cuda.empty_cache()
     checks["timed"] = timed
     del theta, g, sq, glue
     algo.cleanup()
@@ -7006,9 +7237,10 @@ def p15_shard_kernels(torch, store):
     the mask (``moments_parity``: kernel against plain, each on its own
     clone of the ring) and ``diag_std`` of each position's (rows, leaf)
     mean and sq, both within 1e-5 of the plain versions; position 0's
-    collection and its scales timed (L2 flushed, every leaf's launch in
-    one call) beside the plain versions and the bound. Nothing is
-    written back; these launches are not the path's."""
+    collection (one launch, on a copy of its moments and ring; the
+    per-leaf kernel's loop beside it) and its scales timed (L2 flushed, every
+    leaf's launch in one call) beside the plain versions and the bound.
+    Nothing is written back; these launches are not the path's."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.kernels import ref, swag_moments
     params, swag = store.stacked("params"), store.stacked("swag")
@@ -7038,24 +7270,24 @@ def p15_shard_kernels(torch, store):
     n, R = sh["n"], devs[0].shape[1]
     slot = (sh["rank"] % R).to(torch.int32)
     rings = [d.clone() for d in devs]
-    outs = [(torch.empty_like(m), torch.empty_like(m)) for m in means]
-    args = list(zip(means, sqs, thetas, rings, outs))
+    ms, qs = [m.clone() for m in means], [q.clone() for q in sqs]
 
     def kernel():
-        for m, q, t, r, (om, oq) in args:
-            swag_moments.moments(m, q, t, n, m0, r, slot, out_mean=om,
-                                 out_sq=oq)
+        swag_moments.moments_leaves(ms, qs, thetas, n, m0, rings, slot)
 
-    def plain():
-        for m, q, t, r, (om, oq) in args:
-            ref.swag_moments(m, q, t, n, m0, r, slot, out_mean=om,
-                             out_sq=oq)
+    def per_leaf():
+        for m, q, t, r in zip(ms, qs, thetas, rings):
+            swag_moments.moments(m, q, t, n, m0, r, slot, out_mean=m,
+                                 out_sq=q)
     costs = [swag_moments.moments_cost(m, r) for m, r in zip(means, rings)]
     b_ms, b_by = bound(sum(c[1] for c in costs), sum(c[0] for c in costs))
     out["moments_position0"] = {
-        "launches": len(means), "ms": time_ms(torch, kernel, iters=10),
-        "plain_ms": time_ms(torch, plain, iters=10), "bound_ms": b_ms,
-        "bound_by": b_by}
+        "launches": collect_launches(len(means)),
+        "ms": time_ms(torch, kernel, iters=10),
+        "per_leaf_ms": time_ms(torch, per_leaf, iters=10),
+        "plain_ms": time_ms(torch, lambda: ref.swag_moments_leaves(
+            ms, qs, thetas, n, m0, rings, slot), iters=10),
+        "bound_ms": b_ms, "bound_by": b_by}
     costs = [swag_moments.diag_std_cost(m) for m in means]
     b_ms, b_by = bound(sum(c[1] for c in costs), sum(c[0] for c in costs))
     out["diag_std_position0"] = {
@@ -7067,7 +7299,7 @@ def p15_shard_kernels(torch, store):
                                             for m, q in zip(means, sqs)],
                             iters=10),
         "bound_ms": b_ms, "bound_by": b_by}
-    del rings, outs, args
+    del rings, ms, qs
     torch.cuda.empty_cache()
     return out
 
@@ -7130,7 +7362,8 @@ def p15_training(torch, card, captured, real=False):
         if name == "multiswag":
             from repro_torch.core.tree import tree_leaves
             n_leaves = len(tree_leaves(mesh["algo"].p_parameters()[0]))
-            if mesh["launches"]["swag_moments"] != 2 * n_leaves * n:
+            if mesh["launches"]["swag_moments"] != \
+                    2 * collect_launches(n_leaves) * n:
                 failed.append(f"MultiSWAG launches {mesh['launches']}")
             out[name]["shard_kernels"] = p15_shard_kernels(
                 torch, mesh["algo"].store)
@@ -7982,7 +8215,8 @@ def p16_training(torch, card):
         if name == "multiswag":
             from repro_torch.core.tree import tree_leaves
             n_leaves = len(tree_leaves(run["algo"].p_parameters()[0]))
-            if run["launches"]["swag_moments"] != 2 * n_leaves * n_data * m:
+            if run["launches"]["swag_moments"] != \
+                    2 * collect_launches(n_leaves) * n_data * m:
                 bad.append(f"MultiSWAG launches {run['launches']}")
         out[name] = dict(row, launches=run["launches"], steps=steps,
                          replicas_bit_equal=replicas,
@@ -8503,18 +8737,23 @@ def p17_training(torch, card):
             checks["sqdist_rel"] < 1e-5 and checks["force_rel"] < 2e-4
             and checks["svgd_force_end_to_end_rel"] < 2e-4):
         raise AssertionError(f"(b) SVGD kernels vs plain: {checks}")
-    for name, kern, pl, nb, fl in (
-            ("pairwise_sqdist", lambda: svgd_rbf.pairwise_sqdist(theta),
-             lambda: ref.pairwise_sqdist(theta), n * D * 4 + n * n * 4,
-             3 * n * n * D),
-            ("svgd_force", lambda: svgd_rbf.svgd_force(theta, g, *glue),
-             lambda: ref.svgd_force(theta, g, *glue), 3 * n * D * 4,
-             6 * n * n * D)):
-        b_ms, b_by = bound(nb, fl)
-        checks[name] = {"ms": time_ms(torch, kern, iters=5),
-                        "plain_ms": time_ms(torch, pl, iters=3),
-                        "bound_ms": b_ms, "bound_by": b_by}
-    del theta, g, sq, glue
+    # the column kernel's bits where a second (n, D) output fits beside it
+    checks["force_equals_columns"] = force_equals_columns(torch, theta, g, glue)
+    if checks["force_equals_columns"] is False:
+        raise AssertionError(f"(b) force: not the column kernel's bits: "
+                             f"{checks}")
+    b_ms, b_by = bound(n * D * 4 + n * n * 4, 3 * n * n * D)
+    checks["pairwise_sqdist"] = {
+        "ms": time_ms(torch, lambda: svgd_rbf.pairwise_sqdist(theta),
+                      iters=5),
+        "plain_ms": time_ms(torch, lambda: ref.pairwise_sqdist(theta),
+                            iters=3),
+        "bound_ms": b_ms, "bound_by": b_by}
+    fr = force_row(torch, theta, g, glue, iters=5)
+    checks["svgd_force"] = {**{k: fr[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")},
+                            "vs_columns": fr["vs_columns"]}
+    del theta, g, sq, glue, fr
     algo.cleanup()
     del algo
     lm_free(torch)

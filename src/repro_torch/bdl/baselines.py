@@ -130,7 +130,7 @@ def multiswag_baseline(module, optimizer, n: int, dataloader, epochs: int,
                        seed: int = 0, *, device=None):
     """Sequential multi-SWAG: ensemble training, then after each epoch
     past ``pretrain_epochs`` one moment collection per NN (``swag_collect``
-    on its one-row view: one moments launch a leaf). Returns (the n
+    on its one-row view: one moments launch a NN). Returns (the n
     trained param trees, their SWAG states)."""
     device = _device(device)
     all_params = _inits(module, n, seed, device)

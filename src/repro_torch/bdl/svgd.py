@@ -231,8 +231,8 @@ def svgd_phi_spec(lengthscale: float) -> ProgramSpec:
             glue = rbf_glue(sq, lengthscale, mask)
             for t, gj, f in zip(theta, g, phi):
                 d = t.device
-                f.copy_(_kops.svgd_force(t, gj, *(x.to(d) for x in glue),
-                                         mask.to(d)))
+                _kops.svgd_force(t, gj, *(x.to(d) for x in glue),
+                                 mask.to(d), out=f)
             return (phi,)
 
         return fused

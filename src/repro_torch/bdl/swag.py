@@ -17,14 +17,16 @@ the store's ``"swag"`` key. Stacked, ``n`` and ``rank`` are ``(P,)``: one
 count per row, so the ring slot ``rank % max_rank`` is per row. The
 moment collection and the serve-time diagonal scale run through the
 hand-written kernels (``kernels.ops``: CUDA on the card, the plain
-versions on the CPU), one launch per parameter leaf. The collection
-writes the deviation ring in place: it is ``max_rank`` times the
-parameters, too large to copy per collection.
+versions on the CPU): the collection is one launch over every parameter
+leaf (one per ``kernels.swag_moments.MAX_LEAVES`` leaves; under bf16
+masters too, on fp32 copies of the params), the diagonal scale one launch
+per leaf. The collection writes the deviation ring in place: it is
+``max_rank`` times the parameters, too large to copy per collection.
 
 Under ``backend="nel"`` every particle steps on its own timeline and,
 once per epoch after the pretraining, handles ``SWAG_COLLECT``: the same
 collection over one-row views of its own state (P = 1: one moments
-launch per leaf per particle), written back through ``particle.state``
+launch per particle), written back through ``particle.state``
 so that the store's version and dirty tracking see it.
 
 Sampling takes its Gaussian noise as an input (``z1`` per leaf, ``z2``
@@ -80,9 +82,8 @@ def swag_collect(state, params, mask=None):
     max_rank = devs[0].shape[1]
     n, rank = state["n"], state["rank"]
     slot = (rank % max_rank).to(torch.int32)
-    for m, s, t, d in zip(means, sqs, thetas, devs):
-        _kops.swag_moments(m, s, t.contiguous(), n, mask, d, slot,
-                           out_mean=m, out_sq=s)
+    _kops.swag_moments_leaves(means, sqs, [t.contiguous() for t in thetas],
+                              n, mask, devs, slot)
     live = torch.ones_like(n, dtype=torch.bool) if mask is None else mask > 0
     torch.where(live, n + 1, n, out=n)
     torch.where(live, rank + 1, rank, out=rank)

@@ -46,15 +46,52 @@
 // the one sum and an exact 0 on the diagonal. No atomics: the result is
 // deterministic and exactly symmetric.
 //
-// force design. phi_i = sum_j ktn[i,j] g_j - (ksum_i theta_i - sum_j
-// ktn[i,j] theta_j) * inv_ell2, with ktn = K^T / n_eff and ksum = K.sum(0) /
-// n_eff computed by the caller (the (n, n) glue stays plain torch, as it is
-// plain jnp in the reference). One thread per column d; a block owns 8
-// receiving rows i and holds their ktn rows in shared memory (8 n floats,
-// 8 KB at n = 256, where the whole K^T/n would exceed the 227 KB a block may
-// use); each thread streams theta[:, d] and g[:, d] once per row tile and
-// keeps 16 accumulators in registers. Dead rows are written as exact zeros.
-// Simple and correct first: no TMA, no wgmma, fp32 CUDA-core FMAs.
+// force. phi_i = sum_j ktn[i,j] g_j - (ksum_i theta_i - sum_j ktn[i,j]
+// theta_j) * inv_ell2, with ktn = K^T / n_eff and ksum = K.sum(0) / n_eff
+// computed by the caller (the (n, n) glue stays plain torch, as it is plain
+// jnp in the reference). Dead rows are written as exact zeros.
+//
+// What bounds it: each column moves 3n floats (theta and g read, phi
+// written) for 4 n^2 FLOPs, n / 3 FLOPs a byte, so below n ~ 60 the force
+// is bound by bytes (fp32 CUDA-core FMAs: 67 TFLOP/s over 3.35 TB/s is 20
+// FLOPs a byte) and above it by fp32 operations, where only a tensor-core
+// form (later work) would help.
+//
+// The column kernel (svgd_force_kernel, the first design, kept as the probe
+// entry svgd_force_columns) gives one thread one column: a grid of D / 256 blocks,
+// each staging its 8 receiving rows' ktn into shared memory and
+// synchronising to stream 256 columns, both row loops fixed at 8 (at n = 2,
+// 128 FMAs a column for 8 live ones), 2n scalar 4-byte loads in flight a
+// thread. It reaches 27% of its bound at n = 2, 49% at 4, 76% at 8.
+//
+// The streaming design (force_stream_kernel), launched on the wrapper's
+// plan (kernels/svgd_rbf.py force_plan). A block stages its receiving rows'
+// ktn, ksum and the live flags once, then walks column tiles with a grid
+// stride. For n <= 8 (template kN = n) every row is both receiving and
+// source, the row loops run to n exactly at compile time, and a thread
+// loads all n rows of theta and g over its kCols columns before any FMA.
+// Where every row is 16-byte aligned (D % 4 == 0, aligned bases: the ViT's,
+// the LM's and the zoo's shapes) the loads are 128-bit with the streaming
+// hints (__ldcs / __stcs: nothing is reused), kCols is 8 at n <= 2 (two
+// float4 groups: 128 B of loads in flight a thread at n = 2) and 4 above,
+// and the grid is one persistent wave; there it reads 84-86% of the byte
+// bound at n = 2, 4 and 8 on an H100 (PERF.md). Elsewhere (the UNet's D is
+// odd) the loads are scalar, kCols is 4 at n <= 4 and 2 above, and each
+// block takes one column tile: on the UNet's small D the block scheduler
+// balances the tiles better than a fixed stride. For n > 8 (kN = 0) a
+// block owns 8 receiving rows, as the column kernel's do, and re-streams theta and g
+// once per row tile; the plan gives the blocks of one column tile's row
+// tiles neighbouring indices, so the re-reads meet in L2. Past n ~ 60 that
+// path is bound by fp32 operations (above): a tensor-core form is later
+// work.
+//
+// Arithmetic: per column the same FMAs as the column kernel, in the same
+// order, acc = fmaf(ktn[i,j], g_j, acc) and fmaf(ktn[i,j], theta_j, acc)
+// over ascending j, and the same epilogue (force_phi, shared by the two
+// kernels), so the result is the column kernel's bit for bit. Its padding rows
+// (j >= n in the last tile of 8) add fmaf(0, 0, acc) == acc (acc starts at
+// +0 and is never -0), so leaving them out changes no bit; dead rows j < n
+// are still added as zeros, as there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -305,6 +342,16 @@ sqdist_sum_kernel(const float* __restrict__ partial, float* __restrict__ out, in
   }
 }
 
+// -- svgd_force ----------------------------------------------------------------
+
+// The force's epilogue for one (row, column), shared by both kernels so that
+// they compile it alike: phi = acc_g - (ksum_i theta_i - acc_t) / ell^2.
+__device__ __forceinline__ float force_phi(float acc_g, float ksum_i, float own,
+                                           float acc_t, float inv) {
+  return acc_g - (ksum_i * own - acc_t) * inv;
+}
+
+// The column kernel: the probe entry svgd_force_columns (note above).
 __global__ void __launch_bounds__(kThreads)
 svgd_force_kernel(const float* __restrict__ theta, const float* __restrict__ grads,
                   const float* __restrict__ ktn, const float* __restrict__ ksum,
@@ -356,10 +403,189 @@ svgd_force_kernel(const float* __restrict__ theta, const float* __restrict__ gra
   for (int a = 0; a < kTile; ++a) {
     const int i = i0 + a;
     if (i < n) {
-      const float phi = acc_g[a] - (ksum[i] * own[a] - acc_t[a]) * inv;
+      const float phi = force_phi(acc_g[a], ksum[i], own[a], acc_t[a], inv);
       out[static_cast<long long>(i) * D + d] = live_s[i] > 0.f ? phi : 0.f;
     }
   }
+}
+
+
+// The streaming kernel's launch constants by n (n > 8 as 9) and path
+// (kernels/svgd_rbf.py mirrors them in force_plan): columns a thread a
+// tile, blocks an SM.
+__host__ __device__ constexpr int force_cols(int n, bool vec) {
+  return vec ? (n <= 2 ? 8 : 4) : (n <= 4 ? 4 : 2);
+}
+__host__ __device__ constexpr int force_blocks(int n, bool vec) {
+  return vec && n > 4 ? 2 : 4;
+}
+
+// kCols columns of one row over a tile starting at column c0: as float4
+// groups (kVec: the thread's group q holds columns c0 + (q * kThreads + tid) * 4
+// + 0..3) or as scalars (column c0 + q * kThreads + tid). A dead row or a
+// column past D reads as 0.
+template <int kCols, bool kVec, bool kStream>
+__device__ __forceinline__ void load_cols(const float* __restrict__ row, long long c0,
+                                          long long D, bool live, float (&v)[kCols]) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int q = 0; q < kCols / 4; ++q) {
+      const long long c = c0 + (static_cast<long long>(q) * kThreads + threadIdx.x) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live && c < D) {
+        const float4* src = reinterpret_cast<const float4*>(row + c);
+        x = kStream ? __ldcs(src) : __ldg(src);
+      }
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+      const long long c = c0 + static_cast<long long>(q) * kThreads + threadIdx.x;
+      v[q] = (live && c < D) ? (kStream ? __ldcs(row + c) : __ldg(row + c)) : 0.f;
+    }
+  }
+}
+
+template <int kCols, bool kVec>
+__device__ __forceinline__ void store_cols(float* __restrict__ row, long long c0, long long D,
+                                           const float (&v)[kCols]) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int q = 0; q < kCols / 4; ++q) {
+      const long long c = c0 + (static_cast<long long>(q) * kThreads + threadIdx.x) * 4;
+      if (c < D)
+        __stcs(reinterpret_cast<float4*>(row + c),
+               make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+      const long long c = c0 + static_cast<long long>(q) * kThreads + threadIdx.x;
+      if (c < D) __stcs(row + c, v[q]);
+    }
+  }
+}
+
+// kN = n in [1, 8]: one row tile of all n rows. kN = 0: n > 8, block b owns
+// the receiving rows of tile b % row_tiles and walks the column tiles
+// b / row_tiles, + gridDim.x / row_tiles, ... (the grid is a multiple of
+// row_tiles). Shared memory: ktn's receiving rows, their ksum, the live flags.
+template <int kN, bool kVec>
+__global__ void __launch_bounds__(kThreads, force_blocks(kN == 0 ? kTile + 1 : kN, kVec))
+force_stream_kernel(const float* __restrict__ theta, const float* __restrict__ grads,
+                    const float* __restrict__ ktn, const float* __restrict__ ksum,
+                    const float* __restrict__ inv_ell2, const float* __restrict__ mask,
+                    float* __restrict__ out, int n, long long D, long long tiles,
+                    int row_tiles) {
+  constexpr int kR = kN == 0 ? kTile : kN;            // receiving rows a block
+  constexpr int kCols = force_cols(kN == 0 ? kTile + 1 : kN, kVec);
+  constexpr long long kTileCols = static_cast<long long>(kThreads) * kCols;
+  extern __shared__ float smem[];
+  float* k_s = smem;                    // kR rows of n: ktn[i0 + a, j]
+  float* ksum_s = k_s + kR * n;         // kR
+  float* live_s = ksum_s + kR;          // n: 1 live, 0 dead
+  const int rt = kN == 0 ? static_cast<int>(blockIdx.x % row_tiles) : 0;
+  const int i0 = rt * kTile;
+  const float inv = *inv_ell2;          // issued beside the staging loads
+  for (int e = threadIdx.x; e < kR * n; e += kThreads) {
+    const int a = e / n;
+    k_s[e] = i0 + a < n ? ktn[static_cast<long long>(i0) * n + e] : 0.f;
+  }
+  for (int a = threadIdx.x; a < kR; a += kThreads)
+    ksum_s[a] = i0 + a < n ? ksum[i0 + a] : 0.f;
+  for (int j = threadIdx.x; j < n; j += kThreads) live_s[j] = row_live(mask, j, n) ? 1.f : 0.f;
+  __syncthreads();
+  const long long first = kN == 0 ? blockIdx.x / row_tiles : blockIdx.x;
+  const long long step = kN == 0 ? gridDim.x / row_tiles : gridDim.x;
+
+  for (long long tile = first; tile < tiles; tile += step) {
+    const long long c0 = tile * kTileCols;
+    if constexpr (kN > 0) {
+      // every row's columns in registers first: 2 n kCols floats in flight
+      float t[kR][kCols], g[kR][kCols];
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        const bool live = live_s[j] > 0.f;
+        load_cols<kCols, kVec, true>(theta + j * D, c0, D, live, t[j]);
+        load_cols<kCols, kVec, true>(grads + j * D, c0, D, live, g[j]);
+      }
+#pragma unroll
+      for (int a = 0; a < kR; ++a) {
+        float ag[kCols], at[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) ag[c] = at[c] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          const float k = k_s[a * kR + j];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            ag[c] = fmaf(k, g[j][c], ag[c]);
+            at[c] = fmaf(k, t[j][c], at[c]);
+          }
+        }
+        const bool live = live_s[a] > 0.f;
+        float phi[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          phi[c] = live ? force_phi(ag[c], ksum_s[a], t[a][c], at[c], inv) : 0.f;
+        store_cols<kCols, kVec>(out + a * D, c0, D, phi);
+      }
+    } else {
+      // 8 receiving rows; the sources one at a time, loaded through L2
+      // (the other row tiles' blocks read the same columns)
+      float ag[kR][kCols], at[kR][kCols];
+#pragma unroll
+      for (int a = 0; a < kR; ++a)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) ag[a][c] = at[a][c] = 0.f;
+#pragma unroll 2
+      for (int j = 0; j < n; ++j) {
+        float t[kCols], g[kCols];
+        const bool live = live_s[j] > 0.f;
+        load_cols<kCols, kVec, false>(theta + j * D, c0, D, live, t);
+        load_cols<kCols, kVec, false>(grads + j * D, c0, D, live, g);
+#pragma unroll
+        for (int a = 0; a < kR; ++a) {
+          const float k = k_s[a * n + j];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            ag[a][c] = fmaf(k, g[c], ag[a][c]);
+            at[a][c] = fmaf(k, t[c], at[a][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kR; ++a) {
+        const int i = i0 + a;
+        if (i >= n) break;
+        const bool live = live_s[i] > 0.f;
+        float own[kCols], phi[kCols];
+        // the receiving row's theta once more (0 if dead, as the column kernel keeps it)
+        load_cols<kCols, kVec, false>(theta + i * D, c0, D, live, own);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          phi[c] = live ? force_phi(ag[a][c], ksum_s[a], own[c], at[a][c], inv) : 0.f;
+        store_cols<kCols, kVec>(out + i * D, c0, D, phi);
+      }
+    }
+  }
+}
+
+template <int kN>
+int launch_force(bool vec, int grid, size_t smem, cudaStream_t s, const float* theta,
+                 const float* grads, const float* ktn, const float* ksum,
+                 const float* inv_ell2, const float* mask, float* out, int n, long long D,
+                 long long tiles, int row_tiles) {
+  void (*kernel)(const float*, const float*, const float*, const float*, const float*,
+                 const float*, float*, int, long long, long long, int) =
+      vec ? &force_stream_kernel<kN, true> : &force_stream_kernel<kN, false>;
+  kernel<<<grid, kThreads, smem, s>>>(theta, grads, ktn, ksum, inv_ell2, mask, out, n, D,
+                                      tiles, row_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -410,10 +636,52 @@ extern "C" int svgd_pairwise_sqdist(const void* theta, const void* mask, void* p
 }
 
 // phi (n, D) from theta, grads (n, D), ktn (n, n), ksum (n,), inv_ell2 (a
-// device scalar) and mask (n,) or null. Returns the cudaError_t (0 = success).
+// device scalar) and mask (n,) or null, by the streaming kernel on the
+// wrapper's plan (kernels/svgd_rbf.py force_plan): a grid that is a
+// multiple of the row tiles, cols columns a thread a tile (checked against
+// force_cols), vec 1 for 128-bit loads (every row 16-byte aligned). Returns
+// the cudaError_t (0 = success).
 extern "C" int svgd_force(const void* theta, const void* grads, const void* ktn,
                           const void* ksum, const void* inv_ell2, const void* mask,
-                          void* out, int n, long long D, void* stream) {
+                          void* out, int n, long long D, int grid, int cols, int vec,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int row_tiles = n <= kTile ? 1 : (n + kTile - 1) / kTile;
+  if (n < 1 || D < 1 || grid < 1 || grid % row_tiles != 0 ||
+      cols != force_cols(n <= kTile ? n : kTile + 1, vec != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tile_cols = static_cast<long long>(kThreads) * cols;
+  const long long tiles = (D + tile_cols - 1) / tile_cols;
+  const int rows = n <= kTile ? n : kTile;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(rows) * n + rows + n);
+  const float* t = static_cast<const float*>(theta);
+  const float* g = static_cast<const float*>(grads);
+  const float* k = static_cast<const float*>(ktn);
+  const float* ks = static_cast<const float*>(ksum);
+  const float* inv = static_cast<const float*>(inv_ell2);
+  const float* m = static_cast<const float*>(mask);
+  float* o = static_cast<float*>(out);
+  const bool v = vec != 0;
+  switch (n) {
+    case 1: return launch_force<1>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles, 1);
+    case 2: return launch_force<2>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles, 1);
+    case 3: return launch_force<3>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles, 1);
+    case 4: return launch_force<4>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles, 1);
+    case 5: return launch_force<5>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles, 1);
+    case 6: return launch_force<6>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles, 1);
+    case 7: return launch_force<7>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles, 1);
+    case 8: return launch_force<8>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles, 1);
+    default:
+      return launch_force<0>(v, grid, smem, s, t, g, k, ks, inv, m, o, n, D, tiles,
+                             row_tiles);
+  }
+}
+
+// The column kernel, a probe only (never on a path): the same arguments as
+// svgd_force without the plan. Returns the cudaError_t (0 = success).
+extern "C" int svgd_force_columns(const void* theta, const void* grads, const void* ktn,
+                               const void* ksum, const void* inv_ell2, const void* mask,
+                               void* out, int n, long long D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_pad = (n + kTile - 1) / kTile * kTile;
   const size_t smem = sizeof(float) * static_cast<size_t>(kTile + 1) * n_pad;

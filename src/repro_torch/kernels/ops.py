@@ -18,7 +18,7 @@ from . import swag_moments as _swag
 COUNTED = (_paged.paged_decode_attention,
            _window.paged_decode_window_attention, _flash.flash_attention,
            _decode.decode_attention, _svgd.pairwise_sqdist, _svgd.svgd_force,
-           _swag.moments, _swag.diag_std)
+           _swag.moments, _swag.moments_leaves, _swag.diag_std)
 
 
 def _route(x, kernel, plain, name):
@@ -70,23 +70,26 @@ def pairwise_sqdist(theta, mask=None):
     return fn(theta, mask)
 
 
-def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
-    """(n, D) SVGD force from the (n, n) kernel glue; dead rows give 0."""
+def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None, *, out=None):
+    """(n, D) SVGD force from the (n, n) kernel glue; dead rows give 0.
+    ``out`` (n, D) fp32, when given, receives it in place."""
     fn = _route(theta, _svgd.svgd_force, ref.svgd_force, "svgd_force")
-    return fn(theta, grads, ktn, ksum, inv_ell2, mask)
+    return fn(theta, grads, ktn, ksum, inv_ell2, mask, out=out)
 
 
-def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
-                 out_mean=None, out_sq=None):
-    """Stacked SWAG moment update (+ the deviation-ring write, in place);
-    ``out_mean=mean, out_sq=sq`` updates the moments in place too. Params
-    of another dtype than fp32 (bf16 masters) go through
-    ``swag_moments.moments_via_fp32``."""
-    fn = _route(mean, _swag.moments, ref.swag_moments, "swag_moments")
-    if theta.dtype != torch.float32:
-        return _swag.moments_via_fp32(fn, mean, sq, theta, n, mask, dev,
-                                      slot, out_mean, out_sq)
-    return fn(mean, sq, theta, n, mask, dev, slot, out_mean, out_sq)
+def swag_moments_leaves(means, sqs, thetas, n, mask=None, devs=None,
+                        slot=None):
+    """``swag_moments`` over every leaf of a tree (lists of (P, ...)
+    leaves, devs (P, R, ...) each), in place, one kernel launch per
+    ``swag_moments.MAX_LEAVES`` leaves. Params of another dtype than fp32
+    (bf16 masters) go through ``swag_moments.leaves_via_fp32``: still
+    one launch, on fp32 copies of the params."""
+    fn = _route(means[0], _swag.moments_leaves, ref.swag_moments_leaves,
+                "swag_moments_leaves")
+    if any(t.dtype != torch.float32 for t in thetas):
+        return _swag.leaves_via_fp32(fn, means, sqs, thetas, n, mask, devs,
+                                     slot)
+    return fn(means, sqs, thetas, n, mask, devs, slot)
 
 
 def diag_std(mean, sq):

@@ -121,17 +121,19 @@ def pairwise_sqdist(theta, mask=None):
     return (sq[:, None] + sq[None, :] - 2.0 * theta @ theta.T).clamp(min=0.0)
 
 
-def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
+def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None, *, out=None):
     """phi = ktn @ g - (ksum * theta - ktn @ theta) * inv_ell2, the TPU
     force kernel's formula; theta, grads (n, D), ktn (n, n) = K^T / n_eff,
     ksum (n,) = K.sum(0) / n_eff. Dead rows read as zeros and come out as
-    exact zeros."""
+    exact zeros. ``out`` (n, D), when given, receives phi."""
     if mask is not None:
         live = _live(mask, theta)
         theta = torch.where(live, theta, 0.0)
         grads = torch.where(live, grads, 0.0)
     phi = ktn @ grads - (ksum[:, None] * theta - ktn @ theta) * inv_ell2
-    return phi if mask is None else torch.where(live, phi, 0.0)
+    if mask is not None:
+        phi = torch.where(live, phi, 0.0)
+    return phi if out is None else out.copy_(phi)
 
 
 def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
@@ -161,6 +163,17 @@ def swag_moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
     if out_sq is not None:
         new_sq = out_sq.copy_(new_sq)
     return new_mean, new_sq
+
+
+def swag_moments_leaves(means, sqs, thetas, n, mask=None, devs=None,
+                        slot=None):
+    """``swag_moments`` over every leaf of a tree, in place (the one-launch
+    kernel's plain version): lists of (P, ...) leaves, devs (P, R, ...)
+    each. Returns (means, sqs)."""
+    for i, (m, s, t) in enumerate(zip(means, sqs, thetas)):
+        swag_moments(m, s, t, n, mask, None if devs is None else devs[i],
+                     slot, out_mean=m, out_sq=s)
+    return means, sqs
 
 
 def diag_std(mean, sq):

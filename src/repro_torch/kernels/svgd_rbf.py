@@ -5,12 +5,15 @@ The kernels replace the Pallas TPU kernels ``repro.kernels.svgd_rbf``
 the reference's fused path passes (its Pallas kernels are dense-only):
 
     pairwise_sqdist(theta, mask=None)                       -> (n, n)
-    svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None) -> (n, D)
+    svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None, *, out=None)
+                                                            -> (n, D)
 
     theta, grads (n, D) fp32 contiguous; mask (n,) fp32 or None, a dead
     row (mask <= 0) read as zeros and, in the force, written as zeros;
     ktn (n, n) = K^T / n_eff; ksum (n,) = K.sum(0) / n_eff; inv_ell2 a
-    one-element fp32 tensor (read on the device: no host sync).
+    one-element fp32 tensor (read on the device: no host sync); ``out``
+    an (n, D) fp32 tensor that receives phi (it may not be theta or
+    grads), a new one when None.
 
 The wrappers take CUDA tensors only and raise on anything else; the CPU
 goes through ``kernels.ops`` to the plain versions in ``kernels.ref``.
@@ -22,6 +25,14 @@ the shapes and the SM count alone (never from the mask, which stays on
 the device): its tile pairs, column chunks, one-wave grid, the ring's
 shape and the path, ``"bulk"`` (rows copied with cp.async.bulk, which
 needs 16-byte aligned rows: D % 4 == 0) or ``"plain"`` (plain loads).
+``force_plan`` is ``svgd_force``'s launch, fixed the same way: the row
+tiles, the column tiles each block walks (one persistent wave on the
+vector path, one tile a block on the scalar path) and the path,
+``"vector"`` (128-bit loads: D % 4 == 0 and theta, grads and phi 16-byte
+aligned) or ``"scalar"``. ``svgd_force_columns`` launches the column
+kernel (the first design: one thread a column, 8-row tiles) on the same
+arguments: a probe of the streamed kernel, never on a path (it counts
+its launches apart).
 """
 from __future__ import annotations
 
@@ -49,7 +60,8 @@ _BLOCK_SMEM_RESERVED = 1024  # the runtime's own, per block
 _STATIC_SMEM = 8 * 64 * 4 + 8 * _MAX_STAGES  # the block reduction, barriers
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SQDIST_ARGS = [_P] * 4 + [_I, _L] + [_I] * 8 + [_P]
-_FORCE_ARGS = [_P] * 7 + [_I, _L, _P]
+_FORCE_ARGS = [_P] * 7 + [_I, _L] + [_I] * 3 + [_P]
+_FORCE_COLUMNS_ARGS = [_P] * 7 + [_I, _L, _P]
 
 
 @dataclass(frozen=True)
@@ -131,6 +143,82 @@ def plan_for(theta, **ring) -> SqdistPlan:
                        base_aligned=theta.data_ptr() % 16 == 0, **ring)
 
 
+@dataclass(frozen=True)
+class ForcePlan:
+    """One ``svgd_force`` launch (module docstring; csrc/svgd_rbf.cu
+    force_stream_kernel). ``rows`` receiving rows a block: all n for
+    n <= 8, else tiles of 8 (``row_tiles`` of them). A thread takes
+    ``cols`` columns of a column tile of ``tile_cols`` (``columns``), and
+    block ``b`` of ``grid`` (a multiple of ``row_tiles``) takes row tile
+    ``b % row_tiles`` over the column tiles ``tiles(b)``."""
+    n: int
+    D: int
+    path: str
+    rows: int
+    row_tiles: int
+    cols: int
+    tile_cols: int
+    ntiles: int
+    grid: int
+    blocks_per_sm: int
+
+    def row_tile(self, b: int) -> range:
+        r = b % self.row_tiles
+        return range(r * self.rows, min(self.n, (r + 1) * self.rows))
+
+    def tiles(self, b: int) -> range:
+        return range(b // self.row_tiles, self.ntiles,
+                     self.grid // self.row_tiles)
+
+    def columns(self, tile: int, thread: int):
+        """The columns < D thread ``thread`` of a block computes in column
+        tile ``tile``: float4 groups on the vector path, one column a
+        step of the block's width on the scalar path."""
+        c0 = tile * self.tile_cols
+        if self.path == "vector":
+            cols = [c0 + (q * _THREADS + thread) * 4 + e
+                    for q in range(self.cols // 4) for e in range(4)]
+        else:
+            cols = [c0 + q * _THREADS + thread for q in range(self.cols)]
+        return [c for c in cols if c < self.D]
+
+
+@functools.lru_cache(maxsize=256)
+def force_plan(n: int, D: int, sms: int, aligned: bool = True) -> ForcePlan:
+    """The launch of ``svgd_force`` over (n, D) on ``sms`` SMs (mirrors
+    csrc/svgd_rbf.cu force_cols / force_blocks). The vector path, when
+    ``aligned`` (theta, grads and phi 16-byte aligned) and D % 4 == 0:
+    ``cols`` 8 at n <= 2 and 4 above, 4 blocks an SM at n <= 4 and 2
+    above, one wave of blocks (a whole number of row tiles, at least one
+    of each). The scalar path: ``cols`` 4 at n <= 4 and 2 above, 4 blocks
+    an SM, one column tile a block (the block scheduler balances the
+    small tiles of a small D better than a fixed stride: the UNet's
+    shape)."""
+    if n < 1 or D < 1:
+        raise ValueError("force_plan needs n >= 1 and D >= 1")
+    vec = aligned and D % 4 == 0
+    rows = n if n <= _TILE else _TILE
+    row_tiles = -(-n // rows)
+    if vec:
+        cols, per_sm = (8 if n <= 2 else 4), (4 if n <= 4 else 2)
+    else:
+        cols, per_sm = (4 if n <= 4 else 2), 4
+    tile_cols = _THREADS * cols
+    ntiles = -(-D // tile_cols)
+    wave = max(sms * per_sm // row_tiles, 1) if vec else ntiles
+    return ForcePlan(n=n, D=D, path="vector" if vec else "scalar", rows=rows,
+                     row_tiles=row_tiles, cols=cols, tile_cols=tile_cols,
+                     ntiles=ntiles, grid=min(ntiles, wave) * row_tiles,
+                     blocks_per_sm=per_sm)
+
+
+def force_plan_for(theta, grads, out) -> ForcePlan:
+    """The plan ``svgd_force(theta, grads, ..., out=out)`` launches with."""
+    n, D = theta.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (theta, grads, out))
+    return force_plan(n, D, sm_count(theta.device), aligned)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -171,8 +259,9 @@ def pairwise_sqdist(theta, mask=None, *, reduce: bool = True, **ring):
     return out if reduce else partial
 
 
-def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
-    """phi (n, D): the SVGD descent direction (module docstring)."""
+def _force_args(theta, grads, ktn, ksum, inv_ell2, mask, out):
+    """Check the force's arguments; returns phi's tensor (``out`` or a
+    new one)."""
     if not isinstance(theta, torch.Tensor) or theta.dim() != 2:
         raise ValueError("theta must be an (n, D) tensor")
     n, D = theta.shape
@@ -185,14 +274,28 @@ def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
           else inv_ell2, dev, (1,))
     if mask is not None:
         check("mask", mask, dev, (n,))
-    out = torch.empty_like(theta)
+    if out is None:
+        return torch.empty_like(theta)
+    check("out", out, dev, (n, D))
+    if out.numel() and out.data_ptr() in (theta.data_ptr(), grads.data_ptr()):
+        raise ValueError("out may not be theta or grads")
+    return out
+
+
+def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None, *, out=None):
+    """phi (n, D): the SVGD descent direction (module docstring), written
+    into ``out`` when given."""
+    out = _force_args(theta, grads, ktn, ksum, inv_ell2, mask, out)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(dev):
+    n, D = theta.shape
+    plan = force_plan_for(theta, grads, out)
+    with torch.cuda.device(theta.device):
         rc = entry("svgd_rbf", "svgd_force", _FORCE_ARGS)(
             theta.data_ptr(), grads.data_ptr(), ktn.data_ptr(),
             ksum.data_ptr(), inv_ell2.data_ptr(), _ptr(mask), out.data_ptr(),
-            n, D, _stream(dev))
+            n, D, plan.grid, plan.cols, int(plan.path == "vector"),
+            _stream(theta.device))
     raise_on(rc, "svgd_force")
     svgd_force.launches += 1
     if _obs.counting_now():
@@ -200,8 +303,28 @@ def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None):
     return out
 
 
+def svgd_force_columns(theta, grads, ktn, ksum, inv_ell2, mask=None, *,
+                       out=None):
+    """``svgd_force`` through the column kernel (one thread a column,
+    8-row tiles): a probe that the streamed kernel gives the same bits,
+    and of its time. Never on a path; ``svgd_force_columns.launches`` counts apart."""
+    out = _force_args(theta, grads, ktn, ksum, inv_ell2, mask, out)
+    if out.numel() == 0:
+        return out
+    n, D = theta.shape
+    with torch.cuda.device(theta.device):
+        rc = entry("svgd_rbf", "svgd_force_columns", _FORCE_COLUMNS_ARGS)(
+            theta.data_ptr(), grads.data_ptr(), ktn.data_ptr(),
+            ksum.data_ptr(), inv_ell2.data_ptr(), _ptr(mask), out.data_ptr(),
+            n, D, _stream(theta.device))
+    raise_on(rc, "svgd_force_columns")
+    svgd_force_columns.launches += 1
+    return out
+
+
 pairwise_sqdist.launches = 0
 svgd_force.launches = 0
+svgd_force_columns.launches = 0
 
 
 def sqdist_cost(theta):

@@ -25,7 +25,13 @@ not 16-byte aligned), holds at every ring depth, and at the training
 shape (8 x 19,775,360) takes the bulk-copy path within 1e-5 of the
 largest distance. Small SteinVGD and MultiSWAG runs
 of the ViT on the card match the same runs on the CPU within 1e-4, with
-one launch of each kernel per step, collection leaf or sampled leaf.
+one launch of each kernel per step, collection or sampled leaf. The
+streamed force equals the column kernel (the probe
+``svgd_force_columns``) bit for bit at n = 1-9, 16 and 256, on odd D, D % 4
+== 0 and an unaligned view, masked, and into ``out=``; the one-launch
+collection (``moments_leaves``) equals the per-leaf kernel and the plain
+version bit for bit in place with dead rows, takes one launch per 64
+leaves past them, and a captured collection replays the eager bits.
 
 The window (speculative verify), prefill and dense-decode kernels are held
 against their plain versions: the window kernel on the
@@ -71,7 +77,7 @@ and "mixed"); "mixed" training keeps fp32 masters and tracks fp32.
 
 The actor runtime: NEL SteinVGD (the leader's dense force: one sqdist
 and one force launch per step) and NEL MultiSWAG (one moments launch
-per leaf per particle per collection, on one-row views) on a narrow ViT
+per particle per collection, on one-row views) on a narrow ViT
 match the compiled path on the card within 1e-4; a handler that sends
 to another particle and waits on it finishes on the one device worker,
 with the card current there. Every run is joined within a time limit.
@@ -94,6 +100,7 @@ flash attention's backward on the card equals ``full_attention``'s
 autograd and the CPU's; a schedule is read with no host sync and a CUDA
 graph of the update replays the eager bits.
 """
+import gc
 import threading
 
 import numpy as np
@@ -410,7 +417,7 @@ def test_moments_kernel_matches_plain(dev, P, shape, dead):
     m = torch.ones(P, device=dev)
     m[list(dead)] = 0.0
     theta[m == 0] = float("nan")
-    ring_k, ring_p = ring.clone(), ring.clone()
+    ring_k, ring_p, ring_l = ring.clone(), ring.clone(), ring.clone()
     before = swag_moments.moments.launches
     got = swag_moments.moments(mean, sq, theta, n, m, ring_k, slot)
     torch.cuda.synchronize()
@@ -422,6 +429,14 @@ def test_moments_kernel_matches_plain(dev, P, shape, dead):
     for p in dead:
         assert torch.equal(got[0][p], mean[p]) and torch.equal(got[1][p], sq[p])
         assert torch.equal(ring_k[p], ring[p])
+    # the one-launch kernel on this one leaf, in place: the same bits
+    ml, sl = mean.clone(), sq.clone()
+    before = swag_moments.moments_leaves.launches
+    swag_moments.moments_leaves([ml], [sl], [theta], n, m, [ring_l], slot)
+    torch.cuda.synchronize()
+    assert swag_moments.moments_leaves.launches == before + 1
+    assert torch.equal(ml, got[0]) and torch.equal(sl, got[1])
+    assert torch.equal(ring_l, ring_k)
 
 
 @pytest.mark.parametrize("P,shape,dead", [(3, (123,), ()), (4, (7, 3), (1,)),
@@ -459,6 +474,129 @@ def test_moments_kernel_in_place(dev, P, shape, dead):
     for out in ({"out_mean": sq}, {"out_sq": mean}, {"out_mean": theta}):
         with pytest.raises(ValueError, match="alias"):
             swag_moments.moments(mean, sq, theta, n, m, **out)
+
+
+STREAM_N = [1, 2, 3, 4, 7, 8, 9, 16, 256]
+
+
+def _force_layout(t, g, layout):
+    """theta and grads as the layout asks: as they are, or copied into
+    views one float past a 16-byte boundary (the scalar path)."""
+    if layout != "unaligned":
+        return t, g
+    views = []
+    for x in (t, g):
+        buf = torch.empty(x.numel() + 1, device=x.device)
+        v = buf[1:].view(x.shape)
+        v.copy_(x)
+        views.append(v)
+    return views
+
+
+@pytest.mark.parametrize("n", STREAM_N)
+@pytest.mark.parametrize("layout,D", [("odd", 3001), ("div4", 4100),
+                                      ("unaligned", 4100)])
+def test_force_stream_kernel_equals_column_kernel(dev, n, D, layout):
+    """The streamed force gives the column kernel's bits, dead rows (NaN in
+    them) exact zeros, into a new tensor and into ``out=``."""
+    if n == 256:                    # keep the n = 256 cases small
+        D = 1001 if layout == "odd" else 1024
+    dead = [0, n - 1] if n > 3 else ([1] if n > 1 else [])
+    t, g, m = _rows(n * 11 + D, n, D, dev, dead=dead)
+    t, g = _force_layout(t, g, layout)
+    glue = bsvgd.rbf_glue(ref.pairwise_sqdist(t, m), 0.0, m)
+    path = svgd_rbf.force_plan_for(t, g, torch.empty_like(t)).path
+    assert path == ("vector" if layout == "div4" else "scalar")
+    before = svgd_rbf.svgd_force.launches
+    got = svgd_rbf.svgd_force(t, g, *glue, m)
+    torch.cuda.synchronize()
+    assert svgd_rbf.svgd_force.launches == before + 1
+    want = svgd_rbf.svgd_force_columns(t, g, *glue, m)
+    assert torch.equal(got, want)
+    out = torch.full_like(got, float("nan"))
+    assert svgd_rbf.svgd_force(t, g, *glue, m, out=out) is out
+    assert torch.equal(out, want)
+    if m is not None:
+        assert (got[m == 0] == 0).all()
+    plain = ref.svgd_force(t, g, *glue, m)
+    assert (got - plain).abs().max().item() < 2e-4 * plain.abs().max().item()
+    with pytest.raises(ValueError, match="out"):
+        svgd_rbf.svgd_force(t, g, *glue, m, out=t)
+
+
+def _leaf_tree(dev, P, shapes, R=4, dead=(1,), seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    means = [rnd(P, *s) for s in shapes]
+    sqs = [x * x + rnd(*x.shape).abs() for x in means]
+    thetas = [rnd(P, *s) for s in shapes]
+    devs = [rnd(P, R, *s) for s in shapes]
+    n = torch.arange(P, dtype=torch.float32, device=dev) + 1
+    slot = (torch.arange(P, device=dev) * 3 % R).to(torch.int32)
+    m = torch.ones(P, device=dev)
+    m[list(dead)] = 0.0
+    for t in thetas:
+        t[m == 0] = float("nan")
+    return means, sqs, thetas, devs, n, slot, m
+
+
+# a UNet-like tree (odd widths, 1-element biases), a ViT-like one, and
+# 150 leaves: more than one launch holds
+LEAF_TREES = {"unet": [(3, 1, 8), (8,), (3, 8, 16), (16,), (5, 7), (1,),
+                       (4096,), (12289,)],
+              "vit": [(64, 256), (256,), (256, 768), (768,), (2048,)],
+              "many": [(37,), (64,), (1,)] * 50}
+
+
+@pytest.mark.parametrize("tree", sorted(LEAF_TREES))
+def test_moments_leaves_kernel_equals_per_leaf_kernel(dev, tree):
+    """One collection over every leaf in place: the per-leaf kernel's and
+    the plain version's bits, dead rows untouched, one launch per 64
+    leaves."""
+    shapes = LEAF_TREES[tree]
+    means, sqs, thetas, devs, n, slot, m = _leaf_tree(dev, 8, shapes)
+    got = [[x.clone() for x in xs] for xs in (means, sqs, devs)]
+    before = swag_moments.moments_leaves.launches
+    out = swag_moments.moments_leaves(got[0], got[1], thetas, n, m, got[2],
+                                      slot)
+    torch.cuda.synchronize()
+    assert swag_moments.moments_leaves.launches - before == \
+        -(-len(shapes) // swag_moments.MAX_LEAVES)
+    assert out[0] is got[0] and out[1] is got[1]
+    for i in range(len(shapes)):
+        rk, rp = devs[i].clone(), devs[i].clone()
+        k = swag_moments.moments(means[i], sqs[i], thetas[i], n, m, rk, slot)
+        p = ref.swag_moments(means[i], sqs[i], thetas[i], n, m, rp, slot)
+        for a, b, c in zip((got[0][i], got[1][i], got[2][i]), k + (rk,),
+                           p + (rp,)):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.equal(got[0][i][1], means[i][1])
+        assert torch.equal(got[2][i][1], devs[i][1])
+
+
+def test_captured_collection_replays_the_eager_bits(dev):
+    """A CUDA graph of the one-launch collection, replayed, gives the eager
+    collection's bits from the same state."""
+    means, sqs, thetas, devs, n, slot, m = _leaf_tree(
+        dev, 8, LEAF_TREES["unet"], seed=3)
+    state = lambda: [[x.clone() for x in xs] for xs in (means, sqs, devs)]
+    eager, graphed, warm = state(), state(), state()
+    swag_moments.moments_leaves(eager[0], eager[1], thetas, n, m, eager[2],
+                                slot)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        swag_moments.moments_leaves(warm[0], warm[1], thetas, n, m, warm[2],
+                                    slot)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        swag_moments.moments_leaves(graphed[0], graphed[1], thetas, n, m,
+                                    graphed[2], slot)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(sum(eager, []), sum(graphed, [])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("D", [1, 123, 8192, 8193, 100000])
@@ -550,13 +688,14 @@ def test_multiswag_on_card_matches_cpu(dev):
     batch = next(iter(images))
     for d, mod in ((dev, mod_gpu), (torch.device("cpu"), mod_cpu)):
         algo = MultiSWAG(mod, backend="compiled", device=d)
-        before = swag_moments.moments.launches
+        before = swag_moments.moments_leaves.launches
         algo.bayes_infer(DataLoader(cfg, batch_size=8, num_batches=2), 3,
                          optimizer=sgd(0.05), num_particles=4,
                          pretrain_epochs=1, max_rank=3)
         n_leaves = len(tree_leaves(algo.p_parameters()[0]))
-        assert swag_moments.moments.launches - before == \
-            (2 * n_leaves if d == dev else 0)
+        # one launch a collection (the tree's leaves are under 64)
+        assert swag_moments.moments_leaves.launches - before == \
+            (2 if d == dev else 0)
         gen = torch.Generator(device=d).manual_seed(5)
         noise_gen = torch.Generator().manual_seed(5)
         swag = algo.store.dense("swag")
@@ -1310,7 +1449,7 @@ def _train_capture_run(dev, name, capturer):
     cache = ProgramCache(capturer=capturer)
     algo.push_dist.runtime.cache = cache
     counters = (svgd_rbf.pairwise_sqdist, svgd_rbf.svgd_force,
-                swag_moments.moments)
+                swag_moments.moments_leaves)
     before = [k.launches for k in counters]
     _, losses = algo.bayes_infer(DataLoader(cfg, batch_size=8,
                                             num_batches=2), 3,
@@ -1379,7 +1518,7 @@ def _nel_and_compiled(dev, cls, **kw):
     launches of sqdist, force and moments over the run."""
     cfg, mods = _vit_modules(dev, 4)
     counters = (svgd_rbf.pairwise_sqdist, svgd_rbf.svgd_force,
-                swag_moments.moments)
+                swag_moments.moments_leaves)
     out = {}
     for backend, mod in zip(("nel", "compiled"), mods):
         algo = cls(mod, backend=backend, device=dev)
@@ -1413,9 +1552,8 @@ def test_nel_multiswag_on_card_matches_compiled(dev):
                                  pretrain_epochs=1, max_rank=3)
     (nel, npids, nl), (comp, cpids, cl) = out["nel"], out["compiled"]
     try:
-        n_leaves = len(tree_leaves(nel.p_parameters()[0]))
-        assert nl == [0, 0, 2 * 4 * n_leaves]    # P = 1 views
-        assert cl == [0, 0, 2 * n_leaves]
+        assert nl == [0, 0, 2 * 4]     # P = 1 views: one a particle
+        assert cl == [0, 0, 2]         # one a collection
         _close(nel.p_parameters(), comp.p_parameters(), 1e-4)
         for a, b in zip(npids, cpids):
             sa = nel.push_dist.particles[a].state["swag"]
@@ -2167,6 +2305,9 @@ def test_device_gauges_on_the_card(dev):
     """obs.device_gauges: one "gpu" entry per device, its bytes those of
     the caching allocator and the device's total."""
     from repro_torch.obs import device
+    # earlier tests' cyclic garbage, collected between the two reads,
+    # would free card memory between them
+    gc.collect()
     x = torch.empty((3, 1 << 20), device=dev)
     gauges = device.device_gauges()
     assert len(gauges) == torch.cuda.device_count()

@@ -153,10 +153,11 @@ def test_moments_match_jax(P, shape, dead):
     m = _mask(P, dead)
     slot = (rank % R).astype(np.int32)
     tdev = torch.from_numpy(dev.copy())
-    got_m, got_s = ops.swag_moments(
-        torch.from_numpy(mean), torch.from_numpy(sq),
-        torch.from_numpy(_with_nan(theta, m)), torch.from_numpy(n),
-        torch.from_numpy(m), tdev, torch.from_numpy(slot))
+    got_m, got_s = torch.from_numpy(mean.copy()), torch.from_numpy(sq.copy())
+    ops.swag_moments_leaves(
+        [got_m], [got_s], [torch.from_numpy(_with_nan(theta, m))],
+        torch.from_numpy(n), torch.from_numpy(m), [tdev],
+        torch.from_numpy(slot))
     for p in range(P):
         if m[p] == 0:       # dead rows: bit for bit, ring untouched
             assert np.array_equal(got_m[p].numpy(), mean[p])
@@ -199,9 +200,12 @@ def test_dispatch_has_no_other_branch():
         (tsvgd_rbf.pairwise_sqdist, ops.pairwise_sqdist, (t,)),
         (tsvgd_rbf.svgd_force, ops.svgd_force,
          (t, t, torch.ones(3, 3), m, torch.ones(1))),
-        (tswag_moments.moments, ops.swag_moments, (t, t, t, m)),
+        (tswag_moments.moments_leaves, ops.swag_moments_leaves,
+         ([t.clone()], [t.clone()], [t], m)),
         (tswag_moments.diag_std, ops.diag_std, (t, t)),
     ]
+    meta = lambda a: ([x.to("meta") for x in a] if isinstance(a, list)
+                      else a.to("meta"))
     for kernel, dispatch, args in cases:
         before = kernel.launches
         with pytest.raises(ValueError, match="CUDA"):
@@ -209,4 +213,4 @@ def test_dispatch_has_no_other_branch():
         assert kernel.launches == before
         assert isinstance(dispatch(*args), (torch.Tensor, tuple))
         with pytest.raises(ValueError, match="device"):
-            dispatch(*(a.to("meta") for a in args))
+            dispatch(*map(meta, args))

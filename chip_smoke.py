@@ -76,7 +76,13 @@ Phase 3  holds the four SVGD and SWAG kernels against their plain versions
          version, each on its own copy of the state, bit for bit; each
          collection timed (event and device ms) against the per-leaf
          loop and the bound (collections; the ViT's is the kernels
-         line's row).
+         line's row). #4 (diag_std_leaves, one launch over every leaf)
+         equals the per-leaf kernel bit for bit on the sweep's leaves and
+         on a view one float past a 16-byte boundary, on the ViT's 18
+         leaves at 8 rows and on them raveled into one (8, 19,775,360)
+         leaf; the 18 leaves' one launch, the per-leaf loop and the
+         raveled leaf timed (event and device ms; the kernels line's
+         row).
 Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
          weights from seed 0, batches of 64 from the seeded loader, 8 per
          epoch): SteinVGD for 2 epochs with the median heuristic, then
@@ -100,8 +106,10 @@ Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
          shapes (its 20-slot ring, slots and mask) through the one-launch
          kernel, the per-leaf kernel and the plain version, each on
          its own copy of the state, within 1e-5 for mean', sq' and the
-         ring and bit-equal to both; the MultiSWAG posterior predictive
-         with 4 draws per particle (one diag_std launch per leaf); and the
+         ring and bit-equal to both; #4 at the handoff's 18 leaves (one
+         launch, bit-equal to the per-leaf kernel, 1e-5 of the plain
+         version); the MultiSWAG posterior predictive with 4 draws per
+         particle (one diag_std launch over every leaf); and the
          predictive heads with kernel-made and plain-made diag_std within
          1e-5 given the same noise. Each run then profiles 3 steps of its
          own step program (and, for MultiSWAG, of its collection) on its
@@ -232,7 +240,8 @@ Phase 9  the particle lifecycle (p_clone / p_kill / bdl.lifecycle) with
          backend="nel" leader step over the 7 (#1 and #2 at n = 7) against
          the captured step from the same params within 1e-4; the
          MultiSWAG predictive over the 7 live rows (store.dense, one
-         diag_std a leaf); then resample (jitter 0.01), prune to 6 and
+         diag_std launch, its leaves first held bit-equal to the per-leaf
+         kernel); then resample (jitter 0.01), prune to 6 and
          grow by 2 with Adam: live counts 7, 6, 8, no capacity growth, no
          generation bump, and a last fused epoch over the 8 captures
          nothing. Each kernel's ``lifecycle_launches`` in the kernels line
@@ -254,11 +263,12 @@ Phase 10 predictive serving: 8 full-width ViT-MNIST particles trained
          within 1e-5 of the same row of one predict_batch over all 256;
          no capture after warmup, every program a graph; one
          host-to-device copy per flush (the request's one leaf); no
-         error, the queue drained; #4 against its plain version at the
-         (8, leaf) stacks and at P = 1, every leaf (1e-5), its launches
-         exact (18 for the handoff, 18 x 8 x 2 for sample_predict over 8
-         images at S = 2, which must equal a loop of plain draws and
-         forwards on the same noise within 1e-5); then serve() over the
+         error, the queue drained; #4 bit-equal to the per-leaf kernel
+         and against its plain version at the (8, leaf) stacks and at
+         P = 1, every leaf (1e-5), its launches exact (1 for the handoff,
+         8 for sample_predict over 8 images at S = 2: one a particle,
+         which must equal a loop of plain draws and forwards on the same
+         noise within 1e-5); then serve() over the
          particles' own params with a p_kill under traffic: the 7 live
          rows' BMA, no capture, generation() unchanged; and F1:
          after a p_create into the killed slot, store.dense("swag")
@@ -267,7 +277,8 @@ Phase 10 predictive serving: 8 full-width ViT-MNIST particles trained
          and device busy ms per flush at buckets 1 and 32 with the idle
          share (profiled windows opened with spins) beside the byte and
          operation bounds, capture seconds and pool bytes per bucket,
-         #4's event and device ms at P = 1 and the peak device memory.
+         #4's event and device ms at P = 1 (one launch and the per-leaf
+         loop) and the peak device memory.
          Each kernel's ``serve_launches`` in the kernels line are phase
          10's driven runs (the training, the handoff, sample_predict).
 
@@ -365,13 +376,14 @@ Phase 12 the paper's SciML workload and its Fig. 4 baselines
          closed loop): buckets 1-32 captured before serve() returns and
          nothing after; served heads within 1e-5 of predict_batch's, the
          mean and variance within 1e-5 of the members' computed on the
-         host; #4 34 launches at the handoff and 34 a draw in
+         host; #4 one launch at the handoff and one a particle in
          sample_predict (8 draws, held to a loop of plain draws within
-         1e-5), and against its plain version at the (8, leaf) stacks and
-         at P = 1; then the store's own params with a p_kill under
-         traffic: the 7 live rows' mean, no capture. It prints requests/s,
-         latency p50 / p95 / p99 and the flush profiles at buckets 1 and
-         32 against their bounds. (c) the Fig. 4 rows: ms per epoch (the
+         1e-5), bit-equal to the per-leaf kernel and against its plain
+         version at the (8, leaf) stacks and at P = 1, each shape timed
+         beside the per-leaf loop; then the store's own params with a
+         p_kill under traffic: the 7 live rows' mean, no capture. It
+         prints requests/s, latency p50 / p95 / p99 and the flush
+         profiles at buckets 1 and 32 against their bounds. (c) the Fig. 4 rows: ms per epoch (the
          last epoch of two, or part (a)'s) and samples/s of ensemble,
          multiswag and svgd under captured, nel and baseline
          (bdl.baselines: sequential NNs, one captured program a NN, the
@@ -508,7 +520,7 @@ Phase 15 particles across GPUs: the store's particle axis on a data mesh
          tokens each time, tokens/s of each; #5-#8 at one particle
          against their plain versions, timed; then (a)'s MultiSWAG
          posterior of 32 members (4 draws a particle, sampled per
-         position: #4 once a leaf a position) through
+         position: #4 once a position) through
          serve(placement=).predict, 64 single-example requests, within
          1e-5 of the one-device posterior from the same generator; the
          store-backed BMA on the mesh with no store traffic per request
@@ -1890,15 +1902,30 @@ TRAIN_D = 19_775_360             # parameters per ViT-MNIST particle
 SQDIST_SWEEP = [(2, 16), (4, 100), (8, 5000), (64, 12345), (3, 7)]
 FORCE_SWEEP = [(4, 100, 1.0), (8, 5000, 1.3), (16, 50000, 0.7), (3, 7, 2.0)]
 OURS = ("sqdist_stream_kernel", "sqdist_sum_kernel", "force_stream_kernel",
-        "moments_leaves_kernel", "diag_std_kernel")
+        "moments_leaves_kernel", "diag_std_leaves_kernel", "diag_std_kernel")
 
 
 def collect_launches(n_leaves):
-    """#3's launches a collection over a tree of ``n_leaves`` leaves: one
-    per swag_moments.MAX_LEAVES of them (one for every tree driven
-    here)."""
+    """#3's launches a collection over a tree of ``n_leaves`` leaves, and
+    #4's a diagonal scale of the tree: one per swag_moments.MAX_LEAVES of
+    them (one for every tree driven here)."""
     from repro_torch.kernels import swag_moments
     return -(-n_leaves // swag_moments.MAX_LEAVES)
+
+
+def counted_launches(fn, call, want, what):
+    """The launches the wrapper ``fn`` counts in one untimed ``call()``,
+    which must be ``want``; ``fn``'s count is left as it was (a probe's
+    launches are not the path's)."""
+    before, fn.launches = fn.launches, 0
+    try:
+        call()
+        got = fn.launches
+    finally:
+        fn.launches = before
+    if got != want:
+        raise AssertionError(f"{what}: {got} launches, not {want}")
+    return got
 
 
 def rows_case(torch, seed, n, D, dead=(), scale=0.05):
@@ -2041,7 +2068,8 @@ def phase3(torch):
     timed at the training shape with the L2 flushed."""
     from repro_torch.bdl.svgd import rbf_glue
     from repro_torch.kernels import ref, svgd_rbf, swag_moments
-    sweep = {"sqdist": 0.0, "force_rel": 0.0, "moments": 0.0, "diag_std": 0.0}
+    sweep = {"sqdist": 0.0, "force_rel": 0.0, "moments": 0.0, "diag_std": 0.0,
+             "diag_std_leaves": 0.0}
     paths, force_paths = {}, {}
     for i, (n, D) in enumerate(SQDIST_SWEEP):
         for dead in ((), (n - 1,)):
@@ -2107,6 +2135,12 @@ def phase3(torch):
         if not err < 1e-5:
             raise AssertionError(f"diag_std {P}x{L}: {err}")
         sweep["diag_std"] = max(sweep["diag_std"], err)
+        # the one-launch kernel over the sweep's leaf and a view one float
+        # past a 16-byte boundary (scalar accesses): the per-leaf bits
+        par = diag_std_parity(torch, [mean, mean.reshape(-1)[1:]],
+                              [sq, sq.reshape(-1)[1:]], f"{P}x{L}")
+        sweep["diag_std_leaves"] = max(sweep["diag_std_leaves"],
+                                       par["max_abs_err"])
 
     # the training shape: 8 particles x 19,775,360 parameters
     P, D = TRAIN_P, TRAIN_D
@@ -2185,22 +2219,38 @@ def phase3(torch):
                                         "bound_ms", "bound_by")},
                  "library_ms": None,
                  "vit_collection": vit, "unet_collection": unet})
-    mean, sq = theta, theta * theta + grads.abs() * 1e-3
-    del grads
-    std_k = swag_moments.diag_std(mean, sq)
-    errs["diag_std"] = float((std_k - ref.diag_std(mean, sq)).abs().max())
-    if not errs["diag_std"] < 1e-5:
-        raise AssertionError(f"diag_std at the training shape: {errs}")
-    del std_k
-    b_ms, b_by = bound(3 * mb, 4 * P * D)
+    del theta, grads
+    torch.cuda.empty_cache()
+    # #4: the scale of the ViT's 18 leaves at 8 rows in one launch (the
+    # kernels line's row), against the per-leaf kernel's loop, and the
+    # per-leaf kernel once over the leaves raveled into one (8, D) leaf
+    # (the shape the table carried before)
+    shapes = leaf_shapes(torch, vit_module()[0])
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    means = [torch.randn((P,) + s, generator=gen, device="cuda") * 0.05
+             for s in shapes]
+    sqs = [m * m + torch.rand(m.shape, generator=gen, device="cuda") * 1e-3
+           for m in means]
+    diag = diag_std_parity(torch, means, sqs, "the ViT's 18 leaves x 8")
+    errs["diag_std"] = diag["max_abs_err"]
+    diag.update(diag_std_timed(torch, means, sqs))
+    mean = torch.cat([m.reshape(P, -1) for m in means], 1)
+    sq = torch.cat([s.reshape(P, -1) for s in sqs], 1)
+    del means, sqs
+    diag["raveled"] = diag_std_parity(torch, [mean], [sq],
+                                      f"the raveled {P} x {D}")
+    raveled = lambda: swag_moments.diag_std(mean, sq)
+    diag["raveled_ms"] = time_ms(torch, raveled)
+    diag["raveled_device_ms"] = device_ms(torch, raveled)
     rows.append({"name": "swag_diag_std", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/swag_moments.cu",
                  "replaces": "src/repro/kernels/swag_moments.py:73",
-                 "max_abs_err": errs["diag_std"],
-                 "ms": time_ms(torch, lambda: swag_moments.diag_std(mean, sq)),
-                 "plain_ms": time_ms(torch, lambda: ref.diag_std(mean, sq)),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    del theta, mean, sq
+                 "kernel": "diag_std_leaves_kernel",
+                 "wrapper": "repro_torch.kernels.swag_moments.diag_std_leaves",
+                 **{k: diag[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+                 "library_ms": None, "vit_leaves": diag})
+    del mean, sq
     torch.cuda.empty_cache()
     emit({"phase": 3, "sweep_max_err": sweep, "train_shape": [P, D],
           "train_shape_err": errs, "sqdist_paths": paths,
@@ -2211,7 +2261,8 @@ def phase3(torch):
                     for r in rows},
           "force_vs_columns": rows[1]["vs_columns"],
           "collections": {"vit": rows[2]["vit_collection"],
-                          "unet": rows[2]["unet_collection"]}})
+                          "unet": rows[2]["unet_collection"]},
+          "diag_std_leaves": rows[3]["vit_leaves"]})
     return rows
 
 
@@ -2334,9 +2385,14 @@ def collection_probe(torch, shapes, P=TRAIN_P, R=2, seed=0, raveled=False):
 
     elems = P * sum(int(np.prod(x)) for x in shapes)
     b_ms, b_by = bound(6 * 4 * elems, 7 * elems)
+    what = f"collection over {len(shapes)} leaves"
     out = {"leaves": len(shapes), "rows": P, "elements": elems,
-           "launches": collect_launches(len(shapes)),
-           "per_leaf_launches": len(shapes), "max_abs_err": err,
+           "launches": counted_launches(
+               swag_moments.moments_leaves, run_one,
+               collect_launches(len(shapes)), what),
+           "per_leaf_launches": counted_launches(
+               swag_moments.moments, run_per_leaf, len(shapes), what),
+           "max_abs_err": err,
            "bit_equal": same, "dead_row_kept": dead_kept,
            "ms": time_ms(torch, run_one),
            "per_leaf_ms": time_ms(torch, run_per_leaf),
@@ -2362,13 +2418,64 @@ def collection_probe(torch, shapes, P=TRAIN_P, R=2, seed=0, raveled=False):
     return out
 
 
+def diag_std_parity(torch, means, sqs, what):
+    """#4 at a path's leaves (each a contiguous (rows, ...) mean and sq):
+    the one-launch kernel against the per-leaf kernel, bit for bit, and
+    against the plain version, within 1e-5; raises otherwise. These
+    launches are not the path's."""
+    from repro_torch.kernels import ref, swag_moments
+    means = [m.contiguous() for m in means]
+    sqs = [s.contiguous() for s in sqs]
+    got = swag_moments.diag_std_leaves(means, sqs)
+    per_leaf = [swag_moments.diag_std(m, s) for m, s in zip(means, sqs)]
+    plain = ref.diag_std_leaves(means, sqs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, per_leaf))
+    err = max(float((a - b).abs().max()) if a.numel() else 0.0
+              for a, b in zip(got, plain))
+    if not (same and err <= 1e-5):
+        raise AssertionError(f"diag_std_leaves at {what}: bit-equal to the "
+                             f"per-leaf kernel {same}, err {err}")
+    return {"leaves": len(means), "rows": int(means[0].shape[0]),
+            "bit_equal_per_leaf": same, "max_abs_err": err}
+
+
+def diag_std_timed(torch, means, sqs, iters=30, device=True):
+    """#4 over a path's leaves timed in one call: the one launch and the
+    per-leaf kernel's loop, event ms (L2 flushed before each call) and,
+    with ``device``, device ms; the plain version; the bound (mean and sq
+    read, the scale written; 4 FLOPs an entry)."""
+    from repro_torch.kernels import ref, swag_moments
+    one = lambda: swag_moments.diag_std_leaves(means, sqs)
+    loop = lambda: [swag_moments.diag_std(m, s) for m, s in zip(means, sqs)]
+    elems = sum(m.numel() for m in means)
+    b_ms, b_by = bound(3 * 4 * elems, 4 * elems)
+    what = f"diag_std over {len(means)} leaves"
+    out = {"leaves": len(means), "rows": int(means[0].shape[0]),
+           "elements": elems,
+           "launches": counted_launches(swag_moments.diag_std_leaves, one,
+                                        collect_launches(len(means)), what),
+           "per_leaf_launches": counted_launches(swag_moments.diag_std, loop,
+                                                 len(means), what),
+           "ms": time_ms(torch, one, iters=iters),
+           "per_leaf_ms": time_ms(torch, loop, iters=iters),
+           "plain_ms": time_ms(torch, lambda: ref.diag_std_leaves(means, sqs),
+                               iters=iters),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if device:
+        out["device_ms"] = device_ms(torch, one)
+        out["per_leaf_device_ms"] = device_ms(torch, loop)
+    out["share_of_bound"] = b_ms / out["ms"]
+    return out
+
+
 def reset_counts():
     from repro_torch.kernels import svgd_rbf, swag_moments
     fns = {**attention_counts(),
            "pairwise_sqdist": svgd_rbf.pairwise_sqdist,
            "svgd_force": svgd_rbf.svgd_force,
            "swag_moments": swag_moments.moments_leaves,
-           "swag_diag_std": swag_moments.diag_std}
+           "swag_diag_std": swag_moments.diag_std_leaves}
     for fn in fns.values():
         fn.launches = 0
     return fns
@@ -2613,12 +2720,14 @@ def phase4(torch):
 
 def swag_checks(torch, algo, images, n_leaves, launches):
     """On the trained MultiSWAG state: one more collection at the path's
-    per-leaf shapes, kernel vs plain; the posterior predictive with 4
-    draws per particle (its diag_std launches counted into
-    ``launches["predictive"]``); the same noise through the kernel-made
-    and the plain diag_std."""
-    from repro_torch.bdl.swag import _sample, swag_sample_stacked
-    from repro_torch.core.tree import tree_map
+    per-leaf shapes, kernel vs plain; #4 at the handoff's leaves (the
+    one launch against the per-leaf kernel and the plain version); the
+    posterior predictive with 4 draws per particle (its one diag_std
+    launch counted into ``launches["predictive"]``); the same noise
+    through the kernel-made and the plain diag_std."""
+    from repro_torch.bdl.swag import (_sample, diag_scales,
+                                      swag_sample_stacked)
+    from repro_torch.core.tree import tree_flatten, tree_map
     from repro_torch.kernels import ref
     from repro_torch.serve import serve
     P = TRAIN_P
@@ -2627,21 +2736,24 @@ def swag_checks(torch, algo, images, n_leaves, launches):
                             store.stacked("params"), mask)
     if not parity["max_abs_err"] <= 1e-5:
         raise AssertionError(f"SWAG collection kernel vs plain: {parity}")
+    dense = store.dense("swag")
+    diag = diag_std_parity(torch, *(
+        tree_flatten(dense[k], sort_keys=True)[0]
+        for k in ("mean", "sq_mean")), "the ViT handoff")
     fns = reset_counts()
     svc = algo.posterior_predictive(samples_per_particle=4)
     heads = svc.predict_batch(images)
     torch.cuda.synchronize()
     got = read_counts(fns)
-    if got["swag_diag_std"] != n_leaves:
-        raise AssertionError(f"predictive launches {got}, want {n_leaves} "
-                             f"diag_std")
+    if got["swag_diag_std"] != collect_launches(n_leaves):
+        raise AssertionError(f"predictive launches {got}, want "
+                             f"{collect_launches(n_leaves)} diag_std")
     for k, v in heads.items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"non-finite head {k}")
     if float((heads["mean"].sum(-1) - 1).abs().max()) > 1e-4:
         raise AssertionError("BMA mean probabilities do not sum to 1")
     launches["predictive"] = got
-    dense = store.dense("swag")
     gen = torch.Generator(device="cuda").manual_seed(3)
     noise = (tree_map(lambda m: torch.randn((P, 4) + tuple(m.shape[1:]),
                                             generator=gen, device="cuda"),
@@ -2650,7 +2762,8 @@ def swag_checks(torch, algo, images, n_leaves, launches):
     pred = {}
     for plain in (False, True):
         with torch.no_grad():
-            sampled = (_sample(dense, *noise, 1.0, diag_std=ref.diag_std)
+            sampled = (_sample(dense, *noise, 1.0,
+                               stds=diag_scales(dense, ref.diag_std_leaves))
                        if plain else swag_sample_stacked(dense, 4,
                                                          noise=noise))
         pred[plain] = serve(algo, params=sampled).predict_batch(images)
@@ -2662,6 +2775,7 @@ def swag_checks(torch, algo, images, n_leaves, launches):
     del svc, dense, pred, noise
     torch.cuda.empty_cache()
     return {"moments_kernel_vs_plain": parity,
+            "diag_std_kernel_vs_per_leaf": diag,
             "predictive": {"samples_per_particle": 4, "members": P * 4,
                            "images": TRAIN_B,
                            "entropy_mean": float(heads["entropy"].mean()),
@@ -3429,7 +3543,7 @@ def lc_training(torch):
     within capacity. Returns (summary, launches)."""
     from repro_torch.bdl import MultiSWAG, SteinVGD, lifecycle
     from repro_torch.core.functional import flatten_rows, flatten_stacked
-    from repro_torch.core.tree import tree_map
+    from repro_torch.core.tree import tree_flatten, tree_map
     from repro_torch.data import DataLoader, mnist_like
     from repro_torch.kernels import ref, swag_moments
     from repro_torch.optim import adam
@@ -3549,18 +3663,22 @@ def lc_training(torch):
     mk, sk = m0.clone(), s0.clone()         # #3 as the path runs it
     swag_moments.moments_leaves([mk], [sk], [theta], st["n"], mask)
     mp, sp = ref.swag_moments(m0, s0, theta, st["n"], mask)
-    live = mask > 0
-    dk = swag_moments.diag_std(mk[live].contiguous(), sk[live].contiguous())
-    dp = ref.diag_std(mp[live].contiguous(), sp[live].contiguous())
+    dense = pd.store.dense("swag")
     row["kernels"] = {
         "moments_max_abs": max(float((mk - mp).abs().max()),
                                float((sk - sp).abs().max())),
         "moments_dead_row_kept": bool(torch.equal(mk[5], m0[5])
                                       and torch.equal(sk[5], s0[5])),
-        "diag_std_max_abs": float((dk - dp).abs().max())}
-    del m0, s0, theta, mk, sk, mp, sp, dk, dp, st
-    # the predictive over the live rows (store.dense): diag_std per leaf
+        # #4 at the handoff's leaves over the 7 live rows
+        "diag_std": diag_std_parity(torch, *(
+            tree_flatten(dense[k], sort_keys=True)[0]
+            for k in ("mean", "sq_mean")), "phase 9's 7 live rows")}
+    del m0, s0, theta, mk, sk, mp, sp, st, dense
+    # the predictive over the live rows (store.dense): one diag_std launch
+    before = total.get("swag_diag_std", 0)
     svc = driven(swag.posterior_predictive, samples_per_particle=1)
+    row["predictive_diag_std_launches"] = \
+        total.get("swag_diag_std", 0) - before
     heads = svc.predict_batch(images)
     row["predictive_finite"] = bool(all(
         torch.isfinite(v).all() for v in heads.values()))
@@ -3589,8 +3707,10 @@ def lc_training(torch):
     ok = (row["captures_after_churn"] == 0 and row["dead_slot_bit_for_bit"]
           and np.isfinite(losses).all() and np.isfinite(losses2).all()
           and k["moments_max_abs"] < 1e-5 and k["moments_dead_row_kept"]
-          and k["diag_std_max_abs"] < 1e-5 and row["predictive_finite"]
+          and k["diag_std"]["max_abs_err"] < 1e-5
+          and row["predictive_finite"]
           and row["predictive_members"] == 7
+          and row["predictive_diag_std_launches"] == 1
           and live_counts == [7, 6, 8] and pd.store.capacity == cap
           and row["generation_unchanged"]
           and row["captures_after_policies"] == 0)
@@ -3722,46 +3842,40 @@ def flush_profile(torch, svc, reqs, B, members):
             / FP32_FLOPS_PER_S * 1e3}
 
 
-def diag_std_serving_shapes(torch, swag, D=TRAIN_D):
-    """#4 against its plain version at the serving path's two shapes: the
-    (8, leaf) dense stacks ``posterior_predictive`` reads and the
-    one-particle rows of ``sample_predict``'s draws, every leaf; then
-    timed at P = 1 over all the leaves (one call each, L2 flushed before
-    the set) beside the bound (mean and sq read, the scale written) of a
-    particle's D parameters."""
+def diag_std_serving_shapes(torch, swag, D=TRAIN_D, device=True):
+    """#4 at the serving path's two shapes, every leaf: the (8, leaf) dense
+    stacks ``posterior_predictive`` reads and the one-particle rows of
+    ``sample_predict``, the one launch bit-equal to the per-leaf kernel
+    and within 1e-5 of the plain version; then timed at P = 1 (one
+    particle's D parameters), the one launch beside the per-leaf loop
+    (``diag_std_timed``; device ms with ``device``)."""
     from repro_torch.core.tree import tree_flatten
-    from repro_torch.kernels import ref, swag_moments
     means = tree_flatten(swag["mean"], sort_keys=True)[0]
     sqs = tree_flatten(swag["sq_mean"], sort_keys=True)[0]
-    err = {}
+    parity = {}
     for P in (len(means[0]), 1):
-        pairs = [(m[:P].contiguous(), s[:P].contiguous())
-                 for m, s in zip(means, sqs)]
-        err[f"P={P}"] = max(
-            float((swag_moments.diag_std(m, s) - ref.diag_std(m, s))
-                  .abs().max()) for m, s in pairs)
-    one = [(m[:1].contiguous(), s[:1].contiguous())
-           for m, s in zip(means, sqs)]
-    ms, by = bound(3 * D * 4, 2 * D)
-    out = {"max_abs_err": err, "leaves": len(means),
-           "p1_ms": time_ms(torch, lambda: [swag_moments.diag_std(m, s)
-                                            for m, s in one]),
-           "p1_plain_ms": time_ms(torch, lambda: [ref.diag_std(m, s)
-                                                  for m, s in one]),
-           "p1_device_ms": device_ms(torch, lambda: [
-               swag_moments.diag_std(m, s) for m, s in one]),
-           "p1_bound_ms": ms, "p1_bound_by": by}
-    if not all(e <= 1e-5 for e in err.values()):
-        raise AssertionError(f"diag_std kernel vs plain: {err}")
-    return out
+        parity[f"P={P}"] = diag_std_parity(
+            torch, [m[:P] for m in means], [s[:P] for s in sqs],
+            f"the serving path's P = {P}")
+    one = ([m[:1].contiguous() for m in means],
+           [s[:1].contiguous() for s in sqs])
+    p1 = diag_std_timed(torch, *one, device=device)
+    if p1["elements"] != D:
+        raise AssertionError(f"a particle holds {p1['elements']} "
+                             f"parameters, not {D}")
+    return {"max_abs_err": {k: v["max_abs_err"] for k, v in parity.items()},
+            "bit_equal_per_leaf": all(v["bit_equal_per_leaf"]
+                                      for v in parity.values()),
+            "leaves": len(means), "p1": p1}
 
 
 def sample_predict_check(torch, algo, images, S=2):
     """``MultiSWAG.sample_predict`` over ``images`` (8), S draws a
-    particle from noise drawn here, against a loop of plain draws (the
-    plain diag_std, past the kernel's dispatch) and forwards on the same
-    noise. Returns the largest difference and the driven launches."""
-    from repro_torch.bdl.swag import _sample
+    particle from noise drawn here (one diag_std launch a particle),
+    against a loop of plain draws (the plain diag_std at every draw, past
+    the kernel's dispatch) and forwards on the same noise. Returns the
+    largest difference and the driven launches."""
+    from repro_torch.bdl.swag import _sample, diag_scales
     from repro_torch.core.tree import to_device, tree_leaves, tree_map
     from repro_torch.kernels import ref
     pd = algo.push_dist
@@ -3788,7 +3902,8 @@ def sample_predict_check(torch, algo, images, S=2):
                 z1, z2 = next(draws)
                 theta = tree_map(lambda x: x[0], _sample(
                     one, tree_map(lambda z: z[None, None], z1),
-                    z2[None, None], 1.0, diag_std=ref.diag_std))
+                    z2[None, None], 1.0,
+                    stds=diag_scales(one, ref.diag_std_leaves)))
                 out = algo.module._forward(theta, batch)
                 total = out if total is None else total + out
     want = total / (len(pd.particle_ids()) * S)
@@ -3846,9 +3961,10 @@ def phase10(torch):
     images = data["images"]
     reqs = [{"images": im} for im in images]
 
-    # (a) posterior_predictive(S=4): sampling (one diag_std a leaf over the
-    # dense (8, ·) stack), warmup captures buckets 1-32 on this thread from
-    # one request; then the concurrent and the closed-loop traffic
+    # (a) posterior_predictive(S=4): sampling (one diag_std launch over the
+    # dense (8, ·) stacks of every leaf), warmup captures buckets 1-32 on
+    # this thread from one request; then the concurrent and the
+    # closed-loop traffic
     fns = reset_counts()
     t0 = time.perf_counter()
     svc = algo.posterior_predictive(samples_per_particle=S,
@@ -3858,7 +3974,8 @@ def phase10(torch):
     torch.cuda.synchronize()
     got = read_counts(fns)
     add_counts(launches, got)
-    if got["swag_diag_std"] != n_leaves or got["swag_moments"]:
+    if got["swag_diag_std"] != collect_launches(n_leaves) \
+            or got["swag_moments"]:
         raise AssertionError(f"predictive launches {got}")
     row = {"handoff_s": time.perf_counter() - t0, "launches": got,
            "static_tree_gb": members * TRAIN_D * 4 / 1e9}
@@ -3916,7 +4033,8 @@ def phase10(torch):
     err, got, shape = sample_predict_check(
         torch, algo, {"images": images[:8]})
     add_counts(launches, got)
-    if got["swag_diag_std"] != n_leaves * P * 2 or got["swag_moments"]:
+    if got["swag_diag_std"] != P * collect_launches(n_leaves) \
+            or got["swag_moments"]:
         raise AssertionError(f"sample_predict launches {got}")
     if not err <= 1e-5:
         raise AssertionError(f"sample_predict vs plain loop: {err}")
@@ -4866,7 +4984,8 @@ def phase11_predictive(torch, fp32, card):
                                    max_batch=SERVE_MAX_BATCH,
                                    warmup=False) as svc:
         want = svc.predict_batch({"images": images})
-    out["diag_std"] = diag_std_serving_shapes(torch, algo.store.dense("swag"))
+    out["diag_std"] = diag_std_serving_shapes(torch, algo.store.dense("swag"),
+                                              device=False)
     for policy, tol, wbytes in (("mixed", 0.03, 2), ("mixed_int8", 0.06, 1)):
         fns = reset_counts()
         svc = algo.posterior_predictive(
@@ -4874,7 +4993,7 @@ def phase11_predictive(torch, fp32, card):
             max_wait_ms=SERVE_WAIT_MS, warmup=reqs[0], precision=policy)
         got = read_counts(fns)
         add_counts(total, got)
-        if got["swag_diag_std"] != n_leaves:
+        if got["swag_diag_std"] != collect_launches(n_leaves):
             raise AssertionError(f"{policy} handoff launches {got}")
         try:
             cache = svc.engine.cache
@@ -5459,7 +5578,9 @@ def sci_moments_timed(torch, state, params, mask):
     live = int((mask > 0).sum())
     ms, by = bound(6 * 4 * live * SCI_D, 7 * live * SCI_D)
     out = {"leaves": len(means),
-           "launches_per_collection": collect_launches(len(means)),
+           "launches_per_collection": counted_launches(
+               swag_moments.moments_leaves, one,
+               collect_launches(len(means)), "the UNet's collection"),
            "ms": time_ms(torch, one),
            "per_leaf_ms": time_ms(torch, per_leaf),
            "plain_ms": time_ms(torch, lambda: ref.swag_moments_leaves(
@@ -5543,24 +5664,18 @@ def sci_flush_profile(torch, svc, reqs, B, members, fwd_flops):
 
 
 def sci_diag_std_stack(torch, swag):
-    """#4 over the (8, leaf) stacks of all 34 leaves (the handoff's
-    launches), kernel and plain, event ms with the L2 flushed, beside the
-    bound (mean and sq read, the scale written)."""
+    """#4 over the (8, leaf) stacks of all 34 leaves (the handoff's one
+    launch): bit-equal to the per-leaf kernel, then timed beside the
+    per-leaf loop (``diag_std_timed``)."""
     from repro_torch.core.tree import tree_flatten
-    from repro_torch.kernels import ref, swag_moments
-    pairs = [(m.contiguous(), s.contiguous()) for m, s in zip(
-        tree_flatten(swag["mean"], sort_keys=True)[0],
-        tree_flatten(swag["sq_mean"], sort_keys=True)[0])]
-    P = pairs[0][0].shape[0]
-    ms, by = bound(3 * 4 * P * SCI_D, 2 * P * SCI_D)
-    return {"particles": P, "leaves": len(pairs),
-            "ms": time_ms(torch, lambda: [swag_moments.diag_std(m, s)
-                                          for m, s in pairs]),
-            "plain_ms": time_ms(torch, lambda: [ref.diag_std(m, s)
-                                                for m, s in pairs]),
-            "device_ms": device_ms(torch, lambda: [
-                swag_moments.diag_std(m, s) for m, s in pairs]),
-            "bound_ms": ms, "bound_by": by}
+    means, sqs = ([x.contiguous() for x in tree_flatten(
+        swag[k], sort_keys=True)[0]] for k in ("mean", "sq_mean"))
+    out = {"particles": int(means[0].shape[0]),
+           **diag_std_parity(torch, means, sqs, "the UNet's (8, ·) stacks"),
+           **diag_std_timed(torch, means, sqs)}
+    if out["elements"] != out["particles"] * SCI_D:
+        raise AssertionError(f"UNet stacks of {out['elements']} entries")
+    return out
 
 
 def sci_serving(torch, algo, card):
@@ -5593,7 +5708,8 @@ def sci_serving(torch, algo, card):
     torch.cuda.synchronize()
     got = read_counts(fns)
     add_counts(launches, got)
-    if got["swag_diag_std"] != SCI_LEAVES or got["swag_moments"]:
+    if got["swag_diag_std"] != collect_launches(SCI_LEAVES) \
+            or got["swag_moments"]:
         raise AssertionError(f"regress handoff launches {got}")
     row = {"handoff_s": time.perf_counter() - t0, "launches": got}
     try:
@@ -5644,8 +5760,8 @@ def sci_serving(torch, algo, card):
     out["predictive"] = row
 
     # #4 at the UNet's 34 leaves (P = 1 rows, and the (8, leaf) stacks the
-    # handoff reads, timed over all the leaves), then sample_predict: 34
-    # launches a draw
+    # handoff reads, timed over all the leaves), then sample_predict: one
+    # launch a particle, whatever its draws
     swag = algo.store.dense("swag")
     out["diag_std"] = diag_std_serving_shapes(torch, swag, D=SCI_D)
     out["diag_std_stack"] = sci_diag_std_stack(torch, swag)
@@ -5653,8 +5769,8 @@ def sci_serving(torch, algo, card):
     err, got, shape = sample_predict_check(torch, algo, {"u0": data[:8]},
                                            S=1)
     add_counts(launches, got)
-    if got["swag_diag_std"] != SCI_LEAVES * P or got["swag_moments"] \
-            or not err <= 1e-5:
+    if got["swag_diag_std"] != P * collect_launches(SCI_LEAVES) \
+            or got["swag_moments"] or not err <= 1e-5:
         raise AssertionError(f"sample_predict: {got}, {err}")
     out["sample_predict"] = {"draws": P, "launches": got,
                              "max_abs_err": err, "shape": shape}
@@ -7235,12 +7351,14 @@ def p15_shard_kernels(torch, store):
     """#3 and #4 at a position's shapes, on (a)'s trained mesh MultiSWAG
     state: one more collection over each position's rows and its slice of
     the mask (``moments_parity``: kernel against plain, each on its own
-    clone of the ring) and ``diag_std`` of each position's (rows, leaf)
-    mean and sq, both within 1e-5 of the plain versions; position 0's
+    clone of the ring) and ``diag_std_leaves`` of each position's (rows,
+    leaf) means and sqs (``diag_std_parity``: bit-equal to the per-leaf
+    kernel), both within 1e-5 of the plain versions; position 0's
     collection (one launch, on a copy of its moments and ring; the
-    per-leaf kernel's loop beside it) and its scales timed (L2 flushed, every
-    leaf's launch in one call) beside the plain versions and the bound.
-    Nothing is written back; these launches are not the path's."""
+    per-leaf kernel's loop beside it) and its scales (the one launch
+    beside the per-leaf loop) timed (L2 flushed) beside the plain
+    versions and the bound. Nothing is written back; these launches are
+    not the path's."""
     from repro_torch.core.tree import tree_flatten
     from repro_torch.kernels import ref, swag_moments
     params, swag = store.stacked("params"), store.stacked("swag")
@@ -7254,9 +7372,8 @@ def p15_shard_kernels(torch, store):
             torch, swag.shards[i], params.shards[i], m_i)["max_abs_err"])
         means, sqs = (tree_flatten(swag.shards[i][k], sort_keys=True)[0]
                       for k in ("mean", "sq_mean"))
-        out["diag_std_max_abs_err"].append(max(
-            float((swag_moments.diag_std(m, q) - ref.diag_std(m, q)).abs()
-                  .max()) for m, q in zip(means, sqs)))
+        out["diag_std_max_abs_err"].append(diag_std_parity(
+            torch, means, sqs, f"position {i}")["max_abs_err"])
     if not (max(out["moments_max_abs_err"]) <= 1e-5
             and max(out["diag_std_max_abs_err"]) < 1e-5):
         raise AssertionError(f"#3 / #4 at a position's shapes: {out}")
@@ -7282,23 +7399,17 @@ def p15_shard_kernels(torch, store):
     costs = [swag_moments.moments_cost(m, r) for m, r in zip(means, rings)]
     b_ms, b_by = bound(sum(c[1] for c in costs), sum(c[0] for c in costs))
     out["moments_position0"] = {
-        "launches": collect_launches(len(means)),
+        "launches": counted_launches(swag_moments.moments_leaves, kernel,
+                                     collect_launches(len(means)),
+                                     "position 0's collection"),
         "ms": time_ms(torch, kernel, iters=10),
         "per_leaf_ms": time_ms(torch, per_leaf, iters=10),
         "plain_ms": time_ms(torch, lambda: ref.swag_moments_leaves(
             ms, qs, thetas, n, m0, rings, slot), iters=10),
         "bound_ms": b_ms, "bound_by": b_by}
-    costs = [swag_moments.diag_std_cost(m) for m in means]
-    b_ms, b_by = bound(sum(c[1] for c in costs), sum(c[0] for c in costs))
-    out["diag_std_position0"] = {
-        "launches": len(means),
-        "ms": time_ms(torch, lambda: [swag_moments.diag_std(m, q)
-                                      for m, q in zip(means, sqs)],
-                      iters=10),
-        "plain_ms": time_ms(torch, lambda: [ref.diag_std(m, q)
-                                            for m, q in zip(means, sqs)],
-                            iters=10),
-        "bound_ms": b_ms, "bound_by": b_by}
+    out["diag_std_position0"] = diag_std_timed(
+        torch, [m.contiguous() for m in means],
+        [q.contiguous() for q in sqs], iters=10, device=False)
     del rings, ms, qs
     torch.cuda.empty_cache()
     return out
@@ -7500,8 +7611,9 @@ def p15_serving(torch, cfg, reqs, plain, keep, card, real=False):
               for k in heads["one"])
     n_leaves = len(tree_leaves(algo.p_parameters()[0]))
     if (not bma < 1e-5 or info["mesh"]["members"] != TRAIN_P * SERVE_S
-            or info["mesh"]["diag_std_launches"] != n * n_leaves
-            or info["one"]["diag_std_launches"] != n_leaves):
+            or info["mesh"]["diag_std_launches"]
+            != n * collect_launches(n_leaves)
+            or info["one"]["diag_std_launches"] != collect_launches(n_leaves)):
         raise AssertionError(f"sharded posterior vs one device: {bma} "
                              f"{info}")
     got["swag_diag_std"] = info["mesh"]["diag_std_launches"]
@@ -8229,7 +8341,7 @@ def p16_training(torch, card):
             launches["swag_diag_std"] = launches.get("swag_diag_std",
                                                      0) + diag
             if not post["max_abs_vs_one_device"] < P16_PROB or \
-                    diag != n_leaves * n_data * m:
+                    diag != collect_launches(n_leaves) * n_data * m:
                 bad.append(f"MultiSWAG posterior {post}")
         if name == "ensemble":
             # the fused step alone (a SteinVGD run captures its force
@@ -8256,11 +8368,22 @@ def p16_posterior(torch, algo, pl):
     """The MultiSWAG posterior of SERVE_S draws a particle (32 members)
     sampled per model shard on the 2 x 2 store, and on one device from
     the same state and noise: the BMA heads of one batch of 8 images.
-    Returns (the row, #4's launches on 2 x 2)."""
+    First #4 at each model shard's leaves (``diag_std_parity``: bit-equal
+    to the per-leaf kernel). Returns (the row, #4's launches on 2 x
+    2)."""
     from repro_torch.core.store import Placement
+    from repro_torch.core.tree import Group, tree_flatten
     from repro_torch.data import mnist_like
     images = {"images": mnist_like(np.random.default_rng(1), 8,
                                    10)["images"]}
+    errs = []
+    for i, shard in enumerate(algo.store.stacked("swag").shards):
+        for j, part in enumerate(shard if isinstance(shard, Group)
+                                 else [shard]):
+            errs.append(diag_std_parity(torch, *(
+                tree_flatten(part[k], sort_keys=True)[0]
+                for k in ("mean", "sq_mean")),
+                f"data {i}, model {j}")["max_abs_err"])
     diag = reset_counts()["swag_diag_std"]
     heads, launches = {}, {}
     for where, place in (("one", Placement()), ("two", pl)):
@@ -8276,7 +8399,8 @@ def p16_posterior(torch, algo, pl):
               for k in heads["one"])
     torch.cuda.empty_cache()
     return {"members": members, "max_abs_vs_one_device": err,
-            "diag_std_launches": launches}, launches["two"]
+            "diag_std_launches": launches,
+            "diag_std_shards_max_abs_err": errs}, launches["two"]
 
 
 def p16_epoch_profile(torch, module, algo, name):

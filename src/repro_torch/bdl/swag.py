@@ -19,9 +19,12 @@ moment collection and the serve-time diagonal scale run through the
 hand-written kernels (``kernels.ops``: CUDA on the card, the plain
 versions on the CPU): the collection is one launch over every parameter
 leaf (one per ``kernels.swag_moments.MAX_LEAVES`` leaves; under bf16
-masters too, on fp32 copies of the params), the diagonal scale one launch
-per leaf. The collection writes the deviation ring in place: it is
-``max_rank`` times the parameters, too large to copy per collection.
+masters too, on fp32 copies of the params), and so is the diagonal scale,
+computed once per particle whatever the number of draws (once per
+stacked state in ``_sample``, once per live particle in
+``sample_predict``). The collection writes the deviation ring in place:
+it is ``max_rank`` times the parameters, too large to copy per
+collection.
 
 Under ``backend="nel"`` every particle steps on its own timeline and,
 once per epoch after the pretraining, handles ``SWAG_COLLECT``: the same
@@ -90,17 +93,31 @@ def swag_collect(state, params, mask=None):
     return state
 
 
-def _sample(stacked_state, z1, z2, scale: float, diag_std=_kops.diag_std):
+def diag_scales(stacked_state, diag_std_leaves=_kops.diag_std_leaves):
+    """The diagonal scale ``sqrt(max(sq_mean - mean^2, 1e-30))`` of every
+    leaf of a stacked SWAG state, in sorted key-path order: one
+    ``diag_std_leaves`` call (the kernel's dispatch; parity checks pass
+    its plain version)."""
+    means = tree_flatten(stacked_state["mean"], sort_keys=True)[0]
+    sqs = tree_flatten(stacked_state["sq_mean"], sort_keys=True)[0]
+    return diag_std_leaves([m.contiguous() for m in means],
+                           [s.contiguous() for s in sqs])
+
+
+def _sample(stacked_state, z1, z2, scale: float, stds=None):
     """S draws from each of P particles' Gaussians. z1: tree like the mean
     with leaves (P, S, ...); z2: (P, S, max_rank). Returns stacked params
     with leading P*S (sample j of particle i at row i*S + j). Each
     particle's state is read once, never repeated per sample; the
-    diagonal scale is computed once per particle row (``diag_std``, the
-    kernel's dispatch; parity checks pass its plain version)."""
+    diagonal scale of every leaf is computed once, in one
+    ``diag_scales`` call, or given as ``stds`` (``diag_scales`` of this
+    state; parity checks pass its plain version's)."""
     # leaves matched by key path (sorted keys), whatever the dict order
     means, unflatten = tree_flatten(stacked_state["mean"], sort_keys=True)
-    sqs, devs, zs = (tree_flatten(t, sort_keys=True)[0] for t in
-                     (stacked_state["sq_mean"], stacked_state["dev"], z1))
+    devs, zs = (tree_flatten(t, sort_keys=True)[0] for t in
+                (stacked_state["dev"], z1))
+    if stds is None:
+        stds = diag_scales(stacked_state)
     P, S, max_rank = z2.shape
     rank = stacked_state["rank"]
     k_eff = torch.clamp(torch.minimum(rank, torch.full_like(rank, max_rank))
@@ -109,10 +126,9 @@ def _sample(stacked_state, z1, z2, scale: float, diag_std=_kops.diag_std):
     zw = z2 * (slots[None, :] < rank[:, None]).float()[:, None, :]  # (P,S,R)
     lr_scale = torch.sqrt(2.0 * (k_eff - 1.0))                      # (P,)
     out = []
-    for m, s, d, z in zip(means, sqs, devs, zs):
+    for m, std, d, z in zip(means, stds, devs, zs):
         lead = (P,) + (1,) * (z.dim() - 1)
-        diag = diag_std(m.contiguous(), s.contiguous())[:, None] * z \
-            / math.sqrt(2.0)
+        diag = std[:, None] * z / math.sqrt(2.0)
         lowrank = torch.bmm(zw.to(d.dtype), d.reshape(P, max_rank, -1)
                             ).reshape(z.shape) / lr_scale.reshape(lead)
         sample = m[:, None] + scale * (diag + lowrank).to(m.dtype)
@@ -120,12 +136,15 @@ def _sample(stacked_state, z1, z2, scale: float, diag_std=_kops.diag_std):
     return unflatten(out)
 
 
-def swag_sample(state, z1, z2, scale: float = 1.0):
+def swag_sample(state, z1, z2, scale: float = 1.0, stds=None):
     """One parameter sample from one particle's SWAG Gaussian with the
-    given noise: ``z1`` a tree like the mean, ``z2`` (max_rank,)."""
+    given noise: ``z1`` a tree like the mean, ``z2`` (max_rank,).
+    ``stds``, when given, is ``diag_scales`` of the state with a leading
+    axis of one (``state`` as a one-row stack): reused over a particle's
+    draws, it spares each draw the scale's launch."""
     one = tree_map(lambda x: x[None], state)
     sample = _sample(one, tree_map(lambda z: z[None, None], z1),
-                     z2[None, None], scale)
+                     z2[None, None], scale, stds=stds)
     return tree_map(lambda x: x[0], sample)
 
 
@@ -170,13 +189,13 @@ def _sample_on_positions(store, samples_per_particle, scale, generator,
                          noise):
     """Serve-time sampling on a store split over a mesh: each position
     samples its own live particles' Gaussians (the diagonal scale runs
-    there, once per leaf), from the noise drawn for every live particle
-    at once as ``swag_sample_stacked`` draws it, so the members equal the
-    one-device sampling's, in the same order. A ``Sharded`` tree of the
-    draws, position by position. Under a model axis each model position
-    samples its shard of every leaf, from its part of the same noise (a
-    replicated leaf from the whole of it), and the draws of a data
-    position are a ``Group``."""
+    there, one launch a position or model shard), from the noise drawn
+    for every live particle at once as ``swag_sample_stacked`` draws it,
+    so the members equal the one-device sampling's, in the same order. A
+    ``Sharded`` tree of the draws, position by position. Under a model
+    axis each model position samples its shard of every leaf, from its
+    part of the same noise (a replicated leaf from the whole of it), and
+    the draws of a data position are a ``Group``."""
     sw = store.stacked("swag")
     live = [store.slot_of(p) for p in store.pids]
     if noise is None:
@@ -329,7 +348,9 @@ class MultiSWAG(Infer):
         (sampled once, up front, into a static stacked tree — the
         MultiSWAG predictive of Wilson & Izmailov 2020) instead of the
         particle params. S=0 serves the live particle params like any
-        other Infer. The diagonal scale goes through the diag_std kernel.
+        other Infer. The diagonal scale of every leaf is one
+        ``diag_std_leaves`` launch (one per position or model shard on a
+        mesh).
         On a store split over a mesh (served on its own placement) each
         position samples its own particles and keeps their draws, one
         shard a position (``_sample_on_positions``).
@@ -365,7 +386,9 @@ class MultiSWAG(Infer):
         ``module._forward``. ``noise`` is the list of per-draw ``(z1,
         z2)`` in draw order (particle by particle, S draws each);
         otherwise each draw's noise comes from ``generator`` (one seeded
-        0 on the store's device when None)."""
+        0 on the store's device when None). Each particle's diagonal
+        scale is computed once (one ``diag_scales`` call) and reused over
+        its S draws."""
         pd = self.push_dist
         draws = iter(noise) if noise is not None else None
         dev = torch.device(self.store.device)
@@ -375,6 +398,8 @@ class MultiSWAG(Infer):
         total, count = None, 0
         for pid in pd.particle_ids():
             swag = pd.particles[pid].state["swag"]
+            with torch.no_grad():
+                stds = diag_scales(tree_map(lambda x: x[None], swag))
             for _ in range(samples_per_particle):
                 if draws is not None:
                     z1, z2 = next(draws)
@@ -386,7 +411,7 @@ class MultiSWAG(Infer):
                                      generator=generator, device=dev)
                 with torch.no_grad():
                     out = self.module._forward(
-                        swag_sample(swag, z1, z2, scale), batch)
+                        swag_sample(swag, z1, z2, scale, stds), batch)
                 total = out if total is None else tree_map(
                     torch.add, total, out)
                 count += 1

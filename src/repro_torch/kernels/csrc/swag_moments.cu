@@ -14,9 +14,10 @@
 // 8 ViT-MNIST particles and rank 20), too large to copy per collection. The
 // slot differs by row (rank % max_rank per row), so it is read per row.
 //
-// diag_std: sqrt(max(sq - mean^2, 1e-30)) elementwise over the (P, L) rows
-// of one leaf: the SWAG diagonal scale, read once per particle row at
-// serve-time sampling (not once per drawn sample).
+// diag_std: sqrt(max(sq - mean^2, 1e-30)) elementwise: the SWAG diagonal
+// scale, computed once per particle at serve-time sampling (not once per
+// drawn sample), over every leaf of the tree in one launch
+// (swag_diag_std_leaves, below).
 //
 // The moments may be updated in place: out_mean may be mean and out_sq
 // may be sq (the collection passes the store's own leaves). Each element
@@ -29,11 +30,11 @@
 // at 8 x 19,775,360 parameters, moments reads 3 x 632.8 MB and writes
 // 3 x 632.8 MB (two moments and the deviation row): 1.13 ms; diag_std reads
 // 2 x 632.8 MB and writes 632.8 MB: 0.567 ms. The first design, kept for
-// diag_std and for the per-leaf moments entry (swag_moments: a probe and
-// the plain version's peer, off the collection path): a grid-stride loop
-// with one fp32 element per thread per step, neighbouring threads on
-// neighbouring addresses, grid.y over particle rows; nothing is staged in
-// shared memory because nothing is reused.
+// the per-leaf entries (swag_moments and swag_diag_std: probes and the
+// one-launch kernels' peers, off the sampling and collection paths): a
+// grid-stride loop with one fp32 element per thread per step, neighbouring
+// threads on neighbouring addresses, grid.y over particle rows; nothing is
+// staged in shared memory because nothing is reused.
 //
 // moments over every leaf (swag_moments_leaves, the collection's path).
 // The reference ravels the whole tree and makes one pallas_call; the
@@ -55,6 +56,22 @@
 // (the collection's own leaves): a dead row is skipped, neither read nor
 // written. The element arithmetic is moments_kernel's (moments_elem), so
 // the two and the plain version agree bit for bit.
+//
+// diag_std over every leaf (swag_diag_std_leaves, the sampling path). The
+// per-leaf entry made one launch per leaf, and sampling made them once
+// per draw: 272 launches for 8 UNet particles in sample_predict, each 1 to
+// 393,216 elements, host-bound (0.39-0.92 ms for a 0.004-0.036 ms bound).
+// This entry computes up to kMaxLeaves leaves' scales in one launch, the
+// pointers (mean, sq, out) and lengths by value in a __grid_constant__
+// parameter struct as for moments (DiagSet: 2,576 bytes), once per
+// particle. The scale is elementwise over a leaf's contiguous (P, ...)
+// block, so a leaf is its numel elements and a work item is (leaf, chunk
+// of kChunk elements): the moments plan at one row. A chunk goes as
+// 128-bit streaming loads and stores (__ldcs / __stcs: nothing is read
+// twice) where the leaf's three bases are 16-byte aligned and its length
+// is a multiple of 4 (the UNet's 1-element biases qualify in an (8, 1)
+// stack), else as scalar accesses. The element arithmetic is
+// diag_std_kernel's (diag_std_elem), so the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,17 +123,20 @@ moments_kernel(const float* mean, const float* sq,
   }
 }
 
+// One scale: m*m rounded before the subtraction, as in the plain version:
+// where sq ~ m^2 the difference is rounding noise, and an FMA would change
+// its square root by far more than an ulp.
+__device__ __forceinline__ float diag_std_elem(float m, float s) {
+  return sqrtf(fmaxf(__fsub_rn(s, __fmul_rn(m, m)), 1e-30f));
+}
+
 __global__ void __launch_bounds__(kThreads)
 diag_std_kernel(const float* __restrict__ mean, const float* __restrict__ sq,
                 float* __restrict__ out, long long numel) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
        i < numel; i += stride) {
-    const float m = mean[i];
-    // m*m rounded before the subtraction, as in the plain version: where
-    // sq ~ m^2 the difference is rounding noise, and an FMA would change
-    // its square root by far more than an ulp
-    out[i] = sqrtf(fmaxf(__fsub_rn(sq[i], __fmul_rn(m, m)), 1e-30f));
+    out[i] = diag_std_elem(mean[i], sq[i]);
   }
 }
 
@@ -204,6 +224,61 @@ moments_leaves_kernel(const __grid_constant__ LeafSet set) {
   }
 }
 
+struct DiagLeaf {
+  const float* mean;     // numel L, contiguous
+  const float* sq;
+  float* out;
+  long long L;
+  long long start;       // the leaf's first work item
+};
+
+struct DiagSet {
+  DiagLeaf leaf[kMaxLeaves];
+  long long items;
+  int count;
+};
+static_assert(sizeof(DiagSet) <= 4096,
+              "DiagSet must fit the 4 KB of a kernel's parameters");
+
+__global__ void __launch_bounds__(kThreads, kLeafBlocks)
+diag_std_leaves_kernel(const __grid_constant__ DiagSet set) {
+  int l = 0;  // a block's items only grow, so its leaf index only moves on
+  for (long long item = blockIdx.x; item < set.items; item += gridDim.x) {
+    while (l + 1 < set.count && item >= set.leaf[l + 1].start) ++l;
+    const DiagLeaf& f = set.leaf[l];
+    const long long e0 = (item - f.start) * kChunk;
+    const bool vec = f.L % 4 == 0 &&
+        ((reinterpret_cast<uintptr_t>(f.mean) | reinterpret_cast<uintptr_t>(f.sq) |
+          reinterpret_cast<uintptr_t>(f.out)) & 15) == 0;
+    if (vec) {
+      float4 m[kGroups], s[kGroups];
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) {
+        const long long e = e0 + (static_cast<long long>(q) * kThreads + threadIdx.x) * 4;
+        if (e < f.L) {
+          m[q] = __ldcs(reinterpret_cast<const float4*>(f.mean + e));
+          s[q] = __ldcs(reinterpret_cast<const float4*>(f.sq + e));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) {
+        const long long e = e0 + (static_cast<long long>(q) * kThreads + threadIdx.x) * 4;
+        if (e < f.L) {
+          float4 o;
+          o.x = diag_std_elem(m[q].x, s[q].x);
+          o.y = diag_std_elem(m[q].y, s[q].y);
+          o.z = diag_std_elem(m[q].z, s[q].z);
+          o.w = diag_std_elem(m[q].w, s[q].w);
+          __stcs(reinterpret_cast<float4*>(f.out + e), o);
+        }
+      }
+    } else {
+      for (long long e = e0 + threadIdx.x; e < f.L && e < e0 + kChunk; e += kThreads)
+        f.out[e] = diag_std_elem(f.mean[e], f.sq[e]);
+    }
+  }
+}
+
 unsigned blocks_for(long long count) {
   long long b = (count + kThreads - 1) / kThreads;
   if (b > kMaxBlocksX) b = kMaxBlocksX;
@@ -273,5 +348,34 @@ extern "C" int swag_diag_std(const void* mean, const void* sq, void* out,
   diag_std_kernel<<<blocks_for(numel), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(mean), static_cast<const float*>(sq),
       static_cast<float*>(out), numel);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scales of `count` <= kMaxLeaves leaves in one launch. ptrs: 3 per
+// leaf (mean, sq, out; out overlaps no input), lens: numel per leaf,
+// starts: each leaf's first work item (ceil(numel / kChunk) items a leaf,
+// in leaf order; checked here), items their total; grid the blocks (one
+// wave). Returns the cudaError_t of the launch (0 = success).
+extern "C" int swag_diag_std_leaves(const long long* ptrs, const long long* lens,
+                                    const long long* starts, int count, long long items,
+                                    int grid, void* stream) {
+  if (count < 1 || count > kMaxLeaves || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DiagSet set{};
+  long long at = 0;
+  for (int i = 0; i < count; ++i) {
+    DiagLeaf& f = set.leaf[i];
+    f.mean = reinterpret_cast<const float*>(ptrs[3 * i]);
+    f.sq = reinterpret_cast<const float*>(ptrs[3 * i + 1]);
+    f.out = reinterpret_cast<float*>(ptrs[3 * i + 2]);
+    f.L = lens[i];
+    f.start = starts[i];
+    if (f.L < 1 || f.start != at) return static_cast<int>(cudaErrorInvalidValue);
+    at += (f.L + kChunk - 1) / kChunk;
+  }
+  if (at != items) return static_cast<int>(cudaErrorInvalidValue);
+  set.items = items;
+  set.count = count;
+  diag_std_leaves_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(set);
   return static_cast<int>(cudaGetLastError());
 }

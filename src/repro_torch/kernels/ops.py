@@ -18,7 +18,8 @@ from . import swag_moments as _swag
 COUNTED = (_paged.paged_decode_attention,
            _window.paged_decode_window_attention, _flash.flash_attention,
            _decode.decode_attention, _svgd.pairwise_sqdist, _svgd.svgd_force,
-           _swag.moments, _swag.moments_leaves, _swag.diag_std)
+           _swag.moments, _swag.moments_leaves, _swag.diag_std_leaves,
+           _swag.diag_std)
 
 
 def _route(x, kernel, plain, name):
@@ -92,7 +93,10 @@ def swag_moments_leaves(means, sqs, thetas, n, mask=None, devs=None,
     return fn(means, sqs, thetas, n, mask, devs, slot)
 
 
-def diag_std(mean, sq):
-    """sqrt(max(sq - mean^2, 1e-30))."""
-    fn = _route(mean, _swag.diag_std, ref.diag_std, "diag_std")
-    return fn(mean, sq)
+def diag_std_leaves(means, sqs):
+    """``diag_std`` of every leaf of a tree (lists of tensors), one kernel
+    launch per ``swag_moments.MAX_LEAVES`` non-empty leaves: a list of
+    scales shaped like the means (the sampling path's dispatch)."""
+    fn = _route(means[0], _swag.diag_std_leaves, ref.diag_std_leaves,
+                "diag_std_leaves")
+    return fn(means, sqs)

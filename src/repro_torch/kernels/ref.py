@@ -179,3 +179,9 @@ def swag_moments_leaves(means, sqs, thetas, n, mask=None, devs=None,
 def diag_std(mean, sq):
     """sqrt(max(sq - mean^2, 1e-30)), the SWAG diagonal scale."""
     return torch.sqrt(torch.clamp(sq - mean * mean, min=1e-30))
+
+
+def diag_std_leaves(means, sqs):
+    """``diag_std`` of every leaf of a tree (the one-launch kernel's plain
+    version): a list of scales shaped like ``means``."""
+    return [diag_std(m, s) for m, s in zip(means, sqs)]

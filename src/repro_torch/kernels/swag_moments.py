@@ -2,7 +2,7 @@
 
 The kernels replace the Pallas TPU kernels ``repro.kernels.swag_moments``
 ``moments_flat`` and ``diag_std_flat``. They run over the store's stacked
-rows, one leaf at a time (no flatten copy):
+rows leaf by leaf, every leaf of a tree in one launch (no flatten copy):
 
     moments(mean, sq, theta, n, mask=None, dev=None, slot=None,
             out_mean=None, out_sq=None)
@@ -18,7 +18,14 @@ rows, one leaf at a time (no flatten copy):
         (P, ...) leaves; devs (P, R, ...) each, one R), one launch per
         ``MAX_LEAVES`` leaves: the collection's path (``bdl.swag``).
         Returns (means, sqs).
-    diag_std(mean, sq) -> sqrt(max(sq - mean^2, 1e-30)), any shape.
+    diag_std_leaves(means, sqs) -> [sqrt(max(sq - mean^2, 1e-30)), ...]
+        the diagonal scale of every leaf of a tree (lists of tensors of
+        any shape), one launch per ``MAX_LEAVES`` non-empty leaves, into
+        one flat buffer: a contiguous view a leaf, shaped like its mean.
+        The sampling path's (``bdl.swag``): once per particle, not per
+        draw.
+    diag_std(mean, sq) -> sqrt(max(sq - mean^2, 1e-30)), any shape: one
+        leaf, the first design, kept as a probe and the single-leaf entry.
 
 The wrappers take CUDA tensors only and raise on anything else; the CPU
 goes through ``kernels.ops`` to the plain versions in ``kernels.ref``.
@@ -27,9 +34,10 @@ goes through ``kernels.ops`` to the plain versions in ``kernels.ref``.
 ``leaves_plan`` is ``moments_leaves``' launches, fixed on the host from
 the row count, the leaves' lengths and the SM count: the leaves of each
 launch, the first work item of each leaf (a work item is one row's chunk
-of ``CHUNK`` elements) and a one-wave grid. ``moments`` (one leaf, the
-first design) stays for probes and as the per-leaf peer the one-launch
-kernel is held to.
+of ``CHUNK`` elements) and a one-wave grid; ``diag_std_leaves`` runs the
+same plan at one row of each leaf's whole length. ``moments`` and
+``diag_std`` (one leaf, the first designs) stay for probes and as the
+per-leaf peers the one-launch kernels are held to.
 
 The kernels are fp32 only. Under bf16 masters the SWAG moments stay fp32
 and the params and the deviation ring are bf16 (``bdl.swag``);
@@ -54,6 +62,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _MOMENTS_ARGS = [_P] * 7 + [_I] + [_P] * 2 + [_I, _L, _P]
 _LEAVES_ARGS = [_P] * 3 + [_I, _L] + [_P] * 3 + [_I] * 3 + [_P]
 _DIAG_STD_ARGS = [_P] * 3 + [_L, _P]
+_DIAG_LEAVES_ARGS = [_P] * 3 + [_I, _L, _I, _P]
 _THREADS = 256
 _GROUPS = 4                # float4 groups a thread an item (csrc kGroups)
 CHUNK = _THREADS * 4 * _GROUPS   # elements a work item (csrc kChunk)
@@ -265,8 +274,80 @@ def diag_std(mean, sq):
     return out
 
 
+def diag_layout(numels):
+    """Where ``diag_std_leaves`` puts each leaf's scale in its one output
+    buffer: (the offsets, the buffer's length). Every leaf starts on a
+    16-byte boundary (a multiple of 4 floats), so an aligned leaf of a
+    length divisible by 4 takes the kernel's 128-bit stores."""
+    offsets, at = [], 0
+    for L in numels:
+        offsets.append(at)
+        at += -(-L // 4) * 4
+    return offsets, at
+
+
+def _diag_leaves_args(means, sqs):
+    """Check ``diag_std_leaves``' arguments in one pass over the leaves
+    (the slow checks run only to name what is wrong; the pass is the
+    wrapper's host time at a small tree). Returns (the device, every
+    leaf's length, the indices of the non-empty leaves)."""
+    if not means or not all(isinstance(m, torch.Tensor) for m in means):
+        raise ValueError("means must be a non-empty list of tensors")
+    if len(sqs) != len(means):
+        raise ValueError("one sq per mean")
+    device, index, f32 = means[0].device, means[0].get_device(), torch.float32
+    numels, live = [], []
+    for i, (m, s) in enumerate(zip(means, sqs)):
+        if not (isinstance(s, torch.Tensor) and s.shape == m.shape
+                and m.is_cuda and s.is_cuda and m.get_device() == index
+                and s.get_device() == index and m.dtype is f32
+                and s.dtype is f32 and m.is_contiguous()
+                and s.is_contiguous()):
+            check(f"means[{i}]", m, device)
+            check(f"sqs[{i}]", s, device, tuple(m.shape))
+        numels.append(m.numel())
+        if numels[-1]:
+            live.append(i)
+    return device, numels, live
+
+
+def diag_std_leaves(means, sqs):
+    """The diagonal scale of every leaf (module docstring): one launch per
+    ``MAX_LEAVES`` non-empty leaves. Returns a list of scales, each a
+    contiguous view of one new buffer, shaped like its mean."""
+    device, numels, live = _diag_leaves_args(means, sqs)
+    offsets, total = diag_layout(numels)
+    flat = torch.empty(total, dtype=torch.float32, device=device)
+    outs = [flat.as_strided(m.shape, m.stride(), o)
+            for o, m in zip(offsets, means)]
+    lens = [numels[i] for i in live]
+    if not live:
+        return outs
+    plan = leaves_plan(1, tuple(lens), sm_count(device))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = entry("swag_moments", "swag_diag_std_leaves", _DIAG_LEAVES_ARGS)
+    for group, starts, items, grid in zip(plan.groups, plan.starts,
+                                          plan.items, plan.grids):
+        idx = live[group[0]:group[-1] + 1]     # a group is a run of leaves
+        k = len(idx)
+        ptrs = [p for i in idx for p in (means[i].data_ptr(),
+                                         sqs[i].data_ptr(),
+                                         outs[i].data_ptr())]
+        with torch.cuda.device(device):
+            rc = fn((ctypes.c_longlong * (3 * k))(*ptrs),
+                    (ctypes.c_longlong * k)(*lens[group[0]:group[-1] + 1]),
+                    (ctypes.c_longlong * k)(*starts), k, items, grid, stream)
+        raise_on(rc, "swag diag_std_leaves")
+        diag_std_leaves.launches += 1
+        if _obs.counting_now():
+            for i in idx:
+                _obs.charge(*diag_std_cost(means[i]))
+    return outs
+
+
 moments.launches = 0
 moments_leaves.launches = 0
+diag_std_leaves.launches = 0
 diag_std.launches = 0
 
 

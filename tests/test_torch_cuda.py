@@ -31,7 +31,12 @@ streamed force equals the column kernel (the probe
 == 0 and an unaligned view, masked, and into ``out=``; the one-launch
 collection (``moments_leaves``) equals the per-leaf kernel and the plain
 version bit for bit in place with dead rows, takes one launch per 64
-leaves past them, and a captured collection replays the eager bits.
+leaves past them, and a captured collection replays the eager bits. The
+one-launch diagonal scale (``diag_std_leaves``) equals the per-leaf
+kernel bit for bit over the full-width ViT's and UNet's leaves at P = 1
+and 8, an unaligned leaf, empty leaves and 65 leaves (two launches), a
+captured call replays its bits, and it refuses CPU, half-precision and
+mismatched inputs.
 
 The window (speculative verify), prefill and dense-decode kernels are held
 against their plain versions: the window kernel on the
@@ -613,6 +618,100 @@ def test_diag_std_kernel_matches_plain(dev, D):
     assert (got - ref.diag_std(mean, sq)).abs().max().item() < 1e-5
 
 
+def _model_leaf_shapes(name):
+    """One particle's leaf shapes at full width, in the sampling path's
+    order (sorted key paths), from an init on the meta device."""
+    from repro_torch.core.tree import tree_flatten
+    cfg = configs.get(name)
+    with torch.device("meta"):
+        params = api.init_params(torch.Generator(), cfg)
+    return [tuple(x.shape) for x in tree_flatten(params, sort_keys=True)[0]]
+
+
+def _diag_case(dev, P, shapes, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    means = [torch.randn((P,) + s, generator=gen, device=dev) * 0.1
+             for s in shapes]
+    sqs = [m * m + torch.rand(m.shape, generator=gen, device=dev) * 1e-3
+           for m in means]
+    for s in sqs[::3]:                  # clamped at 1e-30
+        s.view(-1)[::5] = 0.0
+    return means, sqs
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` one float past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device)
+    v = buf[1:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+DIAG_TREES = {"many": [(37,), (64,), (1,), (0,)] * 16 + [(5,)],  # 49 live
+              "sixty_five": [(3, 7)] * 65,
+              "empty": [(0,), (16,), (0, 3), (5,)]}
+
+
+@pytest.mark.parametrize("P", [1, 8])
+@pytest.mark.parametrize("tree", ["vit-mnist", "unet-advection",
+                                  *sorted(DIAG_TREES)])
+def test_diag_std_leaves_kernel_equals_per_leaf_kernel(dev, tree, P):
+    """#4 over every leaf: the per-leaf kernel's bits (and the plain
+    version within 1e-5), one launch per 64 non-empty leaves, each scale
+    a contiguous tensor shaped like its mean; a leaf one float past a
+    16-byte boundary takes the scalar path with the same bits."""
+    shapes = (DIAG_TREES[tree] if tree in DIAG_TREES
+              else _model_leaf_shapes(tree))
+    means, sqs = _diag_case(dev, P, shapes, seed=len(shapes) + P)
+    if tree == "many":
+        means[5], sqs[5] = _unaligned(means[5]), _unaligned(sqs[5])
+    live = sum(1 for m in means if m.numel())
+    before = swag_moments.diag_std_leaves.launches
+    got = swag_moments.diag_std_leaves(means, sqs)
+    torch.cuda.synchronize()
+    assert swag_moments.diag_std_leaves.launches - before == \
+        -(-live // swag_moments.MAX_LEAVES)
+    assert len(got) == len(means)
+    for g, m, s in zip(got, means, sqs):
+        assert g.shape == m.shape and g.is_contiguous() and g.is_cuda
+        if m.numel():
+            assert torch.equal(g, swag_moments.diag_std(m, s))
+            assert (g - ref.diag_std(m, s)).abs().max().item() < 1e-5
+
+
+def test_diag_std_leaves_refuses_bad_inputs(dev):
+    t = torch.randn(4, 64, device=dev)
+    cases = [([t, t.cpu()], [t, t.cpu()]),
+             ([t, t], [t, t.half()]),
+             ([t.half()], [t.half()]),
+             ([t, t], [t, t[:, :32]]),                  # mismatched shape
+             ([t.T], [t.T]),                            # strided
+             ([t, t], [t]),                             # one sq short
+             ([], [])]
+    for means, sqs in cases:
+        before = swag_moments.diag_std_leaves.launches
+        with pytest.raises(ValueError):
+            swag_moments.diag_std_leaves(means, sqs)
+        assert swag_moments.diag_std_leaves.launches == before
+
+
+def test_captured_diag_std_leaves_replays_the_eager_bits(dev):
+    means, sqs = _diag_case(dev, 8, _model_leaf_shapes("unet-advection"))
+    eager = swag_moments.diag_std_leaves(means, sqs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        swag_moments.diag_std_leaves(means, sqs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed = swag_moments.diag_std_leaves(means, sqs)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, graphed):
+        assert torch.equal(a, b)
+
+
 def test_new_kernels_refuse_bad_inputs(dev):
     t = torch.randn(4, 64, device=dev)
     one = torch.ones(4, device=dev)
@@ -703,12 +802,14 @@ def test_multiswag_on_card_matches_cpu(dev):
                                             generator=noise_gen).to(d),
                       swag["mean"])
         z2 = torch.randn((4, 3, 3), generator=noise_gen).to(d)
-        before = swag_moments.diag_std.launches
+        before = swag_moments.diag_std_leaves.launches
         heads = algo.posterior_predictive(
             samples_per_particle=3, noise=(z1, z2),
             generator=gen).predict_batch(batch)
-        assert swag_moments.diag_std.launches - before == \
-            (n_leaves if d == dev else 0)
+        # one launch over every leaf (the tree's leaves are under 64)
+        assert n_leaves < swag_moments.MAX_LEAVES
+        assert swag_moments.diag_std_leaves.launches - before == \
+            (1 if d == dev else 0)
         out[d.type] = (algo.p_parameters(), swag, heads)
     _close(out["cuda"][0], out["cpu"][0], 1e-4)
     _close(out["cuda"][1], out["cpu"][1], 1e-4)
@@ -1886,16 +1987,23 @@ def test_pinned_staging_one_copy_per_leaf_per_flush(dev):
 
 @pytest.mark.parametrize("P", [1, 8])
 def test_diag_std_kernel_at_the_serving_shapes(dev, P):
-    """#4 at P = 1 (``sample_predict``'s draws) and P = 8 (the dense
-    stack of ``posterior_predictive``), at ViT-MNIST leaf widths."""
+    """#4 at P = 1 (a particle's scale in ``sample_predict``) and P = 8
+    (the dense stack of ``posterior_predictive``), at ViT-MNIST leaf
+    widths: one launch over the four leaves, the per-leaf kernel's bits
+    and the plain version within 1e-5."""
     gen = torch.Generator(device=dev).manual_seed(P)
+    means, sqs = [], []
     for D in (320, 40 * 320, 320 * 1280, 3 * 320 * 320 + 7):
         m = torch.randn((P, D), generator=gen, device=dev) * 0.1
-        s = m * m + torch.rand((P, D), generator=gen, device=dev) * 1e-3
-        before = swag_moments.diag_std.launches
-        got = swag_moments.diag_std(m, s)
-        assert swag_moments.diag_std.launches - before == 1
-        assert (got - ref.diag_std(m, s)).abs().max().item() < 1e-5
+        means.append(m)
+        sqs.append(m * m + torch.rand((P, D), generator=gen, device=dev)
+                   * 1e-3)
+    before = swag_moments.diag_std_leaves.launches
+    got = swag_moments.diag_std_leaves(means, sqs)
+    assert swag_moments.diag_std_leaves.launches - before == 1
+    for g, m, s in zip(got, means, sqs):
+        assert torch.equal(g, swag_moments.diag_std(m, s))
+        assert (g - ref.diag_std(m, s)).abs().max().item() < 1e-5
 
 
 # --------------------------------------------------------------------------
@@ -2330,12 +2438,13 @@ def test_captured_program_cost(dev):
     mean = torch.randn((4, 1000), device=dev)
     sq = mean * mean + 1.0
     spec = ProgramSpec(name="diag_std", key=("diag_std",),
-                       make=lambda ctx: lambda m, s: (ops.diag_std(m, s),),
+                       make=lambda ctx: lambda m, s: (
+                           ops.diag_std_leaves([m], [s])[0],),
                        in_kinds=("replicated", "replicated"))
-    before = swag_moments.diag_std.launches
+    before = swag_moments.diag_std_leaves.launches
     prog = ProgramCache().program(spec, (mean, sq))
     assert prog.graph is not None
-    assert swag_moments.diag_std.launches == before + 1     # the warm-up
+    assert swag_moments.diag_std_leaves.launches == before + 1  # warm-up
     cost = prog.cost()
     assert cost["flops"] == 4 * 4000
     assert cost["bytes_accessed"] == 3 * 4000 * 4

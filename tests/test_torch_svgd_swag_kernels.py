@@ -184,7 +184,8 @@ def test_diag_std_matches_jax(D):
     mean = rng.standard_normal((2, D)).astype(np.float32)
     sq = mean ** 2 + np.abs(rng.standard_normal((2, D))).astype(np.float32)
     sq[0, :D // 2] = 0.5 * mean[0, :D // 2] ** 2 - 1e-3    # clamped at 1e-30
-    got = ops.diag_std(torch.from_numpy(mean), torch.from_numpy(sq))
+    got = ops.diag_std_leaves([torch.from_numpy(mean)],
+                              [torch.from_numpy(sq)])[0]
     for p in range(2):
         want = jswag_moments.diag_std_flat(mean[p], sq[p])
         assert np.abs(got[p].numpy() - np.asarray(want)).max() < 1e-5
@@ -202,7 +203,7 @@ def test_dispatch_has_no_other_branch():
          (t, t, torch.ones(3, 3), m, torch.ones(1))),
         (tswag_moments.moments_leaves, ops.swag_moments_leaves,
          ([t.clone()], [t.clone()], [t], m)),
-        (tswag_moments.diag_std, ops.diag_std, (t, t)),
+        (tswag_moments.diag_std_leaves, ops.diag_std_leaves, ([t], [t])),
     ]
     meta = lambda a: ([x.to("meta") for x in a] if isinstance(a, list)
                       else a.to("meta"))
@@ -211,6 +212,10 @@ def test_dispatch_has_no_other_branch():
         with pytest.raises(ValueError, match="CUDA"):
             kernel(*args)
         assert kernel.launches == before
-        assert isinstance(dispatch(*args), (torch.Tensor, tuple))
+        assert isinstance(dispatch(*args), (torch.Tensor, tuple, list))
         with pytest.raises(ValueError, match="device"):
             dispatch(*map(meta, args))
+    before = tswag_moments.diag_std.launches       # the per-leaf probe
+    with pytest.raises(ValueError, match="CUDA"):
+        tswag_moments.diag_std(t, t)
+    assert tswag_moments.diag_std.launches == before

@@ -33,7 +33,7 @@ from repro.optim import sgd as jsgd
 from repro.serve import PredictiveEngine as JPredictiveEngine
 from repro_torch import configs as tconfigs
 from repro_torch.bdl import MultiSWAG, swag_sample, swag_state_init
-from repro_torch.bdl.swag import _sample
+from repro_torch.bdl.swag import _sample, diag_scales
 from repro_torch.core import ParticleModule
 from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.data import DataLoader
@@ -160,10 +160,10 @@ def test_swag_sample_matches_jax_with_its_noise(trained, plain):
     z1 = params_from_numpy(tree_map(lambda z: z[0, 0], z1))
     z2 = torch.from_numpy(z2[0, 0])
     if plain:       # the plain diagonal scale, past the kernel's dispatch
+        one = tree_map(lambda x: x[None], tswag)
         got = tree_map(lambda x: x[0], _sample(
-            tree_map(lambda x: x[None], tswag),
-            tree_map(lambda z: z[None, None], z1), z2[None, None], 0.7,
-            diag_std=ref.diag_std))
+            one, tree_map(lambda z: z[None, None], z1), z2[None, None], 0.7,
+            stds=diag_scales(one, ref.diag_std_leaves)))
     else:
         got = swag_sample(tswag, z1, z2, 0.7)
     _close(got, want, 1e-5)

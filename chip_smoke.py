@@ -397,12 +397,13 @@ Phase 12 the paper's SciML workload and its Fig. 4 baselines
          kernel's ``sciml_launches`` in the kernels line are phase 12's
          driven runs, its ``unet`` entry #1-#4 timed at the UNet's shapes.
 
-Phase 13 LM training: 4 full-width qwen1.5-0.5b particles (24 layers,
-         463,987,712 parameters each, random weights from seed 0, TF32
-         off) fed one 2048-token lm_batch sequence a step by the seeded
-         DataLoader, through ParticleModule(loss=api.loss_fn) (the
-         chunked flash attention with its blockwise backward, the
-         chunked cross-entropy). First, at one layer's shape (P 4, B 1,
+Phase 13 LM training: 4 full-width qwen1.5-0.5b particles (12 of its
+         24 layers, 309,785,600 parameters each, random
+         weights from seed 0, TF32 off) fed one 2048-token lm_batch
+         sequence a step by the seeded DataLoader, through
+         ParticleModule(loss=api.loss_fn) (the chunked flash attention
+         with its blockwise backward, the chunked cross-entropy).
+         First, at one layer's shape (P 4, B 1,
          S 2048, 16 heads of 64), the chunked attention's forward and
          backward against full_attention's autograd within 1e-4 of the
          largest entry, and _chunked_ce's loss and grads against one
@@ -527,8 +528,9 @@ Phase 15 particles across GPUs: the store's particle axis on a data mesh
          and a second service over the same store and cache capturing
          nothing, then on the store moved to one position and to one
          device, ms a request each, heads within 1e-5 of the mesh's. (c)
-         8 qwen1.5-0.5b particles (8 x 1.856 GB of fp32 params) trained
-         by DeepEnsemble with sgd on the NEL with cache_size 2, 2 steps
+         8 qwen1.5-0.5b particles (6 of 24 units, 8 x 0.931
+         GB) trained by DeepEnsemble with sgd on the NEL with cache_size
+         2, 2 steps
          of 256 tokens, with offload and without: losses and params bit
          for bit, the offloaded run's peak max_memory_allocated at least
          5 particles' params under the other's; swaps, the swaps' GB/s
@@ -557,12 +559,12 @@ Phase 17 the decoder-only model zoo at full width, depth cut (each part
          128) against their plain versions. (b) the head + 1 unit, 2
          particles, one 512-token lm_batch sequence a step:
          DeepEnsemble (Adam) captured and eager for 4 steps, losses and
-         params bit for bit, the aux values per particle; SteinVGD (the
-         median) 2 steps, #1 and #2 once a step, then held against their
-         plain versions at (2, D), #2 also against the column kernel bit for
-         bit where the card has room for both outputs, and timed beside
-         it. (c) qwen3-moe-235b-a22b, 1 of 94
-         units, 1 particle: 4 of phase 2's prompts for 16 tokens on one
+         params bit for bit, the aux values per particle, a profiled
+         captured step; SteinVGD (the median) 2 steps, #1 and #2 once a
+         step, then held against their plain versions at (2, D), #2 also
+         against the column kernel bit for bit where the card has room
+         for both outputs, and timed beside it. (c) qwen3-moe-235b-a22b,
+         1 of 94 units, 1 particle: 4 of phase 2's prompts for 16 tokens on one
          device and on a 1 x 4 model mesh (cuda:0's positions, or 4
          GPUs): tokens equal up to a near-tie, per-device param bytes at
          most 0.3 of one device's; #8 at the verify shape (P 1, B 8, W
@@ -578,13 +580,33 @@ Phase 17 the decoder-only model zoo at full width, depth cut (each part
          (a)-(d)'s main-path runs; its ``zoo`` entry the rows at the
          zoo's shapes.
 
+Phase 18 the recurrent families at full width, random fp32 weights from
+         seed 0, 2 particles. (a) zamba2-1.2b at full depth (32 mamba
+         layers and 6 occurrences of one shared attention block, 1.02 B
+         parameters a particle): 4 prompts of 101 tokens (a prefill of
+         100, which pads mamba's 64-step chunk) and 32 greedy BMA steps
+         through the dense-state engine, captured and eager: tokens equal
+         up to a near-tie, one cold compile of the step, #5 6 a prefill
+         and #6 6 a step, #7 and #8 never; a prefill of the prompt and
+         the first 31 generated tokens gives step 32's logits within
+         1e-3 of the largest; #5 and #6 at the shared block's shapes (32
+         heads of 64) against their plain versions, timed beside the
+         bound and SDPA; a profiled captured step. (b) rwkv6-7b, 4 of 32
+         layers: (a)'s traffic and checks with no kernel launched. (c)
+         zamba2 (1 unit + the 2-layer tail) and rwkv6 (1 layer), one
+         512-token lm_batch sequence a step: phase 17 (b)'s DeepEnsemble
+         and SteinVGD (4 steps) runs and checks at their widths. Each
+         kernel's ``recurrent_launches`` in the kernels line are
+         (a)-(c)'s main-path runs; its ``recurrent`` entry the rows at
+         these shapes.
+
 The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12,
-13, 14, 15, 16, 17: the kernel checks first, then the serving runs over
-one set of particles, then training, fused and then on the NEL, then the
-lifecycle, then predictive serving, then the precision ladder, then the
-SciML workload and the baselines, then LM training, then checkpoints and
-obs, then the particle axis across GPUs, then the model axis, then the
-decoder-only model zoo.
+13, 14, 15, 16, 17, 18: the kernel checks first, then the serving runs
+over one set of particles, then training, fused and then on the NEL,
+then the lifecycle, then predictive serving, then the precision ladder,
+then the SciML workload and the baselines, then LM training, then
+checkpoints and obs, then the particle axis across GPUs, then the model
+axis, then the decoder-only model zoo, then the recurrent families.
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -5994,6 +6016,7 @@ LM_SVGD_STEPS = 4
 LM_SVGD_LR = 1e-3
 LM_REMAT = ("nothing_saveable", "dots_saveable")
 LM_D = 463_987_712               # parameters per qwen1.5-0.5b particle
+LM_UNITS = 12                    # phase 13's depth cut: 12 of its 24 units
 LM_Q_CHUNK, LM_K_CHUNK = 512, 1024   # models.blocks.flash_attention's chunks
 LM_LOSS_CHUNK = 512              # models.api.LOSS_CHUNK
 
@@ -6283,7 +6306,7 @@ def lm_ensemble(torch, cfg, module, batches, card, total):
     from repro_torch.runtime import ProgramCache, eager, specs
     sched = warmup_cosine(*LM_SCHED)
     flops = lm_step_flops(cfg, LM_P, LM_B, LM_S)
-    b_ms, b_by = bound(4 * 4 * LM_P * LM_D, flops["total"])
+    b_ms, b_by = bound(4 * 4 * LM_P * p17_param_count(cfg), flops["total"])
     runs = {}
     algo, runs["eager"], first = lm_run(
         torch, DeepEnsemble, module, batches[:LM_EAGER],
@@ -6335,7 +6358,8 @@ def lm_ensemble(torch, cfg, module, batches, card, total):
     del algo
     lm_free(torch)
     tokens = LM_P * LM_B * LM_S
-    a_line = {"phase": 13, "part": "a", "config": cfg.name,
+    a_line = {"phase": 13, "part": "a",
+              "config": {"name": cfg.name, "layers": cfg.n_layers},
               "particles": LM_P, "batch": LM_B, "seq_len": LM_S,
               "optimizer": "adam(warmup_cosine(%g, %d, %d))" % LM_SCHED,
               "runs": runs, "opt_state_steps": steps, "lr_by_step": got,
@@ -6345,7 +6369,7 @@ def lm_ensemble(torch, cfg, module, batches, card, total):
               "tokens_per_s": tokens / prof["wall_ms"] * 1e3,
               "profile": prof, "peak_gb": peak, "opt_state_gb": adam_gb,
               "step_flops": flops, "bound_ms": b_ms, "bound_by": b_by,
-              "code_bound_ms": bound(4 * 4 * LM_P * LM_D,
+              "code_bound_ms": bound(4 * 4 * LM_P * p17_param_count(cfg),
                                      flops["code_total"])[0],
               "counted_flops": counted, "code_flops": flops["code_total"],
               "counted_over_code": counted_rel + 1, "card": card}
@@ -6385,7 +6409,7 @@ def lm_ensemble(torch, cfg, module, batches, card, total):
     return a_line, b_line, eag["losses"][0], first
 
 
-LM_AF_LEAF = ("units", 0, "attn", "wq", "w")   # (P, 24, 1024, 1024)
+LM_AF_LEAF = ("units", 0, "attn", "wq", "w")   # (P, LM_UNITS, 1024, 1024)
 
 
 def lm_leaf(tree, path=LM_AF_LEAF):
@@ -6474,7 +6498,7 @@ def lm_adafactor(torch, cfg, batches, card, total, adam_gb):
 
 def lm_svgd(torch, module, batches, card, total):
     """(d) SteinVGD (median heuristic), captured, 4 steps at P = 4: #1 and
-    #2 once a step at (4, 463,987,712), #1 on its bulk-copy path; a
+    #2 once a step at (4, D), #1 on its bulk-copy path; a
     profiled window of the step program whose counters equal the
     profiler's; then each kernel on the trained state against its plain
     version (sqdist within 1e-5 of its largest entry, against the plain
@@ -6531,7 +6555,7 @@ def lm_svgd(torch, module, batches, card, total):
     checks["force_rel"] = rel_err(svgd_force(theta, g, 0.0),
                                   plain_force(theta, g, 0.0))
     torch.cuda.empty_cache()
-    if plan.path != "bulk" or D != LM_D or not (
+    if plan.path != "bulk" or D != p17_param_count(module.cfg) or not (
             checks["sqdist_rel"] < 1e-5 and checks["force_rel"] < 2e-4):
         raise AssertionError(f"LM SVGD kernels vs plain: {checks}")
     glue = rbf_glue(sq, 0.0)
@@ -6621,7 +6645,7 @@ def phase13(torch, card):
     shape."""
     from repro_torch import configs
     t0 = time.perf_counter()
-    cfg = configs.get("qwen1.5-0.5b")
+    cfg = configs.get("qwen1.5-0.5b").replace(n_units=LM_UNITS)
     module = lm_module(cfg)
     batches = lm_batches(cfg, LM_STEPS)
     total, walls = {}, {}
@@ -7073,6 +7097,7 @@ def phase14(torch, cfg, reqs, phase2_out, card):
 
 MESH_N = 4                          # positions of the data axis
 OFF_P = 8                           # (c): qwen1.5-0.5b particles on the NEL
+OFF_UNITS = 6                       # (c): their depth cut, 6 of 24 units
 OFF_CACHE = 2                       # (c): the NEL's active set a device
 OFF_S = 256                         # (c): tokens a step
 OFF_STEPS = 2
@@ -7663,17 +7688,17 @@ def p15_serving(torch, cfg, reqs, plain, keep, card, real=False):
 
 
 def p15_offload(torch, card, real=False):
-    """(c) OFF_P qwen1.5-0.5b particles trained by DeepEnsemble with sgd on
-    the NEL (cache_size OFF_CACHE), OFF_STEPS steps of OFF_S tokens, with
-    and without offload: equal losses and params bit for bit, and the
-    offloaded run's peak device memory at least 5 particles' params
-    under the other's."""
+    """(c) OFF_P qwen1.5-0.5b particles, OFF_UNITS of 24 units, trained by
+    DeepEnsemble with sgd on the NEL (cache_size OFF_CACHE), OFF_STEPS
+    steps of OFF_S tokens, with and without offload: equal losses and
+    params bit for bit, and the offloaded run's peak device memory at
+    least 5 particles' params under the other's."""
     from repro_torch import configs
     from repro_torch.bdl import DeepEnsemble
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data import DataLoader
     from repro_torch.optim import sgd
-    cfg = configs.get("qwen1.5-0.5b")
+    cfg = configs.get("qwen1.5-0.5b").replace(n_units=OFF_UNITS)
     module = lm_module(cfg)
     batches = list(DataLoader(cfg, batch_size=1, seq_len=OFF_S,
                               num_batches=OFF_STEPS, seed=SEED))
@@ -7725,9 +7750,10 @@ def p15_offload(torch, card, real=False):
             runs["offload"]["bits_equal"] = same
         algo.cleanup()
         del algo, pd, params, nel
-    per_particle = LM_D * 4
+    per_particle = p17_param_count(cfg) * 4
     drop = (runs["resident"]["peak_gb"] - runs["offload"]["peak_gb"]) * 1e9
     row = {"phase": 15, "part": "c", "particles": OFF_P,
+           "layers": cfg.n_layers,
            "cache_size": OFF_CACHE, "tokens_per_step": OFF_S,
            "steps": OFF_STEPS, **runs, "peak_drop_gb": drop / 1e9,
            "want_drop_gb": 5 * per_particle / 1e9, "card": card}
@@ -8763,7 +8789,7 @@ def p17_train_run(torch, cls, module, batches, cache, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not np.isfinite(losses).all():
-        raise AssertionError(f"(b) {cls.__name__} losses {losses}")
+        raise AssertionError(f"{cls.__name__} losses {losses}")
     return algo, {"losses": losses, "launches": read_counts(fns),
                   "wall_s": wall, "stats": cache.snapshot_stats(),
                   "programs": cache.program_costs(),
@@ -8775,6 +8801,19 @@ def p17_training(torch, card):
     bit for bit over 4 steps; SteinVGD (median) with #1 and #2 held against
     their plain versions at (2, D)."""
     from repro_torch import configs
+    return zoo_training(torch, card, *p17_cut(
+        configs.get("deepseek-moe-16b"), n_units=P17_TRAIN_UNITS),
+        P17_SVGD_STEPS, 17, "b")[0]
+
+
+def zoo_training(torch, card, cfg, cut, svgd_steps, phase, part):
+    """Fused training of ``cfg`` (cut in depth as ``cut`` says) over
+    P17_DS_P particles, one P17_TRAIN_S-token sequence a step: DeepEnsemble
+    (Adam) captured vs eager bit for bit over P17_TRAIN_STEPS steps;
+    SteinVGD (median) over ``svgd_steps`` steps, #1 and #2 launched once a
+    step and held against their plain versions at (2, D); the captured
+    DeepEnsemble step profiled after its run. Emits the row and returns
+    (the SteinVGD run's launches, the kernels' checks)."""
     from repro_torch.bdl import DeepEnsemble, SteinVGD
     from repro_torch.bdl.svgd import rbf_glue, svgd_force
     from repro_torch.core import ParticleModule
@@ -8784,9 +8823,8 @@ def p17_training(torch, card):
     from repro_torch.kernels import ref, svgd_rbf
     from repro_torch.models import api
     from repro_torch.optim import adam
-    from repro_torch.runtime import ProgramCache
-    cfg, cut = p17_cut(configs.get("deepseek-moe-16b"),
-                       n_units=P17_TRAIN_UNITS)
+    from repro_torch.runtime import ProgramCache, specs
+    what = f"({part})"
     module = ParticleModule(init=lambda g: api.init_params(g, cfg),
                             loss=lambda p, b: api.loss_fn(p, b, cfg), cfg=cfg)
     batches = list(DataLoader(cfg, batch_size=1, seq_len=P17_TRAIN_S,
@@ -8794,13 +8832,14 @@ def p17_training(torch, card):
     t0 = time.perf_counter()
     runs, finals = {}, {}
     for mode, cache in caches():
+        opt = adam(1e-4)
         algo, row = p17_train_run(torch, DeepEnsemble, module, batches,
-                                  cache, optimizer=adam(1e-4))
+                                  cache, optimizer=opt)
         if mode == "captured":
             info = row["programs"]
             if not (len(info) == 1 and info[0]["graph"]
                     and row["stats"]["cold_compiles"] == 1):
-                raise AssertionError(f"(b) captured programs {info}")
+                raise AssertionError(f"{what} captured programs {info}")
             params = algo.store.stacked("params")
             b0 = algo._batch(batches[0])
             with torch.no_grad():
@@ -8809,22 +8848,28 @@ def p17_training(torch, card):
                                        for k, v in metrics.items()}
             del params, b0
         finals[mode] = host_tree(algo.store.stacked("params"))
+        if mode == "captured":
+            # after the parity's snapshot: the window's steps advance it
+            row["step_profile"] = lm_window(
+                torch, algo, specs.ensemble_step(module.loss, opt,
+                                                 precision=algo.precision),
+                ("params", "opt_state"), batches[0], n=2)
         runs[mode] = row
         algo.cleanup()
         del algo, cache
         lm_free(torch)
     if runs["captured"]["losses"] != runs["eager"]["losses"] or \
             not tree_equal(torch, finals["captured"], finals["eager"]):
-        raise AssertionError("(b) captured and eager DeepEnsemble differ")
+        raise AssertionError(f"{what} captured and eager DeepEnsemble differ")
     del finals
     t1 = time.perf_counter()
     kw = {"lr": 1e-3, "lengthscale": 0.0}
     algo, svgd = p17_train_run(torch, SteinVGD, module,
-                               batches[:P17_SVGD_STEPS], ProgramCache(), **kw)
-    want = {"pairwise_sqdist": P17_SVGD_STEPS, "svgd_force": P17_SVGD_STEPS}
+                               batches[:svgd_steps], ProgramCache(), **kw)
+    want = {"pairwise_sqdist": svgd_steps, "svgd_force": svgd_steps}
     got = {k: svgd["launches"][k] for k in want}
-    if got != want or sum(svgd["launches"].values()) != P17_SVGD_STEPS * 2:
-        raise AssertionError(f"(b) SteinVGD launches {svgd['launches']}")
+    if got != want or sum(svgd["launches"].values()) != svgd_steps * 2:
+        raise AssertionError(f"{what} SteinVGD launches {svgd['launches']}")
     launches = dict(svgd["launches"])
     algo.push_dist.runtime.cache.clear()
     gc.collect()
@@ -8836,7 +8881,7 @@ def p17_training(torch, card):
     g = flatten_stacked(grads)[0]
     del grads, params
     n, D = theta.shape
-    sq = sqdist_exact(torch, svgd_rbf, theta, None, "(b) sqdist")
+    sq = sqdist_exact(torch, svgd_rbf, theta, None, f"{what} sqdist")
     # the plain version's fp32 Gram form sums 1.09e9 products an entry:
     # both sqdists are held to the plain version in fp64, and the force
     # kernel, alone and as SteinVGD runs it (kernel sqdist, glue, kernel
@@ -8860,11 +8905,11 @@ def p17_training(torch, card):
     if D != p17_param_count(cfg) or not (
             checks["sqdist_rel"] < 1e-5 and checks["force_rel"] < 2e-4
             and checks["svgd_force_end_to_end_rel"] < 2e-4):
-        raise AssertionError(f"(b) SVGD kernels vs plain: {checks}")
+        raise AssertionError(f"{what} SVGD kernels vs plain: {checks}")
     # the column kernel's bits where a second (n, D) output fits beside it
     checks["force_equals_columns"] = force_equals_columns(torch, theta, g, glue)
     if checks["force_equals_columns"] is False:
-        raise AssertionError(f"(b) force: not the column kernel's bits: "
+        raise AssertionError(f"{what} force: not the column kernel's bits: "
                              f"{checks}")
     b_ms, b_by = bound(n * D * 4 + n * n * 4, 3 * n * n * D)
     checks["pairwise_sqdist"] = {
@@ -8883,7 +8928,7 @@ def p17_training(torch, card):
     lm_free(torch)
     tokens = P17_DS_P * P17_TRAIN_S
     cap = runs["captured"]
-    row = {"phase": 17, "part": "b", "config": cut,
+    row = {"phase": phase, "part": part, "config": cut,
            "params_per_particle": p17_param_count(cfg),
            "particles": P17_DS_P, "seq_len": P17_TRAIN_S,
            "ensemble": runs, "captured_equals_eager_bit_for_bit": True,
@@ -8893,7 +8938,7 @@ def p17_training(torch, card):
                                             "svgd": time.perf_counter() - t1},
            "card": card}
     emit(row)
-    return launches
+    return launches, checks
 
 
 def p17_qwen3(torch, card):
@@ -9165,6 +9210,250 @@ def phase17(torch, card):
     return launches, rows
 
 
+P18_P = 2                        # particles in every part
+P18_B, P18_LEN, P18_NEW = 4, 101, 32   # a prefill of 100 = 64 + 36
+P18_RWKV_UNITS = 4               # (b): 4 of rwkv6-7b's 32 layers
+P18_CONT_TOL = 1e-3              # state continuation, of the largest |logit|
+
+
+def p18_attention_layers(cfg):
+    """The stack's attention layers (each one #5 launch a prefill and one
+    #6 launch a decode step on the dense path)."""
+    kinds = (list(cfg.head_layers) + list(cfg.pattern) * cfg.n_units
+             + list(cfg.tail_layers))
+    return sum(k not in ("mamba", "rwkv") for k in kinds)
+
+
+def p18_decode_row(torch, cfg, cache):
+    """#6 at the shared block's cache (its first occurrence's): the kernel
+    against its plain version, event and device ms beside the bound and
+    SDPA over the filled slots."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(184)
+    q = torch.randn((P18_P, P18_B, cfg.n_heads, cfg.hd), generator=gen,
+                    device="cuda")
+    a = (q, cache["k"][:, 0], cache["v"][:, 0], cache["pos"][0])
+    valid = int((a[3] >= 0).sum())
+    b_ms, b_by = bound(P18_P * valid * cfg.n_kv_heads * cfg.hd * 2 * 4
+                       + 2 * q.numel() * 4,
+                       4 * P18_P * valid * cfg.n_heads * cfg.hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    C = a[1].shape[2]
+    qs = q.reshape(-1, cfg.n_heads, 1, cfg.hd)
+    ks, vs = (t.reshape(-1, C, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+              for t in a[1:3])
+    live = (a[3] >= 0).repeat(P18_P, 1)[:, None, None, :]
+    return {"max_abs_err": max_err(torch, dk.decode_attention(*a),
+                                   ref.decode_attention(*a),
+                                   "(a) #6 on the shared block's cache", 2e-5),
+            "shape": {"P": P18_P, "B": P18_B, "C": C, "valid": valid,
+                      "H": cfg.n_heads, "KVH": cfg.n_kv_heads,
+                      "hd": cfg.hd},
+            "ms": time_ms(torch, lambda: dk.decode_attention(*a)),
+            "device_ms": device_ms(torch, lambda: dk.decode_attention(*a)),
+            "plain_ms": time_ms(torch, lambda: ref.decode_attention(*a),
+                                iters=10),
+            "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs,
+                                                      attn_mask=live)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def p18_flash_row(torch, cfg):
+    """#5 at the shared block's prefill shape (P18_P x P18_B prompts of
+    P18_LEN - 1 tokens, 32 heads of 64 over 32 kv heads) against its plain
+    version, with event and device ms, the bound and SDPA."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(185)
+    S = P18_LEN - 1
+    qkv = [torch.randn((P18_P, P18_B, S, h, cfg.hd), generator=gen,
+                       device="cuda")
+           for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    err = max_err(torch, fk.flash_attention(*qkv), ref.flash_attention(*qkv),
+                  "(a) #5 at zamba2's shape", 2e-5)
+    # each fp32 product as three TF32 products (phase 5's bound)
+    b_ms, b_by = bound(4 * (2 * qkv[0].numel() + 2 * qkv[1].numel()),
+                       3 * 4 * P18_P * P18_B * cfg.n_heads * cfg.hd
+                       * S * (S + 1) // 2, rate=TF32_FLOPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.reshape(-1, *t.shape[2:]).transpose(1, 2)
+                  .repeat_interleave(cfg.n_heads // t.shape[3], 1)
+                  for t in qkv)
+    return {"max_abs_err": err,
+            "ms": time_ms(torch, lambda: fk.flash_attention(*qkv)),
+            "device_ms": device_ms(torch, lambda: fk.flash_attention(*qkv)),
+            "plain_ms": time_ms(torch, lambda: ref.flash_attention(*qkv),
+                                iters=5),
+            "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs,
+                                                      is_causal=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": {"P": P18_P, "B": P18_B, "S": S, "H": cfg.n_heads,
+                      "KVH": cfg.n_kv_heads, "hd": cfg.hd}}
+
+
+def p18_serving(torch, card, name, part, **cut_kw):
+    """(a) / (b): ``name`` (cut in depth by ``cut_kw``) served from dense
+    state through ``PredictiveEngine(stateful=True)``, captured and eager:
+    P18_B prompts of P18_LEN tokens (a prefill of P18_LEN - 1, then
+    P18_NEW greedy BMA steps). Holds the tokens equal between the runs,
+    one cold compile of the captured step, the launches exact (#5 and #6
+    once an attention layer a prefill and a step, #7 and #8 never), and
+    the state carried on the card: a prefill of the prompt and the first
+    P18_NEW - 1 generated tokens gives the last step's logits. Returns
+    (the captured run's launches, the kernel rows at this model's
+    shapes)."""
+    from repro_torch import configs
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.models import api
+    from repro_torch.serve import PredictiveEngine
+    what = f"({part})"
+    cfg, cut = p17_cut(configs.get(name), **cut_kw)
+    A = p18_attention_layers(cfg)
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    fns = attention_counts()
+    prompts = np.random.default_rng(18).integers(1, cfg.vocab_size,
+                                                 (P18_B, P18_LEN))
+    C = P18_LEN + P18_NEW
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    runs, tokens, launches, total, last, kernels = {}, {}, {}, {}, {}, {}
+
+    def forward(p, c, b):
+        logits, c = api.decode_step(p, b["token"], c, b["cur_pos"], cfg)
+        last["logits"] = logits
+        return logits, c
+
+    with PushDistribution(module, seed=SEED) as pd:
+        for _ in range(P18_P):
+            pd.p_create()
+        params = pd.store.stacked("params")
+        for mode, cache in caches():
+            engine = PredictiveEngine(forward, store=pd.store, stateful=True,
+                                      cache=cache)
+            for fn in fns.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            state = engine.init_state(lambda p: api.prefill(
+                p, {"tokens": toks[:, :-1]}, cfg, max_len=C)[1])
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+            tok, out = toks[:, -1], []
+            t2 = time.perf_counter()
+            for step in range(P18_NEW):
+                heads, state = engine.step(state, {
+                    "token": tok, "cur_pos": P18_LEN - 1 + step})
+                tok = heads["mean"].argmax(-1).to(torch.int32)
+                out.append(tok)
+            tokens[mode] = torch.stack(out, 1).cpu().numpy().tolist()
+            decode_s = time.perf_counter() - t2
+            got = launches[mode] = read_counts(fns)
+            want = {"paged_decode_attention": 0,
+                    "paged_decode_window_attention": 0,
+                    "flash_attention": A, "decode_attention": A * P18_NEW}
+            if got != want:
+                raise AssertionError(f"{what} {mode} launches {got}, want "
+                                     f"{want}")
+            if mode == "captured":
+                add_counts(total, got)
+            st = cache.snapshot_stats()
+            if st["cold_compiles"] != 1:
+                raise AssertionError(f"{what} {mode} step programs {st}")
+            runs[mode] = {"prefill_s": prefill_s,
+                          "decode_tok_per_s": P18_B * P18_NEW / decode_s,
+                          "ms_per_step_wall": decode_s / P18_NEW * 1e3,
+                          "graph_pool_gb": [
+                              (c.get("pool_bytes") or 0) / 2**30
+                              for c in cache.program_costs()]}
+            if mode == "eager":
+                step32 = last.pop("logits").clone()
+            else:
+                if A:
+                    kernels["decode_attention"] = p18_decode_row(
+                        torch, cfg, state["units"][
+                            cfg.pattern.index("shared_attn")])
+                after = tok
+                prof = runs[mode]["step_profile"] = profile_steps(
+                    torch, lambda: engine.step(state, {
+                        "token": after, "cur_pos": C - 1}), n=3, fns=fns,
+                    prologue=32, epilogue=32)
+                if "wall_ms" in prof:
+                    runs[mode]["steady_tok_per_s"] = \
+                        P18_B / prof["wall_ms"] * 1e3
+            last.clear()
+            del state, engine, cache
+            torch.cuda.empty_cache()
+        exact, gaps = compare_tokens(
+            torch, pd, cfg, prompts, tokens["captured"], tokens["eager"],
+            f"{what} captured vs eager")
+        same_launches(launches, f"phase 18 {what}")
+        # the state carried over: the eager run's last step consumed the
+        # 31st generated token; a prefill of everything before it and it
+        # gives the same next-token logits
+        seq = torch.cat([toks, torch.as_tensor(
+            tokens["eager"], dtype=torch.int32,
+            device="cuda")[:, :P18_NEW - 1]], 1)
+        with torch.no_grad():
+            cont, _ = api.prefill(params, {"tokens": seq}, cfg)
+        top = float(step32.abs().max())
+        cont_err = float((cont - step32).abs().max()) / top
+        if not cont_err < P18_CONT_TOL:
+            raise AssertionError(f"{what} prefill of {seq.shape[1]} tokens "
+                                 f"vs step {P18_NEW}: {cont_err} of the "
+                                 f"largest |logit|")
+        if A:
+            kernels["flash_attention"] = p18_flash_row(torch, cfg)
+        del params, cont, step32
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": 18, "part": part, "config": cut,
+           "params_per_particle": p17_param_count(cfg),
+           "particles": P18_P, "prompts": P18_B, "prompt_len": P18_LEN,
+           "new_tokens": P18_NEW, "attention_layers": A, "runs": runs,
+           "captured_vs_eager_requests_token_equal": exact,
+           "tie_gaps": gaps, "continuation_rel_err": cont_err,
+           "kernels": kernels, "launches": total,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "part_s": time.perf_counter() - t0, "card": card}
+    emit(row)
+    return total, kernels
+
+
+def phase18(torch, card):
+    """The recurrent families: zamba2-1.2b (Mamba2 with its shared
+    attention) at full depth (a) and rwkv6-7b at 4 of its 32 layers (b)
+    served from dense state, captured and eager; both trained fused,
+    depth cut (c). Returns (the kernels' launches over the parts'
+    main-path runs, phase 18's kernel rows)."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+    got, rows["zamba2"] = p18_serving(torch, card, "zamba2-1.2b", "a")
+    add_counts(launches, got)
+    lm_free(torch)
+    t1 = time.perf_counter()
+    got, _ = p18_serving(torch, card, "rwkv6-7b", "b",
+                         n_units=P18_RWKV_UNITS)
+    add_counts(launches, got)
+    lm_free(torch)
+    t2 = time.perf_counter()
+    train = {}
+    for name, units in (("zamba2-1.2b", 1), ("rwkv6-7b", 1)):
+        got, train[name] = zoo_training(
+            torch, card, *p17_cut(configs.get(name), n_units=units),
+            P17_TRAIN_STEPS, 18, f"c {name}")
+        add_counts(launches, got)
+        lm_free(torch)
+    rows["training"] = train
+    emit({"phase": 18, "part": "summary",
+          "phase_s": time.perf_counter() - t0,
+          "part_s": {"a": t1 - t0, "b": t2 - t1,
+                     "c": time.perf_counter() - t2},
+          "launches": launches, "card": card})
+    return launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9255,6 +9544,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     zoo_launches, zoo_rows = phase17(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent_launches, recurrent_rows = phase18(torch, card)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
@@ -9267,6 +9559,16 @@ def main():
         row["placement_launches"] = placement_launches.get(name, 0)
         row["model_axis_launches"] = model_launches.get(name, 0)
         row["zoo_launches"] = zoo_launches.get(name, 0)
+        row["recurrent_launches"] = recurrent_launches.get(name, 0)
+        recurrent = {}
+        if name in recurrent_rows["zamba2"]:
+            recurrent["zamba2"] = recurrent_rows["zamba2"][name]
+        if name in ("pairwise_sqdist", "svgd_force"):
+            recurrent["training"] = {
+                arch: checks[name]
+                for arch, checks in recurrent_rows["training"].items()}
+        if recurrent:
+            row["recurrent"] = recurrent
         zoo = {}
         if name in zoo_rows["position"]:
             zoo["deepseek"] = zoo_rows["position"][name]

@@ -1,11 +1,13 @@
 """Model configs for the port (counterpart of ``repro.configs.base``).
 
 A ``ModelConfig`` describes one architecture. The port runs decoder-only
-attention stacks (the LM families "dense" and "moe": ``attn_mlp``,
-``attn_moe`` and sliding-window ``local`` layers), the ViT's family
-"vision" and the 1-D conv UNet (family "pde": ``d_model`` is its base
-channel count, ``n_units`` its depth, ``max_seq_len`` its grid), so the
-config carries the fields those read; field names and
+stacks (the LM families "dense" and "moe": ``attn_mlp``, ``attn_moe``
+and sliding-window ``local`` layers; "ssm": RWKV6's ``rwkv`` layers;
+"hybrid": Mamba2's ``mamba`` layers with zamba2's ``shared_attn``, one
+attention block whose one parameter copy serves every occurrence), the
+ViT's family "vision" and the 1-D conv UNet (family "pde": ``d_model``
+is its base channel count, ``n_units`` its depth, ``max_seq_len`` its
+grid), so the config carries the fields those read; field names and
 defaults match the reference, so one set of ``replace(...)`` keywords
 builds the same model in both packages.
 
@@ -22,7 +24,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | vision | pde (the families ported)
+    family: str                  # dense | moe | ssm | hybrid | vision | pde
     d_model: int
     vocab_size: int
 
@@ -54,6 +56,13 @@ class ModelConfig:
     shared_d_ff: int = 0             # hidden dim of the shared-expert MLP
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+
+    # --- ssm / hybrid ------------------------------------------------------
+    ssm_state: int = 0               # Mamba2 d_state
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    rwkv_head_dim: int = 64
 
     # --- misc ----------------------------------------------------------------
     prefix_lm: bool = False
@@ -99,6 +108,9 @@ class ModelConfig:
             top_k=min(self.top_k, 2) if self.top_k else 0,
             moe_d_ff=min(self.moe_d_ff, 128) if self.moe_d_ff else 0,
             shared_d_ff=min(self.shared_d_ff, 128) if self.shared_d_ff else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
+            rwkv_head_dim=32,
             sliding_window=(min(self.sliding_window, 16)
                             if self.sliding_window else 0),
             max_seq_len=256,

@@ -62,6 +62,12 @@ class PushDistribution:
             precision = getattr(getattr(module, "cfg", None), "precision",
                                 None)
         self.precision = resolve_precision(precision)
+        family = getattr(getattr(module, "cfg", None), "family", None)
+        if family in ("ssm", "hybrid") and \
+                self.precision != resolve_precision("fp32"):
+            raise NotImplementedError(
+                f"the {family} stacks run under fp32 only: the precision "
+                f"presets on them wait for ROADMAP.md queue 1, item 21")
         if placement is not None and placement.mesh is not None:
             device = placement.positions()[0]
         self.nel = NodeEventLoop(num_devices=num_devices,

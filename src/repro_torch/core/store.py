@@ -101,8 +101,10 @@ class Placement:
     a mesh (``launch.mesh.Mesh``) and which of its axes carries which
     role. ``particle_axis`` splits the stacked particle axis into
     contiguous slot ranges, one per position; ``mesh=None`` keeps every
-    particle on the store's device. A ``model_axis`` larger than 1 (one
-    particle across devices) raises ``NotImplementedError``.
+    particle on the store's device. A ``model_axis`` larger than 1 splits
+    one particle across its devices in mode "tp" (``models.tp``: each data
+    position's stack a ``core.tree.Group`` of model shards); another mode
+    raises ``ValueError``.
 
     Equality and hashing are by plan: two placements over separately
     built meshes with the same axes, sizes and devices (a device's key is

@@ -64,13 +64,14 @@ def advection_batch(rng: np.random.Generator, batch: int, L: int = 128,
 
 def make_batch(cfg, rng: np.random.Generator, batch: int, seq: int):
     """Family-dispatching batch builder for a ModelConfig (the vision, pde
-    and LM families, dense and moe; the audio and vlm frontends wait for
-    the rest of the model zoo, ROADMAP.md queue 1 item 11)."""
+    and LM families: dense, moe, ssm and hybrid; the audio and vlm
+    frontends wait for the rest of the model zoo, ROADMAP.md queue 1 item
+    11)."""
     if cfg.family == "vision":
         return mnist_like(rng, batch, cfg.vocab_size)
     if cfg.family == "pde":
         return advection_batch(rng, batch, cfg.max_seq_len)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} has no ported data (ROADMAP.md queue 1, "
             f"item 11)")

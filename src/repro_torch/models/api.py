@@ -1,9 +1,12 @@
 """Model facade (counterpart of ``repro.models.api``): the decoder-only
 LM's serving entry points (paged continuous-batching prefill, decode and
-speculative verify window; prefill into and decode over a dense cache)
-and the training forward and loss of four families: the dense and MoE
-LMs (token cross-entropy in sequence chunks; MoE adds its router's aux
-losses), the vision family (ViT) and the pde family (the 1-D UNet).
+speculative verify window; prefill into and decode over a dense cache
+and recurrent state) and the training forward and loss of six families:
+the dense and MoE LMs (token cross-entropy in sequence chunks; MoE adds
+its router's aux losses), the recurrent LMs "ssm" (RWKV6) and "hybrid"
+(Mamba2 with zamba2's shared attention), which serve from the dense
+path only, as in the reference, the vision family (ViT) and the pde
+family (the 1-D UNet).
 
 ``init_params`` builds ONE particle's tree (no particle axis); the store
 stacks particles. Every other function takes the stacked tree with a
@@ -15,10 +18,10 @@ Under a model axis (a 2D placement) the stacked tree arrives as a
 points hand it to their tensor-parallel counterparts in ``models.tp``,
 and ``loss_fn`` takes the same loss on what ``tp.forward`` returns.
 
-LM batches (families "dense" and "moe"): ``{"tokens": (B, S) int,
-"labels": (B, S) int}`` (labels < 0
-masked); vision batches: ``{"images": (B, 28, 28, 1) f32, "labels": (B,)
-int}``; pde batches: ``{"u0": (B, L, 1) f32, "u1": (B, L, 1) f32}``.
+LM batches (families "dense", "moe", "ssm" and "hybrid"): ``{"tokens":
+(B, S) int, "labels": (B, S) int}`` (labels < 0 masked); vision batches:
+``{"images": (B, 28, 28, 1) f32, "labels": (B,) int}``; pde batches:
+``{"u0": (B, L, 1) f32, "u1": (B, L, 1) f32}``.
 """
 from __future__ import annotations
 
@@ -35,9 +38,9 @@ from ..runtime.program import host_check
 from ..sharding.policy import maybe_shard
 from .blocks import (dense_init, norm_apply, norm_init, paged_write_index,
                      prefill_write_index, window_write_index)
-from .transformer import (decode_guard, paged_guard, stack_apply_decode,
-                          stack_apply_full, stack_apply_paged,
-                          stack_apply_prefill,
+from .transformer import (RECURRENT_KINDS, decode_guard, paged_guard,
+                          stack_apply_decode, stack_apply_full,
+                          stack_apply_paged, stack_apply_prefill,
                           stack_apply_prefill_paged,
                           stack_apply_window_paged, stack_cache_init,
                           stack_init, stack_paged_init)
@@ -46,7 +49,7 @@ from . import unet1d as unet_mod
 from . import vit as vit_mod
 
 LOSS_CHUNK = 512
-LM_FAMILIES = ("dense", "moe")
+LM_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def init_params(gen, cfg):
@@ -69,14 +72,19 @@ def init_params(gen, cfg):
     return params
 
 
-def _backbone_inputs(params, batch, cfg, dtype):
-    """The LM families' stack input x (P, B, S, D). The audio and vlm
-    frontends (and the vlm's offset of the text positions) wait for the
-    rest of the model zoo (ROADMAP.md queue 1, item 11)."""
+def _family_guard(cfg, what):
+    """The audio and vlm frontends (and the vlm's offset of the text
+    positions) wait for the rest of the model zoo (ROADMAP.md queue 1,
+    item 11)."""
     if cfg.family not in LM_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} has no ported training forward "
+            f"family {cfg.family!r} has no ported {what} "
             f"(ROADMAP.md queue 1, item 11)")
+
+
+def _backbone_inputs(params, batch, cfg, dtype):
+    """The LM families' stack input x (P, B, S, D)."""
+    _family_guard(cfg, "training forward")
     return _embed(params, batch["tokens"], dtype)
 
 
@@ -207,7 +215,9 @@ def prefill(params, batch, cfg, max_len=None):
     ``max_len`` allocates decode headroom in the caches (defaults to S;
     pass S + decode budget + 1 for generation). Returns (last-token
     logits (P, B, V), caches): per attention layer k/v (P, B, max_len,
-    KVH, hd) and pos (B, max_len) int32, shared by the particles."""
+    KVH, hd) and pos (B, max_len) int32, shared by the particles; per
+    recurrent layer its scan's final state (``stack_cache_init``)."""
+    _family_guard(cfg, "serving")
     device = (params.devices[0] if isinstance(params, Group)
               else params["embed"].device)
     tokens = torch.as_tensor(batch["tokens"]).to(device)
@@ -234,6 +244,7 @@ def decode_step(params, token, caches, cur_pos, cfg):
     tensor through ``runtime.program.host_check`` on the int it is filled
     from before each replay; any other tensor is its caller's to check.
     The caches are updated in place. Returns (logits (P, B, V), caches)."""
+    _family_guard(cfg, "serving")
     decode_guard(cfg)
     check = functools.partial(_check_cur_pos, C=_global_len(caches, cfg))
     if isinstance(cur_pos, torch.Tensor):
@@ -252,14 +263,14 @@ def decode_step(params, token, caches, cur_pos, cfg):
 
 def _global_len(caches, cfg):
     """The slots of the stack's global (non-ring) caches: the positions a
-    decode may reach; None when every layer is a ``local`` ring (any
-    position is then in range)."""
+    decode may reach; None when no layer has one (``local`` rings and
+    recurrent states: any position is then in range)."""
     tree = caches.shards[0] if isinstance(caches, Group) else caches
     kinds = {"head": cfg.head_layers, "units": cfg.pattern,
              "tail": cfg.tail_layers}
     for group in ("units", "head", "tail"):
         for kind, c in zip(kinds[group], tree[group]):
-            if kind != "local":
+            if kind not in ("local",) + RECURRENT_KINDS:
                 return c["k"].shape[-3]
     return None
 

@@ -60,9 +60,10 @@ from ..sharding.policy import maybe_shard
 from . import blocks
 from . import moe as moe_mod
 from .blocks import norm_apply
-from .transformer import (cache_unit, decode_guard, mask_kind, page_unit,
-                          paged_guard, stack_apply_full, stack_layers,
-                          unbind_units, window_of)
+from .transformer import (RECURRENT_KINDS, cache_unit, decode_guard,
+                          mask_kind, page_unit, paged_guard,
+                          stack_apply_full, stack_layers, unbind_units,
+                          window_of)
 
 
 # --------------------------------------------------------------------------
@@ -336,6 +337,19 @@ def vit_forward(group: Group, images, cfg):
     return vit_apply(group.shards[0], images, cfg, encoder=encoder)
 
 
+def recurrent_guard(cfg):
+    """The model axis runs attention stacks only: the recurrent blocks
+    (``mamba``, ``rwkv``) and zamba2's ``shared_attn`` have rules in
+    ``sharding.rules`` but no tensor-parallel layer (ROADMAP.md queue 1,
+    item 25)."""
+    kinds = set(cfg.head_layers) | set(cfg.pattern) | set(cfg.tail_layers)
+    bad = sorted(kinds & set(RECURRENT_KINDS + ("shared_attn",)))
+    if bad:
+        raise NotImplementedError(
+            f"{bad} layers have no tensor-parallel form on the model axis "
+            f"(ROADMAP.md queue 1, item 25)")
+
+
 def forward(group, batch, cfg):
     """``api.forward`` over a group: the output on the first position
     (the LM's final-norm hidden states and its MoE aux values, the ViT's
@@ -343,6 +357,7 @@ def forward(group, batch, cfg):
     from . import api
     if not has_split(group):
         return api.forward(entry(group), batch, cfg)
+    recurrent_guard(cfg)
     if cfg.family == "vision":
         return vit_forward(group, batch["images"], cfg), {}
     if cfg.family not in api.LM_FAMILIES:
@@ -434,6 +449,7 @@ def prefill(group: Group, tokens, cfg, C: int):
     from .api import _cache_dtype
     from .transformer import stack_cache_init
     decode_guard(cfg)
+    recurrent_guard(cfg)
     B, S = tokens.shape
     plan = _plan_locals(group, cfg)
     caches = Group([stack_cache_init(lc, s["embed"].shape[0], B, C,
@@ -450,6 +466,7 @@ def decode_step(group: Group, token, caches: Group, cur_pos, cfg):
     """``api.decode_step`` over a group (``cur_pos`` a 0-d device tensor,
     checked by the caller)."""
     decode_guard(cfg)
+    recurrent_guard(cfg)
     x = _serve(group, token.clamp(min=0)[:, None], cfg, caches,
                {"cur_pos": cur_pos},
                lambda p, h, lc, st, ctx, w: blocks.attn_apply_decode(

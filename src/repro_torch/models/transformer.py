@@ -1,29 +1,35 @@
 """Layer-stacked transformer (counterpart of ``repro.models.transformer``):
 the LM's serving paths (paged decode, speculative verify window and
-prefill over the page pool; prefill into and decode over a dense cache),
-the LM's training stack (``stack_apply_full``, with the remat menu) and
-the full-sequence training layer of the encoder stack (``enc_attn_mlp``,
-the ViT's layers).
+prefill over the page pool; prefill into and decode over a dense cache
+or recurrent state), the LM's training stack (``stack_apply_full``,
+with the remat menu) and the full-sequence training layer of the
+encoder stack (``enc_attn_mlp``, the ViT's layers).
 
 Layer kinds: ``attn_mlp`` (global attention + MLP), ``attn_moe`` (global
 attention + the MoE of ``models.moe``), ``local`` (``attn_mlp`` with a
 sliding window of ``cfg.sliding_window`` keys: a ring cache of that many
-slots in dense-cache decode; no paged form, as in the reference) and
-``enc_attn_mlp`` (bidirectional). The recurrent kinds, ``shared_attn``,
-the encoder-decoder and prefix-LM wait for the rest of the model zoo
-(ROADMAP.md queue 1, item 11).
+slots in dense-cache decode; no paged form, as in the reference),
+``enc_attn_mlp`` (bidirectional), ``mamba`` (``models.mamba``) and
+``rwkv`` (``models.rwkv``), whose decode state is their scan's (no paged
+form either), and ``shared_attn`` (zamba2's shared block: an
+``attn_mlp`` layer whose one parameter copy, at ``params["shared"]``,
+serves every occurrence in the pattern; its gradient sums over them,
+while each occurrence keeps its own cache). The encoder-decoder and
+prefix-LM wait for the rest of the model zoo (ROADMAP.md queue 1, item
+11).
 
 The stack is ``cfg.head_layers + cfg.pattern * cfg.n_units +
 cfg.tail_layers``. Repeated pattern units keep the reference's storage:
 params and pages stacked on an ``n_units`` axis, which in the port sits
-right after the particle axis (``(P, n_units, ...)``). The reference scans
-over units; here a Python loop indexes each unit's params, pages and
-dense caches as views, so the in-place writes land in the stacked pool
-or cache (a dense cache's slot positions, shared by the particles, are
-stacked as ``(n_units, B, C)``). The
-training path unbinds each unit leaf once (``unbind_units``: ``unbind``
-backpropagates as one stack, where per-unit indexing would add a
-full-size zero gradient per unit).
+right after the particle axis (``(P, n_units, ...)``; a ``shared_attn``
+position holds ``{}``). The reference scans over units; here a Python
+loop indexes each unit's params, pages and dense caches as views, so
+the in-place writes land in the stacked pool, cache or state (a dense
+cache's slot positions, shared by the particles, are stacked as
+``(n_units, B, C)``; a recurrent state's leaves as ``(P, n_units, B,
+...)``). The training path unbinds each unit leaf once (``unbind_units``:
+``unbind`` backpropagates as one stack, where per-unit indexing would
+add a full-size zero gradient per unit).
 """
 from __future__ import annotations
 
@@ -31,7 +37,9 @@ from typing import Any, Dict
 
 from ..core.precision import checkpoint_policy
 from ..core.tree import tree_map
+from . import mamba as mamba_mod
 from . import moe as moe_mod
+from . import rwkv as rwkv_mod
 from .blocks import (attn_apply_decode, attn_apply_fullseq,
                      attn_apply_paged, attn_apply_prefill,
                      attn_apply_prefill_paged, attn_apply_window_paged,
@@ -39,8 +47,12 @@ from .blocks import (attn_apply_decode, attn_apply_fullseq,
                      mlp_init, norm_apply, norm_init)
 
 PAGED_KINDS = ("attn_mlp", "attn_moe")
-DECODE_KINDS = ("attn_mlp", "attn_moe", "local")
-FULL_KINDS = ("attn_mlp", "attn_moe", "local", "enc_attn_mlp")
+RECURRENT_KINDS = ("mamba", "rwkv")
+DECODE_KINDS = ("attn_mlp", "attn_moe", "local", "shared_attn") \
+    + RECURRENT_KINDS
+FULL_KINDS = DECODE_KINDS + ("enc_attn_mlp",)
+STATE_INIT = {"mamba": mamba_mod.mamba_state_init,
+              "rwkv": rwkv_mod.rwkv_state_init}
 AUX_KEYS = moe_mod.AUX_KEYS
 
 
@@ -48,6 +60,10 @@ def layer_init(kind: str, gen, cfg, lead=()):
     if kind not in FULL_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                   f"(ROADMAP.md queue 1, item 11)")
+    if kind == "mamba":
+        return mamba_mod.mamba_init(gen, cfg, lead=lead)
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_init(gen, cfg, lead=lead)
     dev = gen.device
     p = {"ln1": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead),
          "attn": attn_init(gen, cfg, lead=lead),
@@ -93,13 +109,19 @@ def add_aux(total, aux):
 
 
 def stack_init(gen, cfg) -> Dict[str, Any]:
-    """One particle's stack params; unit leaves lead with n_units."""
-    return {
+    """One particle's stack params; unit leaves lead with n_units. A
+    ``shared_attn`` pattern position keeps ``{}`` in ``units``: its one
+    copy sits at ``params["shared"]``."""
+    params = {
         "head": tuple(layer_init(k, gen, cfg) for k in cfg.head_layers),
         "tail": tuple(layer_init(k, gen, cfg) for k in cfg.tail_layers),
-        "units": tuple(layer_init(k, gen, cfg, lead=(cfg.n_units,))
-                       for k in cfg.pattern),
     }
+    if "shared_attn" in cfg.pattern:
+        params["shared"] = layer_init("shared_attn", gen, cfg)
+    params["units"] = tuple(
+        {} if k == "shared_attn" else
+        layer_init(k, gen, cfg, lead=(cfg.n_units,)) for k in cfg.pattern)
+    return params
 
 
 def unbind_units(tree):
@@ -118,10 +140,24 @@ def _n(per):
     return len(next(iter(per.values())) if isinstance(per, dict) else per[0])
 
 
+def unit_params(params, cfg):
+    """Each unit's layer params in pattern order, as views (one
+    ``unbind_units`` per stacked position); a ``shared_attn`` position
+    takes ``params["shared"]`` itself."""
+    cols = [None if kind == "shared_attn" else unbind_units(t)
+            for kind, t in zip(cfg.pattern, params["units"])]
+    return [[params["shared"] if c is None else c[u] for c in cols]
+            for u in range(cfg.n_units)]
+
+
 def layer_apply_full(kind: str, p, x, cfg):
-    """One pre-norm attention + (MLP | MoE) layer over a whole sequence.
-    x (P, B, S, D) -> (x (P, B, S, D), aux: the MoE's aux values (P,) or
-    None)."""
+    """One layer over a whole sequence: a recurrent block's chunked scan
+    from a zero state, or pre-norm attention + (MLP | MoE). x (P, B, S, D)
+    -> (x (P, B, S, D), aux: the MoE's aux values (P,) or None)."""
+    if kind == "mamba":
+        return mamba_mod.mamba_block_full(p, x, cfg)[0], None
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_block_full(p, x, cfg)[0], None
     mk, window = mask_kind(kind, cfg)
     x = x + attn_apply_fullseq(p["attn"], norm_apply(p["ln1"], x), cfg,
                                kind=mk, window=window)
@@ -130,11 +166,11 @@ def layer_apply_full(kind: str, p, x, cfg):
 
 
 def full_guard(cfg):
-    """The training stack runs ``attn_mlp`` and ``attn_moe`` layers
-    (causal), ``local`` (sliding window) and ``enc_attn_mlp``
-    (bidirectional), with or without a logit softcap; the other layer
-    kinds and prefix-LM wait for the rest of the model zoo (ROADMAP.md
-    queue 1, item 11)."""
+    """The training stack runs ``attn_mlp``, ``attn_moe`` and
+    ``shared_attn`` layers (causal), ``local`` (sliding window),
+    ``enc_attn_mlp`` (bidirectional), ``mamba`` and ``rwkv``, with or
+    without a logit softcap; the other layer kinds and prefix-LM wait
+    for the rest of the model zoo (ROADMAP.md queue 1, item 11)."""
     kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
     bad = sorted({k for k in kinds if k not in FULL_KINDS})
     if bad:
@@ -165,7 +201,8 @@ def stack_apply_full(params, x, cfg, layer=layer_apply_full):
     layer and returns (x, aux or None): ``models.tp`` passes its
     tensor-parallel layer, with ``params`` a tree whose layers hold one
     tree per model position and ``x`` a list with one tensor per
-    position."""
+    position. Every ``shared_attn`` occurrence reads ``params["shared"]``,
+    so its gradient sums over the occurrences."""
     full_guard(cfg)
 
     def body(x, unit):
@@ -181,7 +218,7 @@ def stack_apply_full(params, x, cfg, layer=layer_apply_full):
         x, a = layer(kind, p, x, cfg)
         aux = add_aux(aux, a)
     if cfg.n_units:
-        for unit in unbind_units(params["units"]):
+        for unit in unit_params(params, cfg):
             x, a = body(x, unit)
             aux = add_aux(aux, a)
     for kind, p in zip(cfg.tail_layers, params["tail"]):
@@ -190,12 +227,27 @@ def stack_apply_full(params, x, cfg, layer=layer_apply_full):
     return x, aux or {}
 
 
+def _write_state(cache, new):
+    """Copy a recurrent block's new state into its cache IN PLACE, so a
+    captured step's replay carries it."""
+    for k, t in new.items():
+        cache[k].copy_(t)
+    return cache
+
+
 def layer_apply_prefill(kind: str, p, x, cfg, cache):
     """One layer over a whole prompt that also builds the layer's dense
-    decode cache (a ring for a ``local`` layer), the counterpart of the
+    decode cache (a ring for a ``local`` layer) or, for a recurrent
+    block, writes its scan's final state, the counterpart of the
     cache-building branch of the reference's ``layer_apply_full``: the
     layer's empty cache is filled in place. x (P, B, S, D). Returns (x,
     cache)."""
+    if kind == "mamba":
+        x, new = mamba_mod.mamba_block_full(p, x, cfg)
+        return x, _write_state(cache, new)
+    if kind == "rwkv":
+        x, new = rwkv_mod.rwkv_block_full(p, x, cfg)
+        return x, _write_state(cache, new)
     h, cache = attn_apply_prefill(p["attn"], norm_apply(p["ln1"], x), cfg,
                                   cache, window=window_of(kind, cfg))
     x = x + h
@@ -204,8 +256,15 @@ def layer_apply_prefill(kind: str, p, x, cfg, cache):
 
 def layer_apply_decode(kind: str, p, x, cfg, cache, ctx):
     """One-token decode of one layer over its dense cache (a ring for a
-    ``local`` layer). x (P, B, 1, D); ctx: cur_pos (a 0-d int tensor on
-    the device). The cache is updated in place. Returns (x, cache)."""
+    ``local`` layer) or its recurrent state. x (P, B, 1, D); ctx: cur_pos
+    (a 0-d int tensor on the device). The cache is updated in place.
+    Returns (x, cache)."""
+    if kind == "mamba":
+        x, new = mamba_mod.mamba_block_decode(p, x, cfg, cache)
+        return x, _write_state(cache, new)
+    if kind == "rwkv":
+        x, new = rwkv_mod.rwkv_block_decode(p, x, cfg, cache)
+        return x, _write_state(cache, new)
     h, cache = attn_apply_decode(p["attn"], norm_apply(p["ln1"], x), cfg,
                                  cache, cur_pos=ctx["cur_pos"],
                                  window=window_of(kind, cfg))
@@ -214,10 +273,11 @@ def layer_apply_decode(kind: str, p, x, cfg, cache, ctx):
 
 
 def decode_guard(cfg):
-    """The dense-cache path runs ``attn_mlp``, ``attn_moe`` and ``local``
-    (ring cache) stacks, with or without a logit softcap; the other layer
-    kinds and prefix-LM wait for the rest of the model zoo (ROADMAP.md
-    queue 1, item 11)."""
+    """The dense-cache path runs ``attn_mlp``, ``attn_moe``,
+    ``shared_attn`` and ``local`` (ring cache) layers and the recurrent
+    ``mamba`` and ``rwkv`` (their scan state), with or without a logit
+    softcap; the other layer kinds and prefix-LM wait for the rest of
+    the model zoo (ROADMAP.md queue 1, item 11)."""
     kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
     bad = sorted({k for k in kinds if k not in DECODE_KINDS})
     if bad:
@@ -248,22 +308,26 @@ def stack_apply_decode(params, x, cfg, caches, ctx):
 def stack_layers(params, state, cfg, pick):
     """(where, kind, p, s) of every layer of the stack, in order: ``where``
     is "head", "units" or "tail"; a unit layer's params are views
-    ``a[:, u]`` of the stacked tree and its state (pages or a dense cache)
-    is ``pick(unit state, u)``, so in-place writes land in the stacked
-    state."""
+    ``a[:, u]`` of the stacked tree (a ``shared_attn`` occurrence's are
+    ``params["shared"]``) and its state (pages, a dense cache or a
+    recurrent state) is ``pick(unit state, u)``, so in-place writes land
+    in the stacked state."""
     for kind, p, s in zip(cfg.head_layers, params["head"], state["head"]):
         yield "head", kind, p, s
     for u in range(cfg.n_units):
         for j, kind in enumerate(cfg.pattern):
-            yield ("units", kind,
-                   tree_map(lambda a: a[:, u], params["units"][j]),
-                   pick(state["units"][j], u))
+            p = params["shared"] if kind == "shared_attn" else tree_map(
+                lambda a: a[:, u], params["units"][j])
+            yield "units", kind, p, pick(state["units"][j], u)
     for kind, p, s in zip(cfg.tail_layers, params["tail"], state["tail"]):
         yield "tail", kind, p, s
 
 
 def cache_unit(c, u: int):
-    """Unit u's dense cache: k/v ``[:, u]``, pos ``[u]``."""
+    """Unit u's dense cache: k/v ``[:, u]``, pos ``[u]``; or its recurrent
+    state: every leaf ``[:, u]``."""
+    if "pos" not in c:
+        return tree_map(lambda a: a[:, u], c)
     return {"k": c["k"][:, u], "v": c["v"][:, u], "pos": c["pos"][u]}
 
 
@@ -289,11 +353,17 @@ def stack_cache_init(cfg, particles: int, batch: int, seq_len: int, *,
     """Empty dense caches for ``particles`` stacked particles: per
     attention layer k/v (P, B, C, KVH, hd) zeros and pos (B, C) = -1, C =
     seq_len, or min(sliding_window, seq_len) for a ``local`` layer's ring
-    (each pattern position keeps its own C); unit layers stacked on
-    n_units (k/v (P, n_units, ...), pos (n_units, ...))."""
+    (each pattern position keeps its own C, each ``shared_attn``
+    occurrence its own cache); per recurrent layer its zero state
+    (``mamba_state_init``, ``rwkv_state_init``); unit layers stacked on
+    n_units (k/v (P, n_units, ...), pos (n_units, ...), a state's leaves
+    (P, n_units, ...))."""
     decode_guard(cfg)
 
     def one(kind, lead=()):
+        if kind in STATE_INIT:
+            return STATE_INIT[kind](cfg, particles, batch, dtype=dtype,
+                                    device=device, lead=lead)
         return attn_cache_init(cfg, particles, batch, seq_len, dtype=dtype,
                                device=device, lead=lead,
                                window=window_of(kind, cfg))

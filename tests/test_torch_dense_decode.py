@@ -184,8 +184,8 @@ def test_init_cache_and_unported_options():
     with pytest.raises(ValueError, match="outside"):
         tapi.decode_step(params, torch.ones(1, dtype=torch.int32), caches, 5,
                          tcfg)
-    for bad in (dict(prefix_lm=True), dict(pattern=("rwkv",)),
-                dict(tail_layers=("mamba",))):
+    for bad in (dict(prefix_lm=True), dict(pattern=("dec_attn_mlp",)),
+                dict(family="audio")):
         with pytest.raises(NotImplementedError, match="queue 1"):
             tapi.prefill(params, {"tokens": torch.ones(1, 4,
                                                        dtype=torch.int32)},

@@ -278,8 +278,8 @@ def test_lm_forward_refuses_unported_layers():
     _, tcfg = _cfgs()
     tb = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
     params = _stacked_port(_numpy_inits(P))
-    for bad in (tcfg.replace(pattern=("rwkv",)),
-                tcfg.replace(pattern=("mamba",)),
+    for bad in (tcfg.replace(pattern=("dec_attn_mlp",)),
+                tcfg.replace(tail_layers=("dec_attn_mlp",)),
                 tcfg.replace(prefix_lm=True),
                 tcfg.replace(family="audio"),
                 tcfg.replace(family="vlm")):

@@ -119,7 +119,8 @@ Phase 4  trains 8 full-width ViT-MNIST particles (16 layers, random
          peak device memory.
 
 Phase 8  trains the same 8 full-width ViT-MNIST particles (random weights
-         from seed 0, batches of 64, 8 per epoch) with backend="nel", the
+         from seed 0, batches of 64, 4 per epoch: P8_NB, half of phase
+         4's, for the script's time) with backend="nel", the
          default: the executor, the NEL on cuda:0 (num_devices=1) and
          particle messaging. DeepEnsemble (Adam, 1 epoch: one step hop a
          particle a batch), SteinVGD (2 epochs, the median heuristic: the
@@ -397,8 +398,8 @@ Phase 12 the paper's SciML workload and its Fig. 4 baselines
          kernel's ``sciml_launches`` in the kernels line are phase 12's
          driven runs, its ``unet`` entry #1-#4 timed at the UNet's shapes.
 
-Phase 13 LM training: 4 full-width qwen1.5-0.5b particles (12 of its
-         24 layers, 309,785,600 parameters each, random
+Phase 13 LM training: 4 full-width qwen1.5-0.5b particles (6 of its
+         24 layers, 232,684,544 parameters each, random
          weights from seed 0, TF32 off) fed one 2048-token lm_batch
          sequence a step by the seeded DataLoader, through
          ParticleModule(loss=api.loss_fn) (the chunked flash attention
@@ -528,7 +529,7 @@ Phase 15 particles across GPUs: the store's particle axis on a data mesh
          and a second service over the same store and cache capturing
          nothing, then on the store moved to one position and to one
          device, ms a request each, heads within 1e-5 of the mesh's. (c)
-         8 qwen1.5-0.5b particles (6 of 24 units, 8 x 0.931
+         8 qwen1.5-0.5b particles (3 of 24 units, 8 x 0.777
          GB) trained by DeepEnsemble with sgd on the NEL with cache_size
          2, 2 steps
          of 256 tokens, with offload and without: losses and params bit
@@ -600,13 +601,44 @@ Phase 18 the recurrent families at full width, random fp32 weights from
          (a)-(c)'s main-path runs; its ``recurrent`` entry the rows at
          these shapes.
 
+Phase 19 the last two families at full width and depth, random fp32
+         weights from seed 0, 2 particles, 4 prompts of 24 tokens and 32
+         greedy BMA steps through the dense-cache engine, captured and
+         eager. (a) whisper-medium (24 encoder and 24 decoder layers,
+         811,358,208 parameters a particle) with stub frames (4, 1,500,
+         1,024): tokens equal up to a near-tie, one cold compile of the
+         step, #5 48 a prefill (24 bidirectional encoder layers, 24
+         causal decoder self-attentions) and #6 48 a step (24 self, 24
+         cross over the 1,500 frames), #7 and #8 never; one step on
+         freshly prefilled rows through the kernels and through their
+         plain versions (``plain_kernels``): BMA probabilities within
+         1e-4 and member logits within 1e-3 of the largest (the
+         reference ropes the cross-attention query in the prefill and
+         not in decode, so no continuation holds). (b) paligemma-3b (18
+         layers, 3,035,441,152) with 256 stub patches before the text:
+         #5 18 a prefill under the prefix mask, #6 18 a step (8 heads
+         over 1 of 256); a prefill of the prompt and the first 31
+         generated tokens gives step 32's logits within 1e-3 of the
+         largest. #5 at whisper's encoder and at paligemma's prefill, #6
+         over the 1,500 cross slots and at paligemma's cache against
+         their plain versions (2e-5), timed beside the bound and SDPA;
+         a profiled captured step each. (c) whisper at 2 + 2 layers and
+         paligemma at 1 of 18, one 256-token lm_batch sequence a step
+         with its frames or patches: phase 17 (b)'s DeepEnsemble runs
+         and checks, and whisper's SteinVGD (4 steps each). Each
+         kernel's ``encdec_vlm_launches`` in the kernels line are
+         (a)-(c)'s main-path runs; its ``encdec_vlm`` entry the rows at
+         these shapes.
+
 The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12,
-13, 14, 15, 16, 17, 18: the kernel checks first, then the serving runs
+13, 14, 15, 16, 17, 18, 19: the kernel checks first, then the serving runs
 over one set of particles, then training, fused and then on the NEL,
 then the lifecycle, then predictive serving, then the precision ladder,
 then the SciML workload and the baselines, then LM training, then
 checkpoints and obs, then the particle axis across GPUs, then the model
-axis, then the decoder-only model zoo, then the recurrent families.
+axis, then the decoder-only model zoo, then the recurrent families,
+then the encoder-decoder and the prefix-LM. Each phase prints its wall
+seconds (``phase_s``, or ``wall_s`` by part).
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -1636,17 +1668,19 @@ def phase5(torch, cfg, reqs):
     return rows
 
 
-def tie_gap(torch, pd, cfg, tokens, params=None):
+def tie_gap(torch, pd, cfg, tokens, params=None, front=None):
     """The BMA top-2 gap of the next-token probabilities after ``tokens``,
     over the top probability (a dense prefill of all particles, through
-    ``params``: the store's when None)."""
+    ``params``: the store's when None; ``front``: the row's frames or
+    patches, {key: (1, L, D)}, for the audio and vlm families)."""
     from repro_torch.models import api
     from repro_torch.serve import uncertainty
     toks = torch.tensor([tokens], dtype=torch.int32, device="cuda")
     if params is None:
         params = pd.store.stacked("params")
     with torch.no_grad():
-        logits, _ = api.prefill(params, {"tokens": toks}, cfg)
+        logits, _ = api.prefill(params, {"tokens": toks, **(front or {})},
+                                cfg)
     mean = uncertainty.predictive_heads(logits, mask=pd.store.active_mask())[
         "mean"][0]
     top2 = torch.topk(mean, 2).values
@@ -1654,19 +1688,21 @@ def tie_gap(torch, pd, cfg, tokens, params=None):
 
 
 def compare_tokens(torch, pd, cfg, prompts, got, want, what, params=None,
-                   tie=1e-4):
+                   tie=1e-4, front=None):
     """Tokens equal, or the first difference sits on a near-tie of the
     reference run (top-2 gap under ``tie`` of the top probability, through
-    ``params``: the store's when None). Returns (requests equal, [gap at
+    ``params``: the store's when None; ``front``: the batch's frames or
+    patches, {key: (B, L, D)}, by row). Returns (requests equal, [gap at
     each first difference])."""
     exact, gaps = 0, []
-    for prompt, a, b in zip(prompts, got, want):
+    for i, (prompt, a, b) in enumerate(zip(prompts, got, want)):
         k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if k is None and len(a) == len(b):
             exact += 1
             continue
         k = min(len(a), len(b)) if k is None else k
-        gap = tie_gap(torch, pd, cfg, list(prompt) + list(b[:k]), params)
+        gap = tie_gap(torch, pd, cfg, list(prompt) + list(b[:k]), params,
+                      front and {key: t[i:i + 1] for key, t in front.items()})
         gaps.append(gap)
         if not gap < tie:
             raise AssertionError(f"{what}: tokens differ at {k} where the "
@@ -1920,6 +1956,7 @@ def phase7(torch, pd, cfg):
 
 TRAIN_P = 8                      # configs/vit_mnist.py default_particles
 TRAIN_B, TRAIN_NB = 64, 8        # batch, batches per epoch (the paper: 40)
+P8_NB = 4                        # phase 8's NEL runs: batches per epoch
 TRAIN_D = 19_775_360             # parameters per ViT-MNIST particle
 SQDIST_SWEEP = [(2, 16), (4, 100), (8, 5000), (64, 12345), (3, 7)]
 FORCE_SWEEP = [(4, 100, 1.0), (8, 5000, 1.3), (16, 50000, 0.7), (3, 7, 2.0)]
@@ -2976,7 +3013,8 @@ def compiled_step_window(torch, comp, spec, keys, batch):
 
 def nel_run(torch, cls, module, epochs, **kw):
     """One driven NEL run (backend="nel", the default) of ``cls`` over
-    TRAIN_P fresh particles (seed SEED, the seeded loader), between a
+    TRAIN_P fresh particles (seed SEED, the seeded loader of P8_NB
+    batches an epoch), between a
     reset and a read of the kernels' launch counts. Returns (algorithm,
     last losses, launches, wall s, the GB left allocated before it)."""
     from repro_torch.data import DataLoader
@@ -2986,7 +3024,7 @@ def nel_run(torch, cls, module, epochs, **kw):
     if algo.backend != "nel":
         raise AssertionError(f"default backend {algo.backend}")
     loader = DataLoader(module.cfg, batch_size=TRAIN_B,
-                        num_batches=TRAIN_NB, seed=SEED)
+                        num_batches=P8_NB, seed=SEED)
     fns = reset_counts()
     t0 = time.perf_counter()
     _, losses = bounded(algo.bayes_infer, loader, epochs,
@@ -3079,7 +3117,7 @@ def phase8(torch, captured):
     from repro_torch.optim import adam, sgd
     from repro_torch.runtime import specs
     cfg, module = vit_module()
-    P, B, NB = TRAIN_P, TRAIN_B, TRAIN_NB
+    P, B, NB = TRAIN_P, TRAIN_B, P8_NB
     out = {"phase": 8, "model": cfg.name, "particles": P, "batch": B,
            "batches_per_epoch": NB, "backend": "nel", "num_devices": 1,
            "resident_gb": torch.cuda.memory_allocated() / 2**30}
@@ -6016,7 +6054,7 @@ LM_SVGD_STEPS = 4
 LM_SVGD_LR = 1e-3
 LM_REMAT = ("nothing_saveable", "dots_saveable")
 LM_D = 463_987_712               # parameters per qwen1.5-0.5b particle
-LM_UNITS = 12                    # phase 13's depth cut: 12 of its 24 units
+LM_UNITS = 6                     # phase 13's depth cut: 6 of its 24 units
 LM_Q_CHUNK, LM_K_CHUNK = 512, 1024   # models.blocks.flash_attention's chunks
 LM_LOSS_CHUNK = 512              # models.api.LOSS_CHUNK
 
@@ -6093,6 +6131,19 @@ def np_warmup_cosine(lr, warmup, total, s, final_frac=0.1):
 def host_tree(tree):
     from repro_torch.core.tree import tree_map
     return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def kept_tree(torch, tree, peak_gb):
+    """A snapshot of ``tree`` for a later bit-for-bit comparison: a clone
+    on the card when it fits beside ``peak_gb`` (the run it came from; the
+    run it is compared with peaks about as high) within 80% of the card,
+    else a host copy (``host_tree``)."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak_gb * 2**30 + nbytes < 0.8 * total:
+        return tree_map(lambda x: x.detach().clone(), tree)
+    return host_tree(tree)
 
 
 def tree_rel(torch, got, want):
@@ -7097,7 +7148,7 @@ def phase14(torch, cfg, reqs, phase2_out, card):
 
 MESH_N = 4                          # positions of the data axis
 OFF_P = 8                           # (c): qwen1.5-0.5b particles on the NEL
-OFF_UNITS = 6                       # (c): their depth cut, 6 of 24 units
+OFF_UNITS = 3                       # (c): their depth cut, 3 of 24 units
 OFF_CACHE = 2                       # (c): the NEL's active set a device
 OFF_S = 256                         # (c): tokens a step
 OFF_STEPS = 2
@@ -8806,14 +8857,16 @@ def p17_training(torch, card):
         P17_SVGD_STEPS, 17, "b")[0]
 
 
-def zoo_training(torch, card, cfg, cut, svgd_steps, phase, part):
+def zoo_training(torch, card, cfg, cut, svgd_steps, phase, part,
+                 seq_len=P17_TRAIN_S):
     """Fused training of ``cfg`` (cut in depth as ``cut`` says) over
-    P17_DS_P particles, one P17_TRAIN_S-token sequence a step: DeepEnsemble
-    (Adam) captured vs eager bit for bit over P17_TRAIN_STEPS steps;
-    SteinVGD (median) over ``svgd_steps`` steps, #1 and #2 launched once a
-    step and held against their plain versions at (2, D); the captured
-    DeepEnsemble step profiled after its run. Emits the row and returns
-    (the SteinVGD run's launches, the kernels' checks)."""
+    P17_DS_P particles, one ``seq_len``-token sequence a step (with its
+    frames or patches, for the audio and vlm families): DeepEnsemble (Adam)
+    captured vs eager bit for bit over P17_TRAIN_STEPS steps; SteinVGD
+    (median) over ``svgd_steps`` steps (none when 0), #1 and #2 launched
+    once a step and held against their plain versions at (2, D); the
+    captured DeepEnsemble step profiled after its run. Emits the row and
+    returns (the SteinVGD run's launches, the kernels' checks)."""
     from repro_torch.bdl import DeepEnsemble, SteinVGD
     from repro_torch.bdl.svgd import rbf_glue, svgd_force
     from repro_torch.core import ParticleModule
@@ -8827,10 +8880,10 @@ def zoo_training(torch, card, cfg, cut, svgd_steps, phase, part):
     what = f"({part})"
     module = ParticleModule(init=lambda g: api.init_params(g, cfg),
                             loss=lambda p, b: api.loss_fn(p, b, cfg), cfg=cfg)
-    batches = list(DataLoader(cfg, batch_size=1, seq_len=P17_TRAIN_S,
+    batches = list(DataLoader(cfg, batch_size=1, seq_len=seq_len,
                               num_batches=P17_TRAIN_STEPS, seed=SEED))
     t0 = time.perf_counter()
-    runs, finals = {}, {}
+    runs = {}
     for mode, cache in caches():
         opt = adam(1e-4)
         algo, row = p17_train_run(torch, DeepEnsemble, module, batches,
@@ -8847,7 +8900,11 @@ def zoo_training(torch, card, cfg, cut, svgd_steps, phase, part):
             row["aux_per_particle"] = {k: v.tolist()
                                        for k, v in metrics.items()}
             del params, b0
-        finals[mode] = host_tree(algo.store.stacked("params"))
+        if mode == "captured":
+            final = kept_tree(torch, algo.store.stacked("params"),
+                              row["peak_gb"])
+        else:
+            same = tree_equal(torch, algo.store.stacked("params"), final)
         if mode == "captured":
             # after the parity's snapshot: the window's steps advance it
             row["step_profile"] = lm_window(
@@ -8858,11 +8915,13 @@ def zoo_training(torch, card, cfg, cut, svgd_steps, phase, part):
         algo.cleanup()
         del algo, cache
         lm_free(torch)
-    if runs["captured"]["losses"] != runs["eager"]["losses"] or \
-            not tree_equal(torch, finals["captured"], finals["eager"]):
+    if runs["captured"]["losses"] != runs["eager"]["losses"] or not same:
         raise AssertionError(f"{what} captured and eager DeepEnsemble differ")
-    del finals
+    del final
     t1 = time.perf_counter()
+    if not svgd_steps:
+        return {}, zoo_training_row(card, cfg, cut, phase, part, seq_len,
+                                    runs, None, None, {}, t0, t1)[1]
     kw = {"lr": 1e-3, "lengthscale": 0.0}
     algo, svgd = p17_train_run(torch, SteinVGD, module,
                                batches[:svgd_steps], ProgramCache(), **kw)
@@ -8926,11 +8985,18 @@ def zoo_training(torch, card, cfg, cut, svgd_steps, phase, part):
     algo.cleanup()
     del algo
     lm_free(torch)
-    tokens = P17_DS_P * P17_TRAIN_S
+    return zoo_training_row(card, cfg, cut, phase, part, seq_len, runs,
+                            svgd, checks, launches, t0, t1)
+
+
+def zoo_training_row(card, cfg, cut, phase, part, seq_len, runs, svgd,
+                     checks, launches, t0, t1):
+    """Emit ``zoo_training``'s row; returns (launches, checks)."""
+    tokens = P17_DS_P * seq_len
     cap = runs["captured"]
     row = {"phase": phase, "part": part, "config": cut,
            "params_per_particle": p17_param_count(cfg),
-           "particles": P17_DS_P, "seq_len": P17_TRAIN_S,
+           "particles": P17_DS_P, "seq_len": seq_len,
            "ensemble": runs, "captured_equals_eager_bit_for_bit": True,
            "ensemble_tokens_per_s": tokens * P17_TRAIN_STEPS / cap["wall_s"],
            "svgd": svgd, "svgd_kernels_vs_plain": checks,
@@ -9454,6 +9520,344 @@ def phase18(torch, card):
     return launches, rows
 
 
+P19_P = 2                        # particles in every part
+P19_B, P19_LEN, P19_NEW = 4, 24, 32   # prompts of 24 tokens, 32 greedy steps
+P19_WH_TRAIN = {"n_units": 2, "n_encoder_layers": 2}   # (c): 2 + 2 layers
+P19_PG_TRAIN = {"n_units": 1}    # (c): 1 of paligemma's 18 layers
+P19_TRAIN_S = 256                # (c): one lm_batch sequence a step
+P19_PROB_TOL = 1e-4              # (a): kernels vs plain, BMA probabilities
+P19_LOGIT_TOL = 1e-3             # member logits and the continuation
+
+
+class plain_kernels:
+    """Route ``kernels.ops``' attention dispatches to their plain versions
+    on the card for one comparison (the port itself never does): a model
+    step run inside is the same step through the plain #5 / #6."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.saved = {n: getattr(ops, n) for n in ("flash_attention",
+                                                   "decode_attention")}
+        ops.flash_attention = ref.flash_attention
+        ops.decode_attention = ref.decode_attention
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for n, fn in self.saved.items():
+            setattr(ops, n, fn)
+
+
+def p19_layers(cfg):
+    """(#5 launches a prefill, #6 launches a decode step): whisper's
+    encoder layers and decoder self-attentions take #5, its decoder's
+    self and cross attentions #6; paligemma's layers one of each."""
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + cfg.n_units, 2 * cfg.n_units
+    return cfg.n_units, cfg.n_units
+
+
+def p19_front(torch, cfg, B):
+    """The batch's stub frontend on the card: whisper's frames (B, 1,500,
+    1,024) or paligemma's patches (B, 256, 2,048), from seed 19."""
+    from repro_torch.data import frontend_stub
+    key, L = (("frames", cfg.n_frames) if cfg.family == "audio"
+              else ("patches", cfg.n_prefix_tokens))
+    a = frontend_stub(np.random.default_rng(19), B, L, cfg.d_model)
+    return {key: torch.as_tensor(a, device="cuda")}
+
+
+def p19_rows(torch, cfg, state, front):
+    """The kernels at this model's shapes, each against its plain version,
+    with event and device ms, the bound and one SDPA call: whisper: #5 at
+    its encoder (bidirectional, S 1,500, MHA 16 x 64) and #6 over the
+    first decoder layer's 1,500 cross slots; paligemma: #5 at its prefill
+    under the prefix mask (S 256 + text, 8 heads over 1 of 256) and #6
+    over the first layer's cache (G 8, hd 256)."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import visible_pairs
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(190)
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    audio = cfg.family == "audio"
+    S = cfg.n_frames if audio else cfg.n_prefix_tokens + P19_LEN - 1
+    prefix = 0 if audio else cfg.n_prefix_tokens
+    qkv = [torch.randn((P19_P, P19_B, S, h, hd), generator=gen,
+                       device="cuda") for h in (H, KVH, KVH)]
+    kw = {"causal": not audio, "prefix_len": prefix}
+    what = "(d) #5 at " + ("whisper's encoder" if audio else
+                           "paligemma's prefix prefill")
+    err = max_err(torch, fk.flash_attention(*qkv, **kw),
+                  ref.flash_attention(*qkv, **kw), what, 2e-5)
+    pairs = visible_pairs(S, not audio, prefix)
+    b_ms, b_by = bound(4 * (2 * qkv[0].numel() + 2 * qkv[1].numel()),
+                       3 * 4 * P19_P * P19_B * H * hd * pairs,
+                       rate=TF32_FLOPS_PER_S)
+    qs, ks, vs = (t.reshape(-1, *t.shape[2:]).transpose(1, 2)
+                  .repeat_interleave(H // t.shape[3], 1) for t in qkv)
+    mask = None
+    if not audio:
+        mask = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+        mask[:, :prefix] = True
+    rows = {"flash_attention": {
+        "max_abs_err": err, "tol": 2e-5,
+        "ms": time_ms(torch, lambda: fk.flash_attention(*qkv, **kw)),
+        "device_ms": device_ms(torch, lambda: fk.flash_attention(*qkv, **kw)),
+        "plain_ms": time_ms(torch, lambda: ref.flash_attention(*qkv, **kw),
+                            iters=5),
+        "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs,
+                                                  attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": {"P": P19_P, "B": P19_B, "S": S, "H": H, "KVH": KVH,
+                  "hd": hd, "causal": not audio, "prefix_len": prefix,
+                  "visible_pairs": pairs}}}
+    del qkv, qs, ks, vs
+    u0 = state["units"][0]
+    if audio:
+        C = u0["xk"].shape[3]
+        a = (None, u0["xk"][:, 0], u0["xv"][:, 0],
+             torch.arange(C, dtype=torch.int32, device="cuda").repeat(
+                 P19_B, 1))
+        what = "(d) #6 over whisper's 1,500 cross slots"
+    else:
+        a = (None, u0["k"][:, 0], u0["v"][:, 0], u0["pos"][0])
+        what = "(d) #6 over paligemma's cache (G 8, hd 256)"
+    q = torch.randn((P19_P, P19_B, H, hd), generator=gen, device="cuda")
+    a = (q,) + a[1:]
+    C = a[1].shape[2]
+    valid = int((a[3] >= 0).sum())
+    b_ms, b_by = bound(P19_P * valid * KVH * hd * 2 * 4 + 2 * q.numel() * 4,
+                       4 * P19_P * valid * H * hd)
+    qs = q.reshape(-1, H, 1, hd)
+    ks, vs = (t.reshape(-1, C, KVH, hd).transpose(1, 2)
+              .repeat_interleave(H // KVH, 1) for t in a[1:3])
+    live = (a[3] >= 0).repeat(P19_P, 1)[:, None, None, :]
+    rows["decode_attention"] = {
+        "max_abs_err": max_err(torch, dk.decode_attention(*a),
+                               ref.decode_attention(*a), what, 2e-5),
+        "tol": 2e-5,
+        "shape": {"P": P19_P, "B": P19_B, "C": C, "valid": valid, "H": H,
+                  "KVH": KVH, "hd": hd,
+                  "cache": "cross" if audio else "self"},
+        "ms": time_ms(torch, lambda: dk.decode_attention(*a)),
+        "device_ms": device_ms(torch, lambda: dk.decode_attention(*a)),
+        "plain_ms": time_ms(torch, lambda: ref.decode_attention(*a),
+                            iters=10),
+        "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs,
+                                                  attn_mask=live)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    return rows
+
+
+def p19_kernels_vs_plain(torch, params, cfg, batch, tok, C):
+    """One decode step on freshly prefilled rows, through the kernels and
+    through their plain versions (``plain_kernels``): the BMA mean
+    probabilities within P19_PROB_TOL of the largest, the member logits
+    within P19_LOGIT_TOL of the largest |logit|. Stands in for the
+    continuation check on whisper, whose reference ropes the
+    cross-attention query in the prefill and not in decode."""
+    from repro_torch.models import api
+    out = {}
+    for name, ctx in (("kernels", None), ("plain", plain_kernels())):
+        with torch.no_grad(), (ctx or contextlib.nullcontext()):
+            _, caches = api.prefill(params, batch, cfg, max_len=C)
+            logits, _ = api.decode_step(params, tok, caches,
+                                        C - P19_NEW - 1, cfg)
+        out[name] = logits.float()
+        del caches
+    k, p = out["kernels"], out["plain"]
+    top = float(p.abs().max())
+    pk, pp = k.softmax(-1).mean(0), p.softmax(-1).mean(0)
+    gaps = {"member_logits_rel": float((k - p).abs().max()) / top,
+            "bma_prob_rel": float((pk - pp).abs().max() / pp.max())}
+    if not (gaps["member_logits_rel"] < P19_LOGIT_TOL
+            and gaps["bma_prob_rel"] < P19_PROB_TOL):
+        raise AssertionError(f"(a) a step through the kernels vs the plain "
+                             f"versions: {gaps}")
+    return gaps
+
+
+def p19_serving(torch, card, name, part):
+    """``name`` at full width and depth, P19_P particles of random fp32
+    weights: P19_B prompts of P19_LEN tokens with their stub frames or
+    patches prefilled into dense caches, then P19_NEW greedy BMA steps
+    through ``PredictiveEngine(stateful=True)``, captured and eager: the
+    tokens equal, one cold compile of the captured step, the launches
+    exact (``p19_layers``; #7 and #8 never). whisper: one step on freshly
+    prefilled rows through the kernels and the plain versions
+    (``p19_kernels_vs_plain``); paligemma: the caches carried on the
+    card, a prefill of the prompt and the first P19_NEW - 1 generated
+    tokens giving the last step's logits. Returns (the captured run's
+    launches, the kernel rows at this model's shapes)."""
+    from repro_torch import configs
+    from repro_torch.core import ParticleModule, PushDistribution
+    from repro_torch.models import api
+    from repro_torch.serve import PredictiveEngine
+    what = f"({part})"
+    cfg = configs.get(name)
+    n5, n6 = p19_layers(cfg)
+    off = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
+    fns = attention_counts()
+    prompts = np.random.default_rng(19).integers(1, cfg.vocab_size,
+                                                 (P19_B, P19_LEN))
+    C = off + P19_LEN + P19_NEW
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device="cuda")
+    front = p19_front(torch, cfg, P19_B)
+    pre = {"tokens": toks[:, :-1], **front}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    runs, tokens, launches, total, last, kernels = {}, {}, {}, {}, {}, {}
+
+    def forward(p, c, b):
+        logits, c = api.decode_step(p, b["token"], c, b["cur_pos"], cfg)
+        last["logits"] = logits
+        return logits, c
+
+    with PushDistribution(module, seed=SEED) as pd:
+        for _ in range(P19_P):
+            pd.p_create()
+        params = pd.store.stacked("params")
+        for mode, cache in caches():
+            engine = PredictiveEngine(forward, store=pd.store, stateful=True,
+                                      cache=cache)
+            for fn in fns.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            state = engine.init_state(lambda p: api.prefill(
+                p, pre, cfg, max_len=C)[1])
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+            tok, out = toks[:, -1], []
+            t2 = time.perf_counter()
+            for step in range(P19_NEW):
+                heads, state = engine.step(state, {
+                    "token": tok, "cur_pos": off + P19_LEN - 1 + step})
+                tok = heads["mean"].argmax(-1).to(torch.int32)
+                out.append(tok)
+            tokens[mode] = torch.stack(out, 1).cpu().numpy().tolist()
+            decode_s = time.perf_counter() - t2
+            got = launches[mode] = read_counts(fns)
+            want = {"paged_decode_attention": 0,
+                    "paged_decode_window_attention": 0,
+                    "flash_attention": n5, "decode_attention": n6 * P19_NEW}
+            if got != want:
+                raise AssertionError(f"{what} {mode} launches {got}, want "
+                                     f"{want}")
+            if mode == "captured":
+                add_counts(total, got)
+            st = cache.snapshot_stats()
+            if st["cold_compiles"] != 1:
+                raise AssertionError(f"{what} {mode} step programs {st}")
+            runs[mode] = {"prefill_s": prefill_s,
+                          "decode_tok_per_s": P19_B * P19_NEW / decode_s,
+                          "ms_per_step_wall": decode_s / P19_NEW * 1e3,
+                          "graph_pool_gb": [
+                              (c.get("pool_bytes") or 0) / 2**30
+                              for c in cache.program_costs()]}
+            if mode == "eager":
+                step32 = last.pop("logits").clone()
+            else:
+                kernels = p19_rows(torch, cfg, state, front)
+                after = tok
+                prof = runs[mode]["step_profile"] = profile_steps(
+                    torch, lambda: engine.step(state, {
+                        "token": after, "cur_pos": C - 1}), n=3, fns=fns,
+                    prologue=32, epilogue=32)
+                if "wall_ms" in prof:
+                    runs[mode]["steady_tok_per_s"] = \
+                        P19_B / prof["wall_ms"] * 1e3
+            last.clear()
+            del state, engine, cache
+            torch.cuda.empty_cache()
+        exact, gaps = compare_tokens(
+            torch, pd, cfg, prompts, tokens["captured"], tokens["eager"],
+            f"{what} captured vs eager", front=front)
+        same_launches(launches, f"phase 19 {what}")
+        row = {}
+        if cfg.family == "audio":
+            row["kernels_vs_plain_step"] = p19_kernels_vs_plain(
+                torch, params, cfg, pre, toks[:, -1], C)
+        else:
+            # the caches carried over: the eager run's last step consumed
+            # the 31st generated token; a prefill of everything before it
+            # and it gives the same next-token logits
+            seq = torch.cat([toks, torch.as_tensor(
+                tokens["eager"], dtype=torch.int32,
+                device="cuda")[:, :P19_NEW - 1]], 1)
+            with torch.no_grad():
+                cont, _ = api.prefill(params, {"tokens": seq, **front}, cfg)
+            top = float(step32.abs().max())
+            row["continuation_rel_err"] = float(
+                (cont - step32).abs().max()) / top
+            if not row["continuation_rel_err"] < P19_LOGIT_TOL:
+                raise AssertionError(f"{what} prefill of {seq.shape[1]} "
+                                     f"tokens vs step {P19_NEW}: {row}")
+            del cont
+        del params, step32
+    gc.collect()
+    torch.cuda.empty_cache()
+    row.update({"phase": 19, "part": part, "config": cfg.name,
+                "params_per_particle": p17_param_count(cfg),
+                "particle_gb": p17_param_count(cfg) * 4 / 1e9,
+                "particles": P19_P, "prompts": P19_B,
+                "prompt_len": P19_LEN, "positions_before_text": off,
+                "new_tokens": P19_NEW, "flash_a_prefill": n5,
+                "decode_a_step": n6, "runs": runs,
+                "captured_vs_eager_requests_token_equal": exact,
+                "tie_gaps": gaps, "kernels": kernels, "launches": total,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                "part_s": time.perf_counter() - t0, "card": card})
+    emit(row)
+    return total, kernels
+
+
+def phase19(torch, card):
+    """The last two families at full width: whisper-medium's
+    encoder-decoder (a) and paligemma-3b's prefix-LM (b) served from dense
+    caches, captured and eager; both trained fused, depth cut (c): whisper
+    at 2 + 2 layers (DeepEnsemble, SteinVGD), paligemma at 1 of 18
+    (DeepEnsemble). Returns (the kernels' launches over the parts'
+    main-path runs, phase 19's kernel rows)."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+    got, rows["whisper"] = p19_serving(torch, card, "whisper-medium", "a")
+    add_counts(launches, got)
+    lm_free(torch)
+    t1 = time.perf_counter()
+    got, rows["paligemma"] = p19_serving(torch, card, "paligemma-3b", "b")
+    add_counts(launches, got)
+    lm_free(torch)
+    t2 = time.perf_counter()
+    train = {}
+    for name, cut, svgd_steps in (
+            ("whisper-medium", P19_WH_TRAIN, P17_TRAIN_STEPS),
+            ("paligemma-3b", P19_PG_TRAIN, 0)):
+        got, train[name] = zoo_training(
+            torch, card, *p17_cut(configs.get(name), **cut), svgd_steps, 19,
+            f"c {name}", seq_len=P19_TRAIN_S)
+        add_counts(launches, got)
+        lm_free(torch)
+    rows["training"] = train
+    emit({"phase": 19, "part": "summary",
+          "phase_s": time.perf_counter() - t0,
+          "part_s": {"a": t1 - t0, "b": t2 - t1,
+                     "c": time.perf_counter() - t2},
+          "launches": launches, "card": card})
+    return launches, rows
+
+
+def timed(n, fn, *args):
+    """``fn(*args)``, then phase ``n``'s summary row with its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase": n, "part": "summary", "phase_s": time.perf_counter() - t0})
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9481,8 +9885,8 @@ def main():
 
     cfg = configs.get("qwen1.5-0.5b")
     reqs = traffic(cfg.vocab_size)
-    rows = {"paged_decode_attention": phase1(torch, cfg, reqs)}
-    for row in phase5(torch, cfg, reqs):
+    rows = {"paged_decode_attention": timed(1, phase1, torch, cfg, reqs)}
+    for row in timed(5, phase5, torch, cfg, reqs):
         rows[row["name"]] = row
     launches = {}
     module = ParticleModule(init=lambda g: api.init_params(g, cfg), cfg=cfg)
@@ -9490,31 +9894,32 @@ def main():
         for _ in range(PARTICLES):
             pd.p_create()
         pd.store.stacked("params")
-        got, plain_tokens, plain_tok_s, plain_logprobs = phase2(
-            torch, pd, cfg, reqs)
+        got, plain_tokens, plain_tok_s, plain_logprobs = timed(
+            2, phase2, torch, pd, cfg, reqs)
         for name in ("paged_decode_attention", "flash_attention"):
             launches[name] = got[name]
-        got = phase6(torch, pd, cfg, reqs, plain_tokens, plain_tok_s)
+        got = timed(6, phase6, torch, pd, cfg, reqs, plain_tokens,
+                    plain_tok_s)
         launches["paged_decode_window_attention"] = got[
             "paged_decode_window_attention"]
-        launches["decode_attention"] = phase7(torch, pd, cfg)[
+        launches["decode_attention"] = timed(7, phase7, torch, pd, cfg)[
             "decode_attention"]
     del pd
     gc.collect()            # the LM's particles sit in reference cycles
     torch.cuda.empty_cache()
-    for row in phase3(torch):
+    for row in timed(3, phase3, torch):
         rows[row["name"]] = row
-    got, captured = phase4(torch)
+    got, captured = timed(4, phase4, torch)
     launches.update(got)
     gc.collect()
     torch.cuda.empty_cache()
-    nel_launches, vit_steps = phase8(torch, captured)
+    nel_launches, vit_steps = timed(8, phase8, torch, captured)
     gc.collect()
     torch.cuda.empty_cache()
-    lc_launches = phase9(torch, cfg, reqs)
+    lc_launches = timed(9, phase9, torch, cfg, reqs)
     gc.collect()
     torch.cuda.empty_cache()
-    serve_launches, diag_std_p1, fp32_predictive = phase10(torch)
+    serve_launches, diag_std_p1, fp32_predictive = timed(10, phase10, torch)
     rows["swag_diag_std"]["serving_p1"] = diag_std_p1
     gc.collect()
     torch.cuda.empty_cache()
@@ -9547,6 +9952,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     recurrent_launches, recurrent_rows = phase18(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_launches, encdec_rows = phase19(torch, card)
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
@@ -9560,6 +9968,17 @@ def main():
         row["model_axis_launches"] = model_launches.get(name, 0)
         row["zoo_launches"] = zoo_launches.get(name, 0)
         row["recurrent_launches"] = recurrent_launches.get(name, 0)
+        row["encdec_vlm_launches"] = encdec_launches.get(name, 0)
+        encdec = {arch: encdec_rows[arch][name]
+                  for arch in ("whisper", "paligemma")
+                  if name in encdec_rows[arch]}
+        if name in ("pairwise_sqdist", "svgd_force"):
+            encdec["training"] = {
+                arch: checks[name]
+                for arch, checks in encdec_rows["training"].items()
+                if checks}
+        if encdec:
+            row["encdec_vlm"] = encdec
         recurrent = {}
         if name in recurrent_rows["zamba2"]:
             recurrent["zamba2"] = recurrent_rows["zamba2"][name]

@@ -1,15 +1,20 @@
 """Model configs for the port (counterpart of ``repro.configs.base``).
 
-A ``ModelConfig`` describes one architecture. The port runs decoder-only
-stacks (the LM families "dense" and "moe": ``attn_mlp``, ``attn_moe``
-and sliding-window ``local`` layers; "ssm": RWKV6's ``rwkv`` layers;
-"hybrid": Mamba2's ``mamba`` layers with zamba2's ``shared_attn``, one
-attention block whose one parameter copy serves every occurrence), the
-ViT's family "vision" and the 1-D conv UNet (family "pde": ``d_model``
-is its base channel count, ``n_units`` its depth, ``max_seq_len`` its
-grid), so the config carries the fields those read; field names and
-defaults match the reference, so one set of ``replace(...)`` keywords
-builds the same model in both packages.
+A ``ModelConfig`` describes one architecture. The port runs every
+family of the reference: the decoder-only LMs ("dense" and "moe":
+``attn_mlp``, ``attn_moe`` and sliding-window ``local`` layers; "ssm":
+RWKV6's ``rwkv`` layers; "hybrid": Mamba2's ``mamba`` layers with
+zamba2's ``shared_attn``, one attention block whose one parameter copy
+serves every occurrence), the encoder-decoder "audio" (whisper: an
+``enc_attn_mlp`` encoder of ``n_encoder_layers`` over ``n_frames`` stub
+frames, ``dec_attn_mlp`` decoder layers with cross-attention), the
+prefix-LM "vlm" (paligemma: ``n_prefix_tokens`` stub patches in front of
+the text, seen bidirectionally under ``prefix_lm``), the ViT's family
+"vision" and the 1-D conv UNet (family "pde": ``d_model`` is its base
+channel count, ``n_units`` its depth, ``max_seq_len`` its grid). Field
+names and defaults match the reference, so one set of ``replace(...)``
+keywords builds the same model in both packages. ``InputShape`` and the
+four workload shapes are copies of the reference's.
 
 The layer stack is ``head_layers + pattern * n_units + tail_layers``; the
 repeated pattern units are stored stacked on a leading ``n_units`` axis.
@@ -24,7 +29,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid | vision | pde
+    family: str          # dense | moe | ssm | hybrid | audio | vlm | vision | pde
     d_model: int
     vocab_size: int
 
@@ -64,8 +69,16 @@ class ModelConfig:
     ssm_conv: int = 4
     rwkv_head_dim: int = 64
 
+    # --- encoder-decoder (audio) -------------------------------------------
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    n_frames: int = 1500             # stubbed conv-frontend output length
+
+    # --- vlm ----------------------------------------------------------------
+    n_prefix_tokens: int = 0         # stubbed SigLIP patch embeddings
+    prefix_lm: bool = False          # bidirectional attention over the prefix
+
     # --- misc ----------------------------------------------------------------
-    prefix_lm: bool = False
     tie_embeddings: bool = False
     max_seq_len: int = 8192
     dtype: str = "float32"           # compute dtype
@@ -91,7 +104,7 @@ class ModelConfig:
 
     def smoke(self) -> "ModelConfig":
         """Reduced variant for CPU tests: same layer kinds, tiny dims (the
-        reference's ``smoke()`` restricted to the fields ported here)."""
+        reference's ``smoke()``)."""
         nh = min(self.n_heads, 4) if self.n_heads else 0
         return self.replace(
             name=self.name + "-smoke",
@@ -111,8 +124,29 @@ class ModelConfig:
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
             rwkv_head_dim=32,
+            n_encoder_layers=min(self.n_encoder_layers, 2),
+            n_frames=min(self.n_frames, 16),
+            n_prefix_tokens=min(self.n_prefix_tokens, 8),
             sliding_window=(min(self.sliding_window, 16)
                             if self.sliding_window else 0),
             max_seq_len=256,
             default_particles=1,
         )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned (seq_len, global_batch) workload shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}

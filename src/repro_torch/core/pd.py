@@ -63,7 +63,7 @@ class PushDistribution:
                                 None)
         self.precision = resolve_precision(precision)
         family = getattr(getattr(module, "cfg", None), "family", None)
-        if family in ("ssm", "hybrid") and \
+        if family in ("ssm", "hybrid", "audio", "vlm") and \
                 self.precision != resolve_precision("fp32"):
             raise NotImplementedError(
                 f"the {family} stacks run under fp32 only: the precision "

@@ -1,7 +1,7 @@
 """Synthetic datasets (fully offline, seeded); numpy only.
 
-A copy of ``repro.data.synthetic`` cut to the families the port trains,
-so the same seed gives byte-identical batches in both packages:
+A copy of ``repro.data.synthetic``, so the same seed gives
+byte-identical batches in both packages:
 
   lm_batch        : Zipf-ish token stream with local n-gram structure so a
                     LM has signal to fit (loss visibly decreases).
@@ -10,6 +10,7 @@ so the same seed gives byte-identical batches in both packages:
   advection_batch : 1-D advection PDE u_t + c u_x = 0 pairs (u(t), u(t+dt))
                     with random smooth initial conditions — the paper's
                     PDEBench UNet task, 1-D.
+  frames / patches: stub frontend embeddings for audio/vlm families.
 """
 from __future__ import annotations
 
@@ -62,17 +63,24 @@ def advection_batch(rng: np.random.Generator, batch: int, L: int = 128,
     return {"u0": u0[..., None], "u1": u1[..., None]}
 
 
+def frontend_stub(rng: np.random.Generator, batch: int, length: int, d: int):
+    """Precomputed frame/patch embeddings (audio conv stub / SigLIP stub)."""
+    return rng.standard_normal((batch, length, d)).astype(np.float32) * 0.1
+
+
 def make_batch(cfg, rng: np.random.Generator, batch: int, seq: int):
-    """Family-dispatching batch builder for a ModelConfig (the vision, pde
-    and LM families: dense, moe, ssm and hybrid; the audio and vlm
-    frontends wait for the rest of the model zoo, ROADMAP.md queue 1 item
-    11)."""
+    """Family-dispatching batch builder for a ModelConfig: the LM families
+    get ``lm_batch``, the audio family adds ``frames`` (batch, n_frames,
+    d_model) and the vlm family ``patches`` (batch, n_prefix_tokens,
+    d_model), drawn after the tokens from the same stream."""
     if cfg.family == "vision":
         return mnist_like(rng, batch, cfg.vocab_size)
     if cfg.family == "pde":
         return advection_batch(rng, batch, cfg.max_seq_len)
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} has no ported data (ROADMAP.md queue 1, "
-            f"item 11)")
-    return lm_batch(rng, batch, seq, cfg.vocab_size)
+    out = lm_batch(rng, batch, seq, cfg.vocab_size)
+    if cfg.family == "audio":
+        out["frames"] = frontend_stub(rng, batch, cfg.n_frames, cfg.d_model)
+    if cfg.family == "vlm":
+        out["patches"] = frontend_stub(rng, batch, cfg.n_prefix_tokens,
+                                       cfg.d_model)
+    return out

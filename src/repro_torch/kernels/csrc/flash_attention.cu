@@ -12,8 +12,10 @@
 //
 // Semantics kept from the TPU kernel: GQA (query head h reads kv head
 // h / G, G = H / KVH); causal (key j visible to query i iff j <= i) or
-// bidirectional; keys past S are masked by a bounds check instead of the
-// reference's padding copies; the online softmax keeps m, l in fp32 with
+// bidirectional; the prefix-LM mask of the reference's jnp attention
+// (causal with prefix > 0: key j visible to query i iff j <= i or
+// j < prefix, paligemma's bidirectional image prefix); keys past S are
+// masked by a bounds check instead of the reference's padding copies; the online softmax keeps m, l in fp32 with
 // the -1e30 convention, and a masked score contributes an exact 0 weight,
 // so a tile a row cannot see leaves m, l and the accumulator unchanged;
 // scale 1/sqrt(hd) (applied to the fp32 scores); the output is divided by
@@ -72,7 +74,10 @@
 //   warps with 32-key tiles (the 128-token bucket at P=4: 256 blocks
 //   instead of 64). Causal: the heaviest (last) q tiles are scheduled
 //   first, each warp skips the key tiles above its own rows, and no block
-//   visits a tile above its last row.
+//   visits a tile above its last row. A prefix opens the tiles below it to
+//   every row: a block visits at least the prefix's tiles, no warp skips
+//   a tile that starts inside the prefix, and a tile wholly inside the
+//   prefix needs no mask.
 // - Wide heads (128 < hd <= 256: gemma3's 256): the 128-row, 64-key
 //   tiles would need 403 KB of fp32 shared memory, past Hopper's 227 KB a
 //   block, so these take 64-row tiles of four warps with 32-key tiles
@@ -311,13 +316,14 @@ __device__ __forceinline__ void pv(float (&o)[NO][4], const float (&p)[NT][4],
 // One tile's online-softmax update on the score fragments (in place: the
 // scores become the weights p) and the rescale of m, l and the output.
 // Scores are taken in log2 units (scale * log2 e), so p = exp2(s - m) is
-// exp(s_e - m_e) with one MUFU op. MASK: apply the row, S and causal limits.
+// exp(s_e - m_e) with one MUFU op. MASK: apply the row, S, causal and
+// prefix limits (key visible iff key <= pos or key < prefix).
 template <int NT, int NO, bool MASK>
 __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&o)[NO][4],
                                                float (&m_run)[2], float (&l_run)[2],
                                                float scale_log2, int k0, const int (&row)[2],
                                                const int (&pos)[2], int rows, int S,
-                                               int causal, int t) {
+                                               int causal, int prefix, int t) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -327,7 +333,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&o)[NO]
       float x = s[j][e] * scale_log2;
       if (MASK) {
         const int key = k0 + 8 * j + 2 * t + (e & 1);
-        if (!(row[h] < rows && key < S && (!causal || key <= pos[h]))) x = kNegInf;
+        if (!(row[h] < rows && key < S && (!causal || key <= pos[h] || key < prefix)))
+          x = kNegInf;
       }
       s[j][e] = x;
       mx[h] = fmaxf(mx[h], x);
@@ -366,7 +373,7 @@ template <typename T, int NW, int BN, int NO>
 __global__ void __launch_bounds__(NW * 32, NW == 8 && NO <= 8 ? 2 : 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ out, int N, int S, int H, int KVH, int hd, int causal,
-             float scale, int vec, int n_qt) {
+             int prefix, float scale, int vec, int n_qt) {
   constexpr int BM = 16 * NW;
   const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
   constexpr int NT = BN / 8;
@@ -432,7 +439,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   const int last_row = (r0 + BM < rows ? r0 + BM : rows) - 1;
-  const int n_kt = causal ? (last_row / G) / BN + 1 : (S + BN - 1) / BN;
+  // causal: up to the block's last row, and at least the prefix's tiles
+  const int all_kt = (S + BN - 1) / BN;
+  const int pre_kt = (prefix < S ? prefix : S) + BN - 1;
+  const int n_kt = causal ? max((last_row / G) / BN + 1, pre_kt / BN) : all_kt;
   const long long kv_stride = static_cast<long long>(KVH) * hd;
   const T* kb = k + n * S * kv_stride + static_cast<long long>(kvh) * hd;
   const T* vb = v + n * S * kv_stride + static_cast<long long>(kvh) * hd;
@@ -488,7 +498,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (warp_live && (!causal || k0 <= warp_last)) {
+    if (warp_live && (!causal || k0 <= warp_last || k0 < prefix)) {
       const T* k_t = k_s + (kt & 1) * BN * KS;
       const T* v_t = v_s + (kt & 1) * BN * VS;
       float s[NT][4];
@@ -497,16 +507,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
       scores<NT>(s, q_w, k_t, KS, hdk, g, t);
-      // scores in log2 units; a tile wholly inside the rows, S and the
-      // causal limit of the warp's first row needs no mask
+      // scores in log2 units; a tile wholly inside the rows, S and either
+      // the causal limit of the warp's first row or the prefix needs no mask
       const bool full = k0 + BN <= S && wr0 + 16 <= rows &&
-                        (!causal || k0 + BN - 1 <= wr0 / G);
+                        (!causal || k0 + BN - 1 <= wr0 / G || k0 + BN <= prefix);
       if (full)
         online_softmax<NT, NO, false>(s, o, m_run, l_run, scale_log2, k0, row, pos, rows, S,
-                                      causal, t);
+                                      causal, prefix, t);
       else
         online_softmax<NT, NO, true>(s, o, m_run, l_run, scale_log2, k0, row, pos, rows, S,
-                                     causal, t);
+                                     causal, prefix, t);
       pv<NT, NO>(o, s, v_t, VS, n_dt, g, t);
     }
     __syncthreads();  // the stage is free for the tile after next
@@ -535,7 +545,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T, int NW, int BN, int NO>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int N, int S,
-                   int H, int KVH, int hd, int causal, float scale, int vec,
+                   int H, int KVH, int hd, int causal, int prefix, float scale, int vec,
                    cudaStream_t stream) {
   const int rows = S * (H / KVH);
   const int n_qt = (rows + 16 * NW - 1) / (16 * NW);
@@ -550,7 +560,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int N
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(blocks), NW * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), N, S, H, KVH, hd, causal, scale, vec, n_qt);
+      static_cast<T*>(out), N, S, H, KVH, hd, causal, prefix, scale, vec, n_qt);
   return cudaGetLastError();
 }
 
@@ -558,8 +568,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int N
 // least two blocks per SM, else 2 warps and 32 keys.
 template <typename T, int NO, int BW, int BK>
 cudaError_t pick_tiles(const void* q, const void* k, const void* v, void* out, int N,
-                       int S, int H, int KVH, int hd, int causal, float scale, int vec,
-                       cudaStream_t s) {
+                       int S, int H, int KVH, int hd, int causal, int prefix, float scale,
+                       int vec, cudaStream_t s) {
   const long long rows = static_cast<long long>(S) * (H / KVH);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -568,42 +578,51 @@ cudaError_t pick_tiles(const void* q, const void* k, const void* v, void* out, i
   if (err != cudaSuccess) return err;
   const long long big_blocks = (rows + 16 * BW - 1) / (16 * BW) * KVH * N;
   if (big_blocks >= 2LL * sms)
-    return launch<T, BW, BK, NO>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
-  return launch<T, 2, 32, NO>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return launch<T, BW, BK, NO>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale, vec,
+                                 s);
+  return launch<T, 2, 32, NO>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale, vec, s);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int N,
-                     int S, int H, int KVH, int hd, int causal, float scale, int vec,
-                     cudaStream_t s) {
+                     int S, int H, int KVH, int hd, int causal, int prefix, float scale,
+                     int vec, cudaStream_t s) {
   if (hd <= 8)
-    return pick_tiles<T, 1, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return pick_tiles<T, 1, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale,
+                                         vec, s);
   if (hd <= 16)
-    return pick_tiles<T, 2, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return pick_tiles<T, 2, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale,
+                                         vec, s);
   if (hd <= 32)
-    return pick_tiles<T, 4, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return pick_tiles<T, 4, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale,
+                                         vec, s);
   if (hd <= 64)
-    return pick_tiles<T, 8, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return pick_tiles<T, 8, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale,
+                                         vec, s);
   if (hd <= 128)
-    return pick_tiles<T, 16, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return pick_tiles<T, 16, 8, 64>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale,
+                                         vec, s);
   if (hd <= 256)  // 8 warps of 64 keys would not fit shared memory here
-    return pick_tiles<T, 32, 4, 32>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s);
+    return pick_tiles<T, 32, 4, 32>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale,
+                                         vec, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success). dtype code: 0 fp32,
-// 1 bf16 (q, k, v and out alike). The caller checks shapes, dtypes,
-// devices and contiguity, hd <= 256 and G = H / KVH <= 64. Q, K and V
+// 1 bf16 (q, k, v and out alike). prefix: the prefix-LM's bidirectional
+// prefix length (0: plain causal; read only when causal). The caller
+// checks shapes, dtypes, devices and contiguity, hd <= 256 and
+// G = H / KVH <= 64. Q, K and V
 // rows go through 16-byte cp.async when a row of hd elements is a whole
 // number of 16-byte chunks and q, k and v start on 16 bytes; else through
 // plain loads.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
-                               int N, int S, int H, int KVH, int hd, int causal, int dtype,
-                               float scale, void* stream) {
+                               int N, int S, int H, int KVH, int hd, int causal, int prefix,
+                               int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KVH <= 0 || H % KVH != 0 || H / KVH > 64 || hd <= 0)
+  if (KVH <= 0 || H % KVH != 0 || H / KVH > 64 || hd <= 0 || prefix < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t item = dtype == kBF16 ? 2 : 4;
   const int vec = (hd * item) % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
@@ -611,9 +630,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
   if (dtype == kF32)
     return static_cast<int>(
-        dispatch<float>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s));
+        dispatch<float>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale, vec, s));
   if (dtype == kBF16)
     return static_cast<int>(
-        dispatch<__nv_bfloat16>(q, k, v, out, N, S, H, KVH, hd, causal, scale, vec, s));
+        dispatch<__nv_bfloat16>(q, k, v, out, N, S, H, KVH, hd, causal, prefix, scale, vec, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -49,11 +49,13 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
     return fn(q, k_pages, v_pages, block_tables, seq_lens)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd)."""
+def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
+    """q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd);
+    with ``causal``, keys below ``prefix_len`` are visible to every
+    query (the prefix-LM)."""
     fn = _route(q, _flash.flash_attention, ref.flash_attention,
                 "flash_attention")
-    return fn(q, k, v, causal=causal)
+    return fn(q, k, v, causal=causal, prefix_len=prefix_len)
 
 
 def decode_attention(q, k_cache, v_cache, k_pos):

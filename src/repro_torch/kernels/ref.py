@@ -91,16 +91,19 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
                        torch.zeros((), dtype=out.dtype, device=out.device))
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     """q (P, B, S, H, hd); k, v (P, B, S, KVH, hd) -> (P, B, S, H, hd).
-    Causal or bidirectional GQA softmax attention; softmax and products
-    in fp32, the output in the dtype of q."""
+    Causal, prefix-LM (causal with ``prefix_len`` > 0: key j visible to
+    query i iff j <= i or j < prefix_len) or bidirectional GQA softmax
+    attention; softmax and products in fp32, the output in the dtype of
+    q."""
     P, B, S, H, hd = q.shape
     KVH = k.shape[3]
     qq = q.float().reshape(P, B, S, KVH, H // KVH, hd) / math.sqrt(hd)
     s = torch.einsum("pbqngh,pbknh->pbngqk", qq, k.float())
     if causal:
         keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        keep[:, :prefix_len] = True
         s = s.masked_fill(~keep, NEG_INF)
     o = torch.einsum("pbngqk,pbknh->pbqngh", torch.softmax(s, dim=-1),
                      v.float())

@@ -1,12 +1,16 @@
-"""Model facade (counterpart of ``repro.models.api``): the decoder-only
-LM's serving entry points (paged continuous-batching prefill, decode and
-speculative verify window; prefill into and decode over a dense cache
-and recurrent state) and the training forward and loss of six families:
-the dense and MoE LMs (token cross-entropy in sequence chunks; MoE adds
-its router's aux losses), the recurrent LMs "ssm" (RWKV6) and "hybrid"
-(Mamba2 with zamba2's shared attention), which serve from the dense
-path only, as in the reference, the vision family (ViT) and the pde
-family (the 1-D UNet).
+"""Model facade (counterpart of ``repro.models.api``): the LMs' serving
+entry points (paged continuous-batching prefill, decode and speculative
+verify window; prefill into and decode over a dense cache and recurrent
+state) and the training forward and loss of every family: the dense and
+MoE LMs (token cross-entropy in sequence chunks; MoE adds its router's
+aux losses), the recurrent LMs "ssm" (RWKV6) and "hybrid" (Mamba2 with
+zamba2's shared attention), the encoder-decoder "audio" (whisper: an
+encoder over the stub frames, sinusoid positions on top of RoPE, a
+decoder that cross-attends to it) and the prefix-LM "vlm" (paligemma:
+the stub patches in front of the text, seen bidirectionally; the loss
+and the logits drop them), which serve from the dense path only, as in
+the reference, the vision family (ViT) and the pde family (the 1-D
+UNet).
 
 ``init_params`` builds ONE particle's tree (no particle axis); the store
 stacks particles. Every other function takes the stacked tree with a
@@ -19,7 +23,10 @@ points hand it to their tensor-parallel counterparts in ``models.tp``,
 and ``loss_fn`` takes the same loss on what ``tp.forward`` returns.
 
 LM batches (families "dense", "moe", "ssm" and "hybrid"): ``{"tokens":
-(B, S) int, "labels": (B, S) int}`` (labels < 0 masked); vision batches:
+(B, S) int, "labels": (B, S) int}`` (labels < 0 masked); audio batches
+add ``"frames": (B, n_frames, D) f32`` and vlm batches ``"patches": (B,
+n_prefix_tokens, D) f32`` (``data.synthetic.frontend_stub``), shared by
+the particles, as the tokens are; vision batches:
 ``{"images": (B, 28, 28, 1) f32, "labels": (B,) int}``; pde batches:
 ``{"u0": (B, L, 1) f32, "u1": (B, L, 1) f32}``.
 """
@@ -38,18 +45,18 @@ from ..runtime.program import host_check
 from ..sharding.policy import maybe_shard
 from .blocks import (dense_init, norm_apply, norm_init, paged_write_index,
                      prefill_write_index, window_write_index)
-from .transformer import (RECURRENT_KINDS, decode_guard, paged_guard,
-                          stack_apply_decode, stack_apply_full,
+from .transformer import (RECURRENT_KINDS, decode_guard, layer_apply_encode,
+                          paged_guard, stack_apply_decode, stack_apply_full,
                           stack_apply_paged, stack_apply_prefill,
                           stack_apply_prefill_paged,
                           stack_apply_window_paged, stack_cache_init,
-                          stack_init, stack_paged_init)
+                          stack_init, stack_paged_init, unit_params)
 from . import tp
 from . import unet1d as unet_mod
 from . import vit as vit_mod
 
 LOSS_CHUNK = 512
-LM_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+LM_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 
 
 def init_params(gen, cfg):
@@ -58,9 +65,6 @@ def init_params(gen, cfg):
         return vit_mod.vit_init(gen, cfg)
     if cfg.family == "pde":
         return unet_mod.unet_init(gen, cfg)
-    if cfg.family not in LM_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                  f"(ROADMAP.md queue 1, item 11)")
     params = {
         "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                              device=gen.device) * 0.02,
@@ -69,23 +73,81 @@ def init_params(gen, cfg):
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {**stack_init(gen, _enc_cfg(cfg)),
+                             "final_norm": norm_init(cfg.norm, cfg.d_model,
+                                                     device=gen.device)}
     return params
 
 
-def _family_guard(cfg, what):
-    """The audio and vlm frontends (and the vlm's offset of the text
-    positions) wait for the rest of the model zoo (ROADMAP.md queue 1,
-    item 11)."""
-    if cfg.family not in LM_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} has no ported {what} "
-            f"(ROADMAP.md queue 1, item 11)")
+def _enc_cfg(cfg):
+    """The encoder stack's config: ``n_encoder_layers`` units of
+    ``enc_attn_mlp``."""
+    return cfg.replace(pattern=("enc_attn_mlp",), n_units=cfg.n_encoder_layers,
+                       head_layers=(), tail_layers=())
 
 
-def _backbone_inputs(params, batch, cfg, dtype):
-    """The LM families' stack input x (P, B, S, D)."""
-    _family_guard(cfg, "training forward")
-    return _embed(params, batch["tokens"], dtype)
+def _sinusoid(S: int, D: int, dtype, device, start=0):
+    """Sinusoid positions start..start+S-1 (S, D): sin over the first D/2
+    dims, cos over the rest, as the reference's; ``start`` may be a 0-d
+    device tensor (a decode step's position)."""
+    pos = (torch.arange(S, dtype=torch.float32, device=device)
+           + start)[:, None]
+    dim = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10_000.0 ** (2 * dim / D))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def _frontend(batch, key, cfg, P, dtype, device):
+    """The batch's stub frontend embeddings (B, L, D) -> (P, B, L, D) in
+    ``dtype``, shared by the particles."""
+    if batch.get(key) is None:
+        raise ValueError(f"family {cfg.family!r} needs {key!r} in the batch "
+                         f"(data.synthetic.make_batch)")
+    t = torch.as_tensor(batch[key]).to(device=device, dtype=dtype)
+    return t.expand(P, *t.shape)
+
+
+def _encode(params, frames, cfg, *, serve=False):
+    """whisper's encoder over the frames (P, B, F, D): sinusoid positions
+    added, ``n_encoder_layers`` bidirectional layers, the final norm. In
+    training (``serve`` False) the layers are the differentiable
+    ``stack_apply_full``'s; in serving each layer's attention runs
+    through the prefill kernel (``layer_apply_encode``)."""
+    if "encoder" not in params:
+        raise ValueError(f"family {cfg.family!r} needs an encoder: "
+                         f"cfg.is_encoder_decoder with n_encoder_layers")
+    enc, enc_cfg = params["encoder"], _enc_cfg(cfg)
+    x = frames + _sinusoid(frames.shape[2], cfg.d_model, frames.dtype,
+                           frames.device)
+    if serve:
+        for unit in unit_params(enc, enc_cfg):
+            x = layer_apply_encode(unit[0], x, enc_cfg)
+    else:
+        x = stack_apply_full(enc, x, enc_cfg)[0]
+    return norm_apply(enc["final_norm"], x)
+
+
+def _backbone_inputs(params, batch, cfg, dtype, *, serve=False):
+    """The stack's input x (P, B, S, D), the ``ctx`` its layers read and
+    the number of leading positions that are not text: the token
+    embeddings; for the audio family plus sinusoid positions, with the
+    encoder's output in ``ctx["enc_out"]``; for the vlm family after the
+    patches, with ``ctx["prefix_len"]`` and the offset their count."""
+    x = _embed(params, torch.as_tensor(batch["tokens"]).to(
+        params["embed"].device), dtype)
+    P, device = x.shape[0], x.device
+    ctx: Dict[str, Any] = {}
+    offset = 0
+    if cfg.family == "audio":
+        frames = _frontend(batch, "frames", cfg, P, dtype, device)
+        ctx["enc_out"] = _encode(params, frames, cfg, serve=serve)
+        x = x + _sinusoid(x.shape[2], cfg.d_model, dtype, device)
+    elif cfg.family == "vlm":
+        patches = _frontend(batch, "patches", cfg, P, dtype, device)
+        x = torch.cat([patches, x], 2)
+        ctx["prefix_len"] = offset = cfg.n_prefix_tokens
+    return x, ctx, offset
 
 
 def _ce_chunk(params, xi, li, cfg):
@@ -124,8 +186,9 @@ def _chunked_ce(params, x, labels, cfg):
 
 def forward(params, batch, cfg):
     """Training-style full forward. Returns (per-particle output, aux):
-    the final-norm hidden states (P, B, S, D) for the LM families
-    (``loss_fn`` applies the head chunk by chunk), logits (P, B,
+    the final-norm hidden states (P, B, S, D) of the text positions for
+    the LM families (the vlm's patches dropped; ``loss_fn`` applies the
+    head chunk by chunk), logits (P, B,
     n_classes) for the vision family, the predicted next state (P, B, L,
     1) for the pde family. aux holds the MoE layers' summed aux values
     (``lb_loss``, ``z_loss``, ``dropped_frac``, each (P,)); it is {} for
@@ -136,9 +199,10 @@ def forward(params, batch, cfg):
         return vit_mod.vit_apply(params, batch["images"], cfg), {}
     if cfg.family == "pde":
         return unet_mod.unet_apply(params, batch["u0"], cfg), {}
-    x, aux = stack_apply_full(params, _backbone_inputs(params, batch, cfg,
-                                                       _dtype(cfg)), cfg)
-    return norm_apply(params["final_norm"], x), aux
+    x, ctx, offset = _backbone_inputs(params, batch, cfg, _dtype(cfg))
+    x, aux = stack_apply_full(params, x, cfg, ctx=ctx)
+    x = norm_apply(params["final_norm"], x)
+    return (x[:, :, offset:] if offset else x), aux
 
 
 def loss_fn(params, batch, cfg):
@@ -211,26 +275,35 @@ def _lm_logits(params, x, cfg):
 def prefill(params, batch, cfg, max_len=None):
     """Full-prompt pass that builds the dense decode caches.
 
-    batch {"tokens": (B, S) int}; every particle sees the same prompts.
-    ``max_len`` allocates decode headroom in the caches (defaults to S;
-    pass S + decode budget + 1 for generation). Returns (last-token
+    batch {"tokens": (B, S) int} (plus the audio family's "frames", the
+    vlm family's "patches"); every particle sees the same batch. The
+    vlm's sequence is its patches and then its tokens, S_all = n_prefix
+    + S positions; the others' S_all = S. ``max_len`` allocates decode
+    headroom in the caches and counts every position (defaults to S_all;
+    pass S_all + decode budget + 1 for generation). Returns (last-token
     logits (P, B, V), caches): per attention layer k/v (P, B, max_len,
     KVH, hd) and pos (B, max_len) int32, shared by the particles; per
-    recurrent layer its scan's final state (``stack_cache_init``)."""
-    _family_guard(cfg, "serving")
+    decoder layer also the encoder's cross k / v (P, B, n_frames, KVH,
+    hd); per recurrent layer its scan's final state
+    (``stack_cache_init``)."""
     device = (params.devices[0] if isinstance(params, Group)
               else params["embed"].device)
     tokens = torch.as_tensor(batch["tokens"]).to(device)
     B, S = tokens.shape
-    C = S if max_len is None else max_len
-    if C < S:
-        raise ValueError(f"max_len {C} < prompt length {S}")
+    S_all = S + (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
+    C = S_all if max_len is None else max_len
+    if C < S_all:
+        raise ValueError(f"max_len {C} < prompt length {S_all}")
     if isinstance(params, Group):
         return tp.prefill(params, tokens, cfg, C)
     caches = stack_cache_init(cfg, params["embed"].shape[0], B, C,
                               dtype=_cache_dtype(cfg), device=tokens.device)
-    x = _embed(params, tokens, _dtype(cfg))
-    x, caches = stack_apply_prefill(params, x, cfg, caches)
+    x, ctx, _ = _backbone_inputs(params, {**batch, "tokens": tokens}, cfg,
+                                 _dtype(cfg), serve=True)
+    if cfg.family == "audio" and ctx["enc_out"].shape[2] != cfg.n_frames:
+        raise ValueError(f"frames hold {ctx['enc_out'].shape[2]} positions; "
+                         f"the cache holds cfg.n_frames = {cfg.n_frames}")
+    x, caches = stack_apply_prefill(params, x, cfg, caches, ctx)
     x = norm_apply(params["final_norm"], x[:, :, -1:])
     return _lm_logits(params, x, cfg)[:, :, 0], caches
 
@@ -243,8 +316,9 @@ def decode_step(params, token, caches, cur_pos, cfg):
     the cache raises ValueError: an int is checked here, a captured step's
     tensor through ``runtime.program.host_check`` on the int it is filled
     from before each replay; any other tensor is its caller's to check.
-    The caches are updated in place. Returns (logits (P, B, V), caches)."""
-    _family_guard(cfg, "serving")
+    The caches are updated in place. The audio family adds the sinusoid
+    position of ``cur_pos`` to the token's embedding; the vlm's positions
+    count its patches. Returns (logits (P, B, V), caches)."""
     decode_guard(cfg)
     check = functools.partial(_check_cur_pos, C=_global_len(caches, cfg))
     if isinstance(cur_pos, torch.Tensor):
@@ -255,6 +329,8 @@ def decode_step(params, token, caches, cur_pos, cfg):
     if isinstance(params, Group):
         return tp.decode_step(params, token, caches, cur_pos, cfg)
     x = _embed(params, token.clamp(min=0)[:, None], _dtype(cfg))
+    if cfg.family == "audio":
+        x = x + _sinusoid(1, cfg.d_model, x.dtype, x.device, start=cur_pos)
     ctx: Dict[str, Any] = {"cur_pos": cur_pos}
     x, caches = stack_apply_decode(params, x, cfg, caches, ctx)
     x = norm_apply(params["final_norm"], x)
@@ -271,7 +347,7 @@ def _global_len(caches, cfg):
     for group in ("units", "head", "tail"):
         for kind, c in zip(kinds[group], tree[group]):
             if kind not in ("local",) + RECURRENT_KINDS:
-                return c["k"].shape[-3]
+                return c.get("self", c)["k"].shape[-3]
     return None
 
 

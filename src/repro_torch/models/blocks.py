@@ -336,8 +336,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
-                    softcap: float = 0.0, q_chunk: int = 512,
-                    k_chunk: int = 1024):
+                    prefix_len: int = 0, softcap: float = 0.0,
+                    q_chunk: int = 512, k_chunk: int = 1024):
     """q (P, B, Sq, H, hd); k, v (P, B, Sk, KVH, hd) -> (P, B, Sq, H, hd).
 
     The reference's training attention: GQA by head grouping, a
@@ -350,16 +350,16 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     padded keys of a "bidir" attention are masked by a prefix mask over
     the real keys with the queries moved to negative positions. Blocks
     the mask empties entirely are skipped (exact: the reference's sums
-    get zeros there). "causal", "bidir" and "sliding" (key j visible to
-    query i iff i - window < j <= i: gemma3's local layers) are ported;
-    "prefix" waits for the rest of the model zoo (ROADMAP.md queue 1,
-    item 11). With ``softcap`` > 0 only the forward is the flash form and
-    autograd differentiates it, as the reference has no custom backward
-    for a capped score."""
-    if kind not in ("causal", "bidir", "sliding"):
-        raise NotImplementedError(
-            f"flash attention kind {kind!r} is not ported (ROADMAP.md queue "
-            f"1, item 11)")
+    get zeros there). The kinds: "causal", "bidir" (Sk may differ from
+    Sq: the decoder's cross-attention over the encoder's frames),
+    "sliding" (key j visible to query i iff i - window < j <= i: gemma3's
+    local layers) and "prefix" (key j visible to query i iff j <= i or
+    j < ``prefix_len``: paligemma's bidirectional image prefix). With
+    ``softcap`` > 0 only the forward is the flash form and autograd
+    differentiates it, as the reference has no custom backward for a
+    capped score."""
+    if kind not in ("causal", "bidir", "sliding", "prefix"):
+        raise ValueError(f"unknown flash attention kind {kind!r}")
     P, B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[2], k.shape[3]
     q_chunk = min(q_chunk, max(Sq, 1))
@@ -374,7 +374,9 @@ def flash_attention(q, k, v, *, kind: str = "causal", window: int = 0,
     if pk:      # padded keys are masked by position (causal: in the future)
         kf = F.pad(kf, (0, 0, 0, 0, 0, pk))
         vf = F.pad(vf, (0, 0, 0, 0, 0, pk))
-    pad_kind, prefix_len, q_offset = kind, 0, 0
+    pad_kind, q_offset = kind, 0
+    if kind != "prefix":
+        prefix_len = 0
     if kind == "bidir" and pk:
         # every query sees exactly the keys [0, Sk): a prefix mask over
         # them, with the queries at negative positions so that its causal
@@ -530,27 +532,74 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, write_index):
     return out, pages
 
 
-def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal", window: int = 0):
+def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal", window: int = 0,
+                       prefix_len: int = 0, cross_kv=None):
     """Full-sequence attention (training). x (P, B, S, D); positions
     ``arange(S)`` feed RoPE when the config has it (the ViT keeps the
     default theta, on top of its learned positions). ``kind`` "causal"
-    (the LM's layers) and "sliding" (``local`` layers, ``window`` keys)
-    run the chunked ``flash_attention`` with the config's softcap;
-    "bidir" (the ViT's encoder layers, S = 5) the plain
-    ``full_attention``. Returns (P, B, S, D)."""
-    if kind not in ("causal", "bidir", "sliding"):
-        raise NotImplementedError(f"attention kind {kind!r} is not ported "
-                                  f"(ROADMAP.md queue 1, item 11)")
+    (the LM's layers), "sliding" (``local`` layers, ``window`` keys) and
+    "prefix" (the prefix-LM, keys below ``prefix_len`` visible to every
+    query) run the chunked ``flash_attention`` with the config's softcap;
+    "bidir" (the encoders' layers: the ViT's, whisper's) the plain
+    ``full_attention``. ``cross_kv`` (k, v (P, B, F, KVH, hd), the
+    encoder's) makes it cross-attention, as the reference's: q alone is
+    projected and roped, the kind is "bidir" over the F keys, through the
+    chunked ``flash_attention`` (Sk differs from Sq). Returns (P, B, S,
+    D)."""
     P, B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
-    q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
+    rope_pos = positions if cfg.rope_theta > 0 else None
+    if cross_kv is not None:
+        q = dense_apply(p["wq"], x).reshape(P, B, S, cfg.n_heads, cfg.hd)
+        if rope_pos is not None:
+            q = rope(q, rope_pos, cfg.rope_theta)
+        out = flash_attention(q, *cross_kv, kind="bidir",
+                              softcap=cfg.logit_softcap)
+        return dense_apply(p["wo"], out.reshape(P, B, S, -1))
+    q, k, v = attn_qkv(p, x, cfg, rope_pos)
     k, v = kv_heads(k, cfg), kv_heads(v, cfg)
     if kind != "bidir":
         out = flash_attention(q, k, v, kind=kind, window=window,
+                              prefix_len=prefix_len,
                               softcap=cfg.logit_softcap)
     else:
         out = full_attention(q, k, v, causal=False)
     return dense_apply(p["wo"], out.reshape(P, B, S, -1))
+
+
+def attn_apply_encode(p, x, cfg):
+    """Bidirectional self-attention of an encoder layer in serving (the
+    prefill of whisper's frames): q, k, v roped as in training, through
+    the prefill kernel with ``causal=False`` (Sq = Sk). x (P, B, S, D) ->
+    (P, B, S, D)."""
+    P, B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
+    out = _kops.flash_attention(q, k, v, causal=False)
+    return dense_apply(p["wo"], out.reshape(P, B, S, -1))
+
+
+def cross_kv(p, enc, cfg):
+    """The cross-attention's k, v (P, B, F, KVH, hd) from the encoder's
+    output enc (P, B, F, D): projected, never roped."""
+    P, B, F_, _ = enc.shape
+    shape = (P, B, F_, cfg.n_kv_heads, cfg.hd)
+    return (dense_apply(p["wk"], enc).reshape(shape),
+            dense_apply(p["wv"], enc).reshape(shape))
+
+
+def cross_attn_decode(p, x, cfg, xk, xv):
+    """One-token cross-attention over the encoder's cached k / v, as the
+    reference's decode computes it: q (P, B, 1, D) projected with no rope
+    (its prefill ropes q; its decode does not), every one of the F slots
+    valid (``k_pos`` = arange(F) for every row), through the dense-decode
+    kernel. xk, xv (P, B, F, KVH, hd). Returns (P, B, 1, D)."""
+    P, B = x.shape[:2]
+    F_ = xk.shape[2]
+    q = dense_apply(p["wq"], x).reshape(P, B, cfg.n_heads, cfg.hd)
+    k_pos = torch.arange(F_, dtype=torch.int32, device=x.device).repeat(B, 1)
+    out = _kops.decode_attention(q, xk, xv, k_pos)
+    return dense_apply(p["wo"], out.reshape(P, B, 1, -1))
 
 
 def attn_apply_decode(p, x, cfg, cache, *, cur_pos, window: int = 0):
@@ -585,12 +634,14 @@ def attn_apply_decode(p, x, cfg, cache, *, cur_pos, window: int = 0):
     return out, cache
 
 
-def attn_apply_prefill(p, x, cfg, cache, *, window: int = 0):
+def attn_apply_prefill(p, x, cfg, cache, *, window: int = 0,
+                       prefix_len: int = 0):
     """Prefill of a whole prompt that fills the layer's empty dense decode
     cache. x (P, B, S, D); cache {"k", "v": (P, B, C, KVH, hd), "pos":
     (B, C)}. A global layer (``window`` 0) attends causally through the
-    prefill kernel, or, with a logit softcap, through the plain flash
-    form (the kernel has no softcap); C >= S, and the prompt's K/V rows
+    prefill kernel (with ``prefix_len`` > 0, under the prefix-LM mask:
+    keys below it visible to every query), or, with a logit softcap,
+    through the plain flash form (the kernel has no softcap); C >= S, and the prompt's K/V rows
     and positions 0..S-1 are written IN PLACE, the slots past S left
     empty (the decode headroom). A ``local`` layer attends through the
     plain sliding-window flash form (the reference's jnp one: no kernel
@@ -602,11 +653,13 @@ def attn_apply_prefill(p, x, cfg, cache, *, window: int = 0):
     q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
     kk, vv = kv_heads(k, cfg), kv_heads(v, cfg)
     if window or cfg.logit_softcap > 0.0:
-        out = flash_attention(q, kk, vv, kind="sliding" if window
-                              else "causal", window=window,
+        kind = "sliding" if window else "prefix" if prefix_len else "causal"
+        out = flash_attention(q, kk, vv, kind=kind, window=window,
+                              prefix_len=prefix_len,
                               softcap=cfg.logit_softcap)
     else:
-        out = _kops.flash_attention(q, kk, vv, causal=True)
+        out = _kops.flash_attention(q, kk, vv, causal=True,
+                                    prefix_len=prefix_len)
     out = dense_apply(p["wo"], out.reshape(P, B, S, -1))
     C = cache["k"].shape[2]
     if window and S > C:

@@ -272,9 +272,10 @@ def _zip(shards):
             for w in ("head", "units", "tail")}
 
 
-def _full_layer(kind, ps, xs, cfg, devices):
+def _full_layer(kind, ps, xs, cfg, ctx=None, *, devices):
     """One training layer over the group (``layer_apply_full``'s
-    counterpart): (residuals, aux or None)."""
+    counterpart): (residuals, aux or None). ``ctx`` is None: the stacks
+    that read one are refused (``recurrent_guard``)."""
     mk, window = mask_kind(kind, cfg)
     return _layer(ps, xs, cfg, devices,
                   lambda p, h, lc, j: blocks.attn_apply_fullseq(
@@ -331,23 +332,41 @@ def vit_forward(group: Group, images, cfg):
     def encoder(x):
         xs = [x.to(d) for d in devices]
         for unit in unbind_units([s["units"] for s in group.shards]):
-            xs, _ = _full_layer("enc_attn_mlp", unit, xs, cfg, devices)
+            xs, _ = _full_layer("enc_attn_mlp", unit, xs, cfg,
+                                devices=devices)
         return xs[0]
 
     return vit_apply(group.shards[0], images, cfg, encoder=encoder)
 
 
 def recurrent_guard(cfg):
-    """The model axis runs attention stacks only: the recurrent blocks
-    (``mamba``, ``rwkv``) and zamba2's ``shared_attn`` have rules in
-    ``sharding.rules`` but no tensor-parallel layer (ROADMAP.md queue 1,
-    item 25)."""
+    """The model axis runs decoder-only attention stacks only: the
+    recurrent blocks (``mamba``, ``rwkv``) and zamba2's ``shared_attn``
+    have rules in ``sharding.rules`` but no tensor-parallel layer
+    (ROADMAP.md queue 1, item 25); whisper's encoder-decoder
+    (``dec_attn_mlp``, the encoder) and the prefix-LM neither
+    (``encdec_guard``, item 27)."""
     kinds = set(cfg.head_layers) | set(cfg.pattern) | set(cfg.tail_layers)
     bad = sorted(kinds & set(RECURRENT_KINDS + ("shared_attn",)))
     if bad:
         raise NotImplementedError(
             f"{bad} layers have no tensor-parallel form on the model axis "
             f"(ROADMAP.md queue 1, item 25)")
+    encdec_guard(cfg)
+
+
+def encdec_guard(cfg):
+    """The encoder-decoder stack (``dec_attn_mlp`` layers and the
+    encoder over the frames) and the prefix-LM (its patches, its mask)
+    have no tensor-parallel form on the model axis (ROADMAP.md queue 1,
+    item 27); the ViT's encoder has one (``vit_forward``)."""
+    kinds = set(cfg.head_layers) | set(cfg.pattern) | set(cfg.tail_layers)
+    if cfg.family in ("audio", "vlm") or cfg.prefix_lm \
+            or "dec_attn_mlp" in kinds:
+        raise NotImplementedError(
+            f"the {cfg.family} family's stack (encoder-decoder or "
+            f"prefix-LM) has no tensor-parallel form on the model axis "
+            f"(ROADMAP.md queue 1, item 27)")
 
 
 def forward(group, batch, cfg):

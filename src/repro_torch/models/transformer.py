@@ -9,14 +9,20 @@ Layer kinds: ``attn_mlp`` (global attention + MLP), ``attn_moe`` (global
 attention + the MoE of ``models.moe``), ``local`` (``attn_mlp`` with a
 sliding window of ``cfg.sliding_window`` keys: a ring cache of that many
 slots in dense-cache decode; no paged form, as in the reference),
-``enc_attn_mlp`` (bidirectional), ``mamba`` (``models.mamba``) and
-``rwkv`` (``models.rwkv``), whose decode state is their scan's (no paged
-form either), and ``shared_attn`` (zamba2's shared block: an
-``attn_mlp`` layer whose one parameter copy, at ``params["shared"]``,
-serves every occurrence in the pattern; its gradient sums over them,
-while each occurrence keeps its own cache). The encoder-decoder and
-prefix-LM wait for the rest of the model zoo (ROADMAP.md queue 1, item
-11).
+``enc_attn_mlp`` (bidirectional: the encoders of the ViT and of
+whisper), ``dec_attn_mlp`` (whisper's decoder layer: causal
+self-attention, cross-attention over the encoder's output, MLP; its
+dense cache holds the self-attention's k / v and the cross-attention's
+encoder k / v, no paged form), ``mamba`` (``models.mamba``) and ``rwkv``
+(``models.rwkv``), whose decode state is their scan's (no paged form
+either), and ``shared_attn`` (zamba2's shared block: an ``attn_mlp``
+layer whose one parameter copy, at ``params["shared"]``, serves every
+occurrence in the pattern; its gradient sums over them, while each
+occurrence keeps its own cache). Under ``cfg.prefix_lm`` (paligemma) the
+attention layers take the prefix-LM mask: the first ``prefix_len``
+positions are seen by every query. The layers that need more than x (the
+encoder's output, the prefix length) read it from one ``ctx`` dict that
+the stack functions hand to every layer, as the reference's do.
 
 The stack is ``cfg.head_layers + cfg.pattern * cfg.n_units +
 cfg.tail_layers``. Repeated pattern units keep the reference's storage:
@@ -35,21 +41,24 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import torch
+
 from ..core.precision import checkpoint_policy
 from ..core.tree import tree_map
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
-from .blocks import (attn_apply_decode, attn_apply_fullseq,
-                     attn_apply_paged, attn_apply_prefill,
+from .blocks import (attn_apply_decode, attn_apply_encode,
+                     attn_apply_fullseq, attn_apply_paged, attn_apply_prefill,
                      attn_apply_prefill_paged, attn_apply_window_paged,
-                     attn_cache_init, attn_init, attn_pages_init, mlp_apply,
-                     mlp_init, norm_apply, norm_init)
+                     attn_cache_init, attn_init, attn_pages_init,
+                     cross_attn_decode, cross_kv, mlp_apply, mlp_init,
+                     norm_apply, norm_init)
 
 PAGED_KINDS = ("attn_mlp", "attn_moe")
 RECURRENT_KINDS = ("mamba", "rwkv")
-DECODE_KINDS = ("attn_mlp", "attn_moe", "local", "shared_attn") \
-    + RECURRENT_KINDS
+DECODE_KINDS = ("attn_mlp", "attn_moe", "local", "shared_attn",
+                "dec_attn_mlp") + RECURRENT_KINDS
 FULL_KINDS = DECODE_KINDS + ("enc_attn_mlp",)
 STATE_INIT = {"mamba": mamba_mod.mamba_state_init,
               "rwkv": rwkv_mod.rwkv_state_init}
@@ -58,8 +67,7 @@ AUX_KEYS = moe_mod.AUX_KEYS
 
 def layer_init(kind: str, gen, cfg, lead=()):
     if kind not in FULL_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported "
-                                  f"(ROADMAP.md queue 1, item 11)")
+        raise ValueError(f"unknown layer kind {kind!r}")
     if kind == "mamba":
         return mamba_mod.mamba_init(gen, cfg, lead=lead)
     if kind == "rwkv":
@@ -68,6 +76,10 @@ def layer_init(kind: str, gen, cfg, lead=()):
     p = {"ln1": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead),
          "attn": attn_init(gen, cfg, lead=lead),
          "ln2": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead)}
+    if kind == "dec_attn_mlp":
+        p = {"ln1": p["ln1"], "attn": p["attn"],
+             "ln_x": norm_init(cfg.norm, cfg.d_model, device=dev, lead=lead),
+             "xattn": attn_init(gen, cfg, lead=lead), "ln2": p["ln2"]}
     if kind == "attn_moe":
         p["moe"] = moe_mod.moe_init(gen, cfg, lead=lead)
     else:
@@ -77,12 +89,33 @@ def layer_init(kind: str, gen, cfg, lead=()):
 
 def mask_kind(kind: str, cfg):
     """(attention mask kind, window) of a layer kind (the reference's
-    ``_mask_kind``, less prefix-LM, which ``full_guard`` refuses)."""
+    ``_mask_kind``; its prefix length is ``prefix_len``'s)."""
     if kind == "enc_attn_mlp":
         return "bidir", 0
     if kind == "local":
         return "sliding", cfg.sliding_window
+    if cfg.prefix_lm:
+        return "prefix", 0
     return "causal", 0
+
+
+def prefix_len(cfg, ctx) -> int:
+    """The prefix-LM's prefix length: ``ctx["prefix_len"]`` (the vlm's
+    patches), else ``cfg.n_prefix_tokens``, as the reference reads it; 0
+    without ``cfg.prefix_lm``."""
+    if not cfg.prefix_lm:
+        return 0
+    return (ctx or {}).get("prefix_len", cfg.n_prefix_tokens)
+
+
+def enc_out(ctx):
+    """The encoder's output (P, B, F, D) that a ``dec_attn_mlp`` layer
+    cross-attends to; a stack without one cannot run such a layer."""
+    if not ctx or ctx.get("enc_out") is None:
+        raise ValueError("dec_attn_mlp layers cross-attend to an encoder's "
+                         "output: the stack needs the audio family's "
+                         "encoder (cfg.is_encoder_decoder) and its frames")
+    return ctx["enc_out"]
 
 
 def window_of(kind: str, cfg) -> int:
@@ -150,36 +183,50 @@ def unit_params(params, cfg):
             for u in range(cfg.n_units)]
 
 
-def layer_apply_full(kind: str, p, x, cfg):
+def layer_apply_full(kind: str, p, x, cfg, ctx=None):
     """One layer over a whole sequence: a recurrent block's chunked scan
-    from a zero state, or pre-norm attention + (MLP | MoE). x (P, B, S, D)
-    -> (x (P, B, S, D), aux: the MoE's aux values (P,) or None)."""
+    from a zero state, pre-norm attention + (MLP | MoE), or a decoder
+    layer (causal self-attention, cross-attention over ``ctx["enc_out"]``,
+    MLP). x (P, B, S, D) -> (x (P, B, S, D), aux: the MoE's aux values
+    (P,) or None)."""
     if kind == "mamba":
         return mamba_mod.mamba_block_full(p, x, cfg)[0], None
     if kind == "rwkv":
         return rwkv_mod.rwkv_block_full(p, x, cfg)[0], None
+    if kind == "dec_attn_mlp":
+        enc = enc_out(ctx)
+        x = x + attn_apply_fullseq(p["attn"], norm_apply(p["ln1"], x), cfg)
+        kv = cross_kv(p["xattn"], enc, cfg)
+        x = x + attn_apply_fullseq(p["xattn"], norm_apply(p["ln_x"], x), cfg,
+                                   cross_kv=kv)
+        return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), None
     mk, window = mask_kind(kind, cfg)
     x = x + attn_apply_fullseq(p["attn"], norm_apply(p["ln1"], x), cfg,
-                               kind=mk, window=window)
+                               kind=mk, window=window,
+                               prefix_len=prefix_len(cfg, ctx))
     h, aux = ffn_apply(p, norm_apply(p["ln2"], x), cfg)
     return x + h, aux
 
 
+def layer_apply_encode(p, x, cfg):
+    """One encoder layer (``enc_attn_mlp``) in serving: bidirectional
+    self-attention through the prefill kernel, then the MLP. x (P, B, F,
+    D) -> x."""
+    x = x + attn_apply_encode(p["attn"], norm_apply(p["ln1"], x), cfg)
+    return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg)
+
+
 def full_guard(cfg):
     """The training stack runs ``attn_mlp``, ``attn_moe`` and
-    ``shared_attn`` layers (causal), ``local`` (sliding window),
-    ``enc_attn_mlp`` (bidirectional), ``mamba`` and ``rwkv``, with or
-    without a logit softcap; the other layer kinds and prefix-LM wait
-    for the rest of the model zoo (ROADMAP.md queue 1, item 11)."""
+    ``shared_attn`` layers (causal, or prefix-LM under ``cfg.prefix_lm``),
+    ``local`` (sliding window), ``enc_attn_mlp`` (bidirectional),
+    ``dec_attn_mlp`` (with an encoder's output), ``mamba`` and ``rwkv``,
+    with or without a logit softcap: every kind of the reference."""
     kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
     bad = sorted({k for k in kinds if k not in FULL_KINDS})
     if bad:
-        raise NotImplementedError(
-            f"the training stack supports {FULL_KINDS} layers only, "
-            f"got {bad} (ROADMAP.md queue 1, item 11)")
-    if cfg.prefix_lm:
-        raise NotImplementedError("the training stack does not support "
-                                  "prefix_lm (ROADMAP.md queue 1, item 11)")
+        raise ValueError(f"unknown layer kinds {bad}; the stack runs "
+                         f"{FULL_KINDS}")
 
 
 def _remat(cfg, body):
@@ -191,14 +238,16 @@ def _remat(cfg, body):
     return checkpoint_policy(name)(body)
 
 
-def stack_apply_full(params, x, cfg, layer=layer_apply_full):
+def stack_apply_full(params, x, cfg, layer=layer_apply_full, ctx=None):
     """The training forward through the stack. x (P, B, S, D) -> (x (P,
     B, S, D), aux): aux the MoE layers' aux values summed over the layers
     (each (P,)), as the reference sums them, or {} for a stack with no MoE
     layer. The reference scans its units; here a Python loop takes each
     unit's params as views (``unbind_units``), and the unit body is
-    checkpointed as ``_remat`` says. ``layer(kind, p, x, cfg)`` runs one
-    layer and returns (x, aux or None): ``models.tp`` passes its
+    checkpointed as ``_remat`` says. ``layer(kind, p, x, cfg, ctx)`` runs
+    one layer and returns (x, aux or None); ``ctx`` carries what a layer
+    reads besides x (the encoder's output, the prefix length; None for
+    the decoder-only stacks). ``models.tp`` passes its
     tensor-parallel layer, with ``params`` a tree whose layers hold one
     tree per model position and ``x`` a list with one tensor per
     position. Every ``shared_attn`` occurrence reads ``params["shared"]``,
@@ -208,48 +257,63 @@ def stack_apply_full(params, x, cfg, layer=layer_apply_full):
     def body(x, unit):
         aux = None
         for kind, p in zip(cfg.pattern, unit):
-            x, a = layer(kind, p, x, cfg)
+            x, a = layer(kind, p, x, cfg, ctx)
             aux = add_aux(aux, a)
         return x, aux
 
     body = _remat(cfg, body)
     aux = None
     for kind, p in zip(cfg.head_layers, params["head"]):
-        x, a = layer(kind, p, x, cfg)
+        x, a = layer(kind, p, x, cfg, ctx)
         aux = add_aux(aux, a)
     if cfg.n_units:
         for unit in unit_params(params, cfg):
             x, a = body(x, unit)
             aux = add_aux(aux, a)
     for kind, p in zip(cfg.tail_layers, params["tail"]):
-        x, a = layer(kind, p, x, cfg)
+        x, a = layer(kind, p, x, cfg, ctx)
         aux = add_aux(aux, a)
     return x, aux or {}
 
 
 def _write_state(cache, new):
-    """Copy a recurrent block's new state into its cache IN PLACE, so a
-    captured step's replay carries it."""
+    """Copy a layer's new state (a recurrent block's, a decoder layer's
+    cross k / v) into its cache IN PLACE, so a captured step's replay
+    carries it."""
     for k, t in new.items():
         cache[k].copy_(t)
     return cache
 
 
-def layer_apply_prefill(kind: str, p, x, cfg, cache):
+def layer_apply_prefill(kind: str, p, x, cfg, cache, ctx=None):
     """One layer over a whole prompt that also builds the layer's dense
     decode cache (a ring for a ``local`` layer) or, for a recurrent
     block, writes its scan's final state, the counterpart of the
     cache-building branch of the reference's ``layer_apply_full``: the
-    layer's empty cache is filled in place. x (P, B, S, D). Returns (x,
-    cache)."""
+    layer's empty cache is filled in place. A decoder layer also writes
+    the cross-attention's k / v of ``ctx["enc_out"]`` into its cache's
+    ``xk`` / ``xv``; under ``cfg.prefix_lm`` the self-attention takes the
+    prefix-LM mask over ``prefix_len(cfg, ctx)`` positions. x (P, B, S,
+    D). Returns (x, cache)."""
     if kind == "mamba":
         x, new = mamba_mod.mamba_block_full(p, x, cfg)
         return x, _write_state(cache, new)
     if kind == "rwkv":
         x, new = rwkv_mod.rwkv_block_full(p, x, cfg)
         return x, _write_state(cache, new)
+    if kind == "dec_attn_mlp":
+        enc = enc_out(ctx)
+        h, _ = attn_apply_prefill(p["attn"], norm_apply(p["ln1"], x), cfg,
+                                  cache["self"])
+        x = x + h
+        kv = cross_kv(p["xattn"], enc, cfg)
+        _write_state(cache, {"xk": kv[0], "xv": kv[1]})
+        x = x + attn_apply_fullseq(p["xattn"], norm_apply(p["ln_x"], x), cfg,
+                                   cross_kv=kv)
+        return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), cache
     h, cache = attn_apply_prefill(p["attn"], norm_apply(p["ln1"], x), cfg,
-                                  cache, window=window_of(kind, cfg))
+                                  cache, window=window_of(kind, cfg),
+                                  prefix_len=prefix_len(cfg, ctx))
     x = x + h
     return x + ffn_apply(p, norm_apply(p["ln2"], x), cfg)[0], cache
 
@@ -257,14 +321,22 @@ def layer_apply_prefill(kind: str, p, x, cfg, cache):
 def layer_apply_decode(kind: str, p, x, cfg, cache, ctx):
     """One-token decode of one layer over its dense cache (a ring for a
     ``local`` layer) or its recurrent state. x (P, B, 1, D); ctx: cur_pos
-    (a 0-d int tensor on the device). The cache is updated in place.
-    Returns (x, cache)."""
+    (a 0-d int tensor on the device). The cache is updated in place. A
+    decoder layer's cross-attention reads its cached encoder k / v
+    (``cross_attn_decode``). Returns (x, cache)."""
     if kind == "mamba":
         x, new = mamba_mod.mamba_block_decode(p, x, cfg, cache)
         return x, _write_state(cache, new)
     if kind == "rwkv":
         x, new = rwkv_mod.rwkv_block_decode(p, x, cfg, cache)
         return x, _write_state(cache, new)
+    if kind == "dec_attn_mlp":
+        h, _ = attn_apply_decode(p["attn"], norm_apply(p["ln1"], x), cfg,
+                                 cache["self"], cur_pos=ctx["cur_pos"])
+        x = x + h
+        x = x + cross_attn_decode(p["xattn"], norm_apply(p["ln_x"], x), cfg,
+                                  cache["xk"], cache["xv"])
+        return x + mlp_apply(p["mlp"], norm_apply(p["ln2"], x), cfg), cache
     h, cache = attn_apply_decode(p["attn"], norm_apply(p["ln1"], x), cfg,
                                  cache, cur_pos=ctx["cur_pos"],
                                  window=window_of(kind, cfg))
@@ -274,27 +346,27 @@ def layer_apply_decode(kind: str, p, x, cfg, cache, ctx):
 
 def decode_guard(cfg):
     """The dense-cache path runs ``attn_mlp``, ``attn_moe``,
-    ``shared_attn`` and ``local`` (ring cache) layers and the recurrent
-    ``mamba`` and ``rwkv`` (their scan state), with or without a logit
-    softcap; the other layer kinds and prefix-LM wait for the rest of
-    the model zoo (ROADMAP.md queue 1, item 11)."""
+    ``shared_attn`` and ``local`` (ring cache) layers, ``dec_attn_mlp``
+    (self-attention cache and the encoder's cross k / v) and the
+    recurrent ``mamba`` and ``rwkv`` (their scan state), with or without
+    a logit softcap or a prefix-LM prefill. An encoder's
+    ``enc_attn_mlp`` layer keeps no cache, in the reference too: a stack
+    of them has no decode."""
     kinds = tuple(cfg.head_layers) + tuple(cfg.pattern) + tuple(cfg.tail_layers)
     bad = sorted({k for k in kinds if k not in DECODE_KINDS})
     if bad:
-        raise NotImplementedError(
-            f"dense-cache decode supports {DECODE_KINDS} stacks only, got "
-            f"{bad} (ROADMAP.md queue 1, item 11)")
-    if cfg.prefix_lm:
-        raise NotImplementedError("dense-cache decode does not support "
-                                  "prefix_lm (ROADMAP.md queue 1, item 11)")
+        raise ValueError(f"dense-cache decode runs {DECODE_KINDS} stacks "
+                         f"only, got {bad}")
 
 
-def stack_apply_prefill(params, x, cfg, caches):
+def stack_apply_prefill(params, x, cfg, caches, ctx=None):
     """Prompt prefill that fills the empty dense decode caches of
-    ``stack_cache_init`` in place. x (P, B, S, D). Returns (x, caches)."""
+    ``stack_cache_init`` in place. x (P, B, S, D); ctx: the encoder's
+    output and the prefix length, where the stack reads them. Returns (x,
+    caches)."""
     return _stack_apply_state(params, x, cfg, caches, cache_unit,
                               lambda kind, p, x, c: layer_apply_prefill(
-                                  kind, p, x, cfg, c))
+                                  kind, p, x, cfg, c, ctx))
 
 
 def stack_apply_decode(params, x, cfg, caches, ctx):
@@ -324,8 +396,12 @@ def stack_layers(params, state, cfg, pick):
 
 
 def cache_unit(c, u: int):
-    """Unit u's dense cache: k/v ``[:, u]``, pos ``[u]``; or its recurrent
-    state: every leaf ``[:, u]``."""
+    """Unit u's dense cache: k/v ``[:, u]``, pos ``[u]``; a decoder
+    layer's: its ``self`` cache so, ``xk`` / ``xv`` ``[:, u]``; or its
+    recurrent state: every leaf ``[:, u]``."""
+    if "self" in c:
+        return {"self": cache_unit(c["self"], u), "xk": c["xk"][:, u],
+                "xv": c["xv"][:, u]}
     if "pos" not in c:
         return tree_map(lambda a: a[:, u], c)
     return {"k": c["k"][:, u], "v": c["v"][:, u], "pos": c["pos"][u]}
@@ -354,7 +430,9 @@ def stack_cache_init(cfg, particles: int, batch: int, seq_len: int, *,
     attention layer k/v (P, B, C, KVH, hd) zeros and pos (B, C) = -1, C =
     seq_len, or min(sliding_window, seq_len) for a ``local`` layer's ring
     (each pattern position keeps its own C, each ``shared_attn``
-    occurrence its own cache); per recurrent layer its zero state
+    occurrence its own cache); per decoder layer ``{"self": that cache,
+    "xk", "xv": (P, B, n_frames, KVH, hd) zeros}``, the encoder's k / v
+    the prefill writes; per recurrent layer its zero state
     (``mamba_state_init``, ``rwkv_state_init``); unit layers stacked on
     n_units (k/v (P, n_units, ...), pos (n_units, ...), a state's leaves
     (P, n_units, ...))."""
@@ -364,9 +442,16 @@ def stack_cache_init(cfg, particles: int, batch: int, seq_len: int, *,
         if kind in STATE_INIT:
             return STATE_INIT[kind](cfg, particles, batch, dtype=dtype,
                                     device=device, lead=lead)
-        return attn_cache_init(cfg, particles, batch, seq_len, dtype=dtype,
-                               device=device, lead=lead,
-                               window=window_of(kind, cfg))
+        cache = attn_cache_init(cfg, particles, batch, seq_len, dtype=dtype,
+                                device=device, lead=lead,
+                                window=window_of(kind, cfg))
+        if kind != "dec_attn_mlp":
+            return cache
+        shape = (particles,) + tuple(lead) + (batch, cfg.n_frames,
+                                              cfg.n_kv_heads, cfg.hd)
+        return {"self": cache,
+                "xk": torch.zeros(shape, dtype=dtype, device=device),
+                "xv": torch.zeros(shape, dtype=dtype, device=device)}
 
     return {"head": tuple(one(k) for k in cfg.head_layers),
             "units": tuple(one(k, (cfg.n_units,)) for k in cfg.pattern),

@@ -46,7 +46,8 @@ zeros on inactive rows; W = 1 returns the single-token kernel's bits)
 and on split page walks (page edges, one-split and many-split rows
 in 256-page tables), the prefill kernel on the ``tests/test_kernels.py``
 flash sweep plus longer ragged cases and a sweep of S, G and hd that no
-tile divides (2e-5; bf16 2e-2), the dense-decode kernel on
+tile divides (2e-5; bf16 2e-2) and under the prefix-LM mask at hd 64
+and 256 with 1 and 8 query heads a kv head, the dense-decode kernel on
 the decode sweeps with NaN in empty slots (2e-5; a row with every slot
 empty is exact zeros). The single-token
 paged and the dense-decode kernels walk each row split across blocks: both
@@ -2484,6 +2485,29 @@ def test_flash_kernel_wide_heads(dev, G, S, hd, causal, dtype, tol):
     torch.cuda.synchronize()
     assert flash_kernel.flash_attention.launches == before + 1
     want = ref.flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    assert torch.isfinite(out).all()
+    assert (out.float() - want).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd,G", [(64, 1), (64, 8), (256, 1), (256, 8)])
+@pytest.mark.parametrize("S,prefix", [(1, 1), (40, 37), (300, 256),
+                                      (300, 64), (264, 300)])
+def test_flash_kernel_prefix_mask(dev, S, prefix, hd, G, dtype, tol):
+    """The prefix-LM mask (key j visible to query i iff j <= i or j <
+    prefix: paligemma's 256 patches) at hd 64 and 256, one kv head under
+    1 and 8 query heads; prefixes off and on the tile grid and past S."""
+    gen = torch.Generator(device=dev).manual_seed(S * 5 + prefix + hd + G)
+    q, k, v = (torch.randn((2, 2, S, h, hd), generator=gen,
+                           device=dev).to(dtype) for h in (G, 1, 1))
+    before = flash_kernel.flash_attention.launches
+    out = flash_kernel.flash_attention(q, k, v, causal=True,
+                                       prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal=True,
+                               prefix_len=prefix)
     assert torch.isfinite(out).all()
     assert (out.float() - want).abs().max().item() < tol
 

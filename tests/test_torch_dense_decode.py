@@ -184,9 +184,21 @@ def test_init_cache_and_unported_options():
     with pytest.raises(ValueError, match="outside"):
         tapi.decode_step(params, torch.ones(1, dtype=torch.int32), caches, 5,
                          tcfg)
-    for bad in (dict(prefix_lm=True), dict(pattern=("dec_attn_mlp",)),
-                dict(family="audio")):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            tapi.prefill(params, {"tokens": torch.ones(1, 4,
-                                                       dtype=torch.int32)},
-                         tcfg.replace(**bad))
+    # once refused: a prefix-LM flag with no patches (prefix 0: causal)
+    # prefills as the reference does; decoder layers with no encoder, and
+    # the audio family with no frames, still fail in both packages
+    toks = torch.ones(1, 4, dtype=torch.int32)
+    jparams = jax.tree.map(lambda t: jnp.asarray(t[0].numpy()), params)
+    jlogits, _ = japi.prefill(jparams, {"tokens": jnp.asarray(toks.numpy())},
+                              jcfg.replace(prefix_lm=True))
+    logits, _ = tapi.prefill(params, {"tokens": toks},
+                             tcfg.replace(prefix_lm=True))
+    assert np.abs(logits[0].numpy() - np.asarray(jlogits)).max() < 1e-5
+    for bad, match, jkey in ((dict(pattern=("dec_attn_mlp",)), "encoder",
+                              "enc_out"),
+                             (dict(family="audio"), "frames", "frames")):
+        with pytest.raises(ValueError, match=match):
+            tapi.prefill(params, {"tokens": toks}, tcfg.replace(**bad))
+        with pytest.raises(KeyError, match=jkey):
+            japi.prefill(jparams, {"tokens": jnp.asarray(toks.numpy())},
+                         jcfg.replace(**bad))

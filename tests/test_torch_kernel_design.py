@@ -36,6 +36,12 @@ accuracy rests on are checked here in plain PyTorch:
     the 128-row, 64-key tiles are not past hd 128; the 3xTF32 emulation
     over 32-key tiles at hd 256 holds the plain version and the
     reference at 2e-5.
+  * The prefix-LM mask (paligemma: key j visible to query i iff j <= i
+    or j < prefix_len): #5's tile rules (``flash_schedule``: the tiles a
+    block visits, a warp's skip, the unmasked tiles) cover every visible
+    pair and leave no hidden pair unmasked; the 3xTF32 emulation over
+    those tiles holds the plain version and the reference at 2e-5 at hd
+    64 and 256, G 1 and 8; ``cost()`` counts exactly the visible pairs.
 """
 import math
 
@@ -47,9 +53,12 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels import ref as jref
+from repro.models import blocks as jblocks
 from repro.kernels import svgd_rbf as jsvgd_rbf
 from repro_torch.kernels import ref
 from repro_torch.kernels import split_walk
+from repro_torch.kernels.flash_attention import cost as flash_cost
+from repro_torch.kernels.flash_attention import visible_pairs
 from repro_torch.kernels.split_walk import (dense_plan, split_plan,
                                             split_ranges, stage_ranges)
 from repro_torch.kernels.svgd_rbf import sqdist_plan
@@ -696,6 +705,153 @@ def test_3xtf32_flash_at_hd_256_matches_reference(causal):
             jnp.asarray(q[p]), jnp.asarray(k[p]), jnp.asarray(v[p]),
             causal=causal))
         assert np.abs(got[p].numpy() - jwant).max() < 2e-5
+
+
+# -- the prefix-LM mask: which tiles #5 visits -------------------------------
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the emulation's many small products: on a
+    shared CPU a pool of threads waits on its slowest member (0.06 s
+    against 7 s here). Values do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def flash_schedule(S, G, warps, BN, causal, prefix):
+    """{first row of a warp: [(first key of a tile, computed unmasked)]}:
+    the tiles each warp of ``csrc/flash_attention.cu`` computes, in order,
+    by its integer rules: a block visits n_kt tiles (causal: up to its
+    last row and at least the prefix's tiles), a warp skips a tile past
+    its last row unless the tile starts inside the prefix, and a tile
+    wholly inside S, the rows and either the causal limit of the warp's
+    first row or the prefix skips the mask."""
+    rows, BM = S * G, 16 * warps
+    out = {}
+    for r0 in range(0, rows, BM):
+        last_row = min(r0 + BM, rows) - 1
+        pre_kt = min(prefix, S) + BN - 1
+        n_kt = max(last_row // G // BN + 1, pre_kt // BN) if causal \
+            else -(-S // BN)
+        for wr0 in range(r0, min(r0 + BM, rows), 16):
+            warp_last = (min(wr0 + 16, rows) - 1) // G
+            tiles = []
+            for kt in range(n_kt):
+                k0 = kt * BN
+                if causal and not (k0 <= warp_last or k0 < prefix):
+                    continue
+                full = (k0 + BN <= S and wr0 + 16 <= rows
+                        and (not causal or k0 + BN - 1 <= wr0 // G
+                             or k0 + BN <= prefix))
+                tiles.append((k0, full))
+            out[wr0] = tiles
+    return out
+
+
+def _visible(S, G, causal, prefix):
+    """(rows S * G, keys S) bool: row r = t * G + g sees key j."""
+    pos = torch.arange(S * G)[:, None] // G
+    key = torch.arange(S)[None, :]
+    return ((key <= pos) | (key < prefix)) if causal \
+        else torch.ones(S * G, S, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("warps,BN", [(8, 64), (2, 32), (4, 32)])
+def test_flash_tiles_cover_the_prefix_mask(warps, BN, one_thread):
+    """Every visible (row, key) pair lies in a tile its warp computes, and
+    a tile computed unmasked holds only visible pairs (inside S), for
+    prefixes on and off the tile grid, past S and 0, G 1 and 8."""
+    for S in (1, 17, 64, 100, 264):
+        for G in (1, 8):
+            for prefix in sorted({0, 1, 31, 32, 33, 64, 256, S, S + 5}):
+                vis = _visible(S, G, True, prefix)
+                for wr0, tiles in flash_schedule(S, G, warps, BN, True,
+                                                 prefix).items():
+                    rows = slice(wr0, min(wr0 + 16, S * G))
+                    seen = torch.zeros(S, dtype=torch.bool)
+                    for k0, full in tiles:
+                        seen[k0:k0 + BN] = True
+                        if full:
+                            assert vis[rows, k0:k0 + BN].all(), (S, G,
+                                                                 prefix, k0)
+                    assert not (vis[rows] & ~seen).any(), (S, G, prefix, wr0)
+
+
+def emulated_flash_tiles(q, k, v, *, prefix, warps, BN, causal=True):
+    """The kernel's 3xTF32 online softmax warp by warp over the tiles of
+    ``flash_schedule``, the mask applied only where a tile is not
+    computed unmasked."""
+    P, B, S, H, hd = q.shape
+    KVH = k.shape[3]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    qr = q.reshape(P * B, S, KVH, G, hd).permute(0, 2, 1, 3, 4)
+    qr = qr.reshape(P * B, KVH, S * G, hd)
+    kr = k.reshape(P * B, S, KVH, hd).transpose(1, 2)
+    vr = v.reshape(P * B, S, KVH, hd).transpose(1, 2)
+    vis = _visible(S, G, causal, prefix)
+    out = torch.full_like(qr, float("nan"))
+    for wr0, tiles in flash_schedule(S, G, warps, BN, causal,
+                                     prefix).items():
+        rows = slice(wr0, min(wr0 + 16, S * G))
+        qw = qr[:, :, rows]
+        n = qw.shape[2]
+        m = torch.full((P * B, KVH, n), NEG_INF)
+        l = torch.zeros((P * B, KVH, n))
+        acc = torch.zeros((P * B, KVH, n, hd))
+        for k0, full in tiles:
+            cols = slice(k0, min(k0 + BN, S))
+            s = tf32_matmul(qw, kr[:, :, cols].transpose(-1, -2), 3) * scale
+            ok = torch.ones_like(vis[rows, cols]) if full else vis[rows, cols]
+            s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + tf32_matmul(p, vr[:, :, cols], 3)
+            m = m_new
+        out[:, :, rows] = acc / l.clamp(min=1e-30)[..., None]
+    out = out.reshape(P * B, KVH, S, G, hd).permute(0, 2, 1, 3, 4)
+    return out.reshape(P, B, S, H, hd)
+
+
+@pytest.mark.parametrize("hd,G", [(64, 1), (64, 8), (256, 1), (256, 8)])
+def test_3xtf32_flash_with_prefix_matches_plain(hd, G, one_thread):
+    """#5 under the prefix-LM mask, emulated over its tiles (hd 64: 8
+    warps of 64 keys; hd 256: 4 warps of 32 keys, paligemma's tile):
+    within 2e-5 of the plain version and the reference's jnp prefix
+    attention, at a prefix off the tile grid and one of whole tiles."""
+    warps, BN = (8, 64) if hd <= 128 else (4, 32)
+    S = 80
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(hd + G, S, G, 1,
+                                                          hd))
+    for prefix in (37, 64):
+        got = emulated_flash_tiles(q, k, v, prefix=prefix, warps=warps,
+                                   BN=BN)
+        want = ref.flash_attention(q, k, v, causal=True, prefix_len=prefix)
+        assert (got - want).abs().max().item() < 2e-5, prefix
+        jwant = np.asarray(jblocks.flash_attention(
+            jnp.asarray(q[0].numpy()), jnp.asarray(k[0].numpy()),
+            jnp.asarray(v[0].numpy()), kind="prefix", prefix_len=prefix))
+        assert np.abs(got[0].numpy() - jwant).max() < 2e-5
+
+
+def test_flash_cost_counts_the_visible_pairs(one_thread):
+    """``flash_attention.cost``'s pairs (and so ``Program.cost()`` and the
+    bound) are the pairs the mask lets through."""
+    for S in (1, 5, 64, 300):
+        for prefix in (0, 1, 7, S, S + 3):
+            assert visible_pairs(S, True, prefix) == \
+                int(_visible(S, 1, True, prefix).sum())
+        assert visible_pairs(S, False) == S * S
+    q = torch.zeros(2, 3, 300, 8, 256)
+    kv = torch.zeros(2, 3, 300, 1, 256)
+    flops, nbytes = flash_cost(q, kv, kv, causal=True, prefix_len=256)
+    assert flops == 4 * 2 * 3 * 8 * 256 * int(_visible(300, 1, True,
+                                                       256).sum())
+    assert nbytes == 4 * (2 * q.numel() + 2 * kv.numel())
 
 
 # -- query rows split over blocks ----------------------------------------------

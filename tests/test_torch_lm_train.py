@@ -153,9 +153,18 @@ def test_lm_batches_identical():
         assert set(a) == set(b) == {"tokens", "labels"}
         for k in a:
             assert np.array_equal(np.asarray(a[k]), b[k])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsynthetic.make_batch(tcfg.replace(family="audio"),
-                              np.random.default_rng(0), 1, 4)
+    # the audio family's frames and the vlm family's patches, drawn after
+    # the tokens from the same stream
+    for fam in ("audio", "vlm"):
+        kw = dict(family=fam, n_frames=5, n_prefix_tokens=3)
+        a = jsynthetic.make_batch(jcfg.replace(**kw),
+                                  np.random.default_rng(0), 1, 4)
+        b = tsynthetic.make_batch(tcfg.replace(**kw),
+                                  np.random.default_rng(0), 1, 4)
+        assert set(a) == set(b) == {"tokens", "labels",
+                                    "frames" if fam == "audio" else "patches"}
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
 
 
 # ---------------------------------------------------------------------------
@@ -204,11 +213,18 @@ def test_flash_attention_and_vjp_match_jax(kind, chunks):
 
 
 def test_flash_attention_refuses_unported_kinds():
-    q, k, v, _ = (torch.from_numpy(x) for x in _qkv(1))
+    """The "prefix" kind, once refused, against the reference's: with its
+    default prefix of 0 (causal), a softcap, and a window (which the
+    prefix mask ignores, in both packages), and with a prefix of 5."""
+    q, k, v, _ = _qkv(1)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     for kw in ({"kind": "prefix"}, {"kind": "prefix", "softcap": 30.0},
-               {"kind": "prefix", "window": 4}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tblocks.flash_attention(q, k, v, **kw)
+               {"kind": "prefix", "window": 4},
+               {"kind": "prefix", "prefix_len": 5, "q_chunk": 4}):
+        got = tblocks.flash_attention(tq, tk, tv, **kw).numpy()
+        want = jax.vmap(lambda a, b, c: jblocks.flash_attention(
+            a, b, c, **kw))(q, k, v)
+        assert np.abs(got - np.asarray(want)).max() < 2e-5, kw
 
 
 # ---------------------------------------------------------------------------
@@ -275,16 +291,32 @@ def test_lm_loss_and_grads_match_jax():
 
 
 def test_lm_forward_refuses_unported_layers():
-    _, tcfg = _cfgs()
-    tb = {k: torch.from_numpy(v) for k, v in _batch(tcfg).items()}
+    """The variants of the qwen stack that were refused before the
+    encoder-decoder and prefix-LM were ported, case for case against the
+    reference: a prefix-LM flag with no patches (prefix 0: causal) and a
+    decoder tail layer with no params (both packages zip it away) give
+    the reference's loss; decoder layers with no encoder output, and the
+    audio or vlm family with no frames or patches in the batch, still
+    fail in both (the reference on its missing ``ctx`` or batch key)."""
+    jcfg, tcfg = _cfgs()
+    batch = _batch(tcfg)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     params = _stacked_port(_numpy_inits(P))
-    for bad in (tcfg.replace(pattern=("dec_attn_mlp",)),
-                tcfg.replace(tail_layers=("dec_attn_mlp",)),
-                tcfg.replace(prefix_lm=True),
-                tcfg.replace(family="audio"),
-                tcfg.replace(family="vlm")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tapi.loss_fn(params, tb, bad)
+    jparams = _stacked(_numpy_inits(P))
+    for kw in (dict(tail_layers=("dec_attn_mlp",)), dict(prefix_lm=True)):
+        jloss = jax.jit(jax.vmap(lambda p: japi.loss_fn(
+            p, batch, jcfg.replace(**kw))[0]))(jparams)
+        tloss, _ = tapi.loss_fn(params, tb, tcfg.replace(**kw))
+        assert _rel(tloss.detach().numpy(), np.asarray(jloss)) < 1e-5, kw
+    for kw, match, jkey in ((dict(pattern=("dec_attn_mlp",)), "encoder",
+                             "enc_out"),
+                            (dict(family="audio"), "frames", "frames"),
+                            (dict(family="vlm"), "patches", "patches")):
+        with pytest.raises(ValueError, match=match):
+            tapi.loss_fn(params, tb, tcfg.replace(**kw))
+        with pytest.raises(KeyError, match=jkey):
+            japi.loss_fn(jax.tree.map(lambda a: a[0], jparams), batch,
+                         jcfg.replace(**kw))
 
 
 # ---------------------------------------------------------------------------

@@ -630,15 +630,39 @@ Phase 19 the last two families at full width and depth, random fp32
          (a)-(c)'s main-path runs; its ``encdec_vlm`` entry the rows at
          these shapes.
 
+Phase 20 the launch tooling (``repro_torch.launch``) on the card. (a)
+         ``launch.steps.build``'s five steps on a 1 x 1 mesh of cuda:0:
+         qwen1.5-0.5b at full width and 2 of 24 units, P 2, 2
+         microbatches, the InputShapes cut to S 64 and B 4, bf16 compute
+         (the reference's launch config), real weights from seed 0; each
+         run once and held: the train loss (Adam) against
+         ``api.loss_fn`` on the same params and slices (1e-6 relative),
+         SVGD's phi (the step at lr 1) against the plain #1 / #2 (2e-4
+         relative), the MultiSWAG moments against the plain #3 bit for
+         bit, the prefill and serve logits against the same steps
+         through the plain kernels (``plain_kernels``, BF16_TOL); the
+         serve step decodes at C - 1 over a cache prefilled with C - 1
+         tokens, so #6 reads every slot; launches exactly #1 1, #2 1, #3
+         1, #5 2, #6 2 and the rest 0 (a fake form counts none). Each
+         step's event ms beside its largest roofline term. (b) each
+         step counted on the card under ``obs.device.counting`` and the
+         same step on fake tensors through ``launch.cost`` (the dry
+         run's loop-aware count): FLOPs and bytes must be equal, or the
+         phase names each aten op that differs. (c) one full-size
+         dry-run row, qwen1.5-0.5b x decode_32k on the single mesh,
+         with its roofline terms on the H100's published peaks, beside
+         the card's name and power limit. Each kernel's
+         ``launch_steps_launches`` in the kernels line are (a)'s runs.
+
 The phases run in the order 0, 1, 5, 2, 6, 7, 3, 4, 8, 9, 10, 11, 12,
-13, 14, 15, 16, 17, 18, 19: the kernel checks first, then the serving runs
+13, 14, 15, 16, 17, 18, 19, 20: the kernel checks first, then the serving runs
 over one set of particles, then training, fused and then on the NEL,
 then the lifecycle, then predictive serving, then the precision ladder,
 then the SciML workload and the baselines, then LM training, then
 checkpoints and obs, then the particle axis across GPUs, then the model
 axis, then the decoder-only model zoo, then the recurrent families,
-then the encoder-decoder and the prefix-LM. Each phase prints its wall
-seconds (``phase_s``, or ``wall_s`` by part).
+then the encoder-decoder and the prefix-LM, then the launch tooling.
+Each phase prints its wall seconds (``phase_s``, or ``wall_s`` by part).
 
 Every launch count in the kernels line comes from a driven run (phase 2's
 captured serving for the paged and prefill kernels, phase 6's for the
@@ -1075,6 +1099,11 @@ def step_programs(torch, spec, args, n=5):
     return out
 
 
+# Spin kernels that open and close every profiled window whose launches
+# are held to the profiler's kernel counts (``profile_steps``).
+HELD_SPINS = 32
+
+
 def profile_steps(torch, step, n=5, track=(), fns=None, hold=None,
                   prologue=0, epilogue=0):
     """Host-clock time of one synchronised ``step()``, then the device's
@@ -1089,8 +1118,14 @@ def profile_steps(torch, step, n=5, track=(), fns=None, hold=None,
     kernels close it, as the prologue opens it: on the NEL's windows the
     profiler has also dropped the last records before it stopped (1 of 2
     force launches, 8 of 288 collection launches, both the window's
-    last)."""
+    last). A window held to the profiler (``fns``) always opens and
+    closes with at least ``HELD_SPINS`` of them: a speculative draft
+    step's window without them once saw 287 of its 288 paged
+    launches."""
     from torch.profiler import ProfilerActivity, profile
+    if fns is not None:
+        prologue = max(prologue, HELD_SPINS)
+        epilogue = max(epilogue, HELD_SPINS)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -9850,6 +9885,232 @@ def phase19(torch, card):
     return launches, rows
 
 
+P20_UNITS = 2                   # qwen1.5-0.5b at full width, 2 of 24 units
+P20_P = 2                       # particles of the train and serve steps
+P20_MB = 2                      # microbatches of the train steps
+P20_S, P20_B = 64, 4            # the cut InputShape: seq_len, global_batch
+P20_SVGD_LR = 1.0               # (a): phi stands well above the rounding
+P20_FORCE_TOL = 2e-4            # SVGD phi against the plain #1 / #2
+P20_LOSS_TOL = 1e-6             # train loss against api.loss_fn, relative
+P20_STEPS = (("train", "train_4k", "ensemble"),
+             ("svgd", "train_4k", "svgd"),
+             ("multiswag", "train_4k", "multiswag"),
+             ("prefill", "prefill_32k", "ensemble"),
+             ("serve", "decode_32k", "ensemble"))
+
+
+def p20_step(torch, name, shape_name, bdl, cfg, mesh, init):
+    """(step, args, plan, cut shape) of one launch step at phase 20's cut:
+    ``launch.steps.build``'s step (the SVGD step at P20_SVGD_LR), its
+    inputs real (``init``, a generator on the card) or fake (None). The
+    serve step's caches are full: a prefill of C - 1 tokens and the
+    decode at C - 1, so #6 reads every slot, as the dry run counts it."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import plans, steps
+    from repro_torch.models import api
+    full = INPUT_SHAPES[shape_name]
+    shape = dataclasses.replace(full, seq_len=P20_S, global_batch=P20_B)
+    plan = dataclasses.replace(
+        plans.plan_for(cfg, full), particles=P20_P,
+        microbatches=P20_MB if full.kind == "train" else 1)
+    step, args, _ = steps.build(cfg, shape, plan, mesh, bdl=bdl, init=init)
+    if name == "svgd":
+        step = steps.make_svgd_train_step(
+            cfg.replace(remat=True, dtype="bfloat16"), plan, mesh,
+            lr=P20_SVGD_LR)
+    if name == "serve" and init is not None:
+        params, token = args[0], args[1]
+        bcfg = cfg.replace(dtype="bfloat16")
+        prompt = torch.randint(1, cfg.vocab_size, (P20_B, P20_S - 1),
+                               generator=init, device=init.device)
+        with torch.no_grad():
+            _, caches = api.prefill(params, {"tokens": prompt}, bcfg,
+                                    max_len=P20_S)
+        args = (params, token, caches, args[3].fill_(P20_S - 1))
+    return step, args, plan, shape
+
+
+def p20_holds(torch, name, cfg, plan, mesh, args, out):
+    """Phase 20 (a)'s check of one step's output against the same work
+    done another way (module docstring); returns the gaps."""
+    from repro_torch.bdl import svgd as bsvgd
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ref
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    bcfg = cfg.replace(remat=True, dtype="bfloat16")
+    gaps = {}
+    if name in ("train", "svgd", "multiswag"):
+        params, batch = args[0], args[1 if name == "svgd" else -1]
+        n = P20_B // P20_MB
+        with torch.no_grad():
+            want = sum(api.loss_fn(params, {k: v[i * n:(i + 1) * n]
+                                            for k, v in batch.items()},
+                                   bcfg)[0] for i in range(P20_MB)) / P20_MB
+        loss = out[-1]
+        rel = float((loss - want).abs().max() / want.abs().max())
+        gaps = {"loss_rel": rel}
+        if not rel < P20_LOSS_TOL:
+            raise AssertionError(f"(a) {name}: the step's loss against "
+                                 f"api.loss_fn: {rel}")
+    if name == "svgd":
+        _, g = steps.microbatched_grads(bcfg, plan)(params, batch)
+        group, ggroup = steps._as_group(params), steps._as_group(g)
+        theta = steps._owned_matrix(group, 0)
+        gm = steps._owned_matrix(ggroup, 0)
+        sq = ref.pairwise_sqdist(theta)
+        phi = ref.svgd_force(theta, gm, *bsvgd.rbf_glue(sq, 1.0))
+        new = steps._owned_matrix(steps._as_group(out[0]), 0)
+        got = (theta - new) / P20_SVGD_LR
+        rel = float((got - phi).abs().max() / phi.abs().max())
+        gaps["phi_rel"] = rel
+        if not rel < P20_FORCE_TOL:
+            raise AssertionError(f"(a) svgd: the step's phi against the "
+                                 f"plain #1 / #2: {rel}")
+    if name in ("prefill", "serve"):
+        with torch.no_grad(), plain_kernels():
+            if name == "prefill":
+                want, _ = api.prefill(args[0], args[1], bcfg)
+            else:
+                caches = args[2]
+                want, _ = api.decode_step(args[0], args[1], caches,
+                                          args[3], bcfg)
+        want = want.float().mean(0)
+        rel = float((out[0] - want).abs().max() / want.abs().max())
+        gaps["logits_rel"] = rel
+        if not rel < BF16_TOL:
+            raise AssertionError(f"(a) {name}: logits through the kernels "
+                                 f"against the plain versions: {rel}")
+    if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(out)
+               if isinstance(x, torch.Tensor) and x.is_floating_point()):
+        raise AssertionError(f"(a) {name}: non-finite output")
+    return gaps
+
+
+def p20_clone(tree):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda x: x.clone(), tree)
+
+
+def p20_swag_bits(torch, before, after, new_params):
+    """MultiSWAG's collection on the card bit for bit against the plain
+    version of #3 applied to a copy of the state before the step."""
+    from repro_torch.bdl.swag import swag_collect
+    from repro_torch.kernels import ops
+    saved = ops._route
+    ops._route = lambda x, kernel, plain, n: plain
+    try:
+        swag_collect(before, new_params)
+    finally:
+        ops._route = saved
+    if not tree_equal(torch, after, before):
+        raise AssertionError("(a) multiswag: the moments differ from the "
+                             "plain #3's")
+    return {"moments_bit_equal": True}
+
+
+def p20_counts(torch, step, args, fake):
+    """(FLOPs, bytes, by aten op) of one ``step(*args)``: on the card
+    under ``obs.device.counting`` (every microbatch trip run), or on fake
+    inputs through ``launch.cost`` (as the dry run counts: one trip
+    multiplied)."""
+    from repro_torch.launch import cost
+    from repro_torch.obs import device as obs
+    if fake:
+        c = cost.cost(step, *args)["totals"]
+        return c["flops"], c["bytes"], c["by_op"]
+    with obs.counting(by_op=True) as count:
+        step(*args)
+    torch.cuda.synchronize()
+    return float(count.flops), float(count.bytes), count.by_op
+
+
+def phase20(torch, card):
+    """The launch tooling on the card: (a) the five steps that
+    ``launch.steps.build`` makes, run and held; (b) each step's count on
+    the card against the dry run's count of the same step on fake
+    tensors; (c) one full-size dry-run row. Returns the kernels'
+    launches over (a)'s runs."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, make_mesh, roofline, steps
+    t0 = time.perf_counter()
+    cfg = configs.get("qwen1.5-0.5b").replace(n_units=P20_UNITS)
+    mesh = make_mesh((1, 1), ("data", "model"), ["cuda:0"])
+    fake_mesh = make_mesh((1, 1), ("data", "model"), steps.trace_devices(1))
+    fns = reset_counts()
+    expected = {"svgd": {"pairwise_sqdist": 1, "svgd_force": 1},
+                "multiswag": {"swag_moments": collect_launches(
+                    len(steps.rules.named_leaves(steps._template(cfg))))},
+                "prefill": {"flash_attention": cfg.n_layers},
+                "serve": {"decode_attention": cfg.n_layers}}
+    launches, rows = {}, {}
+    for name, shape_name, bdl in P20_STEPS:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        step, args, plan, shape = p20_step(torch, name, shape_name, bdl,
+                                           cfg, mesh, gen)
+        before = p20_clone(args[2]) if name == "multiswag" else None
+        counts0 = read_counts(fns)
+        grad = name in ("train", "svgd", "multiswag")
+        with (contextlib.nullcontext() if grad else torch.no_grad()):
+            out = step(*args)
+        torch.cuda.synchronize()
+        got = {k: v - counts0[k] for k, v in read_counts(fns).items()}
+        want = {k: expected.get(name, {}).get(k, 0) for k in got}
+        if got != want:
+            raise AssertionError(f"(a) {name}: launches {got}, want {want}")
+        add_counts(launches, got)
+        gaps = p20_holds(torch, name, cfg, plan, mesh, args, out)
+        if name == "multiswag":
+            gaps.update(p20_swag_bits(torch, before, args[2], out[0]))
+        with (contextlib.nullcontext() if grad else torch.no_grad()):
+            ms = time_ms(torch, lambda: step(*args), iters=3)
+        # (b) the same step counted on the card and on fake tensors
+        with (contextlib.nullcontext() if grad else torch.no_grad()):
+            card_count = p20_counts(torch, step, args, fake=False)
+        fstep, fargs, _, _ = p20_step(torch, name, shape_name, bdl, cfg,
+                                      fake_mesh, None)
+        fake_count = p20_counts(torch, fstep, fargs, fake=True)
+        if card_count[:2] != fake_count[:2]:
+            ops = [(k, card_count[2].get(k), fake_count[2].get(k))
+                   for k in sorted(set(card_count[2]) | set(fake_count[2]))
+                   if card_count[2].get(k) != fake_count[2].get(k)]
+            raise AssertionError(
+                f"(b) {name}: card count {card_count[:2]} against the fake "
+                f"count {fake_count[:2]}; ops that differ: {ops}")
+        t_c, t_m, t_n, dom = roofline.terms(card_count[0], card_count[1], 0.0)
+        bound_ms = 1e3 * max(t_c, t_m, t_n)
+        rows[name] = {"launches": got, **gaps, "flops": card_count[0],
+                      "bytes": card_count[1], "fake_equal": True,
+                      "event_ms": ms, "largest_term_ms": bound_ms,
+                      "bound_by": dom, "shape": dataclasses.asdict(shape),
+                      "plan": dataclasses.asdict(plan)}
+        del step, args, out, before, fstep, fargs
+        lm_free(torch)
+    t1 = time.perf_counter()
+    emit({"phase": 20, "part": "a-b", "steps": rows,
+          "model": {"name": cfg.name, "layers": cfg.n_layers,
+                    "of_layers": configs.get(cfg.name).n_layers},
+          "terms_on": roofline.CARD, "card": card, "wall_s": t1 - t0})
+    rec = dryrun.run_one("qwen1.5-0.5b", "decode_32k", verbose=False)
+    if rec["status"] != "ok":
+        raise AssertionError(f"(c) the full-size dry-run row: {rec}")
+    coll = sum(rec["collective_bytes_per_device"].values())
+    t_c, t_m, t_n, dom = roofline.terms(rec["flops_per_device"],
+                                        rec["bytes_per_device"], coll)
+    emit({"phase": 20, "part": "c", "row": {
+        k: rec[k] for k in ("arch", "shape", "particles", "mode",
+                            "flops_per_device", "bytes_per_device",
+                            "collective_bytes_per_device", "memory",
+                            "trace_s", "kv_layout", "units_traced")},
+        "t_compute_s": t_c, "t_memory_s": t_m, "t_collective_s": t_n,
+        "dominant": dom, "terms_on": roofline.CARD, "card": card,
+        "wall_s": time.perf_counter() - t1})
+    emit({"phase": 20, "part": "summary",
+          "phase_s": time.perf_counter() - t0, "launches": launches,
+          "card": card})
+    return launches
+
+
 def timed(n, fn, *args):
     """``fn(*args)``, then phase ``n``'s summary row with its wall time."""
     t0 = time.perf_counter()
@@ -9955,7 +10216,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     encdec_launches, encdec_rows = phase19(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_steps_launches = phase20(torch, card)
     for name, row in rows.items():
+        row["launch_steps_launches"] = launch_steps_launches.get(name, 0)
         row["launches"] = launches[name]
         row["nel_launches"] = nel_launches.get(name, 0)
         row["lifecycle_launches"] = lc_launches.get(name, 0)

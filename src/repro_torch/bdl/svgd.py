@@ -49,6 +49,7 @@ from ..core import functional
 from ..core import precision as precision_mod
 from ..core.store import Sharded
 from ..core.tree import Group, tree_map
+from ..obs import device as _obs
 from ..runtime.program import device_guard
 from ..sharding.rules import named_leaves
 from ..kernels import ops as _kops
@@ -344,6 +345,11 @@ class _MeshStep:
             if not here:
                 self.theta[j][lo:hi].copy_(self.t_loc.shards[i][j])
                 self.g[j][lo:hi].copy_(self.g_loc.shards[i][j])
+                if _obs.counting_now():       # both blocks reach (0, j)
+                    nbytes = 2 * 4 * (hi - lo) * self.theta[j].shape[1]
+                    _obs.charge_collective("all-gather", nbytes,
+                                           "svgd._MeshStep._gather",
+                                           self.theta[j].device)
 
     def _scatter(self):
         for i, j, here, lo, hi in self.copies:

@@ -15,6 +15,16 @@ The wrappers share three helpers: ``entry`` binds a C entry point (every
 one returns the launch's ``cudaError`` code), ``raise_on`` turns that code
 into an error, and ``check`` validates a tensor argument.
 
+Every wrapper has a fake form for a fake tensor (``is_fake``:
+``FakeTensorMode``'s shapes, dtypes and device, no data), which the dry
+run (``launch``) traces: the wrapper's own checks, its ``cost(...)``
+charged while a count is open, outputs of the kernel's shapes and dtypes
+on the input's device, and no launch (``.launches`` does not move). It
+computes nothing, so it is no fallback: a real CUDA tensor never takes
+it. A fake tensor on the meta device stands for a card there
+(``on_card``): a CPU-only build cannot run autograd on fake CUDA
+tensors.
+
 Nothing here runs at import: the CPU test suite imports every module on a
 machine with no ``nvcc`` and no card.
 """
@@ -30,6 +40,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -158,10 +169,32 @@ def raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor: its wrapper takes the fake form
+    (module docstring)."""
+    return isinstance(t, FakeTensor)
+
+
+def on_card(t) -> bool:
+    """Whether a kernel takes ``t`` as a card's tensor: a CUDA tensor, or
+    a fake tensor on the meta device (the dry run's card on a build
+    without CUDA)."""
+    return t.is_cuda or (t.device.type == "meta" and isinstance(t, FakeTensor))
+
+
+def address(t):
+    """Where ``t``'s data starts, for the wrappers' aliasing checks:
+    ``data_ptr()``, or for a fake tensor (no data) its storage and byte
+    offset, which compare as two real tensors' addresses would."""
+    if isinstance(t, FakeTensor):
+        return (id(t.untyped_storage()), t.storage_offset() * t.element_size())
+    return t.data_ptr()
+
+
 def check(name, t, device, shape=None, dtype=torch.float32) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` CUDA tensor on
-    ``device`` (of ``shape`` when given)."""
-    if not isinstance(t, torch.Tensor) or not t.is_cuda or t.device != device:
+    ``device`` (of ``shape`` when given; ``on_card``)."""
+    if not isinstance(t, torch.Tensor) or not on_card(t) or t.device != device:
         raise ValueError(f"{name} must be a CUDA tensor on {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")

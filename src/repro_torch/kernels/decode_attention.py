@@ -30,10 +30,11 @@ import ctypes
 import math
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from ..obs import device as _obs
 from . import split_walk
-from .build import check, entry, raise_on
+from .build import check, entry, is_fake, raise_on
 from .paged_decode_attention import DTYPE_CODE
 
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -67,6 +68,10 @@ def decode_attention(q, k_cache, v_cache, k_pos):
     out = torch.empty_like(q)
     if out.numel() == 0 or C == 0:
         return out.zero_()
+    if is_fake(q):                       # the fake form (kernels.build)
+        if _obs.counting_now():
+            _obs.charge(*cost(q, k_cache, v_cache, k_pos), device=q.device)
+        return out
     G = H // KVH
     plan, heads, row_blocks = split_walk.launch_plan(
         C, 1, 1, G, KVH, P, B, hd, k_cache.element_size(),
@@ -83,7 +88,7 @@ def decode_attention(q, k_cache, v_cache, k_pos):
     raise_on(rc, "decode_attention")
     decode_attention.launches += 1
     if _obs.counting_now():
-        _obs.charge(*cost(q, k_cache, v_cache, k_pos))
+        _obs.charge(*cost(q, k_cache, v_cache, k_pos), device=q.device)
     return out
 
 
@@ -93,10 +98,17 @@ decode_attention.launches = 0
 def cost(q, k_cache, v_cache, k_pos):
     """(FLOPs, bytes) of one launch on this call's data: each valid slot's
     K/V read once, q read and out written once, ``k_pos`` read; 4 FLOPs a
-    (query head, valid slot, dim). Reads ``k_pos`` on the host."""
+    (query head, valid slot, dim). Reads ``k_pos`` on the host, outside
+    any count that is open (the read is the cost's, not the kernel's); a
+    fake ``k_pos`` (the dry run) has no values, and every slot counts as
+    valid: a decode over a full cache."""
     P, _, H, hd = q.shape
     KVH = k_cache.shape[3]
-    valid = int((k_pos >= 0).sum())
+    if is_fake(k_pos):
+        valid = k_pos.numel()
+    else:
+        with _disable_current_modes():
+            valid = int((k_pos >= 0).sum())
     nbytes = (P * valid * KVH * hd * 2 * k_cache.element_size()
               + 2 * q.numel() * q.element_size() + 4 * k_pos.numel())
     return 4 * P * valid * H * hd, nbytes

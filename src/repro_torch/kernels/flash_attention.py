@@ -29,7 +29,7 @@ import math
 import torch
 
 from ..obs import device as _obs
-from .build import check, entry, raise_on
+from .build import check, entry, is_fake, raise_on
 from .paged_decode_attention import DTYPE_CODE
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float,
@@ -61,6 +61,11 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if is_fake(q):                       # the fake form (kernels.build)
+        if _obs.counting_now():
+            _obs.charge(*cost(q, k, v, causal=causal, prefix_len=prefix_len),
+                        device=q.device)
+        return out
     fn = entry("flash_attention", "flash_attention", _ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -71,7 +76,8 @@ def flash_attention(q, k, v, *, causal: bool = True, prefix_len: int = 0):
     raise_on(rc, "flash_attention")
     flash_attention.launches += 1
     if _obs.counting_now():
-        _obs.charge(*cost(q, k, v, causal=causal, prefix_len=prefix_len))
+        _obs.charge(*cost(q, k, v, causal=causal, prefix_len=prefix_len),
+                    device=q.device)
     return out
 
 

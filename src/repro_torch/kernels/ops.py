@@ -1,7 +1,9 @@
 """Dispatch for the ported kernels: CUDA tensors go to the hand-written
 kernel, CPU tensors to its plain version. There is no other branch: a
 CUDA tensor never falls back to the plain version, and any other device
-raises."""
+raises. The dry run's fake card tensors (``build.on_card``: fake CUDA
+tensors, and fake tensors on the meta device) go to the kernel's
+wrapper, whose fake form computes nothing."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +13,7 @@ from . import flash_attention as _flash
 from . import paged_decode_attention as _paged
 from . import paged_decode_window_attention as _window
 from . import ref
+from .build import on_card
 from . import svgd_rbf as _svgd
 from . import swag_moments as _swag
 
@@ -23,7 +26,7 @@ COUNTED = (_paged.paged_decode_attention,
 
 
 def _route(x, kernel, plain, name):
-    if x.is_cuda:
+    if on_card(x):
         return kernel
     if x.device.type == "cpu":
         return plain

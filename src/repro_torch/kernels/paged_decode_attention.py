@@ -28,10 +28,11 @@ import ctypes
 import math
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from ..obs import device as _obs
 from . import split_walk
-from .build import entry, raise_on
+from .build import entry, is_fake, on_card, raise_on
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
@@ -46,7 +47,7 @@ def check_paged(q, k_pages, v_pages, block_tables, seq_lens, *,
     kernels do not take."""
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", block_tables), ("seq_lens", seq_lens)):
-        if not t.is_cuda or t.device != q.device:
+        if not on_card(t) or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
     layout = "(P, B, W, H, hd)" if window else "(P, B, H, hd)"
@@ -95,6 +96,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if is_fake(q):                       # the fake form (kernels.build)
+        if _obs.counting_now():
+            _obs.charge(*cost(q, k_pages, v_pages, block_tables, seq_lens),
+                        device=q.device)
+        return out
     G = H // KVH
     plan, heads, row_blocks = split_walk.launch_plan(
         n_pmax, ps, 1, G, KVH, P, B, hd, k_pages.element_size(),
@@ -112,21 +118,31 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     raise_on(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     if _obs.counting_now():
-        _obs.charge(*cost(q, k_pages, v_pages, block_tables, seq_lens))
+        _obs.charge(*cost(q, k_pages, v_pages, block_tables, seq_lens),
+                    device=q.device)
     return out
 
 
 paged_decode_attention.launches = 0
 
 
+def host_lens(seq_lens):
+    """The live rows' lengths, read on the host outside any open count."""
+    with _disable_current_modes():
+        return [L for L in seq_lens.tolist() if L >= 0]
+
+
 def cost(q, k_pages, v_pages, block_tables, seq_lens):
     """(FLOPs, bytes) of one launch on this call's data: each live K/V row
     read once, q read and out written once, each row's live block-table
     entries and its length; 4 FLOPs a (query head, key, dim). Reads
-    ``seq_lens`` on the host."""
+    ``seq_lens`` on the host, outside any count that is open; a fake
+    ``seq_lens`` (the dry run) has no values, and every row counts at its
+    block table's full length."""
     P, _, H, hd = q.shape
     ps, KVH = k_pages.shape[2], k_pages.shape[3]
-    lens = [L for L in seq_lens.tolist() if L >= 0]
+    lens = ([block_tables.shape[1] * ps - 1] * seq_lens.numel()
+            if is_fake(seq_lens) else host_lens(seq_lens))
     live = sum(L + 1 for L in lens)
     pages = sum(L // ps + 1 for L in lens)
     nbytes = (P * live * KVH * hd * 2 * k_pages.element_size()

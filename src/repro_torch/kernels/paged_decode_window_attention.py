@@ -37,8 +37,8 @@ import torch
 
 from ..obs import device as _obs
 from . import split_walk
-from .build import entry, raise_on
-from .paged_decode_attention import DTYPE_CODE, check_paged
+from .build import entry, is_fake, raise_on
+from .paged_decode_attention import DTYPE_CODE, check_paged, host_lens
 
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
          + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float]
@@ -58,6 +58,11 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if is_fake(q):                       # the fake form (kernels.build)
+        if _obs.counting_now():
+            _obs.charge(*cost(q, k_pages, v_pages, block_tables, seq_lens),
+                        device=q.device)
+        return out
     G = H // KVH
     plan, heads, row_blocks = split_walk.launch_plan(
         n_pmax, ps, W, G, KVH, P, B, hd, k_pages.element_size(),
@@ -76,7 +81,8 @@ def paged_decode_window_attention(q, k_pages, v_pages, block_tables,
     raise_on(rc, "paged_decode_window_attention")
     paged_decode_window_attention.launches += 1
     if _obs.counting_now():
-        _obs.charge(*cost(q, k_pages, v_pages, block_tables, seq_lens))
+        _obs.charge(*cost(q, k_pages, v_pages, block_tables, seq_lens),
+                    device=q.device)
     return out
 
 
@@ -88,10 +94,13 @@ def cost(q, k_pages, v_pages, block_tables, seq_lens):
     row's live pages read once per window (its prefix and the window's W
     positions), q read and out written once, the block-table entries and
     lengths; 4 FLOPs a (query head, key, dim) over the causal window's
-    (query, key) pairs. Reads ``seq_lens`` on the host."""
+    (query, key) pairs. Reads ``seq_lens`` on the host, outside any open
+    count; a fake ``seq_lens`` (the dry run) has no values, and every
+    row's window ends at its block table's last slot."""
     P, _, W, H, hd = q.shape
     ps, KVH = k_pages.shape[2], k_pages.shape[3]
-    lens = [L for L in seq_lens.tolist() if L >= 0]
+    lens = ([block_tables.shape[1] * ps - W] * seq_lens.numel()
+            if is_fake(seq_lens) else host_lens(seq_lens))
     pairs = sum(W * L + W * (W + 1) // 2 for L in lens)
     live = sum(L + W for L in lens)
     pages = sum((L + W - 1) // ps + 1 for L in lens)

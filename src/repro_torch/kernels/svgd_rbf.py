@@ -43,7 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from ..obs import device as _obs
-from .build import check, entry, raise_on
+from .build import address, check, entry, is_fake, raise_on
 from .split_walk import sm_count
 
 _TILE = 8                  # rows of a tile (csrc/svgd_rbf.cu kTile)
@@ -243,6 +243,13 @@ def pairwise_sqdist(theta, mask=None, *, reduce: bool = True, **ring):
     out = torch.empty((n, n), dtype=torch.float32, device=theta.device)
     if n == 0 or D == 0:
         return out.zero_()
+    if is_fake(theta):                   # the fake form (kernels.build)
+        if not reduce:
+            raise ValueError("reduce=False probes the card's first stage: "
+                             "it has no fake form")
+        if _obs.counting_now():
+            _obs.charge(*sqdist_cost(theta), device=theta.device)
+        return out
     plan = plan_for(theta, **ring)
     partial = torch.empty((n, n, plan.nchunks), dtype=torch.float32,
                           device=theta.device)
@@ -255,7 +262,7 @@ def pairwise_sqdist(theta, mask=None, *, reduce: bool = True, **ring):
     raise_on(rc, "pairwise_sqdist")
     pairwise_sqdist.launches += 1
     if _obs.counting_now():
-        _obs.charge(*sqdist_cost(theta))
+        _obs.charge(*sqdist_cost(theta), device=theta.device)
     return out if reduce else partial
 
 
@@ -277,7 +284,7 @@ def _force_args(theta, grads, ktn, ksum, inv_ell2, mask, out):
     if out is None:
         return torch.empty_like(theta)
     check("out", out, dev, (n, D))
-    if out.numel() and out.data_ptr() in (theta.data_ptr(), grads.data_ptr()):
+    if out.numel() and address(out) in (address(theta), address(grads)):
         raise ValueError("out may not be theta or grads")
     return out
 
@@ -287,6 +294,10 @@ def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None, *, out=None):
     into ``out`` when given."""
     out = _force_args(theta, grads, ktn, ksum, inv_ell2, mask, out)
     if out.numel() == 0:
+        return out
+    if is_fake(theta):                   # the fake form (kernels.build)
+        if _obs.counting_now():
+            _obs.charge(*force_cost(theta), device=theta.device)
         return out
     n, D = theta.shape
     plan = force_plan_for(theta, grads, out)
@@ -299,7 +310,7 @@ def svgd_force(theta, grads, ktn, ksum, inv_ell2, mask=None, *, out=None):
     raise_on(rc, "svgd_force")
     svgd_force.launches += 1
     if _obs.counting_now():
-        _obs.charge(*force_cost(theta))
+        _obs.charge(*force_cost(theta), device=theta.device)
     return out
 
 

@@ -55,7 +55,7 @@ from dataclasses import dataclass
 import torch
 
 from ..obs import device as _obs
-from .build import check, entry, raise_on
+from .build import address, check, entry, is_fake, raise_on
 from .split_walk import sm_count
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -215,12 +215,12 @@ def _leaves_args(means, sqs, thetas, n, mask, devs, slot):
             for name, x in zip(("means", "sqs", "thetas", "devs"), xs):
                 check(f"{name}[{i}]", x, device, tuple(shape) if name !=
                       "devs" else (P, R) + tuple(shape[1:]))
-        pm, ps, pt = m.data_ptr(), s.data_ptr(), t.data_ptr()
+        pm, ps, pt = address(m), address(s), address(t)
         if pm == ps or pt in (pm, ps):
             raise ValueError(f"leaf {i}: mean, sq and theta must not alias")
         if m.numel():
             live.append(i)
-            ptrs += (pm, ps, pt, 0 if d is None else d.data_ptr())
+            ptrs += (pm, ps, pt, 0 if d is None else address(d))
             lens.append(m.numel() // P)
     return P, R, live, ptrs, lens
 
@@ -233,6 +233,13 @@ def moments_leaves(means, sqs, thetas, n, mask=None, devs=None, slot=None):
     if not live:
         return means, sqs
     device = means[0].device
+    if is_fake(means[0]):                # the fake form (kernels.build)
+        if _obs.counting_now():
+            for i in live:
+                _obs.charge(*moments_cost(
+                    means[i], None if devs is None else devs[i]),
+                    device=device)
+        return means, sqs
     plan = leaves_plan(P, tuple(lens), sm_count(device))
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = entry("swag_moments", "swag_moments_leaves", _LEAVES_ARGS)
@@ -250,7 +257,8 @@ def moments_leaves(means, sqs, thetas, n, mask=None, devs=None, slot=None):
         if _obs.counting_now():
             for i in live[lo:hi]:
                 _obs.charge(*moments_cost(
-                    means[i], None if devs is None else devs[i]))
+                    means[i], None if devs is None else devs[i]),
+                    device=device)
     return means, sqs
 
 
@@ -323,6 +331,11 @@ def diag_std_leaves(means, sqs):
     lens = [numels[i] for i in live]
     if not live:
         return outs
+    if is_fake(means[0]):                # the fake form (kernels.build)
+        if _obs.counting_now():
+            for i in live:
+                _obs.charge(*diag_std_cost(means[i]), device=device)
+        return outs
     plan = leaves_plan(1, tuple(lens), sm_count(device))
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = entry("swag_moments", "swag_diag_std_leaves", _DIAG_LEAVES_ARGS)
@@ -341,7 +354,7 @@ def diag_std_leaves(means, sqs):
         diag_std_leaves.launches += 1
         if _obs.counting_now():
             for i in idx:
-                _obs.charge(*diag_std_cost(means[i]))
+                _obs.charge(*diag_std_cost(means[i]), device=device)
     return outs
 
 

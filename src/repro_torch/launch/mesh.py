@@ -86,6 +86,20 @@ def make_mesh(shape, axes, devices: Optional[Sequence] = None) -> Mesh:
     return Mesh(axis_names=axes, shape=dict(zip(axes, shape)), devices=grid)
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The reference's production mesh: data 16 x model 16 (one pod of
+    256 positions), or pod 2 x data 16 x model 16 (``multi_pod``). With no
+    ``devices`` its positions are the dry run's (``launch.steps.
+    trace_devices``): fake positions that need no card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if devices is None:
+        from .steps import trace_devices
+        devices = trace_devices(math.prod(shape))
+    return make_mesh(shape, axes, devices)
+
+
 def make_bench_mesh(n_devices: int, model: int = 1,
                     devices: Optional[Sequence] = None) -> Mesh:
     """2D ``(data=particle, model)`` mesh over ``n_devices`` positions.

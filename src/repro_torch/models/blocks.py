@@ -152,9 +152,14 @@ def kv_heads(t, cfg):
     """k or v (..., KVH, hd), or a pool or cache of them, cut to the kv
     heads a model position's q heads read: ``cfg.kv_window`` (set by
     ``models.tp`` when the model axis does not divide the kv-head count,
-    so every position holds every kv head), else ``t`` itself."""
+    so every position holds every kv head), else ``t`` itself. A cut is
+    a contiguous copy: the attention kernels read their k / v contiguous
+    past the particle axis (ROADMAP item 31 would read the window in
+    place)."""
     w = getattr(cfg, "kv_window", None)
-    return t if w is None else t[..., w[0]:w[1], :]
+    if w is None or (w[0] == 0 and w[1] == t.shape[-2]):
+        return t
+    return t[..., w[0]:w[1], :].contiguous()
 
 
 def full_attention(q, k, v, *, causal: bool):

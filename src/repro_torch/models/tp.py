@@ -56,6 +56,7 @@ from typing import Any, Dict, List, Sequence
 import torch
 
 from ..core.tree import Group, tree_map
+from ..obs.device import moved
 from ..sharding.policy import maybe_shard
 from . import blocks
 from . import moe as moe_mod
@@ -95,19 +96,23 @@ def _on(x, device):
 
 def reduce_sum(parts: Sequence[torch.Tensor], devices) -> List[torch.Tensor]:
     """The row-parallel reduction: the partials summed in position order
-    on the first position, and every position handed those bits."""
+    on the first position, and every position handed those bits. Inside
+    a count each transfer is charged to the position it reaches as an
+    "all-reduce" (``obs.device.moved``)."""
     s = parts[0]
     for p in parts[1:]:
-        s = s + p.to(s.device)
-    return [s.to(d) for d in devices]
+        s = s + moved(p, s.device, "all-reduce")
+    return [moved(s, d, "all-reduce") for d in devices]
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int,
                devices) -> List[torch.Tensor]:
     """The parts joined along ``dim`` in position order, at every
-    position."""
-    full = torch.cat([p.to(parts[0].device) for p in parts], dim)
-    return [full.to(d) for d in devices]
+    position; inside a count each transfer is charged to the position it
+    reaches as an "all-gather"."""
+    full = torch.cat([moved(p, parts[0].device, "all-gather")
+                      for p in parts], dim)
+    return [moved(full, d, "all-gather") for d in devices]
 
 
 def group_grads(params: Group, grads: List[List]) -> Group:
@@ -170,7 +175,8 @@ def _attn_plan(pa: List[Dict], cfg, devices):
     if H % m:
         raise NotImplementedError(
             f"{H} q heads split over a model axis of {m}: the q columns "
-            "would cut a head (pick a model axis that divides n_heads)")
+            "would cut a head (pick a model axis that divides n_heads; "
+            "ROADMAP.md queue 1, item 31)")
     hl = H // m
     ck = pa[0]["wk"]["w"].shape[-1]
     if ck * m == KVH * hd and KVH % m == 0:

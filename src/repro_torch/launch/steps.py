@@ -32,9 +32,10 @@ wrapper takes either as a card's tensor (``kernels.build.on_card``).
 ``build(..., init=gen)`` gives real inputs instead, drawn from ``gen`` on
 the mesh's real devices, for a run on the card.
 
-Refused, with the ROADMAP item: a plan in mode "fsdp_tp" (item 29), a
-multi-pod mesh (item 10c), and what ``models.tp`` refuses on a model axis
-(items 25 and 27; a q-head count the axis does not divide, item 31).
+Refused, with the ROADMAP item: a plan in mode "fsdp_tp" (item 29) and a
+multi-pod mesh (item 10c). On a model axis ``models.tp`` places every
+family of the registry: a q-head count that the axis neither divides nor
+is a multiple of still raises (item 31).
 """
 from __future__ import annotations
 
@@ -49,7 +50,6 @@ from ..bdl.swag import swag_collect
 from ..core import functional
 from ..core.tree import Group, tree_flatten, tree_leaves, tree_map
 from ..models import api, tp
-from ..models.transformer import stack_cache_init
 from ..obs import device as obs
 from ..optim.optimizers import make as make_optimizer
 from ..sharding import rules
@@ -189,15 +189,11 @@ def abstract_swag_state(params, max_rank: int = SWAG_RANK):
 def abstract_cache(cfg, plan: RunPlan, params, batch: int, seq_len: int):
     """Empty dense caches (``CACHE_DTYPE``; recurrent states keep their
     own dtype) for ``plan.particles`` stacked particles of ``params``:
-    by kv head under a model axis, a Group of each position's cache (the
-    layout ``models.tp.prefill`` makes)."""
+    under a model axis a Group of each position's caches and states (the
+    layout ``models.tp.prefill`` makes, ``tp.cache_init``)."""
     if isinstance(params, Group):
-        tp.recurrent_guard(cfg)
-        return Group([stack_cache_init(lc, plan.particles, batch, seq_len,
-                                       dtype=CACHE_DTYPE, device=d)
-                      for lc, d in zip(tp._plan_locals(params, cfg),
-                                       params.devices)], None,
-                     params.devices)
+        return tp.cache_init(params, cfg, plan.particles, batch, seq_len,
+                             dtype=CACHE_DTYPE)
     return api.init_cache(cfg, batch, seq_len, particles=plan.particles,
                           dtype=CACHE_DTYPE,
                           device=tree_leaves(params)[0].device)

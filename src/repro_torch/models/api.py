@@ -295,7 +295,7 @@ def prefill(params, batch, cfg, max_len=None):
     if C < S_all:
         raise ValueError(f"max_len {C} < prompt length {S_all}")
     if isinstance(params, Group):
-        return tp.prefill(params, tokens, cfg, C)
+        return tp.prefill(params, {**batch, "tokens": tokens}, cfg, C)
     caches = stack_cache_init(cfg, params["embed"].shape[0], B, C,
                               dtype=_cache_dtype(cfg), device=tokens.device)
     x, ctx, _ = _backbone_inputs(params, {**batch, "tokens": tokens}, cfg,

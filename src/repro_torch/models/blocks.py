@@ -154,12 +154,23 @@ def kv_heads(t, cfg):
     ``models.tp`` when the model axis does not divide the kv-head count,
     so every position holds every kv head), else ``t`` itself. A cut is
     a contiguous copy: the attention kernels read their k / v contiguous
-    past the particle axis (ROADMAP item 31 would read the window in
+    past the particle axis (ROADMAP item 32 would read the window in
     place)."""
     w = getattr(cfg, "kv_window", None)
     if w is None or (w[0] == 0 and w[1] == t.shape[-2]):
         return t
     return t[..., w[0]:w[1], :].contiguous()
+
+
+def attn_out(p, out, cfg):
+    """The attention's output projection: out (P, B, S, H * hd) through
+    ``wo``. A model position that shares its one q head with others
+    (``models.tp``: ``cfg.wo_cols``) multiplies only its slice of the
+    head's dims, which its ``wo`` rows are."""
+    cols = getattr(cfg, "wo_cols", None)
+    if cols is not None:
+        out = out[..., cols[0]:cols[1]]
+    return dense_apply(p["wo"], out)
 
 
 def full_attention(q, k, v, *, causal: bool):
@@ -458,8 +469,7 @@ def attn_apply_paged(p, x, cfg, pages, *, block_tables, seq_lens,
     kp, vp = kv_heads(pages["k"], cfg), kv_heads(pages["v"], cfg)
     out = paged_attention(q[:, :, 0], kp, vp, block_tables=block_tables,
                           seq_lens=seq_lens, use_kernel=use_kernel)
-    out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))
-    return out, pages
+    return attn_out(p, out.reshape(P, B, 1, -1), cfg), pages
 
 
 def window_write_index(block_tables, seq_lens, win_lens, W: int,
@@ -511,8 +521,7 @@ def attn_apply_window_paged(p, x, cfg, pages, *, block_tables, seq_lens,
     kp, vp = kv_heads(pages["k"], cfg), kv_heads(pages["v"], cfg)
     out = _kops.paged_decode_window_attention(q, kp, vp, block_tables,
                                               seq_lens)
-    out = dense_apply(p["wo"], out.reshape(P, B, W, -1))
-    return out, pages
+    return attn_out(p, out.reshape(P, B, W, -1), cfg), pages
 
 
 def attn_apply_prefill_paged(p, x, cfg, pages, *, write_index):
@@ -532,7 +541,7 @@ def attn_apply_prefill_paged(p, x, cfg, pages, *, write_index):
                        positions if cfg.rope_theta > 0 else None)
     out = _kops.flash_attention(q, kv_heads(k, cfg), kv_heads(v, cfg),
                                 causal=True)
-    out = dense_apply(p["wo"], out.reshape(P, B, Sp, -1))
+    out = attn_out(p, out.reshape(P, B, Sp, -1), cfg)
     write_kv(pages, k[:, 0], v[:, 0], write_index)
     return out, pages
 
@@ -558,9 +567,9 @@ def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal", window: int = 0,
         q = dense_apply(p["wq"], x).reshape(P, B, S, cfg.n_heads, cfg.hd)
         if rope_pos is not None:
             q = rope(q, rope_pos, cfg.rope_theta)
-        out = flash_attention(q, *cross_kv, kind="bidir",
-                              softcap=cfg.logit_softcap)
-        return dense_apply(p["wo"], out.reshape(P, B, S, -1))
+        out = flash_attention(q, *(kv_heads(t, cfg) for t in cross_kv),
+                              kind="bidir", softcap=cfg.logit_softcap)
+        return attn_out(p, out.reshape(P, B, S, -1), cfg)
     q, k, v = attn_qkv(p, x, cfg, rope_pos)
     k, v = kv_heads(k, cfg), kv_heads(v, cfg)
     if kind != "bidir":
@@ -569,7 +578,7 @@ def attn_apply_fullseq(p, x, cfg, *, kind: str = "causal", window: int = 0,
                               softcap=cfg.logit_softcap)
     else:
         out = full_attention(q, k, v, causal=False)
-    return dense_apply(p["wo"], out.reshape(P, B, S, -1))
+    return attn_out(p, out.reshape(P, B, S, -1), cfg)
 
 
 def attn_apply_encode(p, x, cfg):
@@ -580,8 +589,9 @@ def attn_apply_encode(p, x, cfg):
     P, B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, positions if cfg.rope_theta > 0 else None)
-    out = _kops.flash_attention(q, k, v, causal=False)
-    return dense_apply(p["wo"], out.reshape(P, B, S, -1))
+    out = _kops.flash_attention(q, kv_heads(k, cfg), kv_heads(v, cfg),
+                                causal=False)
+    return attn_out(p, out.reshape(P, B, S, -1), cfg)
 
 
 def cross_kv(p, enc, cfg):
@@ -603,8 +613,9 @@ def cross_attn_decode(p, x, cfg, xk, xv):
     F_ = xk.shape[2]
     q = dense_apply(p["wq"], x).reshape(P, B, cfg.n_heads, cfg.hd)
     k_pos = torch.arange(F_, dtype=torch.int32, device=x.device).repeat(B, 1)
-    out = _kops.decode_attention(q, xk, xv, k_pos)
-    return dense_apply(p["wo"], out.reshape(P, B, 1, -1))
+    out = _kops.decode_attention(q, kv_heads(xk, cfg), kv_heads(xv, cfg),
+                                 k_pos)
+    return attn_out(p, out.reshape(P, B, 1, -1), cfg)
 
 
 def attn_apply_decode(p, x, cfg, cache, *, cur_pos, window: int = 0):
@@ -635,8 +646,7 @@ def attn_apply_decode(p, x, cfg, cache, *, cur_pos, window: int = 0):
         out = _kref.decode_attention(*args, softcap=cfg.logit_softcap)
     else:
         out = _kops.decode_attention(*args)
-    out = dense_apply(p["wo"], out.reshape(P, B, 1, -1))
-    return out, cache
+    return attn_out(p, out.reshape(P, B, 1, -1), cfg), cache
 
 
 def attn_apply_prefill(p, x, cfg, cache, *, window: int = 0,
@@ -665,7 +675,7 @@ def attn_apply_prefill(p, x, cfg, cache, *, window: int = 0,
     else:
         out = _kops.flash_attention(q, kk, vv, causal=True,
                                     prefix_len=prefix_len)
-    out = dense_apply(p["wo"], out.reshape(P, B, S, -1))
+    out = attn_out(p, out.reshape(P, B, S, -1), cfg)
     C = cache["k"].shape[2]
     if window and S > C:
         kept = positions[S - C:]

@@ -96,12 +96,21 @@ def _ssd_inputs(p, conv_out, dt, cfg):
     """The scan's inputs: x by head (P, B, S, H, hd), B and C (P, B, S,
     ds), dt after softplus and the log decay (P, B, S, H), fp32."""
     d_inner, H, hd, ds = _dims(cfg)
-    xr = conv_out[..., :d_inner]
-    Bm = conv_out[..., d_inner:d_inner + ds]
-    Cm = conv_out[..., d_inner + ds:]
+    return ssd_split(conv_out, dt, p["dt_bias"], p["A_log"], H, hd, ds)
+
+
+def ssd_split(conv_out, dt, dt_bias, A_log, H, hd, ds):
+    """``_ssd_inputs`` for H heads: conv_out (P, B, S, H * hd + 2 ds) the
+    heads' x channels then B and C, dt (P, B, S, H) and the heads'
+    ``dt_bias`` / ``A_log`` (P, H) (a model position's slice in
+    ``models.tp_recurrent``)."""
+    dl = H * hd
+    xr = conv_out[..., :dl]
+    Bm = conv_out[..., dl:dl + ds]
+    Cm = conv_out[..., dl + ds:]
     xh = maybe_shard(xr.reshape(*xr.shape[:3], H, hd), "ssm_heads")
-    dtv = F.softplus(dt.float() + _per_particle(p["dt_bias"], dt))
-    loga = -dtv * _per_particle(torch.exp(p["A_log"]), dt)      # <= 0
+    dtv = F.softplus(dt.float() + _per_particle(dt_bias, dt))
+    loga = -dtv * _per_particle(torch.exp(A_log), dt)           # <= 0
     return xh, Bm, Cm, dtv, loga
 
 
@@ -132,39 +141,60 @@ def _rows(t):
     return t.reshape(-1, *t.shape[2:])
 
 
-def mamba_block_full(p, x, cfg, chunk: int = 64, st=None):
-    """x (P, B, S, D) -> (x + block(x), state {"ssm", "conv"}): the
-    chunked scan from ``st`` (zeros when None). The last chunk is padded
-    with log decay 0, which carries the state through unchanged."""
-    P, B, S, D = x.shape
-    d_inner, H, hd, ds = _dims(cfg)
-    xin = norm_apply(p["ln"], x)
-    z, conv_in, dt = _project(p, xin, cfg)
-    conv_out, conv_state = _causal_conv(p["conv_w"], p["conv_b"], conv_in,
-                                        None if st is None else st["conv"])
-    xh, Bm, Cm, dtv, loga = _ssd_inputs(p, conv_out, dt, cfg)
-
+def scan_chunked(xh, Bm, Cm, dtv, loga, ssm=None, chunk: int = 64):
+    """The chunked scan over ``ssd_split``'s outputs from ``ssm`` (P, B, H,
+    ds, hd) (zeros when None). Returns (y (P, B, S, H, hd) in xh's dtype,
+    the final state). The last chunk is padded with log decay 0, which
+    carries the state through unchanged."""
+    P, B, S, H, hd = xh.shape
+    ds = Bm.shape[-1]
     L = min(chunk, S)
     n = -(-S // L)
     pad = n * L - S
     seq = [_rows(t) for t in (xh, Bm, Cm, dtv, loga)]
     if pad:
         seq = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in seq]
-    h = (x.new_zeros((P * B, H, ds, hd), dtype=torch.float32) if st is None
-         else _rows(st["ssm"]))
+    h = (xh.new_zeros((P * B, H, ds, hd), dtype=torch.float32) if ssm is None
+         else _rows(ssm))
     ys = []
     for i in range(n):
         cols = slice(i * L, (i + 1) * L)
         h, y = _ckpt.checkpoint(_chunk_step, h, *(t[:, cols] for t in seq),
                                 use_reentrant=False,
                                 preserve_rng_state=False)
-        ys.append(y.to(x.dtype))
+        ys.append(y.to(xh.dtype))
     y = torch.cat(ys, dim=1)[:, :S].reshape(P, B, S, H, hd)
+    return y, h.reshape(P, B, H, ds, hd)
+
+
+def scan_step(xh, Bm, Cm, dtv, loga, ssm):
+    """One recurrent step over ``ssd_split``'s outputs (S = 1) from ``ssm``
+    (P, B, H, ds, hd). Returns (y (P, B, 1, H, hd) in xh's dtype, the new
+    state)."""
+    P, B, _, H, hd = xh.shape
+    h, y = _step(_rows(ssm), *(_rows(t)[:, 0]
+                               for t in (xh, Bm, Cm, dtv, loga)))
+    return (y.reshape(P, B, 1, H, hd).to(xh.dtype),
+            h.reshape(P, B, H, Bm.shape[-1], hd))
+
+
+def mamba_block_full(p, x, cfg, chunk: int = 64, st=None):
+    """x (P, B, S, D) -> (x + block(x), state {"ssm", "conv"}): the
+    chunked scan from ``st`` (zeros when None)."""
+    P, B, S, D = x.shape
+    d_inner = _dims(cfg)[0]
+    xin = norm_apply(p["ln"], x)
+    z, conv_in, dt = _project(p, xin, cfg)
+    conv_out, conv_state = _causal_conv(p["conv_w"], p["conv_b"], conv_in,
+                                        None if st is None else st["conv"])
+    xh, Bm, Cm, dtv, loga = _ssd_inputs(p, conv_out, dt, cfg)
+    y, h = scan_chunked(xh, Bm, Cm, dtv, loga,
+                        None if st is None else st["ssm"], chunk)
     y = y + _per_particle(p["D"], y[..., 0])[..., None].to(x.dtype) * xh
     y = y.reshape(P, B, S, d_inner)
     y = norm_apply(p["gn"], y * F.silu(z))
     out = dense_apply(p["out_proj"], y)
-    return x + out, {"ssm": h.reshape(P, B, H, ds, hd), "conv": conv_state}
+    return x + out, {"ssm": h, "conv": conv_state}
 
 
 def mamba_ref(p, x, cfg):
@@ -214,18 +244,15 @@ def mamba_block_decode(p, x, cfg, st):
     ``mamba_state_init`` makes it (not written). Returns (x + block(x),
     the new state)."""
     P, B = x.shape[:2]
-    d_inner, H, hd, ds = _dims(cfg)
+    d_inner = _dims(cfg)[0]
     xin = norm_apply(p["ln"], x)
     z, conv_in, dt = _project(p, xin, cfg)
     conv_out, conv_state = _causal_conv(p["conv_w"], p["conv_b"], conv_in,
                                         st["conv"])
     xh, Bm, Cm, dtv, loga = _ssd_inputs(p, conv_out, dt, cfg)
-    h, y = _step(_rows(st["ssm"]), *(_rows(t)[:, 0]
-                                     for t in (xh, Bm, Cm, dtv, loga)))
-    y = y.reshape(P, B, 1, H, hd).to(x.dtype)
+    y, h = scan_step(xh, Bm, Cm, dtv, loga, st["ssm"])
     y = y + _per_particle(p["D"], y[..., 0])[..., None].to(x.dtype) * xh
     y = y.reshape(P, B, 1, d_inner)
     y = norm_apply(p["gn"], y * F.silu(z))
     out = dense_apply(p["out_proj"], y)
-    return x + out.to(x.dtype), {"ssm": h.reshape(P, B, H, ds, hd),
-                                 "conv": conv_state}
+    return x + out.to(x.dtype), {"ssm": h, "conv": conv_state}

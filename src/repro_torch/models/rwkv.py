@@ -105,16 +105,22 @@ def _ddlerp(tm, x, x_prev):
             for t in "rkvgw"}
 
 
-def _rkvgw(tm, x, x_prev, H, hd):
-    """r, k, v (P, B, S, H, hd), the gate g (P, B, S, D) and the log decay
-    (P, B, S, H, hd) fp32, < 0."""
+def _rkvgw(tm, x, x_prev, H, hd, ch=None):
+    """r, k, v (P, B, S, H, hd), the gate g (P, B, S, H * hd) and the log
+    decay (P, B, S, H, hd) fp32, < 0. ``ch`` (a slice of D) names the
+    channels of the decay a model position computes (``models.
+    tp_recurrent``: its heads'; ``wr|wk|wv|wg`` are then its columns);
+    None computes all of them."""
     P, B, S, D = x.shape
     m = _ddlerp(tm, x, x_prev)
     r, k, v = (dense_apply(tm[n], m[t]).reshape(P, B, S, H, hd)
                for n, t in (("wr", "r"), ("wk", "k"), ("wv", "v")))
     g = F.silu(dense_apply(tm["wg"], m["g"]))
-    logw = -torch.exp(_per_particle(tm["w0"], x).float()
-                      + _lora(tm["lora_w"], m["w"]).float())
+    w0, lw = tm["w0"], tm["lora_w"]
+    if ch is not None:
+        w0, lw = w0[..., ch], {"a": lw["a"], "b": lw["b"][..., ch]}
+    logw = -torch.exp(_per_particle(w0, x).float()
+                      + _lora(lw, m["w"]).float())
     logw = logw.reshape(P, B, S, H, hd)
     r, k, v = (maybe_shard(t, "ssm_heads") for t in (r, k, v))
     return r, k, v, g, maybe_shard(logw, "ssm_heads")
@@ -155,22 +161,21 @@ def _chunk_step(S0, rr, kk, vv, ww, u):
     return S1, y_inter + y_intra
 
 
-def _u_rows(tm, B):
+def _u_rows(u, B):
     """u (P, H, hd) repeated over the batch: (P * B, H, hd) fp32."""
-    u = tm["u"].float()
+    u = u.float()
     return u[:, None].expand(u.shape[0], B, *u.shape[1:]).reshape(
         -1, *u.shape[1:])
 
 
-def time_mix_chunked(tm, x, cfg, state=None, x_last=None, chunk: int = 32):
-    """x (P, B, S, D). Returns (out, (state (P, B, H, hd, hd), x_last (P,
-    B, D))). The last chunk is padded with log decay 0 (w = 1), which
-    carries the state through unchanged."""
-    P, B, S, D = x.shape
-    hd = cfg.rwkv_head_dim
-    H = D // hd
-    r, k, v, g, logw = _rkvgw(tm, x, _shifted(x, x_last), H, hd)
-    S0 = (x.new_zeros((P * B, H, hd, hd), dtype=torch.float32)
+def scan_chunked(r, k, v, logw, u, state=None, chunk: int = 32):
+    """The chunked scan over r, k, v, logw (P, B, S, H, hd) from ``state``
+    (P, B, H, hd, hd) (zeros when None) with the bonus u (P, H, hd).
+    Returns (y (P, B, S, H * hd) in r's dtype, the final state). The last
+    chunk is padded with log decay 0 (w = 1), which carries the state
+    through unchanged."""
+    P, B, S, H, hd = r.shape
+    S0 = (r.new_zeros((P * B, H, hd, hd), dtype=torch.float32)
           if state is None else _rows(state))
     L = min(chunk, S)
     n = -(-S // L)
@@ -178,18 +183,38 @@ def time_mix_chunked(tm, x, cfg, state=None, x_last=None, chunk: int = 32):
     seq = [_rows(t) for t in (r, k, v, logw)]
     if pad:
         seq = [F.pad(t, (0, 0, 0, 0, 0, pad)) for t in seq]
-    u = _u_rows(tm, B)
+    ur = _u_rows(u, B)
     ys = []
     for i in range(n):
         cols = slice(i * L, (i + 1) * L)
         S0, y = _ckpt.checkpoint(_chunk_step, S0, *(t[:, cols] for t in seq),
-                                 u, use_reentrant=False,
+                                 ur, use_reentrant=False,
                                  preserve_rng_state=False)
-        ys.append(y.to(x.dtype))
-    y = torch.cat(ys, dim=1)[:, :S].reshape(P, B, S, D)
+        ys.append(y.to(r.dtype))
+    y = torch.cat(ys, dim=1)[:, :S].reshape(P, B, S, H * hd)
+    return y, S0.reshape(P, B, H, hd, hd)
+
+
+def scan_step(r, k, v, logw, u, state):
+    """One recurrent step over r, k, v, logw (P, B, 1, H, hd) from
+    ``state`` (P, B, H, hd, hd). Returns (y (P, B, 1, H * hd) in r's
+    dtype, the new state)."""
+    P, B, _, H, hd = r.shape
+    S1, y = _recur(_rows(state), *(_rows(t)[:, 0] for t in (r, k, v, logw)),
+                   _u_rows(u, B))
+    return (y.reshape(P, B, 1, H * hd).to(r.dtype),
+            S1.reshape(P, B, H, hd, hd))
+
+
+def time_mix_chunked(tm, x, cfg, state=None, x_last=None, chunk: int = 32):
+    """x (P, B, S, D). Returns (out, (state (P, B, H, hd, hd), x_last (P,
+    B, D))): ``scan_chunked`` from ``state``."""
+    hd = cfg.rwkv_head_dim
+    H = x.shape[-1] // hd
+    r, k, v, g, logw = _rkvgw(tm, x, _shifted(x, x_last), H, hd)
+    y, S1 = scan_chunked(r, k, v, logw, tm["u"], state, chunk)
     y = norm_apply(tm["ln_x"], y) * g
-    return dense_apply(tm["wo"], y), (S0.reshape(P, B, H, hd, hd),
-                                      x[:, :, -1])
+    return dense_apply(tm["wo"], y), (S1, x[:, :, -1])
 
 
 def _recur(S0, rr, kk, vv, ww, u):
@@ -207,7 +232,7 @@ def time_mix_ref(tm, x, cfg):
     hd = cfg.rwkv_head_dim
     H = D // hd
     r, k, v, g, logw = _rkvgw(tm, x, _shifted(x, None), H, hd)
-    u = _u_rows(tm, B)
+    u = _u_rows(tm["u"], B)
     rr, kk, vv, ww = (_rows(t) for t in (r, k, v, logw))
     S0 = x.new_zeros((P * B, H, hd, hd), dtype=torch.float32)
     ys = []
@@ -222,15 +247,12 @@ def time_mix_ref(tm, x, cfg):
 def time_mix_decode(tm, x, cfg, state, x_last):
     """x (P, B, 1, D); state (P, B, H, hd, hd). The O(1) recurrent step:
     returns (out, (state, x_last))."""
-    P, B, _, D = x.shape
     hd = cfg.rwkv_head_dim
-    H = D // hd
+    H = x.shape[-1] // hd
     r, k, v, g, logw = _rkvgw(tm, x, x_last[:, :, None].to(x.dtype), H, hd)
-    S1, y = _recur(_rows(state), *(_rows(t)[:, 0] for t in (r, k, v, logw)),
-                   _u_rows(tm, B))
-    y = norm_apply(tm["ln_x"], y.reshape(P, B, 1, D).to(x.dtype)) * g
-    return dense_apply(tm["wo"], y), (S1.reshape(P, B, H, hd, hd),
-                                      x[:, :, -1])
+    y, S1 = scan_step(r, k, v, logw, tm["u"], state)
+    y = norm_apply(tm["ln_x"], y) * g
+    return dense_apply(tm["wo"], y), (S1, x[:, :, -1])
 
 
 def channel_mix(cm, x, x_last=None):

@@ -23,6 +23,22 @@ between blocks are a list with one tensor per position.
     kv head (and writes them all into its replicated page pool or cache)
     and its q heads read the kv heads their global index maps to
     (``blocks.kv_heads``).
+  * A q-head count the axis does not divide but a multiple r of which
+    the axis is (gemma3-4b's and paligemma-3b's 8 at 16): the r
+    positions that share head h join its wq columns, each runs the
+    whole head (one local head, the kv window it reads) and multiplies
+    only its slice of the head's dims by its ``wo`` rows, which are that
+    slice (``blocks.attn_out``). An axis that neither divides the q heads
+    nor is a multiple of them raises (ROADMAP.md item 31).
+  * The recurrent blocks (``mamba``, ``rwkv``) run over the group in
+    ``models.tp_recurrent``; zamba2's ``shared_attn`` runs as an
+    attention layer, one copy of ``params["shared"]`` a position, its
+    gradient summed over the occurrences by autograd. whisper's encoder
+    runs its layers over the group (its output replicated) and a
+    decoder layer's cross-attention is split as its self-attention is,
+    the cross k / v projected per position from the replicated encoder
+    output; paligemma's patches go in front of the text at every
+    position and the prefix length reaches every attention layer.
   * MoE layers (``attn_moe``): the experts' leading E axis rides the
     axis (``wi`` / ``wg`` / ``wo``), the router is replicated and the
     shared experts are an MLP as above. Each position routes every
@@ -42,6 +58,10 @@ between blocks are a list with one tensor per position.
     partial; ``group_grads`` sums those in position order and gives each
     copy the sum (Megatron's f / g operators, taken at the leaves).
 
+Where the axis does not divide a block's heads (or ``d_ff``), the block
+runs whole at every position, on weights the rules left whole or on its
+shards joined, and gives a replicated output, not a partial.
+
 A group whose leaves are all replicated (no rule matched: the UNet, a
 user's module) runs the plain model on its first position
 (``entry``). ``maybe_shard`` (``sharding.policy``) stays at the
@@ -60,11 +80,12 @@ from ..obs.device import moved
 from ..sharding.policy import maybe_shard
 from . import blocks
 from . import moe as moe_mod
+from . import tp_recurrent
 from .blocks import norm_apply
-from .transformer import (RECURRENT_KINDS, cache_unit, decode_guard,
-                          mask_kind, page_unit, paged_guard,
-                          stack_apply_full, stack_layers, unbind_units,
-                          window_of)
+from .transformer import (RECURRENT_KINDS, _write_state, cache_unit,
+                          decode_guard, mask_kind, page_unit, paged_guard,
+                          prefix_len, stack_apply_full, stack_layers,
+                          unbind_units, unit_params, window_of)
 
 
 # --------------------------------------------------------------------------
@@ -150,7 +171,8 @@ class _Local:
     """A model config seen by one model position: the reference's fields
     with local head counts, an explicit head dim and, when the model axis
     does not divide the kv heads, the window of kv heads its q heads read
-    (``kv_window``)."""
+    (``kv_window``); when it shares its q head, the slice of the head's
+    dims its ``wo`` rows take (``wo_cols``)."""
 
     def __init__(self, cfg, **kw):
         self._cfg = cfg
@@ -164,45 +186,86 @@ class _Local:
 # one layer over the group
 # --------------------------------------------------------------------------
 
+def _attn_locals(cq: int, ck: int, cfg, m: int):
+    """(mode, each position's local config) of an attention layer whose
+    wq / wk columns at a position are ``cq`` / ``ck``:
+
+      * "whole": the axis does not divide the q columns, so the rules
+        left the layer whole: it runs whole at every position;
+      * "heads": each position its n_heads / m q heads and
+        n_kv_heads / m kv heads;
+      * "kv": its q heads over every kv head (the axis does not divide
+        the kv heads: wk / wv joined across the group), reading the
+        window of kv heads its q heads map to (``kv_window``);
+      * "shared": the axis is a multiple r of the q heads, so r positions
+        share head h = j // r: each runs the whole head (wq's columns
+        joined among the r, every kv head joined, the head's kv window)
+        and multiplies only its slice of the head's dims by its wo rows,
+        which are exactly that slice (``wo_cols``).
+    """
+    hd, H, KVH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    if cq == H * hd:
+        return "whole", [cfg] * m
+    if H % m == 0:
+        hl = H // m
+        if ck * m == KVH * hd and KVH % m == 0:
+            return "heads", [_Local(cfg, n_heads=hl, n_kv_heads=KVH // m,
+                                    hd=hd)] * m
+        g = H // KVH
+        locals_ = []
+        for j in range(m):
+            lo, hi = (j * hl) // g, -(-((j + 1) * hl) // g)
+            n_kv = hi - lo
+            if hl % n_kv or any((j * hl + h) // g - lo != h // (hl // n_kv)
+                                for h in range(hl)):
+                raise NotImplementedError(
+                    f"{hl} q heads a position over {n_kv} kv heads do not "
+                    "group evenly")
+            locals_.append(_Local(cfg, n_heads=hl, n_kv_heads=KVH, hd=hd,
+                                  kv_window=(lo, hi)))
+        return "kv", locals_
+    if m % H:
+        raise NotImplementedError(
+            f"{H} q heads over a model axis of {m}: the axis neither "
+            "divides the heads nor is a multiple of them, so the q columns "
+            "would cut a head across positions that do not share it (pick "
+            "a model axis that divides n_heads or that n_heads divides; "
+            "ROADMAP.md queue 1, item 31)")
+    r, g, w = m // H, H // KVH, hd // (m // H)
+    return "shared", [_Local(cfg, n_heads=1, n_kv_heads=KVH, hd=hd,
+                             kv_window=(j // r // g, j // r // g + 1),
+                             wo_cols=((j % r) * w, (j % r + 1) * w))
+                      for j in range(m)]
+
+
+def _joined(pa: List[Dict], name: str, members, devices):
+    """``pa[j][name]``'s leaves joined by columns among ``members`` (model
+    positions), handed to each member (in place in ``pa``)."""
+    joined = {leaf: all_gather([pa[j][name][leaf] for j in members], -1,
+                               [devices[j] for j in members])
+              for leaf in pa[members[0]][name]}
+    for i, j in enumerate(members):
+        pa[j][name] = {leaf: joined[leaf][i] for leaf in joined}
+
+
 def _attn_plan(pa: List[Dict], cfg, devices):
     """(per-position attention params, per-position local configs,
-    whether the output is partial sums) of one attention layer."""
+    whether the output is partial sums) of one attention layer
+    (``_attn_locals``' modes; the joins are all-gathers, so the
+    gradient of a joined leaf flows back to its shards)."""
     m = len(pa)
-    hd, H, KVH = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    cq = pa[0]["wq"]["w"].shape[-1]
-    if cq == H * hd:            # the axis does not divide the q columns
-        return pa, [cfg] * m, False
-    if H % m:
-        raise NotImplementedError(
-            f"{H} q heads split over a model axis of {m}: the q columns "
-            "would cut a head (pick a model axis that divides n_heads; "
-            "ROADMAP.md queue 1, item 31)")
-    hl = H // m
     ck = pa[0]["wk"]["w"].shape[-1]
-    if ck * m == KVH * hd and KVH % m == 0:
-        local = _Local(cfg, n_heads=hl, n_kv_heads=KVH // m, hd=hd)
-        return pa, [local] * m, True
-    # every position projects every kv head: the columns joined
-    if ck != KVH * hd:
-        pa = [dict(p) for p in pa]
+    mode, locals_ = _attn_locals(pa[0]["wq"]["w"].shape[-1], ck, cfg, m)
+    if mode in ("whole", "heads"):
+        return pa, locals_, mode == "heads"
+    pa = [dict(p) for p in pa]
+    if ck != cfg.n_kv_heads * cfg.hd:
         for name in ("wk", "wv"):
-            joined = {leaf: all_gather([p[name][leaf] for p in pa], -1,
-                                       devices)
-                      for leaf in pa[0][name]}
-            for j, p in enumerate(pa):
-                p[name] = {leaf: joined[leaf][j] for leaf in joined}
-    g = H // KVH
-    locals_ = []
-    for j in range(m):
-        lo, hi = (j * hl) // g, -(-((j + 1) * hl) // g)
-        n_kv = hi - lo
-        if hl % n_kv or any((j * hl + h) // g - lo != h // (hl // n_kv)
-                            for h in range(hl)):
-            raise NotImplementedError(
-                f"{hl} q heads a position over {n_kv} kv heads do not "
-                "group evenly")
-        locals_.append(_Local(cfg, n_heads=hl, n_kv_heads=KVH, hd=hd,
-                              kv_window=(lo, hi)))
+            _joined(pa, name, list(range(m)), devices)
+    if mode == "shared":
+        r = m // cfg.n_heads
+        for h in range(cfg.n_heads):
+            _joined(pa, "wq", list(range(h * r, (h + 1) * r)), devices)
     return pa, locals_, True
 
 
@@ -251,17 +314,21 @@ def _moe(pm: List[Dict], xs, cfg, devices):
             for y in ys], aux
 
 
-def _layer(ps, xs, cfg, devices, attn):
-    """One pre-norm attention + (MLP | MoE) layer over the group.
-    ``attn(p_attn, h, local cfg, j)`` is position j's attention (through
-    its ``wo`` rows); returns (the new residuals, one per position; the
-    MoE's aux values or None)."""
-    pa, local, partial = _attn_plan([p["attn"] for p in ps], cfg, devices)
-    hs = [attn(pa[j], norm_apply(ps[j]["ln1"], xs[j]), local[j], j)
+def _attn_block(ps, xs, cfg, devices, attn, name="attn", ln="ln1"):
+    """The residuals after one pre-norm attention sublayer over the group
+    (``ps[j][name]`` normed by ``ps[j][ln]``). ``attn(p_attn, h, local
+    cfg, j)`` is position j's attention through its ``wo`` rows."""
+    pa, local, partial = _attn_plan([p[name] for p in ps], cfg, devices)
+    hs = [attn(pa[j], norm_apply(ps[j][ln], xs[j]), local[j], j)
           for j in range(len(ps))]
     if partial:
         hs = reduce_sum(hs, devices)
-    xs = [maybe_shard(x + h, "residual") for x, h in zip(xs, hs)]
+    return [maybe_shard(x + h, "residual") for x, h in zip(xs, hs)]
+
+
+def _ffn_block(ps, xs, cfg, devices):
+    """The residuals after the (MLP | MoE) sublayer, and the MoE's aux
+    values or None."""
     normed = [norm_apply(p["ln2"], x) for p, x in zip(ps, xs)]
     if "moe" in ps[0]:
         ys, aux = _moe([p["moe"] for p in ps], normed, cfg, devices)
@@ -270,22 +337,57 @@ def _layer(ps, xs, cfg, devices, attn):
     return [x + y for x, y in zip(xs, ys)], aux
 
 
+def _layer(ps, xs, cfg, devices, attn):
+    """One pre-norm attention + (MLP | MoE) layer over the group (an
+    ``attn_mlp``, ``attn_moe``, ``local``, ``shared_attn`` or
+    ``enc_attn_mlp`` layer): (the new residuals, one per position; the
+    MoE's aux values or None)."""
+    return _ffn_block(ps, _attn_block(ps, xs, cfg, devices, attn), cfg,
+                      devices)
+
+
+def _dec_layer(ps, xs, cfg, devices, self_attn, cross_attn):
+    """A decoder layer (``dec_attn_mlp``) over the group: the
+    self-attention through ``attn``'s plan, the cross-attention through
+    ``xattn``'s (its q / k / v columns and ``wo`` rows split as the
+    self-attention's are), then the MLP."""
+    xs = _attn_block(ps, xs, cfg, devices, self_attn)
+    xs = _attn_block(ps, xs, cfg, devices, cross_attn, "xattn", "ln_x")
+    return _ffn_block(ps, xs, cfg, devices)[0]
+
+
 def _zip(shards):
     """The group's stack as one tree whose layers each hold a list of the
-    model positions' trees: what ``transformer.stack_layers`` and
-    ``stack_apply_full`` walk for a group."""
-    return {w: tuple(list(ps) for ps in zip(*(s[w] for s in shards)))
-            for w in ("head", "units", "tail")}
+    model positions' trees (``params["shared"]`` a list of its copies):
+    what ``transformer.stack_layers`` and ``stack_apply_full`` walk for a
+    group. A ``shared_attn`` position of ``units`` stays a list of
+    ``{}``, as the one-device stack has it."""
+    out = {w: tuple(list(ps) for ps in zip(*(s[w] for s in shards)))
+           for w in ("head", "units", "tail")}
+    if "shared" in shards[0]:
+        out["shared"] = [s["shared"] for s in shards]
+    return out
 
 
 def _full_layer(kind, ps, xs, cfg, ctx=None, *, devices):
     """One training layer over the group (``layer_apply_full``'s
-    counterpart): (residuals, aux or None). ``ctx`` is None: the stacks
-    that read one are refused (``recurrent_guard``)."""
+    counterpart): (residuals, aux or None). ``ctx`` holds each position's
+    encoder output (``enc_out``, a list) and the prefix length, where the
+    stack reads them."""
+    if kind in RECURRENT_KINDS:
+        return tp_recurrent.LAYERS[kind](ps, xs, cfg, devices)[0], None
+    if kind == "dec_attn_mlp":
+        enc = ctx["enc_out"]
+        return _dec_layer(
+            ps, xs, cfg, devices,
+            lambda p, h, lc, j: blocks.attn_apply_fullseq(p, h, lc),
+            lambda p, h, lc, j: blocks.attn_apply_fullseq(
+                p, h, lc, cross_kv=blocks.cross_kv(p, enc[j], lc))), None
     mk, window = mask_kind(kind, cfg)
+    pl = prefix_len(cfg, ctx)
     return _layer(ps, xs, cfg, devices,
                   lambda p, h, lc, j: blocks.attn_apply_fullseq(
-                      p, h, lc, kind=mk, window=window))
+                      p, h, lc, kind=mk, window=window, prefix_len=pl))
 
 
 # --------------------------------------------------------------------------
@@ -345,99 +447,129 @@ def vit_forward(group: Group, images, cfg):
     return vit_apply(group.shards[0], images, cfg, encoder=encoder)
 
 
-def recurrent_guard(cfg):
-    """The model axis runs decoder-only attention stacks only: the
-    recurrent blocks (``mamba``, ``rwkv``) and zamba2's ``shared_attn``
-    have rules in ``sharding.rules`` but no tensor-parallel layer
-    (ROADMAP.md queue 1, item 25); whisper's encoder-decoder
-    (``dec_attn_mlp``, the encoder) and the prefix-LM neither
-    (``encdec_guard``, item 27)."""
-    kinds = set(cfg.head_layers) | set(cfg.pattern) | set(cfg.tail_layers)
-    bad = sorted(kinds & set(RECURRENT_KINDS + ("shared_attn",)))
-    if bad:
-        raise NotImplementedError(
-            f"{bad} layers have no tensor-parallel form on the model axis "
-            f"(ROADMAP.md queue 1, item 25)")
-    encdec_guard(cfg)
+def _encode(group: Group, cfg, frames: List[torch.Tensor], *, serve: bool):
+    """whisper's encoder over the group (``api._encode``'s counterpart):
+    frames (P, B, F, D) at each position -> the encoder's output there.
+    The sinusoid positions are added at every position; the layers run
+    over the group, in training as ``stack_apply_full``'s, in serving
+    with each position's heads through #5 bidirectional
+    (``attn_apply_encode``). The output, after the replicated final
+    norm, holds the same bits at every position."""
+    from .api import _enc_cfg, _sinusoid
+    devices = group.devices
+    enc = [s["encoder"] for s in group.shards]
+    enc_cfg = _enc_cfg(cfg)
+    xs = [f + _sinusoid(f.shape[2], cfg.d_model, f.dtype, f.device)
+          for f in frames]
+    if serve:
+        for unit in unit_params(_zip(enc), enc_cfg):
+            xs, _ = _layer(unit[0], xs, enc_cfg, devices,
+                           lambda p, h, lc, j: blocks.attn_apply_encode(
+                               p, h, lc))
+    else:
+        xs, _ = stack_apply_full(_zip(enc), xs, enc_cfg,
+                                 layer=functools.partial(_full_layer,
+                                                         devices=devices))
+    return [norm_apply(e["final_norm"], x) for e, x in zip(enc, xs)]
 
 
-def encdec_guard(cfg):
-    """The encoder-decoder stack (``dec_attn_mlp`` layers and the
-    encoder over the frames) and the prefix-LM (its patches, its mask)
-    have no tensor-parallel form on the model axis (ROADMAP.md queue 1,
-    item 27); the ViT's encoder has one (``vit_forward``)."""
-    kinds = set(cfg.head_layers) | set(cfg.pattern) | set(cfg.tail_layers)
-    if cfg.family in ("audio", "vlm") or cfg.prefix_lm \
-            or "dec_attn_mlp" in kinds:
-        raise NotImplementedError(
-            f"the {cfg.family} family's stack (encoder-decoder or "
-            f"prefix-LM) has no tensor-parallel form on the model axis "
-            f"(ROADMAP.md queue 1, item 27)")
+def _backbone_inputs(group: Group, batch, cfg, *, serve: bool = False):
+    """``api._backbone_inputs`` over the group: (the residuals, one per
+    position; the ``ctx`` the layers read, its ``enc_out`` a list of each
+    position's encoder output; the number of leading positions that are
+    not text). The frontend (frames, patches) is shared by the particles
+    and placed at every position: whisper's sinusoid positions added
+    there, paligemma's patches put in front of the text there."""
+    from .api import _dtype, _frontend, _sinusoid
+    shards, devices = group.shards, group.devices
+    dtype = _dtype(cfg)
+    xs = _embed(shards, batch["tokens"], dtype, cfg, devices)
+    P = xs[0].shape[0]
+    ctx: Dict[str, Any] = {}
+    offset = 0
+    if cfg.family == "audio":
+        frames = [_frontend(batch, "frames", cfg, P, dtype, d)
+                  for d in devices]
+        ctx["enc_out"] = _encode(group, cfg, frames, serve=serve)
+        xs = [x + _sinusoid(x.shape[2], cfg.d_model, dtype, x.device)
+              for x in xs]
+    elif cfg.family == "vlm":
+        xs = [torch.cat([_frontend(batch, "patches", cfg, P, dtype,
+                                   x.device), x], 2) for x in xs]
+        ctx["prefix_len"] = offset = cfg.n_prefix_tokens
+    return xs, ctx, offset
 
 
 def forward(group, batch, cfg):
     """``api.forward`` over a group: the output on the first position
-    (the LM's final-norm hidden states and its MoE aux values, the ViT's
-    logits)."""
+    (the LM's final-norm hidden states of the text positions and its MoE
+    aux values, the ViT's logits)."""
     from . import api
     if not has_split(group):
         return api.forward(entry(group), batch, cfg)
-    recurrent_guard(cfg)
     if cfg.family == "vision":
         return vit_forward(group, batch["images"], cfg), {}
     if cfg.family not in api.LM_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} has no tensor-parallel forward")
     shards, devices = group.shards, group.devices
-    xs = _embed(shards, batch["tokens"], api._dtype(cfg), cfg, devices)
-    xs, aux = stack_apply_full(_zip(shards), xs, cfg,
+    xs, ctx, offset = _backbone_inputs(group, batch, cfg)
+    xs, aux = stack_apply_full(_zip(shards), xs, cfg, ctx=ctx,
                                layer=functools.partial(_full_layer,
                                                        devices=devices))
-    return norm_apply(shards[0]["final_norm"], xs[0]), aux
+    x = norm_apply(shards[0]["final_norm"], xs[0])
+    return (x[:, :, offset:] if offset else x), aux
 
 
 # --------------------------------------------------------------------------
 # serving: the paged pool and the dense caches
 # --------------------------------------------------------------------------
 
-def _serve(group: Group, tokens, cfg, state: Group, ctx, attn, pick):
-    """Embedding, the stack over each position's state (``state``: a Group
-    of page pools or dense caches; ``pick`` takes a unit's) and the final
-    norm, on the first position; ``ctx`` (the step's block tables,
-    lengths, write index) is moved to every position. ``attn(p, h, lc,
-    st, ctx, window)`` is one position's attention; ``window`` is a
-    ``local`` layer's ring bound (0 for the others)."""
-    from .api import _dtype
-    shards, devices = group.shards, group.devices
-    ctxs = [_on(ctx, d) for d in devices]
-    xs = _embed(shards, tokens, _dtype(cfg), cfg, devices)
+def _serve(group: Group, xs, cfg, state: Group, pick, layer):
+    """The stack over each position's state (``state``: a Group of page
+    pools or dense caches; ``pick`` takes a unit's) and the final norm,
+    on the first position. ``layer(kind, ps, xs, sts)`` runs one layer
+    over the group (``sts[j]``: position j's state of the layer) and
+    returns the new residuals."""
     dt = xs[0].dtype
     for where, kind, ps, sts in stack_layers(
-            _zip(shards), _zip(state.shards), cfg,
+            _zip(group.shards), _zip(state.shards), cfg,
             lambda s, u: [pick(x, u) for x in s]):
-        w = window_of(kind, cfg)
-        xs, _ = _layer(ps, xs, cfg, devices,
-                       lambda p, h, lc, j: attn(p, h, lc, sts[j], ctxs[j],
-                                                w))
+        xs = layer(kind, ps, xs, sts)
         if where == "units":
             xs = [x.to(dt) for x in xs]
-    return norm_apply(shards[0]["final_norm"], xs[0])
+    return norm_apply(group.shards[0]["final_norm"], xs[0])
 
 
-def _paged_attn(p, h, lc, st, ctx, window):
+def _paged(group: Group, tokens, cfg, pages: Group, ctx, attn):
+    """A paged step over the group: ``ctx`` (the step's block tables,
+    lengths, write index) moved to every position, ``attn(p, h, lc, st,
+    ctx)`` one position's attention over its pool."""
+    from .api import _dtype
+    devices = group.devices
+    ctxs = [_on(ctx, d) for d in devices]
+    xs = _embed(group.shards, tokens, _dtype(cfg), cfg, devices)
+    return _serve(group, xs, cfg, pages, page_unit,
+                  lambda kind, ps, xs, sts: _layer(
+                      ps, xs, cfg, devices,
+                      lambda p, h, lc, j: attn(p, h, lc, sts[j],
+                                               ctxs[j]))[0])
+
+
+def _paged_attn(p, h, lc, st, ctx):
     return blocks.attn_apply_paged(
         p, h, lc, st, block_tables=ctx["block_tables"],
         seq_lens=ctx["seq_lens"], write_index=ctx["write_index"],
         use_kernel=ctx.get("decode_kernel", True))[0]
 
 
-def _window_attn(p, h, lc, st, ctx, window):
+def _window_attn(p, h, lc, st, ctx):
     return blocks.attn_apply_window_paged(
         p, h, lc, st, block_tables=ctx["block_tables"],
         seq_lens=ctx["seq_lens"], write_index=ctx["write_index"])[0]
 
 
-def _prefill_paged_attn(p, h, lc, st, ctx, window):
+def _prefill_paged_attn(p, h, lc, st, ctx):
     return blocks.attn_apply_prefill_paged(
         p, h, lc, st, write_index=ctx["write_index"])[0]
 
@@ -445,67 +577,155 @@ def _prefill_paged_attn(p, h, lc, st, ctx, window):
 def decode_step_paged(group, tokens, pages, ctx, cfg):
     """``api.decode_step_paged`` over a group (``ctx`` built there)."""
     paged_guard(cfg)
-    x = _serve(group, tokens.clamp(min=0)[:, None], cfg, pages, ctx,
-               _paged_attn, page_unit)
+    x = _paged(group, tokens.clamp(min=0)[:, None], cfg, pages, ctx,
+               _paged_attn)
     return logits(group, x, cfg)[:, :, 0], pages
 
 
 def decode_window_paged(group, tokens, pages, ctx, cfg):
     """``api.decode_window_paged`` over a group."""
     paged_guard(cfg)
-    x = _serve(group, tokens.clamp(min=0), cfg, pages, ctx, _window_attn,
-               page_unit)
+    x = _paged(group, tokens.clamp(min=0), cfg, pages, ctx, _window_attn)
     return logits(group, x, cfg), pages
 
 
 def prefill_paged(group, tokens, pages, ctx, n_tokens, cfg):
     """``api.prefill_paged`` over a group."""
     paged_guard(cfg)
-    x = _serve(group, tokens, cfg, pages, ctx, _prefill_paged_attn,
-               page_unit)
+    x = _paged(group, tokens, cfg, pages, ctx, _prefill_paged_attn)
     last = (n_tokens.long() - 1).clamp(min=0).reshape(1)
     return logits(group, x.index_select(2, last)[:, :, 0], cfg), pages
 
 
-def prefill(group: Group, tokens, cfg, C: int):
-    """``api.prefill`` over a group: the dense caches a Group of each
-    position's (its local kv heads, or every kv head when the axis does
-    not divide them)."""
+def _write_all(sts, new):
+    for st, n in zip(sts, new):
+        _write_state(st, n)
+
+
+def _prefill_layer(kind, ps, xs, sts, *, cfg, devices, ctx):
+    """One layer of the dense prefill over the group: it fills each
+    position's empty cache (``layer_apply_prefill``'s counterpart)."""
+    if kind in RECURRENT_KINDS:
+        xs, new = tp_recurrent.LAYERS[kind](ps, xs, cfg, devices)
+        _write_all(sts, new)
+        return xs
+    if kind == "dec_attn_mlp":
+        enc = ctx["enc_out"]
+
+        def cross(p, h, lc, j):
+            kv = blocks.cross_kv(p, enc[j], lc)
+            _write_state(sts[j], {"xk": kv[0], "xv": kv[1]})
+            return blocks.attn_apply_fullseq(p, h, lc, cross_kv=kv)
+
+        return _dec_layer(ps, xs, cfg, devices,
+                          lambda p, h, lc, j: blocks.attn_apply_prefill(
+                              p, h, lc, sts[j]["self"])[0], cross)
+    w, pl = window_of(kind, cfg), prefix_len(cfg, ctx)
+    return _layer(ps, xs, cfg, devices,
+                  lambda p, h, lc, j: blocks.attn_apply_prefill(
+                      p, h, lc, sts[j], window=w, prefix_len=pl)[0])[0]
+
+
+def _decode_layer(kind, ps, xs, sts, *, cfg, devices, curs):
+    """One layer of the dense decode step over the group, each position's
+    cache or state updated in place (``layer_apply_decode``'s
+    counterpart)."""
+    if kind in RECURRENT_KINDS:
+        xs, new = tp_recurrent.LAYERS[kind](ps, xs, cfg, devices, sts)
+        _write_all(sts, new)
+        return xs
+    if kind == "dec_attn_mlp":
+        return _dec_layer(ps, xs, cfg, devices,
+                          lambda p, h, lc, j: blocks.attn_apply_decode(
+                              p, h, lc, sts[j]["self"], cur_pos=curs[j])[0],
+                          lambda p, h, lc, j: blocks.cross_attn_decode(
+                              p, h, lc, sts[j]["xk"], sts[j]["xv"]))
+    w = window_of(kind, cfg)
+    return _layer(ps, xs, cfg, devices,
+                  lambda p, h, lc, j: blocks.attn_apply_decode(
+                      p, h, lc, sts[j], cur_pos=curs[j], window=w)[0])[0]
+
+
+def cache_init(group: Group, cfg, particles: int, batch: int, C: int, *,
+               dtype) -> Group:
+    """Empty dense caches and recurrent states for a group
+    (``transformer.stack_cache_init``'s tree at each position): an
+    attention layer's cache holds the kv heads its position reads (its
+    own, or every kv head where the axis does not divide them), a decoder
+    layer's cross k / v its ``xattn``'s; a recurrent layer's state its
+    position's heads (``tp_recurrent``)."""
+    m = len(group)
+    out = []
+    for j, (s, d) in enumerate(zip(group.shards, group.devices)):
+        def one(kind, p, lead=()):
+            if kind in RECURRENT_KINDS:
+                return tp_recurrent.STATE_INIT[kind](
+                    p, cfg, m, particles, batch, dtype=dtype, device=d,
+                    lead=lead)
+            lc = _attn_local(p["attn"], cfg, m, j)
+            cache = blocks.attn_cache_init(lc, particles, batch, C,
+                                           dtype=dtype, device=d, lead=lead,
+                                           window=window_of(kind, cfg))
+            if kind != "dec_attn_mlp":
+                return cache
+            xl = _attn_local(p["xattn"], cfg, m, j)
+            shape = (particles,) + tuple(lead) + (batch, cfg.n_frames,
+                                                  xl.n_kv_heads, xl.hd)
+            return {"self": cache,
+                    "xk": torch.zeros(shape, dtype=dtype, device=d),
+                    "xv": torch.zeros(shape, dtype=dtype, device=d)}
+
+        out.append({
+            "head": tuple(one(k, p) for k, p in zip(cfg.head_layers,
+                                                     s["head"])),
+            "units": tuple(one(k, s["shared"] if k == "shared_attn" else p,
+                               (cfg.n_units,))
+                           for k, p in zip(cfg.pattern, s["units"])),
+            "tail": tuple(one(k, p) for k, p in zip(cfg.tail_layers,
+                                                     s["tail"]))})
+    return Group(out, None, group.devices)
+
+
+def _attn_local(pa, cfg, m: int, j: int):
+    """Position j's local config of an attention layer (its params
+    ``pa``)."""
+    return _attn_locals(pa["wq"]["w"].shape[-1], pa["wk"]["w"].shape[-1],
+                        cfg, m)[1][j]
+
+
+def prefill(group: Group, batch, cfg, C: int):
+    """``api.prefill`` over a group (``batch`` its tokens on the first
+    position, and the frontend where the family has one): the last
+    token's logits and each position's dense caches and states
+    (``cache_init``)."""
     from .api import _cache_dtype
-    from .transformer import stack_cache_init
     decode_guard(cfg)
-    recurrent_guard(cfg)
-    B, S = tokens.shape
-    plan = _plan_locals(group, cfg)
-    caches = Group([stack_cache_init(lc, s["embed"].shape[0], B, C,
-                                     dtype=_cache_dtype(cfg), device=d)
-                    for s, lc, d in zip(group.shards, plan, group.devices)],
-                   None, group.devices)
-    x = _serve(group, tokens, cfg, caches, {},
-               lambda p, h, lc, st, ctx, w: blocks.attn_apply_prefill(
-                   p, h, lc, st, window=w)[0], cache_unit)
+    B = batch["tokens"].shape[0]
+    caches = cache_init(group, cfg, group.shards[0]["embed"].shape[0], B, C,
+                        dtype=_cache_dtype(cfg))
+    xs, ctx, _ = _backbone_inputs(group, batch, cfg, serve=True)
+    if cfg.family == "audio" and ctx["enc_out"][0].shape[2] != cfg.n_frames:
+        raise ValueError(f"frames hold {ctx['enc_out'][0].shape[2]} "
+                         f"positions; the cache holds cfg.n_frames = "
+                         f"{cfg.n_frames}")
+    x = _serve(group, xs, cfg, caches, cache_unit, functools.partial(
+        _prefill_layer, cfg=cfg, devices=group.devices, ctx=ctx))
     return logits(group, x[:, :, -1:], cfg)[:, :, 0], caches
 
 
 def decode_step(group: Group, token, caches: Group, cur_pos, cfg):
     """``api.decode_step`` over a group (``cur_pos`` a 0-d device tensor,
-    checked by the caller)."""
+    checked by the caller); whisper's sinusoid position of ``cur_pos`` is
+    added at every position."""
+    from .api import _dtype, _sinusoid
     decode_guard(cfg)
-    recurrent_guard(cfg)
-    x = _serve(group, token.clamp(min=0)[:, None], cfg, caches,
-               {"cur_pos": cur_pos},
-               lambda p, h, lc, st, ctx, w: blocks.attn_apply_decode(
-                   p, h, lc, st, cur_pos=ctx["cur_pos"], window=w)[0],
-               cache_unit)
+    devices = group.devices
+    curs = [cur_pos.to(d) for d in devices]
+    xs = _embed(group.shards, token.clamp(min=0)[:, None], _dtype(cfg), cfg,
+                devices)
+    if cfg.family == "audio":
+        xs = [x + _sinusoid(1, cfg.d_model, x.dtype, x.device, start=c)
+              for x, c in zip(xs, curs)]
+    x = _serve(group, xs, cfg, caches, cache_unit, functools.partial(
+        _decode_layer, cfg=cfg, devices=devices, curs=curs))
     return logits(group, x, cfg)[:, :, 0], caches
-
-
-def _plan_locals(group: Group, cfg) -> List[Any]:
-    """Each position's local config of the first attention layer (every
-    layer has the same)."""
-    shards = group.shards
-    first = next(w for w in ("units", "head", "tail") if shards[0][w])
-    pa = [s[first][0]["attn"] for s in shards]
-    if first == "units":
-        pa = [tree_map(lambda a: a[:, 0], p) for p in pa]
-    return _attn_plan(pa, cfg, group.devices)[1]

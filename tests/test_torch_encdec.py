@@ -22,9 +22,10 @@ P = 2 particles, checks:
     reference's engine (1e-4), the greedy tokens equal;
   * a fused DeepEnsemble epoch and a SteinVGD epoch against the
     reference's compiled runs at 1e-4;
-  * the refusals: the model axis (ROADMAP.md queue 1, item 27), the
-    precision presets (item 21), the paged path, a batch with no frames,
-    a stack with decoder layers and no encoder.
+  * the model axis on two CPU positions equal to the one-device port
+    (ROADMAP.md queue 1, item 27); the refusals: the precision presets
+    (item 21), the paged path, a batch with no frames, a stack with
+    decoder layers and no encoder.
 
 The helpers take the arch's name: ``tests/test_torch_prefix_lm.py``
 runs the same checks on paligemma-3b.
@@ -52,7 +53,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.bdl import DeepEnsemble, SteinVGD
 from repro_torch.core import ParticleModule, PushDistribution
 from repro_torch.core.functional import ensemble_value_and_grad
-from repro_torch.core.tree import Group, tree_map
+from repro_torch.core.tree import tree_map
 from repro_torch.data import DataLoader
 from repro_torch.data import synthetic as tsynthetic
 from repro_torch.interop import params_from_numpy
@@ -63,7 +64,8 @@ from repro_torch.models import transformer as ttransformer
 from repro_torch.optim import sgd
 from repro_torch.serve import PredictiveEngine
 from test_torch_recurrent_lm import (  # noqa: F401 (autouse fixture)
-    P, _cfgs, _inits, _jax_module, _one_thread, _port_pd, _rel, _stacked)
+    P, _cfgs, _inits, _jax_module, _one_thread, _port_pd, _rel, _stacked,
+    model_group)
 from test_torch_train import _flat_jax, _flat_torch, _modules, _paths
 
 NAME = "whisper-medium"
@@ -295,16 +297,20 @@ def fused_training_matches(name, algo):
 
 def refusals(name):
     """What the port refuses on these stacks, as the reference does or
-    where no form is ported: the model axis (item 27), the presets other
-    than fp32 (item 21), the paged path; a batch without its frontend."""
+    where no form is ported: the presets other than fp32 (item 21), the
+    paged path; a batch without its frontend. The model axis is no
+    longer refused (ROADMAP.md queue 1, item 27, done): on a group of two
+    CPU positions ``forward`` and ``prefill`` equal the one-device port's
+    within 1e-5 relative (``tests/test_torch_placement2d_families.py``
+    holds the group to the reference)."""
     jcfg, tcfg = _cfgs(name)
     params = params_from_numpy(_stacked(name))
     batch = _torch(_batch(name, 1, 4, 0))
-    group = Group([params, params], None, ["cpu", "cpu"])
-    for call in (lambda: tapi.forward(group, batch, tcfg),
-                 lambda: tapi.prefill(group, batch, tcfg),):
-        with pytest.raises(NotImplementedError, match="item 27"):
-            call()
+    group = model_group(params, 2)
+    assert _rel(tapi.forward(group, batch, tcfg)[0].numpy(),
+                tapi.forward(params, batch, tcfg)[0].numpy()) < 1e-5
+    assert _rel(tapi.prefill(group, batch, tcfg)[0].numpy(),
+                tapi.prefill(params, batch, tcfg)[0].numpy()) < 1e-5
     with pytest.raises(NotImplementedError, match="item 21"):
         PushDistribution(ParticleModule(init=None, cfg=tcfg), device="cpu",
                          precision="mixed")

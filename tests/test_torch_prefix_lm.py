@@ -19,9 +19,9 @@ reference's init, with ``tests/test_torch_encdec.py``'s checks: the
 configs, ``make_batch``'s patches, the tree, ``loss_fn`` and grads,
 ``prefill`` and decode against the reference (its caches hold absolute
 positions that count the patches), the stateful engine, a fused
-DeepEnsemble epoch and the refusals; also the prefill-then-decode
-continuation: a prefill of the prompt and k more tokens against k
-decode steps.
+DeepEnsemble epoch, the model axis against the one-device port and the
+refusals; also the prefill-then-decode continuation: a prefill of the
+prompt and k more tokens against k decode steps.
 """
 import jax
 import jax.numpy as jnp

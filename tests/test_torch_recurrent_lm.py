@@ -19,8 +19,9 @@ heads of 32) with P = 2 particles, checks:
     1e-4, the greedy tokens equal; 8 greedy steps token-exact;
   * a ``save_store`` / ``restore_store`` round trip that the reference
     reads, and the reference's files read by the port;
-  * the model axis refuses these stacks (ROADMAP.md queue 1, item 25),
-    and a precision preset other than fp32 is refused (item 21).
+  * the model axis runs these stacks (ROADMAP.md queue 1, item 25: the
+    group equals the one-device port), and a precision preset other
+    than fp32 is refused (item 21).
 
 The stateful engine on these stacks is
 ``tests/test_torch_recurrent_serve.py``'s; the fused training steps, the
@@ -280,26 +281,47 @@ def test_store_checkpoints_both_ways(name, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what these stacks do not run
+# the model axis, and what these stacks do not run
 # ---------------------------------------------------------------------------
+
+def model_group(tparams, m):
+    """A model group of ``m`` logical CPU positions of a stacked port tree,
+    each leaf split as the store splits it (``rules.model_dims``)."""
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.sharding import rules
+    dims = rules.model_dims(tparams, m, lead=1)
+    paths = [p for p, _ in rules.named_leaves(tparams)]
+    leaves, unflatten = tree_flatten(tparams)
+    return Group([unflatten([rules.split_leaf(x, dims[p], m, j).contiguous()
+                             for p, x in zip(paths, leaves)])
+                  for j in range(m)], dims, ["cpu"] * m)
+
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_model_axis_refuses_recurrent_stacks(name):
-    """A model group (two model positions on the CPU) of these stacks
-    raises NotImplementedError naming item 25, for training and for
-    serving."""
+    """The model axis no longer refuses these stacks (ROADMAP.md queue 1,
+    item 25, done): on a group of two CPU positions the loss, a prefill
+    and a decode step equal the one-device port's within 1e-5 relative,
+    each position's state holding half the heads.
+    ``tests/test_torch_placement2d_families.py`` holds the group to the
+    reference."""
     _, tcfg = _cfgs(name)
     params = params_from_numpy(_stacked(name))
-    group = Group([params, params], None, ["cpu", "cpu"])
+    group = model_group(params, 2)
     toks = torch.ones((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        tapi.loss_fn(group, {"tokens": toks, "labels": toks}, tcfg)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        tapi.prefill(group, {"tokens": toks}, tcfg, max_len=6)
-    _, caches = tapi.prefill(params, {"tokens": toks}, tcfg, max_len=6)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        tapi.decode_step(group, toks[:, 0], Group([caches, caches], None,
-                                                  ["cpu", "cpu"]), 4, tcfg)
+    batch = {"tokens": toks, "labels": toks}
+    one = tapi.loss_fn(params, batch, tcfg)[0]
+    assert _rel(tapi.loss_fn(group, batch, tcfg)[0].numpy(),
+                one.numpy()) < 1e-5
+    lp, cp = tapi.prefill(params, {"tokens": toks}, tcfg, max_len=6)
+    lg, cg = tapi.prefill(group, {"tokens": toks}, tcfg, max_len=6)
+    assert _rel(lg.numpy(), lp.numpy()) < 1e-5
+    key = "ssm" if tcfg.pattern[0] == "mamba" else "state"
+    assert cg.shards[0]["units"][0][key].shape[-3] * 2 == \
+        cp["units"][0][key].shape[-3]
+    lp = tapi.decode_step(params, toks[:, 0], cp, 4, tcfg)[0]
+    lg = tapi.decode_step(group, toks[:, 0], cg, 4, tcfg)[0]
+    assert _rel(lg.numpy(), lp.numpy()) < 1e-5
 
 
 @pytest.mark.parametrize("name", ARCHS)
